@@ -1,0 +1,56 @@
+"""distributedarrays_tpu_torch: the DArray library on PyTorch and CUDA.
+
+The PyTorch/CUDA port of ``distributedarrays_tpu`` (a JAX rebuild of
+DistributedArrays.jl), exporting the ported names under the JAX package's
+names::
+
+    import torch
+    import distributedarrays_tpu_torch as tdat
+
+    tdat.init()                               # one rank per CUDA device
+    d = tdat.drand((8192, 8192))
+    r = tdat.dmap(torch.sin, d) + d * 2.0     # owner-computes elementwise
+    s = float(tdat.dsum(r))                   # local reduce, then combine
+    C = d @ r.T                               # distributed GEMM
+    x = tdat.gather(C)                        # numpy on the host
+
+Entry points run on the CUDA devices unless ``init(device="cpu")`` asks for
+the CPU; without a CUDA device and without that request they raise.  The
+package imports neither JAX nor the JAX package.
+"""
+
+from . import core, layout
+from .core import allowscalar, close, d_closeall, live_ids, next_did, registry
+from .layout import (all_ranks, chunk_idxs, cut_intersections, defaultdist,
+                     defaultdist_1d, device_of, even_cuts, init, nranks)
+from .darray import (DArray, SubDArray, darray, dfill, distribute, dones,
+                     drand, drandn, dzeros, from_chunks, gather, localindices,
+                     localpart, locate, makelocal, seed)
+from .parallel import collectives, reshard
+from .parallel.collectives import halo_exchange
+from .ops import broadcast, cuda_gemm, cuda_stencil, linalg, mapreduce
+from .ops.broadcast import broadcasted, dmap, dmap_into, elementwise
+from .ops.mapreduce import (dmapreduce, dmaximum, dmean, dminimum, dprod,
+                            dreduce, dstd, dsum, dvar)
+from .ops.linalg import dtranspose, matmul, mul_into, tune_matmul_impl
+from .models import stencil
+from .models.stencil import stencil3x3, stencil5, stencil5_step
+from .interop import from_reference, to_reference
+from .utils import autotune, kbuild
+
+__all__ = [
+    "init", "nranks", "all_ranks", "device_of",
+    "defaultdist", "defaultdist_1d", "chunk_idxs", "locate",
+    "cut_intersections", "even_cuts",
+    "next_did", "registry", "live_ids", "close", "d_closeall", "allowscalar",
+    "DArray", "SubDArray", "darray", "from_chunks", "dzeros", "dones",
+    "dfill", "drand", "drandn", "distribute", "gather", "localpart",
+    "localindices", "makelocal", "seed",
+    "halo_exchange",
+    "elementwise", "dmap", "dmap_into", "broadcasted",
+    "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
+    "dmean", "dvar", "dstd",
+    "matmul", "mul_into", "dtranspose", "tune_matmul_impl",
+    "stencil3x3", "stencil5", "stencil5_step",
+    "from_reference", "to_reference",
+]

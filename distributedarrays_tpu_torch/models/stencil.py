@@ -1,0 +1,116 @@
+"""Halo-exchange stencil programs on a row-distributed DArray.
+
+PyTorch counterpart of ``stencil3x3``/``stencil5``/``stencil5_step`` in
+``distributedarrays_tpu/models/stencil.py``.  The grid is row-distributed
+over a (p, 1) rank grid; every step exchanges halo rows between the rank
+tensors (``parallel.collectives.halo_exchange``) and updates each rank's
+block.  Where the JAX package rolls the steps into one ``lax.scan`` inside
+``shard_map``, here the steps are a Python loop over eager per-rank calls.
+
+``use_kernel`` picks the hand-written CUDA kernels (``ops/cuda_stencil``)
+or the plain formulation; by default the kernels for CUDA tensors and the
+plain formulation for CPU tensors.  With the kernels, ``iters > 1`` runs
+temporal blocking: ``temporal`` steps per launch with ``temporal``-deep
+halos.  The auto depth is the JAX package's rule, ``min(iters, 8,
+m_local)``, engaged only when it reaches 3; an explicit depth must be at
+most ``m_local`` and at most the kernel's ``MAX_K``.  The kernels sum each
+cell's taps in the plain order, so temporal blocking returns exactly the
+per-step result.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..darray import DArray
+from ..ops.cuda_stencil import (LAPLACIAN_3X3, MAX_K, _apply3x3,
+                                _canon_weights, stencil3x3_block,
+                                stencil3x3_multistep)
+from ..parallel.collectives import halo_exchange
+
+__all__ = ["stencil5_step", "stencil5", "stencil3x3"]
+
+
+def _row_blocks(d: DArray) -> list[torch.Tensor]:
+    n = d.pids.size
+    if d.pids.ndim != 2 or d.pids.shape[1] != 1 or d.dims[0] % n != 0:
+        raise ValueError(
+            "stencil programs need a row-sharded even layout: "
+            f"dist=({n},1) with rows divisible; got grid {d.pids.shape} "
+            f"for dims {d.dims}")
+    return [d.part((r, 0)) for r in range(n)]
+
+
+def _step(blocks, w, use_kernel):
+    halos = halo_exchange(blocks, halo=1, dim=0, wrap=False)
+    if use_kernel:
+        return [stencil3x3_block(b, lo, hi, w)
+                for b, (lo, hi) in zip(blocks, halos)]
+    return [_apply3x3(torch.cat([lo, b, hi], dim=0), w)
+            for b, (lo, hi) in zip(blocks, halos)]
+
+
+def _multistep(blocks, k, w):
+    halos = halo_exchange(blocks, halo=k, dim=0, wrap=False)
+    nr = len(blocks)
+    return [stencil3x3_multistep(b, lo, hi, k, r == 0, r == nr - 1, w)
+            for r, (b, (lo, hi)) in enumerate(zip(blocks, halos))]
+
+
+def _depth(iters, m_local, temporal):
+    if temporal is None:
+        kt = min(iters, 8, m_local)
+        return kt if kt > 2 else 1
+    kt = max(1, min(int(temporal), iters))
+    if kt > 1 and (kt > m_local or kt > MAX_K):
+        raise ValueError(
+            f"temporal={temporal} unsupported for this layout (local block "
+            f"of {m_local} rows; the kernel takes at most {MAX_K} steps)")
+    return kt
+
+
+def stencil3x3(d: DArray, weights, iters: int = 1,
+               use_kernel: bool | None = None,
+               temporal: int | None = None) -> DArray:
+    """``iters`` weighted 3x3 steps with zero boundary:
+    ``out[i,j] = sum_ab w[a][b] * x[i-1+a, j-1+b]``.  The result has ``d``'s
+    layout."""
+    w = _canon_weights(weights)
+    iters = int(iters)
+    blocks = _row_blocks(d)
+    if use_kernel is None:
+        use_kernel = blocks[0].device.type == "cuda"
+    kt = 1
+    if use_kernel and iters > 1:
+        kt = _depth(iters, d.dims[0] // d.pids.size, temporal)
+    if kt > 1:
+        nfull, rem = divmod(iters, kt)
+        for _ in range(nfull):
+            blocks = _multistep(blocks, kt, w)
+        # a 1-step remainder takes the single-step kernel
+        if rem == 1:
+            blocks = _step(blocks, w, True)
+        elif rem:
+            blocks = _multistep(blocks, rem, w)
+    else:
+        for _ in range(iters):
+            blocks = _step(blocks, w, use_kernel)
+    if iters == 0:
+        blocks = [b.clone() for b in blocks]
+    parts = np.empty(d.grid, dtype=object)
+    for r, b in enumerate(blocks):
+        parts[r, 0] = b
+    return d.with_parts(parts)
+
+
+def stencil5(d: DArray, iters: int = 1, use_kernel: bool | None = None,
+             temporal: int | None = None) -> DArray:
+    """``iters`` 5-point Laplacian steps with zero boundary (``stencil3x3``
+    with the Laplacian weights)."""
+    return stencil3x3(d, LAPLACIAN_3X3, iters, use_kernel, temporal)
+
+
+def stencil5_step(d: DArray) -> DArray:
+    """One 5-point Laplacian step with zero boundary."""
+    return stencil5(d, iters=1)

@@ -1,0 +1,327 @@
+"""Map/reduce over DArrays: a local reduce per rank, then a combine.
+
+PyTorch counterpart of ``dreduce``/``dmapreduce``/``dsum``/``dprod``/
+``dmaximum``/``dminimum``/``dmean``/``dvar``/``dstd`` in
+``distributedarrays_tpu/ops/mapreduce.py``.  The reference reduces each
+worker's chunk and then the partials; XLA emits the same two phases for a
+reduction over a sharded array.  Here each rank reduces its chunk on its
+device, and the partials are combined in grid (row-major) order on the
+device of the first rank of each result cell.  Means and variances carry
+``(count, mean, M2)`` partials combined by Chan's formula.
+
+``dims=`` reductions keep the reduced dims with size 1, and the result
+keeps the source's pid grid with the reduced grid dims collapsed, as in the
+JAX package.  Whole-array reductions return a 0-d tensor.  dtypes follow
+JAX with 64-bit types off: an integer or bool sum/product is int32, an
+integer mean/variance float32.
+"""
+
+from __future__ import annotations
+
+import functools
+import inspect
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..darray import DArray, SubDArray, as_tensor, from_global, resolve_layout
+from ..layout import device_of
+from ..parallel.reshard import relayout
+
+__all__ = [
+    "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
+    "dmean", "dstd", "dvar",
+]
+
+
+def _is_exact(dtype) -> bool:
+    return dtype == torch.bool or not (dtype.is_floating_point
+                                       or dtype.is_complex)
+
+
+def _reduce_dims(x: torch.Tensor, fn, axes) -> torch.Tensor:
+    """``fn(x, dim=a, keepdim=True)`` over each of ``axes``."""
+    for a in sorted(axes, reverse=True):
+        x = fn(x, dim=a, keepdim=True)
+    return x
+
+
+class _Reducer:
+    """Local partial, pairwise merge and finish for one named reduction."""
+
+    def __init__(self, name: str, ddof: int = 1):
+        self.name = name
+        self.ddof = ddof
+
+    def local(self, x: torch.Tensor, axes):
+        name = self.name
+        n = int(np.prod([x.shape[a] for a in axes]))
+        if name in ("sum", "prod"):
+            if _is_exact(x.dtype):
+                x = x.to(torch.int64)
+            return _reduce_dims(x, torch.sum if name == "sum" else torch.prod,
+                                axes)
+        if name == "max":
+            return _reduce_dims(x, torch.amax, axes)
+        if name == "min":
+            return _reduce_dims(x, torch.amin, axes)
+        if name in ("all", "any"):
+            x = x.to(torch.bool)
+            return _reduce_dims(x, torch.all if name == "all" else torch.any,
+                                axes)
+        x = x.to(torch.float32) if (_is_exact(x.dtype)
+                                    or x.element_size() < 4) else x
+        mean = _reduce_dims(x, torch.mean, axes)
+        if name == "mean":
+            return (n, mean)
+        m2 = _reduce_dims((x - mean) ** 2, torch.sum, axes)
+        return (n, mean, m2)
+
+    def merge(self, a, b):
+        name = self.name
+        if name == "sum":
+            return a + b
+        if name == "prod":
+            return a * b
+        if name == "max":
+            return torch.maximum(a, b)
+        if name == "min":
+            return torch.minimum(a, b)
+        if name == "all":
+            return a & b
+        if name == "any":
+            return a | b
+        na, nb = a[0], b[0]
+        n = na + nb
+        delta = b[1] - a[1]
+        mean = a[1] + delta * (nb / n)
+        if name == "mean":
+            return (n, mean)
+        return (n, mean, a[2] + b[2] + delta * delta * (na * nb / n))
+
+    def finish(self, s, dtype):
+        name = self.name
+        if name in ("sum", "prod"):
+            return s.to(torch.int32) if _is_exact(dtype) else s
+        if name in ("max", "min", "all", "any"):
+            return s
+        out_dtype = torch.float32 if _is_exact(dtype) else dtype
+        if name == "mean":
+            return s[1].to(out_dtype)
+        var = s[2] / (s[0] - self.ddof)
+        return (var if name == "var" else torch.sqrt(var)).to(out_dtype)
+
+    def to(self, s, dev):
+        if isinstance(s, tuple):
+            return (s[0],) + tuple(t.to(dev) for t in s[1:])
+        return s.to(dev)
+
+
+def _norm_dims(dims, ndim):
+    if dims is None:
+        return None
+    if isinstance(dims, (int, np.integer)):
+        dims = (int(dims),)
+    return tuple(sorted(int(a) % ndim for a in dims))
+
+
+def _fit_dist(shape, dist):
+    return [min(c, s) if s > 0 else 1 for c, s in zip(dist, shape)]
+
+
+def _as_darray(d):
+    if isinstance(d, DArray):
+        return d, False
+    if isinstance(d, SubDArray):
+        return from_global(d.materialize(), procs=[int(
+            d.parent.pids.flat[0])], dist=[1] * d.ndim), True
+    t = as_tensor(d)
+    return from_global(t, procs=[0], dist=[1] * t.ndim), True
+
+
+def _two_phase(d: DArray, axes, local: Callable, merge: Callable,
+               finish: Callable, move: Callable):
+    """Local partials per cell, merged in grid order along the reduced
+    grid axes, finished on the first cell's device of each result cell.
+    Returns a 0-d tensor (``axes`` None) or the result DArray."""
+    ndim = d.ndim
+    red = tuple(range(ndim)) if axes is None else axes
+    groups: dict[tuple, list] = {}
+    for ci in d.cells():
+        key = tuple(0 if k in red else j for k, j in enumerate(ci))
+        groups.setdefault(key, []).append(ci)
+    blocks = {}
+    for key, cells in groups.items():
+        dev = device_of(int(d.pids[key]))
+        # a cell empty along a reduced axis contributes nothing, unless all
+        # are (then the reduction of an empty extent decides the result)
+        live = [ci for ci in cells
+                if all(d.cuts[a][ci[a] + 1] > d.cuts[a][ci[a]] for a in red)]
+        state = None
+        for ci in live or cells[:1]:
+            s = move(local(d.part(ci), red), dev)
+            state = s if state is None else merge(state, s)
+        blocks[key] = finish(state)
+    if axes is None:
+        return blocks[(0,) * ndim].reshape(())
+    grid = tuple(1 if k in red else g for k, g in enumerate(d.grid))
+    parts = np.empty(grid, dtype=object)
+    for key, b in blocks.items():
+        parts[key] = b
+    pids = np.asarray([d.pids[key] for key in np.ndindex(*grid)],
+                      dtype=np.int64).reshape(grid)
+    cuts = [[0, 1] if k in red else list(c) for k, c in enumerate(d.cuts)]
+    tmp = DArray(parts, pids, cuts)
+    shape = tuple(tmp.dims)
+    dist = _fit_dist(shape, [1 if k in red else c
+                             for k, c in enumerate(d.grid)])
+    _, tpids, tcuts = resolve_layout(shape, [int(p) for p in d.pids.flat],
+                                     dist)
+    res = relayout(tmp, tpids, tcuts)
+    tmp.close()
+    return res
+
+
+def _reduce(d, mapper, reducer: _Reducer, dims):
+    d, tmp = _as_darray(d)
+    try:
+        axes = _norm_dims(dims, d.ndim)
+        dtype = None
+
+        def local(x, red):
+            nonlocal dtype
+            x = mapper(x) if mapper is not None else x
+            dtype = x.dtype
+            return reducer.local(x, red)
+        return _two_phase(d, axes, local, reducer.merge,
+                          lambda s: reducer.finish(s, dtype), reducer.to)
+    finally:
+        if tmp:
+            d.close()
+
+
+_NAMES = ("sum", "prod", "max", "min", "all", "any", "mean", "std", "var")
+_FN_NAMES = {torch.sum: "sum", torch.prod: "prod", torch.amax: "max",
+             torch.max: "max", torch.amin: "min", torch.min: "min",
+             torch.all: "all", torch.any: "any", torch.mean: "mean",
+             torch.std: "std", torch.var: "var"}
+
+
+def _is_binary_op(fn) -> bool:
+    """True for a plain binary operator ``op(a, b)``."""
+    if isinstance(fn, np.ufunc):
+        return fn.nin == 2
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    params = list(sig.parameters.values())
+    if any(p.name in ("axis", "dim", "dims") for p in params):
+        return False
+    required = [p for p in params
+                if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                and p.default is p.empty]
+    return len(required) == 2
+
+
+def _tree_fold(op, v: torch.Tensor) -> torch.Tensor:
+    """Order-preserving pairwise fold of ``op`` over dim 0 (adjacent
+    elements combine, so an associative non-commutative op matches a left
+    fold), as the JAX package folds."""
+    while v.shape[0] > 1:
+        k = v.shape[0] // 2
+        head = op(v[0:2 * k:2], v[1:2 * k:2])
+        v = head if v.shape[0] % 2 == 0 else torch.cat([head, v[2 * k:]])
+    return v[0]
+
+
+def _binary_reduce(d, mapper, op, dims):
+    d, tmp = _as_darray(d)
+    try:
+        axes = _norm_dims(dims, d.ndim)
+        red = tuple(range(d.ndim)) if axes is None else axes
+        if int(np.prod([d.dims[a] for a in red])) == 0:
+            raise ValueError("reduce of empty DArray with no init value")
+
+        def local(x, red):
+            x = mapper(x) if mapper is not None else x
+            keep = tuple(i for i in range(x.ndim) if i not in red)
+            v = x.permute(red + keep).reshape(
+                (-1,) + tuple(x.shape[i] for i in keep))
+            r = _tree_fold(op, v)
+            for a in red:
+                r = r.unsqueeze(a)
+            return r
+        return _two_phase(d, axes, local, op, lambda s: s,
+                          lambda s, dev: s.to(dev))
+    finally:
+        if tmp:
+            d.close()
+
+
+def dmapreduce(f: Callable | None, op_name_or_fn, d, dims=None):
+    """``mapreduce(f, op, d)``: ``op`` is a name from {sum, prod, max, min,
+    all, any, mean, std, var}, the matching torch reduction
+    (``torch.sum``, ``torch.amax``, ...), or a plain two-argument callable
+    folded pairwise within each chunk and then across chunks."""
+    if isinstance(op_name_or_fn, str):
+        if op_name_or_fn not in _NAMES:
+            raise ValueError(f"unknown reduction {op_name_or_fn!r}")
+        return _reduce(d, f, _Reducer(op_name_or_fn), dims)
+    name = _FN_NAMES.get(op_name_or_fn)
+    if name is not None:
+        return _reduce(d, f, _Reducer(name), dims)
+    if callable(op_name_or_fn) and _is_binary_op(op_name_or_fn):
+        return _binary_reduce(d, f, op_name_or_fn, dims)
+    raise TypeError(
+        f"unsupported reduction {op_name_or_fn!r}: pass a name, a torch "
+        "reduction or a two-argument operator")
+
+
+def dreduce(op_name_or_fn, d, dims=None):
+    return dmapreduce(None, op_name_or_fn, d, dims=dims)
+
+
+def _named(name):
+    def f(d, dims=None):
+        return _reduce(d, None, _Reducer(name), dims)
+    f.__name__ = "d" + name
+    f.__doc__ = f"Distributed {name}; ``dims=`` keeps the reduced dims."
+    return f
+
+
+dsum = _named("sum")
+dprod = _named("prod")
+dmaximum = _named("max")
+dminimum = _named("min")
+dmean = _named("mean")
+
+
+def dvar(d, dims=None, ddof=1):
+    """Corrected (ddof=1) variance, Julia's ``Statistics.var`` default."""
+    return _reduce(d, None, _Reducer("var", ddof), dims)
+
+
+def dstd(d, dims=None, ddof=1):
+    """Corrected (ddof=1) standard deviation."""
+    return _reduce(d, None, _Reducer("std", ddof), dims)
+
+
+# numpy-style reduction methods on DArray and SubDArray (Julia semantics:
+# ``dims=`` keeps reduced dims, std/var default to ddof=1)
+_METHODS = {"sum": dsum, "mean": dmean, "std": dstd, "var": dvar,
+            "min": dminimum, "max": dmaximum, "prod": dprod,
+            "all": _named("all"), "any": _named("any")}
+
+
+def _method(fn):
+    @functools.wraps(fn)
+    def m(self, dims=None, **kw):
+        return fn(self, dims=dims, **kw)
+    return m
+
+
+for _mname, _fn in _METHODS.items():
+    setattr(DArray, _mname, _method(_fn))
+    setattr(SubDArray, _mname, _method(_fn))

@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels, and count their launches.
+
+Counterpart of the lazy native build in ``distributedarrays_tpu/utils/
+native.py``.  At first use each ``csrc/<name>.cu`` is compiled by ``nvcc``
+for Hopper (``sm_90a``) into a shared library with a plain C interface
+under ``build/torch_kernels/`` and loaded with ``ctypes``.  The library's
+file name carries a hash of the sources and flags, so editing a source
+rebuilds it.  A failed build raises; nothing is downloaded and no library
+kernel stands in.  Sources compile in parallel, one ``nvcc`` per file.
+
+Each kernel wrapper calls ``count(name)`` exactly where it launches its
+kernel, so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["build", "load", "count", "reset_launches", "launch_counts",
+           "KERNELS", "NVCC_FLAGS"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_BUILD = _PKG.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# kernel name -> source file stem
+KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
+           "stencil_multistep": "stencil"}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_launches = {k: 0 for k in KERNELS}
+build_log: dict[str, str] = {}
+
+
+def count(kernel: str) -> None:
+    """Add one launch of ``kernel``."""
+    with _lock:
+        _launches[kernel] += 1
+
+
+def reset_launches() -> None:
+    with _lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    with _lock:
+        return dict(_launches)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _so_path(stem: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{stem}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return _BUILD / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(stems=None) -> dict[str, Path]:
+    """Compile the given source stems (all by default) that are not built
+    yet, all ``nvcc`` processes at once; raise on any failure."""
+    stems = sorted(set(KERNELS.values()) if stems is None else set(stems))
+    todo = {s: _so_path(s) for s in stems}
+    procs = {}
+    for s, so in todo.items():
+        if so.exists():
+            continue
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+        procs[s] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{s}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, so)
+    failed = []
+    for s, (p, tmp, so) in procs.items():
+        out, _ = p.communicate()
+        build_log[s] = out
+        if p.returncode != 0:
+            failed.append(f"{s}.cu (nvcc exit {p.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return todo
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(stem)
+    if lib is None:
+        so = build([stem])[stem]
+        lib = ctypes.CDLL(str(so))
+        with _lock:
+            _libs[stem] = lib
+    return lib
