@@ -12,6 +12,7 @@ names::
     r = tdat.dmap(torch.sin, d) + d * 2.0     # owner-computes elementwise
     s = float(tdat.dsum(r))                   # local reduce, then combine
     C = d @ r.T                               # distributed GEMM
+    Q = tdat.dmatmul_int8(d, r)               # int8 GEMM, f32 out
     x = tdat.gather(C)                        # numpy on the host
 
 Entry points run on the CUDA devices unless ``init(device="cpu")`` asks for
@@ -27,12 +28,16 @@ from .darray import (DArray, SubDArray, darray, dfill, distribute, dones,
                      drand, drandn, dzeros, from_chunks, gather, localindices,
                      localpart, locate, makelocal, seed)
 from .parallel import collectives, reshard
-from .parallel.collectives import halo_exchange
-from .ops import broadcast, cuda_gemm, cuda_stencil, linalg, mapreduce
+from .parallel.collectives import halo_exchange, pall_to_all, pgather, pshift
+from .ops import (broadcast, collective_matmul, cuda_collectives, cuda_gemm,
+                  cuda_stencil, linalg, mapreduce)
 from .ops.broadcast import broadcasted, dmap, dmap_into, elementwise
 from .ops.mapreduce import (dmapreduce, dmaximum, dmean, dminimum, dprod,
                             dreduce, dstd, dsum, dvar)
-from .ops.linalg import dtranspose, matmul, mul_into, tune_matmul_impl
+from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
+                         dtranspose, lmul_, lmul_diag, matmul, mul_into,
+                         rmul_, rmul_diag, tune_matmul_impl,
+                         tune_matmul_impl_dist, tune_matmul_impl_summa)
 from .models import stencil
 from .models.stencil import stencil3x3, stencil5, stencil5_step
 from .interop import from_reference, to_reference
@@ -46,11 +51,13 @@ __all__ = [
     "DArray", "SubDArray", "darray", "from_chunks", "dzeros", "dones",
     "dfill", "drand", "drandn", "distribute", "gather", "localpart",
     "localindices", "makelocal", "seed",
-    "halo_exchange",
+    "halo_exchange", "pshift", "pgather", "pall_to_all",
     "elementwise", "dmap", "dmap_into", "broadcasted",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
     "dmean", "dvar", "dstd",
-    "matmul", "mul_into", "dtranspose", "tune_matmul_impl",
+    "axpy_", "ddot", "dnorm", "rmul_", "lmul_", "lmul_diag", "rmul_diag",
+    "matmul", "mul_into", "dtranspose", "dadjoint", "tune_matmul_impl",
+    "tune_matmul_impl_dist", "tune_matmul_impl_summa", "dmatmul_int8",
     "stencil3x3", "stencil5", "stencil5_step",
     "from_reference", "to_reference",
 ]

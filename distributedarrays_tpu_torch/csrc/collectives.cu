@@ -1,0 +1,244 @@
+// Collective data movement and the ring all-gather GEMM for Hopper (sm_90a).
+//
+// Replaces three Pallas TPU RDMA kernels of
+// distributedarrays_tpu/ops/pallas_collectives.py:
+//
+// - `_ag_call` (ring_all_gather, K10) and `_a2a_call` (ring_all_to_all,
+//   K11).  On the TPU each rank DMAs blocks or pieces around the ICI ring
+//   into its neighbours' outputs, with send/receive semaphores and staging
+//   chunks sized to VMEM.  On Hopper a remote DMA becomes a load through
+//   another rank's device pointer (the same card, or a peer card after
+//   cudaDeviceEnablePeerAccess, over NVLink/NVSwitch).  The design pulls:
+//   one launch per destination rank copies every source's block or piece
+//   straight to its final offset in that rank's output, so there is no
+//   staging, no ring order and no semaphore.  `da_copy_pieces` is that
+//   launch: a list of up to MAXP strided boxes (3 outer dims and one
+//   contiguous run, all in bytes), one per source.  Bound: the bytes moved,
+//   read once and written once, over 3.35 TB/s (one card).  The warps share
+//   out the boxes' rows cut into 8 KB segments and copy each with 16-, 4- or
+//   1-byte accesses, whichever the box's alignment allows.
+//
+// - `_ag_mm_rhs_call` (ring_allgather_matmul_rhs, K14): out = a @
+//   all_gather(b) with b's chunks travelling the ring.  `da_ring_ag_mm_step`
+//   is one rank's launch of one ring step: the first blocks forward the
+//   resident chunk into the left neighbour's other slot of its two-slot
+//   buffer (read by that neighbour only at the next step, so nothing races:
+//   the GPU form of "start the DMA before the dot, wait after it"), the
+//   other blocks contract the resident chunk against its column slice of a
+//   with the block GEMM's tile loop (gemm_tile.cuh) and add the product,
+//   rounded to the output type, into out.  Step order and rounding are the
+//   JAX kernel's: part = f32 dot cast to the output type, out = part at step
+//   0, out + part after.  Bound: as the block GEMM, 2*m*n*k operations.
+//   Ring steps are ordered by stream order on one card and by event waits
+//   across cards, never by flags spun on inside a kernel.
+
+#include "gemm_tile.cuh"
+
+namespace {
+
+constexpr int MAXP = 32;
+constexpr int COPY_THREADS = 256;
+constexpr int RING_COPY_BLOCKS = 32;
+
+struct Box {
+  const char* src;
+  char* dst;
+  long long src_stride[3];  // bytes, outer dims
+  long long dst_stride[3];
+  long long size[3];        // outer extents
+  long long row_bytes;      // contiguous run
+  int vec;                  // 16, 4 or 1: widest access the box allows
+};
+
+struct Boxes {
+  Box b[MAXP];
+};
+
+constexpr long long SEG = 8192;  // bytes of a row one warp copies at a time
+
+template <typename V>
+__device__ __forceinline__ void copy_seg(const char* __restrict__ s,
+                                         char* __restrict__ d, long long n,
+                                         int lane) {
+  const V* sv = reinterpret_cast<const V*>(s);
+  V* dv = reinterpret_cast<V*>(d);
+  for (long long i = lane; i < n; i += 32) dv[i] = sv[i];
+}
+
+// grid.y = box; the warps of grid.x stride over the box's rows cut into
+// SEG-byte segments, so a long contiguous run spreads over many warps.
+__global__ void __launch_bounds__(COPY_THREADS)
+copy_boxes_kernel(const Boxes boxes) {
+  const Box& bx = boxes.b[blockIdx.y];
+  const long long segs = (bx.row_bytes + SEG - 1) / SEG;
+  const long long units = bx.size[0] * bx.size[1] * bx.size[2] * segs;
+  const int lane = threadIdx.x % 32;
+  const long long warps = (long long)gridDim.x * (COPY_THREADS / 32);
+  for (long long u = (long long)blockIdx.x * (COPY_THREADS / 32) +
+                     threadIdx.x / 32;
+       u < units; u += warps) {
+    const long long r = u / segs, off = (u % segs) * SEG;
+    const long long n = min(SEG, bx.row_bytes - off);
+    long long i2 = r % bx.size[2];
+    long long i01 = r / bx.size[2];
+    long long i1 = i01 % bx.size[1];
+    long long i0 = i01 / bx.size[1];
+    const char* s = bx.src + i0 * bx.src_stride[0] + i1 * bx.src_stride[1] +
+                    i2 * bx.src_stride[2] + off;
+    char* d = bx.dst + i0 * bx.dst_stride[0] + i1 * bx.dst_stride[1] +
+              i2 * bx.dst_stride[2] + off;
+    if (bx.vec == 16)
+      copy_seg<uint4>(s, d, n / 16, lane);
+    else if (bx.vec == 4)
+      copy_seg<uint32_t>(s, d, n / 4, lane);
+    else
+      copy_seg<char>(s, d, n, lane);
+  }
+}
+
+int widest(const Box& b) {
+  long long acc = (long long)(uintptr_t)b.src | (long long)(uintptr_t)b.dst |
+                  b.row_bytes;
+  for (int q = 0; q < 3; ++q) acc |= b.src_stride[q] | b.dst_stride[q];
+  return acc % 16 == 0 ? 16 : (acc % 4 == 0 ? 4 : 1);
+}
+
+// The ring step: blocks [0, ncopy) forward `chunk` to `fwd` (skipped when
+// fwd is null), the others compute one 128x128 tile of
+// a[:, koff:koff+K] @ chunk and add it into out.
+template <typename T>
+__global__ void __launch_bounds__(da_tile::THREADS)
+ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
+                  T* __restrict__ out, T* __restrict__ fwd, int M, int N,
+                  int K, int64_t lda, int64_t koff, int first, int ncopy) {
+  using namespace da_tile;
+  if ((int)blockIdx.x < ncopy) {
+    // chunk is contiguous (K x N); 16-byte copies when aligned
+    const int64_t bytes = (int64_t)K * N * sizeof(T);
+    const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+    const int64_t stride = (int64_t)ncopy * THREADS;
+    if (bytes % 16 == 0 && (uintptr_t)chunk % 16 == 0 &&
+        (uintptr_t)fwd % 16 == 0) {
+      const uint4* s = reinterpret_cast<const uint4*>(chunk);
+      uint4* d = reinterpret_cast<uint4*>(fwd);
+      for (int64_t i = tid; i < bytes / 16; i += stride) d[i] = s[i];
+    } else {
+      for (int64_t i = tid; i < (int64_t)K * N; i += stride) fwd[i] = chunk[i];
+    }
+    return;
+  }
+  const int tile = blockIdx.x - ncopy;
+  const int ntn = (N + BN - 1) / BN;
+  const int64_t m0 = (int64_t)(tile / ntn) * BM;
+  const int64_t n0 = (int64_t)(tile % ntn) * BN;
+  float acc[TM][TN];
+  tile_loop<T>(a + koff, lda, chunk, N, M, N, K, m0, n0, acc);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    int64_t gr = m0 + row0(threadIdx.x) + i;
+    if (gr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      int64_t gc = n0 + col0(threadIdx.x) + j;
+      if (gc >= N) continue;
+      T* o = &out[gr * N + gc];
+      T part;
+      store(&part, acc[i][j]);  // the f32 product cast to the output type
+      if (first)
+        *o = part;
+      else
+        store(o, __fadd_rn(to_f(*o), to_f(part)));
+    }
+  }
+}
+
+}  // namespace
+
+// Copy `n` boxes on `device`'s `stream`.  Per box q: src[q], dst[q] (device
+// pointers, possibly of peer devices), outer strides and sizes (3 each, in
+// bytes / elements, row-major over q), and the contiguous run in bytes.
+// Returns the cudaGetLastError() code of the launch, or cudaErrorInvalidValue
+// for more than MAXP boxes.
+extern "C" int da_copy_pieces(int n, const void* const* src,
+                              void* const* dst, const long long* src_strides,
+                              const long long* dst_strides,
+                              const long long* sizes,
+                              const long long* row_bytes, int device,
+                              void* stream) {
+  if (n <= 0) return 0;
+  if (n > MAXP) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Boxes boxes;
+  long long most_units = 0;
+  for (int q = 0; q < n; ++q) {
+    Box& b = boxes.b[q];
+    b.src = static_cast<const char*>(src[q]);
+    b.dst = static_cast<char*>(dst[q]);
+    for (int d = 0; d < 3; ++d) {
+      b.src_stride[d] = src_strides[3 * q + d];
+      b.dst_stride[d] = dst_strides[3 * q + d];
+      b.size[d] = sizes[3 * q + d];
+    }
+    b.row_bytes = row_bytes[q];
+    b.vec = widest(b);
+    long long units = b.size[0] * b.size[1] * b.size[2] *
+                      ((b.row_bytes + SEG - 1) / SEG);
+    if (units > most_units) most_units = units;
+  }
+  if (most_units == 0) return 0;
+  long long gx = (most_units + COPY_THREADS / 32 - 1) / (COPY_THREADS / 32);
+  if (gx > 1024) gx = 1024;
+  dim3 grid((unsigned)gx, (unsigned)n);
+  copy_boxes_kernel<<<grid, COPY_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(boxes);
+  return (int)cudaGetLastError();
+}
+
+// One ring step of a @ all_gather(b) for one rank: out (M x N) += a[:,
+// koff:koff+K] @ chunk (K x N), with a's row stride lda; `first` writes
+// instead of adding; fwd (null at the last step) receives a copy of chunk.
+// bf16: all of a, chunk, out and fwd are bf16, else f32.
+extern "C" int da_ring_ag_mm_step(const void* a, const void* chunk,
+                                  void* out, void* fwd, int m, int n, int k,
+                                  long long lda, long long koff, int first,
+                                  int bf16, int device, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = ((m + da_tile::BM - 1) / da_tile::BM) *
+                    ((n + da_tile::BN - 1) / da_tile::BN);
+  const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    ring_ag_mm_kernel<__nv_bfloat16><<<ncopy + tiles, da_tile::THREADS, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(chunk),
+        static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(fwd), m,
+        n, k, lda, koff, first, ncopy);
+  else
+    ring_ag_mm_kernel<float><<<ncopy + tiles, da_tile::THREADS, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(chunk),
+        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k, lda, koff,
+        first, ncopy);
+  return (int)cudaGetLastError();
+}
+
+// Let `device` read and write `peer`'s memory (no-op when they are the same
+// device or access is already on).  Returns a CUDA error code; 1000 when the
+// pair cannot reach each other at all.
+extern "C" int da_enable_peer(int device, int peer) {
+  if (device == peer) return 0;
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return 1000;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the sticky-free error state
+    return 0;
+  }
+  return (int)err;
+}

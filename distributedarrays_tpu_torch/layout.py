@@ -56,7 +56,9 @@ def init(nranks: int | None = None, device=None) -> tuple[torch.device, ...]:
     ``device=None`` uses the visible CUDA devices, round-robin, one rank per
     device by default; it raises ``RuntimeError`` when no CUDA device is
     present.  ``device="cpu"`` (or any explicit device) puts every rank on
-    that device, one rank by default."""
+    that device, one rank by default.  When the ranks span several cards,
+    every card is given access to every other's memory (the collective
+    kernels read and write peer ranks' tensors)."""
     global _table
     if device is None:
         if not torch.cuda.is_available():
@@ -66,6 +68,12 @@ def init(nranks: int | None = None, device=None) -> tuple[torch.device, ...]:
         ndev = torch.cuda.device_count()
         n = ndev if nranks is None else int(nranks)
         devs = tuple(torch.device("cuda", r % ndev) for r in range(n))
+        used = sorted({d.index for d in devs})
+        if len(used) > 1:
+            from .utils import kbuild
+            for a in used:
+                for b in used:
+                    kbuild.enable_peer_access(a, b)
     else:
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:

@@ -1,0 +1,356 @@
+"""Collective kernels over rank tensors: the hand-written CUDA kernels
+(``csrc/collectives.cu``) and their plain versions.
+
+PyTorch counterpart of ``ring_all_gather``, ``ring_all_to_all`` and
+``ring_allgather_matmul_rhs`` in ``distributedarrays_tpu/ops/
+pallas_collectives.py``.  Each function takes the p ranks' tensors in ring
+order (as the JAX functions take one shard per ``axis_index``) and returns
+one tensor per rank, on that rank's device.  For CPU tensors it takes the
+plain version; for CUDA tensors it launches the kernel or raises, with no
+fallback.  The ranks may share one card or sit on several cards; across
+cards a kernel reads or writes the peer rank's memory through its device
+pointer (peer access, ``kbuild.enable_peer_access``), the GPU form of the
+TPU's remote DMA.  NCCL, ``torch.distributed`` and ``cudaMemcpyPeer`` are
+not used.
+
+- ``ring_all_gather(blocks, dim)``: every rank gets the blocks concatenated
+  along ``dim`` (``lax.all_gather(..., tiled=True)``; blocks may differ in
+  size along ``dim``, as in ``torch.cat``).
+- ``ring_all_to_all(blocks, split_dim, concat_dim)``: rank ``q`` gets piece
+  ``q`` of every rank's block split along ``split_dim``, concatenated along
+  ``concat_dim`` (``lax.all_to_all(..., tiled=True)``).
+
+  Both pull: one launch per destination rank copies every source's block or
+  piece straight to its final offset (pure data movement, bit-identical to
+  the plain version).  The JAX kernels' chunk depth (``chunks``,
+  ``_chunk_fit``) only bounds the TPU's VMEM staging; nothing is staged
+  here, so there is no chunk argument.
+
+- ``ring_allgather_matmul_rhs(a_blocks, b_blocks)``: rank ``r`` gets
+  ``a_r @ all_gather(b)``, with b's chunks travelling the ring: at step t
+  the resident chunk came from rank ``(r + t) % p``, its f32 product with
+  the matching column slice of ``a_r`` is cast to the output type and added
+  in that order, as in the JAX kernel.  One launch per rank per step both
+  forwards the resident chunk into the left neighbour's free slot of a
+  two-slot buffer and computes the product.  The TPU kernel's VMEM budget
+  gate (``gemm_ring_eligible``) has no counterpart: the operands stay in
+  device memory.  float32 or bfloat16, one dtype for a and b.
+
+Steps that depend on each other are ordered by stream order on one card and
+by CUDA event waits across cards; no kernel waits on a flag set by another.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from ..parallel.collectives import pall_to_all, pgather, pshift
+from ..utils import kbuild
+
+__all__ = ["ring_all_gather", "ring_all_to_all", "ring_allgather_matmul_rhs",
+           "all_gather_plain", "all_to_all_plain",
+           "allgather_matmul_rhs_plain"]
+
+MAXP = 32                    # sources one copy launch takes (collectives.cu)
+_RING_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
+    """True for all-CUDA tensors, False for all-CPU ones; raise on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"rank tensors on {sorted(kinds)}: the collectives need "
+                     "all of them on CUDA devices or all on the CPU")
+
+
+def _check_contiguous(tensors, what):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"the {what} kernel needs contiguous rank tensors")
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+# the plain all-gather and all-to-all are the rank-list collectives
+all_gather_plain = pgather
+all_to_all_plain = pall_to_all
+
+
+def allgather_matmul_rhs_plain(a_blocks, b_blocks) -> list[torch.Tensor]:
+    """The plain ring: ``pshift`` brings rank r+1's chunk each step; the
+    resident chunk from rank ``(r + t) % p`` contracts against its column
+    slice of ``a_r`` in f32, is cast to the output type and added."""
+    p = len(b_blocks)
+    out_dtype = torch.promote_types(a_blocks[0].dtype, b_blocks[0].dtype)
+    k_loc = b_blocks[0].shape[0]
+
+    def part(r, src, chunk):
+        a = a_blocks[r][:, src * k_loc:(src + 1) * k_loc]
+        return (a.float() @ chunk.float()).to(out_dtype)
+
+    cur = list(b_blocks)
+    acc = [part(r, r, cur[r]) for r in range(p)]
+    for t in range(1, p):
+        cur = pshift(cur, -1)                # fetch rank r+1's chunk
+        acc = [acc[r] + part(r, (r + t) % p, cur[r]) for r in range(p)]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+_fns: dict = {}
+
+
+def _fn(name: str):
+    f = _fns.get(name)
+    if f is None:
+        f = getattr(kbuild.load("collectives"), name)
+        f.restype = ctypes.c_int
+        if name == "da_copy_pieces":
+            f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
+                [ctypes.c_int, ctypes.c_void_p]
+        else:                                # da_ring_ag_mm_step
+            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+                [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + \
+                [ctypes.c_void_p]
+        _fns[name] = f
+    return f
+
+
+def _box(src: torch.Tensor, dst: torch.Tensor):
+    """A copy of equal-shaped strided views as (sizes, src strides, dst
+    strides) of up to 3 outer dims, in bytes, and a contiguous run."""
+    isz = src.element_size()
+    dims = [(n, a, b) for n, a, b in zip(src.shape, src.stride(), dst.stride())
+            if n != 1] or [(1, 1, 1)]
+    merged = [list(dims[0])]
+    for n, a, b in dims[1:]:
+        _, pa, pb = merged[-1]
+        if pa == n * a and pb == n * b:      # contiguous in both: one dim
+            merged[-1] = [merged[-1][0] * n, a, b]
+        else:
+            merged.append([n, a, b])
+    run, ra, rb = merged.pop()
+    if ra != 1 or rb != 1 or len(merged) > 3:
+        raise ValueError(f"cannot copy a {tuple(src.shape)} box with strides "
+                         f"{src.stride()} -> {dst.stride()}")
+    merged = [[1, 0, 0]] * (3 - len(merged)) + merged
+    return ([m[0] for m in merged], [m[1] * isz for m in merged],
+            [m[2] * isz for m in merged], run * isz)
+
+
+def _copy_pieces(pairs, dev: torch.device, kernel: str) -> None:
+    """One launch on ``dev`` copying every ``(src view, dst view)`` pair."""
+    pairs = [(s, d) for s, d in pairs if s.numel()]
+    if not pairs:
+        return
+    if len(pairs) > MAXP:
+        raise ValueError(f"one copy launch takes at most {MAXP} sources, got "
+                         f"{len(pairs)}")
+    n = len(pairs)
+    src = (ctypes.c_void_p * n)(*[s.data_ptr() for s, _ in pairs])
+    dst = (ctypes.c_void_p * n)(*[d.data_ptr() for _, d in pairs])
+    sizes, sstr, dstr, runs = [], [], [], []
+    for s, d in pairs:
+        sz, a, b, run = _box(s, d)
+        sizes += sz
+        sstr += a
+        dstr += b
+        runs.append(run)
+    arr = ctypes.c_longlong * (3 * n)
+    rc = _fn("da_copy_pieces")(
+        n, src, dst, arr(*sstr), arr(*dstr), arr(*sizes),
+        (ctypes.c_longlong * n)(*runs), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    kbuild.count(kernel)
+
+
+class _Order:
+    """Cross-card ordering of launches.  A launch that reads or writes
+    another card's tensors first waits for the events that card's stream
+    recorded, and that card's stream later waits for the launch's event,
+    so neither side frees or rewrites the memory while the other still
+    uses it.  Nothing to do when every rank is on one card (one stream
+    orders everything)."""
+
+    def __init__(self, devices):
+        devs = sorted(set(devices), key=lambda d: d.index)
+        self.multi = len(devs) > 1
+        if self.multi:
+            for a in devs:
+                for b in devs:
+                    kbuild.enable_peer_access(a.index, b.index)
+
+    def mark(self, dev: torch.device):
+        """An event recorded on ``dev``'s current stream (None on one
+        card)."""
+        if not self.multi:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def wait(self, dev: torch.device, events) -> None:
+        """``dev``'s current stream waits for ``events``."""
+        if self.multi:
+            s = torch.cuda.current_stream(dev)
+            for ev in events:
+                s.wait_event(ev)
+
+
+def _pull(devs, shape, dtype, pairs_for, kernel) -> list[torch.Tensor]:
+    """One copy launch per destination rank, all free to run at once: each
+    waits for every source card's stream, and every card's stream waits for
+    all the launches before it goes on."""
+    order = _Order(devs)
+    ready = [order.mark(d) for d in devs]
+    outs, done = [], []
+    for q, dev in enumerate(devs):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        order.wait(dev, ready)
+        _copy_pieces(pairs_for(q, out), dev, kernel)
+        done.append(order.mark(dev))
+        outs.append(out)
+    for dev in devs:
+        order.wait(dev, done)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# all-gather (K10) and all-to-all (K11)
+# ---------------------------------------------------------------------------
+
+
+def ring_all_gather(blocks: Sequence[torch.Tensor],
+                    dim: int = 0) -> list[torch.Tensor]:
+    """Every rank gets the blocks concatenated along ``dim``, on its own
+    device: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    blocks = list(blocks)
+    if not blocks:
+        return []
+    if not _on_cuda(blocks):
+        return all_gather_plain(blocks, dim)
+    ref = blocks[0]
+    dim = dim % ref.ndim
+    for b in blocks:
+        if b.dtype != ref.dtype or b.ndim != ref.ndim or any(
+                b.shape[d] != ref.shape[d] for d in range(ref.ndim)
+                if d != dim):
+            raise ValueError("all-gather blocks must agree in dtype and in "
+                             f"every dim but {dim}")
+    _check_contiguous(blocks, "all-gather")
+    sizes = [b.shape[dim] for b in blocks]
+    offs = [sum(sizes[:s]) for s in range(len(blocks))]
+    shape = list(ref.shape)
+    shape[dim] = sum(sizes)
+    return _pull([b.device for b in blocks], shape, ref.dtype,
+                 lambda q, out: [(b, out.narrow(dim, o, n))
+                                 for b, o, n in zip(blocks, offs, sizes)],
+                 "all_gather")
+
+
+def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
+                    concat_dim: int) -> list[torch.Tensor]:
+    """Rank ``q`` gets piece ``q`` of every rank's block (split along
+    ``split_dim``), concatenated along ``concat_dim`` in rank order: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    blocks = list(blocks)
+    p = len(blocks)
+    if not blocks:
+        return []
+    if not _on_cuda(blocks):
+        return all_to_all_plain(blocks, split_dim, concat_dim)
+    ref = blocks[0]
+    split_dim, concat_dim = split_dim % ref.ndim, concat_dim % ref.ndim
+    if any(b.shape != ref.shape or b.dtype != ref.dtype for b in blocks):
+        raise ValueError("all-to-all blocks must agree in shape and dtype")
+    if ref.shape[split_dim] % p:
+        raise ValueError(f"split extent {ref.shape[split_dim]} is not "
+                         f"divisible by the {p} ranks")
+    _check_contiguous(blocks, "all-to-all")
+    sblk = ref.shape[split_dim] // p
+    shape = list(ref.shape)
+    shape[split_dim] = sblk
+    cext = shape[concat_dim]                 # a piece's extent there
+    shape[concat_dim] = cext * p
+    return _pull([b.device for b in blocks], shape, ref.dtype,
+                 lambda q, out: [(b.narrow(split_dim, q * sblk, sblk),
+                                  out.narrow(concat_dim, r * cext, cext))
+                                 for r, b in enumerate(blocks)],
+                 "all_to_all")
+
+
+# ---------------------------------------------------------------------------
+# ring all-gather GEMM (K14)
+# ---------------------------------------------------------------------------
+
+
+def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
+                              b_blocks: Sequence[torch.Tensor]
+                              ) -> list[torch.Tensor]:
+    """``a_r @ all_gather(b)`` for every rank r, b's chunks travelling the
+    ring: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors.  ``a_r`` is (m_loc, k) and ``b_r`` (k_loc, n), k = p k_loc."""
+    a_blocks, b_blocks = list(a_blocks), list(b_blocks)
+    p = len(b_blocks)
+    if p == 0 or len(a_blocks) != p:
+        raise ValueError(f"{len(a_blocks)} a blocks for {p} b blocks")
+    a0, b0 = a_blocks[0], b_blocks[0]
+    if any(a.shape != a0.shape for a in a_blocks) or any(
+            b.shape != b0.shape for b in b_blocks) or a0.ndim != 2 or \
+            b0.ndim != 2 or a0.shape[1] != p * b0.shape[0]:
+        raise ValueError(f"ring GEMM shapes: a blocks {tuple(a0.shape)}, b "
+                         f"blocks {tuple(b0.shape)} over {p} ranks")
+    if not _on_cuda(a_blocks + b_blocks):
+        return allgather_matmul_rhs_plain(a_blocks, b_blocks)
+    dtype = a0.dtype
+    if dtype not in _RING_DTYPES or any(
+            t.dtype != dtype for t in a_blocks + b_blocks):
+        raise TypeError("the ring GEMM kernel takes float32 or bfloat16, one "
+                        "dtype for a and b")
+    if any(a.device != b.device for a, b in zip(a_blocks, b_blocks)):
+        raise ValueError("rank r's a and b blocks must share a device")
+    _check_contiguous(a_blocks + b_blocks, "ring GEMM")
+    m, k = a0.shape
+    k_loc, n = b0.shape
+    devs = [a.device for a in a_blocks]
+    order = _Order(devs)
+    outs = [torch.empty((m, n), dtype=dtype, device=d) for d in devs]
+    bufs = [torch.empty((2, k_loc, n), dtype=dtype, device=d) for d in devs]
+    done = [order.mark(d) for d in devs]     # buffers allocated
+    step = _fn("da_ring_ag_mm_step")
+    for t in range(p):
+        prev = done
+        done = []
+        for r, dev in enumerate(devs):
+            left, right = (r - 1) % p, (r + 1) % p
+            # the left neighbour finished with the slot written here, and
+            # the right one finished writing this rank's resident slot
+            order.wait(dev, [prev[left], prev[right]])
+            chunk = b_blocks[r] if t == 0 else bufs[r][t % 2]
+            fwd = bufs[left][(t + 1) % 2] if t < p - 1 else None
+            rc = step(a_blocks[r].data_ptr(), chunk.data_ptr(),
+                      outs[r].data_ptr(),
+                      fwd.data_ptr() if fwd is not None else None, m, n,
+                      k_loc, k, ((r + t) % p) * k_loc, int(t == 0),
+                      int(dtype == torch.bfloat16), dev.index,
+                      torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"ring GEMM kernel launch failed: CUDA "
+                                   f"error {rc}")
+            kbuild.count("allgather_matmul_rhs")
+            done.append(order.mark(dev))
+    return outs

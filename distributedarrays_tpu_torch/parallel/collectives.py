@@ -1,10 +1,15 @@
-"""Neighbour exchange between rank tensors.
+"""Collectives over rank tensors, written in plain torch.
 
-PyTorch counterpart of ``halo_exchange`` in
-``distributedarrays_tpu/parallel/collectives.py``.  There the exchange is
-two ``lax.ppermute``s inside a ``shard_map``; here the controller holds
-every rank's tensor, so each rank's halo is a slice of its neighbour's
-tensor copied to its own device.
+PyTorch counterpart of ``halo_exchange``, ``pshift``, ``pgather`` and
+``pall_to_all`` in ``distributedarrays_tpu/parallel/collectives.py``.
+There each is a ``lax`` collective inside a ``shard_map``; here the
+controller holds every rank's tensor, so a collective takes the list of the
+ranks' tensors in ring order (one per ``axis_index``) and returns a list,
+each result on its rank's device, moved with ``.to(device)`` copies.  These
+are the plain versions that the hand-written collective kernels
+(``ops/cuda_collectives``) are held against, and the steps the plain ring
+schedules are written with.  Only the tiled forms exist: ``pgather`` and
+``pall_to_all`` concatenate, as ``tiled=True`` does in JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["halo_exchange"]
+__all__ = ["halo_exchange", "pshift", "pgather", "pall_to_all"]
 
 
 def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
@@ -45,3 +50,39 @@ def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
             hi = torch.zeros(shape, dtype=b.dtype, device=b.device)
         out.append((lo, hi))
     return out
+
+
+def pshift(blocks: Sequence[torch.Tensor], shift: int = 1,
+           wrap: bool = True) -> list[torch.Tensor]:
+    """Ring shift: rank ``i`` receives rank ``i - shift``'s block on its own
+    device.  With ``wrap=False`` ranks with no sender receive zeros."""
+    n = len(blocks)
+    out = []
+    for i, b in enumerate(blocks):
+        j = i - shift
+        if wrap or 0 <= j < n:
+            out.append(blocks[j % n].to(b.device))
+        else:
+            out.append(torch.zeros_like(b))
+    return out
+
+
+def pgather(blocks: Sequence[torch.Tensor], dim: int = 0) -> list[torch.Tensor]:
+    """Every rank gets all blocks concatenated along ``dim`` in rank order,
+    on its own device."""
+    return [torch.cat([x.to(b.device) for x in blocks], dim) for b in blocks]
+
+
+def pall_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
+                concat_dim: int) -> list[torch.Tensor]:
+    """All-to-all: rank ``r``'s block splits along ``split_dim`` into one
+    piece per rank; rank ``q`` gets piece ``q`` of every rank, concatenated
+    along ``concat_dim`` in rank order, on its own device."""
+    p = len(blocks)
+    for b in blocks:
+        if b.shape[split_dim] % p:
+            raise ValueError(f"split extent {b.shape[split_dim]} is not "
+                             f"divisible by the {p} ranks")
+    pieces = [b.tensor_split(p, split_dim) for b in blocks]
+    return [torch.cat([pieces[r][q].to(b.device) for r in range(p)],
+                      concat_dim) for q, b in enumerate(blocks)]

@@ -10,6 +10,11 @@ kernel stands in.  Sources compile in parallel, one ``nvcc`` per file.
 
 Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
+
+``enable_peer_access(device, peer)`` lets one card read and write another's
+memory (``cudaDeviceEnablePeerAccess``), which the collective kernels need
+when ranks span several cards; ``layout.init`` calls it for every pair of
+cards it maps ranks to.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["build", "load", "count", "reset_launches", "launch_counts",
-           "KERNELS", "NVCC_FLAGS"]
+           "enable_peer_access", "KERNELS", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -34,11 +39,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel name -> source file stem
 KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
-           "stencil_multistep": "stencil"}
+           "stencil_multistep": "stencil", "matmul_int8": "gemm_int8",
+           "all_gather": "collectives", "all_to_all": "collectives",
+           "allgather_matmul_rhs": "collectives"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
+_peers: set[tuple[int, int]] = set()
 build_log: dict[str, str] = {}
 
 
@@ -115,3 +123,23 @@ def load(stem: str) -> ctypes.CDLL:
         with _lock:
             _libs[stem] = lib
     return lib
+
+
+def enable_peer_access(device: int, peer: int) -> None:
+    """Let CUDA device ``device`` access ``peer``'s memory; raise when the
+    two cards cannot reach each other."""
+    device, peer = int(device), int(peer)
+    if device == peer:
+        return
+    with _lock:
+        if (device, peer) in _peers:
+            return
+    fn = load("collectives").da_enable_peer
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    rc = fn(device, peer)
+    if rc != 0:
+        raise RuntimeError(f"cannot enable peer access from cuda:{device} to "
+                           f"cuda:{peer}: CUDA error {rc}")
+    with _lock:
+        _peers.add((device, peer))

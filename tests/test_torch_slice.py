@@ -111,7 +111,9 @@ def test_cpu_tensors_leave_kernel_counts_at_zero():
     tdat.cuda_stencil.stencil5_block(t, t[:1], t[-1:])
     tdat.cuda_stencil.stencil5_multistep(t, t[:3], t[-3:], 3, True, False)
     assert tdat.kbuild.launch_counts() == {
-        "gemm": 0, "stencil_step": 0, "stencil_multistep": 0}
+        "gemm": 0, "stencil_step": 0, "stencil_multistep": 0,
+        "matmul_int8": 0, "all_gather": 0, "all_to_all": 0,
+        "allgather_matmul_rhs": 0}
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():
