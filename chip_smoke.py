@@ -47,18 +47,51 @@
    products against it by the quantization bound (max error / max |ref| <=
    3e-2) and the (4,1) int8 result against the one-rank one bit for bit;
    the run fails if one of the four kernels was not launched.
-6. With two or more cards, one rank per card with peer access: the
+6. Attention (the serving path):
+   - the kernels against their plain versions: flash attention (K5) at
+     (2048, 64, 64) bf16 and f32 causal and at a ragged (1000, 16, 64) f32;
+     one ring hop (K8) at (16, 2048, 64) bf16 from a live carry with keys
+     fully visible, on the diagonal and fully masked (a bit-exact
+     copy-through); the fused ring (K9) at S = 8192, 16 heads of 64, four
+     ranks on the card, bf16 causal and not, and f32 causal.  Relative
+     Frobenius error <= 1e-5 in f32 (summation order), <= 1e-2 for K5/K8
+     in bf16 (p rounded to bf16 by the kernel only, and the bf16 output),
+     <= 2.5e-4 for K9 in bf16 (it computes in f32; the bf16 output
+     rounding of two results 1e-6 apart differs by an ulp in a few
+     elements), and the hop's running max m <= 1e-5.  A control, the plain
+     ring with p rounded to bf16, must exceed K9's bf16 tolerance;
+   - serving at the full width of ``Config(8192, 1024, 16, 8, 4, 2048,
+     bf16)`` on one rank, launch counts set to 0 before and read after:
+     ``forward`` on (4, 2048) tokens must launch K5 once per layer (8) and
+     agree with the same forward on the plain attention (relative error
+     <= 5e-2: the bf16 residual stream is re-rounded after every layer);
+     ``generate`` from an (8, 16) prompt for 240 new tokens (the
+     configuration's 2016 cut to 240 for the time limit); in an f32 copy,
+     the greedy tokens must equal the argmax of the K5 forward over the
+     generated sequence except where the top two logits lie within 1e-4.
+     Prints ms per forward, prefill and decode tokens/s;
+   - sequence parallel with four ranks on the card, S = 8192, 16 heads of
+     64, bf16, causal: ``ring_attention`` (16 K9 launches),
+     ``ring_flash_attention`` (16 K8 launches) and ``ulysses_attention``
+     (K11 + 4 K5 launches) against dense f32 attention on the card (<=
+     1e-2), and ``ring_attention_prefill`` on a 3001-row f32 host prompt,
+     padded to 3004 (<= 1e-5).
+7. With two or more cards, one rank per card with peer access: the
    all-gather, all-to-all and ring GEMM kernels against their plain
-   versions on a 16384^2 f32 array, and their times.  With one card it
-   prints why it did not run.  ``python3 chip_smoke.py --across-cards``
-   builds the kernels and runs this phase alone.
-7. Times each kernel with CUDA events (warm-up, then the median of 10
-   runs) beside its bound, its plain version and a library yardstick
+   versions on a 16384^2 f32 array, and K9 at S = 8192 bf16, and their
+   times.  With one card it prints why it did not run.
+   ``python3 chip_smoke.py --across-cards`` builds the kernels and runs
+   this phase alone.
+8. Times each kernel with CUDA events (warm-up, then the median of 10
+   batches of back-to-back calls, each batch about 5 ms long, divided by
+   its count) beside its bound, its plain version and a library yardstick
    (torch.matmul for the GEMMs, F.conv2d with TF32 off for the stencils,
    torch._int_mm and the dequantizing multiply for the int8 GEMM,
    torch.cat of the same pieces for the all-gather and all-to-all,
-   torch.cat then torch.matmul for the ring GEMM), and prints them as one
-   JSON line.
+   torch.cat then torch.matmul for the ring GEMM,
+   F.scaled_dot_product_attention at the same shape for K5 and over the
+   whole sequence for K9; K8 has none), and prints them as one JSON
+   line.
 
 The last line is ``{"ok": true, "device": {...}}``; any failing phase raises
 and the script exits non-zero.  Without a CUDA device it exits 1 at once.
@@ -87,6 +120,19 @@ TOL_BF16 = 1e-2
 TOL_STENCIL = 1e-5
 TOL_STATS = 1e-4      # mean/std of 1e8 f32 values: summation order differs
 TOL_QUANT = 3e-2      # int8 products against f32: two quantization steps
+# K9 in bf16: two f32 results within ~1e-6 of each other, each rounded once
+# to bf16, differ by one bf16 ulp (3.9e-3) in a few elements; sound runs
+# read 6e-5 to 7e-5.  A ring that rounds p to bf16 (K8's numerics) must
+# land above it: chip_smoke checks that control too.
+TOL_RING_BF16 = 2.5e-4
+# full-width bf16 forward, K5 against the plain dense attention: the
+# residual stream is re-rounded to bf16 after each of the 8 layers, so an
+# attention output one ulp apart moves later roundings too
+TOL_SERVE_BF16 = 5e-2
+# bf16 q/k/v through the ring, the hops or ulysses against dense f32
+# attention on the same values: q scaled in bf16 (K9), p rounded to bf16
+# (K5/K8) and the bf16 output
+TOL_SP_BF16 = 1e-2
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -138,20 +184,333 @@ def stencil_ops(w) -> int:
     return max(len(taps) - 1, 0) + sum(v != 1.0 for v in taps)
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+def time_ms(fn, reps: int = 10, batch_ms: float = 5.0) -> float:
+    """Device ms per call: the median of ``reps`` CUDA-event timings, each
+    around ``n`` back-to-back calls and divided by ``n``.  ``n`` is chosen
+    from a first timed call so that a batch lasts about ``batch_ms``: the
+    calls queue behind each other on the stream, so the wrapper's host work
+    before each launch overlaps the previous call's device time instead of
+    landing inside the sample."""
+    def batch(n: int) -> float:
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        fn()
+        for _ in range(n):
+            fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+        return t0.elapsed_time(t1) / n
+
+    fn()
+    torch.cuda.synchronize()
+    n = max(1, min(50, int(batch_ms / max(batch(1), 1e-3))))
+    return statistics.median(batch(n) for _ in range(reps))
+
+
+def ring_bf16_p_plain(q_blocks, k_blocks, v_blocks, causal: bool):
+    """The ring in K8's numerics (p rounded to bf16 before the PV product):
+    for each rank, the plain hop over every key block in ring order, then
+    finalised.  Blocks are (b, h, dh) per rank as K9 takes them."""
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    P = len(q_blocks)
+    b, h, dh = q_blocks[0].shape
+    out = []
+    for r in range(P):
+        q = q_blocks[r].transpose(0, 1)
+        carry = CA.flash_carry_init(h, b, dh, q.device)
+        for s in range(P):
+            j = (r - s) % P
+            carry = CA.flash_attention_hop_plain(
+                q, k_blocks[j].transpose(0, 1), v_blocks[j].transpose(0, 1),
+                *carry, r * b, j * b, causal)
+        out.append(CA.flash_carry_finalize(*carry, q.dtype)[0]
+                   .transpose(0, 1))
+    return out
+
+
+def attention_kernels(randn, errs) -> None:
+    """Phase 6a: K5, K8 and K9 against their plain versions at the serving
+    and sequence-parallel paths' shapes."""
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("phase attention kernels")
+    for (S, H, D), dt, causal, tol in (
+            ((2048, 64, 64), bf16, True, TOL_BF16),
+            ((2048, 64, 64), f32, True, TOL_F32),
+            ((1000, 16, 64), f32, False, TOL_F32)):
+        q, k, v = (randn(S, H, D, dtype=dt) for _ in range(3))
+        o, lse = CA.flash_attention_lse(q, k, v, causal)
+        po, plse = CA.flash_attention_lse_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        what = f"flash attention ({S}, {H}, {D}) {dt} causal={causal}"
+        check(what, rel_err(o, po), tol)
+        check(what + " lse", rel_err(lse, plse), TOL_F32)
+        errs["flash_attention"] = max(errs["flash_attention"], max_abs(o, po))
+    # one hop at (16, 2048, 64) on rank 2 of 4 (qoff 4096) from a live
+    # carry (the keys at 2048): visible, diagonal, fully masked
+    H, B, D = 16, 2048, 64
+    q, k, v, k0, v0 = (randn(H, B, D, dtype=bf16) for _ in range(5))
+    c0 = CA.flash_attention_hop_plain(
+        q, k0, v0, *CA.flash_carry_init(H, B, D, q.device), 4096, 2048, True)
+    for case, koff in (("visible", 0), ("diagonal", 4096), ("masked", 6144)):
+        got = [x.clone() for x in c0]
+        CA.flash_attention_hop(q, k, v, *got, 4096, koff, True)
+        ref = CA.flash_attention_hop_plain(q, k, v, *c0, 4096, koff, True)
+        torch.cuda.synchronize()
+        if case == "masked":
+            exact("flash hop (16, 2048, 64) bf16 masked: copy-through of m, "
+                  "l, acc", got, list(c0))
+            continue
+        check(f"flash hop (16, 2048, 64) bf16 {case}: acc",
+              rel_err(got[2], ref[2]), TOL_BF16)
+        check(f"flash hop (16, 2048, 64) bf16 {case}: l",
+              rel_err(got[1], ref[1]), TOL_BF16)
+        # the running max takes no rounded p: exact bf16 products summed in
+        # f32 in another order
+        check(f"flash hop (16, 2048, 64) bf16 {case}: m",
+              rel_err(got[0], ref[0]), TOL_F32)
+        errs["flash_attention_hop"] = max(errs["flash_attention_hop"],
+                                          max_abs(got[2], ref[2]))
+    # the whole K9 ring: S = 8192, 16 heads of 64, 4 ranks on the card
+    for dt, causal, tol in ((bf16, True, TOL_RING_BF16),
+                            (bf16, False, TOL_RING_BF16),
+                            (f32, True, TOL_F32)):
+        blocks = [[randn(2048, 16, 64, dtype=dt) for _ in range(4)]
+                  for _ in range(3)]
+        got = RA.ring_attention_rdma(*blocks, causal)
+        ref = RA.ring_attention_kernel(*blocks, causal)
+        torch.cuda.synchronize()
+        check(f"ring attention S=8192 4 ranks {dt} causal={causal}",
+              max(rel_err(g, r) for g, r in zip(got, ref)), tol)
+        errs["ring_attention"] = max(errs["ring_attention"], max(
+            max_abs(g, r) for g, r in zip(got, ref)))
+        if dt == bf16:
+            # the lower-precision control: the same ring with p rounded to
+            # bf16 must fail K9's tolerance, or the check cannot tell them
+            ctl = max(rel_err(g, r) for g, r in zip(
+                ring_bf16_p_plain(*blocks, causal), ref))
+            print(f"  control, ring with p rounded to bf16: rel_err="
+                  f"{ctl:.3e} (must exceed {TOL_RING_BF16:g})")
+            if not ctl > TOL_RING_BF16:
+                raise AssertionError("K9's bf16 tolerance does not separate "
+                                     "a ring that rounds p to bf16")
+    del q, k, v, o, po, got, ref, blocks
+    torch.cuda.empty_cache()
+
+
+def serving(tdat, dev) -> dict:
+    """Phase 6b: the flagship transformer at full width on one rank:
+    ``forward`` on (4, 2048) tokens (K5 once per layer) against the same
+    forward with the plain attention, and KV-cache ``generate``; greedy
+    tokens of an f32 copy against the argmax of its K5 forward."""
+    T = tdat.transformer
+    print("phase serving (1 rank, Config(8192, 1024, 16, 8, 4, 2048, bf16))")
+    tdat.init()
+    cfg = T.Config(8192, 1024, 16, 8, 4, 2048, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model = T.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (4, 2048), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab, (8, 16), generator=gen, device=dev,
+                           dtype=torch.int32)
+    n_new = 240
+    kbuild = tdat.kbuild
+    kbuild.reset_launches()
+    logits = T.forward(model, tokens, cfg)
+    out = T.generate(model, prompt, n_new, cfg)
+    torch.cuda.synchronize()
+    counts = kbuild.launch_counts()
+    print(f"  launches {counts}")
+    if counts["flash_attention"] != cfg.layers:
+        raise AssertionError(f"forward launched flash attention "
+                             f"{counts['flash_attention']} times, expected "
+                             f"{cfg.layers}")
+    if logits.shape != (4, 2048, cfg.vocab) or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"forward logits {tuple(logits.shape)} "
+                             f"{logits.dtype} not finite f32 (4, 2048, V)")
+    from distributedarrays_tpu_torch.ops.cuda_attention import (
+        flash_attention_plain)
+    ref = T.forward(model, tokens, cfg, _attend=flash_attention_plain)
+    check("forward (4, 2048) bf16 vs plain attention", rel_err(logits, ref),
+          TOL_SERVE_BF16)
+    if out.shape != (8, 16 + n_new) or not torch.equal(out[:, :16], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        raise AssertionError(f"generate gave {tuple(out.shape)}, tokens in "
+                             f"[{int(out.min())}, {int(out.max())}]")
+    del logits, ref
+    # greedy decoding of an f32 copy against its K5 forward's argmax
+    cfg32 = T.Config(8192, 1024, 16, 8, 4, 2048, torch.float32)
+    m32 = T.Transformer(cfg32, dev)
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    g32 = T.generate(m32, prompt, n_new, cfg32)
+    lg = T.forward(m32, g32[:, :-1], cfg32)[:, 15:]     # predicts 16..
+    top2 = lg.topk(2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) < 1e-4
+    wrong = (lg.argmax(-1) != g32[:, 16:]) & ~near
+    print(f"  f32 greedy: {int(near.sum())} of {near.numel()} positions "
+          f"with a top-two logit gap under 1e-4, {int(wrong.sum())} "
+          f"mismatches elsewhere")
+    if wrong.any():
+        raise AssertionError("greedy tokens differ from the argmax of the "
+                             "K5 forward")
+    del m32, g32, lg
+    # ms per forward and decode tokens/s (host clock around synchronized
+    # work, median of 3 after the calls above)
+    fwd_ms = statistics.median(
+        wall_ms(lambda: T.forward(model, tokens, cfg)) for _ in range(3))
+    gen_s = statistics.median(
+        wall_ms(lambda: T.generate(model, prompt, n_new, cfg)) / 1e3
+        for _ in range(3))
+    metrics = {"forward_ms": fwd_ms,
+               "prefill_tokens_per_s": 4 * 2048 / (fwd_ms / 1e3),
+               "generate_s": gen_s,
+               "decode_tokens_per_s": 8 * n_new / gen_s,
+               "shape": "forward (4, 2048); generate (8, 16) + 240, bf16"}
+    print(json.dumps({"serving": metrics}))
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def wall_ms(fn) -> float:
+    """One call of ``fn`` on the host clock, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def sequence_parallel(tdat) -> dict:
+    """Phase 6c: 4 ranks on the one card, S = 8192, 16 heads of 64, bf16,
+    causal: ``ring_attention`` (K9), ``ring_flash_attention`` (K8),
+    ``ulysses_attention`` (K11 + K5) against dense f32 attention on the
+    card, and ``ring_attention_prefill`` on a host prompt that the ranks do
+    not divide (the padding path)."""
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    print("phase sequence parallel (4 ranks on one card, S=8192, 16x64 "
+          "bf16, causal)")
+    tdat.init(nranks=4)
+    tdat.seed(5)
+    kbuild = tdat.kbuild
+    q, k, v = (tdat.drandn((8192, 16, 64), dtype=torch.bfloat16,
+                           dist=(4, 1, 1)) for _ in range(3))
+    ref = CA.flash_attention_plain(q.full().float(), k.full().float(),
+                                   v.full().float(), causal=True)
+    kbuild.reset_launches()
+    t_sp = time.perf_counter()
+    steps = {"ring_attention": ("ring_attention", 16),
+             "ring_flash_attention": ("flash_attention_hop", 16),
+             "ulysses_attention": ("flash_attention", 4)}
+    for fn, (kernel, want) in steps.items():
+        before = kbuild.launch_counts()[kernel]
+        o = getattr(tdat, fn)(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        n = kbuild.launch_counts()[kernel] - before
+        check(f"{fn} vs dense f32 ({n} {kernel} launches)",
+              rel_err(o.full(), ref), TOL_SP_BF16)
+        if n != want:
+            raise AssertionError(f"{fn} launched {kernel} {n} times, "
+                                 f"expected {want}")
+        o.close()
+    rng = np.random.default_rng(6)
+    hq, hk, hv = (rng.standard_normal((3001, 16, 64), dtype=np.float32)
+                  for _ in range(3))
+    got = tdat.ring_attention_prefill(hq, hk, hv)
+    dref = CA.flash_attention_plain(
+        *(torch.from_numpy(x).to(tdat.device_of(0)) for x in (hq, hk, hv)),
+        causal=True)
+    if got.shape != (3001, 16, 64) or not np.isfinite(got).all():
+        raise AssertionError(f"prefill gave {got.shape}")
+    check("ring_attention_prefill 3001 rows f32 (padded to 3004)",
+          rel_err(torch.from_numpy(got).to(dref.device), dref), TOL_F32)
+    torch.cuda.synchronize()
+    counts = kbuild.launch_counts()
+    print(f"  sequence parallel {time.perf_counter() - t_sp:.1f} s, "
+          f"launches {counts}")
+    missing = [kn for kn in ("ring_attention", "flash_attention_hop",
+                             "flash_attention", "all_to_all")
+               if counts[kn] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the sequence-parallel "
+                             f"path: {missing}")
+    tdat.d_closeall()
+    del q, k, v, ref, dref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def attention_timings(randn) -> list[dict]:
+    """Timing rows of K5, K8 and K9 at the paths' shapes.  Bounds count the
+    causal pairs each call needs (4*D operations a pair for K5/K8, 8*D for
+    K9's exact products) and each input read once and each output written
+    once."""
+    import torch.nn.functional as F
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    bf16 = torch.bfloat16
+    rows = []
+    S, H, D = 2048, 64, 64
+    q, k, v = (randn(S, H, D, dtype=bf16) for _ in range(3))
+    qs, ks, vs = (x.transpose(0, 1)[None] for x in (q, k, v))
+    pairs = S * (S + 1) // 2
+    bms, bby = bound(4 * S * H * D * 2 + H * S * 4, 4 * D * pairs * H,
+                     BF16_FLOPS)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "distributedarrays_tpu_torch/csrc/attention.cu",
+        "replaces": "distributedarrays_tpu/ops/pallas_attention.py:75",
+        "shape": "(2048, 64, 64) bf16 causal (the forward's 4 x 16 heads)",
+        "ms": time_ms(lambda: CA.flash_attention_lse(q, k, v, True)),
+        "plain_ms": time_ms(lambda: CA.flash_attention_lse_plain(
+            q, k, v, True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True))})
+    H, B, D = 16, 2048, 64
+    q, k, v = (randn(H, B, D, dtype=bf16) for _ in range(3))
+    carry = CA.flash_attention_hop_plain(
+        q, k, v, *CA.flash_carry_init(H, B, D, q.device), 4096, 2048, True)
+    # a fully visible hop (rank 2's q block against rank 0's keys), in
+    # place on a copy of a live carry; the carry is read and written in f32
+    bms, bby = bound(3 * H * B * D * 2 + 2 * (2 * H * B + H * B * D) * 4,
+                     4 * D * B * B * H, BF16_FLOPS)
+    live = [x.clone() for x in carry]
+    rows.append({
+        "name": "flash_attention_hop", "route": "cuda",
+        "source": "distributedarrays_tpu_torch/csrc/attention.cu",
+        "replaces": "distributedarrays_tpu/ops/pallas_attention.py:348",
+        "shape": "(16, 2048, 64) bf16, one fully visible causal hop",
+        "ms": time_ms(lambda: CA.flash_attention_hop(q, k, v, *live, 4096, 0,
+                                                     True)),
+        "plain_ms": time_ms(lambda: CA.flash_attention_hop_plain(
+            q, k, v, *carry, 4096, 0, True)),
+        "bound_ms": bms, "bound_by": bby,
+        # no one PyTorch call updates an online-softmax carry
+        "library_ms": None})
+    blocks = [[randn(2048, 16, 64, dtype=bf16) for _ in range(4)]
+              for _ in range(3)]
+    S = 8192
+    whole = [torch.cat(b).transpose(0, 1)[None] for b in blocks]
+    # K9 in bf16 keeps f32 numerics on the bf16 tensor cores: one QK^T
+    # product (bf16 q and k, exact) and three PV products (p split into
+    # three bf16 terms), 8*D operations a causal pair at the bf16 rate
+    bms, bby = bound(4 * S * 16 * 64 * 2, 8 * 64 * (S * (S + 1) // 2) * 16,
+                     BF16_FLOPS)
+    rows.append({
+        "name": "ring_attention", "route": "cuda",
+        "source": "distributedarrays_tpu_torch/csrc/attention.cu",
+        "replaces": "distributedarrays_tpu/models/ring_attention.py:146",
+        "shape": "S=8192, 16 heads of 64, bf16 causal, 4 ranks on one card "
+                 "(16 launches)",
+        "ms": time_ms(lambda: RA.ring_attention_rdma(*blocks, True)),
+        "plain_ms": time_ms(lambda: RA.ring_attention_kernel(*blocks, True)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            *whole, is_causal=True))})
+    return rows
 
 
 def across_cards(tdat, cuda_collectives) -> None:
@@ -172,6 +531,11 @@ def across_cards(tdat, cuda_collectives) -> None:
         device=d).manual_seed(i), device=d) for i, d in enumerate(devs)]
     b_bl = [torch.randn(n // p, n, generator=torch.Generator(
         device=d).manual_seed(10 + i), device=d) for i, d in enumerate(devs)]
+    # K9: S = 8192 over the cards, 16 heads of 64, bf16, causal
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    qkv = [[torch.randn(8192 // p, 16, 64, generator=torch.Generator(
+        device=d).manual_seed(20 + 3 * i + j), device=d).bfloat16()
+        for i, d in enumerate(devs)] for j in range(3)]
 
     def sync():
         for d in devs:
@@ -197,20 +561,25 @@ def across_cards(tdat, cuda_collectives) -> None:
         "allgather_matmul_rhs": (
             lambda: cuda_collectives.ring_allgather_matmul_rhs(blocks, b_bl),
             lambda: cuda_collectives.allgather_matmul_rhs_plain(blocks,
-                                                                b_bl))}
+                                                                b_bl)),
+        "ring_attention": (
+            lambda: RA.ring_attention_rdma(*qkv, True),
+            lambda: RA.ring_attention_kernel(*qkv, True))}
     times = {}
     for name, (kern, plain) in cases.items():
         got, ref = kern(), plain()
         sync()
-        if name == "allgather_matmul_rhs":
+        if name in ("allgather_matmul_rhs", "ring_attention"):
             check(f"{name} across {p} cards",
-                  max(rel_err(g, r) for g, r in zip(got, ref)), TOL_F32)
+                  max(rel_err(g, r) for g, r in zip(got, ref)),
+                  TOL_F32 if name != "ring_attention" else TOL_RING_BF16)
         else:
             exact(f"{name} across {p} cards", got, ref)
         del got, ref
         times[name] = {"ms": wall_ms(kern), "plain_ms": wall_ms(plain)}
     print(json.dumps({"across_cards": times, "cards": p,
-                      "shape": f"{n}x{n} f32 in {p} row blocks"}))
+                      "shape": f"{n}x{n} f32 in {p} row blocks; ring "
+                               "attention S=8192, 16x64 bf16 causal"}))
 
 
 def main() -> int:
@@ -453,7 +822,12 @@ def main() -> int:
     del A41, B41, Y14, At, Bt, Cref
     torch.cuda.empty_cache()
 
-    # -- 6. ranks on several cards ------------------------------------------
+    # -- 6. attention: kernels, serving, sequence parallel -----------------
+    attention_kernels(randn, errs)
+    counts_serve = serving(tdat, dev)
+    counts_sp = sequence_parallel(tdat)
+
+    # -- 7. ranks on several cards ------------------------------------------
     across_cards(tdat, cuda_collectives)
     tdat.init()
 
@@ -591,10 +965,14 @@ def main() -> int:
         "library_ms": time_ms(lambda: [torch.matmul(x, torch.cat(b_bl))
                                        for x in blocks])})
     del blocks, b_bl
+    kernels += attention_timings(randn)
     for kern in kernels:
         name = kern["name"]
-        kern["launches"] = (counts if name in counts_main else
-                            counts_dist)[name]
+        kern["launches"] = (
+            counts if name in counts_main else counts_serve
+            if name == "flash_attention" else counts_sp
+            if name in ("flash_attention_hop", "ring_attention")
+            else counts_dist)[name]
         kern["max_abs_err"] = errs[name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
@@ -618,7 +996,7 @@ def across_cards_only() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi)
-    tdat.kbuild.build(["collectives"])
+    tdat.kbuild.build(["collectives", "attention"])
     across_cards(tdat, cuda_collectives)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

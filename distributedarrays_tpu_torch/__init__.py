@@ -15,6 +15,14 @@ names::
     Q = tdat.dmatmul_int8(d, r)               # int8 GEMM, f32 out
     x = tdat.gather(C)                        # numpy on the host
 
+    q = k = v = tdat.drandn((8192, 16, 64), dist=(tdat.nranks(), 1, 1))
+    o = tdat.ring_attention(q, k, v, causal=True)   # sequence-parallel
+    T = tdat.transformer
+    cfg = T.Config(8192, 1024, 16, 8, 4, 2048)
+    model = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    logits = T.forward(model, tokens, cfg)    # (B, S, vocab) f32
+    out = T.generate(model, prompt, 64, cfg)  # greedy KV-cache decode
+
 Entry points run on the CUDA devices unless ``init(device="cpu")`` asks for
 the CPU; without a CUDA device and without that request they raise.  The
 package imports neither JAX nor the JAX package.
@@ -29,8 +37,9 @@ from .darray import (DArray, SubDArray, darray, dfill, distribute, dones,
                      localpart, locate, makelocal, seed)
 from .parallel import collectives, reshard
 from .parallel.collectives import halo_exchange, pall_to_all, pgather, pshift
-from .ops import (broadcast, collective_matmul, cuda_collectives, cuda_gemm,
-                  cuda_stencil, linalg, mapreduce)
+from .ops import (broadcast, collective_matmul, cuda_attention,
+                  cuda_collectives, cuda_gemm, cuda_stencil, linalg, mapreduce)
+from .ops.cuda_attention import flash_attention
 from .ops.broadcast import broadcasted, dmap, dmap_into, elementwise
 from .ops.mapreduce import (dmapreduce, dmaximum, dmean, dminimum, dprod,
                             dreduce, dstd, dsum, dvar)
@@ -38,9 +47,14 @@ from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
                          dtranspose, lmul_, lmul_diag, matmul, mul_into,
                          rmul_, rmul_diag, tune_matmul_impl,
                          tune_matmul_impl_dist, tune_matmul_impl_summa)
-from .models import stencil
+from .models import stencil, transformer, ulysses
+from .models.ring_attention import (reference_attention, ring_attention,
+                                    ring_attention_prefill,
+                                    ring_flash_attention)
 from .models.stencil import stencil3x3, stencil5, stencil5_step
-from .interop import from_reference, to_reference
+from .models.ulysses import ulysses_attention
+from .interop import (from_reference, params_from_reference,
+                      params_to_reference, to_reference)
 from .utils import autotune, kbuild
 
 __all__ = [
@@ -59,5 +73,9 @@ __all__ = [
     "matmul", "mul_into", "dtranspose", "dadjoint", "tune_matmul_impl",
     "tune_matmul_impl_dist", "tune_matmul_impl_summa", "dmatmul_int8",
     "stencil3x3", "stencil5", "stencil5_step",
-    "from_reference", "to_reference",
+    "flash_attention", "ring_attention", "ring_flash_attention",
+    "ring_attention_prefill", "reference_attention", "ulysses_attention",
+    "transformer",
+    "from_reference", "to_reference", "params_from_reference",
+    "params_to_reference",
 ]

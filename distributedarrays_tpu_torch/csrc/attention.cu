@@ -1,0 +1,300 @@
+// Attention kernels for Hopper (sm_90a), all three on the online-softmax
+// tile loop of attn_tile.cuh.
+//
+// - K5 `da_flash_attention` replaces distributedarrays_tpu/ops/
+//   pallas_attention.py `_kernel` (pallas_call in `_build`): exact
+//   attention over (S, H, D) without the S x S score matrix, writing o and
+//   the per-row logsumexp (H, S) f32.  The Pallas grid (heads, S/bq, S/bk)
+//   carries (m, l, acc) across its sequential K axis in VMEM; here one
+//   block owns 64 query rows of one head and loops over the keys itself.
+//   Causal grids are walked heaviest query tile first, so the long rows do
+//   not start last.  Ragged S is masked in the kernel (the Pallas kernel
+//   needs S to divide its blocks).
+// - K8 `da_flash_hop` replaces `_carry_kernel` (pallas_call in
+//   `_build_carry`): the same loop, with (m, l, acc) read at the start and
+//   written at the end, in place (each block reads and writes only its own
+//   rows).  The global offsets qoff/koff enter the causal test and the
+//   skip, so a hop whose keys all lie after its queries copies the carry
+//   through.
+// - K9 `da_ring_attn_step` replaces distributedarrays_tpu/models/
+//   ring_attention.py `_rdma_attn_call` (its pallas_call): one launch per
+//   rank per ring step.  The first blocks forward the resident K/V pair
+//   into the right neighbour's free slot of its two-slot buffer (the TPU
+//   kernel's remote copy to device_id=right, started before the accumulate
+//   and waited after it); that slot is read by the neighbour only at the
+//   next step.  The other blocks accumulate the q block against the
+//   resident pair with the carry in device memory, in K9's own numerics
+//   (f32 products, q scaled in the input type, no skip, p not rounded);
+//   the last step normalises and writes o in (b, h, dh).  Steps are
+//   ordered by stream order on one card and by event waits across cards;
+//   no flag is spun on.
+//
+// Bound on an H100: operations on each visible (query, key) pair.  In bf16
+// all three take their products on the tensor cores with mma.sync
+// (attend_mma), at 989 TFLOP/s: K5/K8 round p to bf16 as the TPU kernel
+// does, 4*D operations a pair; K9 splits its f32 p into three bf16 terms,
+// so every product stays exact and the result is K9's f32 one, at 8*D a
+// pair (one QK^T and three PV products a tile).  In f32 all three run the
+// SIMT loop on the f32 FMA pipes (attend), 4*D a pair at 67 TFLOP/s, since
+// TF32 tensor cores would round the products.  The bf16 loop stages K and
+// V through a two-stage cp.async pipeline; neither loop uses TMA or wgmma
+// yet.
+
+#include "attn_tile.cuh"
+
+namespace {
+
+using da_attn::Args;
+using da_attn::THREADS;
+
+// K5/K8 in f32
+template <int DMAX>
+__global__ void __launch_bounds__(THREADS)
+flash_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
+  const int n = blockIdx.x % a.hall;
+  int qt = blockIdx.x / a.hall;
+  if (a.causal) qt = nq - 1 - qt;  // heaviest query tiles first
+  da_attn::attend<false, DMAX>(a, n, qt, smem);
+}
+
+// K5/K8 in bf16: the same walk over (head, query tile) on the tensor cores
+template <int DMAX>
+__global__ void __launch_bounds__(da_attn::MMA_THREADS)
+flash_mma_kernel(const Args a) {
+  extern __shared__ uint4 smem_v[];
+  const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
+  const int n = blockIdx.x % a.hall;
+  int qt = blockIdx.x / a.hall;
+  if (a.causal) qt = nq - 1 - qt;
+  da_attn::attend_mma<DMAX, false>(a, n, qt,
+                                   reinterpret_cast<__nv_bfloat16*>(smem_v));
+}
+
+// Forward `count` elements of kc/vc into fk/fv with the first `ncopy`
+// blocks of NT threads (16-byte copies when aligned).
+template <typename T, int NT>
+__device__ __forceinline__ void forward_pair(const T* __restrict__ kc,
+                                             const T* __restrict__ vc,
+                                             T* __restrict__ fk,
+                                             T* __restrict__ fv,
+                                             int64_t count, int ncopy) {
+  const int64_t tid = (int64_t)blockIdx.x * NT + threadIdx.x;
+  const int64_t stride = (int64_t)ncopy * NT;
+  const int64_t bytes = count * (int64_t)sizeof(T);
+  if (bytes % 16 == 0 && ((uintptr_t)kc | (uintptr_t)vc | (uintptr_t)fk |
+                          (uintptr_t)fv) % 16 == 0) {
+    const uint4* sk = reinterpret_cast<const uint4*>(kc);
+    const uint4* sv = reinterpret_cast<const uint4*>(vc);
+    uint4* dk = reinterpret_cast<uint4*>(fk);
+    uint4* dv = reinterpret_cast<uint4*>(fv);
+    for (int64_t i = tid; i < bytes / 16; i += stride) {
+      dk[i] = sk[i];
+      dv[i] = sv[i];
+    }
+  } else {
+    for (int64_t i = tid; i < count; i += stride) {
+      fk[i] = kc[i];
+      fv[i] = vc[i];
+    }
+  }
+}
+
+// K9 in bf16: forward blocks, then the RING loop on the tensor cores
+template <int DMAX>
+__global__ void __launch_bounds__(da_attn::MMA_THREADS)
+ring_step_mma_kernel(const Args a, const __nv_bfloat16* __restrict__ kc,
+                     const __nv_bfloat16* __restrict__ vc,
+                     __nv_bfloat16* __restrict__ fk,
+                     __nv_bfloat16* __restrict__ fv, int64_t count,
+                     int ncopy) {
+  extern __shared__ uint4 smem_v[];
+  if ((int)blockIdx.x < ncopy) {
+    forward_pair<__nv_bfloat16, da_attn::MMA_THREADS>(kc, vc, fk, fv, count,
+                                                      ncopy);
+    return;
+  }
+  const int b = blockIdx.x - ncopy;
+  da_attn::attend_mma<DMAX, true>(a, b % a.hall, b / a.hall,
+                                  reinterpret_cast<__nv_bfloat16*>(smem_v));
+}
+
+// K9 in f32
+template <int DMAX>
+__global__ void __launch_bounds__(THREADS)
+ring_step_kernel(const Args a, const float* __restrict__ kc,
+                 const float* __restrict__ vc, float* __restrict__ fk,
+                 float* __restrict__ fv, int64_t count, int ncopy) {
+  extern __shared__ float smem[];
+  if ((int)blockIdx.x < ncopy) {
+    forward_pair<float, THREADS>(kc, vc, fk, fv, count, ncopy);
+    return;
+  }
+  const int b = blockIdx.x - ncopy;
+  da_attn::attend<true, DMAX>(a, b % a.hall, b / a.hall, smem);
+}
+
+template <typename K>
+cudaError_t fit_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+template <int DMAX>
+int launch_flash(const Args& a, cudaStream_t s) {
+  const size_t sm = da_attn::smem_bytes(a.d);
+  cudaError_t err = fit_smem(flash_kernel<DMAX>, sm);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
+  flash_kernel<DMAX><<<nq * a.hall, THREADS, sm, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_flash_mma(const Args& a, cudaStream_t s) {
+  const size_t sm = da_attn::mma_smem_bytes(a.d);
+  cudaError_t err = fit_smem(flash_mma_kernel<DMAX>, sm);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
+  flash_mma_kernel<DMAX><<<nq * a.hall, da_attn::MMA_THREADS, sm, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_ring_mma(const Args& a, const void* kc, const void* vc, void* fk,
+                    void* fv, int ncopy, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const size_t sm = da_attn::mma_smem_bytes(a.d);
+  cudaError_t err = fit_smem(ring_step_mma_kernel<DMAX>, sm);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
+  const int64_t count = (int64_t)a.sk * a.hall * a.d;
+  ring_step_mma_kernel<DMAX>
+      <<<ncopy + nq * a.hall, da_attn::MMA_THREADS, sm, s>>>(
+          a, static_cast<const bf*>(kc), static_cast<const bf*>(vc),
+          static_cast<bf*>(fk), static_cast<bf*>(fv), count, ncopy);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_ring(const Args& a, const void* kc, const void* vc, void* fk,
+                void* fv, int ncopy, cudaStream_t s) {
+  const size_t sm = da_attn::smem_bytes(a.d);
+  cudaError_t err = fit_smem(ring_step_kernel<DMAX>, sm);
+  if (err != cudaSuccess) return (int)err;
+  const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
+  const int64_t count = (int64_t)a.sk * a.hall * a.d;
+  ring_step_kernel<DMAX><<<ncopy + nq * a.hall, THREADS, sm, s>>>(
+      a, static_cast<const float*>(kc), static_cast<const float*>(vc),
+      static_cast<float*>(fk), static_cast<float*>(fv), count, ncopy);
+  return (int)cudaGetLastError();
+}
+
+// meta: for q, k, v, o in turn the row stride, the two head strides (nb
+// and nh parts) and nh, all in elements.
+Args make_args(const void* q, const void* k, const void* v, void* o,
+               float* lse, float* m, float* l, float* acc,
+               const long long* meta, int sq, int sk, int d, int hall,
+               long long qoff, long long koff, int causal, int init,
+               int finalize, float scale) {
+  Args a;
+  const void* in[3] = {q, k, v};
+  da_attn::View<const void>* views[3] = {&a.q, &a.k, &a.v};
+  for (int t = 0; t < 3; ++t) {
+    *views[t] = {in[t], meta[4 * t], meta[4 * t + 1], meta[4 * t + 2],
+                 (int)meta[4 * t + 3]};
+  }
+  a.o = {o, meta[12], meta[13], meta[14], (int)(meta[15] > 0 ? meta[15] : 1)};
+  a.lse = lse;
+  a.m = m;
+  a.l = l;
+  a.acc = acc;
+  a.sq = sq;
+  a.sk = sk;
+  a.d = d;
+  a.hall = hall;
+  a.qoff = qoff;
+  a.koff = koff;
+  a.causal = causal;
+  a.init = init;
+  a.finalize = finalize;
+  a.scale = scale;
+  return a;
+}
+
+int flash(const Args& a, int bf16, int device, void* stream) {
+  if (a.sq <= 0 || a.hall <= 0) return 0;
+  if (a.d <= 0 || a.d > 128) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return a.d <= 64 ? launch_flash_mma<64>(a, s) : launch_flash_mma<128>(a, s);
+  return a.d <= 64 ? launch_flash<64>(a, s) : launch_flash<128>(a, s);
+}
+
+}  // namespace
+
+// K5: o and lse of attention over q (sq rows), k and v (sk rows), hall
+// heads of dim d, laid out as `meta` says; f32 or (bf16 != 0) bf16
+// operands, o in the operand type, lse (hall, sq) f32 or null.  Returns
+// the cudaGetLastError() code of the launch.
+extern "C" int da_flash_attention(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, const long long* meta,
+                                  int sq, int sk, int d, int hall, int causal,
+                                  float scale, int bf16, int device,
+                                  void* stream) {
+  Args a = make_args(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr,
+                     nullptr, meta, sq, sk, d, hall, 0, 0, causal, 1, 1,
+                     scale);
+  return flash(a, bf16, device, stream);
+}
+
+// K8: one hop.  The carry m, l (hall, sq) and acc (hall, sq, d) f32 is
+// read and then overwritten in place; qoff and koff are the global
+// positions of the first query and key row.
+extern "C" int da_flash_hop(const void* q, const void* k, const void* v,
+                            void* m, void* l, void* acc,
+                            const long long* meta, int sq, int sk, int d,
+                            int hall, long long qoff, long long koff,
+                            int causal, float scale, int bf16, int device,
+                            void* stream) {
+  Args a = make_args(q, k, v, nullptr, nullptr, static_cast<float*>(m),
+                     static_cast<float*>(l), static_cast<float*>(acc), meta,
+                     sq, sk, d, hall, qoff, koff, causal, 0, 0, scale);
+  return flash(a, bf16, device, stream);
+}
+
+// K9: step `first`..`last` of the ring for one rank.  q (b, h, dh) and the
+// resident pair kc, vc (b, h, dh) in the operand type; the carry m, l
+// (h, b) and acc (h, b, dh) f32 is started afresh when `first` and
+// replaced by o (b, h, dh) when `last`; fk/fv (null at the last step)
+// receive copies of kc/vc.  qoff, koff: global positions of the q block
+// and of the resident block.
+extern "C" int da_ring_attn_step(const void* q, const void* kc,
+                                 const void* vc, void* o, void* m, void* l,
+                                 void* acc, void* fk, void* fv, int b, int h,
+                                 int dh, long long qoff, long long koff,
+                                 int causal, int first, int last, float scale,
+                                 int bf16, int device, void* stream) {
+  if (b <= 0 || h <= 0) return 0;
+  if (dh <= 0 || dh > 128) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long hd = (long long)h * dh;
+  const long long meta[16] = {hd, 0, dh, h, hd, 0, dh, h,
+                              hd, 0, dh, h, hd, 0, dh, h};
+  Args a = make_args(q, kc, vc, o, nullptr, static_cast<float*>(m),
+                     static_cast<float*>(l), static_cast<float*>(acc), meta, b,
+                     b, dh, h, qoff, koff, causal, first, last, scale);
+  const int ncopy = fk ? 32 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return dh <= 64 ? launch_ring_mma<64>(a, kc, vc, fk, fv, ncopy, s)
+                    : launch_ring_mma<128>(a, kc, vc, fk, fv, ncopy, s);
+  return dh <= 64 ? launch_ring<64>(a, kc, vc, fk, fv, ncopy, s)
+                  : launch_ring<128>(a, kc, vc, fk, fv, ncopy, s);
+}

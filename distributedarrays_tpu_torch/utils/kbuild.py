@@ -41,7 +41,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
            "stencil_multistep": "stencil", "matmul_int8": "gemm_int8",
            "all_gather": "collectives", "all_to_all": "collectives",
-           "allgather_matmul_rhs": "collectives"}
+           "allgather_matmul_rhs": "collectives",
+           "flash_attention": "attention", "flash_attention_hop": "attention",
+           "ring_attention": "attention"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -110,10 +110,19 @@ def test_cpu_tensors_leave_kernel_counts_at_zero():
     tdat.cuda_gemm.cuda_matmul(t, t.T.contiguous())
     tdat.cuda_stencil.stencil5_block(t, t[:1], t[-1:])
     tdat.cuda_stencil.stencil5_multistep(t, t[:3], t[-3:], 3, True, False)
+    qkv = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 16, 2, 8)).astype(np.float32))
+    tdat.flash_attention(*qkv, causal=True)
+    tdat.cuda_attention.flash_attention_hop(
+        *(x.transpose(0, 1).contiguous() for x in qkv),
+        *tdat.cuda_attention.flash_carry_init(2, 16, 8), 0, 0, True)
+    d = tdat.distribute(qkv[0].numpy(), dist=(4, 1, 1))
+    tdat.ring_attention(d, d, d, causal=True)
     assert tdat.kbuild.launch_counts() == {
         "gemm": 0, "stencil_step": 0, "stencil_multistep": 0,
         "matmul_int8": 0, "all_gather": 0, "all_to_all": 0,
-        "allgather_matmul_rhs": 0}
+        "allgather_matmul_rhs": 0, "flash_attention": 0,
+        "flash_attention_hop": 0, "ring_attention": 0}
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():
