@@ -62,8 +62,8 @@
      ring with p rounded to bf16, must exceed K9's bf16 tolerance;
    - serving at the full width of ``Config(8192, 1024, 16, 8, 4, 2048,
      bf16)`` on one rank, launch counts set to 0 before and read after:
-     ``forward`` on (4, 2048) tokens must launch K5 once per layer (8) and
-     agree with the same forward on the plain attention (relative error
+     ``forward`` on (4, 2048) tokens must launch K5 once per layer (8), and
+     no K6 or K7, and agree with the same forward on the plain attention (relative error
      <= 5e-2: the bf16 residual stream is re-rounded after every layer);
      ``generate`` from an (8, 16) prompt for 240 new tokens (the
      configuration's 2016 cut to 240 for the time limit); in an f32 copy,
@@ -76,13 +76,39 @@
      (K11 + 4 K5 launches) against dense f32 attention on the card (<=
      1e-2), and ``ring_attention_prefill`` on a 3001-row f32 host prompt,
      padded to 3004 (<= 1e-5).
-7. With two or more cards, one rank per card with peer access: the
+7. Training:
+   - the kernels against their plain versions: the FlashAttention-2
+     backward, dq (K6) and dk/dv (K7), at (2048, 64, 64) bf16 and f32
+     causal and at a ragged (1000, 16, 64) f32, causal and not; one ring
+     hop's backward at (16, 2048, 64) bf16, visible, diagonal and fully
+     masked (zero contributions, bit-exact); the reduce-scatter (K12) over
+     4 ranks on the card at the trainer's gradient length (119555072 f32)
+     and on a (16, 384, 64) bf16 block along dim 1, bit-exact.  Relative
+     Frobenius error <= 1e-5 in f32 (summation order), <= 5e-4 in bf16
+     (p and dS rounded to bf16 at the same places, f32 sums in another
+     order, the bf16 output).  A control, the plain backward with p and dS
+     left in f32, must exceed the bf16 tolerance;
+   - ``train_step`` at the full width of ``Config(8192, 1024, 16, 8, 4,
+     2048, bf16)`` on one rank with (4, 2049) tokens: one step's
+     gradients against the same step with the plain attention backward,
+     per parameter (<= 5e-2: the bf16 residual stream and its gradient are
+     re-rounded after every layer); then five SGD steps (lr 0.3) on the
+     fixed batch, launch counts read around each: 8 K5, 8 K6 and 8 K7 a
+     step, and the last loss below the first.  Prints ms per step and
+     training tokens/s;
+   - the data-parallel ``Trainer`` with four ranks on the card on
+     ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32):
+     three Adam steps, each launching 4 K10, 4 K12 and 32 K5, K6 and K7
+     (8 a rank); two SGD steps on 4 ranks against the same two on one rank
+     (losses to 1e-4, flat parameters <= 1e-5).  Prints ms per step and
+     the peak device memory.
+8. With two or more cards, one rank per card with peer access: the
    all-gather, all-to-all and ring GEMM kernels against their plain
    versions on a 16384^2 f32 array, and K9 at S = 8192 bf16, and their
    times.  With one card it prints why it did not run.
    ``python3 chip_smoke.py --across-cards`` builds the kernels and runs
    this phase alone.
-8. Times each kernel with CUDA events (warm-up, then the median of 10
+9. Times each kernel with CUDA events (warm-up, then the median of 10
    batches of back-to-back calls, each batch about 5 ms long, divided by
    its count) beside its bound, its plain version and a library yardstick
    (torch.matmul for the GEMMs, F.conv2d with TF32 off for the stencils,
@@ -90,8 +116,13 @@
    torch.cat of the same pieces for the all-gather and all-to-all,
    torch.cat then torch.matmul for the ring GEMM,
    F.scaled_dot_product_attention at the same shape for K5 and over the
-   whole sequence for K9; K8 has none), and prints them as one JSON
-   line.
+   whole sequence for K9, its backward for K6 and K7; K8 has none;
+   torch.stack(...).sum(0) per destination for K12), and prints them as
+   one JSON line.
+
+``python3 chip_smoke.py --profile`` runs one full-width ``train_step`` and
+one 4-rank ``Trainer`` step under ``torch.profiler`` instead, and prints
+their device time by kernel and by kind and the device's idle share.
 
 The last line is ``{"ok": true, "device": {...}}``; any failing phase raises
 and the script exits non-zero.  Without a CUDA device it exits 1 at once.
@@ -133,6 +164,22 @@ TOL_SERVE_BF16 = 5e-2
 # attention on the same values: q scaled in bf16 (K9), p rounded to bf16
 # (K5/K8) and the bf16 output
 TOL_SP_BF16 = 1e-2
+# full-width bf16 training step, gradients with the K6/K7 backward against
+# the same step with the plain attention backward: the forward's tolerance,
+# since the bf16 residual stream and its gradient are re-rounded per layer
+TOL_TRAIN_BF16 = 5e-2
+# K6/K7 in bf16 against the plain backward: p and dS rounded to bf16 at the
+# same places, f32 sums in another order, each output rounded once to bf16.
+# A control, the plain backward that leaves the rounding of p and dS out,
+# must land above it: chip_smoke checks that control too.
+TOL_BWD_BF16 = 5e-4
+TRAIN_LR = 0.3        # SGD on one fixed batch of random tokens
+TRAIN_CFG = (8192, 1024, 16, 8, 4, 2048)     # the flagship, bf16
+# the 4-rank trainer against the 1-rank trainer on the same two SGD steps:
+# the same per-rank arithmetic, the gradient summed over ranks in the ring
+# order instead of over one batch
+TOL_TRAINER_LOSS = 1e-4
+TOL_TRAINER_PARAMS = 1e-5
 
 
 def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -326,6 +373,8 @@ def serving(tdat, dev) -> dict:
         raise AssertionError(f"forward launched flash attention "
                              f"{counts['flash_attention']} times, expected "
                              f"{cfg.layers}")
+    if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
+        raise AssertionError("serving launched the attention backward")
     if logits.shape != (4, 2048, cfg.vocab) or logits.dtype != torch.float32 \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"forward logits {tuple(logits.shape)} "
@@ -510,6 +559,316 @@ def attention_timings(randn) -> list[dict]:
         "bound_ms": bms, "bound_by": bby,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             *whole, is_causal=True))})
+    return rows
+
+
+def plain_bwd(q, k, v, o, g, lse, causal: bool, rounded: bool = True):
+    """The plain FlashAttention-2 backward of (S, H, D) or (S, B, H, D)
+    operands, ``(dq, dk, dv)`` in q's type and layout: dd = rowsum(g * o) in
+    f32, then ``flash_attention_bwd_plain`` on (H_all, S, D) views.  With
+    ``rounded=False`` p and dS stay f32 before their products (the
+    control)."""
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    S, D = q.shape[0], q.shape[-1]
+    dd = (g.float() * o.float()).sum(-1).reshape(S, -1).t().contiguous()
+    heads = lambda x: x.reshape(S, -1, D).transpose(0, 1)
+    ops = [heads(x) for x in (q, k, v, g.to(q.dtype))]
+    if not rounded:
+        ops = [x.float() for x in ops]
+    grads = CA.flash_attention_bwd_plain(*ops, lse, dd, 0, 0, causal, None,
+                                         q.dtype)
+    return tuple(x.transpose(0, 1).reshape(q.shape) for x in grads)
+
+
+def training_kernels(randn, errs) -> None:
+    """Phase 7a: K6, K7 and K12 against their plain versions at the
+    training paths' shapes."""
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("phase training kernels")
+    for (S, H, D), dt, causal, tol in (
+            ((2048, 64, 64), bf16, True, TOL_BWD_BF16),
+            ((2048, 64, 64), f32, True, TOL_F32),
+            ((1000, 16, 64), f32, True, TOL_F32),
+            ((1000, 16, 64), f32, False, TOL_F32)):
+        q, k, v, g = (randn(S, H, D, dtype=dt) for _ in range(4))
+        o, lse = CA.flash_attention_lse(q, k, v, causal)
+        got = CA.flash_attention_bwd(q, k, v, o, g, lse, causal)
+        ref = plain_bwd(q, k, v, o, g, lse, causal)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            check(f"flash backward {name} ({S}, {H}, {D}) {dt} "
+                  f"causal={causal}", rel_err(a, b), tol)
+            kern = "flash_attention_bwd_dq" if name == "dq" else \
+                "flash_attention_bwd_dkv"
+            errs[kern] = max(errs[kern], max_abs(a, b))
+        if dt == bf16:
+            # the control: without the rounding of p and dS the backward
+            # must fail the bf16 tolerance, or the check cannot tell them
+            ctl = plain_bwd(q, k, v, o, g, lse, causal, rounded=False)
+            bwd_control("flash backward (2048, 64, 64) bf16", ctl, ref)
+    # one hop's backward at (16, 2048, 64) on rank 2 of 4 (qoff 4096)
+    H, B, D = 16, 2048, 64
+    q, k, v, do = (randn(H, B, D, dtype=bf16) for _ in range(4))
+    lse = randn(H, B) + 8.0
+    dd = randn(H, B)
+    for case, koff in (("visible", 0), ("diagonal", 4096), ("masked", 6144)):
+        got = CA.flash_attention_hop_bwd(q, k, v, do, lse, dd, 4096, koff,
+                                         True)
+        ref = CA.flash_attention_bwd_plain(q, k, v, do, lse, dd, 4096, koff,
+                                           True, None, f32)
+        torch.cuda.synchronize()
+        if case == "masked":
+            exact("flash hop backward (16, 2048, 64) bf16 masked: zero "
+                  "contributions", list(got), [torch.zeros_like(x)
+                                               for x in got])
+            continue
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            check(f"flash hop backward (16, 2048, 64) bf16 {case}: {name}",
+                  rel_err(a, b), TOL_BWD_BF16)
+        bwd_control(f"flash hop backward (16, 2048, 64) bf16 {case}",
+                    CA.flash_attention_bwd_plain(
+                        *(x.float() for x in (q, k, v, do)), lse, dd, 4096,
+                        koff, True, None, f32), ref)
+    # K12: 4 ranks on the card, the trainer's full gradient length in f32,
+    # and a 3-D bf16 case scattered along dim 1
+    for shape, dim, dt in (((trainer_params(),), 0, f32),
+                           ((16, 4 * 96, 64), 1, bf16)):
+        blocks = [randn(*shape, dtype=dt) for _ in range(4)]
+        errs["reduce_scatter"] = max(errs["reduce_scatter"], exact(
+            f"reduce_scatter 4 x {shape} {dt} dim {dim}",
+            CC.ring_reduce_scatter(blocks, dim),
+            CC.reduce_scatter_plain(blocks, dim)))
+        del blocks
+    torch.cuda.empty_cache()
+
+
+def bwd_control(what: str, ctl, ref) -> None:
+    """Require the control (dq, dk, dv) to exceed K6/K7's bf16 tolerance."""
+    err = max(rel_err(c, r) for c, r in zip(ctl, ref))
+    print(f"  control, {what} without rounding p and dS: rel_err={err:.3e} "
+          f"(must exceed {TOL_BWD_BF16:g})")
+    if not err > TOL_BWD_BF16:
+        raise AssertionError("K6/K7's bf16 tolerance does not separate a "
+                             "backward that leaves p and dS unrounded")
+
+
+class PlainBackwardAttention(torch.autograd.Function):
+    """Flash attention with the K5 forward and the plain backward: the
+    reference of the ``train_step`` gradient check."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        from distributedarrays_tpu_torch.ops import cuda_attention as CA
+        o, lse = CA.flash_attention_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_bwd(*ctx.saved_tensors[:4], g, ctx.saved_tensors[4],
+                         ctx.causal) + (None,)
+
+
+def plain_backward_attend(q, k, v, causal):
+    return PlainBackwardAttention.apply(q, k, v, causal)
+
+
+def training(tdat, dev) -> dict:
+    """Phase 7b: the flagship's ``train_step`` at full width on one rank,
+    ``Config(8192, 1024, 16, 8, 4, 2048, bf16)`` on (4, 2049) tokens: the
+    gradients of one step against the same step with the plain attention
+    backward, then five SGD steps on the fixed batch (each must launch 8
+    K5, 8 K6 and 8 K7, and the loss must fall)."""
+    from distributedarrays_tpu_torch.models._autodiff import value_and_grad
+    T = tdat.transformer
+    S = TRAIN_CFG[5]
+    print(f"phase training (1 rank, Config{TRAIN_CFG} bf16, train_step on "
+          f"(4, {S + 1}) tokens, lr {TRAIN_LR})")
+    tdat.init()
+    cfg = T.Config(*TRAIN_CFG, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = T.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (4, S + 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    leaves = list(model.parameters())
+    kbuild = tdat.kbuild
+    loss, grads = value_and_grad(lambda: T.loss_fn(model, tokens, cfg),
+                                 leaves)
+    _, pgrads = value_and_grad(lambda: T.loss_fn(
+        model, tokens, cfg, _attend=plain_backward_attend), leaves)
+    torch.cuda.synchronize()
+    worst = max((rel_err(a, b), n) for (n, _), a, b in zip(
+        model.named_parameters(), grads, pgrads))
+    check(f"train_step gradients vs plain attention backward, worst "
+          f"parameter {worst[1]}", worst[0], TOL_TRAIN_BF16)
+    del grads, pgrads
+    want = {"flash_attention": cfg.layers, "flash_attention_bwd_dq":
+            cfg.layers, "flash_attention_bwd_dkv": cfg.layers}
+    losses, step_ms = [], []
+    kbuild.reset_launches()
+    for _ in range(5):
+        before = kbuild.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lv = T.train_step(model, tokens, TRAIN_LR, cfg)
+        losses.append(float(lv))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = kbuild.launch_counts()
+        got = {kn: after[kn] - before[kn] for kn in want}
+        if got != want:
+            raise AssertionError(f"train_step launched {got}, expected "
+                                 f"{want}")
+    counts = kbuild.launch_counts()
+    print(f"  launches (5 steps) {counts}")
+    print(f"  losses {losses} (first step's loss {float(loss)})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    ms = statistics.median(step_ms[1:])
+    metrics = {"train_step_ms": ms, "train_tokens_per_s": 4 * S / (ms / 1e3),
+               "step_ms": step_ms, "losses": losses, "lr": TRAIN_LR,
+               "shape": f"train_step (4, {S + 1}) tokens, bf16, SGD"}
+    print(json.dumps({"training": metrics}))
+    del model, leaves
+    torch.cuda.empty_cache()
+    return counts
+
+
+TRAINER_CFG = dict(vocab=8192, dim=1024, heads=16, layers=8, seq=2048,
+                   batch_size=8)
+
+
+def trainer_params() -> int:
+    """The task's flat f32 parameter count (119555072 at full width):
+    embed, pos, ln_f and head, and per layer ln1, qkv, proj, ln2, w1, w2."""
+    v, e, s, n = (TRAINER_CFG[k] for k in ("vocab", "dim", "seq", "layers"))
+    return 2 * v * e + s * e + e + n * (2 * e + 12 * e * e)
+
+
+def trainer_phase(tdat) -> dict:
+    """Phase 7c: the data-parallel ``Trainer`` with four ranks on the card
+    on ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32):
+    three Adam steps (each must launch 4 K10, 4 K12 and 8 K5, K6, K7 per
+    rank), then two SGD steps against the same two steps on one rank."""
+    train = tdat.train
+    print(f"phase trainer (4 ranks on one card, transformer_task "
+          f"{TRAINER_CFG}, f32)")
+    tdat.init(nranks=4)
+    task = train.transformer_task(**TRAINER_CFG)
+    kbuild = tdat.kbuild
+    per_rank = TRAINER_CFG["layers"]
+    want = {"all_gather": 4, "reduce_scatter": 4,
+            "flash_attention": 4 * per_rank,
+            "flash_attention_bwd_dq": 4 * per_rank,
+            "flash_attention_bwd_dkv": 4 * per_rank}
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    with train.Trainer(task, train.adam(1e-4)) as t:
+        if t.flat_params().numel() != trainer_params():
+            raise AssertionError("unexpected parameter count")
+        kbuild.reset_launches()
+        for _ in range(3):
+            before = kbuild.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(t.step_once())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = kbuild.launch_counts()
+            got = {kn: after[kn] - before[kn] for kn in want}
+            if got != want:
+                raise AssertionError(f"a trainer step launched {got}, "
+                                     f"expected {want}")
+    counts = kbuild.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  adam losses {losses}, launches (3 steps) {counts}, peak "
+          f"{peak:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite trainer losses {losses}")
+    runs = {}
+    for ranks in ([0, 1, 2, 3], [0]):
+        with train.Trainer(task, train.sgd(0.1), ranks=ranks) as t:
+            runs[len(ranks)] = (t.fit(2)["losses"], t.flat_params())
+    (l4, f4), (l1, f1) = runs[4], runs[1]
+    print(f"  sgd losses 4 ranks {l4}, 1 rank {l1}")
+    check("trainer 4 ranks vs 1 rank: losses",
+          max(abs(a - b) / abs(b) for a, b in zip(l4, l1)),
+          TOL_TRAINER_LOSS)
+    check("trainer 4 ranks vs 1 rank: flat parameters", rel_err(f4, f1),
+          TOL_TRAINER_PARAMS)
+    ms = statistics.median(step_ms[1:])
+    print(json.dumps({"trainer": {
+        "step_ms": ms, "step_ms_all": step_ms, "peak_gib": peak,
+        "tokens_per_s": TRAINER_CFG["batch_size"] * TRAINER_CFG["seq"] /
+        (ms / 1e3),
+        "shape": "4 ranks on one card, batch 8 x 2049 tokens, f32, adam"}}))
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def training_timings(randn) -> list[dict]:
+    """Timing rows of K6, K7 and K12 at the training paths' shapes.  K6
+    does 6*D operations a causal pair, K7 8*D; K12 moves (p + 1) * N * 4
+    bytes.  The plain version and the library yardstick compute the whole
+    backward (dq, dk and dv) for both attention rows."""
+    import torch.nn.functional as F
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    bf16 = torch.bfloat16
+    rows = []
+    S, H, D = 2048, 64, 64
+    q, k, v, g = (randn(S, H, D, dtype=bf16) for _ in range(4))
+    o, lse = CA.flash_attention_lse(q, k, v, True)
+    dd = (g.float() * o.float()).sum(-1).t().contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    qh, kh, vh, gh = (x.transpose(0, 1) for x in (q, k, v, g))
+    plain_ms = time_ms(lambda: CA.flash_attention_bwd_plain(
+        qh, kh, vh, gh, lse, dd, 0, 0, True))
+    qs, ks, vs = (x.transpose(0, 1)[None].detach().clone()
+                  .requires_grad_(True) for x in (q, k, v))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    gs = g.transpose(0, 1)[None]
+    lib_ms = time_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), gs,
+                                                 retain_graph=True))
+    pairs = S * (S + 1) // 2 * H
+    io = S * H * D * 2
+    for name, outs, ops, nout, line in (
+            ("flash_attention_bwd_dq", (dq,), 6, 1, 179),
+            ("flash_attention_bwd_dkv", (dk, dv), 8, 2, 227)):
+        bms, bby = bound((4 + nout) * io + 2 * H * S * 4, ops * D * pairs,
+                         BF16_FLOPS)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "distributedarrays_tpu_torch/csrc/attention_bwd.cu",
+            "replaces": f"distributedarrays_tpu/ops/pallas_attention.py:"
+                        f"{line}",
+            "shape": "(2048, 64, 64) bf16 causal (the training step's 4 x 16 "
+                     "heads); plain and library: the whole backward",
+            "ms": time_ms(lambda: CA._bwd_launch(
+                name, q, k, v, g, lse, dd, outs, 0, 0, True, None)),
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": lib_ms})
+    del qs, ks, vs, os_
+    N, P4 = trainer_params(), 4
+    blocks = [randn(N) for _ in range(P4)]
+    bms, bby = bound((P4 + 1) * N * 4, 0, F32_FLOPS)
+    piece = N // P4
+    rows.append({
+        "name": "reduce_scatter", "route": "cuda",
+        "source": "distributedarrays_tpu_torch/csrc/collectives.cu",
+        "replaces": "distributedarrays_tpu/ops/pallas_collectives.py:569",
+        "shape": f"4 x {N} f32 on one card (the trainer's gradient)",
+        "ms": time_ms(lambda: CC.ring_reduce_scatter(blocks, 0)),
+        "plain_ms": time_ms(lambda: CC.reduce_scatter_plain(blocks, 0)),
+        "bound_ms": bms, "bound_by": bby,
+        "library_ms": time_ms(lambda: [torch.stack(
+            [b[d * piece:(d + 1) * piece] for b in blocks]).sum(0)
+            for d in range(P4)])})
+    del blocks
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -827,7 +1186,12 @@ def main() -> int:
     counts_serve = serving(tdat, dev)
     counts_sp = sequence_parallel(tdat)
 
-    # -- 7. ranks on several cards ------------------------------------------
+    # -- 7. training: kernels, train_step, the data-parallel Trainer -------
+    training_kernels(randn, errs)
+    counts_train = training(tdat, dev)
+    counts_trainer = trainer_phase(tdat)
+
+    # -- 8. ranks on several cards ------------------------------------------
     across_cards(tdat, cuda_collectives)
     tdat.init()
 
@@ -966,12 +1330,15 @@ def main() -> int:
                                        for x in blocks])})
     del blocks, b_bl
     kernels += attention_timings(randn)
+    kernels += training_timings(randn)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = (
             counts if name in counts_main else counts_serve
             if name == "flash_attention" else counts_sp
             if name in ("flash_attention_hop", "ring_attention")
+            else counts_train if name.startswith("flash_attention_bwd")
+            else counts_trainer if name == "reduce_scatter"
             else counts_dist)[name]
         kern["max_abs_err"] = errs[name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
@@ -1004,6 +1371,82 @@ def across_cards_only() -> int:
     return 0
 
 
+def device_breakdown(prof, wall_ms: float, prof_ms: float, what: str) -> None:
+    """Print the device time of one profiled step by kernel and by kind,
+    and the device's idle share of the same step's wall time measured
+    without the profiler (``wall_ms``; ``prof_ms`` with it)."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    kinds = {"flash attention forward (K5)": ("flash_kernel",
+                                              "flash_mma_kernel"),
+             "attention backward (K6, K7)": ("bwd_dq", "bwd_dkv"),
+             "all-gather / reduce-scatter (K10, K12)": (
+                 "copy_boxes", "reduce_run", "reduce_pieces"),
+             "GEMMs (cuBLAS)": ("gemm", "cutlass", "xmma", "nvjet"),
+             }
+    by_kind = dict.fromkeys(list(kinds) + ["other (elementwise, norms, "
+                                           "softmax, copies)"], 0.0)
+    for e in kernels:
+        kind = next((k for k, keys in kinds.items()
+                     if any(x in e.key for x in keys)), None) or \
+            list(by_kind)[-1]
+        by_kind[kind] += e.self_device_time_total / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    print(json.dumps({"profile": what, "wall_ms": wall_ms,
+                      "profiled_wall_ms": prof_ms, "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / wall_ms,
+                      "by_kind_ms": by_kind,
+                      "top_kernels_ms": [[e.key[:90], e.count,
+                                          e.self_device_time_total / 1e3]
+                                         for e in top]}))
+
+
+def profile_training() -> int:
+    """``--profile``: one full-width ``train_step`` (bf16, one rank) and
+    one 4-rank ``Trainer`` step (f32), each after a warm-up step, under
+    ``torch.profiler``; prints where the device time goes."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+    import distributedarrays_tpu_torch as tdat
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    tdat.kbuild.build(["attention", "attention_bwd", "collectives"])
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    T = tdat.transformer
+    tdat.init()
+    dev = tdat.device_of(0)
+    cfg = T.Config(*TRAIN_CFG, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = T.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (4, TRAIN_CFG[5] + 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    step = lambda: T.train_step(model, tokens, TRAIN_LR, cfg)
+    wall = statistics.median(wall_ms(step) for _ in range(3))
+    with profile(activities=acts) as prof:
+        pwall = wall_ms(step)
+    device_breakdown(prof, wall, pwall, "train_step (4, 2049) bf16, 1 rank")
+    del model
+    torch.cuda.empty_cache()
+    tdat.init(nranks=4)
+    with tdat.train.Trainer(tdat.train.transformer_task(**TRAINER_CFG),
+                            tdat.train.adam(1e-4)) as t:
+        wall = statistics.median(wall_ms(t.step_once) for _ in range(3))
+        with profile(activities=acts) as prof:
+            pwall = wall_ms(t.step_once)
+    device_breakdown(prof, wall, pwall,
+                     "Trainer step, 4 ranks on one card, f32")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     sys.exit(across_cards_only() if sys.argv[1:] == ["--across-cards"]
+             else profile_training() if sys.argv[1:] == ["--profile"]
              else main())

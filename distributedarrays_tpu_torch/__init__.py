@@ -22,6 +22,13 @@ names::
     model = T.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     logits = T.forward(model, tokens, cfg)    # (B, S, vocab) f32
     out = T.generate(model, prompt, 64, cfg)  # greedy KV-cache decode
+    model, loss = T.train_step(model, batch, 0.5, cfg)   # SGD, in place
+
+    tdat.init(nranks=4)                       # data-parallel training
+    task = tdat.train.transformer_task(vocab=8192, dim=1024, heads=16,
+                                       layers=8, seq=2048, batch_size=8)
+    with tdat.train.Trainer(task, tdat.train.adam(1e-4)) as t:
+        losses = t.fit(3)["losses"]
 
 Entry points run on the CUDA devices unless ``init(device="cpu")`` asks for
 the CPU; without a CUDA device and without that request they raise.  The
@@ -36,7 +43,8 @@ from .darray import (DArray, SubDArray, darray, dfill, distribute, dones,
                      drand, drandn, dzeros, from_chunks, gather, localindices,
                      localpart, locate, makelocal, seed)
 from .parallel import collectives, reshard
-from .parallel.collectives import halo_exchange, pall_to_all, pgather, pshift
+from .parallel.collectives import (halo_exchange, pall_to_all, pgather,
+                                   pshift, psum_scatter)
 from .ops import (broadcast, collective_matmul, cuda_attention,
                   cuda_collectives, cuda_gemm, cuda_stencil, linalg, mapreduce)
 from .ops.cuda_attention import flash_attention
@@ -47,7 +55,7 @@ from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
                          dtranspose, lmul_, lmul_diag, matmul, mul_into,
                          rmul_, rmul_diag, tune_matmul_impl,
                          tune_matmul_impl_dist, tune_matmul_impl_summa)
-from .models import stencil, transformer, ulysses
+from .models import mlp, stencil, transformer, ulysses
 from .models.ring_attention import (reference_attention, ring_attention,
                                     ring_attention_prefill,
                                     ring_flash_attention)
@@ -56,6 +64,8 @@ from .models.ulysses import ulysses_attention
 from .interop import (from_reference, params_from_reference,
                       params_to_reference, to_reference)
 from .utils import autotune, kbuild
+from . import train
+from .train import Trainer
 
 __all__ = [
     "init", "nranks", "all_ranks", "device_of",
@@ -65,7 +75,7 @@ __all__ = [
     "DArray", "SubDArray", "darray", "from_chunks", "dzeros", "dones",
     "dfill", "drand", "drandn", "distribute", "gather", "localpart",
     "localindices", "makelocal", "seed",
-    "halo_exchange", "pshift", "pgather", "pall_to_all",
+    "halo_exchange", "pshift", "pgather", "pall_to_all", "psum_scatter",
     "elementwise", "dmap", "dmap_into", "broadcasted",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
     "dmean", "dvar", "dstd",
@@ -75,7 +85,7 @@ __all__ = [
     "stencil3x3", "stencil5", "stencil5_step",
     "flash_attention", "ring_attention", "ring_flash_attention",
     "ring_attention_prefill", "reference_attention", "ulysses_attention",
-    "transformer",
+    "transformer", "mlp", "train", "Trainer",
     "from_reference", "to_reference", "params_from_reference",
     "params_to_reference",
 ]

@@ -1,6 +1,6 @@
 // Collective data movement and the ring all-gather GEMM for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU RDMA kernels of
+// Replaces four Pallas TPU RDMA kernels of
 // distributedarrays_tpu/ops/pallas_collectives.py:
 //
 // - `_ag_call` (ring_all_gather, K10) and `_a2a_call` (ring_all_to_all,
@@ -17,6 +17,18 @@
 //   read once and written once, over 3.35 TB/s (one card).  The warps share
 //   out the boxes' rows cut into 8 KB segments and copy each with 16-, 4- or
 //   1-byte accesses, whichever the box's alignment allows.
+//
+// - `_rs_call` (ring_reduce_scatter, K12).  On the TPU the partial for
+//   destination d seeds at rank d+1 and travels the ring, each hop adding
+//   its own piece (recv + own, rounded to the type), through VMEM receive
+//   slots gated by credits.  `da_reduce_pieces` pulls instead: one launch
+//   per destination rank reads piece d of every rank through device
+//   pointers and writes the left fold over ranks d+1, d+2, ..., d+p (mod
+//   p), each add rounded to the type, which is the TPU ring's arrival
+//   order: bit-exact against the plain fold, with no partial ever stored.
+//   Bound: the bytes moved, each piece read once and each output written
+//   once, over 3.35 TB/s (one card).  A piece that is one contiguous run
+//   is read as 16-byte vectors.
 //
 // - `_ag_mm_rhs_call` (ring_allgather_matmul_rhs, K14): out = a @
 //   all_gather(b) with b's chunks travelling the ring.  `da_ring_ag_mm_step`
@@ -152,7 +164,126 @@ ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
   }
 }
 
+// The pieces of one destination, in fold order, and the box they share
+// (element strides, outer dims then a contiguous run).  out is contiguous
+// in the box's order.
+struct Pieces {
+  const void* src[MAXP];
+  int n;
+  long long size[3];
+  long long stride[3];
+  long long run;
+};
+
+// acc + x, rounded to T
+template <typename T>
+__device__ __forceinline__ float add_t(float acc, float x) {
+  const float sum = __fadd_rn(acc, x);
+  return sizeof(T) == 2 ? __bfloat162float(__float2bfloat16_rn(sum)) : sum;
+}
+
+// the fold of the n pieces' element at offset `off`
+template <typename T>
+__device__ __forceinline__ float fold_at(const Pieces& ps, long long off) {
+  using da_tile::to_f;
+  float acc = to_f(static_cast<const T*>(ps.src[0])[off]);
+  for (int s = 1; s < ps.n; ++s)
+    acc = add_t<T>(acc, to_f(static_cast<const T*>(ps.src[s])[off]));
+  return acc;
+}
+
+// any box: one element a thread per step
+template <typename T>
+__global__ void __launch_bounds__(COPY_THREADS)
+reduce_pieces_kernel(const Pieces ps, T* __restrict__ out, long long total) {
+  for (long long i = (long long)blockIdx.x * COPY_THREADS + threadIdx.x;
+       i < total; i += (long long)gridDim.x * COPY_THREADS) {
+    long long o = i / ps.run;
+    const long long r = i - o * ps.run;
+    const long long i2 = o % ps.size[2];
+    o /= ps.size[2];
+    const long long i1 = o % ps.size[1];
+    const long long i0 = o / ps.size[1];
+    const long long off =
+        i0 * ps.stride[0] + i1 * ps.stride[1] + i2 * ps.stride[2] + r;
+    da_tile::store(out + i, fold_at<T>(ps, off));
+  }
+}
+
+// one contiguous run, every pointer 16-byte aligned: 16 bytes a thread
+template <typename T>
+__global__ void __launch_bounds__(COPY_THREADS)
+reduce_run_kernel(const Pieces ps, T* __restrict__ out, long long vecs) {
+  constexpr int V = 16 / sizeof(T);
+  for (long long i = (long long)blockIdx.x * COPY_THREADS + threadIdx.x;
+       i < vecs; i += (long long)gridDim.x * COPY_THREADS) {
+    float acc[V];
+    const uint4 u0 = static_cast<const uint4*>(ps.src[0])[i];
+    const T* x0 = reinterpret_cast<const T*>(&u0);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = da_tile::to_f(x0[e]);
+    for (int s = 1; s < ps.n; ++s) {
+      const uint4 u = static_cast<const uint4*>(ps.src[s])[i];
+      const T* x = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = add_t<T>(acc[e], da_tile::to_f(x[e]));
+    }
+    uint4 res;
+    T* rx = reinterpret_cast<T*>(&res);
+#pragma unroll
+    for (int e = 0; e < V; ++e) da_tile::store(&rx[e], acc[e]);
+    reinterpret_cast<uint4*>(out)[i] = res;
+  }
+}
+
+template <typename T>
+int reduce_pieces(const Pieces& ps, void* out, cudaStream_t s) {
+  const long long total = ps.size[0] * ps.size[1] * ps.size[2] * ps.run;
+  if (total == 0) return 0;
+  constexpr int V = 16 / sizeof(T);
+  bool vec = ps.size[0] * ps.size[1] * ps.size[2] == 1 && total % V == 0 &&
+             (uintptr_t)out % 16 == 0;
+  for (int q = 0; q < ps.n; ++q) vec = vec && (uintptr_t)ps.src[q] % 16 == 0;
+  const long long units = vec ? total / V : total;
+  long long grid = (units + COPY_THREADS - 1) / COPY_THREADS;
+  if (grid > 132 * 16) grid = 132 * 16;
+  if (vec)
+    reduce_run_kernel<T><<<(unsigned)grid, COPY_THREADS, 0, s>>>(
+        ps, static_cast<T*>(out), units);
+  else
+    reduce_pieces_kernel<T><<<(unsigned)grid, COPY_THREADS, 0, s>>>(
+        ps, static_cast<T*>(out), units);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// K12, one destination: out (contiguous, the box's shape) = the left fold
+// of the `n` pieces src[0], src[1], ... (device pointers, possibly of peer
+// devices; one box of outer `sizes` and `strides` and a contiguous `run`,
+// in elements), each add rounded to the type: bf16 != 0 for bfloat16,
+// else float32.  Returns the cudaGetLastError() code of the launch, or
+// cudaErrorInvalidValue for more than MAXP pieces.
+extern "C" int da_reduce_pieces(int n, const void* const* src,
+                                const long long* sizes,
+                                const long long* strides, long long run,
+                                void* out, int bf16, int device,
+                                void* stream) {
+  if (n <= 0 || n > MAXP) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Pieces ps;
+  ps.n = n;
+  for (int q = 0; q < n; ++q) ps.src[q] = src[q];
+  for (int d = 0; d < 3; ++d) {
+    ps.size[d] = sizes[d];
+    ps.stride[d] = strides[d];
+  }
+  ps.run = run;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? reduce_pieces<__nv_bfloat16>(ps, out, s)
+              : reduce_pieces<float>(ps, out, s);
+}
 
 // Copy `n` boxes on `device`'s `stream`.  Per box q: src[q], dst[q] (device
 // pointers, possibly of peer devices), outer strides and sizes (3 each, in

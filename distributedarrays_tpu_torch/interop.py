@@ -15,6 +15,11 @@ parameter pytree turned into numpy arrays
 builds the port's ``Transformer`` from it and ``params_to_reference`` gives
 it back (float32 arrays, which hold bfloat16 values exactly; numpy has no
 bfloat16).
+
+A trainer's initial parameters cross the same way: ``train.Trainer`` draws
+them from ``task.init_params(generator)``, so a test replaces a port
+task's ``init_params`` (``dataclasses.replace``) with one that returns the
+JAX task's initial pytree as tensors.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
-"""Flagship model, serving half: a GPT-style transformer on the port's
-kernels.
+"""Flagship model: a GPT-style transformer on the port's kernels.
 
-PyTorch counterpart of the forward and decode of ``distributedarrays_tpu/
-models/transformer.py``:
+PyTorch counterpart of the forward, decode and SGD training step of
+``distributedarrays_tpu/models/transformer.py``:
 
 - ``Config`` and ``Transformer`` (an ``nn.Module`` whose parameters keep
   the JAX names: ``embed``, ``pos``, ``ln_f``, ``head`` and
@@ -14,7 +13,15 @@ models/transformer.py``:
   writes o in (B, S, H, D) order, so the fold costs no copy.  The JAX
   model pads S to a block multiple first; the kernel masks a ragged S
   itself, so nothing is padded (padded keys were causally hidden and
-  padded rows cut, so the logits are the same).
+  padded rows cut, so the logits are the same).  ``forward`` is
+  differentiable: its attention's backward is the FlashAttention-2 pair
+  K6 + K7.  The parameters are built with ``requires_grad=False``, so
+  serving builds no autograd graph; ``loss_fn`` and ``train_step``
+  differentiate with respect to them all the same.
+- ``loss_fn(params, tokens, cfg)``: next-token cross-entropy;
+  ``train_step(params, tokens, lr, cfg)`` -> ``(params, loss)``: one SGD
+  step with f32 update arithmetic.  JAX donates the parameter buffers and
+  returns new ones; the port updates the parameters in place.
 - ``generate(params, prompt, n_new, cfg, temperature, generator)``: the
   prompt is teacher-forced through the same decode step that generates,
   with the stacked (L, B, max_seq, H, D) KV cache, and each step attends
@@ -27,7 +34,7 @@ models/transformer.py``:
 The activation is GELU with the tanh approximation (``jax.nn.gelu``'s
 default), RMSNorm computes in f32 and casts back, the embedding sum is
 taken in the parameter type and the logits are cast to f32 last, all as
-in the JAX model.  Training (``train_step``, the optax steps) and the tp
+in the JAX model.  The optax steps (``make_optax_train_step``) and the tp
 layout (``shard_params``) are not ported yet.
 """
 
@@ -40,8 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda_attention import flash_attention_lse
+from ._autodiff import sgd_, value_and_grad
 
-__all__ = ["Config", "Transformer", "init_params", "forward", "generate"]
+__all__ = ["Config", "Transformer", "init_params", "forward", "loss_fn",
+           "train_step", "generate"]
 
 
 class Config:
@@ -143,31 +152,51 @@ def _attention(x, blk, heads: int, attend):
     q, k, v = (t.view(B, S, heads, D).transpose(0, 1)
                for t in qkv.split(E, dim=-1))
     if attend is None:
-        o = torch.empty((B, S, heads, D), dtype=x.dtype, device=x.device)
-        flash_attention_lse(q, k, v, causal=True, out=o.transpose(0, 1))
+        o = flash_attention_lse(q, k, v, causal=True)[0]  # (B, S, H, D) storage
     else:
-        o = attend(q, k, v, causal=True).view(S, B, heads, D).transpose(0, 1)
-    return o.reshape(B, S, E) @ blk.proj
+        o = attend(q, k, v, causal=True).reshape(S, B, heads, D)
+    return o.transpose(0, 1).reshape(B, S, E) @ blk.proj
 
 
 def forward(params: Transformer, tokens, cfg: Config,
             _attend=None) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab) f32.  ``_attend`` is for
-    checks only: an attention over (S, B, H, D) views, such as
-    ``flash_attention_plain``, that replaces the kernel."""
-    with torch.no_grad():
-        tokens = torch.as_tensor(tokens, device=params.embed.device)
-        B, S = tokens.shape
-        if S > cfg.max_seq:
-            raise ValueError(f"sequence length {S} exceeds max_seq "
-                             f"{cfg.max_seq}")
-        x = params.embed[tokens.long()] + params.pos[:S][None]
-        for blk in params.blocks:
-            x = x + _attention(_rmsnorm(x, blk.ln1), blk, cfg.heads,
-                               _attend)
-            h = _rmsnorm(x, blk.ln2)
-            x = x + _gelu(h @ blk.w1) @ blk.w2
-        return (_rmsnorm(x, params.ln_f) @ params.head).float()
+    """tokens (B, S) int -> logits (B, S, vocab) f32, differentiable in the
+    parameters.  ``_attend`` is for checks only: an attention over
+    (S, B, H, D) views, such as ``flash_attention_plain``, that replaces
+    the kernel."""
+    tokens = torch.as_tensor(tokens, device=params.embed.device)
+    B, S = tokens.shape
+    if S > cfg.max_seq:
+        raise ValueError(f"sequence length {S} exceeds max_seq "
+                         f"{cfg.max_seq}")
+    x = params.embed[tokens.long()] + params.pos[:S][None]
+    for blk in params.blocks:
+        x = x + _attention(_rmsnorm(x, blk.ln1), blk, cfg.heads, _attend)
+        h = _rmsnorm(x, blk.ln2)
+        x = x + _gelu(h @ blk.w1) @ blk.w2
+    return (_rmsnorm(x, params.ln_f) @ params.head).float()
+
+
+def loss_fn(params: Transformer, tokens, cfg: Config,
+            _attend=None) -> torch.Tensor:
+    """Next-token cross-entropy of (B, S + 1) tokens (``_attend`` as in
+    ``forward``)."""
+    tokens = torch.as_tensor(tokens, device=params.embed.device).long()
+    logits = forward(params, tokens[:, :-1], cfg, _attend)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None]).mean()
+
+
+def train_step(params: Transformer, tokens, lr: float, cfg: Config):
+    """One SGD step: the gradient of ``loss_fn`` and an f32 update
+    ``(p.f32 - lr * g.f32)`` cast back to the parameter type, written into
+    the parameters in place (the JAX step donates its buffers).  Returns
+    ``(params, loss)``."""
+    leaves = list(params.parameters())
+    loss, grads = value_and_grad(lambda: loss_fn(params, tokens, cfg),
+                                 leaves)
+    sgd_(leaves, grads, lr)
+    return params, loss
 
 
 def _decode_attn(h, blk, heads: int, kc, vc, i: int, t: int, max_seq: int):

@@ -1,19 +1,30 @@
-"""Flash attention and one ring-attention hop: the hand-written CUDA kernels
-(``csrc/attention.cu`` on ``csrc/attn_tile.cuh``) and their plain versions.
+"""Flash attention, its FlashAttention-2 backward and one ring-attention
+hop: the hand-written CUDA kernels (``csrc/attention.cu`` and
+``csrc/attention_bwd.cu`` on ``csrc/attn_tile.cuh``) and their plain
+versions.
 
-PyTorch counterpart of the forward half of ``distributedarrays_tpu/ops/
-pallas_attention.py``:
+PyTorch counterpart of ``distributedarrays_tpu/ops/pallas_attention.py``:
 
 - ``flash_attention(q, k, v, causal, scale)``: exact attention over
-  (S, H, D) tensors without the S x S score matrix (K5).
-  ``flash_attention_lse`` also returns the per-row logsumexp (H, S) f32,
-  which the FlashAttention-2 backward consumes, and takes (S, B, H, D)
-  views too (the batch folded into the heads, as the transformer folds it)
-  and an ``out`` view to write into.
+  (S, H, D) tensors without the S x S score matrix (K5), differentiable:
+  its backward recomputes P from the saved logsumexp in two passes, dq
+  (K6) and dk/dv (K7), as the JAX ``custom_vjp`` does (``_flash_bwd``).
+  ``flash_attention_lse`` also returns the per-row logsumexp (H, S) f32
+  (not differentiable) and takes (S, B, H, D) views too (the batch folded
+  into the heads, as the transformer folds it); for those the kernel's o
+  comes back as an (S, B, H, D) view of a (B, S, H, D) tensor, so folding
+  the batch back costs no copy.  ``FlashAttention`` is the
+  ``torch.autograd.Function`` behind both.
+- ``flash_attention_bwd(q, k, v, o, g, lse, causal, scale)``: that
+  backward by itself: dd = rowsum(g * o) in f32 from the full-precision
+  cotangent, do = g in q's type, then K6 and K7 with outputs in q's type.
 - ``flash_attention_hop(q, k, v, m, l, acc, qoff, koff, causal, scale)``:
   one ring hop on (H, B, D) blocks with the online-softmax carry
   m, l (H, B) f32 and acc (H, B, D) f32 (K8).  The carry is updated in
   place, on both paths, and returned.
+- ``flash_attention_hop_bwd(q, k, v, do, lse, dd, qoff, koff, causal,
+  scale)``: one hop's f32 (dq, dk, dv) contributions from the final lse and
+  dd (K6 and K7 at the global offsets).
 - ``flash_carry_init``, ``flash_carry_finalize``, ``flash_block_size``.
 
 For CPU tensors each wrapper takes its plain version; for CUDA tensors it
@@ -22,14 +33,17 @@ has the semantics of the JAX package's dense rule ``_dense_attention_shd``
 (f32 softmax); ``flash_attention_hop_plain`` computes the hop in the TPU
 kernel's numerics over the whole block as one tile (products of the input
 values with f32 sums, scale after the QK product, p rounded to v's type
-before the PV product).  Where the JAX functions' results differ only by
-rounding order, these give the same result.
+before the PV product); ``flash_attention_bwd_plain`` computes the backward
+in the TPU kernels' numerics (products of the input values with f32 sums,
+p and dS rounded to the input type before their products).  Where the JAX
+functions' results differ only by rounding order, these give the same
+result.
 
 What has no counterpart, and why: the TPU tiling knobs ``block_q``,
 ``block_k``, ``head_fold`` and ``interpret`` (the CUDA kernels' tiles are
 fixed for the card: 64 query rows a block, 64 keys a shared-memory tile on
 the bf16 tensor cores and 32 on the f32 pipes; there is no interpreter);
-the lane-broadcast ``_LANE = 128`` layout of m, l and lse (a TPU
+the lane-broadcast ``_LANE = 128`` layout of m, l, lse and dd (a TPU
 block-shape rule; here they are (H, B) and (H, S)); and the autotune
 lookups ``tuned_flash_config`` / ``tuned_hop_blocks_for``, which
 only choose those knobs.
@@ -47,8 +61,10 @@ import torch
 
 from ..utils import kbuild
 
-__all__ = ["flash_attention", "flash_attention_lse", "flash_attention_hop",
-           "flash_attention_plain", "flash_attention_lse_plain",
+__all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
+           "flash_attention_bwd", "flash_attention_hop",
+           "flash_attention_hop_bwd", "flash_attention_plain",
+           "flash_attention_lse_plain", "flash_attention_bwd_plain",
            "flash_attention_hop_plain", "flash_carry_init",
            "flash_carry_finalize", "flash_block_size", "ring_attn_step",
            "MAX_HEAD_DIM"]
@@ -125,6 +141,32 @@ def flash_attention_hop_plain(q, k, v, m, l, acc, qoff, koff,
     return m_new, l_new, acc_new
 
 
+def flash_attention_bwd_plain(q, k, v, do, lse, dd, qoff: int = 0,
+                              koff: int = 0, causal: bool = False,
+                              scale=None, out_dtype=None):
+    """The FlashAttention-2 backward over (H, S, D) blocks in the TPU
+    kernels' numerics, with the whole block as one tile: ``(dq, dk, dv)``
+    in ``out_dtype`` (default q's).  lse and dd are (H, S) f32; ``qoff`` and
+    ``koff`` are the global positions of the q and k blocks' first rows."""
+    H, Sq, D = q.shape
+    sc = _scale(D, scale)
+    rnd = lambda x: x.to(q.dtype).float()     # round to the input type
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * sc
+    if causal:
+        qpos = int(qoff) + torch.arange(Sq, device=q.device)[:, None]
+        kpos = int(koff) + torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where((kpos <= qpos)[None], s, -math.inf)
+    p = torch.exp(s - lse[..., None])
+    p = torch.where(torch.isfinite(s), p, 0.0)
+    dp = torch.einsum("hqd,hkd->hqk", do.float(), v.float())
+    ds = rnd(p * (dp - dd[..., None]) * sc)
+    dq = torch.einsum("hqk,hkd->hqd", ds, k.float())
+    dk = torch.einsum("hqk,hqd->hkd", ds, q.float())
+    dv = torch.einsum("hqk,hqd->hkd", rnd(p), do.float())
+    od = q.dtype if out_dtype is None else out_dtype
+    return dq.to(od), dk.to(od), dv.to(od)
+
+
 def flash_carry_init(h: int, b: int, d: int, device=None):
     """The initial (m, l, acc) carry of ``flash_attention_hop``."""
     return (torch.full((h, b), -math.inf, device=device),
@@ -155,13 +197,20 @@ _ARGTYPES = {
     "da_ring_attn_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 +
     [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 +
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "da_flash_bwd_dq": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 +
+    [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float] +
+    [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "da_flash_bwd_dkv": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 +
+    [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float] +
+    [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
-def _fn(name: str):
+def _fn(name: str, kernel: str):
+    """The C entry ``name`` of the library that holds ``kernel``."""
     f = _fns.get(name)
     if f is None:
-        f = getattr(kbuild.load("attention"), name)
+        f = getattr(kbuild.load(kbuild.KERNELS[kernel]), name)
         f.restype = ctypes.c_int
         f.argtypes = _ARGTYPES[name]
         _fns[name] = f
@@ -212,7 +261,7 @@ def _meta(*views: torch.Tensor):
             vals += [x.stride(0), 0, x.stride(1), x.shape[1]]
         else:
             vals += [x.stride(0), x.stride(1), x.stride(2), x.shape[2]]
-    return (ctypes.c_longlong * 16)(*vals)
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _launched(rc: int, what: str, kernel: str) -> None:
@@ -226,36 +275,30 @@ def _launched(rc: int, what: str, kernel: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_lse(q, k, v, causal: bool = False, scale=None, out=None):
-    """``(o, lse)`` of exact attention: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.
-
-    q, k, v: one shape, (S, H, D) or (S, B, H, D) (batch-major heads, any
-    strides with the head dim contiguous).  o has q's shape (or is written
-    into ``out``, a view of that shape, and returned); lse is
-    (H_all, S) f32 with H_all = H or B*H."""
+def _check_qkv(q, k, v) -> None:
     if q.ndim not in (3, 4) or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q/k/v must share (S, H, D) or (S, B, H, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if out is not None and (out.shape != q.shape or out.dtype != q.dtype):
-        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype}, got "
-                         f"{tuple(out.shape)} {out.dtype}")
-    tensors = [q, k, v] + ([] if out is None else [out])
-    if not _on_cuda(tensors, "flash attention"):
+
+
+def _flash_forward(q, k, v, causal, scale):
+    """K5 or its plain version, outside autograd: ``(o, lse)``."""
+    _check_qkv(q, k, v)
+    if not _on_cuda([q, k, v], "flash attention"):
         o, lse = flash_attention_lse_plain(q, k, v, causal, scale)
-        o = o.reshape(q.shape)
-        if out is None:
-            return o, lse
-        return out.copy_(o), lse
-    _check_operands("flash attention", *tensors)
+        return o.reshape(q.shape), lse
+    _check_operands("flash attention", q, k, v)
     S, D = q.shape[0], q.shape[-1]
     hall = math.prod(q.shape[1:-1])
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device) \
-        if out is None else out
+    if q.ndim == 4:                          # batch-major storage
+        o = torch.empty((q.shape[1], S) + q.shape[2:], dtype=q.dtype,
+                        device=q.device).transpose(0, 1)
+    else:
+        o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((hall, S), dtype=torch.float32, device=q.device)
     if q.numel():
-        rc = _fn("da_flash_attention")(
+        rc = _fn("da_flash_attention", "flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _meta(q, k, v, o), S, S, D, hall, int(causal),
             _scale(D, scale), int(q.dtype == torch.bfloat16),
@@ -264,13 +307,135 @@ def flash_attention_lse(q, k, v, causal: bool = False, scale=None, out=None):
     return o, lse
 
 
+class FlashAttention(torch.autograd.Function):
+    """``(o, lse)`` of flash attention with the FlashAttention-2 backward:
+    K5 forward, ``flash_attention_bwd`` (K6 then K7) backward.  lse is not
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = _flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, g, lse, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_lse(q, k, v, causal: bool = False, scale=None):
+    """``(o, lse)`` of exact attention: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors; differentiable in q, k and v.
+
+    q, k, v: one shape, (S, H, D) or (S, B, H, D) (batch-major heads, any
+    strides with the head dim contiguous).  o has q's shape; lse is
+    (H_all, S) f32 with H_all = H or B*H."""
+    return FlashAttention.apply(q, k, v, causal, scale)
+
+
 def flash_attention(q, k, v, causal: bool = False, scale=None):
     """Exact attention over (S, H, D) tensors without the S x S score
     matrix: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors; differentiable in q, k and v."""
     if q.ndim != 3:
         raise ValueError(f"q/k/v must share (S, H, D), got {tuple(q.shape)}")
     return flash_attention_lse(q, k, v, causal, scale)[0]
+
+
+# ---------------------------------------------------------------------------
+# K6, K7: the FlashAttention-2 backward
+# ---------------------------------------------------------------------------
+
+
+def _bwd_launch(kernel: str, q, k, v, do, lse, dd, outs, qoff, koff,
+                causal, scale) -> None:
+    """Launch K6 (``outs`` = (dq,)) or K7 (``outs`` = (dk, dv)) on (S, H, D)
+    or (S, B, H, D) views of one shape (head dim contiguous); lse and dd
+    (H_all, S) f32."""
+    what = "flash attention backward"
+    _check_operands(what, q, k, v, do)
+    if any(t.stride(-1) != 1 for t in outs):
+        raise ValueError(f"{what} needs the head dim of its outputs "
+                         "contiguous")
+    S, D = q.shape[0], q.shape[-1]
+    hall = math.prod(q.shape[1:-1])
+    for name, t in (("lse", lse), ("dd", dd)):
+        if tuple(t.shape) != (hall, S) or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous "
+                             f"({hall}, {S}) float32")
+    if not q.numel():
+        return
+    views = (q, k, v, do) + ((outs[0], outs[0], outs[0]) if len(outs) == 1
+                             else (outs[0], outs[0], outs[1]))
+    fn = "da_flash_bwd_dq" if kernel.endswith("dq") else "da_flash_bwd_dkv"
+    rc = _fn(fn, kernel)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dd.data_ptr(), *(o.data_ptr() for o in outs),
+        _meta(*views), S, S, D, hall, int(qoff), int(koff), int(causal),
+        _scale(D, scale), int(q.dtype == torch.bfloat16),
+        int(outs[0].dtype == torch.float32), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(rc, what, kernel)
+
+
+def _bwd_kernels(q, k, v, do, lse, dd, dq, dk, dv, qoff, koff, causal,
+                 scale) -> None:
+    """K6 into dq, then K7 into dk and dv."""
+    _bwd_launch("flash_attention_bwd_dq", q, k, v, do, lse, dd, (dq,), qoff,
+                koff, causal, scale)
+    _bwd_launch("flash_attention_bwd_dkv", q, k, v, do, lse, dd, (dk, dv),
+                qoff, koff, causal, scale)
+
+
+def flash_attention_bwd(q, k, v, o, g, lse, causal: bool = False,
+                        scale=None):
+    """``(dq, dk, dv)`` of flash attention, in q's type and shape, from the
+    forward's ``o`` and ``lse`` and the cotangent ``g`` of o: dd =
+    rowsum(g * o) in f32 from the full-precision g, do = g in q's type,
+    then K6 and K7 for CUDA tensors (the plain version for CPU tensors).
+    Layouts as ``flash_attention_lse``'s."""
+    _check_qkv(q, k, v)
+    S, D = q.shape[0], q.shape[-1]
+    dd = (g.float() * o.float()).sum(-1).reshape(S, -1).t().contiguous()
+    do = g.to(q.dtype)
+    if not _on_cuda([q, k, v, o, g, lse], "flash attention backward"):
+        heads = lambda x: x.reshape(S, -1, D).transpose(0, 1)
+        grads = flash_attention_bwd_plain(*map(heads, (q, k, v, do)), lse, dd,
+                                          0, 0, causal, scale)
+        return tuple(x.transpose(0, 1).reshape(q.shape) for x in grads)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    _bwd_kernels(q, k, v, do, lse, dd, dq, dk, dv, 0, 0, causal, scale)
+    return dq, dk, dv
+
+
+def flash_attention_hop_bwd(q, k, v, do, lse, dd, qoff, koff,
+                            causal: bool = False, scale=None):
+    """Backward of one ring hop: the f32 ``(dq, dk, dv)`` contributions of
+    the (H, B, D) q block against the (H, B, D) k/v block, from the final
+    lse and dd = rowsum(do * o), both (H, B) f32; ``qoff``/``koff`` are the
+    blocks' global positions.  Callers sum the contributions."""
+    if q.ndim != 3 or any(x.shape != q.shape for x in (k, v, do)):
+        raise ValueError(f"q/k/v/do must share (H, B, D), got "
+                         f"{[tuple(x.shape) for x in (q, k, v, do)]}")
+    if not _on_cuda([q, k, v, do, lse, dd], "flash hop backward"):
+        return flash_attention_bwd_plain(q, k, v, do, lse, dd, qoff, koff,
+                                         causal, scale, torch.float32)
+    outs = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
+            for _ in range(3)]
+    # (B, H, D) views, as the kernels take rows first
+    _bwd_kernels(*(x.transpose(0, 1) for x in (q, k, v, do)), lse, dd,
+                 *(x.transpose(0, 1) for x in outs), qoff, koff, causal,
+                 scale)
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +464,7 @@ def flash_attention_hop(q, k, v, m, l, acc, qoff, koff,
     _check_operands("flash hop", q, k, v)
     if q.numel():
         qh, kh, vh = (x.transpose(0, 1) for x in (q, k, v))  # (B, H, D) views
-        rc = _fn("da_flash_hop")(
+        rc = _fn("da_flash_hop", "flash_attention_hop")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
             l.data_ptr(), acc.data_ptr(), _meta(qh, kh, vh, qh), B, B, D, H,
             int(qoff), int(koff), int(causal), _scale(D, scale),
@@ -323,7 +488,7 @@ def ring_attn_step(q, kc, vc, o, m, l, acc, fk, fv, qoff: int, koff: int,
     step writes o (b, h, dh).  Every tensor is contiguous on one card but
     ``fk``/``fv``, which may be a peer card's."""
     b, h, dh = q.shape
-    rc = _fn("da_ring_attn_step")(
+    rc = _fn("da_ring_attn_step", "ring_attention")(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
         m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         None if fk is None else fk.data_ptr(),

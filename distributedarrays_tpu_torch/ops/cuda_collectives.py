@@ -1,9 +1,9 @@
 """Collective kernels over rank tensors: the hand-written CUDA kernels
 (``csrc/collectives.cu``) and their plain versions.
 
-PyTorch counterpart of ``ring_all_gather``, ``ring_all_to_all`` and
-``ring_allgather_matmul_rhs`` in ``distributedarrays_tpu/ops/
-pallas_collectives.py``.  Each function takes the p ranks' tensors in ring
+PyTorch counterpart of ``ring_all_gather``, ``ring_all_to_all``,
+``ring_reduce_scatter`` and ``ring_allgather_matmul_rhs`` in
+``distributedarrays_tpu/ops/pallas_collectives.py``.  Each function takes the p ranks' tensors in ring
 order (as the JAX functions take one shard per ``axis_index``) and returns
 one tensor per rank, on that rank's device.  For CPU tensors it takes the
 plain version; for CUDA tensors it launches the kernel or raises, with no
@@ -20,11 +20,21 @@ not used.
   ``q`` of every rank's block split along ``split_dim``, concatenated along
   ``concat_dim`` (``lax.all_to_all(..., tiled=True)``).
 
-  Both pull: one launch per destination rank copies every source's block or
-  piece straight to its final offset (pure data movement, bit-identical to
-  the plain version).  The JAX kernels' chunk depth (``chunks``,
-  ``_chunk_fit``) only bounds the TPU's VMEM staging; nothing is staged
-  here, so there is no chunk argument.
+- ``ring_reduce_scatter(blocks, dim)``: rank ``d`` gets the sum of piece
+  ``d`` of every rank's block split along ``dim``
+  (``lax.psum_scatter(..., tiled=True)``), summed in the TPU ring's arrival
+  order (``parallel.collectives.psum_scatter``).
+
+  All three pull: one launch per destination rank copies every source's
+  block or piece straight to its final offset (pure data movement,
+  bit-identical to the plain version), or, for the reduce-scatter, reads
+  piece ``d`` of every rank and writes their fold in the plain version's
+  order, bit-identical to it too.  The JAX kernels' chunk depth
+  (``chunks``, ``_chunk_fit``) and the reduce-scatter's VMEM gate
+  (``_rs_vmem_bytes``) only bound the TPU's VMEM staging of pieces and
+  travelling partials; nothing is staged here and no partial is stored, so
+  there is no chunk argument and no gate.  float32 or bfloat16 for the
+  reduce-scatter.
 
 - ``ring_allgather_matmul_rhs(a_blocks, b_blocks)``: rank ``r`` gets
   ``a_r @ all_gather(b)``, with b's chunks travelling the ring: at step t
@@ -47,14 +57,14 @@ from typing import Sequence
 
 import torch
 
-from ..parallel.collectives import pall_to_all, pgather, pshift
+from ..parallel.collectives import pall_to_all, pgather, pshift, psum_scatter
 from ..utils import kbuild
 
-__all__ = ["ring_all_gather", "ring_all_to_all", "ring_allgather_matmul_rhs",
-           "all_gather_plain", "all_to_all_plain",
-           "allgather_matmul_rhs_plain"]
+__all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
+           "ring_allgather_matmul_rhs", "all_gather_plain", "all_to_all_plain",
+           "reduce_scatter_plain", "allgather_matmul_rhs_plain"]
 
-MAXP = 32                    # sources one copy launch takes (collectives.cu)
+MAXP = 32                    # sources one launch takes (collectives.cu)
 _RING_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -79,9 +89,11 @@ def _check_contiguous(tensors, what):
 # ---------------------------------------------------------------------------
 
 
-# the plain all-gather and all-to-all are the rank-list collectives
+# the plain all-gather, all-to-all and reduce-scatter are the rank-list
+# collectives
 all_gather_plain = pgather
 all_to_all_plain = pall_to_all
+reduce_scatter_plain = psum_scatter
 
 
 def allgather_matmul_rhs_plain(a_blocks, b_blocks) -> list[torch.Tensor]:
@@ -119,6 +131,10 @@ def _fn(name: str):
         if name == "da_copy_pieces":
             f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
                 [ctypes.c_int, ctypes.c_void_p]
+        elif name == "da_reduce_pieces":
+            f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
+                [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p]
         else:                                # da_ring_ag_mm_step
             f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
                 [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + \
@@ -210,17 +226,17 @@ class _Order:
                 s.wait_event(ev)
 
 
-def _pull(devs, shape, dtype, pairs_for, kernel) -> list[torch.Tensor]:
-    """One copy launch per destination rank, all free to run at once: each
-    waits for every source card's stream, and every card's stream waits for
-    all the launches before it goes on."""
+def _pull(devs, shape, dtype, fill) -> list[torch.Tensor]:
+    """One launch per destination rank, ``fill(q, out, dev)``, all free to
+    run at once: each waits for every source card's stream, and every
+    card's stream waits for all the launches before it goes on."""
     order = _Order(devs)
     ready = [order.mark(d) for d in devs]
     outs, done = [], []
     for q, dev in enumerate(devs):
         out = torch.empty(shape, dtype=dtype, device=dev)
         order.wait(dev, ready)
-        _copy_pieces(pairs_for(q, out), dev, kernel)
+        fill(q, out, dev)
         done.append(order.mark(dev))
         outs.append(out)
     for dev in devs:
@@ -257,9 +273,10 @@ def ring_all_gather(blocks: Sequence[torch.Tensor],
     shape = list(ref.shape)
     shape[dim] = sum(sizes)
     return _pull([b.device for b in blocks], shape, ref.dtype,
-                 lambda q, out: [(b, out.narrow(dim, o, n))
-                                 for b, o, n in zip(blocks, offs, sizes)],
-                 "all_gather")
+                 lambda q, out, dev: _copy_pieces(
+                     [(b, out.narrow(dim, o, n))
+                      for b, o, n in zip(blocks, offs, sizes)],
+                     dev, "all_gather"))
 
 
 def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
@@ -287,10 +304,67 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
     cext = shape[concat_dim]                 # a piece's extent there
     shape[concat_dim] = cext * p
     return _pull([b.device for b in blocks], shape, ref.dtype,
-                 lambda q, out: [(b.narrow(split_dim, q * sblk, sblk),
-                                  out.narrow(concat_dim, r * cext, cext))
-                                 for r, b in enumerate(blocks)],
-                 "all_to_all")
+                 lambda q, out, dev: _copy_pieces(
+                     [(b.narrow(split_dim, q * sblk, sblk),
+                       out.narrow(concat_dim, r * cext, cext))
+                      for r, b in enumerate(blocks)],
+                     dev, "all_to_all"))
+
+
+# ---------------------------------------------------------------------------
+# reduce-scatter (K12)
+# ---------------------------------------------------------------------------
+
+
+def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
+                        dim: int = 0) -> list[torch.Tensor]:
+    """Rank ``d`` gets the sum of piece ``d`` of every rank's block (split
+    along ``dim``), on its own device, summed in the TPU ring's arrival
+    order: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    blocks = list(blocks)
+    p = len(blocks)
+    if not blocks:
+        return []
+    ref = blocks[0]
+    dim = dim % ref.ndim
+    if any(b.shape != ref.shape or b.dtype != ref.dtype for b in blocks):
+        raise ValueError("reduce-scatter blocks must agree in shape and dtype")
+    if ref.shape[dim] % p:
+        raise ValueError(f"scatter extent {ref.shape[dim]} is not divisible "
+                         f"by the {p} ranks")
+    if not _on_cuda(blocks):
+        return reduce_scatter_plain(blocks, dim)
+    if ref.dtype not in _RING_DTYPES:
+        raise TypeError(f"the reduce-scatter kernel takes float32 or "
+                        f"bfloat16, got {ref.dtype}")
+    if p > MAXP:
+        raise ValueError(f"the reduce-scatter kernel takes at most {MAXP} "
+                         f"ranks, got {p}")
+    _check_contiguous(blocks, "reduce-scatter")
+    oblk = ref.shape[dim] // p
+    shape = list(ref.shape)
+    shape[dim] = oblk
+    isz = ref.element_size()
+
+    def fill(d, out, dev):
+        srcs = [blocks[(d + k) % p].narrow(dim, d * oblk, oblk)
+                for k in range(1, p + 1)]
+        if out.numel() == 0:
+            return
+        sizes, sstr, _, run = _box(srcs[0], out)
+        rc = _fn("da_reduce_pieces")(
+            p, (ctypes.c_void_p * p)(*[s.data_ptr() for s in srcs]),
+            (ctypes.c_longlong * 3)(*sizes),
+            (ctypes.c_longlong * 3)(*[x // isz for x in sstr]), run // isz,
+            out.data_ptr(), int(ref.dtype == torch.bfloat16), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"reduce-scatter kernel launch failed: CUDA "
+                               f"error {rc}")
+        kbuild.count("reduce_scatter")
+
+    return _pull([b.device for b in blocks], shape, ref.dtype, fill)
 
 
 # ---------------------------------------------------------------------------

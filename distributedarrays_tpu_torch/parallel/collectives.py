@@ -1,7 +1,8 @@
 """Collectives over rank tensors, written in plain torch.
 
 PyTorch counterpart of ``halo_exchange``, ``pshift``, ``pgather`` and
-``pall_to_all`` in ``distributedarrays_tpu/parallel/collectives.py``.
+``pall_to_all`` in ``distributedarrays_tpu/parallel/collectives.py``, and
+of ``lax.psum_scatter`` as ``psum_scatter``.
 There each is a ``lax`` collective inside a ``shard_map``; here the
 controller holds every rank's tensor, so a collective takes the list of the
 ranks' tensors in ring order (one per ``axis_index``) and returns a list,
@@ -18,7 +19,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["halo_exchange", "pshift", "pgather", "pall_to_all"]
+__all__ = ["halo_exchange", "pshift", "pgather", "pall_to_all", "psum_scatter"]
 
 
 def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
@@ -86,3 +87,25 @@ def pall_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
     pieces = [b.tensor_split(p, split_dim) for b in blocks]
     return [torch.cat([pieces[r][q].to(b.device) for r in range(p)],
                       concat_dim) for q, b in enumerate(blocks)]
+
+
+def psum_scatter(blocks: Sequence[torch.Tensor],
+                 dim: int = 0) -> list[torch.Tensor]:
+    """Reduce-scatter (``lax.psum_scatter(..., tiled=True)``): every rank's
+    block splits along ``dim`` into one piece per rank, and rank ``d`` gets
+    the sum of every rank's piece ``d`` on its own device.  The sum is the
+    TPU ring's arrival order: the left fold over ranks d+1, d+2, ..., d+p
+    (mod p), each add rounded to the blocks' type."""
+    p = len(blocks)
+    for b in blocks:
+        if b.shape[dim] % p:
+            raise ValueError(f"scatter extent {b.shape[dim]} is not "
+                             f"divisible by the {p} ranks")
+    pieces = [b.tensor_split(p, dim) for b in blocks]
+    out = []
+    for d, b in enumerate(blocks):
+        acc = pieces[(d + 1) % p][d].to(b.device, copy=True)
+        for k in range(2, p + 1):
+            acc = acc + pieces[(d + k) % p][d].to(b.device)
+        out.append(acc.contiguous())
+    return out

@@ -41,9 +41,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
            "stencil_multistep": "stencil", "matmul_int8": "gemm_int8",
            "all_gather": "collectives", "all_to_all": "collectives",
+           "reduce_scatter": "collectives",
            "allgather_matmul_rhs": "collectives",
            "flash_attention": "attention", "flash_attention_hop": "attention",
-           "ring_attention": "attention"}
+           "ring_attention": "attention",
+           "flash_attention_bwd_dq": "attention_bwd",
+           "flash_attention_bwd_dkv": "attention_bwd"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -118,11 +118,15 @@ def test_cpu_tensors_leave_kernel_counts_at_zero():
         *tdat.cuda_attention.flash_carry_init(2, 16, 8), 0, 0, True)
     d = tdat.distribute(qkv[0].numpy(), dist=(4, 1, 1))
     tdat.ring_attention(d, d, d, causal=True)
+    q = qkv[0].clone().requires_grad_(True)
+    tdat.flash_attention(q, qkv[1], qkv[2], causal=True).sum().backward()
+    tdat.cuda_collectives.ring_reduce_scatter([t, t], 0)
     assert tdat.kbuild.launch_counts() == {
         "gemm": 0, "stencil_step": 0, "stencil_multistep": 0,
         "matmul_int8": 0, "all_gather": 0, "all_to_all": 0,
-        "allgather_matmul_rhs": 0, "flash_attention": 0,
-        "flash_attention_hop": 0, "ring_attention": 0}
+        "reduce_scatter": 0, "allgather_matmul_rhs": 0,
+        "flash_attention": 0, "flash_attention_hop": 0, "ring_attention": 0,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 def test_kernel_wrappers_refuse_unsupported_devices():

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import distributedarrays_tpu_torch as tdat
 from distributedarrays_tpu.models import transformer as JT
 from distributedarrays_tpu_torch.models import transformer as TT
+from distributedarrays_tpu_torch.models._autodiff import value_and_grad
 from distributedarrays_tpu_torch.ops.cuda_attention import (
     flash_attention_plain)
 
@@ -138,3 +139,51 @@ def test_init_params_shapes_scales_and_seed():
     assert abs(float(a.blocks[0].w2.float().std()) - 128 ** -0.5) < 0.02
     logits = TT.forward(a, _tokens((2, 16), 2), cfg)
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# training: loss_fn and train_step
+# ---------------------------------------------------------------------------
+
+
+def test_loss_fn_matches_jax_and_serving_builds_no_graph():
+    jcfg, tcfg, jp, model = _pair(torch.float32)
+    tok = _tokens((3, 12), 20)
+    want = float(JT.loss_fn(jp, tok, jcfg))
+    got = TT.loss_fn(model, tok, tcfg)
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+    # the parameters serve without a graph: forward's logits need no grad
+    assert not got.requires_grad
+    assert not TT.forward(model, tok, tcfg).requires_grad
+
+
+def test_train_step_matches_jax_f32():
+    jcfg, tcfg, jp, model = _pair(torch.float32)
+    for step in range(3):
+        tok = _tokens((2, 13), 30 + step)
+        jp, jl = JT.train_step(jp, tok, 0.5, jcfg)
+        model2, tl = TT.train_step(model, tok, 0.5, tcfg)
+        assert model2 is model and not tl.requires_grad
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert all(not p.requires_grad for p in model.parameters())
+    back = tdat.params_to_reference(model)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(jp)):
+        np.testing.assert_allclose(a, np.asarray(b, np.float32), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_train_step_bf16_updates_in_f32_arithmetic():
+    # bf16 parameters: the update is computed in f32 and rounded once
+    jcfg, tcfg, jp, model = _pair(torch.bfloat16)
+    tok = _tokens((2, 9), 40)
+    before = [p.detach().clone() for p in model.parameters()]
+    ps = list(model.parameters())
+    loss, grads = value_and_grad(lambda: TT.loss_fn(model, tok, tcfg), ps)
+    _, tl = TT.train_step(model, tok, 2.0, tcfg)
+    assert float(tl) == float(loss)
+    for p, p0, g in zip(model.parameters(), before, grads):
+        assert p.dtype == torch.bfloat16
+        assert torch.equal(p, (p0.float() - 2.0 * g.float()).bfloat16())
+    _, jl = JT.train_step(jp, tok, 2.0, jcfg)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=3e-2)
