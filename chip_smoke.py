@@ -101,7 +101,24 @@
      three Adam steps, each launching 4 K10, 4 K12 and 32 K5, K6 and K7
      (8 a rank); two SGD steps on 4 ranks against the same two on one rank
      (losses to 1e-4, flat parameters <= 1e-5).  Prints ms per step and
-     the peak device memory.
+     the peak device memory;
+   - the ring GEMMs against their plain versions with four ranks on the
+     card: K13 (4 x (2048, 1024) @ (1024, 1024)), K15 (4 x (8192, 1024) @
+     (1024, 1024)) and K14 at its weight-gradient shape (4 x (1024, 8192)
+     with (2048, 1024) chunks), in bf16 (relative Frobenius error <= 5e-4,
+     held against a control, the plain ring with f32 products and sums,
+     that must read above it) and f32 (<= 1e-5), and at ragged f32 shapes
+     (m_loc 1000, k 768, n 300);
+   - sequence-parallel training at the full width of ``SPConfig(8192,
+     1024, 16, 8, 4, 8192, bf16)`` with four ranks on the card, tokens (1,
+     8192): a gradient step must launch 128 each of K8, K6 and K7 and 256
+     each of K13, K14 and K15 (no K5, no K9), and its loss and gradients
+     agree with the dense flagship ``transformer.loss_fn`` on one rank (loss
+     <= 1e-2, every gradient <= 5e-2, the w1/w2 shards joined); the zigzag
+     layout (288 hops of each attention kernel) against the contiguous
+     step alike; three SGD steps (lr 0.3, the loss must fall, counts read
+     around each) and two Adam steps (lr 1e-3, the loss must fall).  Prints
+     ms per step, training tokens/s and the peak device memory.
 8. With two or more cards, one rank per card with peer access: the
    all-gather, all-to-all and ring GEMM kernels against their plain
    versions on a 16384^2 f32 array, and K9 at S = 8192 bf16, and their
@@ -114,15 +131,19 @@
    (torch.matmul for the GEMMs, F.conv2d with TF32 off for the stencils,
    torch._int_mm and the dequantizing multiply for the int8 GEMM,
    torch.cat of the same pieces for the all-gather and all-to-all,
-   torch.cat then torch.matmul for the ring GEMM,
+   torch.cat then torch.matmul for the ring GEMMs K13 and K14 and one
+   torch.matmul per rank then torch.stack(...).sum(0) per destination for
+   K15,
    F.scaled_dot_product_attention at the same shape for K5 and over the
    whole sequence for K9, its backward for K6 and K7; K8 has none;
    torch.stack(...).sum(0) per destination for K12), and prints them as
    one JSON line.
 
-``python3 chip_smoke.py --profile`` runs one full-width ``train_step`` and
-one 4-rank ``Trainer`` step under ``torch.profiler`` instead, and prints
-their device time by kernel and by kind and the device's idle share.
+``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
+4-rank ``Trainer`` step and one sequence-parallel step under
+``torch.profiler`` instead, and prints their device time by kernel and by
+kind and the device's idle share.  ``python3 chip_smoke.py --ring-gemms``
+builds the collectives alone and checks and times K13, K14 and K15.
 
 The last line is ``{"ok": true, "device": {...}}``; any failing phase raises
 and the script exits non-zero.  Without a CUDA device it exits 1 at once.
@@ -174,6 +195,17 @@ TOL_TRAIN_BF16 = 5e-2
 # must land above it: chip_smoke checks that control too.
 TOL_BWD_BF16 = 5e-4
 TRAIN_LR = 0.3        # SGD on one fixed batch of random tokens
+# the sequence-parallel transformer: bench.py's sp_train entry, bf16, on
+# (1, 8192) tokens, 4 ranks on one card
+SP_CFG = (8192, 1024, 16, 8, 4, 8192)
+SP_LR = 0.3           # SGD on one fixed batch, as the flagship's train_step
+SP_ADAM_LR = 1e-3
+# the sequence-parallel step against the dense flagship on one rank: the same
+# bf16 parameters and tokens through other kernels (K8 hops and ring GEMMs
+# against K5 and torch.matmul), each rounding the bf16 residual stream and
+# its gradient in its own order; the train_step check's TOL_TRAIN_BF16
+TOL_SP_LOSS = 1e-2
+TOL_SP_GRAD = 5e-2
 TRAIN_CFG = (8192, 1024, 16, 8, 4, 2048)     # the flagship, bf16
 # the 4-rank trainer against the 1-rank trainer on the same two SGD steps:
 # the same per-rank arithmetic, the gradient summed over ranks in the ring
@@ -273,6 +305,187 @@ def ring_bf16_p_plain(q_blocks, k_blocks, v_blocks, causal: bool):
         out.append(CA.flash_carry_finalize(*carry, q.dtype)[0]
                    .transpose(0, 1))
     return out
+
+
+# the sequence-parallel FFN's ring GEMMs at their training shapes (4 ranks,
+# s = 8192, e = 1024, f = 4096): (name, x block, w block) per rank
+RING_GEMM_SHAPES = (("allgather_matmul", (2048, 1024), (1024, 1024)),
+                    ("matmul_reducescatter", (8192, 1024), (1024, 1024)),
+                    ("allgather_matmul_rhs", (1024, 8192), (2048, 1024)))
+# bf16 ring GEMMs against their plain versions: the same bf16 products
+# (exact in f32) summed in f32 in another order, so a few outputs round to
+# the neighbouring bf16 value.  A control, the plain ring with every product
+# and partial sum left in f32 and rounded once at the end (for K13, whose
+# blocks are each rounded once already, not rounded at all), must land
+# above it.
+TOL_RING_GEMM_BF16 = 5e-4
+
+
+def ring_gemm_fns(name: str):
+    """(kernel, plain) of one ring GEMM over rank lists."""
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    return {"allgather_matmul": (CC.ring_allgather_matmul,
+                                 CC.allgather_matmul_plain),
+            "matmul_reducescatter": (CC.ring_matmul_reducescatter,
+                                     CC.matmul_reducescatter_plain),
+            "allgather_matmul_rhs": (CC.ring_allgather_matmul_rhs,
+                                     CC.allgather_matmul_rhs_plain)}[name]
+
+
+def ring_gemm_control(name: str, xs, ws) -> list[torch.Tensor]:
+    """The bf16 control: every rank's result with f32 products and sums,
+    rounded once to bf16 (K14, K15) or left in f32 (K13)."""
+    p = len(xs)
+    if name == "allgather_matmul":
+        whole = torch.cat(xs).float()
+        return [whole @ w.float() for w in ws]
+    if name == "allgather_matmul_rhs":
+        whole = torch.cat(ws).float()
+        return [(x.float() @ whole).bfloat16() for x in xs]
+    m = xs[0].shape[0] // p
+    return [sum(x[d * m:(d + 1) * m].float() @ w.float()
+                for x, w in zip(xs, ws)).bfloat16() for d in range(p)]
+
+
+def ring_gemm_kernels(randn, errs) -> None:
+    """K13, K15 (and K14 on the tensor cores) against their plain versions
+    with 4 ranks on the card: the sequence-parallel shapes in bf16 and f32,
+    and ragged f32 shapes that no tile divides."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("phase ring GEMM kernels (4 ranks on one card)")
+    ragged = {"allgather_matmul": ((1000, 768), (768, 300)),
+              "matmul_reducescatter": ((4000, 768), (768, 300)),
+              "allgather_matmul_rhs": ((1000, 4 * 192), (192, 300))}
+    for name, xshape, wshape in RING_GEMM_SHAPES:
+        kern, plain = ring_gemm_fns(name)
+        for (xs_, ws_), dt in (((xshape, wshape), bf16),
+                               ((xshape, wshape), f32),
+                               (ragged[name], f32)):
+            xs = [randn(*xs_, dtype=dt) for _ in range(4)]
+            ws = [randn(*ws_, dtype=dt) / 32 for _ in range(4)]
+            got, ref = kern(xs, ws), plain(xs, ws)
+            torch.cuda.synchronize()
+            what = f"{name} 4 x {xs_} @ {ws_} {dt}"
+            err = max(rel_err(g, r) for g, r in zip(got, ref))
+            check(what, err, TOL_RING_GEMM_BF16 if dt == bf16 else TOL_F32)
+            errs[name] = max(errs[name], max(max_abs(g, r)
+                                             for g, r in zip(got, ref)))
+            if dt == bf16:
+                ctl = max(rel_err(c, r) for c, r in zip(
+                    ring_gemm_control(name, xs, ws), ref))
+                print(f"  control, {name} with f32 products and sums: "
+                      f"rel_err={ctl:.3e} (must exceed "
+                      f"{TOL_RING_GEMM_BF16:g})")
+                if not ctl > TOL_RING_GEMM_BF16:
+                    raise AssertionError(f"{name}'s bf16 tolerance does not "
+                                         "separate the f32 control")
+            del xs, ws, got, ref
+    torch.cuda.empty_cache()
+
+
+def ring_gemm_timings(randn, extra: dict) -> list[dict]:
+    """Timing rows of K13 and K15 at the sequence-parallel FFN's bf16
+    shapes, 4 ranks on one card, and into ``extra`` their f32 times and
+    K14's at its bf16 weight-gradient shape.  Bound: 2*m*n*k operations
+    over all ranks and steps at the type's peak rate, against the bytes of
+    each input read once and each output written once.  Library: the same
+    products as one ``torch.matmul`` per rank on the gathered operand (K13,
+    K14), or per rank and then ``torch.stack(...).sum(0)`` per destination
+    (K15)."""
+    rows = []
+    lines = {"allgather_matmul": 735, "matmul_reducescatter": 886}
+    for (name, xshape, wshape), dt in (
+            (RING_GEMM_SHAPES[0], torch.bfloat16),
+            (RING_GEMM_SHAPES[1], torch.bfloat16),
+            (RING_GEMM_SHAPES[2], torch.bfloat16),
+            (RING_GEMM_SHAPES[0], torch.float32),
+            (RING_GEMM_SHAPES[1], torch.float32)):
+        kern, plain = ring_gemm_fns(name)
+        xs = [randn(*xshape, dtype=dt) for _ in range(4)]
+        ws = [randn(*wshape, dtype=dt) / 32 for _ in range(4)]
+        if name == "allgather_matmul":
+            out_elems = 4 * 4 * xshape[0] * wshape[1]
+            flops = 2 * 4 * 4 * xshape[0] * xshape[1] * wshape[1]
+
+            def library():
+                whole = torch.cat(xs)
+                return [whole @ w for w in ws]
+        elif name == "allgather_matmul_rhs":
+            out_elems = 4 * xshape[0] * wshape[1]
+            flops = 2 * 4 * xshape[0] * xshape[1] * wshape[1]
+
+            def library():
+                whole = torch.cat(ws)
+                return [x @ whole for x in xs]
+        else:
+            m = xshape[0] // 4
+            out_elems = 4 * m * wshape[1]
+            flops = 2 * 4 * xshape[0] * xshape[1] * wshape[1]
+
+            def library():
+                parts = [x @ w for x, w in zip(xs, ws)]
+                return [torch.stack([pt[d * m:(d + 1) * m] for pt in parts])
+                        .sum(0) for d in range(4)]
+        isz = xs[0].element_size()
+        nbytes = isz * (4 * xs[0].numel() + 4 * ws[0].numel() + out_elems)
+        bms, bby = bound(nbytes, flops,
+                         BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        row = {"ms": time_ms(lambda: kern(xs, ws)),
+               "plain_ms": time_ms(lambda: plain(xs, ws)),
+               "bound_ms": bms, "bound_by": bby,
+               "library_ms": time_ms(library)}
+        shape = f"4 ranks x ({xshape} @ {wshape}) {dt} on one card"
+        if name in lines and dt == torch.bfloat16:
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "distributedarrays_tpu_torch/csrc/collectives.cu",
+                "replaces": f"distributedarrays_tpu/ops/pallas_collectives.py:"
+                            f"{lines[name]}",
+                "shape": shape + " (the sequence-parallel FFN, s 8192, e "
+                                 "1024, f 4096)", **row})
+        else:
+            extra[f"{name} {shape}"] = row
+        del xs, ws
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ring_gemms_only() -> int:
+    """``--ring-gemms``: build the collectives and check K13, K14 and K15
+    against their plain versions, then time K13 and K15 (a quick kernel
+    check on the card)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    for line in tdat.kbuild.build_log.get("collectives", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas collectives: {line.strip()}")
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs = {k: 0.0 for k in tdat.kbuild.KERNELS}
+    ring_gemm_kernels(randn, errs)
+    extra = {}
+    rows = ring_gemm_timings(randn, extra)
+    print(json.dumps({"timings_extra": extra, "gpu": smi}))
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def attention_kernels(randn, errs) -> None:
@@ -736,6 +949,138 @@ def training(tdat, dev) -> dict:
     return counts
 
 
+def sp_step_launches(layers: int, zigzag: bool) -> dict:
+    """Kernel launches of one sequence-parallel gradient step with 4 ranks:
+    per layer 16 hops (contiguous) or 36 quadrant hops (zigzag: 2p + 1 per
+    rank) of K8 forward and K6 + K7 backward, and 16 launches a call of K13
+    and K15 (forward and backward) and of K14 (the two weight gradients)."""
+    hops = (36 if zigzag else 16) * layers
+    return {"flash_attention_hop": hops, "flash_attention_bwd_dq": hops,
+            "flash_attention_bwd_dkv": hops, "allgather_matmul": 32 * layers,
+            "matmul_reducescatter": 32 * layers,
+            "allgather_matmul_rhs": 32 * layers, "flash_attention": 0,
+            "ring_attention": 0}
+
+
+def expect_launches(what: str, counts: dict, want: dict) -> None:
+    got = {k: counts[k] for k in want}
+    print(f"  {what} launches {got}")
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, expected {want}")
+
+
+def worst_grad(grads: dict, ref: dict) -> tuple[float, str]:
+    return max((rel_err(grads[n], ref[n]), n) for n in ref)
+
+
+def sp_training(tdat, dev) -> dict:
+    """Phase 7d: the sequence-parallel transformer at full width, 4 ranks
+    on the card (``SPConfig(8192, 1024, 16, 8, 4, 8192, bf16)``, tokens (1,
+    8192)): one gradient step's launches and its loss and gradients against
+    the dense flagship on one rank; the zigzag layout's step against the
+    contiguous one; three SGD steps (the loss must fall) and two Adam
+    steps.  Returns the launches of the three SGD steps."""
+    from distributedarrays_tpu_torch.models._autodiff import value_and_grad
+    SP, T = tdat.sp_transformer, tdat.transformer
+    S, L = SP_CFG[5], SP_CFG[3]
+    ranks = [0, 1, 2, 3]
+    print(f"phase sequence-parallel training (4 ranks on one card, "
+          f"SPConfig{SP_CFG} bf16, tokens (1, {S}), lr {SP_LR})")
+    tdat.init(nranks=4)
+    kbuild = tdat.kbuild
+    cfg = SP.SPConfig(*SP_CFG, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    model = SP.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kbuild.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kbuild.launch_counts()
+
+    # one gradient step, against the dense flagship on the same weights
+    shards = SP.shard_params(model, ranks)
+    (loss, grads), counts = counted(
+        lambda: SP.make_grad_fn(ranks, cfg)(shards, tokens))
+    expect_launches("sequence-parallel gradient step", counts,
+                    sp_step_launches(L, False))
+    full = SP.unshard(grads, cfg)
+    del grads
+    dcfg = T.Config(*SP_CFG, torch.bfloat16)
+    names, leaves = zip(*model.named_parameters())
+    (dloss, dgrads), dcounts = counted(lambda: value_and_grad(
+        lambda: T.loss_fn(model, tokens, dcfg), leaves))
+    expect_launches("dense flagship gradient step (1 rank)", dcounts,
+                    {"flash_attention": L, "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L})
+    dense = dict(zip(names, dgrads))
+    del dgrads
+    print(f"  loss {float(loss)}, dense flagship {float(dloss)}")
+    check("sequence-parallel loss vs dense flagship",
+          abs(float(loss) - float(dloss)) / abs(float(dloss)), TOL_SP_LOSS)
+    err, name = worst_grad(full, dense)
+    check(f"sequence-parallel gradients vs dense flagship, worst parameter "
+          f"{name}", err, TOL_SP_GRAD)
+    del dense
+    # the zigzag layout against the contiguous one
+    zcfg = SP.SPConfig(*SP_CFG, torch.bfloat16, zigzag=True)
+    perm = torch.from_numpy(tdat.zigzag_order(S, 4)).to(dev)
+    zshards = SP.shard_params(model, ranks)
+    (zloss, zgrads), zcounts = counted(
+        lambda: SP.make_grad_fn(ranks, zcfg)(zshards, tokens[:, perm]))
+    expect_launches("zigzag gradient step", zcounts, sp_step_launches(L, True))
+    check("zigzag loss vs contiguous",
+          abs(float(zloss) - float(loss)) / abs(float(loss)), TOL_SP_LOSS)
+    err, name = worst_grad(SP.unshard(zgrads, zcfg), full)
+    check(f"zigzag gradients vs contiguous, worst parameter {name}", err,
+          TOL_SP_GRAD)
+    del zshards, zgrads, full
+    torch.cuda.empty_cache()
+    # three SGD steps on the fixed batch
+    step = SP.make_train_step(ranks, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, total = [], [], {}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        (_, lv), counts = counted(lambda: step(shards, tokens, SP_LR))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(lv))
+        expect_launches("sequence-parallel SGD step", counts,
+                        sp_step_launches(L, False))
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  sgd losses {losses}, peak {peak:.2f} GiB")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    del shards
+    # two Adam steps
+    ashards = SP.shard_params(model, ranks)
+    astep, ainit = SP.make_optax_train_step(ranks, cfg,
+                                            tdat.train.adam(SP_ADAM_LR))
+    state = ainit(ashards)
+    adam = []
+    for _ in range(2):
+        ashards, state, lv = astep(ashards, state, tokens)
+        adam.append(float(lv))
+    print(f"  adam losses {adam} (lr {SP_ADAM_LR})")
+    if not all(np.isfinite(adam)) or not adam[1] < adam[0]:
+        raise AssertionError(f"the Adam loss did not fall: {adam}")
+    ms = statistics.median(step_ms[1:])
+    print(json.dumps({"sp_training": {
+        "step_ms": ms, "train_tokens_per_s": S / (ms / 1e3),
+        "step_ms_all": step_ms, "peak_gib": peak, "losses": losses,
+        "lr": SP_LR, "adam_losses": adam, "adam_lr": SP_ADAM_LR,
+        "shape": f"SPConfig{SP_CFG} bf16, tokens (1, {S}), 4 ranks on one "
+                 "card, SGD"}}))
+    del ashards, state, model
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return total
+
+
 TRAINER_CFG = dict(vocab=8192, dim=1024, heads=16, layers=8, seq=2048,
                    batch_size=8)
 
@@ -1188,8 +1533,10 @@ def main() -> int:
 
     # -- 7. training: kernels, train_step, the data-parallel Trainer -------
     training_kernels(randn, errs)
+    ring_gemm_kernels(randn, errs)
     counts_train = training(tdat, dev)
     counts_trainer = trainer_phase(tdat)
+    counts_sp_train = sp_training(tdat, dev)
 
     # -- 8. ranks on several cards ------------------------------------------
     across_cards(tdat, cuda_collectives)
@@ -1331,6 +1678,7 @@ def main() -> int:
     del blocks, b_bl
     kernels += attention_timings(randn)
     kernels += training_timings(randn)
+    kernels += ring_gemm_timings(randn, extra)
     for kern in kernels:
         name = kern["name"]
         kern["launches"] = (
@@ -1339,6 +1687,8 @@ def main() -> int:
             if name in ("flash_attention_hop", "ring_attention")
             else counts_train if name.startswith("flash_attention_bwd")
             else counts_trainer if name == "reduce_scatter"
+            else counts_sp_train if name in ("allgather_matmul",
+                                             "matmul_reducescatter")
             else counts_dist)[name]
         kern["max_abs_err"] = errs[name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
@@ -1378,11 +1728,12 @@ def device_breakdown(prof, wall_ms: float, prof_ms: float, what: str) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    kinds = {"flash attention forward (K5)": ("flash_kernel",
-                                              "flash_mma_kernel"),
+    kinds = {"flash attention forward (K5, K8 hops)": ("flash_kernel",
+                                                       "flash_mma_kernel"),
              "attention backward (K6, K7)": ("bwd_dq", "bwd_dkv"),
              "all-gather / reduce-scatter (K10, K12)": (
                  "copy_boxes", "reduce_run", "reduce_pieces"),
+             "ring GEMMs (K13, K14, K15)": ("ring_ag_mm", "ring_mm_rs"),
              "GEMMs (cuBLAS)": ("gemm", "cutlass", "xmma", "nvjet"),
              }
     by_kind = dict.fromkeys(list(kinds) + ["other (elementwise, norms, "
@@ -1403,9 +1754,10 @@ def device_breakdown(prof, wall_ms: float, prof_ms: float, what: str) -> None:
 
 
 def profile_training() -> int:
-    """``--profile``: one full-width ``train_step`` (bf16, one rank) and
-    one 4-rank ``Trainer`` step (f32), each after a warm-up step, under
-    ``torch.profiler``; prints where the device time goes."""
+    """``--profile``: one full-width ``train_step`` (bf16, one rank), one
+    4-rank ``Trainer`` step (f32) and one 4-rank sequence-parallel SGD step
+    (bf16), each after warm-up steps, under ``torch.profiler``; prints
+    where the device time goes."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1440,6 +1792,20 @@ def profile_training() -> int:
             pwall = wall_ms(t.step_once)
     device_breakdown(prof, wall, pwall,
                      "Trainer step, 4 ranks on one card, f32")
+    SP = tdat.sp_transformer
+    scfg = SP.SPConfig(*SP_CFG, torch.bfloat16)
+    shards = SP.shard_params(SP.init_params(scfg, gen, dev), [0, 1, 2, 3])
+    stokens = torch.randint(0, scfg.vocab, (1, SP_CFG[5]), generator=gen,
+                            device=dev, dtype=torch.int32)
+    sstep = SP.make_train_step([0, 1, 2, 3], scfg)
+    sp_step = lambda: sstep(shards, stokens, SP_LR)
+    sp_step()
+    wall = statistics.median(wall_ms(sp_step) for _ in range(5))
+    with profile(activities=acts) as prof:
+        pwall = wall_ms(sp_step)
+    device_breakdown(prof, wall, pwall, f"sequence-parallel SGD step, "
+                     f"SPConfig{SP_CFG} bf16, (1, {SP_CFG[5]}) tokens, 4 "
+                     "ranks on one card")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1449,4 +1815,5 @@ def profile_training() -> int:
 if __name__ == "__main__":
     sys.exit(across_cards_only() if sys.argv[1:] == ["--across-cards"]
              else profile_training() if sys.argv[1:] == ["--profile"]
+             else ring_gemms_only() if sys.argv[1:] == ["--ring-gemms"]
              else main())

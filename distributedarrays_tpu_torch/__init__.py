@@ -24,6 +24,13 @@ names::
     out = T.generate(model, prompt, 64, cfg)  # greedy KV-cache decode
     model, loss = T.train_step(model, batch, 0.5, cfg)   # SGD, in place
 
+    SP = tdat.sp_transformer                  # sequence-parallel training
+    tdat.init(nranks=4)
+    scfg = SP.SPConfig(8192, 1024, 16, 8, 4, 8192)
+    shards = SP.shard_params(SP.init_params(scfg, gen), [0, 1, 2, 3])
+    step = SP.make_train_step([0, 1, 2, 3], scfg)
+    shards, loss = step(shards, tokens_1x8192, 0.3)  # K8/K6/K7, K13/K14/K15
+
     tdat.init(nranks=4)                       # data-parallel training
     task = tdat.train.transformer_task(vocab=8192, dim=1024, heads=16,
                                        layers=8, seq=2048, batch_size=8)
@@ -44,7 +51,7 @@ from .darray import (DArray, SubDArray, darray, dfill, distribute, dones,
                      localpart, locate, makelocal, seed)
 from .parallel import collectives, reshard
 from .parallel.collectives import (halo_exchange, pall_to_all, pgather,
-                                   pshift, psum_scatter)
+                                   preduce, pshift, psum_scatter)
 from .ops import (broadcast, collective_matmul, cuda_attention,
                   cuda_collectives, cuda_gemm, cuda_stencil, linalg, mapreduce)
 from .ops.cuda_attention import flash_attention
@@ -55,10 +62,13 @@ from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
                          dtranspose, lmul_, lmul_diag, matmul, mul_into,
                          rmul_, rmul_diag, tune_matmul_impl,
                          tune_matmul_impl_dist, tune_matmul_impl_summa)
-from .models import mlp, stencil, transformer, ulysses
+from .models import mlp, sp_transformer, stencil, transformer, ulysses
 from .models.ring_attention import (reference_attention, ring_attention,
                                     ring_attention_prefill,
-                                    ring_flash_attention)
+                                    ring_flash_attention, zigzag_order,
+                                    zigzag_ring_attention,
+                                    zigzag_ring_flash_attention,
+                                    zigzag_shard, zigzag_unshard)
 from .models.stencil import stencil3x3, stencil5, stencil5_step
 from .models.ulysses import ulysses_attention
 from .interop import (from_reference, params_from_reference,
@@ -75,7 +85,8 @@ __all__ = [
     "DArray", "SubDArray", "darray", "from_chunks", "dzeros", "dones",
     "dfill", "drand", "drandn", "distribute", "gather", "localpart",
     "localindices", "makelocal", "seed",
-    "halo_exchange", "pshift", "pgather", "pall_to_all", "psum_scatter",
+    "halo_exchange", "pshift", "pgather", "preduce", "pall_to_all",
+    "psum_scatter",
     "elementwise", "dmap", "dmap_into", "broadcasted",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
     "dmean", "dvar", "dstd",
@@ -85,7 +96,9 @@ __all__ = [
     "stencil3x3", "stencil5", "stencil5_step",
     "flash_attention", "ring_attention", "ring_flash_attention",
     "ring_attention_prefill", "reference_attention", "ulysses_attention",
-    "transformer", "mlp", "train", "Trainer",
+    "zigzag_order", "zigzag_shard", "zigzag_unshard", "zigzag_ring_attention",
+    "zigzag_ring_flash_attention",
+    "transformer", "sp_transformer", "mlp", "train", "Trainer",
     "from_reference", "to_reference", "params_from_reference",
     "params_to_reference",
 ]

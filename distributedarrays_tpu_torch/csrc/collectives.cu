@@ -1,6 +1,6 @@
-// Collective data movement and the ring all-gather GEMM for Hopper (sm_90a).
+// Collective data movement and the ring GEMMs for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU RDMA kernels of
+// Replaces six Pallas TPU RDMA kernels of
 // distributedarrays_tpu/ops/pallas_collectives.py:
 //
 // - `_ag_call` (ring_all_gather, K10) and `_a2a_call` (ring_all_to_all,
@@ -30,19 +30,38 @@
 //   once, over 3.35 TB/s (one card).  A piece that is one contiguous run
 //   is read as 16-byte vectors.
 //
-// - `_ag_mm_rhs_call` (ring_allgather_matmul_rhs, K14): out = a @
-//   all_gather(b) with b's chunks travelling the ring.  `da_ring_ag_mm_step`
-//   is one rank's launch of one ring step: the first blocks forward the
-//   resident chunk into the left neighbour's other slot of its two-slot
-//   buffer (read by that neighbour only at the next step, so nothing races:
-//   the GPU form of "start the DMA before the dot, wait after it"), the
-//   other blocks contract the resident chunk against its column slice of a
-//   with the block GEMM's tile loop (gemm_tile.cuh) and add the product,
-//   rounded to the output type, into out.  Step order and rounding are the
-//   JAX kernel's: part = f32 dot cast to the output type, out = part at step
-//   0, out + part after.  Bound: as the block GEMM, 2*m*n*k operations.
-//   Ring steps are ordered by stream order on one card and by event waits
-//   across cards, never by flags spun on inside a kernel.
+// - The three ring GEMMs, `_ag_mm_call` (ring_allgather_matmul, K13),
+//   `_ag_mm_rhs_call` (ring_allgather_matmul_rhs, K14) and `_mm_rs_call`
+//   (ring_matmul_reducescatter, K15).  On the TPU each starts the next
+//   chunk's (or partial's) RDMA before the resident block's dot and waits
+//   after it, through VMEM slots gated by semaphores.  Here one launch per
+//   rank per ring step does both halves of that step:
+//
+//   K13 `da_ring_ag_mm_a_step`: all_gather(x) @ w with x's row chunks
+//   travelling.  The first blocks forward the resident chunk into the left
+//   neighbour's free slot of its two-slot buffer (read by that neighbour
+//   only at the next step, so nothing races: the GPU form of "start the
+//   DMA before the dot, wait after it"); the others compute the chunk's
+//   product with w and write it, cast once from f32 to the output type,
+//   into the chunk's own row block of out (each row block written once).
+//
+//   K14 `da_ring_ag_mm_step`: a @ all_gather(b) with b's row chunks
+//   travelling; forwarding as K13, and the chunk's product with its column
+//   slice of a, cast to the output type, is written at step 0 and added
+//   (rounded to the type) after, the JAX kernel's step order and rounding.
+//
+//   K15 `da_ring_mm_rs_step`: reduce_scatter(x @ w).  At each step the
+//   launch computes one destination's block x[d rows] @ w, casts it to the
+//   type, adds the partial that arrived from the left (recv + block, in
+//   the type, as the JAX kernel's `recv + tmp`) and writes the sum straight
+//   into the right neighbour's receive slot, or into out at the last step:
+//   the partial's forward is the epilogue's store, so no block copies.
+//
+//   The products run on gemm_tile.cuh's tile: f32 on the SIMT loop, bf16
+//   on the tensor cores (mma.sync m16n8k16, f32 accumulators).  Bound: as
+//   a GEMM, 2*m*n*k operations a step.  Ring steps are ordered by stream
+//   order on one card and by event waits across cards, never by flags spun
+//   on inside a kernel.
 
 #include "gemm_tile.cuh"
 
@@ -115,53 +134,130 @@ int widest(const Box& b) {
   return acc % 16 == 0 ? 16 : (acc % 4 == 0 ? 4 : 1);
 }
 
-// The ring step: blocks [0, ncopy) forward `chunk` to `fwd` (skipped when
-// fwd is null), the others compute one 128x128 tile of
-// a[:, koff:koff+K] @ chunk and add it into out.
+// Blocks [0, ncopy) copy the contiguous `elems` elements of src into dst:
+// a ring step's forward of its resident chunk.
 template <typename T>
+__device__ __forceinline__ void forward_copy(const T* __restrict__ src,
+                                             T* __restrict__ dst,
+                                             int64_t elems, int ncopy) {
+  const int64_t bytes = elems * (int64_t)sizeof(T);
+  const int64_t tid = (int64_t)blockIdx.x * da_tile::THREADS + threadIdx.x;
+  const int64_t stride = (int64_t)ncopy * da_tile::THREADS;
+  if (bytes % 16 == 0 && (uintptr_t)src % 16 == 0 && (uintptr_t)dst % 16 == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (int64_t i = tid; i < bytes / 16; i += stride) d[i] = s[i];
+  } else {
+    for (int64_t i = tid; i < elems; i += stride) dst[i] = src[i];
+  }
+}
+
+// The output tile of a ring GEMM launch after its ncopy copy blocks.
+__device__ __forceinline__ void tile_origin(int ncopy, int N, int64_t& m0,
+                                            int64_t& n0) {
+  const int tile = blockIdx.x - ncopy;
+  const int ntn = (N + da_tile::BN - 1) / da_tile::BN;
+  m0 = (int64_t)(tile / ntn) * da_tile::BM;
+  n0 = (int64_t)(tile % ntn) * da_tile::BN;
+}
+
+// out[r, c] = the sum, cast to T
+template <typename T>
+struct StoreEpi {
+  T* out;
+  int64_t ld;
+  __device__ void operator()(int64_t r, int64_t c, float v) const {
+    da_tile::store(&out[r * ld + c], v);
+  }
+};
+
+// part = the sum cast to T; out[r, c] = part (first) or out + part in T
+template <typename T>
+struct AccumEpi {
+  T* out;
+  int64_t ld;
+  int first;
+  __device__ void operator()(int64_t r, int64_t c, float v) const {
+    T part;
+    da_tile::store(&part, v);  // the f32 product cast to the output type
+    T* o = &out[r * ld + c];
+    if (first)
+      *o = part;
+    else
+      da_tile::store(o, __fadd_rn(da_tile::to_f(*o), da_tile::to_f(part)));
+  }
+};
+
+// part = the sum cast to T; dst[r, c] = recv + part in T (part alone
+// without recv)
+template <typename T>
+struct ReduceEpi {
+  const T* recv;
+  T* dst;
+  int64_t ld;
+  __device__ void operator()(int64_t r, int64_t c, float v) const {
+    T part;
+    da_tile::store(&part, v);
+    const int64_t o = r * ld + c;
+    if (recv)
+      da_tile::store(&dst[o],
+                     __fadd_rn(da_tile::to_f(recv[o]), da_tile::to_f(part)));
+    else
+      dst[o] = part;
+  }
+};
+
+// K14's step: blocks [0, ncopy) forward `chunk` (K x N) to `fwd`, the
+// others compute one 128x128 tile of a[:, koff:koff+K] @ chunk and add it
+// into out.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(da_tile::THREADS)
 ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
                   T* __restrict__ out, T* __restrict__ fwd, int M, int N,
                   int K, int64_t lda, int64_t koff, int first, int ncopy) {
-  using namespace da_tile;
   if ((int)blockIdx.x < ncopy) {
-    // chunk is contiguous (K x N); 16-byte copies when aligned
-    const int64_t bytes = (int64_t)K * N * sizeof(T);
-    const int64_t tid = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-    const int64_t stride = (int64_t)ncopy * THREADS;
-    if (bytes % 16 == 0 && (uintptr_t)chunk % 16 == 0 &&
-        (uintptr_t)fwd % 16 == 0) {
-      const uint4* s = reinterpret_cast<const uint4*>(chunk);
-      uint4* d = reinterpret_cast<uint4*>(fwd);
-      for (int64_t i = tid; i < bytes / 16; i += stride) d[i] = s[i];
-    } else {
-      for (int64_t i = tid; i < (int64_t)K * N; i += stride) fwd[i] = chunk[i];
-    }
+    forward_copy(chunk, fwd, (int64_t)K * N, ncopy);
     return;
   }
-  const int tile = blockIdx.x - ncopy;
-  const int ntn = (N + BN - 1) / BN;
-  const int64_t m0 = (int64_t)(tile / ntn) * BM;
-  const int64_t n0 = (int64_t)(tile % ntn) * BN;
-  float acc[TM][TN];
-  tile_loop<T>(a + koff, lda, chunk, N, M, N, K, m0, n0, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int64_t gr = m0 + row0(threadIdx.x) + i;
-    if (gr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int64_t gc = n0 + col0(threadIdx.x) + j;
-      if (gc >= N) continue;
-      T* o = &out[gr * N + gc];
-      T part;
-      store(&part, acc[i][j]);  // the f32 product cast to the output type
-      if (first)
-        *o = part;
-      else
-        store(o, __fadd_rn(to_f(*o), to_f(part)));
-    }
+  int64_t m0, n0;
+  tile_origin(ncopy, N, m0, n0);
+  da_tile::gemm_tile<T, VEC>(a + koff, lda, chunk, N, M, N, K, m0, n0,
+                             AccumEpi<T>{out, N, first});
+}
+
+// K13's step: blocks [0, ncopy) forward `chunk` (M x K) to `fwd`, the others
+// compute one tile of chunk @ w (K x N) into the row block `out` (M x N).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(da_tile::THREADS)
+ring_ag_mm_a_kernel(const T* __restrict__ chunk, const T* __restrict__ w,
+                    T* __restrict__ out, T* __restrict__ fwd, int M, int N,
+                    int K, int ncopy) {
+  if ((int)blockIdx.x < ncopy) {
+    forward_copy(chunk, fwd, (int64_t)M * K, ncopy);
+    return;
   }
+  int64_t m0, n0;
+  tile_origin(ncopy, N, m0, n0);
+  da_tile::gemm_tile<T, VEC>(chunk, K, w, N, M, N, K, m0, n0,
+                             StoreEpi<T>{out, N});
+}
+
+// K15's step: one tile of x (M x K) @ w (K x N), cast to T, plus recv
+// (M x N, or null), written to dst (M x N).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(da_tile::THREADS)
+ring_mm_rs_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                  const T* __restrict__ recv, T* __restrict__ dst, int M,
+                  int N, int K) {
+  int64_t m0, n0;
+  tile_origin(0, N, m0, n0);
+  da_tile::gemm_tile<T, VEC>(x, K, w, N, M, N, K, m0, n0,
+                             ReduceEpi<T>{recv, dst, N});
+}
+
+int gemm_tiles(int m, int n) {
+  return ((m + da_tile::BM - 1) / da_tile::BM) *
+         ((n + da_tile::BN - 1) / da_tile::BN);
 }
 
 // The pieces of one destination, in fold order, and the box they share
@@ -326,10 +422,10 @@ extern "C" int da_copy_pieces(int n, const void* const* src,
   return (int)cudaGetLastError();
 }
 
-// One ring step of a @ all_gather(b) for one rank: out (M x N) += a[:,
-// koff:koff+K] @ chunk (K x N), with a's row stride lda; `first` writes
-// instead of adding; fwd (null at the last step) receives a copy of chunk.
-// bf16: all of a, chunk, out and fwd are bf16, else f32.
+// One ring step of a @ all_gather(b) for one rank (K14): out (M x N) +=
+// a[:, koff:koff+K] @ chunk (K x N), with a's row stride lda; `first`
+// writes instead of adding; fwd (null at the last step) receives a copy of
+// chunk.  bf16: all of a, chunk, out and fwd are bf16, else f32.
 extern "C" int da_ring_ag_mm_step(const void* a, const void* chunk,
                                   void* out, void* fwd, int m, int n, int k,
                                   long long lda, long long koff, int first,
@@ -337,21 +433,85 @@ extern "C" int da_ring_ag_mm_step(const void* a, const void* chunk,
   if (m <= 0 || n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = ((m + da_tile::BM - 1) / da_tile::BM) *
-                    ((n + da_tile::BN - 1) / da_tile::BN);
   const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
+  const int grid = ncopy + gemm_tiles(m, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    ring_ag_mm_kernel<__nv_bfloat16><<<ncopy + tiles, da_tile::THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(chunk),
-        static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(fwd), m,
-        n, k, lda, koff, first, ncopy);
-  else
-    ring_ag_mm_kernel<float><<<ncopy + tiles, da_tile::THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(chunk),
-        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k, lda, koff,
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    const bf* pa = static_cast<const bf*>(a) + koff;
+    auto kern = da_tile::mma_vec(pa, lda, chunk, n, n, k)
+                    ? ring_ag_mm_kernel<bf, true>
+                    : ring_ag_mm_kernel<bf, false>;
+    kern<<<grid, da_tile::THREADS, 0, s>>>(
+        static_cast<const bf*>(a), static_cast<const bf*>(chunk),
+        static_cast<bf*>(out), static_cast<bf*>(fwd), m, n, k, lda, koff,
         first, ncopy);
+  } else {
+    ring_ag_mm_kernel<float, false><<<grid, da_tile::THREADS, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(chunk),
+        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k, lda,
+        koff, first, ncopy);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One ring step of all_gather(x) @ w for one rank (K13): out (M x N, the
+// resident chunk's row block of the gathered product) = chunk (M x K) @ w
+// (K x N), cast once to the type; fwd (null at the last step) receives a
+// copy of chunk.  All contiguous, bf16 (bf16 != 0) or f32.
+extern "C" int da_ring_ag_mm_a_step(const void* chunk, const void* w,
+                                    void* out, void* fwd, int m, int n,
+                                    int k, int bf16, int device,
+                                    void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
+  const int grid = ncopy + gemm_tiles(m, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    auto kern = da_tile::mma_vec(chunk, k, w, n, n, k)
+                    ? ring_ag_mm_a_kernel<bf, true>
+                    : ring_ag_mm_a_kernel<bf, false>;
+    kern<<<grid, da_tile::THREADS, 0, s>>>(
+        static_cast<const bf*>(chunk), static_cast<const bf*>(w),
+        static_cast<bf*>(out), static_cast<bf*>(fwd), m, n, k, ncopy);
+  } else {
+    ring_ag_mm_a_kernel<float, false><<<grid, da_tile::THREADS, 0, s>>>(
+        static_cast<const float*>(chunk), static_cast<const float*>(w),
+        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k, ncopy);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One ring step of reduce_scatter(x @ w) for one rank (K15): dst (M x N) =
+// recv + x (M x K, this step's destination row block) @ w (K x N), the
+// product cast to the type before the add, which rounds to the type; recv
+// null (the first step) writes the product alone.  dst is the right
+// neighbour's receive slot, or the rank's output at the last step.  All
+// contiguous, bf16 (bf16 != 0) or f32.
+extern "C" int da_ring_mm_rs_step(const void* x, const void* w,
+                                  const void* recv, void* dst, int m, int n,
+                                  int k, int bf16, int device, void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = gemm_tiles(m, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using bf = __nv_bfloat16;
+    auto kern = da_tile::mma_vec(x, k, w, n, n, k)
+                    ? ring_mm_rs_kernel<bf, true>
+                    : ring_mm_rs_kernel<bf, false>;
+    kern<<<grid, da_tile::THREADS, 0, s>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(w),
+        static_cast<const bf*>(recv), static_cast<bf*>(dst), m, n, k);
+  } else {
+    ring_mm_rs_kernel<float, false><<<grid, da_tile::THREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(recv), static_cast<float*>(dst), m, n, k);
+  }
   return (int)cudaGetLastError();
 }
 

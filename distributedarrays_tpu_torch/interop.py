@@ -14,7 +14,9 @@ parameter pytree turned into numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``): ``params_from_reference``
 builds the port's ``Transformer`` from it and ``params_to_reference`` gives
 it back (float32 arrays, which hold bfloat16 values exactly; numpy has no
-bfloat16).
+bfloat16).  The sequence-parallel transformer's parameters are the same
+pytree: they cross through ``params_from_reference`` followed by
+``sp_transformer.shard_params``.
 
 A trainer's initial parameters cross the same way: ``train.Trainer`` draws
 them from ``task.init_params(generator)``, so a test replaces a port

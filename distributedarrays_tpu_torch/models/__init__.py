@@ -1,1 +1,3 @@
-"""models of the PyTorch port."""
+"""models of the PyTorch port: the stencils, the MLP, the flagship
+transformer and its sequence-parallel form, and the attention layouts
+(ring, zigzag, Ulysses)."""

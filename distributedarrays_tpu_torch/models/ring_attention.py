@@ -1,7 +1,6 @@
 """Ring attention: sequence-parallel exact attention over rank tensors.
 
-PyTorch counterpart of the forward half of ``distributedarrays_tpu/models/
-ring_attention.py``.  Q, K and V are sequence-sharded over a 1-D rank grid:
+PyTorch counterpart of ``distributedarrays_tpu/models/ring_attention.py``.  Q, K and V are sequence-sharded over a 1-D rank grid:
 rank r holds rows ``[r*b, (r+1)*b)`` as a (b, heads, d) block.  In p steps
 every rank accumulates its q block against the K/V block currently
 resident with an online softmax (running max m, normaliser l, accumulator
@@ -16,12 +15,30 @@ o), and the K/V blocks move one rank to the right between steps.
   step forwards the resident pair into the right neighbour's free slot
   and accumulates in the same f32 numerics, with the carry in device
   memory.  The plain ring for CPU tensors.
+- ``ring_flash_attention_kernel(q_blocks, k_blocks, v_blocks, causal,
+  scale)``: the ring as p flash hops per rank (K8,
+  ``ops.cuda_attention.flash_attention_hop``) with the (m, l, acc) carry
+  resident and the K/V blocks rotating by ``pshift`` (a plain copy between
+  ranks, as ``lax.ppermute`` is no Pallas kernel).  Differentiable: the
+  FlashAttention-2 ring backward (``_ring_flash_core``'s VJP) runs p hops
+  of K6 + K7 (``flash_attention_hop_bwd``) from the saved output and lse;
+  dq accumulates on its rank, the f32 dk/dv accumulators travel with their
+  K/V blocks, and one extra rotation brings them home.
+- The zigzag layout (``zigzag_order``, ``zigzag_shard``,
+  ``zigzag_unshard``): rank i holds sequence chunks i and 2p-1-i, so causal
+  work is balanced.  ``zigzag_ring_attention_kernel`` is the plain
+  quadrant ring on ``_online_accumulate``;
+  ``zigzag_ring_flash_attention_kernel`` runs each quadrant a step needs
+  as one K8 half-block hop (cross quadrants maskless, diagonals causal at
+  the global chunk offsets) and is differentiable, its backward re-running
+  the quadrants as K6 + K7 hops.  The JAX ``lax.switch`` on
+  sign(src - me) is a Python branch per rank and step.
 - ``ring_attention(q, k, v, causal)`` on DArrays runs K9;
-  ``ring_flash_attention(q, k, v, causal)`` runs K8 hops
-  (``ops.cuda_attention.flash_attention_hop``) with the K/V rotation by
-  ``pshift`` (a plain copy between ranks, as ``lax.ppermute`` is no Pallas
-  kernel); ``ring_attention_prefill`` is the decode service's prefill
-  entry; ``reference_attention`` is the dense numpy oracle.
+  ``ring_flash_attention(q, k, v, causal)`` the flash ring (K8);
+  ``zigzag_ring_attention`` and ``zigzag_ring_flash_attention`` the two
+  zigzag rings on zigzag-ordered DArrays; ``ring_attention_prefill`` is
+  the decode service's prefill entry; ``reference_attention`` is the dense
+  numpy oracle.
 
 Two behaviours of the JAX package are not carried over.  Its
 ``ring_attention`` falls back from the RDMA kernel to the XLA ring when
@@ -29,7 +46,9 @@ the kernel raises (``try``/``except``), and ``ring_attention_rdma_kernel``
 takes the XLA ring when its VMEM budget gate says the blocks do not fit.
 Here a kernel that fails raises, and there is no VMEM: the blocks and the
 carry stay in device memory, so every size the card holds runs the
-kernel.  Zigzag layouts and the ring backward are not ported yet.
+kernel.  The TPU hop knobs ``block_q``, ``block_k``, ``head_fold`` and
+``interpret`` and their autotune lookup have no counterpart (see
+``ops.cuda_attention``).
 """
 
 from __future__ import annotations
@@ -43,6 +62,7 @@ import torch
 from .. import layout as L
 from ..darray import DArray, distribute
 from ..ops.cuda_attention import (MAX_HEAD_DIM, flash_attention_hop,
+                                  flash_attention_hop_bwd,
                                   flash_carry_finalize, flash_carry_init,
                                   ring_attn_step)
 from ..ops.cuda_collectives import _Order
@@ -51,7 +71,10 @@ from ..parallel.reshard import relayout_parts
 
 __all__ = ["ring_attention", "ring_attention_kernel", "ring_attention_rdma",
            "ring_attention_prefill", "ring_flash_attention",
-           "reference_attention"]
+           "ring_flash_attention_kernel", "zigzag_order", "zigzag_shard",
+           "zigzag_unshard", "zigzag_ring_attention_kernel",
+           "zigzag_ring_flash_attention_kernel", "zigzag_ring_attention",
+           "zigzag_ring_flash_attention", "reference_attention"]
 
 
 def reference_attention(q, k, v, causal: bool = False):
@@ -235,26 +258,301 @@ def ring_attention(q: DArray, k: DArray, v: DArray,
     return _like(q, ring_attention_rdma(qb, kb, vb, causal))
 
 
+def _heads_first(blocks) -> list[torch.Tensor]:
+    """(b, h, d) rank blocks as contiguous (h, b, d) copies."""
+    return [x.transpose(0, 1).contiguous() for x in blocks]
+
+
+def _rows_first(blocks, dtype) -> list[torch.Tensor]:
+    """(h, b, d) rank blocks as contiguous (b, h, d) blocks of ``dtype``."""
+    return [x.transpose(0, 1).to(dtype).contiguous() for x in blocks]
+
+
+def _bwd_inputs(gs, ohs, dtype):
+    """Per rank: dd = rowsum(g * o) (h, b) in f32 from the full-precision
+    cotangent, and the cotangent as the kernels' (h, b, d) operand in q's
+    type."""
+    dd, gh = [], []
+    for g, oh in zip(gs, ohs):
+        gf = g.transpose(0, 1).float()
+        dd.append((gf * oh.float()).sum(-1).contiguous())
+        gh.append(gf.to(dtype).contiguous())
+    return dd, gh
+
+
+class _FlashRing(torch.autograd.Function):
+    """A ring of flash hops over rank lists, differentiable: K8 hops
+    forward, K6 + K7 hops backward (``_ring_flash_core`` and
+    ``_zigzag_flash_core`` with their VJPs in the JAX package).  Each rank's
+    blocks are cut into ``parts`` equal row parts; ``hops(p, b, r, src)``
+    lists the hops rank r takes against the K/V block from rank ``src`` as
+    ``(q part, k part, q offset, k offset, causal)``, in order.  The f32
+    (m, l, acc) carry of each q part stays on its rank and the K/V blocks
+    move one rank right after each step; backward, dq accumulates on its
+    rank, the f32 dk/dv accumulators travel with their blocks and one more
+    rotation after the last step brings them home."""
+
+    @staticmethod
+    def forward(ctx, hops, parts, scale, *blocks):
+        p = len(blocks) // 3
+        qs, ks, vs = blocks[:p], blocks[p:2 * p], blocks[2 * p:]
+        b, h, dh = qs[0].shape
+        m = b // parts
+        part = lambda x, i: x[:, i * m:(i + 1) * m]
+        qh, kh, vh = _heads_first(qs), _heads_first(ks), _heads_first(vs)
+        kc, vc = kh, vh
+        carry = [[flash_carry_init(h, m, dh, device=x.device)
+                  for _ in range(parts)] for x in qh]
+        for step in range(p):
+            for r in range(p):
+                for qi, ki, qoff, koff, causal in hops(p, b, r,
+                                                       (r - step) % p):
+                    flash_attention_hop(part(qh[r], qi), part(kc[r], ki),
+                                        part(vc[r], ki), *carry[r][qi], qoff,
+                                        koff, causal, scale)
+            if step < p - 1:
+                kc, vc = pshift(kc, 1), pshift(vc, 1)
+        dt = qs[0].dtype
+        ohs, lses = [], []
+        for c in carry:
+            fin = [flash_carry_finalize(*x, dt) for x in c]
+            ohs.append(torch.cat([o for o, _ in fin], dim=1))
+            lses.append(torch.cat([lse for _, lse in fin], dim=1))
+        ctx.hops, ctx.parts, ctx.scale = hops, parts, scale
+        ctx.save_for_backward(*qh, *kh, *vh, *ohs, *lses)
+        return tuple(_rows_first(ohs, dt))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        p, parts = len(gs), ctx.parts
+        sv = ctx.saved_tensors
+        qh, kc, vc, ohs, lse = (list(sv[i * p:(i + 1) * p]) for i in range(5))
+        h, b, dh = qh[0].shape
+        m = b // parts
+        part = lambda x, i: x[:, i * m:(i + 1) * m]
+        dd, gh = _bwd_inputs(gs, ohs, qh[0].dtype)
+        # the kernels take each part's lse and dd rows contiguous
+        dd = [[part(x, i).contiguous() for i in range(parts)] for x in dd]
+        lse = [[part(x, i).contiguous() for i in range(parts)] for x in lse]
+        dq = [torch.zeros((h, b, dh), device=x.device) for x in qh]
+        dk = [torch.zeros_like(x) for x in dq]
+        dv = [torch.zeros_like(x) for x in dq]
+        for step in range(p):
+            for r in range(p):
+                for qi, ki, qoff, koff, causal in ctx.hops(p, b, r,
+                                                           (r - step) % p):
+                    c = flash_attention_hop_bwd(
+                        part(qh[r], qi), part(kc[r], ki), part(vc[r], ki),
+                        part(gh[r], qi), lse[r][qi], dd[r][qi], qoff, koff,
+                        causal, ctx.scale)
+                    part(dq[r], qi).add_(c[0])
+                    part(dk[r], ki).add_(c[1])
+                    part(dv[r], ki).add_(c[2])
+            if step < p - 1:
+                kc, vc = pshift(kc, 1), pshift(vc, 1)
+            dk, dv = pshift(dk, 1), pshift(dv, 1)
+        dt = qh[0].dtype
+        return (None, None, None, *_rows_first(dq, dt), *_rows_first(dk, dt),
+                *_rows_first(dv, dt))
+
+
+def _ring_hops(causal: bool):
+    """The contiguous ring's schedule: one hop of the whole block."""
+    def hops(p, b, r, src):
+        return [(0, 0, r * b, src * b, causal)]
+    return hops
+
+
+def ring_flash_attention_kernel(q_blocks: Sequence[torch.Tensor],
+                                k_blocks: Sequence[torch.Tensor],
+                                v_blocks: Sequence[torch.Tensor],
+                                causal: bool = False,
+                                scale: float | None = None
+                                ) -> list[torch.Tensor]:
+    """The flash ring: rank r's (b, h, d) output for its q block, as p K8
+    hops per rank with the K/V blocks moving one rank to the right
+    (``pshift``) after each; differentiable in q, k and v (the FA2 ring
+    backward on K6 + K7 hops).  The plain hops for CPU tensors."""
+    qs, ks, vs = list(q_blocks), list(k_blocks), list(v_blocks)
+    _check_blocks(qs, ks, vs)
+    return list(_FlashRing.apply(_ring_hops(bool(causal)), 1, scale, *qs,
+                                 *ks, *vs))
+
+
 def ring_flash_attention(q: DArray, k: DArray, v: DArray,
                          causal: bool = False) -> DArray:
     """Exact attention over sequence-sharded (seq, heads, d) DArrays as p
     flash hops per rank (K8 on CUDA ranks) with the (m, l, acc) carry
     resident and the K/V blocks rotating by ``pshift``."""
     qb, kb, vb = _seq_blocks(q, k, v)
-    p = len(qb)
-    b, h, dh = qb[0].shape
-    qh, kc, vc = ([x.transpose(0, 1).contiguous() for x in xs]
-                  for xs in (qb, kb, vb))
-    carry = [flash_carry_init(h, b, dh, device=x.device) for x in qh]
+    return _like(q, ring_flash_attention_kernel(qb, kb, vb, causal))
+
+
+# ---------------------------------------------------------------------------
+# zigzag (load-balanced causal) ring attention
+#
+# Rank i holds the chunk pair (i, 2p-1-i) of 2p equal chunks.  Local
+# (q1, q2) = chunks (me, 2p-1-me); visiting (k1, k2) from src:
+#   q1 x k2: always fully masked    -> never computed
+#   q2 x k1: always fully unmasked  -> computed maskless
+#   q1 x k1: unmasked iff src < me, diagonal iff src == me
+#   q2 x k2: unmasked iff src > me, diagonal iff src == me
+# so each rank computes about 2 of 4 quadrants a hop, evenly balanced.
+# ---------------------------------------------------------------------------
+
+
+def zigzag_order(S: int, nranks: int) -> np.ndarray:
+    """Permutation taking a natural-order sequence to zigzag-shard order:
+    rank i's rows are [chunk i, chunk 2p-1-i] of 2p equal chunks."""
+    if S % (2 * nranks):
+        raise ValueError(f"sequence length {S} must divide 2*nranks "
+                         f"({2 * nranks})")
+    half = S // (2 * nranks)
+    chunks = np.arange(S).reshape(2 * nranks, half)
+    order = [c for i in range(nranks)
+             for c in (chunks[i], chunks[2 * nranks - 1 - i])]
+    return np.concatenate(order)
+
+
+def zigzag_shard(x, nranks: int) -> torch.Tensor:
+    """Reorder dim 0 of ``x`` (length S, natural order) into zigzag-shard
+    order.  Apply before distributing over the ring."""
+    x = torch.as_tensor(x)
+    idx = torch.from_numpy(zigzag_order(x.shape[0], nranks)).to(x.device)
+    return x[idx]
+
+
+def zigzag_unshard(x, nranks: int) -> torch.Tensor:
+    """Inverse of ``zigzag_shard``."""
+    x = torch.as_tensor(x)
+    inv = np.argsort(zigzag_order(x.shape[0], nranks))
+    return x[torch.from_numpy(inv).to(x.device)]
+
+
+def _zigzag_half(b: int) -> int:
+    if b % 2:
+        raise ValueError(f"zigzag needs an even local block; got {b}")
+    return b // 2
+
+
+def _quadrants(me: int, src: int):
+    """The quadrants rank ``me`` computes against the K/V pair from rank
+    ``src``, in the JAX schedule's order: ``(q half, k half, causal)`` with
+    halves 0 (chunk me / src) and 1 (chunk 2p-1-me / 2p-1-src)."""
+    quads = [(1, 0, False)]                 # q2 x k1: always unmasked
+    if src < me:
+        quads.append((0, 0, False))
+    elif src == me:
+        quads += [(0, 0, True), (1, 1, True)]
+    else:
+        quads.append((1, 1, False))
+    return quads
+
+
+def _chunk_off(rank: int, which: int, p: int, half: int) -> int:
+    """Global position of rank ``rank``'s chunk ``which`` (0 or 1)."""
+    return (rank if which == 0 else 2 * p - 1 - rank) * half
+
+
+def zigzag_ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
+                                 k_blocks: Sequence[torch.Tensor],
+                                 v_blocks: Sequence[torch.Tensor],
+                                 scale: float | None = None
+                                 ) -> list[torch.Tensor]:
+    """The plain causal zigzag ring: rank r's (b, h, d) output for its
+    zigzag pair, computing only the quadrants that can attend, with the
+    JAX ``_online_accumulate`` numerics (q scaled in its own type, then
+    f32)."""
+    p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
+    half = _zigzag_half(b)
+    sc = 1.0 / math.sqrt(dh) if scale is None else float(scale)
+    diag = torch.tril(torch.ones((half, half), dtype=torch.bool))
+    qf, carry = [], []
+    for q in q_blocks:
+        f = (q * torch.tensor(sc, dtype=q.dtype, device=q.device)).float()
+        qf.append((f[:half], f[half:]))
+        carry.append([[torch.full((h, half), -math.inf, device=q.device),
+                       torch.zeros((h, half), device=q.device),
+                       torch.zeros((h, half, dh), device=q.device)]
+                      for _ in range(2)])
+    kc, vc = list(k_blocks), list(v_blocks)
     for step in range(p):
         for r in range(p):
-            flash_attention_hop(qh[r], kc[r], vc[r], *carry[r], r * b,
-                                ((r - step) % p) * b, causal)
+            src = (r - step) % p
+            for qi, ki, causal in _quadrants(r, src):
+                ks = slice(ki * half, (ki + 1) * half)
+                carry[r][qi] = list(_online_accumulate(
+                    *carry[r][qi], qf[r][qi], kc[r][ks], vc[r][ks],
+                    diag.to(qf[r][qi].device) if causal else None))
         if step < p - 1:
             kc, vc = pshift(kc, 1), pshift(vc, 1)
-    outs = [flash_carry_finalize(*c, q.dtype)[0].transpose(0, 1).contiguous()
-            for c in carry]
-    return _like(q, outs)
+    outs = []
+    for q, c in zip(q_blocks, carry):
+        halves = []
+        for _, l, o in c:
+            l = torch.where(l == 0.0, 1.0, l)
+            halves.append((o / l[:, :, None]).to(q.dtype))
+        outs.append(torch.cat(halves, dim=1).transpose(0, 1).contiguous())
+    return outs
+
+
+def _zigzag_hops(p, b, r, src):
+    """The zigzag ring's schedule: the quadrants ``_quadrants`` picks, on
+    half blocks at their chunks' global offsets."""
+    half = b // 2
+    return [(qi, ki, _chunk_off(r, qi, p, half), _chunk_off(src, ki, p, half),
+             causal) for qi, ki, causal in _quadrants(r, src)]
+
+
+def zigzag_ring_flash_attention_kernel(q_blocks: Sequence[torch.Tensor],
+                                       k_blocks: Sequence[torch.Tensor],
+                                       v_blocks: Sequence[torch.Tensor],
+                                       scale: float | None = None
+                                       ) -> list[torch.Tensor]:
+    """The fused zigzag ring: the quadrant schedule of
+    ``zigzag_ring_attention_kernel`` with each computed quadrant one K8
+    hop on half blocks (cross quadrants maskless, diagonals causal at the
+    global chunk offsets); differentiable in q, k and v, the backward
+    re-running the quadrants as K6 + K7 hops.  The plain hops for CPU
+    tensors."""
+    qs, ks, vs = list(q_blocks), list(k_blocks), list(v_blocks)
+    _, (b, _, _) = _check_blocks(qs, ks, vs)
+    _zigzag_half(b)
+    return list(_FlashRing.apply(_zigzag_hops, 2, scale, *qs, *ks, *vs))
+
+
+def _zigzag_blocks(q: DArray, k: DArray, v: DArray):
+    """Validate zigzag-ordered sequence-sharded DArrays (the sequence
+    divisible by twice the rank count) and return their rank blocks."""
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        if a.ndim != 3:
+            raise ValueError(f"{name} must be (seq, heads, head_dim), "
+                             f"got {a.dims}")
+        if a.dims != q.dims:
+            raise ValueError("q, k, v dims must match")
+    n = q.pids.size
+    if q.pids.shape[0] != n or q.dims[0] % (2 * n) != 0:
+        raise ValueError(
+            "zigzag ring attention needs the sequence dim divisible by "
+            f"2*nranks over a 1-D grid; got grid {q.pids.shape} for dims "
+            f"{q.dims}")
+    return _seq_blocks(q, k, v)
+
+
+def zigzag_ring_flash_attention(q: DArray, k: DArray, v: DArray) -> DArray:
+    """Causal zigzag ring attention over zigzag-ordered sequence-sharded
+    (seq, heads, d) DArrays as K8 half-block hops (the fast path of
+    ``zigzag_ring_attention``); the output is zigzag-ordered."""
+    return _like(q, zigzag_ring_flash_attention_kernel(
+        *_zigzag_blocks(q, k, v)))
+
+
+def zigzag_ring_attention(q: DArray, k: DArray, v: DArray) -> DArray:
+    """Load-balanced causal ring attention over sequence-sharded (seq,
+    heads, d) DArrays whose rows are already in zigzag order
+    (``zigzag_shard``), on the plain quadrant ring.  Returns
+    zigzag-ordered output: ``zigzag_unshard`` recovers natural order."""
+    return _like(q, zigzag_ring_attention_kernel(*_zigzag_blocks(q, k, v)))
 
 
 def ring_attention_prefill(q, k, v, *, causal: bool = True,

@@ -22,6 +22,10 @@ PyTorch counterpart of the forward, decode and SGD training step of
   ``train_step(params, tokens, lr, cfg)`` -> ``(params, loss)``: one SGD
   step with f32 update arithmetic.  JAX donates the parameter buffers and
   returns new ones; the port updates the parameters in place.
+  ``make_optax_train_step(cfg, opt)`` -> ``(step, init)``: any
+  ``train.optim.Optimizer`` (optax is JAX) in f32 master arithmetic, as
+  ``_optax_f32_step`` does: state from f32 moments, gradients and
+  parameters upcast for the update, the result cast back.
 - ``generate(params, prompt, n_new, cfg, temperature, generator)``: the
   prompt is teacher-forced through the same decode step that generates,
   with the stacked (L, B, max_seq, H, D) KV cache, and each step attends
@@ -34,8 +38,10 @@ PyTorch counterpart of the forward, decode and SGD training step of
 The activation is GELU with the tanh approximation (``jax.nn.gelu``'s
 default), RMSNorm computes in f32 and casts back, the embedding sum is
 taken in the parameter type and the logits are cast to f32 last, all as
-in the JAX model.  The optax steps (``make_optax_train_step``) and the tp
-layout (``shard_params``) are not ported yet.
+in the JAX model.  The GSPMD tp layout (``shard_params``) waits for the
+port's tp/dp layouts, with the MLP's ``make_mesh``/``shard_params``/
+``shard_batch``; the sequence-parallel layout of the same parameters is
+``sp_transformer.shard_params``.
 """
 
 from __future__ import annotations
@@ -47,10 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda_attention import flash_attention_lse
-from ._autodiff import sgd_, value_and_grad
+from ._autodiff import f32_opt_init, f32_opt_update_, sgd_, value_and_grad
 
 __all__ = ["Config", "Transformer", "init_params", "forward", "loss_fn",
-           "train_step", "generate"]
+           "train_step", "make_optax_train_step", "generate"]
 
 
 class Config:
@@ -85,18 +91,24 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """The flagship transformer's parameters; ``forward``/``generate`` (or
-    ``model(tokens)``) run it."""
+    ``model(tokens)``) run it.  ``ffn_shards`` > 1 holds one rank's shard
+    of the FFN (w1's columns and w2's rows split that many ways), as
+    ``sp_transformer.shard_params`` lays it out."""
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, ffn_shards: int = 1):
         super().__init__()
         self.cfg = cfg
         E, dt = cfg.dim, cfg.dtype
+        if (E * cfg.ffn_mult) % ffn_shards:
+            raise ValueError(f"FFN width {E * cfg.ffn_mult} does not split "
+                             f"into {ffn_shards} shards")
         mk = lambda *s: nn.Parameter(torch.empty(s, dtype=dt, device=device),
                                      requires_grad=False)
         self.embed, self.pos = mk(cfg.vocab, E), mk(cfg.max_seq, E)
         self.ln_f, self.head = mk(E), mk(E, cfg.vocab)
         self.blocks = nn.ModuleList(
-            Block(E, E * cfg.ffn_mult, dt, device) for _ in range(cfg.layers))
+            Block(E, E * cfg.ffn_mult // ffn_shards, dt, device)
+            for _ in range(cfg.layers))
 
     def forward(self, tokens):
         return forward(self, tokens, self.cfg)
@@ -197,6 +209,23 @@ def train_step(params: Transformer, tokens, lr: float, cfg: Config):
                                  leaves)
     sgd_(leaves, grads, lr)
     return params, loss
+
+
+def make_optax_train_step(cfg: Config, opt):
+    """Training with an optimizer (``train.optim.Optimizer``) in f32 master
+    arithmetic.  Returns ``(step, init)``: ``state = init(params)``, then
+    ``step(params, state, tokens) -> (params, state, loss)``, the
+    parameters updated in place."""
+    def init(params: Transformer) -> dict:
+        return f32_opt_init(opt, list(params.parameters()))
+
+    def step(params: Transformer, state: dict, tokens):
+        leaves = list(params.parameters())
+        loss, grads = value_and_grad(lambda: loss_fn(params, tokens, cfg),
+                                     leaves)
+        return params, f32_opt_update_(opt, state, leaves, grads), loss
+
+    return step, init
 
 
 def _decode_attn(h, blk, heads: int, kc, vc, i: int, t: int, max_seq: int):

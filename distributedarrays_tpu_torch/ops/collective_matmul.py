@@ -1,7 +1,9 @@
-"""Owned distributed-GEMM schedules over rank tensors: the ring all-gather
-GEMM, Cannon, SUMMA and Cannon with int8 panels.
+"""Owned distributed-GEMM schedules over rank tensors: the three ring
+GEMMs and the tensor-parallel FFN built on two of them, Cannon, SUMMA and
+Cannon with int8 panels.
 
-PyTorch counterpart of ``allgather_matmul_rhs``, ``_cannon_skew_perms``,
+PyTorch counterpart of ``allgather_matmul``, ``allgather_matmul_rhs``,
+``matmul_reducescatter``, ``tp_ffn``, ``_cannon_skew_perms``,
 ``cannon_matmul``, ``summa_matmul`` and ``cannon_matmul_int8`` in
 ``distributedarrays_tpu/ops/collective_matmul.py``.  There each schedule
 runs inside a ``shard_map`` with mesh axes; here it takes the ranks'
@@ -10,12 +12,27 @@ blocks as a list (a 2-D grid flattened row-major, rank ``(i, j)`` at
 device.  The panel moves of Cannon and SUMMA are plain ``.to(device)``
 copies (``lax.ppermute``/``psum`` in JAX, no Pallas kernel there either)
 and their per-rank products are ``torch.matmul`` with TF32 off, as the
-JAX package leaves them to XLA.  The ring all-gather GEMM runs the K14
-kernel on the card (``cuda_collectives.ring_allgather_matmul_rhs``) and
+JAX package leaves them to XLA.  The ring GEMMs run their kernels on the
+card (``cuda_collectives``: K13 ``ring_allgather_matmul``, K14
+``ring_allgather_matmul_rhs``, K15 ``ring_matmul_reducescatter``) and
 Cannon with int8 panels the K4 kernel per hop.
 
-Not ported yet (they come with training): ``allgather_matmul``,
-``matmul_reducescatter`` and ``tp_ffn``.
+``allgather_matmul`` and ``matmul_reducescatter`` are differentiable, and
+their gradients are ring GEMMs again, the same functions as the VJP of the
+JAX ``lax`` rings (whose transposed ``pshift`` loops move the chunks round
+the ring once more; nothing gathered is saved):
+
+- h_r = AG(x) @ w_r:  dx = RS(dh_r @ w_r^T) (K15) and
+  dw_r = (dh_r^T @ AG(x))^T (K14);
+- y = RS(a_r @ w_r):  da_r = AG(dy) @ w_r^T (K13) and
+  dw_r = a_r^T @ AG(dy) (K14),
+
+with the transposes taken as contiguous copies.  In the JAX package
+``tp_ffn`` calls its two GEMMs without ``rdma=True``: their ``lax`` rings,
+overlapped by XLA, and K13/K15 only when a caller arms them, forward-only.
+The port has no XLA to overlap a hop with a product, so the fused kernels
+are the path for CUDA tensors, forward and backward; the ``rdma`` flag,
+``interpret`` and ``mesh_axes`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -24,14 +41,18 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..parallel.collectives import pshift
-from .cuda_collectives import ring_allgather_matmul_rhs
+from .cuda_collectives import (ring_allgather_matmul,
+                               ring_allgather_matmul_rhs,
+                               ring_matmul_reducescatter)
 from .cuda_gemm import (cuda_matmul_int8, quantize_rows, quantized_matmul,
                         torch_matmul)
 
-__all__ = ["allgather_matmul_rhs", "cannon_matmul", "summa_matmul",
-           "cannon_matmul_int8"]
+__all__ = ["allgather_matmul", "allgather_matmul_rhs",
+           "matmul_reducescatter", "tp_ffn", "cannon_matmul",
+           "summa_matmul", "cannon_matmul_int8"]
 
 
 def _cannon_skew_perms(g: int):
@@ -69,6 +90,109 @@ def _shift(blocks: Sequence[torch.Tensor], rows: int, cols: int, axis: int,
     return out
 
 
+def _t(blocks) -> list[torch.Tensor]:
+    """Each rank's matrix transposed, as a contiguous copy."""
+    return [b.t().contiguous() for b in blocks]
+
+
+def _promoted(x_blocks, w_blocks):
+    dt = torch.promote_types(x_blocks[0].dtype, w_blocks[0].dtype)
+    return [x.to(dt) for x in x_blocks], [w.to(dt) for w in w_blocks]
+
+
+class _AllGatherMatmul(torch.autograd.Function):
+    """h_r = all_gather(x) @ w_r over rank lists (K13 forward; K15 and K14
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, p, *blocks):
+        xs, ws = blocks[:p], blocks[p:]
+        ctx.p = p
+        ctx.save_for_backward(*xs, *ws)
+        return tuple(ring_allgather_matmul(xs, ws))
+
+    @staticmethod
+    def backward(ctx, *dh):
+        p = ctx.p
+        xs, ws = ctx.saved_tensors[:p], ctx.saved_tensors[p:]
+        dh = [g.contiguous() for g in dh]
+        dx = dw = [None] * p
+        if any(ctx.needs_input_grad[1:p + 1]):
+            dx = ring_matmul_reducescatter(dh, _t(ws))
+        if any(ctx.needs_input_grad[p + 1:]):
+            dw = _t(ring_allgather_matmul_rhs(_t(dh), xs))
+        return (None, *dx, *dw)
+
+
+class _MatmulReduceScatter(torch.autograd.Function):
+    """y = reduce_scatter(a_r @ w_r) over rank lists (K15 forward; K13 and
+    K14 backward)."""
+
+    @staticmethod
+    def forward(ctx, p, *blocks):
+        xs, ws = blocks[:p], blocks[p:]
+        ctx.p = p
+        ctx.save_for_backward(*xs, *ws)
+        return tuple(ring_matmul_reducescatter(xs, ws))
+
+    @staticmethod
+    def backward(ctx, *dy):
+        p = ctx.p
+        xs, ws = ctx.saved_tensors[:p], ctx.saved_tensors[p:]
+        dy = [g.contiguous() for g in dy]
+        dx = dw = [None] * p
+        if any(ctx.needs_input_grad[1:p + 1]):
+            dx = ring_allgather_matmul(dy, _t(ws))
+        if any(ctx.needs_input_grad[p + 1:]):
+            dw = ring_allgather_matmul_rhs(_t(xs), dy)
+        return (None, *dx, *dw)
+
+
+def allgather_matmul(x_blocks: Sequence[torch.Tensor],
+                     w_blocks: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``all_gather(x) @ w_r`` for every rank r of a 1-D ring: ``x_r`` is
+    rank r's ``(m_loc, k)`` row chunk of the gathered operand and ``w_r``
+    its resident ``(k, n_loc)`` shard; rank r gets ``(p * m_loc, n_loc)``,
+    its column shard of ``all_gather(x) @ W`` in tensor parallelism.  The
+    K13 kernel on the card, the plain ring on the CPU; mixed dtypes are
+    promoted first.  Differentiable in x and w."""
+    xs, ws = _promoted(list(x_blocks), list(w_blocks))
+    return list(_AllGatherMatmul.apply(len(xs), *xs, *ws))
+
+
+def matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
+                         w_blocks: Sequence[torch.Tensor]
+                         ) -> list[torch.Tensor]:
+    """``reduce_scatter(x_r @ w_r)`` over a 1-D ring: ``x_r`` is rank r's
+    ``(m, k_loc)`` contraction shard, ``w_r`` its ``(k_loc, n)`` shard, and
+    rank r gets row block r of ``sum_q x_q @ w_q``, ``(m / p, n)``.  The K15
+    kernel on the card, the plain ring on the CPU; mixed dtypes are
+    promoted first.  Differentiable in x and w."""
+    xs, ws = _promoted(list(x_blocks), list(w_blocks))
+    if xs and xs[0].shape[0] % len(xs):
+        raise ValueError(f"rows {xs[0].shape[0]} must be divisible by the "
+                         f"{len(xs)} ranks")
+    return list(_MatmulReduceScatter.apply(len(xs), *xs, *ws))
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def tp_ffn(x_blocks: Sequence[torch.Tensor], w1_blocks: Sequence[torch.Tensor],
+           w2_blocks: Sequence[torch.Tensor], act=None) -> list[torch.Tensor]:
+    """The Megatron sequence-parallel FFN over rank lists,
+    ``reduce_scatter(act(all_gather(x) @ W1) @ W2)``: ``x_r`` is rank r's
+    ``(s_loc, e)`` sequence shard, ``w1_r`` its ``(e, f_loc)`` column shard
+    and ``w2_r`` its ``(f_loc, e)`` row shard; rank r gets its ``(s_loc,
+    e)`` shard of the output, and the ``(s, f_loc)`` activation is 1/p of
+    the whole.  ``act`` defaults to GELU with the tanh approximation
+    (``jax.nn.gelu``'s default).  Differentiable."""
+    act = _gelu if act is None else act
+    h = allgather_matmul(x_blocks, w1_blocks)          # (s, f_loc) per rank
+    return matmul_reducescatter([act(x) for x in h], w2_blocks)
+
+
 def allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
                          b_blocks: Sequence[torch.Tensor]
                          ) -> list[torch.Tensor]:
@@ -77,10 +201,7 @@ def allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
     chunk of the gathered operand, ``k = p * k_loc``.  The ring GEMM kernel
     on the card, the plain ring on the CPU; mixed dtypes are promoted
     first."""
-    out_dtype = torch.promote_types(a_blocks[0].dtype, b_blocks[0].dtype)
-    a_blocks = [a.to(out_dtype) for a in a_blocks]
-    b_blocks = [b.to(out_dtype) for b in b_blocks]
-    return ring_allgather_matmul_rhs(a_blocks, b_blocks)
+    return ring_allgather_matmul_rhs(*_promoted(a_blocks, b_blocks))
 
 
 def cannon_matmul(a_blocks: Sequence[torch.Tensor],

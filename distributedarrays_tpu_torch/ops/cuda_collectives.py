@@ -2,7 +2,8 @@
 (``csrc/collectives.cu``) and their plain versions.
 
 PyTorch counterpart of ``ring_all_gather``, ``ring_all_to_all``,
-``ring_reduce_scatter`` and ``ring_allgather_matmul_rhs`` in
+``ring_reduce_scatter``, ``ring_allgather_matmul``,
+``ring_allgather_matmul_rhs`` and ``ring_matmul_reducescatter`` in
 ``distributedarrays_tpu/ops/pallas_collectives.py``.  Each function takes the p ranks' tensors in ring
 order (as the JAX functions take one shard per ``axis_index``) and returns
 one tensor per rank, on that rank's device.  For CPU tensors it takes the
@@ -36,15 +37,29 @@ not used.
   there is no chunk argument and no gate.  float32 or bfloat16 for the
   reduce-scatter.
 
-- ``ring_allgather_matmul_rhs(a_blocks, b_blocks)``: rank ``r`` gets
+- ``ring_allgather_matmul(x_blocks, w_blocks)`` (K13): rank ``r`` gets
+  ``all_gather(x) @ w_r``, with x's row chunks travelling the ring: at step
+  t the resident chunk came from rank ``(r + t) % p`` and its f32 product
+  with ``w_r``, cast once to the output type, fills that chunk's row block.
+- ``ring_allgather_matmul_rhs(a_blocks, b_blocks)`` (K14): rank ``r`` gets
   ``a_r @ all_gather(b)``, with b's chunks travelling the ring: at step t
   the resident chunk came from rank ``(r + t) % p``, its f32 product with
   the matching column slice of ``a_r`` is cast to the output type and added
-  in that order, as in the JAX kernel.  One launch per rank per step both
-  forwards the resident chunk into the left neighbour's free slot of a
-  two-slot buffer and computes the product.  The TPU kernel's VMEM budget
-  gate (``gemm_ring_eligible``) has no counterpart: the operands stay in
-  device memory.  float32 or bfloat16, one dtype for a and b.
+  in that order, as in the JAX kernel.
+- ``ring_matmul_reducescatter(x_blocks, w_blocks)`` (K15): rank ``r`` gets
+  row block ``r`` of ``sum_q x_q @ w_q``: the partial for destination
+  ``(r - 1 - t) % p`` travels right; at step t rank r casts its f32 block
+  product to the type and adds it to the partial that arrived from the left
+  (in the type), so the sum for destination d runs over ranks d+1, d+2,
+  ..., d+p (mod p), add for add as the JAX ring.
+
+  In K13 and K14 one launch per rank per step both forwards the resident
+  chunk into the left neighbour's free slot of a two-slot buffer and
+  computes the product; in K15 the launch writes its sum straight into the
+  right neighbour's receive slot (or the output at the last step).  The TPU
+  kernels' VMEM budget gate (``gemm_ring_eligible``) has no counterpart: the
+  operands stay in device memory.  float32 or bfloat16 (bf16 on the tensor
+  cores), one dtype for both operands.
 
 Steps that depend on each other are ordered by stream order on one card and
 by CUDA event waits across cards; no kernel waits on a flag set by another.
@@ -61,8 +76,11 @@ from ..parallel.collectives import pall_to_all, pgather, pshift, psum_scatter
 from ..utils import kbuild
 
 __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
-           "ring_allgather_matmul_rhs", "all_gather_plain", "all_to_all_plain",
-           "reduce_scatter_plain", "allgather_matmul_rhs_plain"]
+           "ring_allgather_matmul", "ring_allgather_matmul_rhs",
+           "ring_matmul_reducescatter", "all_gather_plain",
+           "all_to_all_plain", "reduce_scatter_plain",
+           "allgather_matmul_plain", "allgather_matmul_rhs_plain",
+           "matmul_reducescatter_plain"]
 
 MAXP = 32                    # sources one launch takes (collectives.cu)
 _RING_DTYPES = (torch.float32, torch.bfloat16)
@@ -96,17 +114,42 @@ all_to_all_plain = pall_to_all
 reduce_scatter_plain = psum_scatter
 
 
+def _f32_product(x, w, dtype):
+    """``x @ w`` with f32 products and sums, cast to ``dtype``."""
+    return (x.float() @ w.float()).to(dtype)
+
+
+def allgather_matmul_plain(x_blocks, w_blocks) -> list[torch.Tensor]:
+    """The plain ring of K13: ``pshift`` brings rank r+1's chunk each step;
+    the resident chunk from rank ``(r + t) % p`` multiplies ``w_r`` in f32
+    and, cast to the output type, fills its row block."""
+    p = len(x_blocks)
+    out_dtype = torch.promote_types(x_blocks[0].dtype, w_blocks[0].dtype)
+    m_loc = x_blocks[0].shape[0]
+    outs = [torch.empty((p * m_loc, w.shape[1]), dtype=out_dtype,
+                        device=w.device) for w in w_blocks]
+    cur = list(x_blocks)
+    for t in range(p):
+        if t:
+            cur = pshift(cur, -1)            # fetch rank r+1's chunk
+        for r in range(p):
+            src = (r + t) % p
+            outs[r][src * m_loc:(src + 1) * m_loc] = _f32_product(
+                cur[r], w_blocks[r], out_dtype)
+    return outs
+
+
 def allgather_matmul_rhs_plain(a_blocks, b_blocks) -> list[torch.Tensor]:
-    """The plain ring: ``pshift`` brings rank r+1's chunk each step; the
-    resident chunk from rank ``(r + t) % p`` contracts against its column
-    slice of ``a_r`` in f32, is cast to the output type and added."""
+    """The plain ring of K14: ``pshift`` brings rank r+1's chunk each step;
+    the resident chunk from rank ``(r + t) % p`` contracts against its
+    column slice of ``a_r`` in f32, is cast to the output type and added."""
     p = len(b_blocks)
     out_dtype = torch.promote_types(a_blocks[0].dtype, b_blocks[0].dtype)
     k_loc = b_blocks[0].shape[0]
 
     def part(r, src, chunk):
-        a = a_blocks[r][:, src * k_loc:(src + 1) * k_loc]
-        return (a.float() @ chunk.float()).to(out_dtype)
+        return _f32_product(a_blocks[r][:, src * k_loc:(src + 1) * k_loc],
+                            chunk, out_dtype)
 
     cur = list(b_blocks)
     acc = [part(r, r, cur[r]) for r in range(p)]
@@ -116,11 +159,44 @@ def allgather_matmul_rhs_plain(a_blocks, b_blocks) -> list[torch.Tensor]:
     return acc
 
 
+def matmul_reducescatter_plain(x_blocks, w_blocks) -> list[torch.Tensor]:
+    """The plain ring of K15: rank r seeds the partial for destination
+    ``(r - 1) % p``; each step the partials move one rank right
+    (``pshift``) and rank r adds its block for destination
+    ``(r - 1 - t) % p``, the f32 product cast to the type, in the type."""
+    p = len(x_blocks)
+    out_dtype = torch.promote_types(x_blocks[0].dtype, w_blocks[0].dtype)
+    m_loc = x_blocks[0].shape[0] // p
+
+    def block(r, d):
+        return _f32_product(x_blocks[r][d * m_loc:(d + 1) * m_loc],
+                            w_blocks[r], out_dtype)
+
+    acc = [block(r, (r - 1) % p) for r in range(p)]
+    for t in range(1, p):
+        acc = pshift(acc, 1)                 # forward to rank r+1
+        acc = [acc[r] + block(r, (r - 1 - t) % p) for r in range(p)]
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # launch plumbing
 # ---------------------------------------------------------------------------
 
 _fns: dict = {}
+_ARGTYPES = {
+    "da_copy_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 6 +
+    [ctypes.c_int, ctypes.c_void_p],
+    "da_reduce_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 3 +
+    [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p],
+    "da_ring_ag_mm_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 +
+    [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "da_ring_ag_mm_a_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+    [ctypes.c_void_p],
+    "da_ring_mm_rs_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+    [ctypes.c_void_p],
+}
 
 
 def _fn(name: str):
@@ -128,17 +204,7 @@ def _fn(name: str):
     if f is None:
         f = getattr(kbuild.load("collectives"), name)
         f.restype = ctypes.c_int
-        if name == "da_copy_pieces":
-            f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-                [ctypes.c_int, ctypes.c_void_p]
-        elif name == "da_reduce_pieces":
-            f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + \
-                [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_void_p]
-        else:                                # da_ring_ag_mm_step
-            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-                [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + \
-                [ctypes.c_void_p]
+        f.argtypes = _ARGTYPES[name]
         _fns[name] = f
     return f
 
@@ -368,38 +434,109 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# ring all-gather GEMM (K14)
+# the ring GEMMs (K13, K14, K15)
 # ---------------------------------------------------------------------------
+
+
+def _ring_gemm_operands(what: str, x_blocks, w_blocks):
+    """Common checks of a ring GEMM's rank lists: p > 0 blocks of each, one
+    2-D shape per operand; returns ``(x_blocks, w_blocks, on_cuda)``."""
+    x_blocks, w_blocks = list(x_blocks), list(w_blocks)
+    p = len(x_blocks)
+    if p == 0 or len(w_blocks) != p:
+        raise ValueError(f"{what}: {len(x_blocks)} x blocks for "
+                         f"{len(w_blocks)} w blocks; need one each per rank")
+    x0, w0 = x_blocks[0], w_blocks[0]
+    if x0.ndim != 2 or w0.ndim != 2 or any(
+            x.shape != x0.shape for x in x_blocks) or any(
+            w.shape != w0.shape for w in w_blocks):
+        raise ValueError(f"{what} needs one 2-D shape per operand, got "
+                         f"{tuple(x0.shape)} and {tuple(w0.shape)} blocks "
+                         "and others")
+    return x_blocks, w_blocks, _on_cuda(x_blocks + w_blocks)
+
+
+def _check_kernel_operands(what: str, x_blocks, w_blocks):
+    """The kernels' own checks: one float32 or bfloat16 dtype, rank r's
+    operands on one device, contiguous."""
+    dtype = x_blocks[0].dtype
+    if dtype not in _RING_DTYPES or any(
+            t.dtype != dtype for t in x_blocks + w_blocks):
+        raise TypeError(f"the {what} kernel takes float32 or bfloat16, one "
+                        "dtype for both operands")
+    if any(x.device != w.device for x, w in zip(x_blocks, w_blocks)):
+        raise ValueError(f"rank r's {what} operands must share a device")
+    _check_contiguous(x_blocks + w_blocks, what)
+
+
+def _launched(rc: int, what: str, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+    kbuild.count(kernel)
+
+
+def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
+                          w_blocks: Sequence[torch.Tensor]
+                          ) -> list[torch.Tensor]:
+    """``all_gather(x) @ w_r`` for every rank r, x's row chunks travelling
+    the ring: the CUDA kernel (K13) for CUDA tensors, the plain version for
+    CPU tensors.  ``x_r`` is (m_loc, k) and ``w_r`` (k, n); the result is
+    (p m_loc, n)."""
+    what = "ring all-gather GEMM"
+    x_blocks, w_blocks, cuda = _ring_gemm_operands(what, x_blocks, w_blocks)
+    p = len(x_blocks)
+    (m_loc, k), (kw, n) = x_blocks[0].shape, w_blocks[0].shape
+    if k != kw:
+        raise ValueError(f"{what}: x blocks ({m_loc}, {k}) do not contract "
+                         f"with w blocks ({kw}, {n})")
+    if not cuda:
+        return allgather_matmul_plain(x_blocks, w_blocks)
+    _check_kernel_operands(what, x_blocks, w_blocks)
+    dtype = x_blocks[0].dtype
+    devs = [x.device for x in x_blocks]
+    order = _Order(devs)
+    outs = [torch.empty((p * m_loc, n), dtype=dtype, device=d) for d in devs]
+    bufs = [torch.empty((2, m_loc, k), dtype=dtype, device=d) for d in devs] \
+        if p > 1 else []
+    done = [order.mark(d) for d in devs]     # buffers allocated
+    step = _fn("da_ring_ag_mm_a_step")
+    for t in range(p):
+        prev, done = done, []
+        for r, dev in enumerate(devs):
+            left, right = (r - 1) % p, (r + 1) % p
+            # the left neighbour finished with the slot written here, and
+            # the right one finished writing this rank's resident slot
+            order.wait(dev, [prev[left], prev[right]])
+            chunk = x_blocks[r] if t == 0 else bufs[r][t % 2]
+            fwd = bufs[left][(t + 1) % 2] if t < p - 1 else None
+            src = (r + t) % p
+            rc = step(chunk.data_ptr(), w_blocks[r].data_ptr(),
+                      outs[r][src * m_loc:].data_ptr(),
+                      fwd.data_ptr() if fwd is not None else None, m_loc, n,
+                      k, int(dtype == torch.bfloat16), dev.index,
+                      torch.cuda.current_stream(dev).cuda_stream)
+            _launched(rc, what, "allgather_matmul")
+            done.append(order.mark(dev))
+    return outs
 
 
 def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
                               b_blocks: Sequence[torch.Tensor]
                               ) -> list[torch.Tensor]:
     """``a_r @ all_gather(b)`` for every rank r, b's chunks travelling the
-    ring: the CUDA kernel for CUDA tensors, the plain version for CPU
+    ring: the CUDA kernel (K14) for CUDA tensors, the plain version for CPU
     tensors.  ``a_r`` is (m_loc, k) and ``b_r`` (k_loc, n), k = p k_loc."""
-    a_blocks, b_blocks = list(a_blocks), list(b_blocks)
+    what = "ring GEMM"
+    a_blocks, b_blocks, cuda = _ring_gemm_operands(what, a_blocks, b_blocks)
     p = len(b_blocks)
-    if p == 0 or len(a_blocks) != p:
-        raise ValueError(f"{len(a_blocks)} a blocks for {p} b blocks")
-    a0, b0 = a_blocks[0], b_blocks[0]
-    if any(a.shape != a0.shape for a in a_blocks) or any(
-            b.shape != b0.shape for b in b_blocks) or a0.ndim != 2 or \
-            b0.ndim != 2 or a0.shape[1] != p * b0.shape[0]:
-        raise ValueError(f"ring GEMM shapes: a blocks {tuple(a0.shape)}, b "
-                         f"blocks {tuple(b0.shape)} over {p} ranks")
-    if not _on_cuda(a_blocks + b_blocks):
+    (m, k), (k_loc, n) = a_blocks[0].shape, b_blocks[0].shape
+    if k != p * k_loc:
+        raise ValueError(f"ring GEMM shapes: a blocks {(m, k)}, b blocks "
+                         f"{(k_loc, n)} over {p} ranks")
+    if not cuda:
         return allgather_matmul_rhs_plain(a_blocks, b_blocks)
-    dtype = a0.dtype
-    if dtype not in _RING_DTYPES or any(
-            t.dtype != dtype for t in a_blocks + b_blocks):
-        raise TypeError("the ring GEMM kernel takes float32 or bfloat16, one "
-                        "dtype for a and b")
-    if any(a.device != b.device for a, b in zip(a_blocks, b_blocks)):
-        raise ValueError("rank r's a and b blocks must share a device")
-    _check_contiguous(a_blocks + b_blocks, "ring GEMM")
-    m, k = a0.shape
-    k_loc, n = b0.shape
+    _check_kernel_operands(what, a_blocks, b_blocks)
+    dtype = a_blocks[0].dtype
     devs = [a.device for a in a_blocks]
     order = _Order(devs)
     outs = [torch.empty((m, n), dtype=dtype, device=d) for d in devs]
@@ -407,8 +544,7 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
     done = [order.mark(d) for d in devs]     # buffers allocated
     step = _fn("da_ring_ag_mm_step")
     for t in range(p):
-        prev = done
-        done = []
+        prev, done = done, []
         for r, dev in enumerate(devs):
             left, right = (r - 1) % p, (r + 1) % p
             # the left neighbour finished with the slot written here, and
@@ -422,9 +558,55 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
                       k_loc, k, ((r + t) % p) * k_loc, int(t == 0),
                       int(dtype == torch.bfloat16), dev.index,
                       torch.cuda.current_stream(dev).cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"ring GEMM kernel launch failed: CUDA "
-                                   f"error {rc}")
-            kbuild.count("allgather_matmul_rhs")
+            _launched(rc, what, "allgather_matmul_rhs")
+            done.append(order.mark(dev))
+    return outs
+
+
+def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
+                              w_blocks: Sequence[torch.Tensor]
+                              ) -> list[torch.Tensor]:
+    """Row block ``r`` of ``sum_q x_q @ w_q`` for every rank r, the partials
+    travelling the ring: the CUDA kernel (K15) for CUDA tensors, the plain
+    version for CPU tensors.  ``x_r`` is (m, k_loc) with p dividing m and
+    ``w_r`` (k_loc, n); the result is (m / p, n)."""
+    what = "ring GEMM + reduce-scatter"
+    x_blocks, w_blocks, cuda = _ring_gemm_operands(what, x_blocks, w_blocks)
+    p = len(x_blocks)
+    (m, k_loc), (kw, n) = x_blocks[0].shape, w_blocks[0].shape
+    if k_loc != kw:
+        raise ValueError(f"{what}: x blocks ({m}, {k_loc}) do not contract "
+                         f"with w blocks ({kw}, {n})")
+    if m % p:
+        raise ValueError(f"rows {m} must be divisible by the {p} ranks")
+    if not cuda:
+        return matmul_reducescatter_plain(x_blocks, w_blocks)
+    _check_kernel_operands(what, x_blocks, w_blocks)
+    dtype = x_blocks[0].dtype
+    m_loc = m // p
+    devs = [x.device for x in x_blocks]
+    order = _Order(devs)
+    outs = [torch.empty((m_loc, n), dtype=dtype, device=d) for d in devs]
+    bufs = [torch.empty((2, m_loc, n), dtype=dtype, device=d) for d in devs] \
+        if p > 1 else []
+    done = [order.mark(d) for d in devs]     # buffers allocated
+    step = _fn("da_ring_mm_rs_step")
+    for t in range(p):
+        prev, done = done, []
+        for r, dev in enumerate(devs):
+            left, right = (r - 1) % p, (r + 1) % p
+            # the left neighbour finished writing this rank's receive slot,
+            # the right one finished reading the slot written here
+            order.wait(dev, [prev[left], prev[right]])
+            d = (r - 1 - t) % p
+            recv = bufs[r][t % 2] if t else None
+            dst = outs[r] if t == p - 1 else bufs[right][(t + 1) % 2]
+            rc = step(x_blocks[r][d * m_loc:].data_ptr(),
+                      w_blocks[r].data_ptr(),
+                      recv.data_ptr() if recv is not None else None,
+                      dst.data_ptr(), m_loc, n, k_loc,
+                      int(dtype == torch.bfloat16), dev.index,
+                      torch.cuda.current_stream(dev).cuda_stream)
+            _launched(rc, what, "matmul_reducescatter")
             done.append(order.mark(dev))
     return outs

@@ -1,8 +1,9 @@
 """Collectives over rank tensors, written in plain torch.
 
-PyTorch counterpart of ``halo_exchange``, ``pshift``, ``pgather`` and
-``pall_to_all`` in ``distributedarrays_tpu/parallel/collectives.py``, and
-of ``lax.psum_scatter`` as ``psum_scatter``.
+PyTorch counterpart of ``halo_exchange``, ``pshift``, ``pgather``,
+``preduce`` and ``pall_to_all`` in
+``distributedarrays_tpu/parallel/collectives.py``, and of
+``lax.psum_scatter`` as ``psum_scatter``.
 There each is a ``lax`` collective inside a ``shard_map``; here the
 controller holds every rank's tensor, so a collective takes the list of the
 ranks' tensors in ring order (one per ``axis_index``) and returns a list,
@@ -19,7 +20,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["halo_exchange", "pshift", "pgather", "pall_to_all", "psum_scatter"]
+__all__ = ["halo_exchange", "pshift", "pgather", "preduce", "pall_to_all",
+           "psum_scatter"]
 
 
 def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
@@ -72,6 +74,27 @@ def pgather(blocks: Sequence[torch.Tensor], dim: int = 0) -> list[torch.Tensor]:
     """Every rank gets all blocks concatenated along ``dim`` in rank order,
     on its own device."""
     return [torch.cat([x.to(b.device) for x in blocks], dim) for b in blocks]
+
+
+_FOLDS = {"sum": torch.add, "mean": torch.add, "max": torch.maximum,
+          "min": torch.minimum}
+
+
+def preduce(blocks: Sequence[torch.Tensor],
+            op: str = "sum") -> list[torch.Tensor]:
+    """All-reduce (``lax.psum``/``pmax``/``pmin``/``pmean``): the ranks'
+    blocks folded in rank order on rank 0's device (``mean`` divides the
+    sum by the rank count), the one result copied to every rank's device,
+    so every rank holds the same bits."""
+    if op not in _FOLDS:
+        raise ValueError(f"unknown reduction {op!r}: use one of "
+                         f"{sorted(_FOLDS)}")
+    acc = blocks[0]
+    for b in blocks[1:]:
+        acc = _FOLDS[op](acc, b.to(acc.device))
+    if op == "mean":
+        acc = acc / len(blocks)
+    return [acc.to(b.device, copy=True) for b in blocks]
 
 
 def pall_to_all(blocks: Sequence[torch.Tensor], split_dim: int,

@@ -42,7 +42,9 @@ KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
            "stencil_multistep": "stencil", "matmul_int8": "gemm_int8",
            "all_gather": "collectives", "all_to_all": "collectives",
            "reduce_scatter": "collectives",
+           "allgather_matmul": "collectives",
            "allgather_matmul_rhs": "collectives",
+           "matmul_reducescatter": "collectives",
            "flash_attention": "attention", "flash_attention_hop": "attention",
            "ring_attention": "attention",
            "flash_attention_bwd_dq": "attention_bwd",

@@ -2,14 +2,20 @@
 the plain ring (K9's plain version) against the fused RDMA kernel in
 interpret mode, as ``tests/test_pallas_collectives.py`` runs it; and
 ``ring_attention``, ``ring_flash_attention``, ``ulysses_attention`` and
-``ring_attention_prefill`` on 8 CPU ranks against their JAX counterparts.
+``ring_attention_prefill`` on 8 CPU ranks against their JAX counterparts;
+the differentiable flash ring and the zigzag family against the JAX
+kernels under ``shard_map`` (Pallas hops in interpret mode), forward and
+``jax.vjp``.
 
 Tolerances: the ring against the RDMA kernel atol 1e-5 (both f32 with the
 same steps, summation order only; the JAX package holds its two rings to
 the same); the DArray entries rtol 1e-4 / atol 1e-5 (the flash hops'
-order); everything against the dense oracle atol 1e-4.
+order); the flash rings' outputs and gradients rtol 1e-4 / atol 1e-5
+(the hop and the FA2 backward in one tile here, in 8-row blocks in the
+Pallas kernels); everything against the dense oracle atol 1e-4.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -199,3 +205,98 @@ def test_prefill_short_prompt_takes_the_oracle():
                                     min_ring_tokens=3),
         JRA.ring_attention_prefill(q, k, v, procs=[0, 1, 2],
                                    min_ring_tokens=3), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the differentiable flash ring and the zigzag family
+# ---------------------------------------------------------------------------
+
+
+def _jax_vjp(fn, p, arrays, g):
+    """Output and (dq, dk, dv) of a JAX ring kernel under shard_map."""
+    spec = P("p", None, None)
+    f = run_spmd(fn, spmd_mesh(p), (spec,) * 3, spec)
+    out, vjp = jax.vjp(f, *arrays)
+    return np.asarray(out), [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+def _port_vjp(fn, p, arrays, g):
+    blocks = [[t.requires_grad_() for t in _blocks(x, p)] for x in arrays]
+    outs = fn(*blocks)
+    torch.autograd.backward(outs, _blocks(g, p))
+    return (torch.cat(outs).detach().numpy(),
+            [torch.cat([t.grad for t in bl]).numpy() for bl in blocks])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_flash_kernel_gradients_match_jax(causal):
+    p, b, h, dh = 4, 8, 2, 16
+    arrays = _qkv((p * b, h, dh), 11)
+    g = _qkv((p * b, h, dh), 12)[0]
+    jo, jg = _jax_vjp(lambda q, k, v: JRA.ring_flash_attention_kernel(
+        q, k, v, "p", causal=causal, block_q=8, block_k=8, interpret=True),
+        p, arrays, g)
+    to, tg = _port_vjp(lambda q, k, v: TRA.ring_flash_attention_kernel(
+        q, k, v, causal), p, arrays, g)
+    np.testing.assert_allclose(to, jo, **F32)
+    for a, b_ in zip(tg, jg):
+        np.testing.assert_allclose(a, b_, **F32)
+
+
+@pytest.mark.parametrize("S,p", [(32, 4), (48, 3), (16, 8)])
+def test_zigzag_order_shard_unshard_match_jax(S, p):
+    np.testing.assert_array_equal(TRA.zigzag_order(S, p),
+                                  JRA.zigzag_order(S, p))
+    x = np.arange(S * 3, dtype=np.float32).reshape(S, 3)
+    z = TRA.zigzag_shard(torch.from_numpy(x), p)
+    np.testing.assert_array_equal(z.numpy(),
+                                  np.asarray(JRA.zigzag_shard(x, p)))
+    np.testing.assert_array_equal(TRA.zigzag_unshard(z, p).numpy(), x)
+    with pytest.raises(ValueError, match="must divide"):
+        TRA.zigzag_order(S + 1, p)
+
+
+def test_zigzag_flash_forward_and_backward_match_jax():
+    p, b, h, dh = 4, 16, 2, 16
+    arrays = _qkv((p * b, h, dh), 13)
+    g = _qkv((p * b, h, dh), 14)[0]
+    jo, jg = _jax_vjp(lambda q, k, v: JRA.zigzag_ring_flash_attention_kernel(
+        q, k, v, "p", block_q=8, block_k=8, interpret=True), p, arrays, g)
+    to, tg = _port_vjp(TRA.zigzag_ring_flash_attention_kernel, p, arrays, g)
+    np.testing.assert_allclose(to, jo, **F32)
+    for a, b_ in zip(tg, jg):
+        np.testing.assert_allclose(a, b_, **F32)
+    # zigzag-ordered rows in, zigzag-ordered rows out: the dense oracle
+    inv = np.argsort(TRA.zigzag_order(p * b, p))
+    np.testing.assert_allclose(
+        to[inv], JRA.reference_attention(*(x[inv] for x in arrays), True),
+        atol=1e-4)
+
+
+def test_zigzag_plain_ring_matches_jax():
+    p, b, h, dh = 4, 8, 2, 8
+    arrays = _qkv((p * b, h, dh), 15)
+    spec = P("p", None, None)
+    want = np.asarray(run_spmd(lambda q, k, v: JRA.zigzag_ring_attention_kernel(
+        q, k, v, "p"), spmd_mesh(p), (spec,) * 3, spec)(*arrays))
+    outs = TRA.zigzag_ring_attention_kernel(*(_blocks(x, p) for x in arrays))
+    np.testing.assert_allclose(torch.cat(outs).numpy(), want, atol=1e-5)
+    with pytest.raises(ValueError, match="even local block"):
+        TRA.zigzag_ring_attention_kernel(*(_blocks(x[:28], 4)
+                                           for x in arrays))
+
+
+@pytest.mark.parametrize("fn", ["zigzag_ring_attention",
+                                "zigzag_ring_flash_attention"])
+def test_zigzag_darray_entries_match_jax(fn):
+    arrays = _qkv((64, 2, 8), 16)
+    zz = [np.asarray(JRA.zigzag_shard(x, 4)) for x in arrays]
+    (jq, jk, jv), (tq, tk, tv) = _both(zz, 4)
+    jo = getattr(JRA, fn)(jq, jk, jv)
+    to = getattr(tdat, fn)(tq, tk, tv)
+    same_layout(jo, to)
+    np.testing.assert_allclose(np.asarray(to), np.asarray(jo), **F32)
+    bad = tdat.distribute(np.zeros((36, 2, 8), np.float32), procs=range(4),
+                          dist=[4, 1, 1])
+    with pytest.raises(ValueError, match="2\\*nranks"):
+        getattr(tdat, fn)(bad, bad, bad)

@@ -16,6 +16,7 @@ import torch
 import distributedarrays_tpu as dat
 import distributedarrays_tpu_torch as tdat
 from distributedarrays_tpu.models import stencil as jstencil
+from distributedarrays_tpu_torch.models import ring_attention as RA
 
 from _torch_port import port_ranks, same_layout  # noqa: F401
 
@@ -121,10 +122,17 @@ def test_cpu_tensors_leave_kernel_counts_at_zero():
     q = qkv[0].clone().requires_grad_(True)
     tdat.flash_attention(q, qkv[1], qkv[2], causal=True).sum().backward()
     tdat.cuda_collectives.ring_reduce_scatter([t, t], 0)
+    w = [t[:16].clone().requires_grad_(True) for _ in range(2)]
+    ys = tdat.collective_matmul.tp_ffn([t, t], w, [x.t() for x in w])
+    sum(y.sum() for y in ys).backward()
+    blocks = [qkv[0].clone().requires_grad_(True) for _ in range(2)]
+    o = RA.zigzag_ring_flash_attention_kernel(blocks, blocks, blocks)
+    sum(x.sum() for x in o).backward()
     assert tdat.kbuild.launch_counts() == {
         "gemm": 0, "stencil_step": 0, "stencil_multistep": 0,
         "matmul_int8": 0, "all_gather": 0, "all_to_all": 0,
-        "reduce_scatter": 0, "allgather_matmul_rhs": 0,
+        "reduce_scatter": 0, "allgather_matmul": 0,
+        "allgather_matmul_rhs": 0, "matmul_reducescatter": 0,
         "flash_attention": 0, "flash_attention_hop": 0, "ring_attention": 0,
         "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 

@@ -187,3 +187,45 @@ def test_train_step_bf16_updates_in_f32_arithmetic():
         assert torch.equal(p, (p0.float() - 2.0 * g.float()).bfloat16())
     _, jl = JT.train_step(jp, tok, 2.0, jcfg)
     np.testing.assert_allclose(float(tl), float(jl), rtol=3e-2)
+
+
+def test_optax_train_step_matches_jax_adam():
+    # eps 1e-3 keeps Adam's first steps, about lr * g / (|g| + eps), from
+    # magnifying the gradients' last-bit differences where |g| is near eps
+    optax = pytest.importorskip("optax")
+    jcfg, tcfg, jp, model = _pair(torch.float32)
+    jstep, jinit = JT.make_optax_train_step(jcfg, optax.adam(1e-2, eps=1e-3))
+    tstep, tinit = TT.make_optax_train_step(tcfg,
+                                            tdat.train.adam(1e-2, eps=1e-3))
+    jstate, state = jinit(jp), tinit(model)
+    for step in range(2):
+        tok = _tokens((2, 13), 50 + step)
+        jp, jstate, jl = jstep(jp, jstate, tok)
+        model2, state, tl = tstep(model, state, tok)
+        assert model2 is model and not tl.requires_grad
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert state["t"] == 2
+    back = tdat.params_to_reference(model)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(jp)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-5)
+
+
+def test_optax_train_step_bf16_updates_in_f32_arithmetic():
+    # bf16 parameters: the Adam step runs on f32 copies of the parameters
+    # and gradients, from f32 moments, and is rounded once to bf16
+    _, tcfg, _, model = _pair(torch.bfloat16)
+    opt = tdat.train.adam(1e-2)
+    step, init = TT.make_optax_train_step(tcfg, opt)
+    tok = _tokens((2, 9), 60)
+    ps = list(model.parameters())
+    before = [p.detach().clone() for p in ps]
+    loss, grads = value_and_grad(lambda: TT.loss_fn(model, tok, tcfg), ps)
+    state = init(model)
+    assert all(s.dtype == torch.float32 for sl in state["slots"] for s in sl)
+    _, state, tl = step(model, state, tok)
+    assert float(tl) == float(loss)
+    for p, p0, g, sl in zip(model.parameters(), before, grads,
+                            init(model)["slots"]):
+        new, m, v = opt.update(1, p0.float(), g.float(), sl)
+        assert p.dtype == torch.bfloat16 and torch.equal(p, new.bfloat16())
