@@ -7,10 +7,17 @@
    csrc`` (nvcc, sm_90a) into ``build/torch_kernels/``.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes:
-   - block GEMM: 4096^2 f32, 4096^2 bf16 and a ragged 1000x777 @ 777x1500
-     f32 product; relative Frobenius error <= 1e-5 in f32 (summation order
-     only) and <= 1e-2 in bf16 (the kernel's bf16 output rounding against
-     the plain bf16-in/f32-accumulate product cast to bf16);
+   - block GEMM on each of its routes, each call moving its own route's
+     count and no other: bf16 on wgmma + TMA at 4096^3, at a ragged
+     1000x776 @ 776x1496 and at 100x24 @ 24x40 (smaller than a TMA box),
+     bf16 on mma.sync at 1000x777 @ 777x1500 (which
+     TMA cannot stride), f32 at 4096^3 and 1000x777 @ 777x1500.  f32
+     results, and the bf16 routes' f32 output taken from the C entry, at
+     relative Frobenius error <= 1e-5 (exact bf16 products, summation order
+     only); the bf16 output bit for bit the f32 output rounded, and within
+     one bf16 ulp of the plain product rounded in at most 1 % of the
+     elements (except where the order error exceeds a bf16 spacing, next
+     to zero);
    - single-step stencil: 8192^2 f32, random weights, nonzero halo rows;
    - multistep stencil: k = 8, both Dirichlet flag settings.
    Stencils: relative Frobenius error <= 1e-5 (the kernels sum in the
@@ -53,7 +60,11 @@
      one ring hop (K8) at (16, 2048, 64) bf16 from a live carry with keys
      fully visible, on the diagonal and fully masked (a bit-exact
      copy-through); the fused ring (K9) at S = 8192, 16 heads of 64, four
-     ranks on the card, bf16 causal and not, and f32 causal.  Relative
+     ranks on the card, bf16 causal and not, and f32 causal, a ragged bf16
+     ring (4 x 1000 rows), bf16 rings at head dims 128 and 32 (4 x 512
+     rows, 4 heads) and a bf16 ring on the mma.sync route (head dim 36),
+     each 16 launches with 10 (causal) or 16 compute steps on the expected
+     route.  Relative
      Frobenius error <= 1e-5 in f32 (summation order), <= 1e-2 for K5/K8
      in bf16 (p rounded to bf16 by the kernel only, and the bf16 output),
      <= 2.5e-4 for K9 in bf16 (it computes in f32; the bf16 output
@@ -135,9 +146,18 @@
    torch.matmul per rank then torch.stack(...).sum(0) per destination for
    K15,
    F.scaled_dot_product_attention at the same shape for K5 and over the
-   whole sequence for K9, its backward for K6 and K7; K8 has none;
+   whole sequence for K9 (whose row also gives the device time of its 16
+   launches alone, from a torch.profiler trace), its backward for K6 and
+   K7; K8 has none;
    torch.stack(...).sum(0) per destination for K12), and prints them as
    one JSON line.
+
+``python3 chip_smoke.py --k1-k9`` builds the GEMM and attention kernels
+alone, checks K1 on every route and the K9 rings, and times both;
+``python3 chip_smoke.py --time-k1-k9 [DIR]`` times K1 and K9 (per call, and
+the K9 ring's device time alone from a ``torch.profiler`` trace) through
+the package under DIR, so an unpacked older commit and this one can be
+timed in turns on one card.
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -152,6 +172,7 @@ and the script exits non-zero.  Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -177,6 +198,13 @@ TOL_QUANT = 3e-2      # int8 products against f32: two quantization steps
 # read 6e-5 to 7e-5.  A ring that rounds p to bf16 (K8's numerics) must
 # land above it: chip_smoke checks that control too.
 TOL_RING_BF16 = 2.5e-4
+# K1 with bf16 output against the plain product rounded once to bf16: the
+# f32 sums differ in order only (about 4e-6 of the result's rms at K =
+# 4096), so an element rounds to the neighbouring bf16 value only near a
+# rounding boundary (about 2e-3 of them): at most one ulp, in at most this
+# share of the elements.  Elements so near zero that one bf16 spacing is
+# below TOL_F32 of the rms are exempt: the order moves them by many spacings
+GEMM_BF16_FLIPS = 1e-2
 # full-width bf16 forward, K5 against the plain dense attention: the
 # residual stream is re-rounded to bf16 after each of the 8 layers, so an
 # attention output one ulp apart moves later roundings too
@@ -488,10 +516,253 @@ def ring_gemms_only() -> int:
     return 0
 
 
+def device_ms(fn, reps: int = 5) -> float:
+    """Device time per call of ``fn``: the durations of the CUDA kernels in
+    a ``torch.profiler`` trace of ``reps`` calls (after one warm-up call),
+    summed and divided by ``reps``.  The host's work between launches is
+    not in it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / reps
+
+
+def gpu_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+
+
+def k1_k9_times(root: str | None = None) -> int:
+    """``--time-k1-k9 [ROOT]``: time K1 (4096^3 f32 and bf16, 16384^3 f32)
+    and K9 (the S = 8192 causal bf16 ring on 4 ranks: per call, and the
+    device time of its launches alone) through the public wrappers of the
+    package under ROOT (this checkout's by default), so two trees can be
+    timed in turns in one call on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch.ops import cuda_gemm as CG
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    tdat.kbuild.build(["gemm", "attention"])
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+    a, b = (torch.randn(4096, 4096, generator=gen, device=dev)
+            for _ in range(2))
+    times["gemm 4096^3 f32"] = time_ms(lambda: CG.cuda_matmul(a, b))
+    ab, bb = a.bfloat16(), b.bfloat16()
+    times["gemm 4096^3 bf16"] = time_ms(lambda: CG.cuda_matmul(ab, bb))
+    a, b = (torch.randn(16384, 16384, generator=gen, device=dev)
+            for _ in range(2))
+    times["gemm 16384^3 f32"] = time_ms(lambda: CG.cuda_matmul(a, b))
+    del a, b, ab, bb
+    blocks = [[torch.randn(2048, 16, 64, generator=gen, device=dev)
+               .bfloat16() for _ in range(4)] for _ in range(3)]
+    ring = lambda: RA.ring_attention_rdma(*blocks, True)
+    times["ring_attention S=8192 bf16 causal"] = time_ms(ring)
+    times["ring_attention S=8192 bf16 causal, device"] = device_ms(ring)
+    print(json.dumps({"k1_k9_times": times, "package": tdat.__file__,
+                      "gpu": smi}))
+    return 0
+
+
+def k1_k9_only() -> int:
+    """``--k1-k9``: build the GEMM and attention kernels, check K1 on each
+    route and K9 against their plain versions, and time both (a quick
+    check on the card)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["gemm", "attention"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    for stem in ("gemm", "attention"):
+        for line in tdat.kbuild.build_log.get(stem, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {stem}: {line.strip()}")
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs = {k: 0.0 for k in tdat.kbuild.KERNELS}
+    failed = []
+    for phase in (gemm_kernels, ring_kernels):
+        try:
+            phase(randn, errs)
+        except AssertionError as e:   # report every phase, fail below
+            print(f"FAILED {phase.__name__}: {e}")
+            failed.append(phase.__name__)
+    k1_k9_times()
+    if failed:
+        print(f"chip_smoke --k1-k9: failed {failed}", file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def bf16_ulps(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|x - ref| in units of the bf16 spacing at the larger of |x| and
+    |ref| (2^(e - 8) for a value in [2^(e - 1), 2^e))."""
+    x, ref = x.float(), ref.float()
+    e = torch.maximum(torch.frexp(x).exponent, torch.frexp(ref).exponent)
+    return (x - ref).abs() / torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def gemm_kernels(randn, errs) -> None:
+    """K1 on each route against its plain version: bf16 on wgmma + TMA at
+    4096^3 (f32 output through the C entry at TOL_F32, since bf16 products
+    are exact in f32 and only the summation order differs; bf16 output
+    within one bf16 ulp of the plain product rounded once, in at most
+    GEMM_BF16_FLIPS of the elements), at a ragged TMA-eligible shape and
+    at one smaller than a TMA box (100 x 24 @ 24 x 40);
+    bf16 on mma.sync at a shape TMA cannot read; f32 on the pipelined SIMT
+    loop at 4096^3 and ragged.  Each call must move its route's count and
+    no other."""
+    from distributedarrays_tpu_torch.ops import cuda_gemm as CG
+    from distributedarrays_tpu_torch.utils import kbuild
+    bf16, f32 = torch.bfloat16, torch.float32
+    for (m, k, n), dt, route in (((4096, 4096, 4096), bf16, "wgmma"),
+                                 ((1000, 776, 1496), bf16, "wgmma"),
+                                 ((100, 24, 40), bf16, "wgmma"),
+                                 ((1000, 777, 1500), bf16, "mma"),
+                                 ((4096, 4096, 4096), f32, "f32"),
+                                 ((1000, 777, 1500), f32, "f32")):
+        a, b = randn(m, k, dtype=dt), randn(k, n, dtype=dt)
+        what = f"gemm {m}x{k}x{n} {dt} ({route})"
+        if CG.gemm_route(dt, n, k, a.data_ptr(), b.data_ptr()) != route:
+            raise AssertionError(f"{what}: gemm_route picks another route")
+        ref = CG.matmul_plain(a.float(), b.float())
+        before = kbuild.route_counts()["gemm"]
+        got = CG.cuda_matmul(a, b)
+        torch.cuda.synchronize()
+        moved = {r: c - before[r]
+                 for r, c in kbuild.route_counts()["gemm"].items()}
+        if moved != {r: int(r == route) for r in moved}:
+            raise AssertionError(f"{what}: route counts moved {moved}")
+        if dt == f32:
+            check(what, rel_err(got, ref), TOL_F32)
+            errs["gemm"] = max(errs["gemm"], max_abs(got, ref))
+            continue
+        # f32 output straight from the C entry, on the same route
+        c = torch.empty(m, n, device=a.device)
+        rc = CG._gemm_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                           kbuild.ROUTES.index(route), 0, a.device.index,
+                           torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"{what} -> f32: CUDA error {rc}")
+        check(what + " -> f32", rel_err(c, ref), TOL_F32)
+        errs["gemm"] = max(errs["gemm"], max_abs(c, ref))
+        # bf16 output: the same sums rounded once, so bit for bit the f32
+        # output rounded ...
+        exact(what + " -> bf16 against its f32 output rounded", got,
+              c.to(bf16))
+        # ... and within one bf16 ulp of the plain product rounded once,
+        # wherever one bf16 spacing exceeds what the sums' order can move an
+        # element (TOL_F32 of the result's rms)
+        refb = ref.to(bf16)
+        ulps = bf16_ulps(got, refb)
+        spacing = torch.ldexp(torch.ones_like(ref),
+                              torch.frexp(ref).exponent - 8)
+        near0 = spacing < TOL_F32 * ref.norm() / ref.numel() ** 0.5
+        far = ulps[~near0]
+        flips = float((ulps > 0).float().mean())
+        print(f"  {what} -> bf16 against the plain product rounded: max "
+              f"{float(far.max())} ulp away from zero ({int(near0.sum())} "
+              f"elements within the order error of zero), {flips:.3e} of "
+              f"the elements differ (bound 1 ulp in at most "
+              f"{GEMM_BF16_FLIPS:g})")
+        if not (float(far.max()) <= 1.0 and flips <= GEMM_BF16_FLIPS):
+            raise AssertionError(f"{what}: bf16 output off the plain product")
+        del c
+    del a, b, got, ref
+    torch.cuda.empty_cache()
+
+
+def ring_kernels(randn, errs) -> None:
+    """K9 against the plain ring: S = 8192, 16 heads of 64, four ranks on
+    the card, bf16 causal (16 launches, 10 of them accumulating, all on the
+    wgmma route) and not, f32 causal, a ragged bf16 ring (4 x 1000 rows),
+    bf16 rings at head dims 128 (two TMA boxes a tile) and 32 (half a box)
+    and a bf16 ring on the mma.sync route (head dim 36, which TMA cannot
+    stride).  A control, the plain ring with p rounded to bf16, must
+    exceed the bf16 tolerance."""
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch.utils import kbuild
+    bf16, f32 = torch.bfloat16, torch.float32
+    for (b, h, dh), dt, causal, tol, route in (
+            ((2048, 16, 64), bf16, True, TOL_RING_BF16, "wgmma"),
+            ((2048, 16, 64), bf16, False, TOL_RING_BF16, "wgmma"),
+            ((2048, 16, 64), f32, True, TOL_F32, "f32"),
+            ((1000, 16, 64), bf16, True, TOL_RING_BF16, "wgmma"),
+            ((512, 4, 128), bf16, True, TOL_RING_BF16, "wgmma"),
+            ((512, 4, 32), bf16, False, TOL_RING_BF16, "wgmma"),
+            ((512, 4, 36), bf16, True, TOL_RING_BF16, "mma")):
+        blocks = [[randn(b, h, dh, dtype=dt) for _ in range(4)]
+                  for _ in range(3)]
+        launches = kbuild.launch_counts()["ring_attention"]
+        routes = kbuild.route_counts()["ring_attention"]
+        got = RA.ring_attention_rdma(*blocks, causal)
+        torch.cuda.synchronize()
+        n = kbuild.launch_counts()["ring_attention"] - launches
+        moved = {r: c - routes[r]
+                 for r, c in kbuild.route_counts()["ring_attention"].items()}
+        steps = 10 if causal else 16
+        print(f"  ring {b}x{h}x{dh} {dt} causal={causal}: {n} launches, "
+              f"compute steps by route {moved}")
+        if n != 16 or moved != {r: steps * (r == route) for r in moved}:
+            raise AssertionError(f"ring attention: {n} launches and compute "
+                                 f"steps {moved}, expected 16 and {steps} on "
+                                 f"{route}")
+        ref = RA.ring_attention_kernel(*blocks, causal)
+        torch.cuda.synchronize()
+        check(f"ring attention {4 * b} rows, {h}x{dh} {dt} causal={causal}",
+              max(rel_err(g, r) for g, r in zip(got, ref)), tol)
+        errs["ring_attention"] = max(errs["ring_attention"], max(
+            max_abs(g, r) for g, r in zip(got, ref)))
+        if dt == bf16 and b == 2048:
+            # the lower-precision control: the same ring with p rounded to
+            # bf16 must fail K9's tolerance, or the check cannot tell them
+            ctl = max(rel_err(g, r) for g, r in zip(
+                ring_bf16_p_plain(*blocks, causal), ref))
+            print(f"  control, ring with p rounded to bf16: rel_err="
+                  f"{ctl:.3e} (must exceed {TOL_RING_BF16:g})")
+            if not ctl > TOL_RING_BF16:
+                raise AssertionError("K9's bf16 tolerance does not separate "
+                                     "a ring that rounds p to bf16")
+    del blocks, got, ref
+    torch.cuda.empty_cache()
+
+
 def attention_kernels(randn, errs) -> None:
     """Phase 6a: K5, K8 and K9 against their plain versions at the serving
     and sequence-parallel paths' shapes."""
-    from distributedarrays_tpu_torch.models import ring_attention as RA
     from distributedarrays_tpu_torch.ops import cuda_attention as CA
     bf16, f32 = torch.bfloat16, torch.float32
     print("phase attention kernels")
@@ -533,29 +804,8 @@ def attention_kernels(randn, errs) -> None:
         errs["flash_attention_hop"] = max(errs["flash_attention_hop"],
                                           max_abs(got[2], ref[2]))
     # the whole K9 ring: S = 8192, 16 heads of 64, 4 ranks on the card
-    for dt, causal, tol in ((bf16, True, TOL_RING_BF16),
-                            (bf16, False, TOL_RING_BF16),
-                            (f32, True, TOL_F32)):
-        blocks = [[randn(2048, 16, 64, dtype=dt) for _ in range(4)]
-                  for _ in range(3)]
-        got = RA.ring_attention_rdma(*blocks, causal)
-        ref = RA.ring_attention_kernel(*blocks, causal)
-        torch.cuda.synchronize()
-        check(f"ring attention S=8192 4 ranks {dt} causal={causal}",
-              max(rel_err(g, r) for g, r in zip(got, ref)), tol)
-        errs["ring_attention"] = max(errs["ring_attention"], max(
-            max_abs(g, r) for g, r in zip(got, ref)))
-        if dt == bf16:
-            # the lower-precision control: the same ring with p rounded to
-            # bf16 must fail K9's tolerance, or the check cannot tell them
-            ctl = max(rel_err(g, r) for g, r in zip(
-                ring_bf16_p_plain(*blocks, causal), ref))
-            print(f"  control, ring with p rounded to bf16: rel_err="
-                  f"{ctl:.3e} (must exceed {TOL_RING_BF16:g})")
-            if not ctl > TOL_RING_BF16:
-                raise AssertionError("K9's bf16 tolerance does not separate "
-                                     "a ring that rounds p to bf16")
-    del q, k, v, o, po, got, ref, blocks
+    ring_kernels(randn, errs)
+    del q, k, v, o, po, got, ref
     torch.cuda.empty_cache()
 
 
@@ -766,8 +1016,10 @@ def attention_timings(randn) -> list[dict]:
         "source": "distributedarrays_tpu_torch/csrc/attention.cu",
         "replaces": "distributedarrays_tpu/models/ring_attention.py:146",
         "shape": "S=8192, 16 heads of 64, bf16 causal, 4 ranks on one card "
-                 "(16 launches)",
+                 "(16 launches, 10 of them accumulating)",
         "ms": time_ms(lambda: RA.ring_attention_rdma(*blocks, True)),
+        # the 16 launches' device time alone, without the wrapper's host work
+        "device_ms": device_ms(lambda: RA.ring_attention_rdma(*blocks, True)),
         "plain_ms": time_ms(lambda: RA.ring_attention_kernel(*blocks, True)),
         "bound_ms": bms, "bound_by": bby,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -1326,15 +1578,7 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ---------------------------
     print("phase kernels")
-    for m, k, n, dt, tol in ((4096, 4096, 4096, torch.float32, TOL_F32),
-                             (4096, 4096, 4096, torch.bfloat16, TOL_BF16),
-                             (1000, 777, 1500, torch.float32, TOL_F32)):
-        a, b = randn(m, k, dtype=dt), randn(k, n, dtype=dt)
-        got = cuda_gemm.cuda_matmul(a, b)
-        ref = cuda_gemm.matmul_plain(a, b)
-        torch.cuda.synchronize()
-        check(f"gemm {m}x{k}x{n} {dt}", rel_err(got, ref), tol)
-        errs["gemm"] = max(errs["gemm"], max_abs(got, ref))
+    gemm_kernels(randn, errs)
     ms, ns = 8192, 8192
     wts = tuple(tuple(float(v) for v in row)
                 for row in np.random.default_rng(1).uniform(-1, 1, (3, 3)))
@@ -1564,18 +1808,28 @@ def main() -> int:
         "library_ms": time_ms(lambda: torch.matmul(a, b))})
     extra = {}
     ab, bb = a.bfloat16(), b.bfloat16()
+    # the wgmma route with bf16 output (the wrapper's) and with f32 output
+    # (the C entry with out_bf16 = 0)
+    c32 = torch.empty(n4, n4, device=dev)
+    wg = kbuild.ROUTES.index("wgmma")
     extra["gemm 4096^3 bf16"] = {
         "ms": time_ms(lambda: cuda_gemm.cuda_matmul(ab, bb)),
+        "ms_f32_out": time_ms(lambda: cuda_gemm._gemm_fn()(
+            ab.data_ptr(), bb.data_ptr(), c32.data_ptr(), n4, n4, n4, wg, 0,
+            dev.index, torch.cuda.current_stream().cuda_stream)),
         "plain_ms": time_ms(lambda: cuda_gemm.matmul_plain(ab, bb)),
         "library_ms": time_ms(lambda: torch.matmul(ab, bb)),
-        "bound_ms": bound(3 * n4 * n4 * 2, 2 * n4 ** 3, BF16_FLOPS)[0]}
-    del a, b, ab, bb
+        "bound_ms": bound(3 * n4 * n4 * 2, 2 * n4 ** 3, BF16_FLOPS)[0],
+        "route": "wgmma"}
+    del a, b, ab, bb, c32
     n16 = 16384
     a, b = randn(n16, n16), randn(n16, n16)
     extra["gemm 16384^3 f32"] = {
         "ms": time_ms(lambda: cuda_gemm.cuda_matmul(a, b)),
+        "plain_ms": time_ms(lambda: cuda_gemm.matmul_plain(a, b)),
         "library_ms": time_ms(lambda: torch.matmul(a, b)),
-        "bound_ms": bound(3 * n16 * n16 * 4, 2 * n16 ** 3, F32_FLOPS)[0]}
+        "bound_ms": bound(3 * n16 * n16 * 4, 2 * n16 ** 3, F32_FLOPS)[0],
+        "route": "f32"}
     del a, b
     x = randn(ms, ns)
     lo1, hi1 = torch.zeros(1, ns, device=dev), torch.zeros(1, ns, device=dev)
@@ -1816,4 +2070,6 @@ if __name__ == "__main__":
     sys.exit(across_cards_only() if sys.argv[1:] == ["--across-cards"]
              else profile_training() if sys.argv[1:] == ["--profile"]
              else ring_gemms_only() if sys.argv[1:] == ["--ring-gemms"]
-             else main())
+             else k1_k9_only() if sys.argv[1:] == ["--k1-k9"]
+             else k1_k9_times(*sys.argv[2:3])
+             if sys.argv[1:2] == ["--time-k1-k9"] else main())

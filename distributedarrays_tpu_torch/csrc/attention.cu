@@ -24,22 +24,31 @@
 //   and waited after it); that slot is read by the neighbour only at the
 //   next step.  The other blocks accumulate the q block against the
 //   resident pair with the carry in device memory, in K9's own numerics
-//   (f32 products, q scaled in the input type, no skip, p not rounded);
-//   the last step normalises and writes o in (b, h, dh).  Steps are
-//   ordered by stream order on one card and by event waits across cards;
-//   no flag is spun on.
+//   (f32 products, q scaled in the input type, p not rounded); the last
+//   step normalises and writes o in (b, h, dh).  A causal step whose
+//   resident block lies wholly after the q block (`compute` = 0, the
+//   caller's ring_step_plan) launches only the forward blocks, or at the
+//   first or last step blocks that only start or finish the carry; in
+//   the other causal steps each query tile stops at its last visible key
+//   tile.  Both skips are exact: a wholly masked tile leaves m, l and acc
+//   bit for bit as they were.  Steps are ordered by stream order on one
+//   card and by event waits across cards; no flag is spun on.  Three
+//   routes, chosen by the caller (`route`): bf16 with dh a multiple of 8
+//   and 16-byte aligned q/k/v on wgmma + TMA (attn_sm90.cuh), other bf16
+//   on mma.sync (attn_tile.cuh `attend_mma`), f32 on the SIMT loop.
 //
 // Bound on an H100: operations on each visible (query, key) pair.  In bf16
-// all three take their products on the tensor cores with mma.sync
-// (attend_mma), at 989 TFLOP/s: K5/K8 round p to bf16 as the TPU kernel
-// does, 4*D operations a pair; K9 splits its f32 p into three bf16 terms,
-// so every product stays exact and the result is K9's f32 one, at 8*D a
-// pair (one QK^T and three PV products a tile).  In f32 all three run the
-// SIMT loop on the f32 FMA pipes (attend), 4*D a pair at 67 TFLOP/s, since
-// TF32 tensor cores would round the products.  The bf16 loop stages K and
-// V through a two-stage cp.async pipeline; neither loop uses TMA or wgmma
-// yet.
+// all three take their products on the tensor cores at 989 TFLOP/s:
+// K5/K8 round p to bf16 as the TPU kernel does, 4*D operations a pair; K9
+// splits its f32 p into three bf16 terms, so every product stays exact and
+// the result is K9's f32 one, at 8*D a pair (one QK^T and three PV
+// products a tile).  In f32 all three run the SIMT loop on the f32 FMA
+// pipes (attend), 4*D a pair at 67 TFLOP/s, since TF32 tensor cores would
+// round the products.  K5/K8 in bf16 stage K and V through a two-stage
+// cp.async pipeline on mma.sync; K9 in bf16 streams them by TMA into
+// wgmma.
 
+#include "attn_sm90.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -135,6 +144,43 @@ ring_step_kernel(const Args a, const float* __restrict__ kc,
   da_attn::attend<true, DMAX>(a, b % a.hall, b / a.hall, smem);
 }
 
+// K9 in bf16 on wgmma + TMA: forward blocks, then one query tile a block.
+// At DMAX 64 it is held to three blocks an SM (128 registers, about 100
+// bytes of spills): the S = 8192 causal ring then read 1.28 ms of device
+// time against 1.70 ms at two blocks (189 registers), in one call (H100
+// 80GB HBM3, 700 W, chip_smoke.py); the softmax of one block overlaps the
+// products of the others.  At DMAX 128 (o and P V alone take 128
+// registers a thread) it keeps one.
+template <int DMAX>
+__global__ void __launch_bounds__(da_sm90::RA_THREADS, DMAX > 64 ? 1 : 3)
+ring_step_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const da_sm90::RingArgs a,
+                       const __nv_bfloat16* __restrict__ kc,
+                       const __nv_bfloat16* __restrict__ vc,
+                       __nv_bfloat16* __restrict__ fk,
+                       __nv_bfloat16* __restrict__ fv, int64_t count,
+                       int ncopy) {
+  extern __shared__ uint8_t smem_b[];
+  if ((int)blockIdx.x < ncopy) {
+    forward_pair<__nv_bfloat16, da_sm90::RA_THREADS>(kc, vc, fk, fv, count,
+                                                     ncopy);
+    return;
+  }
+  const int b = blockIdx.x - ncopy;
+  da_sm90::ring_attend_wgmma<DMAX>(&tq, &tk, &tv, a, b % a.h, b / a.h,
+                                   smem_b);
+}
+
+// K9 at a step with nothing to accumulate: only the forward blocks
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+forward_kernel(const T* __restrict__ kc, const T* __restrict__ vc,
+               T* __restrict__ fk, T* __restrict__ fv, int64_t count) {
+  forward_pair<T, THREADS>(kc, vc, fk, fv, count, gridDim.x);
+}
+
 template <typename K>
 cudaError_t fit_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -171,7 +217,7 @@ int launch_ring_mma(const Args& a, const void* kc, const void* vc, void* fk,
   cudaError_t err = fit_smem(ring_step_mma_kernel<DMAX>, sm);
   if (err != cudaSuccess) return (int)err;
   const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
-  const int64_t count = (int64_t)a.sk * a.hall * a.d;
+  const int64_t count = (int64_t)a.sq * a.hall * a.d;  // the b rows
   ring_step_mma_kernel<DMAX>
       <<<ncopy + nq * a.hall, da_attn::MMA_THREADS, sm, s>>>(
           a, static_cast<const bf*>(kc), static_cast<const bf*>(vc),
@@ -186,10 +232,59 @@ int launch_ring(const Args& a, const void* kc, const void* vc, void* fk,
   cudaError_t err = fit_smem(ring_step_kernel<DMAX>, sm);
   if (err != cudaSuccess) return (int)err;
   const int nq = (a.sq + da_attn::BQ - 1) / da_attn::BQ;
-  const int64_t count = (int64_t)a.sk * a.hall * a.d;
+  const int64_t count = (int64_t)a.sq * a.hall * a.d;  // the b rows
   ring_step_kernel<DMAX><<<ncopy + nq * a.hall, THREADS, sm, s>>>(
       a, static_cast<const float*>(kc), static_cast<const float*>(vc),
       static_cast<float*>(fk), static_cast<float*>(fv), count, ncopy);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_ring_wgmma(const Args& a, const void* q, const void* kc,
+                      const void* vc, void* fk, void* fv, int ncopy,
+                      cudaStream_t s) {
+  CUtensorMap tq, tk, tv;
+  int rc = da_sm90::ring_map(&tq, q, a.sq, a.hall, a.d);
+  if (!rc) rc = da_sm90::ring_map(&tk, kc, a.sq, a.hall, a.d);
+  if (!rc) rc = da_sm90::ring_map(&tv, vc, a.sq, a.hall, a.d);
+  if (rc) return rc;
+  da_sm90::RingArgs r;
+  r.m = a.m;
+  r.l = a.l;
+  r.acc = a.acc;
+  r.o = static_cast<__nv_bfloat16*>(a.o.p);
+  r.b = a.sq;
+  r.h = a.hall;
+  r.dh = a.d;
+  r.sk = a.sk;
+  r.qoff = a.qoff;
+  r.koff = a.koff;
+  r.causal = a.causal;
+  r.init = a.init;
+  r.finalize = a.finalize;
+  r.scale = a.scale;
+  const size_t sm = da_sm90::ra_smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ring_step_wgmma_kernel<DMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  using bf = __nv_bfloat16;
+  const int nq = (a.sq + da_sm90::RA_BQ - 1) / da_sm90::RA_BQ;
+  const int64_t count = (int64_t)a.sq * a.hall * a.d;  // the b rows
+  ring_step_wgmma_kernel<DMAX>
+      <<<ncopy + nq * a.hall, da_sm90::RA_THREADS, sm, s>>>(
+          tq, tk, tv, r, static_cast<const bf*>(kc),
+          static_cast<const bf*>(vc), static_cast<bf*>(fk),
+          static_cast<bf*>(fv), count, ncopy);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_forward(const void* kc, const void* vc, void* fk, void* fv,
+                   int64_t count, int ncopy, cudaStream_t s) {
+  forward_kernel<T><<<ncopy, THREADS, 0, s>>>(
+      static_cast<const T*>(kc), static_cast<const T*>(vc),
+      static_cast<T*>(fk), static_cast<T*>(fv), count);
   return (int)cudaGetLastError();
 }
 
@@ -273,28 +368,52 @@ extern "C" int da_flash_hop(const void* q, const void* k, const void* v,
 // (h, b) and acc (h, b, dh) f32 is started afresh when `first` and
 // replaced by o (b, h, dh) when `last`; fk/fv (null at the last step)
 // receive copies of kc/vc.  qoff, koff: global positions of the q block
-// and of the resident block.
+// and of the resident block.  compute = 0: the resident block is masked
+// for every query row, so the carry is only started or finished.  route:
+// 0 = f32 (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA (dh a
+// multiple of 8, 16-byte aligned q, kc, vc).  Returns the
+// cudaGetLastError() code of the launch, or 1000 + the CUresult
+// when a TMA tensor map cannot be encoded.
 extern "C" int da_ring_attn_step(const void* q, const void* kc,
                                  const void* vc, void* o, void* m, void* l,
                                  void* acc, void* fk, void* fv, int b, int h,
                                  int dh, long long qoff, long long koff,
-                                 int causal, int first, int last, float scale,
-                                 int bf16, int device, void* stream) {
+                                 int causal, int first, int last,
+                                 int compute, float scale, int route,
+                                 int device, void* stream) {
   if (b <= 0 || h <= 0) return 0;
-  if (dh <= 0 || dh > 128) return (int)cudaErrorInvalidValue;
+  if (dh <= 0 || dh > 128 || route < 0 || route > 2)
+    return (int)cudaErrorInvalidValue;
+  if (route == 2 && (dh % 8 || ((uintptr_t)q | (uintptr_t)kc |
+                                (uintptr_t)vc) % 16))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int ncopy = fk ? 32 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!compute && !first && !last) {  // nothing but the forward
+    if (!ncopy) return 0;
+    const int64_t count = (int64_t)b * h * dh;
+    return route ? launch_forward<__nv_bfloat16>(kc, vc, fk, fv, count,
+                                                 ncopy, s)
+                 : launch_forward<float>(kc, vc, fk, fv, count, ncopy, s);
+  }
   const long long hd = (long long)h * dh;
   const long long meta[16] = {hd, 0, dh, h, hd, 0, dh, h,
                               hd, 0, dh, h, hd, 0, dh, h};
   Args a = make_args(q, kc, vc, o, nullptr, static_cast<float*>(m),
                      static_cast<float*>(l), static_cast<float*>(acc), meta, b,
-                     b, dh, h, qoff, koff, causal, first, last, scale);
-  const int ncopy = fk ? 32 : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dh <= 64 ? launch_ring_mma<64>(a, kc, vc, fk, fv, ncopy, s)
-                    : launch_ring_mma<128>(a, kc, vc, fk, fv, ncopy, s);
-  return dh <= 64 ? launch_ring<64>(a, kc, vc, fk, fv, ncopy, s)
-                  : launch_ring<128>(a, kc, vc, fk, fv, ncopy, s);
+                     compute ? b : 0, dh, h, qoff, koff, causal, first, last,
+                     scale);
+  switch (route) {
+    case 2:
+      return dh <= 64 ? launch_ring_wgmma<64>(a, q, kc, vc, fk, fv, ncopy, s)
+                      : launch_ring_wgmma<128>(a, q, kc, vc, fk, fv, ncopy, s);
+    case 1:
+      return dh <= 64 ? launch_ring_mma<64>(a, kc, vc, fk, fv, ncopy, s)
+                      : launch_ring_mma<128>(a, kc, vc, fk, fv, ncopy, s);
+    default:
+      return dh <= 64 ? launch_ring<64>(a, kc, vc, fk, fv, ncopy, s)
+                      : launch_ring<128>(a, kc, vc, fk, fv, ncopy, s);
+  }
 }

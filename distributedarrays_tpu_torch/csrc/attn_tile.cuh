@@ -24,13 +24,12 @@
 // Two numerics, chosen by the RING template flag:
 // - FLASH (RING = false, K5/K8; pallas_attention.py:_kernel and
 //   _carry_kernel): both products take the input type with f32 sums, the
-//   scale is applied after the QK product, p is rounded to the input type
-//   before the PV product, and a causal key tile wholly after the block's
-//   last query row is skipped.
+//   scale is applied after the QK product and p is rounded to the input
+//   type before the PV product.
 // - RING (RING = true, K9; ring_attention.py:_rdma_attn_call): q is
 //   scaled in the input type and then converted to f32, K/V are converted
-//   to f32, both products and the softmax are f32, no tile is skipped and
-//   p is not rounded.
+//   to f32, both products and the softmax are f32 and p is not rounded.
+// Both skip a causal key tile wholly after the block's last query row.
 // Both guard fully masked rows as the TPU kernels do: m_safe = 0 where m
 // is -inf, p = 0 where s is -inf, alpha = 0 where the old m is -inf.
 //
@@ -144,9 +143,9 @@ __device__ void attend(const Args& a, int n, int qt, float* smem) {
 
   const int64_t qpos = a.qoff + row;
   for (int k0 = 0; k0 < a.sk; k0 += BK) {
-    // FLASH: a causal tile wholly after the block's last row is skipped,
-    // and so is every later one
-    if (!RING && a.causal && a.koff + k0 > a.qoff + q0 + BQ - 1) break;
+    // a causal tile wholly after the block's last row is skipped, and so
+    // is every later one (exact: it is masked for every row)
+    if (a.causal && a.koff + k0 > a.qoff + q0 + BQ - 1) break;
     __syncthreads();  // the previous tile's Ks/Vs/Ps are consumed
     for (int i = tid; i < BK * D; i += THREADS) {
       const int kk = i / D, dd = i % D;
@@ -374,7 +373,7 @@ __device__ __forceinline__ void ldmatrix_v(const __nv_bfloat16* Vs, int ld,
 
 // The tile loop for query tile qt of head n on the tensor cores.  RING
 // (K9 in bf16) keeps K9's numerics: q is scaled in bf16 while it is
-// staged, there is no skip, and p stays f32 for the PV product, which is
+// staged, and p stays f32 for the PV product, which is
 // taken as P1 V + P2 V + P3 V with p = P1 + P2 + P3 split into three bf16
 // terms (each term holds the next 8 bits of p's 24), so every product is
 // exact and the sum matches f32 products to within 2^-24 of p.
@@ -394,10 +393,10 @@ __device__ void attend_mma(const Args& a, int n, int qt, __nv_bfloat16* sm) {
   const int q0 = qt * BQ;
 
   stage<false>(q, a.q.ss, q0, a.sq, BQ, D, dp, Qs, ldq);
-  // the keys to visit: FLASH skips the causal tiles wholly after the
-  // block's last query row (and every later one)
+  // the keys to visit: the causal tiles wholly after the block's last
+  // query row (and every later one) are skipped
   int64_t kend = a.sk;
-  if (!RING && a.causal) {
+  if (a.causal) {
     const int64_t last = a.qoff + q0 + BQ - a.koff;  // keys before it
     kend = last < 0 ? 0 : (last < kend ? last : kend);
   }

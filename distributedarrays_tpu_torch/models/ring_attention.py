@@ -10,11 +10,19 @@ o), and the K/V blocks move one rank to the right between steps.
   the plain ring over a rank list, ``pshift`` rotating K/V, with the
   numerics of the JAX ``_online_accumulate`` (q scaled in its own type,
   then f32; f32 products and softmax).  It is the plain version of K9.
+- ``ring_step_plan(p, b, rank, step, causal)``: which block rank ``rank``
+  holds at ring step ``step`` and whether it accumulates against it.  A
+  causal step whose resident block lies wholly after the rank's q block
+  is masked for every query row; the JAX kernel runs it through its
+  ``isfinite`` guards, which leave m, l and o bit for bit as they were, so
+  both rings here skip it (causal on 4 ranks: 10 of the 16 steps
+  accumulate).
 - ``ring_attention_rdma(...)``: the same ring as the CUDA kernel K9
   (``csrc/attention.cu`` ``da_ring_attn_step``): one launch per rank per
   step forwards the resident pair into the right neighbour's free slot
   and accumulates in the same f32 numerics, with the carry in device
-  memory.  The plain ring for CPU tensors.
+  memory; a step the plan skips only forwards.  The plain ring for CPU
+  tensors.
 - ``ring_flash_attention_kernel(q_blocks, k_blocks, v_blocks, causal,
   scale)``: the ring as p flash hops per rank (K8,
   ``ops.cuda_attention.flash_attention_hop``) with the (m, l, acc) carry
@@ -54,7 +62,7 @@ kernel.  The TPU hop knobs ``block_q``, ``block_k``, ``head_fold`` and
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -70,7 +78,8 @@ from ..parallel.collectives import pshift
 from ..parallel.reshard import relayout_parts
 
 __all__ = ["ring_attention", "ring_attention_kernel", "ring_attention_rdma",
-           "ring_attention_prefill", "ring_flash_attention",
+           "ring_step_plan", "RingStep", "ring_attention_prefill",
+           "ring_flash_attention",
            "ring_flash_attention_kernel", "zigzag_order", "zigzag_shard",
            "zigzag_unshard", "zigzag_ring_attention_kernel",
            "zigzag_ring_flash_attention_kernel", "zigzag_ring_attention",
@@ -124,14 +133,29 @@ def _check_blocks(q_blocks, k_blocks, v_blocks):
     return p, shape
 
 
+class RingStep(NamedTuple):
+    src: int          # the rank whose K/V block is resident
+    compute: bool     # whether any of the rank's query rows sees a key of it
+
+
+def ring_step_plan(p: int, b: int, rank: int, step: int,
+                   causal: bool) -> RingStep:
+    """Rank ``rank``'s work at step ``step`` of a ring of ``p`` ranks with
+    ``b`` rows each: the resident block comes from ``src = (rank - step)
+    mod p``; a causal step accumulates only when ``src <= rank``, since a
+    later block's first key lies after the rank's last query row."""
+    src = (rank - step) % p
+    return RingStep(src, b > 0 and (not causal or src <= rank))
+
+
 def ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
                           k_blocks: Sequence[torch.Tensor],
                           v_blocks: Sequence[torch.Tensor],
                           causal: bool = False, scale: float | None = None
                           ) -> list[torch.Tensor]:
     """The plain ring: rank r's output (b, h, d) for rank r's q block, the
-    K/V blocks moving one rank to the right (``pshift``) after each
-    step."""
+    K/V blocks moving one rank to the right (``pshift``) after each step;
+    the steps ``ring_step_plan`` skips are not accumulated."""
     p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
     sc = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     qf, m, l, o = [], [], [], []
@@ -145,9 +169,11 @@ def ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
     rows = torch.arange(b)
     for step in range(p):
         for r in range(p):
+            src, compute = ring_step_plan(p, b, r, step, causal)
+            if not compute:
+                continue
             mask = None
             if causal:
-                src = (r - step) % p         # the resident block's origin
                 mask = ((src * b + rows[None, :]) <= (r * b + rows[:, None])
                         ).to(qf[r].device)
             m[r], l[r], o[r] = _online_accumulate(m[r], l[r], o[r], qf[r],
@@ -215,9 +241,10 @@ def ring_attention_rdma(q_blocks: Sequence[torch.Tensor],
                       else tuple(bufs[r][t % 2]))
             fk, fv = (tuple(bufs[right][(t + 1) % 2]) if t < p - 1
                       else (None, None))
+            src, compute = ring_step_plan(p, b, r, t, causal)
             ring_attn_step(q_blocks[r], kc, vc, outs[r], *carry[r], fk, fv,
-                           r * b, ((r - t) % p) * b, causal, t == 0,
-                           t == p - 1, sc)
+                           r * b, src * b, causal, t == 0, t == p - 1, sc,
+                           compute)
             done.append(order.mark(dev))
     return outs
 

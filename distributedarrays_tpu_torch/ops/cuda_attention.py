@@ -49,7 +49,12 @@ lookups ``tuned_flash_config`` / ``tuned_hop_blocks_for``, which
 only choose those knobs.
 
 ``ring_attn_step`` launches K9 (``da_ring_attn_step``), the fused ring
-attention step that ``models/ring_attention.ring_attention_rdma`` drives.
+attention step that ``models/ring_attention.ring_attention_rdma`` drives,
+on the route ``ring_attn_route`` picks: ``"wgmma"`` (bf16, head dim a
+multiple of 8, 16-byte aligned q/k/v: wgmma fed by TMA), ``"mma"`` (other
+bf16: mma.sync) or ``"f32"`` (the SIMT loop).  Each step counts one
+``ring_attention`` launch, and a step that accumulates also counts under
+its route (``kbuild.route_counts()["ring_attention"]``).
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_lse_plain", "flash_attention_bwd_plain",
            "flash_attention_hop_plain", "flash_carry_init",
            "flash_carry_finalize", "flash_block_size", "ring_attn_step",
-           "MAX_HEAD_DIM"]
+           "ring_attn_route", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128            # the kernels' register tiles (attention.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -195,7 +200,7 @@ _ARGTYPES = {
     [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
                                ctypes.c_int, ctypes.c_void_p],
     "da_ring_attn_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 +
-    [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 +
+    [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 +
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "da_flash_bwd_dq": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 +
     [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float] +
@@ -264,10 +269,10 @@ def _meta(*views: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launched(rc: int, what: str, kernel: str) -> None:
+def _launched(rc: int, what: str, kernel: str, route=None) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-    kbuild.count(kernel)
+    kbuild.count(kernel, route)
 
 
 # ---------------------------------------------------------------------------
@@ -479,21 +484,45 @@ def flash_attention_hop(q, k, v, m, l, acc, qoff, koff,
 # ---------------------------------------------------------------------------
 
 
+def ring_attn_route(dtype: torch.dtype, dh: int, *ptrs: int) -> str:
+    """K9's route for (b, h, dh) blocks of ``dtype`` whose q, k and v lie at
+    the device addresses ``ptrs``: ``"wgmma"`` when TMA can read them (bf16,
+    dh a multiple of 8 up to ``MAX_HEAD_DIM`` so the row strides are
+    multiples of 16 bytes, 16-byte aligned bases), ``"mma"`` for other
+    bf16 blocks, ``"f32"`` for float32."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the ring attention kernel takes float32 or "
+                        f"bfloat16, got {dtype}")
+    if dh % 8 == 0 and dh <= MAX_HEAD_DIM and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "mma"
+
+
 def ring_attn_step(q, kc, vc, o, m, l, acc, fk, fv, qoff: int, koff: int,
-                   causal: bool, first: bool, last: bool, scale: float):
+                   causal: bool, first: bool, last: bool, scale: float,
+                   compute: bool = True):
     """Launch one rank's ring step (K9) on q's device and stream: forward
     the resident pair ``(kc, vc)`` into ``(fk, fv)`` (None at the last
     step) and accumulate q (b, h, dh) against it into the carry m, l (h, b)
     and acc (h, b, dh) f32, which the first step starts afresh; the last
-    step writes o (b, h, dh).  Every tensor is contiguous on one card but
-    ``fk``/``fv``, which may be a peer card's."""
+    step writes o (b, h, dh).  ``compute=False`` (a causal step whose
+    resident block is masked for every query row, as
+    ``models.ring_attention.ring_step_plan`` decides) leaves the carry as
+    it is, but still starts it at the first step and finishes it at the
+    last.  Every tensor is contiguous on one card but ``fk``/``fv``, which
+    may be a peer card's."""
     b, h, dh = q.shape
+    route = ring_attn_route(q.dtype, dh, q.data_ptr(), kc.data_ptr(),
+                            vc.data_ptr())
     rc = _fn("da_ring_attn_step", "ring_attention")(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), o.data_ptr(),
         m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         None if fk is None else fk.data_ptr(),
         None if fv is None else fv.data_ptr(), b, h, dh, int(qoff),
-        int(koff), int(causal), int(first), int(last), float(scale),
-        int(q.dtype == torch.bfloat16), q.device.index,
+        int(koff), int(causal), int(first), int(last), int(compute),
+        float(scale), kbuild.ROUTES.index(route), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
-    _launched(rc, "ring attention", "ring_attention")
+    _launched(rc, f"ring attention ({route} route)", "ring_attention",
+              route if compute else None)

@@ -10,10 +10,17 @@ output in ``result_type(A, B)``.
 ``cuda_matmul`` launches the kernel for CUDA tensors and takes the plain
 version (``matmul_plain``) for CPU tensors; it never falls back from one to
 the other.  A mixed bf16/f32 pair is upcast to f32, which is what the JAX
-promotion computes.  The JAX ``epilogue`` fuses into the tile flush; here
-the kernel writes f32 when an epilogue is given and the wrapper applies the
-epilogue to that f32 result before casting, which gives the same numbers
-(fusing it is still to do).
+promotion computes.  The kernel has three routes, which ``gemm_route``
+picks from the dtype and shape and each of which counts its own launches
+(``kbuild.route_counts()["gemm"]``): ``"wgmma"`` (bf16 with K and N
+multiples of 8 and 16-byte aligned bases: wgmma fed by TMA), ``"mma"``
+(any other bf16 shape: mma.sync) and ``"f32"`` (a cp.async-pipelined FP32
+loop).  A route that cannot launch raises; none stands in for another.
+The JAX ``epilogue`` fuses into the tile flush; here the kernel writes f32
+when an epilogue is given and the wrapper applies the epilogue to that f32
+result before casting, which gives the same numbers.  The epilogue is an
+arbitrary Python callable and no caller in the port passes one, so it is
+not fused.
 
 ``cuda_matmul_int8`` computes ``C = f32(Qa @ Qb) * (sa sb^T)`` from int8
 codes with an exact int32 accumulator and the dequantization fused into the
@@ -40,7 +47,7 @@ from ..utils import kbuild
 
 __all__ = ["cuda_matmul", "matmul_plain", "cuda_matmul_int8",
            "matmul_int8_plain", "quantize_rows", "quantized_matmul",
-           "torch_matmul"]
+           "torch_matmul", "gemm_route"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -87,6 +94,23 @@ def _gemm_fn():
     return _fn
 
 
+def gemm_route(dtype: torch.dtype, n: int, k: int, a_ptr: int,
+               b_ptr: int) -> str:
+    """The kernel route for row-major (m, k) @ (k, n) operands of ``dtype``
+    at device addresses ``a_ptr`` and ``b_ptr``: ``"wgmma"`` when TMA can
+    read both (bf16, K and N multiples of 8 so every row stride is a
+    multiple of 16 bytes, 16-byte aligned bases), ``"mma"`` for any other
+    bf16 operands, ``"f32"`` for float32."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the GEMM kernel takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if k % 8 == 0 and n % 8 == 0 and a_ptr % 16 == 0 and b_ptr % 16 == 0:
+        return "wgmma"
+    return "mma"
+
+
 def cuda_matmul(a: torch.Tensor, b: torch.Tensor,
                 epilogue: Callable | None = None) -> torch.Tensor:
     """``C = epilogue(A @ B)``: the CUDA kernel for CUDA tensors, the plain
@@ -116,13 +140,16 @@ def cuda_matmul(a: torch.Tensor, b: torch.Tensor,
     if c.numel() == 0 or k == 0:
         c.zero_()                            # nothing to multiply
     else:
+        route = gemm_route(a.dtype, n, k, a.data_ptr(), b.data_ptr())
         rc = _gemm_fn()(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                        int(a.dtype == torch.bfloat16),
-                        int(c_dtype == torch.bfloat16), a.device.index,
+                        kbuild.ROUTES.index(route),
+                        int(c_dtype == torch.bfloat16),
+                        a.device.index,
                         torch.cuda.current_stream(a.device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"GEMM kernel launch failed: CUDA error {rc}")
-        kbuild.count("gemm")
+            raise RuntimeError(f"GEMM kernel launch failed ({route} route): "
+                               f"CUDA error {rc}")
+        kbuild.count("gemm", route)
     if epilogue is not None:
         c = epilogue(c).to(out_dtype)
     return c

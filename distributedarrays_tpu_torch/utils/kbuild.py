@@ -10,6 +10,11 @@ kernel stands in.  Sources compile in parallel, one ``nvcc`` per file.
 
 Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
+A kernel with several routes also names the route it launched
+(``count(name, route)``), counted apart in ``route_counts()``: the block
+GEMM's ``wgmma``/``mma``/``f32`` and the fused ring attention step's
+compute steps by route (a ring step that only forwards its K/V pair, or
+only starts or finishes the carry, counts as a launch and under no route).
 
 ``enable_peer_access(device, peer)`` lets one card read and write another's
 memory (``cudaDeviceEnablePeerAccess``), which the collective kernels need
@@ -28,7 +33,8 @@ import threading
 from pathlib import Path
 
 __all__ = ["build", "load", "count", "reset_launches", "launch_counts",
-           "enable_peer_access", "KERNELS", "NVCC_FLAGS"]
+           "route_counts", "enable_peer_access", "KERNELS", "ROUTES",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -50,28 +56,44 @@ KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
            "flash_attention_bwd_dq": "attention_bwd",
            "flash_attention_bwd_dkv": "attention_bwd"}
 
+# the routes of the kernels that have several (see count), in the order of
+# their C entries' route codes
+ROUTES = ("f32", "mma", "wgmma")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
+_routes = {k: dict.fromkeys(ROUTES, 0) for k in ("gemm", "ring_attention")}
 _peers: set[tuple[int, int]] = set()
 build_log: dict[str, str] = {}
 
 
-def count(kernel: str) -> None:
-    """Add one launch of ``kernel``."""
+def count(kernel: str, route: str | None = None) -> None:
+    """Add one launch of ``kernel``, and one of its ``route`` if given."""
     with _lock:
         _launches[kernel] += 1
+        if route is not None:
+            _routes[kernel][route] += 1
 
 
 def reset_launches() -> None:
     with _lock:
         for k in _launches:
             _launches[k] = 0
+        for r in _routes.values():
+            for k in r:
+                r[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
     with _lock:
         return dict(_launches)
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """Launches of each route of the block GEMM and the ring step."""
+    with _lock:
+        return {k: dict(v) for k, v in _routes.items()}
 
 
 def _nvcc() -> str:

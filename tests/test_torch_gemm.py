@@ -52,6 +52,46 @@ def test_kernel_plain_version_matches_pallas(shape, dtype, epilogue):
                                rtol=rtol, atol=rtol)
 
 
+def test_kernel_plain_version_matches_pallas_at_a_tma_shape():
+    # K and N multiples of 8 but not of 64: the wgmma + TMA route's shapes
+    # whose boxes run past the edge (zero-filled on the card)
+    a, b = _pair(48, 200, 104, 2)
+    jr = pallas_matmul(jnp.asarray(a, jnp.bfloat16),
+                       jnp.asarray(b, jnp.bfloat16), interpret=True)
+    ta, tb = (torch.from_numpy(x).bfloat16() for x in (a, b))
+    assert tdat.cuda_gemm.gemm_route(ta.dtype, 104, 200, 0, 0) == "wgmma"
+    tr = cuda_matmul(ta, tb)
+    assert tr.dtype == torch.bfloat16
+    np.testing.assert_allclose(tr.float().numpy(),
+                               np.asarray(jr.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [4096, 776, 777])
+@pytest.mark.parametrize("n", [4096, 1496, 1500])
+@pytest.mark.parametrize("a_off,b_off", [(0, 0), (2, 0), (0, 8)])
+def test_gemm_route_choice(dtype, k, n, a_off, b_off):
+    # wgmma needs TMA's 16-byte row strides (K, N multiples of 8 in bf16)
+    # and 16-byte aligned bases; other bf16 operands take mma.sync
+    dt = getattr(torch, dtype)
+    base = 1 << 20
+    route = tdat.cuda_gemm.gemm_route(dt, n, k, base + a_off, base + b_off)
+    if dt == torch.float32:
+        want = "f32"
+    elif k % 8 or n % 8 or a_off or b_off:
+        want = "mma"
+    else:
+        want = "wgmma"
+    assert route == want
+    assert route in tdat.kbuild.ROUTES
+
+
+def test_gemm_route_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        tdat.cuda_gemm.gemm_route(torch.float16, 8, 8, 0, 0)
+
+
 def test_kernel_plain_version_mixed_and_ragged():
     a, b = _pair(37, 50, 23, 1)
     ta = torch.from_numpy(a).bfloat16()

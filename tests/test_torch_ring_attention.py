@@ -68,6 +68,53 @@ def test_ring_matches_rdma_kernel(p, causal):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b", [16, 13])
+def test_ring_step_plan_skips_exactly_the_masked_steps(p, causal, b,
+                                                       monkeypatch):
+    rows = torch.arange(b)
+    kept = 0
+    for step in range(p):
+        for r in range(p):
+            src, compute = TRA.ring_step_plan(p, b, r, step, causal)
+            assert src == (r - step) % p
+            mask = ((src * b + rows[None, :]) <= (r * b + rows[:, None])
+                    if causal else torch.ones(b, b, dtype=torch.bool))
+            # skipped exactly when no query row sees a key of the block
+            assert compute == bool(mask.any())
+            if compute:
+                # and every query row of a kept step sees one
+                assert bool(mask.any(dim=1).all())
+                kept += 1
+    assert kept == (p * (p + 1) // 2 if causal else p * p)
+    # the ring that honours the plan is the full ring, bit for bit, and
+    # the JAX RDMA kernel's
+    h, dh = 2, 32
+    q, k, v = _qkv((p * b, h, dh), 200 + p + b)
+    blocks = [_blocks(x, p) for x in (q, k, v)]
+    skipped = TRA.ring_attention_kernel(*blocks, causal=causal)
+    with monkeypatch.context() as mp:   # a plan that skips nothing
+        mp.setattr(TRA, "ring_step_plan", lambda p, b, r, step, causal:
+                   TRA.RingStep((r - step) % p, True))
+        full = TRA.ring_attention_kernel(*blocks, causal=causal)
+    for x, y in zip(skipped, full):
+        assert torch.equal(x, y)
+    spec = P("p", None, None)
+    want = np.asarray(run_spmd(lambda a, bb, c: JRA.ring_attention_rdma_kernel(
+        a, bb, c, "p", causal=causal, interpret=True),
+        spmd_mesh(p), (spec,) * 3, spec)(q, k, v))
+    np.testing.assert_allclose(torch.cat(skipped).numpy(), want, atol=1e-5)
+
+
+def test_ring_step_plan_counts_compute_steps():
+    # causal on 4 ranks: 16 steps, 10 of them accumulate
+    plan = [TRA.ring_step_plan(4, 2048, r, t, True)
+            for t in range(4) for r in range(4)]
+    assert len(plan) == 16 and sum(s.compute for s in plan) == 10
+    assert not TRA.ring_step_plan(4, 0, 0, 0, False).compute
+
+
 def test_ring_bf16_matches_lax_ring():
     # bf16 blocks: q is scaled in bf16, then everything runs in f32
     p, b, h, dh = 4, 8, 2, 16
