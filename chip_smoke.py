@@ -119,11 +119,16 @@
      with (2048, 1024) chunks), in bf16 (relative Frobenius error <= 5e-4,
      held against a control, the plain ring with f32 products and sums,
      that must read above it) and f32 (<= 1e-5), and at ragged f32 shapes
-     (m_loc 1000, k 768, n 300);
+     (m_loc 1000, k 768, n 300); K13 and K14 also in bf16 at a ragged
+     shape TMA can read (m_loc 1000, k 776, n 296) and one it cannot (k
+     777, n 300), each call's 16 launches on its expected route
+     (``kbuild.route_counts()``: wgmma, mma or f32), the sequence-parallel
+     bf16 shapes with each wgmma tile width;
    - sequence-parallel training at the full width of ``SPConfig(8192,
      1024, 16, 8, 4, 8192, bf16)`` with four ranks on the card, tokens (1,
      8192): a gradient step must launch 128 each of K8, K6 and K7 and 256
-     each of K13, K14 and K15 (no K5, no K9), and its loss and gradients
+     each of K13, K14 and K15 (no K5, no K9), every K13 and K14 launch on
+     the wgmma route, and its loss and gradients
      agree with the dense flagship ``transformer.loss_fn`` on one rank (loss
      <= 1e-2, every gradient <= 5e-2, the w1/w2 shards joined); the zigzag
      layout (288 hops of each attention kernel) against the contiguous
@@ -142,9 +147,10 @@
    (torch.matmul for the GEMMs, F.conv2d with TF32 off for the stencils,
    torch._int_mm and the dequantizing multiply for the int8 GEMM,
    torch.cat of the same pieces for the all-gather and all-to-all,
-   torch.cat then torch.matmul for the ring GEMMs K13 and K14 and one
-   torch.matmul per rank then torch.stack(...).sum(0) per destination for
-   K15,
+   torch.cat then torch.matmul for the ring GEMMs K13 and K14 (whose rows
+   also give their launches' device time and the host's microseconds a
+   launch) and one torch.matmul per rank then torch.stack(...).sum(0) per
+   destination for K15,
    F.scaled_dot_product_attention at the same shape for K5 and over the
    whole sequence for K9 (whose row also gives the device time of its 16
    launches alone, from a torch.profiler trace), its backward for K6 and
@@ -157,7 +163,9 @@ alone, checks K1 on every route and the K9 rings, and times both;
 ``python3 chip_smoke.py --time-k1-k9 [DIR]`` times K1 and K9 (per call, and
 the K9 ring's device time alone from a ``torch.profiler`` trace) through
 the package under DIR, so an unpacked older commit and this one can be
-timed in turns on one card.
+timed in turns on one card; ``python3 chip_smoke.py --time-ring-gemms
+[DIR]`` does the same for K13 and K14 (per call, device time, host
+microseconds a launch, and each wgmma tile width).
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -375,51 +383,128 @@ def ring_gemm_control(name: str, xs, ws) -> list[torch.Tensor]:
                 for x, w in zip(xs, ws)).bfloat16() for d in range(p)]
 
 
+# K13 and K14 on each route, K15 as before: (name, x block, w block, dtype,
+# route) with 4 ranks.  The sequence-parallel shapes; a ragged bf16 shape
+# that TMA can read (K and N multiples of 8, boxes running past every
+# edge); a bf16 shape it cannot (K and N odd or not multiples of 8), which
+# takes mma.sync; f32 at the sequence-parallel and ragged shapes.
+RING_GEMM_CASES = (
+    ("allgather_matmul", (2048, 1024), (1024, 1024), torch.bfloat16, "wgmma"),
+    ("allgather_matmul", (1000, 776), (776, 296), torch.bfloat16, "wgmma"),
+    ("allgather_matmul", (1000, 777), (777, 300), torch.bfloat16, "mma"),
+    ("allgather_matmul", (2048, 1024), (1024, 1024), torch.float32, "f32"),
+    ("allgather_matmul", (1000, 768), (768, 300), torch.float32, "f32"),
+    ("allgather_matmul_rhs", (1024, 8192), (2048, 1024), torch.bfloat16,
+     "wgmma"),
+    ("allgather_matmul_rhs", (1000, 4 * 776), (776, 296), torch.bfloat16,
+     "wgmma"),
+    ("allgather_matmul_rhs", (1000, 4 * 777), (777, 300), torch.bfloat16,
+     "mma"),
+    ("allgather_matmul_rhs", (1024, 8192), (2048, 1024), torch.float32,
+     "f32"),
+    ("allgather_matmul_rhs", (1000, 4 * 192), (192, 300), torch.float32,
+     "f32"),
+    ("matmul_reducescatter", (8192, 1024), (1024, 1024), torch.bfloat16, None),
+    ("matmul_reducescatter", (8192, 1024), (1024, 1024), torch.float32, None),
+    ("matmul_reducescatter", (4000, 768), (768, 300), torch.float32, None))
+
+
+# the wgmma route's tile widths
+RING_TILES = (64, 128)
+
+
+class forced_tile:
+    """Within the block, the wgmma route of K13 and K14 takes 128 x
+    ``tile_n`` tiles whatever ``ring_tile_n`` would choose (None: its own
+    choice)."""
+
+    def __init__(self, CC, tile_n: int | None):
+        self.CC, self.tile_n = CC, tile_n
+
+    def __enter__(self):
+        self.saved = self.CC.ring_tile_n
+        if self.tile_n:
+            self.CC.ring_tile_n = lambda m, n, sms: self.tile_n
+
+    def __exit__(self, *exc):
+        self.CC.ring_tile_n = self.saved
+
+
 def ring_gemm_kernels(randn, errs) -> None:
-    """K13, K15 (and K14 on the tensor cores) against their plain versions
-    with 4 ranks on the card: the sequence-parallel shapes in bf16 and f32,
-    and ragged f32 shapes that no tile divides."""
-    bf16, f32 = torch.bfloat16, torch.float32
+    """K13, K14 and K15 against their plain versions with 4 ranks on the
+    card (``RING_GEMM_CASES``).  Every K13 / K14 call must move its route's
+    count by its 16 launches and no other route's; the sequence-parallel
+    bf16 shapes also run with each wgmma tile width (128 x 64 and 128 x
+    128).  bf16 within TOL_RING_GEMM_BF16, held against its f32 control,
+    f32 within TOL_F32."""
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.utils import kbuild
+    bf16 = torch.bfloat16
     print("phase ring GEMM kernels (4 ranks on one card)")
-    ragged = {"allgather_matmul": ((1000, 768), (768, 300)),
-              "matmul_reducescatter": ((4000, 768), (768, 300)),
-              "allgather_matmul_rhs": ((1000, 4 * 192), (192, 300))}
-    for name, xshape, wshape in RING_GEMM_SHAPES:
+    for name, xs_, ws_, dt, route in RING_GEMM_CASES:
         kern, plain = ring_gemm_fns(name)
-        for (xs_, ws_), dt in (((xshape, wshape), bf16),
-                               ((xshape, wshape), f32),
-                               (ragged[name], f32)):
-            xs = [randn(*xs_, dtype=dt) for _ in range(4)]
-            ws = [randn(*ws_, dtype=dt) / 32 for _ in range(4)]
-            got, ref = kern(xs, ws), plain(xs, ws)
-            torch.cuda.synchronize()
+        xs = [randn(*xs_, dtype=dt) for _ in range(4)]
+        ws = [randn(*ws_, dtype=dt) / 32 for _ in range(4)]
+        ref = plain(xs, ws)
+        sp = route == "wgmma" and xs_[0] >= 1024
+        for tile in ((None,) + RING_TILES if sp else (None,)):
+            with forced_tile(CC, tile):
+                before = kbuild.route_counts().get(name)
+                got = kern(xs, ws)
+                torch.cuda.synchronize()
             what = f"{name} 4 x {xs_} @ {ws_} {dt}"
+            if route:
+                what += f" on {route}"
+            if tile:
+                what += f", 128 x {tile} tiles"
+            if route:
+                moved = {r: c - before[r]
+                         for r, c in kbuild.route_counts()[name].items()}
+                if moved != {r: 16 * (r == route) for r in moved}:
+                    raise AssertionError(f"{what}: route counts moved "
+                                         f"{moved}")
             err = max(rel_err(g, r) for g, r in zip(got, ref))
             check(what, err, TOL_RING_GEMM_BF16 if dt == bf16 else TOL_F32)
             errs[name] = max(errs[name], max(max_abs(g, r)
                                              for g, r in zip(got, ref)))
-            if dt == bf16:
-                ctl = max(rel_err(c, r) for c, r in zip(
-                    ring_gemm_control(name, xs, ws), ref))
-                print(f"  control, {name} with f32 products and sums: "
-                      f"rel_err={ctl:.3e} (must exceed "
-                      f"{TOL_RING_GEMM_BF16:g})")
-                if not ctl > TOL_RING_GEMM_BF16:
-                    raise AssertionError(f"{name}'s bf16 tolerance does not "
-                                         "separate the f32 control")
-            del xs, ws, got, ref
+            del got
+        if dt == bf16:
+            ctl = max(rel_err(c, r) for c, r in zip(
+                ring_gemm_control(name, xs, ws), ref))
+            print(f"  control, {name} with f32 products and sums: "
+                  f"rel_err={ctl:.3e} (must exceed {TOL_RING_GEMM_BF16:g})")
+            if not ctl > TOL_RING_GEMM_BF16:
+                raise AssertionError(f"{name}'s bf16 tolerance does not "
+                                     "separate the f32 control")
+        del xs, ws, ref
     torch.cuda.empty_cache()
+
+
+def host_us_per_launch(fn, launches: int, calls: int = 20) -> float:
+    """Host microseconds a launch of ``fn`` (``launches`` launches a call),
+    timed with synchronisation off: the host clock around ``calls``
+    back-to-back calls, which only enqueue work, over their launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls / launches * 1e6
 
 
 def ring_gemm_timings(randn, extra: dict) -> list[dict]:
     """Timing rows of K13 and K15 at the sequence-parallel FFN's bf16
     shapes, 4 ranks on one card, and into ``extra`` their f32 times and
-    K14's at its bf16 weight-gradient shape.  Bound: 2*m*n*k operations
-    over all ranks and steps at the type's peak rate, against the bytes of
-    each input read once and each output written once.  Library: the same
-    products as one ``torch.matmul`` per rank on the gathered operand (K13,
-    K14), or per rank and then ``torch.stack(...).sum(0)`` per destination
-    (K15)."""
+    K14's at its bf16 and f32 weight-gradient shape.  Bound: 2*m*n*k
+    operations over all ranks and steps at the type's peak rate, against
+    the bytes of each input read once and each output written once.
+    Library: the same products as one ``torch.matmul`` per rank on the
+    gathered operand (K13, K14), or per rank and then
+    ``torch.stack(...).sum(0)`` per destination (K15).  K13 and K14 also
+    give the device time of their 16 launches alone (``device_ms``) and
+    the host's microseconds a launch with synchronisation off."""
     rows = []
     lines = {"allgather_matmul": 735, "matmul_reducescatter": 886}
     for (name, xshape, wshape), dt in (
@@ -427,7 +512,8 @@ def ring_gemm_timings(randn, extra: dict) -> list[dict]:
             (RING_GEMM_SHAPES[1], torch.bfloat16),
             (RING_GEMM_SHAPES[2], torch.bfloat16),
             (RING_GEMM_SHAPES[0], torch.float32),
-            (RING_GEMM_SHAPES[1], torch.float32)):
+            (RING_GEMM_SHAPES[1], torch.float32),
+            (RING_GEMM_SHAPES[2], torch.float32)):
         kern, plain = ring_gemm_fns(name)
         xs = [randn(*xshape, dtype=dt) for _ in range(4)]
         ws = [randn(*wshape, dtype=dt) / 32 for _ in range(4)]
@@ -462,6 +548,10 @@ def ring_gemm_timings(randn, extra: dict) -> list[dict]:
                "plain_ms": time_ms(lambda: plain(xs, ws)),
                "bound_ms": bms, "bound_by": bby,
                "library_ms": time_ms(library)}
+        if name != "matmul_reducescatter":
+            row["device_ms"] = device_ms(lambda: kern(xs, ws))
+            row["host_us_per_launch"] = host_us_per_launch(
+                lambda: kern(xs, ws), 16)
         shape = f"4 ranks x ({xshape} @ {wshape}) {dt} on one card"
         if name in lines and dt == torch.bfloat16:
             rows.append({
@@ -578,6 +668,83 @@ def k1_k9_times(root: str | None = None) -> int:
     times["ring_attention S=8192 bf16 causal"] = time_ms(ring)
     times["ring_attention S=8192 bf16 causal, device"] = device_ms(ring)
     print(json.dumps({"k1_k9_times": times, "package": tdat.__file__,
+                      "gpu": smi}))
+    return 0
+
+
+def ring_gemm_times(root: str | None = None) -> int:
+    """``--time-ring-gemms [ROOT]``: time K13 and K14 through the public
+    wrappers of the package under ROOT (this checkout's by default), 4
+    ranks on one card: bf16 at the sequence-parallel shapes and f32 at
+    K13's and at 16384^2 (4,1)x(4,1) for K14, each per call, in the device
+    time of its launches alone and in host microseconds a launch; K15 in
+    bf16 at its sequence-parallel shape as a control.  Where the package
+    has ``ring_tile_n``, the bf16 shapes again on each wgmma tile, and each
+    bf16 step's device time against its depth.  Two trees can so be timed
+    in turns in one call on one card."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    tdat.kbuild.build(["collectives"])
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    k13, k15, k14 = RING_GEMM_SHAPES
+    times = {}
+    for (name, xshape, wshape), dt in ((k13, bf16), (k14, bf16), (k15, bf16),
+                                       (k13, f32),
+                                       (("allgather_matmul_rhs",
+                                         (4096, 16384), (4096, 16384)), f32)):
+        kern = ring_gemm_fns(name)[0]
+        xs = [(torch.randn(xshape, generator=gen, device=dev)).to(dt)
+              for _ in range(4)]
+        ws = [(torch.randn(wshape, generator=gen, device=dev) / 32).to(dt)
+              for _ in range(4)]
+        key = f"{name} 4 x {xshape} @ {wshape} {dt}"
+        call = lambda: kern(xs, ws)
+        times[key] = time_ms(call)
+        times[key + ", device"] = device_ms(call)
+        times[key + ", host us a launch"] = host_us_per_launch(call, 16)
+        if (dt == bf16 and name != "matmul_reducescatter"
+                and hasattr(CC, "ring_tile_n")):
+            for tile in RING_TILES:
+                with forced_tile(CC, tile):
+                    tk = f"{key}, 128 x {tile} tiles"
+                    times[tk] = time_ms(call)
+                    times[tk + ", device"] = device_ms(call)
+        del xs, ws
+        torch.cuda.empty_cache()
+    if hasattr(CC, "ring_tile_n"):
+        # a step's fixed cost against its depth: the bf16 steps on their
+        # chosen tiles with one (64), 4, 16 and 32 stage loads of depth
+        for name, (m, n), ks in (("allgather_matmul", (2048, 1024),
+                                  (64, 256, 1024, 2048)),
+                                 ("allgather_matmul_rhs", (1024, 1024),
+                                  (64, 256, 1024, 2048))):
+            kern = ring_gemm_fns(name)[0]
+            for k in ks:
+                if name == "allgather_matmul":
+                    xs = [torch.randn(m, k, generator=gen, device=dev)
+                          .to(bf16) for _ in range(4)]
+                    ws = [torch.randn(k, n, generator=gen, device=dev)
+                          .to(bf16) for _ in range(4)]
+                else:
+                    xs = [torch.randn(m, 4 * k, generator=gen, device=dev)
+                          .to(bf16) for _ in range(4)]
+                    ws = [torch.randn(k, n, generator=gen, device=dev)
+                          .to(bf16) for _ in range(4)]
+                times[f"{name} bf16 step ({m}, {n}) depth {k}, device us "
+                      f"a launch"] = device_ms(lambda: kern(xs, ws)) * 1e3 / 16
+                del xs, ws
+    print(json.dumps({"ring_gemm_times": times, "package": tdat.__file__,
                       "gpu": smi}))
     return 0
 
@@ -1253,12 +1420,24 @@ def sp_training(tdat, dev) -> dict:
         torch.cuda.synchronize()
         return out, kbuild.launch_counts()
 
+    def on_wgmma(what):
+        """Every K13 and K14 launch since the counts were reset ran on the
+        wgmma route: 32 a layer each."""
+        got = {k: kbuild.route_counts()[k]
+               for k in ("allgather_matmul", "allgather_matmul_rhs")}
+        print(f"  {what} ring GEMM routes {got}")
+        if any(v != {r: 32 * L * (r == "wgmma") for r in v}
+               for v in got.values()):
+            raise AssertionError(f"{what}: K13/K14 routes {got}, expected "
+                                 f"{32 * L} each on wgmma")
+
     # one gradient step, against the dense flagship on the same weights
     shards = SP.shard_params(model, ranks)
     (loss, grads), counts = counted(
         lambda: SP.make_grad_fn(ranks, cfg)(shards, tokens))
     expect_launches("sequence-parallel gradient step", counts,
                     sp_step_launches(L, False))
+    on_wgmma("sequence-parallel gradient step")
     full = SP.unshard(grads, cfg)
     del grads
     dcfg = T.Config(*SP_CFG, torch.bfloat16)
@@ -1284,6 +1463,7 @@ def sp_training(tdat, dev) -> dict:
     (zloss, zgrads), zcounts = counted(
         lambda: SP.make_grad_fn(ranks, zcfg)(zshards, tokens[:, perm]))
     expect_launches("zigzag gradient step", zcounts, sp_step_launches(L, True))
+    on_wgmma("zigzag gradient step")
     check("zigzag loss vs contiguous",
           abs(float(zloss) - float(loss)) / abs(float(loss)), TOL_SP_LOSS)
     err, name = worst_grad(SP.unshard(zgrads, zcfg), full)
@@ -1302,6 +1482,7 @@ def sp_training(tdat, dev) -> dict:
         losses.append(float(lv))
         expect_launches("sequence-parallel SGD step", counts,
                         sp_step_launches(L, False))
+        on_wgmma("sequence-parallel SGD step")
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  sgd losses {losses}, peak {peak:.2f} GiB")
@@ -1473,7 +1654,10 @@ def across_cards(tdat, cuda_collectives) -> None:
     """Phase 6: one rank per card (at most 4) with peer access; the
     all-gather, all-to-all and ring GEMM kernels on a 16384^2 f32 array
     against their plain versions, and their times (host clock around work
-    that ends in a synchronize of every card, median of 10)."""
+    that ends in a synchronize of every card, median of 10); K13 and K14
+    in bf16 at the sequence-parallel shapes, every launch on the
+    ``wgmma_peer`` route (the forward to the neighbour's card by a copy
+    launch of its own)."""
     ncards = torch.cuda.device_count()
     if ncards < 2:
         print(f"phase across cards: not run ({ncards} CUDA device; it needs "
@@ -1533,6 +1717,28 @@ def across_cards(tdat, cuda_collectives) -> None:
             exact(f"{name} across {p} cards", got, ref)
         del got, ref
         times[name] = {"ms": wall_ms(kern), "plain_ms": wall_ms(plain)}
+    from distributedarrays_tpu_torch.utils import kbuild
+    for name, xshape, wshape in (RING_GEMM_SHAPES[0], RING_GEMM_SHAPES[2]):
+        kern, plain = ring_gemm_fns(name)
+        xs = [torch.randn(xshape, generator=torch.Generator(device=d)
+                          .manual_seed(40 + i), device=d).bfloat16()
+              for i, d in enumerate(devs)]
+        ws = [(torch.randn(wshape, generator=torch.Generator(device=d)
+                           .manual_seed(50 + i), device=d) / 32).bfloat16()
+              for i, d in enumerate(devs)]
+        before = kbuild.route_counts()[name]
+        got, ref = kern(xs, ws), plain(xs, ws)
+        sync()
+        moved = {r: c - before[r]
+                 for r, c in kbuild.route_counts()[name].items()}
+        if moved != {r: p * p * (r == "wgmma_peer") for r in moved}:
+            raise AssertionError(f"{name} across cards: routes {moved}")
+        check(f"{name} bf16 4 x {xshape} @ {wshape} across {p} cards",
+              max(rel_err(g, r) for g, r in zip(got, ref)),
+              TOL_RING_GEMM_BF16)
+        times[f"{name} bf16"] = {"ms": wall_ms(lambda: kern(xs, ws)),
+                                 "plain_ms": wall_ms(lambda: plain(xs, ws))}
+        del xs, ws, got, ref
     print(json.dumps({"across_cards": times, "cards": p,
                       "shape": f"{n}x{n} f32 in {p} row blocks; ring "
                                "attention S=8192, 16x64 bf16 causal"}))
@@ -1928,7 +2134,9 @@ def main() -> int:
                             .allgather_matmul_rhs_plain(blocks, b_bl)),
         "bound_ms": bms, "bound_by": bby,
         "library_ms": time_ms(lambda: [torch.matmul(x, torch.cat(b_bl))
-                                       for x in blocks])})
+                                       for x in blocks]),
+        "device_ms": device_ms(lambda: cuda_collectives
+                               .ring_allgather_matmul_rhs(blocks, b_bl))})
     del blocks, b_bl
     kernels += attention_timings(randn)
     kernels += training_timings(randn)
@@ -2072,4 +2280,6 @@ if __name__ == "__main__":
              else ring_gemms_only() if sys.argv[1:] == ["--ring-gemms"]
              else k1_k9_only() if sys.argv[1:] == ["--k1-k9"]
              else k1_k9_times(*sys.argv[2:3])
-             if sys.argv[1:2] == ["--time-k1-k9"] else main())
+             if sys.argv[1:2] == ["--time-k1-k9"]
+             else ring_gemm_times(*sys.argv[2:3])
+             if sys.argv[1:2] == ["--time-ring-gemms"] else main())

@@ -38,17 +38,44 @@
 //   rank per ring step does both halves of that step:
 //
 //   K13 `da_ring_ag_mm_a_step`: all_gather(x) @ w with x's row chunks
-//   travelling.  The first blocks forward the resident chunk into the left
+//   travelling.  The launch forwards the resident chunk into the left
 //   neighbour's free slot of its two-slot buffer (read by that neighbour
 //   only at the next step, so nothing races: the GPU form of "start the
-//   DMA before the dot, wait after it"); the others compute the chunk's
-//   product with w and write it, cast once from f32 to the output type,
-//   into the chunk's own row block of out (each row block written once).
+//   DMA before the dot, wait after it") and computes the chunk's product
+//   with w, written, cast once from f32 to the output type, into the
+//   chunk's own row block of out (each row block written once).
 //
 //   K14 `da_ring_ag_mm_step`: a @ all_gather(b) with b's row chunks
 //   travelling; forwarding as K13, and the chunk's product with its column
 //   slice of a, cast to the output type, is written at step 0 and added
 //   (rounded to the type) after, the JAX kernel's step order and rounding.
+//
+//   K13 and K14 take one of three routes, chosen by the caller
+//   (ops/cuda_collectives.py `ring_gemm_route`) and refused here when the
+//   operands cannot take it, never swapped for another:
+//   - ROUTE_WGMMA, bf16 that TMA can read (K, N and a's row stride
+//     multiples of 8, 16-byte aligned bases): gemm_sm90.cuh `wgmma_tile`
+//     on 128 x BN tiles, BN chosen by the caller from the shape
+//     (`ring_tile_n` in the wrapper gives the measured choice), each as
+//     many stages deep as fit beside the output tile.  The forward rides
+//     on the loads: the blocks of output column tile 0 (K13) load every
+//     box of the chunk, which is A there, and the blocks of output row
+//     tile 0 (K14, where the chunk is B) likewise, so those blocks store
+//     each box on to the neighbour's slot by TMA from the stage it landed
+//     in.  The chunk is read from device memory once and
+//     no block only copies: a copy block would hold an SM's shared memory.
+//     ROUTE_WGMMA_PEER, for a slot on another card, forwards by a separate
+//     copy launch instead (a TMA store into a peer card's memory has not
+//     been run).  The output tile leaves through shared memory by a TMA
+//     store; K14's tile is first loaded by TMA behind the last operand
+//     loads, so its add reads shared memory.  At these shapes a step's
+//     fixed cost (launch, first loads, epilogue) is as large as its
+//     products: see PERF.md.
+//   - ROUTE_MMA, any other bf16: gemm_tile.cuh's mma.sync tile, with
+//     RING_COPY_BLOCKS extra blocks of the launch copying the chunk.
+//   - ROUTE_F32: gemm_sm90.cuh `f32_tile` (cp.async-pipelined SIMT loop,
+//     96 KB of shared memory); the blocks of column (K13) or row (K14)
+//     tile 0 store each slab of the chunk they stage on to the slot.
 //
 //   K15 `da_ring_mm_rs_step`: reduce_scatter(x @ w).  At each step the
 //   launch computes one destination's block x[d rows] @ w, casts it to the
@@ -57,12 +84,13 @@
 //   into the right neighbour's receive slot, or into out at the last step:
 //   the partial's forward is the epilogue's store, so no block copies.
 //
-//   The products run on gemm_tile.cuh's tile: f32 on the SIMT loop, bf16
+//   K15's products run on gemm_tile.cuh's tile: f32 on the SIMT loop, bf16
 //   on the tensor cores (mma.sync m16n8k16, f32 accumulators).  Bound: as
 //   a GEMM, 2*m*n*k operations a step.  Ring steps are ordered by stream
 //   order on one card and by event waits across cards, never by flags spun
 //   on inside a kernel.
 
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
@@ -207,9 +235,9 @@ struct ReduceEpi {
   }
 };
 
-// K14's step: blocks [0, ncopy) forward `chunk` (K x N) to `fwd`, the
-// others compute one 128x128 tile of a[:, koff:koff+K] @ chunk and add it
-// into out.
+// K14's step on mma.sync: blocks [0, ncopy) forward `chunk` (K x N) to
+// `fwd`, the others compute one 128x128 tile of a[:, koff:koff+K] @ chunk
+// and add it into out.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(da_tile::THREADS)
 ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
@@ -225,8 +253,9 @@ ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
                              AccumEpi<T>{out, N, first});
 }
 
-// K13's step: blocks [0, ncopy) forward `chunk` (M x K) to `fwd`, the others
-// compute one tile of chunk @ w (K x N) into the row block `out` (M x N).
+// K13's step on mma.sync: blocks [0, ncopy) forward `chunk` (M x K) to
+// `fwd`, the others compute one tile of chunk @ w (K x N) into the row
+// block `out` (M x N).
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(da_tile::THREADS)
 ring_ag_mm_a_kernel(const T* __restrict__ chunk, const T* __restrict__ w,
@@ -240,6 +269,154 @@ ring_ag_mm_a_kernel(const T* __restrict__ chunk, const T* __restrict__ w,
   tile_origin(ncopy, N, m0, n0);
   da_tile::gemm_tile<T, VEC>(chunk, K, w, N, M, N, K, m0, n0,
                              StoreEpi<T>{out, N});
+}
+
+// the chunk alone to `fwd`: the peer route's forward launch
+template <typename T>
+__global__ void __launch_bounds__(da_tile::THREADS)
+forward_kernel(const T* __restrict__ src, T* __restrict__ dst,
+               int64_t elems) {
+  forward_copy(src, dst, elems, gridDim.x);
+}
+
+using bf = __nv_bfloat16;
+
+// K13's output pairs: the sums cast to bf16
+struct CastPairs {
+  bool accumulate = false;
+  __device__ __nv_bfloat162 operator()(float v0, float v1,
+                                       __nv_bfloat162) const {
+    return __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+// K14's output pairs: part = the sums cast to bf16; part at the first
+// step, else prior + part rounded to bf16, as AccumEpi element by element
+struct AccumPairs {
+  bool accumulate;  // not the first step
+  __device__ __nv_bfloat162 operator()(float v0, float v1,
+                                       __nv_bfloat162 prior) const {
+    const __nv_bfloat162 part = __floats2bfloat162_rn(v0, v1);
+    if (!accumulate) return part;
+    const float2 x = __bfloat1622float2(prior), y = __bfloat1622float2(part);
+    return __floats2bfloat162_rn(__fadd_rn(x.x, y.x), __fadd_rn(x.y, y.y));
+  }
+};
+
+// Stages of a wgmma ring step: as many as fit in a block's shared memory
+// beside the output tile (8 at BN = 64, 6 at BN = 128).
+template <int BN>
+__host__ __device__ constexpr int ring_stages() {
+  return (227 * 1024 - 2048 - da_sm90::WG_BM * BN * 2) /
+         da_sm90::wg_stage_bytes<BN>();
+}
+
+// K13's step on wgmma: one 128 x BN tile of chunk (ta: M x K) @ w (tb:
+// K x N) into the row block `to` maps (M x N); with `forward`, the blocks
+// of column tile 0 store the chunk's boxes on to the slot tf maps.
+template <int BN>
+__global__ void __launch_bounds__(da_sm90::WG_THREADS, 1)
+ring_ag_mm_a_wgmma(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tf,
+                   const __grid_constant__ CUtensorMap to, int M, int N,
+                   int K, int forward) {
+  extern __shared__ uint8_t smem[];
+  const int ntn = (N + BN - 1) / BN;
+  const int m0 = blockIdx.x / ntn * da_sm90::WG_BM;
+  const int n0 = blockIdx.x % ntn * BN;
+  da_sm90::wgmma_tile<BN, CastPairs, da_sm90::FWD_A, true,
+                      ring_stages<BN>()>(
+      &ta, &tb, M, N, K, m0, n0, smem, CastPairs{},
+      forward && n0 == 0 ? &tf : nullptr, &to);
+}
+
+// K14's step on wgmma: one 128 x BN tile of a[:, koff:koff+K] (ta) @ chunk
+// (tb: K x N) added into out (`to`, M x N); with `forward`, the blocks of
+// row tile 0 store the chunk's boxes on to the slot tf maps.
+template <int BN>
+__global__ void __launch_bounds__(da_sm90::WG_THREADS, 1)
+ring_ag_mm_wgmma(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tf,
+                 const __grid_constant__ CUtensorMap to, int M, int N, int K,
+                 int first, int forward) {
+  extern __shared__ uint8_t smem[];
+  const int ntn = (N + BN - 1) / BN;
+  const int m0 = blockIdx.x / ntn * da_sm90::WG_BM;
+  const int n0 = blockIdx.x % ntn * BN;
+  da_sm90::wgmma_tile<BN, AccumPairs, da_sm90::FWD_B, true,
+                      ring_stages<BN>()>(
+      &ta, &tb, M, N, K, m0, n0, smem, AccumPairs{!first},
+      forward && m0 == 0 ? &tf : nullptr, &to);
+}
+
+// The f32 route's forward: a block whose `dst` is set stores the in-range
+// part of each slab of the chunk it stages, A's (IS_A: F_BM x F_BK at rows
+// `fixed`.., columns k0..) or B's (F_BK x F_BN at rows k0.., columns
+// `fixed`..), on to dst, a contiguous rows x cols matrix.  VEC: cols a
+// multiple of 4 and dst 16-byte aligned.
+template <bool VEC, bool IS_A>
+struct FwdSlab {
+  float* dst;
+  int rows, cols;
+  int64_t fixed;
+  __device__ __forceinline__ void operator()(int k0, const float* as,
+                                             const float* bs) const {
+    if (!dst) return;
+    constexpr int R = IS_A ? da_sm90::F_BM : da_sm90::F_BK;
+    constexpr int C = IS_A ? da_sm90::F_BK : da_sm90::F_BN;
+    constexpr int V = VEC ? 4 : 1;
+    const float* src = IS_A ? as : bs;
+    const int64_t r0 = IS_A ? fixed : k0, c0 = IS_A ? k0 : fixed;
+    for (int i = threadIdx.x; i < R * C / V; i += da_sm90::F_THREADS) {
+      const int r = i / (C / V), c = (i % (C / V)) * V;
+      if (r0 + r >= rows || c0 + c >= cols) continue;
+      float* d = dst + (r0 + r) * cols + c0 + c;
+      if constexpr (VEC)
+        *reinterpret_cast<float4*>(d) =
+            *reinterpret_cast<const float4*>(src + r * C + c);
+      else
+        *d = src[r * C + c];
+    }
+  }
+};
+
+// K13's step in f32: one 128 x 128 tile of chunk (M x K) @ w (K x N) into
+// out; the blocks of column tile 0 forward the chunk's slabs to fwd.
+template <bool VEC>
+__global__ void __launch_bounds__(da_sm90::F_THREADS, 1)
+ring_ag_mm_a_f32(const float* __restrict__ chunk, const float* __restrict__ w,
+                 float* __restrict__ out, float* __restrict__ fwd, int M,
+                 int N, int K) {
+  extern __shared__ float4 smem_f[];
+  const int ntn = (N + da_sm90::F_BN - 1) / da_sm90::F_BN;
+  const int64_t m0 = (int64_t)(blockIdx.x / ntn) * da_sm90::F_BM;
+  const int64_t n0 = (int64_t)(blockIdx.x % ntn) * da_sm90::F_BN;
+  da_sm90::f32_tile<VEC>(chunk, K, w, N, M, N, K, m0, n0,
+                         reinterpret_cast<float*>(smem_f),
+                         StoreEpi<float>{out, N},
+                         FwdSlab<VEC, true>{n0 == 0 ? fwd : nullptr, M, K,
+                                            m0});
+}
+
+// K14's step in f32: one 128 x 128 tile of a[:, koff:koff+K] (`a` points
+// at the slice, rows lda apart) @ chunk (K x N) added into out; the blocks
+// of row tile 0 forward the chunk's slabs to fwd.
+template <bool VEC>
+__global__ void __launch_bounds__(da_sm90::F_THREADS, 1)
+ring_ag_mm_f32(const float* __restrict__ a, const float* __restrict__ chunk,
+               float* __restrict__ out, float* __restrict__ fwd, int M,
+               int N, int K, int64_t lda, int first) {
+  extern __shared__ float4 smem_f[];
+  const int ntn = (N + da_sm90::F_BN - 1) / da_sm90::F_BN;
+  const int64_t m0 = (int64_t)(blockIdx.x / ntn) * da_sm90::F_BM;
+  const int64_t n0 = (int64_t)(blockIdx.x % ntn) * da_sm90::F_BN;
+  da_sm90::f32_tile<VEC>(a, lda, chunk, N, M, N, K, m0, n0,
+                         reinterpret_cast<float*>(smem_f),
+                         AccumEpi<float>{out, N, first},
+                         FwdSlab<VEC, false>{m0 == 0 ? fwd : nullptr, K, N,
+                                             n0});
 }
 
 // K15's step: one tile of x (M x K) @ w (K x N), cast to T, plus recv
@@ -422,67 +599,176 @@ extern "C" int da_copy_pieces(int n, const void* const* src,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// the ring all-gather GEMMs' route codes (kbuild.RING_ROUTES)
+constexpr int ROUTE_F32 = 0;
+constexpr int ROUTE_MMA = 1;
+constexpr int ROUTE_WGMMA = 2;
+constexpr int ROUTE_WGMMA_PEER = 3;
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`.
+int fit_smem(const void* kern, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+int wg_tiles(int m, int n, int bn) {
+  return ((m + da_sm90::WG_BM - 1) / da_sm90::WG_BM) * ((n + bn - 1) / bn);
+}
+
+int f32_tiles(int m, int n) {
+  return ((m + da_sm90::F_BM - 1) / da_sm90::F_BM) *
+         ((n + da_sm90::F_BN - 1) / da_sm90::F_BN);
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// Launch one wgmma step kernel (128 x BN tiles) over the M x N tiles; the
+// peer route first copies `chunk` (elems elements) to fwd by a launch of
+// its own.
+template <int BN, typename... Params, typename... Args>
+int launch_wgmma(void (*kern)(Params...), int m, int n, cudaStream_t s,
+                 const void* chunk, void* fwd, int64_t elems, bool peer,
+                 Args... args) {
+  const size_t sm = da_sm90::wg_smem_bytes<BN, ring_stages<BN>(), true>();
+  int rc = fit_smem((const void*)kern, sm);
+  if (rc) return rc;
+  if (fwd && peer) {
+    forward_kernel<bf><<<RING_COPY_BLOCKS, da_tile::THREADS, 0, s>>>(
+        static_cast<const bf*>(chunk), static_cast<bf*>(fwd), elems);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  kern<<<wg_tiles(m, n, BN), da_sm90::WG_THREADS, sm, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // One ring step of a @ all_gather(b) for one rank (K14): out (M x N) +=
 // a[:, koff:koff+K] @ chunk (K x N), with a's row stride lda; `first`
 // writes instead of adding; fwd (null at the last step) receives a copy of
-// chunk.  bf16: all of a, chunk, out and fwd are bf16, else f32.
+// chunk.  route (kbuild.RING_ROUTES): 0 f32 operands, 1 bf16 on mma.sync,
+// 2 bf16 on wgmma + TMA (K, N, lda multiples of 8; a + koff, chunk, out
+// and fwd 16-byte aligned), 3 as 2 with the forward by a separate copy
+// launch (fwd on another card).  tile_n: the wgmma routes' tile width, 64
+// or 128.  Returns the cudaGetLastError() code of the launch,
+// cudaErrorInvalidValue for a route or tile the operands cannot take, or
+// 1000 + the CUresult of a failed TMA tensor-map encoding.
 extern "C" int da_ring_ag_mm_step(const void* a, const void* chunk,
                                   void* out, void* fwd, int m, int n, int k,
                                   long long lda, long long koff, int first,
-                                  int bf16, int device, void* stream) {
+                                  int route, int tile_n, int device,
+                                  void* stream) {
   if (m <= 0 || n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
-  const int grid = ncopy + gemm_tiles(m, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using bf = __nv_bfloat16;
+  if (route == ROUTE_F32) {
+    const float* pa = static_cast<const float*>(a) + koff;
+    auto kern = da_sm90::f32_vec(pa, lda, chunk, n, n, k) && aligned16(fwd)
+                    ? ring_ag_mm_f32<true>
+                    : ring_ag_mm_f32<false>;
+    int rc = fit_smem((const void*)kern, da_sm90::F_SMEM);
+    if (rc) return rc;
+    kern<<<f32_tiles(m, n), da_sm90::F_THREADS, da_sm90::F_SMEM, s>>>(
+        pa, static_cast<const float*>(chunk), static_cast<float*>(out),
+        static_cast<float*>(fwd), m, n, k, (int64_t)lda, first);
+    return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_MMA) {
+    const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
     const bf* pa = static_cast<const bf*>(a) + koff;
     auto kern = da_tile::mma_vec(pa, lda, chunk, n, n, k)
                     ? ring_ag_mm_kernel<bf, true>
                     : ring_ag_mm_kernel<bf, false>;
-    kern<<<grid, da_tile::THREADS, 0, s>>>(
+    kern<<<ncopy + gemm_tiles(m, n), da_tile::THREADS, 0, s>>>(
         static_cast<const bf*>(a), static_cast<const bf*>(chunk),
         static_cast<bf*>(out), static_cast<bf*>(fwd), m, n, k, lda, koff,
         first, ncopy);
-  } else {
-    ring_ag_mm_kernel<float, false><<<grid, da_tile::THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(chunk),
-        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k, lda,
-        koff, first, ncopy);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (route != ROUTE_WGMMA && route != ROUTE_WGMMA_PEER)
+    return (int)cudaErrorInvalidValue;
+  const bf* pa = static_cast<const bf*>(a) + koff;
+  if (!da_sm90::wgmma_ok(pa, lda, chunk, n, k) || !aligned16(out) ||
+      !aligned16(fwd))
+    return (int)cudaErrorInvalidValue;
+  const bool peer = route == ROUTE_WGMMA_PEER;
+  CUtensorMap ta, tb, tf = {}, to;
+  int rc = da_sm90::wgmma_maps(&ta, &tb, pa, lda, chunk, m, n, k);
+  if (!rc) rc = da_sm90::wgmma_out_map(&to, out, m, n);
+  if (!rc && fwd && !peer)
+    rc = da_sm90::wgmma_fwd_map(&tf, fwd, da_sm90::FWD_B, m, n, k);
+  if (rc) return rc;
+  const int forward = fwd && !peer;
+  const int64_t elems = (int64_t)k * n;
+  if (tile_n == 64)
+    return launch_wgmma<64>(ring_ag_mm_wgmma<64>, m, n, s, chunk, fwd, elems,
+                            peer, ta, tb, tf, to, m, n, k, first, forward);
+  if (tile_n == 128)
+    return launch_wgmma<128>(ring_ag_mm_wgmma<128>, m, n, s, chunk, fwd,
+                             elems, peer, ta, tb, tf, to, m, n, k, first,
+                             forward);
+  return (int)cudaErrorInvalidValue;
 }
 
 // One ring step of all_gather(x) @ w for one rank (K13): out (M x N, the
 // resident chunk's row block of the gathered product) = chunk (M x K) @ w
 // (K x N), cast once to the type; fwd (null at the last step) receives a
-// copy of chunk.  All contiguous, bf16 (bf16 != 0) or f32.
+// copy of chunk.  All contiguous; route and tile_n as da_ring_ag_mm_step's
+// (wgmma: K, N multiples of 8, chunk, w, out and fwd 16-byte aligned).
 extern "C" int da_ring_ag_mm_a_step(const void* chunk, const void* w,
                                     void* out, void* fwd, int m, int n,
-                                    int k, int bf16, int device,
-                                    void* stream) {
+                                    int k, int route, int tile_n,
+                                    int device, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
-  const int grid = ncopy + gemm_tiles(m, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using bf = __nv_bfloat16;
+  if (route == ROUTE_F32) {
+    auto kern = da_sm90::f32_vec(chunk, k, w, n, n, k) && aligned16(fwd)
+                    ? ring_ag_mm_a_f32<true>
+                    : ring_ag_mm_a_f32<false>;
+    int rc = fit_smem((const void*)kern, da_sm90::F_SMEM);
+    if (rc) return rc;
+    kern<<<f32_tiles(m, n), da_sm90::F_THREADS, da_sm90::F_SMEM, s>>>(
+        static_cast<const float*>(chunk), static_cast<const float*>(w),
+        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k);
+    return (int)cudaGetLastError();
+  }
+  if (route == ROUTE_MMA) {
+    const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
     auto kern = da_tile::mma_vec(chunk, k, w, n, n, k)
                     ? ring_ag_mm_a_kernel<bf, true>
                     : ring_ag_mm_a_kernel<bf, false>;
-    kern<<<grid, da_tile::THREADS, 0, s>>>(
+    kern<<<ncopy + gemm_tiles(m, n), da_tile::THREADS, 0, s>>>(
         static_cast<const bf*>(chunk), static_cast<const bf*>(w),
         static_cast<bf*>(out), static_cast<bf*>(fwd), m, n, k, ncopy);
-  } else {
-    ring_ag_mm_a_kernel<float, false><<<grid, da_tile::THREADS, 0, s>>>(
-        static_cast<const float*>(chunk), static_cast<const float*>(w),
-        static_cast<float*>(out), static_cast<float*>(fwd), m, n, k, ncopy);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (route != ROUTE_WGMMA && route != ROUTE_WGMMA_PEER)
+    return (int)cudaErrorInvalidValue;
+  if (!da_sm90::wgmma_ok(chunk, k, w, n, k) || !aligned16(out) ||
+      !aligned16(fwd))
+    return (int)cudaErrorInvalidValue;
+  const bool peer = route == ROUTE_WGMMA_PEER;
+  CUtensorMap ta, tb, tf = {}, to;
+  int rc = da_sm90::wgmma_maps(&ta, &tb, chunk, k, w, m, n, k);
+  if (!rc) rc = da_sm90::wgmma_out_map(&to, out, m, n);
+  if (!rc && fwd && !peer)
+    rc = da_sm90::wgmma_fwd_map(&tf, fwd, da_sm90::FWD_A, m, n, k);
+  if (rc) return rc;
+  const int forward = fwd && !peer;
+  const int64_t elems = (int64_t)m * k;
+  if (tile_n == 64)
+    return launch_wgmma<64>(ring_ag_mm_a_wgmma<64>, m, n, s, chunk, fwd,
+                            elems, peer, ta, tb, tf, to, m, n, k, forward);
+  if (tile_n == 128)
+    return launch_wgmma<128>(ring_ag_mm_a_wgmma<128>, m, n, s, chunk, fwd,
+                             elems, peer, ta, tb, tf, to, m, n, k, forward);
+  return (int)cudaErrorInvalidValue;
 }
 
 // One ring step of reduce_scatter(x @ w) for one rank (K15): dst (M x N) =

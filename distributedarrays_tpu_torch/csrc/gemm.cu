@@ -89,9 +89,9 @@ cudaError_t fit_smem(K kernel, size_t bytes) {
 template <typename TOut>
 int launch_wgmma(const void* a, const void* b, void* c, int m, int n, int k,
                  cudaStream_t s) {
-  if (!da_sm90::wgmma_ok(a, b, n, k)) return (int)cudaErrorInvalidValue;
+  if (!da_sm90::wgmma_ok(a, k, b, n, k)) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  int rc = da_sm90::wgmma_maps(&ta, &tb, a, b, m, n, k);
+  int rc = da_sm90::wgmma_maps(&ta, &tb, a, k, b, m, n, k);
   if (rc) return rc;
   const size_t sm = da_sm90::wg_smem_bytes<WG_BN>();
   cudaError_t err = fit_smem(gemm_wgmma_kernel<WG_BN, TOut>, sm);

@@ -1,20 +1,39 @@
-// The block GEMM's loops for Hopper (sm_90a), used by gemm.cu (K1): one
-// block computes one output tile of A[M x K] @ B[K x N] and hands every
-// in-range sum to an epilogue functor, epi(row, col, value).
+// The block GEMM's loops for Hopper (sm_90a), used by gemm.cu (K1) and by
+// the ring all-gather GEMMs of collectives.cu (K13, K14): one block
+// computes one output tile of A[M x K] @ B[K x N] (A's rows lda apart, so
+// A may be a column slice of a wider matrix) and hands every in-range sum
+// to an epilogue functor, epi(row, col, value).
 //
 // - `wgmma_tile`: bf16 operands on the tensor cores.  One producer warp
 //   keeps TMA loads of A (WG_BM x 64, K-major) and B (64 x BN, N-major as
-//   it lies in memory) in flight through a ring of WG_STAGES shared-memory
-//   stages, one full/empty mbarrier pair per stage; two consumer
-//   warpgroups each run wgmma m64nBNk16 on their 64-row half of the
-//   128 x BN tile, A and B read straight from the swizzled stages (B with
-//   the transpose bit, so it needs no transpose in memory), sums in f32
-//   registers.  A consumer keeps one group of products in flight and
-//   releases a stage as soon as the products that read it are done.  TMA
-//   zero-fills boxes past the edges, so ragged M, N and K need no masking
-//   on the load side.  Needs K and N multiples of 8 and 16-byte aligned
-//   bases (TMA's 16-byte strides).  bf16 products are exact in f32, so the
-//   sums differ from an f32 loop only in their order.
+//   it lies in memory) in flight through a ring of STAGES (WG_STAGES by
+//   default) shared-memory stages, one full/empty mbarrier pair per
+//   stage; two consumer warpgroups each run wgmma m64nBNk16 on their
+//   64-row half of the 128 x BN tile (BN 64, 128 or 256), A and B read
+//   straight from the swizzled stages (B with the transpose bit, so it
+//   needs no transpose in memory), sums in f32 registers.  A consumer
+//   keeps one group of products in flight and releases a stage as soon as
+//   the products that read it are done.  TMA zero-fills boxes past the
+//   edges, so ragged M, N and K need no masking on the load side.  Needs
+//   K, N and lda multiples of 8 and 16-byte aligned bases (TMA's 16-byte
+//   strides).  bf16 products are exact in f32, so the sums differ from an
+//   f32 loop only in their order.  Two options serve the ring GEMMs:
+//   - FWD_A / FWD_B: the block also stores every A (or B) box it loads on
+//     to a contiguous copy of that operand through a third tensor map (a
+//     TMA store from the same stage, issued by one consumer thread once
+//     the box has landed); that thread lets the stage be refilled only
+//     after its store has finished reading it.  A ring step's forward of
+//     its resident chunk thus rides on the loads its product needs.
+//   - TMA_OUT: the bf16 output tile goes out through shared memory and a
+//     TMA store over a fourth map, `to`: each thread writes its column
+//     pairs, epi(v0, v1, prior), into the tile as the map's 128-byte
+//     swizzled boxes lay it out (conflict-free: a warp's eight rows land
+//     in eight different 16-byte chunks), and one thread stores the tile,
+//     in whole lines, clipped at the edges.  Where epi.accumulate, the
+//     producer first loads the tile's current values into the same place
+//     (after the last operand load, so the load's latency hides behind
+//     the last stages' products) and `prior` is that value, else zero.
+//     The output's base must be 16-byte aligned and N a multiple of 8.
 // - `f32_tile`: float32 operands in true FP32 (FMA, no TF32) on the SIMT
 //   pipes.  A (128 x 32) and B (32 x 128) slabs stream through F_STAGES
 //   stages of cp.async copies, so the next slabs load while this one is
@@ -31,6 +50,9 @@
 //   128 registers and spills, and that read 3.57 ms at 4096^3 against
 //   3.21-3.34 ms for one block (H100 80GB HBM3, 700 W, chip_smoke.py);
 //   each thread's 64 independent FMAs a depth hide the shared loads.
+//   A `Fwd` functor, fwd(k0, As, Bs), sees every slab once it has landed
+//   and before its stage is refilled: the ring GEMMs store the resident
+//   chunk's slabs on to the neighbour's slot from there.
 
 #pragma once
 
@@ -53,41 +75,57 @@ __host__ __device__ constexpr int wg_stage_bytes() {
   return (WG_BM + BN) * WG_BK * 2;
 }
 // dynamic shared memory of wgmma_tile (with 1 KB of alignment slack)
-template <int BN>
+template <int BN, int STAGES = WG_STAGES, bool TMA_OUT = false>
 __host__ __device__ constexpr size_t wg_smem_bytes() {
-  return (size_t)WG_STAGES * wg_stage_bytes<BN>() + 1024;
+  return (size_t)STAGES * wg_stage_bytes<BN>() +
+         (TMA_OUT ? (size_t)WG_BM * BN * 2 : 0) + 1024;
 }
 
+// Which operand's boxes wgmma_tile stores on to the forward map.
+enum WgFwd { FWD_NONE = 0, FWD_A = 1, FWD_B = 2 };
+
 // The 128 x BN tile at (m0, n0).  `ta` maps A as (K, M) with a (64, 128)
-// box, `tb` maps B as (N, K) with a (64, 64) box.  Run by all WG_THREADS
-// threads of the block; the producer warp returns early, so the caller
-// must not synchronise the block afterwards.
-template <int BN, typename Epi>
+// box, `tb` maps B as (N, K) with a (64, 64) box; `tf` (FWD_A / FWD_B, or
+// null for a block that forwards nothing) maps the copy as `ta` or `tb`
+// maps the operand (wgmma_fwd_map); `to` (TMA_OUT) maps the bf16 output as
+// `ta` maps A (wgmma_out_map).  Run by all WG_THREADS threads of the
+// block, with wg_smem_bytes<BN, STAGES, TMA_OUT>() bytes at `smem_raw`;
+// the producer warp returns early, so the caller must not synchronise the
+// block afterwards.
+template <int BN, typename Epi, int FWD = FWD_NONE, bool TMA_OUT = false,
+          int STAGES = WG_STAGES>
 __device__ __forceinline__ void wgmma_tile(const CUtensorMap* ta,
                                            const CUtensorMap* tb, int M,
                                            int N, int K, int m0, int n0,
-                                           uint8_t* smem_raw, const Epi& epi) {
-  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+                                           uint8_t* smem_raw, const Epi& epi,
+                                           const CUtensorMap* tf = nullptr,
+                                           const CUtensorMap* to = nullptr) {
+  // full[STAGES]: the output tile's current values (TMA_OUT)
+  __shared__ __align__(8) uint64_t full[STAGES + TMA_OUT], empty[STAGES];
   constexpr int A_BYTES = WG_BM * WG_BK * 2;
   constexpr int STAGE = wg_stage_bytes<BN>();
+  constexpr int O_BOX = WG_BM * 128;  // a 64-column box of the output tile
   uint8_t* smem = align1024(smem_raw);
   const int nk = (K + WG_BK - 1) / WG_BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < WG_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], WG_CONSUMERS * 128);
     }
+    if constexpr (TMA_OUT) mbar_init(&full[STAGES], 1);
     mbar_fence_init();
   }
   __syncthreads();
+  // the output tile (TMA_OUT): BN / 64 boxes of 128 rows of 128 bytes
+  uint8_t* otile = smem + STAGES * STAGE;
 
   if (warp == WG_CONSUMERS * 4) {  // the producer warp
     if (lane == 0) {
       for (int it = 0; it < nk; ++it) {
-        const int s = it % WG_STAGES;
+        const int s = it % STAGES;
         // stage s is free once the consumers released its previous round
-        if (it >= WG_STAGES) mbar_wait(&empty[s], ((it / WG_STAGES) + 1) & 1);
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) + 1) & 1);
         uint8_t* a = smem + s * STAGE;
         uint8_t* b = a + A_BYTES;
         mbar_expect_tx(&full[s], STAGE);
@@ -96,56 +134,113 @@ __device__ __forceinline__ void wgmma_tile(const CUtensorMap* ta,
         for (int j = 0; j < BN / 64; ++j)
           tma_load_2d(b + j * 8192, tb, &full[s], n0 + 64 * j, it * WG_BK);
       }
+      if constexpr (TMA_OUT) {
+        if (epi.accumulate) {
+          mbar_expect_tx(&full[STAGES], WG_BM * BN * 2);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_2d(otile + j * O_BOX, to, &full[STAGES], n0 + 64 * j,
+                        m0);
+        }
+      }
     }
     return;
   }
 
   const int wg = warp / 4;  // this consumer's 64-row half
+  // the one thread that stores this block's forwarded boxes
+  const bool fwd = FWD != FWD_NONE && tf != nullptr && threadIdx.x == 0;
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   for (int it = 0; it < nk; ++it) {
-    const int s = it % WG_STAGES;
-    mbar_wait(&full[s], (it / WG_STAGES) & 1);
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
     const uint8_t* a = smem + s * STAGE + wg * 64 * 128;
     const uint8_t* b = smem + s * STAGE + A_BYTES;
+    if constexpr (FWD != FWD_NONE) {
+      if (fwd) {
+        if constexpr (FWD == FWD_A) {
+          tma_store_2d(tf, smem + s * STAGE, it * WG_BK, m0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_store_2d(tf, b + j * 8192, n0 + 64 * j, it * WG_BK);
+        }
+        bulk_commit();
+      }
+      __syncwarp();
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WG_BK / 16; ++kk)
       wgmma_ss<BN, 1>(acc, sw128_desc(a + 32 * kk, 16, 1024),
                       sw128_desc(b + 2048 * kk, 8192, 1024), 1);
     wgmma_commit();
-    // the previous stage's products are done: release it
+    // the previous stage's products (and store) are done: release it
     wgmma_wait<1>();
-    if (it > 0) mbar_arrive(&empty[(it - 1) % WG_STAGES]);
+    if constexpr (FWD != FWD_NONE) {
+      if (fwd) bulk_wait_read<1>();
+    }
+    if (it > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
   }
   wgmma_wait<0>();
   reg_fence(acc);
+  if constexpr (FWD != FWD_NONE) {
+    if (fwd) bulk_wait<0>();  // the stores leave shared memory before exit
+  }
 
   const int g = lane / 4, t = lane % 4;
   const int rbase = m0 + wg * 64 + (warp % 4) * 16 + g;
+  if constexpr (TMA_OUT) {
+    if (epi.accumulate) mbar_wait(&full[STAGES], 0);
+    // row r = wg * 64 + (warp % 4) * 16 + g + 8 h of the tile, so r % 8 = g
+    uint8_t* rows = otile + (wg * 64 + (warp % 4) * 16 + g) * 128 + 4 * t;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = rbase + 8 * (e >> 1);
-      const int col = n0 + 8 * j + 2 * t + (e & 1);
-      if (row < M && col < N) epi(row, col, acc[4 * j + e]);
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(
+            rows + (j / 8) * O_BOX + h * 1024 + (((j % 8) ^ g) * 16));
+        const __nv_bfloat162 prior =
+            epi.accumulate ? *q : __floats2bfloat162_rn(0.f, 0.f);
+        *q = epi(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], prior);
+      }
+    fence_proxy_async();  // the tile's writes, visible to the TMA store
+    named_sync(1, WG_CONSUMERS * 128);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        tma_store_2d(to, otile + j * O_BOX, n0 + 64 * j, m0);
+      bulk_commit();
+      bulk_wait<0>();
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rbase + 8 * (e >> 1);
+        const int col = n0 + 8 * j + 2 * t + (e & 1);
+        if (row < M && col < N) epi(row, col, acc[4 * j + e]);
+      }
+  }
 }
 
-// Whether A (M x K) and B (K x N), row-major bf16, can be read by TMA.
-inline bool wgmma_ok(const void* A, const void* B, int N, int K) {
-  return K % 8 == 0 && N % 8 == 0 &&
+// Whether A (M x K, rows lda apart) and B (K x N), row-major bf16, can be
+// read by TMA.
+inline bool wgmma_ok(const void* A, int64_t lda, const void* B, int N,
+                     int K) {
+  return K % 8 == 0 && N % 8 == 0 && lda % 8 == 0 &&
          reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(B) % 16 == 0;
 }
 
 // The two tensor maps of wgmma_tile; returns 0 or an error code.
 inline int wgmma_maps(CUtensorMap* ta, CUtensorMap* tb, const void* A,
-                      const void* B, int M, int N, int K) {
+                      int64_t lda, const void* B, int M, int N, int K) {
   const uint64_t da[2] = {(uint64_t)K, (uint64_t)M};
-  const uint64_t sa[1] = {(uint64_t)K * 2};
+  const uint64_t sa[1] = {(uint64_t)lda * 2};
   const uint32_t ba[2] = {WG_BK, WG_BM};
   int rc = make_map(ta, A, 2, da, sa, ba);
   if (rc) return rc;
@@ -153,6 +248,27 @@ inline int wgmma_maps(CUtensorMap* ta, CUtensorMap* tb, const void* A,
   const uint64_t sb[1] = {(uint64_t)N * 2};
   const uint32_t bb[2] = {64, WG_BK};
   return make_map(tb, B, 2, db, sb, bb);
+}
+
+// The output map of wgmma_tile<..., TMA_OUT>: `out`, a contiguous M x N
+// bf16 matrix, in (64, 128) boxes.
+inline int wgmma_out_map(CUtensorMap* to, void* out, int M, int N) {
+  const uint64_t d[2] = {(uint64_t)N, (uint64_t)M};
+  const uint64_t st[1] = {(uint64_t)N * 2};
+  const uint32_t box[2] = {64, WG_BM};
+  return make_map(to, out, 2, d, st, box);
+}
+
+// The forward map of wgmma_tile: `dst` a contiguous M x K copy of A
+// (FWD_A) or K x N copy of B (FWD_B), in the operand's boxes.
+inline int wgmma_fwd_map(CUtensorMap* tf, void* dst, int fwd, int M, int N,
+                         int K) {
+  const bool a = fwd == FWD_A;
+  const uint64_t d[2] = {(uint64_t)(a ? K : N), (uint64_t)(a ? M : K)};
+  const uint64_t st[1] = {(uint64_t)(a ? K : N) * 2};
+  const uint32_t box[2] = {a ? (uint32_t)WG_BK : 64u,
+                           a ? (uint32_t)WG_BM : (uint32_t)WG_BK};
+  return make_map(tf, dst, 2, d, st, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -240,15 +356,24 @@ __device__ __forceinline__ void f32_stage(const float* __restrict__ A,
   }
 }
 
+// f32_tile's default slab hook: nothing.
+struct NoFwd {
+  __device__ __forceinline__ void operator()(int, const float*,
+                                             const float*) const {}
+};
+
 // The 128 x 128 tile at (m0, n0) of A @ B in f32; lda and ldb are the row
 // strides.  `smem` holds F_SMEM bytes.  Run by F_THREADS threads.
-template <bool VEC, typename Epi>
+// fwd(k0, As, Bs) runs on every thread once the slabs of depth k0.. have
+// landed in As ([F_BM][F_BK]) and Bs ([F_BK][F_BN]).
+template <bool VEC, typename Epi, typename Fwd = NoFwd>
 __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
                                          int64_t lda,
                                          const float* __restrict__ B,
                                          int64_t ldb, int M, int N, int K,
                                          int64_t m0, int64_t n0, float* smem,
-                                         const Epi& epi) {
+                                         const Epi& epi,
+                                         const Fwd& fwd = Fwd()) {
   float* As = smem;                                // [F_STAGES][F_BM][F_BK]
   float* Bs = smem + F_STAGES * F_BM * F_BK;       // [F_STAGES][F_BK][F_BN]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -281,6 +406,7 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
     cp_async_commit();
     const float* as = As + (kt % F_STAGES) * F_BM * F_BK;
     const float* bs = Bs + (kt % F_STAGES) * F_BK * F_BN;
+    fwd(kt * F_BK, as, bs);
 #pragma unroll
     for (int kq = 0; kq < F_BK; kq += 4) {
       float4 a[8];

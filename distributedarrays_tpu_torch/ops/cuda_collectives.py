@@ -59,7 +59,12 @@ not used.
   right neighbour's receive slot (or the output at the last step).  The TPU
   kernels' VMEM budget gate (``gemm_ring_eligible``) has no counterpart: the
   operands stay in device memory.  float32 or bfloat16 (bf16 on the tensor
-  cores), one dtype for both operands.
+  cores), one dtype for both operands.  K13 and K14 take the route
+  ``ring_gemm_route`` picks for the call (``kbuild.route_counts()`` counts
+  every step under it): bf16 that TMA can read on wgmma, with the forward
+  riding on the product's tile loads (or, for a slot on another card, a
+  copy launch of its own: ``wgmma_peer``), other bf16 on mma.sync, f32 on
+  the pipelined FP32 tile.
 
 Steps that depend on each other are ordered by stream order on one card and
 by CUDA event waits across cards; no kernel waits on a flag set by another.
@@ -77,7 +82,8 @@ from ..utils import kbuild
 
 __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "ring_allgather_matmul", "ring_allgather_matmul_rhs",
-           "ring_matmul_reducescatter", "all_gather_plain",
+           "ring_matmul_reducescatter", "ring_gemm_route", "ring_tile_n",
+           "all_gather_plain",
            "all_to_all_plain", "reduce_scatter_plain",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
@@ -191,8 +197,8 @@ _ARGTYPES = {
     [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p],
     "da_ring_ag_mm_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 +
-    [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    "da_ring_ag_mm_a_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+    [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "da_ring_ag_mm_a_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
     [ctypes.c_void_p],
     "da_ring_mm_rs_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
     [ctypes.c_void_p],
@@ -469,10 +475,66 @@ def _check_kernel_operands(what: str, x_blocks, w_blocks):
     _check_contiguous(x_blocks + w_blocks, what)
 
 
-def _launched(rc: int, what: str, kernel: str) -> None:
+def _launched(rc: int, what: str, kernel: str,
+              route: str | None = None) -> None:
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
-    kbuild.count(kernel)
+        raise RuntimeError(f"{what} kernel launch failed"
+                           f"{f' ({route} route)' if route else ''}: CUDA "
+                           f"error {rc}")
+    kbuild.count(kernel, route)
+
+
+def ring_gemm_route(dtype: torch.dtype, n: int, k: int, ptrs,
+                    lda: int | None = None) -> str:
+    """The kernel route of a ring all-gather GEMM (K13, K14) whose steps
+    multiply (m, k) @ (k, n) with A's rows ``lda`` elements apart (``k``
+    by default) and whose TMA operands lie at the device addresses
+    ``ptrs`` (every step's A, B and output, K14's A at each column offset,
+    and the forward slots): ``"wgmma"`` when TMA can read and write them all
+    (bf16, k > 0 and k, n and lda multiples of 8 so every row stride is a
+    multiple of 16 bytes, 16-byte aligned addresses), ``"mma"`` for any
+    other bf16 operands, ``"f32"`` for float32."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the ring GEMM kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    lda = k if lda is None else lda
+    if k > 0 and k % 8 == 0 and n % 8 == 0 and lda % 8 == 0 and all(
+            p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "mma"
+
+
+def ring_tile_n(m: int, n: int, sms: int) -> int:
+    """The wgmma route's tile width for an (m, n) step output on a card of
+    ``sms`` SMs: 128 x 128 tiles, or 128 x 64 where 128 x 128 tiles would
+    leave half the SMs idle, as at K14's weight-gradient step (64 tiles).
+    The kernel makes each as many stages deep as fit beside its output
+    tile (6 and 8).  The device time of the 16 launches of a sequence-parallel call
+    on an H100 80GB HBM3 at 700 W (chip_smoke.py --time-ring-gemms): K13
+    0.182 ms on 128 x 128 tiles against 0.263 ms on 128 x 64; K14 0.222 ms
+    on 128 x 64 tiles against 0.303 ms on 128 x 128."""
+    return 64 if -(-m // 128) * -(-n // 128) <= sms // 2 else 128
+
+
+_sms: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _step_routes(route: str, devs) -> list[str]:
+    """Each rank's route: the wgmma route forwards to a slot on another
+    card by a copy launch of its own (``wgmma_peer``)."""
+    p = len(devs)
+    return [("wgmma_peer" if route == "wgmma" and devs[(r - 1) % p] != dev
+             else route) for r, dev in enumerate(devs)]
 
 
 def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
@@ -493,11 +555,21 @@ def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
         return allgather_matmul_plain(x_blocks, w_blocks)
     _check_kernel_operands(what, x_blocks, w_blocks)
     dtype = x_blocks[0].dtype
+    isz = x_blocks[0].element_size()
     devs = [x.device for x in x_blocks]
     order = _Order(devs)
     outs = [torch.empty((p * m_loc, n), dtype=dtype, device=d) for d in devs]
     bufs = [torch.empty((2, m_loc, k), dtype=dtype, device=d) for d in devs] \
         if p > 1 else []
+    slots = [(b.data_ptr(), b.data_ptr() + m_loc * k * isz) for b in bufs]
+    xs, ws = [x.data_ptr() for x in x_blocks], [w.data_ptr() for w in w_blocks]
+    route = ring_gemm_route(
+        dtype, n, k, xs + ws + [q for s in slots for q in s]
+        + [o.data_ptr() + q * m_loc * n * isz for o in outs for q in range(p)])
+    routes = _step_routes(route, devs)
+    codes = [kbuild.RING_ROUTES.index(r) for r in routes]
+    tile_n = ring_tile_n(m_loc, n, _sm_count(devs[0]))
+    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
     done = [order.mark(d) for d in devs]     # buffers allocated
     step = _fn("da_ring_ag_mm_a_step")
     for t in range(p):
@@ -507,15 +579,13 @@ def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
             # the left neighbour finished with the slot written here, and
             # the right one finished writing this rank's resident slot
             order.wait(dev, [prev[left], prev[right]])
-            chunk = x_blocks[r] if t == 0 else bufs[r][t % 2]
-            fwd = bufs[left][(t + 1) % 2] if t < p - 1 else None
+            chunk = xs[r] if t == 0 else slots[r][t % 2]
+            fwd = slots[left][(t + 1) % 2] if t < p - 1 else None
             src = (r + t) % p
-            rc = step(chunk.data_ptr(), w_blocks[r].data_ptr(),
-                      outs[r][src * m_loc:].data_ptr(),
-                      fwd.data_ptr() if fwd is not None else None, m_loc, n,
-                      k, int(dtype == torch.bfloat16), dev.index,
-                      torch.cuda.current_stream(dev).cuda_stream)
-            _launched(rc, what, "allgather_matmul")
+            rc = step(chunk, ws[r],
+                      outs[r].data_ptr() + src * m_loc * n * isz, fwd, m_loc,
+                      n, k, codes[r], tile_n, dev.index, streams[dev])
+            _launched(rc, what, "allgather_matmul", routes[r])
             done.append(order.mark(dev))
     return outs
 
@@ -537,10 +607,22 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
         return allgather_matmul_rhs_plain(a_blocks, b_blocks)
     _check_kernel_operands(what, a_blocks, b_blocks)
     dtype = a_blocks[0].dtype
+    isz = a_blocks[0].element_size()
     devs = [a.device for a in a_blocks]
     order = _Order(devs)
     outs = [torch.empty((m, n), dtype=dtype, device=d) for d in devs]
     bufs = [torch.empty((2, k_loc, n), dtype=dtype, device=d) for d in devs]
+    slots = [(b.data_ptr(), b.data_ptr() + k_loc * n * isz) for b in bufs]
+    as_ = [a.data_ptr() for a in a_blocks]
+    bs = [b.data_ptr() for b in b_blocks]
+    route = ring_gemm_route(
+        dtype, n, k_loc, [a + q * k_loc * isz for a in as_ for q in range(p)]
+        + bs + [q for s in slots for q in s] + [o.data_ptr() for o in outs],
+        lda=k)
+    routes = _step_routes(route, devs)
+    codes = [kbuild.RING_ROUTES.index(r) for r in routes]
+    tile_n = ring_tile_n(m, n, _sm_count(devs[0]))
+    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
     done = [order.mark(d) for d in devs]     # buffers allocated
     step = _fn("da_ring_ag_mm_step")
     for t in range(p):
@@ -550,15 +632,12 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
             # the left neighbour finished with the slot written here, and
             # the right one finished writing this rank's resident slot
             order.wait(dev, [prev[left], prev[right]])
-            chunk = b_blocks[r] if t == 0 else bufs[r][t % 2]
-            fwd = bufs[left][(t + 1) % 2] if t < p - 1 else None
-            rc = step(a_blocks[r].data_ptr(), chunk.data_ptr(),
-                      outs[r].data_ptr(),
-                      fwd.data_ptr() if fwd is not None else None, m, n,
-                      k_loc, k, ((r + t) % p) * k_loc, int(t == 0),
-                      int(dtype == torch.bfloat16), dev.index,
-                      torch.cuda.current_stream(dev).cuda_stream)
-            _launched(rc, what, "allgather_matmul_rhs")
+            chunk = bs[r] if t == 0 else slots[r][t % 2]
+            fwd = slots[left][(t + 1) % 2] if t < p - 1 else None
+            rc = step(as_[r], chunk, outs[r].data_ptr(), fwd, m, n, k_loc, k,
+                      ((r + t) % p) * k_loc, int(t == 0), codes[r], tile_n,
+                      dev.index, streams[dev])
+            _launched(rc, what, "allgather_matmul_rhs", routes[r])
             done.append(order.mark(dev))
     return outs
 

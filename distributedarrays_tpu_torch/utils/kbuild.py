@@ -12,9 +12,12 @@ Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
 A kernel with several routes also names the route it launched
 (``count(name, route)``), counted apart in ``route_counts()``: the block
-GEMM's ``wgmma``/``mma``/``f32`` and the fused ring attention step's
-compute steps by route (a ring step that only forwards its K/V pair, or
-only starts or finishes the carry, counts as a launch and under no route).
+GEMM's ``wgmma``/``mma``/``f32``, the fused ring attention step's compute
+steps by route (a ring step that only forwards its K/V pair, or only
+starts or finishes the carry, counts as a launch and under no route), and
+every step of the ring all-gather GEMMs by route (``RING_ROUTES``: those
+three and ``wgmma_peer``, wgmma with the chunk forwarded to a slot on
+another card by a copy launch of its own).
 
 ``enable_peer_access(device, peer)`` lets one card read and write another's
 memory (``cudaDeviceEnablePeerAccess``), which the collective kernels need
@@ -34,7 +37,7 @@ from pathlib import Path
 
 __all__ = ["build", "load", "count", "reset_launches", "launch_counts",
            "route_counts", "enable_peer_access", "KERNELS", "ROUTES",
-           "NVCC_FLAGS"]
+           "RING_ROUTES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -59,11 +62,15 @@ KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
 # the routes of the kernels that have several (see count), in the order of
 # their C entries' route codes
 ROUTES = ("f32", "mma", "wgmma")
+# the ring all-gather GEMMs' routes, in the order of their route codes
+RING_ROUTES = ROUTES + ("wgmma_peer",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
 _routes = {k: dict.fromkeys(ROUTES, 0) for k in ("gemm", "ring_attention")}
+_routes.update({k: dict.fromkeys(RING_ROUTES, 0)
+                for k in ("allgather_matmul", "allgather_matmul_rhs")})
 _peers: set[tuple[int, int]] = set()
 build_log: dict[str, str] = {}
 
@@ -91,7 +98,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of each route of the block GEMM and the ring step."""
+    """Launches of each route of the block GEMM, the ring attention step
+    and the ring all-gather GEMMs."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
 
