@@ -55,9 +55,14 @@
    3e-2) and the (4,1) int8 result against the one-rank one bit for bit;
    the run fails if one of the four kernels was not launched.
 6. Attention (the serving path):
-   - the kernels against their plain versions: flash attention (K5) at
-     (2048, 64, 64) bf16 and f32 causal and at a ragged (1000, 16, 64) f32;
-     one ring hop (K8) at (16, 2048, 64) bf16 from a live carry with keys
+   - the kernels against their plain versions: flash attention (K5) on
+     each route, every call's launch on the route
+     ``flash_attention_route`` picks (``kbuild.route_counts()``): bf16 on
+     wgmma + TMA at (2048, 64, 64) causal and not, on the serving forward's
+     fused-QKV (S, B, H, D) views (2048, 4, 16, 64), at head dim 128 and at
+     a ragged S = 1000, bf16 on mma.sync at head dim 36, f32 at (2048, 64,
+     64) causal and a ragged (1000, 16, 64), lse within 1e-5; one ring hop
+     (K8) at (16, 2048, 64) bf16 from a live carry with keys
      fully visible, on the diagonal and fully masked (a bit-exact
      copy-through); the fused ring (K9) at S = 8192, 16 heads of 64, four
      ranks on the card, bf16 causal and not, and f32 causal, a ragged bf16
@@ -73,9 +78,10 @@
      ring with p rounded to bf16, must exceed K9's bf16 tolerance;
    - serving at the full width of ``Config(8192, 1024, 16, 8, 4, 2048,
      bf16)`` on one rank, launch counts set to 0 before and read after:
-     ``forward`` on (4, 2048) tokens must launch K5 once per layer (8), and
-     no K6 or K7, and agree with the same forward on the plain attention (relative error
-     <= 5e-2: the bf16 residual stream is re-rounded after every layer);
+     ``forward`` on (4, 2048) tokens must launch K5 once per layer (8), all
+     on the wgmma route, and no K6 or K7, and agree with the same forward
+     on the plain attention (relative error <= 5e-2: the bf16 residual
+     stream is re-rounded after every layer);
      ``generate`` from an (8, 16) prompt for 240 new tokens (the
      configuration's 2016 cut to 240 for the time limit); in an f32 copy,
      the greedy tokens must equal the argmax of the K5 forward over the
@@ -89,10 +95,13 @@
      padded to 3004 (<= 1e-5).
 7. Training:
    - the kernels against their plain versions: the FlashAttention-2
-     backward, dq (K6) and dk/dv (K7), at (2048, 64, 64) bf16 and f32
-     causal and at a ragged (1000, 16, 64) f32, causal and not; one ring
-     hop's backward at (16, 2048, 64) bf16, visible, diagonal and fully
-     masked (zero contributions, bit-exact); the reduce-scatter (K12) over
+     backward, dq (K6) and dk/dv (K7), every K7 launch on its expected
+     route: bf16 on wgmma + TMA at (2048, 64, 64) causal and not and at a
+     ragged (1000, 16, 64), bf16 on mma.sync at head dim 36, f32 at (2048,
+     64, 64) causal and at a ragged (1000, 16, 64), causal and not; one
+     ring hop's backward at (16, 2048, 64) bf16 with f32 contributions (K7
+     on wgmma), visible, diagonal and fully masked (zero contributions,
+     bit-exact); the reduce-scatter (K12) over
      4 ranks on the card at the trainer's gradient length (119555072 f32)
      and on a (16, 384, 64) bf16 block along dim 1, bit-exact.  Relative
      Frobenius error <= 1e-5 in f32 (summation order), <= 5e-4 in bf16
@@ -105,13 +114,15 @@
      per parameter (<= 5e-2: the bf16 residual stream and its gradient are
      re-rounded after every layer); then five SGD steps (lr 0.3) on the
      fixed batch, launch counts read around each: 8 K5, 8 K6 and 8 K7 a
-     step, and the last loss below the first.  Prints ms per step and
+     step, every K5 and K7 launch on the wgmma route, and the last loss
+     below the first.  Prints ms per step and
      training tokens/s;
    - the data-parallel ``Trainer`` with four ranks on the card on
      ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32):
      three Adam steps, each launching 4 K10, 4 K12 and 32 K5, K6 and K7
-     (8 a rank); two SGD steps on 4 ranks against the same two on one rank
-     (losses to 1e-4, flat parameters <= 1e-5).  Prints ms per step and
+     (8 a rank), every K5 and K7 launch on the f32 route; two SGD steps
+     on 4 ranks against the same two on one rank (losses to 1e-4, flat
+     parameters <= 1e-5).  Prints ms per step and
      the peak device memory;
    - the ring GEMMs against their plain versions with four ranks on the
      card: K13 (4 x (2048, 1024) @ (1024, 1024)), K15 (4 x (8192, 1024) @
@@ -127,8 +138,8 @@
    - sequence-parallel training at the full width of ``SPConfig(8192,
      1024, 16, 8, 4, 8192, bf16)`` with four ranks on the card, tokens (1,
      8192): a gradient step must launch 128 each of K8, K6 and K7 and 256
-     each of K13, K14 and K15 (no K5, no K9), every K13 and K14 launch on
-     the wgmma route, and its loss and gradients
+     each of K13, K14 and K15 (no K5, no K9), every K7, K13 and K14 launch
+     on the wgmma route, and its loss and gradients
      agree with the dense flagship ``transformer.loss_fn`` on one rank (loss
      <= 1e-2, every gradient <= 5e-2, the w1/w2 shards joined); the zigzag
      layout (288 hops of each attention kernel) against the contiguous
@@ -166,6 +177,11 @@ the package under DIR, so an unpacked older commit and this one can be
 timed in turns on one card; ``python3 chip_smoke.py --time-ring-gemms
 [DIR]`` does the same for K13 and K14 (per call, device time, host
 microseconds a launch, and each wgmma tile width).
+
+``python3 chip_smoke.py --time-attn [DIR]`` times K5, K6, K7 and K9 (per
+call and device time), the scaled_dot_product_attention forward and
+backward, ``forward`` and ``train_step`` through the package under DIR,
+for a parent and a change timed in turns on one card.
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -624,6 +640,15 @@ def device_ms(fn, reps: int = 5) -> float:
         / 1e3 / reps
 
 
+def print_ptxas(kbuild, stems) -> None:
+    """The ptxas lines (each kernel, its registers and spills) of the
+    sources just built."""
+    for stem in stems:
+        for line in kbuild.build_log.get(stem, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {stem}: {line.strip()}")
+
+
 def gpu_name() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -749,6 +774,96 @@ def ring_gemm_times(root: str | None = None) -> int:
     return 0
 
 
+def attn_times(root: str | None = None) -> int:
+    """``--time-attn [ROOT]``: time K5, K6, K7 and K9 through the package
+    under ROOT (this checkout's by default), so two trees can be timed in
+    turns in one call on one card: K5 (forward) and K6/K7 (backward) at
+    (2048, 64, 64) bf16 causal, K5 also on the serving forward's fused-QKV
+    views, each per call and in the device time of its launches alone;
+    the scaled_dot_product_attention forward and backward at the same
+    shape; the K9 ring at S = 8192 on 4 ranks; ``forward`` on (4, 2048) and
+    ``train_step`` on (4, 2049) tokens at ``Config(8192, 1024, 16, 8, 4,
+    2048, bf16)`` (host clock around synchronized calls, median of 5).
+    Prints the ptxas register and spill lines of the attention kernels
+    first."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    import torch.nn.functional as F
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    tdat.kbuild.build(["attention", "attention_bwd"])
+    print_ptxas(tdat.kbuild, ("attention", "attention_bwd"))
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    times = {}
+
+    def both(key, fn):
+        times[key] = time_ms(fn)
+        times[key + ", device"] = device_ms(fn)
+
+    S, H, D = 2048, 64, 64
+    q, k, v, g = (randn(S, H, D) for _ in range(4))
+    o, lse = CA.flash_attention_lse(q, k, v, True)
+    dd = (g.float() * o.float()).sum(-1).t().contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    both("K5 (2048, 64, 64) bf16 causal",
+         lambda: CA.flash_attention_lse(q, k, v, True))
+    both("K5 (2048, 64, 64) bf16 non-causal",
+         lambda: CA.flash_attention_lse(q, k, v, False))
+    both("K7 (2048, 64, 64) bf16 causal",
+         lambda: CA._bwd_launch("flash_attention_bwd_dkv", q, k, v, g, lse,
+                                dd, (dk, dv), 0, 0, True, None))
+    both("K6 (2048, 64, 64) bf16 causal",
+         lambda: CA._bwd_launch("flash_attention_bwd_dq", q, k, v, g, lse,
+                                dd, (dq,), 0, 0, True, None))
+    fq, fk, fv = fused_qkv(randn, 2048, 4, 16, 64, torch.bfloat16)
+    both("K5 (2048, 4, 16, 64) bf16 causal, fused-QKV views",
+         lambda: CA.flash_attention_lse(fq, fk, fv, True))
+    qs, ks, vs = (x.transpose(0, 1)[None].detach().clone()
+                  .requires_grad_(True) for x in (q, k, v))
+    times["sdpa forward (2048, 64, 64) bf16 causal"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True))
+    os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    gs = g.transpose(0, 1)[None]
+    times["sdpa backward (2048, 64, 64) bf16 causal"] = time_ms(
+        lambda: torch.autograd.grad(os_, (qs, ks, vs), gs,
+                                    retain_graph=True))
+    del qs, ks, vs, os_, q, k, v, g, o, lse, dd, dq, dk, dv, fq, fk, fv
+    blocks = [[randn(2048, 16, 64) for _ in range(4)] for _ in range(3)]
+    both("K9 ring S=8192 bf16 causal, 4 ranks",
+         lambda: RA.ring_attention_rdma(*blocks, True))
+    del blocks
+    T = tdat.transformer
+    cfg = T.Config(*TRAIN_CFG, torch.bfloat16)
+    model = T.init_params(cfg, torch.Generator(device=dev).manual_seed(3),
+                          dev)
+    tokens = torch.randint(0, cfg.vocab, (4, 2049), generator=gen,
+                           device=dev, dtype=torch.int32)
+    T.forward(model, tokens[:, :-1], cfg)
+    times["forward (4, 2048) ms"] = statistics.median(
+        wall_ms(lambda: T.forward(model, tokens[:, :-1], cfg))
+        for _ in range(5))
+    T.train_step(model, tokens, TRAIN_LR, cfg)
+    times["train_step (4, 2049) ms"] = statistics.median(
+        wall_ms(lambda: T.train_step(model, tokens, TRAIN_LR, cfg))
+        for _ in range(5))
+    print(json.dumps({"attn_times": times, "package": tdat.__file__,
+                      "gpu": smi}))
+    return 0
+
+
 def k1_k9_only() -> int:
     """``--k1-k9``: build the GEMM and attention kernels, check K1 on each
     route and K9 against their plain versions, and time both (a quick
@@ -764,10 +879,7 @@ def k1_k9_only() -> int:
     t0 = time.perf_counter()
     tdat.kbuild.build(["gemm", "attention"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for stem in ("gemm", "attention"):
-        for line in tdat.kbuild.build_log.get(stem, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas {stem}: {line.strip()}")
+    print_ptxas(tdat.kbuild, ("gemm", "attention"))
     tdat.init()
     dev = tdat.device_of(0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -927,24 +1039,80 @@ def ring_kernels(randn, errs) -> None:
     torch.cuda.empty_cache()
 
 
+def on_route(kernel: str, route: str, fn, launches: int = 1):
+    """``fn()``, requiring that it launched ``kernel`` ``launches`` times,
+    all on ``route`` (``kbuild.route_counts()``)."""
+    from distributedarrays_tpu_torch.utils import kbuild
+    before = kbuild.route_counts()[kernel]
+    out = fn()
+    moved = {r: c - before[r]
+             for r, c in kbuild.route_counts()[kernel].items()}
+    if moved != {r: launches * (r == route) for r in moved}:
+        raise AssertionError(f"{kernel}: launches by route {moved}, expected "
+                             f"{launches} on {route}")
+    return out
+
+
+def expect_routes(what: str, kernel: str, want: dict) -> None:
+    """Require the route counts of ``kernel`` since the last reset."""
+    from distributedarrays_tpu_torch.utils import kbuild
+    got = kbuild.route_counts()[kernel]
+    print(f"  {what}: {kernel} routes {got}")
+    if got != {r: want.get(r, 0) for r in got}:
+        raise AssertionError(f"{what}: {kernel} routes {got}, expected "
+                             f"{want}")
+
+
+# K5 against its plain version on each route: (S, B, H, D) (B = 0: (S, H,
+# D) tensors; else the transformer's fused-QKV views), dtype, causal, the
+# route flash_attention_route must pick
+K5_CASES = (
+    ((2048, 0, 64, 64), torch.bfloat16, True, "wgmma"),
+    ((2048, 0, 64, 64), torch.bfloat16, False, "wgmma"),
+    ((2048, 4, 16, 64), torch.bfloat16, True, "wgmma"),   # serving's views
+    ((1024, 0, 16, 128), torch.bfloat16, True, "wgmma"),
+    ((1000, 0, 16, 64), torch.bfloat16, True, "wgmma"),   # ragged S
+    # head dims narrower than TMA's 64-wide box (zero-filled past dh), and
+    # one that reads the second box of DMAX 128 in part
+    ((1024, 0, 16, 8), torch.bfloat16, True, "wgmma"),
+    ((1024, 0, 16, 32), torch.bfloat16, False, "wgmma"),
+    ((1000, 0, 16, 96), torch.bfloat16, True, "wgmma"),
+    ((1000, 0, 16, 36), torch.bfloat16, True, "mma"),     # d TMA cannot read
+    ((2048, 0, 64, 64), torch.float32, True, "f32"),
+    ((1000, 0, 16, 64), torch.float32, False, "f32"))
+
+
+def fused_qkv(randn, S: int, B: int, H: int, D: int, dtype):
+    """q, k, v as the transformer's forward takes them: (S, B, H, D) views
+    of one (B, S, 3 H D) product."""
+    E = H * D
+    qkv = randn(B, S, 3 * E, dtype=dtype)
+    return tuple(t.view(B, S, H, D).transpose(0, 1)
+                 for t in qkv.split(E, dim=-1))
+
+
 def attention_kernels(randn, errs) -> None:
     """Phase 6a: K5, K8 and K9 against their plain versions at the serving
-    and sequence-parallel paths' shapes."""
+    and sequence-parallel paths' shapes, each K5 call on its route."""
     from distributedarrays_tpu_torch.ops import cuda_attention as CA
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     print("phase attention kernels")
-    for (S, H, D), dt, causal, tol in (
-            ((2048, 64, 64), bf16, True, TOL_BF16),
-            ((2048, 64, 64), f32, True, TOL_F32),
-            ((1000, 16, 64), f32, False, TOL_F32)):
-        q, k, v = (randn(S, H, D, dtype=dt) for _ in range(3))
-        o, lse = CA.flash_attention_lse(q, k, v, causal)
+    for (S, B, H, D), dt, causal, route in K5_CASES:
+        if B:
+            q, k, v = fused_qkv(randn, S, B, H, D, dt)
+        else:
+            q, k, v = (randn(S, H, D, dtype=dt) for _ in range(3))
+        o, lse = on_route("flash_attention", route,
+                          lambda: CA.flash_attention_lse(q, k, v, causal))
         po, plse = CA.flash_attention_lse_plain(q, k, v, causal)
         torch.cuda.synchronize()
-        what = f"flash attention ({S}, {H}, {D}) {dt} causal={causal}"
-        check(what, rel_err(o, po), tol)
+        shape = (S, B, H, D) if B else (S, H, D)
+        what = f"flash attention {shape} {dt} causal={causal} ({route})"
+        check(what, rel_err(o.reshape(S, -1, D), po),
+              TOL_F32 if dt == torch.float32 else TOL_BF16)
         check(what + " lse", rel_err(lse, plse), TOL_F32)
-        errs["flash_attention"] = max(errs["flash_attention"], max_abs(o, po))
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      max_abs(o.reshape(S, -1, D), po))
     # one hop at (16, 2048, 64) on rank 2 of 4 (qoff 4096) from a live
     # carry (the keys at 2048): visible, diagonal, fully masked
     H, B, D = 16, 2048, 64
@@ -1005,6 +1173,7 @@ def serving(tdat, dev) -> dict:
                              f"{cfg.layers}")
     if counts["flash_attention_bwd_dq"] or counts["flash_attention_bwd_dkv"]:
         raise AssertionError("serving launched the attention backward")
+    expect_routes("forward", "flash_attention", {"wgmma": cfg.layers})
     if logits.shape != (4, 2048, cfg.vocab) or logits.dtype != torch.float32 \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"forward logits {tuple(logits.shape)} "
@@ -1212,42 +1381,65 @@ def plain_bwd(q, k, v, o, g, lse, causal: bool, rounded: bool = True):
     return tuple(x.transpose(0, 1).reshape(q.shape) for x in grads)
 
 
-def training_kernels(randn, errs) -> None:
-    """Phase 7a: K6, K7 and K12 against their plain versions at the
-    training paths' shapes."""
+# K6 + K7 against the plain backward: (S, B, H, D) as K5_CASES, dtype,
+# causal, K7's route
+K7_CASES = (
+    ((2048, 0, 64, 64), torch.bfloat16, True, "wgmma"),
+    ((2048, 0, 64, 64), torch.bfloat16, False, "wgmma"),
+    ((2048, 4, 16, 64), torch.bfloat16, True, "wgmma"),   # train_step's views
+    ((1024, 0, 16, 128), torch.bfloat16, True, "wgmma"),
+    ((1024, 2, 16, 128), torch.bfloat16, False, "wgmma"),
+    ((1000, 0, 16, 64), torch.bfloat16, True, "wgmma"),   # ragged S
+    ((1024, 0, 16, 8), torch.bfloat16, True, "wgmma"),
+    ((1024, 0, 16, 32), torch.bfloat16, False, "wgmma"),
+    ((1000, 0, 16, 96), torch.bfloat16, True, "wgmma"),
+    ((1000, 0, 16, 36), torch.bfloat16, True, "mma"),     # d TMA cannot read
+    ((2048, 0, 64, 64), torch.float32, True, "f32"),
+    ((1000, 0, 16, 64), torch.float32, True, "f32"),
+    ((1000, 0, 16, 64), torch.float32, False, "f32"))
+
+
+def attention_bwd_kernels(randn, errs) -> None:
+    """K6 and K7 against the plain backward at the training paths' shapes,
+    each K7 call on its route, and one ring hop's backward."""
     from distributedarrays_tpu_torch.ops import cuda_attention as CA
-    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
     bf16, f32 = torch.bfloat16, torch.float32
-    print("phase training kernels")
-    for (S, H, D), dt, causal, tol in (
-            ((2048, 64, 64), bf16, True, TOL_BWD_BF16),
-            ((2048, 64, 64), f32, True, TOL_F32),
-            ((1000, 16, 64), f32, True, TOL_F32),
-            ((1000, 16, 64), f32, False, TOL_F32)):
-        q, k, v, g = (randn(S, H, D, dtype=dt) for _ in range(4))
+    for (S, B, H, D), dt, causal, route in K7_CASES:
+        if B:
+            q, k, v = fused_qkv(randn, S, B, H, D, dt)
+        else:
+            q, k, v = (randn(S, H, D, dtype=dt) for _ in range(3))
         o, lse = CA.flash_attention_lse(q, k, v, causal)
-        got = CA.flash_attention_bwd(q, k, v, o, g, lse, causal)
+        g = torch.empty_like(o).copy_(randn(*o.shape, dtype=dt))
+        got = on_route("flash_attention_bwd_dkv", route,
+                       lambda: CA.flash_attention_bwd(q, k, v, o, g, lse,
+                                                      causal))
         ref = plain_bwd(q, k, v, o, g, lse, causal)
         torch.cuda.synchronize()
+        tol = TOL_F32 if dt == f32 else TOL_BWD_BF16
+        shape = (S, B, H, D) if B else (S, H, D)
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-            check(f"flash backward {name} ({S}, {H}, {D}) {dt} "
-                  f"causal={causal}", rel_err(a, b), tol)
+            check(f"flash backward {name} {shape} {dt} "
+                  f"causal={causal} (K7 {route})", rel_err(a, b), tol)
             kern = "flash_attention_bwd_dq" if name == "dq" else \
                 "flash_attention_bwd_dkv"
             errs[kern] = max(errs[kern], max_abs(a, b))
-        if dt == bf16:
+        if dt == bf16 and (S, B, H) == (2048, 0, 64):
             # the control: without the rounding of p and dS the backward
             # must fail the bf16 tolerance, or the check cannot tell them
             ctl = plain_bwd(q, k, v, o, g, lse, causal, rounded=False)
-            bwd_control("flash backward (2048, 64, 64) bf16", ctl, ref)
-    # one hop's backward at (16, 2048, 64) on rank 2 of 4 (qoff 4096)
+            bwd_control(f"flash backward (2048, 64, 64) bf16 causal={causal}",
+                        ctl, ref)
+    # one hop's backward at (16, 2048, 64) on rank 2 of 4 (qoff 4096), f32
+    # contributions; K7 on the wgmma route over the (B, H, D) views
     H, B, D = 16, 2048, 64
     q, k, v, do = (randn(H, B, D, dtype=bf16) for _ in range(4))
     lse = randn(H, B) + 8.0
     dd = randn(H, B)
     for case, koff in (("visible", 0), ("diagonal", 4096), ("masked", 6144)):
-        got = CA.flash_attention_hop_bwd(q, k, v, do, lse, dd, 4096, koff,
-                                         True)
+        got = on_route("flash_attention_bwd_dkv", "wgmma",
+                       lambda: CA.flash_attention_hop_bwd(
+                           q, k, v, do, lse, dd, 4096, koff, True))
         ref = CA.flash_attention_bwd_plain(q, k, v, do, lse, dd, 4096, koff,
                                            True, None, f32)
         torch.cuda.synchronize()
@@ -1263,6 +1455,17 @@ def training_kernels(randn, errs) -> None:
                     CA.flash_attention_bwd_plain(
                         *(x.float() for x in (q, k, v, do)), lse, dd, 4096,
                         koff, True, None, f32), ref)
+    del q, k, v, do, got, ref
+    torch.cuda.empty_cache()
+
+
+def training_kernels(randn, errs) -> None:
+    """Phase 7a: K6, K7 and K12 against their plain versions at the
+    training paths' shapes."""
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    bf16, f32 = torch.bfloat16, torch.float32
+    print("phase training kernels")
+    attention_bwd_kernels(randn, errs)
     # K12: 4 ranks on the card, the trainer's full gradient length in f32,
     # and a 3-D bf16 case scattered along dim 1
     for shape, dim, dt in (((trainer_params(),), 0, f32),
@@ -1355,6 +1558,8 @@ def training(tdat, dev) -> dict:
                                  f"{want}")
     counts = kbuild.launch_counts()
     print(f"  launches (5 steps) {counts}")
+    for kn in ("flash_attention", "flash_attention_bwd_dkv"):
+        expect_routes("train_step (5 steps)", kn, {"wgmma": 5 * cfg.layers})
     print(f"  losses {losses} (first step's loss {float(loss)})")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
@@ -1420,9 +1625,10 @@ def sp_training(tdat, dev) -> dict:
         torch.cuda.synchronize()
         return out, kbuild.launch_counts()
 
-    def on_wgmma(what):
+    def on_wgmma(what, hops=16):
         """Every K13 and K14 launch since the counts were reset ran on the
-        wgmma route: 32 a layer each."""
+        wgmma route, 32 a layer each, and every K7 launch, ``hops`` a
+        layer."""
         got = {k: kbuild.route_counts()[k]
                for k in ("allgather_matmul", "allgather_matmul_rhs")}
         print(f"  {what} ring GEMM routes {got}")
@@ -1430,6 +1636,7 @@ def sp_training(tdat, dev) -> dict:
                for v in got.values()):
             raise AssertionError(f"{what}: K13/K14 routes {got}, expected "
                                  f"{32 * L} each on wgmma")
+        expect_routes(what, "flash_attention_bwd_dkv", {"wgmma": hops * L})
 
     # one gradient step, against the dense flagship on the same weights
     shards = SP.shard_params(model, ranks)
@@ -1447,6 +1654,8 @@ def sp_training(tdat, dev) -> dict:
     expect_launches("dense flagship gradient step (1 rank)", dcounts,
                     {"flash_attention": L, "flash_attention_bwd_dq": L,
                      "flash_attention_bwd_dkv": L})
+    expect_routes("dense flagship gradient step (1 rank)",
+                  "flash_attention_bwd_dkv", {"wgmma": L})
     dense = dict(zip(names, dgrads))
     del dgrads
     print(f"  loss {float(loss)}, dense flagship {float(dloss)}")
@@ -1463,7 +1672,7 @@ def sp_training(tdat, dev) -> dict:
     (zloss, zgrads), zcounts = counted(
         lambda: SP.make_grad_fn(ranks, zcfg)(zshards, tokens[:, perm]))
     expect_launches("zigzag gradient step", zcounts, sp_step_launches(L, True))
-    on_wgmma("zigzag gradient step")
+    on_wgmma("zigzag gradient step", 36)
     check("zigzag loss vs contiguous",
           abs(float(zloss) - float(loss)) / abs(float(loss)), TOL_SP_LOSS)
     err, name = worst_grad(SP.unshard(zgrads, zcfg), full)
@@ -1563,6 +1772,8 @@ def trainer_phase(tdat) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  adam losses {losses}, launches (3 steps) {counts}, peak "
           f"{peak:.2f} GiB")
+    for kn in ("flash_attention", "flash_attention_bwd_dkv"):
+        expect_routes("trainer (3 steps)", kn, {"f32": 3 * 4 * per_rank})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite trainer losses {losses}")
     runs = {}
@@ -2191,7 +2402,8 @@ def device_breakdown(prof, wall_ms: float, prof_ms: float, what: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     kinds = {"flash attention forward (K5, K8 hops)": ("flash_kernel",
-                                                       "flash_mma_kernel"),
+                                                       "flash_mma_kernel",
+                                                       "flash_wgmma_kernel"),
              "attention backward (K6, K7)": ("bwd_dq", "bwd_dkv"),
              "all-gather / reduce-scatter (K10, K12)": (
                  "copy_boxes", "reduce_run", "reduce_pieces"),
@@ -2279,6 +2491,8 @@ if __name__ == "__main__":
              else profile_training() if sys.argv[1:] == ["--profile"]
              else ring_gemms_only() if sys.argv[1:] == ["--ring-gemms"]
              else k1_k9_only() if sys.argv[1:] == ["--k1-k9"]
+             else attn_times(*sys.argv[2:3])
+             if sys.argv[1:2] == ["--time-attn"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

@@ -1,20 +1,28 @@
-// Attention kernels for Hopper (sm_90a), all three on the online-softmax
-// tile loop of attn_tile.cuh.
+// Attention kernels for Hopper (sm_90a): bf16 on the wgmma + TMA loop of
+// attn_sm90.cuh where TMA can read the operands, other bf16 and f32 on the
+// tile loops of attn_tile.cuh.
 //
 // - K5 `da_flash_attention` replaces distributedarrays_tpu/ops/
 //   pallas_attention.py `_kernel` (pallas_call in `_build`): exact
 //   attention over (S, H, D) without the S x S score matrix, writing o and
 //   the per-row logsumexp (H, S) f32.  The Pallas grid (heads, S/bq, S/bk)
 //   carries (m, l, acc) across its sequential K axis in VMEM; here one
-//   block owns 64 query rows of one head and loops over the keys itself.
-//   Causal grids are walked heaviest query tile first, so the long rows do
-//   not start last.  Ragged S is masked in the kernel (the Pallas kernel
-//   needs S to divide its blocks).
+//   block owns 64 query rows of one head (128 on the wgmma route, 64 for
+//   each of its two consumer warpgroups) and loops over the keys itself,
+//   stopping at its last visible key tile.  Causal grids are walked
+//   heaviest query tile first, so the long rows do not start last.  Ragged
+//   S is masked in the kernel (the Pallas kernel needs S to divide its
+//   blocks).  Three routes, chosen by the caller (`route`): bf16 whose q,
+//   k, v and o views TMA can read (head dim a multiple of 8, strides
+//   multiples of 16 bytes, 16-byte aligned bases) on wgmma + TMA
+//   (attn_sm90.cuh `attend_wgmma` in its FLASH numerics, each of q, k and v
+//   mapped from its own strides), other bf16 on mma.sync (attn_tile.cuh
+//   `attend_mma`), f32 on the SIMT loop.
 // - K8 `da_flash_hop` replaces `_carry_kernel` (pallas_call in
-//   `_build_carry`): the same loop, with (m, l, acc) read at the start and
-//   written at the end, in place (each block reads and writes only its own
-//   rows).  The global offsets qoff/koff enter the causal test and the
-//   skip, so a hop whose keys all lie after its queries copies the carry
+//   `_build_carry`): the attn_tile.cuh loops, with (m, l, acc) read at the
+//   start and written at the end, in place (each block reads and writes only
+//   its own rows).  The global offsets qoff/koff enter the causal test and
+//   the skip, so a hop whose keys all lie after its queries copies the carry
 //   through.
 // - K9 `da_ring_attn_step` replaces distributedarrays_tpu/models/
 //   ring_attention.py `_rdma_attn_call` (its pallas_call): one launch per
@@ -32,10 +40,10 @@
 //   the other causal steps each query tile stops at its last visible key
 //   tile.  Both skips are exact: a wholly masked tile leaves m, l and acc
 //   bit for bit as they were.  Steps are ordered by stream order on one
-//   card and by event waits across cards; no flag is spun on.  Three
-//   routes, chosen by the caller (`route`): bf16 with dh a multiple of 8
-//   and 16-byte aligned q/k/v on wgmma + TMA (attn_sm90.cuh), other bf16
-//   on mma.sync (attn_tile.cuh `attend_mma`), f32 on the SIMT loop.
+//   card and by event waits across cards; no flag is spun on.  Routes as
+//   K5's: bf16 with dh a multiple of 8 and 16-byte aligned q/k/v on wgmma
+//   + TMA (`attend_wgmma` in its RING numerics), other bf16 on mma.sync,
+//   f32 on the SIMT loop.
 //
 // Bound on an H100: operations on each visible (query, key) pair.  In bf16
 // all three take their products on the tensor cores at 989 TFLOP/s:
@@ -44,9 +52,9 @@
 // the result is K9's f32 one, at 8*D a pair (one QK^T and three PV
 // products a tile).  In f32 all three run the SIMT loop on the f32 FMA
 // pipes (attend), 4*D a pair at 67 TFLOP/s, since TF32 tensor cores would
-// round the products.  K5/K8 in bf16 stage K and V through a two-stage
-// cp.async pipeline on mma.sync; K9 in bf16 streams them by TMA into
-// wgmma.
+// round the products.  K8 in bf16 stages K and V through a two-stage
+// cp.async pipeline on mma.sync; K5 and K9 in bf16 stream them by TMA into
+// wgmma, so no thread spends instructions on the copies.
 
 #include "attn_sm90.cuh"
 #include "attn_tile.cuh"
@@ -152,11 +160,11 @@ ring_step_kernel(const Args a, const float* __restrict__ kc,
 // products of the others.  At DMAX 128 (o and P V alone take 128
 // registers a thread) it keeps one.
 template <int DMAX>
-__global__ void __launch_bounds__(da_sm90::RA_THREADS, DMAX > 64 ? 1 : 3)
+__global__ void __launch_bounds__(128 + 32, DMAX > 64 ? 1 : 3)
 ring_step_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const da_sm90::RingArgs a,
+                       const da_sm90::AttnArgs a,
                        const __nv_bfloat16* __restrict__ kc,
                        const __nv_bfloat16* __restrict__ vc,
                        __nv_bfloat16* __restrict__ fk,
@@ -164,13 +172,37 @@ ring_step_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        int ncopy) {
   extern __shared__ uint8_t smem_b[];
   if ((int)blockIdx.x < ncopy) {
-    forward_pair<__nv_bfloat16, da_sm90::RA_THREADS>(kc, vc, fk, fv, count,
-                                                     ncopy);
+    forward_pair<__nv_bfloat16, 128 + 32>(kc, vc, fk, fv, count, ncopy);
     return;
   }
   const int b = blockIdx.x - ncopy;
-  da_sm90::ring_attend_wgmma<DMAX>(&tq, &tk, &tv, a, b % a.h, b / a.h,
-                                   smem_b);
+  da_sm90::attend_wgmma<DMAX, false, 1>(&tq, &tk, &tv, a, b % a.h, b / a.h,
+                                        smem_b);
+}
+
+// K5 in bf16 on wgmma + TMA: two consumer warpgroups of 64 query rows a
+// block, sharing every K/V stage, so that one's softmax overlaps the
+// other's products; heaviest query tiles first.  Two warpgroups (96
+// registers at DMAX 64, two blocks an SM) read 0.131 ms at (2048, 64, 64)
+// bf16 causal against 0.145 ms for one (108 registers, three blocks an SM,
+// K9's layout), in turns in one call (H100 80GB HBM3, 700 W, chip_smoke.py
+// --time-attn).
+constexpr int K5_GROUPS = 2;
+
+template <int DMAX>
+__global__ void __launch_bounds__(128 * K5_GROUPS + 32, DMAX > 64 ? 1 : 2)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const da_sm90::AttnArgs a) {
+  extern __shared__ uint8_t smem_b[];
+  const int rows = K5_GROUPS * da_sm90::AW_ROWS;
+  const int nq = (a.b + rows - 1) / rows;
+  const int n = blockIdx.x % a.h;
+  int qt = blockIdx.x / a.h;
+  if (a.causal) qt = nq - 1 - qt;  // heaviest query tiles first
+  da_sm90::attend_wgmma<DMAX, true, K5_GROUPS>(&tq, &tk, &tv, a, n, qt,
+                                               smem_b);
 }
 
 // K9 at a step with nothing to accumulate: only the forward blocks
@@ -243,19 +275,19 @@ template <int DMAX>
 int launch_ring_wgmma(const Args& a, const void* q, const void* kc,
                       const void* vc, void* fk, void* fv, int ncopy,
                       cudaStream_t s) {
-  CUtensorMap tq, tk, tv;
-  int rc = da_sm90::ring_map(&tq, q, a.sq, a.hall, a.d);
-  if (!rc) rc = da_sm90::ring_map(&tk, kc, a.sq, a.hall, a.d);
-  if (!rc) rc = da_sm90::ring_map(&tv, vc, a.sq, a.hall, a.d);
-  if (rc) return rc;
-  da_sm90::RingArgs r;
+  da_sm90::AttnArgs r;
   r.m = a.m;
   r.l = a.l;
   r.acc = a.acc;
   r.o = static_cast<__nv_bfloat16*>(a.o.p);
+  r.oss = (int64_t)a.hall * a.d;
+  r.osb = 0;
+  r.osh = a.d;
+  r.lse = nullptr;
   r.b = a.sq;
   r.h = a.hall;
   r.dh = a.d;
+  r.nh = a.hall;
   r.sk = a.sk;
   r.qoff = a.qoff;
   r.koff = a.koff;
@@ -263,19 +295,70 @@ int launch_ring_wgmma(const Args& a, const void* q, const void* kc,
   r.init = a.init;
   r.finalize = a.finalize;
   r.scale = a.scale;
-  const size_t sm = da_sm90::ra_smem_bytes<DMAX>();
+  CUtensorMap tq, tk, tv;
+  const int64_t hd = (int64_t)a.hall * a.d;
+  int rc = da_sm90::view_map(&tq, &r.qpos, q, a.sq, a.hall, hd, 0, a.d,
+                             a.hall, a.d);
+  if (!rc)
+    rc = da_sm90::view_map(&tk, &r.kpos, kc, a.sq, a.hall, hd, 0, a.d, a.hall,
+                           a.d);
+  if (!rc)
+    rc = da_sm90::view_map(&tv, &r.vpos, vc, a.sq, a.hall, hd, 0, a.d, a.hall,
+                           a.d);
+  if (rc) return rc;
+  const size_t sm = da_sm90::aw_smem_bytes<DMAX, 1>();
   cudaError_t err = cudaFuncSetAttribute(
       ring_step_wgmma_kernel<DMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
   if (err != cudaSuccess) return (int)err;
   using bf = __nv_bfloat16;
-  const int nq = (a.sq + da_sm90::RA_BQ - 1) / da_sm90::RA_BQ;
+  const int nq = (a.sq + da_sm90::AW_ROWS - 1) / da_sm90::AW_ROWS;
   const int64_t count = (int64_t)a.sq * a.hall * a.d;  // the b rows
   ring_step_wgmma_kernel<DMAX>
-      <<<ncopy + nq * a.hall, da_sm90::RA_THREADS, sm, s>>>(
+      <<<ncopy + nq * a.hall, 128 + 32, sm, s>>>(
           tq, tk, tv, r, static_cast<const bf*>(kc),
           static_cast<const bf*>(vc), static_cast<bf*>(fk),
           static_cast<bf*>(fv), count, ncopy);
+  return (int)cudaGetLastError();
+}
+
+// K5 on wgmma + TMA over the strided views of `a`
+template <int DMAX>
+int launch_flash_wgmma(const Args& a, cudaStream_t s) {
+  da_sm90::AttnArgs r;
+  r.m = r.l = r.acc = nullptr;
+  r.o = static_cast<__nv_bfloat16*>(a.o.p);
+  r.oss = a.o.ss;
+  r.osb = a.o.sb;
+  r.osh = a.o.sh;
+  r.lse = a.lse;
+  r.b = a.sq;
+  r.h = a.hall;
+  r.dh = a.d;
+  r.nh = a.q.nh;
+  r.sk = a.sk;
+  r.qoff = r.koff = 0;
+  r.causal = a.causal;
+  r.init = r.finalize = 1;
+  r.scale = a.scale;
+  CUtensorMap tm[3];
+  const da_attn::View<const void>* v[3] = {&a.q, &a.k, &a.v};
+  uint32_t* pos[3] = {&r.qpos, &r.kpos, &r.vpos};
+  for (int i = 0; i < 3; ++i) {
+    const int rc = da_sm90::view_map(&tm[i], pos[i], v[i]->p, i ? a.sk : a.sq,
+                                     a.hall, v[i]->ss, v[i]->sb, v[i]->sh,
+                                     v[i]->nh, a.d);
+    if (rc) return rc;
+  }
+  const size_t sm = da_sm90::aw_smem_bytes<DMAX, K5_GROUPS>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = K5_GROUPS * da_sm90::AW_ROWS;
+  const int nq = (a.sq + rows - 1) / rows;
+  flash_wgmma_kernel<DMAX><<<nq * a.hall, 128 * K5_GROUPS + 32, sm, s>>>(
+      tm[0], tm[1], tm[2], r);
   return (int)cudaGetLastError();
 }
 
@@ -320,32 +403,45 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
   return a;
 }
 
-int flash(const Args& a, int bf16, int device, void* stream) {
+// route: 0 = f32 (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA
+int flash(const Args& a, int route, int device, void* stream) {
   if (a.sq <= 0 || a.hall <= 0) return 0;
-  if (a.d <= 0 || a.d > 128) return (int)cudaErrorInvalidValue;
+  if (a.d <= 0 || a.d > 128 || route < 0 || route > 2)
+    return (int)cudaErrorInvalidValue;
+  if (route == 2 && !da_sm90::views_tma_ok(a.hall, a.d, a.q.nh, a.q, a.k, a.v,
+                                            a.o))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return a.d <= 64 ? launch_flash_mma<64>(a, s) : launch_flash_mma<128>(a, s);
-  return a.d <= 64 ? launch_flash<64>(a, s) : launch_flash<128>(a, s);
+  switch (route) {
+    case 2:
+      return a.d <= 64 ? launch_flash_wgmma<64>(a, s)
+                       : launch_flash_wgmma<128>(a, s);
+    case 1:
+      return a.d <= 64 ? launch_flash_mma<64>(a, s) : launch_flash_mma<128>(a, s);
+    default:
+      return a.d <= 64 ? launch_flash<64>(a, s) : launch_flash<128>(a, s);
+  }
 }
 
 }  // namespace
 
 // K5: o and lse of attention over q (sq rows), k and v (sk rows), hall
-// heads of dim d, laid out as `meta` says; f32 or (bf16 != 0) bf16
-// operands, o in the operand type, lse (hall, sq) f32 or null.  Returns
-// the cudaGetLastError() code of the launch.
+// heads of dim d, laid out as `meta` says; o in the operand type, lse
+// (hall, sq) f32 (null only off the wgmma route).  route: 0 = f32 (SIMT),
+// 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA, refused
+// (cudaErrorInvalidValue) unless every view is one TMA can read.  Returns the cudaGetLastError() code of the
+// launch, or 1000 + the CUresult when a TMA tensor map cannot be encoded.
 extern "C" int da_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, void* lse, const long long* meta,
                                   int sq, int sk, int d, int hall, int causal,
-                                  float scale, int bf16, int device,
+                                  float scale, int route, int device,
                                   void* stream) {
   Args a = make_args(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr,
                      nullptr, meta, sq, sk, d, hall, 0, 0, causal, 1, 1,
                      scale);
-  return flash(a, bf16, device, stream);
+  return flash(a, route, device, stream);
 }
 
 // K8: one hop.  The carry m, l (hall, sq) and acc (hall, sq, d) f32 is
@@ -360,7 +456,7 @@ extern "C" int da_flash_hop(const void* q, const void* k, const void* v,
   Args a = make_args(q, k, v, nullptr, nullptr, static_cast<float*>(m),
                      static_cast<float*>(l), static_cast<float*>(acc), meta,
                      sq, sk, d, hall, qoff, koff, causal, 0, 0, scale);
-  return flash(a, bf16, device, stream);
+  return flash(a, bf16 ? 1 : 0, device, stream);
 }
 
 // K9: step `first`..`last` of the ring for one rank.  q (b, h, dh) and the

@@ -11,7 +11,11 @@
 //   atomics are needed.
 // - K7 `da_flash_bwd_dkv` replaces `_bwd_dkv_kernel` (the dk/dv
 //   pallas_call): one block per (head, 64-key tile) loops over the query
-//   tiles from its causal start and accumulates dk and dv in f32.
+//   tiles from its causal start and accumulates dk and dv in f32.  Three
+//   routes, chosen by the caller (`route`): bf16 whose views TMA can read
+//   (head dim a multiple of 8, strides multiples of 16 bytes, 16-byte
+//   aligned bases) on wgmma + TMA (attn_bwd_sm90.cuh `dkv_wgmma`), other
+//   bf16 on mma.sync, f32 on the SIMT loop.
 //
 // Numerics are the TPU kernels': s = q.k as f32 sums of products of the
 // input values, times the scale, then masked; p = exp(s - lse), 0 where
@@ -32,8 +36,13 @@
 // neighbouring 8-column tiles are the A fragment of P or dS for a 16-wide
 // chunk, rounded to bf16 in registers, and the B fragments of K (for dq),
 // dO and Q (for dv, dk) come transposed out of ldmatrix.trans; the tiles
-// stream through a two-stage cp.async pipeline.  No TMA or wgmma yet.
+// stream through a two-stage cp.async pipeline.  On that route each of
+// K7's 4 warps reads the whole Q and dO tile from shared memory for its S^T
+// and dP^T fragments and issues two ldmatrix.trans per (16-query chunk,
+// 8-column tile), 16 KB and 64 ldmatrix a warp a tile; K7's wgmma route
+// feeds the tensor cores straight from the TMA-written tiles instead.
 
+#include "attn_bwd_sm90.cuh"
 #include "attn_tile.cuh"
 
 namespace {
@@ -626,6 +635,65 @@ int launch_dkv(const BwdArgs& a, int bf16, cudaStream_t s) {
                 dkv_smem_bytes(a.d), a, s);
 }
 
+// K7 in bf16 on wgmma + TMA: one consumer warpgroup of 64 keys a block,
+// the earliest (heaviest causal) key tiles first, held to two blocks an SM
+// at DMAX 64 (dk, dv, S^T and dP^T take 128 of a thread's registers).
+template <int DMAX>
+__global__ void __launch_bounds__(da_sm90::BW_THREADS, DMAX > 64 ? 1 : 2)
+bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const da_sm90::DkvArgs a) {
+  extern __shared__ uint8_t smem_b[];
+  da_sm90::dkv_wgmma<DMAX>(&tq, &tk, &tv, &tdo, a, blockIdx.x % a.h,
+                           blockIdx.x / a.h, smem_b);
+}
+
+template <int DMAX>
+int launch_dkv_wgmma(const BwdArgs& a, cudaStream_t s) {
+  da_sm90::DkvArgs r;
+  r.lse = a.lse;
+  r.dd = a.dd;
+  r.dk = a.dk.p;
+  r.dv = a.dv.p;
+  r.kss = a.dk.ss;
+  r.ksb = a.dk.sb;
+  r.ksh = a.dk.sh;
+  r.vss = a.dv.ss;
+  r.vsb = a.dv.sb;
+  r.vsh = a.dv.sh;
+  r.sq = a.sq;
+  r.sk = a.sk;
+  r.h = a.hall;
+  r.dh = a.d;
+  r.nh = a.q.nh;
+  r.qoff = a.qoff;
+  r.koff = a.koff;
+  r.causal = a.causal;
+  r.out_f32 = a.out_f32;
+  r.scale = a.scale;
+  CUtensorMap tm[4];
+  const View<const void>* v[4] = {&a.q, &a.k, &a.v, &a.dout};
+  uint32_t* pos[4] = {&r.qpos, &r.kpos, &r.vpos, &r.opos};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i == 1 || i == 2 ? a.sk : a.sq;
+    const int rc = da_sm90::view_map(&tm[i], pos[i], v[i]->p, rows, a.hall,
+                                     v[i]->ss, v[i]->sb, v[i]->sh, v[i]->nh,
+                                     a.d);
+    if (rc) return rc;
+  }
+  const size_t sm = da_sm90::bw_smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkv_wgmma_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.sk + da_sm90::BW_KEYS - 1) / da_sm90::BW_KEYS * a.hall;
+  bwd_dkv_wgmma_kernel<DMAX><<<blocks, da_sm90::BW_THREADS, sm, s>>>(
+      tm[0], tm[1], tm[2], tm[3], r);
+  return (int)cudaGetLastError();
+}
+
 // meta: for q, k, v, do, dq, dk, dv in turn the row stride, the two head
 // strides (nb and nh parts) and nh, all in elements.
 BwdArgs make_args(const void* q, const void* k, const void* v,
@@ -687,19 +755,29 @@ extern "C" int da_flash_bwd_dq(const void* q, const void* k, const void* v,
   return d <= 64 ? launch_dq<64>(a, bf16, s) : launch_dq<128>(a, bf16, s);
 }
 
-// K7: dk and dv (sk rows); arguments as K6's.
+// K7: dk and dv (sk rows); arguments as K6's, but for the route: 0 = f32
+// (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA, refused
+// (cudaErrorInvalidValue) unless every view is one TMA can read.  Returns the cudaGetLastError() code of
+// the launch, or 1000 + the CUresult when a TMA tensor map cannot be
+// encoded.
 extern "C" int da_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* dd, void* dk, void* dv,
                                 const long long* meta, int sq, int sk, int d,
                                 int hall, long long qoff, long long koff,
-                                int causal, float scale, int bf16, int out_f32,
-                                int device, void* stream) {
+                                int causal, float scale, int route,
+                                int out_f32, int device, void* stream) {
   if (sk <= 0 || hall <= 0) return 0;
   BwdArgs a = make_args(q, k, v, dout, lse, dd, nullptr, dk, dv, meta, sq, sk,
                         d, hall, qoff, koff, causal, scale, out_f32);
+  if (route < 0 || route > 2 ||
+      (route == 2 && !da_sm90::views_tma_ok(a.hall, d, a.q.nh, a.q, a.k, a.v,
+                                            a.dout, a.dk, a.dv)))
+    return (int)cudaErrorInvalidValue;
   const int rc = prepare(a, device);
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d <= 64 ? launch_dkv<64>(a, bf16, s) : launch_dkv<128>(a, bf16, s);
+  if (route == 2)
+    return d <= 64 ? launch_dkv_wgmma<64>(a, s) : launch_dkv_wgmma<128>(a, s);
+  return d <= 64 ? launch_dkv<64>(a, route, s) : launch_dkv<128>(a, route, s);
 }

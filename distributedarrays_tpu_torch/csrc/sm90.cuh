@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA loops of
-// gemm_sm90.cuh (the block GEMM K1 and the ring all-gather GEMMs K13, K14)
-// and attn_sm90.cuh (the fused ring attention step, K9): mbarriers, TMA
+// gemm_sm90.cuh (the block GEMM K1 and the ring all-gather GEMMs K13, K14),
+// attn_sm90.cuh (flash attention K5 and the fused ring attention step K9)
+// and attn_bwd_sm90.cuh (the dk/dv backward K7): mbarriers, TMA
 // tile loads and stores, shared-memory matrix descriptors for 128-byte
 // swizzled tiles, the wgmma instructions the loops issue, and the
 // host-side encoding of TMA tensor maps.
@@ -108,6 +109,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

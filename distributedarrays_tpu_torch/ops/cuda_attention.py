@@ -48,13 +48,23 @@ block-shape rule; here they are (H, B) and (H, S)); and the autotune
 lookups ``tuned_flash_config`` / ``tuned_hop_blocks_for``, which
 only choose those knobs.
 
+K5 and K7 launch on the route ``flash_attention_route`` picks from the
+operands: ``"wgmma"`` (bf16 views that TMA can read: wgmma fed by TMA,
+``csrc/attn_sm90.cuh`` and ``csrc/attn_bwd_sm90.cuh``), ``"mma"`` (other
+bf16: mma.sync) or ``"f32"`` (the SIMT loops); each launch also counts under
+its route (``kbuild.route_counts()["flash_attention" |
+"flash_attention_bwd_dkv"]``).  The C entries refuse a wgmma route whose
+operands TMA cannot read, and the wrapper raises: nothing falls back.  K6
+and K8 keep mma.sync in bf16.
+
 ``ring_attn_step`` launches K9 (``da_ring_attn_step``), the fused ring
 attention step that ``models/ring_attention.ring_attention_rdma`` drives,
 on the route ``ring_attn_route`` picks: ``"wgmma"`` (bf16, head dim a
-multiple of 8, 16-byte aligned q/k/v: wgmma fed by TMA), ``"mma"`` (other
-bf16: mma.sync) or ``"f32"`` (the SIMT loop).  Each step counts one
-``ring_attention`` launch, and a step that accumulates also counts under
-its route (``kbuild.route_counts()["ring_attention"]``).
+multiple of 8, 16-byte aligned q/k/v: wgmma fed by TMA, on K5's loop in
+K9's numerics), ``"mma"`` (other bf16: mma.sync) or ``"f32"`` (the SIMT
+loop).  Each step counts one ``ring_attention`` launch, and a step that
+accumulates also counts under its route
+(``kbuild.route_counts()["ring_attention"]``).
 """
 
 from __future__ import annotations
@@ -72,7 +82,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_lse_plain", "flash_attention_bwd_plain",
            "flash_attention_hop_plain", "flash_carry_init",
            "flash_carry_finalize", "flash_block_size", "ring_attn_step",
-           "ring_attn_route", "MAX_HEAD_DIM"]
+           "ring_attn_route", "flash_attention_route", "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128            # the kernels' register tiles (attention.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -275,6 +285,30 @@ def _launched(rc: int, what: str, kernel: str, route=None) -> None:
     kbuild.count(kernel, route)
 
 
+def flash_attention_route(dtype: torch.dtype, d: int, *views) -> str:
+    """K5's and K7's route for operands of ``dtype`` with head dim ``d``
+    whose tensors (strided views, the head dim contiguous) are ``views``:
+    ``"wgmma"`` when TMA can read them all (bf16, d a multiple of 8 up to
+    ``MAX_HEAD_DIM``, the row stride and the stride of every head dim
+    longer than 1 positive and a multiple of 16 bytes, every base 16-byte
+    aligned), ``"mma"`` for other bf16, ``"f32"`` for float32."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"the flash attention kernels take float32 or "
+                        f"bfloat16, got {dtype}")
+    if d % 8 or d > MAX_HEAD_DIM:
+        return "mma"
+    for x in views:
+        es = x.element_size()
+        if x.data_ptr() % 16 or any(
+                (i == 0 or n > 1) and (st <= 0 or st * es % 16)
+                for i, (n, st) in enumerate(zip(x.shape[:-1],
+                                                x.stride()[:-1]))):
+            return "mma"
+    return "wgmma"
+
+
 # ---------------------------------------------------------------------------
 # K5: flash attention
 # ---------------------------------------------------------------------------
@@ -303,12 +337,14 @@ def _flash_forward(q, k, v, causal, scale):
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((hall, S), dtype=torch.float32, device=q.device)
     if q.numel():
+        route = flash_attention_route(q.dtype, D, q, k, v, o)
         rc = _fn("da_flash_attention", "flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), _meta(q, k, v, o), S, S, D, hall, int(causal),
-            _scale(D, scale), int(q.dtype == torch.bfloat16),
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-        _launched(rc, "flash attention", "flash_attention")
+            _scale(D, scale), kbuild.ROUTES.index(route), q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _launched(rc, f"flash attention ({route} route)", "flash_attention",
+                  route)
     return o, lse
 
 
@@ -378,15 +414,21 @@ def _bwd_launch(kernel: str, q, k, v, do, lse, dd, outs, qoff, koff,
         return
     views = (q, k, v, do) + ((outs[0], outs[0], outs[0]) if len(outs) == 1
                              else (outs[0], outs[0], outs[1]))
-    fn = "da_flash_bwd_dq" if kernel.endswith("dq") else "da_flash_bwd_dkv"
+    if kernel.endswith("dq"):   # K6: mma.sync in bf16
+        fn, route = "da_flash_bwd_dq", None
+        mode = int(q.dtype == torch.bfloat16)
+    else:                       # K7: by route
+        fn = "da_flash_bwd_dkv"
+        route = flash_attention_route(q.dtype, D, q, k, v, do, *outs)
+        mode = kbuild.ROUTES.index(route)
+        what = f"{what} dk/dv ({route} route)"
     rc = _fn(fn, kernel)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dd.data_ptr(), *(o.data_ptr() for o in outs),
         _meta(*views), S, S, D, hall, int(qoff), int(koff), int(causal),
-        _scale(D, scale), int(q.dtype == torch.bfloat16),
-        int(outs[0].dtype == torch.float32), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _launched(rc, what, kernel)
+        _scale(D, scale), mode, int(outs[0].dtype == torch.float32),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(rc, what, kernel, route)
 
 
 def _bwd_kernels(q, k, v, do, lse, dd, dq, dk, dv, qoff, koff, causal,

@@ -12,7 +12,8 @@ Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
 A kernel with several routes also names the route it launched
 (``count(name, route)``), counted apart in ``route_counts()``: the block
-GEMM's ``wgmma``/``mma``/``f32``, the fused ring attention step's compute
+GEMM's, flash attention's (K5) and the dk/dv backward's (K7)
+``wgmma``/``mma``/``f32``, the fused ring attention step's compute
 steps by route (a ring step that only forwards its K/V pair, or only
 starts or finishes the carry, counts as a launch and under no route), and
 every step of the ring all-gather GEMMs by route (``RING_ROUTES``: those
@@ -68,7 +69,9 @@ RING_ROUTES = ROUTES + ("wgmma_peer",)
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
-_routes = {k: dict.fromkeys(ROUTES, 0) for k in ("gemm", "ring_attention")}
+_routes = {k: dict.fromkeys(ROUTES, 0)
+           for k in ("gemm", "ring_attention", "flash_attention",
+                     "flash_attention_bwd_dkv")}
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs")})
 _peers: set[tuple[int, int]] = set()
@@ -98,8 +101,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of each route of the block GEMM, the ring attention step
-    and the ring all-gather GEMMs."""
+    """Launches of each route of the block GEMM, flash attention, the dk/dv
+    backward, the ring attention step and the ring all-gather GEMMs."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
 
