@@ -95,13 +95,15 @@
      padded to 3004 (<= 1e-5).
 7. Training:
    - the kernels against their plain versions: the FlashAttention-2
-     backward, dq (K6) and dk/dv (K7), every K7 launch on its expected
-     route: bf16 on wgmma + TMA at (2048, 64, 64) causal and not and at a
-     ragged (1000, 16, 64), bf16 on mma.sync at head dim 36, f32 at (2048,
-     64, 64) causal and at a ragged (1000, 16, 64), causal and not; one
-     ring hop's backward at (16, 2048, 64) bf16 with f32 contributions (K7
-     on wgmma), visible, diagonal and fully masked (zero contributions,
-     bit-exact); the reduce-scatter (K12) over
+     backward, dq (K6) and dk/dv (K7), every K6 and K7 launch on its
+     expected route: bf16 on wgmma + TMA at (2048, 64, 64) causal and not,
+     on ``train_step``'s fused-QKV views (2048, 4, 16, 64), at head dims 8,
+     32, 96 and 128 and at a ragged (1000, 16, 64), bf16 on mma.sync at
+     head dim 36, f32 at (2048, 64, 64) causal and at a ragged (1000, 16,
+     64), causal and not; one ring hop's backward at (16, 2048, 64) bf16
+     with f32 contributions (K6 and K7 on wgmma), visible, diagonal and
+     fully masked (zero contributions, bit-exact); the reduce-scatter (K12)
+     over
      4 ranks on the card at the trainer's gradient length (119555072 f32)
      and on a (16, 384, 64) bf16 block along dim 1, bit-exact.  Relative
      Frobenius error <= 1e-5 in f32 (summation order), <= 5e-4 in bf16
@@ -114,13 +116,13 @@
      per parameter (<= 5e-2: the bf16 residual stream and its gradient are
      re-rounded after every layer); then five SGD steps (lr 0.3) on the
      fixed batch, launch counts read around each: 8 K5, 8 K6 and 8 K7 a
-     step, every K5 and K7 launch on the wgmma route, and the last loss
+     step, every K5, K6 and K7 launch on the wgmma route, and the last loss
      below the first.  Prints ms per step and
      training tokens/s;
    - the data-parallel ``Trainer`` with four ranks on the card on
      ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32):
      three Adam steps, each launching 4 K10, 4 K12 and 32 K5, K6 and K7
-     (8 a rank), every K5 and K7 launch on the f32 route; two SGD steps
+     (8 a rank), every K5, K6 and K7 launch on the f32 route; two SGD steps
      on 4 ranks against the same two on one rank (losses to 1e-4, flat
      parameters <= 1e-5).  Prints ms per step and
      the peak device memory;
@@ -130,16 +132,17 @@
      with (2048, 1024) chunks), in bf16 (relative Frobenius error <= 5e-4,
      held against a control, the plain ring with f32 products and sums,
      that must read above it) and f32 (<= 1e-5), and at ragged f32 shapes
-     (m_loc 1000, k 768, n 300); K13 and K14 also in bf16 at a ragged
-     shape TMA can read (m_loc 1000, k 776, n 296) and one it cannot (k
-     777, n 300), each call's 16 launches on its expected route
-     (``kbuild.route_counts()``: wgmma, mma or f32), the sequence-parallel
-     bf16 shapes with each wgmma tile width;
+     (m_loc 1000, k 768, n 300; K15 also at k 770, n 302, which its 16-byte
+     copies cannot take); in bf16 also at a ragged shape TMA can read (m_loc
+     1000, k 776, n 296; K15 n 1496) and one it cannot (k 777, n 300), each
+     call's 16 launches on its expected route (``kbuild.route_counts()``:
+     wgmma, mma or f32), the sequence-parallel bf16 shapes with each wgmma
+     tile width;
    - sequence-parallel training at the full width of ``SPConfig(8192,
      1024, 16, 8, 4, 8192, bf16)`` with four ranks on the card, tokens (1,
      8192): a gradient step must launch 128 each of K8, K6 and K7 and 256
-     each of K13, K14 and K15 (no K5, no K9), every K7, K13 and K14 launch
-     on the wgmma route, and its loss and gradients
+     each of K13, K14 and K15 (no K5, no K9), every K6, K7, K13, K14 and
+     K15 launch on the wgmma route, and its loss and gradients
      agree with the dense flagship ``transformer.loss_fn`` on one rank (loss
      <= 1e-2, every gradient <= 5e-2, the w1/w2 shards joined); the zigzag
      layout (288 hops of each attention kernel) against the contiguous
@@ -148,8 +151,10 @@
      ms per step, training tokens/s and the peak device memory.
 8. With two or more cards, one rank per card with peer access: the
    all-gather, all-to-all and ring GEMM kernels against their plain
-   versions on a 16384^2 f32 array, and K9 at S = 8192 bf16, and their
-   times.  With one card it prints why it did not run.
+   versions on a 16384^2 f32 array, K13, K14 and K15 in bf16 at the
+   sequence-parallel shapes on their ``wgmma_peer`` route, and K9 at S =
+   8192 bf16, and their times.  With one card it prints why it did not
+   run.
    ``python3 chip_smoke.py --across-cards`` builds the kernels and runs
    this phase alone.
 9. Times each kernel with CUDA events (warm-up, then the median of 10
@@ -158,10 +163,10 @@
    (torch.matmul for the GEMMs, F.conv2d with TF32 off for the stencils,
    torch._int_mm and the dequantizing multiply for the int8 GEMM,
    torch.cat of the same pieces for the all-gather and all-to-all,
-   torch.cat then torch.matmul for the ring GEMMs K13 and K14 (whose rows
-   also give their launches' device time and the host's microseconds a
-   launch) and one torch.matmul per rank then torch.stack(...).sum(0) per
-   destination for K15,
+   torch.cat then torch.matmul for the ring GEMMs K13 and K14 and one
+   torch.matmul per rank then torch.stack(...).sum(0) per destination for
+   K15 (whose rows also give their launches' device time and the host's
+   microseconds a launch),
    F.scaled_dot_product_attention at the same shape for K5 and over the
    whole sequence for K9 (whose row also gives the device time of its 16
    launches alone, from a torch.profiler trace), its backward for K6 and
@@ -175,8 +180,8 @@ alone, checks K1 on every route and the K9 rings, and times both;
 the K9 ring's device time alone from a ``torch.profiler`` trace) through
 the package under DIR, so an unpacked older commit and this one can be
 timed in turns on one card; ``python3 chip_smoke.py --time-ring-gemms
-[DIR]`` does the same for K13 and K14 (per call, device time, host
-microseconds a launch, and each wgmma tile width).
+[DIR]`` does the same for K13, K14 and K15 in bf16 and f32 (per call,
+device time, host microseconds a launch, and each wgmma tile width).
 
 ``python3 chip_smoke.py --time-attn [DIR]`` times K5, K6, K7 and K9 (per
 call and device time), the scaled_dot_product_attention forward and
@@ -399,11 +404,13 @@ def ring_gemm_control(name: str, xs, ws) -> list[torch.Tensor]:
                 for x, w in zip(xs, ws)).bfloat16() for d in range(p)]
 
 
-# K13 and K14 on each route, K15 as before: (name, x block, w block, dtype,
-# route) with 4 ranks.  The sequence-parallel shapes; a ragged bf16 shape
-# that TMA can read (K and N multiples of 8, boxes running past every
-# edge); a bf16 shape it cannot (K and N odd or not multiples of 8), which
-# takes mma.sync; f32 at the sequence-parallel and ragged shapes.
+# K13, K14 and K15 on each route: (name, x block, w block, dtype, route)
+# with 4 ranks.  The sequence-parallel shapes; a ragged bf16 shape that TMA
+# can read (K and N multiples of 8, boxes running past every edge; for K15
+# m_loc 1000 and n 1496, a multiple of 8 but not of 64); a bf16 shape it
+# cannot (K and N odd or not multiples of 8), which takes mma.sync; f32 at
+# the sequence-parallel and ragged shapes, K15's also where its 16-byte
+# copies cannot run (k and n not multiples of 4).
 RING_GEMM_CASES = (
     ("allgather_matmul", (2048, 1024), (1024, 1024), torch.bfloat16, "wgmma"),
     ("allgather_matmul", (1000, 776), (776, 296), torch.bfloat16, "wgmma"),
@@ -420,9 +427,16 @@ RING_GEMM_CASES = (
      "f32"),
     ("allgather_matmul_rhs", (1000, 4 * 192), (192, 300), torch.float32,
      "f32"),
-    ("matmul_reducescatter", (8192, 1024), (1024, 1024), torch.bfloat16, None),
-    ("matmul_reducescatter", (8192, 1024), (1024, 1024), torch.float32, None),
-    ("matmul_reducescatter", (4000, 768), (768, 300), torch.float32, None))
+    ("matmul_reducescatter", (8192, 1024), (1024, 1024), torch.bfloat16,
+     "wgmma"),
+    ("matmul_reducescatter", (4 * 1000, 776), (776, 1496), torch.bfloat16,
+     "wgmma"),
+    ("matmul_reducescatter", (4 * 1000, 777), (777, 300), torch.bfloat16,
+     "mma"),
+    ("matmul_reducescatter", (8192, 1024), (1024, 1024), torch.float32,
+     "f32"),
+    ("matmul_reducescatter", (4000, 768), (768, 300), torch.float32, "f32"),
+    ("matmul_reducescatter", (4000, 770), (770, 302), torch.float32, "f32"))
 
 
 # the wgmma route's tile widths
@@ -430,7 +444,7 @@ RING_TILES = (64, 128)
 
 
 class forced_tile:
-    """Within the block, the wgmma route of K13 and K14 takes 128 x
+    """Within the block, the wgmma route of K13, K14 and K15 takes 128 x
     ``tile_n`` tiles whatever ``ring_tile_n`` would choose (None: its own
     choice)."""
 
@@ -448,11 +462,11 @@ class forced_tile:
 
 def ring_gemm_kernels(randn, errs) -> None:
     """K13, K14 and K15 against their plain versions with 4 ranks on the
-    card (``RING_GEMM_CASES``).  Every K13 / K14 call must move its route's
-    count by its 16 launches and no other route's; the sequence-parallel
-    bf16 shapes also run with each wgmma tile width (128 x 64 and 128 x
-    128).  bf16 within TOL_RING_GEMM_BF16, held against its f32 control,
-    f32 within TOL_F32."""
+    card (``RING_GEMM_CASES``).  Every call must move its route's count by
+    its 16 launches and no other route's; the sequence-parallel bf16 shapes
+    also run with each wgmma tile width (128 x 64 and 128 x 128).  bf16
+    within TOL_RING_GEMM_BF16, held against its f32 control, f32 within
+    TOL_F32."""
     from distributedarrays_tpu_torch.ops import cuda_collectives as CC
     from distributedarrays_tpu_torch.utils import kbuild
     bf16 = torch.bfloat16
@@ -462,23 +476,19 @@ def ring_gemm_kernels(randn, errs) -> None:
         xs = [randn(*xs_, dtype=dt) for _ in range(4)]
         ws = [randn(*ws_, dtype=dt) / 32 for _ in range(4)]
         ref = plain(xs, ws)
-        sp = route == "wgmma" and xs_[0] >= 1024
+        sp = route == "wgmma" and (name, xs_, ws_) in RING_GEMM_SHAPES
         for tile in ((None,) + RING_TILES if sp else (None,)):
             with forced_tile(CC, tile):
-                before = kbuild.route_counts().get(name)
+                before = kbuild.route_counts()[name]
                 got = kern(xs, ws)
                 torch.cuda.synchronize()
-            what = f"{name} 4 x {xs_} @ {ws_} {dt}"
-            if route:
-                what += f" on {route}"
+            what = f"{name} 4 x {xs_} @ {ws_} {dt} on {route}"
             if tile:
                 what += f", 128 x {tile} tiles"
-            if route:
-                moved = {r: c - before[r]
-                         for r, c in kbuild.route_counts()[name].items()}
-                if moved != {r: 16 * (r == route) for r in moved}:
-                    raise AssertionError(f"{what}: route counts moved "
-                                         f"{moved}")
+            moved = {r: c - before[r]
+                     for r, c in kbuild.route_counts()[name].items()}
+            if moved != {r: 16 * (r == route) for r in moved}:
+                raise AssertionError(f"{what}: route counts moved {moved}")
             err = max(rel_err(g, r) for g, r in zip(got, ref))
             check(what, err, TOL_RING_GEMM_BF16 if dt == bf16 else TOL_F32)
             errs[name] = max(errs[name], max(max_abs(g, r)
@@ -518,9 +528,9 @@ def ring_gemm_timings(randn, extra: dict) -> list[dict]:
     the bytes of each input read once and each output written once.
     Library: the same products as one ``torch.matmul`` per rank on the
     gathered operand (K13, K14), or per rank and then
-    ``torch.stack(...).sum(0)`` per destination (K15).  K13 and K14 also
-    give the device time of their 16 launches alone (``device_ms``) and
-    the host's microseconds a launch with synchronisation off."""
+    ``torch.stack(...).sum(0)`` per destination (K15).  Each also gives the
+    device time of its 16 launches alone (``device_ms``) and the host's
+    microseconds a launch with synchronisation off."""
     rows = []
     lines = {"allgather_matmul": 735, "matmul_reducescatter": 886}
     for (name, xshape, wshape), dt in (
@@ -564,10 +574,9 @@ def ring_gemm_timings(randn, extra: dict) -> list[dict]:
                "plain_ms": time_ms(lambda: plain(xs, ws)),
                "bound_ms": bms, "bound_by": bby,
                "library_ms": time_ms(library)}
-        if name != "matmul_reducescatter":
-            row["device_ms"] = device_ms(lambda: kern(xs, ws))
-            row["host_us_per_launch"] = host_us_per_launch(
-                lambda: kern(xs, ws), 16)
+        row["device_ms"] = device_ms(lambda: kern(xs, ws))
+        row["host_us_per_launch"] = host_us_per_launch(lambda: kern(xs, ws),
+                                                       16)
         shape = f"4 ranks x ({xshape} @ {wshape}) {dt} on one card"
         if name in lines and dt == torch.bfloat16:
             rows.append({
@@ -698,15 +707,15 @@ def k1_k9_times(root: str | None = None) -> int:
 
 
 def ring_gemm_times(root: str | None = None) -> int:
-    """``--time-ring-gemms [ROOT]``: time K13 and K14 through the public
-    wrappers of the package under ROOT (this checkout's by default), 4
-    ranks on one card: bf16 at the sequence-parallel shapes and f32 at
-    K13's and at 16384^2 (4,1)x(4,1) for K14, each per call, in the device
-    time of its launches alone and in host microseconds a launch; K15 in
-    bf16 at its sequence-parallel shape as a control.  Where the package
-    has ``ring_tile_n``, the bf16 shapes again on each wgmma tile, and each
-    bf16 step's device time against its depth.  Two trees can so be timed
-    in turns in one call on one card."""
+    """``--time-ring-gemms [ROOT]``: time K13, K14 and K15 through the
+    public wrappers of the package under ROOT (this checkout's by default),
+    4 ranks on one card: bf16 at the sequence-parallel shapes and f32 at
+    K13's and K15's and at 16384^2 (4,1)x(4,1) for K14, each per call, in
+    the device time of its launches alone and in host microseconds a
+    launch.  Where the package has ``ring_tile_n``, the bf16 shapes again
+    on each wgmma tile (a package whose K15 takes no tile reads the same
+    twice), and K13's and K14's bf16 step device time against its depth.
+    Two trees can so be timed in turns in one call on one card."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -725,7 +734,7 @@ def ring_gemm_times(root: str | None = None) -> int:
     k13, k15, k14 = RING_GEMM_SHAPES
     times = {}
     for (name, xshape, wshape), dt in ((k13, bf16), (k14, bf16), (k15, bf16),
-                                       (k13, f32),
+                                       (k13, f32), (k15, f32),
                                        (("allgather_matmul_rhs",
                                          (4096, 16384), (4096, 16384)), f32)):
         kern = ring_gemm_fns(name)[0]
@@ -738,8 +747,7 @@ def ring_gemm_times(root: str | None = None) -> int:
         times[key] = time_ms(call)
         times[key + ", device"] = device_ms(call)
         times[key + ", host us a launch"] = host_us_per_launch(call, 16)
-        if (dt == bf16 and name != "matmul_reducescatter"
-                and hasattr(CC, "ring_tile_n")):
+        if dt == bf16 and hasattr(CC, "ring_tile_n"):
             for tile in RING_TILES:
                 with forced_tile(CC, tile):
                     tk = f"{key}, 128 x {tile} tiles"
@@ -1382,8 +1390,8 @@ def plain_bwd(q, k, v, o, g, lse, causal: bool, rounded: bool = True):
 
 
 # K6 + K7 against the plain backward: (S, B, H, D) as K5_CASES, dtype,
-# causal, K7's route
-K7_CASES = (
+# causal, and the route of both
+BWD_CASES = (
     ((2048, 0, 64, 64), torch.bfloat16, True, "wgmma"),
     ((2048, 0, 64, 64), torch.bfloat16, False, "wgmma"),
     ((2048, 4, 16, 64), torch.bfloat16, True, "wgmma"),   # train_step's views
@@ -1399,28 +1407,34 @@ K7_CASES = (
     ((1000, 0, 16, 64), torch.float32, False, "f32"))
 
 
+def on_bwd_route(route: str, fn):
+    """``fn()``, requiring that it launched K6 and K7 once each, both on
+    ``route``."""
+    return on_route("flash_attention_bwd_dq", route, lambda: on_route(
+        "flash_attention_bwd_dkv", route, fn))
+
+
 def attention_bwd_kernels(randn, errs) -> None:
     """K6 and K7 against the plain backward at the training paths' shapes,
-    each K7 call on its route, and one ring hop's backward."""
+    each call's K6 and K7 on their route, and one ring hop's backward."""
     from distributedarrays_tpu_torch.ops import cuda_attention as CA
     bf16, f32 = torch.bfloat16, torch.float32
-    for (S, B, H, D), dt, causal, route in K7_CASES:
+    for (S, B, H, D), dt, causal, route in BWD_CASES:
         if B:
             q, k, v = fused_qkv(randn, S, B, H, D, dt)
         else:
             q, k, v = (randn(S, H, D, dtype=dt) for _ in range(3))
         o, lse = CA.flash_attention_lse(q, k, v, causal)
         g = torch.empty_like(o).copy_(randn(*o.shape, dtype=dt))
-        got = on_route("flash_attention_bwd_dkv", route,
-                       lambda: CA.flash_attention_bwd(q, k, v, o, g, lse,
-                                                      causal))
+        got = on_bwd_route(route, lambda: CA.flash_attention_bwd(
+            q, k, v, o, g, lse, causal))
         ref = plain_bwd(q, k, v, o, g, lse, causal)
         torch.cuda.synchronize()
         tol = TOL_F32 if dt == f32 else TOL_BWD_BF16
         shape = (S, B, H, D) if B else (S, H, D)
         for name, a, b in zip(("dq", "dk", "dv"), got, ref):
             check(f"flash backward {name} {shape} {dt} "
-                  f"causal={causal} (K7 {route})", rel_err(a, b), tol)
+                  f"causal={causal} ({route})", rel_err(a, b), tol)
             kern = "flash_attention_bwd_dq" if name == "dq" else \
                 "flash_attention_bwd_dkv"
             errs[kern] = max(errs[kern], max_abs(a, b))
@@ -1431,15 +1445,14 @@ def attention_bwd_kernels(randn, errs) -> None:
             bwd_control(f"flash backward (2048, 64, 64) bf16 causal={causal}",
                         ctl, ref)
     # one hop's backward at (16, 2048, 64) on rank 2 of 4 (qoff 4096), f32
-    # contributions; K7 on the wgmma route over the (B, H, D) views
+    # contributions; K6 and K7 on the wgmma route over the (B, H, D) views
     H, B, D = 16, 2048, 64
     q, k, v, do = (randn(H, B, D, dtype=bf16) for _ in range(4))
     lse = randn(H, B) + 8.0
     dd = randn(H, B)
     for case, koff in (("visible", 0), ("diagonal", 4096), ("masked", 6144)):
-        got = on_route("flash_attention_bwd_dkv", "wgmma",
-                       lambda: CA.flash_attention_hop_bwd(
-                           q, k, v, do, lse, dd, 4096, koff, True))
+        got = on_bwd_route("wgmma", lambda: CA.flash_attention_hop_bwd(
+            q, k, v, do, lse, dd, 4096, koff, True))
         ref = CA.flash_attention_bwd_plain(q, k, v, do, lse, dd, 4096, koff,
                                            True, None, f32)
         torch.cuda.synchronize()
@@ -1558,7 +1571,8 @@ def training(tdat, dev) -> dict:
                                  f"{want}")
     counts = kbuild.launch_counts()
     print(f"  launches (5 steps) {counts}")
-    for kn in ("flash_attention", "flash_attention_bwd_dkv"):
+    for kn in ("flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv"):
         expect_routes("train_step (5 steps)", kn, {"wgmma": 5 * cfg.layers})
     print(f"  losses {losses} (first step's loss {float(loss)})")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1626,17 +1640,19 @@ def sp_training(tdat, dev) -> dict:
         return out, kbuild.launch_counts()
 
     def on_wgmma(what, hops=16):
-        """Every K13 and K14 launch since the counts were reset ran on the
-        wgmma route, 32 a layer each, and every K7 launch, ``hops`` a
-        layer."""
+        """Every K13, K14 and K15 launch since the counts were reset ran on
+        the wgmma route, 32 a layer each, and every K6 and K7 launch,
+        ``hops`` a layer each."""
         got = {k: kbuild.route_counts()[k]
-               for k in ("allgather_matmul", "allgather_matmul_rhs")}
+               for k in ("allgather_matmul", "allgather_matmul_rhs",
+                         "matmul_reducescatter")}
         print(f"  {what} ring GEMM routes {got}")
         if any(v != {r: 32 * L * (r == "wgmma") for r in v}
                for v in got.values()):
-            raise AssertionError(f"{what}: K13/K14 routes {got}, expected "
-                                 f"{32 * L} each on wgmma")
-        expect_routes(what, "flash_attention_bwd_dkv", {"wgmma": hops * L})
+            raise AssertionError(f"{what}: K13/K14/K15 routes {got}, "
+                                 f"expected {32 * L} each on wgmma")
+        for kn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            expect_routes(what, kn, {"wgmma": hops * L})
 
     # one gradient step, against the dense flagship on the same weights
     shards = SP.shard_params(model, ranks)
@@ -1654,8 +1670,9 @@ def sp_training(tdat, dev) -> dict:
     expect_launches("dense flagship gradient step (1 rank)", dcounts,
                     {"flash_attention": L, "flash_attention_bwd_dq": L,
                      "flash_attention_bwd_dkv": L})
-    expect_routes("dense flagship gradient step (1 rank)",
-                  "flash_attention_bwd_dkv", {"wgmma": L})
+    for kn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        expect_routes("dense flagship gradient step (1 rank)", kn,
+                      {"wgmma": L})
     dense = dict(zip(names, dgrads))
     del dgrads
     print(f"  loss {float(loss)}, dense flagship {float(dloss)}")
@@ -1772,7 +1789,8 @@ def trainer_phase(tdat) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  adam losses {losses}, launches (3 steps) {counts}, peak "
           f"{peak:.2f} GiB")
-    for kn in ("flash_attention", "flash_attention_bwd_dkv"):
+    for kn in ("flash_attention", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv"):
         expect_routes("trainer (3 steps)", kn, {"f32": 3 * 4 * per_rank})
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite trainer losses {losses}")
@@ -1802,7 +1820,8 @@ def training_timings(randn) -> list[dict]:
     """Timing rows of K6, K7 and K12 at the training paths' shapes.  K6
     does 6*D operations a causal pair, K7 8*D; K12 moves (p + 1) * N * 4
     bytes.  The plain version and the library yardstick compute the whole
-    backward (dq, dk and dv) for both attention rows."""
+    backward (dq, dk and dv) for both attention rows; K6 and K7 also give
+    the device time of their launch alone."""
     import torch.nn.functional as F
     from distributedarrays_tpu_torch.ops import cuda_attention as CA
     from distributedarrays_tpu_torch.ops import cuda_collectives as CC
@@ -1829,6 +1848,8 @@ def training_timings(randn) -> list[dict]:
             ("flash_attention_bwd_dkv", (dk, dv), 8, 2, 227)):
         bms, bby = bound((4 + nout) * io + 2 * H * S * 4, ops * D * pairs,
                          BF16_FLOPS)
+        call = lambda: CA._bwd_launch(name, q, k, v, g, lse, dd, outs, 0, 0,
+                                      True, None)
         rows.append({
             "name": name, "route": "cuda",
             "source": "distributedarrays_tpu_torch/csrc/attention_bwd.cu",
@@ -1836,8 +1857,7 @@ def training_timings(randn) -> list[dict]:
                         f"{line}",
             "shape": "(2048, 64, 64) bf16 causal (the training step's 4 x 16 "
                      "heads); plain and library: the whole backward",
-            "ms": time_ms(lambda: CA._bwd_launch(
-                name, q, k, v, g, lse, dd, outs, 0, 0, True, None)),
+            "ms": time_ms(call), "device_ms": device_ms(call),
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
             "library_ms": lib_ms})
     del qs, ks, vs, os_
@@ -1865,10 +1885,11 @@ def across_cards(tdat, cuda_collectives) -> None:
     """Phase 6: one rank per card (at most 4) with peer access; the
     all-gather, all-to-all and ring GEMM kernels on a 16384^2 f32 array
     against their plain versions, and their times (host clock around work
-    that ends in a synchronize of every card, median of 10); K13 and K14
-    in bf16 at the sequence-parallel shapes, every launch on the
-    ``wgmma_peer`` route (the forward to the neighbour's card by a copy
-    launch of its own)."""
+    that ends in a synchronize of every card, median of 10); K13, K14 and
+    K15 in bf16 at the sequence-parallel shapes, every launch on the
+    ``wgmma_peer`` route (K13, K14: the forward to the left neighbour's
+    card by a copy launch of its own; K15: the sum stored into the right
+    neighbour's card element by element)."""
     ncards = torch.cuda.device_count()
     if ncards < 2:
         print(f"phase across cards: not run ({ncards} CUDA device; it needs "
@@ -1929,7 +1950,7 @@ def across_cards(tdat, cuda_collectives) -> None:
         del got, ref
         times[name] = {"ms": wall_ms(kern), "plain_ms": wall_ms(plain)}
     from distributedarrays_tpu_torch.utils import kbuild
-    for name, xshape, wshape in (RING_GEMM_SHAPES[0], RING_GEMM_SHAPES[2]):
+    for name, xshape, wshape in RING_GEMM_SHAPES:
         kern, plain = ring_gemm_fns(name)
         xs = [torch.randn(xshape, generator=torch.Generator(device=d)
                           .manual_seed(40 + i), device=d).bfloat16()

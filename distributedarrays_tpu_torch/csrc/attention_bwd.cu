@@ -3,19 +3,20 @@
 //
 // - K6 `da_flash_bwd_dq` replaces distributedarrays_tpu/ops/
 //   pallas_attention.py `_bwd_dq_kernel` (the dq pallas_call of
-//   `_build_bwd`): one block per (head, 64-row query tile) loops over the
-//   key tiles up to its causal limit, judged in global positions
+//   `_build_bwd`): a block owns a tile of query rows of one head, loops
+//   over the key tiles up to its causal limit, judged in global positions
 //   (qoff/koff), and writes dq once.  The Pallas grid carries the dq
 //   accumulator across its sequential K axis in VMEM; here it stays in
 //   registers for the whole loop, so no block shares an output row and no
 //   atomics are needed.
 // - K7 `da_flash_bwd_dkv` replaces `_bwd_dkv_kernel` (the dk/dv
 //   pallas_call): one block per (head, 64-key tile) loops over the query
-//   tiles from its causal start and accumulates dk and dv in f32.  Three
-//   routes, chosen by the caller (`route`): bf16 whose views TMA can read
-//   (head dim a multiple of 8, strides multiples of 16 bytes, 16-byte
-//   aligned bases) on wgmma + TMA (attn_bwd_sm90.cuh `dkv_wgmma`), other
-//   bf16 on mma.sync, f32 on the SIMT loop.
+//   tiles from its causal start and accumulates dk and dv in f32.
+// Both take one of three routes, chosen by the caller (`route`) and
+// refused here when the views cannot take it: bf16 whose views TMA can read
+// (head dim a multiple of 8, strides multiples of 16 bytes, 16-byte aligned
+// bases) on wgmma + TMA (attn_bwd_sm90.cuh `dq_wgmma`, `dkv_wgmma`), other
+// bf16 on mma.sync, f32 on the SIMT loops.
 //
 // Numerics are the TPU kernels': s = q.k as f32 sums of products of the
 // input values, times the scale, then masked; p = exp(s - lse), 0 where
@@ -39,8 +40,8 @@
 // stream through a two-stage cp.async pipeline.  On that route each of
 // K7's 4 warps reads the whole Q and dO tile from shared memory for its S^T
 // and dP^T fragments and issues two ldmatrix.trans per (16-query chunk,
-// 8-column tile), 16 KB and 64 ldmatrix a warp a tile; K7's wgmma route
-// feeds the tensor cores straight from the TMA-written tiles instead.
+// 8-column tile), 16 KB and 64 ldmatrix a warp a tile; the wgmma routes
+// feed the tensor cores straight from the TMA-written tiles instead.
 
 #include "attn_bwd_sm90.cuh"
 #include "attn_tile.cuh"
@@ -615,6 +616,7 @@ int launch(K kernel, int blocks, int threads, size_t smem, const BwdArgs& a,
   return (int)cudaGetLastError();
 }
 
+// K6 on mma.sync (bf16 != 0) or the SIMT loop
 template <int DMAX>
 int launch_dq(const BwdArgs& a, int bf16, cudaStream_t s) {
   const int blocks = (a.sq + BQ - 1) / BQ * a.hall;
@@ -694,6 +696,64 @@ int launch_dkv_wgmma(const BwdArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// K6 in bf16 on wgmma + TMA: one consumer warpgroup of 64 queries a
+// block, the latest (heaviest causal) query tiles first, held to three
+// blocks an SM at DMAX 64 (attn_bwd_sm90.cuh gives the layouts timed).
+template <int DMAX>
+__global__ void __launch_bounds__(da_sm90::BW_THREADS, DMAX > 64 ? 1 : 3)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const da_sm90::DqArgs a) {
+  extern __shared__ uint8_t smem_b[];
+  const int nq = (a.sq + da_sm90::AW_ROWS - 1) / da_sm90::AW_ROWS;
+  const int n = blockIdx.x % a.h;
+  int qt = blockIdx.x / a.h;
+  if (a.causal) qt = nq - 1 - qt;
+  da_sm90::dq_wgmma<DMAX>(&tq, &tk, &tv, &tdo, a, n, qt, smem_b);
+}
+
+template <int DMAX>
+int launch_dq_wgmma(const BwdArgs& a, cudaStream_t s) {
+  da_sm90::DqArgs r;
+  r.lse = a.lse;
+  r.dd = a.dd;
+  r.dq = a.dq.p;
+  r.qss = a.dq.ss;
+  r.qsb = a.dq.sb;
+  r.qsh = a.dq.sh;
+  r.sq = a.sq;
+  r.sk = a.sk;
+  r.h = a.hall;
+  r.dh = a.d;
+  r.nh = a.q.nh;
+  r.qoff = a.qoff;
+  r.koff = a.koff;
+  r.causal = a.causal;
+  r.out_f32 = a.out_f32;
+  r.scale = a.scale;
+  CUtensorMap tm[4];
+  const View<const void>* v[4] = {&a.q, &a.k, &a.v, &a.dout};
+  uint32_t* pos[4] = {&r.qpos, &r.kpos, &r.vpos, &r.opos};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i == 1 || i == 2 ? a.sk : a.sq;
+    const int rc = da_sm90::view_map(&tm[i], pos[i], v[i]->p, rows, a.hall,
+                                     v[i]->ss, v[i]->sb, v[i]->sh, v[i]->nh,
+                                     a.d);
+    if (rc) return rc;
+  }
+  const size_t sm = da_sm90::dq_smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dq_wgmma_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.sq + da_sm90::AW_ROWS - 1) / da_sm90::AW_ROWS * a.hall;
+  bwd_dq_wgmma_kernel<DMAX><<<blocks, da_sm90::BW_THREADS, sm, s>>>(
+      tm[0], tm[1], tm[2], tm[3], r);
+  return (int)cudaGetLastError();
+}
+
 // meta: for q, k, v, do, dq, dk, dv in turn the row stride, the two head
 // strides (nb and nh parts) and nh, all in elements.
 BwdArgs make_args(const void* q, const void* k, const void* v,
@@ -736,30 +796,37 @@ int prepare(const BwdArgs& a, int device) {
 
 // K6: dq (sq rows) of attention over q, k, v, do with the forward's lse
 // and dd = rowsum(do * o), both (hall, sq) f32, laid out as `meta` says;
-// f32 or (bf16 != 0) bf16 operands, dq in the operand type or (out_f32)
-// f32.  dk/dv are not touched (may be null).  Returns the
-// cudaGetLastError() code of the launch.
+// dq in the operand type or (out_f32) f32.  route: 0 = f32 (SIMT), 1 =
+// bf16 on mma.sync, 2 = bf16 on wgmma + TMA, refused
+// (cudaErrorInvalidValue) unless every view is one TMA can read.  dk/dv
+// are not touched (may be null).  Returns the cudaGetLastError() code of
+// the launch, or 1000 + the CUresult when a TMA tensor map cannot be
+// encoded.
 extern "C" int da_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* dd, void* dq, const long long* meta,
                                int sq, int sk, int d, int hall, long long qoff,
                                long long koff, int causal, float scale,
-                               int bf16, int out_f32, int device,
+                               int route, int out_f32, int device,
                                void* stream) {
   if (sq <= 0 || hall <= 0) return 0;
   BwdArgs a = make_args(q, k, v, dout, lse, dd, dq, nullptr, nullptr, meta,
                         sq, sk, d, hall, qoff, koff, causal, scale, out_f32);
+  if (route < 0 || route > 2 ||
+      (route == 2 && !da_sm90::views_tma_ok(a.hall, d, a.q.nh, a.q, a.k, a.v,
+                                            a.dout, a.dq)))
+    return (int)cudaErrorInvalidValue;
   const int rc = prepare(a, device);
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d <= 64 ? launch_dq<64>(a, bf16, s) : launch_dq<128>(a, bf16, s);
+  if (route == 2)
+    return d <= 64 ? launch_dq_wgmma<64>(a, s) : launch_dq_wgmma<128>(a, s);
+  return d <= 64 ? launch_dq<64>(a, route, s) : launch_dq<128>(a, route, s);
 }
 
-// K7: dk and dv (sk rows); arguments as K6's, but for the route: 0 = f32
-// (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA, refused
-// (cudaErrorInvalidValue) unless every view is one TMA can read.  Returns the cudaGetLastError() code of
-// the launch, or 1000 + the CUresult when a TMA tensor map cannot be
-// encoded.
+// K7: dk and dv (sk rows); arguments and routes as K6's.  Returns the
+// cudaGetLastError() code of the launch, or 1000 + the CUresult when a TMA
+// tensor map cannot be encoded.
 extern "C" int da_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* dd, void* dk, void* dv,

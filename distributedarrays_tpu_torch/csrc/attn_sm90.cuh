@@ -150,9 +150,9 @@ inline bool view_tma_ok(const V& v, int heads, int nh) {
          (nh <= 1 || ok(v.sh)) && (heads / nh <= 1 || ok(v.sb));
 }
 
-// True when the wgmma routes (K5, K7) can take `views`: a head dim that is
-// a multiple of 8, and every view as view_tma_ok with inner head count nh.
-// The rule flash_attention_route applies on the host.
+// True when the wgmma routes (K5, K6, K7) can take `views`: a head dim
+// that is a multiple of 8, and every view as view_tma_ok with inner head
+// count nh.  The rule flash_attention_route applies on the host.
 template <typename... V>
 inline bool views_tma_ok(int heads, int dh, int nh, const V&... views) {
   return dh % 8 == 0 && (view_tma_ok(views, heads, nh) && ...);

@@ -50,7 +50,7 @@
 //   slice of a, cast to the output type, is written at step 0 and added
 //   (rounded to the type) after, the JAX kernel's step order and rounding.
 //
-//   K13 and K14 take one of three routes, chosen by the caller
+//   K13, K14 and K15 take one of three routes, chosen by the caller
 //   (ops/cuda_collectives.py `ring_gemm_route`) and refused here when the
 //   operands cannot take it, never swapped for another:
 //   - ROUTE_WGMMA, bf16 that TMA can read (K, N and a's row stride
@@ -72,7 +72,8 @@
 //     fixed cost (launch, first loads, epilogue) is as large as its
 //     products: see PERF.md.
 //   - ROUTE_MMA, any other bf16: gemm_tile.cuh's mma.sync tile, with
-//     RING_COPY_BLOCKS extra blocks of the launch copying the chunk.
+//     RING_COPY_BLOCKS extra blocks of the launch copying the chunk (K13,
+//     K14).
 //   - ROUTE_F32: gemm_sm90.cuh `f32_tile` (cp.async-pipelined SIMT loop,
 //     96 KB of shared memory); the blocks of column (K13) or row (K14)
 //     tile 0 store each slab of the chunk they stage on to the slot.
@@ -83,17 +84,23 @@
 //   the type, as the JAX kernel's `recv + tmp`) and writes the sum straight
 //   into the right neighbour's receive slot, or into out at the last step:
 //   the partial's forward is the epilogue's store, so no block copies.
+//   Its routes are K13's, chosen the same way (below); on ROUTE_WGMMA the
+//   received partial's tile is loaded by TMA behind the last operand loads
+//   (through a map of its own: it lies in recv, the sum goes to dst) and
+//   the sum leaves by a TMA store; ROUTE_WGMMA_PEER, for a dst on another
+//   card, keeps the same products with an element-by-element epilogue
+//   (plain loads of recv, plain stores over NVLink).  Bound: as a GEMM,
+//   2*m*n*k operations a step.
 //
-//   K15's products run on gemm_tile.cuh's tile: f32 on the SIMT loop, bf16
-//   on the tensor cores (mma.sync m16n8k16, f32 accumulators).  Bound: as
-//   a GEMM, 2*m*n*k operations a step.  Ring steps are ordered by stream
-//   order on one card and by event waits across cards, never by flags spun
-//   on inside a kernel.
+//   Ring steps are ordered by stream order on one card and by event waits
+//   across cards, never by flags spun on inside a kernel.
 
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
+
+using bf = __nv_bfloat16;
 
 constexpr int MAXP = 32;
 constexpr int COPY_THREADS = 256;
@@ -238,10 +245,10 @@ struct ReduceEpi {
 // K14's step on mma.sync: blocks [0, ncopy) forward `chunk` (K x N) to
 // `fwd`, the others compute one 128x128 tile of a[:, koff:koff+K] @ chunk
 // and add it into out.
-template <typename T, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(da_tile::THREADS)
-ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
-                  T* __restrict__ out, T* __restrict__ fwd, int M, int N,
+ring_ag_mm_kernel(const bf* __restrict__ a, const bf* __restrict__ chunk,
+                  bf* __restrict__ out, bf* __restrict__ fwd, int M, int N,
                   int K, int64_t lda, int64_t koff, int first, int ncopy) {
   if ((int)blockIdx.x < ncopy) {
     forward_copy(chunk, fwd, (int64_t)K * N, ncopy);
@@ -249,17 +256,17 @@ ring_ag_mm_kernel(const T* __restrict__ a, const T* __restrict__ chunk,
   }
   int64_t m0, n0;
   tile_origin(ncopy, N, m0, n0);
-  da_tile::gemm_tile<T, VEC>(a + koff, lda, chunk, N, M, N, K, m0, n0,
-                             AccumEpi<T>{out, N, first});
+  da_tile::gemm_tile<VEC>(a + koff, lda, chunk, N, M, N, K, m0, n0,
+                          AccumEpi<bf>{out, N, first});
 }
 
 // K13's step on mma.sync: blocks [0, ncopy) forward `chunk` (M x K) to
 // `fwd`, the others compute one tile of chunk @ w (K x N) into the row
 // block `out` (M x N).
-template <typename T, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(da_tile::THREADS)
-ring_ag_mm_a_kernel(const T* __restrict__ chunk, const T* __restrict__ w,
-                    T* __restrict__ out, T* __restrict__ fwd, int M, int N,
+ring_ag_mm_a_kernel(const bf* __restrict__ chunk, const bf* __restrict__ w,
+                    bf* __restrict__ out, bf* __restrict__ fwd, int M, int N,
                     int K, int ncopy) {
   if ((int)blockIdx.x < ncopy) {
     forward_copy(chunk, fwd, (int64_t)M * K, ncopy);
@@ -267,8 +274,8 @@ ring_ag_mm_a_kernel(const T* __restrict__ chunk, const T* __restrict__ w,
   }
   int64_t m0, n0;
   tile_origin(ncopy, N, m0, n0);
-  da_tile::gemm_tile<T, VEC>(chunk, K, w, N, M, N, K, m0, n0,
-                             StoreEpi<T>{out, N});
+  da_tile::gemm_tile<VEC>(chunk, K, w, N, M, N, K, m0, n0,
+                          StoreEpi<bf>{out, N});
 }
 
 // the chunk alone to `fwd`: the peer route's forward launch
@@ -278,8 +285,6 @@ forward_kernel(const T* __restrict__ src, T* __restrict__ dst,
                int64_t elems) {
   forward_copy(src, dst, elems, gridDim.x);
 }
-
-using bf = __nv_bfloat16;
 
 // K13's output pairs: the sums cast to bf16
 struct CastPairs {
@@ -419,17 +424,70 @@ ring_ag_mm_f32(const float* __restrict__ a, const float* __restrict__ chunk,
                                              n0});
 }
 
-// K15's step: one tile of x (M x K) @ w (K x N), cast to T, plus recv
-// (M x N, or null), written to dst (M x N).
-template <typename T, bool VEC>
+// K15's step on mma.sync: one tile of x (M x K) @ w (K x N), cast to bf16,
+// plus recv (M x N, or null), written to dst (M x N).
+template <bool VEC>
 __global__ void __launch_bounds__(da_tile::THREADS)
-ring_mm_rs_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const T* __restrict__ recv, T* __restrict__ dst, int M,
+ring_mm_rs_kernel(const bf* __restrict__ x, const bf* __restrict__ w,
+                  const bf* __restrict__ recv, bf* __restrict__ dst, int M,
                   int N, int K) {
   int64_t m0, n0;
   tile_origin(0, N, m0, n0);
-  da_tile::gemm_tile<T, VEC>(x, K, w, N, M, N, K, m0, n0,
-                             ReduceEpi<T>{recv, dst, N});
+  da_tile::gemm_tile<VEC>(x, K, w, N, M, N, K, m0, n0,
+                          ReduceEpi<bf>{recv, dst, N});
+}
+
+// K15's step on wgmma: one 128 x BN tile of x's row block (ta: M x K) @ w
+// (tb: K x N), cast to bf16 and, after the first step, added in bf16 to
+// the received partial's tile (tp, M x N), into dst (`to`, M x N).
+template <int BN>
+__global__ void __launch_bounds__(da_sm90::WG_THREADS, 1)
+ring_mm_rs_wgmma(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tp,
+                 const __grid_constant__ CUtensorMap to, int M, int N, int K,
+                 int first) {
+  extern __shared__ uint8_t smem[];
+  const int ntn = (N + BN - 1) / BN;
+  const int m0 = blockIdx.x / ntn * da_sm90::WG_BM;
+  const int n0 = blockIdx.x % ntn * BN;
+  da_sm90::wgmma_tile<BN, AccumPairs, da_sm90::FWD_NONE, true,
+                      ring_stages<BN>()>(&ta, &tb, M, N, K, m0, n0, smem,
+                                         AccumPairs{!first}, nullptr, &to,
+                                         &tp);
+}
+
+// K15's step on wgmma with dst on another card: the same tile, each sum
+// stored by the thread that holds it (ReduceEpi: recv read and dst written
+// element by element, dst over NVLink).
+template <int BN>
+__global__ void __launch_bounds__(da_sm90::WG_THREADS, 1)
+ring_mm_rs_wgmma_peer(const __grid_constant__ CUtensorMap ta,
+                      const __grid_constant__ CUtensorMap tb,
+                      const bf* recv, bf* dst, int M, int N, int K) {
+  extern __shared__ uint8_t smem[];
+  const int ntn = (N + BN - 1) / BN;
+  const int m0 = blockIdx.x / ntn * da_sm90::WG_BM;
+  const int n0 = blockIdx.x % ntn * BN;
+  da_sm90::wgmma_tile<BN, ReduceEpi<bf>, da_sm90::FWD_NONE, false,
+                      ring_stages<BN>()>(&ta, &tb, M, N, K, m0, n0, smem,
+                                         ReduceEpi<bf>{recv, dst, N});
+}
+
+// K15's step in f32: one 128 x 128 tile of x (M x K) @ w (K x N) plus recv
+// (M x N, or null) into dst, as ReduceEpi.
+template <bool VEC>
+__global__ void __launch_bounds__(da_sm90::F_THREADS, 1)
+ring_mm_rs_f32(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ recv, float* __restrict__ dst,
+               int M, int N, int K) {
+  extern __shared__ float4 smem_f[];
+  const int ntn = (N + da_sm90::F_BN - 1) / da_sm90::F_BN;
+  const int64_t m0 = (int64_t)(blockIdx.x / ntn) * da_sm90::F_BM;
+  const int64_t n0 = (int64_t)(blockIdx.x % ntn) * da_sm90::F_BN;
+  da_sm90::f32_tile<VEC>(x, K, w, N, M, N, K, m0, n0,
+                         reinterpret_cast<float*>(smem_f),
+                         ReduceEpi<float>{recv, dst, N});
 }
 
 int gemm_tiles(int m, int n) {
@@ -681,8 +739,8 @@ extern "C" int da_ring_ag_mm_step(const void* a, const void* chunk,
     const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
     const bf* pa = static_cast<const bf*>(a) + koff;
     auto kern = da_tile::mma_vec(pa, lda, chunk, n, n, k)
-                    ? ring_ag_mm_kernel<bf, true>
-                    : ring_ag_mm_kernel<bf, false>;
+                    ? ring_ag_mm_kernel<true>
+                    : ring_ag_mm_kernel<false>;
     kern<<<ncopy + gemm_tiles(m, n), da_tile::THREADS, 0, s>>>(
         static_cast<const bf*>(a), static_cast<const bf*>(chunk),
         static_cast<bf*>(out), static_cast<bf*>(fwd), m, n, k, lda, koff,
@@ -741,8 +799,8 @@ extern "C" int da_ring_ag_mm_a_step(const void* chunk, const void* w,
   if (route == ROUTE_MMA) {
     const int ncopy = fwd ? RING_COPY_BLOCKS : 0;
     auto kern = da_tile::mma_vec(chunk, k, w, n, n, k)
-                    ? ring_ag_mm_a_kernel<bf, true>
-                    : ring_ag_mm_a_kernel<bf, false>;
+                    ? ring_ag_mm_a_kernel<true>
+                    : ring_ag_mm_a_kernel<false>;
     kern<<<ncopy + gemm_tiles(m, n), da_tile::THREADS, 0, s>>>(
         static_cast<const bf*>(chunk), static_cast<const bf*>(w),
         static_cast<bf*>(out), static_cast<bf*>(fwd), m, n, k, ncopy);
@@ -776,29 +834,70 @@ extern "C" int da_ring_ag_mm_a_step(const void* chunk, const void* w,
 // product cast to the type before the add, which rounds to the type; recv
 // null (the first step) writes the product alone.  dst is the right
 // neighbour's receive slot, or the rank's output at the last step.  All
-// contiguous, bf16 (bf16 != 0) or f32.
+// contiguous.  route (kbuild.RING_ROUTES): 0 f32 operands, 1 bf16 on
+// mma.sync, 2 bf16 on wgmma + TMA (K and N multiples of 8; x, w, recv and
+// dst 16-byte aligned), 3 as 2 with the sum stored element by element (dst
+// on another card).  tile_n: the wgmma routes' tile width, 64 or 128.
+// Returns the cudaGetLastError() code of the launch, cudaErrorInvalidValue
+// for a route or tile the operands cannot take, or 1000 + the CUresult of a
+// failed TMA tensor-map encoding.
 extern "C" int da_ring_mm_rs_step(const void* x, const void* w,
                                   const void* recv, void* dst, int m, int n,
-                                  int k, int bf16, int device, void* stream) {
+                                  int k, int route, int tile_n, int device,
+                                  void* stream) {
   if (m <= 0 || n <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int grid = gemm_tiles(m, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using bf = __nv_bfloat16;
-    auto kern = da_tile::mma_vec(x, k, w, n, n, k)
-                    ? ring_mm_rs_kernel<bf, true>
-                    : ring_mm_rs_kernel<bf, false>;
-    kern<<<grid, da_tile::THREADS, 0, s>>>(
-        static_cast<const bf*>(x), static_cast<const bf*>(w),
-        static_cast<const bf*>(recv), static_cast<bf*>(dst), m, n, k);
-  } else {
-    ring_mm_rs_kernel<float, false><<<grid, da_tile::THREADS, 0, s>>>(
+  if (route == ROUTE_F32) {
+    auto kern = da_sm90::f32_vec(x, k, w, n, n, k) ? ring_mm_rs_f32<true>
+                                                   : ring_mm_rs_f32<false>;
+    int rc = fit_smem((const void*)kern, da_sm90::F_SMEM);
+    if (rc) return rc;
+    kern<<<f32_tiles(m, n), da_sm90::F_THREADS, da_sm90::F_SMEM, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         static_cast<const float*>(recv), static_cast<float*>(dst), m, n, k);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if (route == ROUTE_MMA) {
+    auto kern = da_tile::mma_vec(x, k, w, n, n, k) ? ring_mm_rs_kernel<true>
+                                                   : ring_mm_rs_kernel<false>;
+    kern<<<gemm_tiles(m, n), da_tile::THREADS, 0, s>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(w),
+        static_cast<const bf*>(recv), static_cast<bf*>(dst), m, n, k);
+    return (int)cudaGetLastError();
+  }
+  if ((route != ROUTE_WGMMA && route != ROUTE_WGMMA_PEER) ||
+      (tile_n != 64 && tile_n != 128))
+    return (int)cudaErrorInvalidValue;
+  if (!da_sm90::wgmma_ok(x, k, w, n, k) || !aligned16(recv) ||
+      !aligned16(dst))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb, tp = {}, to;
+  int rc = da_sm90::wgmma_maps(&ta, &tb, x, k, w, m, n, k);
+  if (rc) return rc;
+  if (route == ROUTE_WGMMA_PEER) {
+    const bf* pr = static_cast<const bf*>(recv);
+    bf* pd = static_cast<bf*>(dst);
+    return tile_n == 64
+               ? launch_wgmma<64>(ring_mm_rs_wgmma_peer<64>, m, n, s, nullptr,
+                                  nullptr, 0, false, ta, tb, pr, pd, m, n, k)
+               : launch_wgmma<128>(ring_mm_rs_wgmma_peer<128>, m, n, s,
+                                   nullptr, nullptr, 0, false, ta, tb, pr, pd,
+                                   m, n, k);
+  }
+  rc = da_sm90::wgmma_out_map(&to, dst, m, n);
+  if (!rc && recv)
+    rc = da_sm90::wgmma_out_map(&tp, const_cast<void*>(recv), m, n);
+  if (rc) return rc;
+  const int first = recv == nullptr;
+  return tile_n == 64
+             ? launch_wgmma<64>(ring_mm_rs_wgmma<64>, m, n, s, nullptr,
+                                nullptr, 0, false, ta, tb, tp, to, m, n, k,
+                                first)
+             : launch_wgmma<128>(ring_mm_rs_wgmma<128>, m, n, s, nullptr,
+                                 nullptr, 0, false, ta, tb, tp, to, m, n, k,
+                                 first);
 }
 
 // Let `device` read and write `peer`'s memory (no-op when they are the same

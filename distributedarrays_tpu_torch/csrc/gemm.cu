@@ -62,10 +62,10 @@ template <bool VEC, typename TOut>
 __global__ void __launch_bounds__(da_tile::THREADS)
 gemm_mma_kernel(const bf* __restrict__ A, const bf* __restrict__ B,
                 TOut* __restrict__ C, int M, int N, int K) {
-  da_tile::gemm_tile<bf, VEC>(A, K, B, N, M, N, K,
-                              (int64_t)blockIdx.y * da_tile::BM,
-                              (int64_t)blockIdx.x * da_tile::BN,
-                              Store<TOut>{C, N});
+  da_tile::gemm_tile<VEC>(A, K, B, N, M, N, K,
+                          (int64_t)blockIdx.y * da_tile::BM,
+                          (int64_t)blockIdx.x * da_tile::BN,
+                          Store<TOut>{C, N});
 }
 
 template <bool VEC, typename TOut>

@@ -1,5 +1,5 @@
 // The block GEMM's loops for Hopper (sm_90a), used by gemm.cu (K1) and by
-// the ring all-gather GEMMs of collectives.cu (K13, K14): one block
+// the ring GEMMs of collectives.cu (K13, K14, K15): one block
 // computes one output tile of A[M x K] @ B[K x N] (A's rows lda apart, so
 // A may be a column slice of a wider matrix) and hands every in-range sum
 // to an epilogue functor, epi(row, col, value).
@@ -30,10 +30,14 @@
 //     swizzled boxes lay it out (conflict-free: a warp's eight rows land
 //     in eight different 16-byte chunks), and one thread stores the tile,
 //     in whole lines, clipped at the edges.  Where epi.accumulate, the
-//     producer first loads the tile's current values into the same place
-//     (after the last operand load, so the load's latency hides behind
-//     the last stages' products) and `prior` is that value, else zero.
-//     The output's base must be 16-byte aligned and N a multiple of 8.
+//     producer first loads the prior tile into the same place (after the
+//     last operand load, so the load's latency hides behind the last
+//     stages' products) and `prior` is that value, else zero.  The prior
+//     comes through a fifth map, `tp`, laid out as `to`: by default `to`
+//     itself (K14 adds into its output), or another tensor of the same
+//     shape (K15 adds the partial it received and stores the sum into the
+//     right neighbour's slot).  Those bases must be 16-byte aligned and N
+//     a multiple of 8.
 // - `f32_tile`: float32 operands in true FP32 (FMA, no TF32) on the SIMT
 //   pipes.  A (128 x 32) and B (32 x 128) slabs stream through F_STAGES
 //   stages of cp.async copies, so the next slabs load while this one is
@@ -88,7 +92,8 @@ enum WgFwd { FWD_NONE = 0, FWD_A = 1, FWD_B = 2 };
 // box, `tb` maps B as (N, K) with a (64, 64) box; `tf` (FWD_A / FWD_B, or
 // null for a block that forwards nothing) maps the copy as `ta` or `tb`
 // maps the operand (wgmma_fwd_map); `to` (TMA_OUT) maps the bf16 output as
-// `ta` maps A (wgmma_out_map).  Run by all WG_THREADS threads of the
+// `ta` maps A (wgmma_out_map), and `tp` (null: `to`) the prior tile it
+// adds where epi.accumulate.  Run by all WG_THREADS threads of the
 // block, with wg_smem_bytes<BN, STAGES, TMA_OUT>() bytes at `smem_raw`;
 // the producer warp returns early, so the caller must not synchronise the
 // block afterwards.
@@ -99,7 +104,8 @@ __device__ __forceinline__ void wgmma_tile(const CUtensorMap* ta,
                                            int N, int K, int m0, int n0,
                                            uint8_t* smem_raw, const Epi& epi,
                                            const CUtensorMap* tf = nullptr,
-                                           const CUtensorMap* to = nullptr) {
+                                           const CUtensorMap* to = nullptr,
+                                           const CUtensorMap* tp = nullptr) {
   // full[STAGES]: the output tile's current values (TMA_OUT)
   __shared__ __align__(8) uint64_t full[STAGES + TMA_OUT], empty[STAGES];
   constexpr int A_BYTES = WG_BM * WG_BK * 2;
@@ -139,8 +145,8 @@ __device__ __forceinline__ void wgmma_tile(const CUtensorMap* ta,
           mbar_expect_tx(&full[STAGES], WG_BM * BN * 2);
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load_2d(otile + j * O_BOX, to, &full[STAGES], n0 + 64 * j,
-                        m0);
+            tma_load_2d(otile + j * O_BOX, tp ? tp : to, &full[STAGES],
+                        n0 + 64 * j, m0);
         }
       }
     }
@@ -250,8 +256,8 @@ inline int wgmma_maps(CUtensorMap* ta, CUtensorMap* tb, const void* A,
   return make_map(tb, B, 2, db, sb, bb);
 }
 
-// The output map of wgmma_tile<..., TMA_OUT>: `out`, a contiguous M x N
-// bf16 matrix, in (64, 128) boxes.
+// The output (or prior) map of wgmma_tile<..., TMA_OUT>: `out`, a
+// contiguous M x N bf16 matrix, in (64, 128) boxes.
 inline int wgmma_out_map(CUtensorMap* to, void* out, int M, int N) {
   const uint64_t d[2] = {(uint64_t)N, (uint64_t)M};
   const uint64_t st[1] = {(uint64_t)N * 2};

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA loops of
-// gemm_sm90.cuh (the block GEMM K1 and the ring all-gather GEMMs K13, K14),
+// gemm_sm90.cuh (the block GEMM K1 and the ring GEMMs K13, K14, K15),
 // attn_sm90.cuh (flash attention K5 and the fused ring attention step K9)
-// and attn_bwd_sm90.cuh (the dk/dv backward K7): mbarriers, TMA
+// and attn_bwd_sm90.cuh (the backward's dq pass K6 and dk/dv pass K7):
+// mbarriers, TMA
 // tile loads and stores, shared-memory matrix descriptors for 128-byte
 // swizzled tiles, the wgmma instructions the loops issue, and the
 // host-side encoding of TMA tensor maps.

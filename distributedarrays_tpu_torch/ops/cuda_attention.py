@@ -48,14 +48,14 @@ block-shape rule; here they are (H, B) and (H, S)); and the autotune
 lookups ``tuned_flash_config`` / ``tuned_hop_blocks_for``, which
 only choose those knobs.
 
-K5 and K7 launch on the route ``flash_attention_route`` picks from the
+K5, K6 and K7 launch on the route ``flash_attention_route`` picks from the
 operands: ``"wgmma"`` (bf16 views that TMA can read: wgmma fed by TMA,
 ``csrc/attn_sm90.cuh`` and ``csrc/attn_bwd_sm90.cuh``), ``"mma"`` (other
 bf16: mma.sync) or ``"f32"`` (the SIMT loops); each launch also counts under
 its route (``kbuild.route_counts()["flash_attention" |
-"flash_attention_bwd_dkv"]``).  The C entries refuse a wgmma route whose
-operands TMA cannot read, and the wrapper raises: nothing falls back.  K6
-and K8 keep mma.sync in bf16.
+"flash_attention_bwd_dq" | "flash_attention_bwd_dkv"]``).  The C entries
+refuse a wgmma route whose operands TMA cannot read, and the wrapper
+raises: nothing falls back.  K8 keeps mma.sync in bf16.
 
 ``ring_attn_step`` launches K9 (``da_ring_attn_step``), the fused ring
 attention step that ``models/ring_attention.ring_attention_rdma`` drives,
@@ -286,12 +286,12 @@ def _launched(rc: int, what: str, kernel: str, route=None) -> None:
 
 
 def flash_attention_route(dtype: torch.dtype, d: int, *views) -> str:
-    """K5's and K7's route for operands of ``dtype`` with head dim ``d``
-    whose tensors (strided views, the head dim contiguous) are ``views``:
-    ``"wgmma"`` when TMA can read them all (bf16, d a multiple of 8 up to
-    ``MAX_HEAD_DIM``, the row stride and the stride of every head dim
-    longer than 1 positive and a multiple of 16 bytes, every base 16-byte
-    aligned), ``"mma"`` for other bf16, ``"f32"`` for float32."""
+    """K5's, K6's and K7's route for operands of ``dtype`` with head dim
+    ``d`` whose tensors (strided views, the head dim contiguous) are
+    ``views``: ``"wgmma"`` when TMA can read them all (bf16, d a multiple of
+    8 up to ``MAX_HEAD_DIM``, the row stride and the stride of every head
+    dim longer than 1 positive and a multiple of 16 bytes, every base
+    16-byte aligned), ``"mma"`` for other bf16, ``"f32"`` for float32."""
     if dtype == torch.float32:
         return "f32"
     if dtype != torch.bfloat16:
@@ -412,23 +412,19 @@ def _bwd_launch(kernel: str, q, k, v, do, lse, dd, outs, qoff, koff,
                              f"({hall}, {S}) float32")
     if not q.numel():
         return
-    views = (q, k, v, do) + ((outs[0], outs[0], outs[0]) if len(outs) == 1
+    dq = len(outs) == 1
+    views = (q, k, v, do) + ((outs[0], outs[0], outs[0]) if dq
                              else (outs[0], outs[0], outs[1]))
-    if kernel.endswith("dq"):   # K6: mma.sync in bf16
-        fn, route = "da_flash_bwd_dq", None
-        mode = int(q.dtype == torch.bfloat16)
-    else:                       # K7: by route
-        fn = "da_flash_bwd_dkv"
-        route = flash_attention_route(q.dtype, D, q, k, v, do, *outs)
-        mode = kbuild.ROUTES.index(route)
-        what = f"{what} dk/dv ({route} route)"
-    rc = _fn(fn, kernel)(
+    route = flash_attention_route(q.dtype, D, q, k, v, do, *outs)
+    rc = _fn("da_flash_bwd_dq" if dq else "da_flash_bwd_dkv", kernel)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dd.data_ptr(), *(o.data_ptr() for o in outs),
         _meta(*views), S, S, D, hall, int(qoff), int(koff), int(causal),
-        _scale(D, scale), mode, int(outs[0].dtype == torch.float32),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
-    _launched(rc, what, kernel, route)
+        _scale(D, scale), kbuild.ROUTES.index(route),
+        int(outs[0].dtype == torch.float32), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(rc, f"{what} {'dq' if dq else 'dk/dv'} ({route} route)",
+              kernel, route)
 
 
 def _bwd_kernels(q, k, v, do, lse, dd, dq, dk, dv, qoff, koff, causal,

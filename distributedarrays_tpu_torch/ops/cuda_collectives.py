@@ -59,12 +59,15 @@ not used.
   right neighbour's receive slot (or the output at the last step).  The TPU
   kernels' VMEM budget gate (``gemm_ring_eligible``) has no counterpart: the
   operands stay in device memory.  float32 or bfloat16 (bf16 on the tensor
-  cores), one dtype for both operands.  K13 and K14 take the route
+  cores), one dtype for both operands.  All three take the route
   ``ring_gemm_route`` picks for the call (``kbuild.route_counts()`` counts
-  every step under it): bf16 that TMA can read on wgmma, with the forward
-  riding on the product's tile loads (or, for a slot on another card, a
-  copy launch of its own: ``wgmma_peer``), other bf16 on mma.sync, f32 on
-  the pipelined FP32 tile.
+  every step under it): bf16 that TMA can read on wgmma, other bf16 on
+  mma.sync, f32 on the pipelined FP32 tile.  On wgmma K13 and K14 forward
+  their chunk by TMA stores riding on the product's tile loads, and K15
+  loads the received partial and stores its sum by TMA; a step whose slot
+  lies on another card (the left neighbour's for K13 and K14, the right
+  one's for K15) takes ``wgmma_peer``: the forward by a copy launch of its
+  own (K13, K14), or the sum stored element by element (K15).
 
 Steps that depend on each other are ordered by stream order on one card and
 by CUDA event waits across cards; no kernel waits on a flag set by another.
@@ -200,7 +203,7 @@ _ARGTYPES = {
     [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "da_ring_ag_mm_a_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
     [ctypes.c_void_p],
-    "da_ring_mm_rs_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
+    "da_ring_mm_rs_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
     [ctypes.c_void_p],
 }
 
@@ -486,11 +489,12 @@ def _launched(rc: int, what: str, kernel: str,
 
 def ring_gemm_route(dtype: torch.dtype, n: int, k: int, ptrs,
                     lda: int | None = None) -> str:
-    """The kernel route of a ring all-gather GEMM (K13, K14) whose steps
-    multiply (m, k) @ (k, n) with A's rows ``lda`` elements apart (``k``
-    by default) and whose TMA operands lie at the device addresses
-    ``ptrs`` (every step's A, B and output, K14's A at each column offset,
-    and the forward slots): ``"wgmma"`` when TMA can read and write them all
+    """The kernel route of a ring GEMM (K13, K14, K15) whose steps multiply
+    (m, k) @ (k, n) with A's rows ``lda`` elements apart (``k`` by default)
+    and whose TMA operands lie at the device addresses ``ptrs`` (every
+    step's A, B and output, K14's A at each column offset, K15's x row
+    blocks, and the forward or receive slots): ``"wgmma"`` when TMA can read
+    and write them all
     (bf16, k > 0 and k, n and lda multiples of 8 so every row stride is a
     multiple of 16 bytes, 16-byte aligned addresses), ``"mma"`` for any
     other bf16 operands, ``"f32"`` for float32."""
@@ -529,11 +533,13 @@ def _sm_count(dev: torch.device) -> int:
     return n
 
 
-def _step_routes(route: str, devs) -> list[str]:
-    """Each rank's route: the wgmma route forwards to a slot on another
-    card by a copy launch of its own (``wgmma_peer``)."""
+def _step_routes(route: str, devs, to: int = -1) -> list[str]:
+    """Each rank's route, where rank r's step writes a slot of rank
+    ``r + to`` (the left neighbour's for K13 and K14, the right one's,
+    ``to=1``, for K15): on another card the wgmma route takes
+    ``wgmma_peer``."""
     p = len(devs)
-    return [("wgmma_peer" if route == "wgmma" and devs[(r - 1) % p] != dev
+    return [("wgmma_peer" if route == "wgmma" and devs[(r + to) % p] != dev
              else route) for r, dev in enumerate(devs)]
 
 
@@ -642,6 +648,25 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
     return outs
 
 
+def _mm_rs_route(x_blocks, w_blocks, bufs, outs):
+    """K15's route, by ``ring_gemm_route`` over every TMA address of the
+    call: each step's x row block (rank r's row block d lies d m_loc k_loc
+    elements past x_r), every w, both receive slots of every rank's (2,
+    m_loc, n) buffer, and every (m_loc, n) output.  Returns ``(route,
+    rows)`` with ``rows[r][d]`` the address of rank r's row block d."""
+    p = len(x_blocks)
+    (m, k_loc), n = x_blocks[0].shape, w_blocks[0].shape[1]
+    m_loc, isz = m // p, x_blocks[0].element_size()
+    rows = [[x.data_ptr() + d * m_loc * k_loc * isz for d in range(p)]
+            for x in x_blocks]
+    route = ring_gemm_route(
+        x_blocks[0].dtype, n, k_loc, [a for r in rows for a in r]
+        + [w.data_ptr() for w in w_blocks]
+        + [b.data_ptr() + q * m_loc * n * isz for b in bufs for q in (0, 1)]
+        + [o.data_ptr() for o in outs])
+    return route, rows
+
+
 def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
                               w_blocks: Sequence[torch.Tensor]
                               ) -> list[torch.Tensor]:
@@ -668,6 +693,14 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
     outs = [torch.empty((m_loc, n), dtype=dtype, device=d) for d in devs]
     bufs = [torch.empty((2, m_loc, n), dtype=dtype, device=d) for d in devs] \
         if p > 1 else []
+    route, xrows = _mm_rs_route(x_blocks, w_blocks, bufs, outs)
+    routes = _step_routes(route, devs, to=1)
+    codes = [kbuild.RING_ROUTES.index(r) for r in routes]
+    tile_n = ring_tile_n(m_loc, n, _sm_count(devs[0]))
+    slot = m_loc * n * x_blocks[0].element_size()
+    slots = [(b.data_ptr(), b.data_ptr() + slot) for b in bufs]
+    ws, ops = [w.data_ptr() for w in w_blocks], [o.data_ptr() for o in outs]
+    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
     done = [order.mark(d) for d in devs]     # buffers allocated
     step = _fn("da_ring_mm_rs_step")
     for t in range(p):
@@ -677,15 +710,10 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
             # the left neighbour finished writing this rank's receive slot,
             # the right one finished reading the slot written here
             order.wait(dev, [prev[left], prev[right]])
-            d = (r - 1 - t) % p
-            recv = bufs[r][t % 2] if t else None
-            dst = outs[r] if t == p - 1 else bufs[right][(t + 1) % 2]
-            rc = step(x_blocks[r][d * m_loc:].data_ptr(),
-                      w_blocks[r].data_ptr(),
-                      recv.data_ptr() if recv is not None else None,
-                      dst.data_ptr(), m_loc, n, k_loc,
-                      int(dtype == torch.bfloat16), dev.index,
-                      torch.cuda.current_stream(dev).cuda_stream)
-            _launched(rc, what, "matmul_reducescatter")
+            recv = slots[r][t % 2] if t else None
+            dst = ops[r] if t == p - 1 else slots[right][(t + 1) % 2]
+            rc = step(xrows[r][(r - 1 - t) % p], ws[r], recv, dst, m_loc, n,
+                      k_loc, codes[r], tile_n, dev.index, streams[dev])
+            _launched(rc, what, "matmul_reducescatter", routes[r])
             done.append(order.mark(dev))
     return outs

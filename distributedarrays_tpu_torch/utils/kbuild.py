@@ -12,13 +12,13 @@ Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
 A kernel with several routes also names the route it launched
 (``count(name, route)``), counted apart in ``route_counts()``: the block
-GEMM's, flash attention's (K5) and the dk/dv backward's (K7)
+GEMM's, flash attention's (K5) and the backward's dq (K6) and dk/dv (K7)
 ``wgmma``/``mma``/``f32``, the fused ring attention step's compute
 steps by route (a ring step that only forwards its K/V pair, or only
 starts or finishes the carry, counts as a launch and under no route), and
-every step of the ring all-gather GEMMs by route (``RING_ROUTES``: those
-three and ``wgmma_peer``, wgmma with the chunk forwarded to a slot on
-another card by a copy launch of its own).
+every step of the ring GEMMs K13, K14 and K15 by route (``RING_ROUTES``:
+those three and ``wgmma_peer``, wgmma with the slot the step writes on
+another card).
 
 ``enable_peer_access(device, peer)`` lets one card read and write another's
 memory (``cudaDeviceEnablePeerAccess``), which the collective kernels need
@@ -71,9 +71,10 @@ _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
 _routes = {k: dict.fromkeys(ROUTES, 0)
            for k in ("gemm", "ring_attention", "flash_attention",
-                     "flash_attention_bwd_dkv")}
+                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
-                for k in ("allgather_matmul", "allgather_matmul_rhs")})
+                for k in ("allgather_matmul", "allgather_matmul_rhs",
+                          "matmul_reducescatter")})
 _peers: set[tuple[int, int]] = set()
 build_log: dict[str, str] = {}
 
@@ -101,8 +102,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of each route of the block GEMM, flash attention, the dk/dv
-    backward, the ring attention step and the ring all-gather GEMMs."""
+    """Launches of each route of the block GEMM, flash attention, the
+    backward's dq and dk/dv passes, the ring attention step and the ring
+    GEMMs."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
 
