@@ -34,8 +34,11 @@
    kernel; ``stencil5`` on 8192^2 with ``iters=16`` (multistep kernel,
    auto depth 8) and ``iters=1`` (single-step kernel); ``gather``.
    The same phase holds the kernels of the distributed GEMM tier against
-   their plain versions: the int8 GEMM at 16384^3 and 1000x777x1500
-   (bit-exact: exact int32 sums and the same two f32 multiplies); the
+   their plain versions: the int8 GEMM on each route, each call moving
+   its own route's count and no other (``INT8_CASES``: wgmma + TMA at
+   16384^3, at a ragged 1000x784x1500 and at 100x48x40, smaller than one
+   tile; mma.sync at 1000x777x1500), f32 and bf16 out, bit-exact (exact
+   int32 sums and the same two f32 multiplies); the
    all-gather and all-to-all on a 16384^2 f32 array over 4 ranks on the
    one card (bit-exact: pure data movement); the ring all-gather GEMM at
    16384^2 (4,1)x(4,1), relative Frobenius error <= 1e-5 in f32 and
@@ -53,7 +56,9 @@
    ``torch.matmul`` on the card (relative Frobenius error <= 1e-5), int8
    products against it by the quantization bound (max error / max |ref| <=
    3e-2) and the (4,1) int8 result against the one-rank one bit for bit;
-   the run fails if one of the four kernels was not launched.
+   the run fails if one of the four kernels was not launched, or if the
+   int8 GEMM's 13 launches (1 x 16384^3, 4 x 4096x16384x16384, 8 x
+   8192^3) did not all take its wgmma route.
 6. Attention (the serving path):
    - the kernels against their plain versions: flash attention (K5) on
      each route, every call's launch on the route
@@ -62,16 +67,20 @@
      fused-QKV (S, B, H, D) views (2048, 4, 16, 64), at head dim 128 and at
      a ragged S = 1000, bf16 on mma.sync at head dim 36, f32 at (2048, 64,
      64) causal and a ragged (1000, 16, 64), lse within 1e-5; one ring hop
-     (K8) at (16, 2048, 64) bf16 from a live carry with keys
-     fully visible, on the diagonal and fully masked (a bit-exact
-     copy-through); the fused ring (K9) at S = 8192, 16 heads of 64, four
+     (K8) from a live carry with keys fully visible, on the diagonal and
+     fully masked (a bit-exact copy-through), every call on its expected
+     route: wgmma + TMA at (16, 2048, 64) and (16, 1024, 128) bf16 and on
+     a zigzag part ((16, 1024, 64) row halves of (16, 2048, 64) blocks),
+     mma.sync at (16, 1000, 36) bf16, f32 at (16, 1024, 64); the fused
+     ring (K9) at S = 8192, 16 heads of 64, four
      ranks on the card, bf16 causal and not, and f32 causal, a ragged bf16
      ring (4 x 1000 rows), bf16 rings at head dims 128 and 32 (4 x 512
      rows, 4 heads) and a bf16 ring on the mma.sync route (head dim 36),
      each 16 launches with 10 (causal) or 16 compute steps on the expected
      route.  Relative
      Frobenius error <= 1e-5 in f32 (summation order), <= 1e-2 for K5/K8
-     in bf16 (p rounded to bf16 by the kernel only, and the bf16 output),
+     in bf16 (p rounded to bf16 against another running max, and the
+     bf16 output),
      <= 2.5e-4 for K9 in bf16 (it computes in f32; the bf16 output
      rounding of two results 1e-6 apart differs by an ulp in a few
      elements), and the hop's running max m <= 1e-5.  A control, the plain
@@ -89,7 +98,8 @@
      Prints ms per forward, prefill and decode tokens/s;
    - sequence parallel with four ranks on the card, S = 8192, 16 heads of
      64, bf16, causal: ``ring_attention`` (16 K9 launches),
-     ``ring_flash_attention`` (16 K8 launches) and ``ulysses_attention``
+     ``ring_flash_attention`` (16 K8 launches, all on the wgmma route)
+     and ``ulysses_attention``
      (K11 + 4 K5 launches) against dense f32 attention on the card (<=
      1e-2), and ``ring_attention_prefill`` on a 3001-row f32 host prompt,
      padded to 3004 (<= 1e-5).
@@ -141,8 +151,8 @@
    - sequence-parallel training at the full width of ``SPConfig(8192,
      1024, 16, 8, 4, 8192, bf16)`` with four ranks on the card, tokens (1,
      8192): a gradient step must launch 128 each of K8, K6 and K7 and 256
-     each of K13, K14 and K15 (no K5, no K9), every K6, K7, K13, K14 and
-     K15 launch on the wgmma route, and its loss and gradients
+     each of K13, K14 and K15 (no K5, no K9), every K8, K6, K7, K13, K14
+     and K15 launch on the wgmma route, and its loss and gradients
      agree with the dense flagship ``transformer.loss_fn`` on one rank (loss
      <= 1e-2, every gradient <= 5e-2, the w1/w2 shards joined); the zigzag
      layout (288 hops of each attention kernel) against the contiguous
@@ -187,6 +197,12 @@ device time, host microseconds a launch, and each wgmma tile width).
 call and device time), the scaled_dot_product_attention forward and
 backward, ``forward`` and ``train_step`` through the package under DIR,
 for a parent and a change timed in turns on one card.
+
+``python3 chip_smoke.py --time-k4-k8 [DIR]`` times K4 (16384^3 and one
+Cannon step, 8192^3), K8 (the visible (16, 2048, 64) hop and a zigzag
+part's, with each consumer warpgroup count), K10 against ``torch.cat`` in
+turns, and the sequence-parallel SGD step's K8 device time, through the
+package under DIR, for a parent and a change timed in turns on one card.
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -872,6 +888,134 @@ def attn_times(root: str | None = None) -> int:
     return 0
 
 
+class forced_groups:
+    """Within the block, K8's wgmma route takes ``groups`` consumer
+    warpgroups a block whatever ``hop_groups`` would choose."""
+
+    def __init__(self, CA, groups: int):
+        self.CA, self.groups = CA, groups
+
+    def __enter__(self):
+        self.saved = self.CA.hop_groups
+        self.CA.hop_groups = lambda rows, heads, sms: self.groups
+
+    def __exit__(self, *exc):
+        self.CA.hop_groups = self.saved
+
+
+def k4_k8_times(root: str | None = None) -> int:
+    """``--time-k4-k8 [ROOT]``: time K4 and K8 through the package under
+    ROOT (this checkout's by default), so two trees can be timed in turns
+    in one call on one card: K4 at 16384^3 and at one Cannon 2 x 2 step
+    (8192^3), f32 out; K8's fully visible (16, 2048, 64) bf16 hop and a
+    zigzag part's hop ((16, 1024, 64) row halves of (16, 2048, 64)
+    blocks), each per call by CUDA events and in device time by
+    ``torch.profiler``, K8 also with each consumer warpgroup count of its
+    wgmma route where the package has ``hop_groups``; K5 at (2048, 64,
+    64) bf16 causal, which runs K8's loop; the all-gather K10
+    (16384^2 f32, 4 row blocks) and ``torch.cat`` per rank in three
+    turns; and one full-width sequence-parallel SGD step (4 ranks, bf16)
+    under the profiler, whose K8 device time is the sum of its ``flash_``
+    kernels (the step launches no K5).  Prints the ptxas register and
+    spill lines of the int8 and attention kernels first."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    from torch.profiler import ProfilerActivity, profile
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.ops import cuda_gemm as CG
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    stems = ("gemm_int8", "attention", "attention_bwd", "collectives")
+    tdat.kbuild.build(stems)
+    print_ptxas(tdat.kbuild, stems[:2])
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+
+    def both(key, fn):
+        times[key] = time_ms(fn)
+        times[key + ", device"] = device_ms(fn)
+
+    for n, what in ((16384, "16384^3"), (8192, "8192^3 (one Cannon step)")):
+        qa, qb = (torch.randint(-127, 128, (n, n), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+                  for _ in range(2))
+        sa, sb = (torch.rand(n, generator=gen, device=dev) / 127
+                  for _ in range(2))
+        both(f"K4 {what} int8 -> f32",
+             lambda: CG.cuda_matmul_int8(qa, qb, sa, sb))
+        del qa, qb
+    torch.cuda.empty_cache()
+    H, B, D = 16, 2048, 64
+    q, k, v, k0, v0 = (torch.randn(H, B, D, generator=gen, device=dev)
+                       .bfloat16() for _ in range(5))
+    carry = CA.flash_attention_hop_plain(
+        q, k0, v0, *CA.flash_carry_init(H, B, D, dev), 4096, 2048, True)
+    live = [x.clone() for x in carry]
+    part = lambda x, i: x[:, i * (B // 2):(i + 1) * (B // 2)]
+    zlive = [part(x, 1).contiguous() for x in carry]
+    hops = {"K8 (16, 2048, 64) bf16 visible hop": lambda: (
+                CA.flash_attention_hop(q, k, v, *live, 4096, 0, True)),
+            "K8 zigzag part (16, 1024, 64) of (16, 2048, 64) blocks, bf16 "
+            "visible hop": lambda: CA.flash_attention_hop(
+                part(q, 1), part(k, 0), part(v, 0), *zlive, 6144, 1024,
+                True)}
+    for key, fn in hops.items():
+        both(key, fn)
+        if hasattr(CA, "hop_groups"):
+            for g in (1, 2):
+                with forced_groups(CA, g):
+                    both(f"{key}, {g} consumer warpgroups a block", fn)
+    del q, k, v, k0, v0, carry, live, zlive
+    # K5 shares K8's loop (without the carry): it must read as in the
+    # parent
+    q, k, v = (torch.randn(2048, 64, 64, generator=gen, device=dev)
+               .bfloat16() for _ in range(3))
+    both("K5 (2048, 64, 64) bf16 causal",
+         lambda: CA.flash_attention_lse(q, k, v, True))
+    del q, k, v
+    blocks = [torch.randn(4096, 16384, generator=gen, device=dev)
+              for _ in range(4)]
+    for turn in range(3):
+        times[f"K10 all-gather 16384^2 f32, 4 ranks, turn {turn}"] = \
+            time_ms(lambda: CC.ring_all_gather(blocks, 0))
+        times[f"torch.cat per rank, turn {turn}"] = time_ms(
+            lambda: [torch.cat(blocks) for _ in blocks])
+    del blocks
+    torch.cuda.empty_cache()
+    SP = tdat.sp_transformer
+    tdat.init(nranks=4)
+    cfg = SP.SPConfig(*SP_CFG, torch.bfloat16)
+    shards = SP.shard_params(SP.init_params(cfg, gen, dev), [0, 1, 2, 3])
+    tokens = torch.randint(0, cfg.vocab, (1, SP_CFG[5]), generator=gen,
+                           device=dev, dtype=torch.int32)
+    step = SP.make_train_step([0, 1, 2, 3], cfg)
+    sp_step = lambda: step(shards, tokens, SP_LR)
+    sp_step()
+    times["sequence-parallel SGD step ms"] = statistics.median(
+        wall_ms(sp_step) for _ in range(3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sp_step()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    times["sequence-parallel SGD step, device busy ms"] = sum(
+        e.self_device_time_total for e in kern) / 1e3
+    times["sequence-parallel SGD step, K8 device ms"] = sum(
+        e.self_device_time_total for e in kern if "flash_" in e.key) / 1e3
+    print(json.dumps({"k4_k8_times": times, "package": tdat.__file__,
+                      "gpu": smi}))
+    return 0
+
+
 def k1_k9_only() -> int:
     """``--k1-k9``: build the GEMM and attention kernels, check K1 on each
     route and K9 against their plain versions, and time both (a quick
@@ -919,6 +1063,44 @@ def bf16_ulps(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     x, ref = x.float(), ref.float()
     e = torch.maximum(torch.frexp(x).exponent, torch.frexp(ref).exponent)
     return (x - ref).abs() / torch.ldexp(torch.ones_like(x), e - 8)
+
+
+# K4 against its plain version on each route: (m, k, n) and the route
+# int8_gemm_route must pick.  16384^3 is the one-rank product of the
+# distributed phase; 1000 x 784 x 1500 is ragged in m, n and in k against
+# the 128-byte stage (784 = 6 * 128 + 16: the last stage's TMA box is
+# mostly zero-filled); 100 x 48 x 40 is smaller than one tile and one
+# stage; k = 777 is no multiple of 16, which TMA cannot stride.
+INT8_CASES = (((16384, 16384, 16384), "wgmma"),
+              ((1000, 784, 1500), "wgmma"),
+              ((100, 48, 40), "wgmma"),
+              ((1000, 777, 1500), "mma"))
+
+
+def int8_kernels(gen, dev, errs) -> None:
+    """K4 on each route (``INT8_CASES``) against its plain version, bit for
+    bit (exact int32 sums, the same two f32 multiplies, one rounding to the
+    output type), f32 and bf16 out; each call must move its route's count
+    by one and no other."""
+    from distributedarrays_tpu_torch.ops import cuda_gemm as CG
+    for (m, k, n), route in INT8_CASES:
+        qa = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        qb = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        sa = torch.rand(m, generator=gen, device=dev) / 127
+        sb = torch.rand(n, generator=gen, device=dev) / 127
+        if CG.int8_gemm_route(qa, qb) != route:
+            raise AssertionError(f"int8 gemm {m}x{k}x{n}: int8_gemm_route "
+                                 f"picks another route than {route}")
+        for od in (torch.float32, torch.bfloat16):
+            got = on_route("matmul_int8", route, lambda: CG.cuda_matmul_int8(
+                qa, qb, sa, sb, od))
+            errs["matmul_int8"] = max(errs["matmul_int8"], exact(
+                f"int8 gemm {m}x{k}x{n} -> {od} ({route})", got,
+                CG.matmul_int8_plain(qa, qb, sa, sb, od)))
+        del qa, qb, got
+    torch.cuda.empty_cache()
 
 
 def gemm_kernels(randn, errs) -> None:
@@ -1099,6 +1281,30 @@ def fused_qkv(randn, S: int, B: int, H: int, D: int, dtype):
                  for t in qkv.split(E, dim=-1))
 
 
+def hop_check(CA, what, q, k, v, c0, qoff, koff, route, masked,
+              errs) -> None:
+    """One K8 hop of q against k, v from the live carry c0, on ``route``,
+    against the plain hop: in bf16 acc and l at TOL_BF16 (p rounded to bf16
+    against each key tile's running max, the plain version against the
+    whole block's), in f32 at TOL_F32; m at TOL_F32 (the products summed
+    in f32 in another order); a fully masked hop must hand the carry back
+    bit for bit."""
+    got = [x.clone() for x in c0]
+    on_route("flash_attention_hop", route, lambda: CA.flash_attention_hop(
+        q, k, v, *got, qoff, koff, True))
+    ref = CA.flash_attention_hop_plain(q, k, v, *c0, qoff, koff, True)
+    torch.cuda.synchronize()
+    if masked:
+        exact(what + ": copy-through of m, l, acc", got, list(c0))
+        return
+    tol = TOL_F32 if q.dtype == torch.float32 else TOL_BF16
+    check(what + ": acc", rel_err(got[2], ref[2]), tol)
+    check(what + ": l", rel_err(got[1], ref[1]), tol)
+    check(what + ": m", rel_err(got[0], ref[0]), TOL_F32)
+    errs["flash_attention_hop"] = max(errs["flash_attention_hop"],
+                                      max_abs(got[2], ref[2]))
+
+
 def attention_kernels(randn, errs) -> None:
     """Phase 6a: K5, K8 and K9 against their plain versions at the serving
     and sequence-parallel paths' shapes, each K5 call on its route."""
@@ -1121,34 +1327,42 @@ def attention_kernels(randn, errs) -> None:
         check(what + " lse", rel_err(lse, plse), TOL_F32)
         errs["flash_attention"] = max(errs["flash_attention"],
                                       max_abs(o.reshape(S, -1, D), po))
-    # one hop at (16, 2048, 64) on rank 2 of 4 (qoff 4096) from a live
-    # carry (the keys at 2048): visible, diagonal, fully masked
+    # one hop on rank 2 of 4 (qoff 2 B) from a live carry (the keys at B):
+    # visible, diagonal, fully masked; on the wgmma route at head dims 64
+    # and 128, on mma.sync at head dim 36 (which TMA cannot stride), and in
+    # f32 on the SIMT loop
+    for (H, B, D), dt, route in (((16, 2048, 64), bf16, "wgmma"),
+                                 ((16, 1024, 128), bf16, "wgmma"),
+                                 ((16, 1000, 36), bf16, "mma"),
+                                 ((16, 1024, 64), torch.float32, "f32")):
+        q, k, v, k0, v0 = (randn(H, B, D, dtype=dt) for _ in range(5))
+        c0 = CA.flash_attention_hop_plain(
+            q, k0, v0, *CA.flash_carry_init(H, B, D, q.device), 2 * B, B,
+            True)
+        for case, koff in (("visible", 0), ("diagonal", 2 * B),
+                           ("masked", 3 * B)):
+            hop_check(CA, f"flash hop {(H, B, D)} {dt} {case} ({route})", q,
+                      k, v, c0, 2 * B, koff, route, case == "masked", errs)
+    # a zigzag part: the second row half of rank 1's (16, 2048, 64) blocks
+    # (global rows 6 * 1024.., as zigzag_order puts chunk 2p - 1 - r there)
+    # against the first half of a block, with its own live carry; strided
+    # row parts of (h, b, d) blocks, as models/ring_attention.py hands them
+    # to K8
     H, B, D = 16, 2048, 64
     q, k, v, k0, v0 = (randn(H, B, D, dtype=bf16) for _ in range(5))
+    part = lambda x, i: x[:, i * (B // 2):(i + 1) * (B // 2)]
     c0 = CA.flash_attention_hop_plain(
-        q, k0, v0, *CA.flash_carry_init(H, B, D, q.device), 4096, 2048, True)
-    for case, koff in (("visible", 0), ("diagonal", 4096), ("masked", 6144)):
-        got = [x.clone() for x in c0]
-        CA.flash_attention_hop(q, k, v, *got, 4096, koff, True)
-        ref = CA.flash_attention_hop_plain(q, k, v, *c0, 4096, koff, True)
-        torch.cuda.synchronize()
-        if case == "masked":
-            exact("flash hop (16, 2048, 64) bf16 masked: copy-through of m, "
-                  "l, acc", got, list(c0))
-            continue
-        check(f"flash hop (16, 2048, 64) bf16 {case}: acc",
-              rel_err(got[2], ref[2]), TOL_BF16)
-        check(f"flash hop (16, 2048, 64) bf16 {case}: l",
-              rel_err(got[1], ref[1]), TOL_BF16)
-        # the running max takes no rounded p: exact bf16 products summed in
-        # f32 in another order
-        check(f"flash hop (16, 2048, 64) bf16 {case}: m",
-              rel_err(got[0], ref[0]), TOL_F32)
-        errs["flash_attention_hop"] = max(errs["flash_attention_hop"],
-                                          max_abs(got[2], ref[2]))
+        part(q, 1), part(k0, 1), part(v0, 1),
+        *CA.flash_carry_init(H, B // 2, D, q.device), 6144, 6144, True)
+    for case, koff in (("visible", 1024), ("diagonal", 6144),
+                       ("masked", 7168)):
+        hop_check(CA, f"flash hop zigzag part (16, 1024, 64) of (16, 2048, "
+                  f"64) blocks, bf16 {case} (wgmma)", part(q, 1), part(k, 0),
+                  part(v, 0), c0, 6144, koff, "wgmma", case == "masked",
+                  errs)
     # the whole K9 ring: S = 8192, 16 heads of 64, 4 ranks on the card
     ring_kernels(randn, errs)
-    del q, k, v, o, po, got, ref
+    del q, k, v, o, po, c0
     torch.cuda.empty_cache()
 
 
@@ -1271,6 +1485,9 @@ def sequence_parallel(tdat) -> dict:
             raise AssertionError(f"{fn} launched {kernel} {n} times, "
                                  f"expected {want}")
         o.close()
+    # every K8 hop of ring_flash_attention on the wgmma route
+    expect_routes("ring_flash_attention", "flash_attention_hop",
+                  {"wgmma": 16})
     rng = np.random.default_rng(6)
     hq, hk, hv = (rng.standard_normal((3001, 16, 64), dtype=np.float32)
                   for _ in range(3))
@@ -1641,7 +1858,7 @@ def sp_training(tdat, dev) -> dict:
 
     def on_wgmma(what, hops=16):
         """Every K13, K14 and K15 launch since the counts were reset ran on
-        the wgmma route, 32 a layer each, and every K6 and K7 launch,
+        the wgmma route, 32 a layer each, and every K8, K6 and K7 launch,
         ``hops`` a layer each."""
         got = {k: kbuild.route_counts()[k]
                for k in ("allgather_matmul", "allgather_matmul_rhs",
@@ -1651,7 +1868,8 @@ def sp_training(tdat, dev) -> dict:
                for v in got.values()):
             raise AssertionError(f"{what}: K13/K14/K15 routes {got}, "
                                  f"expected {32 * L} each on wgmma")
-        for kn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        for kn in ("flash_attention_hop", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv"):
             expect_routes(what, kn, {"wgmma": hops * L})
 
     # one gradient step, against the dense flagship on the same weights
@@ -2040,19 +2258,7 @@ def main() -> int:
     del x, got, ref
 
     n16 = 16384
-    for m, k, n in ((n16, n16, n16), (1000, 777, 1500)):
-        qa = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int8)
-        qb = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                           dtype=torch.int32).to(torch.int8)
-        sa = torch.rand(m, generator=gen, device=dev) / 127
-        sb = torch.rand(n, generator=gen, device=dev) / 127
-        for od in (torch.float32, torch.bfloat16):
-            errs["matmul_int8"] = max(errs["matmul_int8"], exact(
-                f"int8 gemm {m}x{k}x{n} -> {od}",
-                cuda_gemm.cuda_matmul_int8(qa, qb, sa, sb, od),
-                cuda_gemm.matmul_int8_plain(qa, qb, sa, sb, od)))
-    del qa, qb
+    int8_kernels(gen, dev, errs)
     P4 = 4
     blocks = [randn(n16 // P4, n16) for _ in range(P4)]
     for dim in (0, 1):
@@ -2204,6 +2410,9 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the distributed "
                              f"GEMM path: {missing}")
+    # K4: 1 x 16384^3 (one rank), 4 x 4096 x 16384 x 16384 ((4,1) rows) and
+    # 8 x 8192^3 (Cannon 2 x 2), all on the wgmma route
+    expect_routes("distributed GEMM", "matmul_int8", {"wgmma": 13})
     tdat.d_closeall()
     del A41, B41, Y14, At, Bt, Cref
     torch.cuda.empty_cache()
@@ -2514,6 +2723,8 @@ if __name__ == "__main__":
              else k1_k9_only() if sys.argv[1:] == ["--k1-k9"]
              else attn_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-attn"]
+             else k4_k8_times(*sys.argv[2:3])
+             if sys.argv[1:2] == ["--time-k4-k8"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

@@ -19,11 +19,15 @@
 //   mapped from its own strides), other bf16 on mma.sync (attn_tile.cuh
 //   `attend_mma`), f32 on the SIMT loop.
 // - K8 `da_flash_hop` replaces `_carry_kernel` (pallas_call in
-//   `_build_carry`): the attn_tile.cuh loops, with (m, l, acc) read at the
-//   start and written at the end, in place (each block reads and writes only
-//   its own rows).  The global offsets qoff/koff enter the causal test and
-//   the skip, so a hop whose keys all lie after its queries copies the carry
-//   through.
+//   `_build_carry`): K5's loops with (m, l, acc) read at the start and
+//   written at the end, in place (each block reads and writes only its own
+//   rows).  The global offsets qoff/koff enter the causal test and the
+//   skip, so a hop whose keys all lie after its queries copies the carry
+//   through.  Routes as K5's, on the hop's (B, H, D) views of its (H, B, D)
+//   blocks: bf16 that TMA can read on wgmma + TMA (`attend_wgmma` in its
+//   FLASH numerics, with NWG = `groups` consumer warpgroups a block, chosen
+//   by the caller from the grid's size), other bf16 on mma.sync, f32 on the
+//   SIMT loop.
 // - K9 `da_ring_attn_step` replaces distributedarrays_tpu/models/
 //   ring_attention.py `_rdma_attn_call` (its pallas_call): one launch per
 //   rank per ring step.  The first blocks forward the resident K/V pair
@@ -52,9 +56,9 @@
 // the result is K9's f32 one, at 8*D a pair (one QK^T and three PV
 // products a tile).  In f32 all three run the SIMT loop on the f32 FMA
 // pipes (attend), 4*D a pair at 67 TFLOP/s, since TF32 tensor cores would
-// round the products.  K8 in bf16 stages K and V through a two-stage
-// cp.async pipeline on mma.sync; K5 and K9 in bf16 stream them by TMA into
-// wgmma, so no thread spends instructions on the copies.
+// round the products.  On the wgmma route K5, K8 and K9 stream K and V by
+// TMA into wgmma, so no thread spends instructions on the copies; K8 adds
+// its carry, 2 (h b + h b dh) f32 words read and written a hop.
 
 #include "attn_sm90.cuh"
 #include "attn_tile.cuh"
@@ -176,33 +180,39 @@ ring_step_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
   const int b = blockIdx.x - ncopy;
-  da_sm90::attend_wgmma<DMAX, false, 1>(&tq, &tk, &tv, a, b % a.h, b / a.h,
-                                        smem_b);
+  da_sm90::attend_wgmma<DMAX, false, 1, true>(&tq, &tk, &tv, a, b % a.h,
+                                              b / a.h, smem_b);
 }
 
-// K5 in bf16 on wgmma + TMA: two consumer warpgroups of 64 query rows a
-// block, sharing every K/V stage, so that one's softmax overlaps the
-// other's products; heaviest query tiles first.  Two warpgroups (96
-// registers at DMAX 64, two blocks an SM) read 0.131 ms at (2048, 64, 64)
-// bf16 causal against 0.145 ms for one (108 registers, three blocks an SM,
-// K9's layout), in turns in one call (H100 80GB HBM3, 700 W, chip_smoke.py
-// --time-attn).
+// K5 and K8 in bf16 on wgmma + TMA: NWG consumer warpgroups of 64 query
+// rows a block, sharing every K/V stage, so that one's softmax overlaps
+// another's products; heaviest query tiles first.  K5 takes two
+// warpgroups (96 registers at DMAX 64, two blocks an SM): 0.131 ms at
+// (2048, 64, 64) bf16 causal against 0.145 ms for one (108 registers,
+// three blocks an SM, K9's layout), in turns in one call (H100 80GB HBM3,
+// 700 W, chip_smoke.py --time-attn).  K8 takes the count its caller
+// chooses (cuda_attention.py `hop_groups`) and CARRY, which K5 leaves out:
+// compiled into K5, the carry's load held K5 at 96 registers with 20 bytes
+// of spills and read 0.140-0.145 ms of device time at (2048, 64, 64)
+// against the parent's 0.127-0.129 (H100 80GB HBM3, 700 W, chip_smoke.py
+// --time-k4-k8, in turns).
 constexpr int K5_GROUPS = 2;
 
-template <int DMAX>
-__global__ void __launch_bounds__(128 * K5_GROUPS + 32, DMAX > 64 ? 1 : 2)
+template <int DMAX, int NWG, bool CARRY>
+__global__ void __launch_bounds__(128 * NWG + 32,
+                                  DMAX > 64 ? 1 : (NWG == 1 ? 3 : 2))
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const da_sm90::AttnArgs a) {
   extern __shared__ uint8_t smem_b[];
-  const int rows = K5_GROUPS * da_sm90::AW_ROWS;
+  const int rows = NWG * da_sm90::AW_ROWS;
   const int nq = (a.b + rows - 1) / rows;
   const int n = blockIdx.x % a.h;
   int qt = blockIdx.x / a.h;
   if (a.causal) qt = nq - 1 - qt;  // heaviest query tiles first
-  da_sm90::attend_wgmma<DMAX, true, K5_GROUPS>(&tq, &tk, &tv, a, n, qt,
-                                               smem_b);
+  da_sm90::attend_wgmma<DMAX, true, NWG, CARRY>(&tq, &tk, &tv, a, n, qt,
+                                                smem_b);
 }
 
 // K9 at a step with nothing to accumulate: only the forward blocks
@@ -322,11 +332,15 @@ int launch_ring_wgmma(const Args& a, const void* q, const void* kc,
   return (int)cudaGetLastError();
 }
 
-// K5 on wgmma + TMA over the strided views of `a`
-template <int DMAX>
+// K5 (init and finalize: o and lse; CARRY false) or K8 (neither: the carry
+// read and written in place; CARRY true) on wgmma + TMA over the strided
+// views of `a`, NWG consumer warpgroups a block
+template <int DMAX, int NWG, bool CARRY>
 int launch_flash_wgmma(const Args& a, cudaStream_t s) {
   da_sm90::AttnArgs r;
-  r.m = r.l = r.acc = nullptr;
+  r.m = a.m;
+  r.l = a.l;
+  r.acc = a.acc;
   r.o = static_cast<__nv_bfloat16*>(a.o.p);
   r.oss = a.o.ss;
   r.osb = a.o.sb;
@@ -337,9 +351,11 @@ int launch_flash_wgmma(const Args& a, cudaStream_t s) {
   r.dh = a.d;
   r.nh = a.q.nh;
   r.sk = a.sk;
-  r.qoff = r.koff = 0;
+  r.qoff = a.qoff;
+  r.koff = a.koff;
   r.causal = a.causal;
-  r.init = r.finalize = 1;
+  r.init = a.init;
+  r.finalize = a.finalize;
   r.scale = a.scale;
   CUtensorMap tm[3];
   const da_attn::View<const void>* v[3] = {&a.q, &a.k, &a.v};
@@ -350,15 +366,15 @@ int launch_flash_wgmma(const Args& a, cudaStream_t s) {
                                      v[i]->nh, a.d);
     if (rc) return rc;
   }
-  const size_t sm = da_sm90::aw_smem_bytes<DMAX, K5_GROUPS>();
+  const size_t sm = da_sm90::aw_smem_bytes<DMAX, NWG>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sm);
+      flash_wgmma_kernel<DMAX, NWG, CARRY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
   if (err != cudaSuccess) return (int)err;
-  const int rows = K5_GROUPS * da_sm90::AW_ROWS;
+  const int rows = NWG * da_sm90::AW_ROWS;
   const int nq = (a.sq + rows - 1) / rows;
-  flash_wgmma_kernel<DMAX><<<nq * a.hall, 128 * K5_GROUPS + 32, sm, s>>>(
-      tm[0], tm[1], tm[2], r);
+  flash_wgmma_kernel<DMAX, NWG, CARRY>
+      <<<nq * a.hall, 128 * NWG + 32, sm, s>>>(tm[0], tm[1], tm[2], r);
   return (int)cudaGetLastError();
 }
 
@@ -403,10 +419,13 @@ Args make_args(const void* q, const void* k, const void* v, void* o,
   return a;
 }
 
-// route: 0 = f32 (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA
-int flash(const Args& a, int route, int device, void* stream) {
+// route: 0 = f32 (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on wgmma + TMA:
+// K5 (a.init) with K5_GROUPS consumer warpgroups a block, K8 with `groups`
+// (1 or 2)
+int flash(const Args& a, int route, int groups, int device, void* stream) {
   if (a.sq <= 0 || a.hall <= 0) return 0;
-  if (a.d <= 0 || a.d > 128 || route < 0 || route > 2)
+  if (a.d <= 0 || a.d > 128 || route < 0 || route > 2 ||
+      (route == 2 && groups != 1 && groups != 2))
     return (int)cudaErrorInvalidValue;
   if (route == 2 && !da_sm90::views_tma_ok(a.hall, a.d, a.q.nh, a.q, a.k, a.v,
                                             a.o))
@@ -416,8 +435,14 @@ int flash(const Args& a, int route, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (route) {
     case 2:
-      return a.d <= 64 ? launch_flash_wgmma<64>(a, s)
-                       : launch_flash_wgmma<128>(a, s);
+      if (a.init)
+        return a.d <= 64 ? launch_flash_wgmma<64, K5_GROUPS, false>(a, s)
+                         : launch_flash_wgmma<128, K5_GROUPS, false>(a, s);
+      if (groups == 1)
+        return a.d <= 64 ? launch_flash_wgmma<64, 1, true>(a, s)
+                         : launch_flash_wgmma<128, 1, true>(a, s);
+      return a.d <= 64 ? launch_flash_wgmma<64, 2, true>(a, s)
+                       : launch_flash_wgmma<128, 2, true>(a, s);
     case 1:
       return a.d <= 64 ? launch_flash_mma<64>(a, s) : launch_flash_mma<128>(a, s);
     default:
@@ -441,22 +466,27 @@ extern "C" int da_flash_attention(const void* q, const void* k, const void* v,
   Args a = make_args(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr,
                      nullptr, meta, sq, sk, d, hall, 0, 0, causal, 1, 1,
                      scale);
-  return flash(a, route, device, stream);
+  return flash(a, route, K5_GROUPS, device, stream);
 }
 
 // K8: one hop.  The carry m, l (hall, sq) and acc (hall, sq, d) f32 is
 // read and then overwritten in place; qoff and koff are the global
-// positions of the first query and key row.
+// positions of the first query and key row; `meta` as K5's (o's entries
+// repeat q's).  route: 0 = f32 (SIMT), 1 = bf16 on mma.sync, 2 = bf16 on
+// wgmma + TMA with `groups` (1 or 2) consumer warpgroups a block, refused
+// (cudaErrorInvalidValue) unless every view is one TMA can read.  Returns
+// the cudaGetLastError() code of the launch, or 1000 + the CUresult when a
+// TMA tensor map cannot be encoded.
 extern "C" int da_flash_hop(const void* q, const void* k, const void* v,
                             void* m, void* l, void* acc,
                             const long long* meta, int sq, int sk, int d,
                             int hall, long long qoff, long long koff,
-                            int causal, float scale, int bf16, int device,
-                            void* stream) {
+                            int causal, float scale, int route, int groups,
+                            int device, void* stream) {
   Args a = make_args(q, k, v, nullptr, nullptr, static_cast<float*>(m),
                      static_cast<float*>(l), static_cast<float*>(acc), meta,
                      sq, sk, d, hall, qoff, koff, causal, 0, 0, scale);
-  return flash(a, bf16 ? 1 : 0, device, stream);
+  return flash(a, route, groups, device, stream);
 }
 
 // K9: step `first`..`last` of the ring for one rank.  q (b, h, dh) and the

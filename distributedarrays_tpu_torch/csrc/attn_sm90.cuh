@@ -1,13 +1,17 @@
 // The online-softmax loop of the bf16 attention kernels on wgmma + TMA
-// (attention.cu): flash attention (K5, `da_flash_attention`) and the fused
-// ring-attention step (K9, `da_ring_attn_step`), in the two numerics of
-// attn_tile.cuh, chosen by the FLASH template flag:
-// - FLASH (K5; pallas_attention.py `_kernel`): s = (q.k) * scale in f32
-//   (the scale after the product), masked, p = exp(s - m_safe) in f32; l
-//   sums the unrounded p; p is rounded to bf16 once, and acc = acc * alpha
-//   + round(p) V is one register-A wgmma pass accumulating into acc, which
-//   stays in registers from the first key tile to the last; at the end o =
-//   acc / l in bf16 and lse = m + log l into (H_all, S) f32.
+// (attention.cu): flash attention (K5, `da_flash_attention`), one ring hop
+// (K8, `da_flash_hop`) and the fused ring-attention step (K9,
+// `da_ring_attn_step`), in the two numerics of attn_tile.cuh, chosen by the
+// FLASH template flag:
+// - FLASH (K5 and K8; pallas_attention.py `_kernel` and `_carry_kernel`):
+//   s = (q.k) * scale in f32 (the scale after the product), masked, p =
+//   exp(s - m_safe) in f32; l sums the unrounded p; p is rounded to bf16
+//   once, and acc = acc * alpha + round(p) V is one register-A wgmma pass
+//   accumulating into acc, which stays in registers from the first key
+//   tile to the last.  K5 starts afresh (init) and at the end writes o =
+//   acc / l in bf16 and lse = m + log l into (H_all, S) f32 (finalize); K8
+//   reads the carry (m, l, acc) at the start and writes it back at the end,
+//   as RING does.
 // - RING (K9; ring_attention.py `_rdma_attn_call`): q scaled in bf16 (q *
 //   bf16(scale) rounded once), f32 products and softmax, p not rounded: p is
 //   split into three bf16 terms (p, what rounding p leaves, what rounding
@@ -43,7 +47,9 @@
 // every tile after it is masked for all of its 64 rows, and skipping it
 // leaves m, l and acc bit for bit as they were (a warpgroup that is done
 // before the block's last tile still waits for and releases each stage, so
-// the stages' phases stay in step).
+// the stages' phases stay in step).  A block with no visible key tile at
+// all (a hop whose keys all lie after its queries) loads nothing and
+// writes the carry back exactly as it read it.
 
 #pragma once
 
@@ -73,9 +79,9 @@ __host__ __device__ constexpr size_t aw_smem_bytes() {
 }
 
 struct AttnArgs {
-  float* m;             // RING: carry (h, b) f32
-  float* l;             // RING: carry (h, b) f32
-  float* acc;           // RING: carry (h, b, dh) f32
+  float* m;             // the carry (CARRY): m and l (h, b) and acc
+  float* l;             //   (h, b, dh) f32, read unless init and
+  float* acc;           //   written unless finalize
   __nv_bfloat16* o;     // written when finalize, through its view:
   int64_t oss, osb, osh;  //   row, outer-head and inner-head strides
   float* lse;           // FLASH: (h, b) f32, or null
@@ -182,8 +188,11 @@ __device__ __forceinline__ void tma_load_view(void* dst, const CUtensorMap* m,
 }
 
 // Query tile qt (NWG * 64 rows) of head n.  Run by all 128 NWG + 32
-// threads; the producer warp returns early.
-template <int DMAX, bool FLASH, int NWG>
+// threads; the producer warp returns early.  CARRY: the block may read the
+// carry (m, l, acc) unless a.init and write it back unless a.finalize (K8,
+// K9); without it the block starts afresh and finalizes (K5), with no
+// carry code compiled in.
+template <int DMAX, bool FLASH, int NWG, bool CARRY>
 __device__ __forceinline__ void attend_wgmma(const CUtensorMap* tq,
                                              const CUtensorMap* tk,
                                              const CUtensorMap* tv,
@@ -274,16 +283,18 @@ __device__ __forceinline__ void attend_wgmma(const CUtensorMap* tq,
   for (int h = 0; h < 2; ++h) {
     row[h] = r0 + wq * 16 + g + 8 * h;
     const int64_t crow = (int64_t)n * a.b + row[h];
-    const bool load = !FLASH && !a.init && row[h] < a.b;
+    const bool load = CARRY && !a.init && row[h] < a.b;
     m_i[h] = load ? a.m[crow] : -INFINITY;
     l_i[h] = load ? a.l[crow] : 0.f;
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int dd = 8 * j + 2 * t + e;
-        o[4 * j + 2 * h + e] = load && dd < a.dh ? a.acc[crow * a.dh + dd] : 0.f;
-      }
+    for (int j = 0; j < ND; ++j) {
+      const int dd = 8 * j + 2 * t;  // dh is a multiple of 8
+      const float2 c = load && dd < a.dh
+          ? *reinterpret_cast<const float2*>(a.acc + crow * a.dh + dd)
+          : make_float2(0.f, 0.f);
+      o[4 * j + 2 * h] = c.x;
+      o[4 * j + 2 * h + 1] = c.y;
+    }
   }
 
   for (int it = 0; it < ntiles; ++it) {
@@ -429,18 +440,18 @@ __device__ __forceinline__ void attend_wgmma(const CUtensorMap* tq,
       }
       if (FLASH && a.lse && t == 0)
         a.lse[crow] = (aw_finite(m_i[h]) ? m_i[h] : 0.f) + logf(ln);
-    } else {
+    } else if (CARRY) {
       if (t == 0) {
         a.m[crow] = m_i[h];
         a.l[crow] = l_i[h];
       }
 #pragma unroll
-      for (int j = 0; j < ND; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int dd = 8 * j + 2 * t + e;
-          if (dd < a.dh) a.acc[crow * a.dh + dd] = o[4 * j + 2 * h + e];
-        }
+      for (int j = 0; j < ND; ++j) {
+        const int dd = 8 * j + 2 * t;
+        if (dd < a.dh)
+          *reinterpret_cast<float2*>(a.acc + crow * a.dh + dd) =
+              make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+      }
     }
   }
 }

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA loops of
 // gemm_sm90.cuh (the block GEMM K1 and the ring GEMMs K13, K14, K15),
-// attn_sm90.cuh (flash attention K5 and the fused ring attention step K9)
-// and attn_bwd_sm90.cuh (the backward's dq pass K6 and dk/dv pass K7):
-// mbarriers, TMA
-// tile loads and stores, shared-memory matrix descriptors for 128-byte
-// swizzled tiles, the wgmma instructions the loops issue, and the
-// host-side encoding of TMA tensor maps.
+// gemm_int8.cu (the int8 GEMM K4), attn_sm90.cuh (flash attention K5, the
+// ring hop K8 and the fused ring attention step K9) and attn_bwd_sm90.cuh
+// (the backward's dq pass K6 and dk/dv pass K7): mbarriers, TMA tile loads
+// and stores, shared-memory matrix descriptors for 128-byte swizzled
+// tiles, the wgmma instructions the loops issue, and the host-side
+// encoding of TMA tensor maps.
 //
 // Tiles land in shared memory as TMA writes them with 128-byte swizzling:
 // a box whose inner extent is 64 bf16 (128 bytes) is stored as rows of 128
@@ -18,10 +18,11 @@
 // leading byte offset (LBO) and a stride byte offset (SBO), all in 16-byte
 // units, and the swizzle mode in bits 62-63.
 // - K-major operand (the contraction dim contiguous: A of the GEMM, Q and K
-//   of attention): rows of 128 bytes hold 64 values of the contraction
-//   dim; SBO = 1024 bytes steps 8 rows; LBO is unused; the k-th 16-deep
-//   slice starts 32 bytes further (the hardware applies the swizzle to the
-//   absolute address bits).
+//   of attention, both int8 operands): rows of 128 bytes hold 64 bf16 (or
+//   128 int8) values of the contraction dim; SBO = 1024 bytes steps 8 rows;
+//   LBO is unused; the k-th slice of one instruction's depth (16 bf16 or
+//   32 int8: 32 bytes either way) starts 32 bytes further (the hardware
+//   applies the swizzle to the absolute address bits).
 // - MN-major operand (B of the GEMM, V of attention: the output dim
 //   contiguous, read with the transpose bit): rows of 128 bytes hold 64
 //   output columns for one step of the contraction dim; SBO = 1024 bytes
@@ -197,6 +198,11 @@ __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void reg_fence(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // m64nNk16, bf16 in, f32 accumulators, D = A B + (scale_d ? D : 0).
 // Accumulator layout (as mma.sync's m16n8 C fragments, warp w of the
@@ -340,6 +346,47 @@ __device__ __forceinline__ void wgmma_rs<128, 1>(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// m64nNk32, s8 in, s32 accumulators, D = A B + (scale_d ? D : 0): the
+// integer form takes no scale or transpose operands, so both A and B are
+// K-major in shared memory.  The accumulator layout is the f32 one above.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+// D[64 x 256] (+)= A (shared, K-major) * B (shared, K-major), s8 in, s32
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
 // ---------------------------------------------------------------------------
 // host: TMA tensor maps
 // ---------------------------------------------------------------------------
@@ -371,13 +418,16 @@ inline EncodeTiledFn encode_tiled() {
 // Error codes above this are MAP_ERROR + the encoder's CUresult.
 constexpr int MAP_ERROR = 1000;
 
-// A bf16 tensor map over `rank` dims (innermost first) with 128-byte
-// swizzling; `strides` are the byte strides of dims 1.. (multiples of 16),
-// `box` the tile extents (box[0] * 2 <= 128 bytes).  Out-of-range elements
-// of a box read as zero.  Returns 0 or an error code.
+// A tensor map of `type` (bf16 by default) over `rank` dims (innermost
+// first) with 128-byte swizzling; `strides` are the byte strides of dims
+// 1.. (multiples of 16), `box` the tile extents (box[0] elements at most
+// 128 bytes).  Out-of-range elements of a box read as zero.  Returns 0 or
+// an error code.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box) {
+                    const uint32_t* box,
+                    CUtensorMapDataType type =
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t d[5], s[4];
@@ -388,7 +438,7 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
     es[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  CUresult r = fn(map, type, (cuuint32_t)rank,
                   const_cast<void*>(base), d, s, bx, es,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -48,14 +48,15 @@ block-shape rule; here they are (H, B) and (H, S)); and the autotune
 lookups ``tuned_flash_config`` / ``tuned_hop_blocks_for``, which
 only choose those knobs.
 
-K5, K6 and K7 launch on the route ``flash_attention_route`` picks from the
-operands: ``"wgmma"`` (bf16 views that TMA can read: wgmma fed by TMA,
-``csrc/attn_sm90.cuh`` and ``csrc/attn_bwd_sm90.cuh``), ``"mma"`` (other
-bf16: mma.sync) or ``"f32"`` (the SIMT loops); each launch also counts under
-its route (``kbuild.route_counts()["flash_attention" |
-"flash_attention_bwd_dq" | "flash_attention_bwd_dkv"]``).  The C entries
-refuse a wgmma route whose operands TMA cannot read, and the wrapper
-raises: nothing falls back.  K8 keeps mma.sync in bf16.
+K5, K6, K7 and K8 launch on the route ``flash_attention_route`` picks from
+the operands: ``"wgmma"`` (bf16 views that TMA can read: wgmma fed by TMA,
+``csrc/attn_sm90.cuh`` and ``csrc/attn_bwd_sm90.cuh``; K8 on K5's loop with
+its carry read and written, ``hop_groups`` consumer warpgroups a block),
+``"mma"`` (other bf16: mma.sync) or ``"f32"`` (the SIMT loops); each launch
+also counts under its route (``kbuild.route_counts()["flash_attention" |
+"flash_attention_hop" | "flash_attention_bwd_dq" |
+"flash_attention_bwd_dkv"]``).  The C entries refuse a wgmma route whose
+operands TMA cannot read, and the wrapper raises: nothing falls back.
 
 ``ring_attn_step`` launches K9 (``da_ring_attn_step``), the fused ring
 attention step that ``models/ring_attention.ring_attention_rdma`` drives,
@@ -82,7 +83,8 @@ __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_lse_plain", "flash_attention_bwd_plain",
            "flash_attention_hop_plain", "flash_carry_init",
            "flash_carry_finalize", "flash_block_size", "ring_attn_step",
-           "ring_attn_route", "flash_attention_route", "MAX_HEAD_DIM"]
+           "ring_attn_route", "flash_attention_route", "hop_groups",
+           "MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 128            # the kernels' register tiles (attention.cu)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -207,8 +209,8 @@ _ARGTYPES = {
     "da_flash_attention": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     "da_flash_hop": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 +
-    [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_float] +
+    [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "da_ring_attn_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 +
     [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 +
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
@@ -286,8 +288,8 @@ def _launched(rc: int, what: str, kernel: str, route=None) -> None:
 
 
 def flash_attention_route(dtype: torch.dtype, d: int, *views) -> str:
-    """K5's, K6's and K7's route for operands of ``dtype`` with head dim
-    ``d`` whose tensors (strided views, the head dim contiguous) are
+    """K5's, K6's, K7's and K8's route for operands of ``dtype`` with head
+    dim ``d`` whose tensors (strided views, the head dim contiguous) are
     ``views``: ``"wgmma"`` when TMA can read them all (bf16, d a multiple of
     8 up to ``MAX_HEAD_DIM``, the row stride and the stride of every head
     dim longer than 1 positive and a multiple of 16 bytes, every base
@@ -486,6 +488,19 @@ def flash_attention_hop_bwd(q, k, v, do, lse, dd, qoff, koff,
 # ---------------------------------------------------------------------------
 
 
+def hop_groups(rows: int, heads: int, sms: int) -> int:
+    """Consumer warpgroups of 64 query rows in a block of K8's wgmma route
+    for a hop of ``rows`` query rows and ``heads`` heads on a card of
+    ``sms`` SMs: two (a block shares each K/V stage between them, K5's
+    layout, two blocks an SM) while that grid still has a block for every
+    SM, else one (three blocks an SM), so that a short hop, such as a
+    zigzag part of half a block, does not leave SMs idle.  Device time on
+    an H100 80GB HBM3 at 700 W (chip_smoke.py --time-k4-k8): a visible
+    (16, 2048, 64) hop 0.063-0.065 ms on two, 0.068-0.069 on one; a
+    (16, 1024, 64) zigzag part's 0.018-0.020 on one, 0.025 on two."""
+    return 2 if -(-rows // 128) * heads >= sms else 1
+
+
 def flash_attention_hop(q, k, v, m, l, acc, qoff, koff,
                         causal: bool = False, scale=None):
     """One hop of flash attention over (H, B, D) blocks with the carry
@@ -507,13 +522,16 @@ def flash_attention_hop(q, k, v, m, l, acc, qoff, koff,
     _check_operands("flash hop", q, k, v)
     if q.numel():
         qh, kh, vh = (x.transpose(0, 1) for x in (q, k, v))  # (B, H, D) views
+        route = flash_attention_route(q.dtype, D, qh, kh, vh)
         rc = _fn("da_flash_hop", "flash_attention_hop")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
             l.data_ptr(), acc.data_ptr(), _meta(qh, kh, vh, qh), B, B, D, H,
             int(qoff), int(koff), int(causal), _scale(D, scale),
-            int(q.dtype == torch.bfloat16), q.device.index,
+            kbuild.ROUTES.index(route),
+            hop_groups(B, H, kbuild.sm_count(q.device)), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
-        _launched(rc, "flash hop", "flash_attention_hop")
+        _launched(rc, f"flash hop ({route} route)", "flash_attention_hop",
+                  route)
     return m, l, acc
 
 

@@ -522,17 +522,6 @@ def ring_tile_n(m: int, n: int, sms: int) -> int:
     return 64 if -(-m // 128) * -(-n // 128) <= sms // 2 else 128
 
 
-_sms: dict = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    n = _sms.get(dev.index)
-    if n is None:
-        n = _sms[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return n
-
-
 def _step_routes(route: str, devs, to: int = -1) -> list[str]:
     """Each rank's route, where rank r's step writes a slot of rank
     ``r + to`` (the left neighbour's for K13 and K14, the right one's,
@@ -574,7 +563,7 @@ def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
         + [o.data_ptr() + q * m_loc * n * isz for o in outs for q in range(p)])
     routes = _step_routes(route, devs)
     codes = [kbuild.RING_ROUTES.index(r) for r in routes]
-    tile_n = ring_tile_n(m_loc, n, _sm_count(devs[0]))
+    tile_n = ring_tile_n(m_loc, n, kbuild.sm_count(devs[0]))
     streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
     done = [order.mark(d) for d in devs]     # buffers allocated
     step = _fn("da_ring_ag_mm_a_step")
@@ -627,7 +616,7 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
         lda=k)
     routes = _step_routes(route, devs)
     codes = [kbuild.RING_ROUTES.index(r) for r in routes]
-    tile_n = ring_tile_n(m, n, _sm_count(devs[0]))
+    tile_n = ring_tile_n(m, n, kbuild.sm_count(devs[0]))
     streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
     done = [order.mark(d) for d in devs]     # buffers allocated
     step = _fn("da_ring_ag_mm_step")
@@ -696,7 +685,7 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
     route, xrows = _mm_rs_route(x_blocks, w_blocks, bufs, outs)
     routes = _step_routes(route, devs, to=1)
     codes = [kbuild.RING_ROUTES.index(r) for r in routes]
-    tile_n = ring_tile_n(m_loc, n, _sm_count(devs[0]))
+    tile_n = ring_tile_n(m_loc, n, kbuild.sm_count(devs[0]))
     slot = m_loc * n * x_blocks[0].element_size()
     slots = [(b.data_ptr(), b.data_ptr() + slot) for b in bufs]
     ws, ops = [w.data_ptr() for w in w_blocks], [o.data_ptr() for o in outs]

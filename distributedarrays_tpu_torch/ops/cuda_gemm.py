@@ -25,7 +25,12 @@ not fused.
 ``cuda_matmul_int8`` computes ``C = f32(Qa @ Qb) * (sa sb^T)`` from int8
 codes with an exact int32 accumulator and the dequantization fused into the
 tile flush; it takes any m, n and k (the Pallas kernel needs them to divide
-its tiles).  Its plain version ``matmul_int8_plain`` multiplies the codes as
+its tiles).  The kernel has two routes, which ``int8_gemm_route`` picks and
+each of which counts its own launches (``kbuild.route_counts()
+["matmul_int8"]``): ``"wgmma"`` (K a multiple of 16 and qa 16-byte aligned:
+wgmma fed by TMA, after a transpose kernel has written qb K-major into a
+scratch tensor the wrapper allocates) and ``"mma"`` (any other shape:
+mma.sync).  Its plain version ``matmul_int8_plain`` multiplies the codes as
 int32 on the CPU and as float64 on a card (which has no integer GEMM in
 torch), both exact while the int32 sum cannot overflow, then applies the
 same two f32 multiplies: kernel and plain version agree bit for bit.
@@ -47,7 +52,7 @@ from ..utils import kbuild
 
 __all__ = ["cuda_matmul", "matmul_plain", "cuda_matmul_int8",
            "matmul_int8_plain", "quantize_rows", "quantized_matmul",
-           "torch_matmul", "gemm_route"]
+           "torch_matmul", "gemm_route", "int8_gemm_route"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -222,10 +227,20 @@ def _int8_fn():
     if _fn_int8 is None:
         f = kbuild.load("gemm_int8").da_gemm_int8
         f.restype = ctypes.c_int
-        f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
+        f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p]
         _fn_int8 = f
     return _fn_int8
+
+
+def int8_gemm_route(qa: torch.Tensor, qb: torch.Tensor) -> str:
+    """The int8 kernel's route for contiguous (m, k) @ (k, n) codes:
+    ``"wgmma"`` when TMA can read A and the K-major copy of B (k a multiple
+    of 16, so every row is a multiple of 16 bytes, and qa 16-byte aligned;
+    the copy is the wrapper's own allocation and qb is read by the
+    transpose kernel at any alignment), ``"mma"`` otherwise."""
+    k = qa.shape[1]
+    return "wgmma" if k % 16 == 0 and qa.data_ptr() % 16 == 0 else "mma"
 
 
 def cuda_matmul_int8(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
@@ -252,12 +267,20 @@ def cuda_matmul_int8(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
     c = torch.empty((m, n), dtype=out_dtype, device=dev)
     if c.numel() == 0 or k == 0:
         return c.zero_()                     # nothing to multiply
+    route = int8_gemm_route(qa, qb)
+    # the wgmma route's K-major copy of qb, written by the kernel's own
+    # transpose on the same stream
+    ws = torch.empty((n, k), dtype=torch.int8, device=dev) \
+        if route == "wgmma" else None
     rc = _int8_fn()(qa.data_ptr(), qb.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-                    c.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16),
-                    dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                    c.data_ptr(), None if ws is None else ws.data_ptr(),
+                    m, n, k, kbuild.ROUTES.index(route),
+                    int(out_dtype == torch.bfloat16), dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"int8 GEMM kernel launch failed: CUDA error {rc}")
-    kbuild.count("matmul_int8")
+        raise RuntimeError(f"int8 GEMM kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
+    kbuild.count("matmul_int8", route)
     return c
 
 

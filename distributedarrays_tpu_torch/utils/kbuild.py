@@ -12,13 +12,17 @@ Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
 A kernel with several routes also names the route it launched
 (``count(name, route)``), counted apart in ``route_counts()``: the block
-GEMM's, flash attention's (K5) and the backward's dq (K6) and dk/dv (K7)
-``wgmma``/``mma``/``f32``, the fused ring attention step's compute
+GEMM's, flash attention's (K5), the ring hop's (K8) and the backward's dq
+(K6) and dk/dv (K7) ``wgmma``/``mma``/``f32``, the int8 GEMM's (K4)
+``wgmma``/``mma`` (``INT8_ROUTES``), the fused ring attention step's compute
 steps by route (a ring step that only forwards its K/V pair, or only
 starts or finishes the carry, counts as a launch and under no route), and
 every step of the ring GEMMs K13, K14 and K15 by route (``RING_ROUTES``:
 those three and ``wgmma_peer``, wgmma with the slot the step writes on
 another card).
+
+``sm_count(device)`` is a card's SM count (cached), which the wrappers
+use to size their grids.
 
 ``enable_peer_access(device, peer)`` lets one card read and write another's
 memory (``cudaDeviceEnablePeerAccess``), which the collective kernels need
@@ -37,8 +41,8 @@ import threading
 from pathlib import Path
 
 __all__ = ["build", "load", "count", "reset_launches", "launch_counts",
-           "route_counts", "enable_peer_access", "KERNELS", "ROUTES",
-           "RING_ROUTES", "NVCC_FLAGS"]
+           "route_counts", "enable_peer_access", "sm_count", "KERNELS",
+           "ROUTES", "RING_ROUTES", "INT8_ROUTES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -65,17 +69,22 @@ KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
 ROUTES = ("f32", "mma", "wgmma")
 # the ring all-gather GEMMs' routes, in the order of their route codes
 RING_ROUTES = ROUTES + ("wgmma_peer",)
+# the int8 GEMM's routes (codes as in ROUTES: it has no f32 route)
+INT8_ROUTES = ("mma", "wgmma")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
 _routes = {k: dict.fromkeys(ROUTES, 0)
            for k in ("gemm", "ring_attention", "flash_attention",
-                     "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+                     "flash_attention_hop", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv")}
+_routes["matmul_int8"] = dict.fromkeys(INT8_ROUTES, 0)
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs",
                           "matmul_reducescatter")})
 _peers: set[tuple[int, int]] = set()
+_sms: dict[int, int] = {}
 build_log: dict[str, str] = {}
 
 
@@ -102,9 +111,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of each route of the block GEMM, flash attention, the
-    backward's dq and dk/dv passes, the ring attention step and the ring
-    GEMMs."""
+    """Launches of each route of the block GEMM, the int8 GEMM, flash
+    attention, the ring hop, the backward's dq and dk/dv passes, the ring
+    attention step and the ring GEMMs."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
 
@@ -165,6 +174,16 @@ def load(stem: str) -> ctypes.CDLL:
         with _lock:
             _libs[stem] = lib
     return lib
+
+
+def sm_count(device) -> int:
+    """The number of SMs of CUDA device ``device`` (a torch.device)."""
+    n = _sms.get(device.index)
+    if n is None:
+        import torch
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def enable_peer_access(device: int, peer: int) -> None:

@@ -173,6 +173,48 @@ def test_hop_bf16_matches_jax():
     _assert_carry(jc, tc, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case,qi,ki,koff", [("visible", 1, 0, 16),
+                                             ("diagonal", 1, 1, 96),
+                                             ("masked", 0, 1, 96)])
+def test_hop_on_zigzag_parts_matches_jax(dtype, case, qi, ki, koff):
+    # models/ring_attention.py hands K8 row halves x[:, i*m:(i+1)*m] of
+    # (h, b, d) blocks: strided views whose base lies i*m*d elements in.
+    # With 4 ranks of b = 32 rows in the zigzag layout, rank 1 holds chunks
+    # 1 and 6 of m = 16 rows: part 0 starts at global row 16, part 1 at 96.
+    # The k part lies wholly before the q part (visible), on its rows
+    # (diagonal) or wholly after it (masked).
+    H, b, D = 2, 32, 16
+    m = b // 2
+    q, k, v = _qkv((H, b, D), 71)
+    k0, v0 = _qkv((H, b, D), 72)[:2]
+    qoff = 96 if qi == 1 else 16
+    jdt = None if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    part = lambda x, i: x[:, i * m:(i + 1) * m]
+    npart = lambda x, i: np.ascontiguousarray(x[:, i * m:(i + 1) * m])
+    # a live carry: the q part's own diagonal block first
+    jc = _jax_hop(npart(q, qi), npart(k0, qi), npart(v0, qi),
+                  PA.flash_carry_init(H, m, D), qoff, qoff, True, jdt)
+    tq, tk, tv, tk0, tv0 = _t(q, k, v, k0, v0, dtype=tdt)
+    tc = CA.flash_carry_init(H, m, D)
+    CA.flash_attention_hop(part(tq, qi), part(tk0, qi), part(tv0, qi), *tc,
+                           qoff, qoff, True)
+    before = [x.clone() for x in tc]
+    assert not part(tq, qi).is_contiguous()
+    jc = _jax_hop(npart(q, qi), npart(k, ki), npart(v, ki), jc, qoff, koff,
+                  True, jdt)
+    CA.flash_attention_hop(part(tq, qi), part(tk, ki), part(tv, ki), *tc,
+                           qoff, koff, True)
+    if dtype == "float32":
+        _assert_carry(jc, tc, **F32)
+    else:
+        _assert_carry(jc, tc, rtol=2e-2, atol=2e-2)
+    if case == "masked":                                # copy-through
+        for a, b_ in zip(before, tc):
+            assert torch.equal(a, b_)
+
+
 def test_fully_masked_hop_from_init_finalizes_to_zero():
     H, B, D = 2, 16, 8
     q, k, v = _qkv((H, B, D), 41)

@@ -1,5 +1,6 @@
-"""The routes of flash attention (K5) and its dk/dv backward (K7) in the
-PyTorch port (``cuda_attention.flash_attention_route``, the route counts)
+"""The routes of flash attention (K5), the ring hop (K8) and the dk/dv
+backward (K7) in the PyTorch port (``cuda_attention.flash_attention_route``,
+``hop_groups``, the route counts)
 and their plain versions on the layouts the routes see, against the JAX
 package's Pallas kernels.
 
@@ -106,6 +107,60 @@ def test_route_on_the_hop_backwards_transposed_blocks(out_dtype):
     assert ROUTE(BF16, 36, odd, odd, odd, odd) == "mma"
 
 
+@pytest.mark.parametrize("H,B,D,want", [(16, 2048, 64, "wgmma"),
+                                        (16, 1024, 128, "wgmma"),
+                                        (4, 100, 8, "wgmma"),
+                                        (4, 97, 36, "mma"),
+                                        (4, 96, 36, "mma")])
+def test_route_on_the_hops_transposed_blocks(H, B, D, want):
+    # K8 reads its contiguous (H, B, D) blocks as (B, H, D) views: rows D
+    # apart, heads B * D apart
+    q, k, v = (torch.zeros(H, B, D, dtype=BF16).transpose(0, 1)
+               for _ in range(3))
+    assert ROUTE(BF16, D, q, k, v) == want
+    assert ROUTE(torch.float32, D, *(x.float() for x in (q, k, v))) == "f32"
+
+
+@pytest.mark.parametrize("b,D,want", [(2048, 64, "wgmma"),
+                                      (96, 16, "wgmma"),
+                                      (2 * 97, 8, "wgmma"),
+                                      (2 * 97, 12, "mma")])
+@pytest.mark.parametrize("i", [0, 1])
+def test_route_on_zigzag_parts(b, D, want, i):
+    # models/ring_attention.py hands K8 the row halves x[:, i*m:(i+1)*m]
+    # of (h, b, d) blocks: base i*m*d elements in, rows d apart, heads b*d
+    H, m = 4, b // 2
+    blocks = [torch.zeros(H, b, D, dtype=BF16) for _ in range(3)]
+    parts = [x[:, i * m:(i + 1) * m].transpose(0, 1) for x in blocks]
+    assert not parts[0].is_contiguous()
+    assert parts[0].data_ptr() - blocks[0].data_ptr() == i * m * D * 2
+    assert ROUTE(BF16, D, *parts) == want
+
+
+@pytest.mark.parametrize("rows,heads,want", [(2048, 16, 2), (1024, 16, 1),
+                                             (1024, 64, 2), (64, 1, 1),
+                                             (8192, 4, 2)])
+def test_hop_groups_keeps_every_sm_busy(rows, heads, want):
+    # two warpgroups a block while that grid has a block for each of the
+    # 132 SMs, else one (three smaller blocks an SM)
+    assert CA.hop_groups(rows, heads, 132) == want
+
+
+def test_cpu_hop_calls_count_no_launch_or_route():
+    kb = tdat.kbuild
+    kb.reset_launches()
+    H, B, D = 2, 32, 8
+    q = torch.from_numpy(_gauss((H, B, D), 5)).to(BF16)
+    for x in (q, q.float()):
+        m, l, acc = CA.flash_carry_init(H, B // 2, D)
+        CA.flash_attention_hop(x[:, B // 2:], x[:, :B // 2], x[:, :B // 2],
+                               m, l, acc, B // 2, 0, True)
+        assert torch.isfinite(m).all() and l.gt(0).all()
+    assert kb.launch_counts()["flash_attention_hop"] == 0
+    assert kb.route_counts()["flash_attention_hop"] == dict.fromkeys(
+        kb.ROUTES, 0)
+
+
 @pytest.mark.parametrize("offset,want", [(0, "wgmma"), (8, "wgmma"),
                                          (1, "mma"), (4, "mma"),
                                          (64, "wgmma")])
@@ -141,10 +196,9 @@ def test_route_counts_include_flash_attention_and_the_dkv_backward():
     for name in ("flash_attention", "flash_attention_bwd_dkv"):
         assert counts[name] == dict.fromkeys(kb.ROUTES, 0)
     assert set(counts) >= {"gemm", "ring_attention", "allgather_matmul"}
-    # K6 takes K7's routes; K8 has one route in bf16 and is counted by
-    # launches only
+    # K6 and the ring hop K8 take K7's routes
     assert counts["flash_attention_bwd_dq"] == dict.fromkeys(kb.ROUTES, 0)
-    assert "flash_attention_hop" not in counts
+    assert counts["flash_attention_hop"] == dict.fromkeys(kb.ROUTES, 0)
     kb.count("flash_attention", "wgmma")
     kb.count("flash_attention_bwd_dkv", "mma")
     assert kb.route_counts()["flash_attention"]["wgmma"] == 1

@@ -99,6 +99,71 @@ def test_int8_wrapper_validation_and_overflow_warning():
     assert tdat.kbuild.launch_counts()["matmul_int8"] == 0
 
 
+def _codes(shape, offset=0):
+    """Contiguous int8 codes whose base lies ``offset`` bytes past a
+    16-byte aligned buffer's start."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + offset, dtype=torch.int8)
+    assert buf.data_ptr() % 16 == 0
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (16384, 16384, 16384, "wgmma"),      # the one-rank distributed product
+    (4096, 16384, 16384, "wgmma"),       # a (4,1) row block
+    (1000, 784, 1500, "wgmma"),          # ragged m, n; k ragged to 128
+    (100, 48, 40, "wgmma"),              # smaller than one tile
+    (7, 16, 3, "wgmma"),
+    (1000, 777, 1500, "mma"),            # k no multiple of 16
+    (64, 8, 64, "mma"),
+    (64, 24, 64, "mma")])
+def test_int8_route_on_contiguous_codes(m, k, n, want):
+    # only the strides and bases decide: meta tensors carry no data
+    qa = torch.empty((m, k), dtype=torch.int8, device="meta")
+    qb = torch.empty((k, n), dtype=torch.int8, device="meta")
+    if m * k <= 1 << 22:
+        qa, qb = _codes((m, k)), _codes((k, n))
+    assert G.int8_gemm_route(qa, qb) == want
+
+
+@pytest.mark.parametrize("a_off,b_off,want", [(0, 0, "wgmma"),
+                                              (16, 0, "wgmma"),
+                                              (0, 1, "wgmma"),
+                                              (0, 3, "wgmma"),
+                                              (1, 0, "mma"),
+                                              (8, 0, "mma"),
+                                              (4, 4, "mma")])
+def test_int8_route_on_misaligned_bases(a_off, b_off, want):
+    # TMA reads qa and the kernel's own K-major copy of qb; qb itself is
+    # read by the transpose kernel, which takes any base
+    qa, qb = _codes((64, 32), a_off), _codes((32, 48), b_off)
+    assert qa.data_ptr() % 16 == a_off % 16
+    assert G.int8_gemm_route(qa, qb) == want
+
+
+def test_int8_route_counts_and_cpu_calls():
+    kb = tdat.kbuild
+    kb.reset_launches()
+    assert kb.route_counts()["matmul_int8"] == dict.fromkeys(
+        kb.INT8_ROUTES, 0)
+    assert set(kb.INT8_ROUTES) == {"wgmma", "mma"}
+    # the route codes the C entry takes are those of ROUTES
+    assert [kb.ROUTES.index(r) for r in kb.INT8_ROUTES] == [1, 2]
+    qa, qb = _codes((16, 32)), _codes((32, 8))
+    qa.copy_(torch.arange(16 * 32).remainder(255).sub(127).view(16, 32))
+    qb.copy_(torch.arange(32 * 8).remainder(253).sub(126).view(32, 8))
+    r = G.cuda_matmul_int8(qa, qb, torch.ones(16), torch.ones(8))
+    assert torch.equal(r, (qa.int() @ qb.int()).float())
+    assert kb.launch_counts()["matmul_int8"] == 0
+    assert kb.route_counts()["matmul_int8"] == dict.fromkeys(
+        kb.INT8_ROUTES, 0)
+    kb.count("matmul_int8", "wgmma")
+    assert kb.route_counts()["matmul_int8"]["wgmma"] == 1
+    assert kb.launch_counts()["matmul_int8"] == 1
+    kb.reset_launches()
+    assert kb.route_counts()["matmul_int8"]["wgmma"] == 0
+
+
 def test_plain_int8_is_exact_at_saturation():
     # saturated codes at the largest safe K: the int32 sum is exact
     k = 4096
