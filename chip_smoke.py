@@ -19,10 +19,13 @@
      elements (except where the order error exceeds a bf16 spacing, next
      to zero);
    - single-step stencil: 8192^2 f32, random weights, nonzero halo rows;
-   - multistep stencil: k = 8, both Dirichlet flag settings.
-   Stencils: relative Frobenius error <= 1e-5 (the kernels sum in the
-   plain order without FMA contraction, so they are expected to agree
-   exactly).
+   - multistep stencil: 8192^2, 1000x777 (m not a multiple of a tile, n
+     odd) and 7x8193 (m below the tile height and below k), each at k =
+     1, 8 and 16, all four Dirichlet flag settings, random weights on the
+     generic route and the Laplacian on the 5-point route, every call on
+     the route ``multistep_route`` picks.
+   Stencils bit for bit (``exact``: the kernels sum in the plain order
+   without FMA contraction).
 3. Runs the five BASELINE.md configurations through the public API on one
    rank, with every kernel's launch count set to 0 just before and read
    just after; each result is checked against plain torch on the card, and
@@ -32,7 +35,9 @@
    broadcast chain ``sin(A) + B*C``; ``dmapreduce(abs2, +)``, ``dmean`` and
    ``dstd`` on a 1e8-element DVector; a 16384^2 f32 ``A @ B`` through the
    kernel; ``stencil5`` on 8192^2 with ``iters=16`` (multistep kernel,
-   auto depth 8) and ``iters=1`` (single-step kernel); ``gather``.
+   auto depth 8: two launches, both on the 5-point route) and ``iters=1``
+   (single-step kernel), each bit for bit against the plain steps;
+   ``gather``.
    The same phase holds the kernels of the distributed GEMM tier against
    their plain versions: the int8 GEMM on each route, each call moving
    its own route's count and no other (``INT8_CASES``: wgmma + TMA at
@@ -40,7 +45,10 @@
    tile; mma.sync at 1000x777x1500), f32 and bf16 out, bit-exact (exact
    int32 sums and the same two f32 multiplies); the
    all-gather and all-to-all on a 16384^2 f32 array over 4 ranks on the
-   one card (bit-exact: pure data movement); the ring all-gather GEMM at
+   one card and on bf16 blocks of odd width (4 x (4096, 1001) gathered
+   along dims 0 and 1, 4 x (4096, 1004) all-to-all both ways), whose
+   copies must take the 16-, 4- and 1-byte accesses between them
+   (bit-exact: pure data movement); the ring all-gather GEMM at
    16384^2 (4,1)x(4,1), relative Frobenius error <= 1e-5 in f32 and
    <= 1e-2 in bf16 (per-step product order and rounding).
 4. Runs a (4,1) stencil and a (2,2)x(2,2) GEMM with four ranks on the one
@@ -131,7 +139,8 @@
      training tokens/s;
    - the data-parallel ``Trainer`` with four ranks on the card on
      ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32):
-     three Adam steps, each launching 4 K10, 4 K12 and 32 K5, K6 and K7
+     three Adam steps, each launching 1 K10 (one launch for the card's
+     four destinations), 4 K12 and 32 K5, K6 and K7
      (8 a rank), every K5, K6 and K7 launch on the f32 route; two SGD steps
      on 4 ranks against the same two on one rank (losses to 1e-4, flat
      parameters <= 1e-5).  Prints ms per step and
@@ -204,6 +213,14 @@ part's, with each consumer warpgroup count), K10 against ``torch.cat`` in
 turns, and the sequence-parallel SGD step's K8 device time, through the
 package under DIR, for a parent and a change timed in turns on one card.
 
+``python3 chip_smoke.py --time-k3-k10 [DIR]`` times K3 (8192^2, k = 8,
+both Dirichlet settings, both routes) beside ``F.conv2d`` x 8, K2, K10
+(16384^2 f32 on 4 ranks, dims 0 and 1) beside ``torch.cat`` per rank and
+K11 beside ``torch.cat`` of its pieces, through the package under DIR,
+for a parent and a change timed in turns on one card; ``python3
+chip_smoke.py --k3-k10`` builds the stencil and collective kernels alone
+and holds K2, K3, K10 and K11 to phase 2's checks.
+
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
 ``torch.profiler`` instead, and prints their device time by kernel and by
@@ -216,6 +233,7 @@ and the script exits non-zero.  Without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -645,6 +663,21 @@ def ring_gemms_only() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """The host's ms a call of ``fn``, from an idle device (synchronized
+    before each call, the call's own work not waited for): the median of
+    ``reps`` after a warm-up call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(out)
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -1972,8 +2005,9 @@ def trainer_params() -> int:
 def trainer_phase(tdat) -> dict:
     """Phase 7c: the data-parallel ``Trainer`` with four ranks on the card
     on ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32):
-    three Adam steps (each must launch 4 K10, 4 K12 and 8 K5, K6, K7 per
-    rank), then two SGD steps against the same two steps on one rank."""
+    three Adam steps (each must launch 1 K10 (one launch for the card's
+    four destinations), 4 K12 and 8 K5, K6, K7 per rank), then two SGD
+    steps against the same two steps on one rank."""
     train = tdat.train
     print(f"phase trainer (4 ranks on one card, transformer_task "
           f"{TRAINER_CFG}, f32)")
@@ -1981,7 +2015,7 @@ def trainer_phase(tdat) -> dict:
     task = train.transformer_task(**TRAINER_CFG)
     kbuild = tdat.kbuild
     per_rank = TRAINER_CFG["layers"]
-    want = {"all_gather": 4, "reduce_scatter": 4,
+    want = {"all_gather": 1, "reduce_scatter": 4,
             "flash_attention": 4 * per_rank,
             "flash_attention_bwd_dq": 4 * per_rank,
             "flash_attention_bwd_dkv": 4 * per_rank}
@@ -2194,6 +2228,274 @@ def across_cards(tdat, cuda_collectives) -> None:
                                "attention S=8192, 16x64 bf16 causal"}))
 
 
+# K3 against its plain version: the main path's 8192^2, m not a multiple of
+# a tile with an odd n, and m below the tile height and below k; steps a
+# launch; each weight set with its route
+K3_SHAPES = ((8192, 8192), (1000, 777), (7, 8193))
+K3_STEPS = (1, 8, 16)
+# the shared-memory pipe of an H100 SXM: 128 bytes a clock an SM, 132 SMs,
+# at the 1.98 GHz boost clock (data sheet and architecture white paper)
+SMEM_BYTES_S = 132 * 128 * 1.98e9
+
+
+def k3_smem_bound_ms(CS, m: int, n: int, k: int) -> float:
+    """K3's second bound (ms): the bytes its design moves through the
+    shared-memory pipe at (m, n, k) over ``SMEM_BYTES_S``.  Per block and
+    step each warp stores its top and bottom rows and loads its
+    neighbours' (the first warp has none above, the last none below), 16
+    bytes a lane each, and each thread shuffles two 4-byte values a row
+    on the 5-point route; each block zeroes its exchange buffers once."""
+    plan = CS.multistep_plan(m, n, k)
+    warps = CS._WARPS
+    rows = CS.WINDOW_ROWS // warps
+    exchange = (2 * warps + 2 * (warps - 1)) * 32 * 16
+    shuffles = warps * rows * 2 * 32 * 4
+    blocks = plan.grid[0] * plan.grid[1]
+    return blocks * (k * (exchange + shuffles) + plan.smem_bytes) \
+        / SMEM_BYTES_S * 1e3
+
+
+def stencil_kernels(randn, errs) -> None:
+    """K2 and K3 against their plain versions on the card, bit for bit
+    (``exact``): K2 at 8192^2 with random weights and nonzero halo rows;
+    K3 at every ``K3_SHAPES`` x ``K3_STEPS`` with nonzero halo slabs, all
+    four Dirichlet settings, random weights on the generic route and the
+    Laplacian on the 5-point route, every call on the route
+    ``multistep_route`` picks."""
+    from distributedarrays_tpu_torch.ops import cuda_stencil as CS
+    wts = tuple(tuple(float(v) for v in row)
+                for row in np.random.default_rng(1).uniform(-1, 1, (3, 3)))
+    x = randn(8192, 8192)
+    lo1, hi1 = randn(1, 8192), randn(1, 8192)
+    errs["stencil_step"] = exact(
+        "stencil step 8192^2", CS.stencil3x3_block(x, lo1, hi1, wts),
+        CS._apply3x3(torch.cat([lo1, x, hi1]), wts))
+    for m, n in K3_SHAPES:
+        x = randn(m, n)
+        for k in K3_STEPS:
+            lo, hi = randn(k, n), randn(k, n)
+            got, ref = [], []
+            for w, route in ((wts, "generic"),
+                             (CS.LAPLACIAN_3X3, "five_point")):
+                for flags in itertools.product((False, True), repeat=2):
+                    got.append(on_route(
+                        "stencil_multistep", route,
+                        lambda: CS.stencil3x3_multistep(x, lo, hi, k, *flags,
+                                                        w)))
+                    ref.append(CS._multistep_plain(x, lo, hi, k, *flags, w))
+            errs["stencil_multistep"] = max(errs["stencil_multistep"], exact(
+                f"stencil multistep {m}x{n} k={k}: both routes, all four "
+                "Dirichlet settings", got, ref))
+    del x, got, ref
+
+
+def copy_widths(CC, copies) -> set:
+    """The access widths (bytes) of the copy launches the all-gather or
+    all-to-all makes for ``copies`` ``(dest, src view, dst view)``."""
+    return {CC.copy_width(*g) for launch in CC.copy_launches(
+        [CC.view_copy(*c) for c in copies]) for g in launch}
+
+
+def collective_kernels(randn, errs) -> None:
+    """K10 and K11 against their plain versions, bit for bit: a 16384^2
+    f32 array in 4 row blocks on the card (gathered along dims 0 and 1;
+    all-to-all split 1 concat 0 and split 0 concat 1), and bf16 blocks of
+    odd width, 4 x (4096, 1001) gathered along dims 0 and 1 and 4 x (4096,
+    1004) all-to-all both ways, whose copies must take the 16-, 4- and
+    1-byte accesses between them (read from the launches' plan)."""
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    widths = set()
+    for shape, dt in (((4096, 16384), torch.float32),
+                      ((4096, 1001), torch.bfloat16)):
+        blocks = [randn(*shape, dtype=dt) for _ in range(4)]
+        for dim in (0, 1):
+            outs = CC.ring_all_gather(blocks, dim)
+            errs["all_gather"] = max(errs["all_gather"], exact(
+                f"all_gather 4 x {shape} {dt} dim {dim}", outs,
+                CC.all_gather_plain(blocks, dim)))
+            e = shape[dim]
+            widths |= copy_widths(CC, [
+                (q, b, out.narrow(dim, r * e, e))
+                for q, out in enumerate(outs) for r, b in enumerate(blocks)])
+    for shape, dt in (((4096, 16384), torch.float32),
+                      ((4096, 1004), torch.bfloat16)):
+        blocks = [randn(*shape, dtype=dt) for _ in range(4)]
+        for sd, cd in ((1, 0), (0, 1)):
+            outs = CC.ring_all_to_all(blocks, sd, cd)
+            errs["all_to_all"] = max(errs["all_to_all"], exact(
+                f"all_to_all 4 x {shape} {dt} split {sd} concat {cd}", outs,
+                CC.all_to_all_plain(blocks, sd, cd)))
+            sb, ce = shape[sd] // 4, shape[cd]
+            widths |= copy_widths(CC, [
+                (q, b.narrow(sd, q * sb, sb), out.narrow(cd, r * ce, ce))
+                for q, out in enumerate(outs) for r, b in enumerate(blocks)])
+    print(f"  all_gather / all_to_all access widths taken: {sorted(widths)}")
+    if widths != {1, 4, 16}:
+        raise AssertionError(f"copy widths {widths}: the cases must reach "
+                             "the 16-, 4- and 1-byte accesses")
+    del blocks, outs
+    torch.cuda.empty_cache()
+
+
+class per_destination:
+    """Within the block, the all-gather and all-to-all make one launch per
+    destination rank (the launch structure before the per-card grouping)
+    instead of one per card."""
+
+    def __init__(self, CC):
+        self.CC = CC
+
+    def __enter__(self):
+        self.saved = orig = self.CC.copy_launches
+
+        def split(copies, maxp=self.CC.MAXP):
+            dests = sorted({c[0] for c in copies})
+            return [launch for q in dests for launch in orig(
+                [c for c in copies if c[0] == q], maxp)]
+        self.CC.copy_launches = split
+
+    def __exit__(self, *exc):
+        self.CC.copy_launches = self.saved
+
+
+def k3_k10_times(root: str | None = None) -> int:
+    """``--time-k3-k10 [ROOT]``: time K3, K2, K10 and K11 through the
+    package under ROOT (this checkout's by default), so two trees can be
+    timed in turns in one call on one card, each per call by CUDA events
+    and in device time by ``torch.profiler``: K3 at 8192^2, k = 8, the
+    Laplacian with both Dirichlet settings and random weights, beside
+    ``F.conv2d`` x 8 (TF32 off); K2 at 8192^2; the all-gather K10 of a
+    16384^2 f32 array in 4 row blocks on 4 ranks, along dims 0 and 1,
+    beside ``torch.cat`` per rank; the all-to-all K11 (split 1, concat 0)
+    beside ``torch.cat`` of the pieces; K10 and K11 also with one launch a
+    destination where the package groups launches by card.  The copies
+    (K10, K11 and their ``torch.cat``) also with batches of about 10 calls
+    and by the host's ms a call (``host_ms``).  Prints the ptxas register
+    and spill lines of the stencil and collective kernels first."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if root:
+        sys.path.insert(0, os.path.abspath(root))
+    import torch.nn.functional as F
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.ops import cuda_stencil as CS
+    torch.backends.cudnn.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    stems = ("stencil", "collectives")
+    tdat.kbuild.build(stems)
+    print_ptxas(tdat.kbuild, stems)
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times = {}
+
+    def both(key, fn):
+        times[key] = time_ms(fn)
+        times[key + ", device"] = device_ms(fn)
+
+    def copies(key, fn):
+        # also with batches of about 10 calls, and the host's ms a call
+        both(key, fn)
+        times[key + ", 10 a batch"] = time_ms(fn, batch_ms=10 * times[key])
+        times[key + ", host"] = host_ms(fn)
+
+    n, K = 8192, 8
+    lap = CS.LAPLACIAN_3X3
+    wts = tuple(tuple(float(v) for v in row)
+                for row in np.random.default_rng(1).uniform(-1, 1, (3, 3)))
+    x = torch.randn(n, n, generator=gen, device=dev)
+    lok, hik = (torch.zeros(K, n, device=dev) for _ in range(2))
+    lo1, hi1 = (torch.zeros(1, n, device=dev) for _ in range(2))
+    for flags in ((True, True), (False, False)):
+        both(f"K3 8192^2 k=8 Laplacian dirichlet={flags}",
+             lambda: CS.stencil3x3_multistep(x, lok, hik, K, *flags, lap))
+    both("K3 8192^2 k=8 random weights dirichlet=(True, True)",
+         lambda: CS.stencil3x3_multistep(x, lok, hik, K, True, True, wts))
+    wk = torch.tensor(lap, device=dev)[None, None]
+
+    def conv_k():
+        y = x[None, None]
+        for _ in range(K):
+            y = F.conv2d(y, wk, padding=1)
+        return y
+    times["F.conv2d x 8"] = time_ms(conv_k)
+    if hasattr(CS, "multistep_plan"):
+        times["K3 second bound (shared-memory pipe)"] = k3_smem_bound_ms(
+            CS, n, n, K)
+    both("K2 8192^2 Laplacian",
+         lambda: CS.stencil3x3_block(x, lo1, hi1, lap))
+    del x
+    blocks = [torch.randn(4096, 16384, generator=gen, device=dev)
+              for _ in range(4)]
+    grouped = hasattr(CC, "copy_launches")
+    for dim in (0, 1):
+        copies(f"K10 16384^2 f32, 4 ranks, dim {dim}",
+               lambda: CC.ring_all_gather(blocks, dim))
+        if grouped:
+            with per_destination(CC):
+                copies(f"K10 16384^2 f32, 4 ranks, dim {dim}, one launch a "
+                       "destination", lambda: CC.ring_all_gather(blocks, dim))
+        copies(f"torch.cat per rank, dim {dim}",
+               lambda: [torch.cat(blocks, dim) for _ in blocks])
+    copies("K11 16384^2 f32, 4 row blocks -> 4 column blocks",
+           lambda: CC.ring_all_to_all(blocks, 1, 0))
+    if grouped:
+        with per_destination(CC):
+            copies("K11 16384^2 f32, one launch a destination",
+                   lambda: CC.ring_all_to_all(blocks, 1, 0))
+    w = 16384 // 4
+    copies("torch.cat of the pieces (K11)", lambda: [torch.cat(
+        [b[:, q * w:(q + 1) * w] for b in blocks]) for q in range(4)])
+    print(json.dumps({"k3_k10_times": times, "package": tdat.__file__,
+                      "gpu": smi}))
+    return 0
+
+
+def k3_k10_only() -> int:
+    """``--k3-k10``: build the stencil and collective kernels, check K2,
+    K3, K10 and K11 against their plain versions (phase 2's checks) and
+    the main path's ``stencil5`` against its plain steps, bit for bit."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    smi = gpu_name()
+    print(smi)
+    stems = ("stencil", "collectives")
+    t0 = time.perf_counter()
+    tdat.kbuild.build(stems)
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    print_ptxas(tdat.kbuild, stems)
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs = {k: 0.0 for k in tdat.kbuild.KERNELS}
+    stencil_kernels(randn, errs)
+    collective_kernels(randn, errs)
+    G = tdat.drandn((8192, 8192))
+    tdat.kbuild.reset_launches()
+    S16 = tdat.stencil5(G, iters=16)
+    expect_routes("stencil5 iters=16", "stencil_multistep",
+                  {"five_point": 2})
+    exact("stencil5 iters=16 (multistep) against 16 plain steps", S16.full(),
+          tdat.stencil5(G, 16, use_kernel=False).full())
+    tdat.d_closeall()
+    print(json.dumps({"errs": {k: errs[k] for k in (
+        "stencil_step", "stencil_multistep", "all_gather", "all_to_all")},
+        "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2235,42 +2537,15 @@ def main() -> int:
     # -- 2. kernels against their plain versions ---------------------------
     print("phase kernels")
     gemm_kernels(randn, errs)
+    stencil_kernels(randn, errs)
     ms, ns = 8192, 8192
-    wts = tuple(tuple(float(v) for v in row)
-                for row in np.random.default_rng(1).uniform(-1, 1, (3, 3)))
-    x = randn(ms, ns)
-    lo1, hi1 = randn(1, ns), randn(1, ns)
-    got = cuda_stencil.stencil3x3_block(x, lo1, hi1, wts)
-    ref = _apply3x3(torch.cat([lo1, x, hi1]), wts)
-    torch.cuda.synchronize()
-    check("stencil step 8192^2", rel_err(got, ref), TOL_STENCIL)
-    errs["stencil_step"] = max_abs(got, ref)
     K = 8
-    lok, hik = randn(K, ns), randn(K, ns)
-    for flags in ((False, False), (True, True)):
-        got = cuda_stencil.stencil3x3_multistep(x, lok, hik, K, *flags, wts)
-        ref = _multistep_plain(x, lok, hik, K, *flags, wts)
-        torch.cuda.synchronize()
-        check(f"stencil multistep k={K} dirichlet={flags}", rel_err(got, ref),
-              TOL_STENCIL)
-        errs["stencil_multistep"] = max(errs["stencil_multistep"],
-                                        max_abs(got, ref))
-    del x, got, ref
 
     n16 = 16384
     int8_kernels(gen, dev, errs)
+    collective_kernels(randn, errs)
     P4 = 4
     blocks = [randn(n16 // P4, n16) for _ in range(P4)]
-    for dim in (0, 1):
-        errs["all_gather"] = max(errs["all_gather"], exact(
-            f"all_gather 4 x {tuple(blocks[0].shape)} dim {dim}",
-            cuda_collectives.ring_all_gather(blocks, dim),
-            cuda_collectives.all_gather_plain(blocks, dim)))
-    for sd, cd in ((1, 0), (0, 1)):
-        errs["all_to_all"] = max(errs["all_to_all"], exact(
-            f"all_to_all 4 x {tuple(blocks[0].shape)} split {sd} concat {cd}",
-            cuda_collectives.ring_all_to_all(blocks, sd, cd),
-            cuda_collectives.all_to_all_plain(blocks, sd, cd)))
     for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         a_bl = [x.to(dt) for x in blocks]
         b_bl = [randn(n16 // P4, n16, dtype=dt) for _ in range(P4)]
@@ -2326,13 +2601,11 @@ def main() -> int:
     del A16, B16, C16
     G = tdat.drandn((8192, 8192))
     S16 = tdat.stencil5(G, iters=16)
-    check("stencil5 iters=16 (multistep)",
-          rel_err(S16.full(), tdat.stencil5(G, 16, use_kernel=False).full()),
-          TOL_STENCIL)
+    exact("stencil5 iters=16 (multistep) against 16 plain steps", S16.full(),
+          tdat.stencil5(G, 16, use_kernel=False).full())
     S1 = tdat.stencil5(G, iters=1)
-    check("stencil5 iters=1 (step)",
-          rel_err(S1.full(), tdat.stencil5(G, 1, use_kernel=False).full()),
-          TOL_STENCIL)
+    exact("stencil5 iters=1 (step) against the plain step", S1.full(),
+          tdat.stencil5(G, 1, use_kernel=False).full())
     g = tdat.gather(S1)
     if g.shape != (8192, 8192) or not np.isfinite(g).all() or \
             not np.array_equal(g, S1.full().cpu().numpy()):
@@ -2346,6 +2619,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    # stencil5(iters=16) at auto depth 8: two launches of the 5-point route
+    expect_routes("main path", "stencil_multistep", {"five_point": 2})
 
     # -- 4. four ranks on the one card --------------------------------------
     print("phase 4 ranks")
@@ -2515,6 +2790,7 @@ def main() -> int:
         "plain_ms": time_ms(lambda: _multistep_plain(
             x, lok, hik, K, True, True, LAPLACIAN_3X3)),
         "bound_ms": bms, "bound_by": bby,
+        "smem_bound_ms": k3_smem_bound_ms(cuda_stencil, ms, ns, K),
         "library_ms": time_ms(conv_k)})
     qa = torch.randint(-127, 128, (n16, n16), generator=gen, device=dev,
                        dtype=torch.int32).to(torch.int8)
@@ -2538,7 +2814,8 @@ def main() -> int:
     del qa, qb, sa, sb
     blocks = [randn(n16 // P4, n16) for _ in range(P4)]
     blk_bytes = blocks[0].numel() * 4
-    bms, bby = bound(2 * P4 * P4 * blk_bytes, 0, F32_FLOPS)
+    # each block read once, each rank's whole array written once
+    bms, bby = bound((P4 + P4 * P4) * blk_bytes, 0, F32_FLOPS)
     kernels.append({
         "name": "all_gather", "route": "cuda",
         "source": "distributedarrays_tpu_torch/csrc/collectives.cu",
@@ -2725,6 +3002,9 @@ if __name__ == "__main__":
              if sys.argv[1:2] == ["--time-attn"]
              else k4_k8_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k4-k8"]
+             else k3_k10_times(*sys.argv[2:3])
+             if sys.argv[1:2] == ["--time-k3-k10"]
+             else k3_k10_only() if sys.argv[1:] == ["--k3-k10"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

@@ -9,14 +9,26 @@
 //   chunks sized to VMEM.  On Hopper a remote DMA becomes a load through
 //   another rank's device pointer (the same card, or a peer card after
 //   cudaDeviceEnablePeerAccess, over NVLink/NVSwitch).  The design pulls:
-//   one launch per destination rank copies every source's block or piece
-//   straight to its final offset in that rank's output, so there is no
-//   staging, no ring order and no semaphore.  `da_copy_pieces` is that
-//   launch: a list of up to MAXP strided boxes (3 outer dims and one
-//   contiguous run, all in bytes), one per source.  Bound: the bytes moved,
-//   read once and written once, over 3.35 TB/s (one card).  The warps share
-//   out the boxes' rows cut into 8 KB segments and copy each with 16-, 4- or
-//   1-byte accesses, whichever the box's alignment allows.
+//   one launch per card copies every source's block or piece straight to
+//   its final offset in each of that card's destination outputs, so there
+//   is no staging, no ring order and no semaphore.  `da_copy_pieces` is
+//   that launch: up to MAXP strided source boxes (3 outer dims and one
+//   contiguous run, all in bytes), each with the list of destinations it
+//   goes to (MAXP copies in all; the wrapper's `copy_launches` groups
+//   them).  A warp copies one unit of 32 lanes x COPY_UNROLL accesses of
+//   16, 4 or 1 bytes, whichever the source and all its destinations allow:
+//   each lane issues its COPY_UNROLL loads (ld.global.nc) before any store,
+//   then stores the unit to every destination, so an all-gather reads each
+//   source once for all the card's destinations.  The grid has a warp per
+//   unit, the launch's units numbered source by source, so the blocks in
+//   flight cover one contiguous stretch of each box; a warp finds its
+//   source among the launch's by their first units, unit and row indices
+//   are 32-bit, and a box that is one contiguous run skips the row
+//   arithmetic.  (A persistent grid of the card's resident blocks, and
+//   more loads in flight a lane, measured slower: PERF.md §6.)
+//   Bound: each source byte read once and each destination byte written
+//   once, over 3.35 TB/s (one card); across cards the peer's bytes cross
+//   NVLink by the same plain loads and stores.
 //
 // - `_rs_call` (ring_reduce_scatter, K12).  On the TPU the partial for
 //   destination d seeds at rank d+1 and travels the ring, each hop adding
@@ -106,67 +118,80 @@ constexpr int MAXP = 32;
 constexpr int COPY_THREADS = 256;
 constexpr int RING_COPY_BLOCKS = 32;
 
-struct Box {
+constexpr int COPY_UNROLL = 4;  // loads in flight a lane before its stores
+
+// One source box of a copy launch and the destinations it goes to.
+struct CopySrc {
   const char* src;
+  long long stride[3];  // bytes, outer dims
+  long long row_bytes;  // contiguous run
+  long long first;      // its first unit's index in the launch
+  int size[3];          // outer extents
+  int segs;             // units a run
+  int units;            // size[0] * size[1] * size[2] * segs
+  int dst0, ndst;       // its destinations: d[dst0 .. dst0 + ndst)
+  int vec;              // 16, 4 or 1: bytes an access
+};
+
+struct CopyDst {
   char* dst;
-  long long src_stride[3];  // bytes, outer dims
-  long long dst_stride[3];
-  long long size[3];        // outer extents
-  long long row_bytes;      // contiguous run
-  int vec;                  // 16, 4 or 1: widest access the box allows
+  long long stride[3];
 };
 
-struct Boxes {
-  Box b[MAXP];
+struct CopyPlan {
+  CopySrc s[MAXP];
+  CopyDst d[MAXP];
+  int nsrc;
 };
 
-constexpr long long SEG = 8192;  // bytes of a row one warp copies at a time
-
+// Unit u of source s: lane's COPY_UNROLL loads, then its stores to each of
+// the source's destinations.
 template <typename V>
-__device__ __forceinline__ void copy_seg(const char* __restrict__ s,
-                                         char* __restrict__ d, long long n,
-                                         int lane) {
-  const V* sv = reinterpret_cast<const V*>(s);
-  V* dv = reinterpret_cast<V*>(d);
-  for (long long i = lane; i < n; i += 32) dv[i] = sv[i];
-}
-
-// grid.y = box; the warps of grid.x stride over the box's rows cut into
-// SEG-byte segments, so a long contiguous run spreads over many warps.
-__global__ void __launch_bounds__(COPY_THREADS)
-copy_boxes_kernel(const Boxes boxes) {
-  const Box& bx = boxes.b[blockIdx.y];
-  const long long segs = (bx.row_bytes + SEG - 1) / SEG;
-  const long long units = bx.size[0] * bx.size[1] * bx.size[2] * segs;
-  const int lane = threadIdx.x % 32;
-  const long long warps = (long long)gridDim.x * (COPY_THREADS / 32);
-  for (long long u = (long long)blockIdx.x * (COPY_THREADS / 32) +
-                     threadIdx.x / 32;
-       u < units; u += warps) {
-    const long long r = u / segs, off = (u % segs) * SEG;
-    const long long n = min(SEG, bx.row_bytes - off);
-    long long i2 = r % bx.size[2];
-    long long i01 = r / bx.size[2];
-    long long i1 = i01 % bx.size[1];
-    long long i0 = i01 / bx.size[1];
-    const char* s = bx.src + i0 * bx.src_stride[0] + i1 * bx.src_stride[1] +
-                    i2 * bx.src_stride[2] + off;
-    char* d = bx.dst + i0 * bx.dst_stride[0] + i1 * bx.dst_stride[1] +
-              i2 * bx.dst_stride[2] + off;
-    if (bx.vec == 16)
-      copy_seg<uint4>(s, d, n / 16, lane);
-    else if (bx.vec == 4)
-      copy_seg<uint32_t>(s, d, n / 4, lane);
-    else
-      copy_seg<char>(s, d, n, lane);
+__device__ __forceinline__ void copy_unit(const CopyPlan& p, const CopySrc& s,
+                                          int u, int lane) {
+  int i0 = 0, i1 = 0, i2 = 0, seg = u;
+  if (s.units != s.segs) {  // several runs: this unit's run and segment
+    const int run = u / s.segs;
+    seg = u - run * s.segs;
+    const int t = run / s.size[2];
+    i2 = run - t * s.size[2];
+    i0 = t / s.size[1];
+    i1 = t - i0 * s.size[1];
+  }
+  const long long n = s.row_bytes / (long long)sizeof(V);
+  const long long e = (long long)seg * (32 * COPY_UNROLL) + lane;
+  const V* src = reinterpret_cast<const V*>(
+      s.src + i0 * s.stride[0] + i1 * s.stride[1] + i2 * s.stride[2]);
+  V r[COPY_UNROLL];
+#pragma unroll
+  for (int j = 0; j < COPY_UNROLL; ++j)
+    if (e + 32 * j < n) r[j] = __ldg(src + e + 32 * j);
+  for (int q = 0; q < s.ndst; ++q) {
+    const CopyDst& d = p.d[s.dst0 + q];
+    V* dst = reinterpret_cast<V*>(d.dst + i0 * d.stride[0] +
+                                  i1 * d.stride[1] + i2 * d.stride[2]);
+#pragma unroll
+    for (int j = 0; j < COPY_UNROLL; ++j)
+      if (e + 32 * j < n) dst[e + 32 * j] = r[j];
   }
 }
 
-int widest(const Box& b) {
-  long long acc = (long long)(uintptr_t)b.src | (long long)(uintptr_t)b.dst |
-                  b.row_bytes;
-  for (int q = 0; q < 3; ++q) acc |= b.src_stride[q] | b.dst_stride[q];
-  return acc % 16 == 0 ? 16 : (acc % 4 == 0 ? 4 : 1);
+// A warp per unit: unit g of the launch is unit g - first of the source
+// whose units start at or before it.
+__global__ void __launch_bounds__(COPY_THREADS) copy_kernel(const CopyPlan p) {
+  const long long g =
+      (long long)blockIdx.x * (COPY_THREADS / 32) + threadIdx.x / 32;
+  int q = 0;
+  while (q + 1 < p.nsrc && g >= p.s[q + 1].first) ++q;
+  const CopySrc& s = p.s[q];
+  if (g - s.first >= s.units) return;  // the last block's spare warps
+  const int u = (int)(g - s.first), lane = threadIdx.x % 32;
+  if (s.vec == 16)
+    copy_unit<uint4>(p, s, u, lane);
+  else if (s.vec == 4)
+    copy_unit<uint32_t>(p, s, u, lane);
+  else
+    copy_unit<unsigned char>(p, s, u, lane);
 }
 
 // Blocks [0, ncopy) copy the contiguous `elems` elements of src into dst:
@@ -616,44 +641,76 @@ extern "C" int da_reduce_pieces(int n, const void* const* src,
               : reduce_pieces<float>(ps, out, s);
 }
 
-// Copy `n` boxes on `device`'s `stream`.  Per box q: src[q], dst[q] (device
-// pointers, possibly of peer devices), outer strides and sizes (3 each, in
-// bytes / elements, row-major over q), and the contiguous run in bytes.
-// Returns the cudaGetLastError() code of the launch, or cudaErrorInvalidValue
-// for more than MAXP boxes.
-extern "C" int da_copy_pieces(int n, const void* const* src,
-                              void* const* dst, const long long* src_strides,
-                              const long long* dst_strides,
+// One copy launch on `device`'s `stream`: `nsrc` source boxes, source q
+// at src[q] with outer strides src_strides[3q..3q+2] (bytes) and sizes
+// sizes[3q..3q+2], a contiguous run of row_bytes[q] bytes, copied to its
+// ndst[q] destinations (the next ndst[q] of dst / dst_strides, in order)
+// with accesses of vec[q] bytes.  Pointers may be of peer devices.  Returns
+// the cudaGetLastError() code of the launch, or cudaErrorInvalidValue for
+// more than MAXP sources or destinations, a vec the addresses do not
+// allow, or a box too large for 32-bit unit indices.
+extern "C" int da_copy_pieces(int nsrc, const void* const* src,
+                              const long long* src_strides,
                               const long long* sizes,
-                              const long long* row_bytes, int device,
+                              const long long* row_bytes, const int* ndst,
+                              const int* vec, void* const* dst,
+                              const long long* dst_strides, int device,
                               void* stream) {
-  if (n <= 0) return 0;
-  if (n > MAXP) return (int)cudaErrorInvalidValue;
+  if (nsrc <= 0) return 0;
+  if (nsrc > MAXP) return (int)cudaErrorInvalidValue;
+  CopyPlan plan;
+  plan.nsrc = 0;
+  long long total = 0;
+  int nd = 0;
+  for (int q = 0; q < nsrc; ++q) {
+    if (ndst[q] < 1 || nd + ndst[q] > MAXP) return (int)cudaErrorInvalidValue;
+    const long long v = vec[q];
+    if (v != 16 && v != 4 && v != 1) return (int)cudaErrorInvalidValue;
+    long long acc = (long long)(uintptr_t)src[q] | row_bytes[q];
+    long long rows = 1;
+    for (int d = 0; d < 3; ++d) {
+      acc |= src_strides[3 * q + d];
+      if (sizes[3 * q + d] < 1 || sizes[3 * q + d] > (1LL << 30))
+        return (int)cudaErrorInvalidValue;
+      rows *= sizes[3 * q + d];
+      if (rows > (1LL << 30)) return (int)cudaErrorInvalidValue;
+    }
+    for (int t = nd; t < nd + ndst[q]; ++t) {
+      acc |= (long long)(uintptr_t)dst[t];
+      for (int d = 0; d < 3; ++d) acc |= dst_strides[3 * t + d];
+    }
+    if (acc % v) return (int)cudaErrorInvalidValue;
+    const long long unit = 32LL * COPY_UNROLL * v;
+    const long long segs = (row_bytes[q] + unit - 1) / unit;
+    if (row_bytes[q] <= 0 || rows * segs > (1LL << 30))
+      return (int)cudaErrorInvalidValue;
+    CopySrc& s = plan.s[plan.nsrc++];
+    s.src = static_cast<const char*>(src[q]);
+    for (int d = 0; d < 3; ++d) {
+      s.stride[d] = src_strides[3 * q + d];
+      s.size[d] = (int)sizes[3 * q + d];
+    }
+    s.row_bytes = row_bytes[q];
+    s.first = total;
+    s.segs = (int)segs;
+    s.units = (int)(rows * segs);
+    s.dst0 = nd;
+    s.ndst = ndst[q];
+    s.vec = (int)v;
+    for (int t = nd; t < nd + ndst[q]; ++t) {
+      plan.d[t].dst = static_cast<char*>(dst[t]);
+      for (int d = 0; d < 3; ++d) plan.d[t].stride[d] = dst_strides[3 * t + d];
+    }
+    nd += ndst[q];
+    total += s.units;
+  }
+  if (total > (1LL << 30)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Boxes boxes;
-  long long most_units = 0;
-  for (int q = 0; q < n; ++q) {
-    Box& b = boxes.b[q];
-    b.src = static_cast<const char*>(src[q]);
-    b.dst = static_cast<char*>(dst[q]);
-    for (int d = 0; d < 3; ++d) {
-      b.src_stride[d] = src_strides[3 * q + d];
-      b.dst_stride[d] = dst_strides[3 * q + d];
-      b.size[d] = sizes[3 * q + d];
-    }
-    b.row_bytes = row_bytes[q];
-    b.vec = widest(b);
-    long long units = b.size[0] * b.size[1] * b.size[2] *
-                      ((b.row_bytes + SEG - 1) / SEG);
-    if (units > most_units) most_units = units;
-  }
-  if (most_units == 0) return 0;
-  long long gx = (most_units + COPY_THREADS / 32 - 1) / (COPY_THREADS / 32);
-  if (gx > 1024) gx = 1024;
-  dim3 grid((unsigned)gx, (unsigned)n);
-  copy_boxes_kernel<<<grid, COPY_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(boxes);
+  const long long grid = (total + COPY_THREADS / 32 - 1) / (COPY_THREADS / 32);
+  if (grid == 0) return 0;
+  copy_kernel<<<(unsigned)grid, COPY_THREADS, 0,
+                static_cast<cudaStream_t>(stream)>>>(plan);
   return (int)cudaGetLastError();
 }
 

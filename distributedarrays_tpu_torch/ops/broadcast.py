@@ -12,6 +12,17 @@ broadcasting rules; scalars stay scalars.
 The function sees torch tensors: ``dmap(torch.sin, A)``.  Broadcast and
 reductions have no hand-written kernel in the JAX package (XLA fuses
 them), so they stay plain torch ops here.
+
+The operators on DArrays (``+``, ``-``, ``*``, ``/``, ``//``, ``%``,
+``**``, the bitwise ones and the comparisons) promote their operands as
+JAX does with 64-bit types off before the torch op runs (``promote``):
+the least upper bound in JAX's promotion lattice, where a Python int,
+float or complex is weakly typed and a Python bool is a bool; ``/`` takes
+a float of it, ``//``, ``%``, the shifts and ``**`` an int32 for bool.  A
+Python scalar is rounded or wrapped into the promoted type first, as JAX
+converts it, and ``x ** n`` for a Python integer ``n`` keeps the type of
+``x`` (int32 for bool) and multiplies by squaring, as ``lax.integer_pow``
+does, so integer powers wrap.
 """
 
 from __future__ import annotations
@@ -23,11 +34,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..darray import DArray, SubDArray, as_tensor, resolve_layout
+from ..darray import (DArray, SubDArray, as_tensor, canon_dtype,
+                      resolve_layout)
 from ..layout import device_of
 from ..parallel.reshard import relayout_parts
 
-__all__ = ["elementwise", "dmap", "dmap_into", "broadcasted"]
+__all__ = ["elementwise", "dmap", "dmap_into", "broadcasted", "promote",
+           "result_dtype"]
 
 _SCALARS = (numbers.Number, np.generic)
 
@@ -126,18 +139,154 @@ def broadcasted(fn: Callable, *args):
 
 
 # ---------------------------------------------------------------------------
+# JAX's type promotion (jax._src.dtypes, 64-bit types off)
+# ---------------------------------------------------------------------------
+
+# the promotion lattice: each type's immediate upper bounds; "i*", "f*" and
+# "c*" are the weak types of Python int, float and complex scalars
+_LATTICE = {
+    torch.bool: ("i*",),
+    "i*": (torch.uint8, torch.int8),
+    torch.uint8: (torch.int16, torch.uint16),
+    torch.uint16: (torch.int32, torch.uint32),
+    torch.uint32: (torch.int64, torch.uint64),
+    torch.uint64: ("f*",),
+    torch.int8: (torch.int16,),
+    torch.int16: (torch.int32,),
+    torch.int32: (torch.int64,),
+    torch.int64: ("f*",),
+    "f*": ("c*", torch.bfloat16, torch.float16),
+    torch.bfloat16: (torch.float32,),
+    torch.float16: (torch.float32,),
+    torch.float32: (torch.float64, torch.complex64),
+    torch.float64: (torch.complex128,),
+    "c*": (torch.complex64,),
+    torch.complex64: (torch.complex128,),
+    torch.complex128: (),
+}
+# a weak result's dtype, and the 32-bit counterparts of 64-bit types
+_DEFAULT = {"i*": torch.int32, "f*": torch.float32, "c*": torch.complex64,
+            torch.int64: torch.int32, torch.uint64: torch.uint32,
+            torch.float64: torch.float32, torch.complex128: torch.complex64}
+
+
+def _upper(t) -> set:
+    out, todo = {t}, [t]
+    while todo:
+        for u in _LATTICE[todo.pop()]:
+            if u not in out:
+                out.add(u)
+                todo.append(u)
+    return out
+
+
+def _jax_type(a):
+    """An operand's node in the lattice: Python bool is bool, Python int,
+    float and complex are weak, anything else its (32-bit) dtype."""
+    if isinstance(a, bool):
+        return torch.bool
+    if isinstance(a, (int, float, complex)) and not isinstance(a,
+                                                               np.generic):
+        return "i*" if isinstance(a, int) else \
+            "f*" if isinstance(a, float) else "c*"
+    if isinstance(a, (DArray, SubDArray, torch.Tensor)):
+        dt = a.dtype
+    else:
+        dt = canon_dtype(np.asarray(a).dtype)
+    return _DEFAULT.get(dt, dt)
+
+
+def _join(*types) -> torch.dtype:
+    """The least upper bound of lattice nodes, as a 32-bit dtype."""
+    common = set.intersection(*[_upper(t) for t in types])
+    lub = next(u for u in common if common <= _upper(u))
+    return _DEFAULT.get(lub, lub)
+
+
+def result_dtype(*operands) -> torch.dtype:
+    """The dtype JAX gives an arithmetic result of ``operands`` (DArrays,
+    tensors, arrays or Python scalars)."""
+    return _join(*[_jax_type(a) for a in operands])
+
+
+def _numeric(dt: torch.dtype) -> torch.dtype:
+    return torch.int32 if dt == torch.bool else dt
+
+
+def _inexact(dt: torch.dtype) -> torch.dtype:
+    return dt if dt.is_floating_point or dt.is_complex else torch.float32
+
+
+def _scalar_as(v, dt: torch.dtype):
+    """A Python scalar converted to ``dt`` as JAX converts it (rounded to a
+    float type, wrapped into an integer type), kept a Python scalar."""
+    if dt == torch.bool:
+        return bool(v)
+    if dt.is_floating_point or dt.is_complex:
+        return torch.tensor(v, dtype=dt).item()
+    return torch.tensor(int(v)).to(dt).item()
+
+
+def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x ** n`` by squaring in ``x``'s type, ``lax.integer_pow``'s
+    order of products (integer types wrap)."""
+    if n == 0:
+        return torch.ones_like(x)
+    if n < 0 and not (x.is_floating_point() or x.is_complex()):
+        raise ValueError("integers to negative integer powers are not "
+                         "defined")
+    acc, m = None, abs(n)
+    while m:
+        if m & 1:
+            acc = x if acc is None else acc * x
+        m >>= 1
+        if m:
+            x = x * x
+    return 1 / acc if n < 0 else acc
+
+
+def _is_index(a) -> bool:
+    return isinstance(a, (int, np.integer))
+
+
+_NUMERIC_OPS = ("floordiv", "mod", "lshift", "rshift")
+
+
+def promote(name: str, fn: Callable, args: tuple):
+    """``(fn', args')``: the operator ``name`` (a key of ``_BINOPS`` or
+    ``_COMPARE``) applied as JAX applies it: tensors cast to the promoted
+    type, Python scalars converted to it."""
+    if name == "pow" and _is_index(args[1]):
+        dt = _numeric(_join(_jax_type(args[0])))
+        n = int(args[1])
+        return (lambda x: _integer_pow(x.to(dt), n)), args[:1]
+    dt = result_dtype(*args)
+    if name == "truediv":
+        dt = _inexact(dt)
+    elif name in _NUMERIC_OPS or name == "pow":
+        dt = _numeric(dt)
+    args = tuple(_scalar_as(a, dt) if isinstance(a, (bool, int, float,
+                                                     complex)) else a
+                 for a in args)
+
+    def cast(x):
+        return x.to(dt) if isinstance(x, torch.Tensor) else x
+    return (lambda *xs: fn(*[cast(x) for x in xs])), args
+
+
+# ---------------------------------------------------------------------------
 # Operator wiring on DArray / SubDArray
 # ---------------------------------------------------------------------------
 
 _OPERANDS = (DArray, SubDArray, np.ndarray, torch.Tensor) + _SCALARS
 
 
-def _binop(fn, swap=False):
+def _binop(name, fn, swap=False):
     def op(self, other):
         if not isinstance(other, _OPERANDS):
             return NotImplemented
-        return elementwise(fn, other, self) if swap else \
-            elementwise(fn, self, other)
+        f, args = promote(name, fn, (other, self) if swap else (self, other))
+        return elementwise(f, *args)
     return op
 
 
@@ -145,6 +294,11 @@ def _unop(fn):
     def op(self):
         return elementwise(fn, self)
     return op
+
+
+def _abs(x):
+    # abs of a bool is the bool, as in JAX (torch has no bool abs)
+    return x if x.dtype == torch.bool else operator.abs(x)
 
 
 # the operator module's functions accept a Python scalar on either side
@@ -160,11 +314,11 @@ _COMPARE = {"lt": operator.lt, "le": operator.le, "gt": operator.gt,
 
 for _cls in (DArray, SubDArray):
     for _name, _fn in _BINOPS.items():
-        setattr(_cls, f"__{_name}__", _binop(_fn))
-        setattr(_cls, f"__r{_name}__", _binop(_fn, swap=True))
+        setattr(_cls, f"__{_name}__", _binop(_name, _fn))
+        setattr(_cls, f"__r{_name}__", _binop(_name, _fn, swap=True))
     for _name, _fn in _COMPARE.items():
-        setattr(_cls, f"__{_name}__", _binop(_fn))
+        setattr(_cls, f"__{_name}__", _binop(_name, _fn))
     _cls.__neg__ = _unop(operator.neg)
     _cls.__pos__ = _unop(operator.pos)
-    _cls.__abs__ = _unop(operator.abs)
+    _cls.__abs__ = _unop(_abs)
     _cls.__invert__ = _unop(operator.invert)

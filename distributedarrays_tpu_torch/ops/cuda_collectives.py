@@ -26,16 +26,19 @@ not used.
   (``lax.psum_scatter(..., tiled=True)``), summed in the TPU ring's arrival
   order (``parallel.collectives.psum_scatter``).
 
-  All three pull: one launch per destination rank copies every source's
-  block or piece straight to its final offset (pure data movement,
-  bit-identical to the plain version), or, for the reduce-scatter, reads
-  piece ``d`` of every rank and writes their fold in the plain version's
-  order, bit-identical to it too.  The JAX kernels' chunk depth
-  (``chunks``, ``_chunk_fit``) and the reduce-scatter's VMEM gate
-  (``_rs_vmem_bytes``) only bound the TPU's VMEM staging of pieces and
-  travelling partials; nothing is staged here and no partial is stored, so
-  there is no chunk argument and no gate.  float32 or bfloat16 for the
-  reduce-scatter.
+  All three pull.  The all-gather and all-to-all make one launch per card
+  (``copy_launches`` groups the copies: each source with every destination
+  on the card that takes it, at most ``MAXP`` copies a launch), which
+  copies every source's block or piece straight to its final offset in
+  each destination output, reading the source once (pure data movement,
+  bit-identical to the plain version).  The reduce-scatter makes one launch
+  per destination rank, which reads piece ``d`` of every rank and writes
+  their fold in the plain version's order, bit-identical to it too.  The
+  JAX kernels' chunk depth (``chunks``, ``_chunk_fit``) and the
+  reduce-scatter's VMEM gate (``_rs_vmem_bytes``) only bound the TPU's
+  VMEM staging of pieces and travelling partials; nothing is staged here
+  and no partial is stored, so there is no chunk argument and no gate.
+  float32 or bfloat16 for the reduce-scatter.
 
 - ``ring_allgather_matmul(x_blocks, w_blocks)`` (K13): rank ``r`` gets
   ``all_gather(x) @ w_r``, with x's row chunks travelling the ring: at step
@@ -86,12 +89,12 @@ from ..utils import kbuild
 __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "ring_allgather_matmul", "ring_allgather_matmul_rhs",
            "ring_matmul_reducescatter", "ring_gemm_route", "ring_tile_n",
-           "all_gather_plain",
+           "copy_launches", "copy_width", "view_copy", "all_gather_plain",
            "all_to_all_plain", "reduce_scatter_plain",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
 
-MAXP = 32                    # sources one launch takes (collectives.cu)
+MAXP = 32            # sources or copies one launch takes (collectives.cu)
 _RING_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -194,7 +197,7 @@ def matmul_reducescatter_plain(x_blocks, w_blocks) -> list[torch.Tensor]:
 
 _fns: dict = {}
 _ARGTYPES = {
-    "da_copy_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 6 +
+    "da_copy_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 8 +
     [ctypes.c_int, ctypes.c_void_p],
     "da_reduce_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 3 +
     [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -240,32 +243,79 @@ def _box(src: torch.Tensor, dst: torch.Tensor):
             [m[2] * isz for m in merged], run * isz)
 
 
-def _copy_pieces(pairs, dev: torch.device, kernel: str) -> None:
-    """One launch on ``dev`` copying every ``(src view, dst view)`` pair."""
-    pairs = [(s, d) for s, d in pairs if s.numel()]
-    if not pairs:
-        return
-    if len(pairs) > MAXP:
-        raise ValueError(f"one copy launch takes at most {MAXP} sources, got "
-                         f"{len(pairs)}")
-    n = len(pairs)
-    src = (ctypes.c_void_p * n)(*[s.data_ptr() for s, _ in pairs])
-    dst = (ctypes.c_void_p * n)(*[d.data_ptr() for _, d in pairs])
-    sizes, sstr, dstr, runs = [], [], [], []
-    for s, d in pairs:
-        sz, a, b, run = _box(s, d)
-        sizes += sz
+def copy_width(src: int, box, part) -> int:
+    """The widest access (16, 4 or 1 bytes) that a ``copy_launches`` group
+    allows: its source's and every destination's address, strides and
+    run."""
+    _, sstr, run = box
+    acc = src | run
+    for a in list(sstr) + [x for d, dstr in part for x in (d, *dstr)]:
+        acc |= int(a)
+    return 16 if acc % 16 == 0 else 4 if acc % 4 == 0 else 1
+
+
+def copy_launches(copies, maxp: int = MAXP) -> list[list[tuple]]:
+    """Group one card's copies ``(dest, src address, dst address, box)``
+    (``box``: ``_box``'s sizes, source strides, destination strides and
+    run, in bytes) into launches of ``(src address, (sizes, src strides,
+    run), [(dst address, dst strides), ...])``: a source goes with every
+    destination that takes it with the same source box, so the launch
+    reads it once; a launch holds at most ``maxp`` copies, a source's list
+    split where it is longer."""
+    groups: dict[tuple, tuple] = {}
+    for _, src, dst, (sizes, sstr, dstr, run) in copies:
+        key = (src, tuple(sizes), tuple(sstr), run)
+        groups.setdefault(key, (src, (sizes, sstr, run), []))[2].append(
+            (dst, dstr))
+    launches, cur, used = [], [], 0
+    for src, box, dsts in groups.values():
+        for i in range(0, len(dsts), maxp):
+            part = dsts[i:i + maxp]
+            if used + len(part) > maxp:
+                launches.append(cur)
+                cur, used = [], 0
+            cur.append((src, box, part))
+            used += len(part)
+    if cur:
+        launches.append(cur)
+    return launches
+
+
+def view_copy(dest: int, src: torch.Tensor, dst: torch.Tensor) -> tuple:
+    """The ``copy_launches`` copy of view ``src`` into view ``dst``."""
+    return (dest, src.data_ptr(), dst.data_ptr(), _box(src, dst))
+
+
+def _copy_launch(launch, dev: torch.device, kernel: str) -> None:
+    """One ``da_copy_pieces`` launch on ``dev`` of a ``copy_launches``
+    entry."""
+    n = len(launch)
+    dsts = [d for _, _, part in launch for d in part]
+    src, sstr, sizes, runs, ndst, vec = [], [], [], [], [], []
+    for s, box, part in launch:
+        sz, a, run = box
+        src.append(s)
         sstr += a
-        dstr += b
+        sizes += sz
         runs.append(run)
-    arr = ctypes.c_longlong * (3 * n)
+        ndst.append(len(part))
+        vec.append(copy_width(s, box, part))
+    ll = ctypes.c_longlong
     rc = _fn("da_copy_pieces")(
-        n, src, dst, arr(*sstr), arr(*dstr), arr(*sizes),
-        (ctypes.c_longlong * n)(*runs), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        n, (ctypes.c_void_p * n)(*src), (ll * (3 * n))(*sstr),
+        (ll * (3 * n))(*sizes), (ll * n)(*runs), (ctypes.c_int * n)(*ndst),
+        (ctypes.c_int * n)(*vec),
+        (ctypes.c_void_p * len(dsts))(*[d for d, _ in dsts]),
+        (ll * (3 * len(dsts)))(*[x for _, b in dsts for x in b]),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     kbuild.count(kernel)
+
+
+def _copy_on_card(copies, dev: torch.device, kernel: str) -> None:
+    for launch in copy_launches(copies):
+        _copy_launch(launch, dev, kernel)
 
 
 class _Order:
@@ -302,18 +352,21 @@ class _Order:
 
 
 def _pull(devs, shape, dtype, fill) -> list[torch.Tensor]:
-    """One launch per destination rank, ``fill(q, out, dev)``, all free to
-    run at once: each waits for every source card's stream, and every
+    """An output per rank, filled card by card by ``fill(dev, [(q, out),
+    ...])`` with that card's destination ranks, all free to run at once:
+    each card's launches wait for every source card's stream, and every
     card's stream waits for all the launches before it goes on."""
     order = _Order(devs)
     ready = [order.mark(d) for d in devs]
-    outs, done = [], []
+    outs = [torch.empty(shape, dtype=dtype, device=d) for d in devs]
+    cards: dict = {}
     for q, dev in enumerate(devs):
-        out = torch.empty(shape, dtype=dtype, device=dev)
+        cards.setdefault(dev, []).append((q, outs[q]))
+    done = []
+    for dev, dests in cards.items():
         order.wait(dev, ready)
-        fill(q, out, dev)
+        fill(dev, dests)
         done.append(order.mark(dev))
-        outs.append(out)
     for dev in devs:
         order.wait(dev, done)
     return outs
@@ -347,11 +400,18 @@ def ring_all_gather(blocks: Sequence[torch.Tensor],
     offs = [sum(sizes[:s]) for s in range(len(blocks))]
     shape = list(ref.shape)
     shape[dim] = sum(sizes)
-    return _pull([b.device for b in blocks], shape, ref.dtype,
-                 lambda q, out, dev: _copy_pieces(
-                     [(b, out.narrow(dim, o, n))
-                      for b, o, n in zip(blocks, offs, sizes)],
-                     dev, "all_gather"))
+    def fill(dev, dests):
+        # every output has one layout: a source's box is the same for all,
+        # and its offset there is o rows of ``dim``
+        out0 = dests[0][1]
+        step = out0.stride(dim) * ref.element_size()
+        geo = [(b.data_ptr(), o * step, _box(b, out0.narrow(dim, o, n)))
+               for b, o, n in zip(blocks, offs, sizes) if b.numel()]
+        _copy_on_card([(q, src, out.data_ptr() + off, box)
+                       for q, out in dests for src, off, box in geo],
+                      dev, "all_gather")
+
+    return _pull([b.device for b in blocks], shape, ref.dtype, fill)
 
 
 def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
@@ -378,12 +438,24 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
     shape[split_dim] = sblk
     cext = shape[concat_dim]                 # a piece's extent there
     shape[concat_dim] = cext * p
-    return _pull([b.device for b in blocks], shape, ref.dtype,
-                 lambda q, out, dev: _copy_pieces(
-                     [(b.narrow(split_dim, q * sblk, sblk),
-                       out.narrow(concat_dim, r * cext, cext))
-                      for r, b in enumerate(blocks)],
-                     dev, "all_to_all"))
+    isz = ref.element_size()
+
+    def fill(dev, dests):
+        # every piece has one box: piece q of rank r's block to offset r
+        # of output q
+        out0 = dests[0][1]
+        if not out0.numel():
+            return
+        box = _box(ref.narrow(split_dim, 0, sblk),
+                   out0.narrow(concat_dim, 0, cext))
+        sstep = ref.stride(split_dim) * sblk * isz
+        dstep = out0.stride(concat_dim) * cext * isz
+        _copy_on_card([(q, b.data_ptr() + q * sstep,
+                        out.data_ptr() + r * dstep, box)
+                       for q, out in dests for r, b in enumerate(blocks)],
+                      dev, "all_to_all")
+
+    return _pull([b.device for b in blocks], shape, ref.dtype, fill)
 
 
 # ---------------------------------------------------------------------------
@@ -422,22 +494,23 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
     shape[dim] = oblk
     isz = ref.element_size()
 
-    def fill(d, out, dev):
-        srcs = [blocks[(d + k) % p].narrow(dim, d * oblk, oblk)
-                for k in range(1, p + 1)]
-        if out.numel() == 0:
-            return
-        sizes, sstr, _, run = _box(srcs[0], out)
-        rc = _fn("da_reduce_pieces")(
-            p, (ctypes.c_void_p * p)(*[s.data_ptr() for s in srcs]),
-            (ctypes.c_longlong * 3)(*sizes),
-            (ctypes.c_longlong * 3)(*[x // isz for x in sstr]), run // isz,
-            out.data_ptr(), int(ref.dtype == torch.bfloat16), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"reduce-scatter kernel launch failed: CUDA "
-                               f"error {rc}")
-        kbuild.count("reduce_scatter")
+    def fill(dev, dests):
+        for d, out in dests:
+            srcs = [blocks[(d + k) % p].narrow(dim, d * oblk, oblk)
+                    for k in range(1, p + 1)]
+            if out.numel() == 0:
+                continue
+            sizes, sstr, _, run = _box(srcs[0], out)
+            rc = _fn("da_reduce_pieces")(
+                p, (ctypes.c_void_p * p)(*[s.data_ptr() for s in srcs]),
+                (ctypes.c_longlong * 3)(*sizes),
+                (ctypes.c_longlong * 3)(*[x // isz for x in sstr]),
+                run // isz, out.data_ptr(), int(ref.dtype == torch.bfloat16),
+                dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"reduce-scatter kernel launch failed: "
+                                   f"CUDA error {rc}")
+            kbuild.count("reduce_scatter")
 
     return _pull([b.device for b in blocks], shape, ref.dtype, fill)
 

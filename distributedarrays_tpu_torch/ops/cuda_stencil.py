@@ -15,14 +15,21 @@ Each wrapper launches its kernel for CUDA tensors (float32 only, contiguous,
 one device) and takes the plain version for CPU tensors; it never falls
 back from one to the other.  The kernels sum the taps in the plain
 version's order without FMA contraction, so on one device the two agree
-bit for bit.  The multistep kernel takes at most ``MAX_K`` steps per launch
-(its two shared-memory buffers of (34 + 2k)^2 floats must fit 48 KB); the
-TPU kernel's VMEM tiling limits do not apply.
+bit for bit.  The multistep kernel takes at most ``MAX_K`` steps per launch:
+each block holds a ``WINDOW_ROWS`` x ``WINDOW_COLS`` window in registers
+and writes its centre, a tile of ``WINDOW_ROWS - 2k`` x ``WINDOW_COLS -
+2k`` (96 x 96 at k = 16), so the TPU kernel's VMEM tiling limits do not
+apply.  ``multistep_plan`` gives a
+launch's grid, tile and shared memory; ``multistep_route`` its route
+(``kbuild.STENCIL_ROUTES``): the 5-point weights (zero corners, unit
+edges, a nonzero centre) take a specialisation with those taps compiled
+in, other weights the generic taps.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -30,12 +37,56 @@ import torch
 from ..utils import kbuild
 
 __all__ = ["stencil3x3_block", "stencil5_block", "stencil3x3_multistep",
-           "stencil5_multistep", "LAPLACIAN_3X3", "MAX_K"]
+           "stencil5_multistep", "multistep_plan", "multistep_route",
+           "LAPLACIAN_3X3", "MAX_K", "WINDOW_ROWS", "WINDOW_COLS"]
 
 # the 5-point Laplacian as a 3x3 stencil
 LAPLACIAN_3X3 = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
 
 MAX_K = 16
+# the multistep kernel's window (stencil.cu `ms`): 8 warps of 16 rows, 32
+# lanes of 4 columns; its shared memory is two exchange buffers of a top
+# and a bottom row per warp, each row padded by 4 zero floats either side
+_WARPS = 8
+WINDOW_ROWS = 16 * _WARPS
+WINDOW_COLS = 32 * 4
+
+
+@dataclass(frozen=True)
+class MultistepPlan:
+    """A multistep launch: ``grid`` (tiles across, tiles down) of
+    ``tile_rows`` x ``tile_cols`` output tiles, and the shared memory a
+    block uses."""
+    tile_rows: int
+    tile_cols: int
+    grid: tuple
+    smem_bytes: int
+
+
+def multistep_plan(m: int, n: int, k: int) -> MultistepPlan:
+    """The launch of ``k`` steps on an (m, n) block: tiles of
+    ``WINDOW_ROWS - 2k`` x ``WINDOW_COLS - 2k`` covering the block, none
+    wholly outside it."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the multistep kernel takes 1 <= k <= {MAX_K}; "
+                         f"got {k}")
+    th, tw = WINDOW_ROWS - 2 * k, WINDOW_COLS - 2 * k
+    grid = (max(1, -(-n // tw)), max(1, -(-m // th)))
+    if grid[1] > 65535:
+        raise ValueError(f"a block of {m} rows needs {grid[1]} tile rows; "
+                         "the kernel's grid takes at most 65535")
+    smem = 2 * 2 * _WARPS * (WINDOW_COLS + 8) * 4
+    return MultistepPlan(th, tw, grid, smem)
+
+
+def multistep_route(weights) -> str:
+    """``"five_point"`` for zero corners, unit edges and a nonzero centre
+    (the Laplacian's shape), else ``"generic"``."""
+    w = _canon_weights(weights)
+    five = (w[0][0] == w[0][2] == w[2][0] == w[2][2] == 0.0
+            and w[0][1] == w[1][0] == w[1][2] == w[2][1] == 1.0
+            and w[1][1] != 0.0)
+    return "five_point" if five else "generic"
 
 
 def _canon_weights(weights) -> tuple:
@@ -110,8 +161,11 @@ def _fn(name: str, nints: int):
     if f is None:
         f = getattr(kbuild.load("stencil"), name)
         f.restype = ctypes.c_int
+        # the multistep entry takes its route and grid after the weights
+        tail = [ctypes.c_int] * 3 if name == "da_stencil_multistep" else []
         f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * nints + \
-            [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p]
+            [ctypes.POINTER(ctypes.c_float)] + tail + \
+            [ctypes.c_int, ctypes.c_void_p]
         _fns[name] = f
     return f
 
@@ -167,19 +221,20 @@ def stencil3x3_multistep(block: torch.Tensor, lo: torch.Tensor,
         return _multistep_plain(block, lo, hi, k, top_dirichlet,
                                 bot_dirichlet, w)
     _check_kernel_args(block, lo, hi)
-    if k > MAX_K:
-        raise ValueError(f"the multistep kernel takes k <= {MAX_K}; got {k}")
+    plan = multistep_plan(m, n, k)
     out = torch.empty_like(block)
     if out.numel() == 0:
         return out
+    route = multistep_route(w)
     rc = _fn("da_stencil_multistep", 5)(
         block.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(), m, n,
         k, int(bool(top_dirichlet)), int(bool(bot_dirichlet)),
-        _weights_arg(w), block.device.index,
+        _weights_arg(w), kbuild.STENCIL_ROUTES.index(route), *plan.grid,
+        block.device.index,
         torch.cuda.current_stream(block.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"stencil kernel launch failed: CUDA error {rc}")
-    kbuild.count("stencil_multistep")
+    kbuild.count("stencil_multistep", route)
     return out
 
 

@@ -42,8 +42,9 @@ from ..darray import (DArray, SubDArray, as_tensor, distribute,
 from ..parallel.reshard import allgather, plan_allgather
 from ..utils import autotune
 from . import collective_matmul as cm
-from .broadcast import _pieces, elementwise
+from .broadcast import _pieces, elementwise, result_dtype
 from .cuda_gemm import cuda_matmul, quantized_matmul, torch_matmul
+from .mapreduce import acc_dtype
 
 __all__ = [
     "axpy_", "ddot", "dnorm", "rmul_", "lmul_", "lmul_diag", "rmul_diag",
@@ -99,36 +100,72 @@ def _aligned(x, y):
     return d.home(), out
 
 
+def _dot_part(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype):
+    """One rank's ``vdot`` of ``a`` and ``b`` in ``dt``'s accumulation
+    type: any of the ANDs for bool, an int64 sum for integers (wrapped
+    into ``dt`` at the end), a float32 sum for float16 and bfloat16."""
+    a, b = a.reshape(-1).to(dt), b.reshape(-1).to(dt)
+    if dt == torch.bool:
+        return (a & b).any()
+    acc = acc_dtype(dt)
+    if acc == torch.int64:
+        return (a.to(acc) * b.to(acc)).sum()
+    return torch.vdot(a.to(acc), b.to(acc))
+
+
 def ddot(x, y):
     """Distributed dot product ``sum(conj(x) * y)`` (reference ``dot``):
-    per-rank partial dots, summed on the first rank's device."""
+    per-rank partial dots, summed on the first rank's device.  The result
+    takes the operands' promoted type, as ``jnp.vdot``: an integer dot
+    wraps in it, and a float16 or bfloat16 dot is summed in float32 and
+    rounded once."""
     if _shape_of(x) != _shape_of(y):
         raise ValueError(f"ddot: dims {_shape_of(x)} != {_shape_of(y)}")
+    dt = result_dtype(x, y)
     al = _aligned(x, y)
     if al is None:
-        return torch.vdot(_host(x).reshape(-1), _host(y).reshape(-1))
-    home, pairs = al
-    parts = [torch.vdot(a.reshape(-1), b.reshape(-1)).to(home)
-             for a, b in pairs]
-    return torch.stack(parts).sum()
+        parts = [_dot_part(_host(x), _host(y), dt)]
+    else:
+        home, pairs = al
+        parts = [_dot_part(a, b, dt).to(home) for a, b in pairs]
+    total = torch.stack(parts)
+    return (total.any() if dt == torch.bool else total.sum()).to(dt)
 
 
 def dnorm(x, p=2):
-    """Vector ``p``-norm of the flattened array (reference ``norm``: the norm
-    of the per-rank norms; for ``p == 0`` the count of nonzeros)."""
-    if not isinstance(x, DArray):
-        return torch.linalg.vector_norm(_host(x).reshape(-1), ord=p)
-    home = x.home()
+    """Vector ``p``-norm of the flattened array (reference ``norm``: per-rank
+    partials, combined on the first rank's device; for ``p == 0`` the
+    count of nonzeros).  Computed as ``jnp.linalg.norm`` computes it, so
+    the result matches JAX's, overflow included: integers and bool become
+    float32; the squares (``p == 2``) and powers are taken in the input
+    type, and their sum is carried in float32 for float16 and bfloat16 and
+    rounded once to the type before the root.  A float16 2-norm is
+    therefore ``inf`` once the sum of squares passes 65504, as in JAX,
+    where ``torch.linalg.vector_norm`` would scale and return a finite
+    value."""
+    ts = [x.part(ci) for ci in x.cells()] if isinstance(x, DArray) else \
+        [_host(x)]
+    home = ts[0].device
+    ts = [t.reshape(-1) for t in ts if t.numel()] or [ts[0].reshape(-1)]
+    if not (ts[0].is_floating_point() or ts[0].is_complex()):
+        ts = [t.float() for t in ts]
+    real = ts[0].abs().dtype
+    acc = acc_dtype(real)
+    if p in (np.inf, -np.inf):
+        f = torch.amax if p > 0 else torch.amin
+        return f(torch.stack([f(t.abs()).to(home) for t in ts]))
 
-    def local(t):
-        t = t.reshape(-1)
-        t = t if t.is_floating_point() or t.is_complex() else t.float()
-        return torch.linalg.vector_norm(t, ord=p).to(home)
-
-    parts = torch.stack([local(x.part(ci)) for ci in x.cells()])
+    def total(f):
+        return torch.stack([f(t).to(acc).sum().to(home) for t in ts]).sum()
     if p == 0:
-        return parts.sum()
-    return torch.linalg.vector_norm(parts, ord=p)
+        return total(lambda t: t != 0).to(real)
+    if p == 1:
+        return total(torch.abs).to(real)
+    if p == 2:
+        return torch.sqrt(total(lambda t: (t * t.conj()).real).to(real))
+    # the exponents are constants of the type, as jnp.linalg.norm makes them
+    e, inv = (torch.tensor(v, dtype=real).item() for v in (p, 1.0 / p))
+    return total(lambda t: t.abs() ** e).to(real) ** inv
 
 
 def rmul_(d: DArray, s) -> DArray:

@@ -12,8 +12,11 @@ device of the first rank of each result cell.  Means and variances carry
 ``dims=`` reductions keep the reduced dims with size 1, and the result
 keeps the source's pid grid with the reduced grid dims collapsed, as in the
 JAX package.  Whole-array reductions return a 0-d tensor.  dtypes follow
-JAX with 64-bit types off: an integer or bool sum/product is int32, an
-integer mean/variance float32.
+JAX with 64-bit types off: a sum or product of bool or signed integers is
+int32, of unsigned integers uint32 (partials in int64, wrapped once at the
+end); a float16 or bfloat16 sum or product keeps its type but carries
+float32 partials, merged in float32 and rounded once, as JAX upcasts
+them; an integer mean/variance is float32.
 """
 
 from __future__ import annotations
@@ -40,6 +43,27 @@ def _is_exact(dtype) -> bool:
                                        or dtype.is_complex)
 
 
+_HALF = (torch.float16, torch.bfloat16)
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+
+
+def sum_dtype(dtype) -> torch.dtype:
+    """The dtype of a sum or product of ``dtype`` (``jnp.sum``'s rule with
+    64-bit types off): int32 for bool and signed integers, uint32 for
+    unsigned ones; floats keep theirs."""
+    if not _is_exact(dtype):
+        return dtype
+    return torch.uint32 if dtype in _UNSIGNED else torch.int32
+
+
+def acc_dtype(dtype) -> torch.dtype:
+    """The dtype partial sums and products of ``dtype`` are carried in:
+    int64 for exact types, float32 for float16 and bfloat16."""
+    if _is_exact(dtype):
+        return torch.int64
+    return torch.float32 if dtype in _HALF else dtype
+
+
 def _reduce_dims(x: torch.Tensor, fn, axes) -> torch.Tensor:
     """``fn(x, dim=a, keepdim=True)`` over each of ``axes``."""
     for a in sorted(axes, reverse=True):
@@ -58,9 +82,8 @@ class _Reducer:
         name = self.name
         n = int(np.prod([x.shape[a] for a in axes]))
         if name in ("sum", "prod"):
-            if _is_exact(x.dtype):
-                x = x.to(torch.int64)
-            return _reduce_dims(x, torch.sum if name == "sum" else torch.prod,
+            return _reduce_dims(x.to(acc_dtype(x.dtype)),
+                                torch.sum if name == "sum" else torch.prod,
                                 axes)
         if name == "max":
             return _reduce_dims(x, torch.amax, axes)
@@ -103,7 +126,7 @@ class _Reducer:
     def finish(self, s, dtype):
         name = self.name
         if name in ("sum", "prod"):
-            return s.to(torch.int32) if _is_exact(dtype) else s
+            return s.to(sum_dtype(dtype))
         if name in ("max", "min", "all", "any"):
             return s
         out_dtype = torch.float32 if _is_exact(dtype) else dtype

@@ -14,12 +14,13 @@ A kernel with several routes also names the route it launched
 (``count(name, route)``), counted apart in ``route_counts()``: the block
 GEMM's, flash attention's (K5), the ring hop's (K8) and the backward's dq
 (K6) and dk/dv (K7) ``wgmma``/``mma``/``f32``, the int8 GEMM's (K4)
-``wgmma``/``mma`` (``INT8_ROUTES``), the fused ring attention step's compute
-steps by route (a ring step that only forwards its K/V pair, or only
-starts or finishes the carry, counts as a launch and under no route), and
-every step of the ring GEMMs K13, K14 and K15 by route (``RING_ROUTES``:
-those three and ``wgmma_peer``, wgmma with the slot the step writes on
-another card).
+``wgmma``/``mma`` (``INT8_ROUTES``), the multistep stencil's (K3)
+``generic``/``five_point`` (``STENCIL_ROUTES``), the fused ring attention
+step's compute steps by route (a ring step that only forwards its K/V
+pair, or only starts or finishes the carry, counts as a launch and under
+no route), and every step of the ring GEMMs K13, K14 and K15 by route
+(``RING_ROUTES``: those three and ``wgmma_peer``, wgmma with the slot the
+step writes on another card).
 
 ``sm_count(device)`` is a card's SM count (cached), which the wrappers
 use to size their grids.
@@ -42,7 +43,8 @@ from pathlib import Path
 
 __all__ = ["build", "load", "count", "reset_launches", "launch_counts",
            "route_counts", "enable_peer_access", "sm_count", "KERNELS",
-           "ROUTES", "RING_ROUTES", "INT8_ROUTES", "NVCC_FLAGS"]
+           "ROUTES", "RING_ROUTES", "INT8_ROUTES", "STENCIL_ROUTES",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -71,6 +73,8 @@ ROUTES = ("f32", "mma", "wgmma")
 RING_ROUTES = ROUTES + ("wgmma_peer",)
 # the int8 GEMM's routes (codes as in ROUTES: it has no f32 route)
 INT8_ROUTES = ("mma", "wgmma")
+# the multistep stencil's routes: generic taps, the 5-point specialisation
+STENCIL_ROUTES = ("generic", "five_point")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -80,6 +84,7 @@ _routes = {k: dict.fromkeys(ROUTES, 0)
                      "flash_attention_hop", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv")}
 _routes["matmul_int8"] = dict.fromkeys(INT8_ROUTES, 0)
+_routes["stencil_multistep"] = dict.fromkeys(STENCIL_ROUTES, 0)
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs",
                           "matmul_reducescatter")})
@@ -111,9 +116,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of each route of the block GEMM, the int8 GEMM, flash
-    attention, the ring hop, the backward's dq and dk/dv passes, the ring
-    attention step and the ring GEMMs."""
+    """Launches of each route of the block GEMM, the int8 GEMM, the
+    multistep stencil, flash attention, the ring hop, the backward's dq
+    and dk/dv passes, the ring attention step and the ring GEMMs."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
 

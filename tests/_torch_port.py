@@ -38,3 +38,52 @@ def same_layout(jd, td) -> None:
     assert tuple(td.dims) == tuple(jd.dims)
     assert [list(c) for c in td.cuts] == [list(c) for c in jd.cuts]
     np.testing.assert_array_equal(td.pids, jd.pids)
+
+
+# the dtypes and shapes of the dtype parity cases (ROADMAP.md C1-C5)
+TYPED_DTYPES = ["float16", "bfloat16", "uint8", "int8", "bool"]
+TYPED_SHAPES = [(37, 11), (50, 8), (13,), (9, 7, 5)]
+
+
+def typed_inputs(dtype: str, shape, seed: int, lo=-100.0, hi=100.0):
+    """The same seeded values as a numpy array for the JAX package (bfloat16
+    as ``ml_dtypes.bfloat16``) and as a tensor for the port: integers over
+    the type's range, bools at random, floats uniform in [lo, hi) rounded
+    once to the type."""
+    import ml_dtypes
+    rng = np.random.default_rng(seed)
+    if dtype == "bool":
+        a = rng.integers(0, 2, shape).astype(bool)
+    elif dtype in ("uint8", "int8"):
+        info = np.iinfo(dtype)
+        a = rng.integers(info.min, info.max + 1, shape).astype(dtype)
+    else:
+        f = rng.uniform(lo, hi, shape).astype(np.float32)
+        if dtype == "bfloat16":
+            return f.astype(ml_dtypes.bfloat16), torch.from_numpy(f).bfloat16()
+        a = f.astype(dtype)
+    return a, torch.from_numpy(a)
+
+
+def typed_result(x) -> tuple:
+    """A JAX or port result (array, tensor or DArray) as its dtype's name
+    and its values in float64 (bool kept)."""
+    if isinstance(x, tdat.DArray):
+        x = x.full()
+    if isinstance(x, torch.Tensor):
+        name = str(x.dtype).removeprefix("torch.")
+        v = x if x.dtype == torch.bool else x.to(torch.float64)
+        return name, v.numpy()
+    a = np.asarray(x)
+    return a.dtype.name, a if a.dtype == bool else a.astype(np.float64)
+
+
+def assert_typed_equal(port, jax_result, rtol: float = 0.0) -> None:
+    """Same dtype and the same values: bit for bit (infs included), or to
+    ``rtol`` where the caller states why."""
+    (pn, pv), (jn, jv) = typed_result(port), typed_result(jax_result)
+    assert pn == jn, f"dtype {pn} != JAX's {jn}"
+    if rtol:
+        np.testing.assert_allclose(pv, jv, rtol=rtol)
+    else:
+        np.testing.assert_array_equal(pv, jv)

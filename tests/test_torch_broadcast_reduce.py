@@ -3,6 +3,12 @@
 Elementwise results agree to float32 rounding.  Reductions agree to
 rtol 1e-5: both packages reduce each chunk and then combine, but the order
 of the float32 sums inside a chunk differs between XLA and torch.
+
+The dtype cases (float16, bfloat16, uint8, int8 and bool over four shapes)
+hold the port to JAX's dtype and value exactly: integer sums and products
+are exact (then wrapped into int32 or uint32), and a float16 or bfloat16
+sum or product is one float32 sum rounded once to the type in both
+packages, so only its order differs, far below the type's spacing.
 """
 
 import operator
@@ -15,7 +21,9 @@ import torch
 import distributedarrays_tpu as dat
 import distributedarrays_tpu_torch as tdat
 
-from _torch_port import port_ranks, same_layout  # noqa: F401
+from _torch_port import (TYPED_DTYPES, TYPED_SHAPES,  # noqa: F401
+                         assert_typed_equal, port_ranks, same_layout,
+                         typed_inputs)
 
 RTOL = 1e-5
 
@@ -156,3 +164,59 @@ def test_integer_reductions_keep_jax_dtypes():
         assert float(tr) == pytest.approx(float(jr))
     assert bool(tdat.dreduce("all", tdat.distribute(x >= 0)))
     assert tdat.distribute(x).sum(dims=0).dims == (1, 5)
+
+
+@pytest.mark.parametrize("dims", [None, 0])
+@pytest.mark.parametrize("fn", ["dsum", "dprod"])
+@pytest.mark.parametrize("shape", TYPED_SHAPES)
+@pytest.mark.parametrize("dtype", TYPED_DTYPES)
+def test_sum_and_prod_follow_jax_dtypes(dtype, shape, fn, dims):
+    # products of floats near 1 stay finite; sums over +-100 are where a
+    # float16 partial rounded per rank would show
+    lo, hi = (0.9, 1.1) if fn == "dprod" else (-100.0, 100.0)
+    a, t = typed_inputs(dtype, shape, 21, lo, hi)
+    jr = getattr(dat, fn)(dat.distribute(a), dims=dims)
+    tr = getattr(tdat, fn)(tdat.distribute(t), dims=dims)
+    if dims is not None:
+        same_layout(jr, tr)
+    assert_typed_equal(tr, jr)
+    dat.d_closeall()
+
+
+# the bool and integer operator cases where torch's own rules differ from
+# JAX's weakly typed Python scalars; x is a DArray of the case's dtype
+OPERATOR_CASES = {
+    "bool * 2": ("bool", lambda b: b * 2),
+    "bool + 2": ("bool", lambda b: b + 2),
+    "bool // 2": ("bool", lambda b: b // 2),
+    "bool % 2": ("bool", lambda b: b % 2),
+    "bool ** 2": ("bool", lambda b: b ** 2),
+    "bool ** True": ("bool", lambda b: b ** True),
+    "bool - 2": ("bool", lambda b: b - 2),
+    "bool - 2.5": ("bool", lambda b: b - 2.5),
+    "2 - bool": ("bool", lambda b: 2 - b),
+    "bool // True": ("bool", lambda b: b // True),
+    "bool % True": ("bool", lambda b: b % True),
+    "bool / 2": ("bool", lambda b: b / 2),
+    "int8 - True": ("int8", lambda x: x - True),
+    "uint8 - True": ("uint8", lambda x: x - True),
+    "float16 - True": ("float16", lambda x: x - True),
+    "bfloat16 - True": ("bfloat16", lambda x: x - True),
+    "int8 ** 300": ("int8", lambda x: x ** 300),
+    "uint8 ** 300": ("uint8", lambda x: x ** 300),
+    "int8 + 300": ("int8", lambda x: x + 300),
+    "int8 * 2.5": ("int8", lambda x: x * 2.5),
+    "float16 * 0.1": ("float16", lambda x: x * 0.1),
+    "bfloat16 * 0.1": ("bfloat16", lambda x: x * 0.1),
+}
+
+
+@pytest.mark.parametrize("shape", TYPED_SHAPES)
+@pytest.mark.parametrize("case", list(OPERATOR_CASES))
+def test_operators_follow_jax_promotion(case, shape):
+    dtype, op = OPERATOR_CASES[case]
+    a, t = typed_inputs(dtype, shape, 22)
+    jr, tr = op(dat.distribute(a)), op(tdat.distribute(t))
+    same_layout(jr, tr)
+    assert_typed_equal(tr, jr)
+    dat.d_closeall()

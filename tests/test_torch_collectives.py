@@ -117,6 +117,84 @@ def test_copy_box_geometry():
         C._box(x.t(), torch.empty(12, 8))
 
 
+def _gather_copies(p, rows=8, cols=16, dim=0, dtype=torch.float32):
+    """The (dest, src, dst) copies the all-gather makes for p ranks."""
+    blocks = [torch.empty(rows, cols, dtype=dtype) for _ in range(p)]
+    e = blocks[0].shape[dim]
+    shape = [rows, cols]
+    shape[dim] *= p
+    outs = [torch.empty(shape, dtype=dtype) for _ in range(p)]
+    return [C.view_copy(q, b, out.narrow(dim, r * e, e))
+            for q, out in enumerate(outs) for r, b in enumerate(blocks)]
+
+
+@pytest.mark.parametrize("p", [1, 4, 8, 33])
+def test_copy_launches_read_each_source_once_per_launch(p):
+    copies = _gather_copies(p)
+    launches = C.copy_launches(copies)
+    flat = [(src, d) for launch in launches for src, _, part in launch
+            for d, _ in part]
+    # every copy once, at most MAXP copies and one group per source a launch
+    assert sorted(flat) == sorted((s, d) for _, s, d, _ in copies)
+    for launch in launches:
+        assert sum(len(part) for _, _, part in launch) <= C.MAXP
+        srcs = [src for src, _, _ in launch]
+        assert len(srcs) == len(set(srcs)) <= C.MAXP
+    # four ranks on one card: one launch, each source to all four
+    if p == 4:
+        assert len(launches) == 1
+        assert [len(part) for _, _, part in launches[0]] == [4] * 4
+
+
+@pytest.mark.parametrize("case", ["gather0", "gather1", "uneven",
+                                  "a2a10", "a2a01"])
+def test_kernel_copies_are_the_views_they_stand_for(monkeypatch, case):
+    # the CUDA path's copies, made on CPU tensors with the launch stubbed:
+    # addresses and boxes computed once per source or call must be those
+    # of the narrowed views, for every destination
+    got = []
+    monkeypatch.setattr(C, "_on_cuda", lambda ts: True)
+    monkeypatch.setattr(C, "_copy_on_card",
+                        lambda copies, dev, kernel: got.extend(copies))
+    if case.startswith("a2a"):
+        sd, cd = int(case[3]), int(case[4])
+        blocks = [torch.empty(8, 12, dtype=torch.bfloat16) for _ in range(4)]
+        outs = C.ring_all_to_all(blocks, sd, cd)
+        sb, ce = blocks[0].shape[sd] // 4, blocks[0].shape[cd]
+        want = [C.view_copy(q, b.narrow(sd, q * sb, sb),
+                            out.narrow(cd, r * ce, ce))
+                for q, out in enumerate(outs) for r, b in enumerate(blocks)]
+    else:
+        dim = 1 if case == "gather1" else 0
+        rows = (3, 0, 5, 2) if case == "uneven" else (4,) * 4
+        blocks = [torch.empty((n, 6) if dim == 0 else (6, n))
+                  for n in rows]
+        outs = C.ring_all_gather(blocks, dim)
+        offs = np.cumsum((0,) + rows)
+        want = [C.view_copy(q, b, out.narrow(dim, int(o), n))
+                for q, out in enumerate(outs)
+                for b, o, n in zip(blocks, offs, rows) if n]
+    assert got == want
+
+
+def test_copy_launches_all_to_all_and_widths():
+    blocks = [torch.empty(64, 100, dtype=torch.bfloat16) for _ in range(4)]
+    outs = [torch.empty(256, 25, dtype=torch.bfloat16) for _ in range(4)]
+    copies = [C.view_copy(q, b.narrow(1, q * 25, 25),
+                          out.narrow(0, r * 64, 64))
+              for q, out in enumerate(outs) for r, b in enumerate(blocks)]
+    (launch,) = C.copy_launches(copies)
+    assert [len(part) for _, _, part in launch] == [1] * 16
+    # 50-byte runs: byte accesses; whole f32 blocks: 16 bytes; bf16 rows of
+    # 6 elements at 12-byte offsets: 4 bytes
+    assert {C.copy_width(*g) for g in launch} == {1}
+    (launch,) = C.copy_launches(_gather_copies(4, 8, 16))
+    assert {C.copy_width(*g) for g in launch} == {16}
+    (launch,) = C.copy_launches(_gather_copies(4, 5, 6, 1, torch.bfloat16))
+    assert {C.copy_width(*g) for g in launch} == {4}
+    assert C.copy_launches([]) == []
+
+
 # ---------------------------------------------------------------------------
 # reshard planning and lowering
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ and Cannon/SUMMA), its tuners, BLAS-1, the diagonal scalings and
 ``dadjoint``, against the JAX package (mirroring ``tests/test_linalg.py``).
 
 float32 results agree to rtol 1e-5 (summation order), values that only
-move data exactly.
+move data exactly.  ``ddot`` and ``dnorm`` over float16, bfloat16, uint8,
+int8 and bool agree with JAX in dtype and value: exactly for integer dots
+(wrapped in the input type) and for half-precision dots and norms (one
+float32 sum rounded once to the type; a float16 2-norm overflows to inf as
+in JAX), to rtol 1e-6 for the float32 norms of integers (sum order).
 """
 
 import numpy as np
@@ -16,7 +20,9 @@ import distributedarrays_tpu_torch as tdat
 from distributedarrays_tpu_torch.ops import linalg as la
 from distributedarrays_tpu_torch.parallel import reshard as TR
 
-from _torch_port import port_ranks, same_layout  # noqa: F401
+from _torch_port import (TYPED_DTYPES, TYPED_SHAPES,  # noqa: F401
+                         assert_typed_equal, port_ranks, same_layout,
+                         typed_inputs)
 
 
 @pytest.fixture
@@ -303,4 +309,31 @@ def test_dadjoint_matches_jax(rng, dims, dist):
         np.asarray(tdat.dadjoint(tdat.distribute(real, dist=dist))), real.T)
     with pytest.raises(ValueError, match="dadjoint"):
         tdat.dadjoint(tdat.distribute(np.zeros(8, np.float32)))
+    dat.d_closeall()
+
+
+@pytest.mark.parametrize("shape", TYPED_SHAPES)
+@pytest.mark.parametrize("dtype", TYPED_DTYPES)
+def test_ddot_follows_jax_dtypes(dtype, shape):
+    (a, ta), (b, tb) = (typed_inputs(dtype, shape, s, -30.0, 30.0)
+                        for s in (23, 24))
+    jr = dat.ddot(dat.distribute(a), dat.distribute(b))
+    assert_typed_equal(tdat.ddot(tdat.distribute(ta), tdat.distribute(tb)),
+                       jr)
+    # a host operand on one side: the same promoted type and value
+    assert_typed_equal(tdat.ddot(tdat.distribute(ta), tb), jr)
+    dat.d_closeall()
+
+
+@pytest.mark.parametrize("shape", TYPED_SHAPES)
+@pytest.mark.parametrize("dtype", TYPED_DTYPES)
+def test_dnorm_follows_jax_dtypes(dtype, shape):
+    a, t = typed_inputs(dtype, shape, 25)
+    jd, td = dat.distribute(a), tdat.distribute(t)
+    # integers and bool become float32, whose sums differ in order between
+    # the packages by a few float32 spacings; half types round one float32
+    # sum once and agree exactly
+    rtol = 1e-6 if dtype in ("uint8", "int8", "bool") else 0.0
+    for p in (2, 1, np.inf, -np.inf, 0, 3):
+        assert_typed_equal(tdat.dnorm(td, p), dat.dnorm(jd, p), rtol)
     dat.d_closeall()

@@ -61,6 +61,49 @@ def test_multistep_plain_matches_pallas(top, bot):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("m,n,k,top,bot", [(13, 21, 4, True, False),
+                                           (5, 9, 8, False, True),
+                                           (130, 131, 8, True, False)])
+def test_multistep_plain_ragged_mixed_flags_matches_pallas(m, n, k, top, bot):
+    # one Dirichlet edge, a ragged block, and (5, 9) with k past the block
+    w = _weights(9)
+    x, lo, hi = _arr((m, n), 10), _arr((k, n), 11), _arr((k, n), 12)
+    jr = jps.stencil3x3_multistep(x, lo, hi, k, top, bot, w, interpret=True)
+    tr = tcs.stencil3x3_multistep(torch.from_numpy(x), torch.from_numpy(lo),
+                                  torch.from_numpy(hi), k, top, bot, w)
+    assert_fro(tr.numpy(), np.asarray(jr))
+
+
+@pytest.mark.parametrize("k", range(1, tcs.MAX_K + 1))
+def test_multistep_plan_fits_and_covers(k):
+    plan = tcs.multistep_plan(8192, 8192, k)
+    assert plan.smem_bytes <= 232448    # what a Hopper block can opt in to
+    assert (plan.tile_rows, plan.tile_cols) == (tcs.WINDOW_ROWS - 2 * k,
+                                               tcs.WINDOW_COLS - 2 * k)
+    for m, n in ((8192, 8192), (1000, 777), (7, 8193), (1, 1), (97, 96)):
+        plan = tcs.multistep_plan(m, n, k)
+        gx, gy = plan.grid
+        # every cell in a tile, no tile wholly outside the block
+        assert gx * plan.tile_cols >= n > (gx - 1) * plan.tile_cols
+        assert gy * plan.tile_rows >= m > (gy - 1) * plan.tile_rows
+
+
+def test_multistep_plan_and_route_refuse_and_choose():
+    for k in (0, tcs.MAX_K + 1):
+        with pytest.raises(ValueError, match="1 <= k"):
+            tcs.multistep_plan(64, 64, k)
+    with pytest.raises(ValueError, match="65535"):
+        tcs.multistep_plan(65536 * 112, 8, 8)
+    assert tcs.multistep_route(tcs.LAPLACIAN_3X3) == "five_point"
+    # unit edges and zero corners with any nonzero centre; else generic
+    assert tcs.multistep_route(((0, 1, 0), (1, 1, 1), (0, 1, 0))) == \
+        "five_point"
+    for w in (_weights(3), ((0, 1, 0), (1, 0, 1), (0, 1, 0)),
+              ((0, 2, 0), (1, -4, 1), (0, 1, 0)),
+              ((0.5, 1, 0), (1, -4, 1), (0, 1, 0))):
+        assert tcs.multistep_route(w) == "generic"
+
+
 def test_kernel_wrappers_validate_shapes():
     x = torch.zeros(8, 6)
     with pytest.raises(ValueError, match="halo rows"):
