@@ -23,7 +23,9 @@
      odd) and 7x8193 (m below the tile height and below k), each at k =
      1, 8 and 16, all four Dirichlet flag settings, random weights on the
      generic route and the Laplacian on the 5-point route, every call on
-     the route ``multistep_route`` picks.
+     the route ``multistep_route`` picks;
+   - both stencils in float16, bfloat16 and int32 (``TYPED_SHAPES``, K2
+     also at 1x8192 and off its alignment; float16 K3 at k = 1 and 8).
    Stencils bit for bit (``exact``: the kernels sum in the plain order
    without FMA contraction).
 3. Runs the five BASELINE.md configurations through the public API on one
@@ -52,7 +54,10 @@
    16384^2 (4,1)x(4,1), relative Frobenius error <= 1e-5 in f32 and
    <= 1e-2 in bf16 (per-step product order and rounding).
 4. Runs a (4,1) stencil and a (2,2)x(2,2) GEMM with four ranks on the one
-   card and compares them with the one-rank results.
+   card and compares them with the one-rank results; then ``stencil5`` of
+   8192^2 (4,1) DArrays in float16, bfloat16 and int32 through K2 and K3,
+   bit for bit against the plain steps on the card and on the host, and
+   an int8 one refused with ``TypeError`` (``stencil_dtypes``).
 5. Distributed GEMM at BASELINE config 3's size (16384^2 f32) with four
    ranks on the one card, launch counts set to 0 just before and read just
    after: ``A @ B`` on (2,2)x(2,2) under the default and under
@@ -2255,28 +2260,64 @@ def k3_smem_bound_ms(CS, m: int, n: int, k: int) -> float:
         / SMEM_BYTES_S * 1e3
 
 
+# K2 against its plain version: K3's shapes and a single row
+K2_SHAPES = K3_SHAPES + ((1, 8192),)
+# K2 and K3 in the other dtypes: a shape on the vector path and K3's two
+# others; float16 takes K3 to 8 steps (with its values scaled by 2^-12, so
+# that 8 Laplacian steps stay finite)
+TYPED_SHAPES = ((1024, 2048), (1000, 777), (7, 8193))
+
+
+def typed_grid(randn, shape, dt) -> torch.Tensor:
+    """Seeded values of ``dt`` on the card: normal floats (float16 scaled
+    by 2^-12, part of them subnormal), integers of normal x 1000."""
+    x = randn(*shape)
+    if dt == torch.float16:
+        return (x * 2.0 ** -12).to(dt)
+    return x.to(dt) if dt.is_floating_point else (x * 1000).round().to(dt)
+
+
 def stencil_kernels(randn, errs) -> None:
     """K2 and K3 against their plain versions on the card, bit for bit
-    (``exact``): K2 at 8192^2 with random weights and nonzero halo rows;
-    K3 at every ``K3_SHAPES`` x ``K3_STEPS`` with nonzero halo slabs, all
-    four Dirichlet settings, random weights on the generic route and the
-    Laplacian on the 5-point route, every call on the route
+    (``exact``): K2 at every ``K2_SHAPES`` with nonzero halo rows, random
+    weights on the generic route and the Laplacian on the 5-point route,
+    and once on a block whose base is not 16-byte aligned (the scalar
+    path); K3 at every ``K3_SHAPES`` x ``K3_STEPS`` with nonzero halo
+    slabs, all four Dirichlet settings, both routes.  Then both kernels in
+    each other dtype the kernels take, the same checks at ``TYPED_SHAPES``
+    (K2 also at (1, 8192) and off its alignment), with the random weights
+    x 3 so that int32 keeps nonzero ones.  Every call on the route
     ``multistep_route`` picks."""
     from distributedarrays_tpu_torch.ops import cuda_stencil as CS
     wts = tuple(tuple(float(v) for v in row)
                 for row in np.random.default_rng(1).uniform(-1, 1, (3, 3)))
-    x = randn(8192, 8192)
-    lo1, hi1 = randn(1, 8192), randn(1, 8192)
-    errs["stencil_step"] = exact(
-        "stencil step 8192^2", CS.stencil3x3_block(x, lo1, hi1, wts),
-        CS._apply3x3(torch.cat([lo1, x, hi1]), wts))
+    routes = ((wts, "generic"), (CS.LAPLACIAN_3X3, "five_point"))
+    for m, n in K2_SHAPES:
+        x, lo1, hi1 = randn(m, n), randn(1, n), randn(1, n)
+        got = [on_route("stencil_step", route,
+                        lambda: CS.stencil3x3_block(x, lo1, hi1, w))
+               for w, route in routes]
+        ref = [CS._apply3x3(torch.cat([lo1, x, hi1]), w) for w, _ in routes]
+        errs["stencil_step"] = max(errs["stencil_step"], exact(
+            f"stencil step {m}x{n}: both routes", got, ref))
+    m, n = 1000, 776
+    xm = randn(m * n + 1)[1:].view(m, n)
+    lo1, hi1 = randn(1, n), randn(1, n)
+    if xm.data_ptr() % 16 == 0 or not xm.is_contiguous():
+        raise AssertionError("the misaligned case must be contiguous and "
+                             "off 16 bytes")
+    errs["stencil_step"] = max(errs["stencil_step"], exact(
+        f"stencil step {m}x{n}, base off 16 bytes: both routes",
+        [on_route("stencil_step", route,
+                  lambda: CS.stencil3x3_block(xm, lo1, hi1, w))
+         for w, route in routes],
+        [CS._apply3x3(torch.cat([lo1, xm, hi1]), w) for w, _ in routes]))
     for m, n in K3_SHAPES:
         x = randn(m, n)
         for k in K3_STEPS:
             lo, hi = randn(k, n), randn(k, n)
             got, ref = [], []
-            for w, route in ((wts, "generic"),
-                             (CS.LAPLACIAN_3X3, "five_point")):
+            for w, route in routes:
                 for flags in itertools.product((False, True), repeat=2):
                     got.append(on_route(
                         "stencil_multistep", route,
@@ -2286,7 +2327,90 @@ def stencil_kernels(randn, errs) -> None:
             errs["stencil_multistep"] = max(errs["stencil_multistep"], exact(
                 f"stencil multistep {m}x{n} k={k}: both routes, all four "
                 "Dirichlet settings", got, ref))
+    del x, xm, got, ref
+    routes = ((tuple(tuple(3 * v for v in row) for row in wts), "generic"),
+              (CS.LAPLACIAN_3X3, "five_point"))
+    for dt in CS.KERNEL_DTYPES[1:]:
+        name = str(dt).removeprefix("torch.")
+        for m, n in TYPED_SHAPES + ((1, 8192), (1000, 776)):
+            off = int(n == 776)     # the block's base one element on
+            x = typed_grid(randn, (m * n + off,), dt)[off:].view(m, n)
+            lo1, hi1 = (typed_grid(randn, (1, n), dt) for _ in range(2))
+            errs["stencil_step"] = max(errs["stencil_step"], exact(
+                f"stencil step {name} {m}x{n}"
+                f"{', base off alignment' if off else ''}: both routes",
+                [on_route("stencil_step", route,
+                          lambda: CS.stencil3x3_block(x, lo1, hi1, w))
+                 for w, route in routes],
+                [CS._apply3x3(torch.cat([lo1, x, hi1]), w)
+                 for w, _ in routes]))
+        for m, n in TYPED_SHAPES:
+            x = typed_grid(randn, (m, n), dt)
+            for k in (1, 8) if dt == torch.float16 else K3_STEPS:
+                lo, hi = (typed_grid(randn, (k, n), dt) for _ in range(2))
+                got, ref = [], []
+                for w, route in routes:
+                    for flags in itertools.product((False, True), repeat=2):
+                        got.append(on_route(
+                            "stencil_multistep", route,
+                            lambda: CS.stencil3x3_multistep(x, lo, hi, k,
+                                                            *flags, w)))
+                        ref.append(CS._multistep_plain(x, lo, hi, k, *flags,
+                                                       w))
+                errs["stencil_multistep"] = max(
+                    errs["stencil_multistep"], exact(
+                        f"stencil multistep {name} {m}x{n} k={k}: both "
+                        "routes, all four Dirichlet settings", got, ref))
     del x, got, ref
+
+
+def stencil_dtypes(tdat, randn) -> None:
+    """``stencil5`` of 8192^2 DArrays in (4, 1) rows on the card in each
+    other dtype the kernels take, one step and three: K2 and K3 launched
+    once a rank on the 5-point route, the result of the DArray's dtype and
+    bit for bit the plain steps' on the card (``use_kernel=False``) and, on
+    rows 1536..2559 (across the first rank boundary), the plain step on the
+    host from a copy of the input.  A dtype the kernels do not take (int8)
+    raises ``TypeError`` on the card unless the plain steps are asked for."""
+    from distributedarrays_tpu_torch.ops import cuda_stencil as CS
+    from distributedarrays_tpu_torch.utils import kbuild
+    lap = CS.LAPLACIAN_3X3
+    r0, r1 = 1536, 2560
+    for dt in CS.KERNEL_DTYPES[1:]:
+        G = tdat.distribute(typed_grid(randn, (8192, 8192), dt), dist=(4, 1))
+        for iters in (1, 3):
+            kbuild.reset_launches()
+            got = tdat.stencil5(G, iters=iters)
+            kernel = "stencil_step" if iters == 1 else "stencil_multistep"
+            expect_routes(f"stencil5 {dt} iters={iters}", kernel,
+                          {"five_point": 4})
+            if got.dtype != dt:
+                raise AssertionError(f"stencil5 {dt} returned {got.dtype}")
+            full = got.full()
+            exact(f"stencil5 {dt} iters={iters} (K2/K3) against the plain "
+                  "steps on the card", full,
+                  tdat.stencil5(G, iters, use_kernel=False).full())
+            if iters == 1:
+                x = G.full()[r0 - 1:r1 + 1].cpu()
+                exact(f"stencil5 {dt} rows {r0}..{r1 - 1} against the plain "
+                      "step on the host", full[r0:r1].cpu(),
+                      CS._apply3x3(x, lap))
+        del G, got, full
+    G = tdat.distribute(typed_grid(randn, (512, 512), torch.int32).to(
+        torch.int8), dist=(4, 1))
+    for choice in (None, True):
+        try:
+            tdat.stencil5(G, use_kernel=choice)
+        except TypeError as e:
+            print(f"  stencil5 int8 use_kernel={choice}: TypeError ({e})")
+        else:
+            raise AssertionError(f"stencil5 int8 use_kernel={choice} ran")
+    kbuild.reset_launches()
+    got = tdat.stencil5(G, use_kernel=False)
+    if got.dtype != torch.int8 or any(kbuild.launch_counts().values()):
+        raise AssertionError("stencil5 int8 use_kernel=False: "
+                             f"{got.dtype}, {kbuild.launch_counts()}")
+    tdat.d_closeall()
 
 
 def copy_widths(CC, copies) -> set:
@@ -2364,14 +2488,18 @@ def k3_k10_times(root: str | None = None) -> int:
     timed in turns in one call on one card, each per call by CUDA events
     and in device time by ``torch.profiler``: K3 at 8192^2, k = 8, the
     Laplacian with both Dirichlet settings and random weights, beside
-    ``F.conv2d`` x 8 (TF32 off); K2 at 8192^2; the all-gather K10 of a
-    16384^2 f32 array in 4 row blocks on 4 ranks, along dims 0 and 1,
-    beside ``torch.cat`` per rank; the all-to-all K11 (split 1, concat 0)
-    beside ``torch.cat`` of the pieces; K10 and K11 also with one launch a
-    destination where the package groups launches by card.  The copies
-    (K10, K11 and their ``torch.cat``) also with batches of about 10 calls
-    and by the host's ms a call (``host_ms``).  Prints the ptxas register
-    and spill lines of the stencil and collective kernels first."""
+    ``F.conv2d`` x 8 (TF32 off); K2 at 8192^2 with the Laplacian and
+    random weights, beside K3 at k = 1 (K2's other design) on both routes
+    and one ``F.conv2d`` step; K2 and K3 (k = 8, the Laplacian) in
+    bfloat16, float16 and int32 where the tree's kernels take them; the
+    all-gather K10 of a 16384^2 f32 array in 4 row blocks on 4 ranks,
+    along dims 0 and 1, beside ``torch.cat`` per rank; the all-to-all K11
+    (split 1, concat 0) beside ``torch.cat`` of the pieces; K10 and K11
+    also with one launch a destination where the package groups launches
+    by card.  The copies (K10, K11 and their ``torch.cat``) also with
+    batches of about 10 calls and by the host's ms a call (``host_ms``).
+    Prints the ptxas register and spill lines of the stencil and
+    collective kernels first."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2427,7 +2555,30 @@ def k3_k10_times(root: str | None = None) -> int:
             CS, n, n, K)
     both("K2 8192^2 Laplacian",
          lambda: CS.stencil3x3_block(x, lo1, hi1, lap))
-    del x
+    both("K2 8192^2 random weights",
+         lambda: CS.stencil3x3_block(x, lo1, hi1, wts))
+    # design (a) of K2: K3's window at k = 1, no Dirichlet rows
+    for name, w in (("Laplacian", lap), ("random weights", wts)):
+        both(f"K3 8192^2 k=1 {name}",
+             lambda: CS.stencil3x3_multistep(x, lo1, hi1, 1, False, False,
+                                             w))
+    xin = torch.cat([lo1, x, hi1])[None, None]
+    times["F.conv2d x 1"] = time_ms(
+        lambda: F.conv2d(xin, wk, padding=(0, 1)))
+    # the other dtypes' routes, where the tree's kernels take them
+    for dt in (torch.bfloat16, torch.float16, torch.int32):
+        if not (hasattr(CS, "KERNEL_DTYPES") and CS.supports(dt)):
+            continue
+        name = str(dt).removeprefix("torch.")
+        xt, lt, ht = x.to(dt), lo1.to(dt), hi1.to(dt)
+        lkt, hkt = lok.to(dt), hik.to(dt)
+        both(f"K2 8192^2 {name} Laplacian",
+             lambda: CS.stencil3x3_block(xt, lt, ht, lap))
+        both(f"K3 8192^2 {name} k=8 Laplacian dirichlet=(True, True)",
+             lambda: CS.stencil3x3_multistep(xt, lkt, hkt, K, True, True,
+                                             lap))
+        del xt
+    del x, xin
     blocks = [torch.randn(4096, 16384, generator=gen, device=dev)
               for _ in range(4)]
     grouped = hasattr(CC, "copy_launches")
@@ -2457,7 +2608,8 @@ def k3_k10_times(root: str | None = None) -> int:
 def k3_k10_only() -> int:
     """``--k3-k10``: build the stencil and collective kernels, check K2,
     K3, K10 and K11 against their plain versions (phase 2's checks) and
-    the main path's ``stencil5`` against its plain steps, bit for bit."""
+    the main path's ``stencil5`` against its plain steps, bit for bit, and
+    ``stencil5`` in the other dtypes (``stencil_dtypes``)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2482,11 +2634,18 @@ def k3_k10_only() -> int:
     G = tdat.drandn((8192, 8192))
     tdat.kbuild.reset_launches()
     S16 = tdat.stencil5(G, iters=16)
-    expect_routes("stencil5 iters=16", "stencil_multistep",
+    S1 = tdat.stencil5(G, iters=1)
+    expect_routes("stencil5 iters=16 and 1", "stencil_multistep",
                   {"five_point": 2})
+    expect_routes("stencil5 iters=16 and 1", "stencil_step",
+                  {"five_point": 1})
     exact("stencil5 iters=16 (multistep) against 16 plain steps", S16.full(),
           tdat.stencil5(G, 16, use_kernel=False).full())
+    exact("stencil5 iters=1 (step) against the plain step", S1.full(),
+          tdat.stencil5(G, 1, use_kernel=False).full())
     tdat.d_closeall()
+    tdat.init(nranks=4)
+    stencil_dtypes(tdat, randn)
     print(json.dumps({"errs": {k: errs[k] for k in (
         "stencil_step", "stencil_multistep", "all_gather", "all_to_all")},
         "gpu": smi}))
@@ -2619,8 +2778,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
-    # stencil5(iters=16) at auto depth 8: two launches of the 5-point route
+    # stencil5(iters=16) at auto depth 8: two launches of the 5-point route;
+    # stencil5(iters=1): one of K2's
     expect_routes("main path", "stencil_multistep", {"five_point": 2})
+    expect_routes("main path", "stencil_step", {"five_point": 1})
 
     # -- 4. four ranks on the one card --------------------------------------
     print("phase 4 ranks")
@@ -2636,6 +2797,8 @@ def main() -> int:
     check("A @ B (2,2)x(2,2) vs 1 rank", rel_err((A4 @ B4).full(),
                                                   C0.full()), TOL_F32)
     tdat.d_closeall()
+    print("phase stencil dtypes (4 ranks)")
+    stencil_dtypes(tdat, randn)
     del G, S16, S1, G4, A4, B4, C0, C1, A, B, At, Bt
     torch.cuda.empty_cache()
 
@@ -2758,6 +2921,8 @@ def main() -> int:
     xin = conv_input(lo1, x, hi1)
     cells = ms * ns
     lap_ops = stencil_ops(LAPLACIAN_3X3)
+    wts_rand = tuple(tuple(float(v) for v in row) for row in
+                     np.random.default_rng(1).uniform(-1, 1, (3, 3)))
     bms, bby = bound((2 * cells + 2 * ns) * 4, cells * lap_ops, F32_FLOPS)
     kernels.append({
         "name": "stencil_step", "route": "cuda",
@@ -2769,7 +2934,9 @@ def main() -> int:
         "plain_ms": time_ms(lambda: _apply3x3(torch.cat([lo1, x, hi1]),
                                               LAPLACIAN_3X3)),
         "bound_ms": bms, "bound_by": bby,
-        "library_ms": time_ms(lambda: F.conv2d(xin, wk, padding=(0, 1)))})
+        "library_ms": time_ms(lambda: F.conv2d(xin, wk, padding=(0, 1))),
+        "generic_ms": time_ms(lambda: cuda_stencil.stencil3x3_block(
+            x, lo1, hi1, wts_rand))})
     lok, hik = torch.zeros(K, ns, device=dev), torch.zeros(K, ns, device=dev)
     x4 = x[None, None]
 

@@ -8,8 +8,13 @@ block.  Where the JAX package rolls the steps into one ``lax.scan`` inside
 ``shard_map``, here the steps are a Python loop over eager per-rank calls.
 
 ``use_kernel`` picks the hand-written CUDA kernels (``ops/cuda_stencil``)
-or the plain formulation; by default the kernels for CUDA tensors and the
-plain formulation for CPU tensors.  With the kernels, ``iters > 1`` runs
+or the plain formulation.  By default the kernels run for CUDA tensors and
+the plain steps for CPU tensors.  The kernels take float32, float16,
+bfloat16 and int32 (``cuda_stencil.supports``), where the JAX package's
+Pallas kernel takes any dtype; CUDA tensors of another dtype
+raise ``TypeError`` unless the caller asks for the plain steps with
+``use_kernel=False``.  The choice is made from the device and dtype before
+any launch.  With the kernels, ``iters > 1`` runs
 temporal blocking: ``temporal`` steps per launch with ``temporal``-deep
 halos.  The auto depth is the JAX package's rule, ``min(iters, 8,
 m_local)``, engaged only when it reaches 3; an explicit depth must be at
@@ -26,7 +31,7 @@ import torch
 from ..darray import DArray
 from ..ops.cuda_stencil import (LAPLACIAN_3X3, MAX_K, _apply3x3,
                                 _canon_weights, stencil3x3_block,
-                                stencil3x3_multistep)
+                                stencil3x3_multistep, supports)
 from ..parallel.collectives import halo_exchange
 
 __all__ = ["stencil5_step", "stencil5", "stencil3x3"]
@@ -58,6 +63,19 @@ def _multistep(blocks, k, w):
             for r, (b, (lo, hi)) in enumerate(zip(blocks, halos))]
 
 
+def _use_kernel(device_type: str, dtype, use_kernel) -> bool:
+    """Whether blocks on ``device_type`` of ``dtype`` take the kernels:
+    ``use_kernel`` if given, else CUDA tensors.  CUDA tensors of a dtype the
+    kernels do not take raise ``TypeError`` unless ``use_kernel`` is
+    False; on CPU tensors the wrappers take their plain versions, which
+    take any dtype."""
+    on_card = device_type == "cuda" if use_kernel is None else use_kernel
+    if on_card and device_type == "cuda" and not supports(dtype):
+        raise TypeError(f"the stencil kernels do not take {dtype}; pass "
+                        "use_kernel=False for the plain steps")
+    return bool(on_card)
+
+
 def _depth(iters, m_local, temporal):
     if temporal is None:
         kt = min(iters, 8, m_local)
@@ -74,13 +92,14 @@ def stencil3x3(d: DArray, weights, iters: int = 1,
                use_kernel: bool | None = None,
                temporal: int | None = None) -> DArray:
     """``iters`` weighted 3x3 steps with zero boundary:
-    ``out[i,j] = sum_ab w[a][b] * x[i-1+a, j-1+b]``.  The result has ``d``'s
-    layout."""
+    ``out[i,j] = sum_ab w[a][b] * x[i-1+a, j-1+b]``, each weight cast to
+    ``d``'s dtype first.  The result has ``d``'s layout and dtype.  On the
+    card the kernels run for the dtypes they take and other dtypes raise
+    ``TypeError`` unless ``use_kernel=False`` (see the module docstring)."""
     w = _canon_weights(weights)
     iters = int(iters)
     blocks = _row_blocks(d)
-    if use_kernel is None:
-        use_kernel = blocks[0].device.type == "cuda"
+    use_kernel = _use_kernel(blocks[0].device.type, d.dtype, use_kernel)
     kt = 1
     if use_kernel and iters > 1:
         kt = _depth(iters, d.dims[0] // d.pids.size, temporal)

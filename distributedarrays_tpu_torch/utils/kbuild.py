@@ -7,6 +7,8 @@ under ``build/torch_kernels/`` and loaded with ``ctypes``.  The library's
 file name carries a hash of the sources and flags, so editing a source
 rebuilds it.  A failed build raises; nothing is downloaded and no library
 kernel stands in.  Sources compile in parallel, one ``nvcc`` per file.
+A source's compile-time constants that its Python wrapper also plans with
+(``DEFINES``) are passed as ``-D`` flags, so each has one owner.
 
 Each kernel wrapper calls ``count(name)`` exactly where it launches its
 kernel, so a run can show that its main path went through the kernels.
@@ -14,13 +16,13 @@ A kernel with several routes also names the route it launched
 (``count(name, route)``), counted apart in ``route_counts()``: the block
 GEMM's, flash attention's (K5), the ring hop's (K8) and the backward's dq
 (K6) and dk/dv (K7) ``wgmma``/``mma``/``f32``, the int8 GEMM's (K4)
-``wgmma``/``mma`` (``INT8_ROUTES``), the multistep stencil's (K3)
-``generic``/``five_point`` (``STENCIL_ROUTES``), the fused ring attention
-step's compute steps by route (a ring step that only forwards its K/V
-pair, or only starts or finishes the carry, counts as a launch and under
-no route), and every step of the ring GEMMs K13, K14 and K15 by route
-(``RING_ROUTES``: those three and ``wgmma_peer``, wgmma with the slot the
-step writes on another card).
+``wgmma``/``mma`` (``INT8_ROUTES``), the single-step (K2) and multistep
+(K3) stencils' ``generic``/``five_point`` (``STENCIL_ROUTES``), the fused
+ring attention step's compute steps by route (a ring step that only
+forwards its K/V pair, or only starts or finishes the carry, counts as a
+launch and under no route), and every step of the ring GEMMs K13, K14 and
+K15 by route (``RING_ROUTES``: those three and ``wgmma_peer``, wgmma with
+the slot the step writes on another card).
 
 ``sm_count(device)`` is a card's SM count (cached), which the wrappers
 use to size their grids.
@@ -44,7 +46,7 @@ from pathlib import Path
 __all__ = ["build", "load", "count", "reset_launches", "launch_counts",
            "route_counts", "enable_peer_access", "sm_count", "KERNELS",
            "ROUTES", "RING_ROUTES", "INT8_ROUTES", "STENCIL_ROUTES",
-           "NVCC_FLAGS"]
+           "NVCC_FLAGS", "DEFINES"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -52,6 +54,11 @@ _BUILD = _PKG.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# compile-time constants a source takes from its wrapper, as -D flags: the
+# single-step stencil's rows a thread, from which ops/cuda_stencil.py plans
+# its grid
+DEFINES = {"stencil": {"DA_STENCIL_STEP_ROWS": 8}}
 
 # kernel name -> source file stem
 KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
@@ -73,7 +80,7 @@ ROUTES = ("f32", "mma", "wgmma")
 RING_ROUTES = ROUTES + ("wgmma_peer",)
 # the int8 GEMM's routes (codes as in ROUTES: it has no f32 route)
 INT8_ROUTES = ("mma", "wgmma")
-# the multistep stencil's routes: generic taps, the 5-point specialisation
+# the stencils' routes: generic taps, the 5-point specialisation
 STENCIL_ROUTES = ("generic", "five_point")
 
 _lock = threading.Lock()
@@ -84,7 +91,8 @@ _routes = {k: dict.fromkeys(ROUTES, 0)
                      "flash_attention_hop", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv")}
 _routes["matmul_int8"] = dict.fromkeys(INT8_ROUTES, 0)
-_routes["stencil_multistep"] = dict.fromkeys(STENCIL_ROUTES, 0)
+_routes.update({k: dict.fromkeys(STENCIL_ROUTES, 0)
+                for k in ("stencil_step", "stencil_multistep")})
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs",
                           "matmul_reducescatter")})
@@ -116,8 +124,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """Launches of each route of the block GEMM, the int8 GEMM, the
-    multistep stencil, flash attention, the ring hop, the backward's dq
+    """Launches of each route of the block GEMM, the int8 GEMM, the two
+    stencils, flash attention, the ring hop, the backward's dq
     and dk/dv passes, the ring attention step and the ring GEMMs."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
@@ -133,8 +141,13 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
+def _flags(stem: str) -> list[str]:
+    return NVCC_FLAGS + [f"-D{k}={v}"
+                         for k, v in sorted(DEFINES.get(stem, {}).items())]
+
+
 def _so_path(stem: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(stem)).encode())
     for f in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{stem}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -153,7 +166,7 @@ def build(stems=None) -> dict[str, Path]:
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
         procs[s] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{s}.cu")],
+            [_nvcc(), *_flags(s), "-o", str(tmp), str(_CSRC / f"{s}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, so)
     failed = []
