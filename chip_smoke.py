@@ -72,6 +72,19 @@
    the run fails if one of the four kernels was not launched, or if the
    int8 GEMM's 13 launches (1 x 16384^3, 4 x 4096x16384x16384, 8 x
    8192^3) did not all take its wgmma route.
+   Then the reference surface (``reference_surface``): on one rank at
+   8192^2 f32 whole-array ``==`` (True against a copy, False after one
+   element is set), ``fill_``, ``rand_``, ``dcumsum``/``dcummax`` along
+   each axis (against float64 / bit for bit), ``dextrema``, ``dcount``,
+   ``dall``/``dany``, ``mapslices`` of a column normalisation and ``djit``
+   bit for bit against the owner-computes chain; on 4 ranks ``bench.py``'s
+   reshard_uneven/reshard_mutate shapes (``fill_``, ``copyto_``, a region
+   write that must leave the non-owner ranks' tensors untouched),
+   ``samedist`` (4,1) -> (1,4) at 16384^2 (exactly one all-to-all
+   launch, bit for bit against the plain all-to-all), ``mapslices`` over
+   the split dim of a (1,4) DArray (must launch the all-to-all) and
+   ``dcumsum`` of a (4,1) 16384^2 DArray against one rank.  Each call is
+   timed once by CUDA events.
 6. Attention (the serving path):
    - the kernels against their plain versions: flash attention (K5) on
      each route, every call's launch on the route
@@ -225,6 +238,9 @@ K11 beside ``torch.cat`` of its pieces, through the package under DIR,
 for a parent and a change timed in turns on one card; ``python3
 chip_smoke.py --k3-k10`` builds the stencil and collective kernels alone
 and holds K2, K3, K10 and K11 to phase 2's checks.
+
+``python3 chip_smoke.py --surface`` builds the collective kernels alone
+and runs the reference surface phase of step 5.
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -1491,6 +1507,177 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def event_ms(fn):
+    """``(result, ms)``: one call of ``fn`` timed by CUDA events."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    r = fn()
+    t1.record()
+    t1.synchronize()
+    return r, t0.elapsed_time(t1)
+
+
+# the reference surface phase's sizes: one rank's square, the
+# reshard_uneven/reshard_mutate DVector of bench.py, the samedist square
+SURFACE_N, SURFACE_NV, SURFACE_N16 = 8192, 4096 * 2048 + 37, 16384
+
+
+def colnorm(c: torch.Tensor) -> torch.Tensor:
+    return (c - c.mean()) / c.std()
+
+
+def reference_surface(tdat, cuda_collectives) -> dict:
+    """The reference's DArray surface on the card: whole-array ``==``,
+    ``fill_``/``rand_``, the scans, the reductions, ``mapslices`` and
+    ``djit`` on one rank at 8192^2 f32; then on 4 ranks on the one card
+    ``bench.py``'s reshard_uneven and reshard_mutate shapes (``fill_``,
+    ``copyto_`` and a region write that must touch only its owner rank),
+    ``samedist`` (4,1) -> (1,4) at 16384^2 (one K11 launch, bit-exact
+    against the plain all-to-all), ``mapslices`` over the split dim of a
+    (1,4) DArray (which must launch K11) and ``dcumsum`` of a (4,1)
+    16384^2 DArray against the one-rank result.  Prints each call's ms
+    by CUDA events, after a first call that warms it up (kernel loading,
+    allocator); returns the K11 launches of the 4-rank samedist."""
+    from distributedarrays_tpu_torch.utils import kbuild
+    print("phase reference surface (1 rank 8192^2 f32, then 4 ranks on one "
+          "card)")
+    t_phase = time.perf_counter()
+    tdat.init()
+    ms = {}
+
+    def timed(name, fn, reset=False):
+        fn()
+        if reset:
+            torch.cuda.synchronize()
+            kbuild.reset_launches()
+        r, ms[name] = event_ms(fn)
+        print(f"  {name}: {ms[name]:.3f} ms")
+        return r
+
+    n = SURFACE_N
+    X = tdat.drand((n, n))
+    Xc = timed("copy", X.copy)
+    if timed("== (True)", lambda: X == Xc) is not True:
+        raise AssertionError("X == X.copy() is not True")
+    with tdat.allowscalar(True):
+        X[17, n // 2 - 95] = 2.0
+    if timed("== (False)", lambda: X == Xc) is not False:
+        raise AssertionError("== missed a changed element")
+    del Xc
+    timed("fill_", lambda: X.fill_(3.0))
+    if not bool((X.part((0, 0)) == 3.0).all()):
+        raise AssertionError("fill_(3.0) left other values")
+    timed("rand_", X.rand_)
+    Xt = X.full()
+    if not (0.0 <= float(Xt.min()) and float(Xt.max()) < 1.0
+            and abs(float(Xt.mean()) - 0.5) < 1e-2):
+        raise AssertionError("rand_ is not uniform [0, 1)")
+    for ax in (0, 1):
+        C = timed(f"dcumsum axis {ax}", lambda: tdat.dcumsum(X, ax))
+        check(f"dcumsum axis {ax} against float64",
+              rel_err(C.full(), torch.cumsum(Xt.double(), ax)), TOL_STATS)
+        C = timed(f"dcummax axis {ax}", lambda: tdat.dcummax(X, ax))
+        exact(f"dcummax axis {ax}", C.full(), torch.cummax(Xt, ax).values)
+        del C
+    lo, hi = timed("dextrema", lambda: tdat.dextrema(X))
+    exact("dextrema", [lo, hi], [Xt.min(), Xt.max()])
+    cnt = timed("dcount", lambda: tdat.dcount(lambda t: t > 0.5, X))
+    exact("dcount", cnt, (Xt > 0.5).sum().to(torch.int32))
+    if not (bool(timed("dall", lambda: tdat.dall(X >= 0.0)))
+            and not bool(timed("dany", lambda: tdat.dany(X > 1.0)))):
+        raise AssertionError("dall / dany")
+    M = timed("mapslices column normalisation",
+              lambda: tdat.mapslices(colnorm, X, 0))
+    check("mapslices column normalisation", rel_err(
+        M.full(), (Xt - Xt.mean(0)) / Xt.std(0)), TOL_STATS)
+    del M
+    Y, Z = tdat.drand((n, n)), tdat.drand((n, n))
+    fused = tdat.djit(lambda a, b, c: torch.sin(a) + b * c)
+    R = timed("djit sin(A) + B*C", lambda: fused(X, Y, Z))
+    exact("djit against dmap(sin) + Y*Z", R.full(),
+          (tdat.dmap(torch.sin, X) + Y * Z).full())
+    tdat.d_closeall()
+    del X, Y, Z, R, Xt
+    torch.cuda.empty_cache()
+
+    tdat.init(nranks=4)
+    N = SURFACE_NV
+    d = tdat.distribute(np.zeros(N, np.float32), dist=[4])
+    timed("fill_ 4 ranks uneven", lambda: d.fill_(3.0))
+    if not all(bool((d.part((k,)) == 3.0).all()) for k in range(4)):
+        raise AssertionError("fill_ on 4 ranks")
+    host = np.ones(N, np.float32)
+    timed("copyto_ from host 4 ranks uneven",
+          lambda: tdat.copyto_(d, host))
+    if not all(bool((d.part((k,)) == 1.0).all()) for k in range(4)):
+        raise AssertionError("copyto_ from host on 4 ranks")
+    lo = N // 8
+    before = [(d.part((k,)).data_ptr(), d.part((k,)).clone())
+              for k in range(4)]
+    v = np.full(4096, 5.0, np.float32)
+    timed("d[lo:lo+4096] = v 4 ranks uneven",
+          lambda: d.__setitem__(slice(lo, lo + 4096), v))
+    owners = [k for k in range(4)
+              if d.cuts[0][k] < lo + 4096 and d.cuts[0][k + 1] > lo]
+    for k in range(4):
+        t = d.part((k,))
+        if t.data_ptr() != before[k][0]:
+            raise AssertionError(f"region write replaced rank {k}'s tensor")
+        if k not in owners and not torch.equal(t, before[k][1]):
+            raise AssertionError(f"region write touched rank {k}")
+    want = torch.ones(N, device=d.home())
+    want[lo:lo + 4096] = 5.0
+    exact("region write against the plain write", d.full(), want)
+    print(f"  region write owners {owners} of 4 ranks")
+    tdat.d_closeall()
+    del d, want, before
+
+    n16 = SURFACE_N16
+    A = tdat.drandn((n16, n16), dist=(4, 1))
+    like = tdat.dzeros((n16, n16), dist=(1, 4))
+    S = timed("samedist (4,1) -> (1,4) 16384^2",
+              lambda: tdat.samedist(A, like), reset=True)
+    torch.cuda.synchronize()
+    k11 = kbuild.launch_counts()["all_to_all"]
+    if k11 != 1:
+        raise AssertionError(f"samedist launched K11 {k11} times, not once")
+    plain = cuda_collectives.all_to_all_plain(
+        [A.part((k, 0)) for k in range(4)], 1, 0)
+    exact("samedist against all_to_all_plain",
+          [S.part((0, k)) for k in range(4)], plain)
+    del like, S, plain
+    A1 = tdat.distribute(A.full(), procs=[0], dist=(1, 1))
+    R4 = timed("dcumsum axis 0 (4,1) 16384^2", lambda: tdat.dcumsum(A, 0))
+    tdat.close(A)
+    del A
+    R1 = tdat.dcumsum(A1, 0)
+    check("dcumsum (4,1) against one rank", rel_err(R4.full(), R1.full()),
+          TOL_STATS)
+    tdat.d_closeall()
+    del A1, R4, R1
+    torch.cuda.empty_cache()
+    B = tdat.drand((n, n), dist=(1, 4))
+    M = timed("mapslices over dim 1 of (1,4) 8192^2",
+              lambda: tdat.mapslices(colnorm, B, 1), reset=True)
+    torch.cuda.synchronize()
+    if kbuild.launch_counts()["all_to_all"] < 1:
+        raise AssertionError("mapslices over the split dim did not launch "
+                             "K11")
+    Bt = B.full()
+    check("mapslices (1,4) dim 1", rel_err(
+        M.full(), (Bt - Bt.mean(1, keepdim=True)) / Bt.std(1, keepdim=True)),
+        TOL_STATS)
+    tdat.d_closeall()
+    del B, M, Bt
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  reference surface {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"reference_surface_ms": ms}))
+    return {"all_to_all": k11}
+
+
 def sequence_parallel(tdat) -> dict:
     """Phase 6c: 4 ranks on the one card, S = 8192, 16 heads of 64, bf16,
     causal: ``ring_attention`` (K9), ``ring_flash_attention`` (K8),
@@ -2605,6 +2792,22 @@ def k3_k10_times(root: str | None = None) -> int:
     return 0
 
 
+def surface_only() -> int:
+    """``--surface``: build the collective kernels and run the reference
+    surface phase alone (``reference_surface``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.ops import cuda_collectives
+    print(gpu_name())
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(reference_surface(tdat, cuda_collectives)))
+    return 0
+
+
 def k3_k10_only() -> int:
     """``--k3-k10``: build the stencil and collective kernels, check K2,
     K3, K10 and K11 against their plain versions (phase 2's checks) and
@@ -2854,6 +3057,7 @@ def main() -> int:
     tdat.d_closeall()
     del A41, B41, Y14, At, Bt, Cref
     torch.cuda.empty_cache()
+    counts_surface = reference_surface(tdat, cuda_collectives)
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
@@ -3038,6 +3242,8 @@ def main() -> int:
                                              "matmul_reducescatter")
             else counts_dist)[name]
         kern["max_abs_err"] = errs[name]
+        if name in counts_surface:
+            kern["surface_launches"] = counts_surface[name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3172,6 +3378,7 @@ if __name__ == "__main__":
              else k3_k10_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k3-k10"]
              else k3_k10_only() if sys.argv[1:] == ["--k3-k10"]
+             else surface_only() if sys.argv[1:] == ["--surface"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

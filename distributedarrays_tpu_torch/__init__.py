@@ -14,6 +14,10 @@ names::
     C = d @ r.T                               # distributed GEMM
     Q = tdat.dmatmul_int8(d, r)               # int8 GEMM, f32 out
     x = tdat.gather(C)                        # numpy on the host
+    d[100:200] = 1.0                          # owner ranks write in place
+    c = tdat.dcumsum(d, axis=1)               # scans keep the layout
+    n = tdat.mapslices(lambda v: v / v.norm(), d, dims=0)
+    assert d == d.copy()                      # whole-array equality
 
     q = k = v = tdat.drandn((8192, 16, 64), dist=(tdat.nranks(), 1, 1))
     o = tdat.ring_attention(q, k, v, causal=True)   # sequence-parallel
@@ -43,21 +47,27 @@ package imports neither JAX nor the JAX package.
 """
 
 from . import core, layout
-from .core import allowscalar, close, d_closeall, live_ids, next_did, registry
+from .core import (allowscalar, close, current_rank, d_closeall, live_arrays,
+                   live_ids, next_did, procs, registry)
 from .layout import (all_ranks, chunk_idxs, cut_intersections, defaultdist,
                      defaultdist_1d, device_of, even_cuts, init, nranks)
-from .darray import (DArray, SubDArray, darray, dfill, distribute, dones,
-                     drand, drandn, dzeros, from_chunks, gather, localindices,
-                     localpart, locate, makelocal, seed)
+from .darray import (DArray, DData, SubDArray, SubOrDArray, copyto_, darray,
+                     darray_from_cuts, darray_like, dcat, ddata, dfetch, dfill,
+                     dfromfunction, distribute, dones, drand, drandint,
+                     drandn, dsample, dzeros, from_chunks, gather, isassigned,
+                     localindices, localpart, locate, makelocal, seed)
 from .parallel import collectives, reshard
 from .parallel.collectives import (halo_exchange, pall_to_all, pgather,
                                    preduce, pshift, psum_scatter)
 from .ops import (broadcast, collective_matmul, cuda_attention,
                   cuda_collectives, cuda_gemm, cuda_stencil, linalg, mapreduce)
 from .ops.cuda_attention import flash_attention
-from .ops.broadcast import broadcasted, dmap, dmap_into, elementwise
-from .ops.mapreduce import (dmapreduce, dmaximum, dmean, dminimum, dprod,
-                            dreduce, dstd, dsum, dvar)
+from .ops.broadcast import broadcasted, djit, dmap, dmap_into, elementwise
+from .ops.mapreduce import (dall, dany, dcount, dcummax, dcummin, dcumprod,
+                            dcumsum, dextrema, dmapreduce, dmaximum, dmean,
+                            dminimum, dprod, dreduce, dstd, dsum, dvar,
+                            map_localparts, map_localparts_into, mapslices,
+                            ppeval, samedist)
 from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
                          dtranspose, lmul_, lmul_diag, matmul, mul_into,
                          rmul_, rmul_diag, tune_matmul_impl,
@@ -81,15 +91,21 @@ __all__ = [
     "init", "nranks", "all_ranks", "device_of",
     "defaultdist", "defaultdist_1d", "chunk_idxs", "locate",
     "cut_intersections", "even_cuts",
-    "next_did", "registry", "live_ids", "close", "d_closeall", "allowscalar",
-    "DArray", "SubDArray", "darray", "from_chunks", "dzeros", "dones",
-    "dfill", "drand", "drandn", "distribute", "gather", "localpart",
-    "localindices", "makelocal", "seed",
+    "next_did", "registry", "live_ids", "live_arrays", "close", "d_closeall",
+    "allowscalar", "procs", "current_rank",
+    "DArray", "SubDArray", "SubOrDArray", "DData", "ddata", "darray",
+    "darray_like", "dfromfunction", "from_chunks", "darray_from_cuts",
+    "dzeros", "dones", "dfill", "drand", "drandn", "drandint", "dsample",
+    "distribute", "copyto_", "dcat", "dfetch", "isassigned", "gather",
+    "localpart", "localindices", "makelocal", "seed",
     "halo_exchange", "pshift", "pgather", "preduce", "pall_to_all",
     "psum_scatter",
-    "elementwise", "dmap", "dmap_into", "broadcasted",
+    "elementwise", "dmap", "dmap_into", "broadcasted", "djit",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
-    "dmean", "dvar", "dstd",
+    "dmean", "dvar", "dstd", "dall", "dany", "dcount", "dextrema",
+    "dcumsum", "dcumprod", "dcummax", "dcummin",
+    "map_localparts", "map_localparts_into", "samedist", "mapslices",
+    "ppeval",
     "axpy_", "ddot", "dnorm", "rmul_", "lmul_", "lmul_diag", "rmul_diag",
     "matmul", "mul_into", "dtranspose", "dadjoint", "tune_matmul_impl",
     "tune_matmul_impl_dist", "tune_matmul_impl_summa", "dmatmul_int8",

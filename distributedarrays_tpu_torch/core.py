@@ -14,7 +14,7 @@ import threading
 import weakref
 
 __all__ = ["next_did", "d_closeall", "close", "registry", "live_ids",
-           "allowscalar"]
+           "live_arrays", "procs", "current_rank", "allowscalar"]
 
 _id_counter = itertools.count(1)
 _id_lock = threading.Lock()
@@ -48,6 +48,25 @@ def registry() -> dict:
 
 def live_ids() -> list[tuple[int, int]]:
     return sorted(registry().keys())
+
+
+def live_arrays() -> list:
+    """Strong references to every live registered DArray and ``DData``, in
+    id order (JAX ``core.py:80``)."""
+    snap = registry()
+    return [d for d in (snap[k]() for k in sorted(snap)) if d is not None]
+
+
+def current_rank() -> int:
+    """The calling rank, 0 on the controller (JAX ``core.py:38``, the
+    reference's ``myid()``); the port has no SPMD tasks yet, so it is
+    always the controller."""
+    return 0
+
+
+def procs(d):
+    """``d``'s rank grid (JAX ``core.py:127``)."""
+    return d.pids
 
 
 def close(d) -> None:

@@ -1,7 +1,8 @@
 """The DArray: a global-view distributed array made of per-rank tensors.
 
-PyTorch counterpart of ``distributedarrays_tpu/darray.py``, restricted to
-the constructors, layout queries, ``gather`` and the scalar guard.
+PyTorch counterpart of ``distributedarrays_tpu/darray.py``: the
+constructors, layout queries, indexing and region writes, the in-place
+mutations, ``DData`` and ``gather``.
 
 A ``DArray`` keeps the reference's layout fields: ``dims`` (global shape),
 ``pids`` (N-D grid of owning ranks), ``indices`` (per-chunk global index
@@ -18,6 +19,14 @@ so results match the reference.
 Random constructors draw from one ``torch.Generator`` per rank, reset by
 ``seed``.  JAX's random streams cannot be reproduced, so random arrays
 agree with the JAX package in layout and distribution only.
+
+Tensors are mutable where JAX arrays are not, so every DArray owns its
+tensors: a constructor, ``copy``, ``astype``, ``reshape`` or ``similar``
+never hands out a tensor another DArray holds, and a write (``d[k] = v``,
+``fill_``, ``copyto_``, ``set_localpart``) changes the owner ranks' tensors
+in place and nothing else.  ``localpart`` is the exception on purpose: it
+returns the rank's own tensor, as the reference's ``localpart`` is the
+worker's array, so writes to it show through the DArray.
 """
 
 from __future__ import annotations
@@ -31,19 +40,31 @@ import torch
 
 from . import core
 from . import layout as L
-from .core import allowscalar, _scalar_indexing_allowed
+from .core import allowscalar, current_rank, _scalar_indexing_allowed
 
 __all__ = [
     "DArray",
     "SubDArray",
+    "SubOrDArray",
+    "DData",
+    "ddata",
     "darray",
+    "darray_like",
+    "dfromfunction",
     "from_chunks",
+    "darray_from_cuts",
     "dzeros",
     "dones",
     "dfill",
     "drand",
     "drandn",
+    "drandint",
+    "dsample",
     "distribute",
+    "copyto_",
+    "dcat",
+    "dfetch",
+    "isassigned",
     "gather",
     "localpart",
     "localindices",
@@ -201,11 +222,36 @@ class DArray:
                 f"chunks={grid}, ranks={sorted(int(p) for p in set(self.pids.flat))})")
 
     def __hash__(self):
+        # by id, as the reference (darray.jl:72); set here because ``==``
+        # (wired in ops/broadcast.py) compares whole arrays
         return hash(self.id)
 
     def __array__(self, dtype=None, copy=None):
         a = _to_numpy(self.region(None, torch.device("cpu")))
         return a if dtype is None else a.astype(dtype, copy=False)
+
+    def _item(self):
+        return self.region(None, torch.device("cpu")).reshape(()).item()
+
+    def __bool__(self):
+        """Only a size-1 DArray has a truth value (JAX ``darray.py:460``)."""
+        if self.size != 1:
+            raise ValueError(
+                "truth value of a multi-element DArray is ambiguous; use "
+                "dall()/dany()")
+        return bool(self._item())
+
+    def __iter__(self):
+        """Rows on the host, behind the scalar guard (JAX
+        ``darray.py:468``): iterating gathers."""
+        _scalar_indexing_allowed()
+        return iter(np.asarray(self))
+
+    def __float__(self):
+        """The value of a size-1 DArray (JAX ``darray.py:473``)."""
+        if self.size != 1:
+            raise TypeError("only size-1 DArray converts to float")
+        return float(self._item())
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -242,17 +288,50 @@ class DArray:
         return self.indices[ci]
 
     def localpart(self, pid: int = 0) -> torch.Tensor:
-        """Rank ``pid``'s chunk (the stored tensor itself, no copy); an empty
-        tensor when ``pid`` holds none."""
+        """Rank ``pid``'s chunk: the stored tensor itself, no copy, so a
+        write to it is a write to the DArray (the reference's ``localpart``
+        is the worker's array); an empty tensor when ``pid`` holds none."""
         self._check_open()
         ci = self.localpartindex(pid)
         if ci is None:
             return torch.empty((0,) * max(self.ndim, 1), dtype=self.dtype)
         return self._parts[ci]
 
+    @property
+    def lp(self) -> torch.Tensor:
+        """The calling rank's ``localpart`` (JAX ``darray.py:595``)."""
+        return self.localpart(current_rank())
+
+    @lp.setter
+    def lp(self, value):
+        self.set_localpart(value)
+
+    def set_localpart(self, value, pid: int | None = None) -> None:
+        """Overwrite rank ``pid``'s chunk in place with ``value`` cast to
+        the DArray's dtype (JAX ``darray.py:605``)."""
+        self._check_open()
+        pid = current_rank() if pid is None else pid
+        ci = self.localpartindex(pid)
+        if ci is None:
+            raise ValueError(f"rank {pid} holds no chunk of {self!r}")
+        v = as_tensor(value)
+        want = tuple(len(r) for r in self.indices[ci])
+        if tuple(v.shape) != want:
+            raise ValueError(f"localpart shape {tuple(v.shape)} != chunk "
+                             f"shape {want}")
+        self._parts[ci].copy_(v)
+
     def locate(self, *I: int) -> tuple:
         """Chunk-grid coordinates owning global index ``I``."""
         return L.locate(self.cuts, *I)
+
+    def chunk(self, pid: int) -> torch.Tensor:
+        """Rank ``pid``'s chunk (JAX ``darray.py:636``)."""
+        return self.localpart(pid)
+
+    def procs(self) -> np.ndarray:
+        """The rank grid (JAX ``darray.py:640``)."""
+        return self.pids
 
     def home(self) -> torch.device:
         """Device of the first rank in the grid: where whole-array results
@@ -306,6 +385,59 @@ class DArray:
             return self._parts[ci][local]
         return SubDArray(self, key)
 
+    def __setitem__(self, key, value):
+        """``d[key] = value`` (JAX ``darray.py:807``): int and slice keys,
+        the scalar guard when every key is an int.  ``value`` (a scalar,
+        array, tensor, DArray of any layout or SubDArray) is broadcast to
+        the region and cast to ``d.dtype``; only the ranks owning part of
+        the region write, each into its own tensor in place."""
+        self._check_open()
+        key = _normalize_key(key, self.dims)
+        if all(isinstance(k, int) for k in key):
+            _scalar_indexing_allowed()
+        self._write(key, value)
+
+    def _write(self, key, value) -> None:
+        """Write ``value`` into the region of the normalized ``key``: one
+        in-place slice assignment per owner chunk, fed from the matching
+        box of ``value`` (a DArray value of the region's shape gives each
+        owner its box through ``region``, on the owner's device)."""
+        spans = [_spans(k, n, c) for k, n, c in zip(key, self.dims, self.cuts)]
+        if not all(spans):
+            return                                   # empty region
+        lens = [1 if isinstance(k, int) else len(range(*k.indices(n)))
+                for k, n in zip(key, self.dims)]
+        sliced = [d for d, k in enumerate(key) if not isinstance(k, int)]
+        ints = [d for d, k in enumerate(key) if isinstance(k, int)]
+        if isinstance(value, DArray) and value.dims == tuple(
+                lens[d] for d in sliced):
+            def box(bounds, dev):
+                t = value.region([bounds[d] for d in sliced], dev)
+                return t.reshape([h - l for l, h in bounds]).to(self.dtype)
+        else:
+            if isinstance(value, DArray):
+                t = value.full()
+            elif isinstance(value, SubDArray):
+                t = value.materialize()
+            else:
+                t = as_tensor(value)
+            t = t.to(self.dtype)
+            if t.ndim:           # a 0-d value broadcasts in the assignment
+                t = t.broadcast_to([lens[d] for d in sliced])
+                for d in ints:
+                    t = t.unsqueeze(d)
+
+            def box(bounds, dev):
+                return (t[tuple(slice(l, h) for l, h in bounds)] if t.ndim
+                        else t).to(dev)
+        for combo in itertools.product(*spans):
+            part = self._parts[tuple(c[0] for c in combo)]
+            v = box([c[2] for c in combo], part.device)
+            flips = [d for d, c in enumerate(combo) if c[3]]
+            if flips and v.ndim:
+                v = v.flip(flips)
+            part[tuple(c[1] for c in combo)] = v
+
     def makelocal(self, *I) -> torch.Tensor:
         """The region ``I`` as one dense tensor on ``home()``."""
         self._check_open()
@@ -317,12 +449,67 @@ class DArray:
 
     # -- conveniences ------------------------------------------------------
 
-    def copy(self) -> "DArray":
-        """Independent copy with the same layout."""
+    def _map_parts(self, fn) -> "DArray":
         parts = np.empty(self.grid, dtype=object)
         for ci in self.cells():
-            parts[ci] = self.part(ci).clone()
+            parts[ci] = fn(self.part(ci))
         return self.with_parts(parts)
+
+    def copy(self) -> "DArray":
+        """Independent copy with the same layout."""
+        return self._map_parts(torch.clone)
+
+    def __deepcopy__(self, memo):
+        """``copy.deepcopy`` is ``copy`` (JAX ``darray.py:836``)."""
+        c = memo.get(id(self))
+        if c is None:
+            memo[id(self)] = c = self.copy()
+        return c
+
+    def similar(self, dtype=None, dims=None) -> "DArray":
+        """Zeros like ``d`` (JAX ``darray.py:842``): the same layout when
+        ``dims`` match, else the default layout of ``dims`` over ``d``'s
+        ranks."""
+        dtype = self.dtype if dtype is None else canon_dtype(dtype)
+        if dims is None or tuple(dims) == self.dims:
+            return self._map_parts(lambda p: torch.zeros_like(p, dtype=dtype))
+        return dzeros(tuple(dims), dtype=dtype,
+                      procs=[int(p) for p in self.pids.flat])
+
+    def reshape(self, *dims) -> "DArray":
+        """A reshaped copy on the default layout of the new dims over
+        ``d``'s ranks in sorted order (JAX ``darray.py:887``)."""
+        if len(dims) == 1 and isinstance(dims[0], (tuple, list)):
+            dims = tuple(dims[0])
+        dims = tuple(int(d) for d in dims)
+        if int(np.prod(dims)) != self.size:
+            raise ValueError(f"cannot reshape size {self.size} into {dims}")
+        pids = sorted(set(int(p) for p in self.pids.flat))
+        # from_global copies each chunk out of the reshaped whole
+        return from_global(self.full().reshape(dims), procs=pids)
+
+    def astype(self, dtype) -> "DArray":
+        """A copy in ``dtype`` on the same layout (JAX ``darray.py:898``),
+        a copy even when the dtype is already ``dtype``."""
+        dtype = canon_dtype(dtype)
+        return self._map_parts(lambda p: p.to(dtype, copy=True))
+
+    def fill_(self, x) -> "DArray":
+        """Set every element to ``x`` cast to the dtype, in place (JAX
+        ``darray.py:902``)."""
+        self._check_open()
+        v = as_tensor(x).to(self.dtype).item()
+        for ci in self.cells():
+            self._parts[ci].fill_(v)
+        return self
+
+    def rand_(self) -> "DArray":
+        """Refill with uniform [0, 1) in place, each rank from its own
+        generator (JAX ``darray.py:921``)."""
+        self._check_open()
+        for ci in self.cells():
+            self._parts[ci].uniform_(generator=_gen(int(self.pids[ci])))
+        return self
 
 
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
@@ -392,9 +579,46 @@ class SubDArray:
         """Distribute the viewed region as a fresh DArray."""
         return distribute(self.materialize())
 
+    def __getitem__(self, key):
+        """Index the materialized view (JAX ``darray.py:1004``)."""
+        return self.materialize()[key]
+
+    def __hash__(self):
+        # by identity, as the JAX package's SubDArray; set here because
+        # ``==`` (wired in ops/broadcast.py) compares whole arrays
+        return id(self)
+
     def __repr__(self):
         return (f"SubDArray(parent={self.parent.id}, key={self.key}, "
                 f"shape={self.shape})")
+
+
+SubOrDArray = (DArray, SubDArray)
+
+
+def _spans(k, n: int, cuts) -> list[tuple]:
+    """The chunks of one dim that the normalized index ``k`` meets, as
+    ``(chunk, local slice, (i0, i1), descending)``: the chunk's elements
+    ``k`` selects, ascending, and the run ``[i0, i1)`` of ``k``'s own
+    positions they are (taken in reverse when ``descending``)."""
+    if isinstance(k, int):
+        j = L.locate([cuts], k)[0]
+        return [(j, slice(k - cuts[j], k - cuts[j] + 1), (0, 1), False)]
+    a, stop, s = k.indices(n)
+    m = len(range(a, stop, s))
+    out = []
+    for j in range(len(cuts) - 1):
+        lo, hi = cuts[j], cuts[j + 1]
+        if s > 0:     # positions a + i*s in [lo, hi)
+            i0, i1 = max(0, -((a - lo) // s)), min(m, -((a - hi) // s))
+        else:
+            i0, i1 = max(0, (a - hi) // -s + 1), min(m, (a - lo) // -s + 1)
+        if i0 >= i1:
+            continue
+        first, last = sorted((a + i0 * s, a + (i1 - 1) * s))
+        out.append((j, slice(first - lo, last - lo + 1, abs(s)), (i0, i1),
+                    s < 0))
+    return out
 
 
 def _normalize_key(key, dims):
@@ -477,14 +701,18 @@ def from_global(t: torch.Tensor, procs=None, dist=None) -> DArray:
     return DArray(_scatter(t, pids, cuts), pids, cuts)
 
 
-def _fill_cells(dims, procs, dist, make: Callable) -> DArray:
+def _fill_cells(dims, procs, dist, make: Callable,
+                starts: bool = False) -> DArray:
+    """``make(shape, rank, device)`` per cell of the layout, and the
+    chunk's global start per dim after them when ``starts``."""
     dims, pids, cuts = resolve_layout(dims, procs, dist)
     grid = tuple(pids.shape)
     parts = np.empty(grid, dtype=object)
     for ci in np.ndindex(*grid):
         shape = tuple(c[j + 1] - c[j] for c, j in zip(cuts, ci))
         rank = int(pids[ci])
-        parts[ci] = make(shape, rank, L.device_of(rank))
+        extra = ([c[j] for c, j in zip(cuts, ci)],) if starts else ()
+        parts[ci] = make(shape, rank, L.device_of(rank), *extra)
     return DArray(parts, pids, cuts)
 
 
@@ -527,6 +755,31 @@ def drand(dims, dtype=torch.float32, procs=None, dist=None) -> DArray:
     return _fill_cells(_as_dims(dims), procs, dist,
                        lambda s, r, dev: torch.rand(s, generator=_gen(r),
                                                     dtype=dtype, device=dev))
+
+
+def drandint(low, high, dims, dtype=torch.int32, procs=None,
+             dist=None) -> DArray:
+    """Distributed uniform integers in ``[low, high)``, drawn per rank like
+    ``drand`` (JAX ``darray.py:1470``)."""
+    dtype = canon_dtype(dtype)
+    return _fill_cells(_as_dims(dims), procs, dist,
+                       lambda s, r, dev: torch.randint(
+                           int(low), int(high), s, generator=_gen(r),
+                           dtype=dtype, device=dev))
+
+
+def dsample(values, dims, procs=None, dist=None) -> DArray:
+    """Distributed draws from the value set ``values``, drawn per rank
+    like ``drand`` (JAX ``darray.py:1488``)."""
+    vals = as_tensor(values).reshape(-1)
+    if vals.numel() == 0:
+        raise ValueError("dsample: empty value set")
+
+    def make(s, r, dev):
+        idx = torch.randint(0, vals.numel(), s, generator=_gen(r),
+                            device=dev)
+        return vals.to(dev)[idx]
+    return _fill_cells(_as_dims(dims), procs, dist, make)
 
 
 def drandn(dims, dtype=torch.float32, procs=None, dist=None) -> DArray:
@@ -573,10 +826,49 @@ def darray(init: Callable, dims, procs=None, dist=None) -> DArray:
     return DArray(parts, pids, cuts)
 
 
+def darray_like(init: Callable, d: DArray) -> DArray:
+    """``darray(init, ...)`` on ``d``'s layout (JAX ``darray.py:1323``)."""
+    return darray(init, d.dims, [int(p) for p in d.pids.flat], list(d.grid))
+
+
+def dfromfunction(f: Callable, dims, procs=None, dist=None,
+                  compiled: bool = True) -> DArray:
+    """A DArray of ``f`` over global indices, ``np.fromfunction``'s
+    convention: ``f`` gets one index grid per dim (JAX
+    ``darray.py:1329``).
+
+    By default each rank builds only its own chunk's int32 grids, offset
+    by the chunk's start, on its own device, and calls ``f`` on them with
+    torch ops, so nothing is shipped from the host (JAX's compiled path).
+    ``compiled=False`` evaluates ``f`` per chunk on numpy grids on the
+    host, for an ``f`` that torch tensors cannot go through (JAX's eager
+    path, which it also takes when ``f`` cannot be traced)."""
+    dims = _as_dims(dims)
+    if not compiled:
+        return darray(
+            lambda idx: np.fromfunction(
+                lambda *gs: f(*[g + r.start for g, r in zip(gs, idx)]),
+                tuple(len(r) for r in idx), dtype=int),
+            dims, procs, dist)
+
+    def make(shape, rank, dev, starts):
+        axes = [torch.arange(s0, s0 + n, dtype=torch.int32, device=dev)
+                for s0, n in zip(starts, shape)]
+        r = f(*torch.meshgrid(*axes, indexing="ij")) if axes else f()
+        r = as_tensor(r if isinstance(r, torch.Tensor)
+                      else torch.as_tensor(r, device=dev))
+        if tuple(r.shape) != shape:
+            raise ValueError(f"f returned shape {tuple(r.shape)} for a "
+                             f"chunk of shape {shape}")
+        return r.to(dev)
+    return _fill_cells(dims, procs, dist, make, starts=True)
+
+
 def from_chunks(chunks, procs=None) -> DArray:
     """Assemble a DArray from an object grid of chunks (arrays or tensors),
     reconstructing the cuts from the chunk sizes; uneven and empty chunks
-    are kept.  Chunks are promoted to one common dtype."""
+    are kept.  Chunks are copied to their ranks and promoted to one common
+    dtype."""
     if isinstance(chunks, (list, tuple)):
         seq = list(chunks)
         chunks = np.empty(len(seq), dtype=object)
@@ -585,10 +877,25 @@ def from_chunks(chunks, procs=None) -> DArray:
     else:
         chunks = np.asarray(chunks, dtype=object)
     grid = chunks.shape
-    tens = np.empty(grid, dtype=object)
+    procs = L.all_ranks() if procs is None else [int(p) for p in procs]
+    n = int(np.prod(grid)) if grid else 1
+    if n > len(procs):
+        raise ValueError(f"layout {grid} needs {n} ranks, have {len(procs)}")
+    pids = np.asarray(procs[:n], dtype=np.int64).reshape(grid)
+    parts = np.empty(grid, dtype=object)
     for ci in np.ndindex(*grid):
-        tens[ci] = as_tensor(chunks[ci])
-    nd = tens.flat[0].ndim if tens.size else 0
+        t = as_tensor(chunks[ci])
+        parts[ci] = torch.empty(t.shape, dtype=t.dtype, device=L.device_of(
+            int(pids[ci]))).copy_(t)
+    return _assemble(parts, pids)
+
+
+def _assemble(parts: np.ndarray, pids: np.ndarray) -> DArray:
+    """A DArray of the object grid ``parts`` of tensors, each already on
+    its rank's device and owned by no other DArray: the cuts come from
+    the chunk sizes, and the chunks are promoted to one common dtype."""
+    grid = parts.shape
+    nd = parts.flat[0].ndim if parts.size else 0
     if len(grid) != nd:
         raise ValueError(
             f"chunk grid rank {len(grid)} must equal chunk ndim {nd}")
@@ -598,27 +905,211 @@ def from_chunks(chunks, procs=None) -> DArray:
         for j in range(grid[d]):
             sel = [0] * len(grid)
             sel[d] = j
-            c.append(c[-1] + int(tens[tuple(sel)].shape[d]))
+            c.append(c[-1] + int(parts[tuple(sel)].shape[d]))
         cuts.append(c)
-    procs = L.all_ranks() if procs is None else [int(p) for p in procs]
-    n = int(np.prod(grid)) if grid else 1
-    if n > len(procs):
-        raise ValueError(f"layout {grid} needs {n} ranks, have {len(procs)}")
-    pids = np.asarray(procs[:n], dtype=np.int64).reshape(grid)
-    dtype = tens.flat[0].dtype
-    for t in tens.flat:
+    dtype = parts.flat[0].dtype
+    for t in parts.flat:
         dtype = torch.promote_types(dtype, t.dtype)
-    parts = np.empty(grid, dtype=object)
+    out = np.empty(grid, dtype=object)
     for ci in np.ndindex(*grid):
-        t = tens[ci]
-        parts[ci] = torch.empty(t.shape, dtype=dtype, device=L.device_of(
-            int(pids[ci]))).copy_(t)
-    return DArray(parts, pids, cuts)
+        out[ci] = parts[ci].to(dtype)
+    return DArray(out, pids, cuts)
+
+
+def darray_from_cuts(host, procs, cuts) -> DArray:
+    """Distribute the whole array ``host`` (array or tensor) on the explicit
+    cut layout ``cuts`` over the first ranks of ``procs`` (JAX
+    ``darray.py:1412``)."""
+    cuts = [[int(x) for x in c] for c in cuts]
+    dims = tuple(c[-1] for c in cuts)
+    t = as_tensor(host)
+    if tuple(t.shape) != dims:
+        raise ValueError(f"host shape {tuple(t.shape)} != cuts dims {dims}")
+    grid = tuple(len(c) - 1 for c in cuts)
+    n = int(np.prod(grid)) if grid else 1
+    procs = [int(p) for p in procs]
+    if len(procs) < n:
+        raise ValueError(f"layout {grid} needs {n} ranks, got {len(procs)}")
+    pids = np.asarray(procs[:n], dtype=np.int64).reshape(grid)
+    return DArray(_scatter(t, pids, cuts), pids, cuts)
+
+
+# ---------------------------------------------------------------------------
+# DData: per-rank Python objects
+# ---------------------------------------------------------------------------
+
+
+class DData:
+    """Arbitrary per-rank Python objects (JAX ``darray.py:1587``, the
+    reference's ``ddata``).  Registered like a DArray and closed by
+    ``d_closeall``; a tensor placed in it goes to its owner rank's
+    device."""
+
+    __slots__ = ("id", "pids", "_parts", "_closed", "__weakref__")
+
+    def __init__(self, parts: dict, pids):
+        self.id = core.next_did()
+        self.pids = np.asarray(pids, dtype=np.int64)
+        self._parts = {p: _placed(v, p) for p, v in parts.items()}
+        self._closed = False
+        core.register(self)
+        weakref.finalize(self, _finalize, self.id)
+
+    @property
+    def dims(self):
+        return (len(self.pids),)
+
+    def localpart(self, pid: int | None = None):
+        pid = current_rank() if pid is None else pid
+        if pid not in self._parts:
+            raise KeyError(f"rank {pid} holds no part of this ddata")
+        return self._parts[pid]
+
+    def set_localpart(self, v, pid: int | None = None) -> None:
+        pid = current_rank() if pid is None else pid
+        self._parts[pid] = _placed(v, pid)
+
+    def gather(self) -> list:
+        """Every part in pid order (JAX ``darray.py:1630``)."""
+        return [self._parts[int(p)] for p in self.pids]
+
+    def close(self):
+        self._close()
+
+    def _close(self, _unregister=True):
+        self._closed = True
+        self._parts = {}
+        if _unregister:
+            core.unregister(self.id)
+
+    def __len__(self):
+        return len(self.pids)
+
+    def __repr__(self):
+        return f"DData(id={self.id}, ranks={[int(p) for p in self.pids]})"
+
+
+def _placed(v, pid: int):
+    return v.to(L.device_of(pid)) if isinstance(v, torch.Tensor) else v
+
+
+def ddata(*, init: Callable | None = None, pids=None,
+          data=None) -> DData:
+    """Per-rank values (JAX ``darray.py:1643``): ``init(i)`` for the
+    ``i``-th rank, or ``data`` split evenly over the ranks (one item a
+    rank is the item, several a list), or None."""
+    pids = L.all_ranks() if pids is None else [int(p) for p in pids]
+    parts = {}
+    if data is not None:
+        n = len(data)
+        if n % len(pids) != 0:
+            raise ValueError(f"data length {n} not divisible by {len(pids)} "
+                             "ranks")
+        per = n // len(pids)
+        for i, p in enumerate(pids):
+            chunk = data[i * per:(i + 1) * per]
+            parts[p] = chunk[0] if per == 1 else list(chunk)
+    else:
+        for i, p in enumerate(pids):
+            parts[p] = None if init is None else init(i)
+    return DData(parts, pids)
 
 
 # ---------------------------------------------------------------------------
 # Module-level parity functions
 # ---------------------------------------------------------------------------
+
+
+def _shape_of(x) -> tuple:
+    if isinstance(x, (DArray, SubDArray)):
+        return tuple(x.shape)
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
+
+
+def copyto_(dest, src):
+    """Copy ``src`` into ``dest`` (a DArray or a SubDArray) in place (JAX
+    ``darray.py:1711``): each owner rank writes its own tensor; a DArray
+    ``src`` reaches ``dest``'s layout through ``relayout_parts``."""
+    if isinstance(dest, SubDArray):
+        if _shape_of(src) != tuple(dest.shape):
+            raise ValueError(f"copyto_: src shape {_shape_of(src)} != view "
+                             f"shape {tuple(dest.shape)}")
+        dest.parent._check_open()
+        dest.parent._write(dest.key, src)
+        return dest
+    if not isinstance(dest, DArray):
+        raise TypeError("copyto_ expects a DArray or SubDArray destination")
+    if _shape_of(src) != dest.dims:
+        raise ValueError(f"copyto_: src shape {_shape_of(src)} != dest dims "
+                         f"{dest.dims}")
+    dest._check_open()
+    if isinstance(src, DArray):
+        from .parallel.reshard import relayout_parts
+        pieces = relayout_parts(src, dest.pids, dest.cuts)
+        for ci in dest.cells():
+            dest.part(ci).copy_(pieces[ci])
+    else:
+        dest._write(_normalize_key((), dest.dims), src)
+    return dest
+
+
+def dcat(dim: int, *ds) -> DArray:
+    """Concatenate along ``dim`` onto the default layout over the first
+    DArray's ranks (JAX ``darray.py:1739``), on that DArray's home device;
+    the dtype promotes as ``jnp.concatenate``'s."""
+    from .ops.broadcast import result_dtype
+    first = next((x for x in ds if isinstance(x, DArray)), None)
+    dev = first.home() if first is not None else L.device_of(0)
+    dt = result_dtype(*ds)
+    vals = [(x.full(dev) if isinstance(x, DArray) else x.materialize()
+             if isinstance(x, SubDArray) else as_tensor(x)).to(dev, dt)
+            for x in ds]
+    procs = [int(p) for p in first.pids.flat] if first is not None else None
+    return from_global(torch.cat(vals, dim), procs)
+
+
+def dfetch(d, *i):
+    """One element without the scalar guard (JAX ``darray.py:1751``, the
+    reference's ``fetch(d, i)``), read from its owner: a 0-d tensor of a
+    DArray or SubDArray, the part of a ``DData``."""
+    if isinstance(d, DData):
+        return d.gather()[i[0]]
+    if isinstance(d, SubDArray):
+        return d.materialize()[tuple(i)]
+    d._check_open()
+    key = _normalize_key(tuple(int(k) for k in i), d.dims)
+    ci = d.locate(*key)
+    return d._parts[ci][tuple(k - r.start
+                              for k, r in zip(key, d.indices[ci]))]
+
+
+def isassigned(d, *i) -> bool:
+    """True iff ``d[i...]`` is in bounds and holds a value (JAX
+    ``darray.py:1757``): a bounds check for a DArray or SubDArray, and for
+    a ``DData`` also that the rank's part exists."""
+    if isinstance(d, DData):
+        if len(i) != 1:
+            return False
+        k = int(i[0])
+        return 0 <= k < len(d.pids) and int(d.pids[k]) in d._parts
+    if isinstance(d, SubDArray):
+        if len(i) != len(d.shape):
+            return False
+        try:
+            return all(-n <= int(k) < n for k, n in zip(i, d.shape))
+        except (TypeError, ValueError):
+            return False
+    if not isinstance(d, DArray):
+        raise TypeError(f"isassigned expects a DArray/SubDArray/DData, got "
+                        f"{type(d).__name__}")
+    d._check_open()
+    if len(i) != len(d.dims):
+        return False
+    try:
+        _normalize_key(tuple(int(k) for k in i), d.dims)
+    except IndexError:
+        return False
+    return True
 
 
 def localpart(d, pid: int = 0):
@@ -649,7 +1140,10 @@ def makelocal(d, *I):
 
 def gather(d):
     """Gather a DArray or SubDArray to the controller as a numpy array
-    (bfloat16 comes back as float32: numpy has no bfloat16)."""
+    (bfloat16 comes back as float32: numpy has no bfloat16), a ``DData``
+    as the list of its parts in pid order."""
+    if isinstance(d, DData):
+        return d.gather()
     if isinstance(d, (DArray, SubDArray)):
         return np.asarray(d)
     return d

@@ -13,6 +13,15 @@ The function sees torch tensors: ``dmap(torch.sin, A)``.  Broadcast and
 reductions have no hand-written kernel in the JAX package (XLA fuses
 them), so they stay plain torch ops here.
 
+``djit(fn)`` is the counterpart of JAX's one compiled program over the
+global arrays: ``fn``, written over torch tensors, runs once on the whole
+arrays on the first DArray argument's home device, and each array result
+is distributed on the layout of the first DArray argument of its shape.
+
+``a == b`` on a DArray or SubDArray is the reference's whole-array
+equality, one Python bool, as in the JAX package; ``<``, ``<=``, ``>``
+and ``>=`` are elementwise.
+
 The operators on DArrays (``+``, ``-``, ``*``, ``/``, ``//``, ``%``,
 ``**``, the bitwise ones and the comparisons) promote their operands as
 JAX does with 64-bit types off before the torch op runs (``promote``):
@@ -27,6 +36,7 @@ does, so integer powers wrap.
 
 from __future__ import annotations
 
+import functools
 import numbers
 import operator
 from typing import Callable
@@ -34,13 +44,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..darray import (DArray, SubDArray, as_tensor, canon_dtype,
-                      resolve_layout)
+from ..darray import (DArray, SubDArray, _scatter, as_tensor, canon_dtype,
+                      from_global, resolve_layout)
 from ..layout import device_of
 from ..parallel.reshard import relayout_parts
 
-__all__ = ["elementwise", "dmap", "dmap_into", "broadcasted", "promote",
-           "result_dtype"]
+__all__ = ["elementwise", "dmap", "dmap_into", "broadcasted", "djit",
+           "promote", "result_dtype"]
 
 _SCALARS = (numbers.Number, np.generic)
 
@@ -136,6 +146,44 @@ def dmap_into(fn: Callable, dest: DArray, *srcs):
 def broadcasted(fn: Callable, *args):
     """Alias of ``elementwise``, named as in the reference."""
     return elementwise(fn, *args)
+
+
+def djit(fn: Callable) -> Callable:
+    """``fn`` over DArrays as one call on the global tensors (JAX
+    ``ops/broadcast.py:245``).
+
+    Each DArray argument enters as ``full()`` on the first DArray
+    argument's home device, each SubDArray materialized and each numpy
+    array as a tensor there (JAX's jit takes numpy arrays as arrays);
+    ``fn`` uses torch ops.  Each array result of ndim >= 1 is distributed
+    on the layout of the first DArray argument of its shape, else on the
+    default layout (JAX ``broadcast.py:272-283``); other results come back
+    as they are."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        d_args = [a for a in args if isinstance(a, DArray)]
+        dev = d_args[0].home() if d_args else device_of(0)
+        raw = [a.full(dev) if isinstance(a, DArray) else
+               a.materialize().to(dev) if isinstance(a, SubDArray) else
+               as_tensor(a).to(dev) if isinstance(a, np.ndarray) else a
+               for a in args]
+
+        def wrap(r):
+            if not isinstance(r, torch.Tensor) or r.ndim == 0:
+                return r
+            r = as_tensor(r)
+            for a in d_args:
+                if a.dims == tuple(r.shape):
+                    return DArray(_scatter(r, a.pids, a.cuts),
+                                  a.pids.copy(), a.cuts)
+            return from_global(r)
+        res = fn(*raw, **kwargs)
+        if isinstance(res, (tuple, list)):
+            return type(res)(wrap(r) for r in res)
+        if isinstance(res, dict):
+            return {k: wrap(r) for k, r in res.items()}
+        return wrap(res)
+    return wrapper
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +344,42 @@ def _unop(fn):
     return op
 
 
+def _array_equal(a, b):
+    """Whole-array equality of a DArray or SubDArray ``a`` with ``b`` (JAX
+    ``darray.py:853-885``, :1007): one Python bool, False when the shapes
+    differ, NotImplemented when ``b`` is not a DArray, SubDArray, ndarray
+    or tensor; NaN is unequal to NaN.  Both sides are cast to JAX's
+    result type first and compared on the device, piece by piece on
+    ``a``'s layout (a SubDArray ``a`` is materialized on its parent's home
+    device)."""
+    if not isinstance(b, (DArray, SubDArray, np.ndarray, torch.Tensor)):
+        return NotImplemented
+    shape = tuple(a.shape)
+    if _arg_shape(b) != shape:
+        return False
+    dt = result_dtype(a, b)
+    if isinstance(a, SubDArray):
+        if isinstance(b, DArray):
+            return _array_equal(b, a)
+        t = a.materialize()
+        other = b.materialize() if isinstance(b, SubDArray) else as_tensor(b)
+        return torch.equal(t.to(dt), other.to(t.device, dt))
+    a._check_open()
+    piece = _pieces(b, a.pids, a.cuts, a.dims)
+    for ci in a.cells():
+        x = a.part(ci)
+        bounds = [(c[j], c[j + 1]) for c, j in zip(a.cuts, ci)]
+        y = piece(ci, x.device, bounds)
+        if not torch.equal(x.to(dt), y.to(x.device, dt)):
+            return False
+    return True
+
+
+def _not_equal(a, b):
+    r = _array_equal(a, b)
+    return NotImplemented if r is NotImplemented else not r
+
+
 def _abs(x):
     # abs of a bool is the bool, as in JAX (torch has no bool abs)
     return x if x.dtype == torch.bool else operator.abs(x)
@@ -318,6 +402,8 @@ for _cls in (DArray, SubDArray):
         setattr(_cls, f"__r{_name}__", _binop(_name, _fn, swap=True))
     for _name, _fn in _COMPARE.items():
         setattr(_cls, f"__{_name}__", _binop(_name, _fn))
+    _cls.__eq__ = _array_equal
+    _cls.__ne__ = _not_equal
     _cls.__neg__ = _unop(operator.neg)
     _cls.__pos__ = _unop(operator.pos)
     _cls.__abs__ = _unop(_abs)

@@ -17,6 +17,19 @@ int32, of unsigned integers uint32 (partials in int64, wrapped once at the
 end); a float16 or bfloat16 sum or product keeps its type but carries
 float32 partials, merged in float32 and rounded once, as JAX upcasts
 them; an integer mean/variance is float32.
+
+Also here, as in the JAX module: ``dall``/``dany``/``dcount``/
+``dextrema``; the scans ``dcumsum``/``dcumprod``/``dcummax``/``dcummin``
+(each rank scans its own chunk and takes the running total of the chunks
+before it along the scan dim: JAX's ``_scan_shm_jit``);
+``map_localparts`` (``f`` on each rank's chunk, on its device);
+``samedist`` (a relayout, so a one-axis repartition of equal width runs
+the all-to-all kernel); ``mapslices`` (the data first moved so the slice
+dims are whole on each rank, as the reference does, then
+``torch.func.vmap`` over each rank's slices); and ``ppeval`` (each rank
+maps ``f`` over its run of the slice dim with ``torch.func.vmap``).  The
+scans keep the dtype, as ``jnp.cumsum`` does (int8, uint8 and int32 wrap),
+except that a bool sum or product is int32.
 """
 
 from __future__ import annotations
@@ -28,13 +41,18 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..darray import DArray, SubDArray, as_tensor, from_global, resolve_layout
-from ..layout import device_of
-from ..parallel.reshard import relayout
+from ..darray import (DArray, SubDArray, _assemble, as_tensor, copyto_,
+                      from_global, resolve_layout)
+from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
+from ..parallel.reshard import relayout, relayout_parts
+from .broadcast import _arg_shape
 
 __all__ = [
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
-    "dmean", "dstd", "dvar",
+    "dmean", "dstd", "dvar", "dall", "dany", "dcount", "dextrema",
+    "dcumsum", "dcumprod", "dcummax", "dcummin",
+    "map_localparts", "map_localparts_into", "samedist", "mapslices",
+    "ppeval",
 ]
 
 
@@ -319,6 +337,8 @@ dprod = _named("prod")
 dmaximum = _named("max")
 dminimum = _named("min")
 dmean = _named("mean")
+dall = _named("all")
+dany = _named("any")
 
 
 def dvar(d, dims=None, ddof=1):
@@ -331,11 +351,271 @@ def dstd(d, dims=None, ddof=1):
     return _reduce(d, None, _Reducer("std", ddof), dims)
 
 
+def dcount(pred: Callable, d, dims=None):
+    """The number of elements where ``pred`` holds, int32 (JAX
+    ``ops/mapreduce.py:283``)."""
+    return _reduce(d, lambda a: pred(a).to(torch.int32), _Reducer("sum"),
+                   dims)
+
+
+def _moved(tmp: DArray, pids, cuts) -> DArray:
+    """``tmp``'s values on the layout ``(pids, cuts)``; ``tmp`` is a
+    temporary and is closed (its tensors are reused when the layouts
+    agree)."""
+    try:
+        return DArray(relayout_parts(tmp, pids, cuts),
+                      np.array(pids, dtype=np.int64), cuts)
+    finally:
+        tmp.close()
+
+
+def _on_default(x: DArray) -> DArray:
+    _, pids, cuts = resolve_layout(x.dims)
+    return _moved(x, pids, cuts)
+
+
+def dextrema(d, dims=None):
+    """``(min, max)`` (JAX ``ops/mapreduce.py:299``): 0-d tensors, or with
+    ``dims`` two DArrays on the default layout, as JAX wraps them."""
+    lo, hi = dminimum(d, dims), dmaximum(d, dims)
+    if dims is None:
+        return lo, hi
+    return _on_default(lo), _on_default(hi)
+
+
+# ---------------------------------------------------------------------------
+# Scans
+# ---------------------------------------------------------------------------
+
+
+def _scan_local(kind: str, x: torch.Tensor, ax: int) -> torch.Tensor:
+    if kind in ("sum", "prod"):
+        # torch widens integer and bool scans to int64 unless told; JAX
+        # keeps the type, and makes bool int32
+        dt = torch.int32 if x.dtype == torch.bool else x.dtype
+        return (torch.cumsum if kind == "sum" else torch.cumprod)(
+            x, ax, dtype=dt)
+    op = torch.cummax if kind == "max" else torch.cummin
+    if x.dtype == torch.bool:
+        # through int8 and back, as JAX does (lax.cummax rejects bool)
+        return op(x.to(torch.int8), ax).values.to(torch.bool)
+    return op(x, ax).values
+
+
+_SCAN_MERGE = {"sum": torch.add, "prod": torch.mul, "max": torch.maximum,
+               "min": torch.minimum}
+
+
+def _scan(d: DArray, axis: int, kind: str) -> DArray:
+    """Inclusive scan along ``axis`` on ``d``'s layout (JAX
+    ``ops/mapreduce.py:314``): each rank scans its own chunk, then merges
+    in the running total that the chunks before it along ``axis`` hand
+    on (their last slice, a slab one element thick)."""
+    if not isinstance(d, DArray):
+        raise TypeError(f"expected DArray, got {type(d).__name__}")
+    ax = axis + d.ndim if axis < 0 else axis
+    if not 0 <= ax < d.ndim:
+        raise ValueError(f"axis {axis} out of range for ndim {d.ndim}")
+    merge = _SCAN_MERGE[kind]
+    parts = np.empty(d.grid, dtype=object)
+    carry = {}          # per line of cells along ax: the total so far
+    for ci in d.cells():                 # row-major: each line in order
+        x = _scan_local(kind, d.part(ci), ax)
+        line = ci[:ax] + ci[ax + 1:]
+        if line in carry:
+            x = merge(x, carry[line].to(x.device))
+        if x.shape[ax]:
+            carry[line] = x.narrow(ax, x.shape[ax] - 1, 1)
+        parts[ci] = x
+    return DArray(parts, d.pids.copy(), d.cuts)
+
+
+def dcumsum(d: DArray, axis: int = 0) -> DArray:
+    """Cumulative sum along ``axis``, same layout (JAX
+    ``ops/mapreduce.py:446``)."""
+    return _scan(d, axis, "sum")
+
+
+def dcumprod(d: DArray, axis: int = 0) -> DArray:
+    """Cumulative product along ``axis``, same layout (JAX
+    ``ops/mapreduce.py:453``)."""
+    return _scan(d, axis, "prod")
+
+
+def dcummax(d: DArray, axis: int = 0) -> DArray:
+    """Running maximum along ``axis``, same layout (JAX
+    ``ops/mapreduce.py:459``)."""
+    return _scan(d, axis, "max")
+
+
+def dcummin(d: DArray, axis: int = 0) -> DArray:
+    """Running minimum along ``axis``, same layout (JAX
+    ``ops/mapreduce.py:465``)."""
+    return _scan(d, axis, "min")
+
+
+# ---------------------------------------------------------------------------
+# map_localparts, samedist, mapslices, ppeval
+# ---------------------------------------------------------------------------
+
+
+def _own(r, args, dev) -> torch.Tensor:
+    """``f``'s result as a tensor on ``dev`` that shares no memory with an
+    argument it was given (so the new DArray owns it)."""
+    t = as_tensor(r if isinstance(r, torch.Tensor)
+                  else torch.as_tensor(np.asarray(r))).to(dev)
+    base = t.untyped_storage().data_ptr()
+    if any(isinstance(a, torch.Tensor)
+           and a.untyped_storage().data_ptr() == base for a in args):
+        t = t.clone()
+    return t.contiguous()
+
+
+def map_localparts(f: Callable, *ds, procs=None) -> DArray:
+    """``f`` on each rank's chunk, on its device (JAX
+    ``ops/mapreduce.py:471``).  DArray arguments of another layout are
+    cut to the first DArray's; other arguments pass as they are.  Chunk
+    shapes may change: the result's cuts come from the chunks' sizes, as
+    ``from_chunks`` builds them.  ``procs`` is accepted for the JAX
+    signature and, as there, unused."""
+    d0 = next((a for a in ds if isinstance(a, DArray)), None)
+    if d0 is None:
+        raise TypeError("map_localparts needs a DArray argument")
+    for a in ds:
+        if isinstance(a, DArray) and a.dims != d0.dims:
+            raise ValueError(f"map_localparts args must share global dims: "
+                             f"{a.dims} vs {d0.dims}")
+    pieces = [relayout_parts(a, d0.pids, d0.cuts)
+              if isinstance(a, DArray) else None for a in ds]
+    out = np.empty(d0.grid, dtype=object)
+    for ci in d0.cells():
+        args = [a if p is None else p[ci] for a, p in zip(ds, pieces)]
+        out[ci] = _own(f(*args), args, device_of(int(d0.pids[ci])))
+    return _assemble(out, d0.pids.copy())
+
+
+def map_localparts_into(f: Callable, dest: DArray, *ds) -> DArray:
+    """``map_localparts`` written into ``dest`` in place (JAX
+    ``ops/mapreduce.py:525``)."""
+    res = map_localparts(f, *ds)
+    try:
+        copyto_(dest, res)
+    finally:
+        res.close()
+    return dest
+
+
+def samedist(d: DArray, like: DArray) -> DArray:
+    """``d``'s values on ``like``'s layout (JAX ``ops/mapreduce.py:549``),
+    through ``relayout``: the all-to-all kernel for a one-axis
+    repartition of equal width, a copy when the layouts already agree
+    (JAX shares the buffer there, which only immutable arrays allow)."""
+    if d.dims != like.dims:
+        raise ValueError(f"dims mismatch: {d.dims} vs {like.dims}")
+    return relayout(d, like.pids, like.cuts)
+
+
+def _slices(f: Callable, x: torch.Tensor, batch: tuple, dims: tuple):
+    """``f`` vmapped over every slice of ``x`` spanning ``dims``; the result
+    keeps the batch dims in place and ``f``'s output at ``dims``."""
+    perm = batch + dims
+    xt = x.permute(perm)
+    bshape = tuple(xt.shape[:len(batch)])
+    sshape = tuple(xt.shape[len(batch):])
+    nb = int(np.prod(bshape))
+    flat = xt.reshape((nb,) + sshape)
+    # an empty chunk still needs f's output shape: map one zero slice
+    res = torch.func.vmap(f)(flat if nb else flat.new_zeros((1,) + sshape))
+    if res.ndim - 1 != len(dims):
+        raise ValueError(
+            f"mapslices: f must keep the slice rank ({len(dims)}), got "
+            f"result rank {res.ndim - 1}")
+    res = res[:nb].reshape(bshape + tuple(res.shape[1:]))
+    return res.permute(tuple(int(i) for i in np.argsort(perm)))
+
+
+def mapslices(f: Callable, d: DArray, dims) -> DArray:
+    """``f`` on each slice of ``d`` spanning ``dims`` (JAX
+    ``ops/mapreduce.py:607``); ``f`` must keep the slice rank and may
+    change its extents.  As the reference (mapreduce.jl:195-203), the data
+    first moves so the slice dims are whole on each rank (the batch dims
+    split by ``defaultdist`` over ``d``'s ranks; a one-axis repartition
+    of equal width runs the all-to-all kernel), then each rank maps ``f``
+    over its slices with ``torch.func.vmap``.  The result takes the
+    default layout over ``d``'s ranks, as JAX's."""
+    if not isinstance(d, DArray):
+        raise TypeError(f"expected DArray, got {type(d).__name__}")
+    dims = _norm_dims(dims, d.ndim)
+    batch = tuple(i for i in range(d.ndim) if i not in dims)
+    procs = [int(p) for p in d.pids.flat]
+    src = d
+    if any(d.grid[i] > 1 for i in dims):
+        dist = [1] * d.ndim
+        for i, c in zip(batch, defaultdist([d.dims[i] for i in batch],
+                                           procs) if batch else []):
+            dist[i] = c
+        _, pids, cuts = resolve_layout(d.dims, procs, dist)
+        src = relayout(d, pids, cuts)
+    try:
+        out = np.empty(src.grid, dtype=object)
+        for ci in src.cells():
+            x = src.part(ci)
+            out[ci] = _own(_slices(f, x, batch, dims), [x], x.device)
+        tmp = _assemble(out, src.pids.copy())
+    finally:
+        if src is not d:
+            src.close()
+    _, pids, cuts = resolve_layout(tmp.dims, procs)
+    return _moved(tmp, pids, cuts)
+
+
+def ppeval(f: Callable, *ds, dim: int | None = None) -> DArray:
+    """``f`` on each slice along ``dim`` (default: each argument's last),
+    the results stacked along a new last dim (JAX
+    ``ops/mapreduce.py:653``).  The slice dim is split over the first
+    DArray's ranks (all ranks without one); each DArray argument moves so
+    its run of slices is whole on that rank, other arguments are cut on
+    the host side, and each rank maps ``f`` over its run with
+    ``torch.func.vmap``.  The result takes the default layout, as JAX's."""
+    shapes = [_arg_shape(a) for a in ds]
+    axes = [(len(s) - 1 if dim is None else dim) % len(s) for s in shapes]
+    n = {int(s[ax]) for s, ax in zip(shapes, axes)}
+    if len(n) != 1:
+        raise ValueError(f"slice-dim extents differ: {sorted(n)} "
+                         "(reference mapreduce.jl:300-313)")
+    n = n.pop()
+    d0 = next((a for a in ds if isinstance(a, DArray)), None)
+    procs = [int(p) for p in d0.pids.flat] if d0 is not None else all_ranks()
+    p = max(1, min(len(procs), n))
+    cuts = defaultdist_1d(n, p)
+    pieces = []
+    for a, ax in zip(ds, axes):
+        if isinstance(a, DArray):
+            dist = [p if i == ax else 1 for i in range(a.ndim)]
+            _, pids, acuts = resolve_layout(a.dims, procs, dist)
+            pieces.append(list(relayout_parts(a, pids, acuts).flat))
+        else:
+            t = a.materialize() if isinstance(a, SubDArray) else as_tensor(a)
+            pieces.append([t.narrow(ax, cuts[k], cuts[k + 1] - cuts[k]).to(
+                device_of(procs[k])) for k in range(p)])
+    run = torch.func.vmap(f, in_dims=tuple(axes), out_dims=-1)
+    out = None
+    for k in range(p):
+        args = [pc[k] for pc in pieces]
+        r = _own(run(*args), args, device_of(procs[k]))
+        if out is None:
+            out = np.empty((1,) * (r.ndim - 1) + (p,), dtype=object)
+        out[(0,) * (r.ndim - 1) + (k,)] = r
+    tmp = _assemble(out, np.asarray(procs[:p], dtype=np.int64).reshape(
+        out.shape))
+    return _on_default(tmp)
+
+
 # numpy-style reduction methods on DArray and SubDArray (Julia semantics:
 # ``dims=`` keeps reduced dims, std/var default to ddof=1)
 _METHODS = {"sum": dsum, "mean": dmean, "std": dstd, "var": dvar,
             "min": dminimum, "max": dmaximum, "prod": dprod,
-            "all": _named("all"), "any": _named("any")}
+            "all": dall, "any": dany}
 
 
 def _method(fn):
