@@ -85,6 +85,20 @@
    the split dim of a (1,4) DArray (must launch the all-to-all) and
    ``dcumsum`` of a (4,1) 16384^2 DArray against one rank.  Each call is
    timed once by CUDA events.
+   Then the reshard chain and SPMD mode (``reshard_spmd``), four ranks on
+   the card: the moves (4,1) -> (2,2) at 16384^2 f32 (``chain``, one a2a),
+   the mesh-axis transpose of a (2,2) 16384^2 f32 DArray (gather, a2a,
+   slice), the padded chain of 16383 x 16384 f32 on ceil cuts, and the
+   multi-axis ``allgather`` onto its 4 ranks and ``gather_put`` onto 2
+   (gather, gather), each with its plan printed, bit for bit against the
+   plain region-by-region relayout, exactly one copy launch per card for
+   each non-slice step (counts set to 0 before, read after), the peak
+   memory within the source shards plus the largest step's input and
+   output (+64 MiB for the allocator), and its ms beside the plain
+   relayout's and the bound; ``spmd`` on 4 thread tasks (a ring of CUDA
+   localparts, barrier, bcast, scatter, gather_spmd); ``life2d`` on a
+   (2,2) and ``life`` on a (4,1) 16384^2 uint8 grid, 8 generations, bit for
+   bit against the plain whole-grid generations on one device.
 6. Attention (the serving path):
    - the kernels against their plain versions: flash attention (K5) on
      each route, every call's launch on the route
@@ -209,7 +223,9 @@
    launches alone, from a torch.profiler trace), its backward for K6 and
    K7; K8 has none;
    torch.stack(...).sum(0) per destination for K12), and prints them as
-   one JSON line.
+   one JSON line; the all-gather and all-to-all rows also carry the
+   launches of the reference surface and the reshard chain phases
+   (``surface_launches``, ``reshard_spmd_launches``).
 
 ``python3 chip_smoke.py --k1-k9`` builds the GEMM and attention kernels
 alone, checks K1 on every route and the K9 rings, and times both;
@@ -240,7 +256,8 @@ chip_smoke.py --k3-k10`` builds the stencil and collective kernels alone
 and holds K2, K3, K10 and K11 to phase 2's checks.
 
 ``python3 chip_smoke.py --surface`` builds the collective kernels alone
-and runs the reference surface phase of step 5.
+and runs the reference surface phase of step 5; ``python3 chip_smoke.py
+--reshard-spmd`` does the same for the reshard chain and SPMD phase.
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -1678,6 +1695,280 @@ def reference_surface(tdat, cuda_collectives) -> dict:
     return {"all_to_all": k11}
 
 
+# the reshard chain and SPMD phase: 16384^2 f32 moves on 4 ranks, the
+# ceil-uneven rows of the padded chain, the Life grid, and the allocator's
+# rounding allowed above a move's planned peak
+RESHARD_N, RESHARD_ROWS_PADDED = 16384, 16383
+LIFE_N, LIFE_ITERS = 16384, 8
+PEAK_SLACK = 64 << 20
+
+
+def chain_step_io(plan) -> list[tuple[str, int, int]]:
+    """``(kind, input bytes, output bytes)`` over all ranks for each
+    non-slice step of a chain plan, from the plan's local shapes (the
+    evolution ``reshard._chain_steps`` plans with)."""
+    work = plan.pad_shape or plan.shape
+    sizes, nr = plan.mesh_shape, len(plan.ranks)
+    local = [n // int(np.prod([sizes[m] for m in comp] or [1]))
+             for n, comp in zip(work, plan.src_comp)]
+    out = []
+    for kind, m, q, i, j, *_ in plan.steps:
+        lin = int(np.prod(local)) * plan.itemsize * nr
+        if kind == "a2a":
+            local[i] *= q
+            local[j] //= q
+        elif kind == "gather":
+            local[i] *= q
+        else:
+            local[j] //= q
+        if kind != "slice":
+            out.append((kind, lin,
+                        int(np.prod(local)) * plan.itemsize * nr))
+    return out
+
+
+def plain_life(g: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` Life generations of the whole grid on one device, plain
+    torch: the eight neighbours of the zero-padded grid summed in its
+    dtype, born on 3, surviving on 2 or 3."""
+    for _ in range(iters):
+        xp = torch.nn.functional.pad(g, (1, 1, 1, 1))
+        n = (xp[:-2, :-2] + xp[:-2, 1:-1] + xp[:-2, 2:] + xp[1:-1, :-2] +
+             xp[1:-1, 2:] + xp[2:, :-2] + xp[2:, 1:-1] + xp[2:, 2:])
+        a = xp[1:-1, 1:-1]
+        g = (((a == 0) & (n == 3)) |
+             ((a == 1) & ((n == 2) | (n == 3)))).to(g.dtype)
+    return g
+
+
+def reshard_spmd(tdat) -> dict:
+    """The multi-axis reshard and SPMD mode with four ranks on the card.
+
+    Moves, each planned as the JAX planner plans it: (4,1) -> (2,2) at
+    16384^2 f32 (``chain``, one a2a); the mesh-axis transpose P(d0,d1) ->
+    P(d1,d0) of a (2,2) 16384^2 f32 DArray (gather, a2a, slice); the
+    padded chain (4,1) -> (2,2) of 16383 x 16384 f32 on ceil cuts
+    (``pad_shape`` (16384, 16384), one a2a); the multi-axis ``allgather``
+    of a (2,2) 16384^2 f32 DArray onto its 4 ranks (gather, gather) and
+    ``gather_put`` onto ranks 0 and 1.  Each: the plan, values bit for bit
+    against the plain region-by-region relayout (``d.full()`` per rank for
+    the gathers), one ``copy_kernel`` launch per card for each non-slice
+    step (counts set to 0 before the call, read after), ms per call by
+    CUDA events beside the plain relayout's and the bound (every rank's
+    input read once and output written once a non-slice step, the plan's
+    local shapes, over the HBM rate), and the peak memory during the move
+    against the source shards plus the largest input-plus-output of any
+    step (``PEAK_SLACK`` for the allocator's rounding).  Then ``spmd`` on
+    4 thread tasks (a ring of each rank's CUDA ``localpart``, barrier,
+    bcast, scatter, gather_spmd, and each task's own work on its device)
+    and Life: ``life2d`` on a (2,2) 16384^2 uint8 grid and ``life`` on
+    (4,1), 8 generations each, against ``plain_life`` of the whole grid on
+    one device.  Returns the launches of the moves."""
+    from distributedarrays_tpu_torch.darray import resolve_layout
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.parallel import reshard as TR
+    from distributedarrays_tpu_torch.utils import kbuild
+    print("phase reshard chain and SPMD (4 ranks on one card, 16384^2 f32)")
+    t_phase = time.perf_counter()
+    tdat.init(nranks=4)
+    dev = tdat.device_of(0)
+    ncards = len({tdat.device_of(r) for r in range(4)})
+    n = RESHARD_N
+    launches = {"all_gather": 0, "all_to_all": 0}
+    rows = []
+    # the bytes the copy launches read (each source box once a launch) and
+    # write (each destination box), counted around the module's launcher
+    copied = []
+    on_card = CC._copy_on_card
+
+    def counting(copies, dev_, kernel):
+        for launch in CC.copy_launches(copies):
+            for _, (sizes, _, run_b), part in launch:
+                copied.append(int(np.prod(sizes)) * run_b * (1 + len(part)))
+        on_card(copies, dev_, kernel)
+
+    CC._copy_on_card = counting
+
+    def ceil_cuts(m, g):
+        c = -(-m // g)
+        return [min(k * c, m) for k in range(g + 1)]
+
+    def move(name, src, plan, run, plain, want):
+        """Drive one planned move: warm-up, then counts, peak and values
+        of one call, then its time and the plain version's."""
+        steps = [s[0] for s in plan.steps]
+        print(f"  {name}: strategy {plan.strategy} steps {steps} mesh "
+              f"{plan.mesh_shape} moved_bytes {plan.moved_bytes} "
+              f"staging_bytes {plan.staging_bytes} pad_shape "
+              f"{plan.pad_shape}")
+        if (plan.strategy, steps) != want:
+            raise AssertionError(f"{name}: planned {plan.strategy} {steps}, "
+                                 f"not {want}")
+        run()                                # warm-up: loads the kernel
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        kbuild.reset_launches()
+        copied.clear()
+        got = run()
+        torch.cuda.synchronize()
+        counts = kbuild.launch_counts()
+        moved = sum(copied)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        io = chain_step_io(plan)
+        want_counts = {"all_to_all": ncards * steps.count("a2a"),
+                       "all_gather": ncards * steps.count("gather")}
+        have = {k: counts[k] for k in want_counts}
+        if have != want_counts:
+            raise AssertionError(f"{name}: copy_kernel launches {have}, "
+                                 f"not {want_counts}")
+        for k in launches:
+            launches[k] += have[k]
+        src_bytes = sum(src.part(ci).numel() for ci in src.cells()) * \
+            plan.itemsize
+        budget = src_bytes + max(a + b for _, a, b in io) + PEAK_SLACK
+        print(f"  {name}: launches {have}; peak during the move "
+              f"{src_bytes + peak} bytes (source shards {src_bytes} + "
+              f"{peak} allocated), budget {budget} (source + largest step "
+              f"in+out {max(a + b for _, a, b in io)} + slack "
+              f"{PEAK_SLACK})")
+        if src_bytes + peak > budget:
+            raise AssertionError(f"{name}: peak {src_bytes + peak} over the "
+                                 f"budget {budget}")
+        ref = plain()
+        exact(f"{name} against the plain relayout", got, ref)
+        del got, ref
+        ms = time_ms(lambda: run(), reps=5)
+        dev_ms = device_ms(lambda: run())
+        plain_ms = time_ms(lambda: plain(), reps=5)
+        bms = bound(sum(a + b for _, a, b in io), 0, F32_FLOPS)[0]
+        cms = bound(moved, 0, F32_FLOPS)[0]
+        print(f"  {name}: {ms:.4f} ms, device {dev_ms:.4f} ms (plain "
+              f"region copy {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms over {len(io)} steps; the launches "
+              f"read and wrote {moved} bytes, {cms:.4f} ms at the HBM rate)")
+        rows.append({"move": name, "strategy": plan.strategy,
+                     "steps": steps, "mesh_shape": list(plan.mesh_shape),
+                     "moved_bytes": plan.moved_bytes,
+                     "staging_bytes": plan.staging_bytes, "ms": ms,
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bms,
+                     "copy_bytes": moved, "copy_bound_ms": cms,
+                     "launches": have, "peak_bytes": src_bytes + peak,
+                     "peak_budget_bytes": budget})
+
+    def parts_of(pids, parts):
+        return [parts[ci] for ci in np.ndindex(*pids.shape)]
+
+    def relayout_case(name, src, dist, want, pids=None, cuts=None):
+        if cuts is None:
+            _, pids, cuts = resolve_layout(src.dims, range(4), dist)
+        plan = TR.plan_reshard(src, pids, cuts)
+        move(name, src, plan,
+             lambda: parts_of(pids, TR.reshard(src, pids, cuts, plan=plan)
+                              ._parts),
+             lambda: parts_of(pids, TR.relayout_plain(src, pids, cuts)),
+             want)
+
+    A = tdat.drandn((n, n), dist=(4, 1))
+    relayout_case("(4,1) -> (2,2) 16384^2", A, (2, 2), ("chain", ["a2a"]))
+    tdat.close(A)
+    B = tdat.drandn((n, n), dist=(2, 2))
+    relayout_case("transpose P(d0,d1) -> P(d1,d0) (2,2) 16384^2", B, None,
+                  ("chain", ["gather", "a2a", "slice"]),
+                  pids=np.array([[0, 2], [1, 3]]), cuts=B.cuts)
+    for name, ranks, strategy in (
+            ("allgather (2,2) 16384^2 onto its 4 ranks", [0, 1, 2, 3],
+             "chain"),
+            ("gather_put (2,2) 16384^2 onto ranks 0, 1", [0, 1],
+             "gather_put")):
+        plan = TR.plan_allgather(B, ranks)
+        move(name, B, plan, lambda: TR.allgather(B, ranks),
+             lambda: [B.full(tdat.device_of(r)) for r in ranks],
+             (strategy, ["gather", "gather"]))
+    tdat.close(B)
+    del B
+    m = RESHARD_ROWS_PADDED
+    whole = torch.randn(m, n, device=dev)
+    C = tdat.darray_from_cuts(whole, range(4),
+                              [ceil_cuts(m, 4), [0, n]])
+    del whole
+    pcuts = [ceil_cuts(m, 2), ceil_cuts(n, 2)]
+    pplan = TR.plan_reshard(C, np.arange(4).reshape(2, 2), pcuts)
+    if pplan.pad_shape != (n, n):
+        raise AssertionError(f"padded chain pad_shape {pplan.pad_shape}")
+    relayout_case("padded chain (4,1) -> (2,2) 16383x16384", C, None,
+                  ("chain", ["a2a"]), pids=np.arange(4).reshape(2, 2),
+                  cuts=pcuts)
+    CC._copy_on_card = on_card
+    tdat.d_closeall()
+    del C
+    torch.cuda.empty_cache()
+
+    # -- SPMD mode: 4 thread tasks on the card ------------------------------
+    D = tdat.drandn((n, n), dist=(4, 1))
+    host_parts = [D.part((k, 0)) for k in range(4)]
+    token = torch.arange(1024.0, device=dev)
+    table = torch.arange(4 * 256.0, device=dev).reshape(4, 256)
+
+    def task():
+        me = tdat.myid()
+        lp = D.localpart()
+        if lp.data_ptr() != host_parts[me].data_ptr():
+            raise AssertionError(f"rank {me}: localpart is not its chunk")
+        tdat.sendto((me + 1) % 4, lp)
+        got = tdat.recvfrom((me - 1) % 4)
+        ring_ok = torch.equal(got, host_parts[(me - 1) % 4])
+        mine = (lp * 2.0).sum()
+        tdat.barrier()
+        b = tdat.bcast(token if me == 0 else None, root=0)
+        part = tdat.scatter(table if me == 0 else None, root=0)
+        sums = tdat.gather_spmd(float(mine), root=3)
+        tdat.barrier()
+        return (ring_ok, torch.equal(b, token),
+                torch.equal(part, table[me:me + 1]), sums,
+                torch.cuda.current_device())
+
+    out, spmd_ms = event_ms(lambda: tdat.spmd(task, pids=range(4)))
+    want_sums = [float((host_parts[k] * 2.0).sum()) for k in range(4)]
+    for r, (ring_ok, b_ok, s_ok, sums, cur) in enumerate(out):
+        if not (ring_ok and b_ok and s_ok):
+            raise AssertionError(f"spmd rank {r}: ring {ring_ok}, bcast "
+                                 f"{b_ok}, scatter {s_ok}")
+        if cur != tdat.device_of(r).index:
+            raise AssertionError(f"spmd rank {r} ran on device {cur}")
+    if out[3][3] != want_sums or any(o[3] is not None for o in out[:3]):
+        raise AssertionError(f"gather_spmd gave {out[3][3]}")
+    print(f"  spmd 4 thread tasks (ring of 4 x (4096, 16384) f32 localparts,"
+          f" barrier, bcast, scatter, gather_spmd): all checks passed, "
+          f"{spmd_ms:.3f} ms")
+    tdat.d_closeall()
+    del D, host_parts, out
+    torch.cuda.empty_cache()
+
+    # -- Life ----------------------------------------------------------------
+    g = (torch.rand(LIFE_N, LIFE_N, device=dev) < 0.3).to(torch.uint8)
+    ref, plain_ms = event_ms(lambda: plain_life(g, LIFE_ITERS))
+    life_ms = {}
+    for name, dist, fn in (("life2d (2,2)", (2, 2), tdat.life2d),
+                           ("life (4,1)", (4, 1), tdat.life)):
+        G = tdat.distribute(g, dist=dist)
+        R, life_ms[name] = event_ms(lambda: fn(G, iters=LIFE_ITERS))
+        exact(f"{name} 16384^2 uint8, {LIFE_ITERS} generations, against "
+              f"plain_life on one device", R.full(), ref)
+        print(f"  {name}: {life_ms[name]:.3f} ms (plain whole grid "
+              f"{plain_ms:.3f} ms), {int(R.full().sum())} alive")
+        tdat.d_closeall()
+        del G, R
+    del g, ref
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  reshard chain and SPMD {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"reshard_spmd": rows, "spmd_ms": spmd_ms,
+                      "life_ms": life_ms, "plain_life_ms": plain_ms}))
+    return launches
+
+
 def sequence_parallel(tdat) -> dict:
     """Phase 6c: 4 ranks on the one card, S = 8192, 16 heads of 64, bf16,
     causal: ``ring_attention`` (K9), ``ring_flash_attention`` (K8),
@@ -2808,6 +3099,21 @@ def surface_only() -> int:
     return 0
 
 
+def reshard_spmd_only() -> int:
+    """``--reshard-spmd``: build the collective kernels and run the reshard
+    chain and SPMD phase alone (``reshard_spmd``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    print(gpu_name())
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(reshard_spmd(tdat)))
+    return 0
+
+
 def k3_k10_only() -> int:
     """``--k3-k10``: build the stencil and collective kernels, check K2,
     K3, K10 and K11 against their plain versions (phase 2's checks) and
@@ -3058,6 +3364,7 @@ def main() -> int:
     del A41, B41, Y14, At, Bt, Cref
     torch.cuda.empty_cache()
     counts_surface = reference_surface(tdat, cuda_collectives)
+    counts_reshard = reshard_spmd(tdat)
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
@@ -3244,6 +3551,8 @@ def main() -> int:
         kern["max_abs_err"] = errs[name]
         if name in counts_surface:
             kern["surface_launches"] = counts_surface[name]
+        if name in counts_reshard:
+            kern["reshard_spmd_launches"] = counts_reshard[name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3379,6 +3688,7 @@ if __name__ == "__main__":
              if sys.argv[1:2] == ["--time-k3-k10"]
              else k3_k10_only() if sys.argv[1:] == ["--k3-k10"]
              else surface_only() if sys.argv[1:] == ["--surface"]
+             else reshard_spmd_only() if sys.argv[1:] == ["--reshard-spmd"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

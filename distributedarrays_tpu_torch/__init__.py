@@ -15,6 +15,8 @@ names::
     Q = tdat.dmatmul_int8(d, r)               # int8 GEMM, f32 out
     x = tdat.gather(C)                        # numpy on the host
     d[100:200] = 1.0                          # owner ranks write in place
+    e = tdat.reshard.reshard(d, pids, cuts)   # K11 / the K10/K11 chain
+    ranks = tdat.spmd(lambda: tdat.myid())    # one task per rank
     c = tdat.dcumsum(d, axis=1)               # scans keep the layout
     n = tdat.mapslices(lambda v: v / v.norm(), d, dims=0)
     assert d == d.copy()                      # whole-array equality
@@ -56,9 +58,16 @@ from .darray import (DArray, DData, SubDArray, SubOrDArray, copyto_, darray,
                      dfromfunction, distribute, dones, drand, drandint,
                      drandn, dsample, dzeros, from_chunks, gather, isassigned,
                      localindices, localpart, locate, makelocal, seed)
-from .parallel import collectives, reshard
-from .parallel.collectives import (halo_exchange, pall_to_all, pgather,
-                                   preduce, pshift, psum_scatter)
+from . import parallel, resilience
+from .parallel import collectives, reshard, spmd_mode
+from .parallel.collectives import (axis_rank, axis_size, halo_exchange,
+                                   halo_exchange_2d, pall_to_all, pbarrier,
+                                   pbcast, pgather, preduce, pshift,
+                                   psum_scatter, run_spmd, spmd_mesh)
+from .parallel.spmd_mode import (SPMDContext, barrier, bcast, close_context,
+                                 context, context_local_storage, gather_spmd,
+                                 myid, nprocs, recvfrom, recvfrom_any,
+                                 scatter, sendto, spmd, spmd_async)
 from .ops import (broadcast, collective_matmul, cuda_attention,
                   cuda_collectives, cuda_gemm, cuda_stencil, linalg, mapreduce)
 from .ops.cuda_attention import flash_attention
@@ -79,7 +88,8 @@ from .models.ring_attention import (reference_attention, ring_attention,
                                     zigzag_ring_attention,
                                     zigzag_ring_flash_attention,
                                     zigzag_shard, zigzag_unshard)
-from .models.stencil import stencil3x3, stencil5, stencil5_step
+from .models.stencil import (life, life2d, life_step, stencil3x3, stencil5,
+                             stencil5_step)
 from .models.ulysses import ulysses_attention
 from .interop import (from_reference, params_from_reference,
                       params_to_reference, to_reference)
@@ -98,8 +108,13 @@ __all__ = [
     "dzeros", "dones", "dfill", "drand", "drandn", "drandint", "dsample",
     "distribute", "copyto_", "dcat", "dfetch", "isassigned", "gather",
     "localpart", "localindices", "makelocal", "seed",
-    "halo_exchange", "pshift", "pgather", "preduce", "pall_to_all",
-    "psum_scatter",
+    "halo_exchange", "halo_exchange_2d", "pshift", "pgather", "preduce",
+    "pall_to_all", "psum_scatter", "pbarrier", "pbcast", "axis_rank",
+    "axis_size", "spmd_mesh", "run_spmd",
+    "spmd", "spmd_async", "sendto", "recvfrom", "recvfrom_any", "barrier",
+    "bcast", "scatter", "gather_spmd", "context", "context_local_storage",
+    "myid", "nprocs", "SPMDContext", "close_context",
+    "parallel", "resilience", "reshard", "spmd_mode",
     "elementwise", "dmap", "dmap_into", "broadcasted", "djit",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
     "dmean", "dvar", "dstd", "dall", "dany", "dcount", "dextrema",
@@ -109,7 +124,8 @@ __all__ = [
     "axpy_", "ddot", "dnorm", "rmul_", "lmul_", "lmul_diag", "rmul_diag",
     "matmul", "mul_into", "dtranspose", "dadjoint", "tune_matmul_impl",
     "tune_matmul_impl_dist", "tune_matmul_impl_summa", "dmatmul_int8",
-    "stencil3x3", "stencil5", "stencil5_step",
+    "stencil3x3", "stencil5", "stencil5_step", "life", "life_step",
+    "life2d",
     "flash_attention", "ring_attention", "ring_flash_attention",
     "ring_attention_prefill", "reference_attention", "ulysses_attention",
     "zigzag_order", "zigzag_shard", "zigzag_unshard", "zigzag_ring_attention",

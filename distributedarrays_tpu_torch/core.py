@@ -57,11 +57,15 @@ def live_arrays() -> list:
     return [d for d in (snap[k]() for k in sorted(snap)) if d is not None]
 
 
+# the calling SPMD task's rank: 0 on the controller, set per task by
+# parallel.spmd_mode.spmd (and in each forked rank by spmd_process)
+_rank_tls = threading.local()
+
+
 def current_rank() -> int:
-    """The calling rank, 0 on the controller (JAX ``core.py:38``, the
-    reference's ``myid()``); the port has no SPMD tasks yet, so it is
-    always the controller."""
-    return 0
+    """The calling rank (JAX ``core.py:38``, the reference's ``myid()``):
+    the task's rank inside ``spmd(f, ...)``, 0 on the controller."""
+    return getattr(_rank_tls, "rank", 0)
 
 
 def procs(d):

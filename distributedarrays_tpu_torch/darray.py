@@ -272,25 +272,29 @@ class DArray:
 
     # -- layout queries ----------------------------------------------------
 
-    def localpartindex(self, pid: int = 0) -> tuple | None:
-        """Grid coordinates of the chunk owned by ``pid``; None if ``pid``
-        holds none."""
+    def localpartindex(self, pid: int | None = None) -> tuple | None:
+        """Grid coordinates of the chunk owned by ``pid`` (default: the
+        calling rank, ``current_rank()``); None if ``pid`` holds none."""
+        pid = current_rank() if pid is None else pid
         hits = np.argwhere(self.pids == pid)
         if hits.size == 0:
             return None
         return tuple(int(x) for x in hits[0])
 
-    def localindices(self, pid: int = 0) -> tuple:
-        """Global index ranges of rank ``pid``'s chunk."""
+    def localindices(self, pid: int | None = None) -> tuple:
+        """Global index ranges of rank ``pid``'s chunk (default: the calling
+        rank's)."""
         ci = self.localpartindex(pid)
         if ci is None:
             return tuple(range(0, 0) for _ in self.dims)
         return self.indices[ci]
 
-    def localpart(self, pid: int = 0) -> torch.Tensor:
-        """Rank ``pid``'s chunk: the stored tensor itself, no copy, so a
-        write to it is a write to the DArray (the reference's ``localpart``
-        is the worker's array); an empty tensor when ``pid`` holds none."""
+    def localpart(self, pid: int | None = None) -> torch.Tensor:
+        """Rank ``pid``'s chunk (default: the calling rank's, so inside
+        ``spmd`` each task reads its own): the stored tensor itself, no
+        copy, so a write to it is a write to the DArray (the reference's
+        ``localpart`` is the worker's array); an empty tensor when ``pid``
+        holds none."""
         self._check_open()
         ci = self.localpartindex(pid)
         if ci is None:
@@ -1112,16 +1116,17 @@ def isassigned(d, *i) -> bool:
     return True
 
 
-def localpart(d, pid: int = 0):
-    """Chunk of ``d`` owned by ``pid``; a plain array is its own localpart."""
-    if isinstance(d, DArray):
+def localpart(d, pid: int | None = None):
+    """Chunk of ``d`` owned by ``pid`` (default: the calling rank); a plain
+    array is its own localpart."""
+    if isinstance(d, (DArray, DData)):
         return d.localpart(pid)
     if isinstance(d, SubDArray):
         return d.materialize()
     return d
 
 
-def localindices(d, pid: int = 0):
+def localindices(d, pid: int | None = None):
     if isinstance(d, DArray):
         return d.localindices(pid)
     return tuple(range(0, s) for s in np.shape(d))

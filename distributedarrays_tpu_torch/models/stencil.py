@@ -1,6 +1,8 @@
-"""Halo-exchange stencil programs on a row-distributed DArray.
+"""Halo-exchange stencil programs on a row-distributed DArray, and the
+Game of Life.
 
-PyTorch counterpart of ``stencil3x3``/``stencil5``/``stencil5_step`` in
+PyTorch counterpart of ``stencil3x3``/``stencil5``/``stencil5_step`` and
+``life``/``life_step``/``life2d`` in
 ``distributedarrays_tpu/models/stencil.py``.  The grid is row-distributed
 over a (p, 1) rank grid; every step exchanges halo rows between the rank
 tensors (``parallel.collectives.halo_exchange``) and updates each rank's
@@ -32,9 +34,10 @@ from ..darray import DArray
 from ..ops.cuda_stencil import (LAPLACIAN_3X3, MAX_K, _apply3x3,
                                 _canon_weights, stencil3x3_block,
                                 stencil3x3_multistep, supports)
-from ..parallel.collectives import halo_exchange
+from ..parallel.collectives import halo_exchange, halo_exchange_2d, run_spmd
 
-__all__ = ["stencil5_step", "stencil5", "stencil3x3"]
+__all__ = ["stencil5_step", "stencil5", "stencil3x3", "life", "life_step",
+           "life2d"]
 
 
 def _row_blocks(d: DArray) -> list[torch.Tensor]:
@@ -133,3 +136,89 @@ def stencil5(d: DArray, iters: int = 1, use_kernel: bool | None = None,
 def stencil5_step(d: DArray) -> DArray:
     """One 5-point Laplacian step with zero boundary."""
     return stencil5(d, iters=1)
+
+
+# ---------------------------------------------------------------------------
+# Game of Life (the reference's distributed demo)
+# ---------------------------------------------------------------------------
+
+
+def _life_rule(xp: torch.Tensor, dtype) -> torch.Tensor:
+    """One generation of the (m, n) centre of the halo-padded block ``xp``
+    ((m + 2, n + 2)): the eight neighbours summed in the block's dtype,
+    born on 3, surviving on 2 or 3 (JAX ``_life_jit`` :192)."""
+    neigh = (xp[:-2, :-2] + xp[:-2, 1:-1] + xp[:-2, 2:] +
+             xp[1:-1, :-2] + xp[1:-1, 2:] +
+             xp[2:, :-2] + xp[2:, 1:-1] + xp[2:, 2:])
+    alive = xp[1:-1, 1:-1]
+    born = (alive == 0) & (neigh == 3)
+    survive = (alive == 1) & ((neigh == 2) | (neigh == 3))
+    return (born | survive).to(dtype)
+
+
+def _life_rows(blocks: list[torch.Tensor]) -> list[torch.Tensor]:
+    """One generation over a (p, 1) mesh: halo rows from the neighbours,
+    zero columns at the lateral edges (JAX ``_life_jit`` :192)."""
+    out = []
+    for b, (lo, hi) in zip(blocks, halo_exchange(blocks, halo=1, dim=0,
+                                                 wrap=False)):
+        x = torch.nn.functional.pad(torch.cat([lo, b, hi], dim=0), (1, 1))
+        out.append(_life_rule(x, b.dtype))
+    return out
+
+
+def _life_grid(grid: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
+    """One generation over a 2-D mesh through the two-phase 2-D halo (JAX
+    ``_life2d_jit`` :221)."""
+    padded = halo_exchange_2d(grid, halo=1, wrap=False)
+    return [[_life_rule(xp, b.dtype) for xp, b in zip(prow, brow)]
+            for prow, brow in zip(padded, grid)]
+
+
+def life(d: DArray, iters: int = 1) -> DArray:
+    """Conway's Game of Life with a dead boundary on a row-sharded even
+    layout, ``iters`` generations (JAX ``models/stencil.py:265``).  Each
+    generation exchanges halo rows and updates each rank's block with
+    plain torch on its device; the result has ``d``'s layout and dtype."""
+    _row_blocks(d)
+
+    def many(rows):
+        blocks = [r[0] for r in rows]
+        for _ in range(int(iters)):
+            blocks = _life_rows(blocks)
+        return blocks
+
+    parts = np.empty(d.grid, dtype=object)
+    for r, b in enumerate(run_spmd(many, d.pids.tolist(), d)):
+        parts[r, 0] = b if iters else b.clone()
+    return d.with_parts(parts)
+
+
+def life_step(d: DArray) -> DArray:
+    """One generation of ``life`` (JAX ``models/stencil.py:261``)."""
+    return life(d, iters=1)
+
+
+def life2d(d: DArray, iters: int = 1) -> DArray:
+    """The Game of Life on a grid sharded along both dims: the corners come
+    through the two-phase 2-D halo (JAX ``models/stencil.py:245``).  The
+    layout must be even (``ValueError`` otherwise, as in JAX)."""
+    if d.ndim != 2:
+        raise ValueError(f"life2d needs a 2-D grid; got dims {d.dims}")
+    g0, g1 = d.grid
+    if d.dims[0] % g0 or d.dims[1] % g1:
+        raise ValueError(
+            f"life2d needs an even layout; got grid {d.pids.shape} for "
+            f"dims {d.dims}")
+
+    def many(grid):
+        for _ in range(int(iters)):
+            grid = _life_grid(grid)
+        return grid
+
+    out = run_spmd(many, d.pids.tolist(), d)
+    parts = np.empty(d.grid, dtype=object)
+    for ci in np.ndindex(*d.grid):
+        b = out[ci[0]][ci[1]]
+        parts[ci] = b if iters else b.clone()
+    return d.with_parts(parts)

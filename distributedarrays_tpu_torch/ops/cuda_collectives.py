@@ -21,12 +21,19 @@ not used.
   ``q`` of every rank's block split along ``split_dim``, concatenated along
   ``concat_dim`` (``lax.all_to_all(..., tiled=True)``).
 
+- ``chain_step(kind, blocks, groups, src_dim, dst_dim, full, windows)``:
+  one step of the reshard planner's chain (``parallel/reshard.py``), an
+  all-to-all (K11) or all-gather (K10) within every group of ranks at once,
+  each rank keeping a window of its output; the planner's ``_chain_jit``
+  steps (``distributedarrays_tpu/parallel/reshard.py:915``).
+
 - ``ring_reduce_scatter(blocks, dim)``: rank ``d`` gets the sum of piece
   ``d`` of every rank's block split along ``dim``
   (``lax.psum_scatter(..., tiled=True)``), summed in the TPU ring's arrival
   order (``parallel.collectives.psum_scatter``).
 
-  All three pull.  The all-gather and all-to-all make one launch per card
+  All four pull.  The all-gather, all-to-all and chain step make one
+  launch per card
   (``copy_launches`` groups the copies: each source with every destination
   on the card that takes it, at most ``MAXP`` copies a launch), which
   copies every source's block or piece straight to its final offset in
@@ -89,7 +96,8 @@ from ..utils import kbuild
 __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "ring_allgather_matmul", "ring_allgather_matmul_rhs",
            "ring_matmul_reducescatter", "ring_gemm_route", "ring_tile_n",
-           "copy_launches", "copy_width", "view_copy", "all_gather_plain",
+           "copy_launches", "copy_width", "view_copy", "chain_step",
+           "chain_step_plain", "all_gather_plain",
            "all_to_all_plain", "reduce_scatter_plain",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
@@ -351,17 +359,20 @@ class _Order:
                 s.wait_event(ev)
 
 
-def _pull(devs, shape, dtype, fill) -> list[torch.Tensor]:
-    """An output per rank, filled card by card by ``fill(dev, [(q, out),
-    ...])`` with that card's destination ranks, all free to run at once:
-    each card's launches wait for every source card's stream, and every
-    card's stream waits for all the launches before it goes on."""
+def _pull(devs, shapes, dtype, fill) -> list:
+    """An output per rank of ``shapes`` (None: no output for that rank),
+    filled card by card by ``fill(dev, [(q, out), ...])`` with that card's
+    destination ranks, all free to run at once: each card's launches wait
+    for every source card's stream, and every card's stream waits for all
+    the launches before it goes on."""
     order = _Order(devs)
     ready = [order.mark(d) for d in devs]
-    outs = [torch.empty(shape, dtype=dtype, device=d) for d in devs]
+    outs = [None if sh is None else torch.empty(sh, dtype=dtype, device=d)
+            for d, sh in zip(devs, shapes)]
     cards: dict = {}
     for q, dev in enumerate(devs):
-        cards.setdefault(dev, []).append((q, outs[q]))
+        if outs[q] is not None:
+            cards.setdefault(dev, []).append((q, outs[q]))
     done = []
     for dev, dests in cards.items():
         order.wait(dev, ready)
@@ -411,7 +422,8 @@ def ring_all_gather(blocks: Sequence[torch.Tensor],
                        for q, out in dests for src, off, box in geo],
                       dev, "all_gather")
 
-    return _pull([b.device for b in blocks], shape, ref.dtype, fill)
+    return _pull([b.device for b in blocks], [shape] * len(blocks),
+                 ref.dtype, fill)
 
 
 def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
@@ -455,7 +467,98 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
                        for q, out in dests for r, b in enumerate(blocks)],
                       dev, "all_to_all")
 
-    return _pull([b.device for b in blocks], shape, ref.dtype, fill)
+    return _pull([b.device for b in blocks], [shape] * len(blocks),
+                 ref.dtype, fill)
+
+
+def _step_piece(kind, full, q, src_dim, dst_dim, pv, pu):
+    """Per dim, the offset in member ``pu``'s block, the offset in member
+    ``pv``'s output and the extent of the piece ``pu`` sends ``pv`` in one
+    chain step, on the padded local shape ``full``."""
+    soff, doff, ext = [0] * len(full), [0] * len(full), list(full)
+    doff[src_dim] = pu * full[src_dim]
+    if kind == "a2a":
+        ext[dst_dim] = full[dst_dim] // q
+        soff[dst_dim] = pv * ext[dst_dim]
+    return soff, doff, ext
+
+
+def _padded(b: torch.Tensor, full) -> torch.Tensor:
+    if list(b.shape) == list(full):
+        return b
+    z = torch.zeros(full, dtype=b.dtype, device=b.device)
+    z[tuple(slice(0, n) for n in b.shape)] = b
+    return z
+
+
+def chain_step_plain(kind: str, blocks, groups, src_dim: int, dst_dim,
+                     full, windows) -> list:
+    """The plain version of ``chain_step``: each block padded to ``full``
+    with zeros, ``pall_to_all`` or ``pgather`` over each group, each
+    rank's window kept."""
+    out = [None] * len(blocks)
+    for g in groups:
+        pad = [_padded(blocks[r], full) for r in g]
+        res = (pall_to_all(pad, split_dim=dst_dim, concat_dim=src_dim)
+               if kind == "a2a" else pgather(pad, src_dim))
+        for r, t in zip(g, res):
+            if windows[r] is not None:
+                out[r] = t[tuple(slice(a, z) for a, z in
+                                 windows[r])].contiguous()
+    return out
+
+
+def chain_step(kind: str, blocks: Sequence[torch.Tensor], groups,
+               src_dim: int, dst_dim, full, windows) -> list:
+    """One step of a reshard chain (``parallel/reshard.py``) over every
+    group of ranks at once: ``kind`` ``"a2a"`` is an all-to-all within
+    each group (split along ``dst_dim``, concatenated along ``src_dim``),
+    ``"gather"`` an all-gather along ``src_dim``.  ``groups`` lists each
+    group's indices into ``blocks`` in digit order.  Every block stands
+    for a padded local block of shape ``full`` and holds a leading corner
+    of it (the rest is pad); ``windows[r]`` is the ``(lo, hi)`` box per
+    dim of rank r's padded output that it keeps, inside the part the
+    sources fill, or None for no output.  Returns each rank's window, on
+    its device: the copy kernel for CUDA tensors, one launch a card for
+    all groups (counted as ``all_to_all`` or ``all_gather``), each piece
+    read once and stored at its final offset; the plain version for CPU
+    tensors."""
+    blocks = list(blocks)
+    if not _on_cuda(blocks):
+        return chain_step_plain(kind, blocks, groups, src_dim, dst_dim,
+                                full, windows)
+    ref = blocks[0]
+    if any(b.dtype != ref.dtype or b.ndim != len(full) for b in blocks):
+        raise ValueError("chain step blocks must agree in dtype and rank")
+    if kind not in ("a2a", "gather"):
+        raise ValueError(f"unknown chain step {kind!r}")
+    group_of = {r: g for g in groups for r in g}
+    q = len(groups[0])
+
+    def fill(dev, dests):
+        copies = []
+        for v, out in dests:
+            g, win = group_of[v], windows[v]
+            for pu, u in enumerate(g):
+                soff, doff, ext = _step_piece(kind, full, q, src_dim,
+                                              dst_dim, g.index(v), pu)
+                sv, dv = blocks[u], out
+                for d in range(len(full)):
+                    have = min(ext[d], max(0, sv.shape[d] - soff[d]))
+                    lo = max(doff[d], win[d][0])
+                    hi = min(doff[d] + have, win[d][1])
+                    if hi <= lo:
+                        break
+                    sv = sv.narrow(d, soff[d] + lo - doff[d], hi - lo)
+                    dv = dv.narrow(d, lo - win[d][0], hi - lo)
+                else:
+                    copies.append(view_copy(v, sv, dv))
+        _copy_on_card(copies, dev,
+                      "all_to_all" if kind == "a2a" else "all_gather")
+
+    return _pull([b.device for b in blocks],
+                 [None if w is None else tuple(z - a for a, z in w)
+                  for w in windows], ref.dtype, fill)
 
 
 # ---------------------------------------------------------------------------
@@ -512,7 +615,8 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
                                    f"CUDA error {rc}")
             kbuild.count("reduce_scatter")
 
-    return _pull([b.device for b in blocks], shape, ref.dtype, fill)
+    return _pull([b.device for b in blocks], [shape] * len(blocks),
+                 ref.dtype, fill)
 
 
 # ---------------------------------------------------------------------------

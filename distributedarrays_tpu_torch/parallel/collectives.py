@@ -1,27 +1,109 @@
-"""Collectives over rank tensors, written in plain torch.
+"""Collectives over rank tensors, written in plain torch: the static half
+of SPMD mode.
 
-PyTorch counterpart of ``halo_exchange``, ``pshift``, ``pgather``,
-``preduce`` and ``pall_to_all`` in
-``distributedarrays_tpu/parallel/collectives.py``, and of
-``lax.psum_scatter`` as ``psum_scatter``.
-There each is a ``lax`` collective inside a ``shard_map``; here the
-controller holds every rank's tensor, so a collective takes the list of the
-ranks' tensors in ring order (one per ``axis_index``) and returns a list,
-each result on its rank's device, moved with ``.to(device)`` copies.  These
-are the plain versions that the hand-written collective kernels
+PyTorch counterpart of ``distributedarrays_tpu/parallel/collectives.py``
+(``spmd_mesh``, ``run_spmd``, ``axis_rank``, ``axis_size``, ``pshift``,
+``halo_exchange``, ``halo_exchange_2d``, ``pbarrier``, ``pbcast``,
+``pgather``, ``preduce``, ``pall_to_all``), and of ``lax.psum_scatter`` as
+``psum_scatter``.  There each is a ``lax`` collective inside a
+``shard_map``; here the controller holds every rank's tensor, so a
+collective takes the list of the ranks' tensors in ring order (one per
+``axis_index``; a list of rows for a 2-D mesh) and returns a list, each
+result on its rank's device, moved with ``.to(device)`` copies.  These are
+the plain versions that the hand-written collective kernels
 (``ops/cuda_collectives``) are held against, and the steps the plain ring
 schedules are written with.  Only the tiled forms exist: ``pgather`` and
 ``pall_to_all`` concatenate, as ``tiled=True`` does in JAX.
+
+``run_spmd`` is how a JAX ``shard_map`` program maps onto this form: the
+program's per-rank body, whose collectives name a mesh axis, becomes one
+function over the lists of all ranks' blocks, whose collectives take those
+lists (see its docstring).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-__all__ = ["halo_exchange", "pshift", "pgather", "preduce", "pall_to_all",
-           "psum_scatter"]
+from .. import layout as L
+from ..darray import DArray
+
+__all__ = ["spmd_mesh", "run_spmd", "axis_rank", "axis_size",
+           "halo_exchange", "halo_exchange_2d", "pshift", "pbarrier",
+           "pbcast", "pgather", "preduce", "pall_to_all", "psum_scatter"]
+
+
+def spmd_mesh(n: int | None = None) -> list[int]:
+    """The first ``n`` ranks (default: all), the 1-D mesh of a
+    ``run_spmd`` program (JAX ``collectives.py:84``)."""
+    n = L.nranks() if n is None else int(n)
+    if not 1 <= n <= L.nranks():
+        raise ValueError(f"a mesh of {n} ranks; the table has "
+                         f"{L.nranks()}")
+    return list(range(n))
+
+
+def _nested_map(fn, ranks, *trees):
+    """``fn(rank, *leaves)`` over the nesting of ``ranks`` (a list, or a
+    list of rows), returning the same nesting."""
+    if isinstance(ranks, (list, tuple)):
+        return [_nested_map(fn, r, *(t[k] for t in trees))
+                for k, r in enumerate(ranks)]
+    return fn(int(ranks), *trees)
+
+
+def run_spmd(f: Callable, ranks, *args):
+    """Run the SPMD program ``f`` once over the ranks ``ranks`` (JAX
+    ``collectives.py:91``, ``jit`` of a ``shard_map`` over a mesh).
+
+    JAX's ``f`` is one rank's body: it sees its own shard, and a
+    collective names a mesh axis.  Here ``f`` is the body of all ranks at
+    once: ``ranks`` is the mesh (a list of ranks, or a list of rows of
+    ranks for a 2-D mesh, as ``spmd_mesh`` or a DArray's ``pids.tolist()``
+    gives), each argument is the ranks' blocks in the same nesting (JAX's
+    ``in_specs`` split the global array into them), and each collective
+    takes the list of blocks along its axis: a row or column of a 2-D
+    mesh for ``halo_exchange``, the whole grid for ``halo_exchange_2d``.
+    A DArray argument passes its cells in the order of its ``pids``, which
+    must equal ``ranks``; any other argument's blocks are moved to their
+    rank's device.  ``f``'s return value (the counterpart of JAX's
+    ``out_specs``, one block per rank) is returned as it is."""
+    grid = np.asarray(ranks, dtype=np.int64)
+    conv = []
+    for a in args:
+        if isinstance(a, DArray):
+            if not np.array_equal(a.pids, grid):
+                raise ValueError(f"a DArray on ranks {a.pids.tolist()} "
+                                 f"passed to a program on {grid.tolist()}")
+            cells = np.empty(grid.shape, dtype=object)
+            for ci in np.ndindex(*grid.shape):
+                cells[ci] = a.part(ci)
+            conv.append(cells.tolist())
+        else:
+            conv.append(_nested_map(
+                lambda r, b: torch.as_tensor(b).to(L.device_of(r)),
+                ranks, a))
+    return f(*conv)
+
+
+def axis_size(blocks, axis: int = 0) -> int:
+    """The number of ranks along ``axis`` of the mesh of ``blocks`` (a
+    list, or a list of rows; JAX ``collectives.py:113``)."""
+    return len(blocks) if axis == 0 else len(blocks[0])
+
+
+def axis_rank(blocks, axis: int = 0):
+    """Each rank's index along ``axis``, in the nesting of ``blocks``
+    (JAX ``collectives.py:108``, ``lax.axis_index``)."""
+    if not blocks or not isinstance(blocks[0], (list, tuple)):
+        if axis:
+            raise ValueError("a 1-D mesh has only axis 0")
+        return list(range(len(blocks)))
+    return [[(a, b)[axis] for b in range(len(row))]
+            for a, row in enumerate(blocks)]
 
 
 def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
@@ -53,6 +135,57 @@ def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
             hi = torch.zeros(shape, dtype=b.dtype, device=b.device)
         out.append((lo, hi))
     return out
+
+
+def halo_exchange_2d(blocks_2d, halo: int = 1,
+                     wrap: bool = False) -> list[list[torch.Tensor]]:
+    """Every rank's block of a 2-D mesh (``blocks_2d[a][b]``, each (m, n))
+    padded with its neighbours' boundaries to (m + 2h, n + 2h), zeros at
+    the global edge unless ``wrap`` (JAX ``collectives.py:161``).  Two
+    phases: rows along mesh axis 0 (each column of the grid), then columns
+    of the row-extended blocks along mesh axis 1 (each row), so that the
+    corners arrive."""
+    g0, g1 = len(blocks_2d), len(blocks_2d[0])
+    ext = [[None] * g1 for _ in range(g0)]
+    for b in range(g1):
+        col = [blocks_2d[a][b] for a in range(g0)]
+        for a, (x, (lo, hi)) in enumerate(zip(col, halo_exchange(
+                col, halo=halo, dim=0, wrap=wrap))):
+            ext[a][b] = torch.cat([lo, x, hi], dim=0)
+    out = [[None] * g1 for _ in range(g0)]
+    for a in range(g0):
+        for b, (x, (lo, hi)) in enumerate(zip(ext[a], halo_exchange(
+                ext[a], halo=halo, dim=1, wrap=wrap))):
+            out[a][b] = torch.cat([lo, x, hi], dim=1)
+    return out
+
+
+def pbarrier(blocks) -> list[torch.Tensor]:
+    """A synchronization point (JAX ``collectives.py:181``, a psum of 1):
+    waits for the work queued on every rank's CUDA device and returns the
+    rank count as an int32 scalar on each rank's device, in the nesting of
+    ``blocks``."""
+    nested = bool(blocks) and isinstance(blocks[0], (list, tuple))
+    flat = [b for row in blocks for b in row] if nested else list(blocks)
+    for dev in {b.device for b in flat if b.device.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+
+    def count(b):
+        return torch.tensor(len(flat), dtype=torch.int32, device=b.device)
+
+    if nested:
+        return [[count(b) for b in row] for row in blocks]
+    return [count(b) for b in blocks]
+
+
+def pbcast(blocks: Sequence[torch.Tensor],
+           root: int = 0) -> list[torch.Tensor]:
+    """Every rank gets a copy of rank ``root``'s block on its own device
+    (JAX ``collectives.py:189``)."""
+    if not 0 <= root < len(blocks):
+        raise ValueError(f"root {root} is not one of the {len(blocks)} "
+                         "ranks")
+    return [blocks[root].to(b.device, copy=True) for b in blocks]
 
 
 def pshift(blocks: Sequence[torch.Tensor], shift: int = 1,

@@ -5,10 +5,10 @@ relayout planner against the JAX package.
 The JAX side runs its Pallas RDMA ring kernels in interpret mode, as
 ``tests/test_pallas_collectives.py`` does.  All-gather and all-to-all are
 pure data movement, so the port must equal them exactly.  The reshard
-strategy must equal the JAX planner's for the same pair of DArray layouts
-where JAX plans a single collective or a no-op; where JAX plans a
-multi-axis chain or a device_put the port plans region copies
-(``device_put``).
+strategy must equal the JAX planner's for the same pair of DArray layouts:
+a single collective, a no-op, a multi-axis chain or a device_put
+(``tests/test_torch_reshard_chain.py`` holds the chain's plans field by
+field).
 """
 
 import numpy as np
@@ -204,8 +204,8 @@ PAIRS = [
     ((16, 24), (1, 4), range(4), (4, 1), range(4)),     # all_to_all
     ((16, 24), (8, 1), range(8), (1, 8), range(8)),     # all_to_all
     ((16, 24), (4, 1), range(4), (4, 1), range(4)),     # noop
-    ((16, 24), (4, 1), range(4), (2, 2), range(4)),     # chain in JAX
-    ((16, 24), (2, 2), range(4), (4, 1), range(4)),     # chain in JAX
+    ((16, 24), (4, 1), range(4), (2, 2), range(4)),     # chain
+    ((16, 24), (2, 2), range(4), (4, 1), range(4)),     # chain
     ((16, 24), (4, 1), range(4), (1, 4), [3, 2, 1, 0]),  # rank order
     ((16, 24), (1, 1), [0], (4, 1), range(4)),          # device sets
     ((8, 6, 4), (1, 2, 1), range(2), (2, 1, 1), range(2)),  # 3-D a2a
@@ -221,11 +221,13 @@ def test_plan_strategy_matches_jax_planner(dims, sd, sp, dd, dp):
     ts = tdat.from_reference(state_of(js))
     td = tdat.from_reference(state_of(jd))
     tplan = TR.plan_reshard(ts, td.pids, td.cuts)
-    want = jplan.strategy if jplan.strategy in ("noop", "all_to_all") \
-        else "device_put"
+    want = jplan.strategy
     assert tplan.strategy == want, (jplan.strategy, jplan.reason)
     assert tplan.moved_bytes == jplan.moved_bytes
     assert tplan.total_bytes == jplan.total_bytes
+    if want == "chain":
+        assert tplan.steps == jplan.steps
+        assert tplan.ranks == tuple(jplan.ranks)
     if want == "all_to_all":
         assert (tplan.src_dim, tplan.dst_dim, tplan.nparts) == \
             (jplan.src_dim, jplan.dst_dim, jplan.nparts)
@@ -285,10 +287,10 @@ def test_allgather_plan_matches_jax_and_values(dims, dist, procs):
     jplan = JR.plan_reshard(jd.garray, NamedSharding(mesh, P()))
     even = all(dd % g == 0 for dd, g in zip(dims, dist))
     if even:
-        want = jplan.strategy if jplan.strategy == "all_gather" \
-            else "device_put"
-        assert plan.strategy == want, (jplan.strategy, jplan.reason)
+        assert plan.strategy == jplan.strategy, (jplan.strategy,
+                                                 jplan.reason)
         assert plan.moved_bytes == jplan.moved_bytes
+        assert plan.steps == jplan.steps
     else:
         # uneven chunks: the kernel gathers them as torch.cat does
         assert plan.strategy == "all_gather"
