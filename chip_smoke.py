@@ -99,6 +99,20 @@
    localparts, barrier, bcast, scatter, gather_spmd); ``life2d`` on a
    (2,2) and ``life`` on a (4,1) 16384^2 uint8 grid, 8 generations, bit for
    bit against the plain whole-grid generations on one device.
+   Then sort, FFT and conv (``sort_fft_conv``), four ranks on the card:
+   K11 in complex64 and int64 and the exact-size exchange
+   ``ring_all_to_allv`` bit for bit against the plain all-to-all, K11's
+   complex64 time at 8192^2 beside its bound; ``dfft`` along the sharded
+   axis of an 8192^2 complex64 (4,1) DArray (2 K11 launches),
+   ``dfft2``/``difft2`` (2 each) and the four-step ``dfft``/``difft`` of a
+   2**26 complex64 DVector (3 each) against whole-array ``torch.fft``
+   (relative Frobenius error <= 1e-5); ``dsort`` of bench.py's 1e7 vector
+   and a 1e8 DVector (1 K11 launch each), bit for bit against
+   ``torch.sort``, sorted and a permutation of the input; ``dconv2d`` of
+   an 8192^2 f32 (4,1) image (3x3, 5x5) and a batch-sharded NHWC (8, 512,
+   512, 64) x (3, 3, 64, 64) against ``F.conv2d`` with TF32 off (<= 1e-5,
+   no K11 launch); each op's ms by CUDA events and device ms beside its
+   library call's.
 6. Attention (the serving path):
    - the kernels against their plain versions: flash attention (K5) on
      each route, every call's launch on the route
@@ -225,7 +239,9 @@
    torch.stack(...).sum(0) per destination for K12), and prints them as
    one JSON line; the all-gather and all-to-all rows also carry the
    launches of the reference surface and the reshard chain phases
-   (``surface_launches``, ``reshard_spmd_launches``).
+   (``surface_launches``, ``reshard_spmd_launches``), and the all-to-all
+   row those of the sort, FFT and conv phase (``sort_fft_conv_launches``)
+   and its complex64 timing (``complex64``).
 
 ``python3 chip_smoke.py --k1-k9`` builds the GEMM and attention kernels
 alone, checks K1 on every route and the K9 rings, and times both;
@@ -257,7 +273,9 @@ and holds K2, K3, K10 and K11 to phase 2's checks.
 
 ``python3 chip_smoke.py --surface`` builds the collective kernels alone
 and runs the reference surface phase of step 5; ``python3 chip_smoke.py
---reshard-spmd`` does the same for the reshard chain and SPMD phase.
+--reshard-spmd`` and ``python3 chip_smoke.py --sort-fft-conv`` do the same
+for the reshard chain and SPMD phase and for the sort, FFT and conv
+phase.
 
 ``python3 chip_smoke.py --profile`` runs one full-width ``train_step``, one
 4-rank ``Trainer`` step and one sequence-parallel step under
@@ -349,6 +367,8 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def max_abs(x: torch.Tensor, ref: torch.Tensor) -> float:
+    if x.is_complex():
+        return float((x - ref).abs().max())
     return float((x.float() - ref.float()).abs().max())
 
 
@@ -1969,6 +1989,232 @@ def reshard_spmd(tdat) -> dict:
     return launches
 
 
+# the sort, FFT and conv phase's sizes, 4 ranks on one card: an 8192^2
+# complex64 (4,1) DArray (512 MiB), a 2**26 complex64 DVector (512 MiB),
+# bench.py's cfg_sort vector (1e7 f32) and the main path's 1e8 DVector, an
+# 8192^2 f32 image with 3x3 and 5x5 kernels, and a batch-sharded NHWC
+# batch with its 3x3 kernel
+SFC_N, SFC_NV = 8192, 1 << 26
+SFC_SORT = (10 ** 7, 10 ** 8)
+SFC_KERNELS = ((3, 3), (5, 5))
+SFC_NHWC = ((8, 512, 512, 64), (3, 3, 64, 64))
+# FFTs and convolutions of float32 data on the ranks against one
+# whole-array cuFFT / cuDNN call (TF32 off): the same sums, split across
+# the ranks or ordered otherwise; the four-step's twiddle is rounded once
+# to complex64
+TOL_FFT = 1e-5
+TOL_CONV = 1e-5
+
+
+def sort_fft_conv(tdat, cuda_collectives) -> dict:
+    """``dsort``, ``dfft``/``dfft2`` and ``dconv2d`` on 4 ranks on the one
+    card, with every all-to-all on K11's copy kernel: K11 itself in
+    complex64 and int64 (and the exact-size exchange ``ring_all_to_allv``
+    in int32 and float32) bit for bit against the plain all-to-all; the
+    FFT along the sharded axis of an 8192^2 complex64 (4,1) DArray (2 K11
+    launches a call), ``dfft2``/``difft2`` (2 each) and the four-step
+    ``dfft``/``difft`` of a 2**26 complex64 DVector (3 each) against
+    whole-array ``torch.fft`` calls on the card; ``dsort`` of bench.py's
+    1e7 vector and of a 1e8 DVector (1 K11 launch a call, the one card's)
+    bit for bit against ``torch.sort`` of the whole vector, sorted and a
+    permutation of the input (count and float64 sum); ``dconv2d`` of an
+    8192^2 f32 (4,1) image with 3x3 and 5x5 kernels and of an NHWC (8,
+    512, 512, 64) batch sharded on N with a (3, 3, 64, 64) kernel against
+    ``F.conv2d`` of the whole array (no K11 launch).  Each op is called
+    once to warm up, then the launch counts are set to 0, one call is
+    timed by CUDA events and the counts are read, then its device time is
+    read from a ``torch.profiler`` trace of 3 calls; the library call is
+    timed by events the same way.  Returns the K11 launches by op and
+    K11's complex64 timings."""
+    import torch.nn.functional as F
+
+    from distributedarrays_tpu_torch.utils import kbuild
+    print("phase sort_fft_conv (4 ranks on one card)")
+    t_phase = time.perf_counter()
+    tdat.init(nranks=4)
+    P = 4
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ms, k11 = {}, {}
+
+    def run(name, fn, want_k11, lib=None):
+        fn()
+        torch.cuda.synchronize()
+        kbuild.reset_launches()
+        r, ms[name] = event_ms(fn)
+        torch.cuda.synchronize()
+        k11[name] = kbuild.launch_counts()["all_to_all"]
+        ms[name + " device"] = device_ms(fn, reps=3)
+        line = (f"  {name}: {ms[name]:.3f} ms (device "
+                f"{ms[name + ' device']:.3f}), K11 launches {k11[name]}")
+        if lib is not None:
+            lib()
+            ref, ms[name + " library"] = event_ms(lib)
+            line += f"; library call {ms[name + ' library']:.3f} ms"
+        print(line)
+        if k11[name] != want_k11:
+            raise AssertionError(f"{name} launched K11 {k11[name]} times, "
+                                 f"not {want_k11}")
+        return (r, ref) if lib is not None else r
+
+    # K11 in complex64 and int64, and the exact-size exchange
+    n = SFC_N
+    zc = [torch.complex(randn(n // P, n), randn(n // P, n)) for _ in range(P)]
+    for sd, cd in ((1, 0), (0, 1)):
+        exact(f"K11 complex64 4 x ({n // P}, {n}) split {sd} concat {cd}",
+              cuda_collectives.ring_all_to_all(zc, sd, cd),
+              cuda_collectives.all_to_all_plain(zc, sd, cd))
+    zi = [torch.randint(-2 ** 62, 2 ** 62, (n // P, n // 2), generator=gen,
+                        device=dev, dtype=torch.int64) for _ in range(P)]
+    for sd, cd in ((1, 0), (0, 1)):
+        exact(f"K11 int64 4 x ({n // P}, {n // 2}) split {sd} concat {cd}",
+              cuda_collectives.ring_all_to_all(zi, sd, cd),
+              cuda_collectives.all_to_all_plain(zi, sd, cd))
+    del zi
+    counts = torch.randint(0, 1 << 20, (P, P), generator=gen,
+                           device=dev).cpu().numpy()
+    keys = [torch.randint(-2 ** 31, 2 ** 31 - 1, (int(counts[r].sum()),),
+                          generator=gen, device=dev, dtype=torch.int32)
+            for r in range(P)]
+    vals = [randn(int(counts[r].sum())) for r in range(P)]
+    exact("ring_all_to_allv int32 + float32 against all_to_allv_plain",
+          [t for a in cuda_collectives.ring_all_to_allv([keys, vals], counts)
+           for t in a],
+          [t for a in cuda_collectives.all_to_allv_plain([keys, vals], counts)
+           for t in a])
+    del keys, vals
+    w = n // P
+    blk_bytes = zc[0].numel() * zc[0].element_size()
+    bms, bby = bound(2 * P * blk_bytes, 0, F32_FLOPS)
+    k11_c64 = {
+        "shape": f"{n}x{n} complex64, 4 row blocks -> 4 column blocks",
+        "ms": time_ms(lambda: cuda_collectives.ring_all_to_all(zc, 1, 0)),
+        "plain_ms": time_ms(lambda: cuda_collectives.all_to_all_plain(
+            zc, 1, 0)),
+        "library_ms": time_ms(lambda: [torch.cat(
+            [x[:, q * w:(q + 1) * w] for x in zc]) for q in range(P)]),
+        "device_ms": device_ms(lambda: cuda_collectives.ring_all_to_all(
+            zc, 1, 0)),
+        "bound_ms": bms, "bound_by": bby}
+    print(f"  K11 complex64 {n}^2: {json.dumps(k11_c64)}")
+
+    # the FFTs
+    Z = tdat.distribute(torch.cat(zc), dist=(P, 1))
+    del zc
+    Zt = Z.full()
+    R, ref = run(f"dfft axis 0 (4,1) {n}^2 complex64",
+                 lambda: tdat.dfft(Z, axis=0), 2,
+                 lambda: torch.fft.fft(Zt, dim=0))
+    check("dfft axis 0 against torch.fft.fft", rel_err_c(R.full(), ref),
+          TOL_FFT)
+    del R, ref
+    F2, ref = run(f"dfft2 (4,1) {n}^2 complex64", lambda: tdat.dfft2(Z), 2,
+                  lambda: torch.fft.fft2(Zt))
+    check("dfft2 against torch.fft.fft2", rel_err_c(F2.full(), ref), TOL_FFT)
+    del ref
+    B = run(f"difft2 (4,1) {n}^2 complex64", lambda: tdat.difft2(F2), 2)
+    check("difft2(dfft2(Z)) against Z", rel_err_c(B.full(), Zt), TOL_FFT)
+    tdat.d_closeall()
+    del Z, Zt, F2, B
+    torch.cuda.empty_cache()
+    V = tdat.distribute(torch.complex(randn(SFC_NV), randn(SFC_NV)))
+    Vt = V.full()
+    R, ref = run(f"dfft four-step {SFC_NV} complex64", lambda: tdat.dfft(V), 3,
+                 lambda: torch.fft.fft(Vt))
+    check("dfft four-step against torch.fft.fft", rel_err_c(R.full(), ref),
+          TOL_FFT)
+    Bv = run(f"difft four-step {SFC_NV} complex64", lambda: tdat.difft(R), 3)
+    check("difft(dfft(V)) against V", rel_err_c(Bv.full(), Vt), TOL_FFT)
+    tdat.d_closeall()
+    del V, Vt, R, ref, Bv
+    torch.cuda.empty_cache()
+
+    # dsort of bench.py's cfg_sort vector and of the main path's DVector
+    for nv in SFC_SORT:
+        X = tdat.drand(nv)
+        Xt = X.full()
+        S, ref = run(f"dsort drand({nv:.0e})", lambda: tdat.dsort(X), 1,
+                     lambda: torch.sort(Xt).values)
+        St = S.full()
+        exact(f"dsort drand({nv:.0e}) against torch.sort", St, ref)
+        if St.numel() != nv or not bool((St[1:] >= St[:-1]).all()):
+            raise AssertionError("dsort result is not a sorted vector of "
+                                 "the input's length")
+        s_in, s_out = float(Xt.double().sum()), float(St.double().sum())
+        if abs(s_in - s_out) > 1e-9 * abs(s_in):
+            raise AssertionError(f"dsort changed the sum: {s_in} -> {s_out}")
+        print(f"  dsort drand({nv:.0e}): chunks {np.diff(S.cuts[0]).tolist()}"
+              f" on ranks {S.pids.tolist()}")
+        tdat.d_closeall()
+        del X, Xt, S, St, ref
+        torch.cuda.empty_cache()
+
+    # dconv2d: the (4,1) image and the batch-sharded NHWC batch
+    img = randn(n, n)
+    G = tdat.distribute(img, dist=(P, 1))
+    for kh, kw in SFC_KERNELS:
+        k = randn(kh, kw)
+        Y, ref = run(f"dconv2d (4,1) {n}^2 f32 {kh}x{kw}",
+                     lambda: tdat.dconv2d(G, k), 0,
+                     lambda: F.conv2d(img[None, None], k[None, None],
+                                      padding=(kh // 2, kw // 2))[0, 0])
+        check(f"dconv2d {kh}x{kw} against F.conv2d", rel_err(Y.full(), ref),
+              TOL_CONV)
+        del Y, ref
+    tdat.d_closeall()
+    del G, img
+    xs, ks = SFC_NHWC
+    x, k = randn(*xs), randn(*ks) / 24.0
+    Xn = tdat.distribute(x, dist=(P, 1, 1, 1))
+    Y, ref = run(f"dconv2d NHWC {xs} x {ks} sharded on N",
+                 lambda: tdat.dconv2d(Xn, k), 0,
+                 lambda: F.conv2d(x.permute(0, 3, 1, 2),
+                                  k.permute(3, 2, 0, 1),
+                                  padding=1).permute(0, 2, 3, 1))
+    check("dconv2d NHWC against F.conv2d", rel_err(Y.full(), ref), TOL_CONV)
+    tdat.d_closeall()
+    del Xn, Y, ref, x, k
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  sort_fft_conv {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"sort_fft_conv_ms": ms, "k11_launches": k11}))
+    return {"k11": k11, "k11_complex64": k11_c64}
+
+
+def rel_err_c(x: torch.Tensor, ref: torch.Tensor) -> float:
+    """``rel_err`` of complex tensors (the Frobenius norm of the
+    difference over the reference's)."""
+    return float((x - ref).abs().norm() / ref.abs().norm().clamp_min(1e-30))
+
+
+def sort_fft_conv_only() -> int:
+    """``--sort-fft-conv``: build the collective kernels and run the sort,
+    FFT and conv phase alone (``sort_fft_conv``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.ops import cuda_collectives
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    res = sort_fft_conv(tdat, cuda_collectives)
+    print(json.dumps({"sort_fft_conv": res, "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def sequence_parallel(tdat) -> dict:
     """Phase 6c: 4 ranks on the one card, S = 8192, 16 heads of 64, bf16,
     causal: ``ring_attention`` (K9), ``ring_flash_attention`` (K8),
@@ -3365,6 +3611,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts_surface = reference_surface(tdat, cuda_collectives)
     counts_reshard = reshard_spmd(tdat)
+    sfc = sort_fft_conv(tdat, cuda_collectives)
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
@@ -3553,6 +3800,9 @@ def main() -> int:
             kern["surface_launches"] = counts_surface[name]
         if name in counts_reshard:
             kern["reshard_spmd_launches"] = counts_reshard[name]
+        if name == "all_to_all":
+            kern["sort_fft_conv_launches"] = sum(sfc["k11"].values())
+            kern["complex64"] = sfc["k11_complex64"]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3689,6 +3939,7 @@ if __name__ == "__main__":
              else k3_k10_only() if sys.argv[1:] == ["--k3-k10"]
              else surface_only() if sys.argv[1:] == ["--surface"]
              else reshard_spmd_only() if sys.argv[1:] == ["--reshard-spmd"]
+             else sort_fft_conv_only() if sys.argv[1:] == ["--sort-fft-conv"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

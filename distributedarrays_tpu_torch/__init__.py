@@ -18,6 +18,9 @@ names::
     e = tdat.reshard.reshard(d, pids, cuts)   # K11 / the K10/K11 chain
     ranks = tdat.spmd(lambda: tdat.myid())    # one task per rank
     c = tdat.dcumsum(d, axis=1)               # scans keep the layout
+    f = tdat.dfft(d, axis=0)                  # K11 all-to-alls around FFTs
+    s = tdat.dsort(tdat.drand(10 ** 7))       # PSRS, one K11 exchange
+    y = tdat.dconv2d(d, torch.ones(3, 3))     # halo exchange + F.conv2d
     n = tdat.mapslices(lambda v: v / v.norm(), d, dims=0)
     assert d == d.copy()                      # whole-array equality
 
@@ -68,8 +71,9 @@ from .parallel.spmd_mode import (SPMDContext, barrier, bcast, close_context,
                                  context, context_local_storage, gather_spmd,
                                  myid, nprocs, recvfrom, recvfrom_any,
                                  scatter, sendto, spmd, spmd_async)
-from .ops import (broadcast, collective_matmul, cuda_attention,
-                  cuda_collectives, cuda_gemm, cuda_stencil, linalg, mapreduce)
+from .ops import (broadcast, collective_matmul, conv, cuda_attention,
+                  cuda_collectives, cuda_gemm, cuda_stencil, fft, linalg,
+                  mapreduce, sort, sparse)
 from .ops.cuda_attention import flash_attention
 from .ops.broadcast import broadcasted, djit, dmap, dmap_into, elementwise
 from .ops.mapreduce import (dall, dany, dcount, dcummax, dcummin, dcumprod,
@@ -77,6 +81,10 @@ from .ops.mapreduce import (dall, dany, dcount, dcummax, dcummin, dcumprod,
                             dminimum, dprod, dreduce, dstd, dsum, dvar,
                             map_localparts, map_localparts_into, mapslices,
                             ppeval, samedist)
+from .ops.conv import dconv2d
+from .ops.fft import dfft, dfft2, difft, difft2
+from .ops.sort import dsort
+from .ops.sparse import ddata_bcoo, dnnz
 from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
                          dtranspose, lmul_, lmul_diag, matmul, mul_into,
                          rmul_, rmul_diag, tune_matmul_impl,
@@ -124,6 +132,8 @@ __all__ = [
     "axpy_", "ddot", "dnorm", "rmul_", "lmul_", "lmul_diag", "rmul_diag",
     "matmul", "mul_into", "dtranspose", "dadjoint", "tune_matmul_impl",
     "tune_matmul_impl_dist", "tune_matmul_impl_summa", "dmatmul_int8",
+    "dconv2d", "dfft", "difft", "dfft2", "difft2", "dsort", "dnnz",
+    "ddata_bcoo",
     "stencil3x3", "stencil5", "stencil5_step", "life", "life_step",
     "life2d",
     "flash_attention", "ring_attention", "ring_flash_attention",

@@ -373,6 +373,22 @@ class DArray:
         """The whole array as one tensor on ``device`` (default: ``home``)."""
         return self.region(None, self.home() if device is None else device)
 
+    def _rebind(self, parts: np.ndarray) -> None:
+        """Take ``parts`` (this layout's cell tensors, of one dtype, owned by
+        no other DArray) as the data, in place of the old tensors (JAX
+        ``darray.py`` ``_rebind``)."""
+        self._check_open()
+        new = np.empty(self.grid, dtype=object)
+        for ci in self.cells():
+            t, old = parts[ci], self._parts[ci]
+            if t.shape != old.shape or t.device != old.device:
+                raise ValueError(f"rebind of chunk {ci}: {tuple(t.shape)} on "
+                                 f"{t.device}, expected {tuple(old.shape)} "
+                                 f"on {old.device}")
+            new[ci] = t.contiguous()
+        self._parts = new
+        self._dtype = new.flat[0].dtype
+
     def with_parts(self, parts: np.ndarray) -> "DArray":
         """New DArray with this layout and the given cell tensors."""
         return DArray(parts, self.pids.copy(), self.cuts)
@@ -391,10 +407,12 @@ class DArray:
 
     def __setitem__(self, key, value):
         """``d[key] = value`` (JAX ``darray.py:807``): int and slice keys,
-        the scalar guard when every key is an int.  ``value`` (a scalar,
-        array, tensor, DArray of any layout or SubDArray) is broadcast to
-        the region and cast to ``d.dtype``; only the ranks owning part of
-        the region write, each into its own tensor in place."""
+        and integer-array, list and boolean-mask keys under numpy's
+        advanced-indexing rules; the scalar guard when every key is an
+        int.  ``value`` (a scalar, array, tensor, DArray of any layout or
+        SubDArray) is broadcast to the selection and cast to ``d.dtype``;
+        only the ranks owning a selected element write, each into its own
+        tensor in place."""
         self._check_open()
         key = _normalize_key(key, self.dims)
         if all(isinstance(k, int) for k in key):
@@ -406,6 +424,9 @@ class DArray:
         in-place slice assignment per owner chunk, fed from the matching
         box of ``value`` (a DArray value of the region's shape gives each
         owner its box through ``region``, on the owner's device)."""
+        if _advanced(key):
+            self._write_selected(key, value)
+            return
         spans = [_spans(k, n, c) for k, n, c in zip(key, self.dims, self.cuts)]
         if not all(spans):
             return                                   # empty region
@@ -441,6 +462,57 @@ class DArray:
             if flips and v.ndim:
                 v = v.flip(flips)
             part[tuple(c[1] for c in combo)] = v
+
+    def _by_owner(self, coords):
+        """The selected elements grouped by the chunk that holds them: for
+        each grid cell that holds some, ``(cell, positions, local index)``
+        where ``positions`` are the elements' flat positions in the
+        selection and ``local index`` one int64 array a dim into the
+        cell's tensor."""
+        flat = [c.reshape(-1) for c in coords]
+        if not flat[0].size:
+            return []
+        js = [np.searchsorted(c, x, side="right") - 1
+              for c, x in zip(self.cuts, flat)]
+        cell = np.ravel_multi_index(js, self.grid)
+        order = np.argsort(cell, kind="stable")
+        bounds = np.flatnonzero(np.diff(cell[order])) + 1
+        out = []
+        for pos in np.split(order, bounds):
+            ci = tuple(int(j[pos[0]]) for j in js)
+            local = [x[pos] - c[j] for x, c, j in zip(flat, self.cuts, ci)]
+            out.append((ci, pos, local))
+        return out
+
+    def _read_selected(self, key) -> torch.Tensor:
+        """The elements an advanced ``key`` selects, in numpy's result
+        shape, on ``home()``: each owner chunk gives its elements."""
+        shape, coords = _coords(key, self.dims)
+        home = self.home()
+        out = torch.empty(shape, dtype=self.dtype, device=home)
+        flat = out.view(-1)
+        for ci, pos, local in self._by_owner(coords):
+            part = self._parts[ci]
+            idx = tuple(torch.from_numpy(x).to(part.device) for x in local)
+            flat[torch.from_numpy(pos).to(home)] = part[idx].to(home)
+        return out
+
+    def _write_selected(self, key, value) -> None:
+        """``value`` broadcast to the selection of an advanced ``key`` and
+        cast to the dtype, each element written by its owner rank into its
+        own tensor."""
+        shape, coords = _coords(key, self.dims)
+        if isinstance(value, DArray):
+            t = value.full()
+        elif isinstance(value, SubDArray):
+            t = value.materialize()
+        else:
+            t = as_tensor(value)
+        t = t.to(self.dtype).broadcast_to(shape).reshape(-1)
+        for ci, pos, local in self._by_owner(coords):
+            part = self._parts[ci]
+            idx = tuple(torch.from_numpy(x).to(part.device) for x in local)
+            part[idx] = t[torch.from_numpy(pos).to(t.device)].to(part.device)
 
     def makelocal(self, *I) -> torch.Tensor:
         """The region ``I`` as one dense tensor on ``home()``."""
@@ -529,7 +601,9 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 
 class SubDArray:
     """A lazy view of a region of a DArray; ``materialize()`` copies the
-    region out of the chunks that hold it."""
+    region out of the chunks that hold it.  An advanced key (integer
+    arrays, lists, boolean masks) selects under numpy's rules
+    (``_result_shape``), as JAX's SubDArray does."""
 
     __slots__ = ("parent", "key")
 
@@ -539,9 +613,7 @@ class SubDArray:
 
     @property
     def shape(self):
-        return tuple(len(range(*k.indices(n)))
-                     for k, n in zip(self.key, self.parent.dims)
-                     if isinstance(k, slice))
+        return _result_shape(self.key, self.parent.dims)
 
     @property
     def ndim(self):
@@ -557,6 +629,8 @@ class SubDArray:
 
     def materialize(self) -> torch.Tensor:
         """Dense tensor of the viewed region, on the parent's home device."""
+        if _advanced(self.key):
+            return self.parent._read_selected(self.key)
         bounds, sel, flips = [], [], []
         for k, n in zip(self.key, self.parent.dims):
             if isinstance(k, int):
@@ -625,20 +699,62 @@ def _spans(k, n: int, cuts) -> list[tuple]:
     return out
 
 
+def _index_array(k) -> np.ndarray:
+    """An advanced index (list, array or tensor) as a numpy bool or int64
+    array."""
+    a = np.asarray(k.detach().cpu() if isinstance(k, torch.Tensor) else k)
+    if a.dtype == np.bool_:
+        if a.ndim == 0:
+            raise IndexError("a 0-d boolean DArray index is not supported")
+        return a
+    if a.size == 0:
+        return a.astype(np.int64)
+    if not np.issubdtype(a.dtype, np.integer):
+        raise IndexError(f"unsupported DArray index {k!r}: index arrays hold "
+                         "integers or booleans")
+    return a.astype(np.int64)
+
+
 def _normalize_key(key, dims):
+    """One entry a dim: an int, a slice, or an int64 array (a list, an
+    integer array or tensor, or one array a dim of a boolean mask's
+    ``nonzero()``, as numpy and JAX's ``jnp.asarray(k)`` take them),
+    negative entries wrapped and every entry bounds-checked."""
     if not isinstance(key, tuple):
         key = (key,)
-    if any(k is Ellipsis for k in key):
-        i = key.index(Ellipsis)
-        key = key[:i] + (slice(None),) * (len(dims) - len(key) + 1) + key[i + 1:]
-    if len(key) < len(dims):
-        key = key + (slice(None),) * (len(dims) - len(key))
-    if len(key) > len(dims):
+    key = [k if k is Ellipsis or isinstance(k, (int, np.integer, slice, range))
+           else _index_array(k) for k in key]
+
+    def width(k):         # the dims an entry consumes
+        if k is Ellipsis:
+            return 0
+        return k.ndim if isinstance(k, np.ndarray) and k.dtype == np.bool_ \
+            else 1
+    used = sum(width(k) for k in key)
+    ell = [i for i, k in enumerate(key) if k is Ellipsis]
+    if ell:
+        i = ell[0]
+        key = key[:i] + [slice(None)] * (len(dims) - used) + key[i + 1:]
+    elif used < len(dims):
+        key = key + [slice(None)] * (len(dims) - used)
+    if sum(width(k) for k in key) > len(dims):
         raise IndexError(f"too many indices for {len(dims)}-d DArray")
     out = []
-    for d, k in enumerate(key):
+    for k in key:
+        d = len(out)
+        if isinstance(k, np.ndarray) and k.dtype == np.bool_:
+            if tuple(k.shape) != tuple(dims[d:d + k.ndim]):
+                raise IndexError(f"boolean index of shape {k.shape} does not "
+                                 f"match dims {tuple(dims[d:d + k.ndim])}")
+            out.extend(ix.astype(np.int64) for ix in np.nonzero(k))
+            continue
         n = dims[d]
-        if isinstance(k, (int, np.integer)):
+        if isinstance(k, np.ndarray):
+            k = np.where(k < 0, k + n, k)
+            if k.size and (k.min() < 0 or k.max() >= n):
+                raise IndexError(f"index out of bounds for dim {d} (size {n})")
+            out.append(k)
+        elif isinstance(k, (int, np.integer)):
             k = int(k)
             if k < 0:
                 k += n
@@ -651,12 +767,64 @@ def _normalize_key(key, dims):
             # a descending run to the front ends at stop -1, which would
             # read as "from the end" when the slice is applied again
             out.append(slice(start, None if stop < 0 else stop, step))
-        elif isinstance(k, range):
-            out.append(slice(k.start, k.stop, k.step))
         else:
-            raise TypeError(f"unsupported DArray index {k!r}: use ints and "
-                            "slices")
+            out.append(slice(k.start, k.stop, k.step))
     return tuple(out)
+
+
+def _advanced(key) -> bool:
+    return any(isinstance(k, np.ndarray) for k in key)
+
+
+def _placement(key, dims):
+    """``(adv, block, together, shape)`` of a normalized advanced key
+    under numpy's rules (JAX ``darray.py:1107``): the positions of its
+    ints and index arrays, which broadcast into one ``block`` of dims,
+    placed where the first of them stands when they are consecutive
+    (``together``), else in front; and the result ``shape``."""
+    adv = [i for i, k in enumerate(key) if not isinstance(k, slice)]
+    block = tuple(np.broadcast_shapes(*[np.shape(key[i]) for i in adv]))
+    together = adv == list(range(adv[0], adv[0] + len(adv)))
+    shape = [] if together else list(block)
+    for d, k in enumerate(key):
+        if isinstance(k, slice):
+            shape.append(len(range(*k.indices(dims[d]))))
+        elif together and d == adv[0]:
+            shape.extend(block)
+    return adv, block, together, tuple(shape)
+
+
+def _result_shape(key, dims) -> tuple:
+    """The shape of ``d[key]`` for a normalized key: ints drop their dims,
+    index arrays place their block as ``_placement`` says."""
+    if not _advanced(key):
+        return tuple(len(range(*k.indices(n)))
+                     for k, n in zip(key, dims) if isinstance(k, slice))
+    return _placement(key, dims)[3]
+
+
+def _coords(key, dims):
+    """``(shape, coords)`` of an advanced key: the result shape and, a dim,
+    the int64 global index of every result element (broadcast to
+    ``shape``)."""
+    adv, block, together, shape = _placement(key, dims)
+    axis = 0 if together else len(block)
+    first = 0
+    coords = []
+    for d, k in enumerate(key):
+        sh = [1] * len(shape)
+        if isinstance(k, slice):
+            v = np.arange(*k.indices(dims[d]), dtype=np.int64)
+            sh[axis] = v.size
+            axis += 1
+        else:
+            if together and d == adv[0]:
+                first = axis
+                axis += len(block)
+            v = np.broadcast_to(np.asarray(k, np.int64), block)
+            sh[first:first + len(block)] = block
+        coords.append(np.broadcast_to(v.reshape(sh), shape))
+    return shape, coords
 
 
 # ---------------------------------------------------------------------------

@@ -92,10 +92,19 @@ def _pieces(arg, pids, cuts, dims):
     return lambda ci, dev, bounds: t[sl(bounds)].to(dev)
 
 
+def _storage(t: torch.Tensor) -> tuple:
+    """A key of the memory that ``t`` views (empty tensors own none)."""
+    if not t.numel():
+        return ()
+    return (t.device, t.untyped_storage().data_ptr())
+
+
 def elementwise(fn: Callable, *args, out: DArray | None = None):
     """Apply ``fn`` elementwise over the (numpy-broadcast) arguments, each
-    rank on its own chunk.  With ``out`` the result is written into
-    ``out``'s chunks in place and ``out`` is returned."""
+    rank on its own chunk.  With ``out``, ``out`` is rebound to the result
+    and returned, as JAX's ``out._rebind(res)`` (``broadcast.py:215``): it
+    takes the result's dtype.  When that is ``out``'s own dtype, the
+    result is written into ``out``'s tensors in place."""
     shapes = [_arg_shape(a) for a in args]
     dims = tuple(np.broadcast_shapes(*shapes)) if shapes else ()
     if out is not None:
@@ -117,20 +126,32 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
         pids, cuts = template.pids, template.cuts
     getters = [_pieces(a, pids, cuts, dims) for a in args]
     parts = np.empty(tuple(pids.shape), dtype=object)
+    inputs = set()    # storages of the pieces fn was given
     for ci in np.ndindex(*pids.shape):
         bounds = [(c[j], c[j + 1]) for c, j in zip(cuts, ci)]
         dev = device_of(int(pids[ci]))
-        r = fn(*[g(ci, dev, bounds) for g in getters])
+        pieces = [g(ci, dev, bounds) for g in getters]
+        inputs.update(_storage(t) for t in pieces
+                      if isinstance(t, torch.Tensor))
+        r = fn(*pieces)
         if not isinstance(r, torch.Tensor):
             r = torch.as_tensor(r, device=dev)
-        shape = tuple(h - l for l, h in bounds)
-        if out is not None:
-            out.part(ci).copy_(r.expand(shape))
-        else:
-            parts[ci] = r.expand(shape).contiguous()
-    if out is not None:
-        return out
-    return DArray(parts, np.array(pids, copy=True), cuts)
+        parts[ci] = r.expand(tuple(h - l for l, h in bounds))
+    if out is None or parts.flat[0].dtype != out.dtype:
+        # the new tensors are the result's own: a part that fn returned
+        # from its arguments (``lambda x: x``, ``x.float()`` of a float32
+        # chunk) is copied
+        for ci in np.ndindex(*pids.shape):
+            t = parts[ci].contiguous()
+            parts[ci] = t.clone() if _storage(t) in inputs else t
+    if out is None:
+        return DArray(parts, np.array(pids, copy=True), cuts)
+    if parts.flat[0].dtype != out.dtype:
+        out._rebind(parts)
+    else:
+        for ci in np.ndindex(*pids.shape):
+            out.part(ci).copy_(parts[ci])
+    return out
 
 
 def dmap(fn: Callable, *ds, out: DArray | None = None):
@@ -380,6 +401,12 @@ def _not_equal(a, b):
     return NotImplemented if r is NotImplemented else not r
 
 
+def _pos(x):
+    # a copy: +x of a bool is the bool, as in JAX (torch has no bool pos),
+    # and torch's +x of other types is x itself, not a new tensor
+    return x.clone()
+
+
 def _abs(x):
     # abs of a bool is the bool, as in JAX (torch has no bool abs)
     return x if x.dtype == torch.bool else operator.abs(x)
@@ -405,6 +432,6 @@ for _cls in (DArray, SubDArray):
     _cls.__eq__ = _array_equal
     _cls.__ne__ = _not_equal
     _cls.__neg__ = _unop(operator.neg)
-    _cls.__pos__ = _unop(operator.pos)
+    _cls.__pos__ = _unop(_pos)
     _cls.__abs__ = _unop(_abs)
     _cls.__invert__ = _unop(operator.invert)

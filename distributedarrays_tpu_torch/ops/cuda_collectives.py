@@ -20,6 +20,10 @@ not used.
 - ``ring_all_to_all(blocks, split_dim, concat_dim)``: rank ``q`` gets piece
   ``q`` of every rank's block split along ``split_dim``, concatenated along
   ``concat_dim`` (``lax.all_to_all(..., tiled=True)``).
+- ``ring_all_to_allv(arrays, counts)``: the all-to-all of exact-size
+  pieces of 1-D tensors that ``dsort``'s exchange makes (JAX pads every
+  piece to a static size and runs ``lax.all_to_all``), on the same copy
+  kernel and counted as the all-to-all.
 
 - ``chain_step(kind, blocks, groups, src_dim, dst_dim, full, windows)``:
   one step of the reshard planner's chain (``parallel/reshard.py``), an
@@ -97,8 +101,8 @@ __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "ring_allgather_matmul", "ring_allgather_matmul_rhs",
            "ring_matmul_reducescatter", "ring_gemm_route", "ring_tile_n",
            "copy_launches", "copy_width", "view_copy", "chain_step",
-           "chain_step_plain", "all_gather_plain",
-           "all_to_all_plain", "reduce_scatter_plain",
+           "chain_step_plain", "ring_all_to_allv", "all_to_allv_plain",
+           "all_gather_plain", "all_to_all_plain", "reduce_scatter_plain",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
 
@@ -469,6 +473,80 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
 
     return _pull([b.device for b in blocks], [shape] * len(blocks),
                  ref.dtype, fill)
+
+
+def all_to_allv_plain(arrays, counts) -> list[list[torch.Tensor]]:
+    """The plain version of ``ring_all_to_allv``: each rank's tensor split
+    by its row of ``counts``, every piece moved with ``.to`` and the
+    pieces for rank q concatenated in rank order."""
+    p = len(counts)
+    out = []
+    for blocks in arrays:
+        pieces = []
+        for r, b in enumerate(blocks):
+            sizes = [int(c) for c in counts[r]]
+            pieces.append(b.narrow(0, 0, sum(sizes)).split(sizes))
+        out.append([torch.cat([pieces[r][q].to(blocks[q].device)
+                               for r in range(p)]) for q in range(p)])
+    return out
+
+
+def ring_all_to_allv(arrays, counts) -> list[list[torch.Tensor]]:
+    """An all-to-all of exact-size pieces of 1-D rank tensors.  ``arrays``
+    is a list of arrays, each the p ranks' tensors in ring order (keys and
+    values, say, of different dtypes); ``counts[r][q]`` (host ints) is the
+    number of elements rank r sends rank q, taken in order from the front
+    of each of its tensors.  Rank q gets, for each array, every rank's
+    piece concatenated in rank order, on its own device.  For CUDA tensors
+    one copy launch a card moves every piece of every array (the K11 copy
+    kernel, counted as ``all_to_all``; at most ``MAXP`` pieces a launch),
+    each read once and stored at its final offset; the plain version for
+    CPU tensors."""
+    arrays = [list(a) for a in arrays]
+    flat = [b for a in arrays for b in a]
+    if not flat:
+        return []
+    if not _on_cuda(flat):
+        return all_to_allv_plain(arrays, counts)
+    p = len(counts)
+    if any(len(a) != p for a in arrays) or any(b.ndim != 1 for b in flat):
+        raise ValueError("all_to_allv takes p 1-D tensors an array")
+    for a in arrays:
+        for r, b in enumerate(a):
+            if sum(int(c) for c in counts[r]) > b.shape[0]:
+                raise ValueError(f"rank {r} sends more elements than its "
+                                 "tensor holds")
+    _check_contiguous(flat, "all-to-all")
+    devs = [b.device for b in arrays[0]]
+    order = _Order(devs)
+    ready = [order.mark(d) for d in devs]
+    soff = [[sum(int(c) for c in counts[r][:q]) for q in range(p)]
+            for r in range(p)]
+    doff = [[sum(int(counts[u][q]) for u in range(r)) for q in range(p)]
+            for r in range(p)]
+    outs = [[torch.empty(sum(int(counts[r][q]) for r in range(p)),
+                         dtype=a[q].dtype, device=devs[q])
+             for q in range(p)] for a in arrays]
+    cards: dict = {}
+    for q, dev in enumerate(devs):
+        cards.setdefault(dev, []).append(q)
+    done = []
+    for dev, dests in cards.items():
+        order.wait(dev, ready)
+        copies = []
+        for a, out in zip(arrays, outs):
+            for q in dests:
+                for r in range(p):
+                    n = int(counts[r][q])
+                    if n:
+                        copies.append(view_copy(
+                            q, a[r].narrow(0, soff[r][q], n),
+                            out[q].narrow(0, doff[r][q], n)))
+        _copy_on_card(copies, dev, "all_to_all")
+        done.append(order.mark(dev))
+    for dev in devs:
+        order.wait(dev, done)
+    return outs
 
 
 def _step_piece(kind, full, q, src_dim, dst_dim, pv, pu):

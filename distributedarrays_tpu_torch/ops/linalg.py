@@ -42,7 +42,7 @@ from ..darray import (DArray, SubDArray, as_tensor, distribute,
 from ..parallel.reshard import allgather, plan_allgather
 from ..utils import autotune
 from . import collective_matmul as cm
-from .broadcast import _pieces, elementwise, result_dtype
+from .broadcast import _pieces, elementwise, promote, result_dtype
 from .cuda_gemm import cuda_matmul, quantized_matmul, torch_matmul
 from .mapreduce import acc_dtype
 
@@ -79,7 +79,14 @@ def axpy_(a, x, y: DArray) -> DArray:
     if _shape_of(x) != tuple(y.dims):
         raise ValueError(f"axpy_: x dims {_shape_of(x)} != y dims {y.dims}")
     s = torch.tensor(a, dtype=y.dtype)
-    return elementwise(lambda xv, yv: s.to(yv.device) * xv + yv, x, y, out=y)
+
+    def axpy(xv, yv):
+        # each op promoted as JAX promotes a*x + y with a strong 0-d a
+        ax = s.to(yv.device, result_dtype(s, xv)) * xv.to(
+            result_dtype(s, xv))
+        dt = result_dtype(ax, yv)
+        return ax.to(dt) + yv.to(dt)
+    return elementwise(axpy, x, y, out=y)
 
 
 def _aligned(x, y):
@@ -168,14 +175,21 @@ def dnorm(x, p=2):
     return total(lambda t: t.abs() ** e).to(real) ** inv
 
 
+def _scale_into(d: DArray, a, b) -> DArray:
+    """``d`` rebound to ``a * b``, promoted as JAX's ``jnp.multiply`` (so
+    an int32 ``d`` scaled by 2.5 becomes float32, as in JAX)."""
+    f, args = promote("mul", torch.mul, (a, b))
+    return elementwise(f, *args, out=d)
+
+
 def rmul_(d: DArray, s) -> DArray:
     """``d <- d * s`` in place (reference ``rmul!``)."""
-    return elementwise(torch.mul, d, s, out=d)
+    return _scale_into(d, d, s)
 
 
 def lmul_(s, d: DArray) -> DArray:
     """``d <- s * d`` in place (reference ``lmul!``)."""
-    return elementwise(torch.mul, s, d, out=d)
+    return _scale_into(d, s, d)
 
 
 def lmul_diag(diag, d: DArray) -> DArray:
@@ -183,7 +197,7 @@ def lmul_diag(diag, d: DArray) -> DArray:
     v = _host(diag)
     if tuple(v.shape) != (d.dims[0],):
         raise ValueError(f"diag length {tuple(v.shape)} != rows {d.dims[0]}")
-    return elementwise(torch.mul, v.reshape(-1, 1), d, out=d)
+    return _scale_into(d, v.reshape(-1, 1), d)
 
 
 def rmul_diag(d: DArray, diag) -> DArray:
@@ -192,7 +206,7 @@ def rmul_diag(d: DArray, diag) -> DArray:
     v = _host(diag)
     if tuple(v.shape) != (d.dims[-1],):
         raise ValueError(f"diag length {tuple(v.shape)} != cols {d.dims[-1]}")
-    return elementwise(torch.mul, d, v.reshape(1, -1), out=d)
+    return _scale_into(d, d, v.reshape(1, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -451,6 +465,9 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
     m, k = A.dims
     n = 1 if vec else bshape[1]
     b_dtype = B.dtype if bt is None else bt.dtype
+    if A.dtype == torch.bool and b_dtype == torch.bool and \
+            alpha == 1.0 and beta == 0.0:
+        return _bool_matmul(A, B if bt is None else bt, out)
 
     if out is not None:
         want = (m,) if vec else (m, n)
@@ -500,6 +517,29 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
     for ci, res in results.items():
         parts[ci] = res.contiguous()
     return DArray(parts, pids, cuts)
+
+
+def _bool_matmul(A: DArray, B, out: DArray | None) -> DArray:
+    """The boolean product ``A @ B`` (numpy's and JAX's ``bool @ bool``):
+    the operands cast to float32 through the port's float32 route (the
+    owned schedules and the registry's kernel apply as for any float32
+    product), then ``!= 0``.  That is exact at any inner dim: every term
+    is 0 or 1, and a float32 sum of non-negative terms that holds a 1
+    never rounds back to 0, in any order or split.  ``out`` keeps its
+    dtype (``copyto_``)."""
+    from ..darray import copyto_
+    a = A.astype(torch.float32)
+    b = B.astype(torch.float32) if isinstance(B, DArray) else B.float()
+    r = matmul(a, b)
+    res = elementwise(lambda t: t != 0, r)
+    for x in (a, b, r):
+        if isinstance(x, DArray):
+            x.close()
+    if out is None:
+        return res
+    copyto_(out, res)
+    res.close()
+    return out
 
 
 def mul_into(C: DArray, A, B, alpha=1.0, beta=0.0) -> DArray:

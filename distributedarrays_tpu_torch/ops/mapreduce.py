@@ -89,6 +89,34 @@ def _reduce_dims(x: torch.Tensor, fn, axes) -> torch.Tensor:
     return x
 
 
+def _lex_pick(a: torch.Tensor, b: torch.Tensor, largest: bool):
+    """The larger (``largest``) or smaller of complex ``a`` and ``b``,
+    element by element, in JAX's lexicographic order: the real parts
+    first, then the imaginary parts."""
+    if not largest:
+        a, b = -a, -b
+    take = (b.real > a.real) | ((b.real == a.real) & (b.imag > a.imag))
+    r = torch.where(take, b, a)
+    return r if largest else -r
+
+
+def _lex_extreme(x: torch.Tensor, axes, largest: bool) -> torch.Tensor:
+    """``amax``/``amin`` of complex ``x`` over ``axes`` (kept, size 1) in
+    the lexicographic order: the extreme real part, then the extreme
+    imaginary part among the elements that tie on it."""
+    keep = [i for i in range(x.ndim) if i not in axes]
+    y = x.permute(keep + list(axes)).reshape(
+        [x.shape[i] for i in keep] + [-1])
+    f = torch.amax if largest else torch.amin
+    re = f(y.real, dim=-1, keepdim=True)
+    fill = float("-inf") if largest else float("inf")
+    im = f(torch.where(y.real == re, y.imag, fill), dim=-1)
+    out = torch.complex(re.squeeze(-1), im)
+    for a in sorted(axes):
+        out = out.unsqueeze(a)
+    return out
+
+
 class _Reducer:
     """Local partial, pairwise merge and finish for one named reduction."""
 
@@ -103,10 +131,11 @@ class _Reducer:
             return _reduce_dims(x.to(acc_dtype(x.dtype)),
                                 torch.sum if name == "sum" else torch.prod,
                                 axes)
-        if name == "max":
-            return _reduce_dims(x, torch.amax, axes)
-        if name == "min":
-            return _reduce_dims(x, torch.amin, axes)
+        if name in ("max", "min"):
+            if x.is_complex():
+                return _lex_extreme(x, axes, name == "max")
+            return _reduce_dims(x, torch.amax if name == "max"
+                                else torch.amin, axes)
         if name in ("all", "any"):
             x = x.to(torch.bool)
             return _reduce_dims(x, torch.all if name == "all" else torch.any,
@@ -116,7 +145,7 @@ class _Reducer:
         mean = _reduce_dims(x, torch.mean, axes)
         if name == "mean":
             return (n, mean)
-        m2 = _reduce_dims((x - mean) ** 2, torch.sum, axes)
+        m2 = _reduce_dims((x - mean).abs() ** 2, torch.sum, axes)
         return (n, mean, m2)
 
     def merge(self, a, b):
@@ -125,10 +154,10 @@ class _Reducer:
             return a + b
         if name == "prod":
             return a * b
-        if name == "max":
-            return torch.maximum(a, b)
-        if name == "min":
-            return torch.minimum(a, b)
+        if name in ("max", "min"):
+            if a.is_complex():
+                return _lex_pick(a, b, name == "max")
+            return (torch.maximum if name == "max" else torch.minimum)(a, b)
         if name == "all":
             return a & b
         if name == "any":
@@ -139,7 +168,8 @@ class _Reducer:
         mean = a[1] + delta * (nb / n)
         if name == "mean":
             return (n, mean)
-        return (n, mean, a[2] + b[2] + delta * delta * (na * nb / n))
+        return (n, mean,
+                a[2] + b[2] + delta.abs() ** 2 * (na * nb / n))
 
     def finish(self, s, dtype):
         name = self.name
@@ -150,8 +180,10 @@ class _Reducer:
         out_dtype = torch.float32 if _is_exact(dtype) else dtype
         if name == "mean":
             return s[1].to(out_dtype)
+        # the variance of complex values is real: the mean of |x - mean|^2
         var = s[2] / (s[0] - self.ddof)
-        return (var if name == "var" else torch.sqrt(var)).to(out_dtype)
+        return (var if name == "var" else torch.sqrt(var)).to(
+            out_dtype.to_real())
 
     def to(self, s, dev):
         if isinstance(s, tuple):
@@ -503,6 +535,24 @@ def map_localparts_into(f: Callable, dest: DArray, *ds) -> DArray:
     finally:
         res.close()
     return dest
+
+
+def _even_shared_layout(ds) -> bool:
+    """True when the DArrays among ``ds`` share one layout whose chunks are
+    all equal and non-empty in every dim (JAX ``ops/mapreduce.py:533``):
+    the layouts the compiled FFT and convolution paths take."""
+    arrs = [a for a in ds if isinstance(a, DArray)]
+    if not arrs:
+        return False
+    d0 = arrs[0]
+    if not all(np.array_equal(a.pids, d0.pids) and a.cuts == d0.cuts
+               for a in arrs):
+        return False
+    for cuts in d0.cuts:
+        sizes = set(np.diff(cuts).tolist())
+        if len(sizes) > 1 or 0 in sizes:
+            return False
+    return True
 
 
 def samedist(d: DArray, like: DArray) -> DArray:

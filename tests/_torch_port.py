@@ -87,3 +87,27 @@ def assert_typed_equal(port, jax_result, rtol: float = 0.0) -> None:
         np.testing.assert_allclose(pv, jv, rtol=rtol)
     else:
         np.testing.assert_array_equal(pv, jv)
+
+
+def emulated_copies(calls):
+    """A stand-in for ``cuda_collectives._copy_on_card`` that runs the copy
+    kernel's semantics on host memory (each copy's boxes moved row by row
+    with ``memmove``) and records ``(kernel, launches)``: with ``_on_cuda``
+    stubbed to True, the CUDA path of a collective runs on CPU tensors."""
+    import ctypes
+    import itertools
+
+    from distributedarrays_tpu_torch.ops import cuda_collectives as C
+
+    def run(copies, dev, kernel):
+        launches = C.copy_launches(copies)
+        calls.append((kernel, len(launches)))
+        for launch in launches:
+            for src, (sizes, sstr, run_b), part in launch:
+                for dst, dstr in part:
+                    for i, j, k in itertools.product(*map(range, sizes)):
+                        ctypes.memmove(
+                            dst + i * dstr[0] + j * dstr[1] + k * dstr[2],
+                            src + i * sstr[0] + j * sstr[1] + k * sstr[2],
+                            run_b)
+    return run
