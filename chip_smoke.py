@@ -2215,6 +2215,393 @@ def sort_fft_conv_only() -> int:
     return 0
 
 
+# the solvers phase: bench.py's cg_poisson row (cfg_cg_poisson) at its own
+# size, the multigrid solve, the chaos solve
+CG_N, CG_TOL, CG_MAXITER = 1024, 1e-6, 6000
+MG_N = 4096
+CHAOS_N, CHAOS_AT = 1024, 25
+CG_PROFILE_ITERS = 300
+# a solve's residual recomputed with the plain step against the solver's
+# own recurrence, relative to ||b||.  In float32 the recurrence drifts from
+# the true residual over thousands of iterations: at 1024^2, stopping at
+# 1e-6, the true one reads 2.6e-4 for the port on an H100 and 3.17e-4 for
+# the JAX package's float32 CG on the CPU (tools/cg_residual_witness.py),
+# whose solve stopped at a quarter of its iterations reads 3.5e-3.  The
+# bound sits between the sound readings and that one.
+TOL_TRUE_RES = 1e-3
+# the chaos solve's answer against the fault-free one (read 1.438e-6 at
+# 1024^2 on an H100)
+TOL_CHAOS = 1e-4
+# the small solves of small_solves: the float64 residual and the answer
+# against the float64 oracle (the solves stop at 1e-6; read 3e-7 to 1.2e-6
+# on 4 CPU ranks)
+TOL_SMALL = 1e-5
+
+
+def true_residual(tdat, op, x, b) -> float:
+    """``||b - A x|| / ||b||`` with ``A x`` by the plain stencil step on the
+    card (no kernel)."""
+    ax = tdat.stencil3x3(x, op.weights, use_kernel=False)
+    r = b - ax
+    out = float(tdat.dnorm(r)) / float(tdat.dnorm(b))
+    for d in (ax, r):
+        d.close()
+    return out
+
+
+def small_solves(tdat, S) -> dict:
+    """The other operators and solvers on 4 ranks of the card, each on a
+    256-unknown system held against its float64 oracle: CG on the 16^2
+    Poisson matrix as a ``DenseOperator`` (its matvec is the port's
+    ``matmul``) and as a ``SparseOperator`` (torch sparse blocks, the halo
+    exchange), BiCGStab and restarted GMRES on a nonsymmetric banded
+    matrix.  Prints what each launched."""
+    from distributedarrays_tpu_torch.utils import kbuild
+    poisson = S.poisson2d_dense(16, 16)
+    n = poisson.shape[0]
+    banded = (3.0 * np.eye(n) - np.eye(n, k=1)
+              + 0.5 * np.eye(n, k=-1)).astype(np.float32)
+    rhs = np.random.default_rng(7).standard_normal(n).astype(np.float32)
+    out = {}
+    for name, mat, make, solve in (
+            ("cg dense", poisson, S.DenseOperator, S.cg),
+            ("cg sparse", poisson, S.SparseOperator, S.cg),
+            ("bicgstab sparse", banded, S.SparseOperator, S.bicgstab),
+            ("gmres(8) dense", banded, S.DenseOperator,
+             lambda *a, **k: S.gmres(*a, restart=8, **k))):
+        op = make(mat, procs=[0, 1, 2, 3])
+        procs, dist = op.vector_layout()
+        b = tdat.distribute(rhs, procs=procs, dist=list(dist))
+        kbuild.reset_launches()
+        res = solve(op, b, tol=CG_TOL, maxiter=1000)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kbuild.launch_counts().items() if v}
+        x = res.x.full().double().cpu().numpy()
+        a64 = mat.astype(np.float64)
+        oracle = np.linalg.solve(a64, rhs.astype(np.float64))
+        true = float(np.linalg.norm(rhs - a64 @ x) / np.linalg.norm(rhs))
+        print(f"  {name} {n} on ranks {procs}: {res.outcome} in "
+              f"{res.iterations} iterations, launches {launched}")
+        if not res.converged:
+            raise AssertionError(f"{name}: {res.outcome}")
+        check(f"{name}: ||b - A x|| / ||b|| in float64", true, TOL_SMALL)
+        check(f"{name}: x against the float64 oracle",
+              float(np.linalg.norm(x - oracle) / np.linalg.norm(oracle)),
+              TOL_SMALL)
+        out[name] = {"iterations": res.iterations, "launches": launched}
+        res.x.close()
+        b.close()
+        if hasattr(op, "close"):
+            op.close()
+    return out
+
+
+def solvers_phase(tdat, errs: dict) -> dict:
+    """``solvers``: the CG Poisson solve of bench.py's ``cg_poisson`` row
+    (``StencilOperator((1024, 1024))``, ``b`` from ``default_rng(7)``,
+    ``cg(tol=1e-6, maxiter=6000)``) on one rank, whose every operator apply
+    is one K2 launch (``stencil_step`` on the Poisson weights, held bit for
+    bit against its plain step first); the multigrid-preconditioned CG on
+    ``StencilOperator((4096, 4096))`` over 4 ranks of the card (K2 on every
+    level whose grid splits); the chaos solve (4 ranks, 1024^2, a
+    ``device_loss`` of rank 3 at ``solver.iterate``) that shrinks onto the
+    survivors through the reshard (K10/K11) and converges with one
+    recovery to the fault-free answer; K2 held bit for bit against the
+    plain step on the 4-rank apply, a V-cycle and the survivors' apply;
+    the dense, sparse, BiCGStab and GMRES solves of ``small_solves``; and
+    a divergence-checked SPMD program on the card next to a divergent one
+    that must raise.
+    Telemetry is on: the ``solver.spmv`` spans count the applies, the
+    shrink's ``reshard`` span carries ``intra_bytes``/``cross_bytes``.
+    Returns the phase's launch counts and readings."""
+    from distributedarrays_tpu_torch import telemetry as tm
+    from distributedarrays_tpu_torch.analysis import divergence
+    from distributedarrays_tpu_torch.ops.cuda_stencil import (
+        _apply3x3, stencil3x3_block)
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    from distributedarrays_tpu_torch.telemetry import perf
+    from distributedarrays_tpu_torch.utils import kbuild
+    S = tdat.solvers
+    print("phase solvers")
+    t_phase = time.perf_counter()
+    tdat.d_closeall()
+    faults.clear()
+    elastic.manager().reset()
+    tm.enable()
+    out = {"launches": {}, "ms": {}}
+
+    # -- 1 rank: the cg_poisson row ----------------------------------------
+    tdat.init()
+    n = CG_N
+    op = S.StencilOperator((n, n))
+    procs, dist = op.vector_layout()
+    rhs = np.random.default_rng(7).standard_normal((n, n)).astype(
+        np.float32)
+    b = tdat.distribute(rhs, procs=procs, dist=list(dist))
+    blk = b.part((0, 0))
+    z = torch.zeros(1, n, device=blk.device)
+    errs["stencil_step"] = max(errs["stencil_step"], exact(
+        f"K2 {n}^2 on the Poisson weights against its plain step",
+        stencil3x3_block(blk, z, z, op.weights),
+        _apply3x3(torch.cat([z, blk, z]), op.weights)))
+
+    def solve():
+        return S.cg(op, b, tol=CG_TOL, maxiter=CG_MAXITER)
+    kbuild.reset_launches()
+    tm.reset()
+    res = solve()
+    torch.cuda.synchronize()
+    counts = kbuild.launch_counts()
+    applies = res.iterations + 1          # the initial residual, then one
+    spmv = tm.span_stats()["solver.spmv"]["count"]
+    routes = kbuild.route_counts()["stencil_step"]
+    print(f"  cg {n}^2 1 rank: {res.outcome} in {res.iterations} "
+          f"iterations, residual {res.residual:.6e}, K2 launches "
+          f"{counts['stencil_step']} (routes {routes}), solver.spmv spans "
+          f"{spmv}")
+    if not res.converged:
+        raise AssertionError(f"cg {n}^2: {res.outcome} after "
+                             f"{res.iterations} iterations")
+    if counts["stencil_step"] != applies or spmv != applies:
+        raise AssertionError(f"cg {n}^2: {applies} applies, K2 launched "
+                             f"{counts['stencil_step']} times, {spmv} "
+                             "solver.spmv spans")
+    nb = float(tdat.dnorm(b))
+    true = true_residual(tdat, op, res.x, b)
+    check(f"cg {n}^2 residual by the plain step against the solver's "
+          f"({res.residual / nb:.6e} of ||b||)",
+          abs(true - res.residual / nb), TOL_TRUE_RES)
+    res.x.close()
+    out["cg_iterations"] = res.iterations
+    out["cg_residual"] = res.residual
+    out["cg_true_residual"] = true
+    out["launches"]["cg"] = counts
+    # time to tolerance: the second solve, on the host clock
+    t_solve = [None]
+
+    def timed():
+        r = solve()
+        t_solve[0] = r.iterations
+        r.x.close()
+    out["ms"]["cg_time_to_tolerance"] = wall_ms(timed)
+    if t_solve[0] != res.iterations:
+        raise AssertionError(f"cg {n}^2: the timed solve took {t_solve[0]} "
+                             f"iterations, the first {res.iterations}")
+    per_iter = perf.spmv_cost(5 * n * n, n * n, 4,
+                              index_itemsize=0)["bytes_hbm"] + 10 * n * n * 4
+    out["cg_gbps"] = res.iterations * per_iter / (
+        out["ms"]["cg_time_to_tolerance"] / 1e3) / 1e9
+    out["cg_bytes_per_iteration"] = per_iter
+    # a fixed number of iterations under the profiler: device busy time,
+    # kernel launches, host us a launch
+    from torch.profiler import ProfilerActivity, profile
+
+    def fixed():
+        S.cg(op, b, tol=1e-30, maxiter=CG_PROFILE_ITERS).x.close()
+    fixed()
+    wall = wall_ms(fixed)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pwall = wall_ms(fixed)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    nlaunch = sum(e.count for e in kern)
+    k2 = sum(e.self_device_time_total for e in kern
+             if "step_kernel" in e.key) / 1e3
+    out["cg_profile"] = {
+        "iterations": CG_PROFILE_ITERS, "wall_ms": wall,
+        "profiled_wall_ms": pwall, "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall, "kernel_launches": nlaunch,
+        "launches_per_iteration": nlaunch / CG_PROFILE_ITERS,
+        "host_us_per_launch": wall * 1e3 / nlaunch,
+        "k2_device_ms_per_apply": k2 / (CG_PROFILE_ITERS + 1),
+        "top_kernels_ms": [[e.key[:60], e.count,
+                            e.self_device_time_total / 1e3] for e in
+                           sorted(kern, key=lambda e:
+                                  -e.self_device_time_total)[:8]]}
+    print(f"  cg {n}^2: time to tolerance "
+          f"{out['ms']['cg_time_to_tolerance']:.1f} ms, "
+          f"{out['cg_gbps']:.1f} GB/s; {CG_PROFILE_ITERS} iterations "
+          f"{wall:.1f} ms wall, {busy:.1f} ms busy, {nlaunch} launches, "
+          f"{wall * 1e3 / nlaunch:.1f} host us a launch")
+    b.close()
+    del blk, z
+
+    # -- 4 ranks: multigrid-preconditioned CG on 4096^2 ----------------------
+    tdat.init(nranks=4)
+    P = 4
+    nm = MG_N
+    op4 = S.StencilOperator((nm, nm))
+    procs, dist = op4.vector_layout()
+    rhs4 = np.random.default_rng(7).standard_normal((nm, nm)).astype(
+        np.float32)
+    b4 = tdat.distribute(rhs4, procs=procs, dist=list(dist))
+    mgp = S.Multigrid(op4)
+    kbuild.reset_launches()
+    tm.reset()
+    mg, mg_ms = event_ms(lambda: S.cg(op4, b4, tol=CG_TOL,
+                                      maxiter=CG_MAXITER, M=mgp))
+    torch.cuda.synchronize()
+    counts = kbuild.launch_counts()
+    levels = mgp.levels((nm, nm), P)
+    # the initial residual and one apply an iteration, and a V-cycle an
+    # iteration (on each split level the smoothing sweeps and one
+    # residual, a K2 launch each), each on every rank
+    sweeps = mgp.presmooth + mgp.postsmooth + 1
+    want = P * (mg.iterations + 1 + mg.iterations * sweeps * levels)
+    print(f"  mg-pcg {nm}^2 4 ranks: {mg.outcome} in {mg.iterations} "
+          f"iterations ({mg_ms:.1f} ms) against plain cg {n}^2 "
+          f"{res.iterations}; K2 launches {counts['stencil_step']} "
+          f"({levels} split levels: {want} expected)")
+    if not mg.converged or not mg.iterations < res.iterations / 2:
+        raise AssertionError(f"mg-pcg {nm}^2: {mg.outcome} in "
+                             f"{mg.iterations} iterations")
+    if counts["stencil_step"] != want:
+        raise AssertionError(f"mg-pcg: K2 launched {counts['stencil_step']}"
+                             f" times, {want} expected")
+    true4 = true_residual(tdat, op4, mg.x, b4)
+    check(f"mg-pcg {nm}^2 residual by the plain step against the solver's",
+          abs(true4 - mg.residual / float(tdat.dnorm(b4))), TOL_TRUE_RES)
+    out["mg_iterations"] = mg.iterations
+    out["mg_levels"] = levels
+    out["ms"]["mg_pcg"] = mg_ms
+    out["launches"]["mg_pcg"] = counts
+    mg.x.close()
+    # K2 on the solver's own shapes, bit for bit against the plain step:
+    # one 4-rank apply (1024 x 4096 blocks, live halo rows) and one V-cycle
+    # (every split level, down to 8 x 32 blocks)
+    op4p = S.StencilOperator((nm, nm), use_kernel=False)
+    for what, got, ref in (
+            ("apply", op4.apply(b4), op4p.apply(b4)),
+            ("V-cycle", mgp.apply(b4), S.Multigrid(op4p).apply(b4))):
+        errs["stencil_step"] = max(errs["stencil_step"], exact(
+            f"mg {nm}^2 4 ranks: one {what} on K2 against the plain step",
+            got.full(), ref.full()))
+        got.close()
+        ref.close()
+    b4.close()
+    del rhs4
+
+    # -- 4 ranks: chaos ------------------------------------------------------
+    nc = CHAOS_N
+    opc = S.StencilOperator((nc, nc))
+    procs, dist = opc.vector_layout()
+    bc = tdat.distribute(rhs, procs=procs, dist=list(dist))
+    free = S.cg(opc, bc, tol=CG_TOL, maxiter=CG_MAXITER)
+    if not free.converged or free.recoveries:
+        raise AssertionError(f"fault-free cg: {free.outcome}")
+    x_free = free.x.full()
+    free.x.close()
+    faults.configure([{"site": "solver.iterate", "action": "device_loss",
+                       "at": CHAOS_AT, "count": 1, "device": 3}], seed=1234)
+    kbuild.reset_launches()
+    tm.reset()
+    opx = S.StencilOperator((nc, nc))
+    chaos = S.cg(opx, bc, tol=CG_TOL, maxiter=CG_MAXITER)
+    torch.cuda.synchronize()
+    counts = kbuild.launch_counts()
+    moved = [s["labels"] for s in tm.spans("reshard")
+             if s["labels"]["op"] == "elastic"]
+    pids = [int(p) for p in chaos.x.pids.flat]
+    print(f"  chaos cg {nc}^2 4 ranks: {chaos.outcome} in "
+          f"{chaos.iterations} iterations (fault-free {free.iterations}), "
+          f"recoveries {chaos.recoveries}, history {faults.history()}, "
+          f"x on ranks {pids}, K10 {counts['all_gather']} K11 "
+          f"{counts['all_to_all']} launches, shrink moves "
+          f"{[(m['strategy'], m['intra_bytes'], m['cross_bytes']) for m in moved]}")
+    if not chaos.converged or chaos.recoveries != 1 or 3 in pids:
+        raise AssertionError(f"chaos cg: {chaos.outcome}, recoveries "
+                             f"{chaos.recoveries}, ranks {pids}")
+    if counts["all_gather"] + counts["all_to_all"] == 0 or not moved:
+        raise AssertionError("the shrink ran no copy kernel")
+    if not all("intra_bytes" in m and "cross_bytes" in m for m in moved):
+        raise AssertionError("a reshard span lacks intra/cross bytes")
+    truec = true_residual(tdat, opc, chaos.x, bc)
+    check("chaos cg residual by the plain step against the solver's",
+          abs(truec - chaos.residual / float(tdat.dnorm(bc))), TOL_TRUE_RES)
+    # both solves meet the tolerance: the difference of the two answers
+    # is within what that residual allows (||A^-1|| ||r||)
+    check("chaos cg answer against the fault-free one",
+          rel_err(chaos.x.full().to(x_free.device), x_free), TOL_CHAOS)
+    out["chaos"] = {"iterations": chaos.iterations,
+                    "fault_free_iterations": free.iterations,
+                    "recoveries": chaos.recoveries,
+                    "ranks_after": pids,
+                    "shrink_strategies": [m["strategy"] for m in moved]}
+    out["launches"]["chaos"] = counts
+    # K2 on the survivors' blocks, bit for bit against the plain step
+    errs["stencil_step"] = max(errs["stencil_step"], exact(
+        f"chaos {nc}^2 on ranks {pids}: one apply on K2 against the plain "
+        "step", opx.apply(chaos.x).full(), S.StencilOperator(
+            (nc, nc), procs=pids, use_kernel=False).apply(chaos.x).full()))
+    chaos.x.close()
+    bc.close()
+    faults.clear()
+    elastic.manager().reset()
+    out["small"] = small_solves(tdat, S)
+    out["launches"]["small"] = {
+        k: sum(r["launches"].get(k, 0) for r in out["small"].values())
+        for k in kbuild.KERNELS}
+
+    # -- divergence checking on the card -------------------------------------
+    os.environ["DA_TPU_CHECK_DIVERGENCE"] = "1"
+    try:
+        def agree():
+            me = tdat.myid()
+            t = torch.full((4,), float(me), device=tdat.device_of(me))
+            tdat.barrier()
+            g = tdat.gather_spmd(t, 0)
+            return None if g is None else float(torch.stack(g).sum())
+
+        def diverge():
+            if tdat.myid() == 2:
+                tdat.bcast(None, 0)
+            else:
+                tdat.barrier()
+        got = tdat.spmd(agree, pids=[0, 1, 2, 3])
+        if got[0] != 4.0 * (0 + 1 + 2 + 3):
+            raise AssertionError(f"checked spmd program gave {got}")
+        try:
+            tdat.spmd(diverge, pids=[0, 1, 2, 3], timeout=60)
+        except divergence.CollectiveDivergenceError as e:
+            print(f"  divergent program: {str(e).splitlines()[0]}")
+        else:
+            raise AssertionError("the divergent program was not caught")
+    finally:
+        del os.environ["DA_TPU_CHECK_DIVERGENCE"]
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  solvers {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"solvers": out}))
+    return out
+
+
+def solvers_only() -> int:
+    """``--solvers``: build the GEMM, stencil and collective kernels and
+    run the solvers phase alone (``solvers_phase``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.utils import kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    kbuild.build(["gemm", "stencil", "collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    errs = {k: 0.0 for k in kbuild.KERNELS}
+    res = solvers_phase(tdat, errs)
+    print(json.dumps({"solvers_launches": res["launches"], "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def sequence_parallel(tdat) -> dict:
     """Phase 6c: 4 ranks on the one card, S = 8192, 16 heads of 64, bf16,
     causal: ``ring_attention`` (K9), ``ring_flash_attention`` (K8),
@@ -3612,6 +3999,7 @@ def main() -> int:
     counts_surface = reference_surface(tdat, cuda_collectives)
     counts_reshard = reshard_spmd(tdat)
     sfc = sort_fft_conv(tdat, cuda_collectives)
+    slv = solvers_phase(tdat, errs)
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
@@ -3803,6 +4191,9 @@ def main() -> int:
         if name == "all_to_all":
             kern["sort_fft_conv_launches"] = sum(sfc["k11"].values())
             kern["complex64"] = sfc["k11_complex64"]
+        if name in ("gemm", "stencil_step", "all_gather", "all_to_all"):
+            kern["solvers_launches"] = {
+                k: v[name] for k, v in slv["launches"].items()}
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3940,6 +4331,7 @@ if __name__ == "__main__":
              else surface_only() if sys.argv[1:] == ["--surface"]
              else reshard_spmd_only() if sys.argv[1:] == ["--reshard-spmd"]
              else sort_fft_conv_only() if sys.argv[1:] == ["--sort-fft-conv"]
+             else solvers_only() if sys.argv[1:] == ["--solvers"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

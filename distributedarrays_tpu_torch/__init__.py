@@ -40,6 +40,13 @@ names::
     step = SP.make_train_step([0, 1, 2, 3], scfg)
     shards, loss = step(shards, tokens_1x8192, 0.3)  # K8/K6/K7, K13/K14/K15
 
+    S = tdat.solvers                          # Krylov + multigrid
+    op = S.StencilOperator((1024, 1024))      # K2 a rank an apply
+    res = S.cg(op, b, tol=1e-6, M=S.Multigrid(op))   # res.x, res.iterations
+    with tdat.telemetry.span("phase"):        # counters, spans, journal
+        ...
+    print(tdat.telemetry.report())
+
     tdat.init(nranks=4)                       # data-parallel training
     task = tdat.train.transformer_task(vocab=8192, dim=1024, heads=16,
                                        layers=8, seq=2048, batch_size=8)
@@ -61,7 +68,7 @@ from .darray import (DArray, DData, SubDArray, SubOrDArray, copyto_, darray,
                      dfromfunction, distribute, dones, drand, drandint,
                      drandn, dsample, dzeros, from_chunks, gather, isassigned,
                      localindices, localpart, locate, makelocal, seed)
-from . import parallel, resilience
+from . import analysis, parallel, resilience, telemetry
 from .parallel import collectives, reshard, spmd_mode
 from .parallel.collectives import (axis_rank, axis_size, halo_exchange,
                                    halo_exchange_2d, pall_to_all, pbarrier,
@@ -102,7 +109,7 @@ from .models.ulysses import ulysses_attention
 from .interop import (from_reference, params_from_reference,
                       params_to_reference, to_reference)
 from .utils import autotune, kbuild
-from . import train
+from . import solvers, train
 from .train import Trainer
 
 __all__ = [
@@ -122,7 +129,8 @@ __all__ = [
     "spmd", "spmd_async", "sendto", "recvfrom", "recvfrom_any", "barrier",
     "bcast", "scatter", "gather_spmd", "context", "context_local_storage",
     "myid", "nprocs", "SPMDContext", "close_context",
-    "parallel", "resilience", "reshard", "spmd_mode",
+    "parallel", "resilience", "reshard", "spmd_mode", "telemetry",
+    "analysis", "solvers",
     "elementwise", "dmap", "dmap_into", "broadcasted", "djit",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
     "dmean", "dvar", "dstd", "dall", "dany", "dcount", "dextrema",

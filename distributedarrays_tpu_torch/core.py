@@ -13,6 +13,8 @@ import itertools
 import threading
 import weakref
 
+from .telemetry import flight as _flight
+
 __all__ = ["next_did", "d_closeall", "close", "registry", "live_ids",
            "live_arrays", "procs", "current_rank", "allowscalar"]
 
@@ -66,6 +68,25 @@ def current_rank() -> int:
     """The calling rank (JAX ``core.py:38``, the reference's ``myid()``):
     the task's rank inside ``spmd(f, ...)``, 0 on the controller."""
     return getattr(_rank_tls, "rank", 0)
+
+
+def _registry_census() -> dict:
+    """The live registry for flight-recorder bundles: how many arrays were
+    open at crash time, and which (JAX ``core.py:132``)."""
+    snap = registry()
+    items = []
+    for did in sorted(snap):
+        d = snap[did]()
+        if d is None:
+            continue
+        items.append({"id": list(did), "type": type(d).__name__,
+                      "dims": [int(x) for x in getattr(d, "dims", ()) or ()],
+                      "closed": bool(getattr(d, "_closed", False))})
+    return {"live": len(items), "arrays": items[:200]}
+
+
+# telemetry imports nothing of the package: the census is handed to it
+_flight.register_census_provider(_registry_census)
 
 
 def procs(d):

@@ -562,7 +562,7 @@ def samedist(d: DArray, like: DArray) -> DArray:
     (JAX shares the buffer there, which only immutable arrays allow)."""
     if d.dims != like.dims:
         raise ValueError(f"dims mismatch: {d.dims} vs {like.dims}")
-    return relayout(d, like.pids, like.cuts)
+    return relayout(d, like.pids, like.cuts, op="samedist")
 
 
 def _slices(f: Callable, x: torch.Tensor, batch: tuple, dims: tuple):

@@ -54,13 +54,28 @@ hits, misses and size.
 
 A planned collective runs its kernel on the card or raises: JAX's fallback
 from a failed lowering to ``device_put`` (``reshard.py:1172-1182``) and its
-``DA_TPU_RDMA`` switch have no counterpart.  Left out with the telemetry
-core: the ``reshard`` span, the journal events, the fallback counters and
-the ``reshard.chunk`` fault site.
+``DA_TPU_RDMA`` switch have no counterpart.
+
+**Telemetry and faults** (JAX ``reshard.py:638-642``, ``:776``,
+``:1116-1190``): every move of ``relayout_parts`` and ``allgather`` runs in
+a ``reshard`` span labeled with ``op``, the strategy, shape, dtype,
+``src_dim``/``dst_dim``, ``nparts``, ``nsteps``, the plan's
+``intra_bytes``/``cross_bytes`` and ``perf.reshard_cost``; a collective
+plan passes the ``reshard.chunk`` fault site before any byte moves;
+``record_comm("reshard", moved_bytes)`` accounts each move; a
+``device_put`` plan that moves bytes counts
+``reshard.collective_fallbacks{reason}``.  ``plan_reshard`` and
+``plan_allgather`` count ``reshard.plan_requests``, a cache miss
+``reshard.plan_builds`` and one ``reshard``/``plan`` journal event.  The
+JAX span's dispatch labels (``dispatch``, ``rdma_chunks``, the autotune
+and dispatch keys) name its XLA/RDMA choice, which the port does not
+have; nor do its ``jit.builds`` counters of XLA program builds, or the
+staging gauge of its memory ledger.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -71,10 +86,13 @@ import numpy as np
 import torch
 
 from .. import layout as L
+from .. import telemetry as _tm
 from ..darray import DArray
 from ..ops.cuda_collectives import (chain_step, ring_all_gather,
                                     ring_all_to_all)
 from ..resilience import domains as _dom
+from ..resilience import faults as _fl
+from ..telemetry import perf as _perf
 
 __all__ = ["ReshardPlan", "plan_reshard", "reshard", "relayout",
            "relayout_parts", "relayout_plain", "plan_allgather", "allgather",
@@ -730,11 +748,19 @@ def _plan_cached(shape, itemsize, src_key, dst_key, chunk_target,
     ``intra_bytes``/``cross_bytes`` read the topology, which the JAX cache
     leaves out (ROADMAP C6)."""
     del topology_key
+    # the miss body: once per distinct layout pair
+    _tm.count("reshard.plan_builds")
     src = ([list(c) for c in src_key[0]], dict(src_key[1]))
     dst = ([list(c) for c in dst_key[0]], dict(dst_key[1]))
-    return dataclasses.replace(
+    plan = dataclasses.replace(
         _build_plan(shape, itemsize, src, dst, chunk_target),
         regions=_regions(src[0], dst[0]))
+    if _tm.enabled():
+        _tm.event("reshard", "plan", strategy=plan.strategy,
+                  shape=list(shape), moved_bytes=plan.moved_bytes,
+                  total_bytes=plan.total_bytes, nparts=plan.nparts,
+                  nchunks=plan.nchunks, reason=plan.reason)
+    return plan
 
 
 def _plan(shape, itemsize, src, dst) -> ReshardPlan:
@@ -758,6 +784,7 @@ def plan_reshard(d: DArray, pids, cuts) -> ReshardPlan:
     """Plan moving ``d`` onto the layout ``(pids, cuts)`` (JAX
     ``reshard.py:754``); cached, and nothing moves."""
     d._check_open()
+    _tm.count("reshard.plan_requests")
     return _plan(d.dims, _itemsize(d), layout_of(d.pids, d.cuts),
                  layout_of(pids, cuts))
 
@@ -905,19 +932,52 @@ def _check_sources(plan: ReshardPlan, d: DArray) -> list[torch.Tensor]:
     return out
 
 
+@contextlib.contextmanager
+def _moving(d: DArray, plan: ReshardPlan, op: str):
+    """The ``reshard`` span around one planned move, the ``reshard.chunk``
+    fault site of a collective plan (before any byte moves, so the source
+    is intact for a retry), and the move's accounting (JAX
+    ``reshard.py:1116-1190``)."""
+    with _tm.span("reshard", op=op, strategy=plan.strategy,
+                  shape=list(plan.shape),
+                  dtype=str(d.dtype).removeprefix("torch."),
+                  src_dim=plan.src_dim, dst_dim=plan.dst_dim,
+                  nparts=plan.nparts, nsteps=len(plan.steps),
+                  intra_bytes=plan.intra_bytes, cross_bytes=plan.cross_bytes,
+                  **_perf.reshard_cost(plan.total_bytes, plan.moved_bytes)):
+        if plan.collective:
+            _fl.check("reshard.chunk", strategy=plan.strategy, op=op)
+        elif plan.strategy == "device_put" and plan.moved_bytes:
+            _tm.count("reshard.collective_fallbacks",
+                      reason=_fallback_reason(plan.reason))
+        yield
+        if _tm.enabled():
+            _tm.record_comm("reshard", plan.moved_bytes, op=op,
+                            strategy=(plan.strategy if plan.collective
+                                      else "device_put"),
+                            shape=list(plan.shape))
+
+
 def relayout_parts(d: DArray, pids, cuts, *,
-                   plan: ReshardPlan | None = None) -> np.ndarray:
+                   plan: ReshardPlan | None = None,
+                   op: str = "reshard") -> np.ndarray:
     """``d``'s cells on the layout ``(pids, cuts)``.  Returns ``d``'s own
     tensors when the layouts already agree (callers only read them), runs
     the all-to-all kernel for an ``all_to_all`` plan and the chain's steps
     (``chain_step``) for a ``chain`` plan, padded or not; a ``device_put``
-    plan is copied region by region (``relayout_plain``)."""
+    plan is copied region by region (``relayout_plain``).  ``op`` names
+    the caller in the ``reshard`` span and the comm record."""
     d._check_open()
     pids = np.asarray(pids)
     if same_layout(d, pids, cuts):
         return d._parts
     if plan is None:
         plan = plan_reshard(d, pids, cuts)
+    with _moving(d, plan, op):
+        return _lower(d, pids, cuts, plan)
+
+
+def _lower(d: DArray, pids: np.ndarray, cuts, plan: ReshardPlan):
     parts = np.empty(tuple(pids.shape), dtype=object)
     if plan.strategy == "all_to_all":
         i, j, p = plan.src_dim, plan.dst_dim, plan.nparts
@@ -935,7 +995,7 @@ def relayout_parts(d: DArray, pids, cuts, *,
     return relayout_plain(d, pids, cuts)
 
 
-def reshard(d: DArray, pids, cuts, *,
+def reshard(d: DArray, pids, cuts, *, op: str = "reshard",
             plan: ReshardPlan | None = None) -> DArray:
     """Move ``d`` onto the layout ``(pids, cuts)`` by the planned strategy
     (JAX ``reshard.py:1048``): ``d`` itself for a ``noop`` plan, else a new
@@ -945,16 +1005,16 @@ def reshard(d: DArray, pids, cuts, *,
         plan = plan_reshard(d, pids, cuts)
     if plan.strategy == "noop":
         return d
-    return DArray(relayout_parts(d, pids, cuts, plan=plan), pids,
+    return DArray(relayout_parts(d, pids, cuts, plan=plan, op=op), pids,
                   [list(c) for c in cuts])
 
 
-def relayout(d: DArray, pids, cuts) -> DArray:
+def relayout(d: DArray, pids, cuts, *, op: str = "reshard") -> DArray:
     """A new DArray holding ``d``'s values on the layout ``(pids, cuts)``
     (a copy even when the layouts agree)."""
     if same_layout(d, pids, cuts):
         return d.copy()
-    return reshard(d, pids, cuts)
+    return reshard(d, pids, cuts, op=op)
 
 
 # ---------------------------------------------------------------------------
@@ -984,6 +1044,7 @@ def plan_allgather(d: DArray, ranks) -> ReshardPlan:
     ranks = [int(r) for r in ranks]
     if len(set(ranks)) != len(ranks):
         raise ValueError(f"allgather ranks repeat: {ranks}")
+    _tm.count("reshard.plan_requests")
     src = layout_of(d.pids, d.cuts)
     plan = _plan(d.dims, _itemsize(d), src, _replicated(d, ranks))
     sharded = [k for k, g in enumerate(d.grid) if g > 1]
@@ -1004,17 +1065,25 @@ def plan_allgather(d: DArray, ranks) -> ReshardPlan:
     return plan
 
 
-def allgather(d: DArray, ranks=None) -> list[torch.Tensor]:
+def allgather(d: DArray, ranks=None, *,
+              op: str = "allgather") -> list[torch.Tensor]:
     """The whole of ``d`` on each rank of ``ranks`` (default: ``d``'s own
     ranks, row-major), one tensor per rank on its device, in the order of
     ``ranks``: the all-gather kernel for an ``all_gather`` plan, the
     chain's steps for ``chain`` and ``gather_put`` (the last step writes
-    only the ranks asked for), else assembled region by region."""
+    only the ranks asked for), else assembled region by region.  Moves run
+    in a ``reshard`` span named by ``op``, as JAX's gathers (a reshard
+    onto a replicated layout) do."""
     ranks = ([int(p) for p in d.pids.flat] if ranks is None
              else [int(r) for r in ranks])
     plan = plan_allgather(d, ranks)
     if plan.strategy == "noop":
         return [d.part(next(iter(d.cells()))).clone()]
+    with _moving(d, plan, op):
+        return _gather(d, ranks, plan)
+
+
+def _gather(d: DArray, ranks: list, plan: ReshardPlan) -> list:
     if plan.strategy == "all_gather":
         dim = plan.src_dim
         outs = ring_all_gather([d.part(_cell(d.ndim, dim, k))

@@ -27,10 +27,13 @@ a write by the sender after the send, or by one receiver of a ``bcast``,
 never shows at another rank.  DArrays and other objects are passed by
 reference, as in the JAX package.
 
-Left out with the telemetry and resilience cores (ROADMAP queue A, item 7):
-the JAX module's spans, counters, journal events and flight-recorder
-bundles (``_tm.*``), the collective-divergence checker (``_dv.*``) and the
-``spmd.rank``/``spmd.collective`` fault sites (``_fl.check``).
+Telemetry, divergence checking and fault sites as in JAX: the ``spmd.run``
+trace, the per-rank ``spmd.step`` span and the aggregate-only
+``spmd.mailbox.drain`` span, the ``spmd.runs``/``spmd.recv``/
+``spmd.barrier`` counters, ``record_comm("spmd_send")`` per send, one
+flight-recorder bundle per failed run, the collective-divergence checker
+(``DA_TPU_CHECK_DIVERGENCE=1``, thread backend) and the ``spmd.rank`` /
+``spmd.collective`` fault sites.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ import torch
 
 from .. import core
 from .. import layout as L
+from .. import telemetry as _tm
+from ..analysis import divergence as _dv
+from ..resilience import faults as _fl
 
 __all__ = [
     "spmd", "spmd_async", "sendto", "recvfrom", "recvfrom_any", "barrier",
@@ -66,6 +72,16 @@ def _default_timeout() -> float:
 
 
 _PEER_ABORT = "SPMD peer task failed; aborting receive"
+
+
+def _record_crash(exc) -> None:
+    """One flight-recorder bundle for a failed run (JAX
+    ``spmd_mode.py:65``); the recorder never masks the real error."""
+    if _tm.enabled():
+        try:
+            _tm.flight.record_crash(exc, where="spmd")
+        except Exception:
+            pass
 
 
 def _copied(data: Any) -> Any:
@@ -137,18 +153,21 @@ class _Mailbox:
 
     def take(self, match: Callable[[tuple], bool], failed: threading.Event,
              timeout: float, tag: Any = None):
-        deadline = time.monotonic() + timeout
-        with self._cond:
-            while True:
-                m = _scan_stash(self._msgs, match)
-                if m is not None:
-                    return m
-                if failed.is_set():
-                    raise RuntimeError(_PEER_ABORT)
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    raise _receive_timeout(timeout, self._msgs, tag)
-                self._cond.wait(min(remaining, 0.1))
+        # the blocked time, aggregate-only: a chatty ring would flood the
+        # journal
+        with _tm.span("spmd.mailbox.drain", _journal=False):
+            deadline = time.monotonic() + timeout
+            with self._cond:
+                while True:
+                    m = _scan_stash(self._msgs, match)
+                    if m is not None:
+                        return m
+                    if failed.is_set():
+                        raise RuntimeError(_PEER_ABORT)
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise _receive_timeout(timeout, self._msgs, tag)
+                    self._cond.wait(min(remaining, 0.1))
 
 
 class SPMDContext:
@@ -164,6 +183,8 @@ class SPMDContext:
         self._barrier_gen: dict[int, int] = {p: 0 for p in self.pids}
         self._failed = threading.Event()
         self._proc_state = None   # the process backend's leftover messages
+        # the run's divergence checker, set and cleared by spmd()
+        self._divergence = None
 
     def mailbox(self, pid: int) -> _Mailbox:
         try:
@@ -246,6 +267,10 @@ def sendto(pid: int, data: Any, tag: Any = None):
     """Send ``data`` to rank ``pid`` without waiting; tensors and arrays
     are copied at the send (JAX ``spmd_mode.py:252``)."""
     ctx, rank = _current()
+    if _tm.enabled():
+        _tm.record_comm("spmd_send", _tm.nbytes_of(data), op="sendto",
+                        once_key=f"spmd_send:{rank}->{pid}",
+                        src=rank, dst=pid)
     ctx.mailbox(pid).put(("sendto", rank, _copied(data), tag))
 
 
@@ -258,6 +283,7 @@ def recvfrom(pid: int, tag: Any = None, timeout: float | None = None):
     m = ctx.mailbox(rank).take(
         lambda m: m[0] == "sendto" and m[1] == pid and m[3] == tag,
         ctx._failed, timeout, tag=tag)
+    _tm.count("spmd.recv")
     return m[2]
 
 
@@ -270,6 +296,7 @@ def recvfrom_any(tag: Any = None, timeout: float | None = None):
     m = ctx.mailbox(rank).take(
         lambda m: m[0] == "sendto" and m[3] == tag, ctx._failed, timeout,
         tag=tag)
+    _tm.count("spmd.recv")
     return m[1], m[2]
 
 
@@ -278,10 +305,22 @@ def recvfrom_any(tag: Any = None, timeout: float | None = None):
 # ---------------------------------------------------------------------------
 
 
+def _dv_note(ctx, rank: int, op: str, detail: str) -> None:
+    """Record a collective with the run's divergence checker, if any (JAX
+    ``spmd_mode.py:297``); raises ``CollectiveDivergenceError`` in the
+    issuing rank on a mismatch."""
+    ck = getattr(ctx, "_divergence", None)
+    if ck is not None:
+        ck.record(rank, op, detail)
+
+
 def barrier(tag: Any = None, timeout: float | None = None):
     """Every rank waits for all; per-rank generation counters keep two
     barriers in a row apart (JAX ``spmd_mode.py:311``)."""
     ctx, rank = _current()
+    _fl.check("spmd.collective", op="barrier", rank=rank)
+    _dv_note(ctx, rank, "barrier", f"tag={tag!r}")
+    _tm.count("spmd.barrier")
     if timeout is None:
         timeout = _default_timeout()
     gen = ctx._barrier_gen[rank]
@@ -306,10 +345,18 @@ def bcast(data: Any, root: int, tag: Any = None,
     ``spmd_mode.py:336``)."""
     ctx, rank = _current()
     _check_root(ctx, root)
+    _fl.check("spmd.collective", op="bcast", rank=rank)
     if timeout is None:
         timeout = _default_timeout()
+    # no payload signature: only root's data takes part
+    _dv_note(ctx, rank, "bcast", f"root={root}, tag={tag!r}")
     btag = ("bcast", tag)
     if rank == root:
+        if _tm.enabled():
+            _tm.record_comm("spmd_send",
+                            _tm.nbytes_of(data) * (len(ctx.pids) - 1),
+                            op="bcast", once_key=f"spmd_send:bcast:{root}",
+                            src=root)
         for p in ctx.pids:
             if p != root:
                 ctx.mailbox(p).put(("sendto", root, _copied(data), btag))
@@ -325,8 +372,10 @@ def scatter(x, root: int, tag: Any = None, timeout: float | None = None):
     divide (JAX ``spmd_mode.py:365``)."""
     ctx, rank = _current()
     _check_root(ctx, root)
+    _fl.check("spmd.collective", op="scatter", rank=rank)
     if timeout is None:
         timeout = _default_timeout()
+    _dv_note(ctx, rank, "scatter", f"root={root}, tag={tag!r}")
     stag = ("scatter", tag)
     if rank == root:
         n = len(x)
@@ -334,6 +383,9 @@ def scatter(x, root: int, tag: Any = None, timeout: float | None = None):
             raise ValueError(
                 f"scatter: length {n} not divisible by {len(ctx.pids)} ranks")
         per = n // len(ctx.pids)
+        if _tm.enabled():
+            _tm.record_comm("spmd_send", _tm.nbytes_of(x), op="scatter",
+                            once_key=f"spmd_send:scatter:{root}", src=root)
         mine = None
         for i, p in enumerate(ctx.pids):
             part = x[i * per:(i + 1) * per]
@@ -354,10 +406,18 @@ def gather_spmd(x, root: int, tag: Any = None,
     ``spmd_mode.py:399``)."""
     ctx, rank = _current()
     _check_root(ctx, root)
+    _fl.check("spmd.collective", op="gather_spmd", rank=rank)
     if timeout is None:
         timeout = _default_timeout()
+    _dv_note(ctx, rank, "gather_spmd",
+             f"root={root}, tag={tag!r}, "
+             f"payload={_dv.payload_signature(x)}")
     gtag = ("gather", tag)
     if rank != root:
+        if _tm.enabled():
+            _tm.record_comm("spmd_send", _tm.nbytes_of(x), op="gather",
+                            once_key=f"spmd_send:gather:{rank}->{root}",
+                            src=rank, dst=root)
         ctx.mailbox(root).put(("sendto", rank, _copied(x), gtag))
         return None
     out = {rank: x}
@@ -376,6 +436,7 @@ def gather_spmd(x, root: int, tag: Any = None,
 # ---------------------------------------------------------------------------
 
 
+@_tm.traced(name="spmd.run")
 def spmd(f: Callable, *args, pids: Sequence[int] | None = None,
          context: SPMDContext | None = None, timeout: float = 300.0,
          backend: str = "thread"):
@@ -391,11 +452,35 @@ def spmd(f: Callable, *args, pids: Sequence[int] | None = None,
     ctx = SPMDContext(pids) if implicit else context
     if pids is not None and not implicit and list(pids) != ctx.pids:
         raise ValueError("pids disagree with explicit context's pids")
+    _tm.count("spmd.runs", backend=backend)
+    if _tm.enabled():
+        _tm.annotate(backend=backend, ranks=len(ctx.pids))
+        _tm.event("spmd", "run", backend=backend, ranks=len(ctx.pids),
+                  once_key=f"spmd:run:{backend}:{len(ctx.pids)}")
+    checker = None
+    if _dv.checking():
+        if backend == "thread":
+            checker = _dv.DivergenceChecker(ctx.pids,
+                                            on_mismatch=ctx._failed.set)
+        else:
+            # the process backend is not instrumented: say so once
+            _tm.count("analysis.divergence_unchecked", backend=backend)
+            if _tm.enabled():
+                _tm.event("divergence", "unchecked_backend",
+                          backend=backend, ranks=len(ctx.pids),
+                          once_key=f"divergence:unchecked:{backend}")
+            from ..utils.debug import warn_once
+            warn_once("divergence:process-backend",
+                      "DA_TPU_CHECK_DIVERGENCE is set but the process "
+                      "backend is not instrumented; collective-divergence "
+                      "checking only covers backend='thread'")
+    ctx._divergence = checker
     if backend == "process":
         from .spmd_process import run_spmd_process
         try:
             res = run_spmd_process(f, args, ctx, timeout)
-        except BaseException:
+        except BaseException as e:
+            _record_crash(e)
             if not implicit:
                 ctx._reset_comm()
             raise
@@ -408,11 +493,12 @@ def spmd(f: Callable, *args, pids: Sequence[int] | None = None,
                          "(expected 'thread' or 'process')")
     dirty = False
     try:
-        results = _fanout_thread_ranks(ctx, f, args, timeout)
+        results = _fanout_thread_ranks(ctx, f, args, timeout, checker)
     except BaseException:
         dirty = True
         raise
     finally:
+        ctx._divergence = None
         if implicit:
             ctx.close()
         elif dirty:
@@ -431,21 +517,33 @@ def _rank_device(rank: int):
 
 
 def _fanout_thread_ranks(ctx: SPMDContext, f: Callable, args: tuple,
-                         timeout: float) -> dict[int, Any]:
+                         timeout: float, checker=None) -> dict[int, Any]:
     """One daemon thread per rank, one deadline for the run, peer aborts,
-    and the root cause raised before secondary failures (JAX
-    ``spmd_mode.py:520``)."""
+    and the root cause raised before secondary failures, after one
+    flight-recorder bundle (JAX ``spmd_mode.py:520``)."""
     results: dict[int, Any] = {}
     errors: dict[int, BaseException] = {}
     devices = {p: _rank_device(p) for p in ctx.pids}
+    # contextvars do not cross thread starts: rebind the caller's trace
+    # ids in each rank task
+    trace_ids = _tm.current_trace_ids()
 
     def run(rank: int):
         core._rank_tls.rank = rank
         _tls.ctxt = ctx
+        if trace_ids:
+            _tm.tracing.bind_trace_ids(trace_ids)
         try:
             if devices[rank] is not None:
                 torch.cuda.set_device(devices[rank])
-            results[rank] = f(*args)
+            _fl.check("spmd.rank", rank=rank, backend="thread")
+            # a fresh thread has no parent span: each rank's step is a root
+            with _tm.span("spmd.step", rank=rank):
+                results[rank] = f(*args)
+            if checker is not None:
+                # peers inside a collective past this rank's last can never
+                # be matched: fail them now
+                checker.finish(rank)
         except BaseException as e:  # noqa: BLE001 - raised by spmd()
             errors[rank] = e
             ctx._failed.set()
@@ -464,16 +562,33 @@ def _fanout_thread_ranks(ctx: SPMDContext, f: Callable, args: tuple,
             ctx._failed.set()
             for t2 in threads:
                 t2.join(5)
-            raise TimeoutError(
+            err = TimeoutError(
                 f"spmd task {t.name} did not finish in {timeout}s")
+            _record_crash(err)
+            raise err
     if errors:
+        def _secondary(e):
+            # consequences, not causes: peer aborts, receive timeouts and
+            # the divergence error itself
+            return ((isinstance(e, RuntimeError)
+                     and "peer task failed" in str(e))
+                    or isinstance(e, (TimeoutError,
+                                      _dv.CollectiveDivergenceError)))
+        if (checker is not None and checker.error is not None
+                and all(_secondary(e) for e in errors.values())):
+            # the divergence is the root cause: raise it unwrapped
+            _record_crash(checker.error)
+            raise checker.error
         primary = [(r, e) for r, e in sorted(errors.items())
                    if not (isinstance(e, RuntimeError)
                            and "peer task failed" in str(e))]
         rank, err = primary[0] if primary else sorted(errors.items())[0]
+        _record_crash(err)
         raise RuntimeError(
             f"spmd task on rank {rank} failed ({len(errors)} total failures)"
         ) from err
+    if checker is not None:
+        checker.verify()   # the backstop: identical sequences end to end
     return results
 
 

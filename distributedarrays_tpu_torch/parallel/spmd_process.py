@@ -21,8 +21,11 @@ Host-side work only.  A forked child cannot use a CUDA context that its
 parent has created, so a rank must not touch CUDA tensors or launch on the
 card; where the parent has initialised CUDA, a DArray or tensor argument
 on a CUDA device raises ``RuntimeError`` before the fork.  Requires the
-``fork`` start method (POSIX).  Left out with the telemetry and resilience
-cores: the JAX module's span records, counters and fault decisions.
+``fork`` start method (POSIX).  As in JAX, the ``spmd.rank`` fault
+decisions are made in the parent (so a plan's counters outlive the
+children) and acted on in each child, and each child measures its step
+and sends it home, where the parent records it as a rank-labeled
+``spmd.step`` span.
 """
 
 from __future__ import annotations
@@ -131,13 +134,22 @@ def run_spmd_process(f: Callable, args: tuple, ctx, timeout: float):
     failed = mpctx.Event()
 
     from .. import core
+    from .. import telemetry as _tm
+    from ..resilience import faults as _fl
+    from ..telemetry import core as _tc
     from . import spmd_mode
+
+    # decided here in the parent, in pid order, so the plan's counters
+    # persist across runs; only the action runs in the child
+    dooms = {p: _fl.decide("spmd.rank", rank=p, backend="process")
+             for p in ctx.pids} if _fl.active() else {}
 
     def child(rank: int):
         rctx = _RunContext(ctx.id, ctx.pids, queues, ctx.store, failed,
                            list(leftover[rank]))
         core._rank_tls.rank = rank
         spmd_mode._tls.ctxt = rctx
+        os.environ["DA_TPU_FAULT_CHILD"] = "1"   # arms the "exit" action
         import signal
 
         def _on_sigterm(signum, frame):
@@ -150,10 +162,17 @@ def run_spmd_process(f: Callable, args: tuple, ctx, timeout: float):
         except (ValueError, OSError):  # pragma: no cover
             pass
         try:
+            # the step, timed against the fork-inherited telemetry origin
+            step_t0 = time.monotonic()
+            span_rec = {"start": step_t0 - _tc._T0, "dur": 0.0, "ok": True}
             try:
+                _fl.act(dooms.get(rank), {"rank": rank, "backend": "process"})
                 r = f(*args)
+                span_rec["dur"] = time.monotonic() - step_t0
                 status = (rank, "ok", r, rctx.store.get(rank, {}))
             except BaseException as e:  # noqa: BLE001 - sent to the parent
+                span_rec["dur"] = time.monotonic() - step_t0
+                span_rec["ok"] = False
                 failed.set()
                 secondary = (isinstance(e, RuntimeError)
                              and str(e) == spmd_mode._PEER_ABORT)
@@ -168,7 +187,7 @@ def run_spmd_process(f: Callable, args: tuple, ctx, timeout: float):
                     rctx._stash.append(queues[rank].get_nowait())
             except queue_mod.Empty:
                 pass
-            result_q.put(status + (rctx._stash,))
+            result_q.put(status + (rctx._stash, span_rec))
         finally:
             # flush every queue this child wrote before the hard exit
             for q in list(queues.values()) + [result_q]:
@@ -244,8 +263,8 @@ def run_spmd_process(f: Callable, args: tuple, ctx, timeout: float):
                     f"spmd process run did not finish in {timeout}s "
                     f"(completed ranks: {sorted(results)})")
             try:
-                rank, status, payload, store, stash = result_q.get(
-                    timeout=min(remaining, 0.2))
+                (rank, status, payload, store, stash,
+                 span_rec) = result_q.get(timeout=min(remaining, 0.2))
             except queue_mod.Empty:
                 drain(set(results) | set(errors))
                 dead = [p for p, pr in zip(ctx.pids, procs)
@@ -259,6 +278,13 @@ def run_spmd_process(f: Callable, args: tuple, ctx, timeout: float):
                         "child crashed)")
                 continue
             leftover[rank] = list(stash)
+            if _tm.enabled() and isinstance(span_rec, dict):
+                _tm.record_external_span(
+                    "spmd.step", span_rec.get("start", 0.0),
+                    span_rec.get("dur", 0.0),
+                    labels={"rank": rank, "backend": "process"},
+                    tname=f"spmd-{rank}",
+                    error=not span_rec.get("ok", True))
             if status == "ok":
                 results[rank] = payload
                 stores[rank] = store
@@ -284,6 +310,14 @@ def run_spmd_process(f: Callable, args: tuple, ctx, timeout: float):
             q.cancel_join_thread()
         for rank, st in stores.items():
             ctx.store[rank] = st
+
+    if _tm.enabled():
+        _tm.event("spmd", "process_run", ranks=len(ctx.pids),
+                  ok=len(results), failed=len(errors),
+                  once_key=f"spmd:process_run:{len(ctx.pids)}")
+        _tm.record_comm("spmd_process_result",
+                        sum(_tm.nbytes_of(v) for v in results.values()),
+                        op="run_spmd_process", journal=False)
 
     if errors:
         primary = [(r, t) for r, (sec, t) in sorted(errors.items())

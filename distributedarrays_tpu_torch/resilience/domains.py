@@ -16,8 +16,7 @@ another domain.
 
 ``DA_TPU_DOMAINS`` takes comma-separated group sizes (``"5,3"`` gives
 ranks 0-4 | 5-7) or a JSON list of rank groups (``"[[0,2],[1,3]]"``).
-The JAX module's journal event on ``configure`` is left out with the rest
-of the telemetry core.
+``configure`` journals a ``domains``/``configure`` event as in JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ import os
 import threading
 
 from .. import layout as L
+from .. import telemetry as _tm
 
 __all__ = ["DomainTopology", "topology", "configure", "reset",
            "domain_of", "domains", "buddy_map", "is_cross_domain",
@@ -140,6 +140,12 @@ def configure(groups) -> DomainTopology:
         else DomainTopology(groups)
     with _lock:
         _topo = topo
+    if _tm.enabled():
+        # cold path: the group sizes make the event a distinctive anchor
+        # for merging the journals of several hosts
+        _tm.event("domains", "configure", domains=len(topo.domains()),
+                  ranks=len(topo.ranks()),
+                  sizes=[len(g) for g in topo.domains().values()])
     return topo
 
 
@@ -166,11 +172,11 @@ def buddy_map(live_ranks=None, topo: DomainTopology | None = None) -> dict:
     its owner, round-robin over the other domains' live ranks.  With one
     live domain it is the next live rank in ring order, and a lone rank
     buddies itself.  Ranks outside the topology buddy within the uncovered
-    set.  ``live_ranks=None`` means every rank of the table (the port has
-    no elastic manager, which JAX asks here)."""
+    set.  ``live_ranks=None`` asks the elastic manager."""
     topo = topo or topology()
     if live_ranks is None:
-        live_ranks = L.all_ranks()
+        from . import elastic as _el
+        live_ranks = _el.manager().live_ranks()
     live = sorted({int(r) for r in live_ranks})
     if not live:
         return {}

@@ -8,6 +8,10 @@ not read, so the fixture closes what each test made and checks that the
 port's registry is empty afterwards.
 """
 
+import collections
+import copy
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +30,90 @@ def port_ranks():
     tdat.autotune.clear()
     tdat.d_closeall()
     assert tdat.live_ids() == []
+
+
+# the JAX package's process-wide state that a port test can touch through
+# the JAX calls it compares against: warn-once keys, the fault plan, the
+# telemetry registry, spans, flight bundles, the memory ledger's peaks
+# and the domain topology.  Its own tests read that state (a warning that
+# fires once, counters, events by offset), so a port test leaves it as it
+# found it.
+_JAX_STATE = {
+    "distributedarrays_tpu.utils.debug": ("_warned",),
+    "distributedarrays_tpu.resilience.faults": ("_injector", "_env_checked"),
+    "distributedarrays_tpu.resilience.domains": ("_topo",),
+    "distributedarrays_tpu.telemetry.core": (
+        "_ENABLED", "_counters", "_gauges", "_hists", "_comm", "_events",
+        "_events_total", "_once_keys", "_incident_id", "_incident_seq"),
+    "distributedarrays_tpu.telemetry.tracing": (
+        "_finished", "_finished_total", "_stats", "_open"),
+    "distributedarrays_tpu.telemetry.flight": (
+        "_bundled_excs", "_bundles_written", "_crash_bundles",
+        "_last_bundle", "_last_path"),
+    # peaks only: the live totals drain as the test's arrays close
+    "distributedarrays_tpu.telemetry.memory": (
+        "_peak_total", "_peak_dev", "_staging_peak", "_staging_peak_tag"),
+}
+_ELASTIC_MARKS = ("_manual_down", "_sim_down", "_hw_down", "_shrunk",
+                  "_expected", "_partition")
+
+
+def _snapshot(v):
+    if isinstance(v, collections.deque):
+        return collections.deque(copy.deepcopy(list(v)), maxlen=v.maxlen)
+    if isinstance(v, (dict, set, list)):
+        try:
+            return copy.deepcopy(v)
+        except TypeError:             # values that hold locks or weakrefs
+            return copy.copy(v)
+    return v
+
+
+def _restore(obj, name, saved):
+    cur = getattr(obj, name)
+    if cur is not saved and type(cur) is type(saved) and \
+            isinstance(cur, (dict, set, list, collections.deque)):
+        cur.clear()                   # in place: other modules hold it
+        if isinstance(cur, dict):
+            cur.update(saved)
+        elif isinstance(cur, set):
+            cur.update(saved)
+        else:
+            cur.extend(saved)
+    else:
+        setattr(obj, name, saved)
+
+
+@pytest.fixture(autouse=True)
+def jax_process_state():
+    """Snapshot the JAX package's process-wide state before the test and
+    put it back after, whatever the test did through JAX calls."""
+    mods = {m: importlib.import_module(m) for m in _JAX_STATE}
+    saved = {(m, a): _snapshot(getattr(mods[m], a))
+             for m, attrs in _JAX_STATE.items() for a in attrs}
+    from distributedarrays_tpu.resilience import elastic as JE
+    mgr = JE._manager
+    marks = {a: _snapshot(getattr(mgr, a)) for a in _ELASTIC_MARKS} \
+        if mgr is not None else None
+    yield
+    for (m, a), v in saved.items():
+        _restore(mods[m], a, v)
+    if mgr is None:
+        JE._manager = None
+    else:
+        JE._manager = mgr
+        for a, v in marks.items():
+            _restore(mgr, a, v)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_plan_cache():
+    """Empty the JAX reshard planner's cache when the module ends: its key
+    leaves out the domain topology (ROADMAP C6), so a plan that a port
+    file's JAX calls built must not reach a later test on the worker."""
+    yield
+    from distributedarrays_tpu.parallel import reshard as JR
+    JR._plan_cached.cache_clear()
 
 
 def state_of(d) -> dict:

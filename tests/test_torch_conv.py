@@ -19,7 +19,8 @@ from distributedarrays_tpu.ops.conv import _dense_conv
 from distributedarrays_tpu_torch.ops import conv as TC
 from distributedarrays_tpu_torch.utils import debug
 
-from _torch_port import port_ranks, same_layout, typed_inputs  # noqa: F401
+from _torch_port import (jax_plan_cache, jax_process_state,  # noqa: F401
+                         port_ranks, same_layout, typed_inputs)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

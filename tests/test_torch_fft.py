@@ -18,7 +18,8 @@ from distributedarrays_tpu_torch.ops import cuda_collectives as C
 from distributedarrays_tpu_torch.ops import fft as TF
 from distributedarrays_tpu_torch.utils import debug
 
-from _torch_port import (emulated_copies, port_ranks, same_layout,  # noqa: F401
+from _torch_port import (emulated_copies, jax_plan_cache,  # noqa: F401
+                         jax_process_state, port_ranks, same_layout,
                          typed_inputs)
 
 TOL = dict(rtol=1e-4, atol=1e-4)

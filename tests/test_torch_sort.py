@@ -16,7 +16,8 @@ from distributedarrays_tpu_torch.ops import cuda_collectives as C
 from distributedarrays_tpu_torch.ops import sort as TS
 from distributedarrays_tpu_torch.utils import debug
 
-from _torch_port import (emulated_copies, port_ranks, same_layout,  # noqa: F401
+from _torch_port import (emulated_copies, jax_plan_cache,  # noqa: F401
+                         jax_process_state, port_ranks, same_layout,
                          typed_inputs)
 
 
