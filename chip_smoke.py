@@ -113,6 +113,33 @@
    512, 64) x (3, 3, 64, 64) against ``F.conv2d`` with TF32 off (<= 1e-5,
    no K11 launch); each op's ms by CUDA events and device ms beside its
    library call's.
+   Then the solvers phase (``solvers_phase``: bench.py's ``cg_poisson``
+   row on K2, MG-PCG, the chaos solve, the small solves) and the serving
+   phase (``serve_phase``; ``python3 chip_smoke.py --serve`` alone),
+   telemetry and the memory ledger on: bench.py's ``serve_decode`` row at
+   its size on one rank (``TinyLM()``, pages of 16 tokens in blocks of 4,
+   512 pages, 32-token prompts from ``default_rng(7)``, a warm pass, then
+   a 3 s open loop at twice the sustainable sequence rate; the row's keys
+   and the KV peak from the ledger); the ring prefill through
+   ``DecodeEngine.submit`` on 4 ranks of the card at the flagship
+   attention's width (``TinyLM(heads=16, head_dim=64, max_pos=8192)``,
+   prompts of 7997-8000 tokens, 16 new tokens each): 16 K9 launches a
+   fresh prefill (10 on the f32 route), the last prefill row within 1e-5
+   of the same engine on ``reference_attention`` (float32 torch on the
+   card), every token and every decode step's attention output equal (bit
+   for bit), and the same of a pool of two sequences, whose evicted
+   sequences re-prefill, against the roomy run; prefill ms a
+   sequence, K9's device time and share, the 8016-row KV read's ms;
+   bench.py's ``serve_load`` row at its size (a 1024^2 f32 weight,
+   ``torch.matmul`` of the stacked batch, 30 unloaded requests, a 3 s open
+   loop at twice the sustainable rate); ``SolverService`` with bench.py's
+   ``cg_poisson`` system, the streamed iterations and the answer bit for
+   bit against a direct ``cg`` (K2 iterations + 1 launches), and a dense
+   256-unknown system on 4 ranks (one K10 a matvec); the ledger's live
+   bytes on the card against the live DArrays' rank tensors, back to its
+   base after each engine and server closes, the allocator's growth over
+   the phase at least the ledger's peak, and a flight bundle's memory
+   census.
 6. Attention (the serving path):
    - the kernels against their plain versions: flash attention (K5) on
      each route, every call's launch on the route
@@ -2602,6 +2629,595 @@ def solvers_only() -> int:
     return 0
 
 
+# the serving phase: bench.py's serve_decode and serve_load rows at their
+# sizes, the ring prefill through the decode engine at the flagship
+# attention's width, the solve service, and the memory ledger on the card
+SERVE_WINDOW_S = 3.0
+# the flagship attention's width through TinyLM: 16 heads of 64, prompts of
+# 7997..8000 tokens (three of them not a multiple of the 4 ranks, so the
+# ring pads them), 16 new tokens each
+RING_HEADS, RING_HEAD_DIM, RING_MAX_POS = 16, 64, 8192
+RING_PROMPTS = (8000, 7999, 7998, 7997)
+RING_NEW = 16
+RING_PAGE, RING_BLOCK = 16, 16
+# a pool that holds two of the four sequences, so the third and fourth
+# evict (and the evicted re-prefill): 63 blocks of 16 pages
+RING_TIGHT_PAGES = 1008
+# one fresh prefill on 4 ranks: 4 ranks x 4 ring steps, 10 of them
+# accumulating (the causal plan skips 6)
+K9_PER_PREFILL, K9_STEPS_PER_PREFILL = 16, 10
+SERVE_LOAD_N = 1024
+SERVICE_DENSE_N = 16          # the 16^2 Poisson matrix as a dense system
+
+
+def percentile(xs, q: float) -> float:
+    """bench.py's index rule: sorted(xs)[int(q * (len - 1))]."""
+    xs = sorted(xs)
+    return xs[int(q * (len(xs) - 1))] if xs else 0.0
+
+
+def ledger_matches(tdat, M, dev, what: str) -> int:
+    """The ledger's live bytes on ``dev`` against the sum of every live
+    DArray's rank tensors' ``nbytes`` there; returns that sum."""
+    live = [d for d in tdat.live_arrays() if isinstance(d, tdat.DArray)]
+    want = sum(t.nbytes for d in live for t in d._parts.flat
+               if t.device == dev)
+    got = M.live_bytes(dev)
+    print(f"  ledger {what}: {got} B on {dev}, rank tensors {want} B "
+          f"({len(live)} DArrays)")
+    if got != want:
+        raise AssertionError(f"ledger {what}: live_bytes({dev}) {got} != "
+                             f"{want}, the live rank tensors' bytes")
+    return want
+
+
+def serve_decode_row(tdat, serve, M) -> dict:
+    """bench.py's ``serve_decode`` row at its size on one rank: a warm
+    pass (the second sequence's time is the single-stream rate), then a 3
+    s open loop at twice the engine's batch-sustainable sequence rate."""
+    import threading
+    model = serve.TinyLM()
+    max_new = 16
+    eng = serve.DecodeEngine(
+        model,
+        serve.PagedKVCache(serve.KVCacheConfig(
+            heads=model.heads, head_dim=model.head_dim,
+            page_tokens=16, block_pages=4, max_pages=512)),
+        serve.DecodeConfig(max_new_tokens=max_new, poll_s=0.001,
+                           max_sequences=64, token_budget=512,
+                           min_ring_tokens=64, default_deadline_s=120.0))
+    rng = np.random.default_rng(7)
+
+    def prompt():
+        return rng.integers(0, model.vocab, size=32).tolist()
+
+    lock = threading.Lock()
+    ttfts, gaps = [], []
+    base = M.live_bytes()
+    kv_peak = [0]
+    stop = threading.Event()
+
+    def monitor():
+        while not stop.is_set():
+            kv_peak[0] = max(kv_peak[0], M.live_bytes() - base)
+            time.sleep(0.002)
+
+    def tracked():
+        t0 = time.monotonic()
+        last = [t0]
+
+        def cb(kind, _v):
+            if kind != "token":
+                return
+            now = time.monotonic()
+            with lock:
+                (ttfts if last[0] == t0 else gaps).append(now - last[0])
+                last[0] = now
+        s = eng.submit(prompt())
+        s.add_listener(cb)
+        return s
+    try:
+        eng.submit(prompt()).result(timeout=120)
+        t0 = time.monotonic()
+        eng.submit(prompt()).result(timeout=120)
+        seq_s = max(time.monotonic() - t0, 1e-4)
+        single = max_new / seq_s
+        slo_s = 20.0 * (seq_s / max_new)
+        interval = 1.0 / (2.0 * eng.config.max_decode_batch / seq_s)
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+        streams, shed = [], 0
+        t_start = time.monotonic()
+        while time.monotonic() - t_start < SERVE_WINDOW_S:
+            try:
+                streams.append(tracked())
+            except serve.Overloaded:
+                shed += 1
+            time.sleep(interval)
+        for s in streams:
+            s.result(timeout=120)
+        duration = time.monotonic() - t_start
+        stop.set()
+        mon.join(2.0)
+        with lock:
+            tt, gp = sorted(ttfts), sorted(gaps)
+        delivered = sum(len(s.tokens) for s in streams)
+        within = len([g for g in gp if g <= slo_s]) + \
+            len([t for t in tt if t <= slo_s])
+        offered = len(streams) + shed
+        row = {
+            "serve_decode_nranks": tdat.nranks(),
+            "serve_decode_single_stream_tokens_per_s": single,
+            "serve_decode_offered_tokens_per_s":
+                offered * (max_new + 1) / duration,
+            "serve_decode_tokens_per_s": delivered / duration,
+            "serve_decode_slo_s": slo_s,
+            "serve_decode_at_slo_tokens_per_s": within / duration,
+            "serve_decode_ttft_p50_s": percentile(tt, 0.5),
+            "serve_decode_ttft_p99_s": percentile(tt, 0.99),
+            "serve_decode_token_p50_s": percentile(gp, 0.5),
+            "serve_decode_token_p99_s": percentile(gp, 0.99),
+            "serve_decode_shed_frac": shed / max(offered, 1),
+            "serve_decode_kv_hbm_peak_bytes": kv_peak[0],
+            "serve_decode_evictions": eng.stats()["cache"]["evictions"],
+            "admitted_sequences": len(streams),
+        }
+        if not streams or delivered != len(streams) * max_new:
+            raise AssertionError(f"serve_decode: {delivered} tokens for "
+                                 f"{len(streams)} sequences")
+    finally:
+        stop.set()
+        eng.close()
+    return row
+
+
+def ring_engine(tdat, serve, prompts, *, ring: bool, max_pages: int):
+    """The 4 prompts through a ``DecodeEngine`` on the current ranks at the
+    flagship attention's width; returns (token lists, engine stats, every
+    decode step's attention output keyed by (context length, the first K
+    element): at this width the streams repeat one token, so the outputs
+    carry the cache's bit-identity checks)."""
+    from distributedarrays_tpu_torch.serve import decode as SD
+    model = serve.TinyLM(heads=RING_HEADS, head_dim=RING_HEAD_DIM,
+                         max_pos=RING_MAX_POS, seed=0)
+    steps = {}
+    real = SD._decode_attention
+
+    def rec(q, K, V):
+        o = real(q, K, V)
+        steps[(int(K.shape[0]), float(K[0, 0, 0]))] = o.clone()
+        return o
+    eng = serve.DecodeEngine(
+        model,
+        serve.PagedKVCache(serve.KVCacheConfig(
+            heads=RING_HEADS, head_dim=RING_HEAD_DIM,
+            page_tokens=RING_PAGE, block_pages=RING_BLOCK,
+            max_pages=max_pages)),
+        serve.DecodeConfig(max_new_tokens=RING_NEW, poll_s=0.001,
+                           max_sequences=8, use_ring_prefill=ring,
+                           min_ring_tokens=64, default_deadline_s=600.0))
+    SD._decode_attention = rec
+    try:
+        streams = [eng.submit(p) for p in prompts]
+        toks = [s.result(timeout=600) for s in streams]
+        stats = eng.stats()
+    finally:
+        eng.close()
+        SD._decode_attention = real
+    return toks, stats, steps
+
+
+def same_steps(what: str, got: dict, ref: dict) -> None:
+    """Every decode step's attention output bit for bit."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{what}: decode steps differ "
+                             f"({len(got)} against {len(ref)})")
+    exact(f"{what}: {len(ref)} decode steps' attention outputs",
+          [got[k] for k in sorted(ref)], [ref[k] for k in sorted(ref)])
+
+
+def ring_prefill_phase(tdat, serve, M, errs) -> dict:
+    """K9 through ``DecodeEngine.submit``: 4 ranks on the card, 4 prompts
+    of 7997..8000 tokens, against the same engine on the plain
+    ``reference_attention`` (float32 torch on the card), and a run whose
+    pool holds two sequences (eviction and re-prefill) against the roomy
+    one."""
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch import telemetry as tm
+    from distributedarrays_tpu_torch.utils import kbuild
+    from torch.profiler import ProfilerActivity, profile
+    tdat.init(nranks=4)
+    model = serve.TinyLM(heads=RING_HEADS, head_dim=RING_HEAD_DIM,
+                         max_pos=RING_MAX_POS, seed=0)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, model.vocab, size=n).tolist()
+               for n in RING_PROMPTS]
+    roomy = len(prompts) * model.max_pos // RING_PAGE   # 2048 pages
+    outs: dict = {"ring": {}, "plain": {}}
+    ring_ms = []
+    real_ring, real_ref = RA.ring_attention_prefill, RA.reference_attention
+
+    def rec(which, fn):
+        def wrapped(q, k, v, *a, **kw):
+            if which == "ring":
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+            o = fn(q, k, v, *a, **kw)
+            if which == "ring":
+                t1.record()
+                t1.synchronize()
+                ring_ms.append(t0.elapsed_time(t1))
+            outs[which][int(q.shape[0])] = o.clone()   # every row
+            return o
+        return wrapped
+    out = {}
+    tm.reset()
+    kbuild.reset_launches()
+    RA.ring_attention_prefill = rec("ring", real_ring)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            toks_ring, st, steps_ring = ring_engine(
+                tdat, serve, prompts, ring=True, max_pages=roomy)
+            torch.cuda.synchronize()
+    finally:
+        RA.ring_attention_prefill = real_ring
+    counts = kbuild.launch_counts()
+    routes = kbuild.route_counts()["ring_attention"]
+    want = K9_PER_PREFILL * len(prompts)
+    spans = tm.span_stats().get("serve.prefill", {})
+    k9_dev = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and ("ring_step" in e.key
+                      or "forward_kernel" in e.key)) / 1e3
+    span_ms = spans.get("total_s", 0.0) * 1e3
+    print(f"  ring engine 4 ranks: K9 launches {counts['ring_attention']} "
+          f"(predicted {want}), routes {routes}, other launches "
+          f"{ {k: v for k, v in counts.items() if v and k != 'ring_attention'} }")
+    if counts["ring_attention"] != want or \
+            routes["f32"] != K9_STEPS_PER_PREFILL * len(prompts):
+        raise AssertionError(f"ring engine: K9 launched "
+                             f"{counts['ring_attention']} times (routes "
+                             f"{routes}), {want} expected")
+    out["k9_launches"] = counts["ring_attention"]
+    out["launches"] = counts
+    out["prefill_span_ms_per_seq"] = span_ms / max(spans.get("count", 1), 1)
+    out["ring_call_ms"] = ring_ms
+    out["k9_device_ms"] = k9_dev
+    out["k9_share_of_prefill"] = k9_dev / span_ms if span_ms else None
+    out["stats"] = st["cache"]
+    print(f"  prefill {out['prefill_span_ms_per_seq']:.2f} ms a sequence "
+          f"(serve.prefill spans, host clock to the first token's device "
+          f"sync), ring calls {['%.2f' % x for x in ring_ms]} ms (CUDA "
+          f"events), K9 device {k9_dev:.2f} ms for {len(prompts)} "
+          f"prefills: {out['k9_share_of_prefill']:.3f} of the spans")
+    # the same engine on the plain attention, on the card
+    RA.reference_attention = rec("plain", real_ref)
+    kbuild.reset_launches()
+    try:
+        toks_plain, _, steps_plain = ring_engine(
+            tdat, serve, prompts, ring=False, max_pages=roomy)
+    finally:
+        RA.reference_attention = real_ref
+    if kbuild.launch_counts()["ring_attention"]:
+        raise AssertionError("the reference engine launched K9")
+    nr = tdat.nranks()
+    for n in RING_PROMPTS:
+        o_r, o_p = outs["ring"][n], outs["plain"][n]
+        errs["ring_attention"] = max(errs["ring_attention"],
+                                     max_abs(o_r, o_p))
+        check(f"prefill {n} tokens (last row) K9 ring against the plain "
+              f"attention", rel_err(o_r[-1], o_p[-1]), TOL_F32)
+        # every row, each rank's query block on its own, so a fault in
+        # one block is not diluted by the other three
+        blk = -(-n // nr)
+        worst = max(rel_err(o_r[i:i + blk], o_p[i:i + blk])
+                    for i in range(0, n, blk))
+        check(f"prefill {n} tokens (all {n} rows, worst of the {nr} "
+              f"ranks' query blocks) K9 ring against the plain attention",
+              worst, TOL_F32)
+    outs.clear()
+    for p, a, b in zip(prompts, toks_ring, toks_plain):
+        if a != b:
+            raise AssertionError(f"ring and plain engines differ for the "
+                                 f"{len(p)}-token prompt: {a} vs {b}")
+    print(f"  ring and plain engines: {len(prompts)} streams of {RING_NEW} "
+          f"tokens equal, e.g. {toks_ring[0]}")
+    same_steps("ring and plain engines", steps_plain, steps_ring)
+    # a pool of two sequences: the later prefills evict, the evicted
+    # rebuild; the streams must be the roomy run's bit for bit
+    kbuild.reset_launches()
+    toks_tight, st_tight, steps_tight = ring_engine(
+        tdat, serve, prompts, ring=True, max_pages=RING_TIGHT_PAGES)
+    ev = st_tight["cache"]["evictions"]
+    print(f"  evicting pool ({RING_TIGHT_PAGES} pages): {ev} evictions, "
+          f"K9 launches {kbuild.launch_counts()['ring_attention']}")
+    if ev == 0 or toks_tight != toks_ring:
+        raise AssertionError(f"evicting run: {ev} evictions, streams equal "
+                             f"{toks_tight == toks_ring}")
+    same_steps("evicting and roomy runs", steps_tight, steps_ring)
+    out["evictions"] = ev
+    out["evicting_k9_launches"] = kbuild.launch_counts()["ring_attention"]
+    # the decode step's gather: one 8000-token sequence's 501 pages
+    cache = serve.PagedKVCache(serve.KVCacheConfig(
+        heads=RING_HEADS, head_dim=RING_HEAD_DIM, page_tokens=RING_PAGE,
+        block_pages=RING_BLOCK, max_pages=roomy))
+    try:
+        n = RING_PROMPTS[0] + RING_NEW
+        cache.ensure(1, n)
+        _, kr, vr = model.qkv(prompts[0] + [0] * RING_NEW, 0,
+                              tdat.device_of(0))
+        cache.write(1, 0, kr, vr)
+        k, v = cache.read(1)
+        exact("kv read of 8016 rows against the rows written", k, kr)
+        out["kv_read_ms"] = wall_ms(lambda: cache.read(1))
+        ledger_matches(tdat, M, tdat.device_of(0), "with a 501-page cache")
+    finally:
+        cache.close()
+    print(f"  kv read of {n} rows ({cache.pages_for(n)} pages): "
+          f"{out['kv_read_ms']:.2f} ms")
+    return out
+
+
+def serve_load_row(tdat, serve) -> dict:
+    """bench.py's ``serve_load`` row at its size on one rank: the endpoint
+    stacks the batch and multiplies by a 1024^2 f32 DArray's whole tensor
+    (``torch.matmul``), 30 unloaded requests, then a 3 s open loop at
+    twice the sustainable rate."""
+    import threading
+    w = tdat.distribute(np.asarray(np.random.default_rng(5)
+                                   .standard_normal((SERVE_LOAD_N,) * 2),
+                                   np.float32))
+    srv = None
+    try:
+        g = w.full()
+
+        def ep(xs):
+            y = torch.matmul(torch.stack([torch.as_tensor(x) for x in xs])
+                             .to(g.device), g)
+            return list(y[:, 0].cpu().numpy())
+        cfg = serve.ServeConfig(max_batch=8, flush_s=0.002, max_queue=32,
+                                tenant_rate=1e9, tenant_burst=1e9)
+        srv = serve.Server(cfg)
+        srv.register("score", ep)
+        x = np.zeros((SERVE_LOAD_N,), np.float32)
+        srv.submit("score", x).result(timeout=60)
+        lats = []
+        for _ in range(30):
+            t0 = time.monotonic()
+            srv.submit("score", x).result(timeout=60)
+            lats.append(time.monotonic() - t0)
+        p99_unloaded = percentile(lats, 0.99)
+        batch_s = max(srv.stats()["latency_p50_s"], 1e-4)
+        interval = 1.0 / (2.0 * cfg.max_batch / batch_s)
+        futs, shed, loaded = [], 0, []
+        lock = threading.Lock()
+
+        def mark(t0):
+            def cb(_f):
+                with lock:
+                    loaded.append(time.monotonic() - t0)
+            return cb
+        t_start = time.monotonic()
+        while time.monotonic() - t_start < SERVE_WINDOW_S:
+            try:
+                t0 = time.monotonic()
+                f = srv.submit("score", x)
+                f.add_done_callback(mark(t0))
+                futs.append(f)
+            except serve.Overloaded:
+                shed += 1
+            time.sleep(interval)
+        got = [f.result(timeout=60) for f in futs]
+        duration = time.monotonic() - t_start
+        wn = np.asarray(w)
+        want = float((x @ wn)[0])
+        if any(v != want for v in got):
+            raise AssertionError("serve_load: a result is not x @ w")
+        # distinct requests batched together: one-hot row i must come back
+        # as w[i, 0] to its own future, whatever the batch order
+        rows = list(range(0, SERVE_LOAD_N, SERVE_LOAD_N // 16))
+        hots = []
+        for i in rows:
+            h = np.zeros((SERVE_LOAD_N,), np.float32)
+            h[i] = 1.0
+            hots.append(srv.submit("score", h))
+        mine = [f.result(timeout=60) for f in hots]
+        if mine != [float(wn[i, 0]) for i in rows] or \
+                len(set(mine)) != len(rows):
+            raise AssertionError(f"serve_load: one-hot requests got {mine}, "
+                                 f"want {[float(wn[i, 0]) for i in rows]}")
+        print(f"  serve_load: {len(rows)} one-hot requests each got its own "
+              f"row of w")
+        offered = len(futs) + shed
+        return {
+            "serve_load_nranks": tdat.nranks(),
+            "serve_load_offered_rps": offered / duration,
+            "serve_load_admitted_rps": len(futs) / duration,
+            "serve_load_shed_frac": shed / max(offered, 1),
+            "serve_load_p50_s": percentile(loaded, 0.5),
+            "serve_load_p99_s": percentile(loaded, 0.99),
+            "serve_load_p99_unloaded_s": p99_unloaded,
+        }
+    finally:
+        if srv is not None:
+            srv.close()
+        w.close()
+
+
+def solver_service_phase(tdat, M) -> dict:
+    """``SolverService`` on the card: bench.py's ``cg_poisson`` system
+    (1024^2, ``default_rng(7)``) on one rank, streamed, against a direct
+    ``cg`` on the same operator bit for bit (K2: iterations + 1 launches);
+    then a 256-unknown dense system on 4 ranks (one K10 a matvec, as the
+    solvers phase's ``small_solves`` reads)."""
+    from distributedarrays_tpu_torch.utils import kbuild
+    S = tdat.solvers
+    out = {}
+    tdat.init()
+    rhs = np.random.default_rng(7).standard_normal((CG_N, CG_N)).astype(
+        np.float32)
+    svc = S.SolverService()
+    try:
+        kbuild.reset_launches()
+        stream = svc.submit({"kind": "poisson", "grid": (CG_N, CG_N),
+                             "b": rhs}, tol=CG_TOL, maxiter=CG_MAXITER)
+        updates = list(stream)
+        summary = stream.result(timeout=600)
+        svc.server.drain(timeout=60)
+        torch.cuda.synchronize()
+        k2 = kbuild.launch_counts()["stencil_step"]
+    finally:
+        svc.close()
+    op = S.StencilOperator((CG_N, CG_N))
+    procs, dist = op.vector_layout()
+    b = tdat.distribute(rhs, procs=procs, dist=list(dist))
+    res = S.cg(op, b, tol=CG_TOL, maxiter=CG_MAXITER)
+    x = np.asarray(res.x)
+    res.x.close()
+    b.close()
+    it = summary["iterations"]
+    print(f"  service cg {CG_N}^2: {summary['outcome']} in {it} "
+          f"iterations ({len(updates)} streamed), direct cg "
+          f"{res.iterations}; K2 launches {k2}")
+    if summary["outcome"] != "converged" or it != res.iterations or \
+            [u[0] for u in updates] != list(range(1, it + 1)) or \
+            k2 != it + 1:
+        raise AssertionError(f"service cg: {summary['outcome']}, {it} "
+                             f"iterations against {res.iterations}, "
+                             f"{len(updates)} updates, K2 {k2}")
+    exact("service cg answer against the direct cg",
+          torch.from_numpy(summary["x"]), torch.from_numpy(x))
+    out["cg_iterations"] = it
+    out["k2_launches"] = k2
+    tdat.init(nranks=4)
+    A = S.poisson2d_dense(SERVICE_DENSE_N, SERVICE_DENSE_N)
+    bd = np.random.default_rng(7).standard_normal(A.shape[0]).astype(
+        np.float32)
+    svc = S.SolverService()
+    try:
+        kbuild.reset_launches()
+        summary = svc.submit({"kind": "dense", "A": A, "b": bd},
+                             tol=CG_TOL).result(timeout=120)
+        svc.server.drain(timeout=60)
+        torch.cuda.synchronize()
+        k10 = kbuild.launch_counts()["all_gather"]
+    finally:
+        svc.close()
+    oracle = np.linalg.solve(A.astype(np.float64), bd.astype(np.float64))
+    err = float(np.linalg.norm(summary["x"] - oracle) /
+                np.linalg.norm(oracle))
+    print(f"  service dense {A.shape[0]} on 4 ranks: "
+          f"{summary['outcome']} in {summary['iterations']} iterations, "
+          f"K10 launches {k10}")
+    if summary["outcome"] != "converged" or \
+            k10 != summary["iterations"] + 1:
+        raise AssertionError(f"service dense: {summary['outcome']}, K10 "
+                             f"{k10} for {summary['iterations']} "
+                             "iterations")
+    check("service dense x against the float64 oracle", err, TOL_SMALL)
+    out["dense_iterations"] = summary["iterations"]
+    out["k10_launches"] = k10
+    if M.live_bytes() != 0:
+        raise AssertionError(f"service: {M.live_bytes()} B left in the "
+                             "ledger")
+    return out
+
+
+def serve_phase(tdat, errs: dict) -> dict:
+    """``serve``: the serving stack on the card (see the module docstring,
+    step 6).  Telemetry (and so the ledger) is on."""
+    from distributedarrays_tpu_torch import serve
+    from distributedarrays_tpu_torch import telemetry as tm
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    M = tm.memory
+    print("phase serve")
+    t_phase = time.perf_counter()
+    tdat.d_closeall()
+    faults.clear()
+    elastic.manager().reset()
+    tm.enable()
+    tdat.init()
+    dev = tdat.device_of(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    alloc0 = torch.cuda.memory_allocated(dev)
+    M.reset_peak()
+    led0 = M.live_bytes()
+    out = {}
+    out["serve_decode"] = serve_decode_row(tdat, serve, M)
+    print(f"  serve_decode: {json.dumps(out['serve_decode'])}")
+    if M.live_bytes() != led0:
+        raise AssertionError(f"ledger after eng.close(): {M.live_bytes()} "
+                             f"B, {led0} before")
+    out["ring"] = ring_prefill_phase(tdat, serve, M, errs)
+    tdat.init()
+    out["serve_load"] = serve_load_row(tdat, serve)
+    print(f"  serve_load: {json.dumps(out['serve_load'])}")
+    if M.live_bytes() != led0:
+        raise AssertionError(f"ledger after srv.close(): {M.live_bytes()} "
+                             f"B, {led0} before")
+    out["service"] = solver_service_phase(tdat, M)
+    # the ledger against the allocator: the phase's peak device bytes cover
+    # the ledger's peak (the allocator also holds temporaries the ledger
+    # does not track)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(dev) - alloc0
+    peak = M.peak_bytes() - led0
+    print(f"  ledger peak {peak} B over its base; allocator grew "
+          f"{grew} B")
+    if grew < peak or peak <= 0:
+        raise AssertionError(f"allocator growth {grew} B below the ledger "
+                             f"peak {peak} B")
+    d = tdat.drand((1024, 1024))
+    bundle = tm.flight.snapshot_bundle("serve phase")
+    census = bundle["leak_census"]
+    ledger_matches(tdat, M, dev, "with one 1024^2 DArray")
+    if census["ledger_tracked"]["bytes"] != M.live_bytes() or \
+            census["deleted_but_registered"]["count"] or \
+            bundle["ledger"]["live_bytes"] != M.live_bytes():
+        raise AssertionError(f"flight bundle census {census}")
+    print(f"  flight bundle memory census {census}")
+    d.close()
+    out["ledger_peak_bytes"] = peak
+    out["allocator_growth_bytes"] = grew
+    out["launches"] = {
+        "ring_attention": out["ring"]["k9_launches"],
+        "stencil_step": out["service"]["k2_launches"],
+        "all_gather": out["service"]["k10_launches"]}
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  serve {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"serve": out}))
+    return out
+
+
+def serve_only() -> int:
+    """``--serve``: build the attention, stencil and collective kernels and
+    run the serving phase alone (``serve_phase``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.utils import kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    kbuild.build(["attention", "stencil", "collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    errs = {k: 0.0 for k in kbuild.KERNELS}
+    res = serve_phase(tdat, errs)
+    print(json.dumps({"serve_launches": res["launches"], "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def sequence_parallel(tdat) -> dict:
     """Phase 6c: 4 ranks on the one card, S = 8192, 16 heads of 64, bf16,
     causal: ``ring_attention`` (K9), ``ring_flash_attention`` (K8),
@@ -4000,6 +4616,7 @@ def main() -> int:
     counts_reshard = reshard_spmd(tdat)
     sfc = sort_fft_conv(tdat, cuda_collectives)
     slv = solvers_phase(tdat, errs)
+    srv = serve_phase(tdat, errs)
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
@@ -4194,6 +4811,8 @@ def main() -> int:
         if name in ("gemm", "stencil_step", "all_gather", "all_to_all"):
             kern["solvers_launches"] = {
                 k: v[name] for k, v in slv["launches"].items()}
+        if name in srv["launches"]:
+            kern["serve_launches"] = srv["launches"][name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4332,6 +4951,7 @@ if __name__ == "__main__":
              else reshard_spmd_only() if sys.argv[1:] == ["--reshard-spmd"]
              else sort_fft_conv_only() if sys.argv[1:] == ["--sort-fft-conv"]
              else solvers_only() if sys.argv[1:] == ["--solvers"]
+             else serve_only() if sys.argv[1:] == ["--serve"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

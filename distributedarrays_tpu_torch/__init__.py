@@ -40,6 +40,11 @@ names::
     step = SP.make_train_step([0, 1, 2, 3], scfg)
     shards, loss = step(shards, tokens_1x8192, 0.3)  # K8/K6/K7, K13/K14/K15
 
+    eng = tdat.serve.DecodeEngine()           # paged KV cache decode
+    srv = tdat.serve.Server()                 # admission, batching
+    eng.attach(srv, "decode")                 # prefill on K9 (>= 2 ranks)
+    tokens = srv.submit("decode", [1, 2, 3]).result().result()
+
     S = tdat.solvers                          # Krylov + multigrid
     op = S.StencilOperator((1024, 1024))      # K2 a rank an apply
     res = S.cg(op, b, tol=1e-6, M=S.Multigrid(op))   # res.x, res.iterations
@@ -109,7 +114,7 @@ from .models.ulysses import ulysses_attention
 from .interop import (from_reference, params_from_reference,
                       params_to_reference, to_reference)
 from .utils import autotune, kbuild
-from . import solvers, train
+from . import serve, solvers, train
 from .train import Trainer
 
 __all__ = [
@@ -130,7 +135,7 @@ __all__ = [
     "bcast", "scatter", "gather_spmd", "context", "context_local_storage",
     "myid", "nprocs", "SPMDContext", "close_context",
     "parallel", "resilience", "reshard", "spmd_mode", "telemetry",
-    "analysis", "solvers",
+    "analysis", "solvers", "serve",
     "elementwise", "dmap", "dmap_into", "broadcasted", "djit",
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
     "dmean", "dvar", "dstd", "dall", "dany", "dcount", "dextrema",

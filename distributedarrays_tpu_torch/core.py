@@ -13,6 +13,7 @@ import itertools
 import threading
 import weakref
 
+from . import telemetry as _tm
 from .telemetry import flight as _flight
 
 __all__ = ["next_did", "d_closeall", "close", "registry", "live_ids",
@@ -101,20 +102,30 @@ def close(d) -> None:
 
 def d_closeall() -> None:
     """Close every live DArray.  The registry is cleared first; every array
-    is closed even if one close raises, and the first error is re-raised."""
+    is closed even if one close raises, and the first error is re-raised;
+    the sweep is journaled as one ``lifecycle``/``closeall`` event with the
+    closed count and the bytes the memory ledger saw drain (JAX
+    ``core.py:95``)."""
     with _registry_lock:
         refs = list(_registry.values())
         _registry.clear()
+    live0 = _tm.memory.live_bytes() if _tm.enabled() else 0
     first: BaseException | None = None
+    closed = failed = 0
     for r in refs:
         d = r()
         if d is None:
             continue
         try:
             d._close(_unregister=False)
+            closed += 1
         except BaseException as e:  # noqa: BLE001 — re-raised below
+            failed += 1
             if first is None:
                 first = e
+    if _tm.enabled():
+        _tm.event("lifecycle", "closeall", closed=closed, errors=failed,
+                  freed_bytes=max(live0 - _tm.memory.live_bytes(), 0))
     if first is not None:
         raise first
 

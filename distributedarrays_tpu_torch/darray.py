@@ -27,6 +27,13 @@ never hands out a tensor another DArray holds, and a write (``d[k] = v``,
 in place and nothing else.  ``localpart`` is the exception on purpose: it
 returns the rank's own tensor, as the reference's ``localpart`` is the
 worker's array, so writes to it show through the DArray.
+
+The memory ledger (``telemetry.memory``) tracks every DArray's rank
+tensors where they are allocated: ``ctor`` at construction, ``rebind``
+when the tensors are replaced; ``close`` and the finalizer release them.
+A write in place (``set_localpart``, a region write's ``mutate``,
+``fill_``, ``rand_``, ``copyto_``'s ``rebind``) keeps the tensors and
+their bytes, and only relabels the entry with its call site's label.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 from . import core
 from . import layout as L
 from .core import allowscalar, current_rank, _scalar_indexing_allowed
+from . import telemetry as _tm
 
 __all__ = [
     "DArray",
@@ -134,7 +142,13 @@ def _gen(rank: int) -> torch.Generator:
 
 
 def _finalize(did):
+    """Finalizer: the registry and the ledger stay tidy when a DArray is
+    collected without a close."""
     core.unregister(did)
+    try:
+        _tm.memory.untrack(did)
+    except Exception:  # pragma: no cover — interpreter-shutdown safety
+        pass
 
 
 class DArray:
@@ -178,6 +192,7 @@ class DArray:
         self._dtype = dtype
         self._closed = False
         core.register(self)
+        self._track("ctor")
         weakref.finalize(self, _finalize, self.id)
 
     # -- basic protocol ----------------------------------------------------
@@ -262,9 +277,24 @@ class DArray:
     def _close(self, _unregister=True):
         if not self._closed:
             self._closed = True
+            # always, so the ledger drains after a mid-run disable()
+            _tm.memory.untrack(self.id)
             self._parts = None
             if _unregister:
                 core.unregister(self.id)
+
+    def _track(self, site: str) -> None:
+        """(Re)attribute the rank tensors to this DArray in the memory
+        ledger under ``site`` (JAX tracks only while telemetry is on)."""
+        if _tm.enabled():
+            _tm.memory.track(self.id, self._parts, site=site,
+                             ranks=self.pids)
+
+    def _relabel(self, site: str) -> None:
+        """Label the ledger entry with the in-place write ``site``; the
+        tensors and their bytes are unchanged."""
+        if _tm.enabled():
+            _tm.memory.relabel(self.id, site)
 
     def close(self):
         """Release the rank tensors now."""
@@ -324,6 +354,7 @@ class DArray:
             raise ValueError(f"localpart shape {tuple(v.shape)} != chunk "
                              f"shape {want}")
         self._parts[ci].copy_(v)
+        self._relabel("set_localpart")
 
     def locate(self, *I: int) -> tuple:
         """Chunk-grid coordinates owning global index ``I``."""
@@ -388,6 +419,7 @@ class DArray:
             new[ci] = t.contiguous()
         self._parts = new
         self._dtype = new.flat[0].dtype
+        self._track("rebind")
 
     def with_parts(self, parts: np.ndarray) -> "DArray":
         """New DArray with this layout and the given cell tensors."""
@@ -419,13 +451,15 @@ class DArray:
             _scalar_indexing_allowed()
         self._write(key, value)
 
-    def _write(self, key, value) -> None:
+    def _write(self, key, value, site: str | None = None) -> None:
         """Write ``value`` into the region of the normalized ``key``: one
         in-place slice assignment per owner chunk, fed from the matching
         box of ``value`` (a DArray value of the region's shape gives each
-        owner its box through ``region``, on the owner's device)."""
+        owner its box through ``region``, on the owner's device).  The
+        ledger entry takes the label ``site``, ``mutate`` by default."""
         if _advanced(key):
             self._write_selected(key, value)
+            self._relabel(site or "mutate")
             return
         spans = [_spans(k, n, c) for k, n, c in zip(key, self.dims, self.cuts)]
         if not all(spans):
@@ -462,6 +496,7 @@ class DArray:
             if flips and v.ndim:
                 v = v.flip(flips)
             part[tuple(c[1] for c in combo)] = v
+        self._relabel(site or "mutate")
 
     def _by_owner(self, coords):
         """The selected elements grouped by the chunk that holds them: for
@@ -577,6 +612,7 @@ class DArray:
         v = as_tensor(x).to(self.dtype).item()
         for ci in self.cells():
             self._parts[ci].fill_(v)
+        self._relabel("fill_")
         return self
 
     def rand_(self) -> "DArray":
@@ -585,6 +621,7 @@ class DArray:
         self._check_open()
         for ci in self.cells():
             self._parts[ci].uniform_(generator=_gen(int(self.pids[ci])))
+        self._relabel("rand_")
         return self
 
 
@@ -1220,8 +1257,9 @@ def copyto_(dest, src):
         pieces = relayout_parts(src, dest.pids, dest.cuts)
         for ci in dest.cells():
             dest.part(ci).copy_(pieces[ci])
+        dest._relabel("rebind")
     else:
-        dest._write(_normalize_key((), dest.dims), src)
+        dest._write(_normalize_key((), dest.dims), src, site="rebind")
     return dest
 
 

@@ -87,7 +87,22 @@ __all__ = ["ring_attention", "ring_attention_kernel", "ring_attention_rdma",
 
 
 def reference_attention(q, k, v, causal: bool = False):
-    """Dense O(seq^2) numpy oracle over (seq, heads, d) arrays."""
+    """Dense O(seq^2) oracle over (seq, heads, d) arrays: numpy on the host
+    for arrays (JAX's numerics: the float64 scale promotes the scores to
+    float64), and float32 torch on q's device for tensors (the decode
+    engine's plain prefill on the card)."""
+    if isinstance(q, torch.Tensor):
+        q, k, v = (torch.as_tensor(x).float().to(q.device)
+                   for x in (q, k, v))
+        s = torch.einsum("qhd,khd->hqk", q / math.sqrt(q.shape[-1]), k)
+        if causal:
+            qi = torch.arange(q.shape[0], device=q.device)[:, None]
+            ki = torch.arange(k.shape[0], device=q.device)[None, :]
+            s = s.masked_fill(~(ki <= qi)[None], -math.inf)
+        s = s - s.amax(-1, keepdim=True)
+        p = torch.exp(s)
+        p = p / p.sum(-1, keepdim=True)
+        return torch.einsum("hqk,khd->qhd", p, v)
     q, k, v = (np.asarray(x, np.float32) for x in (q, k, v))
     s = np.einsum("qhd,khd->hqk", q / np.sqrt(q.shape[-1]), k)
     if causal:
@@ -584,19 +599,24 @@ def zigzag_ring_attention(q: DArray, k: DArray, v: DArray) -> DArray:
 
 def ring_attention_prefill(q, k, v, *, causal: bool = True,
                            procs: list[int] | None = None,
-                           min_ring_tokens: int | None = None) -> np.ndarray:
-    """Prefill entry of the decode service: exact attention over host
-    (ntok, heads, head_dim) q/k/v rows (as float32), returning a host
-    (ntok, heads, head_dim) float32 array.
+                           min_ring_tokens: int | None = None):
+    """Prefill entry of the decode service: exact attention over
+    (ntok, heads, head_dim) q/k/v rows as float32, returning the
+    (ntok, heads, head_dim) float32 output: a host array for host arrays,
+    a tensor on q's device for tensors.
 
     Long causal prompts ride the ring: the rows are end-padded with zeros
     to a multiple of the rank count (safe under the causal mask: no real
     query row attends to a later padded key), distributed, run through
-    ``ring_attention``, gathered and trimmed, and the scratch DArrays are
-    closed.  Short prompts (below ``min_ring_tokens``, default twice the
-    rank count), non-causal calls and single ranks take the dense
-    ``reference_attention`` oracle."""
-    q, k, v = (np.asarray(x, np.float32) for x in (q, k, v))
+    ``ring_attention`` (K9 on CUDA ranks), gathered and trimmed, and the
+    scratch DArrays are closed.  Short prompts (below ``min_ring_tokens``,
+    default twice the rank count), non-causal calls and single ranks take
+    the dense ``reference_attention`` oracle."""
+    if isinstance(q, torch.Tensor):
+        q, k, v = (torch.as_tensor(x).float().to(q.device)
+                   for x in (q, k, v))
+    else:
+        q, k, v = (np.asarray(x, np.float32) for x in (q, k, v))
     if q.ndim != 3:
         raise ValueError(f"q must be (ntok, heads, head_dim), got {q.shape}")
     ntok = q.shape[0]
@@ -606,15 +626,23 @@ def ring_attention_prefill(q, k, v, *, causal: bool = True,
     if not causal or n < 2 or ntok < max(floor, n):
         return reference_attention(q, k, v, causal)
     pad = (-ntok) % n
+    host = not isinstance(q, torch.Tensor)
     if pad:
-        z = np.zeros((pad,) + q.shape[1:], q.dtype)
-        q, k, v = (np.concatenate([a, z]) for a in (q, k, v))
+        if host:
+            z = np.zeros((pad,) + q.shape[1:], q.dtype)
+            q, k, v = (np.concatenate([a, z]) for a in (q, k, v))
+        else:
+            z = q.new_zeros((pad,) + tuple(q.shape[1:]))
+            q, k, v = (torch.cat([a, z]) for a in (q, k, v))
     made = []
     try:
         for a in (q, k, v):
             made.append(distribute(a, procs=pids, dist=[n, 1, 1]))
         made.append(ring_attention(*made[:3], causal=True))
-        return np.asarray(made[3])[:ntok]
+        if host:
+            return np.asarray(made[3])[:ntok]
+        return made[3].region([(0, ntok), (0, q.shape[1]),
+                               (0, q.shape[2])], q.device)
     finally:
         for d in made:
             d.close()

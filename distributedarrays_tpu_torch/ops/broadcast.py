@@ -151,6 +151,7 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
     else:
         for ci in np.ndindex(*pids.shape):
             out.part(ci).copy_(parts[ci])
+        out._relabel("rebind")        # JAX's out._rebind(res)
     return out
 
 

@@ -512,6 +512,7 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
     if out is not None:
         for ci, res in results.items():
             out.part(ci).copy_(res)
+        out._relabel("rebind")        # JAX's C._rebind(res)
         return out
     parts = np.empty(pids.shape, dtype=object)
     for ci, res in results.items():

@@ -69,8 +69,12 @@ plan passes the ``reshard.chunk`` fault site before any byte moves;
 ``reshard.plan_builds`` and one ``reshard``/``plan`` journal event.  The
 JAX span's dispatch labels (``dispatch``, ``rdma_chunks``, the autotune
 and dispatch keys) name its XLA/RDMA choice, which the port does not
-have; nor do its ``jit.builds`` counters of XLA program builds, or the
-staging gauge of its memory ledger.
+have; nor do its ``jit.builds`` counters of XLA program builds.  The
+memory ledger's ``reshard.chain`` staging gauge counts the bytes a chain
+really holds between its steps (each intermediate step's outputs, until
+the next step has read them); an ``all_to_all`` writes its outputs
+straight into the new cells and stages nothing.  JAX's gauge instead
+counts its XLA dispatch's planned chunk piece.
 """
 
 from __future__ import annotations
@@ -887,30 +891,45 @@ def _run_chain(plan: ReshardPlan, blocks: list[torch.Tensor],
     slice-back of ``_pad_jit`` :966 and ``_slice_back_jit`` :977).
     Returns each canonical rank's destination tensor (None for ranks
     outside ``keep``, a set of canonical indices whose outputs the last
-    step writes; None = all)."""
+    step writes; None = all).  Each intermediate step's outputs are in
+    the memory ledger's ``reshard.chain`` staging gauge until the next
+    step has read them."""
     shape = plan.shape
     stages = _stages(plan)
     nsteps = len(plan.steps)
     cur = list(blocks)
+    staged = None
     # a chain from one-rank-a-cell sources starts with a collective: a
     # slice only follows the gather of its digit
     k = 0
-    while k < nsteps:
-        kind, m, _q, i, j = plan.steps[k][:5]
-        nxt = k + 1
-        while nxt < nsteps and plan.steps[nxt][0] == "slice":
-            nxt += 1
-        inb = _boxes(plan, stages[k])
-        outb = _boxes(plan, stages[k + 1])
-        winb = _boxes(plan, stages[nxt])
-        last = nxt == nsteps
-        wins = [None if last and keep is not None and c not in keep
-                else _window(w, o, shape)
-                for c, (w, o) in enumerate(zip(winb, outb))]
-        full = [hi - lo for lo, hi in inb[0]]
-        cur = chain_step(kind, cur, _groups(plan, m), i, j if j >= 0 else
-                         None, full, wins)
-        k = nxt
+    try:
+        while k < nsteps:
+            kind, m, _q, i, j = plan.steps[k][:5]
+            nxt = k + 1
+            while nxt < nsteps and plan.steps[nxt][0] == "slice":
+                nxt += 1
+            inb = _boxes(plan, stages[k])
+            outb = _boxes(plan, stages[k + 1])
+            winb = _boxes(plan, stages[nxt])
+            last = nxt == nsteps
+            wins = [None if last and keep is not None and c not in keep
+                    else _window(w, o, shape)
+                    for c, (w, o) in enumerate(zip(winb, outb))]
+            full = [hi - lo for lo, hi in inb[0]]
+            cur = chain_step(kind, cur, _groups(plan, m), i,
+                             j if j >= 0 else None, full, wins)
+            if staged is not None:             # the step's inputs are read
+                staged.__exit__(None, None, None)
+                staged = None
+            if not last:
+                staged = _tm.memory.staging(
+                    "reshard.chain",
+                    sum(t.nbytes for t in cur if t is not None))
+                staged.__enter__()
+            k = nxt
+    finally:
+        if staged is not None:
+            staged.__exit__(None, None, None)
     return cur
 
 

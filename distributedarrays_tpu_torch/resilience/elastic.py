@@ -90,6 +90,8 @@ def relayout(d, ranks: list[int]) -> bool:
         d.indices = idxs
         d.cuts = cuts
         d._parts = parts
+        # the relaid tensors stay the same owner's in the ledger
+        d._track("elastic")
     _tm.count("elastic.relayouts")
     return True
 
@@ -314,6 +316,7 @@ class ElasticDeviceSet:
             # cold path: one event per shrink epoch
             _tm.event("elastic", "shrink", live=len(live),
                       down=sorted(down), moved=moved, failed=len(failed))
+            _tm.memory.sample("elastic.shrink")
         return {"live": live, "moved": moved, "failed": failed}
 
     def grow(self, domain: int | None = None) -> dict:
@@ -358,6 +361,7 @@ class ElasticDeviceSet:
             # cold path: one event per grow epoch
             _tm.event("elastic", "grow", live=len(live),
                       moved=moved, failed=len(failed))
+            _tm.memory.sample("elastic.grow")
         return {"live": live, "moved": moved, "failed": failed}
 
     def reset(self) -> None:

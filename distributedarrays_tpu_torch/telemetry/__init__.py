@@ -3,7 +3,8 @@ a structured event journal and the postmortem flight recorder.
 
 PyTorch counterpart of ``distributedarrays_tpu/telemetry`` (its
 ``__init__.py:38-62``), with the pieces ported so far: ``core``,
-``tracing``, ``flight`` and the cost stamps of ``perf``.  Every
+``tracing``, ``flight``, ``memory`` (the device memory ledger), the cost
+stamps of ``perf`` and the serving calls of ``stream``.  Every
 instrumented site of the port reports here under the JAX package's names
 and labels::
 
@@ -17,9 +18,9 @@ and labels::
 
 ``DA_TPU_TELEMETRY=0`` (or :func:`disable`) turns every recording call into
 one boolean check: no journal file is created and :func:`report` stays
-empty.  Not ported yet (ROADMAP queue A): the memory ledger, the peak table
-and doctor of ``perf``, ``summarize``, ``export``, ``regress``,
-``cluster``, ``alerts``, ``advisor``, ``stream`` and ``agg``.
+empty.  Not ported yet (ROADMAP queue A): the peak table and doctor of
+``perf``, ``summarize``, ``export``, ``regress``, ``cluster``, ``alerts``,
+``advisor``, ``stream``'s exporter and ``agg``.
 """
 
 from .core import (begin_incident, comm_bytes, configure, count,
@@ -31,8 +32,9 @@ from .tracing import (Span, annotate, bind_trace_ids, current_span,
                       current_span_id, current_trace_ids, open_spans,
                       record_external_span, span, span_stats, spans,
                       trace_ctx, traced)
-from . import core, flight, perf, tracing
+from . import core, flight, memory, perf, stream, tracing
 from .flight import postmortem, record_crash
+from .memory import leak_census
 
 __all__ = [
     "enabled", "enable", "disable", "configure", "reset", "count",
@@ -42,5 +44,6 @@ __all__ = [
     "Span", "span", "traced", "current_span", "current_span_id", "spans",
     "span_stats", "open_spans", "annotate", "trace_ctx",
     "current_trace_ids", "bind_trace_ids", "record_external_span",
-    "core", "tracing", "flight", "perf", "postmortem", "record_crash",
+    "core", "tracing", "flight", "memory", "perf", "stream",
+    "leak_census", "postmortem", "record_crash",
 ]

@@ -85,6 +85,19 @@ _incident_seq = 0
 # one monotonic origin per process so every event timestamp is comparable
 _T0 = time.monotonic()
 
+# the process id stamped on every journal event, read once (and again in
+# a forked child): os.getpid() is a system call, and on some hosts one is
+# slow enough to show in a host-bound solver loop
+_PID = os.getpid()
+
+
+def _refresh_pid() -> None:
+    global _PID
+    _PID = os.getpid()
+
+
+os.register_at_fork(after_in_child=_refresh_pid)
+
 # host identity stamped on every journal event (and postmortem bundle) so
 # journals of several hosts can be merged and re-grouped per host offline;
 # DA_TPU_TELEMETRY_HOST overrides it for simulated multi-host runs
@@ -339,7 +352,7 @@ def event(category: str, name: str | None = None, *,
                "cat": category,
                "tid": threading.get_ident(),
                "host": _HOST,
-               "pid": os.getpid()}
+               "pid": _PID}
         if name is not None:
             rec["name"] = name
         if sp is not None and "span_id" not in fields:
@@ -444,7 +457,7 @@ def _write_journal_locked(rec: dict) -> None:
                        "t": round(time.monotonic() - _T0, 6),
                        "wall": round(time.time(), 3),
                        "cat": "journal", "name": "capped",
-                       "host": _HOST, "pid": os.getpid(),
+                       "host": _HOST, "pid": _PID,
                        "bytes_written": rotated,
                        "max_bytes": _journal_max}
                 _events_total += 1
@@ -458,7 +471,7 @@ def _write_journal_locked(rec: dict) -> None:
                       "t": round(time.monotonic() - _T0, 6),
                       "wall": round(time.time(), 3),
                       "cat": "journal", "name": "rotated",
-                      "host": _HOST, "pid": os.getpid(),
+                      "host": _HOST, "pid": _PID,
                       "rotated_to": _journal_path + ".1",
                       "rotation": _journal_rotations,
                       "bytes_rotated": rotated,

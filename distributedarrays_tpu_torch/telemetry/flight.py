@@ -4,9 +4,10 @@ PyTorch counterpart of ``distributedarrays_tpu/telemetry/flight.py`` (its
 whole ``__all__``).  :func:`postmortem` snapshots the journal's in-memory
 ring, the open spans, the span aggregates, the live-DArray registry census
 (provided by the package's ``core`` through
-:func:`register_census_provider`) and the divergence events into one JSON
-bundle, stamped with the retry verdict of the classifier that
-``resilience.recovery`` registers.
+:func:`register_census_provider`), the memory ledger (its snapshot, its
+largest entries and :func:`memory.leak_census`) and the divergence events
+into one JSON bundle, stamped with the retry verdict of the classifier
+that ``resilience.recovery`` registers.
 
 Triggers: :func:`record_crash` on the failure paths of ``spmd()``, the
 divergence checker and the recovery loop (one bundle per exception
@@ -14,11 +15,8 @@ object, at most ``DA_TPU_FLIGHT_MAX`` a process); :func:`postmortem` on
 demand; SIGUSR1 (:func:`install_sigusr1`, installed on import in the main
 thread unless ``DA_TPU_FLIGHT_SIGUSR1=0``).  Bundles are written to
 ``DA_TPU_FLIGHT_DIR``, else beside the configured journal, else kept in
-memory only (:func:`last_bundle`).
-
-The port has no memory ledger yet, so a bundle carries no device-memory
-census: its ``ledger``, ``ledger_entries`` and ``leak_census`` are
-``None`` and ``memory_census`` says why, where JAX's hold the HBM ledger.
+memory only (:func:`last_bundle`).  The live plane's ``stream`` stats
+are ``{"armed": False}`` until its exporter is ported.
 """
 
 from __future__ import annotations
@@ -29,7 +27,7 @@ import threading
 import time
 import weakref
 
-from . import core, tracing
+from . import core, memory, stream, tracing
 
 __all__ = ["postmortem", "record_crash", "last_bundle",
            "install_sigusr1", "register_census_provider",
@@ -125,6 +123,10 @@ def snapshot_bundle(reason: str, exc=None) -> dict:
         census = _census_provider() if _census_provider is not None else None
     except Exception:
         census = {"error": "census provider failed"}
+    try:
+        leak = memory.leak_census()
+    except Exception:
+        leak = {"error": "leak census failed"}
     verdict = None
     if exc is not None and _classifier is not None:
         try:
@@ -145,13 +147,13 @@ def snapshot_bundle(reason: str, exc=None) -> dict:
         "ring": ring,
         "open_spans": tracing.open_spans(),
         "span_stats": tracing.span_stats(),
-        "ledger": None,
-        "ledger_entries": None,
-        "memory_census": "unavailable: the port has no memory ledger yet",
+        "ledger": memory.snapshot(),
+        "ledger_entries": memory.entries(limit=100),
         "registry_census": census,
-        "leak_census": None,
+        "leak_census": leak,
         "divergence": [e for e in ring if e.get("cat") == "divergence"],
         "journal_path": core.journal_path(),
+        "stream": stream.stats(),
     }
 
 

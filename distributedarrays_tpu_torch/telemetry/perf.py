@@ -2,7 +2,8 @@
 
 The port's copy of the cost stamps of
 ``distributedarrays_tpu/telemetry/perf.py:131-210`` (``gemm_cost``,
-``reshard_cost``, ``transfer_cost``, ``attention_cost``, ``spmv_cost``):
+``reshard_cost``, ``transfer_cost``, ``attention_cost``,
+``decode_step_cost``, ``spmv_cost``):
 pure arithmetic giving the same dicts as JAX's, stamped as span labels
 (``flops``, ``bytes_hbm``, ``bytes_ici``; ``bytes_ici`` is the bytes that
 cross a rank boundary, whatever the link).  The peak table and the
@@ -13,7 +14,7 @@ comes it holds the H100's rates.
 from __future__ import annotations
 
 __all__ = ["gemm_cost", "reshard_cost", "transfer_cost", "attention_cost",
-           "spmv_cost"]
+           "decode_step_cost", "spmv_cost"]
 
 
 def gemm_cost(m: int, n: int, k: int, itemsize: int = 4, *,
@@ -58,6 +59,23 @@ def attention_cost(s: int, h: int, d: int, itemsize: int = 4, *,
         "flops": fl,
         "bytes_hbm": 4 * int(s) * int(h) * int(d) * int(itemsize),
         "bytes_ici": (int(p) - 1) * kv if p > 1 else 0,
+    }
+
+
+def decode_step_cost(ctx_tokens: int, h: int, d: int,
+                     itemsize: int = 4, *, new_tokens: int = 1) -> dict:
+    """Stamp for one continuous-batching decode step: ``ctx_tokens``
+    resident context rows across the batch attended by ``new_tokens``
+    single-row queries: two row-by-context GEMVs a head (``4 ctx h d``
+    flops) against the whole K/V working set read once, and the new rows
+    written back (about 0.5 flop a byte in f32: bound by memory, where
+    prefill's ``attention_cost`` is bound by operations)."""
+    e = int(h) * int(d)
+    return {
+        "flops": 4 * int(ctx_tokens) * e,
+        "bytes_hbm": (2 * int(ctx_tokens) + 3 * int(new_tokens)) * e
+        * int(itemsize),
+        "bytes_ici": 0,
     }
 
 

@@ -84,6 +84,7 @@ INT8_ROUTES = ("mma", "wgmma")
 STENCIL_ROUTES = ("generic", "five_point")
 
 _lock = threading.Lock()
+_load_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches = {k: 0 for k in KERNELS}
 _routes = {k: dict.fromkeys(ROUTES, 0)
@@ -183,14 +184,21 @@ def build(stems=None) -> dict[str, Path]:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu``, built on first use."""
+    """The loaded library of ``csrc/<stem>.cu``, built on first use; one
+    build at a time, so worker threads that first launch a kernel
+    together (a server's dispatch threads, a decode engine's loop) build
+    and load it once."""
     with _lock:
         lib = _libs.get(stem)
     if lib is None:
-        so = build([stem])[stem]
-        lib = ctypes.CDLL(str(so))
-        with _lock:
-            _libs[stem] = lib
+        with _load_lock:
+            with _lock:
+                lib = _libs.get(stem)
+            if lib is None:
+                so = build([stem])[stem]
+                lib = ctypes.CDLL(str(so))
+                with _lock:
+                    _libs[stem] = lib
     return lib
 
 

@@ -5,7 +5,7 @@ histograms and comm totals, equal journal events with the timestamps and
 ids masked, and equal span names, labels and nesting; the cost stamps are
 equal dicts over a grid of shapes.  The port alone: ``DA_TPU_TELEMETRY=0``,
 the journal's round trip and size cap, ``nbytes_of`` on tensors and
-DArrays, and the flight recorder's bundle (no memory census)."""
+DArrays, and the flight recorder's bundle with its memory census."""
 
 import json
 import os
@@ -290,6 +290,10 @@ def test_cost_stamps_equal_jax(m, n, k, itemsize):
 
 
 def test_flight_bundle_without_memory_census(tmp_path, monkeypatch):
+    """A crash bundle: written once, deduped, with the open spans and the
+    registry census.  The ``memory_census`` placeholder that said the port
+    had no ledger is gone: the bundle carries the ledger, its entries and
+    the leak census instead."""
     monkeypatch.setenv("DA_TPU_FLIGHT_DIR", str(tmp_path))
     d = tdat.dzeros((4, 4))
     with TT.span("in-progress"):
@@ -306,10 +310,42 @@ def test_flight_bundle_without_memory_census(tmp_path, monkeypatch):
     assert [s["name"] for s in bundle["open_spans"]] == ["in-progress"]
     assert bundle["registry_census"]["live"] == 1
     assert bundle["registry_census"]["arrays"][0]["dims"] == [4, 4]
-    assert bundle["ledger"] is None and bundle["leak_census"] is None
-    assert "no memory ledger" in bundle["memory_census"]
+    # the bundle carries the memory ledger as JAX's does
+    assert bundle["ledger"]["live_bytes"] == 4 * 4 * 4
+    assert [e["site"] for e in bundle["ledger_entries"]] == ["ctor"]
+    assert bundle["leak_census"]["deleted_but_registered"]["count"] == 0
+    assert "memory_census" not in bundle
+    assert bundle["stream"] == {"armed": False}
     assert [e["name"] for e in TT.events("flight")] == ["postmortem"]
     d.close()
+
+
+def test_flight_bundle_census_matches_the_ledger():
+    """After a few constructors and closes, a bundle's ledger section and
+    leak census agree with the ledger: every live DArray's rank tensors
+    tracked, none stale."""
+    a = tdat.drand((37, 11))
+    b = tdat.dzeros((50, 8), dist=(4, 2))
+    c = tdat.dones((16,), dtype=torch.int32)
+    b.close()
+    e = tdat.distribute(np.arange(12.0).reshape(3, 4))
+    c.close()
+    bundle = TT.flight.snapshot_bundle("census")
+    want = sum(t.nbytes for d in (a, e) for t in d._parts.flat)
+    assert TT.memory.live_bytes() == want
+    assert bundle["ledger"] == TT.memory.snapshot()
+    assert bundle["ledger"]["live_bytes"] == want
+    assert bundle["ledger"]["tracked_arrays"] == 2
+    assert sorted(x["nbytes"] for x in bundle["ledger_entries"]) == \
+        sorted(sum(t.nbytes for t in d._parts.flat) for d in (a, e))
+    census = bundle["leak_census"]
+    assert census["ledger_tracked"] == {
+        "bytes": want, "count": a._parts.size + e._parts.size}
+    assert census["deleted_but_registered"] == {"bytes": 0, "count": 0}
+    assert census["jax_live_arrays"] >= census["ledger_tracked"]["count"]
+    a.close()
+    e.close()
+    assert TT.flight.snapshot_bundle("after")["ledger"]["live_bytes"] == 0
 
 
 def test_dump_writes_the_report(tmp_path):
