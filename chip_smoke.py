@@ -140,6 +140,26 @@
    base after each engine and server closes, the allocator's growth over
    the phase at least the ledger's peak, and a flight bundle's memory
    census.
+   Then the models phase (``models_phase``; ``python3 chip_smoke.py
+   --models`` alone): the MoE layer at Mixtral-8x7B's widths (hidden 4096,
+   FFN 14336, 8 experts, top-2, capacity factor 2.0, bf16; the experts are
+   the JAX model's two-matrix GELU FFN, not Mixtral's SwiGLU) on 8 ranks
+   of the card with 16384 tokens (2048 a rank, capacity 1024): exactly 2
+   K11 launches a forward, the output and aux loss bit for bit against the
+   same forward with the plain exchanges (``pall_to_all``), a small f32
+   shape (8 experts of (64, 128), 256 tokens; top-1, top-2, and top-2 at
+   capacity 2) against ``reference_moe`` on the card (<= 1e-4), ms a
+   forward, tokens/s and K11 at the dispatch shape against its bound; the
+   pipeline, 4 stages on 4 ranks (hidden 8192, 2 layers a stage, 16
+   microbatches of 256, f32): ``pipeline_forward`` against
+   ``reference_forward`` and 1F1B's loss and gradients against GPipe's
+   (<= 1e-5 each), ms a forward and a step, and each step's peak bytes
+   (1F1B's must be below GPipe's); k-means on 4 ranks (2^24 x 32 f32 points
+   drawn on the card around 64 centres, k = 64, 20 iterations) against a
+   whole-array plain Lloyd from the same ``C0`` (centroids <= 1e-4, labels
+   equal), ms an iteration; ``pi_estimate(10**9, batches=10)`` within 5
+   sigma of pi and ``expectation`` of ``abs`` over 10^8 draws within 5
+   standard errors of sqrt(2/pi), draws/s.
 6. Attention (the serving path):
    - the kernels against their plain versions: flash attention (K5) on
      each route, every call's launch on the route
@@ -218,6 +238,19 @@
      on 4 ranks against the same two on one rank (losses to 1e-4, flat
      parameters <= 1e-5).  Prints ms per step and
      the peak device memory;
+   - the trainer's runtime tier (``train_runtime_phase``; ``python3
+     chip_smoke.py --train-runtime`` alone) on the same task, Adam, 4 ranks
+     (a checkpoint is 3 x 478 MB): (a) 4 steps with a checkpoint every 2
+     and peer replicas (ms a step with and without a save, save s and GB/s,
+     restore s from disk and from the replica, the replica restore with no
+     disk read and bit for bit); (b) a trainer stopped after step 2 and a
+     new one resuming on its directory to step 4, its losses against (a)'s
+     (<= 1e-4, and whether bit-equal); (c) a ``device_loss`` plan at
+     ``train.step`` of step 3 on rank 3: step 2 restored from the peer
+     replica with ``checkpoint.disk_reads`` unchanged, the shrink onto ranks
+     0-2 (``gather_put``, K10), then each step on 3 ranks 1 K10 and 3 K12;
+     (d) a ``corrupt`` plan at ``checkpoint.read``: the latest step
+     quarantined and step 2 restored;
    - the ring GEMMs against their plain versions with four ranks on the
      card: K13 (4 x (2048, 1024) @ (1024, 1024)), K15 (4 x (8192, 1024) @
      (1024, 1024)) and K14 at its weight-gradient shape (4 x (1024, 8192)
@@ -267,8 +300,10 @@
    one JSON line; the all-gather and all-to-all rows also carry the
    launches of the reference surface and the reshard chain phases
    (``surface_launches``, ``reshard_spmd_launches``), and the all-to-all
-   row those of the sort, FFT and conv phase (``sort_fft_conv_launches``)
-   and its complex64 timing (``complex64``).
+   row those of the sort, FFT and conv phase (``sort_fft_conv_launches``),
+   its complex64 timing (``complex64``) and the MoE's launches
+   (``models_launches``), and the all-gather and reduce-scatter rows those
+   of the runtime tier's device-loss run (``train_runtime_launches``).
 
 ``python3 chip_smoke.py --k1-k9`` builds the GEMM and attention kernels
 alone, checks K1 on every route and the K9 rings, and times both;
@@ -4413,6 +4448,515 @@ def k3_k10_only() -> int:
     return 0
 
 
+# the models phase: the MoE layer at Mixtral-8x7B's widths (its experts are
+# the JAX model's two-matrix GELU FFN, not Mixtral's SwiGLU), the pipeline,
+# k-means and the Monte-Carlo estimators, at the sizes PERF.md section 4
+# gives
+MOE_HIDDEN, MOE_FFN, MOE_EXPERTS, MOE_K, MOE_CF = 4096, 14336, 8, 2, 2.0
+MOE_TOKENS = 16384            # 2048 a rank, capacity 1024
+MOE_SMALL = (8, 64, 128, 256)         # experts, hidden, ffn, tokens
+PP_STAGES, PP_HIDDEN, PP_LAYERS, PP_M, PP_B = 4, 8192, 2, 16, 256
+KM_N, KM_DIM, KM_K, KM_ITERS, KM_RANKS = 2 ** 24, 32, 64, 20, 4
+# centres uniform in [-4, 4]^32 (about 18 apart), points 0.02 around them,
+# all on a grid of 1/8: a cluster's coordinate sums (at most 2^23 in
+# eighths) are exact in f32 in any order, so the per-rank one-hot sums and
+# the whole-array sums agree bit for bit.  (Off the grid, f32 running sums
+# of 262144 near-equal addends round with a bias, and two orders of
+# summation differ by about 1e-3.)
+KM_SPREAD, KM_NOISE, KM_GRID = 4.0, 0.02, 8.0
+MC_PI_N, MC_PI_BATCHES, MC_EXP_N = 10 ** 9, 10, 10 ** 8
+# f32 with TF32 off: the pipeline against the sequential forward and
+# 1F1B's gradients against GPipe's differ in summation order only
+TOL_PP = 1e-5
+# k-means: per-rank one-hot sums folded over ranks against one whole-array
+# sum, 20 iterations
+TOL_KMEANS = 1e-4
+# the small MoE against reference_moe on the card, f32: gated sums of two
+# FFNs in another order
+TOL_MOE_SMALL = 1e-4
+
+
+def moe_check(tdat, errs: dict) -> dict:
+    """MoE at Mixtral-8x7B's layer widths, 8 ranks on the card, bf16."""
+    from distributedarrays_tpu_torch.models import moe
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.parallel.collectives import pall_to_all
+    kbuild = tdat.kbuild
+    tdat.init(nranks=MOE_EXPERTS)
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mesh = moe.make_ep_mesh(MOE_EXPERTS)
+    # a small shape against the dense oracle, f32
+    E, H, F, N = MOE_SMALL
+    small = moe.init_moe_params(gen, E, H, F, ranks=mesh)
+    xs = torch.randn(N, H, generator=gen, device=dev)
+    for k, cap in ((1, None), (2, None), (2, 2)):
+        got = moe.moe_forward(small, xs, mesh, capacity=cap, k=k)
+        c = cap if cap is not None else max(1, int(np.ceil(
+            MOE_CF * k * (N // E) / E)))
+        check(f"moe {E}x({H}, {F}) {N} tokens k={k} capacity={c} vs "
+              f"reference_moe", rel_err(got, moe.reference_moe(
+                  small, xs, c, E, k=k)), TOL_MOE_SMALL)
+    del small, xs
+    params = moe.init_moe_params(gen, MOE_EXPERTS, MOE_HIDDEN, MOE_FFN,
+                                 dtype=torch.bfloat16, ranks=mesh)
+    wbytes = sum(t.numel() * 2 for k in ("W1", "W2") for t in params[k])
+    x = torch.randn(MOE_TOKENS, MOE_HIDDEN, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    n_local = MOE_TOKENS // MOE_EXPERTS
+    cap = max(1, int(np.ceil(MOE_CF * MOE_K * n_local / MOE_EXPERTS)))
+
+    def fwd(a2a=None):
+        return moe.moe_forward(params, x, mesh, k=MOE_K,
+                               capacity_factor=MOE_CF, return_aux=True,
+                               _all_to_all=a2a)
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    out, aux = fwd()
+    torch.cuda.synchronize()
+    counts = kbuild.launch_counts()
+    expect_launches("moe forward (Mixtral-8x7B widths)", counts,
+                    {"all_to_all": 2})
+    out_p, aux_p = fwd(pall_to_all)
+    err = exact("moe output, K11 exchanges vs the plain ones", out, out_p)
+    exact("moe aux loss, K11 exchanges vs the plain ones", aux, aux_p)
+    if not torch.isfinite(out).all() or not torch.isfinite(aux):
+        raise AssertionError("non-finite MoE output")
+    print(f"  moe aux loss {float(aux):.6f}, capacity {cap}, weights "
+          f"{wbytes} B")
+    ms = statistics.median(event_ms(fwd)[1] for _ in range(5))
+    # K11 at this shape: the (E, C, H) bf16 dispatch buffers of 8 ranks
+    bufs = [torch.randn(MOE_EXPERTS, cap, MOE_HIDDEN, generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in mesh]
+    moved = sum(b.numel() * 2 for b in bufs)
+    got = CC.ring_all_to_all(bufs, 0, 0)
+    errs["all_to_all"] = max(errs["all_to_all"], exact(
+        "K11 at the MoE dispatch shape vs the plain all-to-all", got,
+        CC.all_to_all_plain(bufs, 0, 0)))
+    k11_ms = time_ms(lambda: CC.ring_all_to_all(bufs, 0, 0))
+    # a trace that holds no device time (the profiler can miss kernels) is
+    # no reading: None, not 0
+    k11_dev = device_ms(lambda: CC.ring_all_to_all(bufs, 0, 0)) or None
+    k11_plain = time_ms(lambda: CC.all_to_all_plain(bufs, 0, 0))
+    k11_lib = time_ms(lambda: [torch.cat([b[q:q + 1] for b in bufs])
+                               for q in range(MOE_EXPERTS)])
+    k11_bound = bound(2 * moved, 0, BF16_FLOPS)[0]
+    del bufs, got, out, out_p, x, params
+    torch.cuda.empty_cache()
+    res = {"ms_per_forward": ms, "tokens_per_s": MOE_TOKENS / (ms / 1e3),
+           "k11_launches_per_forward": counts["all_to_all"],
+           "exchange_bytes": moved, "k11_ms": k11_ms,
+           "k11_device_ms": k11_dev, "k11_plain_ms": k11_plain,
+           "k11_library_ms": k11_lib, "k11_bound_ms": k11_bound,
+           "k11_max_abs_err": err, "aux": float(aux_p),
+           "shape": f"{MOE_TOKENS} tokens x {MOE_HIDDEN}, {MOE_EXPERTS} "
+                    f"experts of ({MOE_HIDDEN}, {MOE_FFN}) gelu FFN, top-"
+                    f"{MOE_K}, capacity {cap}, bf16, 8 ranks on one card"}
+    print(f"  moe: {json.dumps(res)}")
+    return res
+
+
+def pipeline_check(tdat) -> dict:
+    """Pipeline, 4 stages on 4 ranks of the card, f32."""
+    from distributedarrays_tpu_torch.models import pipeline as PP
+    tdat.init(nranks=PP_STAGES)
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mesh = PP.make_pp_mesh(PP_STAGES)
+    params = PP.init_pipeline_params(gen, PP_STAGES, PP_HIDDEN,
+                                     n_layers=PP_LAYERS)
+    shape = (PP_M, PP_B, PP_HIDDEN)
+    mb = torch.randn(shape, generator=gen, device=dev)
+    tgt = torch.randn(shape, generator=gen, device=dev)
+    out, fwd_ms = event_ms(lambda: PP.pipeline_forward(params, mb, mesh))
+    check("pipeline_forward vs reference_forward", rel_err(
+        out, PP.reference_forward(params, mb)), TOL_PP)
+    del out
+    fwd_ms = min(fwd_ms, event_ms(
+        lambda: PP.pipeline_forward(params, mb, mesh))[1])
+    W, b = PP._norm_params(params)
+    PP._gpipe_grads(W, b, mb, tgt, mesh)          # warm-up, not measured
+    res = {}
+    for name, fn in (("gpipe", PP._gpipe_grads), ("1f1b", PP._1f1b_grads)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (gw, gb, loss), ms = event_ms(lambda: fn(W, b, mb, tgt, mesh))
+        peak = torch.cuda.max_memory_allocated()
+        # the gradients leave the card, so both steps start from one base
+        res[name] = (([g.cpu() for g in gw], [g.cpu() for g in gb],
+                      float(loss)), ms, peak, peak - base)
+        del gw, gb
+    (gw, gb, lg), g_ms, g_peak, g_over = res["gpipe"]
+    (fw, fb, lf), f_ms, f_peak, f_over = res["1f1b"]
+    check("1F1B vs GPipe: loss", abs(lf - lg) / abs(lg), TOL_PP)
+    check("1F1B vs GPipe: weight gradients", max(
+        rel_err(a, r) for a, r in zip(fw, gw)), TOL_PP)
+    check("1F1B vs GPipe: bias gradients", max(
+        rel_err(a, r) for a, r in zip(fb, gb)), TOL_PP)
+    print(f"  peak bytes a step: GPipe {g_peak} ({g_over} over the "
+          f"parameters and inputs), 1F1B {f_peak} ({f_over})")
+    if not f_peak < g_peak:
+        raise AssertionError("1F1B's peak memory is not below GPipe's")
+    # whole SGD steps, the public entry points
+    _, gstep_ms = event_ms(lambda: PP.pipeline_train_step(
+        params, mb, tgt, mesh, lr=1e-2))
+    _, fstep_ms = event_ms(lambda: PP.pipeline_train_step_1f1b(
+        params, mb, tgt, mesh, lr=1e-2))
+    out = {"forward_ms": fwd_ms, "gpipe_grad_ms": g_ms,
+           "onef1b_grad_ms": f_ms, "gpipe_step_ms": gstep_ms,
+           "onef1b_step_ms": fstep_ms, "gpipe_peak_bytes": g_peak,
+           "onef1b_peak_bytes": f_peak, "loss": lg,
+           "shape": f"{PP_STAGES} stages x {PP_LAYERS} layers of "
+                    f"{PP_HIDDEN}^2, M={PP_M} microbatches of {PP_B}, f32, "
+                    f"4 ranks on one card"}
+    del res, gw, gb, fw, fb, params, mb, tgt, W, b
+    torch.cuda.empty_cache()
+    print(f"  pipeline: {json.dumps(out)}")
+    return out
+
+
+def plain_lloyd(X: torch.Tensor, C: torch.Tensor, iters: int):
+    """Whole-array Lloyd on one tensor: ``(centroids, labels)``."""
+    k = C.shape[0]
+    for _ in range(iters):
+        d = (X * X).sum(1, keepdim=True) + (C * C).sum(1)[None] \
+            - 2.0 * (X @ C.T)
+        a = d.argmin(1)
+        counts = torch.bincount(a, minlength=k).to(X.dtype)[:, None]
+        sums = torch.zeros_like(C).index_add_(0, a, X)
+        C = torch.where(counts > 0, sums / counts.clamp(min=1.0), C)
+    d = (X * X).sum(1, keepdim=True) + (C * C).sum(1)[None] \
+        - 2.0 * (X @ C.T)
+    return C, d.argmin(1)
+
+
+def kmeans_check(tdat) -> dict:
+    """k-means on 4 ranks of the card: 2^24 x 32 f32 points around 64
+    centres, k = 64, 20 iterations."""
+    from distributedarrays_tpu_torch.models import kmeans as KM
+    tdat.init(nranks=KM_RANKS)
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    centres = KM_SPREAD * (2 * torch.rand(KM_K, KM_DIM, generator=gen,
+                                          device=dev) - 1)
+    truth = torch.randint(0, KM_K, (KM_N,), generator=gen, device=dev)
+    X = torch.round(KM_GRID * (centres[truth] + KM_NOISE * torch.randn(
+        KM_N, KM_DIM, generator=gen, device=dev))) / KM_GRID
+    d = tdat.distribute(X, dist=(KM_RANKS, 1))
+    del truth
+    (C, shifts), ms = event_ms(lambda: KM.kmeans(d, KM_K, iters=KM_ITERS,
+                                                 seed=0))
+    C0, init_ms = event_ms(lambda: KM._kmeanspp_init(d, KM_K, 0))
+    Cp, labels_p = plain_lloyd(X, torch.from_numpy(C0).to(dev), KM_ITERS)
+    check("k-means centroids vs whole-array plain Lloyd", rel_err(C, Cp),
+          TOL_KMEANS)
+    print(f"  k-means centroids bit-equal to the plain Lloyd's: "
+          f"{bool(torch.equal(C, Cp))}")
+    labels = KM.assign(d, C)
+    if labels.dtype != torch.int32 or \
+            not torch.equal(labels.full().long(), labels_p):
+        raise AssertionError("k-means labels differ from the plain "
+                             "Lloyd's")
+    print(f"  k-means labels equal ({KM_N} points), last shift "
+          f"{float(shifts[-1]):.3e}, {int(torch.unique(labels_p).numel())} "
+          "clusters used")
+    out = {"ms_per_iteration": (ms - init_ms) / KM_ITERS, "total_ms": ms,
+           "init_ms": init_ms, "last_shift": float(shifts[-1]),
+           "shape": f"{KM_N} x {KM_DIM} f32 on {KM_RANKS} ranks, "
+                    f"k={KM_K}, {KM_ITERS} iterations"}
+    d.close()
+    labels.close()
+    del X, C, Cp, labels_p
+    torch.cuda.empty_cache()
+    print(f"  kmeans: {json.dumps(out)}")
+    return out
+
+
+def montecarlo_check(tdat) -> dict:
+    """pi_estimate(10^9, batches=10) and E|X| over 10^8 draws, one rank."""
+    from distributedarrays_tpu_torch.models import montecarlo as MC
+    tdat.init()
+    est, ms = event_ms(lambda: MC.pi_estimate(MC_PI_N, seed=0,
+                                              batches=MC_PI_BATCHES))
+    sigma = float(np.sqrt(np.pi * (4 - np.pi) / MC_PI_N))
+    print(f"  pi_estimate({MC_PI_N}) = {est!r}, {abs(est - np.pi) / sigma:.2f}"
+          " sigma from pi")
+    if not abs(est - np.pi) < 5 * sigma:
+        raise AssertionError("pi_estimate is more than 5 sigma from pi")
+    (e, se), ems = event_ms(lambda: MC.expectation(torch.abs, MC_EXP_N))
+    truth = float(np.sqrt(2 / np.pi))
+    print(f"  expectation(abs, {MC_EXP_N}) = {e!r} +- {se!r}, "
+          f"{abs(e - truth) / se:.2f} SE from sqrt(2/pi)")
+    if not abs(e - truth) < 5 * se:
+        raise AssertionError("expectation is more than 5 SE from the truth")
+    out = {"pi": est, "pi_ms": ms, "pi_points_per_s": MC_PI_N / (ms / 1e3),
+           "expectation": e, "se": se, "expectation_ms": ems,
+           "expectation_draws_per_s": MC_EXP_N / (ems / 1e3)}
+    print(f"  montecarlo: {json.dumps(out)}")
+    return out
+
+
+def models_phase(tdat, errs: dict) -> dict:
+    """``models``: MoE, pipeline, k-means and Monte Carlo on the card (see
+    the module docstring, step 5)."""
+    print("phase models")
+    t_phase = time.perf_counter()
+    tdat.d_closeall()
+    out = {"moe": moe_check(tdat, errs), "pipeline": pipeline_check(tdat),
+           "kmeans": kmeans_check(tdat), "montecarlo": montecarlo_check(tdat)}
+    out["launches"] = {"all_to_all": out["moe"]["k11_launches_per_forward"]}
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  models {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"models": out}))
+    return out
+
+
+def models_only() -> int:
+    """``--models``: build the collective kernels and run the models phase
+    alone (``models_phase``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.utils import kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    kbuild.build(["collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    errs = {k: 0.0 for k in kbuild.KERNELS}
+    res = models_phase(tdat, errs)
+    print(json.dumps({"models_launches": res["launches"], "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _counting_attempts(trainer, log: list):
+    """Record each step attempt's rank count and its K10 and K12 launches
+    (the trainer's ``_attempt_step``, wrapped on the instance)."""
+    kbuild = sys.modules["distributedarrays_tpu_torch.utils.kbuild"]
+    inner = trainer._attempt_step
+
+    def attempt():
+        before = kbuild.launch_counts()
+        ranks = trainer._ranks_now()
+        try:
+            return inner()
+        finally:
+            after = kbuild.launch_counts()
+            log.append((len(ranks), after["all_gather"] - before["all_gather"],
+                        after["reduce_scatter"] - before["reduce_scatter"]))
+    trainer._attempt_step = attempt
+
+
+def train_runtime_phase(tdat) -> dict:
+    """``train-runtime``: the trainer's checkpoint and recovery tier on
+    ``transformer_task(8192, 1024, 16, 8, seq 2048, batch 8)`` (f32, Adam),
+    4 ranks on the card (see the module docstring, step 7)."""
+    import shutil
+    import tempfile
+    from distributedarrays_tpu_torch import telemetry as tm
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    from distributedarrays_tpu_torch.utils import checkpoint as CK
+    train, kbuild = tdat.train, tdat.kbuild
+    print(f"phase train-runtime (4 ranks on one card, transformer_task "
+          f"{TRAINER_CFG}, f32, adam)")
+    t_phase = time.perf_counter()
+    tdat.d_closeall()
+    tdat.init(nranks=4)
+    faults.clear()
+    elastic.manager().reset()
+    tm.enable()
+    task = train.transformer_task(**TRAINER_CFG)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        def trainer(sub, **kw):
+            kw.setdefault("save_every", 2)
+            return train.Trainer(task, train.adam(1e-4),
+                                 ckpt_dir=os.path.join(root, sub),
+                                 max_to_keep=2, **kw)
+
+        # (a) 4 steps, a checkpoint every 2, peer replicas
+        step_ms, losses_a = [], []
+        with trainer("a", peer_replicas=True) as t:
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses_a.append(t.step_once())
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            if t.flat_params().numel() != trainer_params():
+                raise AssertionError("unexpected parameter count")
+            tree = t._ckpt_tree()
+            nbytes = sum(int(np.prod(tree[k].dims)) * 4 for k in tree
+                         if k != "step")
+            t0 = time.perf_counter()
+            CK.save(os.path.join(root, "timed"), tree)
+            save_s = time.perf_counter() - t0
+            disk0 = tm.counter_value("checkpoint.disk_reads")
+            t0 = time.perf_counter()
+            rep = t._mgr.restore(4)
+            torch.cuda.synchronize()
+            replica_s = time.perf_counter() - t0
+            if tm.counter_value("checkpoint.disk_reads") != disk0:
+                raise AssertionError("the replica restore read the disk")
+            exact("replica restore of step 4: parameters",
+                  rep["pflat"].full(), t._state["pflat"].full())
+            for k in ("pflat", "m0", "m1"):
+                rep[k].close()
+        t0 = time.perf_counter()
+        disk = CK.load(os.path.join(root, "timed"))
+        torch.cuda.synchronize()
+        disk_s = time.perf_counter() - t0
+        for k in ("pflat", "m0", "m1"):
+            disk[k].close()
+        shutil.rmtree(os.path.join(root, "timed"))
+        print(f"  (a) losses {losses_a}, step ms {step_ms}")
+        if not all(np.isfinite(losses_a)):
+            raise AssertionError(f"non-finite losses {losses_a}")
+        # steps 2 and 4 each end with a save; step 1 builds the kernels
+        out["a"] = {"losses": losses_a, "step_ms": step_ms,
+                    "step_ms_no_save": step_ms[2],
+                    "step_ms_with_save": statistics.median(
+                        [step_ms[1], step_ms[3]]),
+                    "checkpoint_bytes": nbytes, "save_s": save_s,
+                    "save_gb_per_s": nbytes / save_s / 1e9,
+                    "restore_disk_s": disk_s,
+                    "restore_replica_s": replica_s}
+        # (b) stop after step 2, resume on the same directory, run to 4
+        with trainer("b") as t:
+            t.fit(2)
+        with trainer("b") as t:
+            res = t.fit(4)
+        if res["start"] != 2:
+            raise AssertionError(f"resumed from {res['start']}, not 2")
+        bit_equal = res["losses"] == losses_a[2:]
+        check("resumed steps 3-4 vs uninterrupted: losses", max(
+            abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                losses_a[2:])),
+              TOL_TRAINER_LOSS)
+        print(f"  (b) resumed losses {res['losses']}, bit-equal to (a): "
+              f"{bit_equal}")
+        out["b"] = {"losses": res["losses"], "bit_equal": bit_equal}
+        shutil.rmtree(os.path.join(root, "b"))
+        # (c) rank 3 lost at the top of step 3: restore step 2 from the peer
+        # replica, shrink onto ranks 0-2, finish there
+        faults.configure(plan=[
+            {"site": "train.step", "match": {"step": 3},
+             "action": "device_loss", "at": 1, "count": 1, "device": 3}],
+            seed=0)
+        log = []
+        disk0 = tm.counter_value("checkpoint.disk_reads")
+        peer0 = tm.counter_value("checkpoint.restore_source", source="peer")
+        with trainer("c", peer_replicas=True) as t:
+            _counting_attempts(t, log)
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            res = t.fit(4)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            counts = kbuild.launch_counts()
+            pids = [int(p) for p in t._state["pflat"].pids.flat]
+        faults.clear()
+        live = elastic.manager().live_ranks()
+        print(f"  (c) attempts (ranks, K10, K12) {log}, live {live}, "
+              f"losses {res['losses']}")
+        if tm.counter_value("checkpoint.disk_reads") != disk0 or \
+                tm.counter_value("checkpoint.restore_source",
+                                 source="peer") != peer0 + 1:
+            raise AssertionError("the device-loss restore did not come "
+                                 "from the peer replica alone")
+        if live != [0, 1, 2] or pids != [0, 1, 2]:
+            raise AssertionError(f"not shrunk onto ranks 0-2: live {live}, "
+                                 f"state on {pids}")
+        # steps 1-3 on 4 ranks, step 4 lost at its top, steps 3-4 again on
+        # 3 ranks: 1 K10 and a K12 a rank each
+        if log != [(4, 1, 4)] * 3 + [(4, 0, 0)] + [(3, 1, 3)] * 2:
+            raise AssertionError(f"unexpected attempts {log}")
+        # the shrink's moves: gather_put (K10) where 3 does not divide the
+        # vector (119555072 = 3 x 39851690 + 2 at full width), else K11
+        shrink_k10 = counts["all_gather"] - sum(a[1] for a in log)
+        shrink_k11 = counts["all_to_all"]
+        print(f"  (c) the shrink launched {shrink_k10} K10 and {shrink_k11} "
+              "K11")
+        if shrink_k10 + shrink_k11 <= 0:
+            raise AssertionError("the shrink launched no copy kernel")
+        check("steps 3-4 on 3 ranks vs 4 ranks: losses", max(
+            abs(a - b) / abs(b) for a, b in zip(res["losses"][2:],
+                                                losses_a[2:])),
+              TOL_TRAINER_LOSS)
+        out["c"] = {"attempts": log, "shrink_k10_launches": shrink_k10,
+                    "shrink_k11_launches": shrink_k11,
+                    "losses": res["losses"], "fit_s": fit_s}
+        elastic.manager().reset()
+        shutil.rmtree(os.path.join(root, "c"))
+        # (d) a corrupt read of the latest step: quarantine, fall back
+        faults.configure(plan=[
+            {"site": "checkpoint.read", "action": "corrupt", "at": 1,
+             "count": 1}], seed=1)
+        q0 = tm.counter_value("checkpoint.quarantines")
+        mgr = CK.CheckpointManager(os.path.join(root, "a"), async_save=False)
+        tree = mgr.restore()
+        faults.clear()
+        for k in ("pflat", "m0", "m1"):
+            tree[k].close()
+        if tree["step"] != 2 or mgr.steps() != [2] or \
+                tm.counter_value("checkpoint.quarantines") != q0 + 1 or \
+                not os.path.isdir(os.path.join(
+                    root, "a", ".quarantine_step_00000004")):
+            raise AssertionError("the corrupt step 4 was not quarantined "
+                                 "with a fall back to step 2")
+        mgr.close()
+        print("  (d) corrupt step 4 quarantined, restored step 2")
+        out["d"] = {"restored_step": tree["step"]}
+    finally:
+        faults.clear()
+        elastic.manager().reset()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {
+        "all_gather": sum(a[1] for a in out["c"]["attempts"])
+        + out["c"]["shrink_k10_launches"],
+        "reduce_scatter": sum(a[2] for a in out["c"]["attempts"])}
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    tdat.init()
+    print(f"  train-runtime {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"train_runtime": out}))
+    return out
+
+
+def train_runtime_only() -> int:
+    """``--train-runtime``: build the attention and collective kernels and
+    run the trainer's runtime phase alone (``train_runtime_phase``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.utils import kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    kbuild.build(["attention", "attention_bwd", "collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    res = train_runtime_phase(tdat)
+    print(json.dumps({"train_runtime_launches": res["launches"],
+                      "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4617,6 +5161,7 @@ def main() -> int:
     sfc = sort_fft_conv(tdat, cuda_collectives)
     slv = solvers_phase(tdat, errs)
     srv = serve_phase(tdat, errs)
+    mdl = models_phase(tdat, errs)
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
@@ -4628,6 +5173,7 @@ def main() -> int:
     ring_gemm_kernels(randn, errs)
     counts_train = training(tdat, dev)
     counts_trainer = trainer_phase(tdat)
+    trt = train_runtime_phase(tdat)
     counts_sp_train = sp_training(tdat, dev)
 
     # -- 8. ranks on several cards ------------------------------------------
@@ -4813,6 +5359,10 @@ def main() -> int:
                 k: v[name] for k, v in slv["launches"].items()}
         if name in srv["launches"]:
             kern["serve_launches"] = srv["launches"][name]
+        if name in mdl["launches"]:
+            kern["models_launches"] = mdl["launches"][name]
+        if name in trt["launches"]:
+            kern["train_runtime_launches"] = trt["launches"][name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4952,6 +5502,8 @@ if __name__ == "__main__":
              else sort_fft_conv_only() if sys.argv[1:] == ["--sort-fft-conv"]
              else solvers_only() if sys.argv[1:] == ["--solvers"]
              else serve_only() if sys.argv[1:] == ["--serve"]
+             else models_only() if sys.argv[1:] == ["--models"]
+             else train_runtime_only() if sys.argv[1:] == ["--train-runtime"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

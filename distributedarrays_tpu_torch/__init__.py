@@ -57,6 +57,19 @@ names::
                                        layers=8, seq=2048, batch_size=8)
     with tdat.train.Trainer(task, tdat.train.adam(1e-4)) as t:
         losses = t.fit(3)["losses"]
+    with tdat.Trainer(task, ckpt_dir="ckpt", save_every=2,
+                      peer_replicas=True) as t:   # resume, recovery
+        t.fit(4)
+    tdat.checkpoint.save("ckpt/x", {"d": d, "step": 3})   # JAX's format
+    tree = tdat.checkpoint.load("ckpt/x")
+
+    mesh = tdat.moe.make_ep_mesh(8)           # one expert a rank
+    p = tdat.moe.init_moe_params(gen, 8, 4096, 14336, torch.bfloat16)
+    y, aux = tdat.moe.moe_forward(p, x, mesh, k=2, return_aux=True)  # K11
+    pp = tdat.pipeline.init_pipeline_params(gen, 4, 8192, n_layers=2)
+    out = tdat.pipeline.pipeline_forward(pp, mb, tdat.pipeline.make_pp_mesh(4))
+    C, shifts = tdat.kmeans.kmeans(tdat.drand((10 ** 6, 32)), 64)
+    est = tdat.montecarlo.pi_estimate(10 ** 9, batches=10)
 
 Entry points run on the CUDA devices unless ``init(device="cpu")`` asks for
 the CPU; without a CUDA device and without that request they raise.  The
@@ -101,7 +114,8 @@ from .ops.linalg import (axpy_, dadjoint, ddot, dmatmul_int8, dnorm,
                          dtranspose, lmul_, lmul_diag, matmul, mul_into,
                          rmul_, rmul_diag, tune_matmul_impl,
                          tune_matmul_impl_dist, tune_matmul_impl_summa)
-from .models import mlp, sp_transformer, stencil, transformer, ulysses
+from .models import (kmeans, mlp, moe, montecarlo, pipeline, sp_transformer,
+                     stencil, transformer, ulysses)
 from .models.ring_attention import (reference_attention, ring_attention,
                                     ring_attention_prefill,
                                     ring_flash_attention, zigzag_order,
@@ -113,7 +127,7 @@ from .models.stencil import (life, life2d, life_step, stencil3x3, stencil5,
 from .models.ulysses import ulysses_attention
 from .interop import (from_reference, params_from_reference,
                       params_to_reference, to_reference)
-from .utils import autotune, kbuild
+from .utils import autotune, checkpoint, kbuild
 from . import serve, solvers, train
 from .train import Trainer
 
@@ -153,7 +167,8 @@ __all__ = [
     "ring_attention_prefill", "reference_attention", "ulysses_attention",
     "zigzag_order", "zigzag_shard", "zigzag_unshard", "zigzag_ring_attention",
     "zigzag_ring_flash_attention",
-    "transformer", "sp_transformer", "mlp", "train", "Trainer",
+    "transformer", "sp_transformer", "mlp", "pipeline", "moe", "kmeans",
+    "montecarlo", "train", "Trainer", "checkpoint", "autotune", "kbuild",
     "from_reference", "to_reference", "params_from_reference",
     "params_to_reference",
 ]

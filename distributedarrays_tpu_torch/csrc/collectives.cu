@@ -12,10 +12,13 @@
 //   one launch per card copies every source's block or piece straight to
 //   its final offset in each of that card's destination outputs, so there
 //   is no staging, no ring order and no semaphore.  `da_copy_pieces` is
-//   that launch: up to MAXP strided source boxes (3 outer dims and one
-//   contiguous run, all in bytes), each with the list of destinations it
-//   goes to (MAXP copies in all; the wrapper's `copy_launches` groups
-//   them).  A warp copies one unit of 32 lanes x COPY_UNROLL accesses of
+//   that launch: up to COPY_MAXP strided source boxes (3 outer dims and
+//   one contiguous run, all in bytes), each with the list of destinations
+//   it goes to (COPY_MAXP copies in all; the wrapper's `copy_launches`
+//   groups them).  COPY_MAXP is 64 where the toolkit takes kernel
+//   parameters above 4 KB (CUDA 12.1 on sm_70 and later; the plan is
+//   7.2 KB), so an all-to-all of 8 ranks on one card is one launch; else
+//   MAXP (32).  `da_copy_maxp` reports it.  A warp copies one unit of 32 lanes x COPY_UNROLL accesses of
 //   16, 4 or 1 bytes, whichever the source and all its destinations allow:
 //   each lane issues its COPY_UNROLL loads (ld.global.nc) before any store,
 //   then stores the unit to every destination, so an all-gather reads each
@@ -115,6 +118,11 @@ namespace {
 using bf = __nv_bfloat16;
 
 constexpr int MAXP = 32;
+#if CUDART_VERSION >= 12010
+constexpr int COPY_MAXP = 64;
+#else
+constexpr int COPY_MAXP = MAXP;
+#endif
 constexpr int COPY_THREADS = 256;
 constexpr int RING_COPY_BLOCKS = 32;
 
@@ -139,8 +147,8 @@ struct CopyDst {
 };
 
 struct CopyPlan {
-  CopySrc s[MAXP];
-  CopyDst d[MAXP];
+  CopySrc s[COPY_MAXP];
+  CopyDst d[COPY_MAXP];
   int nsrc;
 };
 
@@ -647,7 +655,7 @@ extern "C" int da_reduce_pieces(int n, const void* const* src,
 // ndst[q] destinations (the next ndst[q] of dst / dst_strides, in order)
 // with accesses of vec[q] bytes.  Pointers may be of peer devices.  Returns
 // the cudaGetLastError() code of the launch, or cudaErrorInvalidValue for
-// more than MAXP sources or destinations, a vec the addresses do not
+// more than COPY_MAXP sources or destinations, a vec the addresses do not
 // allow, or a box too large for 32-bit unit indices.
 extern "C" int da_copy_pieces(int nsrc, const void* const* src,
                               const long long* src_strides,
@@ -657,13 +665,14 @@ extern "C" int da_copy_pieces(int nsrc, const void* const* src,
                               const long long* dst_strides, int device,
                               void* stream) {
   if (nsrc <= 0) return 0;
-  if (nsrc > MAXP) return (int)cudaErrorInvalidValue;
+  if (nsrc > COPY_MAXP) return (int)cudaErrorInvalidValue;
   CopyPlan plan;
   plan.nsrc = 0;
   long long total = 0;
   int nd = 0;
   for (int q = 0; q < nsrc; ++q) {
-    if (ndst[q] < 1 || nd + ndst[q] > MAXP) return (int)cudaErrorInvalidValue;
+    if (ndst[q] < 1 || nd + ndst[q] > COPY_MAXP)
+      return (int)cudaErrorInvalidValue;
     const long long v = vec[q];
     if (v != 16 && v != 4 && v != 1) return (int)cudaErrorInvalidValue;
     long long acc = (long long)(uintptr_t)src[q] | row_bytes[q];
@@ -713,6 +722,10 @@ extern "C" int da_copy_pieces(int nsrc, const void* const* src,
                 static_cast<cudaStream_t>(stream)>>>(plan);
   return (int)cudaGetLastError();
 }
+
+// The most copies (sources, and destinations in all) one da_copy_pieces
+// launch takes.
+extern "C" int da_copy_maxp() { return COPY_MAXP; }
 
 namespace {
 

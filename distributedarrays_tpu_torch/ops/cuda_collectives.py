@@ -39,7 +39,9 @@ not used.
   All four pull.  The all-gather, all-to-all and chain step make one
   launch per card
   (``copy_launches`` groups the copies: each source with every destination
-  on the card that takes it, at most ``MAXP`` copies a launch), which
+  on the card that takes it, at most ``copy_maxp()`` copies a launch: 64
+  where the toolkit takes kernel parameters above 4 KB, else ``MAXP``),
+  which
   copies every source's block or piece straight to its final offset in
   each destination output, reading the source once (pure data movement,
   bit-identical to the plain version).  The reduce-scatter makes one launch
@@ -211,6 +213,7 @@ _fns: dict = {}
 _ARGTYPES = {
     "da_copy_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 8 +
     [ctypes.c_int, ctypes.c_void_p],
+    "da_copy_maxp": [],
     "da_reduce_pieces": [ctypes.c_int] + [ctypes.c_void_p] * 3 +
     [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p],
@@ -325,8 +328,15 @@ def _copy_launch(launch, dev: torch.device, kernel: str) -> None:
     kbuild.count(kernel)
 
 
+def copy_maxp() -> int:
+    """The most copies one copy launch takes: 64 where the kernels were
+    built by a toolkit that takes kernel parameters above 4 KB (CUDA 12.1),
+    else ``MAXP`` (``collectives.cu`` ``COPY_MAXP``)."""
+    return _fn("da_copy_maxp")()
+
+
 def _copy_on_card(copies, dev: torch.device, kernel: str) -> None:
-    for launch in copy_launches(copies):
+    for launch in copy_launches(copies, copy_maxp()):
         _copy_launch(launch, dev, kernel)
 
 
@@ -499,7 +509,8 @@ def ring_all_to_allv(arrays, counts) -> list[list[torch.Tensor]]:
     of each of its tensors.  Rank q gets, for each array, every rank's
     piece concatenated in rank order, on its own device.  For CUDA tensors
     one copy launch a card moves every piece of every array (the K11 copy
-    kernel, counted as ``all_to_all``; at most ``MAXP`` pieces a launch),
+    kernel, counted as ``all_to_all``; at most ``copy_maxp()`` pieces a
+    launch),
     each read once and stored at its final offset; the plain version for
     CPU tensors."""
     arrays = [list(a) for a in arrays]

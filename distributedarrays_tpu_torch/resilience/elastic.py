@@ -66,19 +66,28 @@ def _moved_parts(d, pids: np.ndarray, cuts) -> np.ndarray:
     return parts
 
 
-def relayout(d, ranks: list[int]) -> bool:
-    """Re-lay DArray ``d`` onto ``ranks`` (its default layout there) in
-    place (JAX ``elastic.py:67``).  Returns True when it moved, False when
-    it already has that layout.  The new tensors are built before any
-    metadata changes, so a failed move leaves ``d`` as it was."""
+def relayout(d, ranks: list[int], cuts=None) -> bool:
+    """Re-lay DArray ``d`` onto ``ranks`` in place (JAX ``elastic.py:67``):
+    on its default layout there, or on the cut vectors ``cuts`` over the
+    first ranks (the trainer's shard cuts).  Returns True when it moved,
+    False when it already has that layout.  The new tensors are built
+    before any metadata changes, so a failed move leaves ``d`` as it
+    was."""
     ranks = [int(r) for r in ranks]
     if not ranks:
         raise ValueError("cannot re-lay-out onto an empty device set")
     dims = tuple(d.dims)
-    grid = tuple(int(c) for c in L.defaultdist(dims, ranks))
+    if cuts is None:
+        grid = tuple(int(c) for c in L.defaultdist(dims, ranks))
+        idxs, cuts = L.chunk_idxs(dims, grid)
+    else:
+        grid = tuple(len(c) - 1 for c in cuts)
+        idxs = L.idxs_from_cuts(cuts, grid)
     need = int(np.prod(grid)) if grid else 1
+    if need > len(ranks):
+        raise ValueError(f"layout {grid} needs {need} ranks, got "
+                         f"{len(ranks)}")
     use = ranks[:need]
-    idxs, cuts = L.chunk_idxs(dims, grid)
     cuts = [[int(x) for x in c] for c in cuts]
     if list(use) == [int(p) for p in d.pids.flat] and cuts == d.cuts:
         return False

@@ -26,10 +26,16 @@ Instrumented sites of the port (the JAX package's names and labels):
 ``reshard.chunk``         before the collective lowering of a planned
                           reshard (labels: ``strategy``, ``op``)
 ``solver.iterate``        each Krylov iteration (labels: ``solver``)
+``checkpoint.write``      after the payload, before the publish marker
+                          (labels: ``store``)
+``checkpoint.read``       after the payload read, before its CRC check; a
+                          ``corrupt`` spec flips its bytes (labels:
+                          ``store``, ``path``)
+``train.step``            the top of every trainer step (labels: ``step``,
+                          ``epoch``)
+``grad.sync``             between the per-rank gradients and the K10/K12
+                          sync (labels: ``step``)
 ========================  ====================================================
-
-The checkpoint and trainer sites (``checkpoint.write``/``read``,
-``train.step``, ``grad.sync``) come with those modules (ROADMAP queue A).
 
 Plan format (``DA_TPU_FAULT_PLAN``: inline JSON, or a path to a JSON
 file), a list of spec objects::

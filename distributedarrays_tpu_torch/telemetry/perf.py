@@ -3,7 +3,7 @@
 The port's copy of the cost stamps of
 ``distributedarrays_tpu/telemetry/perf.py:131-210`` (``gemm_cost``,
 ``reshard_cost``, ``transfer_cost``, ``attention_cost``,
-``decode_step_cost``, ``spmv_cost``):
+``decode_step_cost``, ``spmv_cost``, and ``train_step_cost`` of :223):
 pure arithmetic giving the same dicts as JAX's, stamped as span labels
 (``flops``, ``bytes_hbm``, ``bytes_ici``; ``bytes_ici`` is the bytes that
 cross a rank boundary, whatever the link).  The peak table and the
@@ -14,7 +14,7 @@ comes it holds the H100's rates.
 from __future__ import annotations
 
 __all__ = ["gemm_cost", "reshard_cost", "transfer_cost", "attention_cost",
-           "decode_step_cost", "spmv_cost"]
+           "decode_step_cost", "spmv_cost", "train_step_cost"]
 
 
 def gemm_cost(m: int, n: int, k: int, itemsize: int = 4, *,
@@ -94,4 +94,22 @@ def spmv_cost(nnz: int, rows: int, itemsize: int = 4, *,
         "bytes_hbm": int(nnz) * (int(itemsize) + int(index_itemsize))
         + 2 * int(rows) * int(itemsize),
         "bytes_ici": int(bytes_ici),
+    }
+
+
+def train_step_cost(n_params: int, p: int, *, flops: float = 0.0,
+                    batch_bytes: int = 0, itemsize: int = 4,
+                    nslots: int = 2) -> dict:
+    """Stamp for one data-parallel ZeRO-1 training step over ``p`` ranks:
+    one all-gather of the parameter shards and one reduce-scatter of the
+    full gradients (``2 (p - 1) n_params itemsize`` across ranks), and
+    ``3 + 2 nslots`` parameter-vector passes through HBM (read parameters,
+    gradients and each optimizer moment; write parameters and each moment)
+    plus the batch read once.  ``flops`` is the task's forward + backward
+    estimate."""
+    n = int(n_params) * int(itemsize)
+    return {
+        "flops": float(flops),
+        "bytes_hbm": (3 + 2 * int(nslots)) * n + int(batch_bytes),
+        "bytes_ici": 2 * (int(p) - 1) * n if p > 1 else 0,
     }

@@ -1,8 +1,8 @@
-"""Data-parallel trainer over DArrays, with its gradient sync on the
-collective kernels.
+"""Chaos-survivable data-parallel trainer over DArrays, with its gradient
+sync on the collective kernels.
 
-PyTorch counterpart of the training arc of ``distributedarrays_tpu/train/
-trainer.py`` (``Trainer``, ``StragglerDetector``, ``fit_result``):
+PyTorch counterpart of ``distributedarrays_tpu/train/trainer.py``
+(``Trainer``, ``StragglerDetector``, ``DeadRankError``, ``fit_result``):
 
 - The parameters are one flat f32 vector in ``jax.tree_util``'s leaf order
   (dict keys sorted, lists in order), so it equals the JAX trainer's
@@ -10,30 +10,52 @@ trainer.py`` (``Trainer``, ``StragglerDetector``, ``fit_result``):
   count p, and split evenly into ``ppad / p`` shards, one per rank: the
   ZeRO-1 layout, every optimizer moment split the same way.  The state
   lives in DArrays (``pflat``, ``m0``, ``m1``) whose cuts are those shards
-  cut back to the vector's length; the JAX trainer's DArray keeps the
-  default cuts and pads its global array instead, and the two differ when
-  p does not divide the parameter count.
+  cut back to the vector's length (the shard cuts); the JAX trainer's
+  DArray keeps the default cuts and pads its global array instead, and the
+  two differ when p does not divide the parameter count.
 - One step: K10 all-gathers the shards (``ring_all_gather``, one launch
-  per rank); each rank computes its loss and the gradient of it with
+  a card); each rank computes its loss and the gradient of it with
   autograd on its shard of the batch, padded with weight-0 rows to a
   multiple of p, which stay inert; K12 reduce-scatters the full-length
   gradients (``ring_reduce_scatter``, one launch per rank); each rank's
   slice is divided by the real batch size and updated elementwise by the
   optimizer; the slices are written back into the DArrays.  The loss is
   the f32 sum of the ranks' weighted sums over the real batch size.
-
-Left out of the signature (the runtime tier; passing one fails):
-``ckpt_dir``, ``save_every``, ``policy``, ``step_deadline_s``,
-``async_save``, ``max_to_keep`` and ``peer_replicas``, and with them
-recovery, the elastic relayout, the fault sites, the straggler probe and
-the telemetry spans.  The ``StragglerDetector`` is fed each step's time
-after the first (which builds the kernels), and ``stragglers`` counts the
-steps that exceeded its budget.
+- The rank set is ``elastic.manager().live_ranks()``, or the live ranks of
+  the pinned ``ranks`` (none live raises: a pinned run never moves onto
+  ranks the caller left out).  Before each step every state DArray that is
+  not on the shard cuts of the step's ranks is re-laid onto them in place
+  with ``elastic.relayout(d, ranks, cuts)`` (the reshard planner's
+  all-to-all or chain where the cuts divide the vector evenly, else
+  ``gather_put`` onto the ranks and each keeping its window; K10/K11 on
+  the card).  That is what a resume onto another rank set, a restore
+  (which comes back on the saved cuts) and an ``elastic.shrink()`` (which
+  leaves the default cuts over the survivors) all need.
+- With ``ckpt_dir`` a ``CheckpointManager`` publishes ``{"step", "pflat",
+  "m0", ...}`` every ``save_every`` steps (``peer_replicas``: also into
+  buddy-rank memory); a new trainer on the directory resumes from the
+  latest verified step.  Each step runs under
+  ``recovery.run_with_recovery`` (``policy``; ``step_deadline_s`` is the
+  per-step ``max_elapsed_s``); a device loss restores the last step
+  (``_adopt``: a checkpoint missing an optimizer slot fails diagnosably
+  after closing what was restored, surplus slots are closed, later steps
+  are discarded), shrinks onto the survivors and recomputes.
+- Straggler probe: the step's wall time (the card synchronized) feeds a
+  rolling p99 budget (``StragglerDetector``); the first step on a rank set
+  or batch shape, and a step that built a kernel, neither feed nor are
+  judged.  An exceeded budget probes the elastic set, and a dead rank of
+  the step raises :class:`DeadRankError` (a device loss) before the
+  update is written, so a retried step is never applied twice.
+- Fault sites ``train.step`` (the top of a step) and ``grad.sync``
+  (between the per-rank gradients and the K10/K12 sync); spans
+  ``train.step`` (stamped with ``perf.train_step_cost``), ``train.grad``
+  and ``train.sync``; the ``train.step_s`` gauge and stream point.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 import time
 from typing import Sequence
@@ -41,13 +63,30 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import telemetry as _tm
 from ..darray import from_chunks
-from ..layout import all_ranks, device_of
+from ..layout import device_of
 from ..ops.cuda_collectives import ring_all_gather, ring_reduce_scatter
+from ..resilience import elastic, faults, recovery
+from ..telemetry import stream as _tstream
+from ..utils import kbuild
 from .optim import Optimizer, adam
 from .tasks import TrainTask
 
-__all__ = ["Trainer", "StragglerDetector", "fit_result"]
+__all__ = ["Trainer", "StragglerDetector", "DeadRankError", "fit_result"]
+
+
+class DeadRankError(RuntimeError):
+    """A straggler probe confirmed a rank's device is gone.  The message
+    carries the ``device lost`` fingerprint, so ``recovery.classify``
+    reaches the ``device_loss`` verdict (restore, shrink, retry)."""
+
+    def __init__(self, ranks, budget_s: float, dur_s: float):
+        self.ranks = sorted(int(r) for r in ranks)
+        super().__init__(
+            f"straggler probe confirmed rank(s) {self.ranks} device lost "
+            f"(step took {dur_s:.3f}s against a {budget_s:.3f}s rolling "
+            f"p99 budget)")
 
 
 class StragglerDetector:
@@ -99,25 +138,54 @@ def _rebuild(tree, leaves):
     return next(leaves)
 
 
+def _close_all(ds) -> None:
+    for d in ds:
+        try:
+            d.close()
+        except Exception:  # noqa: BLE001 — already closed is fine
+            pass
+
+
 class Trainer:
-    """Data-parallel trainer over DArrays (module docstring).  ``ranks``
-    pins the rank set (default: every rank of the table); ``seed`` seeds
-    the ``torch.Generator`` that ``task.init_params`` draws from."""
+    """Data-parallel trainer over DArrays (module docstring).
+
+    ``ckpt_dir=None`` trains without durable state (recovery retries from
+    live state).  ``async_save`` defaults to False: the chaos runs need the
+    set of published steps at a fault to depend on the step index alone.
+    ``ranks`` pins the rank set (intersected with the elastic live set
+    each attempt); ``seed`` seeds the ``torch.Generator`` that
+    ``task.init_params`` draws from."""
 
     def __init__(self, task: TrainTask, optimizer: Optimizer | None = None,
+                 ckpt_dir=None, save_every: int = 0,
+                 step_deadline_s: float | None = None,
+                 policy: recovery.RetryPolicy | None = None,
                  straggler: StragglerDetector | None = None,
-                 ranks: Sequence[int] | None = None, seed: int = 0):
+                 ranks: Sequence[int] | None = None,
+                 seed: int = 0, async_save: bool = False,
+                 max_to_keep: int | None = None,
+                 peer_replicas: bool = False):
         self.task = task
         self.opt = optimizer or adam()
+        self.save_every = int(save_every)
+        self.step_deadline_s = step_deadline_s
         self.straggler = straggler or StragglerDetector()
         self.stragglers = 0
-        self._ranks = [int(r) for r in ranks] if ranks else all_ranks()
+        self._policy = policy
+        self._pin_ranks = [int(r) for r in ranks] if ranks else None
         self.seed = int(seed)
+        self._mgr = None
+        if ckpt_dir is not None:
+            from ..utils.checkpoint import CheckpointManager, \
+                PeerReplicaStore
+            self._mgr = CheckpointManager(
+                ckpt_dir, async_save=async_save, max_to_keep=max_to_keep,
+                replicas=PeerReplicaStore() if peer_replicas else None)
         self._step = 0
         self._losses: dict[int, float] = {}
         self._state: dict | None = None       # name -> DArray
         self._spec = None                     # (index tree, shapes, n)
-        self._timed = False
+        self._seen: set = set()               # (ranks, batch shapes) run
         self._closed = False
 
     # -- flat parameter vector ---------------------------------------------
@@ -141,30 +209,99 @@ class Trainer:
             off += k
         return views
 
-    # -- state ---------------------------------------------------------------
+    # -- rank set / state ------------------------------------------------------
+
+    def _ranks_now(self) -> list[int]:
+        live = elastic.manager().live_ranks()
+        if self._pin_ranks is not None:
+            pinned = [r for r in self._pin_ranks if r in live]
+            if not pinned:
+                # the pin is a hard boundary: never move onto ranks the
+                # caller left out
+                raise RuntimeError(
+                    f"trainer: no pinned rank of {self._pin_ranks} is "
+                    f"live (live set: {live})")
+            return pinned
+        if not live:
+            raise RuntimeError("trainer: no live devices remain")
+        return live
 
     def _state_names(self) -> list[str]:
         return ["pflat"] + [f"m{i}" for i in range(self.opt.nslots)]
 
-    def _shard_len(self) -> int:
-        return -(-self._spec[2] // len(self._ranks))
+    def _shard_cuts(self, p: int) -> list[int]:
+        n = self._spec[2]
+        s = -(-n // p)
+        return [min(r * s, n) for r in range(p + 1)]
 
     def _ensure_state(self):
         if self._state is not None:
             return
+        if self._mgr is not None and self._mgr.steps():
+            # resume from the latest verified step (a corrupt one is
+            # quarantined and passed over inside restore())
+            self._adopt(self._mgr.restore())
+            return
         flat = self._flatten_init()
-        n, s = flat.numel(), self._shard_len()
-        cuts = [min(r * s, n) for r in range(len(self._ranks) + 1)]
-        pieces = lambda x: [x[a:b] for a, b in zip(cuts, cuts[1:])]
-        self._state = {"pflat": from_chunks(pieces(flat), procs=self._ranks)}
-        for i, slot in enumerate(self.opt.init_slots(n)):
-            self._state[f"m{i}"] = from_chunks(pieces(slot),
-                                               procs=self._ranks)
+        ranks = self._ranks_now()
+        cuts = self._shard_cuts(len(ranks))
 
-    def _shard(self, name: str, r: int) -> torch.Tensor:
-        """Rank ``r``'s shard of a state vector, padded with zeros."""
-        local = self._state[name].localpart(self._ranks[r])
-        pad = self._shard_len() - local.numel()
+        def pieces(x):
+            return [x[a:b] for a, b in zip(cuts, cuts[1:])]
+        self._state = {"pflat": from_chunks(pieces(flat), procs=ranks)}
+        for i, slot in enumerate(self.opt.init_slots(flat.numel())):
+            self._state[f"m{i}"] = from_chunks(pieces(slot), procs=ranks)
+
+    def _adopt(self, tree: dict):
+        """Re-seat the state from a restored checkpoint tree (recovery's
+        ``restore_fn`` and the resume path): close the current DArrays,
+        take the restored ones, rewind the step and the loss record, and
+        discard the later checkpoints of the abandoned timeline."""
+        if self._spec is None:
+            self._flatten_init()
+        names = self._state_names()
+        missing = [k for k in names if k not in tree]
+        extra = [k for k in tree
+                 if k not in names and k != "step" and hasattr(tree[k],
+                                                               "close")]
+        if missing:
+            # written with another optimizer: close what was restored
+            # first, then fail diagnosably
+            _close_all(v for v in tree.values() if hasattr(v, "close"))
+            raise ValueError(
+                f"checkpoint step {tree.get('step')} is missing optimizer "
+                f"state {missing} (this trainer expects {names}); it was "
+                f"written with a different optimizer configuration")
+        self._close_state()
+        self._state = {k: tree[k] for k in names}
+        _close_all(tree[k] for k in extra)
+        self._step = int(tree["step"])
+        self._losses = {k: v for k, v in self._losses.items()
+                        if k < self._step}
+        if self._mgr is not None:
+            self._mgr.discard_from(self._step + 1)
+        _tm.count("train.reseats")
+        if _tm.enabled():
+            # cold path: one re-seat a recovery
+            _tm.event("train", "reseat", step=self._step)
+
+    def _close_state(self):
+        if self._state:
+            _close_all(self._state.values())
+        self._state = None
+
+    def _relay_state(self, ranks: list[int]) -> None:
+        """Every state DArray onto the shard cuts of ``ranks``."""
+        cuts = [self._shard_cuts(len(ranks))]
+        for d in self._state.values():
+            if [int(x) for x in d.pids.flat] != ranks or d.cuts != cuts:
+                elastic.relayout(d, ranks, cuts)
+
+    def _shard(self, name: str, rank: int, slen: int) -> torch.Tensor:
+        """Rank ``rank``'s shard of a state vector, padded with zeros to
+        ``slen``."""
+        local = self._state[name].localpart(rank)
+        pad = slen - local.numel()
         return local if pad == 0 else torch.cat([local, local.new_zeros(pad)])
 
     def flat_params(self) -> torch.Tensor:
@@ -172,13 +309,13 @@ class Trainer:
         self._ensure_state()
         return self._state["pflat"].full(torch.device("cpu"))
 
-    # -- one step ------------------------------------------------------------
+    # -- one recoverable step ------------------------------------------------
 
-    def _batch_for(self, step: int):
+    def _batch_for(self, step: int, ranks: list[int]):
         """The step's batch padded to a multiple of the rank count with
         weight-0 rows, as one ``(leaves, w)`` pair per rank on its device,
         and the real batch size."""
-        p = len(self._ranks)
+        p = len(ranks)
         leaves = [np.asarray(x) for x in self.task.batch(step)]
         b = int(leaves[0].shape[0])
         bpad = -(-b // p) * p
@@ -188,25 +325,24 @@ class Trainer:
         w[:b] = 1.0
         rows = bpad // p
         per_rank = []
-        for r, rank in enumerate(self._ranks):
+        for r, rank in enumerate(ranks):
             dev = device_of(rank)
             sl = slice(r * rows, (r + 1) * rows)
             shard = tuple(torch.from_numpy(x[sl]).to(dev) for x in leaves)
             per_rank.append((shard, torch.from_numpy(w[sl]).to(dev)))
-        return per_rank, b
+        return per_rank, b, leaves
 
-    def _attempt_step(self) -> float:
-        n = self._step
-        t0 = time.monotonic()
-        p = len(self._ranks)
+    def _grads(self, ranks, slen, batches):
+        """K10 all-gathers the parameter shards; each rank's full-length
+        gradient and its weighted loss sum."""
         n_params = self._spec[2]
-        batches, b_real = self._batch_for(n)
-        full = ring_all_gather([self._shard("pflat", r) for r in range(p)], 0)
+        full = ring_all_gather([self._shard("pflat", r, slen)
+                                for r in ranks], 0)
         index = self._spec[0]
         grads, lsums = [], []
-        for r in range(p):
-            # one leaf per parameter: the gradient of a slice of one flat
-            # leaf would add a zero-filled full-length tensor per parameter
+        for r in range(len(ranks)):
+            # one leaf a parameter: the gradient of a slice of one flat
+            # leaf would add a zero-filled full-length tensor a parameter
             leaves = [x.requires_grad_(True)
                       for x in self._leaves_of(full[r].detach())]
             with torch.enable_grad():
@@ -218,68 +354,151 @@ class Trainer:
             torch.cat([(torch.zeros_like(x) if d is None else d).reshape(-1)
                        for x, d in zip(leaves, gl)], out=g[:n_params])
             grads.append(g)
-            lsums.append(float(loss.detach()))
-        del full
+            lsums.append(loss.detach())
+        return grads, lsums
+
+    def _sync(self, n, ranks, slen, grads, b_real):
+        """K12 reduce-scatters the gradients; each rank's updated parameter
+        and moment shards (not yet written back)."""
         gs = ring_reduce_scatter(grads, 0)
-        del grads
         names = self._state_names()
-        for r, rank in enumerate(self._ranks):
+        outs = []
+        for r, rank in enumerate(ranks):
             g = gs[r] / torch.tensor(float(b_real), dtype=torch.float32,
                                      device=gs[r].device)
-            outs = self.opt.update(n + 1, self._shard("pflat", r), g,
-                                   tuple(self._shard(m, r)
-                                         for m in names[1:]))
-            for name, new in zip(names, outs):
-                local = self._state[name].localpart(rank)
-                local.copy_(new[:local.numel()])
-        loss = float(np.asarray(lsums, np.float32).sum() / np.float32(b_real))
-        dur = time.monotonic() - t0
-        if self._timed and self.straggler.observe(dur):
-            self.stragglers += 1
-        self._timed = True
+            outs.append(self.opt.update(
+                n + 1, self._shard("pflat", rank, slen), g,
+                tuple(self._shard(m, rank, slen) for m in names[1:])))
+        return outs
+
+    def _attempt_step(self) -> float:
+        n = self._step
+        ranks = self._ranks_now()
+        self._relay_state(ranks)
+        p = len(ranks)
+        slen = -(-self._spec[2] // p)
+        batches, b_real, host = self._batch_for(n, ranks)
+        key = (tuple(ranks), tuple(x.shape for x in host),
+               tuple(str(x.dtype) for x in host))
+        fresh = key not in self._seen
+        built0 = len(kbuild._libs)
+        epoch = n // self.save_every if self.save_every else 0
+        with _tm.span("train.step", step=n, ranks=p):
+            if _tm.enabled():
+                from ..telemetry import perf as _perf
+                _tm.annotate(**_perf.train_step_cost(
+                    n_params=slen * p, p=p,
+                    flops=float(self.task.step_flops(host[0].shape[0])),
+                    batch_bytes=sum(int(x.nbytes) for x in host),
+                    nslots=self.opt.nslots))
+            t0 = time.monotonic()
+            # chaos site: the top of every step (a hang here counts
+            # against the straggler budget: the clock is running)
+            faults.check("train.step", step=n, epoch=epoch)
+            with _tm.span("train.grad", step=n, kind="compute"):
+                grads, lsums = self._grads(ranks, slen, batches)
+                lsum = [float(x) for x in lsums]
+            # chaos site: between the per-rank gradients and the sync
+            faults.check("grad.sync", step=n)
+            with _tm.span("train.sync", step=n, kind="comm"):
+                outs = self._sync(n, ranks, slen, grads, b_real)
+                del grads
+                for dev in {device_of(r) for r in ranks}:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            dur = time.monotonic() - t0
+            _tm.set_gauge("train.step_s", round(dur, 6))
+            _tstream.note("train.step_s", round(dur, 6))
+            # the straggler gate comes before the update is written: a
+            # confirmed dead rank aborts the step, and the retry recomputes
+            # it.  A step that built kernels (or is the first on its rank
+            # set and shapes) neither feeds nor is judged by the window
+            fresh = fresh or len(kbuild._libs) != built0
+            self._seen.add(key)
+            if not fresh and self.straggler.observe(dur):
+                self.stragglers += 1
+                _tm.count("train.stragglers")
+                if _tm.enabled():
+                    # cold path: an exceeded budget is exceptional
+                    _tm.event("train", "straggler", step=n,
+                              dur=round(dur, 6))
+                probe = elastic.manager().probe()
+                dead = set(probe["down"]) & set(ranks)
+                if dead:
+                    raise DeadRankError(dead, self.straggler.budget()
+                                        or 0.0, dur)
+            loss = float(np.asarray(lsum, np.float32).sum()
+                         / np.float32(b_real))
+            for rank, new in zip(ranks, outs):
+                for name, t in zip(self._state_names(), new):
+                    local = self._state[name].localpart(rank)
+                    local.copy_(t[:local.numel()])
         self._losses[n] = loss
         self._step = n + 1
+        if self._mgr is not None and self.save_every and \
+                self._step % self.save_every == 0:
+            self._mgr.save(self._step, self._ckpt_tree())
         return loss
+
+    def _ckpt_tree(self):
+        return {"step": self._step,
+                **{k: self._state[k] for k in self._state_names()}}
+
+    def _step_policy(self) -> recovery.RetryPolicy:
+        pol = self._policy if self._policy is not None \
+            else recovery.RetryPolicy()
+        if self.step_deadline_s is not None and pol.max_elapsed_s is None:
+            pol = dataclasses.replace(pol, max_elapsed_s=self.step_deadline_s)
+        return pol
+
+    def _recovered_step(self) -> float:
+        return recovery.run_with_recovery(
+            self._attempt_step, policy=self._step_policy(),
+            checkpoints=self._mgr,
+            restore_fn=self._adopt if self._mgr is not None else None)
 
     # -- public API ----------------------------------------------------------
 
     def fit(self, steps: int) -> dict:
-        """Train to ``steps`` total optimizer steps.  Returns ``{"losses",
-        "start", "steps", "resumed_from"}``: ``losses[i]`` is the loss of
-        step ``start + i``."""
+        """Train to ``steps`` total optimizer steps (resuming from the
+        current or restored step), each step under the recovery executor.
+        Returns ``{"losses", "start", "steps", "resumed_from"}``:
+        ``losses[i]`` is the final loss of step ``start + i``; ``start`` is
+        0 for a fresh run and the restored step for a resumed one."""
         if self._closed:
             raise RuntimeError("trainer is closed")
         self._ensure_state()
         first = self._step
         while self._step < int(steps):
-            self._attempt_step()
+            self._recovered_step()
+        if self._mgr is not None:
+            self._mgr.wait()
         start = min(self._losses) if self._losses else int(steps)
         return {"losses": [self._losses[i] for i in range(start, int(steps))],
                 "start": start, "steps": self._step, "resumed_from": first}
 
     def step_once(self) -> float:
-        """One step; its loss."""
+        """One recovered step; its loss."""
         if self._closed:
             raise RuntimeError("trainer is closed")
         self._ensure_state()
-        return self._attempt_step()
+        return self._recovered_step()
 
     @property
     def step(self) -> int:
         return self._step
 
     def losses(self) -> dict:
-        """Per-step loss record."""
+        """Per-step final loss record (recomputed values win)."""
         return dict(self._losses)
 
     def close(self):
         if self._closed:
             return
         self._closed = True
-        if self._state:
-            for d in self._state.values():
-                d.close()
-        self._state = None
+        self._close_state()
+        if self._mgr is not None:
+            self._mgr.close()
 
     def __enter__(self):
         return self

@@ -251,8 +251,12 @@ def test_trainer_is_bitwise_deterministic_and_closes():
     t.close()
     with pytest.raises(RuntimeError, match="closed"):
         t.fit(1)
+    with pytest.raises(RuntimeError, match="closed"):
+        t.step_once()
+    # the runtime tier's arguments are part of the signature; one the JAX
+    # trainer does not take is refused
     with pytest.raises(TypeError):
-        tdat.Trainer(TTasks.mlp_task(), ckpt_dir="/nonexistent")
+        tdat.Trainer(TTasks.mlp_task(), store="orbax")
 
 
 def test_straggler_detector_and_fit_result():
