@@ -282,6 +282,33 @@
    run.
    ``python3 chip_smoke.py --across-cards`` builds the kernels and runs
    this phase alone.
+   Then the multi-process phase (``multihost_phase``; ``python3
+   chip_smoke.py --multihost`` alone): 4 child processes of the port on
+   the one card (``--multihost-child``), one rank each, joined through a
+   ``TCPStore`` on a free local port with a bounded start-up; a child that
+   fails, or outlives ``MH_TIMEOUT_S``, fails the phase.  Each draws a
+   16384^2 f32 DArray on (4, 1) spanning the processes and BASELINE's
+   8192^2 chain ``sin(A) + B*C``; ``dsum(chain)`` and ``dsum(A*A)`` must be
+   bit-equal to the single-process port's on 4 ranks of one process.
+   ``gather_global`` of the 16384^2 array must launch K10's copy kernel
+   once a process (``route_counts()["all_gather"]["cross_process"]``),
+   reading the peers' chunks through CUDA IPC, bit-equal to the plain
+   route (host copies all-gathered over gloo) and to one process's array
+   (SHA-256); it is timed by CUDA events (the median of 7 batches of 10
+   launches) with each process alone and with all four at once, beside
+   ``Tensor.copy_`` from the IPC-opened peer chunks (cudaMemcpy, the
+   library yardstick) and the plain route (3 calls); the
+   bound is the bytes the processes read and write on the card (1 GiB
+   read and 1 GiB written each) over 3.35 TB/s.  Then an uneven 16383 x
+   16384 ``distribute``, ``d + d`` and its gather; a checkpoint of a
+   4096^2 process-spanning DArray saved and loaded on its saved cuts; the
+   heartbeat census (process 3 stops heartbeating: processes 0-2 must see
+   ``down_peer_processes() == {3}``, a ``"quorum"`` verdict on ranks 0-2
+   and the elastic probe downing rank 3; process 3 ``"minority"``); and
+   the 4 journals merged by ``telemetry.merge_journals`` into one
+   timeline (every process's marker before a ``sync_hosts`` barrier ahead
+   of every marker after it), written as a Perfetto trace to
+   ``build/multihost_trace.json``.
 9. Times each kernel with CUDA events (warm-up, then the median of 10
    batches of back-to-back calls, each batch about 5 ms long, divided by
    its count) beside its bound, its plain version and a library yardstick
@@ -4957,6 +4984,408 @@ def train_runtime_only() -> int:
     return 0
 
 
+# the multi-process phase: 4 processes of the port on the one card, one
+# rank each (the reference refuses fewer than 3 workers; p = 4 gives
+# distinct left and right neighbours)
+MH_PROCS = 4
+MH_N = 16384              # 16384^2 f32, 1 GiB: BASELINE config 3's size
+MH_CHAIN_N = 8192         # BASELINE's sin(A) + B*C
+MH_UNEVEN = (16383, 16384)
+MH_CKPT_N = 4096
+MH_STALE_S = 2.0
+MH_SEED = 11
+MH_TIMEOUT_S = 420
+MH_REPS, MH_BATCH = 7, 10
+MH_PLAIN_REPS = 3
+
+
+def _bits(t: torch.Tensor) -> str:
+    """A 0-d result's exact bits, as hex."""
+    return t.detach().cpu().numpy().tobytes().hex()
+
+
+def _sha256(t: torch.Tensor) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()).hexdigest()
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+class _PeerView:
+    """A float32 view of device memory at a raw address (a peer process's
+    chunk mapped through CUDA IPC), for ``torch.as_tensor``."""
+
+    def __init__(self, ptr: int, shape):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(shape), "typestr": "<f4", "data": (ptr, False),
+            "version": 2, "strides": None}
+
+
+def _event_batches(fn) -> float:
+    """Device ms per call: the median of ``MH_REPS`` CUDA-event batches of
+    ``MH_BATCH`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MH_REPS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(MH_BATCH):
+            fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / MH_BATCH)
+    return statistics.median(times)
+
+
+def multihost_child(port: int, proc: int, out_dir: str) -> int:
+    """One process of ``multihost_phase`` (``--multihost-child PORT P
+    DIR``): joins the job on the store at ``localhost:PORT``, runs the
+    phase's steps on its one rank and writes ``DIR/result_P.json``."""
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.parallel import multihost as MH
+    from distributedarrays_tpu_torch.resilience import elastic
+    from distributedarrays_tpu_torch.utils import kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MH.initialize(f"localhost:{port}", MH_PROCS, proc,
+                  initialization_timeout_s=120)
+    tdat.telemetry.configure(os.path.join(out_dir, f"journal_{proc}.jsonl"))
+    tdat.init()                       # this process's one rank on the card
+    if tdat.nranks() != MH_PROCS or tdat.layout.local_ranks() != [proc]:
+        raise AssertionError(f"rank table {tdat.nranks()} ranks, local "
+                             f"{tdat.layout.local_ranks()}")
+    dev = tdat.layout.local_device()
+    res = {"process": proc}
+    MH.heartbeat()
+    MH.sync_hosts("clock")
+    res["clock"] = MH.exchange_clock_offsets()
+
+    # 1. the BASELINE chain and the sums, against one process's 4 ranks
+    tdat.seed(MH_SEED)
+    A = tdat.drand((MH_N, MH_N), dist=(MH_PROCS, 1))
+    if not tdat.layout.spans_processes(A.pids):
+        raise AssertionError("A does not span the processes")
+    X, Y, Z = (tdat.drand((MH_CHAIN_N, MH_CHAIN_N)) for _ in range(3))
+    R = tdat.dmap(torch.sin, X) + Y * Z
+    res["sum_chain"] = _bits(tdat.dsum(R))
+    AA = A * A
+    res["sum_AA"] = _bits(tdat.dsum(AA))
+    for d in (X, Y, Z, R, AA):
+        d.close()
+
+    # 2. gather_global: one K10 launch a process, bit-equal to the plain
+    # route (the host copies all-gathered over the gloo group)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    g = MH._gather_tensor(A)
+    torch.cuda.synchronize()
+    res["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = (kbuild.launch_counts()["all_gather"],
+                kbuild.route_counts()["all_gather"]["cross_process"])
+    res["launches"] = launches[1]
+    if launches != (1, 1):
+        raise AssertionError(f"gather_global launched K10 {launches} times "
+                             "(all, cross_process); expected once")
+    plain = CC.process_all_gather_plain(A, MH._job.group)
+    if not _same_bits(g.cpu(), plain):
+        raise AssertionError("the kernel route's gather differs from the "
+                             "plain route's")
+    host = MH.gather_global(A)
+    if not np.array_equal(host.view(np.int32), plain.numpy().view(np.int32)):
+        raise AssertionError("gather_global differs from the plain route")
+    res["gather_sha"] = _sha256(plain)
+    del plain, host
+    # a whole call's host time (handle exchange, two barriers, the
+    # launch), every process entering it together
+    calls = []
+    for _ in range(5):
+        MH.sync_hosts("call")
+        t0 = time.perf_counter()
+        MH._gather_tensor(A)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) * 1e3)
+    res["call_ms"] = statistics.median(calls)
+
+    # 3. times: the kernel's launch alone, Tensor.copy_ from the
+    # IPC-opened peer chunks (cudaMemcpy, the library yardstick), each
+    # process alone (the others waiting at a barrier) and all four at
+    # once; the plain route, all four at once (it is a collective; its
+    # events span the host's all-gather, which the copies to and from
+    # the card synchronize with)
+    out = torch.empty_like(g)
+    every = MH._all_gather_json("timing", CC.process_handles(A))
+    copies = CC.process_copies(A, out, every)
+    pairs = [(out[tuple(slice(c[j], c[j + 1]) for c, j in zip(A.cuts, ci))],
+              torch.as_tensor(_PeerView(src, A._parts[ci].shape), device=dev))
+             for ci, (_, src, _, _) in zip(A.cells(), copies)]
+
+    def launch():
+        CC._copy_on_card(copies, dev, "all_gather", "cross_process")
+
+    def library():
+        for o, s in pairs:
+            o.copy_(s)
+    solo = {}
+    for q in range(MH_PROCS):
+        MH.sync_hosts("solo")
+        if q == proc:
+            solo = {"ms": _event_batches(launch),
+                    "library_ms": _event_batches(library)}
+        MH.sync_hosts("solo_done")
+    if not _same_bits(out, g):
+        raise AssertionError("the timed launches wrote another array")
+    MH.sync_hosts("together")
+    together = {"ms": _event_batches(launch)}
+    MH.sync_hosts("together_library")
+    together["library_ms"] = _event_batches(library)
+    plain_ms = []
+    for _ in range(MH_PLAIN_REPS):
+        MH.sync_hosts("plain")
+        _, ms = event_ms(lambda: CC.process_all_gather_plain(
+            A, MH._job.group).to(dev))
+        plain_ms.append(ms)
+    together["plain_ms"] = statistics.median(plain_ms)
+    res["solo"], res["together"] = solo, together
+    # no process frees A before every peer has read it
+    MH.sync_hosts("timed")
+    del out, g, pairs, copies
+    A.close()
+    torch.cuda.empty_cache()
+
+    # 4. an uneven layout, d + d and its gather
+    U = torch.rand(MH_UNEVEN, generator=torch.Generator().manual_seed(
+        MH_SEED))
+    dU = tdat.distribute(U, dist=(MH_PROCS, 1))
+    res["uneven_cuts"] = dU.cuts[0]
+    if dU.cuts[0] != tdat.defaultdist_1d(MH_UNEVEN[0], MH_PROCS):
+        raise AssertionError(f"uneven cuts {dU.cuts[0]}")
+    D2 = dU + dU
+    if not _same_bits(MH._gather_tensor(D2).cpu(), U + U):
+        raise AssertionError("d + d of the uneven DArray, gathered, is not "
+                             "U + U")
+    dU.close()
+    D2.close()
+    del U
+
+    # 5. a checkpoint of a process-spanning DArray, saved and loaded
+    C = tdat.drandn((MH_CKPT_N, MH_CKPT_N), dist=(MH_PROCS, 1))
+    path = os.path.join(out_dir, f"ckpt_{proc}")
+    t0 = time.perf_counter()
+    tdat.checkpoint.save(path, {"C": C, "step": 7})
+    res["ckpt_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = tdat.checkpoint.load(path)
+    res["ckpt_load_s"] = time.perf_counter() - t0
+    if back["step"] != 7 or back["C"].cuts != C.cuts or \
+            back["C"].pids.tolist() != C.pids.tolist():
+        raise AssertionError(f"restored layout {back['C'].cuts}")
+    if not _same_bits(MH._gather_tensor(back["C"]), MH._gather_tensor(C)):
+        raise AssertionError("the restored DArray differs")
+    res["ckpt_cuts"] = back["C"].cuts
+
+    # 6. the heartbeat census: the last process stops heartbeating
+    last = MH_PROCS - 1
+    MH.heartbeat()
+    MH.sync_hosts("census0")
+    fresh = (sorted(MH.down_peer_processes(MH_STALE_S)),
+             MH.quorum_assess(MH_STALE_S)["verdict"])
+    if fresh != ([], "healthy"):
+        raise AssertionError(f"census before the stop: {fresh}")
+    MH.sync_hosts("census1")
+    t0 = time.monotonic()
+    deadline = t0 + 10 * MH_STALE_S
+    census = {}
+    if proc != last:
+        down = set()
+        while down != {last}:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the census never saw {last}: {down}")
+            MH.heartbeat()
+            down = MH.down_peer_processes(MH_STALE_S)
+            time.sleep(0.02)
+        census["latency_s"] = time.monotonic() - t0
+        census["down"] = sorted(down)
+        t1 = time.perf_counter()
+        q = MH.quorum_assess(MH_STALE_S)
+        census["assess_ms"] = (time.perf_counter() - t1) * 1e3
+        # the elastic manager's probe, at the census's staleness
+        MH.down_peer_processes.__defaults__ = (MH_STALE_S,)
+        MH.quorum_assess.__defaults__ = (MH_STALE_S,)
+        probe = elastic.manager().probe()
+        census["probe_down"] = probe["down"]
+        census["probe_verdict"] = probe["partition"]["verdict"]
+    else:
+        q = MH.quorum_assess(MH_STALE_S)
+        while q["verdict"] == "healthy":
+            if time.monotonic() > deadline:
+                raise AssertionError("the own heartbeat never went stale")
+            time.sleep(0.02)
+            q = MH.quorum_assess(MH_STALE_S)
+        census["latency_s"] = time.monotonic() - t0
+    census.update(verdict=q["verdict"], side=q["side"], lost=q["lost"])
+    res["census"] = census
+    MH.sync_hosts("census2")
+
+    # 7. the journal: markers around a barrier
+    tdat.telemetry.event("smoke", "before_barrier", process=proc)
+    MH.sync_hosts("journal")
+    tdat.telemetry.event("smoke", "after_barrier", process=proc)
+    tdat.telemetry.configure(None)
+
+    tdat.d_closeall()
+    MH.sync_hosts("done")
+    MH.shutdown()
+    with open(os.path.join(out_dir, f"result_{proc}.json"), "w") as f:
+        json.dump(res, f)
+    print(f"multihost child {proc} ok")
+    return 0
+
+
+def multihost_phase(tdat) -> dict:
+    """4 processes of the port on the one card, one rank each (see the
+    module docstring); returns K10's cross-process launches and times."""
+    import shutil
+    import socket
+    from distributedarrays_tpu_torch.utils import kbuild
+    print(f"phase multihost ({MH_PROCS} processes on one card)")
+    t_phase = time.perf_counter()
+    kbuild.build(["collectives"])
+    # the single-process port on 4 ranks of the card: what the processes
+    # must reproduce bit for bit
+    tdat.init(nranks=MH_PROCS)
+    tdat.seed(MH_SEED)
+    A = tdat.drand((MH_N, MH_N), dist=(MH_PROCS, 1))
+    X, Y, Z = (tdat.drand((MH_CHAIN_N, MH_CHAIN_N)) for _ in range(3))
+    R = tdat.dmap(torch.sin, X) + Y * Z
+    ref = {"sum_chain": _bits(tdat.dsum(R)), "sum_AA": _bits(tdat.dsum(A * A)),
+           "gather_sha": _sha256(A.full())}
+    tdat.d_closeall()
+    del A, X, Y, Z, R
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "multihost")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    logs = [open(os.path.join(out_dir, f"child_{p}.log"), "w")
+            for p in range(MH_PROCS)]
+    t_job = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-child",
+         str(port), str(p), out_dir], stdout=logs[p],
+        stderr=subprocess.STDOUT, env=env, cwd=root)
+        for p in range(MH_PROCS)]
+    deadline = time.monotonic() + MH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        raise AssertionError(f"multihost children still running after "
+                             f"{MH_TIMEOUT_S} s; logs in {out_dir}")
+    finally:
+        for f in logs:
+            f.close()
+    job_s = time.perf_counter() - t_job
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = {i: open(os.path.join(out_dir, f"child_{i}.log")).read()
+                 [-3000:] for i in failed}
+        raise AssertionError(f"multihost children {failed} failed: {tails}")
+    res = [json.load(open(os.path.join(out_dir, f"result_{p}.json")))
+           for p in range(MH_PROCS)]
+
+    for r in res:
+        for k in ("sum_chain", "sum_AA", "gather_sha"):
+            if r[k] != ref[k]:
+                raise AssertionError(f"process {r['process']}: {k} {r[k]} "
+                                     f"!= one process's {ref[k]}")
+    last = MH_PROCS - 1
+    for r in res[:last]:
+        c = r["census"]
+        if c["down"] != [last] or c["verdict"] != "quorum" or \
+                c["side"] != list(range(last)) or \
+                c["probe_down"] != [last] or c["probe_verdict"] != "quorum":
+            raise AssertionError(f"process {r['process']} census {c}")
+    c = res[last]["census"]
+    if c["verdict"] != "minority" or c["side"] != [last]:
+        raise AssertionError(f"process {last} census {c}")
+
+    merged = tdat.telemetry.merge_journals(
+        [os.path.join(out_dir, f"journal_{p}.jsonl") for p in range(MH_PROCS)])
+    streams = {(e.get("host"), e.get("pid")) for e in merged}
+    clock = {e.get("process_index") for e in merged
+             if (e.get("cat"), e.get("name")) == ("multihost", "clock")}
+    before = [e["t"] for e in merged if e.get("name") == "before_barrier"]
+    after = [e["t"] for e in merged if e.get("name") == "after_barrier"]
+    if len(streams) != MH_PROCS or clock != set(range(MH_PROCS)) or \
+            len(before) != MH_PROCS or len(after) != MH_PROCS or \
+            max(before) > min(after):
+        raise AssertionError(f"merged journal: {len(streams)} streams, clock "
+                             f"events of {sorted(clock)}, barrier markers "
+                             f"{before} / {after}")
+    trace_path = os.path.join(root, "build", "multihost_trace.json")
+    with open(trace_path, "w") as f:
+        json.dump(tdat.telemetry.to_perfetto(merged), f)
+
+    nbytes = MH_N * MH_N * 4
+    row = {
+        "shape": f"{MH_N}x{MH_N} f32 on ({MH_PROCS},1), {MH_PROCS} processes "
+                 "on one card, each writing its own whole copy",
+        # all four processes at once: each reads and writes 1 GiB
+        "ms": max(r["together"]["ms"] for r in res),
+        "plain_ms": max(r["together"]["plain_ms"] for r in res),
+        "library_ms": max(r["together"]["library_ms"] for r in res),
+        "bound_ms": bound(MH_PROCS * 2 * nbytes, 0, F32_FLOPS)[0],
+        "bound_by": "bytes",
+        # one process's launch with the card to itself
+        "solo_ms": [r["solo"]["ms"] for r in res],
+        "solo_library_ms": [r["solo"]["library_ms"] for r in res],
+        "solo_bound_ms": bound(2 * nbytes, 0, F32_FLOPS)[0],
+        "call_ms": [r["call_ms"] for r in res],
+        "first_call_ms": [r["first_call_ms"] for r in res],
+        "census_latency_s": [r["census"]["latency_s"] for r in res],
+        "census_assess_ms": [r["census"].get("assess_ms") for r in res],
+        "stale_s": MH_STALE_S,
+        "ckpt_save_s": [r["ckpt_save_s"] for r in res],
+        "ckpt_load_s": [r["ckpt_load_s"] for r in res],
+        "job_s": job_s, "phase_s": time.perf_counter() - t_phase,
+        "trace": os.path.relpath(trace_path, root)}
+    print(json.dumps({"multihost": row, "gpu": gpu_name()}))
+    return {"launches": [r["launches"] for r in res], "row": row}
+
+
+def multihost_only() -> int:
+    """``--multihost``: build the collective kernels and run the
+    multi-process phase alone (``multihost_phase``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    res = multihost_phase(tdat)
+    print(json.dumps({"multihost_launches": res["launches"], "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5178,6 +5607,9 @@ def main() -> int:
 
     # -- 8. ranks on several cards ------------------------------------------
     across_cards(tdat, cuda_collectives)
+
+    # -- 8b. several processes on the card -----------------------------------
+    mh = multihost_phase(tdat)
     tdat.init()
 
     # -- 5. timings ---------------------------------------------------------
@@ -5363,6 +5795,11 @@ def main() -> int:
             kern["models_launches"] = mdl["launches"][name]
         if name in trt["launches"]:
             kern["train_runtime_launches"] = trt["launches"][name]
+        if name == "all_gather":
+            # K10 across the processes: each process's launches in the
+            # checked gather_global call (one a call), and its times
+            kern["multihost_launches"] = mh["launches"]
+            kern["multihost"] = mh["row"]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5504,6 +5941,10 @@ if __name__ == "__main__":
              else serve_only() if sys.argv[1:] == ["--serve"]
              else models_only() if sys.argv[1:] == ["--models"]
              else train_runtime_only() if sys.argv[1:] == ["--train-runtime"]
+             else multihost_only() if sys.argv[1:] == ["--multihost"]
+             else multihost_child(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4])
+             if sys.argv[1:2] == ["--multihost-child"]
              else k1_k9_times(*sys.argv[2:3])
              if sys.argv[1:2] == ["--time-k1-k9"]
              else ring_gemm_times(*sys.argv[2:3])

@@ -32,6 +32,11 @@
 //   Bound: each source byte read once and each destination byte written
 //   once, over 3.35 TB/s (one card); across cards the peer's bytes cross
 //   NVLink by the same plain loads and stores.
+//   Across controller processes (a DArray that spans the processes of a
+//   multi-process job, `multihost.gather_global`) the same launch reads
+//   the peer processes' chunks through CUDA IPC pointers (da_ipc_handle /
+//   da_ipc_open at the end of this file): one launch a process writes its
+//   own whole copy of the array.
 //
 // - `_rs_call` (ring_reduce_scatter, K12).  On the TPU the partial for
 //   destination d seeds at rank d+1 and travels the ring, each hop adding
@@ -109,6 +114,8 @@
 //
 //   Ring steps are ordered by stream order on one card and by event waits
 //   across cards, never by flags spun on inside a kernel.
+
+#include <cstring>
 
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
@@ -987,4 +994,85 @@ extern "C" int da_enable_peer(int device, int peer) {
     return 0;
   }
   return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// CUDA IPC: K10's copy kernel across controller processes
+// ---------------------------------------------------------------------------
+//
+// A process-spanning DArray's gather (`gather_global`) makes one
+// da_copy_pieces launch a process that reads the peer processes' chunks
+// through pointers into their memory.  A peer exports the allocation that
+// holds its chunk (cudaIpcGetMemHandle takes the allocation's base, and
+// PyTorch's caching allocator hands out pieces of larger cudaMalloc
+// blocks, so the chunk's offset in the block travels with the handle) and
+// every other process maps it once (cudaIpcOpenMemHandle).  A process
+// never opens its own handle: its chunks take their own pointers.
+
+namespace {
+
+using AddressRangeFn = CUresult (*)(CUdeviceptr*, size_t*, CUdeviceptr);
+
+AddressRangeFn address_range() {
+  static AddressRangeFn fn = []() -> AddressRangeFn {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuMemGetAddressRange", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuMemGetAddressRange", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<AddressRangeFn>(p);
+  }();
+  return fn;
+}
+
+}  // namespace
+
+// The size of the handle da_ipc_handle writes.
+extern "C" int da_ipc_handle_size() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+// Export the allocation holding `ptr` on `device`: its IPC handle into
+// `handle` (da_ipc_handle_size() bytes) and `ptr`'s byte offset from the
+// allocation's base into `offset`.  Returns a CUDA runtime error code,
+// or IPC_RANGE_ERROR + the driver's CUresult when the base cannot be
+// found.
+constexpr int IPC_RANGE_ERROR = 3000;
+
+extern "C" int da_ipc_handle(const void* ptr, void* handle,
+                             long long* offset, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  AddressRangeFn range = address_range();
+  if (range == nullptr) return IPC_RANGE_ERROR;
+  CUdeviceptr base = 0;
+  size_t size = 0;
+  CUresult r = range(&base, &size, (CUdeviceptr)(uintptr_t)ptr);
+  if (r != CUDA_SUCCESS) return IPC_RANGE_ERROR + (int)r;
+  cudaIpcMemHandle_t h;
+  err = cudaIpcGetMemHandle(&h, (void*)(uintptr_t)base);
+  if (err != cudaSuccess) return (int)err;
+  memcpy(handle, &h, sizeof(h));
+  *offset = (long long)((uintptr_t)ptr - (uintptr_t)base);
+  return 0;
+}
+
+// Map a peer process's allocation (`handle` from da_ipc_handle) into this
+// process on `device`; its base address goes to `base`.  Returns a CUDA
+// runtime error code.
+extern "C" int da_ipc_open(const void* handle, int device, void** base) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  err = cudaIpcOpenMemHandle(base, h, cudaIpcMemLazyEnablePeerAccess);
+  return (int)err;
+}
+
+// Unmap an allocation da_ipc_open mapped.
+extern "C" int da_ipc_close(void* base) {
+  return (int)cudaIpcCloseMemHandle(base);
 }

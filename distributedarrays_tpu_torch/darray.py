@@ -34,6 +34,22 @@ when the tensors are replaced; ``close`` and the finalizer release them.
 A write in place (``set_localpart``, a region write's ``mutate``,
 ``fill_``, ``rand_``, ``copyto_``'s ``rebind``) keeps the tensors and
 their bytes, and only relabels the entry with its call site's label.
+
+**Across controller processes** (``parallel.multihost``): after
+``multihost.initialize`` the rank table spans the job's processes, and a
+DArray's cells on another process's ranks are placeholders on the
+``meta`` device that know their shape and dtype.  The constructors take
+the same arguments (the same host array) on every process and place only
+the local chunks; ``drand`` and its kin draw a rank's chunk from the
+rank's own generator, so the values do not depend on which process holds
+the rank.  ``localpart`` of another process's rank raises;
+``gather``/``full``/``np.asarray`` go through ``multihost.gather_global``
+(every process calls them and gets the whole array), operators and
+``dmap`` run on the local chunks, and the memory ledger counts the local
+tensors only.  An op with no cross-process form raises
+``NotImplementedError`` when it meets a process-spanning DArray
+(``part`` of a remote cell does, and ``cross_process_unported`` at the
+ops' entries), instead of gathering quietly.
 """
 
 from __future__ import annotations
@@ -126,8 +142,12 @@ def seed(n: int) -> None:
     _gens.clear()
 
 
-def _gen(rank: int) -> torch.Generator:
+def _gen(rank: int) -> torch.Generator | None:
+    """Rank ``rank``'s generator; None for another process's rank, whose
+    placeholder is drawn on the ``meta`` device and holds no values."""
     dev = L.device_of(rank)
+    if dev.type == "meta":
+        return None
     g = _gens.get(rank)
     if g is None or g.device != dev:
         s = int(np.random.SeedSequence([_seed, rank]).generate_state(1)[0])
@@ -139,6 +159,21 @@ def _gen(rank: int) -> torch.Generator:
 # ---------------------------------------------------------------------------
 # DArray
 # ---------------------------------------------------------------------------
+
+# the queue entry that lists the ops still to gain a cross-process form
+_CROSS_PROCESS_QUEUE = "ROADMAP.md queue A, 'Cross-process forms'"
+
+
+def cross_process_unported(what: str, *args) -> None:
+    """Raise ``NotImplementedError`` when a DArray among ``args`` spans
+    controller processes: ``what`` has no cross-process form yet.  The
+    test is the same on every process (``layout.spans_processes``)."""
+    for a in args:
+        if isinstance(a, DArray) and L.spans_processes(a.pids):
+            raise NotImplementedError(
+                f"{what} of a DArray that spans controller processes is "
+                f"not ported yet ({_CROSS_PROCESS_QUEUE}); gather it with "
+                "multihost.gather_global first")
 
 
 def _finalize(did):
@@ -218,9 +253,18 @@ class DArray:
         return tuple(self.pids.shape)
 
     def part(self, ci) -> torch.Tensor:
-        """The tensor of grid cell ``ci``."""
+        """The tensor of grid cell ``ci``; ``NotImplementedError`` for a
+        cell that another controller process holds (the op asking for it
+        has no cross-process form yet)."""
         self._check_open()
-        return self._parts[tuple(ci)]
+        t = self._parts[tuple(ci)]
+        if t.device.type == "meta":
+            r = int(self.pids[tuple(ci)])
+            raise NotImplementedError(
+                f"rank {r}'s chunk of {self!r} lives in controller process "
+                f"{L.process_of(r)}: this op has no cross-process form yet "
+                f"({_CROSS_PROCESS_QUEUE})")
+        return t
 
     def cells(self):
         """Grid coordinates of every chunk, row-major."""
@@ -329,7 +373,14 @@ class DArray:
         ci = self.localpartindex(pid)
         if ci is None:
             return torch.empty((0,) * max(self.ndim, 1), dtype=self.dtype)
-        return self._parts[ci]
+        t = self._parts[ci]
+        if t.device.type == "meta":
+            r = int(self.pids[ci])
+            raise RuntimeError(
+                f"rank {r}'s chunk lives in controller process "
+                f"{L.process_of(r)}; this process holds ranks "
+                f"{L.local_ranks()} (use multihost.host_local_slice)")
+        return t
 
     @property
     def lp(self) -> torch.Tensor:
@@ -353,7 +404,7 @@ class DArray:
         if tuple(v.shape) != want:
             raise ValueError(f"localpart shape {tuple(v.shape)} != chunk "
                              f"shape {want}")
-        self._parts[ci].copy_(v)
+        self.localpart(pid).copy_(v)
         self._relabel("set_localpart")
 
     def locate(self, *I: int) -> tuple:
@@ -370,16 +421,29 @@ class DArray:
 
     def home(self) -> torch.device:
         """Device of the first rank in the grid: where whole-array results
-        (reductions, gathered regions) are placed."""
-        return L.device_of(int(self.pids.flat[0]))
+        (reductions, gathered regions) are placed.  When another process
+        holds that rank, this process's own device (``layout
+        .local_device``), where its copy of such a result goes."""
+        dev = L.device_of(int(self.pids.flat[0]))
+        return L.local_device() if dev.type == "meta" else dev
 
     # -- data movement -----------------------------------------------------
 
     def region(self, bounds, device) -> torch.Tensor:
         """A new tensor on ``device`` holding the global region ``bounds``
         (one ``(lo, hi)`` per dim; None for the whole array), copied from
-        the chunks that intersect it."""
+        the chunks that intersect it.  In a job of several controller
+        processes it is collective: the whole array comes through
+        ``multihost.gather_global``'s route on every process, and each
+        keeps ``bounds``."""
         self._check_open()
+        if L.process_count() > 1:
+            from .parallel import multihost
+            whole = multihost._gather_tensor(self)
+            if bounds is not None:
+                whole = whole[tuple(slice(lo, hi) for lo, hi in bounds)]
+            return torch.empty(whole.shape, dtype=self.dtype,
+                               device=device).copy_(whole)
         if bounds is None:
             bounds = [(0, n) for n in self.dims]
         out = torch.empty([h - l for l, h in bounds], dtype=self.dtype,
@@ -434,7 +498,7 @@ class DArray:
             _scalar_indexing_allowed()
             ci = self.locate(*key)
             local = tuple(k - r.start for k, r in zip(key, self.indices[ci]))
-            return self._parts[ci][local]
+            return self.part(ci)[local]
         return SubDArray(self, key)
 
     def __setitem__(self, key, value):
@@ -527,7 +591,7 @@ class DArray:
         out = torch.empty(shape, dtype=self.dtype, device=home)
         flat = out.view(-1)
         for ci, pos, local in self._by_owner(coords):
-            part = self._parts[ci]
+            part = self.part(ci)
             idx = tuple(torch.from_numpy(x).to(part.device) for x in local)
             flat[torch.from_numpy(pos).to(home)] = part[idx].to(home)
         return out
@@ -561,9 +625,12 @@ class DArray:
     # -- conveniences ------------------------------------------------------
 
     def _map_parts(self, fn) -> "DArray":
+        """``fn`` of each cell (another process's placeholders on the
+        ``meta`` device, where ``fn`` only infers the shape and dtype)."""
+        self._check_open()
         parts = np.empty(self.grid, dtype=object)
         for ci in self.cells():
-            parts[ci] = fn(self.part(ci))
+            parts[ci] = fn(self._parts[ci])
         return self.with_parts(parts)
 
     def copy(self) -> "DArray":
@@ -595,6 +662,7 @@ class DArray:
         dims = tuple(int(d) for d in dims)
         if int(np.prod(dims)) != self.size:
             raise ValueError(f"cannot reshape size {self.size} into {dims}")
+        cross_process_unported("reshape", self)
         pids = sorted(set(int(p) for p in self.pids.flat))
         # from_global copies each chunk out of the reshaped whole
         return from_global(self.full().reshape(dims), procs=pids)
@@ -891,7 +959,10 @@ def resolve_layout(dims, procs=None, dist=None):
 
 def _scatter(t: torch.Tensor, pids: np.ndarray, cuts) -> np.ndarray:
     """Copy each chunk of the global tensor ``t`` to its rank's device (a
-    fresh contiguous tensor per chunk, never a view of ``t``)."""
+    fresh contiguous tensor per chunk, never a view of ``t``); another
+    process's rank gets its placeholder on the ``meta`` device, so every
+    process passes the same ``t`` and places only its own chunks (JAX
+    ``_put_global_impl``, ``darray.py:1205``)."""
     grid = tuple(pids.shape)
     parts = np.empty(grid, dtype=object)
     for ci in np.ndindex(*grid):
@@ -1003,6 +1074,7 @@ def distribute(A, procs=None, dist=None, like: DArray | None = None) -> DArray:
     """Distribute a host or device array: each rank receives a copy of its
     own chunk.  ``like`` takes another DArray's rank grid."""
     if isinstance(A, DArray):
+        cross_process_unported("distribute (a reshard)", A)
         A = A.full()
     elif isinstance(A, SubDArray):
         A = A.materialize()
@@ -1268,6 +1340,7 @@ def dcat(dim: int, *ds) -> DArray:
     DArray's ranks (JAX ``darray.py:1739``), on that DArray's home device;
     the dtype promotes as ``jnp.concatenate``'s."""
     from .ops.broadcast import result_dtype
+    cross_process_unported("dcat", *ds)
     first = next((x for x in ds if isinstance(x, DArray)), None)
     dev = first.home() if first is not None else L.device_of(0)
     dt = result_dtype(*ds)

@@ -18,6 +18,22 @@ lives on ``torch.device`` ``device_of(r)``.  ``init()`` builds it:
 
 Entry points that need the table build the default one on first use; with
 no CUDA device that raises instead of carrying on quietly on the CPU.
+
+**Several controller processes.**  After ``parallel.multihost.initialize``
+joins a job of several processes, every process calls ``init`` (the same
+program on every process) and ``nranks``/``device`` describe its own
+ranks.  The call is collective: the processes publish their local rank
+counts through the job's store and build one *global* table, whose rank
+ids run in process order, as ``jax.devices()`` orders a multi-controller
+job's devices (process 0's ranks first).  A rank of another process maps
+to the ``meta`` device here: a DArray's cell on such a rank is a
+placeholder that knows its shape and dtype and holds no data.
+``local_ranks()``, ``process_of(rank)`` and the process-independent
+``spans_processes(pids)`` (JAX ``darray.py:1180`` ``_spans_processes``)
+answer where data lives; every branch that leads to a collective must be
+taken the same way by every process, so such branches test
+``process_count()`` or ``spans_processes``, never what this process
+happens to hold.  A single-process table behaves exactly as before.
 """
 
 from __future__ import annotations
@@ -32,6 +48,13 @@ __all__ = [
     "nranks",
     "all_ranks",
     "device_of",
+    "local_ranks",
+    "local_device",
+    "is_local",
+    "process_of",
+    "process_index",
+    "process_count",
+    "spans_processes",
     "defaultdist",
     "defaultdist_1d",
     "chunk_idxs",
@@ -48,6 +71,13 @@ __all__ = [
 # ---------------------------------------------------------------------------
 
 _table: tuple[torch.device, ...] | None = None
+# the controller process of each rank, and this process's index
+_owner: tuple[int, ...] | None = None
+_me = 0
+# set by parallel.multihost.initialize in a job of several processes: a
+# collective that takes this process's local devices and returns
+# ``(global devices, owner of each rank, this process's index)``
+_exchange = None
 
 
 def init(nranks: int | None = None, device=None) -> tuple[torch.device, ...]:
@@ -58,8 +88,13 @@ def init(nranks: int | None = None, device=None) -> tuple[torch.device, ...]:
     present.  ``device="cpu"`` (or any explicit device) puts every rank on
     that device, one rank by default.  When the ranks span several cards,
     every card is given access to every other's memory (the collective
-    kernels read and write peer ranks' tensors)."""
-    global _table
+    kernels read and write peer ranks' tensors).
+
+    In a job of several controller processes (``multihost.initialize``)
+    the arguments describe this process's ranks, every process must call
+    ``init``, and the returned table is the global one, a rank of another
+    process on the ``meta`` device."""
+    global _table, _owner, _me
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -82,12 +117,21 @@ def init(nranks: int | None = None, device=None) -> tuple[torch.device, ...]:
         devs = (dev,) * n
     if n < 1:
         raise ValueError(f"need at least one rank, got {n}")
-    _table = devs
-    return devs
+    if _exchange is not None:
+        devs, owner, me = _exchange(devs)
+    else:
+        owner, me = (0,) * len(devs), 0
+    _table, _owner, _me = tuple(devs), tuple(owner), me
+    return _table
 
 
 def _ranks() -> tuple[torch.device, ...]:
     return _table if _table is not None else init()
+
+
+def _owners() -> tuple[int, ...]:
+    _ranks()
+    return _owner
 
 
 def nranks() -> int:
@@ -108,6 +152,49 @@ def device_of(rank: int) -> torch.device:
             f"rank id {rank} out of range: only {len(devs)} ranks in the "
             "table")
     return devs[int(rank)]
+
+
+def process_index() -> int:
+    """This controller process's index (0 in a single-process job)."""
+    _ranks()
+    return _me
+
+
+def process_count() -> int:
+    """The number of controller processes whose ranks the table holds."""
+    return max(_owners()) + 1
+
+
+def process_of(rank: int) -> int:
+    """The controller process that holds rank ``rank``'s tensors."""
+    device_of(rank)                      # validates the rank id
+    return _owners()[int(rank)]
+
+
+def is_local(rank: int) -> bool:
+    """True when this process holds rank ``rank``'s tensors."""
+    return process_of(rank) == process_index()
+
+
+def local_ranks() -> list[int]:
+    """The ranks this process holds, ascending."""
+    me = process_index()
+    return [r for r, p in enumerate(_owners()) if p == me]
+
+
+def local_device() -> torch.device:
+    """The device of this process's first rank: where a process places a
+    whole-array result that every process holds (a gathered array, a
+    reduction of a process-spanning DArray)."""
+    return device_of(local_ranks()[0])
+
+
+def spans_processes(pids) -> bool:
+    """True when the ranks ``pids`` belong to more than one controller
+    process.  The same answer on every process (JAX ``darray.py:1180``):
+    a branch into a collective may test it."""
+    own = _owners()
+    return len({own[int(p)] for p in np.asarray(pids).flat}) > 1
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
-from ..darray import DArray, distribute
+from ..darray import DArray, cross_process_unported, distribute
 from ..ops.cuda_attention import (MAX_HEAD_DIM, flash_attention_hop,
                                   flash_attention_hop_bwd,
                                   flash_carry_finalize, flash_carry_init,
@@ -267,6 +267,7 @@ def ring_attention_rdma(q_blocks: Sequence[torch.Tensor],
 def _seq_blocks(q: DArray, k: DArray, v: DArray):
     """Validate sequence-sharded (seq, heads, d) DArrays over a 1-D grid
     and return their rank blocks (k and v brought onto q's layout)."""
+    cross_process_unported("ring attention", q, k, v)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.ndim != 3:
             raise ValueError(f"{name} must be (seq, heads, head_dim), "

@@ -18,6 +18,14 @@ global arrays: ``fn``, written over torch tensors, runs once on the whole
 arrays on the first DArray argument's home device, and each array result
 is distributed on the layout of the first DArray argument of its shape.
 
+Across controller processes (``parallel.multihost``) the operators,
+``dmap`` and ``dmap_into`` run on each process's own chunks and need no
+exchange: a cell another process holds is a placeholder on the ``meta``
+device, where ``fn`` only infers the result cell's shape and dtype.  An
+argument on another layout would need a cross-process reshard, which
+raises ``NotImplementedError``, as ``djit`` does over a process-spanning
+DArray (it gathers onto one device).
+
 ``a == b`` on a DArray or SubDArray is the reference's whole-array
 equality, one Python bool, as in the JAX package; ``<``, ``<=``, ``>``
 and ``>=`` are elementwise.
@@ -45,7 +53,7 @@ import numpy as np
 import torch
 
 from ..darray import (DArray, SubDArray, _scatter, as_tensor, canon_dtype,
-                      from_global, resolve_layout)
+                      cross_process_unported, from_global, resolve_layout)
 from ..layout import device_of
 from ..parallel.reshard import relayout_parts
 
@@ -150,7 +158,8 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
         out._rebind(parts)
     else:
         for ci in np.ndindex(*pids.shape):
-            out.part(ci).copy_(parts[ci])
+            # a placeholder of another process's cell copies nothing
+            out._parts[ci].copy_(parts[ci])
         out._relabel("rebind")        # JAX's out._rebind(res)
     return out
 
@@ -184,6 +193,7 @@ def djit(fn: Callable) -> Callable:
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         d_args = [a for a in args if isinstance(a, DArray)]
+        cross_process_unported("djit", *d_args)
         dev = d_args[0].home() if d_args else device_of(0)
         raw = [a.full(dev) if isinstance(a, DArray) else
                a.materialize().to(dev) if isinstance(a, SubDArray) else

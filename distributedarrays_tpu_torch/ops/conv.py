@@ -32,7 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..darray import DArray, as_tensor, darray_from_cuts, from_global
+from ..darray import (DArray, as_tensor, cross_process_unported,
+                      darray_from_cuts, from_global)
 from ..parallel.collectives import halo_exchange
 from ..utils.debug import warn_once
 from .broadcast import result_dtype
@@ -102,6 +103,7 @@ def dconv2d(d: DArray, kernel) -> DArray:
     and dims, with Cout for C in the NHWC case."""
     if not isinstance(d, DArray):
         raise TypeError(f"expected DArray, got {type(d).__name__}")
+    cross_process_unported("dconv2d", d)
     k = as_tensor(kernel)
     if d.ndim == 2:
         if k.ndim != 2:

@@ -31,6 +31,24 @@ not used.
   each rank keeping a window of its output; the planner's ``_chain_jit``
   steps (``distributedarrays_tpu/parallel/reshard.py:915``).
 
+- ``process_all_gather(d, all_gather_json, barrier)``: K10 across
+  controller processes, the GPU form of JAX's cross-process all-gather
+  (its replication program and ``process_allgather``,
+  ``parallel/multihost.py:339-382``).  Every process of a multi-process
+  job makes one copy launch that reads the peer processes' chunks of the
+  process-spanning DArray ``d`` through CUDA IPC pointers (handles and
+  offsets exchanged through the job's store) and its own chunks through
+  their pointers, and writes its own whole copy of the array on its card:
+  the way K10 reads peer ranks within one process.  Two barriers order it:
+  every process's chunks are written (a stream sync) before any peer
+  reads them, and no process frees or rewrites a chunk before every peer
+  has read it (a sync after the launch, then a barrier).  A handle that
+  will not open, or a launch that fails, raises.  Counted as
+  ``all_gather`` on the ``cross_process`` route.
+  ``process_all_gather_plain(d, group)`` is its plain version: an
+  all-gather of the host copies of the local chunks over the job's gloo
+  group, assembled on the CPU.
+
 - ``ring_reduce_scatter(blocks, dim)``: rank ``d`` gets the sum of piece
   ``d`` of every rank's block split along ``dim``
   (``lax.psum_scatter(..., tiled=True)``), summed in the TPU ring's arrival
@@ -92,10 +110,11 @@ by CUDA event waits across cards; no kernel waits on a flag set by another.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
+from .. import layout as L
 from ..parallel.collectives import pall_to_all, pgather, pshift, psum_scatter
 from ..utils import kbuild
 
@@ -105,6 +124,8 @@ __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "copy_launches", "copy_width", "view_copy", "chain_step",
            "chain_step_plain", "ring_all_to_allv", "all_to_allv_plain",
            "all_gather_plain", "all_to_all_plain", "reduce_scatter_plain",
+           "process_all_gather", "process_all_gather_plain", "ipc_handle",
+           "close_ipc",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
 
@@ -223,6 +244,11 @@ _ARGTYPES = {
     [ctypes.c_void_p],
     "da_ring_mm_rs_step": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
     [ctypes.c_void_p],
+    "da_ipc_handle_size": [],
+    "da_ipc_handle": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int],
+    "da_ipc_open": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "da_ipc_close": [ctypes.c_void_p],
 }
 
 
@@ -301,7 +327,8 @@ def view_copy(dest: int, src: torch.Tensor, dst: torch.Tensor) -> tuple:
     return (dest, src.data_ptr(), dst.data_ptr(), _box(src, dst))
 
 
-def _copy_launch(launch, dev: torch.device, kernel: str) -> None:
+def _copy_launch(launch, dev: torch.device, kernel: str,
+                 route: str | None = None) -> None:
     """One ``da_copy_pieces`` launch on ``dev`` of a ``copy_launches``
     entry."""
     n = len(launch)
@@ -325,7 +352,7 @@ def _copy_launch(launch, dev: torch.device, kernel: str) -> None:
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    kbuild.count(kernel)
+    kbuild.count(kernel, route)
 
 
 def copy_maxp() -> int:
@@ -335,9 +362,10 @@ def copy_maxp() -> int:
     return _fn("da_copy_maxp")()
 
 
-def _copy_on_card(copies, dev: torch.device, kernel: str) -> None:
+def _copy_on_card(copies, dev: torch.device, kernel: str,
+                  route: str | None = None) -> None:
     for launch in copy_launches(copies, copy_maxp()):
-        _copy_launch(launch, dev, kernel)
+        _copy_launch(launch, dev, kernel, route)
 
 
 class _Order:
@@ -972,3 +1000,147 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
             _launched(rc, what, "matmul_reducescatter", routes[r])
             done.append(order.mark(dev))
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the all-gather across controller processes (K10 over CUDA IPC)
+# ---------------------------------------------------------------------------
+
+# peer allocations this process has mapped: handle -> base address
+_ipc_bases: dict[bytes, int] = {}
+
+
+def ipc_handle(t: torch.Tensor) -> tuple[bytes, int]:
+    """``(handle, offset)``: the CUDA IPC handle of the allocation that
+    holds CUDA tensor ``t`` and ``t``'s byte offset in it."""
+    size = _fn("da_ipc_handle_size")()
+    h = ctypes.create_string_buffer(size)
+    off = ctypes.c_longlong()
+    rc = _fn("da_ipc_handle")(t.data_ptr(), h, ctypes.byref(off),
+                              t.device.index)
+    if rc != 0:
+        raise RuntimeError(f"cannot export the allocation of a "
+                           f"{tuple(t.shape)} tensor on {t.device} for "
+                           f"CUDA IPC: error {rc}")
+    return h.raw, off.value
+
+
+def _ipc_base(handle: bytes, dev: torch.device) -> int:
+    """The base address of a peer process's allocation, mapped on ``dev``
+    the first time it is met; raises when the mapping is refused."""
+    base = _ipc_bases.get(handle)
+    if base is None:
+        p = ctypes.c_void_p()
+        rc = _fn("da_ipc_open")(handle, dev.index, ctypes.byref(p))
+        if rc != 0:
+            raise RuntimeError(f"cudaIpcOpenMemHandle refused a peer "
+                               f"process's allocation on {dev}: CUDA error "
+                               f"{rc}")
+        base = _ipc_bases[handle] = p.value
+    return base
+
+
+def close_ipc() -> None:
+    """Unmap every peer allocation this process mapped."""
+    while _ipc_bases:
+        _, base = _ipc_bases.popitem()
+        _fn("da_ipc_close")(base)
+
+
+def _cell_slices(d, ci) -> tuple:
+    return tuple(slice(c[j], c[j + 1]) for c, j in zip(d.cuts, ci))
+
+
+def process_handles(d) -> dict:
+    """This process's chunks of ``d`` as ``{cell index: [IPC handle (hex),
+    byte offset]}`` (cells in row-major order), for its peers to map."""
+    mine = {}
+    for k, ci in enumerate(d.cells()):
+        t = d._parts[ci]
+        if L.is_local(int(d.pids[ci])) and t.numel():
+            h, off = ipc_handle(t)
+            mine[str(k)] = [h.hex(), off]
+    return mine
+
+
+def process_copies(d, out: torch.Tensor, every: list) -> list:
+    """The ``copy_launches`` copies of one cross-process gather of ``d``
+    into ``out``: each chunk from its own pointer on this process, through
+    the peer allocation ``every[process]`` (``process_handles`` of each
+    process, in process order) maps otherwise."""
+    dev = out.device
+    copies = []
+    for k, ci in enumerate(d.cells()):
+        t = d._parts[ci]
+        if not t.numel():
+            continue
+        r = int(d.pids[ci])
+        if L.is_local(r):
+            src = t.data_ptr()
+        else:
+            h, off = every[L.process_of(r)][str(k)]
+            src = _ipc_base(bytes.fromhex(h), dev) + int(off)
+        dst = out[_cell_slices(d, ci)]
+        copies.append((0, src, dst.data_ptr(), _box(t, dst)))
+    return copies
+
+
+def process_all_gather(d, all_gather_json: Callable,
+                       barrier: Callable) -> torch.Tensor:
+    """The whole of process-spanning DArray ``d`` on this process's card,
+    by one copy launch that reads every chunk, the peer processes' through
+    CUDA IPC (see the module docstring).  ``all_gather_json(obj)`` returns
+    every process's ``obj`` in process order once all have published it;
+    ``barrier()`` returns once every process has called it."""
+    d._check_open()
+    dev = L.local_device()
+    out = torch.empty(d.dims, dtype=d.dtype, device=dev)
+    # 1. this process's chunks are written before a peer reads them
+    torch.cuda.current_stream(dev).synchronize()
+    every = all_gather_json(process_handles(d))
+    _copy_on_card(process_copies(d, out, every), dev, "all_gather",
+                  "cross_process")
+    # 2. no process frees or rewrites a chunk before every peer read it
+    torch.cuda.current_stream(dev).synchronize()
+    barrier()
+    return out
+
+
+def process_all_gather_plain(d, group) -> torch.Tensor:
+    """The plain version of ``process_all_gather``: each process's local
+    chunks as host bytes, all-gathered over the gloo ``group`` (padded to
+    the largest process's bytes) and assembled into one CPU tensor on
+    every process."""
+    import torch.distributed as dist
+    d._check_open()
+    cells = d.cells()
+    nproc = dist.get_world_size(group)
+    sizes = [0] * nproc
+    for ci in cells:
+        t = d._parts[ci]
+        sizes[L.process_of(int(d.pids[ci]))] += t.numel() * t.element_size()
+    width = max(sizes)
+    out = torch.empty(d.dims, dtype=d.dtype)
+    if width == 0:
+        return out
+    mine = torch.empty(width, dtype=torch.uint8)
+    o = 0
+    for ci in cells:
+        t = d._parts[ci]
+        if L.is_local(int(d.pids[ci])) and t.numel():
+            b = t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+            mine[o:o + b.numel()] = b
+            o += b.numel()
+    bufs = [torch.empty(width, dtype=torch.uint8) for _ in range(nproc)]
+    dist.all_gather(bufs, mine, group=group)
+    offs = [0] * nproc
+    for ci in cells:
+        t = d._parts[ci]
+        if not t.numel():
+            continue
+        p = L.process_of(int(d.pids[ci]))
+        nb = t.numel() * t.element_size()
+        out[_cell_slices(d, ci)] = bufs[p][offs[p]:offs[p] + nb].view(
+            d.dtype).view(t.shape)
+        offs[p] += nb
+    return out

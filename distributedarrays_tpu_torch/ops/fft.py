@@ -34,7 +34,7 @@ import math
 import numpy as np
 import torch
 
-from ..darray import DArray, darray_from_cuts
+from ..darray import DArray, cross_process_unported, darray_from_cuts
 from ..utils.debug import warn_once
 from .cuda_collectives import ring_all_to_all
 from .mapreduce import _even_shared_layout
@@ -124,6 +124,7 @@ def _fft_four_step(blocks, n: int, inverse: bool, op) -> list:
 def _fft_impl(d: DArray, ax: int, inverse: bool) -> DArray:
     if not isinstance(d, DArray):
         raise TypeError(f"expected DArray, got {type(d).__name__}")
+    cross_process_unported("dfft", d)
     ax = ax + d.ndim if ax < 0 else ax
     if not 0 <= ax < d.ndim:
         raise ValueError(f"axis out of range for ndim {d.ndim}")

@@ -37,8 +37,8 @@ import numpy as np
 import torch
 
 from .. import layout as L
-from ..darray import (DArray, SubDArray, as_tensor, distribute,
-                      from_global, resolve_layout)
+from ..darray import (DArray, SubDArray, as_tensor, cross_process_unported,
+                      distribute, from_global, resolve_layout)
 from ..parallel.reshard import allgather, plan_allgather
 from ..utils import autotune
 from . import collective_matmul as cm
@@ -217,6 +217,7 @@ def rmul_diag(d: DArray, diag) -> DArray:
 def _transpose(d: DArray, conj: bool, name: str) -> DArray:
     if d.ndim != 2:
         raise ValueError(f"{name} expects a 2-D DArray")
+    cross_process_unported(name, d)
 
     def flip(t):
         t = t.t()
@@ -451,6 +452,7 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
         A = A.copy()
     if not isinstance(A, DArray):
         A = distribute(A)
+    cross_process_unported("the distributed GEMM (A @ B)", A, B, out)
     if isinstance(B, DArray):
         bshape, bt = B.dims, None
     else:

@@ -9,6 +9,13 @@ device, and the partials are combined in grid (row-major) order on the
 device of the first rank of each result cell.  Means and variances carry
 ``(count, mean, M2)`` partials combined by Chan's formula.
 
+In a job of several controller processes (``parallel.multihost``) each
+process computes the partials of its own cells, the partials travel over
+the job's process group, and every process folds all of them in the same
+grid order as one process would: the result is bit for bit the
+single-process port's on the same layout, and every process holds it (a
+0-d tensor on its own device, or a DArray whose local chunks it holds).
+
 ``dims=`` reductions keep the reduced dims with size 1, and the result
 keeps the source's pid grid with the reduced grid dims collapsed, as in the
 JAX package.  Whole-array reductions return a 0-d tensor.  dtypes follow
@@ -42,7 +49,9 @@ import numpy as np
 import torch
 
 from ..darray import (DArray, SubDArray, _assemble, as_tensor, copyto_,
-                      from_global, resolve_layout)
+                      cross_process_unported, from_global, resolve_layout)
+from .. import layout as L
+from ..darray import _scatter
 from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
 from ..parallel.reshard import relayout, relayout_parts
 from .broadcast import _arg_shape
@@ -224,15 +233,14 @@ def _two_phase(d: DArray, axes, local: Callable, merge: Callable,
     for ci in d.cells():
         key = tuple(0 if k in red else j for k, j in enumerate(ci))
         groups.setdefault(key, []).append(ci)
+    if L.process_count() > 1:
+        return _two_phase_processes(d, axes, red, groups, local, merge,
+                                    finish, move)
     blocks = {}
     for key, cells in groups.items():
         dev = device_of(int(d.pids[key]))
-        # a cell empty along a reduced axis contributes nothing, unless all
-        # are (then the reduction of an empty extent decides the result)
-        live = [ci for ci in cells
-                if all(d.cuts[a][ci[a] + 1] > d.cuts[a][ci[a]] for a in red)]
         state = None
-        for ci in live or cells[:1]:
+        for ci in _live_cells(d, red, cells):
             s = move(local(d.part(ci), red), dev)
             state = s if state is None else merge(state, s)
         blocks[key] = finish(state)
@@ -254,6 +262,61 @@ def _two_phase(d: DArray, axes, local: Callable, merge: Callable,
     res = relayout(tmp, tpids, tcuts)
     tmp.close()
     return res
+
+
+def _live_cells(d: DArray, red, cells) -> list:
+    """The cells of a group that hold elements along every reduced axis: a
+    cell empty along one contributes nothing, unless all are (then the
+    first one's reduction of an empty extent decides the result)."""
+    live = [ci for ci in cells
+            if all(d.cuts[a][ci[a] + 1] > d.cuts[a][ci[a]] for a in red)]
+    return live or cells[:1]
+
+
+def _two_phase_processes(d: DArray, axes, red, groups, local, merge,
+                         finish, move):
+    """``_two_phase`` across controller processes: each process computes
+    its own cells' partials, the partials are all-gathered over the job's
+    process group as CPU tensors, and every process folds every group in
+    grid order on its own device.  A ``dims`` result is placed on the
+    layout ``relayout`` would give, each process keeping its own
+    chunks."""
+    from ..parallel import multihost
+    cpu = torch.device("cpu")
+    mine = {}
+    for cells in groups.values():
+        for ci in _live_cells(d, red, cells):
+            if L.is_local(int(d.pids[ci])):
+                mine[ci] = move(local(d._parts[ci], red), cpu)
+    if not mine:
+        # no chunk here: one placeholder (on the meta device) fixes the
+        # result's type, which ``finish`` reads from ``local``
+        cells = next(iter(groups.values()))
+        local(d._parts[_live_cells(d, red, cells)[0]], red)
+    every = {}
+    for part in multihost._all_gather_objects(mine):
+        every.update(part)
+    dev = L.local_device()
+    blocks = {}
+    for key, cells in groups.items():
+        state = None
+        for ci in _live_cells(d, red, cells):
+            s = move(every[ci], dev)
+            state = s if state is None else merge(state, s)
+        blocks[key] = finish(state)
+    ndim = d.ndim
+    if axes is None:
+        return blocks[(0,) * ndim].reshape(())
+    grid = tuple(1 if k in red else g for k, g in enumerate(d.grid))
+    cuts = [[0, 1] if k in red else list(c) for k, c in enumerate(d.cuts)]
+    first = blocks[(0,) * ndim]
+    whole = torch.empty([c[-1] for c in cuts], dtype=first.dtype, device=dev)
+    for key, b in blocks.items():
+        whole[tuple(slice(c[j], c[j + 1]) for c, j in zip(cuts, key))] = b
+    dist = _fit_dist(tuple(whole.shape), list(grid))
+    _, tpids, tcuts = resolve_layout(tuple(whole.shape),
+                                     [int(p) for p in d.pids.flat], dist)
+    return DArray(_scatter(whole, tpids, tcuts), tpids, tcuts)
 
 
 def _reduce(d, mapper, reducer: _Reducer, dims):
@@ -445,6 +508,7 @@ def _scan(d: DArray, axis: int, kind: str) -> DArray:
     on (their last slice, a slab one element thick)."""
     if not isinstance(d, DArray):
         raise TypeError(f"expected DArray, got {type(d).__name__}")
+    cross_process_unported(f"the scan (dcum{kind})", d)
     ax = axis + d.ndim if axis < 0 else axis
     if not 0 <= ax < d.ndim:
         raise ValueError(f"axis {axis} out of range for ndim {d.ndim}")

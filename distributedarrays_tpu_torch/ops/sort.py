@@ -51,8 +51,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..darray import DArray, SubDArray, _assemble, as_tensor, distribute, \
-    from_global
+from ..darray import DArray, SubDArray, _assemble, as_tensor, \
+    cross_process_unported, distribute, from_global
 from ..utils.debug import fn_site, warn_once
 from .cuda_collectives import ring_all_to_allv
 
@@ -236,6 +236,7 @@ def dsort(d, sample=True, by=None, rev: bool = False,
         d = d.copy()
     if not isinstance(d, DArray):
         d = distribute(as_tensor(d).reshape(-1))
+    cross_process_unported("dsort", d)
     if d.ndim != 1:
         raise ValueError("dsort expects a 1-D DArray (DVector)")
     d._check_open()

@@ -1,7 +1,8 @@
 """parallel of the PyTorch port: collectives (the static half of SPMD mode),
-the reshard planner, and SPMD mode."""
+multihost (several controller processes), the reshard planner, and SPMD
+mode."""
 
-from . import collectives, reshard, spmd_mode  # noqa: F401
+from . import collectives, multihost, reshard, spmd_mode  # noqa: F401
 from .collectives import (axis_rank, axis_size, halo_exchange,
                           halo_exchange_2d, pall_to_all, pbarrier, pbcast,
                           pgather, preduce, pshift, psum_scatter, run_spmd,

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
-from ..darray import DArray
+from ..darray import DArray, cross_process_unported
 
 __all__ = ["spmd_mesh", "run_spmd", "axis_rank", "axis_size",
            "halo_exchange", "halo_exchange_2d", "pshift", "pbarrier",
@@ -71,6 +71,7 @@ def run_spmd(f: Callable, ranks, *args):
     must equal ``ranks``; any other argument's blocks are moved to their
     rank's device.  ``f``'s return value (the counterpart of JAX's
     ``out_specs``, one block per rank) is returned as it is."""
+    cross_process_unported("run_spmd", *args)
     grid = np.asarray(ranks, dtype=np.int64)
     conv = []
     for a in args:

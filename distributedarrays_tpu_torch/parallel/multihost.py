@@ -1,0 +1,536 @@
+"""Multi-process support: the communication backend's cross-host half.
+
+PyTorch counterpart of ``distributedarrays_tpu/parallel/multihost.py``
+(its whole ``__all__``, with JAX's names and KV keys).  The reference
+scales by adding worker processes (``addprocs``, the ``Distributed``
+stdlib); the JAX package runs one controller per host joined by
+``jax.distributed``.  Here every controller process runs the same program
+and joins one ``torch.distributed`` job:
+
+- :func:`initialize` opens the job's store (a ``TCPStore`` for
+  ``host:port``, a ``FileStore`` for ``file://<path>``) as the KV that
+  heartbeats, clock samples and rank tables ride, and a gloo process
+  group over it as the host transport.  With no arguments it reads the
+  environment ``torchrun`` sets (``MASTER_ADDR``, ``MASTER_PORT``,
+  ``WORLD_SIZE``, ``RANK``); with nothing configured it is a no-op and
+  the program runs as one process.
+- After it, ``layout.init`` builds one global rank table over every
+  process's local ranks (process 0's first), so a DArray's default layout
+  spans the processes.  Each process holds the tensors of its own ranks;
+  another process's cell is a placeholder on the ``meta`` device.
+- :func:`gather_global` hands every process the whole array.  Where every
+  process of the job sits on one host and on CUDA devices, each process
+  makes one launch of K10's copy kernel (``ops.cuda_collectives
+  .process_all_gather``) that reads the peer processes' chunks through
+  CUDA IPC pointers and writes its own whole array; otherwise (a CPU job,
+  or processes on several hosts) the host copies are all-gathered over
+  the gloo group (``process_all_gather_plain``).  The route follows where
+  the peers are, the same on every process; a handle that will not open
+  or a launch that fails raises.
+- :func:`heartbeat`, :func:`exchange_clock_offsets`,
+  :func:`down_peer_processes` and :func:`quorum_assess` are the elastic
+  manager's real health signal: a peer whose heartbeat key is absent,
+  unparsable or older than ``stale_s`` is down (a transport error is no
+  evidence); the census puts this process's ranks on the side of every
+  process still heartbeating and ``resilience.domains.majority_side``
+  decides.  The port adds one rule to JAX's census: a process whose own
+  heartbeat in the KV is older than ``stale_s`` (it stopped publishing,
+  so every peer counts it down) puts itself alone on its side.
+- :func:`advertise_aggregator` and :func:`aggregator_endpoint` publish
+  and read the live-telemetry aggregator's URL in the KV; the aggregator
+  and the streaming exporter themselves are not ported, so
+  :func:`advertise_exporter` has nothing to register.
+
+Every process must enter the collective calls (``init``,
+:func:`gather_global`, :func:`sync_hosts`, reductions of a DArray in a
+multi-process job) in the same order: the SPMD discipline of JAX's
+multi-controller programs.  Their branches test only what is the same on
+every process (``layout.process_count``, ``layout.spans_processes``, the
+job's table of hosts and devices).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import socket
+import threading
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+from .. import layout as L
+from .. import telemetry as _tm
+
+__all__ = ["initialize", "global_mesh", "process_info", "sync_hosts",
+           "host_local_slice", "gather_global", "heartbeat",
+           "down_peer_processes", "quorum_assess",
+           "exchange_clock_offsets", "advertise_aggregator",
+           "aggregator_endpoint", "advertise_exporter"]
+
+_HB_PREFIX = "dat/heartbeat/"
+_CLOCK_PREFIX = "dat/clock/"
+_AGG_KEY = "dat/telemetry/agg"
+_RANKS_PREFIX = "dat/ranks/"
+_SYNC_PREFIX = "dat/sync/"
+_EXCHANGE_PREFIX = "dat/exchange/"
+
+# torch.distributed's own default for a process group's timeout
+_DEFAULT_TIMEOUT_S = 1800
+_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def _init_timeout_kw(initialization_timeout_s: int | None) -> dict:
+    """Bounded job start-up: an explicit timeout wins, else
+    ``DA_TPU_MH_INIT_TIMEOUT_S``, else torch.distributed's default.  A job
+    whose store never comes up fails with a diagnosable timeout instead of
+    hanging (JAX ``multihost.py:39``, the same rule and result)."""
+    if initialization_timeout_s is None:
+        env = os.environ.get("DA_TPU_MH_INIT_TIMEOUT_S")
+        if env:
+            try:
+                initialization_timeout_s = int(float(env))
+            except ValueError:
+                initialization_timeout_s = None
+    if initialization_timeout_s is None:
+        return {}
+    return {"initialization_timeout": max(1, int(initialization_timeout_s))}
+
+
+class _Job:
+    """The joined job: its store, gloo group, this process's index, the
+    process count, and per-tag counters that key the store's collective
+    exchanges (every process advances them in the same order)."""
+
+    def __init__(self, store, group, index: int, count: int, timeout):
+        self.store = store
+        self.group = group
+        self.index = index
+        self.count = count
+        self.timeout = timeout
+        self.procs: list[dict] = []      # host and device of each process
+        self._seq: dict[str, itertools.count] = {}
+        self._lock = threading.Lock()
+
+    def next(self, tag: str) -> int:
+        with self._lock:
+            return next(self._seq.setdefault(tag, itertools.count()))
+
+
+_job: _Job | None = None
+
+
+def _make_store(address: str, n: int, pid: int, timeout):
+    import torch.distributed as dist
+    if address.startswith("file://"):
+        store = dist.FileStore(address[len("file://"):], n)
+        store.set_timeout(timeout)
+        return store
+    if address.startswith("tcp://"):
+        address = address[len("tcp://"):]
+    host, _, port = address.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator address {address!r}: expected "
+                         "host:port, tcp://host:port or file://path")
+    return dist.TCPStore(host, int(port), n, is_master=(pid == 0),
+                         timeout=timeout)
+
+
+def initialize(coordinator_address: str | None = None,
+               num_processes: int | None = None,
+               process_id: int | None = None,
+               initialization_timeout_s: int | None = None) -> None:
+    """Join the multi-process job (JAX ``multihost.py:56``).
+
+    ``coordinator_address`` is the store: ``host:port`` (process 0 serves
+    a ``TCPStore`` there) or ``file://<path>`` (a ``FileStore`` every
+    process opens).  With no arguments the ``torchrun`` environment
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``) is read;
+    with none of it set the call is a no-op and the program runs as one
+    process.  A partial environment raises ``ValueError``.  Call it before
+    ``layout.init`` (or any entry point that builds the rank table): it
+    raises ``RuntimeError`` when a rank table or a process group is
+    already live.  ``initialization_timeout_s`` (or
+    ``DA_TPU_MH_INIT_TIMEOUT_S``) bounds the store's start-up and every
+    later wait on it."""
+    global _job
+    import torch.distributed as dist
+    if L._table is not None:
+        raise RuntimeError(
+            "the rank table is already live: call multihost.initialize() "
+            "before init() or any entry point that builds it")
+    if _job is not None or dist.is_initialized():
+        raise RuntimeError("a torch.distributed process group is already "
+                           "live in this process")
+    kw = _init_timeout_kw(initialization_timeout_s)
+    timeout = timedelta(seconds=kw.get("initialization_timeout",
+                                       _DEFAULT_TIMEOUT_S))
+    auto = num_processes is None
+    if auto:
+        env = {k: os.environ.get(k) for k in _ENV}
+        if not any(env.values()):
+            return                  # nothing configured: one process
+        missing = [k for k, v in env.items() if not v]
+        if missing:
+            raise ValueError(f"torchrun environment incomplete: {missing} "
+                             "not set")
+        coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        num_processes, process_id = int(env["WORLD_SIZE"]), int(env["RANK"])
+    if coordinator_address is None or process_id is None:
+        raise ValueError("initialize needs coordinator_address and "
+                         "process_id with num_processes")
+    n, pid = int(num_processes), int(process_id)
+    if not 0 <= pid < n:
+        raise ValueError(f"process_id {pid} out of range for {n} processes")
+    store = _make_store(str(coordinator_address), n, pid, timeout)
+    dist.init_process_group("gloo", store=store, rank=pid, world_size=n,
+                            timeout=timeout)
+    _job = _Job(store, dist.group.WORLD, pid, n, timeout)
+    L._exchange = _exchange_table
+    if auto:
+        _tm.event("multihost", "initialize", auto=True)
+    else:
+        _tm.event("multihost", "initialize", num_processes=n,
+                  process_id=pid)
+
+
+def shutdown() -> None:
+    """Leave the job: close the CUDA IPC mappings this process opened,
+    destroy the process group and forget the job and the rank table (the
+    counterpart of ``jax.distributed.shutdown``).  Call it on every
+    process once the collective calls are done."""
+    global _job
+    if _job is None:
+        return
+    import torch.distributed as dist
+    from ..ops import cuda_collectives
+    cuda_collectives.close_ipc()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _job = None
+    L._exchange = None
+    L._table = None
+    L._owner = None
+    L._me = 0
+
+
+def _exchange_table(local_devs):
+    """``layout.init``'s collective: publish this process's rank count,
+    device and host, read every process's, and return the global table
+    (another process's ranks on the ``meta`` device), the owner of each
+    rank and this process's index."""
+    job = _job
+    gen = job.next("ranks")
+    me = {"n": len(local_devs), "device": str(local_devs[0]),
+          "host": socket.gethostname()}
+    job.store.set(f"{_RANKS_PREFIX}{gen}/{job.index}", json.dumps(me))
+    infos = [json.loads(job.store.get(f"{_RANKS_PREFIX}{gen}/{p}"))
+             for p in range(job.count)]
+    meta = torch.device("meta")
+    devs, owner = [], []
+    for p, info in enumerate(infos):
+        for i in range(int(info["n"])):
+            devs.append(local_devs[i] if p == job.index else meta)
+            owner.append(p)
+    job.procs = infos
+    return devs, owner, job.index
+
+
+def _kv():
+    """The job's store, or None single-process (the KV helpers are then
+    no-ops, as JAX's are without a distributed client)."""
+    return _job.store if _job is not None and _job.count > 1 else None
+
+
+def _try_get(store, key: str):
+    """The value under ``key``, None when absent; a transport error
+    raises."""
+    if not store.check([key]):
+        return None
+    return store.get(key).decode()
+
+
+def advertise_aggregator(url: str) -> bool:
+    """Publish the live-telemetry aggregator's URL in the job's KV
+    (``dat/telemetry/agg``) so every process can discover it.  False
+    (no-op) single-process or on a store error."""
+    store = _kv()
+    if store is None:
+        return False
+    try:
+        store.set(_AGG_KEY, str(url))
+        return True
+    except Exception:
+        return False
+
+
+def aggregator_endpoint() -> str | None:
+    """The advertised aggregator URL, or None (single-process, nothing
+    advertised, or the store unavailable)."""
+    store = _kv()
+    if store is None:
+        return None
+    try:
+        raw = _try_get(store, _AGG_KEY)
+        return raw or None
+    except Exception:
+        return None
+
+
+def advertise_exporter() -> bool:
+    """Register this process's armed streaming exporter in the KV (JAX
+    ``multihost.py:134``: ``dat/telemetry/exporter/<index>``).  JAX
+    returns False single-process or when no exporter is armed; the port's
+    ``telemetry.stream`` has no exporter yet (ROADMAP queue A), so none
+    is ever armed and this returns False."""
+    return False
+
+
+def heartbeat() -> bool:
+    """Publish this process's liveness timestamp
+    (``dat/heartbeat/<index>``) and its clock sample (``dat/clock/<index>``,
+    ``"<epoch> <hostname>"``) to the KV; peers read them through
+    :func:`down_peer_processes` and :func:`exchange_clock_offsets`.  False
+    (no-op) single-process or on a store error."""
+    store = _kv()
+    if store is None:
+        return False
+    try:
+        now = time.time()
+        store.set(f"{_HB_PREFIX}{_job.index}", f"{now:.3f}")
+        store.set(f"{_CLOCK_PREFIX}{_job.index}",
+                  f"{now:.6f} {_tm.core._HOST}")
+        return True
+    except Exception:
+        return False
+
+
+def exchange_clock_offsets(journal: bool = True) -> dict[int, dict]:
+    """This process's wall-clock skew against every heartbeating peer:
+    ``{peer: {"offset_s": mine - theirs, "host": name}}``, from each
+    peer's last clock sample (bounded by one heartbeat period).  With
+    ``journal=True`` the estimate lands as one ``multihost/clock`` event,
+    which ``telemetry.cluster.merge_journals`` aligns the processes'
+    timelines by.  Single-process: empty, nothing journaled."""
+    store = _kv()
+    if store is None:
+        return {}
+    offsets: dict[int, dict] = {}
+    me = _job.index
+    for p in range(_job.count):
+        if p == me:
+            continue
+        try:
+            raw = _try_get(store, f"{_CLOCK_PREFIX}{p}")
+            if not raw:
+                continue
+            parts = raw.split(None, 1)
+            theirs = float(parts[0])
+            host = parts[1].strip() if len(parts) > 1 else f"process-{p}"
+            offsets[p] = {"offset_s": round(time.time() - theirs, 6),
+                          "host": host}
+        except Exception:
+            continue           # an unreadable sample is no estimate
+    if offsets and journal and _tm.enabled():
+        _tm.event("multihost", "clock", process_index=me,
+                  offsets={str(k): v for k, v in offsets.items()})
+    return offsets
+
+
+def _stale(raw, stale_s: float) -> bool:
+    try:
+        return raw is None or time.time() - float(raw) > stale_s
+    except ValueError:
+        return True            # unparsable heartbeat = no heartbeat
+
+
+def down_peer_processes(stale_s: float = 30.0) -> set[int]:
+    """Peer processes whose heartbeat key is absent, unparsable or older
+    than ``stale_s``.  A store error reading a key is no evidence about
+    the peer, so it downs nobody.  Single-process: empty."""
+    store = _kv()
+    if store is None:
+        return set()
+    down: set[int] = set()
+    for p in range(_job.count):
+        if p == _job.index:
+            continue
+        try:
+            raw = _try_get(store, f"{_HB_PREFIX}{p}")
+        except Exception:
+            continue
+        if _stale(raw, stale_s):
+            down.add(p)
+    return down
+
+
+def _own_lease_lapsed(stale_s: float) -> bool:
+    """True when this process's own heartbeat is in the KV and older than
+    ``stale_s``: every peer's census then counts it down."""
+    store = _kv()
+    try:
+        raw = _try_get(store, f"{_HB_PREFIX}{_job.index}")
+    except Exception:
+        return False
+    return raw is not None and _stale(raw, stale_s)
+
+
+def quorum_assess(stale_s: float = 30.0) -> dict:
+    """This process's partition verdict over the failure-domain topology
+    (JAX ``multihost.py:256``): ``{"verdict": "healthy"|"quorum"|
+    "minority", "side", "lost", "reason"}``.
+
+    An armed ``partition`` fault (``faults.partition_state()``) decides
+    first, so chaos runs are deterministic.  Otherwise the heartbeat
+    census decides: this process's side is every process still
+    heartbeating (itself included, unless its own heartbeat has lapsed,
+    when it stands alone), in ranks through the rank-to-process map, and
+    ``domains.majority_side`` rules (a strict majority continues, a tie
+    goes to the side of rank 0).  Counts ``multihost.quorum_checks`` and
+    journals ``multihost/quorum`` while partitioned."""
+    from ..resilience import domains as _dom
+    from ..resilience import faults as _fl
+    expected = _dom.topology().ranks()
+    st = _fl.partition_state()
+    if st is not None:
+        q = _dom.majority_side(st["groups"], st["observer"],
+                               expected_total=len(expected))
+        out = {**q, "reason": "injected partition (fault plan)"}
+    else:
+        down_procs = down_peer_processes(stale_s=stale_s)
+        lapsed = _kv() is not None and _own_lease_lapsed(stale_s)
+        if not down_procs and not lapsed:
+            out = {"verdict": "healthy", "side": list(expected),
+                   "lost": [], "reason": "no partition evidence"}
+        else:
+            me = _job.index
+            live = {me} if lapsed else set(range(_job.count)) - down_procs
+            mine, lost = [], []
+            for r in L.all_ranks():
+                (mine if L.process_of(r) in live else lost).append(r)
+            q = _dom.majority_side([mine, lost], mine[0] if mine else 0,
+                                   expected_total=len(expected))
+            reason = "heartbeat census"
+            if lapsed:
+                reason += " (own heartbeat stale)"
+            elif 0 in down_procs:
+                reason += " (coordinator process lost)"
+            out = {**q, "reason": reason}
+    _tm.count("multihost.quorum_checks", verdict=out["verdict"])
+    if out["verdict"] != "healthy" and _tm.enabled():
+        # cold path: only journaled while partitioned
+        _tm.event("multihost", "quorum", verdict=out["verdict"],
+                  side=len(out["side"]), lost=len(out["lost"]),
+                  reason=out["reason"])
+    return out
+
+
+def process_info() -> dict:
+    """This process's index, the process count, and its and the job's
+    rank counts (JAX's local and global device counts)."""
+    return {
+        "process_index": _job.index if _job is not None else 0,
+        "process_count": _job.count if _job is not None else 1,
+        "local_devices": len(L.local_ranks()),
+        "global_devices": L.nranks(),
+    }
+
+
+def global_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]):
+    """The grid of ALL ranks of the job, in process order, reshaped to
+    ``shape``: the nested rank list that ``procs=``/``dist=``
+    (``np.asarray(mesh).flat`` and ``shape``) and ``run_spmd`` take (JAX
+    ``multihost.py:320``, a ``Mesh`` over ``jax.devices()``).  Put the
+    fastest-communicating axes last, within a process's ranks."""
+    shape = tuple(int(s) for s in shape)
+    n = L.nranks()
+    if int(np.prod(shape)) != n:
+        raise ValueError(f"mesh shape {shape} != {n} global ranks")
+    if len(tuple(axis_names)) != len(shape):
+        raise ValueError(f"{len(tuple(axis_names))} axis names for a "
+                         f"{len(shape)}-d mesh")
+    return np.arange(n).reshape(shape).tolist()
+
+
+def sync_hosts(name: str = "sync") -> None:
+    """Barrier across the controller processes on the job's store (for
+    program phases; JAX ``multihost.py:330``).  Every process must call it
+    with the same names in the same order."""
+    store = _kv()
+    if store is None:
+        return
+    key = f"{_SYNC_PREFIX}{name}/{_job.next('sync/' + name)}"
+    if store.add(key, 1) == _job.count:
+        store.set(key + "/done", "1")
+    store.wait([key + "/done"], _job.timeout)
+
+
+def _all_gather_json(tag: str, obj) -> list:
+    """Every process's ``obj`` (JSON), in process order, through the
+    store; no process returns before all have published."""
+    job = _job
+    key = f"{_EXCHANGE_PREFIX}{tag}/{job.next('exchange/' + tag)}/"
+    job.store.set(key + str(job.index), json.dumps(obj))
+    return [json.loads(job.store.get(key + str(p)))
+            for p in range(job.count)]
+
+
+def _all_gather_objects(obj) -> list:
+    """Every process's picklable ``obj`` (CPU tensors included), in
+    process order, over the gloo group."""
+    import torch.distributed as dist
+    out = [None] * _job.count
+    dist.all_gather_object(out, obj, group=_job.group)
+    return out
+
+
+def _kernel_route() -> bool:
+    """True when every process of the job sits on this host and on a CUDA
+    device, so the chunks are read through CUDA IPC by K10's copy kernel.
+    The same answer on every process: it reads the job's table."""
+    host = socket.gethostname()
+    return all(p["host"] == host and p["device"].startswith("cuda")
+               for p in _job.procs)
+
+
+def _gather_tensor(d) -> torch.Tensor:
+    """The whole of DArray ``d`` as one tensor on this process's device:
+    the collective behind :func:`gather_global`, ``full``, ``gather`` and
+    ``np.asarray`` in a multi-process job."""
+    from ..ops import cuda_collectives as CC
+    d._check_open()
+    if _tm.enabled():
+        _tm.record_comm("multihost_gather",
+                        d.size * d.dtype.itemsize, op="gather_global",
+                        shape=list(d.dims))
+    if _kernel_route():
+        return CC.process_all_gather(
+            d, lambda obj: _all_gather_json("gather", obj),
+            lambda: sync_hosts("gather_global"))
+    return CC.process_all_gather_plain(d, _job.group).to(L.local_device())
+
+
+def gather_global(d) -> np.ndarray:
+    """Host numpy copy of a DArray that may span controller processes (JAX
+    ``multihost.py:339``; the reference's ``Array(d)``).  Every process
+    must call it and every process gets the whole array: through K10's
+    copy kernel over CUDA IPC where the job's processes share a host and
+    CUDA devices, else by an all-gather of host copies over the gloo
+    group.  Single-process it is ``gather(d)``.  A tensor is returned as
+    numpy (a tensor never spans processes)."""
+    from ..darray import DArray, _to_numpy, gather
+    if not isinstance(d, DArray):
+        return _to_numpy(d) if isinstance(d, torch.Tensor) else np.asarray(d)
+    if L.process_count() == 1:
+        return gather(d)
+    return _to_numpy(_gather_tensor(d))
+
+
+def host_local_slice(d) -> list:
+    """``[(rank, localpart), ...]`` for the ranks of ``d`` this process
+    holds (JAX ``multihost.py:385``)."""
+    return [(int(p), d.localpart(int(p))) for p in d.pids.flat
+            if L.is_local(int(p))]

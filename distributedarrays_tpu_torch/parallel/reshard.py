@@ -91,7 +91,7 @@ import torch
 
 from .. import layout as L
 from .. import telemetry as _tm
-from ..darray import DArray
+from ..darray import DArray, cross_process_unported
 from ..ops.cuda_collectives import (chain_step, ring_all_gather,
                                     ring_all_to_all)
 from ..resilience import domains as _dom
@@ -990,6 +990,7 @@ def relayout_parts(d: DArray, pids, cuts, *,
     pids = np.asarray(pids)
     if same_layout(d, pids, cuts):
         return d._parts
+    cross_process_unported(f"the reshard ({op})", d)
     if plan is None:
         plan = plan_reshard(d, pids, cuts)
     with _moving(d, plan, op):
@@ -1093,6 +1094,7 @@ def allgather(d: DArray, ranks=None, *,
     only the ranks asked for), else assembled region by region.  Moves run
     in a ``reshard`` span named by ``op``, as JAX's gathers (a reshard
     onto a replicated layout) do."""
+    cross_process_unported(f"the reshard ({op})", d)
     ranks = ([int(p) for p in d.pids.flat] if ranks is None
              else [int(r) for r in ranks])
     plan = plan_allgather(d, ranks)

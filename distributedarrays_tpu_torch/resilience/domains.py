@@ -6,10 +6,11 @@ host); the reshard planner classifies each exchange as intra- or
 cross-domain against it, and replica placement puts a rank's buddy in
 another domain.
 
-- :func:`topology` is the process-wide :class:`DomainTopology`.  The port
-  has one controller process, so the default is one domain holding every
-  rank of the rank table: what the JAX default (one domain per JAX process)
-  collapses to on a single-controller mesh.  :func:`configure` or
+- :func:`topology` is the process-wide :class:`DomainTopology`.  The
+  default is one domain per controller process (JAX ``domains.py:125``):
+  each process's ranks of the rank table, which is one domain holding
+  every rank in a single-process run and one a process in a job that
+  ``parallel.multihost.initialize`` joined.  :func:`configure` or
   ``DA_TPU_DOMAINS`` carve the ranks into synthetic domains.
 - :func:`buddy_map`, :func:`is_cross_domain` and :func:`majority_side` are
   pure functions of their arguments and the topology, as in JAX.
@@ -110,14 +111,18 @@ def _from_env(spec: str) -> DomainTopology:
 
 
 def _default() -> DomainTopology:
-    """One domain holding every rank of the table: the port runs one
-    controller process (JAX ``domains.py:125``, single-controller)."""
-    return DomainTopology([L.all_ranks() or [0]])
+    """One domain per controller process, each holding that process's
+    ranks of the table (JAX ``domains.py:125``); a single process is one
+    domain."""
+    by_proc: dict[int, list[int]] = {}
+    for r in L.all_ranks():
+        by_proc.setdefault(L.process_of(r), []).append(r)
+    return DomainTopology([by_proc[p] for p in sorted(by_proc)] or [[0]])
 
 
 def topology() -> DomainTopology:
     """The process-wide topology: an explicit :func:`configure` wins, else
-    ``DA_TPU_DOMAINS``, else the one-domain default (JAX
+    ``DA_TPU_DOMAINS``, else the per-process default (JAX
     ``domains.py:143``).  The default is derived from the rank table on
     each call, so it covers the ranks of the latest ``init``."""
     global _topo

@@ -9,12 +9,13 @@ and a re-layout engine that moves every registered DArray
   ``mark_down`` / ``mark_up`` are explicit health edits.
 - ``probe()`` is one health epoch: the real signal (a rank is down when the
   CUDA device it sits on is no longer enumerated by torch, or every CUDA
-  rank when torch cannot count the devices; ``DA_TPU_ELASTIC_HW_PROBE=0``
-  turns this half off, ``DA_TPU_ELASTIC_ACTIVE_PROBE=1`` adds a one-element
-  round trip per device), merged with the manual marks and the fault
-  harness's simulated-down set (``faults.probe_tick``, where simulated
-  devices revive), the ``elastic.live_devices`` gauge and the quorum
-  verdict (:func:`quorum_assess`).
+  rank when torch cannot count the devices; in a multi-process job, every
+  rank of a peer process whose heartbeat went stale; ``DA_TPU_ELASTIC_HW_
+  PROBE=0`` turns this half off, ``DA_TPU_ELASTIC_ACTIVE_PROBE=1`` adds a
+  one-element round trip per local device), merged with the manual marks
+  and the fault harness's simulated-down set (``faults.probe_tick``, where
+  simulated devices revive), the ``elastic.live_devices`` gauge and the
+  quorum verdict (``parallel.multihost.quorum_assess``).
 - ``shrink()`` re-lays every registered DArray that touches a down rank
   onto the survivors, in place: the same id and registry entry, new
   ``pids``/``indices``/``cuts`` and tensors it owns.  The target is JAX's:
@@ -28,9 +29,12 @@ and a re-layout engine that moves every registered DArray
 - ``grow()`` moves back only the arrays ``shrink()`` displaced.
 
 A simulated-down rank still answers reads, so ``shrink`` keeps the data.
-The multi-host half (peer heartbeats, the heartbeat census of the quorum
-rule) waits for ``parallel/multihost.py``; until then the port behaves as
-JAX does when multihost was never initialised: no peer is stale.
+The multi-process half is ``parallel.multihost``'s: each probe publishes
+this process's heartbeat and clock sample, journals the clock offsets
+(the ``multihost/clock`` events the journal merge aligns by), and marks
+down the ranks of every peer process whose heartbeat is stale (JAX
+``elastic.py:238-253``); a single-process run has no peers, so nothing is
+stale.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from .. import layout as L
 from .. import telemetry as _tm
 from . import faults
 
-__all__ = ["ElasticDeviceSet", "manager", "relayout", "quorum_assess"]
+__all__ = ["ElasticDeviceSet", "manager", "relayout"]
 
 
 def _moved_parts(d, pids: np.ndarray, cuts) -> np.ndarray:
@@ -109,31 +113,6 @@ def _arrays() -> list:
     """The live registered DArrays (a ``DData`` has no layout to move)."""
     from ..darray import DArray
     return [d for d in core.live_arrays() if isinstance(d, DArray)]
-
-
-def quorum_assess() -> dict:
-    """This controller's partition verdict (JAX ``multihost.quorum_assess``,
-    its single-controller half): an armed ``partition`` fault's state
-    decides through ``domains.majority_side``; without one there is no
-    partition evidence (no peer heartbeats yet) and the verdict is
-    healthy."""
-    from . import domains as _dom
-    expected = _dom.topology().ranks()
-    st = faults.partition_state()
-    if st is not None:
-        q = _dom.majority_side(st["groups"], st["observer"],
-                               expected_total=len(expected))
-        out = {**q, "reason": "injected partition (fault plan)"}
-    else:
-        out = {"verdict": "healthy", "side": list(expected), "lost": [],
-               "reason": "no partition evidence"}
-    _tm.count("multihost.quorum_checks", verdict=out["verdict"])
-    if out["verdict"] != "healthy" and _tm.enabled():
-        # cold path: only journaled while partitioned
-        _tm.event("multihost", "quorum", verdict=out["verdict"],
-                  side=len(out["side"]), lost=len(out["lost"]),
-                  reason=out["reason"])
-    return out
 
 
 class ElasticDeviceSet:
@@ -209,20 +188,24 @@ class ElasticDeviceSet:
         down when its device index is no longer below
         ``torch.cuda.device_count()`` (every CUDA rank when torch cannot
         count); ``DA_TPU_ELASTIC_ACTIVE_PROBE=1`` adds a one-element round
-        trip to each rank's device.  CPU ranks never go down here.
+        trip to each rank's device.  CPU ranks never go down here.  In a
+        multi-process job the multihost heartbeat rides along: publish
+        this process's, journal the clock offsets, and down every rank of
+        a peer process whose heartbeat is stale (JAX ``elastic.py:238``).
         ``DA_TPU_ELASTIC_HW_PROBE=0`` disables it."""
         if os.environ.get("DA_TPU_ELASTIC_HW_PROBE", "1") == "0":
             return set()
         expected = self._expected_ranks()
+        down = self._peer_probe(expected)
         cuda = {r: L.device_of(r) for r in expected
                 if L.device_of(r).type == "cuda"}
         if not cuda:
-            return set()
+            return down
         try:
             count = torch.cuda.device_count()
         except Exception:
-            return set(cuda)
-        down = {r for r, dev in cuda.items() if dev.index >= count}
+            return down | set(cuda)
+        down |= {r for r, dev in cuda.items() if dev.index >= count}
         if os.environ.get("DA_TPU_ELASTIC_ACTIVE_PROBE") == "1":
             for r, dev in cuda.items():  # pragma: no cover - opt-in
                 if r in down:
@@ -232,6 +215,21 @@ class ElasticDeviceSet:
                 except Exception:
                     down.add(r)
         return down
+
+    @staticmethod
+    def _peer_probe(expected) -> set[int]:
+        """The ranks of stale peer processes, after this process's
+        heartbeat and clock-offset exchange; empty single-process."""
+        from ..parallel import multihost as _mh
+        try:
+            _mh.heartbeat()
+            # the clock samples the heartbeats published become the
+            # multihost/clock events telemetry.cluster aligns journals by
+            _mh.exchange_clock_offsets()
+            stale = _mh.down_peer_processes()
+        except Exception:  # the heartbeat must not kill the probe
+            return set()
+        return {r for r in expected if L.process_of(r) in stale}
 
     def probe(self) -> dict:
         """One health epoch: read the REAL device signals
@@ -246,7 +244,8 @@ class ElasticDeviceSet:
         hw = self._hw_probe()
         sim = faults.probe_tick()
         try:
-            part = quorum_assess()
+            from ..parallel import multihost as _mh
+            part = _mh.quorum_assess()
         except Exception:  # pragma: no cover — quorum must not kill probes
             part = None
         with self._lock:

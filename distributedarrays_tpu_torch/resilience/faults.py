@@ -460,8 +460,8 @@ def slow_link_delay(spec: FaultSpec) -> float:
 def partition_state() -> dict | None:
     """The active simulated partition (``{"groups", "observer", "side",
     "lost", "spec"}``), or None — the quorum rule's deterministic input
-    (``elastic.quorum_assess`` consults it).  Clears automatically once every far-side rank
-    has revived."""
+    (``multihost.quorum_assess`` consults it).  Clears automatically once
+    every far-side rank has revived."""
     inj = _current()
     if inj is None:
         return None

@@ -151,7 +151,8 @@ def _partition_quorum(exc: BaseException) -> dict:
     """Adjudicate a partition failure: which side is THIS controller on?
     An :class:`faults.InjectedPartition` in the cause chain carries the
     split's groups and observer directly (the deterministic-chaos path);
-    otherwise :func:`elastic.quorum_assess` decides."""
+    otherwise the multihost heartbeat census decides
+    (``parallel.multihost.quorum_assess``, JAX ``recovery.py:166``)."""
     from . import domains as _dom
     for e in _chain(exc):
         if isinstance(e, faults.InjectedPartition):
@@ -166,7 +167,8 @@ def _partition_quorum(exc: BaseException) -> dict:
                           side=q["side"], lost=q["lost"],
                           reason="injected partition (fault plan)")
             return {**q, "reason": "injected partition (fault plan)"}
-    return elastic.quorum_assess()
+    from ..parallel import multihost as _mh
+    return _mh.quorum_assess()
 
 
 # the flight recorder stamps every postmortem bundle with this verdict

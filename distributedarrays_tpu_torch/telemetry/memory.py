@@ -117,13 +117,17 @@ def _shard_bytes(buf, ranks=None) -> tuple[dict, dict, int]:
     ``nbytes`` on its ``device``, and on the rank at its index in
     ``ranks`` (a grid of rank ids of ``buf``'s shape) when given.
     Anything that is not a tensor counts its ``nbytes_of`` on the
-    pseudo-device ``None``."""
+    pseudo-device ``None``.  A placeholder on the ``meta`` device (a cell
+    another controller process holds) holds no memory here and counts
+    nothing."""
     per: dict = {}
     per_rank: dict = {}
     total = 0
     ts = _tensors(buf)
     rs = [None] * len(ts) if ranks is None else ranks.flat
     for t, r in zip(ts, rs):
+        if getattr(t, "is_meta", False):
+            continue
         nb = getattr(t, "nbytes", None)
         dev = getattr(t, "device", None)
         if not isinstance(nb, int) or dev is None:

@@ -42,10 +42,15 @@ Fault sites: ``checkpoint.write`` (payload written, marker not yet) and
 ``checkpoint.read`` (a ``corrupt`` spec flips payload bytes through
 ``faults.corrupt_arrays`` before the CRC check).
 
+A DArray that spans the processes of a multi-process job
+(``parallel.multihost``) is assembled through
+``multihost.gather_global``, so every process must call ``save`` (each
+writes its own checkpoint, as JAX's multi-controller ``_encode`` does,
+``checkpoint.py:126-132``), and ``load`` restores it onto its saved
+``procs`` and cuts, each process placing only its own chunks.
+
 Not ported: ``store="orbax"`` raises ``ValueError`` (Orbax is a JAX
-library), and the multi-controller branch that assembles a DArray spanning
-processes (``parallel.multihost.gather_global``) waits for the port's
-``parallel/multihost.py``.
+library).
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ import torch
 
 from .. import telemetry as _tm
 from ..darray import DArray, DData, darray_from_cuts, distribute
-from ..layout import device_of, nranks
+from ..layout import device_of, nranks, process_count
 
 __all__ = ["save", "load", "CheckpointManager", "CheckpointIntegrityError",
            "PeerReplicaStore", "PeerReplicaUnavailable"]
@@ -150,7 +155,14 @@ def _encode(tree, arrays: dict, copy: bool = False):
     payload independent of the caller's buffers (async saves)."""
     if isinstance(tree, DArray):
         key = f"a{len(arrays)}"
-        host, extra = _raw(tree.full(torch.device("cpu")))
+        if process_count() > 1:
+            # multi-controller: every process assembles the array through
+            # the cross-process gather (SPMD: each is inside this save)
+            from ..parallel.multihost import _gather_tensor
+            whole = _gather_tensor(tree).cpu()
+        else:
+            whole = tree.full(torch.device("cpu"))
+        host, extra = _raw(whole)
         arrays[key] = host
         return {"__dartpu__": "DArray", "key": key,
                 "procs": [int(p) for p in tree.pids.flat],

@@ -22,7 +22,9 @@ ring attention step's compute steps by route (a ring step that only
 forwards its K/V pair, or only starts or finishes the carry, counts as a
 launch and under no route), and every step of the ring GEMMs K13, K14 and
 K15 by route (``RING_ROUTES``: those three and ``wgmma_peer``, wgmma with
-the slot the step writes on another card).
+the slot the step writes on another card), and the all-gather's (K10)
+``cross_process`` launches, which read peer processes' chunks through
+CUDA IPC (``multihost.gather_global``).
 
 ``sm_count(device)`` is a card's SM count (cached), which the wrappers
 use to size their grids.
@@ -97,6 +99,8 @@ _routes.update({k: dict.fromkeys(STENCIL_ROUTES, 0)
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs",
                           "matmul_reducescatter")})
+# K10's launches across controller processes (peer chunks by CUDA IPC)
+_routes["all_gather"] = {"cross_process": 0}
 _peers: set[tuple[int, int]] = set()
 _sms: dict[int, int] = {}
 build_log: dict[str, str] = {}
@@ -127,7 +131,8 @@ def launch_counts() -> dict[str, int]:
 def route_counts() -> dict[str, dict[str, int]]:
     """Launches of each route of the block GEMM, the int8 GEMM, the two
     stencils, flash attention, the ring hop, the backward's dq
-    and dk/dv passes, the ring attention step and the ring GEMMs."""
+    and dk/dv passes, the ring attention step and the ring GEMMs, and
+    the all-gather's cross-process launches."""
     with _lock:
         return {k: dict(v) for k, v in _routes.items()}
 

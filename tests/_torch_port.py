@@ -187,7 +187,7 @@ def emulated_copies(calls):
 
     from distributedarrays_tpu_torch.ops import cuda_collectives as C
 
-    def run(copies, dev, kernel):
+    def run(copies, dev, kernel, route=None):
         launches = C.copy_launches(copies)
         calls.append((kernel, len(launches)))
         for launch in launches:
