@@ -291,15 +291,32 @@
    8192^2 chain ``sin(A) + B*C``; ``dsum(chain)`` and ``dsum(A*A)`` must be
    bit-equal to the single-process port's on 4 ranks of one process.
    ``gather_global`` of the 16384^2 array must launch K10's copy kernel
-   once a process (``route_counts()["all_gather"]["cross_process"]``),
+   once a process (``route_counts()["all_gather"]
+   ["cross_process_region"]``: ``multihost.fetch_regions``'s region copy),
    reading the peers' chunks through CUDA IPC, bit-equal to the plain
-   route (host copies all-gathered over gloo) and to one process's array
+   route (the pieces over gloo) and to one process's array
    (SHA-256); it is timed by CUDA events (the median of 7 batches of 10
    launches) with each process alone and with all four at once, beside
    ``Tensor.copy_`` from the IPC-opened peer chunks (cudaMemcpy, the
    library yardstick) and the plain route (3 calls); the
    bound is the bytes the processes read and write on the card (1 GiB
-   read and 1 GiB written each) over 3.35 TB/s.  Then an uneven 16383 x
+   read and 1 GiB written each) over 3.35 TB/s.  Then the ops across the
+   processes (``multihost_ops``): the distributed GEMM of two 16384^2 f32
+   DArrays on (2, 2) (one region launch a process fetches its A row and B
+   column panels, no K1 launch; the gathered product bit-equal to one
+   process's on 4 ranks, or within 1e-5 of its largest value; the
+   panels bit-equal to the plain route; the fetch's launch, each
+   process's ``torch.matmul`` and the whole call timed, beside one
+   process's call); a relayout of the 16384^2 array from (4, 1) to
+   (1, 4) (one launch a process, bit-equal to the plain route and to one
+   process's array, beside one process's ``relayout_plain`` and K11);
+   ``dtranspose`` on (2, 2) (no launch), ``dcumsum`` along 0 on (4, 1)
+   and ``djit(torch.sin)`` (one launch) of 8192^2 arrays, each bit-equal
+   to one process's; 50 rounds of fresh 4096^2 relayouts with
+   ``torch.cuda.empty_cache()`` in every process between rounds, each
+   right, no mapping open between calls and at most 3 open during one;
+   and a gather after every process freed its array and allocated a new
+   one.  Then an uneven 16383 x
    16384 ``distribute``, ``d + d`` and its gather; a checkpoint of a
    4096^2 process-spanning DArray saved and loaded on its saved cuts; the
    heartbeat census (process 3 stops heartbeating: processes 0-2 must see
@@ -4997,6 +5014,49 @@ MH_SEED = 11
 MH_TIMEOUT_S = 420
 MH_REPS, MH_BATCH = 7, 10
 MH_PLAIN_REPS = 3
+MH_MM_REPS, MH_MM_BATCH = 3, 2     # the per-process GEMM product's timing
+MH_WINDOW_BATCH = 20    # calls a process in an all-four host window
+MH_MAP_N, MH_MAP_ROUNDS = 4096, 50  # the mapping-lifetime rounds
+
+
+def _plain_fetch(MH, CC, wants) -> list:
+    """``fetch_regions``'s plain route for ``[(DArray, bounds or None)]``:
+    the boxes as CPU tensors, over the job's gloo group."""
+    arrays, index, asks, outs = [], {}, [], []
+    for d, b in wants:
+        if id(d) not in index:
+            index[id(d)] = len(arrays)
+            arrays.append(d)
+        b = [(0, n) for n in d.dims] if b is None else b
+        out = torch.empty([hi - lo for lo, hi in b], dtype=d.dtype)
+        asks.append((index[id(d)], b, out))
+        outs.append(out)
+    CC.process_regions_plain(arrays, asks, MH._job.group)
+    return outs
+
+
+def _region_launcher(MH, CC, arrays, wants, tag):
+    """``(copies, launch, close)`` of one region call of ``wants`` (``(a,
+    bounds, dst)``), built once, for timing its launch alone: the handles
+    exchanged and the peer allocations mapped as ``process_regions`` does;
+    ``close`` unmaps them (every process must have finished its launches:
+    call it after a barrier)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.synchronize()
+    every = MH._all_gather_json(tag, CC.region_handles(arrays))
+    mapped = CC._Mapped(dev)
+    copies = CC.region_copies(arrays, wants, every, mapped)
+
+    def launch():
+        CC._copy_on_card(copies, dev, "all_gather", "cross_process_region")
+    return copies, launch, mapped.close
+
+
+def _host_ms(MH, fn, tag: str):
+    """``(result, ms)``: one collective call's host time, synchronised,
+    every process entering it together."""
+    MH.sync_hosts(tag)
+    return _host_call_ms(fn)
 
 
 def _bits(t: torch.Tensor) -> str:
@@ -5024,22 +5084,242 @@ class _PeerView:
             "version": 2, "strides": None}
 
 
-def _event_batches(fn) -> float:
-    """Device ms per call: the median of ``MH_REPS`` CUDA-event batches of
-    ``MH_BATCH`` back-to-back calls."""
+def _event_batches(fn, reps: int = MH_REPS, batch: int = MH_BATCH) -> float:
+    """Device ms per call: the median of ``reps`` CUDA-event batches of
+    ``batch`` back-to-back calls."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(MH_REPS):
+    for _ in range(reps):
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        for _ in range(MH_BATCH):
+        for _ in range(batch):
             fn()
         t1.record()
         t1.synchronize()
-        times.append(t0.elapsed_time(t1) / MH_BATCH)
+        times.append(t0.elapsed_time(t1) / batch)
     return statistics.median(times)
+
+
+def _solo_ms(MH, proc: int, fn, tag: str, reps: int = MH_REPS,
+             batch: int = MH_BATCH) -> float:
+    """``fn``'s device ms a call on this process with the card to itself:
+    the processes take turns, the others waiting at a barrier (a host
+    wait: nothing of theirs runs on the card), each timing by CUDA events
+    (``_event_batches``)."""
+    ms = None
+    for q in range(MH_PROCS):
+        MH.sync_hosts(tag)
+        if q == proc:
+            ms = _event_batches(fn, reps, batch)
+        MH.sync_hosts(tag + "_done")
+    return ms
+
+
+def _all_four_ms(MH, fn, tag: str, batch: int) -> dict:
+    """Every process's ``batch`` calls of ``fn`` at once, timed by one host
+    window from a barrier to the next barrier, which no process leaves
+    before every process's calls have finished on the card: a call's
+    share of the window (``ms``, the median of ``MH_REPS`` windows; the
+    largest over the processes is the window that holds all their work),
+    and an empty window's (``barrier_ms``, the barriers alone)."""
+    def window(n):
+        torch.cuda.synchronize()
+        MH.sync_hosts(tag)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        MH.sync_hosts(tag + "_done")
+        return (time.perf_counter() - t0) * 1e3
+    window(1)
+    return {"ms": statistics.median(window(batch) / batch
+                                    for _ in range(MH_REPS)),
+            "barrier_ms": statistics.median(window(0)
+                                            for _ in range(MH_REPS))}
+
+
+def _counts(kbuild) -> dict:
+    return {"all_gather": kbuild.launch_counts()["all_gather"],
+            "region": kbuild.route_counts()["all_gather"][
+                "cross_process_region"],
+            "gemm": kbuild.launch_counts()["gemm"]}
+
+
+def multihost_ops(tdat, MH, CC, kbuild, A, proc: int, out_dir: str) -> dict:
+    """The ops that run across the processes (one process of
+    ``multihost_phase``): the distributed GEMM, a relayout, ``dtranspose``,
+    ``dcumsum``, ``djit``, and the mapping lifetime.  Each region call is
+    one K10 launch a process on the ``cross_process_region`` route, bit
+    for bit the plain route's; the results' SHA-256 go to the parent,
+    which holds them against one process on 4 ranks."""
+    from distributedarrays_tpu_torch.ops import linalg as LA
+    dev = tdat.layout.local_device()
+    out = {}
+
+    # the GEMM: A (2,2) @ B (2,2) at 16384^2 f32 spanning the processes
+    tdat.seed(MH_SEED + 1)
+    GA = tdat.drand((MH_N, MH_N), dist=(2, 2))
+    GB = tdat.drand((MH_N, MH_N), dist=(2, 2))
+    kbuild.reset_launches()
+    GC, call_ms = _host_ms(MH, lambda: GA @ GB, "gemm")
+    out["gemm_launches"] = _counts(kbuild)
+    if out["gemm_launches"] != {"all_gather": 1, "region": 1, "gemm": 0}:
+        raise AssertionError(f"the GEMM's launches {out['gemm_launches']}: "
+                             "one region copy a process expected")
+    calls = [call_ms] + [_host_ms(MH, lambda: GA @ GB, "gemm")[1]
+                         for _ in range(2)]
+    out["gemm_call_ms"] = calls
+    C = MH._gather_tensor(GC).cpu()
+    out["gemm_sha"] = _sha256(C)
+    if proc == 0:
+        ref = torch.from_numpy(np.load(os.path.join(out_dir, "gemm_ref.npy")))
+        out["gemm_bit_equal"] = _same_bits(C, ref)
+        out["gemm_max_abs_err"] = float((C - ref).abs().max())
+        out["gemm_max_abs"] = float(ref.abs().max())
+        del ref
+    del C
+    # the fetch alone: this process's panels, as the GEMM asks for them
+    ci = next(c for c in GC.cells() if int(GC.pids[c]) == proc)
+    rows = (GC.cuts[0][ci[0]], GC.cuts[0][ci[0] + 1])
+    cols = (GC.cuts[1][ci[1]], GC.cuts[1][ci[1] + 1])
+    pa = torch.empty(rows[1] - rows[0], MH_N, device=dev)
+    pb = torch.empty(MH_N, cols[1] - cols[0], device=dev)
+    wants = [(0, [rows, (0, MH_N)], pa), (1, [(0, MH_N), cols], pb)]
+    _, fetch_ms = _host_ms(MH, lambda: CC.process_regions(
+        [GA, GB], wants, lambda o: MH._all_gather_json("fetch", o),
+        lambda: MH.sync_hosts("fetch")), "fetch")
+    plain = _plain_fetch(MH, CC, [(GA, wants[0][1]), (GB, wants[1][1])])
+    out["fetch_plain_equal"] = _same_bits(pa.cpu(), plain[0]) and \
+        _same_bits(pb.cpu(), plain[1])
+    if not out["fetch_plain_equal"]:
+        raise AssertionError("the GEMM's panels differ from the plain route")
+    del plain
+    _, launch, unmap = _region_launcher(MH, CC, [GA, GB], wants, "gemm_t")
+    out["fetch_solo_ms"] = _solo_ms(MH, proc, launch, "fetch_solo")
+    out["fetch_all_four"] = _all_four_ms(MH, launch, "fetch_all",
+                                         MH_WINDOW_BATCH)
+    torch.cuda.synchronize()
+    MH.sync_hosts("fetch_timed")
+    unmap()
+    out["fetch_call_ms"] = fetch_ms
+    out["product_solo_ms"] = _solo_ms(
+        MH, proc, lambda: LA.torch_matmul(pa, pb), "product",
+        MH_MM_REPS, MH_MM_BATCH)
+    if not _same_bits(LA.torch_matmul(pa, pb).cpu(), GC.localpart(proc).cpu()):
+        raise AssertionError("the GEMM's cell is not its panels' product")
+    del pa, pb
+    for d in (GA, GB, GC):
+        d.close()
+    torch.cuda.empty_cache()
+
+    # a relayout of A from (4,1) to (1,4): an all-to-all across processes
+    pids = np.arange(MH_PROCS).reshape(1, MH_PROCS)
+    cuts = tdat.layout.chunk_idxs(A.dims, (1, MH_PROCS))[1]
+    kbuild.reset_launches()
+    RB, out["relayout_call_ms"] = _host_ms(
+        MH, lambda: tdat.reshard.reshard(A, pids, cuts), "relayout")
+    out["relayout_launches"] = _counts(kbuild)
+    if out["relayout_launches"] != {"all_gather": 1, "region": 1,
+                                    "gemm": 0}:
+        raise AssertionError(f"the relayout's launches "
+                             f"{out['relayout_launches']}")
+    box = [(0, MH_N), (cuts[1][proc], cuts[1][proc + 1])]
+    plain = _plain_fetch(MH, CC, [(A, box)])[0]
+    if not _same_bits(RB.localpart(proc).cpu(), plain):
+        raise AssertionError("the relayout differs from the plain route")
+    del plain
+    out["relayout_sha"] = _sha256(MH._gather_tensor(RB))
+    mine = RB.localpart(proc)
+    _, launch, unmap = _region_launcher(MH, CC, [A], [(0, box, mine)],
+                                        "relayout_t")
+    out["relayout_solo_ms"] = _solo_ms(MH, proc, launch, "relayout_solo")
+    out["relayout_all_four"] = _all_four_ms(
+        MH, launch, "relayout_all", 4 * MH_WINDOW_BATCH)
+    torch.cuda.synchronize()
+    MH.sync_hosts("relayout_timed")
+    unmap()
+    RB.close()
+
+    # dtranspose on (2,2), dcumsum along 0 on (4,1), djit(sin) on the
+    # chain's default layout, each gathered
+    tdat.seed(MH_SEED + 3)
+    T22 = tdat.drand((MH_CHAIN_N, MH_CHAIN_N), dist=(2, 2))
+    T41 = tdat.drand((MH_CHAIN_N, MH_CHAIN_N), dist=(MH_PROCS, 1))
+    X = tdat.drand((MH_CHAIN_N, MH_CHAIN_N))
+    kbuild.reset_launches()
+    T = tdat.dtranspose(T22)
+    out["transpose_launches"] = _counts(kbuild)
+    out["transpose_sha"] = _sha256(MH._gather_tensor(T))
+    out["cumsum_sha"] = _sha256(MH._gather_tensor(
+        tdat.dcumsum(T41, axis=0)))
+    kbuild.reset_launches()
+    J = tdat.djit(torch.sin)(X)
+    out["djit_launches"] = _counts(kbuild)
+    if out["djit_launches"]["region"] != 1:
+        raise AssertionError(f"djit's launches {out['djit_launches']}")
+    out["djit_sha"] = _sha256(MH._gather_tensor(J))
+    for d in (T22, T41, X, T, J):
+        d.close()
+    torch.cuda.empty_cache()
+
+    # the mapping lifetime: fresh relayouts with the cache emptied in every
+    # process between rounds; the mappings open stay those of one call
+    n = MH_MAP_N
+    pids = np.arange(MH_PROCS).reshape(1, MH_PROCS)
+    cuts = tdat.layout.chunk_idxs((n, n), (1, MH_PROCS))[1]
+    lo, hi = cuts[1][proc], cuts[1][proc + 1]
+    opened, peak = [0], [0]
+    ipc_open = CC._ipc_open
+
+    def counting_open(h, d):
+        opened[0] += 1
+        peak[0] = max(peak[0], len(CC._open_bases) + 1)
+        return ipc_open(h, d)
+    CC._ipc_open = counting_open
+    bad, between = [], 0
+    t0 = time.perf_counter()
+    try:
+        for rnd in range(MH_MAP_ROUNDS):
+            host = ((torch.arange(n * n, device=dev) % 9973) + rnd).float() \
+                .reshape(n, n)
+            src = tdat.distribute(host, dist=(MH_PROCS, 1))
+            dst = tdat.reshard.reshard(src, pids, cuts)
+            if not torch.equal(dst.localpart(proc), host[:, lo:hi]):
+                bad.append(rnd)
+            between = max(between, CC.open_mappings())
+            src.close()
+            dst.close()
+            del host
+            torch.cuda.empty_cache()
+            MH.sync_hosts("round")
+    finally:
+        CC._ipc_open = ipc_open
+    out["map_rounds"] = {"rounds": MH_MAP_ROUNDS, "bad": bad,
+                         "opened": opened[0], "peak_open": peak[0],
+                         "open_between_calls": between,
+                         "s": time.perf_counter() - t0}
+    if bad or between or peak[0] > MH_PROCS - 1:
+        raise AssertionError(f"mapping rounds {out['map_rounds']}")
+    # a gather after a peer frees its array and allocates anew
+    hostE = (torch.arange(n * n, device=dev) % 7919).float().reshape(n, n)
+    E = tdat.distribute(hostE, dist=(MH_PROCS, 1))
+    ok = torch.equal(MH._gather_tensor(E), hostE)
+    before = E.localpart(proc).data_ptr()
+    E.close()
+    torch.cuda.empty_cache()
+    MH.sync_hosts("freed")
+    hostF = hostE.flip(0).contiguous()
+    F = tdat.distribute(hostF, dist=(MH_PROCS, 1))
+    out["realloc_same_address"] = F.localpart(proc).data_ptr() == before
+    ok = ok and torch.equal(MH._gather_tensor(F), hostF)
+    out["realloc_gather_ok"] = bool(ok)
+    if not ok:
+        raise AssertionError("a gather after a peer reallocated is wrong")
+    F.close()
+    out["open_mappings_end"] = CC.open_mappings()
+    return out
 
 
 def multihost_child(port: int, proc: int, out_dir: str) -> int:
@@ -5079,19 +5359,19 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
         d.close()
 
     # 2. gather_global: one K10 launch a process, bit-equal to the plain
-    # route (the host copies all-gathered over the gloo group)
+    # route (the pieces over the gloo group)
     kbuild.reset_launches()
     t0 = time.perf_counter()
     g = MH._gather_tensor(A)
     torch.cuda.synchronize()
     res["first_call_ms"] = (time.perf_counter() - t0) * 1e3
     launches = (kbuild.launch_counts()["all_gather"],
-                kbuild.route_counts()["all_gather"]["cross_process"])
+                kbuild.route_counts()["all_gather"]["cross_process_region"])
     res["launches"] = launches[1]
     if launches != (1, 1):
         raise AssertionError(f"gather_global launched K10 {launches} times "
-                             "(all, cross_process); expected once")
-    plain = CC.process_all_gather_plain(A, MH._job.group)
+                             "(all, cross_process_region); expected once")
+    plain = _plain_fetch(MH, CC, [(A, None)])[0]
     if not _same_bits(g.cpu(), plain):
         raise AssertionError("the kernel route's gather differs from the "
                              "plain route's")
@@ -5100,60 +5380,49 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
         raise AssertionError("gather_global differs from the plain route")
     res["gather_sha"] = _sha256(plain)
     del plain, host
-    # a whole call's host time (handle exchange, two barriers, the
-    # launch), every process entering it together
-    calls = []
-    for _ in range(5):
-        MH.sync_hosts("call")
-        t0 = time.perf_counter()
-        MH._gather_tensor(A)
-        torch.cuda.synchronize()
-        calls.append((time.perf_counter() - t0) * 1e3)
-    res["call_ms"] = statistics.median(calls)
+    # a whole call's host time (handle exchange, mappings, two barriers,
+    # the launch), every process entering it together
+    res["call_ms"] = statistics.median(
+        _host_ms(MH, lambda: MH._gather_tensor(A), "call")[1]
+        for _ in range(5))
 
     # 3. times: the kernel's launch alone, Tensor.copy_ from the
     # IPC-opened peer chunks (cudaMemcpy, the library yardstick), each
     # process alone (the others waiting at a barrier) and all four at
-    # once; the plain route, all four at once (it is a collective; its
-    # events span the host's all-gather, which the copies to and from
-    # the card synchronize with)
+    # once (one host window between barriers); the plain route, all four
+    # at once (it is a collective; its events span the host's exchange,
+    # which the copies to and from the card synchronize with)
     out = torch.empty_like(g)
-    every = MH._all_gather_json("timing", CC.process_handles(A))
-    copies = CC.process_copies(A, out, every)
+    copies, launch, unmap = _region_launcher(
+        MH, CC, [A], [(0, [(0, n) for n in A.dims], out)], "timing")
     pairs = [(out[tuple(slice(c[j], c[j + 1]) for c, j in zip(A.cuts, ci))],
               torch.as_tensor(_PeerView(src, A._parts[ci].shape), device=dev))
              for ci, (_, src, _, _) in zip(A.cells(), copies)]
 
-    def launch():
-        CC._copy_on_card(copies, dev, "all_gather", "cross_process")
-
     def library():
         for o, s in pairs:
             o.copy_(s)
-    solo = {}
-    for q in range(MH_PROCS):
-        MH.sync_hosts("solo")
-        if q == proc:
-            solo = {"ms": _event_batches(launch),
-                    "library_ms": _event_batches(library)}
-        MH.sync_hosts("solo_done")
+    solo = {"ms": _solo_ms(MH, proc, launch, "solo"),
+            "library_ms": _solo_ms(MH, proc, library, "solo_library")}
     if not _same_bits(out, g):
         raise AssertionError("the timed launches wrote another array")
-    MH.sync_hosts("together")
-    together = {"ms": _event_batches(launch)}
-    MH.sync_hosts("together_library")
-    together["library_ms"] = _event_batches(library)
+    together = _all_four_ms(MH, launch, "together", MH_WINDOW_BATCH)
+    together["library_ms"] = _all_four_ms(MH, library, "together_library",
+                                          MH_WINDOW_BATCH)["ms"]
+    torch.cuda.synchronize()
+    MH.sync_hosts("timed")
+    unmap()
     plain_ms = []
     for _ in range(MH_PLAIN_REPS):
         MH.sync_hosts("plain")
-        _, ms = event_ms(lambda: CC.process_all_gather_plain(
-            A, MH._job.group).to(dev))
+        _, ms = event_ms(lambda: _plain_fetch(MH, CC, [(A, None)])[0].to(dev))
         plain_ms.append(ms)
     together["plain_ms"] = statistics.median(plain_ms)
     res["solo"], res["together"] = solo, together
-    # no process frees A before every peer has read it
-    MH.sync_hosts("timed")
     del out, g, pairs, copies
+
+    # 3b. the ops across the processes, each against one process's result
+    res["ops"] = multihost_ops(tdat, MH, CC, kbuild, A, proc, out_dir)
     A.close()
     torch.cuda.empty_cache()
 
@@ -5257,6 +5526,10 @@ def multihost_phase(tdat) -> dict:
     kbuild.build(["collectives"])
     # the single-process port on 4 ranks of the card: what the processes
     # must reproduce bit for bit
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "build", "multihost")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
     tdat.init(nranks=MH_PROCS)
     tdat.seed(MH_SEED)
     A = tdat.drand((MH_N, MH_N), dist=(MH_PROCS, 1))
@@ -5264,14 +5537,43 @@ def multihost_phase(tdat) -> dict:
     R = tdat.dmap(torch.sin, X) + Y * Z
     ref = {"sum_chain": _bits(tdat.dsum(R)), "sum_AA": _bits(tdat.dsum(A * A)),
            "gather_sha": _sha256(A.full())}
+    # the relayout (4,1) -> (1,4) in one process: the region copy and K11
+    pids = np.arange(MH_PROCS).reshape(1, MH_PROCS)
+    cuts = tdat.layout.chunk_idxs(A.dims, (1, MH_PROCS))[1]
+    one = {"relayout_plain_ms": time_ms(
+        lambda: tdat.reshard.relayout_plain(A, pids, cuts)),
+        "relayout_k11_ms": time_ms(
+        lambda: tdat.reshard.reshard(A, pids, cuts))}
     tdat.d_closeall()
-    del A, X, Y, Z, R
+    del X, Y, Z, R
+    # the ops across processes, in one process on 4 ranks: the GEMM's
+    # result (saved for process 0 to compare), transpose, scan and djit.
+    # The children's tuning registries are empty, so the GEMM takes the
+    # default schedule there: clear what earlier phases recorded here
+    # (the (2,2) grid's Cannon) so one process runs the same per-cell call
+    tdat.autotune.clear()
+    tdat.seed(MH_SEED + 1)
+    GA = tdat.drand((MH_N, MH_N), dist=(2, 2))
+    GB = tdat.drand((MH_N, MH_N), dist=(2, 2))
+    GC, ms = _host_call_ms(lambda: GA @ GB)
+    one["gemm_call_ms"] = [ms] + [_host_call_ms(lambda: GA @ GB)[1]
+                                  for _ in range(2)]
+    C = GC.full().cpu()
+    ref["gemm_sha"] = _sha256(C)
+    np.save(os.path.join(out_dir, "gemm_ref.npy"), C.numpy())
+    del C
+    tdat.d_closeall()
+    tdat.seed(MH_SEED + 3)
+    T22 = tdat.drand((MH_CHAIN_N, MH_CHAIN_N), dist=(2, 2))
+    T41 = tdat.drand((MH_CHAIN_N, MH_CHAIN_N), dist=(MH_PROCS, 1))
+    X = tdat.drand((MH_CHAIN_N, MH_CHAIN_N))
+    ref["transpose_sha"] = _sha256(tdat.dtranspose(T22).full())
+    ref["cumsum_sha"] = _sha256(tdat.dcumsum(T41, axis=0).full())
+    ref["djit_sha"] = _sha256(tdat.djit(torch.sin)(X).full())
+    ref["relayout_sha"] = ref["gather_sha"]
+    tdat.d_closeall()
+    del A, GA, GB, GC, T22, T41, X
     torch.cuda.empty_cache()
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    out_dir = os.path.join(root, "build", "multihost")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -5313,6 +5615,19 @@ def multihost_phase(tdat) -> dict:
             if r[k] != ref[k]:
                 raise AssertionError(f"process {r['process']}: {k} {r[k]} "
                                      f"!= one process's {ref[k]}")
+        for k in ("relayout_sha", "transpose_sha", "cumsum_sha", "djit_sha"):
+            if r["ops"][k] != ref[k]:
+                raise AssertionError(f"process {r['process']}: {k} differs "
+                                     "from one process's")
+    # the GEMM: bit-equal to one process on 4 ranks, where the per-cell
+    # torch.matmul is the same call; else within 1e-5 of the largest value
+    # (another order of the 16384-term f32 sums: about sqrt(16384) * 2^-24)
+    ops0 = res[0]["ops"]
+    gemm_equal = all(r["ops"]["gemm_sha"] == ref["gemm_sha"] for r in res)
+    if not gemm_equal and not (ops0["gemm_max_abs_err"] <=
+                               1e-5 * ops0["gemm_max_abs"]):
+        raise AssertionError(f"the GEMM across processes differs from one "
+                             f"process's by {ops0['gemm_max_abs_err']}")
     last = MH_PROCS - 1
     for r in res[:last]:
         c = r["census"]
@@ -5345,8 +5660,11 @@ def multihost_phase(tdat) -> dict:
     row = {
         "shape": f"{MH_N}x{MH_N} f32 on ({MH_PROCS},1), {MH_PROCS} processes "
                  "on one card, each writing its own whole copy",
-        # all four processes at once: each reads and writes 1 GiB
+        # all four processes at once, one host window between barriers
+        # (the largest over the processes holds all their launches): each
+        # process reads and writes 1 GiB
         "ms": max(r["together"]["ms"] for r in res),
+        "barrier_ms": max(r["together"]["barrier_ms"] for r in res),
         "plain_ms": max(r["together"]["plain_ms"] for r in res),
         "library_ms": max(r["together"]["library_ms"] for r in res),
         "bound_ms": bound(MH_PROCS * 2 * nbytes, 0, F32_FLOPS)[0],
@@ -5363,9 +5681,76 @@ def multihost_phase(tdat) -> dict:
         "ckpt_save_s": [r["ckpt_save_s"] for r in res],
         "ckpt_load_s": [r["ckpt_load_s"] for r in res],
         "job_s": job_s, "phase_s": time.perf_counter() - t_phase,
-        "trace": os.path.relpath(trace_path, root)}
+        "trace": os.path.relpath(trace_path, root),
+        "region": multihost_region_row(res, one, gemm_equal)}
     print(json.dumps({"multihost": row, "gpu": gpu_name()}))
-    return {"launches": [r["launches"] for r in res], "row": row}
+    return {"launches": [r["launches"] for r in res], "row": row,
+            "region_launches": [
+                r["launches"] + sum(r["ops"][k]["region"] for k in (
+                    "gemm_launches", "relayout_launches", "djit_launches"))
+                for r in res]}
+
+
+def _host_call_ms(fn):
+    """``(result, ms)``: one call's host time, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def multihost_region_row(res, one, gemm_equal) -> dict:
+    """The region copies' readings across the 4 processes, each beside the
+    bound of the bytes its timing holds: the GEMM's fetch (each process
+    reads its 8192 x 16384 A and 16384 x 8192 B panels and writes them:
+    2 GiB a process alone, 8 GiB in the all-four window), its product
+    alone, the whole call, the relayout (512 MiB a process alone, 2 GiB
+    all four), beside one process on 4 ranks."""
+    half = MH_N // 2
+    fetch_bytes = 2 * (2 * half * MH_N * 4)
+    relayout_bytes = 2 * (MH_N // MH_PROCS) * MH_N * 4
+    ops = [r["ops"] for r in res]
+    return {
+        "gemm": {
+            "shape": f"{MH_N}^2 f32, A (2,2) @ B (2,2), {MH_PROCS} processes",
+            "bit_equal_one_process": gemm_equal,
+            "max_abs_err": ops[0]["gemm_max_abs_err"],
+            "launches": [o["gemm_launches"] for o in ops],
+            # each process's launch with the card to itself
+            "fetch_solo_ms": [o["fetch_solo_ms"] for o in ops],
+            "fetch_solo_bound_ms": bound(fetch_bytes, 0, F32_FLOPS)[0],
+            # all four at once, one host window between barriers
+            "fetch_all_four_ms": max(o["fetch_all_four"]["ms"] for o in ops),
+            "fetch_all_four_barrier_ms": max(
+                o["fetch_all_four"]["barrier_ms"] for o in ops),
+            "fetch_all_four_bound_ms": bound(MH_PROCS * fetch_bytes, 0,
+                                             F32_FLOPS)[0],
+            "fetch_call_ms": [o["fetch_call_ms"] for o in ops],
+            "product_solo_ms": [o["product_solo_ms"] for o in ops],
+            "product_bound_ms": bound(0, 2 * half * half * MH_N,
+                                      F32_FLOPS)[0],
+            "call_ms": [o["gemm_call_ms"] for o in ops],
+            "one_process_call_ms": one["gemm_call_ms"]},
+        "relayout": {
+            "shape": f"{MH_N}^2 f32 (4,1) -> (1,4), {MH_PROCS} processes",
+            "launches": [o["relayout_launches"] for o in ops],
+            "solo_ms": [o["relayout_solo_ms"] for o in ops],
+            "solo_bound_ms": bound(relayout_bytes, 0, F32_FLOPS)[0],
+            "all_four_ms": max(o["relayout_all_four"]["ms"] for o in ops),
+            "all_four_barrier_ms": max(
+                o["relayout_all_four"]["barrier_ms"] for o in ops),
+            "all_four_bound_ms": bound(MH_PROCS * relayout_bytes, 0,
+                                       F32_FLOPS)[0],
+            "call_ms": [o["relayout_call_ms"] for o in ops],
+            "one_process_plain_ms": one["relayout_plain_ms"],
+            "one_process_k11_ms": one["relayout_k11_ms"]},
+        "transpose_launches": [o["transpose_launches"] for o in ops],
+        "djit_launches": [o["djit_launches"] for o in ops],
+        "map_rounds": [o["map_rounds"] for o in ops],
+        "realloc": [(o["realloc_same_address"], o["realloc_gather_ok"])
+                    for o in ops],
+        "open_mappings_end": [o["open_mappings_end"] for o in ops]}
 
 
 def multihost_only() -> int:
@@ -5799,6 +6184,7 @@ def main() -> int:
             # K10 across the processes: each process's launches in the
             # checked gather_global call (one a call), and its times
             kern["multihost_launches"] = mh["launches"]
+            kern["multihost_region_launches"] = mh["region_launches"]
             kern["multihost"] = mh["row"]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))

@@ -32,11 +32,12 @@
 //   Bound: each source byte read once and each destination byte written
 //   once, over 3.35 TB/s (one card); across cards the peer's bytes cross
 //   NVLink by the same plain loads and stores.
-//   Across controller processes (a DArray that spans the processes of a
-//   multi-process job, `multihost.gather_global`) the same launch reads
+//   Across controller processes (DArrays that span the processes of a
+//   multi-process job, `multihost.fetch_regions`) the same launch reads
 //   the peer processes' chunks through CUDA IPC pointers (da_ipc_handle /
-//   da_ipc_open at the end of this file): one launch a process writes its
-//   own whole copy of the array.
+//   da_ipc_open at the end of this file): one launch a process fills the
+//   boxes that process asked for (a whole array for a gather, its target
+//   chunks for a reshard, its panels for the distributed GEMM).
 //
 // - `_rs_call` (ring_reduce_scatter, K12).  On the TPU the partial for
 //   destination d seeds at rank d+1 and travels the ring, each hop adding
@@ -1000,14 +1001,17 @@ extern "C" int da_enable_peer(int device, int peer) {
 // CUDA IPC: K10's copy kernel across controller processes
 // ---------------------------------------------------------------------------
 //
-// A process-spanning DArray's gather (`gather_global`) makes one
+// A region copy across controller processes (`process_regions`: the
+// gather, the reshard, the distributed GEMM's panels) makes one
 // da_copy_pieces launch a process that reads the peer processes' chunks
 // through pointers into their memory.  A peer exports the allocation that
 // holds its chunk (cudaIpcGetMemHandle takes the allocation's base, and
 // PyTorch's caching allocator hands out pieces of larger cudaMalloc
-// blocks, so the chunk's offset in the block travels with the handle) and
-// every other process maps it once (cudaIpcOpenMemHandle).  A process
-// never opens its own handle: its chunks take their own pointers.
+// blocks, so the chunk's offset in the block travels with the handle);
+// a reading process maps it for that one call (cudaIpcOpenMemHandle) and
+// unmaps it (cudaIpcCloseMemHandle) once its launch has finished, before
+// the barrier that lets the exporter free it.  A process never opens its
+// own handle: its chunks take their own pointers.
 
 namespace {
 

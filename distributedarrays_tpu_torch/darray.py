@@ -42,12 +42,15 @@ DArray's cells on another process's ranks are placeholders on the
 the same arguments (the same host array) on every process and place only
 the local chunks; ``drand`` and its kin draw a rank's chunk from the
 rank's own generator, so the values do not depend on which process holds
-the rank.  ``localpart`` of another process's rank raises;
-``gather``/``full``/``np.asarray`` go through ``multihost.gather_global``
-(every process calls them and gets the whole array), operators and
-``dmap`` run on the local chunks, and the memory ledger counts the local
-tensors only.  An op with no cross-process form raises
-``NotImplementedError`` when it meets a process-spanning DArray
+the rank.  ``localpart`` of another process's rank raises; ``region`` is
+collective (``multihost.fetch_regions``: each process gets its box from
+wherever the pieces live, by one copy launch a process on the card), and
+with it ``gather``/``full``/``np.asarray``, ``distribute`` of a DArray,
+``reshape``, ``dcat`` and the advanced keys; an element (``d[i, j]``
+under ``allowscalar``, ``dfetch``) comes from its owner to every
+process.  Operators and ``dmap`` run on the local chunks, and the memory
+ledger counts the local tensors only.  An op with no cross-process form
+raises ``NotImplementedError`` when it meets a process-spanning DArray
 (``part`` of a remote cell does, and ``cross_process_unported`` at the
 ops' entries), instead of gathering quietly.
 """
@@ -433,34 +436,21 @@ class DArray:
         """A new tensor on ``device`` holding the global region ``bounds``
         (one ``(lo, hi)`` per dim; None for the whole array), copied from
         the chunks that intersect it.  In a job of several controller
-        processes it is collective: the whole array comes through
-        ``multihost.gather_global``'s route on every process, and each
-        keeps ``bounds``."""
+        processes it is collective (``multihost.fetch_regions``): every
+        process calls it, each process's box comes from wherever its
+        pieces live, and a ``meta`` device (another process's cell) asks
+        for nothing and gets a placeholder."""
         self._check_open()
         if L.process_count() > 1:
             from .parallel import multihost
-            whole = multihost._gather_tensor(self)
-            if bounds is not None:
-                whole = whole[tuple(slice(lo, hi) for lo, hi in bounds)]
-            return torch.empty(whole.shape, dtype=self.dtype,
-                               device=device).copy_(whole)
+            return multihost.fetch_regions([(self, bounds, device)])[0]
         if bounds is None:
             bounds = [(0, n) for n in self.dims]
         out = torch.empty([h - l for l, h in bounds], dtype=self.dtype,
                           device=device)
         if out.numel() == 0:
             return out
-        per_dim = []
-        for c, (lo, hi) in zip(self.cuts, bounds):
-            per_dim.append([(j, max(c[j], lo), min(c[j + 1], hi))
-                            for j in range(len(c) - 1)
-                            if max(c[j], lo) < min(c[j + 1], hi)])
-        for combo in itertools.product(*per_dim):
-            ci = tuple(j for j, _, _ in combo)
-            src = tuple(slice(a - self.cuts[d][j], b - self.cuts[d][j])
-                        for d, (j, a, b) in enumerate(combo))
-            dst = tuple(slice(a - bounds[d][0], b - bounds[d][0])
-                        for d, (_, a, b) in enumerate(combo))
+        for ci, src, dst in L.box_pieces(self.cuts, bounds):
             out[dst] = self._parts[ci][src].to(device)
         return out
 
@@ -496,10 +486,16 @@ class DArray:
         key = _normalize_key(key, self.dims)
         if all(isinstance(k, int) for k in key):
             _scalar_indexing_allowed()
-            ci = self.locate(*key)
-            local = tuple(k - r.start for k, r in zip(key, self.indices[ci]))
-            return self.part(ci)[local]
+            return self._element(key)
         return SubDArray(self, key)
+
+    def _element(self, key) -> torch.Tensor:
+        """The element at the int ``key``, a 0-d tensor on ``home()``: a
+        copy of the one-element region, which in a job of several
+        processes comes from its owner by one region call, so every
+        process gets the same value (JAX's ``d.garray[i]``)."""
+        return self.region([(k, k + 1) for k in key],
+                           self.home()).reshape(())
 
     def __setitem__(self, key, value):
         """``d[key] = value`` (JAX ``darray.py:807``): int and slice keys,
@@ -585,15 +581,24 @@ class DArray:
 
     def _read_selected(self, key) -> torch.Tensor:
         """The elements an advanced ``key`` selects, in numpy's result
-        shape, on ``home()``: each owner chunk gives its elements."""
+        shape, on ``home()``: each owner chunk gives its elements.  In a
+        job of several processes each owner chunk's bounding box of its
+        selected elements comes to every process by one region call, and
+        the elements are picked from those boxes."""
+        from .parallel import multihost
         shape, coords = _coords(key, self.dims)
         home = self.home()
         out = torch.empty(shape, dtype=self.dtype, device=home)
         flat = out.view(-1)
-        for ci, pos, local in self._by_owner(coords):
-            part = self.part(ci)
-            idx = tuple(torch.from_numpy(x).to(part.device) for x in local)
-            flat[torch.from_numpy(pos).to(home)] = part[idx].to(home)
+        owned = self._by_owner(coords)
+        boxes = [[(int(x.min()) + c[j], int(x.max()) + 1 + c[j])
+                  for x, c, j in zip(local, self.cuts, ci)]
+                 for ci, _, local in owned]
+        got = multihost.fetch_regions([(self, b, home) for b in boxes])
+        for t, b, (ci, pos, local) in zip(got, boxes, owned):
+            idx = tuple(torch.from_numpy(x - lo + c[j]).to(home) for
+                        x, (lo, _), c, j in zip(local, b, self.cuts, ci))
+            flat[torch.from_numpy(pos).to(home)] = t[idx]
         return out
 
     def _write_selected(self, key, value) -> None:
@@ -662,7 +667,6 @@ class DArray:
         dims = tuple(int(d) for d in dims)
         if int(np.prod(dims)) != self.size:
             raise ValueError(f"cannot reshape size {self.size} into {dims}")
-        cross_process_unported("reshape", self)
         pids = sorted(set(int(p) for p in self.pids.flat))
         # from_global copies each chunk out of the reshaped whole
         return from_global(self.full().reshape(dims), procs=pids)
@@ -1074,7 +1078,6 @@ def distribute(A, procs=None, dist=None, like: DArray | None = None) -> DArray:
     """Distribute a host or device array: each rank receives a copy of its
     own chunk.  ``like`` takes another DArray's rank grid."""
     if isinstance(A, DArray):
-        cross_process_unported("distribute (a reshard)", A)
         A = A.full()
     elif isinstance(A, SubDArray):
         A = A.materialize()
@@ -1328,7 +1331,8 @@ def copyto_(dest, src):
         from .parallel.reshard import relayout_parts
         pieces = relayout_parts(src, dest.pids, dest.cuts)
         for ci in dest.cells():
-            dest.part(ci).copy_(pieces[ci])
+            # a placeholder of another process's cell copies nothing
+            dest._parts[ci].copy_(pieces[ci])
         dest._relabel("rebind")
     else:
         dest._write(_normalize_key((), dest.dims), src, site="rebind")
@@ -1340,7 +1344,6 @@ def dcat(dim: int, *ds) -> DArray:
     DArray's ranks (JAX ``darray.py:1739``), on that DArray's home device;
     the dtype promotes as ``jnp.concatenate``'s."""
     from .ops.broadcast import result_dtype
-    cross_process_unported("dcat", *ds)
     first = next((x for x in ds if isinstance(x, DArray)), None)
     dev = first.home() if first is not None else L.device_of(0)
     dt = result_dtype(*ds)
@@ -1360,10 +1363,7 @@ def dfetch(d, *i):
     if isinstance(d, SubDArray):
         return d.materialize()[tuple(i)]
     d._check_open()
-    key = _normalize_key(tuple(int(k) for k in i), d.dims)
-    ci = d.locate(*key)
-    return d._parts[ci][tuple(k - r.start
-                              for k, r in zip(key, d.indices[ci]))]
+    return d._element(_normalize_key(tuple(int(k) for k in i), d.dims))
 
 
 def isassigned(d, *i) -> bool:

@@ -38,6 +38,7 @@ happens to hold.  A single-process table behaves exactly as before.
 
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import numpy as np
@@ -63,6 +64,7 @@ __all__ = [
     "cut_intersections",
     "chunk_span",
     "even_cuts",
+    "box_pieces",
 ]
 
 
@@ -322,6 +324,26 @@ def chunk_span(cuts: Sequence[int], lo: int, hi: int) -> tuple[int, int]:
     if hi <= lo:
         return (0, -1)
     return (locate([cuts], lo)[0], locate([cuts], hi - 1)[0])
+
+
+def box_pieces(cuts: Sequence[Sequence[int]], bounds) -> list[tuple]:
+    """The chunks of the layout ``cuts`` that meet the global box
+    ``bounds`` (one ``(lo, hi)`` a dim), row-major: ``(cell, slices into
+    the chunk, slices into the box)`` for each one's share of the box."""
+    per_dim = []
+    for c, (lo, hi) in zip(cuts, bounds):
+        per_dim.append([(j, max(c[j], lo), min(c[j + 1], hi))
+                        for j in range(len(c) - 1)
+                        if max(c[j], lo) < min(c[j + 1], hi)])
+    out = []
+    for combo in itertools.product(*per_dim):
+        ci = tuple(j for j, _, _ in combo)
+        src = tuple(slice(a - cuts[d][j], b - cuts[d][j])
+                    for d, (j, a, b) in enumerate(combo))
+        dst = tuple(slice(a - bounds[d][0], b - bounds[d][0])
+                    for d, (_, a, b) in enumerate(combo))
+        out.append((ci, src, dst))
+    return out
 
 
 def even_cuts(dims: Sequence[int], grid: Sequence[int]) -> list[list[int]]:

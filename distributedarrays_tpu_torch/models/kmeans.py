@@ -23,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..darray import DArray, darray_from_cuts, from_chunks
+from ..darray import (DArray, cross_process_unported, darray_from_cuts,
+                      from_chunks)
 from ..layout import defaultdist_1d, device_of
 from ..parallel.collectives import preduce
 
@@ -40,6 +41,7 @@ def _nearest(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 def _row_blocks(d: DArray) -> list[tuple[int, torch.Tensor]]:
     """``(owner, rows)`` per row block of ``d``: the owner's own tensor when
     the grid has one column, else the block's columns joined on it."""
+    cross_process_unported("k-means", d)
     owners = [int(p) for p in d.pids.reshape(d.pids.shape[0], -1)[:, 0]]
     if d.pids.shape[1] == 1:
         return [(p, d._parts[i, 0]) for i, p in enumerate(owners)]

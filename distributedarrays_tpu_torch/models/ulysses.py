@@ -16,7 +16,7 @@ import math
 
 import numpy as np
 
-from ..darray import DArray
+from ..darray import DArray, cross_process_unported
 from ..ops.cuda_attention import flash_attention, flash_attention_plain
 from ..ops.cuda_collectives import ring_all_to_all
 from ..parallel.reshard import relayout_parts
@@ -30,6 +30,7 @@ def ulysses_attention(q: DArray, k: DArray, v: DArray,
     """Exact attention over sequence-sharded (seq, heads, d) DArrays via a
     head-scatter all-to-all; heads must divide by the rank count.  The
     result has q's layout."""
+    cross_process_unported("Ulysses attention", q, k, v)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.ndim != 3:
             raise ValueError(f"{name} must be (seq, heads, head_dim), "

@@ -19,12 +19,13 @@ arrays on the first DArray argument's home device, and each array result
 is distributed on the layout of the first DArray argument of its shape.
 
 Across controller processes (``parallel.multihost``) the operators,
-``dmap`` and ``dmap_into`` run on each process's own chunks and need no
-exchange: a cell another process holds is a placeholder on the ``meta``
-device, where ``fn`` only infers the result cell's shape and dtype.  An
-argument on another layout would need a cross-process reshard, which
-raises ``NotImplementedError``, as ``djit`` does over a process-spanning
-DArray (it gathers onto one device).
+``dmap`` and ``dmap_into`` run on each process's own chunks: a cell
+another process holds is a placeholder on the ``meta`` device, where
+``fn`` only infers the result cell's shape and dtype.  An argument on
+another layout comes through the cross-process reshard (each process
+fetches its own cells' pieces), whole-array ``==`` folds every process's
+cell answers, and ``djit`` takes the whole inputs onto every process's
+device by one region call.
 
 ``a == b`` on a DArray or SubDArray is the reference's whole-array
 equality, one Python bool, as in the JAX package; ``<``, ``<=``, ``>``
@@ -53,8 +54,9 @@ import numpy as np
 import torch
 
 from ..darray import (DArray, SubDArray, _scatter, as_tensor, canon_dtype,
-                      cross_process_unported, from_global, resolve_layout)
+                      from_global, resolve_layout)
 from ..layout import device_of
+from ..parallel import multihost
 from ..parallel.reshard import relayout_parts
 
 __all__ = ["elementwise", "dmap", "dmap_into", "broadcasted", "djit",
@@ -189,13 +191,20 @@ def djit(fn: Callable) -> Callable:
     ``fn`` uses torch ops.  Each array result of ndim >= 1 is distributed
     on the layout of the first DArray argument of its shape, else on the
     default layout (JAX ``broadcast.py:272-283``); other results come back
-    as they are."""
+    as they are.  In a job of several processes every process takes the
+    whole inputs onto its own device by one region call
+    (``multihost.fetch_regions``), runs ``fn`` and keeps its own chunks of
+    each array result; a 0-d or non-array result is the same on every
+    process (JAX runs ``fn`` once under SPMD; the values and layouts
+    agree)."""
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         d_args = [a for a in args if isinstance(a, DArray)]
-        cross_process_unported("djit", *d_args)
         dev = d_args[0].home() if d_args else device_of(0)
-        raw = [a.full(dev) if isinstance(a, DArray) else
+        # the whole inputs, by one region call in a job
+        fulls = multihost.fetch_regions([(a, None, dev) for a in d_args])
+        whole = dict(zip(map(id, d_args), fulls))
+        raw = [whole[id(a)] if isinstance(a, DArray) else
                a.materialize().to(dev) if isinstance(a, SubDArray) else
                as_tensor(a).to(dev) if isinstance(a, np.ndarray) else a
                for a in args]
@@ -398,13 +407,15 @@ def _array_equal(a, b):
         return torch.equal(t.to(dt), other.to(t.device, dt))
     a._check_open()
     piece = _pieces(b, a.pids, a.cuts, a.dims)
-    for ci in a.cells():
+
+    def same(ci):
         x = a.part(ci)
         bounds = [(c[j], c[j + 1]) for c, j in zip(a.cuts, ci)]
         y = piece(ci, x.device, bounds)
-        if not torch.equal(x.to(dt), y.to(x.device, dt)):
-            return False
-    return True
+        return torch.equal(x.to(dt), y.to(x.device, dt))
+    # in a job each process compares its own cells and every process
+    # gets every cell's answer
+    return all(multihost.cell_values(a, same))
 
 
 def _not_equal(a, b):

@@ -31,23 +31,43 @@ not used.
   each rank keeping a window of its output; the planner's ``_chain_jit``
   steps (``distributedarrays_tpu/parallel/reshard.py:915``).
 
-- ``process_all_gather(d, all_gather_json, barrier)``: K10 across
-  controller processes, the GPU form of JAX's cross-process all-gather
-  (its replication program and ``process_allgather``,
-  ``parallel/multihost.py:339-382``).  Every process of a multi-process
-  job makes one copy launch that reads the peer processes' chunks of the
-  process-spanning DArray ``d`` through CUDA IPC pointers (handles and
-  offsets exchanged through the job's store) and its own chunks through
-  their pointers, and writes its own whole copy of the array on its card:
-  the way K10 reads peer ranks within one process.  Two barriers order it:
-  every process's chunks are written (a stream sync) before any peer
-  reads them, and no process frees or rewrites a chunk before every peer
-  has read it (a sync after the launch, then a barrier).  A handle that
-  will not open, or a launch that fails, raises.  Counted as
-  ``all_gather`` on the ``cross_process`` route.
-  ``process_all_gather_plain(d, group)`` is its plain version: an
-  all-gather of the host copies of the local chunks over the job's gloo
-  group, assembled on the CPU.
+- ``process_regions(arrays, wants, all_gather_json, barrier)``: K10's
+  copy across controller processes, the GPU form of JAX's cross-process
+  collectives over process-spanning arrays (its replication program and
+  ``process_allgather``, ``parallel/multihost.py:339-382``, and the
+  resharding XLA runs over the DCN mesh).  Every process of a
+  multi-process job calls it once an op, with the same process-spanning
+  DArrays ``arrays`` and its own list of wants: a global box of one of
+  them and the tensor on its card to fill (``parallel.multihost
+  .fetch_regions`` builds both).  Each want is cut at the source chunks'
+  cuts; a local chunk is read through its own pointer, a peer process's
+  through the CUDA IPC mapping of its allocation plus the offset and
+  strides the peer published (handles exchanged through the job's store),
+  and the whole list runs as one copy launch on this process's card
+  (``copy_launches`` splits a list above ``copy_maxp()`` copies).  Two
+  barriers order it: every process's chunks are written (a stream sync)
+  before any peer reads them, and no process frees or rewrites a chunk
+  before every peer has read it (a sync after the launch, then a
+  barrier).  A handle that will not open, or a launch that fails,
+  raises.  Counted as ``all_gather`` on the ``cross_process_region``
+  route.  ``process_regions_plain(arrays, wants, group)`` is its plain
+  version over the job's gloo group: the wants all-gathered as metadata,
+  then one host message from each holder to each wanting process
+  (``isend``/``irecv``; gloo has no all-to-all).
+
+  *Peer mappings live for one call.*  CUDA leaves it undefined when an
+  exporting process frees an allocation (``cudaFree``, which PyTorch's
+  caching allocator issues on ``torch.cuda.empty_cache()`` or to retry a
+  failed allocation) that another process still maps; PyTorch's own CUDA
+  IPC avoids it by keeping the exporter's block alive with shared
+  reference counts.  Here a call maps each peer allocation it reads once,
+  and unmaps all of them after its launch has finished and before its
+  closing barrier; no process can leave that barrier, and so free
+  anything, while a peer still maps its memory.  A block freed and
+  allocated anew between calls gets a new handle, which the next call
+  maps afresh.  So the mappings open at any time are those of the call in
+  progress (``open_mappings()``: 0 between calls), however long the job,
+  and a handle is never opened twice in one process.
 
 - ``ring_reduce_scatter(blocks, dim)``: rank ``d`` gets the sum of piece
   ``d`` of every rank's block split along ``dim``
@@ -112,6 +132,7 @@ from __future__ import annotations
 import ctypes
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from .. import layout as L
@@ -124,8 +145,8 @@ __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "copy_launches", "copy_width", "view_copy", "chain_step",
            "chain_step_plain", "ring_all_to_allv", "all_to_allv_plain",
            "all_gather_plain", "all_to_all_plain", "reduce_scatter_plain",
-           "process_all_gather", "process_all_gather_plain", "ipc_handle",
-           "close_ipc",
+           "process_regions", "process_regions_plain", "region_handles",
+           "region_copies", "ipc_handle", "open_mappings", "close_ipc",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
 
@@ -267,7 +288,11 @@ def _box(src: torch.Tensor, dst: torch.Tensor):
     strides) of up to 3 outer dims, in bytes, and a contiguous run."""
     isz = src.element_size()
     dims = [(n, a, b) for n, a, b in zip(src.shape, src.stride(), dst.stride())
-            if n != 1] or [(1, 1, 1)]
+            if n != 1]
+    if not dims or (src.shape[-1] == 1 and dims[-1][1:] != (1, 1)):
+        # the innermost dim is 1 wide (a one-column box): runs of one
+        # element
+        dims.append((1, 1, 1))
     merged = [list(dims[0])]
     for n, a, b in dims[1:]:
         _, pa, pb = merged[-1]
@@ -1003,11 +1028,11 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# the all-gather across controller processes (K10 over CUDA IPC)
+# region copies across controller processes (K10's copy kernel over CUDA IPC)
 # ---------------------------------------------------------------------------
 
-# peer allocations this process has mapped: handle -> base address
-_ipc_bases: dict[bytes, int] = {}
+# base addresses of the peer allocations mapped by the calls in progress
+_open_bases: set[int] = set()
 
 
 def ipc_handle(t: torch.Tensor) -> tuple[bytes, int]:
@@ -1025,122 +1050,179 @@ def ipc_handle(t: torch.Tensor) -> tuple[bytes, int]:
     return h.raw, off.value
 
 
-def _ipc_base(handle: bytes, dev: torch.device) -> int:
-    """The base address of a peer process's allocation, mapped on ``dev``
-    the first time it is met; raises when the mapping is refused."""
-    base = _ipc_bases.get(handle)
-    if base is None:
-        p = ctypes.c_void_p()
-        rc = _fn("da_ipc_open")(handle, dev.index, ctypes.byref(p))
-        if rc != 0:
-            raise RuntimeError(f"cudaIpcOpenMemHandle refused a peer "
-                               f"process's allocation on {dev}: CUDA error "
-                               f"{rc}")
-        base = _ipc_bases[handle] = p.value
-    return base
+def _ipc_open(handle: bytes, dev: torch.device) -> int:
+    """Map a peer process's allocation on ``dev``: its base address."""
+    p = ctypes.c_void_p()
+    rc = _fn("da_ipc_open")(handle, dev.index, ctypes.byref(p))
+    if rc != 0:
+        raise RuntimeError(f"cudaIpcOpenMemHandle refused a peer process's "
+                           f"allocation on {dev}: CUDA error {rc}")
+    return p.value
+
+
+def _ipc_close(base: int) -> None:
+    rc = _fn("da_ipc_close")(base)
+    if rc != 0:
+        raise RuntimeError(f"cudaIpcCloseMemHandle failed: CUDA error {rc}")
+
+
+class _Mapped:
+    """The peer allocations that one region call reads: each mapped once
+    (by handle) on ``dev``, all unmapped by ``close``."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.bases: dict[bytes, int] = {}
+
+    def base(self, handle: bytes) -> int:
+        b = self.bases.get(handle)
+        if b is None:
+            b = self.bases[handle] = _ipc_open(handle, self.dev)
+            _open_bases.add(b)
+        return b
+
+    def close(self) -> None:
+        while self.bases:
+            _, b = self.bases.popitem()
+            _open_bases.discard(b)
+            _ipc_close(b)
+
+
+def open_mappings() -> int:
+    """The peer allocations this process has mapped now (0 between
+    calls)."""
+    return len(_open_bases)
 
 
 def close_ipc() -> None:
-    """Unmap every peer allocation this process mapped."""
-    while _ipc_bases:
-        _, base = _ipc_bases.popitem()
-        _fn("da_ipc_close")(base)
+    """Unmap every peer allocation still mapped (after a failed call)."""
+    while _open_bases:
+        _ipc_close(_open_bases.pop())
 
 
-def _cell_slices(d, ci) -> tuple:
-    return tuple(slice(c[j], c[j + 1]) for c, j in zip(d.cuts, ci))
+def _flat(ci: tuple, grid: tuple) -> int:
+    return int(np.ravel_multi_index(ci, grid)) if grid else 0
 
 
-def process_handles(d) -> dict:
-    """This process's chunks of ``d`` as ``{cell index: [IPC handle (hex),
-    byte offset]}`` (cells in row-major order), for its peers to map."""
+def region_handles(arrays) -> dict:
+    """This process's chunks of the DArrays ``arrays`` as ``{"a/k": [IPC
+    handle (hex), byte offset, strides]}`` (``a`` the array's position,
+    ``k`` the cell's row-major index), for the peers to map.  The strides
+    are the chunk's own, so a peer never relies on its placeholder's."""
     mine = {}
-    for k, ci in enumerate(d.cells()):
-        t = d._parts[ci]
-        if L.is_local(int(d.pids[ci])) and t.numel():
-            h, off = ipc_handle(t)
-            mine[str(k)] = [h.hex(), off]
+    for a, d in enumerate(arrays):
+        for ci in d.cells():
+            t = d._parts[ci]
+            if L.is_local(int(d.pids[ci])) and t.numel():
+                h, off = ipc_handle(t)
+                mine[f"{a}/{_flat(ci, d.grid)}"] = [h.hex(), off,
+                                                   list(t.stride())]
     return mine
 
 
-def process_copies(d, out: torch.Tensor, every: list) -> list:
-    """The ``copy_launches`` copies of one cross-process gather of ``d``
-    into ``out``: each chunk from its own pointer on this process, through
-    the peer allocation ``every[process]`` (``process_handles`` of each
-    process, in process order) maps otherwise."""
-    dev = out.device
+def region_copies(arrays, wants, every: list, mapped) -> list:
+    """The ``copy_launches`` copies of the region call's ``wants`` (``(a,
+    bounds, dst)``: the box ``bounds`` of ``arrays[a]`` into the tensor
+    ``dst`` on this process's card), each want cut at the source chunks'
+    cuts: a local chunk read through its own pointer, a peer's through
+    ``mapped.base`` of its handle in ``every[process]`` (``region_handles``
+    of each process) plus its offset and the piece's offset in it."""
     copies = []
-    for k, ci in enumerate(d.cells()):
-        t = d._parts[ci]
-        if not t.numel():
-            continue
-        r = int(d.pids[ci])
-        if L.is_local(r):
-            src = t.data_ptr()
-        else:
-            h, off = every[L.process_of(r)][str(k)]
-            src = _ipc_base(bytes.fromhex(h), dev) + int(off)
-        dst = out[_cell_slices(d, ci)]
-        copies.append((0, src, dst.data_ptr(), _box(t, dst)))
+    for a, bounds, dst in wants:
+        d = arrays[a]
+        for ci, src, box in L.box_pieces(d.cuts, bounds):
+            out = dst[box]
+            if not out.numel():
+                continue
+            r, t = int(d.pids[ci]), d._parts[ci]
+            if L.is_local(r):
+                copies.append(view_copy(0, t[src], out))
+                continue
+            h, off, strides = every[L.process_of(r)][f"{a}/{_flat(ci, d.grid)}"]
+            view = torch.empty_strided(t.shape, strides, dtype=t.dtype,
+                                       device="meta")[src]
+            addr = mapped.base(bytes.fromhex(h)) + int(off) + \
+                view.storage_offset() * view.element_size()
+            copies.append((0, addr, out.data_ptr(), _box(view, out)))
     return copies
 
 
-def process_all_gather(d, all_gather_json: Callable,
-                       barrier: Callable) -> torch.Tensor:
-    """The whole of process-spanning DArray ``d`` on this process's card,
-    by one copy launch that reads every chunk, the peer processes' through
-    CUDA IPC (see the module docstring).  ``all_gather_json(obj)`` returns
-    every process's ``obj`` in process order once all have published it;
+def process_regions(arrays, wants, all_gather_json: Callable,
+                    barrier: Callable) -> None:
+    """Fill this process's ``wants`` (``region_copies``) from the chunks of
+    the process-spanning DArrays ``arrays``, wherever they live, by one
+    copy launch on this process's card (see the module docstring).  Every
+    process of the job calls it with the same ``arrays``, each with its
+    own ``wants`` (possibly none).  ``all_gather_json(obj)`` returns every
+    process's ``obj`` in process order once all have published it;
     ``barrier()`` returns once every process has called it."""
-    d._check_open()
     dev = L.local_device()
-    out = torch.empty(d.dims, dtype=d.dtype, device=dev)
     # 1. this process's chunks are written before a peer reads them
     torch.cuda.current_stream(dev).synchronize()
-    every = all_gather_json(process_handles(d))
-    _copy_on_card(process_copies(d, out, every), dev, "all_gather",
-                  "cross_process")
-    # 2. no process frees or rewrites a chunk before every peer read it
-    torch.cuda.current_stream(dev).synchronize()
+    every = all_gather_json(region_handles(arrays))
+    mapped = _Mapped(dev)
+    try:
+        copies = region_copies(arrays, wants, every, mapped)
+        if copies:
+            _copy_on_card(copies, dev, "all_gather", "cross_process_region")
+        # 2. the reads are done before the mappings close
+        torch.cuda.current_stream(dev).synchronize()
+    finally:
+        mapped.close()
+    # 3. no process frees or rewrites a chunk before every peer read it
     barrier()
-    return out
 
 
-def process_all_gather_plain(d, group) -> torch.Tensor:
-    """The plain version of ``process_all_gather``: each process's local
-    chunks as host bytes, all-gathered over the gloo ``group`` (padded to
-    the largest process's bytes) and assembled into one CPU tensor on
-    every process."""
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+def process_regions_plain(arrays, wants, group) -> None:
+    """The plain version of ``process_regions``, over the gloo ``group``:
+    every process's wants are all-gathered as metadata; each process sends
+    each peer, in one message, the host bytes of the pieces of its own
+    chunks that the peer wants (in the peer's want order), and receives
+    one such message from each process that holds pieces of its own
+    wants; pieces of its own chunks it copies directly."""
     import torch.distributed as dist
-    d._check_open()
-    cells = d.cells()
-    nproc = dist.get_world_size(group)
-    sizes = [0] * nproc
-    for ci in cells:
-        t = d._parts[ci]
-        sizes[L.process_of(int(d.pids[ci]))] += t.numel() * t.element_size()
-    width = max(sizes)
-    out = torch.empty(d.dims, dtype=d.dtype)
-    if width == 0:
-        return out
-    mine = torch.empty(width, dtype=torch.uint8)
-    o = 0
-    for ci in cells:
-        t = d._parts[ci]
-        if L.is_local(int(d.pids[ci])) and t.numel():
-            b = t.detach().cpu().contiguous().view(-1).view(torch.uint8)
-            mine[o:o + b.numel()] = b
-            o += b.numel()
-    bufs = [torch.empty(width, dtype=torch.uint8) for _ in range(nproc)]
-    dist.all_gather(bufs, mine, group=group)
-    offs = [0] * nproc
-    for ci in cells:
-        t = d._parts[ci]
-        if not t.numel():
+    me, n = dist.get_rank(group), dist.get_world_size(group)
+    mine = [(a, bounds) for a, bounds, _ in wants]
+    asks = [None] * n
+    dist.all_gather_object(
+        asks, [(a, [list(b) for b in bounds]) for a, bounds in mine],
+        group=group)
+
+    def pieces(ask, owner):
+        """``(want, chunk piece, box in the want)`` of the pieces of
+        ``ask`` that process ``owner`` holds, in want order."""
+        for k, (a, bounds) in enumerate(ask):
+            d = arrays[a]
+            for ci, src, box in L.box_pieces(d.cuts, bounds):
+                if L.process_of(int(d.pids[ci])) == owner:
+                    yield k, d._parts[ci][src], box
+    works, inbox, outbox = [], {}, []
+    for p in range(n):
+        if p == me:
             continue
-        p = L.process_of(int(d.pids[ci]))
-        nb = t.numel() * t.element_size()
-        out[_cell_slices(d, ci)] = bufs[p][offs[p]:offs[p] + nb].view(
-            d.dtype).view(t.shape)
-        offs[p] += nb
-    return out
+        out = [_bytes(t) for _, t, _ in pieces(asks[p], me) if t.numel()]
+        if out:
+            outbox.append(torch.cat(out))      # alive until its send ends
+            works.append(dist.isend(outbox[-1], p, group=group))
+        size = sum(t.numel() * t.element_size()
+                   for _, t, _ in pieces(mine, p))
+        if size:
+            inbox[p] = torch.empty(size, dtype=torch.uint8)
+            works.append(dist.irecv(inbox[p], p, group=group))
+    for k, t, box in pieces(mine, me):
+        dst = wants[k][2]
+        dst[box] = t.to(dst.device)
+    for w in works:
+        w.wait()
+    for p, buf in inbox.items():
+        o = 0
+        for k, t, box in pieces(mine, p):
+            piece = wants[k][2][box]
+            nb = t.numel() * t.element_size()
+            if nb:
+                piece.copy_(buf[o:o + nb].view(t.dtype).view(piece.shape))
+            o += nb

@@ -11,6 +11,13 @@ owned-schedule dispatch with its tuners, and ``dmatmul_int8``.
   default is XLA's.  When the tuning registry says ``"pallas"`` for the
   shape (the JAX registry's name for the hand-written kernel), a float
   GEMM goes to the CUDA block GEMM kernel (``ops/cuda_gemm``).
+- Across controller processes (``parallel.multihost``) each process
+  computes only its own result cells on the default schedule: one region
+  call (``multihost.fetch_regions``, one copy launch a process on the
+  card) brings the A row panels and B column panels its cells need that
+  no local chunk holds, then the same per-cell ``torch.matmul`` runs (the
+  JAX package's multi-process GEMM is XLA's SUMMA, no Pallas kernel).
+  The ring and Cannon/SUMMA schedules stay within one process.
 - On several ranks, the registry ``matmul_impl_dist`` picks an owned
   schedule as in JAX, with the JAX eligibility rules: ``"ring_ag"`` runs
   a (p,1) x (p,1) product as the ring all-gather GEMM (the K14 kernel),
@@ -37,8 +44,9 @@ import numpy as np
 import torch
 
 from .. import layout as L
-from ..darray import (DArray, SubDArray, as_tensor, cross_process_unported,
-                      distribute, from_global, resolve_layout)
+from ..darray import (DArray, SubDArray, as_tensor, distribute, from_global,
+                      resolve_layout)
+from ..parallel import multihost
 from ..parallel.reshard import allgather, plan_allgather
 from ..utils import autotune
 from . import collective_matmul as cm
@@ -89,22 +97,27 @@ def axpy_(a, x, y: DArray) -> DArray:
     return elementwise(axpy, x, y, out=y)
 
 
-def _aligned(x, y):
-    """Per-cell pairs of ``x`` and ``y`` on the layout of the first DArray
-    among them (``y`` aligned through the reshard planner), or None when
-    neither is a DArray."""
+def _cell_partials(x, y, fn) -> list:
+    """``fn(x piece, y piece)`` for each cell of the first DArray among
+    ``x`` and ``y`` (the other aligned to its layout through the reshard
+    planner), in row-major order, each on its cell's device and then moved
+    to the DArray's ``home()``; one ``fn`` of the whole operands when
+    neither is a DArray.  In a job each process computes its own cells'
+    partials and every process gets all of them
+    (``multihost.cell_values``), so the fold is one process's."""
     d = x if isinstance(x, DArray) else y if isinstance(y, DArray) else None
     if d is None:
-        return None
+        return [fn(_host(x), _host(y))]
     dims = tuple(d.dims)
     gx = _pieces(x, d.pids, d.cuts, dims)
     gy = _pieces(y, d.pids, d.cuts, dims)
-    out = []
-    for ci in d.cells():
+
+    def part(ci):
         bounds = [(c[j], c[j + 1]) for c, j in zip(d.cuts, ci)]
         dev = L.device_of(int(d.pids[ci]))
-        out.append((gx(ci, dev, bounds), gy(ci, dev, bounds)))
-    return d.home(), out
+        return fn(gx(ci, dev, bounds), gy(ci, dev, bounds))
+    home = d.home()
+    return [v.to(home) for v in multihost.cell_values(d, part)]
 
 
 def _dot_part(a: torch.Tensor, b: torch.Tensor, dt: torch.dtype):
@@ -125,16 +138,12 @@ def ddot(x, y):
     per-rank partial dots, summed on the first rank's device.  The result
     takes the operands' promoted type, as ``jnp.vdot``: an integer dot
     wraps in it, and a float16 or bfloat16 dot is summed in float32 and
-    rounded once."""
+    rounded once.  In a job of several processes every process gets the
+    same value, folded from every process's partials in cell order."""
     if _shape_of(x) != _shape_of(y):
         raise ValueError(f"ddot: dims {_shape_of(x)} != {_shape_of(y)}")
     dt = result_dtype(x, y)
-    al = _aligned(x, y)
-    if al is None:
-        parts = [_dot_part(_host(x), _host(y), dt)]
-    else:
-        home, pairs = al
-        parts = [_dot_part(a, b, dt).to(home) for a, b in pairs]
+    parts = _cell_partials(x, y, lambda a, b: _dot_part(a, b, dt))
     total = torch.stack(parts)
     return (total.any() if dt == torch.bool else total.sum()).to(dt)
 
@@ -149,21 +158,31 @@ def dnorm(x, p=2):
     rounded once to the type before the root.  A float16 2-norm is
     therefore ``inf`` once the sum of squares passes 65504, as in JAX,
     where ``torch.linalg.vector_norm`` would scale and return a finite
-    value."""
-    ts = [x.part(ci) for ci in x.cells()] if isinstance(x, DArray) else \
-        [_host(x)]
-    home = ts[0].device
-    ts = [t.reshape(-1) for t in ts if t.numel()] or [ts[0].reshape(-1)]
-    if not (ts[0].is_floating_point() or ts[0].is_complex()):
-        ts = [t.float() for t in ts]
-    real = ts[0].abs().dtype
+    value.  In a job of several processes each process computes its own
+    cells' partials and every process folds all of them in cell order."""
+    dt = x.dtype if isinstance(x, DArray) else _host(x).dtype
+    if not (dt.is_floating_point or dt.is_complex):
+        dt = torch.float32
+    real = torch.empty(0, dtype=dt).abs().dtype
     acc = acc_dtype(real)
+
+    def partials(f):
+        """``f`` of each cell's values (flattened, in the norm's type), in
+        cell order on ``home()``; cells with no elements add nothing
+        unless all are empty."""
+        if not isinstance(x, DArray):
+            return [f(_host(x).reshape(-1).to(dt))]
+        live = [ci for ci in x.cells() if x._parts[ci].numel()] or \
+            x.cells()[:1]
+        vals = multihost.cell_values(x, lambda ci: f(
+            x.part(ci).reshape(-1).to(dt)) if ci in live else None)
+        return [v.to(x.home()) for v in vals if v is not None]
     if p in (np.inf, -np.inf):
         f = torch.amax if p > 0 else torch.amin
-        return f(torch.stack([f(t.abs()).to(home) for t in ts]))
+        return f(torch.stack(partials(lambda t: f(t.abs()))))
 
     def total(f):
-        return torch.stack([f(t).to(acc).sum().to(home) for t in ts]).sum()
+        return torch.stack(partials(lambda t: f(t).to(acc).sum())).sum()
     if p == 0:
         return total(lambda t: t != 0).to(real)
     if p == 1:
@@ -215,9 +234,14 @@ def rmul_diag(d: DArray, diag) -> DArray:
 
 
 def _transpose(d: DArray, conj: bool, name: str) -> DArray:
+    """On matching cuts each rank flips its own cell (rank ``pids[i, j]``
+    of ``d`` holds cell ``(j, i)`` of the result), with no exchange even
+    across processes (another process's placeholder flips to one); on
+    other cuts the whole array comes to every process (``full``) and each
+    keeps its own chunks."""
     if d.ndim != 2:
         raise ValueError(f"{name} expects a 2-D DArray")
-    cross_process_unported(name, d)
+    d._check_open()
 
     def flip(t):
         t = t.t()
@@ -229,7 +253,7 @@ def _transpose(d: DArray, conj: bool, name: str) -> DArray:
     if cuts == [d.cuts[1], d.cuts[0]]:
         parts = np.empty(pids.shape, dtype=object)
         for i, j in np.ndindex(*pids.shape):
-            parts[i, j] = flip(d.part((j, i)))
+            parts[i, j] = flip(d._parts[j, i])
         return DArray(parts, pids, cuts)
     return from_global(flip(d.full()), procs, dist)
 
@@ -302,8 +326,11 @@ def _ring_ag_eligible(A: DArray, B, procs, dist) -> bool:
     """The 1-D shape the ring serves: A row-chunked on a (p,1) grid, B
     contraction-chunked on the same (p,1) rank list, the result row-chunked
     like A, every chunk even.  The kernel takes one float32 or bfloat16
-    dtype (the JAX ring's RDMA arm has the same dtype rule)."""
-    if not isinstance(B, DArray) or A.ndim != 2 or B.ndim != 2:
+    dtype (the JAX ring's RDMA arm has the same dtype rule).  Not in a job
+    of several controller processes: the ring runs within one process
+    (across processes the default schedule fetches its panels)."""
+    if not isinstance(B, DArray) or A.ndim != 2 or B.ndim != 2 or \
+            L.process_count() > 1:
         return False
     p = A.grid[0]
     if p < 2 or A.grid != (p, 1) or B.grid != (p, 1):
@@ -347,9 +374,10 @@ def _square_grid_ok(A: DArray, B):
 def _summa_eligible(A: DArray, B, procs, dist):
     """A and B on one ``(r, c)`` grid with ``r, c >= 2``, the result on that
     grid too, ``m % r == n % c == k % lcm(r, c) == 0``: ``(r, c)`` or
-    None."""
+    None.  None in a job of several controller processes: Cannon and
+    SUMMA run within one process."""
     rc = _grid2d_ok(A, B)
-    if rc is None:
+    if rc is None or L.process_count() > 1:
         return None
     r, c = rc
     if r < 2 or c < 2:
@@ -389,47 +417,96 @@ def _summa_gemm(A: DArray, B: DArray, out_dtype) -> list[torch.Tensor]:
 def _panel(d: DArray, bounds, dev) -> torch.Tensor:
     """Region ``bounds`` of ``d`` on ``dev``: a view of the chunk when one
     chunk on ``dev`` holds it all, else an assembled copy."""
-    ci = d.locate(*[lo for lo, _ in bounds]) if all(
-        lo < hi for lo, hi in bounds) else None
-    if ci is not None:
-        part = d.part(ci)
-        starts = [c[j] for c, j in zip(d.cuts, ci)]
-        if part.device == dev and all(
-                hi <= c[j + 1] for (lo, hi), c, j in zip(bounds, d.cuts, ci)):
-            return part[tuple(slice(lo - s, hi - s)
-                              for (lo, hi), s in zip(bounds, starts))]
-    return d.region(bounds, dev)
+    v = _local_view(d, bounds, dev)
+    return v if v is not None else d.region(bounds, dev)
+
+
+def _job_panels(A: DArray, B, bt, pids, cuts, vec, k):
+    """``get(cell, device)`` of each of this process's result cells' A row
+    panel and B column panel (B whole for a matvec) in a job of several
+    processes: every panel that no local chunk on the cell's device holds
+    whole comes by one region call (``multihost.fetch_regions``, A's and
+    B's panels together); a host B is cut on each process."""
+    cells = list(np.ndindex(*pids.shape))
+    wants = []
+    for ci in cells:
+        dev = L.device_of(int(pids[ci]))     # meta: another process's cell
+        wants.append((A, [(cuts[0][ci[0]], cuts[0][ci[0] + 1]), (0, k)], dev))
+        if bt is None:
+            wants.append((B, None if vec else [
+                (0, k), (cuts[1][ci[1]], cuts[1][ci[1] + 1])], dev))
+    # a panel that one local chunk on its device holds is a view of it
+    views = [_local_view(*w) for w in wants]
+    got = multihost.fetch_regions(
+        [(d, b, torch.device("meta") if v is not None else dev)
+         for (d, b, dev), v in zip(wants, views)])
+    have = [g if v is None else v for v, g in zip(views, got)]
+    per = len(wants) // len(cells)
+    panels = {ci: have[n * per:(n + 1) * per] for n, ci in enumerate(cells)}
+
+    def get(ci, dev):
+        if bt is None:
+            return tuple(panels[ci])
+        b = bt if vec else bt[:, cuts[1][ci[1]]:cuts[1][ci[1] + 1]]
+        return panels[ci][0], b.to(dev)
+    return get
+
+
+def _local_view(d: DArray, bounds, dev):
+    """The view of the box ``bounds`` of ``d`` in one chunk on ``dev``
+    (one that this process holds), or None."""
+    if dev.type == "meta" or bounds is None:
+        return None
+    if not all(lo < hi for lo, hi in bounds):
+        return None
+    ci = d.locate(*[lo for lo, _ in bounds])
+    part = d._parts[ci]
+    starts = [c[j] for c, j in zip(d.cuts, ci)]
+    if part.device != dev or not all(
+            hi <= c[j + 1] for (lo, hi), c, j in zip(bounds, d.cuts, ci)):
+        return None
+    return part[tuple(slice(lo - s, hi - s)
+                      for (lo, hi), s in zip(bounds, starts))]
 
 
 def _default_gemm(A: DArray, B, bt, pids, cuts, vec, out_dtype, use_kernel,
                   alpha=1.0, beta=0.0, out=None) -> dict:
-    """Each result cell from A's row panel and B's column panel on its
-    rank's device; a B that every cell needs whole and that is chunked
-    along one dim on the result's ranks is gathered once by the all-gather
-    kernel."""
+    """Each of this process's result cells from A's row panel and B's
+    column panel on its rank's device; a B that every cell needs whole and
+    that is chunked along one dim on the result's ranks is gathered once
+    by the all-gather kernel.  In a job of several processes the panels
+    come by one region call (``_job_panels``) and each process computes
+    only its own cells."""
     m, k = A.dims
     n = 1 if vec else (B.dims[1] if bt is None else bt.shape[1])
     plain = alpha == 1.0 and beta == 0.0
-    whole = None
-    ranks = sorted({int(p) for p in pids.flat})
-    if bt is None and (vec or list(cuts[1]) == [0, n]) and B.size > 0 and \
-            len(ranks) > 1 and \
-            plan_allgather(B, ranks).strategy == "all_gather":
-        whole = dict(zip(ranks, allgather(B, ranks)))
+    if L.process_count() > 1:
+        get = _job_panels(A, B, bt, pids, cuts, vec, k)
+    else:
+        whole = None
+        ranks = sorted({int(p) for p in pids.flat})
+        if bt is None and (vec or list(cuts[1]) == [0, n]) and \
+                B.size > 0 and len(ranks) > 1 and \
+                plan_allgather(B, ranks).strategy == "all_gather":
+            whole = dict(zip(ranks, allgather(B, ranks)))
+
+        def get(ci, dev):
+            r0, r1 = cuts[0][ci[0]], cuts[0][ci[0] + 1]
+            a = _panel(A, [(r0, r1), (0, k)], dev)
+            if whole is not None:
+                return a, whole[int(pids[ci])]
+            if vec:
+                return a, (bt.to(dev) if bt is not None else B.full(dev))
+            c0, c1 = cuts[1][ci[1]], cuts[1][ci[1] + 1]
+            return a, (bt[:, c0:c1].to(dev) if bt is not None
+                       else _panel(B, [(0, k), (c0, c1)], dev))
     results = {}
     for ci in np.ndindex(*pids.shape):
         rank = int(pids[ci])
+        if not L.is_local(rank):
+            continue                    # another process computes it
         dev = L.device_of(rank)
-        r0, r1 = cuts[0][ci[0]], cuts[0][ci[0] + 1]
-        a = _panel(A, [(r0, r1), (0, k)], dev)
-        if whole is not None:
-            b = whole[rank]
-        elif vec:
-            b = bt.to(dev) if bt is not None else B.full(dev)
-        else:
-            c0, c1 = cuts[1][ci[1]], cuts[1][ci[1] + 1]
-            b = (bt[:, c0:c1].to(dev) if bt is not None
-                 else _panel(B, [(0, k), (c0, c1)], dev))
+        a, b = get(ci, dev)
         if use_kernel:
             res = cuda_matmul(a.contiguous(), b.contiguous())
         else:
@@ -452,7 +529,6 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
         A = A.copy()
     if not isinstance(A, DArray):
         A = distribute(A)
-    cross_process_unported("the distributed GEMM (A @ B)", A, B, out)
     if isinstance(B, DArray):
         bshape, bt = B.dims, None
     else:
@@ -517,8 +593,12 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
         out._relabel("rebind")        # JAX's C._rebind(res)
         return out
     parts = np.empty(pids.shape, dtype=object)
-    for ci, res in results.items():
-        parts[ci] = res.contiguous()
+    for ci in np.ndindex(*pids.shape):
+        res = results.get(ci)
+        # another process's cell: a placeholder of its shape
+        parts[ci] = res.contiguous() if res is not None else torch.empty(
+            [c[j + 1] - c[j] for c, j in zip(cuts, ci)], dtype=out_dtype,
+            device=L.device_of(int(pids[ci])))
     return DArray(parts, pids, cuts)
 
 

@@ -15,6 +15,11 @@ the job's process group, and every process folds all of them in the same
 grid order as one process would: the result is bit for bit the
 single-process port's on the same layout, and every process holds it (a
 0-d tensor on its own device, or a DArray whose local chunks it holds).
+The scans exchange each chunk's last slab the same way and fold the
+carries in cell order; ``samedist``, ``mapslices`` and ``ppeval`` move
+their data through the cross-process reshard, and ``f`` runs on each
+process's own cells (on another process's placeholders it only infers
+the shapes).
 
 ``dims=`` reductions keep the reduced dims with size 1, and the result
 keeps the source's pid grid with the reduced grid dims collapsed, as in the
@@ -23,7 +28,10 @@ JAX with 64-bit types off: a sum or product of bool or signed integers is
 int32, of unsigned integers uint32 (partials in int64, wrapped once at the
 end); a float16 or bfloat16 sum or product keeps its type but carries
 float32 partials, merged in float32 and rounded once, as JAX upcasts
-them; an integer mean/variance is float32.
+them; an integer mean/variance is float32, the mean of an integer or bool
+array from exact int64 sums and counts divided once at the end, so it is
+correctly rounded as JAX's is (float means carry Chan's ``(count, mean)``
+partials).
 
 Also here, as in the JAX module: ``dall``/``dany``/``dcount``/
 ``dextrema``; the scans ``dcumsum``/``dcumprod``/``dcummax``/``dcummin``
@@ -49,7 +57,7 @@ import numpy as np
 import torch
 
 from ..darray import (DArray, SubDArray, _assemble, as_tensor, copyto_,
-                      cross_process_unported, from_global, resolve_layout)
+                      from_global, resolve_layout)
 from .. import layout as L
 from ..darray import _scatter
 from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
@@ -149,6 +157,9 @@ class _Reducer:
             x = x.to(torch.bool)
             return _reduce_dims(x, torch.all if name == "all" else torch.any,
                                 axes)
+        if name == "mean" and _is_exact(x.dtype):
+            # exact partials: an int64 sum, divided once in finish
+            return (n, _reduce_dims(x.to(torch.int64), torch.sum, axes))
         x = x.to(torch.float32) if (_is_exact(x.dtype)
                                     or x.element_size() < 4) else x
         mean = _reduce_dims(x, torch.mean, axes)
@@ -173,6 +184,9 @@ class _Reducer:
             return a | b
         na, nb = a[0], b[0]
         n = na + nb
+        if name == "mean" and not b[1].is_floating_point() and \
+                not b[1].is_complex():
+            return (n, a[1] + b[1])               # exact sums
         delta = b[1] - a[1]
         mean = a[1] + delta * (nb / n)
         if name == "mean":
@@ -188,6 +202,11 @@ class _Reducer:
             return s
         out_dtype = torch.float32 if _is_exact(dtype) else dtype
         if name == "mean":
+            if _is_exact(dtype):
+                # one division of the exact sum, rounded once to float32
+                # (float64 first: exact for sums below 2**53, and one
+                # rounding for counts below 2**28)
+                return (s[1].to(torch.float64) / s[0]).to(out_dtype)
             return s[1].to(out_dtype)
         # the variance of complex values is real: the mean of |x - mean|^2
         var = s[2] / (s[0] - self.ddof)
@@ -505,23 +524,40 @@ def _scan(d: DArray, axis: int, kind: str) -> DArray:
     """Inclusive scan along ``axis`` on ``d``'s layout (JAX
     ``ops/mapreduce.py:314``): each rank scans its own chunk, then merges
     in the running total that the chunks before it along ``axis`` hand
-    on (their last slice, a slab one element thick)."""
+    on (their last slice, a slab one element thick).  The carries are
+    folded in cell order from each chunk's own last slab, which is the
+    last slab of the merged chunk; in a job of several processes each
+    process scans its own chunks, the slabs travel over the job's group
+    (``multihost.cell_values``) and every process folds the same carries,
+    so the result is bit-equal to one process's."""
+    from ..parallel import multihost
     if not isinstance(d, DArray):
         raise TypeError(f"expected DArray, got {type(d).__name__}")
-    cross_process_unported(f"the scan (dcum{kind})", d)
     ax = axis + d.ndim if axis < 0 else axis
     if not 0 <= ax < d.ndim:
         raise ValueError(f"axis {axis} out of range for ndim {d.ndim}")
     merge = _SCAN_MERGE[kind]
+    scanned = {}
+
+    def tail(ci):
+        x = scanned[ci] = _scan_local(kind, d.part(ci), ax)
+        n = x.shape[ax]
+        return x.narrow(ax, n - 1, 1) if n else None
+    tails = multihost.cell_values(d, tail)
     parts = np.empty(d.grid, dtype=object)
     carry = {}          # per line of cells along ax: the total so far
-    for ci in d.cells():                 # row-major: each line in order
-        x = _scan_local(kind, d.part(ci), ax)
+    for ci, t in zip(d.cells(), tails):  # row-major: each line in order
         line = ci[:ax] + ci[ax + 1:]
-        if line in carry:
-            x = merge(x, carry[line].to(x.device))
-        if x.shape[ax]:
-            carry[line] = x.narrow(ax, x.shape[ax] - 1, 1)
+        prev = carry.get(line)
+        x = scanned.get(ci)
+        if x is None:                    # another process's cell
+            x = _scan_local(kind, d._parts[ci], ax)
+        elif prev is not None:
+            x = merge(x, prev.to(x.device))
+        if t is not None:
+            t = t.to(x.device if x.device.type != "meta"
+                     else L.local_device())
+            carry[line] = t if prev is None else merge(t, prev.to(t.device))
         parts[ci] = x
     return DArray(parts, d.pids.copy(), d.cuts)
 
@@ -673,7 +709,8 @@ def mapslices(f: Callable, d: DArray, dims) -> DArray:
     try:
         out = np.empty(src.grid, dtype=object)
         for ci in src.cells():
-            x = src.part(ci)
+            # another process's cell: f on its placeholder gives the shape
+            x = src._parts[ci]
             out[ci] = _own(_slices(f, x, batch, dims), [x], x.device)
         tmp = _assemble(out, src.pids.copy())
     finally:

@@ -7,7 +7,10 @@ reference's ``nnz``: the sum of every worker's ``nnz(localpart)``.
 ``ddata_bcoo`` holds each rank's chunk as a coalesced torch sparse COO
 tensor on that rank's device, in a ``DData``: the counterpart of the JAX
 package's one BCOO matrix a rank.  ``dnnz`` of such a ``DData`` sums its
-parts' stored entries.
+parts' stored entries.  In a job of several controller processes each
+process counts its own chunks (or parts) and the counts are summed over
+the job, so every process gets the whole count; ``ddata_bcoo`` holds the
+sparse parts of this process's ranks.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import layout as L
 from ..darray import DArray, DData, SubDArray, as_tensor
+from ..parallel import multihost
 
 __all__ = ["dnnz", "ddata_bcoo"]
 
@@ -34,10 +39,14 @@ def dnnz(d) -> int:
     entries (``_nnz()`` of a sparse part, the nonzeros of a dense one)
     for a ``DData``."""
     if isinstance(d, DData):
+        if L.spans_processes(d.pids):
+            mine = sum(_count(v) for p, v in d._parts.items()
+                       if L.is_local(p))
+            return sum(multihost._all_gather_objects(mine))
         return sum(_count(part) for part in d.gather())
     if isinstance(d, DArray):
         d._check_open()
-        return sum(_count(d.part(ci)) for ci in d.cells())
+        return sum(multihost.cell_values(d, lambda ci: _count(d.part(ci))))
     if isinstance(d, SubDArray):
         return _count(d.materialize())
     return _count(d if isinstance(d, torch.Tensor) else as_tensor(d))
@@ -47,5 +56,6 @@ def ddata_bcoo(d: DArray) -> DData:
     """Each rank's chunk as a coalesced sparse COO tensor on its device,
     held in a ``DData`` over ``d``'s ranks."""
     pids = [int(p) for p in d.pids.flat]
-    parts = {p: d.localpart(p).to_sparse().coalesce() for p in pids}
+    parts = {p: d.localpart(p).to_sparse().coalesce() for p in pids
+             if L.is_local(p)}
     return DData(parts, pids)

@@ -18,15 +18,21 @@ and joins one ``torch.distributed`` job:
   process's local ranks (process 0's first), so a DArray's default layout
   spans the processes.  Each process holds the tensors of its own ranks;
   another process's cell is a placeholder on the ``meta`` device.
-- :func:`gather_global` hands every process the whole array.  Where every
-  process of the job sits on one host and on CUDA devices, each process
-  makes one launch of K10's copy kernel (``ops.cuda_collectives
-  .process_all_gather``) that reads the peer processes' chunks through
-  CUDA IPC pointers and writes its own whole array; otherwise (a CPU job,
-  or processes on several hosts) the host copies are all-gathered over
-  the gloo group (``process_all_gather_plain``).  The route follows where
-  the peers are, the same on every process; a handle that will not open
-  or a launch that fails raises.
+- :func:`fetch_regions` is the data plane: every process asks for boxes
+  of process-spanning DArrays, each onto its own device, in one
+  collective call.  Where every process of the job sits on one host and
+  on CUDA devices, each process makes one launch of K10's copy kernel
+  (``ops.cuda_collectives.process_regions``) that reads the peer
+  processes' chunks through CUDA IPC pointers; otherwise (a CPU job, or
+  processes on several hosts) the pieces travel as host bytes over the
+  gloo group (``process_regions_plain``).  The route follows where the
+  peers are, the same on every process; a handle that will not open or a
+  launch that fails raises, and nothing falls back to gloo.
+  :func:`gather_global` is one want of the whole array;
+  ``DArray.region``, the reshard, the distributed GEMM's panels,
+  ``djit``'s inputs and the element reads are other wants.
+  :func:`cell_values` carries per-cell partials (small host values) over
+  the gloo group for the folds that one process makes in cell order.
 - :func:`heartbeat`, :func:`exchange_clock_offsets`,
   :func:`down_peer_processes` and :func:`quorum_assess` are the elastic
   manager's real health signal: a peer whose heartbeat key is absent,
@@ -42,8 +48,8 @@ and joins one ``torch.distributed`` job:
   :func:`advertise_exporter` has nothing to register.
 
 Every process must enter the collective calls (``init``,
-:func:`gather_global`, :func:`sync_hosts`, reductions of a DArray in a
-multi-process job) in the same order: the SPMD discipline of JAX's
+:func:`gather_global`, :func:`fetch_regions`, :func:`sync_hosts`, the ops
+over a DArray in a multi-process job) in the same order: the SPMD discipline of JAX's
 multi-controller programs.  Their branches test only what is the same on
 every process (``layout.process_count``, ``layout.spans_processes``, the
 job's table of hosts and devices).
@@ -66,7 +72,8 @@ from .. import layout as L
 from .. import telemetry as _tm
 
 __all__ = ["initialize", "global_mesh", "process_info", "sync_hosts",
-           "host_local_slice", "gather_global", "heartbeat",
+           "host_local_slice", "gather_global", "fetch_regions",
+           "cell_values", "heartbeat",
            "down_peer_processes", "quorum_assess",
            "exchange_clock_offsets", "advertise_aggregator",
            "aggregator_endpoint", "advertise_exporter"]
@@ -198,8 +205,8 @@ def initialize(coordinator_address: str | None = None,
 
 
 def shutdown() -> None:
-    """Leave the job: close the CUDA IPC mappings this process opened,
-    destroy the process group and forget the job and the rank table (the
+    """Leave the job: close any CUDA IPC mapping that a failed region call
+    left open (a call closes its own), destroy the process group and forget the job and the rank table (the
     counterpart of ``jax.distributed.shutdown``).  Call it on every
     process once the collective calls are done."""
     global _job
@@ -496,21 +503,86 @@ def _kernel_route() -> bool:
                for p in _job.procs)
 
 
+def fetch_regions(wants) -> list[torch.Tensor]:
+    """Boxes of DArrays that may span controller processes, each as a new
+    tensor: ``wants`` is a list of ``(DArray, bounds, device)`` (``bounds``
+    one ``(lo, hi)`` a dim, None for the whole array).  Collective in a
+    job of several processes: every process calls it with the same DArrays in the same order, each with
+    the devices of its own destinations; a want whose device is ``meta``
+    (a cell of another process's rank) fetches nothing and comes back as
+    a placeholder of the box's shape.  The whole list is one exchange:
+    through K10's copy kernel over CUDA IPC (``ops.cuda_collectives
+    .process_regions``, one launch a process) where every process of the
+    job sits on this host and on a CUDA device, else over the gloo group
+    (``process_regions_plain``).  A box lands on this process's device
+    and moves to the asked device after.  In one process each want is
+    ``DArray.region``'s local copy of the chunks' pieces."""
+    from ..ops import cuda_collectives as CC
+    if L.process_count() == 1:
+        return [d.region(bounds, device) for d, bounds, device in wants]
+    arrays, index, asks, outs = [], {}, [], []
+    dev = L.local_device()
+    for d, bounds, device in wants:
+        d._check_open()
+        if id(d) not in index:
+            index[id(d)] = len(arrays)
+            arrays.append(d)
+        bounds = [(0, n) for n in d.dims] if bounds is None else \
+            [(int(lo), int(hi)) for lo, hi in bounds]
+        shape = [hi - lo for lo, hi in bounds]
+        device = torch.device(device)
+        if device.type == "meta":
+            outs.append((torch.empty(shape, dtype=d.dtype, device=device),
+                         device))
+            continue
+        out = torch.empty(shape, dtype=d.dtype, device=dev)
+        asks.append((index[id(d)], bounds, out))
+        outs.append((out, device))
+    if _tm.enabled():
+        _tm.record_comm("multihost_region",
+                        sum(o.numel() * o.element_size()
+                            for _, _, o in asks), op="fetch_regions")
+    if _kernel_route():
+        CC.process_regions(arrays, asks,
+                           lambda obj: _all_gather_json("region", obj),
+                           lambda: sync_hosts("region"))
+    else:
+        CC.process_regions_plain(arrays, asks, _job.group)
+    return [o if o.device == device else o.to(device) for o, device in outs]
+
+
+def cell_values(d, fn) -> list:
+    """``fn(cell)`` for every cell of DArray ``d``, in row-major order.  In
+    a job of several processes each process calls ``fn`` on the cells it
+    holds, and the values (tensors, moved to the CPU, or other picklable
+    objects) travel over the gloo group, so every process gets them all
+    in the same order: the partials that ``ddot``, ``dnorm``, ``dnnz``,
+    ``==`` and the scans fold as one process would.  Collective in a job:
+    every process calls it for the same ``d``."""
+    cells = d.cells()
+    if L.process_count() == 1:
+        return [fn(ci) for ci in cells]
+    mine = {}
+    for ci in cells:
+        if L.is_local(int(d.pids[ci])):
+            v = fn(ci)
+            mine[ci] = v.cpu() if isinstance(v, torch.Tensor) else v
+    every = {}
+    for part in _all_gather_objects(mine):
+        every.update(part)
+    return [every[ci] for ci in cells]
+
+
 def _gather_tensor(d) -> torch.Tensor:
     """The whole of DArray ``d`` as one tensor on this process's device:
     the collective behind :func:`gather_global`, ``full``, ``gather`` and
-    ``np.asarray`` in a multi-process job."""
-    from ..ops import cuda_collectives as CC
+    ``np.asarray`` in a multi-process job (one want of the whole array)."""
     d._check_open()
     if _tm.enabled():
         _tm.record_comm("multihost_gather",
                         d.size * d.dtype.itemsize, op="gather_global",
                         shape=list(d.dims))
-    if _kernel_route():
-        return CC.process_all_gather(
-            d, lambda obj: _all_gather_json("gather", obj),
-            lambda: sync_hosts("gather_global"))
-    return CC.process_all_gather_plain(d, _job.group).to(L.local_device())
+    return fetch_regions([(d, None, L.local_device())])[0]
 
 
 def gather_global(d) -> np.ndarray:

@@ -52,6 +52,15 @@ failure-domain topology (``resilience.domains``): a plan's
 ``intra_bytes``/``cross_bytes`` depend on it.  ``plan_stats()`` reports
 hits, misses and size.
 
+**Across controller processes** (a job of ``parallel.multihost``) the
+plan is made as above, the same on every process (the cache, the span and
+the accounting included), and every plan is lowered as the one-pass
+region copy that ``relayout_plain`` makes: each process fills its own
+target cells (``allgather``: its own ranks' whole arrays) by one
+``multihost.fetch_regions`` call, one copy launch a process on the card
+(a cross-process relayout is an all-to-all, an all-gather or any other
+move alike); another process's target cells are placeholders.
+
 A planned collective runs its kernel on the card or raises: JAX's fallback
 from a failed lowering to ``device_put`` (``reshard.py:1172-1182``) and its
 ``DA_TPU_RDMA`` switch have no counterpart.
@@ -91,7 +100,7 @@ import torch
 
 from .. import layout as L
 from .. import telemetry as _tm
-from ..darray import DArray, cross_process_unported
+from ..darray import DArray
 from ..ops.cuda_collectives import (chain_step, ring_all_gather,
                                     ring_all_to_all)
 from ..resilience import domains as _dom
@@ -956,21 +965,28 @@ def _moving(d: DArray, plan: ReshardPlan, op: str):
     """The ``reshard`` span around one planned move, the ``reshard.chunk``
     fault site of a collective plan (before any byte moves, so the source
     is intact for a retry), and the move's accounting (JAX
-    ``reshard.py:1116-1190``)."""
-    with _tm.span("reshard", op=op, strategy=plan.strategy,
+    ``reshard.py:1116-1190``).  In a job of several processes every plan
+    is lowered as one region copy (``_fetched``): the span says so
+    (``strategy="region"``, one step, the planned kind under ``plan``),
+    no fallback is counted, and the bytes are recorded once, by
+    ``multihost.fetch_regions``."""
+    job = L.process_count() > 1
+    with _tm.span("reshard", op=op,
+                  strategy="region" if job else plan.strategy,
+                  **({"plan": plan.strategy} if job else {}),
                   shape=list(plan.shape),
                   dtype=str(d.dtype).removeprefix("torch."),
                   src_dim=plan.src_dim, dst_dim=plan.dst_dim,
-                  nparts=plan.nparts, nsteps=len(plan.steps),
+                  nparts=plan.nparts, nsteps=1 if job else len(plan.steps),
                   intra_bytes=plan.intra_bytes, cross_bytes=plan.cross_bytes,
                   **_perf.reshard_cost(plan.total_bytes, plan.moved_bytes)):
         if plan.collective:
             _fl.check("reshard.chunk", strategy=plan.strategy, op=op)
-        elif plan.strategy == "device_put" and plan.moved_bytes:
+        elif plan.strategy == "device_put" and plan.moved_bytes and not job:
             _tm.count("reshard.collective_fallbacks",
                       reason=_fallback_reason(plan.reason))
         yield
-        if _tm.enabled():
+        if _tm.enabled() and not job:
             _tm.record_comm("reshard", plan.moved_bytes, op=op,
                             strategy=(plan.strategy if plan.collective
                                       else "device_put"),
@@ -990,11 +1006,28 @@ def relayout_parts(d: DArray, pids, cuts, *,
     pids = np.asarray(pids)
     if same_layout(d, pids, cuts):
         return d._parts
-    cross_process_unported(f"the reshard ({op})", d)
     if plan is None:
         plan = plan_reshard(d, pids, cuts)
     with _moving(d, plan, op):
+        if L.process_count() > 1:
+            return _fetched(d, pids, cuts)
         return _lower(d, pids, cuts, plan)
+
+
+def _fetched(d: DArray, pids: np.ndarray, cuts) -> np.ndarray:
+    """The cross-process lowering of any plan: the one-pass region copy
+    of ``relayout_plain``, each process filling its own target cells by
+    one ``multihost.fetch_regions`` call (one copy launch a process on
+    the card); another process's cells are placeholders."""
+    from . import multihost
+    cells = list(np.ndindex(*pids.shape))
+    got = multihost.fetch_regions(
+        [(d, [(c[j], c[j + 1]) for c, j in zip(cuts, ci)],
+          L.device_of(int(pids[ci]))) for ci in cells])
+    parts = np.empty(tuple(pids.shape), dtype=object)
+    for ci, t in zip(cells, got):
+        parts[ci] = t
+    return parts
 
 
 def _lower(d: DArray, pids: np.ndarray, cuts, plan: ReshardPlan):
@@ -1094,10 +1127,14 @@ def allgather(d: DArray, ranks=None, *,
     only the ranks asked for), else assembled region by region.  Moves run
     in a ``reshard`` span named by ``op``, as JAX's gathers (a reshard
     onto a replicated layout) do."""
-    cross_process_unported(f"the reshard ({op})", d)
     ranks = ([int(p) for p in d.pids.flat] if ranks is None
              else [int(r) for r in ranks])
     plan = plan_allgather(d, ranks)
+    if L.process_count() > 1:
+        from . import multihost
+        with _moving(d, plan, op):
+            return multihost.fetch_regions(
+                [(d, None, L.device_of(r)) for r in ranks])
     if plan.strategy == "noop":
         return [d.part(next(iter(d.cells()))).clone()]
     with _moving(d, plan, op):

@@ -22,9 +22,10 @@ ring attention step's compute steps by route (a ring step that only
 forwards its K/V pair, or only starts or finishes the carry, counts as a
 launch and under no route), and every step of the ring GEMMs K13, K14 and
 K15 by route (``RING_ROUTES``: those three and ``wgmma_peer``, wgmma with
-the slot the step writes on another card), and the all-gather's (K10)
-``cross_process`` launches, which read peer processes' chunks through
-CUDA IPC (``multihost.gather_global``).
+the slot the step writes on another card), and the copy kernel's (K10)
+``cross_process_region`` launches, which read peer processes' chunks
+through CUDA IPC (``multihost.fetch_regions``: a cross-process gather,
+reshard, GEMM panel fetch, ``djit`` input or element read).
 
 ``sm_count(device)`` is a card's SM count (cached), which the wrappers
 use to size their grids.
@@ -99,8 +100,8 @@ _routes.update({k: dict.fromkeys(STENCIL_ROUTES, 0)
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs",
                           "matmul_reducescatter")})
-# K10's launches across controller processes (peer chunks by CUDA IPC)
-_routes["all_gather"] = {"cross_process": 0}
+# K10's region copies across controller processes (peer chunks by CUDA IPC)
+_routes["all_gather"] = {"cross_process_region": 0}
 _peers: set[tuple[int, int]] = set()
 _sms: dict[int, int] = {}
 build_log: dict[str, str] = {}

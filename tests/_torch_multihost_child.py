@@ -12,8 +12,11 @@ process-spanning DArray through construction, ``dsum``,
 ``host_local_slice``/``localpart`` and ``gather_global``; the operators;
 the reductions with ``dims`` None, 0 and 1 and ``dmapreduce``; an uneven
 50 x 8 layout and ``d + d``; the other constructors; the live-telemetry
-URLs in the job's KV; a checkpoint round trip; the ops that have no
-cross-process form yet (each must raise ``NotImplementedError``); the
+URLs in the job's KV; the ops that run across the processes
+(``tests/_torch_mh_legs.py``: the distributed GEMM forms, the
+transposes, the reshard and what rests on it, the element reads, ``djit``
+and the scans); the ops that have no cross-process form yet (each must
+raise ``NotImplementedError``); a checkpoint round trip; the
 heartbeat census with the last process stale; and a journal with markers
 around a ``sync_hosts`` barrier.  It writes what it saw to
 ``<out_dir>/result_<process_id>.pkl`` for the parent to hold against the
@@ -162,22 +165,34 @@ multihost.sync_hosts("aggregator")
 res["aggregator"] = multihost.aggregator_endpoint()
 res["exporter"] = multihost.advertise_exporter()
 
+# --- the ops with a cross-process form (tests/_torch_mh_legs.py) --------
+# each leg's result, and every meta tensor a caller was handed; the
+# mappings a region call opens are closed by its end
+import _torch_mh_legs  # noqa: E402
+from distributedarrays_tpu_torch.ops import cuda_collectives  # noqa: E402
+
+res["ported"], res["meta"] = {}, {}
+for name, thunk in _torch_mh_legs.legs(tdat, N):
+    got, meta = _torch_mh_legs.summary(tdat, multihost.gather_global,
+                                       thunk())
+    res["ported"][name] = got
+    if meta:
+        res["meta"][name] = meta
+res["open_mappings"] = cuda_collectives.open_mappings()
+
 # --- ops with no cross-process form raise -------------------------------
 unported = {
-    "djit": lambda: tdat.djit(lambda a: torch.sin(a))(dx),
-    "matmul": lambda: dx @ tdat.distribute(Y.T.copy()),
-    "dcumsum": lambda: tdat.dcumsum(dx, axis=0),
     "dsort": lambda: tdat.dsort(d),
     "dfft": lambda: tdat.dfft(dx, axis=0),
-    "reshard": lambda: tdat.reshard.reshard(
-        dx, np.arange(N).reshape(N // 2, 2),
-        tdat.layout.chunk_idxs((16, 4), (N // 2, 2))[1]),
     "run_spmd": lambda: tdat.run_spmd(lambda b: b, list(range(N)), dx),
-    "reshape": lambda: dx.reshape(4, 16),
-    "distribute": lambda: tdat.distribute(dx, dist=(N // 2, 2)),
-    "dcat": lambda: tdat.dcat(0, dx, dy),
-    "dtranspose": lambda: tdat.dtranspose(dx),
     "dconv2d": lambda: tdat.dconv2d(dx, torch.ones(3, 3)),
+    "ulysses_attention": lambda: tdat.ulysses_attention(
+        *(tdat.distribute(np.ones((N, N, 4), np.float32), procs=range(N),
+                          dist=(N, 1, 1)) for _ in range(3))),
+    "kmeans": lambda: tdat.kmeans.kmeans(dx, 2),
+    "dmatmul_int8": lambda: tdat.dmatmul_int8(
+        tdat.distribute(np.ones((4 * N, 4), np.float32), procs=range(N),
+                        dist=(N, 1)), np.ones((4, 4), np.float32)),
     "ring_attention": lambda: tdat.ring_attention(
         *(tdat.distribute(np.ones((N, 2, 4), np.float32))
           for _ in range(3))),

@@ -117,6 +117,19 @@ def test_copy_box_geometry():
         C._box(x.t(), torch.empty(12, 8))
 
 
+@pytest.mark.parametrize("shape", [(19, 1), (5, 3, 1), (1, 1)])
+def test_copy_box_one_wide_inner_dim(shape):
+    # a box whose innermost dim is one element wide (a column of a chunk
+    # copied into a column of another) is runs of one element, not an
+    # error: the outer strides carry the rest
+    src = torch.empty(shape[:-1] + (3,)).narrow(-1, 1, 1)
+    dst = torch.empty(shape[:-1] + (7,)).narrow(-1, 4, 1)
+    n = int(np.prod(shape))
+    want = ([1, 1, 1], [0, 0, 0], [0, 0, 0]) if n == 1 else \
+        ([1, 1, n], [0, 0, 12], [0, 0, 28])
+    assert C._box(src, dst) == want + (4,)
+
+
 def _gather_copies(p, rows=8, cols=16, dim=0, dtype=torch.float32):
     """The (dest, src, dst) copies the all-gather makes for p ranks."""
     blocks = [torch.empty(rows, cols, dtype=dtype) for _ in range(p)]
