@@ -316,7 +316,28 @@
    ``torch.cuda.empty_cache()`` in every process between rounds, each
    right, no mapping open between calls and at most 3 open during one;
    and a gather after every process freed its array and allocated a new
-   one.  Then an uneven 16383 x
+   one.  Then the ops on the rank-list exchange (``multihost_legs``), at
+   full width: ``run_spmd`` ``pshift(+1)`` of the 16384^2 array, ``dfft``
+   along 0 and ``dfft2`` of an 8192^2 complex64 (4, 1) DArray, ``dsort``
+   of ``drand(1e7)`` and ``drand(1e8)``, ``dconv2d`` of an 8192^2 f32
+   (4, 1) image with 3x3 and 5x5 kernels, ``ring_attention`` and
+   ``ulysses_attention`` at S = 8192, 16 heads of 64, bf16, causal,
+   k-means on 2^24 x 32 f32 with k = 64 (5 iterations), and
+   ``dmatmul_int8`` of a 16384^2 (4, 1) A with B whole.  Each leg's
+   launches a process are held (``MH_LEG_LAUNCHES``: the exchanges' K10/
+   K11 on the cross-process route and nothing else of them; K9's 4, 3 of
+   them storing into the neighbour process's mapped slot and 10 of the
+   16 accumulating over the four; K5's and K4's one), its result
+   bit-equal to one process on 4 ranks of the card (SHA-256, layouts
+   too), which is held against its whole-array library call at the
+   leg's stated tolerance (``MH_*_TOL``, the error's Frobenius norm over
+   the library result's; the shift and the sorts exactly), six legs also
+   bit-equal to the plain gloo route (``MH_PLAIN_LEGS``), no peer
+   mapping left open; and read: the whole call's host ms (its first call,
+   then a warm one), the leg's largest exchange alone (the others at a
+   barrier) and all four at once in one host window, each against its
+   own bytes, ring attention's host ms a step.  Then an
+   uneven 16383 x
    16384 ``distribute``, ``d + d`` and its gather; a checkpoint of a
    4096^2 process-spanning DArray saved and loaded on its saved cuts; the
    heartbeat census (process 3 stops heartbeating: processes 0-2 must see
@@ -5035,9 +5056,10 @@ def _plain_fetch(MH, CC, wants) -> list:
     return outs
 
 
-def _region_launcher(MH, CC, arrays, wants, tag):
-    """``(copies, launch, close)`` of one region call of ``wants`` (``(a,
-    bounds, dst)``), built once, for timing its launch alone: the handles
+def _region_launcher(MH, CC, arrays, wants, tag, kernel="all_gather"):
+    """``(copies, launch, close)`` of one region call of ``wants`` (of
+    DArrays or rank lists, ``multihost.exchange``'s), built once, for
+    timing its launch (counted as ``kernel``) alone: the handles
     exchanged and the peer allocations mapped as ``process_regions`` does;
     ``close`` unmaps them (every process must have finished its launches:
     call it after a barrier)."""
@@ -5048,7 +5070,7 @@ def _region_launcher(MH, CC, arrays, wants, tag):
     copies = CC.region_copies(arrays, wants, every, mapped)
 
     def launch():
-        CC._copy_on_card(copies, dev, "all_gather", "cross_process_region")
+        CC._copy_on_card(copies, dev, kernel, "cross_process_region")
     return copies, launch, mapped.close
 
 
@@ -5065,13 +5087,16 @@ def _bits(t: torch.Tensor) -> str:
 
 
 def _sha256(t: torch.Tensor) -> str:
+    """The SHA-256 of a tensor's bytes (any dtype, bf16 included)."""
     import hashlib
-    return hashlib.sha256(t.detach().cpu().contiguous().numpy()).hexdigest()
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy()).hexdigest()
 
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    """Bit equality of two tensors of any dtype."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 class _PeerView:
@@ -5322,6 +5347,404 @@ def multihost_ops(tdat, MH, CC, kbuild, A, proc: int, out_dir: str) -> dict:
     return out
 
 
+# the ops on the rank-list exchange across the 4 processes, at full width
+MH_FFT_N = 8192            # the sort/FFT/conv phase's 8192^2 complex64
+MH_SORTS = (10 ** 7, 10 ** 8)   # bench.py cfg_sort's drand(1e7), and 1e8
+MH_CONV_N = 8192
+MH_ATTN = (8192, 16, 64)   # the flagship attention (PERF.md section 2)
+MH_KM = (2 ** 24, 32, 64, 5)    # rows, dim, k, iterations
+MH_I8_N = 16384
+MH_LEG_REPS, MH_LEG_BATCH = 5, 5
+# tolerances against the whole-array library calls, as the error's
+# Frobenius norm over the library result's (one process on 4 ranks is held
+# bit for bit; these hold the port's numerics; a wrong result reads ~1)
+MH_FFT_TOL = 1e-5      # complex64 transforms of 8192 terms (~1.5e-7)
+MH_CONV_TOL = 1e-5     # F.conv2d per rank vs whole: another cuDNN order
+MH_ATTN_TOL = 1e-2     # bf16 K9/K5 vs SDPA in bf16 (~2e-3; a K/V block
+#                        missed by the last quarter of the rows reads 0.13)
+MH_I8_TOL = 2.5e-2     # per-row/column int8 codes vs the f32 product (~1.2e-2)
+
+
+def _leg_inputs(tdat, dev) -> dict:
+    """The legs' inputs, the same on one process and on the 4 (each rank
+    draws from its own generator; the host tensors from fixed seeds)."""
+    S, H, D = MH_ATTN
+    n, dim, _, _ = MH_KM
+    out = {}
+    tdat.seed(MH_SEED + 5)
+    F = tdat.drand((MH_FFT_N, MH_FFT_N), dist=(MH_PROCS, 1))
+    out["fft"] = F.astype(torch.complex64)
+    F.close()
+    tdat.seed(MH_SEED + 6)
+    out["sort"] = [tdat.drand((m,)) for m in MH_SORTS]
+    tdat.seed(MH_SEED + 7)
+    out["conv"] = tdat.drand((MH_CONV_N, MH_CONV_N), dist=(MH_PROCS, 1))
+    g = torch.Generator().manual_seed(MH_SEED + 7)
+    out["k3"], out["k5"] = torch.randn(3, 3, generator=g), \
+        torch.randn(5, 5, generator=g)
+    tdat.seed(MH_SEED + 8)
+    qkv = [tdat.drandn((S, H, D), dist=(MH_PROCS, 1, 1)) for _ in range(3)]
+    out["attn"] = [x.astype(torch.bfloat16) for x in qkv]
+    for x in qkv:
+        x.close()
+    tdat.seed(MH_SEED + 9)
+    out["km"] = tdat.drand((n, dim), dist=(MH_PROCS, 1))
+    tdat.seed(MH_SEED + 10)
+    out["i8a"] = tdat.drandn((MH_I8_N, MH_I8_N), dist=(MH_PROCS, 1))
+    out["i8b"] = torch.randn(MH_I8_N, MH_I8_N, device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(MH_SEED + 10))
+    return out
+
+
+def _leg_calls(tdat, A, inp) -> list:
+    """``(name, call)`` of every leg, in the order every process runs
+    them; a call returns a DArray, a list of rank tensors, or the
+    k-means pair."""
+    S, H, D = MH_ATTN
+    _, _, k, iters = MH_KM
+    q, kk, v = inp["attn"]
+    return [
+        ("spmd_pshift", lambda: tdat.run_spmd(
+            lambda b: tdat.pshift([x[0] for x in b], 1), A.pids.tolist(),
+            A)),
+        ("dfft", lambda: tdat.dfft(inp["fft"], axis=0)),
+        ("dfft2", lambda: tdat.dfft2(inp["fft"])),
+        ("dsort_1e7", lambda: tdat.dsort(inp["sort"][0])),
+        ("dsort_1e8", lambda: tdat.dsort(inp["sort"][1])),
+        ("dconv2d_3", lambda: tdat.dconv2d(inp["conv"], inp["k3"])),
+        ("dconv2d_5", lambda: tdat.dconv2d(inp["conv"], inp["k5"])),
+        ("ring_attention", lambda: tdat.ring_attention(q, kk, v,
+                                                       causal=True)),
+        ("ulysses", lambda: tdat.ulysses_attention(q, kk, v, causal=True)),
+        ("kmeans", lambda: tdat.kmeans.kmeans(inp["km"], k, iters=iters,
+                                              seed=MH_SEED)),
+        ("int8", lambda: tdat.dmatmul_int8(inp["i8a"], inp["i8b"])),
+    ]
+
+
+# each leg's launches a process: (K10, K11) exchanges on the
+# cross_process_region route, and the other kernels
+MH_LEG_LAUNCHES = {
+    "spmd_pshift": {"all_gather": 1, "all_to_all": 0},
+    "dfft": {"all_gather": 0, "all_to_all": 2},
+    "dfft2": {"all_gather": 0, "all_to_all": 2},
+    "dsort_1e7": {"all_gather": 1, "all_to_all": 1},
+    "dsort_1e8": {"all_gather": 1, "all_to_all": 1},
+    "dconv2d_3": {"all_gather": 1, "all_to_all": 0},
+    "dconv2d_5": {"all_gather": 1, "all_to_all": 0},
+    "ring_attention": {"all_gather": 0, "all_to_all": 0, "ring_attention": 4,
+                       "cross_process_forward": 3},
+    "ulysses": {"all_gather": 0, "all_to_all": 4, "flash_attention": 1},
+    "kmeans": {"all_gather": 1 + MH_KM[3], "all_to_all": 0},
+    "int8": {"all_gather": 0, "all_to_all": 0, "matmul_int8": 1},
+}
+# the legs also run on the plain gloo route, held bit for bit
+MH_PLAIN_LEGS = ("spmd_pshift", "dfft", "dsort_1e7", "dconv2d_3", "ulysses",
+                 "kmeans")
+
+
+def _leg_counts(kbuild, want: dict) -> dict:
+    """This process's launches of the kernels in ``want`` since the last
+    reset (K10/K11 on the cross-process route, K9's forwards into a peer
+    process's slot)."""
+    lc, rc = kbuild.launch_counts(), kbuild.route_counts()
+    got = {}
+    for kname in want:
+        if kname == "cross_process_forward":
+            got[kname] = rc["ring_attention_forward"]["cross_process"]
+        else:
+            got[kname] = lc[kname]
+            if kname in ("all_gather", "all_to_all") and \
+                    rc[kname]["cross_process_region"] != lc[kname]:
+                got[kname + "_off_route"] = lc[kname] - \
+                    rc[kname]["cross_process_region"]
+    if "ring_attention" in want:
+        got["k9_compute"] = sum(rc["ring_attention"].values())
+    return got
+
+
+def _leg_digest(MH, value) -> dict:
+    """What the parent compares: the SHA-256 of a DArray's gathered value
+    (and its layout), of this process's rank tensors, or of the k-means
+    centroids."""
+    if isinstance(value, list):
+        return {"ranks": {str(i): _sha256(t) for i, t in enumerate(value)
+                          if t.device.type != "meta"}}
+    if isinstance(value, tuple):
+        return {"sha": _sha256(value[0]), "shifts": _sha256(
+            torch.from_numpy(np.asarray(value[1])))}
+    return {"sha": _sha256(MH._gather_tensor(value)),
+            "cuts": value.cuts, "pids": value.pids.tolist()}
+
+
+def _local_parts(value) -> list:
+    """This process's tensors of a leg's result, for the plain route's
+    comparison."""
+    if isinstance(value, list):
+        return [t for t in value if t.device.type != "meta"]
+    if isinstance(value, tuple):
+        return [value[0]]
+    return [t for t in value._parts.flat if t.device.type != "meta"]
+
+
+def multihost_legs(tdat, MH, CC, kbuild, A, proc: int) -> dict:
+    """The ops on the rank-list exchange across the processes (one process
+    of ``multihost_phase``), each at full width: its launches held, its
+    result's digest for the parent (which holds it against one process on
+    4 ranks), the plain gloo route's result held bit for bit where the
+    work is the same, no mapping left open, and its readings: the whole
+    call's host ms (its first call, then a warm one), the exchange's
+    launch alone and all four at once against their bytes, ring
+    attention's host ms a step."""
+    dev = tdat.layout.local_device()
+    inp = _leg_inputs(tdat, dev)
+    out = {}
+    exchange = MH.exchange
+    sync_hosts = MH.sync_hosts
+    for name, call in _leg_calls(tdat, A, inp):
+        t_leg = time.perf_counter()
+        want = MH_LEG_LAUNCHES[name]
+
+        def run(tag):
+            """One call of the leg, its launches counted alone: the value,
+            the host ms, its exchanges and ring attention's steps."""
+            rec, steps = [], []
+
+            def recording(sources, wants, kernel="all_gather",
+                          op="exchange"):
+                rec.append((sources, wants, kernel))
+                return exchange(sources, wants, kernel, op)
+
+            def stepping(tag="sync"):
+                if tag == "ring_attention_step":
+                    steps.append(time.perf_counter())
+                return sync_hosts(tag)
+            MH.sync_hosts(f"leg_{tag}_{name}")
+            torch.cuda.synchronize()
+            kbuild.reset_launches()
+            MH.exchange, MH.sync_hosts = recording, stepping
+            try:
+                t0 = time.perf_counter()
+                value = call()
+                torch.cuda.synchronize()
+                call_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                MH.exchange, MH.sync_hosts = exchange, sync_hosts
+            got = _leg_counts(kbuild, want)
+            if any(got.get(k) != v for k, v in want.items()) or \
+                    any(k.endswith("_off_route") for k in got):
+                raise AssertionError(f"{name} ({tag} call): launches {got}, "
+                                     f"expected {want}")
+            if name == "ring_attention" and not 1 <= got["k9_compute"] <= 4:
+                raise AssertionError(f"{name}: {got['k9_compute']} K9 "
+                                     "compute steps on one rank")
+            if CC.open_mappings():
+                raise AssertionError(f"{name} ({tag} call) left "
+                                     f"{CC.open_mappings()} peer mappings "
+                                     "open")
+            marks = [t0] + steps
+            return value, call_ms, got, rec, \
+                [(y - x) * 1e3 for x, y in zip(marks, marks[1:])]
+        free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+        value, first_ms, _, _, first_steps = run("first")
+        del value
+        value, call_ms, got, rec, step_ms = run("warm")
+        res = {"launches": got, "call_ms": call_ms, "first_call_ms": first_ms,
+               "open_after": CC.open_mappings(), "free_gib": free_gib}
+        if name == "ring_attention":
+            res["step_ms"], res["first_step_ms"] = step_ms, first_steps
+        res.update(_leg_digest(MH, value))
+        if name in MH_PLAIN_LEGS:
+            # the same call with every exchange on the gloo route
+            kernel_route = MH._kernel_route
+            MH._kernel_route = lambda: False
+            try:
+                plain = call()
+            finally:
+                MH._kernel_route = kernel_route
+            res["plain_equal"] = all(
+                _same_bits(a, b) for a, b in zip(_local_parts(value),
+                                                     _local_parts(plain)))
+            if not res["plain_equal"]:
+                raise AssertionError(f"{name}: the IPC route differs from "
+                                     "the plain gloo route")
+            del plain
+        if rec:
+            # the leg's largest exchange, timed alone and all four at once
+            def nbytes(r):
+                return sum(w[-1].numel() * w[-1].element_size()
+                           for w in r[1])
+            sources, wants, kernel = max(rec, key=nbytes)
+            _, launch, close = _region_launcher(
+                MH, CC, sources, wants, "leg_t_" + name, kernel)
+            res["kernel"] = kernel
+            # each byte a want fills is read once and written once
+            res["bytes"] = 2 * nbytes((sources, wants))
+            res["solo_ms"] = _solo_ms(MH, proc, launch, "leg_solo_" + name,
+                                      MH_LEG_REPS, MH_LEG_BATCH)
+            res["all_four"] = _all_four_ms(MH, launch, "leg_all_" + name,
+                                           MH_LEG_BATCH)
+            torch.cuda.synchronize()
+            MH.sync_hosts("leg_timed_" + name)
+            close()
+        del value, rec
+        res["s"] = time.perf_counter() - t_leg
+        out[name] = res
+    for v in inp.values():
+        for d in (v if isinstance(v, list) else [v]):
+            if isinstance(d, tdat.DArray):
+                d.close()
+    torch.cuda.empty_cache()
+    out["open_mappings_end"] = CC.open_mappings()
+    return out
+
+
+def _rel_fro(got, lib) -> float:
+    """``||got - lib|| / ||lib||`` in Frobenius norm, in double precision."""
+    wide = torch.complex128 if lib.is_complex() else torch.float64
+    lib = lib.to(wide)
+    return float(torch.linalg.vector_norm(got.to(wide) - lib)
+                 / torch.linalg.vector_norm(lib))
+
+
+def multihost_legs_reference(tdat, A) -> dict:
+    """The legs on one process's 4 ranks of the card: each result's digest,
+    and each held against its whole-array library call where one exists
+    (``torch.fft``, ``torch.sort``, ``F.conv2d``,
+    ``scaled_dot_product_attention``, the f32 product for the int8 GEMM)
+    at its stated tolerance."""
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False     # the port's convs' setting
+    dev = tdat.layout.local_device()
+    inp = _leg_inputs(tdat, dev)
+    ref = {}
+    for name, call in _leg_calls(tdat, A, inp):
+        value = call()
+        torch.cuda.synchronize()
+        if isinstance(value, list):
+            ref[name] = {"ranks": {str(i): _sha256(t)
+                                   for i, t in enumerate(value)}}
+            want = [A.localpart((i - 1) % MH_PROCS) for i in range(MH_PROCS)]
+            ref[name]["library_err"] = max(float((t - w).abs().max())
+                                           for t, w in zip(value, want))
+            ref[name]["library_tol"] = 0.0
+            if ref[name]["library_err"]:
+                raise AssertionError(f"{name}: one process on 4 ranks is not "
+                                     "the shifted blocks")
+            del value
+            continue
+        if isinstance(value, tuple):
+            ref[name] = {"sha": _sha256(value[0]), "shifts": _sha256(
+                torch.from_numpy(np.asarray(value[1]))),
+                "library_err": None}
+            del value
+            continue
+        whole = value.full()
+        ref[name] = {"sha": _sha256(whole), "cuts": value.cuts,
+                     "pids": value.pids.tolist()}
+        lib, tol = None, 0.0
+        if name == "dfft":
+            lib = torch.fft.fft(inp["fft"].full(), dim=0)
+            tol = MH_FFT_TOL
+        elif name == "dfft2":
+            lib = torch.fft.fft2(inp["fft"].full())
+            tol = MH_FFT_TOL
+        elif name.startswith("dsort"):
+            lib = torch.sort(inp["sort"][name == "dsort_1e8"].full()).values
+        elif name.startswith("dconv2d"):
+            kern = inp["k3" if name == "dconv2d_3" else "k5"].to(dev)
+            kh = kern.shape[0] // 2
+            lib = F.conv2d(inp["conv"].full()[None, None], kern[None, None],
+                           padding=kh)[0, 0]
+            tol = MH_CONV_TOL
+        elif name in ("ring_attention", "ulysses"):
+            q, kk, v = (x.full().transpose(0, 1) for x in inp["attn"])
+            lib = F.scaled_dot_product_attention(
+                q, kk, v, is_causal=True).transpose(0, 1)
+            tol = MH_ATTN_TOL
+        elif name == "int8":
+            lib = inp["i8a"].full() @ inp["i8b"]
+            tol = MH_I8_TOL
+        if lib is not None:
+            err = _rel_fro(whole, lib) if tol else \
+                float((whole.to(lib.dtype) - lib).abs().max().float())
+            ref[name]["library_err"] = err
+            ref[name]["library_tol"] = tol
+            if ref[name]["library_err"] > tol:
+                raise AssertionError(f"{name}: one process on 4 ranks is "
+                                     f"{ref[name]['library_err']} from the "
+                                     f"library call (tolerance {tol})")
+        del value, whole, lib
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def multihost_legs_row(res, ref) -> dict:
+    """Each leg's readings across the 4 processes beside its bounds: the
+    exchange's launch alone (this process's bytes) and all four at once
+    (all four's bytes), the whole call, ring attention's steps."""
+    rows = {}
+    for name in MH_LEG_LAUNCHES:
+        legs = [r["legs"][name] for r in res]
+        row = {"launches": [x["launches"] for x in legs],
+               "call_ms": [x["call_ms"] for x in legs],
+               "first_call_ms": [x["first_call_ms"] for x in legs],
+               # the card's free memory as each process entered the leg
+               "free_gib": [x["free_gib"] for x in legs],
+               "s": [x["s"] for x in legs],
+               "library_err": ref[name].get("library_err"),
+               "library_tol": ref[name].get("library_tol"),
+               "plain_equal": [x.get("plain_equal") for x in legs]}
+        if "bytes" in legs[0]:
+            row.update({
+                "kernel": legs[0]["kernel"],
+                "bytes": [x["bytes"] for x in legs],
+                "solo_ms": [x["solo_ms"] for x in legs],
+                "solo_bound_ms": [bound(x["bytes"], 0, F32_FLOPS)[0]
+                                  for x in legs],
+                "all_four_ms": max(x["all_four"]["ms"] for x in legs),
+                "all_four_barrier_ms": max(x["all_four"]["barrier_ms"]
+                                           for x in legs),
+                "all_four_bound_ms": bound(sum(x["bytes"] for x in legs), 0,
+                                           F32_FLOPS)[0]})
+        if name == "ring_attention":
+            S, H, D = MH_ATTN
+            row["step_ms"] = [x["step_ms"] for x in legs]
+            row["first_step_ms"] = [x["first_step_ms"] for x in legs]
+            # causal: half of the S^2 scores, 4 S^2 H D / 2 operations
+            row["bound_ms"] = bound(4 * S * H * D * 2, 2 * S * S * H * D,
+                                    BF16_FLOPS)[0]
+        rows[name] = row
+    return rows
+
+
+def _check_legs(res, ref) -> None:
+    """Every process's leg results against one process on 4 ranks: the
+    same digests (bit for bit) and layouts; a rank-list result rank by
+    rank."""
+    for r in res:
+        for name in MH_LEG_LAUNCHES:
+            got, want = r["legs"][name], ref[name]
+            if "ranks" in want:
+                for i, sha in got["ranks"].items():
+                    if sha != want["ranks"][i]:
+                        raise AssertionError(f"process {r['process']}: "
+                                             f"{name} rank {i} differs from "
+                                             "one process's")
+                continue
+            for k in ("sha", "shifts", "cuts", "pids"):
+                if k in want and got.get(k) != want[k]:
+                    raise AssertionError(f"process {r['process']}: {name} "
+                                         f"{k} differs from one process's")
+    # K9: 10 of the 16 causal steps accumulate, over the four processes
+    k9 = sum(r["legs"]["ring_attention"]["launches"]["k9_compute"]
+             for r in res)
+    if k9 != 10:
+        raise AssertionError(f"ring attention: {k9} K9 compute steps, not 10")
+
+
 def multihost_child(port: int, proc: int, out_dir: str) -> int:
     """One process of ``multihost_phase`` (``--multihost-child PORT P
     DIR``): joins the job on the store at ``localhost:PORT``, runs the
@@ -5423,6 +5846,8 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
 
     # 3b. the ops across the processes, each against one process's result
     res["ops"] = multihost_ops(tdat, MH, CC, kbuild, A, proc, out_dir)
+    # 3c. the ops on the rank-list exchange, each against one process's
+    res["legs"] = multihost_legs(tdat, MH, CC, kbuild, A, proc)
     A.close()
     torch.cuda.empty_cache()
 
@@ -5523,7 +5948,8 @@ def multihost_phase(tdat) -> dict:
     from distributedarrays_tpu_torch.utils import kbuild
     print(f"phase multihost ({MH_PROCS} processes on one card)")
     t_phase = time.perf_counter()
-    kbuild.build(["collectives"])
+    # K10/K11, and K9, K5 and K4 for the legs on the rank-list exchange
+    kbuild.build(["collectives", "attention", "gemm_int8"])
     # the single-process port on 4 ranks of the card: what the processes
     # must reproduce bit for bit
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5544,6 +5970,11 @@ def multihost_phase(tdat) -> dict:
         lambda: tdat.reshard.relayout_plain(A, pids, cuts)),
         "relayout_k11_ms": time_ms(
         lambda: tdat.reshard.reshard(A, pids, cuts))}
+    # the ops on the rank-list exchange in one process on 4 ranks
+    t_ref = time.perf_counter()
+    legs_ref = multihost_legs_reference(tdat, A)
+    print(f"multihost legs on one process: "
+          f"{time.perf_counter() - t_ref:.1f} s")
     tdat.d_closeall()
     del X, Y, Z, R
     # the ops across processes, in one process on 4 ranks: the GEMM's
@@ -5579,6 +6010,7 @@ def multihost_phase(tdat) -> dict:
         port = s.getsockname()[1]
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    parent_free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
     logs = [open(os.path.join(out_dir, f"child_{p}.log"), "w")
             for p in range(MH_PROCS)]
     t_job = time.perf_counter()
@@ -5628,6 +6060,11 @@ def multihost_phase(tdat) -> dict:
                                1e-5 * ops0["gemm_max_abs"]):
         raise AssertionError(f"the GEMM across processes differs from one "
                              f"process's by {ops0['gemm_max_abs_err']}")
+    _check_legs(res, legs_ref)
+    for r in res:
+        if r["legs"]["open_mappings_end"]:
+            raise AssertionError(f"process {r['process']} left peer "
+                                 "mappings open after the legs")
     last = MH_PROCS - 1
     for r in res[:last]:
         c = r["census"]
@@ -5681,10 +6118,21 @@ def multihost_phase(tdat) -> dict:
         "ckpt_save_s": [r["ckpt_save_s"] for r in res],
         "ckpt_load_s": [r["ckpt_load_s"] for r in res],
         "job_s": job_s, "phase_s": time.perf_counter() - t_phase,
+        "parent_free_gib": parent_free_gib,
         "trace": os.path.relpath(trace_path, root),
-        "region": multihost_region_row(res, one, gemm_equal)}
+        "region": multihost_region_row(res, one, gemm_equal),
+        "legs": multihost_legs_row(res, legs_ref)}
     print(json.dumps({"multihost": row, "gpu": gpu_name()}))
+    # each kernel's cross-process launches a process, leg by leg
+    kern = {"all_gather": {}, "all_to_all": {}, "ring_attention": {},
+            "flash_attention": {}, "matmul_int8": {}}
+    for name, leg in row["legs"].items():
+        for k in kern:
+            counts = [c.get(k, 0) for c in leg["launches"]]
+            if any(counts):
+                kern[k][name] = counts
     return {"launches": [r["launches"] for r in res], "row": row,
+            "legs_kernels": kern,
             "region_launches": [
                 r["launches"] + sum(r["ops"][k]["region"] for k in (
                     "gemm_launches", "relayout_launches", "djit_launches"))
@@ -6186,6 +6634,10 @@ def main() -> int:
             kern["multihost_launches"] = mh["launches"]
             kern["multihost_region_launches"] = mh["region_launches"]
             kern["multihost"] = mh["row"]
+        if name in mh["legs_kernels"]:
+            # the cross-process legs' launches a process (K4, K5, K9, K10,
+            # K11), leg by leg; readings in the multihost row's "legs"
+            kern["multihost_legs_launches"] = mh["legs_kernels"][name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

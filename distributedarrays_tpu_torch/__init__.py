@@ -91,7 +91,8 @@ from .parallel import collectives, reshard, spmd_mode
 from .parallel.collectives import (axis_rank, axis_size, halo_exchange,
                                    halo_exchange_2d, pall_to_all, pbarrier,
                                    pbcast, pgather, preduce, pshift,
-                                   psum_scatter, run_spmd, spmd_mesh)
+                                   pshifts, psum_scatter, run_spmd,
+                                   spmd_mesh)
 from .parallel.spmd_mode import (SPMDContext, barrier, bcast, close_context,
                                  context, context_local_storage, gather_spmd,
                                  myid, nprocs, recvfrom, recvfrom_any,
@@ -142,7 +143,8 @@ __all__ = [
     "dzeros", "dones", "dfill", "drand", "drandn", "drandint", "dsample",
     "distribute", "copyto_", "dcat", "dfetch", "isassigned", "gather",
     "localpart", "localindices", "makelocal", "seed",
-    "halo_exchange", "halo_exchange_2d", "pshift", "pgather", "preduce",
+    "halo_exchange", "halo_exchange_2d", "pshift", "pshifts", "pgather",
+    "preduce",
     "pall_to_all", "psum_scatter", "pbarrier", "pbcast", "axis_rank",
     "axis_size", "spmd_mesh", "run_spmd",
     "spmd", "spmd_async", "sendto", "recvfrom", "recvfrom_any", "barrier",

@@ -15,6 +15,13 @@ row of the pid grid; a block split over columns is first joined there):
 Lloyd runs ``iters`` fixed steps with no early exit (JAX's ``lax.scan``).
 The k-means++ seeding is JAX's numpy code call for call over the same
 sample rows, so one ``seed`` gives a bit-equal ``C0`` in both packages.
+
+In a job of several controller processes each process works on the row
+blocks it owns (another process's are placeholders), the sample rows of
+the seeding come from their owners by one cross-process ``pgather``, and
+``preduce`` folds the sums and counts in rank order on every process, so
+every process returns the same centroids, bit-equal to one process on
+the same ranks.  Each process must own a row block.
 """
 
 from __future__ import annotations
@@ -23,10 +30,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..darray import (DArray, cross_process_unported, darray_from_cuts,
-                      from_chunks)
+from .. import layout as L
+from ..darray import DArray, darray_from_cuts, from_chunks
 from ..layout import defaultdist_1d, device_of
-from ..parallel.collectives import preduce
+from ..parallel import multihost
+from ..parallel.collectives import pgather, preduce
 
 __all__ = ["kmeans", "assign"]
 
@@ -40,14 +48,17 @@ def _nearest(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 
 def _row_blocks(d: DArray) -> list[tuple[int, torch.Tensor]]:
     """``(owner, rows)`` per row block of ``d``: the owner's own tensor when
-    the grid has one column, else the block's columns joined on it."""
-    cross_process_unported("k-means", d)
+    the grid has one column, else the block's columns joined on it (one
+    ``fetch_regions`` call; in a job another process's blocks are
+    placeholders)."""
+    d._check_open()
     owners = [int(p) for p in d.pids.reshape(d.pids.shape[0], -1)[:, 0]]
     if d.pids.shape[1] == 1:
         return [(p, d._parts[i, 0]) for i, p in enumerate(owners)]
     c = d.cuts[0]
-    return [(p, d.region(((c[i], c[i + 1]), (0, d.dims[1])), device_of(p)))
-            for i, p in enumerate(owners)]
+    return list(zip(owners, multihost.fetch_regions(
+        [(d, ((c[i], c[i + 1]), (0, d.dims[1])), device_of(p))
+         for i, p in enumerate(owners)])))
 
 
 def _lloyd_step(blocks, C, k: int):
@@ -60,7 +71,8 @@ def _lloyd_step(blocks, C, k: int):
         onehot = F.one_hot(a, k).to(X.dtype)
         parts.append(torch.cat([onehot.T @ X,
                                 torch.sum(onehot, dim=0)[:, None]], 1))
-    acc = preduce(parts)[0].to(C.device)
+    acc = next(t for t in preduce(parts) if t.device.type != "meta") \
+        .to(C.device)
     sums, counts = acc[:, :-1], acc[:, -1:]
     C_new = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0), C)
     return C_new, torch.sum((C_new - C) ** 2)
@@ -68,7 +80,8 @@ def _lloyd_step(blocks, C, k: int):
 
 def kmeans(d: DArray, k: int, iters: int = 20, seed: int = 0):
     """Lloyd's algorithm on an ``(n, dim)`` DArray: ``(centroids (k, dim)
-    tensor on rank 0's device, shifts per iteration as numpy)``.  The
+    tensor on rank 0's device (in a job, on this process's device), shifts
+    per iteration as numpy)``.  The
     initial centroids are k-means++ picks from a sample of at most 4096
     rows drawn by ``seed``."""
     if d.ndim != 2:
@@ -77,6 +90,12 @@ def kmeans(d: DArray, k: int, iters: int = 20, seed: int = 0):
     if not (0 < k <= n):
         raise ValueError(f"need 0 < k <= n, got k={k}, n={n}")
     home = device_of(0)
+    if home.type == "meta":
+        home = L.local_device()
+    if multihost.in_job() and not any(
+            L.is_local(int(p)) for p in d.pids[:, 0]):
+        raise ValueError("k-means in a job needs a row block of the DArray "
+                         "on every process")
     C = torch.from_numpy(_kmeanspp_init(d, k, seed)).to(home, d.dtype)
     blocks = _row_blocks(d)
     shifts = []
@@ -90,16 +109,18 @@ def kmeans(d: DArray, k: int, iters: int = 20, seed: int = 0):
 
 def _sample_rows(d: DArray, sel: np.ndarray) -> np.ndarray:
     """Rows ``sel`` (sorted) of ``d`` as float32 numpy, read from the row
-    blocks that hold them (JAX: ``d.garray[sel]``)."""
+    blocks that hold them (JAX: ``d.garray[sel]``) by one ``pgather``, so
+    that in a job every process gets every owner's rows."""
     c = d.cuts[0]
-    out = []
+    rows = []
     for i, (_, X) in enumerate(_row_blocks(d)):
         lo, hi = np.searchsorted(sel, [c[i], c[i + 1]])
-        if hi > lo:
-            idx = torch.from_numpy(sel[lo:hi] - c[i]).to(X.device)
-            out.append(X.index_select(0, idx).float().cpu().numpy())
-    return np.concatenate(out) if out else \
-        np.zeros((0, d.dims[1]), np.float32)
+        idx = torch.from_numpy(sel[lo:hi] - c[i]).to(X.device)
+        rows.append(X.index_select(0, idx).float())
+    # each owner's rows to every rank (in a job, every process), in block
+    # order
+    whole = next(t for t in pgather(rows) if t.device.type != "meta")
+    return whole.cpu().numpy()
 
 
 def _kmeanspp_init(d: DArray, k: int, seed: int) -> np.ndarray:

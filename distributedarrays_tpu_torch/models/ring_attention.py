@@ -48,6 +48,19 @@ o), and the K/V blocks move one rank to the right between steps.
   the decode service's prefill entry; ``reference_attention`` is the dense
   numpy oracle.
 
+In a job of several controller processes (``parallel.multihost``)
+another process's blocks are ``meta`` placeholders.  ``ring_attention``
+runs K9 on each process's own ranks (``_ring_rdma_job``): each process
+publishes the CUDA IPC handles of its ranks' two-slot K/V buffers once a
+call, maps its right neighbour's when that rank is another process's,
+and passes the mapped slot's address as the step's forward target; the
+steps are ordered across processes by a stream sync and a store barrier
+after each (``multihost.sync_hosts``), and the mappings close before the
+call's closing barrier.  Off the card the plain ring runs on the
+cross-process ``pshifts``.  The flash rings (``ring_flash_attention``,
+the zigzag rings) stay within one process and raise the typed
+``NotImplementedError`` in a job (ROADMAP queue A).
+
 Two behaviours of the JAX package are not carried over.  Its
 ``ring_attention`` falls back from the RDMA kernel to the XLA ring when
 the kernel raises (``try``/``except``), and ``ring_attention_rdma_kernel``
@@ -73,8 +86,11 @@ from ..ops.cuda_attention import (MAX_HEAD_DIM, flash_attention_hop,
                                   flash_attention_hop_bwd,
                                   flash_carry_finalize, flash_carry_init,
                                   ring_attn_step)
+from ..ops import cuda_collectives as CC
 from ..ops.cuda_collectives import _Order
-from ..parallel.collectives import pshift
+from ..parallel import multihost
+from ..parallel.collectives import pshift, pshifts
+from ..utils import kbuild
 from ..parallel.reshard import relayout_parts
 
 __all__ = ["ring_attention", "ring_attention_kernel", "ring_attention_rdma",
@@ -194,7 +210,7 @@ def ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
             m[r], l[r], o[r] = _online_accumulate(m[r], l[r], o[r], qf[r],
                                                   kc[r], vc[r], mask)
         if step < p - 1:
-            kc, vc = pshift(kc, 1), pshift(vc, 1)
+            kc, vc = pshifts([kc, vc], 1)
     outs = []
     for q, lr, orr in zip(q_blocks, l, o):
         lr = torch.where(lr == 0.0, 1.0, lr)
@@ -216,7 +232,8 @@ def ring_attention_rdma(q_blocks: Sequence[torch.Tensor],
                                                       v_blocks))
     p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
     every = q_blocks + k_blocks + v_blocks
-    kinds = {t.device.type for t in every}
+    # in a job another process's blocks are placeholders
+    kinds = {t.device.type for t in every} - {"meta"}
     if kinds == {"cpu"}:
         return ring_attention_kernel(q_blocks, k_blocks, v_blocks, causal,
                                      scale)
@@ -237,6 +254,8 @@ def ring_attention_rdma(q_blocks: Sequence[torch.Tensor],
         raise ValueError(f"the ring attention kernel takes head dims up to "
                          f"{MAX_HEAD_DIM}, got {dh}")
     sc = 1.0 / math.sqrt(dh) if scale is None else float(scale)
+    if multihost.in_job():
+        return _ring_rdma_job(q_blocks, k_blocks, v_blocks, causal, sc)
     devs = [q.device for q in q_blocks]
     order = _Order(devs)
     outs = [torch.empty_like(q) for q in q_blocks]
@@ -264,10 +283,86 @@ def ring_attention_rdma(q_blocks: Sequence[torch.Tensor],
     return outs
 
 
+class _Peer:
+    """A forward slot in another controller process's memory, mapped into
+    this one: its device address, all ``ring_attn_step`` reads of it."""
+
+    def __init__(self, ptr: int):
+        self.ptr = ptr
+
+    def data_ptr(self) -> int:
+        return self.ptr
+
+
+def _ring_rdma_job(q_blocks, k_blocks, v_blocks, causal: bool,
+                   sc: float) -> list[torch.Tensor]:
+    """K9's ring in a job of several controller processes, each launching
+    the steps of its own ranks (another process's blocks are placeholders,
+    and so are their outputs).  Each process allocates its ranks' two-slot
+    K/V buffers and publishes their CUDA IPC handles once a call (through
+    the job's store); a rank whose right neighbour belongs to another
+    process forwards into that neighbour's slot through the mapping, a
+    pointer passed to ``ring_attn_step`` as its ``fk``/``fv``.  The step
+    order across processes is a stream sync and a store barrier after
+    each step (``multihost.sync_hosts``): no rank reads a slot before its
+    left neighbour's previous step has written it, nor overwrites one its
+    right neighbour still reads.  The mappings close after the last step's
+    sync and before the call's closing barrier."""
+    p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
+    dtype = q_blocks[0].dtype
+    mine = [r for r in range(p) if q_blocks[r].device.type != "meta"]
+    devs = {q_blocks[r].device for r in mine}
+    outs = [torch.empty_like(q) for q in q_blocks]
+    carry = {r: tuple(torch.empty(s, device=q_blocks[r].device)
+                      for s in ((h, b), (h, b), (h, b, dh))) for r in mine}
+    bufs = {r: torch.empty((2, 2, b, h, dh), dtype=dtype,
+                           device=q_blocks[r].device) for r in mine}
+    slot = b * h * dh * q_blocks[0].element_size()    # bytes of one K or V
+    for dev in devs:
+        torch.cuda.synchronize(dev)          # buffers allocated
+    handles = {}
+    for r in mine:
+        if p > 1:
+            hd, off = CC.ipc_handle(bufs[r])
+            handles[str(r)] = [hd.hex(), off]
+    every = {int(r): v for part in multihost._all_gather_json(
+        "ring_attention", handles) for r, v in part.items()}
+    mapped = CC._Mapped(L.local_device())
+    try:
+        def forward_slots(r: int, s: int):
+            right = (r + 1) % p
+            if right in bufs:
+                return tuple(bufs[right][s])
+            hd, off = every[right]
+            base = mapped.base(bytes.fromhex(hd)) + int(off) + 2 * s * slot
+            return _Peer(base), _Peer(base + slot)
+        for t in range(p):
+            for r in mine:
+                kc, vc = ((k_blocks[r], v_blocks[r]) if t == 0
+                          else tuple(bufs[r][t % 2]))
+                fk, fv = (forward_slots(r, (t + 1) % 2) if t < p - 1
+                          else (None, None))
+                src, compute = ring_step_plan(p, b, r, t, causal)
+                ring_attn_step(q_blocks[r], kc, vc, outs[r], *carry[r], fk,
+                               fv, r * b, src * b, causal, t == 0,
+                               t == p - 1, sc, compute)
+                if isinstance(fk, _Peer):
+                    kbuild.count_route("ring_attention_forward",
+                                       "cross_process")
+            for dev in devs:
+                torch.cuda.synchronize(dev)
+            if t < p - 1:
+                multihost.sync_hosts("ring_attention_step")
+    finally:
+        mapped.close()
+    multihost.sync_hosts("ring_attention")
+    return outs
+
+
 def _seq_blocks(q: DArray, k: DArray, v: DArray):
     """Validate sequence-sharded (seq, heads, d) DArrays over a 1-D grid
-    and return their rank blocks (k and v brought onto q's layout)."""
-    cross_process_unported("ring attention", q, k, v)
+    and return their rank blocks (k and v brought onto q's layout; in a
+    job another process's blocks are placeholders)."""
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.ndim != 3:
             raise ValueError(f"{name} must be (seq, heads, head_dim), "
@@ -427,6 +522,7 @@ def ring_flash_attention(q: DArray, k: DArray, v: DArray,
     """Exact attention over sequence-sharded (seq, heads, d) DArrays as p
     flash hops per rank (K8 on CUDA ranks) with the (m, l, acc) carry
     resident and the K/V blocks rotating by ``pshift``."""
+    cross_process_unported("the flash ring attention", q, k, v)
     qb, kb, vb = _seq_blocks(q, k, v)
     return _like(q, ring_flash_attention_kernel(qb, kb, vb, causal))
 
@@ -567,6 +663,7 @@ def zigzag_ring_flash_attention_kernel(q_blocks: Sequence[torch.Tensor],
 def _zigzag_blocks(q: DArray, k: DArray, v: DArray):
     """Validate zigzag-ordered sequence-sharded DArrays (the sequence
     divisible by twice the rank count) and return their rank blocks."""
+    cross_process_unported("the zigzag ring attention", q, k, v)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.ndim != 3:
             raise ValueError(f"{name} must be (seq, heads, head_dim), "

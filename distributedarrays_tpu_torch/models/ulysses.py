@@ -8,6 +8,11 @@ attention for its heads (flash attention K5, or the plain dense attention
 with ``use_flash=False``), and a second all-to-all restores sequence
 sharding.  The JAX function's flash block and head-fold lookups choose TPU
 tiling knobs only and have no counterpart (see ``ops/cuda_attention``).
+
+In a job of several controller processes both all-to-alls are their
+cross-process form (one exchange each, a copy launch a process on the
+card, counted as K11) and each process runs K5 on its own ranks' heads;
+the result's other cells are placeholders.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ import math
 
 import numpy as np
 
-from ..darray import DArray, cross_process_unported
+import torch
+
+from ..darray import DArray
 from ..ops.cuda_attention import flash_attention, flash_attention_plain
 from ..ops.cuda_collectives import ring_all_to_all
 from ..parallel.reshard import relayout_parts
@@ -30,7 +37,6 @@ def ulysses_attention(q: DArray, k: DArray, v: DArray,
     """Exact attention over sequence-sharded (seq, heads, d) DArrays via a
     head-scatter all-to-all; heads must divide by the rank count.  The
     result has q's layout."""
-    cross_process_unported("Ulysses attention", q, k, v)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.ndim != 3:
             raise ValueError(f"{name} must be (seq, heads, head_dim), "
@@ -50,7 +56,9 @@ def ulysses_attention(q: DArray, k: DArray, v: DArray,
     # (S/P, H, D) -> (S, H/P, D): gather the sequence, scatter the heads
     heads = [ring_all_to_all([relayout_parts(a, q.pids, q.cuts)[r, 0, 0]
                               for r in range(n)], 1, 0) for a in (q, k, v)]
-    oh = [attend(qh, kh, vh, causal, scale) for qh, kh, vh in zip(*heads)]
+    # another process's ranks (a job) are placeholders of q's shape
+    oh = [torch.empty_like(qh) if qh.device.type == "meta" else
+          attend(qh, kh, vh, causal, scale) for qh, kh, vh in zip(*heads)]
     # (S, H/P, D) -> (S/P, H, D): scatter the sequence, gather the heads
     outs = ring_all_to_all(oh, 0, 1)
     parts = np.empty(q.grid, dtype=object)

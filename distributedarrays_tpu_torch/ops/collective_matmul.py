@@ -3,8 +3,8 @@ GEMMs and the tensor-parallel FFN built on two of them, Cannon, SUMMA and
 Cannon with int8 panels.
 
 PyTorch counterpart of ``allgather_matmul``, ``allgather_matmul_rhs``,
-``matmul_reducescatter``, ``tp_ffn``, ``_cannon_skew_perms``,
-``cannon_matmul``, ``summa_matmul`` and ``cannon_matmul_int8`` in
+``matmul_reducescatter``, ``tp_ffn``, ``cannon_matmul``, ``summa_matmul``
+and ``cannon_matmul_int8`` in
 ``distributedarrays_tpu/ops/collective_matmul.py``.  There each schedule
 runs inside a ``shard_map`` with mesh axes; here it takes the ranks'
 blocks as a list (a 2-D grid flattened row-major, rank ``(i, j)`` at
@@ -43,7 +43,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import pshift
+from ..parallel.collectives import pshifts
 from .cuda_collectives import (ring_allgather_matmul,
                                ring_allgather_matmul_rhs,
                                ring_matmul_reducescatter)
@@ -55,38 +55,29 @@ __all__ = ["allgather_matmul", "allgather_matmul_rhs",
            "summa_matmul", "cannon_matmul_int8"]
 
 
-def _cannon_skew_perms(g: int):
-    """The two pre-skew permutations over the flattened (row, col) grid, as
-    ``(source, destination)`` pairs: A's row ``i`` rotates left by ``i``, B's
-    column ``j`` up by ``j``, leaving rank ``(i, j)`` with contraction panel
-    ``t = (i + j) % g`` of each operand."""
-    perm_a = [(i * g + j, i * g + (j - i) % g)
-              for i in range(g) for j in range(g)]
-    perm_b = [(i * g + j, ((i - j) % g) * g + j)
-              for i in range(g) for j in range(g)]
-    return perm_a, perm_b
-
-
-def _permute(blocks: Sequence[torch.Tensor], perm) -> list[torch.Tensor]:
-    """``out[dst] = blocks[src]`` on the destination's device."""
-    out = list(blocks)
-    for src, dst in perm:
-        out[dst] = blocks[src].to(blocks[dst].device)
-    return out
-
-
-def _shift(blocks: Sequence[torch.Tensor], rows: int, cols: int, axis: int,
-           shift: int) -> list[torch.Tensor]:
-    """``pshift`` along one axis of a (rows, cols) grid: the rings are the
-    grid's rows (axis 1) or columns (axis 0)."""
-    out = list(blocks)
-    if axis == 1:
-        lines = [[i * cols + j for j in range(cols)] for i in range(rows)]
-    else:
-        lines = [[i * cols + j for i in range(rows)] for j in range(cols)]
-    for idx in lines:
-        for q, x in zip(idx, pshift([blocks[q] for q in idx], shift)):
-            out[q] = x
+def _rotate(groups, g: int) -> list[list[torch.Tensor]]:
+    """Each ``(blocks, axis, shifts)`` of ``groups`` (the g x g grid's
+    blocks in row-major order) with line ``i`` of ``axis`` (the grid's
+    rows for axis 1, columns for axis 0) shifted by ``shifts[i]``
+    (``pshift``'s sense): every line of every group in one ``pshifts``,
+    so in a job one exchange moves them all.  Cannon's skew (JAX
+    ``_cannon_skew_perms``) is line ``i`` shifted by ``-i``, its hop every
+    line by ``-1``."""
+    lines, where = [], []
+    for blocks, axis, shifts in groups:
+        for i, s in enumerate(shifts):
+            idx = [i * g + j if axis == 1 else j * g + i for j in range(g)]
+            lines.append([blocks[q] for q in idx])
+            where.append(idx)
+    got = pshifts(lines, [s for _, _, sh in groups for s in sh])
+    out, k = [], 0
+    for blocks, _, shifts in groups:
+        res = list(blocks)
+        for _ in shifts:
+            for q, x in zip(where[k], got[k]):
+                res[q] = x
+            k += 1
+        out.append(res)
     return out
 
 
@@ -222,12 +213,14 @@ def cannon_matmul(a_blocks: Sequence[torch.Tensor],
 
     if g == 1:
         return [step(a_blocks[0], b_blocks[0])]
-    perm_a, perm_b = _cannon_skew_perms(g)
-    a, b = _permute(a_blocks, perm_a), _permute(b_blocks, perm_b)
+    # A's row i rotates left by i, B's column j up by j (the skew)
+    skew = [-i for i in range(g)]
+    a, b = _rotate([(a_blocks, 1, skew), (b_blocks, 0, skew)], g)
     acc = [step(x, y) for x, y in zip(a, b)]
+    hop = [-1] * g
     for _ in range(1, g):
-        a = _shift(a, g, g, axis=1, shift=-1)   # fetch grid column j+1's
-        b = _shift(b, g, g, axis=0, shift=-1)   # fetch grid row i+1's
+        # A from grid column j+1, B from grid row i+1
+        a, b = _rotate([(a, 1, hop), (b, 0, hop)], g)
         acc = [s + step(x, y) for s, x, y in zip(acc, a, b)]
     return acc
 
@@ -277,7 +270,10 @@ def cannon_matmul_int8(a_blocks: Sequence[torch.Tensor],
     once (per-row A / per-column B codes and scales), codes and scales ride
     the skew and the hops, every hop runs the int8 GEMM (exact int32 sums,
     fused dequantization) and the hops' f32 products are summed in hop
-    order.  Square grids only."""
+    order.  Square grids only.  The skew and each hop move the codes and
+    scales of both operands as one ``_rotate`` (in a job of several
+    controller processes, one exchange; another process's ranks are
+    placeholders, whose products are placeholders)."""
     if len(a_blocks) != g * g or len(b_blocks) != g * g:
         raise ValueError(f"cannon_matmul_int8 needs {g}x{g} blocks per "
                          "operand")
@@ -285,16 +281,18 @@ def cannon_matmul_int8(a_blocks: Sequence[torch.Tensor],
         return [quantized_matmul(a_blocks[0], b_blocks[0], out_dtype)]
     qa, sa = zip(*[quantize_rows(a, 1) for a in a_blocks])
     qb, sb = zip(*[quantize_rows(b, 0) for b in b_blocks])
-    perm_a, perm_b = _cannon_skew_perms(g)
-    qa, sa = _permute(qa, perm_a), _permute(sa, perm_a)
-    qb, sb = _permute(qb, perm_b), _permute(sb, perm_b)
+    # A's row i rotates left by i, B's column j up by j (the skew)
+    skew = [-i for i in range(g)]
+    qa, sa, qb, sb = _rotate([(qa, 1, skew), (sa, 1, skew), (qb, 0, skew),
+                              (sb, 0, skew)], g)
 
     def step(x):
         return cuda_matmul_int8(qa[x], qb[x], sa[x], sb[x], torch.float32)
 
     acc = [step(x) for x in range(g * g)]
+    hop = [-1] * g
     for _ in range(1, g):
-        qa, sa = (_shift(t, g, g, axis=1, shift=-1) for t in (qa, sa))
-        qb, sb = (_shift(t, g, g, axis=0, shift=-1) for t in (qb, sb))
+        qa, sa, qb, sb = _rotate([(qa, 1, hop), (sa, 1, hop), (qb, 0, hop),
+                                  (sb, 0, hop)], g)
         acc = [acc[x] + step(x) for x in range(g * g)]
     return [x.to(out_dtype) for x in acc]

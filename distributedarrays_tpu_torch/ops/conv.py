@@ -24,6 +24,11 @@ block; anything else warns once, gathers the array onto its home device
 (the first rank's) and convolves it there, as JAX gathers and convolves on
 its default device.  float32 convs run with TF32 off, as the JAX CPU
 reference computes.
+
+In a job of several controller processes the halo exchange is the
+cross-process ``halo_exchange`` (one exchange a phase, zeros at the
+global edges) and each process convolves its own ranks' blocks; the
+other cells of the result are placeholders.
 """
 
 from __future__ import annotations
@@ -32,9 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..darray import (DArray, as_tensor, cross_process_unported,
-                      darray_from_cuts, from_global)
-from ..parallel.collectives import halo_exchange
+from ..darray import DArray, as_tensor, darray_from_cuts, from_global
+from ..parallel.collectives import _halo_lines
 from ..utils.debug import warn_once
 from .broadcast import result_dtype
 from .mapreduce import _even_shared_layout
@@ -57,6 +61,8 @@ def _dense_conv(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """The SAME zero-padded conv of a whole ``(H, W)`` or ``(N, H, W, C)``
     tensor (JAX ``_dense_conv``), on ``x``'s device."""
     acc = result_dtype(x, k, torch.empty((), dtype=torch.float32))
+    # read on the kernel's own device: x may be a placeholder in a job
+    kimag = acc.is_complex and bool(k.to(acc).imag.any())
     k = k.to(x.device)
     if x.ndim == 2:
         xi, w = x[None, None], k[None, None]
@@ -71,7 +77,7 @@ def _dense_conv(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         wr, wim = wc.real.to(real), wc.imag.to(real)
         re = _conv_real(xr, wr, pads)
         im = _conv_real(xim, wr, pads)
-        if wim.any():
+        if kimag:
             re = re - _conv_real(xim, wim, pads)
             im = im + _conv_real(xr, wim, pads)
         out = torch.complex(re, im)
@@ -83,16 +89,18 @@ def _dense_conv(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def _exchange(blocks: dict, grid, gdim: int, halo: int) -> dict:
     """Every cell's block extended by ``halo`` slabs of its neighbours
-    along grid dim ``gdim`` (the same array dim), zeros at the edges: one
-    ``halo_exchange`` along each line of cells of that dim."""
+    along grid dim ``gdim`` (the same array dim), zeros at the edges: a
+    ``halo_exchange`` along each line of cells of that dim (in a job, one
+    exchange for all the lines)."""
     out = {}
     lines: dict = {}
     for ci in np.ndindex(*grid):
         lines.setdefault(ci[:gdim] + ci[gdim + 1:], []).append(ci)
-    for cells in lines.values():
-        got = halo_exchange([blocks[ci] for ci in cells], halo=halo,
-                            dim=gdim, wrap=False)
-        for ci, (lo, hi) in zip(cells, got):
+    lines = list(lines.values())
+    got = _halo_lines([[blocks[ci] for ci in cells] for cells in lines],
+                      halo, gdim, False)
+    for cells, pairs in zip(lines, got):
+        for ci, (lo, hi) in zip(cells, pairs):
             out[ci] = torch.cat([lo, blocks[ci], hi], dim=gdim)
     return out
 
@@ -103,7 +111,6 @@ def dconv2d(d: DArray, kernel) -> DArray:
     and dims, with Cout for C in the NHWC case."""
     if not isinstance(d, DArray):
         raise TypeError(f"expected DArray, got {type(d).__name__}")
-    cross_process_unported("dconv2d", d)
     k = as_tensor(kernel)
     if d.ndim == 2:
         if k.ndim != 2:
@@ -132,7 +139,8 @@ def dconv2d(d: DArray, kernel) -> DArray:
                 and (p == 1 or d.dims[hdim] // p >= hh)
                 and (pw == 1 or d.dims[wdim] // pw >= hw))
     if eligible:
-        blocks = {ci: d.part(ci) for ci in d.cells()}
+        # in a job another process's cells are placeholders: shapes only
+        blocks = {ci: d._parts[ci] for ci in d.cells()}
         if p > 1 and hh:
             blocks = _exchange(blocks, grid, hdim, hh)
         if pw > 1 and hw:

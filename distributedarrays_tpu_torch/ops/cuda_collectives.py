@@ -31,26 +31,32 @@ not used.
   each rank keeping a window of its output; the planner's ``_chain_jit``
   steps (``distributedarrays_tpu/parallel/reshard.py:915``).
 
-- ``process_regions(arrays, wants, all_gather_json, barrier)``: K10's
-  copy across controller processes, the GPU form of JAX's cross-process
-  collectives over process-spanning arrays (its replication program and
-  ``process_allgather``, ``parallel/multihost.py:339-382``, and the
-  resharding XLA runs over the DCN mesh).  Every process of a
-  multi-process job calls it once an op, with the same process-spanning
-  DArrays ``arrays`` and its own list of wants: a global box of one of
-  them and the tensor on its card to fill (``parallel.multihost
-  .fetch_regions`` builds both).  Each want is cut at the source chunks'
-  cuts; a local chunk is read through its own pointer, a peer process's
-  through the CUDA IPC mapping of its allocation plus the offset and
-  strides the peer published (handles exchanged through the job's store),
-  and the whole list runs as one copy launch on this process's card
-  (``copy_launches`` splits a list above ``copy_maxp()`` copies).  Two
-  barriers order it: every process's chunks are written (a stream sync)
-  before any peer reads them, and no process frees or rewrites a chunk
+- ``process_regions(arrays, wants, all_gather_json, barrier, kernel)``:
+  the copy kernel across controller processes, the GPU form of JAX's
+  cross-process collectives (its replication program and
+  ``process_allgather``, ``parallel/multihost.py:339-382``, the
+  resharding XLA runs over the DCN mesh, and the ``shard_map``
+  collectives over a process-spanning mesh).  Every process of a
+  multi-process job calls it once an op, with the same sources
+  ``arrays`` (process-spanning DArrays, and rank lists: one tensor a
+  rank, another process's a ``meta`` placeholder) and its own list of
+  wants: a global box of a DArray, or a box of one rank's tensor of a
+  rank list, and the tensor on its card to fill (``parallel.multihost
+  .exchange`` and ``fetch_regions`` build them; the rank-list
+  collectives of ``parallel.collectives`` and ``ring_all_to_all(v)``
+  in a job are such calls).  Each want is cut at the source chunks'
+  cuts; a tensor this process holds is read through its own pointer, a
+  peer process's through the CUDA IPC mapping of its allocation plus the
+  offset and strides the peer published (handles exchanged through the
+  job's store; a rank list's owners are the processes that publish its
+  tensors), and the whole list runs as one copy launch on this process's
+  card (``copy_launches`` splits a list above ``copy_maxp()`` copies).
+  Two barriers order it: every process's tensors are written (a stream
+  sync) before any peer reads them, and no process frees or rewrites one
   before every peer has read it (a sync after the launch, then a
   barrier).  A handle that will not open, or a launch that fails,
-  raises.  Counted as ``all_gather`` on the ``cross_process_region``
-  route.  ``process_regions_plain(arrays, wants, group)`` is its plain
+  raises.  Counted as ``kernel`` (``all_gather``, K10, or
+  ``all_to_all``, K11) on the ``cross_process_region`` route.  ``process_regions_plain(arrays, wants, group)`` is its plain
   version over the job's gloo group: the wants all-gathered as metadata,
   then one host message from each holder to each wanting process
   (``isend``/``irecv``; gloo has no all-to-all).
@@ -136,6 +142,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
+from ..parallel import multihost
 from ..parallel.collectives import pall_to_all, pgather, pshift, psum_scatter
 from ..utils import kbuild
 
@@ -497,12 +504,15 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
                     concat_dim: int) -> list[torch.Tensor]:
     """Rank ``q`` gets piece ``q`` of every rank's block (split along
     ``split_dim``), concatenated along ``concat_dim`` in rank order: the
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.  In a
+    job of several controller processes it is ``pall_to_all``'s
+    cross-process form: one exchange, a copy launch a process on the card
+    (counted as ``all_to_all`` on the ``cross_process_region`` route)."""
     blocks = list(blocks)
     p = len(blocks)
     if not blocks:
         return []
-    if not _on_cuda(blocks):
+    if multihost.in_job() or not _on_cuda(blocks):
         return all_to_all_plain(blocks, split_dim, concat_dim)
     ref = blocks[0]
     split_dim, concat_dim = split_dim % ref.ndim, concat_dim % ref.ndim
@@ -565,11 +575,17 @@ def ring_all_to_allv(arrays, counts) -> list[list[torch.Tensor]]:
     kernel, counted as ``all_to_all``; at most ``copy_maxp()`` pieces a
     launch),
     each read once and stored at its final offset; the plain version for
-    CPU tensors."""
+    CPU tensors.  In a job of several controller processes every process
+    passes the whole ``counts`` (exchanged first) and fills its own
+    ranks' outputs by one exchange, a copy launch a process on the card
+    (``multihost.exchange``, counted as ``all_to_all`` on the
+    ``cross_process_region`` route)."""
     arrays = [list(a) for a in arrays]
     flat = [b for a in arrays for b in a]
     if not flat:
         return []
+    if multihost.in_job():
+        return _all_to_allv_job(arrays, counts)
     if not _on_cuda(flat):
         return all_to_allv_plain(arrays, counts)
     p = len(counts)
@@ -610,6 +626,33 @@ def ring_all_to_allv(arrays, counts) -> list[list[torch.Tensor]]:
         done.append(order.mark(dev))
     for dev in devs:
         order.wait(dev, done)
+    return outs
+
+
+def _all_to_allv_job(arrays, counts) -> list[list[torch.Tensor]]:
+    """``ring_all_to_allv`` in a job of several processes: every process
+    knows every rank's counts (``counts`` is the whole matrix) and so
+    every output's size; it fills its own ranks' outputs by one exchange
+    (K11's copy launch a process on the card), the others are
+    placeholders."""
+    p = len(counts)
+    outs, wants = [], []
+    for a, blocks in enumerate(arrays):
+        got = []
+        for q, b in enumerate(blocks):
+            o = torch.empty(sum(int(counts[r][q]) for r in range(p)),
+                            dtype=b.dtype, device=b.device)
+            if b.device.type != "meta":
+                doff = 0
+                for r in range(p):
+                    n = int(counts[r][q])
+                    soff = sum(int(c) for c in counts[r][:q])
+                    wants.append((a, r, [(soff, soff + n)],
+                                  o.narrow(0, doff, n)))
+                    doff += n
+            got.append(o)
+        outs.append(got)
+    multihost.exchange(arrays, wants, "all_to_all", op="all_to_allv")
     return outs
 
 
@@ -1104,41 +1147,88 @@ def _flat(ci: tuple, grid: tuple) -> int:
     return int(np.ravel_multi_index(ci, grid)) if grid else 0
 
 
+def _is_list(src) -> bool:
+    """A rank-list source (one tensor a rank, in ring order), not a
+    DArray."""
+    return isinstance(src, (list, tuple))
+
+
+def _want(w) -> tuple:
+    """A want as ``(source, rank, bounds, dst)``: ``(a, bounds, dst)`` is a
+    box of DArray ``a`` (rank None); ``(a, k, bounds, dst)`` a box of
+    rank ``k``'s tensor of rank list ``a``."""
+    return (w[0], None, w[1], w[2]) if len(w) == 3 else tuple(w)
+
+
+def _src_pieces(a: int, src, k, bounds) -> list:
+    """``(key, rank, tensor, slices into it, slices into the box)`` of each
+    piece of the box ``bounds``: a DArray's box cut at its chunks' cuts
+    (``key`` ``"a/<cell's row-major index>"``, ``rank`` the cell's), or
+    rank ``k``'s tensor of a rank list, one piece (``key`` ``"a/k"``,
+    ``rank`` None: which process holds it is known from the exchange)."""
+    if _is_list(src):
+        return [(f"{a}/{k}", None, src[k],
+                 tuple(slice(lo, hi) for lo, hi in bounds),
+                 tuple(slice(None) for _ in bounds))]
+    return [(f"{a}/{_flat(ci, src.grid)}", int(src.pids[ci]), src._parts[ci],
+             s, box) for ci, s, box in L.box_pieces(src.cuts, bounds)]
+
+
+def _local(rank, t: torch.Tensor) -> bool:
+    """Whether this process holds a piece's tensor: a DArray cell's by its
+    rank, a rank list's by its device (another process's is ``meta``)."""
+    return L.is_local(rank) if rank is not None else t.device.type != "meta"
+
+
+def _held(arrays):
+    """``(key, tensor)`` of every chunk or rank-list tensor this process
+    holds (a rank list's tensors on the ``meta`` device are other
+    processes')."""
+    for a, src in enumerate(arrays):
+        if _is_list(src):
+            for k, t in enumerate(src):
+                if t.device.type != "meta":
+                    yield f"{a}/{k}", t
+            continue
+        for ci in src.cells():
+            if L.is_local(int(src.pids[ci])):
+                yield f"{a}/{_flat(ci, src.grid)}", src._parts[ci]
+
+
 def region_handles(arrays) -> dict:
-    """This process's chunks of the DArrays ``arrays`` as ``{"a/k": [IPC
-    handle (hex), byte offset, strides]}`` (``a`` the array's position,
-    ``k`` the cell's row-major index), for the peers to map.  The strides
-    are the chunk's own, so a peer never relies on its placeholder's."""
+    """This process's chunks of the DArrays and rank lists ``arrays`` as
+    ``{"a/k": [IPC handle (hex), byte offset, strides]}`` (``a`` the
+    source's position, ``k`` a cell's row-major index or a rank list's
+    rank), for the peers to map.  The strides are the tensor's own, so a
+    peer never relies on its placeholder's."""
     mine = {}
-    for a, d in enumerate(arrays):
-        for ci in d.cells():
-            t = d._parts[ci]
-            if L.is_local(int(d.pids[ci])) and t.numel():
-                h, off = ipc_handle(t)
-                mine[f"{a}/{_flat(ci, d.grid)}"] = [h.hex(), off,
-                                                   list(t.stride())]
+    for key, t in _held(arrays):
+        if t.numel():
+            h, off = ipc_handle(t)
+            mine[key] = [h.hex(), off, list(t.stride())]
     return mine
 
 
 def region_copies(arrays, wants, every: list, mapped) -> list:
-    """The ``copy_launches`` copies of the region call's ``wants`` (``(a,
-    bounds, dst)``: the box ``bounds`` of ``arrays[a]`` into the tensor
-    ``dst`` on this process's card), each want cut at the source chunks'
-    cuts: a local chunk read through its own pointer, a peer's through
-    ``mapped.base`` of its handle in ``every[process]`` (``region_handles``
-    of each process) plus its offset and the piece's offset in it."""
+    """The ``copy_launches`` copies of the region call's ``wants``
+    (``_want``: a box of a DArray or of one rank's tensor of a rank list,
+    and the tensor ``dst`` on this process's card it fills), each want
+    cut at the source chunks' cuts: a tensor this process holds read
+    through its own pointer, a peer's through ``mapped.base`` of its
+    handle in ``every`` (``region_handles`` of each process) plus its
+    offset and the piece's offset in it."""
+    theirs = {key: h for m in every for key, h in m.items()}
     copies = []
-    for a, bounds, dst in wants:
-        d = arrays[a]
-        for ci, src, box in L.box_pieces(d.cuts, bounds):
+    for w in wants:
+        a, k, bounds, dst = _want(w)
+        for key, rank, t, src, box in _src_pieces(a, arrays[a], k, bounds):
             out = dst[box]
             if not out.numel():
                 continue
-            r, t = int(d.pids[ci]), d._parts[ci]
-            if L.is_local(r):
+            if _local(rank, t):
                 copies.append(view_copy(0, t[src], out))
                 continue
-            h, off, strides = every[L.process_of(r)][f"{a}/{_flat(ci, d.grid)}"]
+            h, off, strides = theirs[key]
             view = torch.empty_strided(t.shape, strides, dtype=t.dtype,
                                        device="meta")[src]
             addr = mapped.base(bytes.fromhex(h)) + int(off) + \
@@ -1148,14 +1238,17 @@ def region_copies(arrays, wants, every: list, mapped) -> list:
 
 
 def process_regions(arrays, wants, all_gather_json: Callable,
-                    barrier: Callable) -> None:
+                    barrier: Callable, kernel: str = "all_gather") -> None:
     """Fill this process's ``wants`` (``region_copies``) from the chunks of
-    the process-spanning DArrays ``arrays``, wherever they live, by one
-    copy launch on this process's card (see the module docstring).  Every
-    process of the job calls it with the same ``arrays``, each with its
-    own ``wants`` (possibly none).  ``all_gather_json(obj)`` returns every
-    process's ``obj`` in process order once all have published it;
-    ``barrier()`` returns once every process has called it."""
+    the process-spanning DArrays and rank lists ``arrays``, wherever they
+    live, by one copy launch on this process's card (see the module
+    docstring), counted as ``kernel`` (K10's ``all_gather``, or K11's
+    ``all_to_all`` for the all-to-alls) on the ``cross_process_region``
+    route.  Every process of the job calls it with the same ``arrays``,
+    each with its own ``wants`` (possibly none).  ``all_gather_json(obj)``
+    returns every process's ``obj`` in process order once all have
+    published it; ``barrier()`` returns once every process has called
+    it."""
     dev = L.local_device()
     # 1. this process's chunks are written before a peer reads them
     torch.cuda.current_stream(dev).synchronize()
@@ -1164,7 +1257,7 @@ def process_regions(arrays, wants, all_gather_json: Callable,
     try:
         copies = region_copies(arrays, wants, every, mapped)
         if copies:
-            _copy_on_card(copies, dev, "all_gather", "cross_process_region")
+            _copy_on_card(copies, dev, kernel, "cross_process_region")
         # 2. the reads are done before the mappings close
         torch.cuda.current_stream(dev).synchronize()
     finally:
@@ -1179,32 +1272,37 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 def process_regions_plain(arrays, wants, group) -> None:
     """The plain version of ``process_regions``, over the gloo ``group``:
-    every process's wants are all-gathered as metadata; each process sends
-    each peer, in one message, the host bytes of the pieces of its own
-    chunks that the peer wants (in the peer's want order), and receives
-    one such message from each process that holds pieces of its own
-    wants; pieces of its own chunks it copies directly."""
+    every process's wants, and the rank-list tensors it holds, are
+    all-gathered as metadata; each process sends each peer, in one
+    message, the host bytes of the pieces of its own tensors that the
+    peer wants (in the peer's want order), and receives one such message
+    from each process that holds pieces of its own wants; pieces of its
+    own tensors it copies directly."""
     import torch.distributed as dist
     me, n = dist.get_rank(group), dist.get_world_size(group)
-    mine = [(a, bounds) for a, bounds, _ in wants]
-    asks = [None] * n
+    mine = [_want(w)[:3] for w in wants]
+    held = [key for key, _ in _held(arrays)
+            if _is_list(arrays[int(key.split("/")[0])])]
+    every = [None] * n
     dist.all_gather_object(
-        asks, [(a, [list(b) for b in bounds]) for a, bounds in mine],
-        group=group)
+        every, ([(a, k, [list(b) for b in bounds]) for a, k, bounds in mine],
+                held), group=group)
+    owner = {key: p for p, (_, keys) in enumerate(every) for key in keys}
 
-    def pieces(ask, owner):
-        """``(want, chunk piece, box in the want)`` of the pieces of
-        ``ask`` that process ``owner`` holds, in want order."""
-        for k, (a, bounds) in enumerate(ask):
-            d = arrays[a]
-            for ci, src, box in L.box_pieces(d.cuts, bounds):
-                if L.process_of(int(d.pids[ci])) == owner:
-                    yield k, d._parts[ci][src], box
+    def pieces(ask, who):
+        """``(want, piece, box in the want)`` of the pieces of ``ask``
+        that process ``who`` holds, in want order."""
+        for i, (a, k, bounds) in enumerate(ask):
+            for key, rank, t, s, box in _src_pieces(a, arrays[a], k, bounds):
+                p = owner.get(key) if rank is None else L.process_of(rank)
+                if p == who:
+                    yield i, t[s], box
     works, inbox, outbox = [], {}, []
     for p in range(n):
         if p == me:
             continue
-        out = [_bytes(t) for _, t, _ in pieces(asks[p], me) if t.numel()]
+        out = [_bytes(t) for _, t, _ in pieces(every[p][0], me)
+               if t.numel()]
         if out:
             outbox.append(torch.cat(out))      # alive until its send ends
             works.append(dist.isend(outbox[-1], p, group=group))
@@ -1213,15 +1311,15 @@ def process_regions_plain(arrays, wants, group) -> None:
         if size:
             inbox[p] = torch.empty(size, dtype=torch.uint8)
             works.append(dist.irecv(inbox[p], p, group=group))
-    for k, t, box in pieces(mine, me):
-        dst = wants[k][2]
+    for i, t, box in pieces(mine, me):
+        dst = _want(wants[i])[3]
         dst[box] = t.to(dst.device)
     for w in works:
         w.wait()
     for p, buf in inbox.items():
         o = 0
-        for k, t, box in pieces(mine, p):
-            piece = wants[k][2][box]
+        for i, t, box in pieces(mine, p):
+            piece = _want(wants[i])[3][box]
             nb = t.numel() * t.element_size()
             if nb:
                 piece.copy_(buf[o:o + nb].view(t.dtype).view(piece.shape))

@@ -246,11 +246,18 @@ def int8_gemm_route(qa: torch.Tensor, qb: torch.Tensor) -> str:
 def cuda_matmul_int8(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
                      sb: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """``C = f32(Qa @ Qb) * (sa sb^T)``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  ``qa`` (m,k) and ``qb`` (k,n) int8,
-    ``sa`` (m,) and ``sb`` (n,) scales; output float32 or bfloat16."""
+    plain version for CPU tensors, a ``meta`` placeholder of the product
+    for ``meta`` operands.  ``qa`` (m,k) and ``qb`` (k,n) int8, ``sa``
+    (m,) and ``sb`` (n,) scales; output float32 or bfloat16."""
     tensors = (qa, qb, sa, sb)
     if all(t.device.type == "cpu" for t in tensors):
         return matmul_int8_plain(qa, qb, sa, sb, out_dtype)
+    if all(t.device.type == "meta" for t in tensors):
+        # another controller process's rank in a job: the product's
+        # placeholder
+        sa, sb, out_dtype = _int8_args(qa, qb, sa, sb, out_dtype)
+        return torch.empty((qa.shape[0], qb.shape[1]), dtype=out_dtype,
+                           device="meta")
     dev = qa.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("the int8 GEMM kernel needs every operand on one "

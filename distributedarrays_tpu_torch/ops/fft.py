@@ -13,6 +13,10 @@ sharded DVector whose length n is divisible by p**2 takes the four-step
 Every all-to-all is ``ops/cuda_collectives.ring_all_to_all``: on CUDA
 tensors the K11 copy kernel, one launch a card, which raises rather than
 fall back; on CPU tensors its plain version.  The blocks are complex64.
+In a job of several controller processes each all-to-all is its
+cross-process form (one exchange, a copy launch a process on the card),
+each process transforms its own ranks' blocks, and the host path reads
+the array by ``multihost.fetch_regions``.
 
 The compiled path takes the layouts JAX's ``_fft_impl`` takes: an even
 layout sharded on at most one dim, and, when the transform dim is the
@@ -34,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from ..darray import DArray, cross_process_unported, darray_from_cuts
+from ..darray import DArray, darray_from_cuts
 from ..utils.debug import warn_once
 from .cuda_collectives import ring_all_to_all
 from .mapreduce import _even_shared_layout
@@ -124,7 +128,6 @@ def _fft_four_step(blocks, n: int, inverse: bool, op) -> list:
 def _fft_impl(d: DArray, ax: int, inverse: bool) -> DArray:
     if not isinstance(d, DArray):
         raise TypeError(f"expected DArray, got {type(d).__name__}")
-    cross_process_unported("dfft", d)
     ax = ax + d.ndim if ax < 0 else ax
     if not 0 <= ax < d.ndim:
         raise ValueError(f"axis out of range for ndim {d.ndim}")
@@ -133,7 +136,9 @@ def _fft_impl(d: DArray, ax: int, inverse: bool) -> DArray:
     ok, shard_dim = _eligible(d, ax)
     if ok:
         cells = d.cells()
-        blocks = [d.part(ci).to(torch.complex64).contiguous() for ci in cells]
+        # in a job another process's cells are placeholders: shapes only
+        blocks = [d._parts[ci].to(torch.complex64).contiguous()
+                  for ci in cells]
         if shard_dim is None or ax != shard_dim:
             out = [op(b, dim=ax) for b in blocks]
         elif d.ndim == 1:

@@ -769,7 +769,10 @@ def dmatmul_int8(A, B, out_dtype=torch.float32) -> DArray:
     data).  Layouts: A on one rank; A row-chunked on an even ``(p, 1)`` grid
     with B whole (each rank quantizes its own rows); or A and B on the same
     even square ``(g, g)`` grid (int8 panels and their scales ride Cannon's
-    double ring).  Anything else raises."""
+    double ring).  Anything else raises.  In a job of several controller
+    processes each process quantizes and multiplies its own ranks' cells
+    (Cannon's rings are cross-process exchanges); the result's other
+    cells are placeholders."""
     if isinstance(A, SubDArray):
         A = A.materialize()
     if not isinstance(A, DArray):
@@ -788,15 +791,21 @@ def dmatmul_int8(A, B, out_dtype=torch.float32) -> DArray:
         raise ValueError(f"dim mismatch: {A.dims} @ {bshape}")
     procs = [int(q) for q in A.pids.flat]
     p = len(procs)
+    # in a job another process's cells are placeholders: their products
+    # are placeholders of the product's shape
+    A._check_open()
     if p == 1:
         dev = L.device_of(procs[0])
-        res = quantized_matmul(A.part((0, 0)), _host(B).to(dev), out_dtype)
+        res = quantized_matmul(A._parts[0, 0], _host(B).to(dev), out_dtype)
         parts = np.empty((1, 1), dtype=object)
         parts[0, 0] = res
         return DArray(parts, A.pids.copy(), [A.cuts[0], [0, bshape[1]]])
     g = _square_grid_ok(A, B) if isinstance(B, DArray) else None
     if g is not None:
-        res = cm.cannon_matmul_int8(_cells(A), _cells(B), g, out_dtype)
+        B._check_open()
+        res = cm.cannon_matmul_int8([A._parts[ci] for ci in A.cells()],
+                                    [B._parts[ci] for ci in B.cells()], g,
+                                    out_dtype)
         _, pids, cuts = resolve_layout((m, bshape[1]), procs, (g, g))
         parts = np.empty((g, g), dtype=object)
         for x, ci in enumerate(np.ndindex(g, g)):
@@ -818,6 +827,6 @@ def dmatmul_int8(A, B, out_dtype=torch.float32) -> DArray:
         bs = [bt.to(L.device_of(r)) for r in procs]
     parts = np.empty((p, 1), dtype=object)
     for i, (r, b) in enumerate(zip(procs, bs)):
-        parts[i, 0] = quantized_matmul(A.part((i, 0)), b, out_dtype)
+        parts[i, 0] = quantized_matmul(A._parts[i, 0], b, out_dtype)
     return DArray(parts, A.pids.copy(), [A.cuts[0], [0, bshape[1]]])
 

@@ -24,6 +24,16 @@ As in the reference, the result drops the ranks that received nothing
 and takes the uneven layout of the chunk sizes (``_assemble``), each
 merged chunk staying on its rank's device.
 
+In a job of several controller processes (``parallel.multihost``) each
+process sorts and samples its own cells (another process's are ``meta``
+placeholders, whose shapes the same code carries), the samples travel by
+the cross-process ``pgather`` so that every process picks the same
+pivots, the rows of the count matrix are exchanged as JSON, and
+``ring_all_to_allv`` moves the buckets by one exchange (one copy launch a
+process on the card).  Every process then builds the same result layout,
+the empty ranks dropped.  The whole-vector and host paths read the vector
+by ``multihost.fetch_regions``.
+
 Keys are a total order in the signed integer type of the key's width
 (JAX ``_to_total_order``/``_sort_keys``, shifted by 2**(w-1) so that no
 unsigned tensor op is needed): a float's bits with the negative ones
@@ -51,8 +61,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..darray import DArray, SubDArray, _assemble, as_tensor, \
-    cross_process_unported, distribute, from_global
+from .. import layout as L
+from ..darray import DArray, SubDArray, _assemble, as_tensor, distribute, \
+    from_global
+from ..parallel import multihost
+from ..parallel.collectives import pgather
 from ..utils.debug import fn_site, warn_once
 from .cuda_collectives import ring_all_to_allv
 
@@ -94,7 +107,7 @@ def _key_dtype(d: DArray, by):
     must give a one-element tensor."""
     if by is None:
         return d.dtype
-    x = torch.zeros(1, dtype=d.dtype, device=d.part((0,)).device)
+    x = torch.zeros(1, dtype=d.dtype, device=d.home())
     try:
         r = by(x)
     except Exception:                     # any failure: not a tensor function
@@ -104,17 +117,16 @@ def _key_dtype(d: DArray, by):
 
 
 def _key_minmax(d: DArray, by):
-    """The smallest and largest key over every rank, NaNs left out."""
-    los, his = [], []
-    for ci in d.cells():
+    """The smallest and largest key over every rank, NaNs left out (each
+    process its own cells' in a job)."""
+    def minmax(ci):
         x = d.part(ci)
         k = x if by is None else by(x)
         if k.dtype.is_floating_point:
             k = k[~torch.isnan(k)]
-        if k.numel():
-            los.append(float(k.min()))
-            his.append(float(k.max()))
-    return min(los), max(his)
+        return (float(k.min()), float(k.max())) if k.numel() else None
+    got = [v for v in multihost.cell_values(d, minmax) if v is not None]
+    return min(v[0] for v in got), max(v[1] for v in got)
 
 
 def _typed(vals, dtype: torch.dtype) -> torch.Tensor:
@@ -170,14 +182,19 @@ def _explicit_pivots(d: DArray, sample, by, key_dtype, rev: bool, p: int,
 def _psrs_sort(d: DArray, rev: bool, by, pivots) -> DArray:
     pids = [int(q) for q in d.pids.flat]
     p = len(pids)
+    job = multihost.in_job()
     xs, ks = [], []
     for ci in d.cells():
-        x = d.part(ci)
+        # another process's cell is a placeholder: shapes only
+        x = d._parts[ci]
         kt = _sort_keys(x if by is None else by(x), rev)
         order = torch.sort(kt, stable=True).indices
         ks.append(kt[order])
         xs.append(x[order])
-    dev0 = ks[0].device
+    # a process that holds no cell takes part in the collectives with its
+    # placeholders and sorts nothing
+    mine = [r for r, q in enumerate(pids) if L.is_local(q)]
+    dev0 = ks[mine[0]].device if mine else L.local_device()
     if pivots is None:
         top = torch.iinfo(ks[0].dtype).max
         samp = []
@@ -185,18 +202,29 @@ def _psrs_sort(d: DArray, rev: bool, by, pivots) -> DArray:
             v = k.shape[0]
             # an empty chunk samples the top key, as JAX's pad sentinel
             samp.append(k[(torch.arange(p, device=k.device) * v) // p]
-                        .to(dev0) if v else
-                        torch.full((p,), top, dtype=k.dtype, device=dev0))
-        allsamp = torch.sort(torch.cat(samp)).values
-        pivots = allsamp[torch.arange(1, p, device=dev0) * p]
-    # bucket q of rank r: the keys with q pivots at or below them
-    starts = [torch.searchsorted(k, pivots.to(k.device), right=False)
-              .to(dev0) for k in ks]
-    bounds = torch.stack(starts).cpu().numpy()
-    counts = []
-    for r, k in enumerate(ks):
-        edges = [0] + [int(b) for b in bounds[r]] + [k.shape[0]]
-        counts.append([edges[q + 1] - edges[q] for q in range(p)])
+                        if v else
+                        torch.full((p,), top, dtype=k.dtype, device=k.device))
+        if job:
+            # every process gets every rank's samples, in rank order
+            samp = pgather(samp)[mine[0] if mine else 0]
+        else:
+            samp = torch.cat([x.to(dev0) for x in samp])
+        allsamp = torch.sort(samp).values
+        pivots = allsamp[torch.arange(1, p, device=allsamp.device) * p]
+    # bucket q of rank r: the keys with q pivots at or below them (this
+    # process's ranks; every rank in one process)
+    starts = torch.stack([torch.searchsorted(ks[r], pivots.to(ks[r].device),
+                                             right=False).to(dev0)
+                          for r in mine]).cpu().tolist() if mine else []
+    counts = {}
+    for r, st in zip(mine, starts):
+        edges = [0] + st + [ks[r].shape[0]]
+        counts[r] = [edges[q + 1] - edges[q] for q in range(p)]
+    if job:
+        for part in multihost._all_gather_json(
+                "dsort", {str(r): c for r, c in counts.items()}):
+            counts.update({int(r): c for r, c in part.items()})
+    counts = [counts[r] for r in range(p)]
     krecv, vrecv = ring_all_to_allv([ks, xs], counts)
     kept = []
     for q in range(p):
@@ -236,7 +264,6 @@ def dsort(d, sample=True, by=None, rev: bool = False,
         d = d.copy()
     if not isinstance(d, DArray):
         d = distribute(as_tensor(d).reshape(-1))
-    cross_process_unported("dsort", d)
     if d.ndim != 1:
         raise ValueError("dsort expects a 1-D DArray (DVector)")
     d._check_open()

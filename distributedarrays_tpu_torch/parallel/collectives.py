@@ -19,6 +19,23 @@ schedules are written with.  Only the tiled forms exist: ``pgather`` and
 program's per-rank body, whose collectives name a mesh axis, becomes one
 function over the lists of all ranks' blocks, whose collectives take those
 lists (see its docstring).
+
+In a job of several controller processes (``multihost.initialize``) a
+process holds only its own ranks' tensors: another process's ranks are
+``meta`` placeholders of the right shape and dtype in the lists, and the
+body runs on every process over the whole nesting (torch's ``meta``
+device carries shapes through ordinary ops without touching data).
+Every collective is then a collective call of every process of the job,
+entered with lists of the same shapes in the same order (the SPMD
+discipline): each process fills its own ranks' results by one
+``multihost.exchange``, a copy launch of K10's copy kernel over CUDA IPC
+on the card (counted as ``all_gather``, or ``all_to_all`` for
+``pall_to_all``; on the ``cross_process_region`` route), the gloo route
+off it; the other ranks' results are placeholders.  ``preduce`` and
+``psum_scatter`` bring every rank's operand to the process and fold it
+in the single-process order, so a job's result is bit-equal to one
+process's on the same ranks.  ``pshifts`` hands several shifts to one
+exchange.
 """
 
 from __future__ import annotations
@@ -29,11 +46,198 @@ import numpy as np
 import torch
 
 from .. import layout as L
-from ..darray import DArray, cross_process_unported
+from ..darray import DArray
+from . import multihost
 
 __all__ = ["spmd_mesh", "run_spmd", "axis_rank", "axis_size",
-           "halo_exchange", "halo_exchange_2d", "pshift", "pbarrier",
-           "pbcast", "pgather", "preduce", "pall_to_all", "psum_scatter"]
+           "halo_exchange", "halo_exchange_2d", "pshift", "pshifts",
+           "pbarrier", "pbcast", "pgather", "preduce", "pall_to_all",
+           "psum_scatter"]
+
+
+# ---------------------------------------------------------------------------
+# the cross-process forms: each collective's plan over one exchange
+# ---------------------------------------------------------------------------
+
+
+def _real(t: torch.Tensor) -> bool:
+    """Whether this process holds the rank's tensor (another process's
+    is a ``meta`` placeholder)."""
+    return t.device.type != "meta"
+
+
+def _whole(t: torch.Tensor) -> list[tuple[int, int]]:
+    return [(0, n) for n in t.shape]
+
+
+def _along(t: torch.Tensor, dim: int, lo: int, hi: int):
+    """The box of ``t``'s slabs ``lo:hi`` along ``dim``."""
+    box = _whole(t)
+    box[dim % t.ndim] = (lo, hi)
+    return box
+
+
+def _job_call(plans, kernel: str = "all_gather"):
+    """Run ``plans`` (``(blocks, plan)``: ``plan(a, blocks)`` returns the
+    wants on rank list ``a`` of this process's ranks and a ``finish()``
+    that returns the result once they are filled) as one
+    ``multihost.exchange``; the results in order."""
+    lists, wants, finish = [], [], []
+    for blocks, plan in plans:
+        lists.append(list(blocks))
+        w, fin = plan(len(lists) - 1, lists[-1])
+        wants += w
+        finish.append(fin)
+    multihost.exchange(lists, wants, kernel,
+                       op="all_to_all" if kernel == "all_to_all"
+                       else "collective")
+    return [fin() for fin in finish]
+
+
+def _shift_plan(shift: int, wrap: bool):
+    def plan(a, blocks):
+        n, outs, wants = len(blocks), [], []
+        for i, b in enumerate(blocks):
+            j = i - shift
+            if not (wrap or 0 <= j < n):
+                outs.append(torch.zeros_like(b))
+                continue
+            src = blocks[j % n]
+            t = torch.empty(src.shape, dtype=src.dtype, device=b.device)
+            if _real(b):
+                wants.append((a, j % n, _whole(src), t))
+            outs.append(t)
+        return wants, lambda: outs
+    return plan
+
+
+def _halo_plan(halo: int, dim: int, wrap: bool):
+    def plan(a, blocks):
+        n, outs, wants = len(blocks), [], []
+        for r, b in enumerate(blocks):
+            pair = []
+            for nb, first in ((r - 1, False), (r + 1, True)):
+                shape = list(b.shape)
+                shape[dim] = halo
+                if not (wrap or 0 <= nb < n):
+                    pair.append(torch.zeros(shape, dtype=b.dtype,
+                                            device=b.device))
+                    continue
+                src = blocks[nb % n]
+                size = src.shape[dim]
+                lo = 0 if first else size - halo
+                shape = list(src.shape)
+                shape[dim] = halo
+                t = torch.empty(shape, dtype=src.dtype, device=b.device)
+                if _real(b):
+                    wants.append((a, nb % n, _along(src, dim, lo, lo + halo),
+                                  t))
+                pair.append(t)
+            outs.append(tuple(pair))
+        return wants, lambda: outs
+    return plan
+
+
+def _fetch_all(a, blocks, need: bool, box=_whole):
+    """Wants that bring ``box(b)`` of every rank's block ``b`` another
+    process holds onto this process's device (when ``need``), and the
+    operands: a held block's box in place, a fetched one's tensor."""
+    wants, vals = [], []
+    for r, b in enumerate(blocks):
+        bx = box(b)
+        if _real(b) or not need:
+            vals.append(b[tuple(slice(lo, hi) for lo, hi in bx)])
+            continue
+        t = torch.empty([hi - lo for lo, hi in bx], dtype=b.dtype,
+                        device=L.local_device())
+        wants.append((a, r, bx, t))
+        vals.append(t)
+    return wants, vals
+
+
+def _reduce_plan(op: str):
+    def plan(a, blocks):
+        need = any(_real(b) for b in blocks)
+        wants, vals = _fetch_all(a, blocks, need)
+
+        def finish():
+            acc = _fold(vals, op)
+            return [acc.to(b.device, copy=True) if _real(b) else
+                    torch.empty(acc.shape, dtype=acc.dtype, device=b.device)
+                    for b in blocks]
+        return wants, finish
+    return plan
+
+
+def _scatter_plan(dim: int):
+    def plan(a, blocks):
+        p, wants, parts = len(blocks), [], []
+        for d, b in enumerate(blocks):
+            ext = b.shape[dim] // p
+
+            def box(x, d=d, ext=ext):
+                return _along(x, dim, d * ext, (d + 1) * ext)
+            w, vals = _fetch_all(a, blocks, _real(b), box)
+            wants += w
+            parts.append(vals)
+
+        def finish():
+            return [_scatter_fold(parts[d], d, b.device)
+                    for d, b in enumerate(blocks)]
+        return wants, finish
+    return plan
+
+
+def _a2a_plan(split_dim: int, concat_dim: int):
+    def plan(a, blocks):
+        p, outs, wants = len(blocks), [], []
+        shape_of = [b.tensor_split(p, split_dim) for b in
+                    (x.to("meta") for x in blocks)]
+        for q, b in enumerate(blocks):
+            o = torch.empty(torch.cat([shape_of[r][q] for r in range(p)],
+                                      concat_dim).shape,
+                            dtype=b.dtype, device=b.device)
+            if _real(b):
+                off = 0
+                for r, x in enumerate(blocks):
+                    ext = x.shape[split_dim] // p
+                    n = shape_of[r][q].shape[concat_dim]
+                    wants.append((a, r, _along(x, split_dim, q * ext,
+                                               (q + 1) * ext),
+                                  o.narrow(concat_dim, off, n)))
+                    off += n
+            outs.append(o)
+        return wants, lambda: outs
+    return plan
+
+
+def _gather_plan(dim: int):
+    def plan(a, blocks):
+        outs, wants = [], []
+        shape = torch.cat([x.to("meta") for x in blocks], dim).shape
+        for b in blocks:
+            o = torch.empty(shape, dtype=b.dtype, device=b.device)
+            if _real(b):
+                off = 0
+                for r, x in enumerate(blocks):
+                    n = x.shape[dim]
+                    wants.append((a, r, _whole(x), o.narrow(dim, off, n)))
+                    off += n
+            outs.append(o)
+        return wants, lambda: outs
+    return plan
+
+
+def _bcast_plan(root: int):
+    def plan(a, blocks):
+        src, outs, wants = blocks[root], [], []
+        for b in blocks:
+            o = torch.empty(src.shape, dtype=src.dtype, device=b.device)
+            if _real(b):
+                wants.append((a, root, _whole(src), o))
+            outs.append(o)
+        return wants, lambda: outs
+    return plan
 
 
 def spmd_mesh(n: int | None = None) -> list[int]:
@@ -70,8 +274,19 @@ def run_spmd(f: Callable, ranks, *args):
     A DArray argument passes its cells in the order of its ``pids``, which
     must equal ``ranks``; any other argument's blocks are moved to their
     rank's device.  ``f``'s return value (the counterpart of JAX's
-    ``out_specs``, one block per rank) is returned as it is."""
-    cross_process_unported("run_spmd", *args)
+    ``out_specs``, one block per rank) is returned as it is.
+
+    In a job of several controller processes ``f`` runs on every process
+    over the whole nesting: a DArray argument passes its cells, this
+    process's ranks' tensors and ``meta`` placeholders for the others; any
+    other argument's blocks are moved to this process's ranks only (the
+    others become placeholders); and the collectives inside are the
+    cross-process forms (see the module docstring), which every process
+    enters in the same order.  A body may read another rank's values only
+    through a collective: ``.item()`` or a host copy of a placeholder
+    raises, and a branch on data would leave the processes' calls out of
+    step.  The result holds real tensors for this process's ranks and
+    placeholders for the others."""
     grid = np.asarray(ranks, dtype=np.int64)
     conv = []
     for a in args:
@@ -80,8 +295,9 @@ def run_spmd(f: Callable, ranks, *args):
                 raise ValueError(f"a DArray on ranks {a.pids.tolist()} "
                                  f"passed to a program on {grid.tolist()}")
             cells = np.empty(grid.shape, dtype=object)
+            a._check_open()
             for ci in np.ndindex(*grid.shape):
-                cells[ci] = a.part(ci)
+                cells[ci] = a._parts[ci]
             conv.append(cells.tolist())
         else:
             conv.append(_nested_map(
@@ -113,6 +329,9 @@ def halo_exchange(blocks: Sequence[torch.Tensor], halo: int = 1, dim: int = 0,
     ``halo`` slabs (along ``dim``) of the previous rank's block, ``hi`` the
     first ``halo`` slabs of the next rank's block, each on the receiving
     rank's device.  With ``wrap=False`` the outer edges receive zeros."""
+    if multihost.in_job():
+        _check_halo([blocks], halo, dim)
+        return _job_call([(blocks, _halo_plan(halo, dim, wrap))])[0]
     n = len(blocks)
     out = []
     for r, b in enumerate(blocks):
@@ -145,31 +364,52 @@ def halo_exchange_2d(blocks_2d, halo: int = 1,
     the global edge unless ``wrap`` (JAX ``collectives.py:161``).  Two
     phases: rows along mesh axis 0 (each column of the grid), then columns
     of the row-extended blocks along mesh axis 1 (each row), so that the
-    corners arrive."""
+    corners arrive.  In a job each phase is one exchange."""
     g0, g1 = len(blocks_2d), len(blocks_2d[0])
+    cols = [[blocks_2d[a][b] for a in range(g0)] for b in range(g1)]
     ext = [[None] * g1 for _ in range(g0)]
-    for b in range(g1):
-        col = [blocks_2d[a][b] for a in range(g0)]
-        for a, (x, (lo, hi)) in enumerate(zip(col, halo_exchange(
-                col, halo=halo, dim=0, wrap=wrap))):
+    for b, got in enumerate(_halo_lines(cols, halo, 0, wrap)):
+        for a, (x, (lo, hi)) in enumerate(zip(cols[b], got)):
             ext[a][b] = torch.cat([lo, x, hi], dim=0)
     out = [[None] * g1 for _ in range(g0)]
-    for a in range(g0):
-        for b, (x, (lo, hi)) in enumerate(zip(ext[a], halo_exchange(
-                ext[a], halo=halo, dim=1, wrap=wrap))):
+    for a, got in enumerate(_halo_lines(ext, halo, 1, wrap)):
+        for b, (x, (lo, hi)) in enumerate(zip(ext[a], got)):
             out[a][b] = torch.cat([lo, x, hi], dim=1)
     return out
 
 
+def _halo_lines(lines, halo: int, dim: int, wrap: bool) -> list:
+    """``halo_exchange`` of each line of blocks; in a job, one exchange for
+    all of them."""
+    if multihost.in_job():
+        _check_halo(lines, halo, dim)
+        return _job_call([(ln, _halo_plan(halo, dim, wrap))
+                          for ln in lines])
+    return [halo_exchange(ln, halo=halo, dim=dim, wrap=wrap)
+            for ln in lines]
+
+
+def _check_halo(lines, halo: int, dim: int) -> None:
+    for ln in lines:
+        for b in ln:
+            if halo > b.shape[dim]:
+                raise ValueError(
+                    f"halo {halo} exceeds the neighbour's extent "
+                    f"{b.shape[dim]}")
+
+
 def pbarrier(blocks) -> list[torch.Tensor]:
     """A synchronization point (JAX ``collectives.py:181``, a psum of 1):
-    waits for the work queued on every rank's CUDA device and returns the
-    rank count as an int32 scalar on each rank's device, in the nesting of
+    waits for the work queued on every rank's CUDA device (in a job, this
+    process's, then every process at ``multihost.sync_hosts``) and returns
+    the rank count as an int32 scalar on each rank's device, in the nesting of
     ``blocks``."""
     nested = bool(blocks) and isinstance(blocks[0], (list, tuple))
     flat = [b for row in blocks for b in row] if nested else list(blocks)
     for dev in {b.device for b in flat if b.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
+    if multihost.in_job():
+        multihost.sync_hosts("pbarrier")
 
     def count(b):
         return torch.tensor(len(flat), dtype=torch.int32, device=b.device)
@@ -186,6 +426,8 @@ def pbcast(blocks: Sequence[torch.Tensor],
     if not 0 <= root < len(blocks):
         raise ValueError(f"root {root} is not one of the {len(blocks)} "
                          "ranks")
+    if multihost.in_job():
+        return _job_call([(blocks, _bcast_plan(root))])[0]
     return [blocks[root].to(b.device, copy=True) for b in blocks]
 
 
@@ -193,6 +435,8 @@ def pshift(blocks: Sequence[torch.Tensor], shift: int = 1,
            wrap: bool = True) -> list[torch.Tensor]:
     """Ring shift: rank ``i`` receives rank ``i - shift``'s block on its own
     device.  With ``wrap=False`` ranks with no sender receive zeros."""
+    if multihost.in_job():
+        return _job_call([(blocks, _shift_plan(shift, wrap))])[0]
     n = len(blocks)
     out = []
     for i, b in enumerate(blocks):
@@ -204,9 +448,22 @@ def pshift(blocks: Sequence[torch.Tensor], shift: int = 1,
     return out
 
 
+def pshifts(lists, shift=1, wrap: bool = True) -> list[list]:
+    """``pshift`` of each rank list of ``lists`` (the K and V blocks of a
+    ring, the lines of a grid), by ``shift`` (an int, or one a list); in a
+    job, one exchange for all of them."""
+    shifts = [shift] * len(lists) if isinstance(shift, int) else list(shift)
+    if multihost.in_job():
+        return _job_call([(b, _shift_plan(s, wrap))
+                          for b, s in zip(lists, shifts)])
+    return [pshift(b, s, wrap) for b, s in zip(lists, shifts)]
+
+
 def pgather(blocks: Sequence[torch.Tensor], dim: int = 0) -> list[torch.Tensor]:
     """Every rank gets all blocks concatenated along ``dim`` in rank order,
     on its own device."""
+    if multihost.in_job():
+        return _job_call([(blocks, _gather_plan(dim))])[0]
     return [torch.cat([x.to(b.device) for x in blocks], dim) for b in blocks]
 
 
@@ -223,12 +480,20 @@ def preduce(blocks: Sequence[torch.Tensor],
     if op not in _FOLDS:
         raise ValueError(f"unknown reduction {op!r}: use one of "
                          f"{sorted(_FOLDS)}")
+    if multihost.in_job():
+        return _job_call([(blocks, _reduce_plan(op))])[0]
+    acc = _fold(blocks, op)
+    return [acc.to(b.device, copy=True) for b in blocks]
+
+
+def _fold(blocks, op: str) -> torch.Tensor:
+    """The blocks folded in rank order on the first one's device."""
     acc = blocks[0]
     for b in blocks[1:]:
         acc = _FOLDS[op](acc, b.to(acc.device))
     if op == "mean":
         acc = acc / len(blocks)
-    return [acc.to(b.device, copy=True) for b in blocks]
+    return acc
 
 
 def pall_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
@@ -241,6 +506,9 @@ def pall_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
         if b.shape[split_dim] % p:
             raise ValueError(f"split extent {b.shape[split_dim]} is not "
                              f"divisible by the {p} ranks")
+    if multihost.in_job():
+        return _job_call([(blocks, _a2a_plan(split_dim, concat_dim))],
+                         "all_to_all")[0]
     pieces = [b.tensor_split(p, split_dim) for b in blocks]
     return [torch.cat([pieces[r][q].to(b.device) for r in range(p)],
                       concat_dim) for q, b in enumerate(blocks)]
@@ -258,11 +526,18 @@ def psum_scatter(blocks: Sequence[torch.Tensor],
         if b.shape[dim] % p:
             raise ValueError(f"scatter extent {b.shape[dim]} is not "
                              f"divisible by the {p} ranks")
+    if multihost.in_job():
+        return _job_call([(blocks, _scatter_plan(dim))], "all_to_all")[0]
     pieces = [b.tensor_split(p, dim) for b in blocks]
-    out = []
-    for d, b in enumerate(blocks):
-        acc = pieces[(d + 1) % p][d].to(b.device, copy=True)
-        for k in range(2, p + 1):
-            acc = acc + pieces[(d + k) % p][d].to(b.device)
-        out.append(acc.contiguous())
-    return out
+    return [_scatter_fold([x[d] for x in pieces], d, b.device)
+            for d, b in enumerate(blocks)]
+
+
+def _scatter_fold(pieces, d: int, device) -> torch.Tensor:
+    """Rank ``d``'s reduce-scatter sum of every rank's piece ``pieces[r]``:
+    the left fold over ranks d+1, d+2, ..., d+p (mod p) on ``device``."""
+    p = len(pieces)
+    acc = pieces[(d + 1) % p].to(device, copy=True)
+    for k in range(2, p + 1):
+        acc = acc + pieces[(d + k) % p].to(device)
+    return acc.contiguous()

@@ -18,9 +18,11 @@ and joins one ``torch.distributed`` job:
   process's local ranks (process 0's first), so a DArray's default layout
   spans the processes.  Each process holds the tensors of its own ranks;
   another process's cell is a placeholder on the ``meta`` device.
-- :func:`fetch_regions` is the data plane: every process asks for boxes
-  of process-spanning DArrays, each onto its own device, in one
-  collective call.  Where every process of the job sits on one host and
+- :func:`exchange` is the data plane: every process asks for boxes of
+  process-spanning DArrays and of rank lists' tensors (the rank-list
+  collectives of ``parallel.collectives``), each onto its own device,
+  in one collective call; :func:`fetch_regions` asks for DArray boxes
+  as new tensors.  Where every process of the job sits on one host and
   on CUDA devices, each process makes one launch of K10's copy kernel
   (``ops.cuda_collectives.process_regions``) that reads the peer
   processes' chunks through CUDA IPC pointers; otherwise (a CPU job, or
@@ -48,8 +50,9 @@ and joins one ``torch.distributed`` job:
   :func:`advertise_exporter` has nothing to register.
 
 Every process must enter the collective calls (``init``,
-:func:`gather_global`, :func:`fetch_regions`, :func:`sync_hosts`, the ops
-over a DArray in a multi-process job) in the same order: the SPMD discipline of JAX's
+:func:`gather_global`, :func:`exchange`, :func:`fetch_regions`,
+:func:`sync_hosts`, the rank-list collectives, the ops over a DArray in a
+multi-process job) in the same order: the SPMD discipline of JAX's
 multi-controller programs.  Their branches test only what is the same on
 every process (``layout.process_count``, ``layout.spans_processes``, the
 job's table of hosts and devices).
@@ -73,7 +76,7 @@ from .. import telemetry as _tm
 
 __all__ = ["initialize", "global_mesh", "process_info", "sync_hosts",
            "host_local_slice", "gather_global", "fetch_regions",
-           "cell_values", "heartbeat",
+           "exchange", "in_job", "cell_values", "heartbeat",
            "down_peer_processes", "quorum_assess",
            "exchange_clock_offsets", "advertise_aggregator",
            "aggregator_endpoint", "advertise_exporter"]
@@ -503,6 +506,47 @@ def _kernel_route() -> bool:
                for p in _job.procs)
 
 
+def in_job() -> bool:
+    """True in a job of several controller processes whose rank table is
+    built: a rank-list collective is then a collective call of every
+    process (``parallel.collectives``)."""
+    return _job is not None and _job.count > 1 and L._table is not None
+
+
+def exchange(sources, wants, kernel: str = "all_gather",
+             op: str = "exchange") -> None:
+    """The data plane of a job of several processes: fill each want's
+    tensor from the sources, wherever their pieces live, in one
+    collective call.  ``sources`` are process-spanning DArrays and rank
+    lists (one tensor a rank, in ring order; another process's ranks on
+    the ``meta`` device); each want is ``(a, bounds, dst)``, the global
+    box ``bounds`` (one ``(lo, hi)`` a dim) of DArray ``sources[a]``, or
+    ``(a, k, bounds, dst)``, the box of rank ``k``'s tensor of rank list
+    ``sources[a]``; ``dst`` a tensor of the box's shape on this process's
+    device (a view is filled in place).  Every process calls it with
+    sources of the same shapes in the same order, each with its own wants
+    (possibly none).  Where every process of the job sits on this host
+    and on a CUDA device, each process makes one launch of K10's copy
+    kernel (``ops.cuda_collectives.process_regions``, counted as
+    ``kernel``: ``all_gather``, or ``all_to_all`` for the all-to-alls,
+    K11) that reads the peers' tensors through CUDA IPC; otherwise the
+    pieces travel as host bytes over the gloo group
+    (``process_regions_plain``).  A handle that will not open or a launch
+    that fails raises; nothing falls back to gloo.  ``op`` names the call
+    in the ``multihost_region`` comm record."""
+    from ..ops import cuda_collectives as CC
+    if _tm.enabled():
+        _tm.record_comm("multihost_region",
+                        sum(w[-1].numel() * w[-1].element_size()
+                            for w in wants), op=op)
+    if _kernel_route():
+        CC.process_regions(sources, wants,
+                           lambda obj: _all_gather_json("region", obj),
+                           lambda: sync_hosts("region"), kernel)
+    else:
+        CC.process_regions_plain(sources, wants, _job.group)
+
+
 def fetch_regions(wants) -> list[torch.Tensor]:
     """Boxes of DArrays that may span controller processes, each as a new
     tensor: ``wants`` is a list of ``(DArray, bounds, device)`` (``bounds``
@@ -510,14 +554,10 @@ def fetch_regions(wants) -> list[torch.Tensor]:
     job of several processes: every process calls it with the same DArrays in the same order, each with
     the devices of its own destinations; a want whose device is ``meta``
     (a cell of another process's rank) fetches nothing and comes back as
-    a placeholder of the box's shape.  The whole list is one exchange:
-    through K10's copy kernel over CUDA IPC (``ops.cuda_collectives
-    .process_regions``, one launch a process) where every process of the
-    job sits on this host and on a CUDA device, else over the gloo group
-    (``process_regions_plain``).  A box lands on this process's device
-    and moves to the asked device after.  In one process each want is
-    ``DArray.region``'s local copy of the chunks' pieces."""
-    from ..ops import cuda_collectives as CC
+    a placeholder of the box's shape.  The whole list is one
+    ``exchange``.  A box lands on this process's device and moves to the
+    asked device after.  In one process each want is ``DArray.region``'s
+    local copy of the chunks' pieces."""
     if L.process_count() == 1:
         return [d.region(bounds, device) for d, bounds, device in wants]
     arrays, index, asks, outs = [], {}, [], []
@@ -538,16 +578,7 @@ def fetch_regions(wants) -> list[torch.Tensor]:
         out = torch.empty(shape, dtype=d.dtype, device=dev)
         asks.append((index[id(d)], bounds, out))
         outs.append((out, device))
-    if _tm.enabled():
-        _tm.record_comm("multihost_region",
-                        sum(o.numel() * o.element_size()
-                            for _, _, o in asks), op="fetch_regions")
-    if _kernel_route():
-        CC.process_regions(arrays, asks,
-                           lambda obj: _all_gather_json("region", obj),
-                           lambda: sync_hosts("region"))
-    else:
-        CC.process_regions_plain(arrays, asks, _job.group)
+    exchange(arrays, asks, op="fetch_regions")
     return [o if o.device == device else o.to(device) for o, device in outs]
 
 

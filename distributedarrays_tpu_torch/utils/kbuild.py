@@ -24,8 +24,13 @@ launch and under no route), and every step of the ring GEMMs K13, K14 and
 K15 by route (``RING_ROUTES``: those three and ``wgmma_peer``, wgmma with
 the slot the step writes on another card), and the copy kernel's (K10)
 ``cross_process_region`` launches, which read peer processes' chunks
-through CUDA IPC (``multihost.fetch_regions``: a cross-process gather,
-reshard, GEMM panel fetch, ``djit`` input or element read).
+through CUDA IPC (``multihost.exchange``: a cross-process gather,
+reshard, GEMM panel fetch, ``djit`` input, element read or rank-list
+collective), and the all-to-all's (K11) on the same route.  One route
+tally counts no launch of its own (``count_route``): the fused ring
+attention step's launches whose forward store lands in another
+controller process's slot (``ring_attention_forward``'s
+``cross_process``).
 
 ``sm_count(device)`` is a card's SM count (cached), which the wrappers
 use to size their grids.
@@ -46,7 +51,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["build", "load", "count", "reset_launches", "launch_counts",
+__all__ = ["build", "load", "count", "count_route", "reset_launches", "launch_counts",
            "route_counts", "enable_peer_access", "sm_count", "KERNELS",
            "ROUTES", "RING_ROUTES", "INT8_ROUTES", "STENCIL_ROUTES",
            "NVCC_FLAGS", "DEFINES"]
@@ -100,8 +105,12 @@ _routes.update({k: dict.fromkeys(STENCIL_ROUTES, 0)
 _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
                 for k in ("allgather_matmul", "allgather_matmul_rhs",
                           "matmul_reducescatter")})
-# K10's region copies across controller processes (peer chunks by CUDA IPC)
+# the copy kernel's launches across controller processes (peer tensors by
+# CUDA IPC): K10's region copies and collectives, K11's all-to-alls
 _routes["all_gather"] = {"cross_process_region": 0}
+_routes["all_to_all"] = {"cross_process_region": 0}
+# K9 launches that store their forward into a peer process's mapped slot
+_routes["ring_attention_forward"] = {"cross_process": 0}
 _peers: set[tuple[int, int]] = set()
 _sms: dict[int, int] = {}
 build_log: dict[str, str] = {}
@@ -113,6 +122,13 @@ def count(kernel: str, route: str | None = None) -> None:
         _launches[kernel] += 1
         if route is not None:
             _routes[kernel][route] += 1
+
+
+def count_route(name: str, route: str) -> None:
+    """Add one to the route tally ``name``/``route`` alone: a property of a
+    launch that ``count`` has already counted."""
+    with _lock:
+        _routes[name][route] += 1
 
 
 def reset_launches() -> None:

@@ -2,8 +2,10 @@
 
 ``legs(tdat, N)`` lists the ops that a process-spanning DArray now runs
 across controller processes (the distributed GEMM forms, the transposes,
-the reshard and what rests on it, the element reads, ``djit`` and the
-scans), as ``(name, thunk)`` in the order every process runs them.  The
+the reshard and what rests on it, the element reads, ``djit``, the scans,
+``run_spmd`` with the rank-list collectives, ``dsort``, the FFTs,
+``dconv2d``, ring and Ulysses attention, k-means and ``dmatmul_int8``),
+as ``(name, thunk)`` in the order every process runs them.  The
 child program (``tests/_torch_multihost_child.py``) runs them in a job of
 ``N // 4`` processes; ``tests/test_torch_multihost.py`` runs the same
 thunks in one process on ``N`` ranks and holds the job's results against
@@ -43,7 +45,51 @@ def data(N: int) -> dict:
         "su": np.arange(50.0, dtype=np.float32) / 9,
         "B8": np.arange(128, dtype=np.float32).reshape(16, 8),
         "I": rng.integers(-50, 50, (16, 8)).astype(np.int32),
+        # the rank-list collectives' blocks: 2N a rank, and a 2-D grid
+        "P": (np.arange(2.0 * N * N, dtype=np.float32) % 23) / 7,
+        "Q": rng.standard_normal((4 * N, 6)).astype(np.float32),
+        # dsort: the JAX child's vector (tests/_multihost_child.py), ints
+        # with ties, floats with NaNs, and a vector of one repeated key
+        "sv": np.random.default_rng(7).standard_normal(8 * N).astype(
+            np.float32),
+        "si": rng.integers(-5, 5, 6 * N).astype(np.int32),
+        "sn": np.where(rng.random(5 * N) < 0.2, np.nan,
+                       rng.standard_normal(5 * N)).astype(np.float32),
+        "s1": np.where(np.arange(4 * N) == 3, 2.0, 1.0).astype(np.float32),
+        # the FFTs: the JAX child's matrix, a DVector of n % p^2 == 0
+        "F1": np.sin(np.arange(4.0 * N * N, dtype=np.float32)).reshape(
+            4 * N, N),
+        "fv": np.cos(np.arange(2.0 * N * N, dtype=np.float32) / 3),
+        # dconv2d: an image, an NHWC batch and their kernels
+        "im": rng.standard_normal((4 * N, 12)).astype(np.float32),
+        "k3": rng.standard_normal((3, 3)).astype(np.float32),
+        "k5": rng.standard_normal((5, 5)).astype(np.float32),
+        "nh": rng.standard_normal((2, 2 * N, 6, 3)).astype(np.float32),
+        "kn": rng.standard_normal((3, 3, 3, 4)).astype(np.float32),
+        # attention: the JAX child's (4N, 2, 8) ring, Ulysses' N heads
+        "qkv": [rng.standard_normal((4 * N, 2, 8)).astype(np.float32)
+                for _ in range(3)],
+        "uqkv": [rng.standard_normal((4 * N, N, 4)).astype(np.float32)
+                 for _ in range(3)],
+        # k-means: three clusters in 3-D
+        "km": (rng.standard_normal((16 * N, 3)) * 0.3 + np.repeat(
+            np.eye(3) * 4, [6 * N, 5 * N, 5 * N], axis=0)).astype(
+            np.float32),
+        # dmatmul_int8's operands
+        "ia": rng.standard_normal((4 * N, 16)).astype(np.float32),
+        "ib": rng.standard_normal((16, 8)).astype(np.float32),
+        "ca": rng.standard_normal((12, 12)).astype(np.float32),
+        "cb": rng.standard_normal((12, 12)).astype(np.float32),
     }
+
+
+def cannon_grid(N: int) -> tuple[int, list[int]]:
+    """``dmatmul_int8``'s square grid and its ranks: 3 x 3 over 9 ranks
+    of 3 processes where the job has them, else 2 x 2 over ranks of two
+    processes."""
+    if N >= 9:
+        return 3, list(range(9))
+    return 2, [0, N // 2, 1, N // 2 + 1]
 
 
 def legs(tdat, N: int) -> list:
@@ -157,7 +203,7 @@ def legs(tdat, N: int) -> list:
         ("dcummax", lambda: tdat.dcummax(dy, axis=0)),
         ("dcummin_1", lambda: tdat.dcummin(d2, axis=1)),
         ("dcumsum_uneven", lambda: tdat.dcumsum(tdat.distribute(D["su"]))),
-    ]
+    ] + _rank_list_legs(tdat, N, D)
     assert [name for name, _ in out] == NAMES
     return out
 
@@ -172,7 +218,150 @@ NAMES = [
     "ddot_layouts", "ddot_int", "dnorm", "dnorm1", "dnorm_inf", "dnorm0",
     "dfetch", "dfetch_first", "scalar", "dmean_bool", "dmean_int",
     "dmean_int_0", "djit", "djit_scalar", "dcumsum", "dcumsum_1", "dcumprod",
-    "dcummax", "dcummin_1", "dcumsum_uneven"]
+    "dcummax", "dcummin_1", "dcumsum_uneven",
+    "spmd_pshift", "spmd_pshift_back", "spmd_host", "spmd_pshifts",
+    "spmd_pgather", "spmd_preduce", "spmd_pmax", "spmd_pmean",
+    "spmd_psum_scatter", "spmd_pall_to_all", "spmd_pbcast", "spmd_halo",
+    "spmd_halo_wrap", "spmd_halo_2d", "spmd_pbarrier", "spmd_subset",
+    "dsort", "dsort_int_rev", "dsort_nan_minmax", "dsort_by",
+    "dsort_one_key", "dsort_whole", "dsort_host_by", "dsort_subset",
+    "dfft", "dfft_1",
+    "dfft_vec", "difft_vec", "dfft2", "difft2", "dfft_host", "dconv2d",
+    "dconv2d_5", "dconv2d_nhwc", "dconv2d_host", "ring_attention",
+    "ring_attention_causal", "ulysses", "ulysses_causal", "kmeans",
+    "kmeans_cols", "int8_rows", "int8_cannon"]
+
+
+def _rank_list_legs(tdat, N: int, D: dict) -> list:
+    """The legs of the ops on the rank-list collectives: ``run_spmd`` with
+    every collective, ``dsort``, the FFTs, ``dconv2d``, ring and Ulysses
+    attention, k-means and ``dmatmul_int8``."""
+    ring = list(range(N))
+    dp = tdat.distribute(D["P"])                       # 2N a rank
+    dq = tdat.distribute(D["Q"], procs=range(N), dist=(N // 2, 2))
+
+    def spmd(f, d=dp, ranks=None):
+        return lambda: tdat.run_spmd(f, d.pids.tolist() if ranks is None
+                                     else ranks, d)
+
+    def flat(out):
+        return [t for row in out for t in row]
+
+    def pshifts(b):
+        k, v = tdat.pshifts([b, [x * 2 for x in b]], [1, -3])
+        return [torch.cat([x, y]) for x, y in zip(k, v)]
+
+    def halo(wrap):
+        def f(b):
+            return [torch.cat([lo, x, hi]) for x, (lo, hi) in zip(
+                b, tdat.halo_exchange(b, halo=3, wrap=wrap))]
+        return spmd(f)
+
+    def host():
+        blocks = [np.full((2, 3), r, np.float32) for r in ring]
+        return tdat.run_spmd(lambda b: tdat.pshift(b, 2), ring, blocks)
+
+    def dist(x, grid=None, procs=None):
+        return tdat.distribute(x, procs=range(N) if procs is None else procs,
+                               dist=grid)
+
+    def ulysses(causal):
+        return lambda: tdat.ulysses_attention(
+            *(dist(x, (N, 1, 1)) for x in D["uqkv"]), causal=causal,
+            use_flash=True)
+
+    def kmeans(grid):
+        def run():
+            C, shifts = tdat.kmeans.kmeans(dist(D["km"], grid), 3, iters=4,
+                                           seed=1)
+            return (C.cpu().numpy(), shifts)
+        return run
+
+    def cannon():
+        g, procs = cannon_grid(N)
+        A = dist(D["ca"], (g, g), procs)
+        B = dist(D["cb"], (g, g), procs)
+        return tdat.dmatmul_int8(A, B)
+
+    sub = tdat.darray_from_cuts(np.array([3.0, 1.0, 2.0], np.float32),
+                                [0, N - 1, 1, N - 2], [[0, 1, 1, 2, 3]])
+    return [
+        # run_spmd and the rank-list collectives (the JAX child's ring hop
+        # first: at p >= 3 the +1 shift is direction-sensitive)
+        ("spmd_pshift", spmd(lambda b: tdat.pshift(b, 1))),
+        ("spmd_pshift_back", spmd(lambda b: tdat.pshift(b, -2, wrap=False))),
+        ("spmd_host", host),
+        ("spmd_pshifts", spmd(pshifts)),
+        ("spmd_pgather", spmd(lambda b: tdat.pgather(b))),
+        ("spmd_preduce", spmd(lambda b: tdat.preduce(
+            [x * (r + 1) for r, x in enumerate(b)]))),
+        ("spmd_pmax", spmd(lambda b: tdat.preduce(
+            [torch.roll(x, r) for r, x in enumerate(b)], "max"))),
+        ("spmd_pmean", spmd(lambda b: tdat.preduce(b, "mean"))),
+        ("spmd_psum_scatter", spmd(lambda b: tdat.psum_scatter(
+            tdat.pgather(b)))),
+        ("spmd_pall_to_all", spmd(lambda b: tdat.pall_to_all(
+            [x.reshape(N, 2) + r for r, x in enumerate(b)], 0, 1))),
+        ("spmd_pbcast", spmd(lambda b: tdat.pbcast(b, N - 1))),
+        ("spmd_halo", halo(False)),
+        ("spmd_halo_wrap", halo(True)),
+        ("spmd_halo_2d", spmd(lambda b: flat(tdat.halo_exchange_2d(
+            b, halo=1)), dq)),
+        ("spmd_pbarrier", spmd(lambda b: flat(tdat.pbarrier(b)), dq)),
+        # a mesh of ranks of one process: the others take part with
+        # placeholders
+        ("spmd_subset", spmd(lambda b: tdat.pshift(b, 1),
+                             tdat.distribute(D["P"][:8], procs=range(4)))),
+        # dsort: PSRS across processes, the minmax pivots, a key function,
+        # empty ranks dropped, the whole-vector and host paths
+        ("dsort", lambda: tdat.dsort(tdat.distribute(D["sv"]))),
+        ("dsort_int_rev", lambda: tdat.dsort(tdat.distribute(D["si"]),
+                                             rev=True)),
+        ("dsort_nan_minmax", lambda: tdat.dsort(tdat.distribute(D["sn"]),
+                                                sample=False)),
+        ("dsort_by", lambda: tdat.dsort(tdat.distribute(D["sv"]),
+                                        by=torch.abs)),
+        ("dsort_one_key", lambda: tdat.dsort(tdat.distribute(D["s1"]))),
+        ("dsort_whole", lambda: tdat.dsort(sub)),
+        ("dsort_host_by", lambda: tdat.dsort(
+            tdat.distribute(D["si"]), by=lambda x: (abs(x), x))),
+        # a vector on one process's ranks: the others hold no cell
+        ("dsort_subset", lambda: tdat.dsort(tdat.distribute(
+            D["sv"], procs=range(4)))),
+        # the FFTs: sharded matrix axis (the JAX child's), a resident
+        # axis, the four-step DVector, both 2-D forms, the host path
+        ("dfft", lambda: tdat.dfft(dist(D["F1"], (N, 1)), axis=0)),
+        ("dfft_1", lambda: tdat.dfft(dist(D["F1"], (N, 1)), axis=1)),
+        ("dfft_vec", lambda: tdat.dfft(tdat.distribute(D["fv"]))),
+        ("difft_vec", lambda: tdat.difft(tdat.distribute(D["fv"]))),
+        ("dfft2", lambda: tdat.dfft2(dist(D["F1"], (N, 1)))),
+        ("difft2", lambda: tdat.difft2(dist(D["F1"], (N, 1)))),
+        ("dfft_host", lambda: tdat.dfft(dist(D["F1"], (N // 2, 2)), axis=0)),
+        # dconv2d: halos along both dims, a 5 x 5 kernel, NHWC, the host
+        # path
+        ("dconv2d", lambda: tdat.dconv2d(dist(D["im"], (N // 2, 2)),
+                                         D["k3"])),
+        ("dconv2d_5", lambda: tdat.dconv2d(dist(D["im"], (N, 1)), D["k5"])),
+        ("dconv2d_nhwc", lambda: tdat.dconv2d(
+            dist(D["nh"], (1, N // 2, 2, 1)), D["kn"])),
+        ("dconv2d_host", lambda: tdat.dconv2d(dist(D["im"][:, :4], (1, N)),
+                                              D["k5"])),
+        # ring attention (the JAX child's leg, then causal) and Ulysses
+        ("ring_attention", lambda: tdat.ring_attention(
+            *(dist(x, (N, 1, 1)) for x in D["qkv"]))),
+        ("ring_attention_causal", lambda: tdat.ring_attention(
+            *(dist(x, (N, 1, 1)) for x in D["qkv"]), causal=True)),
+        ("ulysses", ulysses(False)),
+        ("ulysses_causal", ulysses(True)),
+        # k-means on one column of blocks, and on two (joined by a region
+        # call)
+        ("kmeans", kmeans((N, 1))),
+        ("kmeans_cols", kmeans((N // 2, 2))),
+        # dmatmul_int8: the (p, 1) rows with B whole, Cannon's double ring
+        ("int8_rows", lambda: tdat.dmatmul_int8(dist(D["ia"], (N, 1)),
+                                                D["ib"])),
+        ("int8_cannon", cannon),
+    ]
 
 
 def _layout(d) -> dict:

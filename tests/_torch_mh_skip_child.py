@@ -1,11 +1,13 @@
 """Child program of ``tests/test_torch_multihost.py``'s skipped-exchange
 test: two processes of 4 CPU ranks each join a job whose store and gloo
-group wait at most ``<timeout_s>``; process 0 enters a region call
-(``DArray.full`` of a DArray spanning both processes) that process 1
-skips.  The call must raise within the timeout, not hang.
+group wait at most ``<timeout_s>``; process 0 enters a collective call
+that process 1 skips: a region call (``DArray.full`` of a DArray spanning
+both processes; ``<what>`` ``region``, the default) or a rank-list
+collective (a ``pshift`` inside ``run_spmd`` over every rank; ``<what>``
+``pshift``).  The call must raise within the timeout, not hang.
 
 Run as: python tests/_torch_mh_skip_child.py <store_file> <process_id> \
-            <timeout_s>
+            <timeout_s> [<what>]
 
 Process 0 prints ``SKIPPED_EXCHANGE_RAISED <seconds> <error type>`` (or
 ``SKIPPED_EXCHANGE_RETURNED``) and writes ``<store_file>.done``; process 1
@@ -19,6 +21,7 @@ import time
 
 store_file, proc_id, timeout_s = sys.argv[1], int(sys.argv[2]), \
     int(sys.argv[3])
+what = sys.argv[4] if len(sys.argv) > 4 else "region"
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -37,7 +40,10 @@ multihost.sync_hosts("before")
 if proc_id == 0:
     t0 = time.monotonic()
     try:
-        d.full()
+        if what == "pshift":
+            tdat.run_spmd(lambda b: tdat.pshift(b, 1), d.pids.tolist(), d)
+        else:
+            d.full()
         print("SKIPPED_EXCHANGE_RETURNED", flush=True)
     except Exception as e:  # noqa: BLE001 — reported to the parent
         print(f"SKIPPED_EXCHANGE_RAISED {time.monotonic() - t0:.3f} "

@@ -14,9 +14,11 @@ the reductions with ``dims`` None, 0 and 1 and ``dmapreduce``; an uneven
 50 x 8 layout and ``d + d``; the other constructors; the live-telemetry
 URLs in the job's KV; the ops that run across the processes
 (``tests/_torch_mh_legs.py``: the distributed GEMM forms, the
-transposes, the reshard and what rests on it, the element reads, ``djit``
-and the scans); the ops that have no cross-process form yet (each must
-raise ``NotImplementedError``); a checkpoint round trip; the
+transposes, the reshard and what rests on it, the element reads, ``djit``,
+the scans, ``run_spmd`` with the rank-list collectives, ``dsort``, the
+FFTs, ``dconv2d``, ring and Ulysses attention, k-means and
+``dmatmul_int8``); the ops that have no cross-process form yet (the flash
+and zigzag rings: each must raise ``NotImplementedError``); a checkpoint round trip; the
 heartbeat census with the last process stale; and a journal with markers
 around a ``sync_hosts`` barrier.  It writes what it saw to
 ``<out_dir>/result_<process_id>.pkl`` for the parent to hold against the
@@ -181,21 +183,13 @@ for name, thunk in _torch_mh_legs.legs(tdat, N):
 res["open_mappings"] = cuda_collectives.open_mappings()
 
 # --- ops with no cross-process form raise -------------------------------
+seq = [tdat.distribute(np.ones((2 * N, 2, 4), np.float32), procs=range(N),
+                       dist=(N, 1, 1)) for _ in range(3)]
 unported = {
-    "dsort": lambda: tdat.dsort(d),
-    "dfft": lambda: tdat.dfft(dx, axis=0),
-    "run_spmd": lambda: tdat.run_spmd(lambda b: b, list(range(N)), dx),
-    "dconv2d": lambda: tdat.dconv2d(dx, torch.ones(3, 3)),
-    "ulysses_attention": lambda: tdat.ulysses_attention(
-        *(tdat.distribute(np.ones((N, N, 4), np.float32), procs=range(N),
-                          dist=(N, 1, 1)) for _ in range(3))),
-    "kmeans": lambda: tdat.kmeans.kmeans(dx, 2),
-    "dmatmul_int8": lambda: tdat.dmatmul_int8(
-        tdat.distribute(np.ones((4 * N, 4), np.float32), procs=range(N),
-                        dist=(N, 1)), np.ones((4, 4), np.float32)),
-    "ring_attention": lambda: tdat.ring_attention(
-        *(tdat.distribute(np.ones((N, 2, 4), np.float32))
-          for _ in range(3))),
+    "ring_flash_attention": lambda: tdat.ring_flash_attention(*seq),
+    "zigzag_ring_flash_attention": lambda: tdat.zigzag_ring_flash_attention(
+        *seq),
+    "zigzag_ring_attention": lambda: tdat.zigzag_ring_attention(*seq),
 }
 res["unported"] = {}
 for name, call in unported.items():

@@ -134,7 +134,15 @@ def _jax_grid_program(fn, r, c):
 
 @pytest.mark.parametrize("g", [2, 3, 4])
 def test_cannon_skew_perms_match_jax(g):
-    assert CM._cannon_skew_perms(g) == JCM._cannon_skew_perms(g)
+    # the port's skew (row i of A by -i, column j of B by -j) moves every
+    # block as JAX's (source, destination) permutations do
+    blocks = [torch.tensor([float(x)]) for x in range(g * g)]
+    skew = [-i for i in range(g)]
+    a, b = CM._rotate([(blocks, 1, skew), (blocks, 0, skew)], g)
+    perm_a, perm_b = JCM._cannon_skew_perms(g)
+    assert sorted(d for _, d in perm_a) == list(range(g * g))
+    assert all(int(a[d]) == s for s, d in perm_a)
+    assert all(int(b[d]) == s for s, d in perm_b)
 
 
 @pytest.mark.parametrize("dims", [(16, 24, 8), (8, 8, 8)])
@@ -178,11 +186,13 @@ def test_cannon_matmul_int8_matches_jax():
 
 
 def test_grid_shift_helper():
-    blocks = [torch.tensor([float(x)]) for x in range(6)]     # (2, 3) grid
-    left = CM._shift(blocks, 2, 3, axis=1, shift=-1)
-    assert [int(t) for t in left] == [1, 2, 0, 4, 5, 3]
-    up = CM._shift(blocks, 2, 3, axis=0, shift=-1)
-    assert [int(t) for t in up] == [3, 4, 5, 0, 1, 2]
+    blocks = [torch.tensor([float(x)]) for x in range(9)]     # (3, 3) grid
+    left, up = CM._rotate([(blocks, 1, [-1] * 3), (blocks, 0, [-1] * 3)], 3)
+    assert [int(t) for t in left] == [1, 2, 0, 4, 5, 3, 7, 8, 6]
+    assert [int(t) for t in up] == [3, 4, 5, 6, 7, 8, 0, 1, 2]
+    # a shift a line, in pshift's sense
+    (rows,) = CM._rotate([(blocks, 1, [0, 1, -2])], 3)
+    assert [int(t) for t in rows] == [0, 1, 2, 5, 3, 4, 8, 6, 7]
 
 
 # ---------------------------------------------------------------------------

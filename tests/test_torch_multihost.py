@@ -12,9 +12,12 @@ against the port run in one process on the same number of ranks (bit for
 bit: the reductions fold the same partials in the same order).  The ops
 that run across processes (``tests/_torch_mh_legs.py``: the GEMM forms,
 the transposes, the reshard and what rests on it, the element reads,
-``djit`` and the scans) are held leg by leg against numpy, against the
-port in one process bit for bit, and in the 2-process job against JAX.
-The region copy's kernel route is replayed on the host.  Every child is
+``djit``, the scans, ``run_spmd`` with the rank-list collectives,
+``dsort``, the FFTs, ``dconv2d``, ring and Ulysses attention, k-means and
+``dmatmul_int8``) are held leg by leg against numpy, against the port in
+one process bit for bit, and in the 2-process job against JAX.  The
+region copy's kernel route, for DArray boxes and for rank lists, is
+replayed on the host.  Every child is
 bounded by a timeout, so nothing can hang the suite.
 """
 
@@ -31,6 +34,7 @@ import jax.numpy as jnp
 
 import distributedarrays_tpu as dat
 from distributedarrays_tpu.parallel import multihost as JM
+from distributedarrays_tpu.models import ring_attention as JRA
 from distributedarrays_tpu.telemetry import cluster as JCL
 
 import distributedarrays_tpu_torch as tdat
@@ -278,6 +282,106 @@ def test_process_copies_replayed_on_the_host(monkeypatch, case):
     assert barriers == [0] and CC.open_mappings() == 0
 
 
+def _pretend_peer(monkeypatch):
+    """A pretend two-process table for the replay tests: ranks 4-7 are
+    process 1's, whose "IPC handles" carry their tensors' addresses."""
+    from distributedarrays_tpu_torch import layout as L
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    monkeypatch.setattr(L, "process_of", lambda r: int(r) // 4)
+    monkeypatch.setattr(CC, "ipc_handle", lambda t: (
+        t.data_ptr().to_bytes(8, "little"), 0))
+    opened, closed = [], []
+    monkeypatch.setattr(CC, "_ipc_open", lambda h, dev: opened.append(h) or
+                        int.from_bytes(h, "little"))
+    monkeypatch.setattr(CC, "_ipc_close", closed.append)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {
+                            "synchronize": lambda self: None})())
+    return opened, closed
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16", "int32"])
+def test_rank_list_copies_replayed_on_the_host(monkeypatch, dt):
+    # the rank-list exchange's kernel route on a pretend two-process
+    # table: process 0 holds ranks 0-3 of two rank lists (ranks 4-7 are
+    # meta placeholders there) and asks for a pshift's, a halo's and an
+    # all-to-all's pieces of both; process 1's tensors are read through
+    # its "IPC handles" by the replayed copy kernel, each allocation
+    # mapped once and closed before the barrier, in one launch
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    opened, closed = _pretend_peer(monkeypatch)
+    typ = getattr(torch, dt)
+    real = [[(torch.arange(24).reshape(4, 6) * (r + 1) + 100 * a).to(typ)
+             for r in range(8)] for a in range(2)]
+    theirs = CC.region_handles([[t if r >= 4 else t.to("meta")
+                                 for r, t in enumerate(x)] for x in real])
+    lists = [[t if r < 4 else t.to("meta") for r, t in enumerate(x)]
+             for x in real]
+    outs, wants = [], []
+    for a in range(2):
+        for r in range(4):
+            src = (r - 1) % 8                         # pshift(+1)
+            o = torch.zeros(4, 6, dtype=typ)
+            wants.append((a, src, [(0, 4), (0, 6)], o))
+            outs.append((o, real[a][src]))
+        h = torch.zeros(2, 6, dtype=typ)              # the halo from 4
+        wants.append((a, 4, [(0, 2), (0, 6)], h))
+        outs.append((h, real[a][4][:2]))
+        c = torch.zeros(4, 12, dtype=typ)             # an a2a's pieces
+        for k, r in enumerate((5, 2)):
+            wants.append((a, r, [(0, 4), (3, 6)], c[:, 6 * k + 3:6 * k + 6]))
+        outs.append((c[:, 3:6], real[a][5][:, 3:6]))
+        outs.append((c[:, 9:12], real[a][2][:, 3:6]))
+    calls, barriers = [], []
+    monkeypatch.setattr(CC, "_copy_on_card", emulated_copies(calls))
+    CC.process_regions(lists, wants, lambda mine: [mine, theirs],
+                       lambda: barriers.append(CC.open_mappings()),
+                       "all_to_all")
+    assert calls == [("all_to_all", 1)]
+    for got, want in outs:
+        assert torch.equal(got, want)
+    # ranks 7 (the shift), 4 (the halo) and 5 (the all-to-all) of each list
+    assert len(opened) == len(set(opened)) == 2 * 3
+    assert sorted(closed) == sorted(int.from_bytes(h, "little")
+                                    for h in opened)
+    assert barriers == [0] and CC.open_mappings() == 0
+
+
+def test_rank_list_exchange_raises_and_never_takes_gloo(monkeypatch):
+    # a handle that will not open fails the kernel route's call (its
+    # mappings closed, no barrier passed), and multihost.exchange raises
+    # that error instead of handing the work to the gloo route
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    opened, closed = _pretend_peer(monkeypatch)
+    real = [torch.arange(8.0) + r for r in range(8)]
+    theirs = CC.region_handles([[t if r >= 4 else t.to("meta")
+                                 for r, t in enumerate(real)]])
+    lists = [[t if r < 4 else t.to("meta") for r, t in enumerate(real)]]
+    monkeypatch.setattr(CC, "_copy_on_card", emulated_copies([]))
+
+    def refuse(h, dev):
+        if opened:
+            raise RuntimeError("cudaIpcOpenMemHandle refused a peer "
+                               "process's allocation on cpu: CUDA error 1")
+        opened.append(h)
+        return int.from_bytes(h, "little")
+    monkeypatch.setattr(CC, "_ipc_open", refuse)
+    barriers, plain = [], []
+    wants = [(0, r, [(0, 8)], torch.zeros(8)) for r in (4, 5)]
+    monkeypatch.setattr(TM, "_job", type("J", (), {"group": None})())
+    monkeypatch.setattr(TM, "_kernel_route", lambda: True)
+    monkeypatch.setattr(TM, "_all_gather_json", lambda tag, obj: [obj,
+                                                                  theirs])
+    monkeypatch.setattr(TM, "sync_hosts", barriers.append)
+    monkeypatch.setattr(CC, "process_regions_plain",
+                        lambda *a: plain.append(a))
+    with pytest.raises(RuntimeError, match="cudaIpcOpenMemHandle"):
+        TM.exchange(lists, wants, "all_gather")
+    assert plain == [] and barriers == []
+    assert closed == [int.from_bytes(opened[0], "little")]
+    assert CC.open_mappings() == 0
+
+
 # ---------------------------------------------------------------------------
 # a two-process job: 2 x 4 CPU ranks
 # ---------------------------------------------------------------------------
@@ -468,8 +572,9 @@ def test_job_aggregator_url_through_the_kv(job2):
         assert r["exporter"] is False
 
 
-UNPORTED = ["dsort", "dfft", "run_spmd", "dconv2d", "ring_attention",
-            "ulysses_attention", "kmeans", "dmatmul_int8"]
+# the flash and zigzag rings stay single-process (ROADMAP queue A)
+UNPORTED = ["ring_flash_attention", "zigzag_ring_flash_attention",
+            "zigzag_ring_attention"]
 
 
 @pytest.mark.parametrize("op", UNPORTED)
@@ -487,6 +592,18 @@ PORTED = {"djit": ["djit", "djit_scalar"],
           "reshape": ["reshape"], "distribute": ["distribute"],
           "dcat": ["dcat", "dcat_layouts"],
           "dtranspose": ["dtranspose", "dtranspose_cuts"]}
+# the ops ported on the rank-list exchange, each with its legs
+ON_RANK_LISTS = {
+    "run_spmd": [n for n in LEGS.NAMES if n.startswith("spmd_")],
+    "dsort": [n for n in LEGS.NAMES if n.startswith("dsort")],
+    "dfft": ["dfft", "dfft_1", "dfft_vec", "difft_vec", "dfft2", "difft2",
+             "dfft_host"],
+    "dconv2d": [n for n in LEGS.NAMES if n.startswith("dconv2d")],
+    "ring_attention": ["ring_attention", "ring_attention_causal"],
+    "ulysses_attention": ["ulysses", "ulysses_causal"],
+    "kmeans": ["kmeans", "kmeans_cols"],
+    "dmatmul_int8": ["int8_rows", "int8_cannon"]}
+PORTED.update(ON_RANK_LISTS)
 
 
 @pytest.mark.parametrize("op", list(PORTED))
@@ -649,9 +766,16 @@ def _values(got):
 
 
 def _close(a, b, tol, what):
+    if isinstance(b, tuple) and any(np.ndim(x) for x in b):
+        # a tuple of arrays (k-means' centroids and shifts)
+        assert len(a) == len(b), what
+        for x, y in zip(a, b):
+            _close(x, y, tol, what)
+        return
     if tol is None:
         a, b = np.asarray(a), np.asarray(b)
-        assert a.shape == b.shape and np.array_equal(a, b), what
+        assert a.shape == b.shape, what
+        np.testing.assert_array_equal(a, b, err_msg=what)   # NaN == NaN
     else:
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=tol,
                                    atol=tol, err_msg=what)
@@ -713,6 +837,174 @@ def _oracles(N):
         "dcummax": (np.maximum.accumulate(Y, 0), None),
         "dcummin_1": (np.minimum.accumulate(Y, 1), None),
         "dcumsum_uneven": (np.cumsum(D["su"]), SCAN_TOL),
+        **_rank_list_oracles(N, D),
+    }
+
+
+FFT_TOL = 1e-3         # the JAX child's dfft tolerance
+ATTN_TOL = 2e-3        # the JAX child's ring attention tolerance
+
+
+def _conv_np(x, k):
+    """SAME zero-padded cross-correlation of (H, W) ``x`` and (kh, kw)
+    ``k`` (XLA's split: the larger pad after), in float64."""
+    kh, kw = k.shape
+    xp = np.pad(x.astype(np.float64), (((kh - 1) // 2, kh // 2),
+                                       ((kw - 1) // 2, kw // 2)))
+    out = np.zeros(x.shape)
+    for i in range(kh):
+        for j in range(kw):
+            out += k[i, j] * xp[i:i + x.shape[0], j:j + x.shape[1]]
+    return out
+
+
+def _attn_np(q, k, v, causal):
+    s = np.einsum("qhd,khd->hqk", q / np.sqrt(q.shape[-1]), k)
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[1:], bool))[None], s, -np.inf)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("hqk,khd->qhd", w / w.sum(-1, keepdims=True), v)
+
+
+def _q8(x, axis):
+    """numpy's symmetric int8 codes and scales along ``axis``."""
+    s = np.abs(x).max(axis=axis, keepdims=True) / np.float32(127)
+    q = np.where(s > 0, np.round(x / np.where(s > 0, s, 1)), 0)
+    return q, s
+
+
+def _int8_np(a, b, g=1):
+    """The int8 GEMM's value with each (g x g) block of a and b quantized
+    on its own (per row of A's block, per column of B's), in float64."""
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bk, bn = m // g, k // g, n // g
+    out = np.zeros((m, n))
+    for i in range(g):
+        for j in range(g):
+            for t in range(g):
+                qa, sa = _q8(a[i * bm:(i + 1) * bm, t * bk:(t + 1) * bk], 1)
+                qb, sb = _q8(b[t * bk:(t + 1) * bk, j * bn:(j + 1) * bn], 0)
+                out[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn] += \
+                    (qa @ qb) * sa * sb
+    return out
+
+
+def _lloyd_np(X, C, iters):
+    """Lloyd's iterations in float64 from ``C``: the centroids and the
+    shifts."""
+    X, C, shifts = X.astype(np.float64), C.astype(np.float64), []
+    for _ in range(iters):
+        a = np.argmin(((X[:, None] - C[None]) ** 2).sum(-1), 1)
+        new = C.copy()
+        for j in range(C.shape[0]):
+            if (a == j).any():
+                new[j] = X[a == j].mean(0)
+        shifts.append(((new - C) ** 2).sum())
+        C = new
+    return C, np.asarray(shifts)
+
+
+_RANK_LIST_ORACLES: dict = {}
+
+
+def _rank_list_oracles(N, D):
+    """numpy's value of each leg on the rank-list exchange (computed once
+    a rank count): a list of every rank's block where the leg returns
+    rank tensors."""
+    if N not in _RANK_LIST_ORACLES:
+        _RANK_LIST_ORACLES[N] = _make_rank_list_oracles(N, D)
+    return _RANK_LIST_ORACLES[N]
+
+
+def _make_rank_list_oracles(N, D):
+    from distributedarrays_tpu_torch.models import kmeans as TK
+    P = D["P"].reshape(N, 2 * N)
+    Q = D["Q"]
+    blocks = list(P)
+    sv, si, sn = D["sv"], D["si"], D["sn"]
+    F1 = D["F1"]
+    k64 = {"k3": D["k3"].astype(np.float64), "k5": D["k5"].astype(np.float64)}
+    nh = np.stack([np.stack([sum(_conv_np(D["nh"][b, :, :, c],
+                                          D["kn"][:, :, c, o])
+                                 for c in range(3)) for o in range(4)], -1)
+                   for b in range(2)])
+    tdat.init(nranks=N, device="cpu")
+    km = {}
+    for key, grid in (("kmeans", (N, 1)), ("kmeans_cols", (N // 2, 2))):
+        C0 = TK._kmeanspp_init(tdat.distribute(D["km"], procs=range(N),
+                                               dist=grid), 3, 1)
+        km[key] = (_lloyd_np(D["km"], C0, 4), SCAN_TOL)
+    tdat.d_closeall()
+    g, _ = LEGS.cannon_grid(N)
+
+    def halo(r, wrap):
+        lo = blocks[r - 1][-3:] if r or wrap else np.zeros(3, np.float32)
+        hi = blocks[(r + 1) % N][:3] if r < N - 1 or wrap else \
+            np.zeros(3, np.float32)
+        return np.concatenate([lo, blocks[r], hi])
+
+    def halo2d(r):
+        # (N/2, 2) blocks of 8 x 3, each with a ring of its neighbours
+        whole = np.pad(Q, 1)
+        i, j = divmod(r, 2)
+        return whole[8 * i:8 * i + 10, 3 * j:3 * j + 5]
+    gathered = P.reshape(-1)
+    return {
+        "spmd_pshift": ([blocks[r - 1] for r in range(N)], None),
+        "spmd_pshift_back": ([blocks[r + 2] if r + 2 < N else
+                              np.zeros(2 * N, np.float32)
+                              for r in range(N)], None),
+        "spmd_host": ([np.full((2, 3), (r - 2) % N, np.float32)
+                       for r in range(N)], None),
+        "spmd_pshifts": ([np.concatenate([blocks[r - 1],
+                                          2 * blocks[(r + 3) % N]])
+                          for r in range(N)], None),
+        "spmd_pgather": ([gathered] * N, None),
+        "spmd_preduce": ([sum(b * (r + 1) for r, b in enumerate(blocks))]
+                         * N, SCAN_TOL),
+        "spmd_pmax": ([np.max([np.roll(b, r) for r, b in enumerate(blocks)],
+                              0)] * N, None),
+        "spmd_pmean": ([P.mean(0)] * N, SCAN_TOL),
+        "spmd_psum_scatter": ([N * gathered[2 * N * d:2 * N * (d + 1)]
+                               for d in range(N)], SCAN_TOL),
+        "spmd_pall_to_all": ([np.concatenate(
+            [blocks[r].reshape(N, 2)[q:q + 1] + r for r in range(N)], 1)
+            for q in range(N)], None),
+        "spmd_pbcast": ([blocks[N - 1]] * N, None),
+        "spmd_halo": ([halo(r, False) for r in range(N)], None),
+        "spmd_halo_wrap": ([halo(r, True) for r in range(N)], None),
+        "spmd_halo_2d": ([halo2d(r) for r in range(N)], None),
+        "spmd_pbarrier": ([np.int32(N)] * N, None),
+        "spmd_subset": ([D["P"][:8].reshape(4, 2)[r - 1] for r in range(4)],
+                        None),
+        "dsort": (np.sort(sv), None),
+        "dsort_int_rev": (np.sort(si)[::-1], None),
+        "dsort_nan_minmax": (np.sort(sn), None),
+        "dsort_by": (sv[np.argsort(np.abs(sv), kind="stable")], None),
+        "dsort_one_key": (np.sort(D["s1"]), None),
+        "dsort_whole": (np.array([1.0, 2.0, 3.0], np.float32), None),
+        "dsort_host_by": (np.asarray(sorted(si, key=lambda x: (abs(x), x)),
+                                     np.int32), None),
+        "dsort_subset": (np.sort(sv), None),
+        "dfft": (np.fft.fft(F1, axis=0), FFT_TOL),
+        "dfft_1": (np.fft.fft(F1, axis=1), FFT_TOL),
+        "dfft_vec": (np.fft.fft(D["fv"]), FFT_TOL),
+        "difft_vec": (np.fft.ifft(D["fv"]), FFT_TOL),
+        "dfft2": (np.fft.fft2(F1), FFT_TOL),
+        "difft2": (np.fft.ifft2(F1), FFT_TOL),
+        "dfft_host": (np.fft.fft(F1, axis=0), FFT_TOL),
+        "dconv2d": (_conv_np(D["im"], k64["k3"]), SCAN_TOL),
+        "dconv2d_5": (_conv_np(D["im"], k64["k5"]), SCAN_TOL),
+        "dconv2d_nhwc": (nh, SCAN_TOL),
+        "dconv2d_host": (_conv_np(D["im"][:, :4], k64["k5"]), SCAN_TOL),
+        "ring_attention": (_attn_np(*D["qkv"], False), ATTN_TOL),
+        "ring_attention_causal": (_attn_np(*D["qkv"], True), ATTN_TOL),
+        "ulysses": (_attn_np(*D["uqkv"], False), ATTN_TOL),
+        "ulysses_causal": (_attn_np(*D["uqkv"], True), ATTN_TOL),
+        **km,
+        "int8_rows": (_int8_np(D["ia"], D["ib"]), SCAN_TOL),
+        "int8_cannon": (_int8_np(D["ca"], D["cb"], g), SCAN_TOL),
     }
 
 
@@ -766,6 +1058,14 @@ def _jax_legs():
         "dcumsum": lambda: J.dcumsum(J.distribute(D["S"]), axis=0),
         "dcummax": lambda: J.dcummax(dy, axis=0),
         "dcumsum_uneven": lambda: J.dcumsum(J.distribute(D["su"])),
+        # the JAX child's legs of the ops on the rank-list exchange
+        "dfft": lambda: J.dfft(J.distribute(D["F1"], procs=range(8),
+                                            dist=(8, 1)), axis=0),
+        "dsort": lambda: J.dsort(J.distribute(D["sv"])),
+        "spmd_pshift": _jax_ring_hop,
+        "ring_attention": lambda: JRA.ring_attention(
+            *(J.distribute(x, procs=range(8), dist=(8, 1, 1))
+              for x in D["qkv"])),
     }
     out = {}
     for name, call in calls.items():
@@ -779,6 +1079,21 @@ def _jax_legs():
         else:
             out[name] = (np.asarray(v), None)
     return out
+
+
+def _jax_ring_hop():
+    """The JAX child's ``run_spmd`` + ``pshift(+1)`` over all 8 ranks, on
+    the legs' blocks (2N a rank)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import jax
+    from distributedarrays_tpu.parallel import collectives as JC
+    mesh = JC.spmd_mesh(8, "x")
+    ring = JC.run_spmd(lambda x: JC.pshift(x, "x", 1), mesh,
+                       in_specs=P("x"), out_specs=P("x"))
+    x = LEGS.data(8)["P"]
+    arr = jax.make_array_from_callback(x.shape, NamedSharding(mesh, P("x")),
+                                       lambda idx: x[idx])
+    return np.asarray(ring(arr)).reshape(8, 16)
 
 
 _JAX_LEGS: dict = {}
@@ -810,9 +1125,21 @@ def _check_leg(results, name, N, jax_ref=None):
             continue
         _same(got, ref, name)
         want, tol = _oracles(N)[name]
-        _close(_values(got), want, tol, name)
+        if isinstance(got, dict):
+            # a list of rank tensors: this process's ranks' (4 a process;
+            # each leg's mesh lists the ranks in order from rank 0)
+            assert sorted(got) == [i for i, _ in enumerate(want)
+                                   if i // 4 == r["proc"]], (name, sorted(got))
+            for i, t in got.items():
+                _close(t, want[i], tol, f"{name}[{i}]")
+        else:
+            _close(_values(got), want, tol, name)
         if jax_ref is not None and name in jax_ref:
             jv, jlay = jax_ref[name]
+            if isinstance(got, dict):
+                _close(np.stack([got[i] for i in sorted(got)]),
+                       np.asarray(jv)[sorted(got)], tol, name)
+                continue
             _close(_values(got), jv, tol, name)
             if jlay is not None:
                 assert got[1] == jlay, name
@@ -844,10 +1171,21 @@ SKIP_TIMEOUT_S = 5
 def test_job_skipped_exchange_fails_within_the_store_timeout(tmp_path):
     # a process that enters a region call its peer skips raises within
     # the job's timeout instead of hanging
+    _skipped_call_raises(tmp_path, "region")
+
+
+def test_job_skipped_rank_list_collective_fails_within_the_store_timeout(
+        tmp_path):
+    # the same for a rank-list collective: a pshift in run_spmd that one
+    # process enters and the other skips
+    _skipped_call_raises(tmp_path, "pshift")
+
+
+def _skipped_call_raises(tmp_path, what: str) -> None:
     child = os.path.join(os.path.dirname(__file__), "_torch_mh_skip_child.py")
     store = str(tmp_path / "store")
     procs = [subprocess.Popen(
-        [sys.executable, child, store, str(i), str(SKIP_TIMEOUT_S)],
+        [sys.executable, child, store, str(i), str(SKIP_TIMEOUT_S), what],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=_env()) for i in range(2)]
     try:
@@ -928,5 +1266,15 @@ def test_c22_integer_and_bool_mean_correctly_rounded(case):
 
 
 def test_job3_unported_ops_raise_with_the_queue_entry(job3):
+    # the ops that raised here until they were ported on the rank-list
+    # exchange now give every process the single-process port's result on
+    # 12 ranks (pshift's direction at p = 12, K/V blocks passing through
+    # ranks that are not their owner's neighbours); the flash and zigzag
+    # rings still raise with the queue entry
+    ref = _port_legs(12)
     for r in job3:
         assert r["unported"] == {k: "NotImplementedError" for k in UNPORTED}
+        for op, legs in ON_RANK_LISTS.items():
+            assert op not in r["unported"]
+            for leg in legs:
+                _same(r["ported"][leg], ref[leg], leg)
