@@ -5745,6 +5745,376 @@ def _check_legs(res, ref) -> None:
         raise AssertionError(f"ring attention: {k9} K9 compute steps, not 10")
 
 
+# --- the multihost phase's sequence-parallel training legs ---------------
+
+MH_FFN = (2048, 1024, 1024)   # tp_ffn a rank: x (s_loc, e), w1 (e, f_loc)
+MH_TRAIN_SEED = MH_SEED + 12
+MH_FFN_TOL = 1e-2      # bf16 tp_ffn (h and gelu(h) rounded) vs its f32 product
+
+
+def _rank_blocks(tdat, x: torch.Tensor, dim: int = 0) -> list:
+    """``x`` cut into one block a rank along ``dim``: this process's ranks'
+    as contiguous tensors on their devices, another process's as ``meta``
+    placeholders."""
+    out = []
+    for r, c in enumerate(x.chunk(tdat.nranks(), dim)):
+        dev = tdat.layout.device_of(r)
+        out.append(torch.empty(c.shape, dtype=c.dtype, device=dev)
+                   if dev.type == "meta" else c.to(dev).contiguous())
+    return out
+
+
+def _with_grads(fn, blocks, cot) -> dict:
+    """``fn(*blocks)`` (rank lists in, a rank list out) and the gradients
+    of ``sum_r <out_r, cot_r>`` over this process's ranks with respect to
+    each rank list of ``blocks`` (``value_and_grad``: in a job the backward
+    on the calling thread), as ``{"out": ..., "d0": ..., ...}``."""
+    from distributedarrays_tpu_torch.models._autodiff import value_and_grad
+    own = [r for r, c in enumerate(cot) if c.device.type != "meta"]
+    got = {}
+
+    def loss():
+        got["out"] = fn(*blocks)
+        acc = None
+        for r in own:
+            term = (got["out"][r].float() * cot[r].float()).sum()
+            acc = term if acc is None else acc + term
+        return acc
+    _, grads = value_and_grad(loss, [b[r] for b in blocks for r in own])
+    got["out"] = [o.detach() for o in got["out"]]
+    for i, b in enumerate(blocks):
+        d = [torch.empty_like(x) for x in b]
+        for j, r in enumerate(own):
+            d[r] = grads[i * len(own) + j]
+        got[f"d{i}"] = d
+    return got
+
+
+def _train_inputs(tdat, dev) -> dict:
+    """The training legs' inputs, the same on one process and on the 4
+    (drawn whole from fixed seeds on every process, each process keeping
+    its ranks' blocks): q, k, v and the cotangent (S = 8192, 16 x 64 bf16,
+    as rank blocks), ``tp_ffn``'s x, w1, w2 and cotangent (``MH_FFN``
+    bf16), and the SP model (``SP_CFG`` bf16, phase 7d's weights) with its
+    tokens (1, 8192), contiguous and zigzag."""
+    SP = tdat.sp_transformer
+    S, H, D = MH_ATTN
+    s_loc, e, f_loc = MH_FFN
+    p = tdat.nranks()
+    gen = torch.Generator(device=dev).manual_seed(MH_TRAIN_SEED)
+
+    def whole(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).bfloat16()
+    inp = {"qkvg": [_rank_blocks(tdat, whole(S, H, D)) for _ in range(4)],
+           "ffn": [_rank_blocks(tdat, whole(p * s_loc, e)),
+                   _rank_blocks(tdat, whole(e, p * f_loc) / e ** 0.5, 1),
+                   _rank_blocks(tdat, whole(p * f_loc, e)
+                                / (p * f_loc) ** 0.5),
+                   _rank_blocks(tdat, whole(p * s_loc, e))]}
+    cfg = SP.SPConfig(*SP_CFG, torch.bfloat16)
+    mgen = torch.Generator(device=dev).manual_seed(11)
+    inp["model"] = SP.init_params(cfg, mgen, dev)
+    inp["tokens"] = torch.randint(0, cfg.vocab, (1, SP_CFG[5]),
+                                  generator=mgen, device=dev,
+                                  dtype=torch.int32)
+    inp["ztokens"] = inp["tokens"][:, torch.from_numpy(
+        tdat.zigzag_order(SP_CFG[5], p)).to(dev)]
+    return inp
+
+
+def _train_calls(tdat, inp) -> list:
+    """``(name, call)`` of the training legs, in the order every process
+    runs them: the flash and zigzag rings (causal) and ``tp_ffn`` forward
+    and backward on rank lists, and the SP model: a gradient step
+    contiguous and zigzag, and one SGD step, each from the same weights.
+    Each call returns ``{key: rank list or 0-d tensor}``."""
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    SP = tdat.sp_transformer
+    ranks = list(range(tdat.nranks()))
+    q, k, v, g = inp["qkvg"]
+    x, w1, w2, gy = inp["ffn"]
+    cfg = SP.SPConfig(*SP_CFG, torch.bfloat16)
+    zcfg = SP.SPConfig(*SP_CFG, torch.bfloat16, zigzag=True)
+
+    def lists(per_rank):
+        return {n: [d[n] for d in per_rank] for n in per_rank[0]}
+
+    def grad(c, toks):
+        def run():
+            loss, grads = SP.make_grad_fn(ranks, c)(
+                SP.shard_params(inp["model"], ranks), toks)
+            return {"loss": loss, **lists(grads)}
+        return run
+
+    def sgd():
+        shards, loss = SP.make_train_step(ranks, cfg)(
+            SP.shard_params(inp["model"], ranks), inp["tokens"], SP_LR)
+        return {"loss": loss, **lists([dict(m.named_parameters())
+                                       for m in shards])}
+    return [
+        ("ring_flash", lambda: _with_grads(
+            lambda *b: RA.ring_flash_attention_kernel(*b, True),
+            [q, k, v], g)),
+        ("zigzag_flash", lambda: _with_grads(
+            RA.zigzag_ring_flash_attention_kernel, [q, k, v], g)),
+        ("tp_ffn", lambda: _with_grads(tdat.collective_matmul.tp_ffn,
+                                       [x, w1, w2], gy)),
+        ("sp_grad", grad(cfg, inp["tokens"])),
+        ("sp_grad_zigzag", grad(zcfg, inp["ztokens"])),
+        ("sp_sgd", sgd),
+    ]
+
+
+def _train_launches(layers: int, maxp: int) -> dict:
+    """Each training leg's launches a process (one rank a process of
+    ``MH_PROCS``): K8/K6/K7 hops (``sp_step_launches`` over the ranks),
+    K13/K14/K15 steps, the K10 exchanges on the cross-process route (the
+    flash ring's 3 forward and 4 backward rotations a layer; the loss's
+    token shifts (1, zigzag 2) and its ``preduce``; the replicated
+    gradients' ``preduces``, one exchange of 4 + 4 ``layers`` names from
+    each peer rank, launched ``maxp`` copies at a time), and the ring
+    GEMMs' forwards into the neighbour process's slot (3 a call)."""
+    hops = {False: 16 // MH_PROCS, True: 36 // MH_PROCS}
+    flash = lambda z, n: {"flash_attention_hop": hops[z] * n,
+                          "flash_attention_bwd_dq": hops[z] * n,
+                          "flash_attention_bwd_dkv": hops[z] * n,
+                          "all_gather": 7 * n}
+    gemm = lambda n: {k: 8 * n for k in (
+        "allgather_matmul", "allgather_matmul_rhs", "matmul_reducescatter")}
+    fwd = lambda n: {k + "_forward": 6 * n for k in (
+        "allgather_matmul", "allgather_matmul_rhs", "matmul_reducescatter")}
+    none = dict.fromkeys([*flash(False, 0), *gemm(0), *fwd(0)], 0)
+    shared = -(-(4 + 4 * layers) * (MH_PROCS - 1) // maxp)
+    step = lambda z: {**flash(z, layers), **gemm(layers), **fwd(layers),
+                      "all_gather": 7 * layers + (3 if z else 2) + shared}
+    return {"ring_flash": {**none, **flash(False, 1)},
+            "zigzag_flash": {**none, **flash(True, 1)},
+            "tp_ffn": {**none, **gemm(1), **fwd(1)},
+            "sp_grad": step(False), "sp_grad_zigzag": step(True),
+            "sp_sgd": step(False)}
+
+
+def _train_counts(kbuild) -> dict:
+    """This process's launches since the last reset of the kernels in
+    ``_train_launches``: the K10 launches off the cross-process route and
+    the K8/K6/K7/K13/K14/K15 launches off wgmma counted apart."""
+    lc, rc = kbuild.launch_counts(), kbuild.route_counts()
+    got = {}
+    for k in _train_launches(1, 1)["ring_flash"]:
+        if k.endswith("_forward"):
+            got[k] = rc[k]["cross_process"]
+            continue
+        got[k] = lc[k]
+        on = rc[k]["cross_process_region" if k == "all_gather" else "wgmma"]
+        if on != lc[k]:
+            got[k + "_off_route"] = lc[k] - on
+    return got
+
+
+def _train_digest(value) -> dict:
+    """The SHA-256 of each rank tensor this process holds (``key/rank``)
+    and of each 0-d value (``key``)."""
+    out = {}
+    for key, v in value.items():
+        if isinstance(v, torch.Tensor):
+            out[key] = _sha256(v)
+            continue
+        for r, t in enumerate(v):
+            if t.device.type != "meta":
+                out[f"{key}/{r}"] = _sha256(t)
+    return out
+
+
+def multihost_train(tdat, MH, CC, kbuild) -> dict:
+    """The sequence-parallel training legs across the processes (one
+    process of ``multihost_phase``): each called twice (first, then warm),
+    its launches held each time (``_train_launches``: this process's
+    ranks only, on the wgmma and cross-process routes), no mapping left
+    open, the digests of its values for the parent, and its readings: the
+    call's host ms and the ring steps' host ms (the gaps between a ring
+    GEMM's step barriers, and between the flash rings' exchanges) and the
+    host protocol's parts (``host_split``: the IPC opens and closes, the
+    store's handle exchanges and barriers)."""
+    want_all = _train_launches(SP_CFG[3], CC.copy_maxp())
+    out = {}
+    exchange, sync_hosts = MH.exchange, MH.sync_hosts
+    inp = _train_inputs(tdat, tdat.layout.local_device())
+    for name, call in _train_calls(tdat, inp):
+        want = want_all[name]
+
+        def run(tag):
+            marks = []
+            # the host protocol's parts: IPC opens and closes, the store's
+            # handle exchanges and barriers (ms, and the count of opens)
+            split = dict.fromkeys(("ipc_open", "ipc_close", "handles",
+                                   "barriers", "opens"), 0)
+
+            def timed(fn, key):
+                def wrapped(*a, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        split[key] += (time.perf_counter() - t) * 1e3
+                        split["opens"] += key == "ipc_open"
+                return wrapped
+
+            def rec_exchange(*a, **kw):
+                marks.append(("exchange", time.perf_counter()))
+                return exchange(*a, **kw)
+
+            def rec_sync(tag="sync"):
+                out_ = timed(sync_hosts, "barriers")(tag)
+                marks.append((tag, time.perf_counter()))
+                return out_
+            MH.sync_hosts(f"train_{tag}_{name}")
+            torch.cuda.synchronize()
+            kbuild.reset_launches()
+            saved = (CC._ipc_open, CC._ipc_close, MH._all_gather_json)
+            MH.exchange, MH.sync_hosts = rec_exchange, rec_sync
+            CC._ipc_open, CC._ipc_close, MH._all_gather_json = (
+                timed(f, k) for f, k in zip(saved, ("ipc_open", "ipc_close",
+                                                    "handles")))
+            try:
+                t0 = time.perf_counter()
+                value = call()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                MH.exchange, MH.sync_hosts = exchange, sync_hosts
+                CC._ipc_open, CC._ipc_close, MH._all_gather_json = saved
+            got = _train_counts(kbuild)
+            if got != want:
+                raise AssertionError(f"{name} ({tag} call): launches {got}, "
+                                     f"expected {want}")
+            if CC.open_mappings():
+                raise AssertionError(f"{name} ({tag} call) left "
+                                     f"{CC.open_mappings()} mappings open")
+            gemm = [(b - a) * 1e3 for (ta, a), (tb, b) in zip(marks,
+                                                               marks[1:])
+                    if ta == "ring_gemm_step" and tb.startswith("ring_gemm")]
+            ex = [t for tag_, t in marks if tag_ == "exchange"]
+            flash = [(b - a) * 1e3 for a, b in zip(ex, ex[1:])]
+            return value, ms, got, gemm, flash, split
+        value, first_ms, _, first_gemm, first_flash, first_split = run(
+            "first")
+        del value
+        value, ms, got, gemm, flash, split = run("warm")
+        out[name] = {"launches": got, "first_call_ms": first_ms,
+                     "call_ms": ms, "gemm_step_ms": gemm,
+                     "first_gemm_step_ms": first_gemm,
+                     "exchange_gap_ms": flash,
+                     "first_exchange_gap_ms": first_flash,
+                     "host_split": split, "first_host_split": first_split,
+                     "digest": _train_digest(value)}
+        del value
+        torch.cuda.empty_cache()
+    del inp
+    torch.cuda.empty_cache()
+    out["open_mappings_end"] = CC.open_mappings()
+    return out
+
+
+def multihost_train_reference(tdat) -> dict:
+    """The training legs on one process's 4 ranks of the card: each
+    result's digests (what the processes must reproduce bit for bit; a
+    second call must give the same), the host ms of a first and a second
+    call, the flash rings' outputs held against
+    ``scaled_dot_product_attention`` and ``tp_ffn``'s against its f32
+    product, at ``MH_ATTN_TOL`` and ``MH_FFN_TOL``."""
+    import torch.nn.functional as F
+    dev = tdat.layout.local_device()
+    inp = _train_inputs(tdat, dev)
+    ref = {}
+    for name, call in _train_calls(tdat, inp):
+        value, first_ms = _host_call_ms(call)
+        ref[name] = {"digest": _train_digest(value), "first_ms": first_ms}
+        del value
+        value, ref[name]["ms"] = _host_call_ms(call)
+        if _train_digest(value) != ref[name]["digest"]:
+            raise AssertionError(f"{name}: a second call on one process "
+                                 "gave other bits")
+        if name.startswith("sp_"):
+            del value
+            continue
+        got = torch.cat(value["out"])
+        if name == "tp_ffn":
+            x, w1, w2, _ = (torch.cat(b, d).float() for b, d in zip(
+                inp["ffn"], (0, 1, 0, 0)))
+            lib, tol = F.gelu(x @ w1, approximate="tanh") @ w2, MH_FFN_TOL
+        else:
+            q, k, v = (torch.cat(b).transpose(0, 1) for b in inp["qkvg"][:3])
+            if name == "zigzag_flash":
+                # the blocks hold the sequence in zigzag order
+                inv = torch.from_numpy(np.argsort(tdat.zigzag_order(
+                    q.shape[1], MH_PROCS))).to(dev)
+                q, k, v = (t[:, inv] for t in (q, k, v))
+                got = got[inv]
+            lib = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True).transpose(0, 1)
+            tol = MH_ATTN_TOL
+        ref[name]["library_err"] = _rel_fro(got, lib)
+        ref[name]["library_tol"] = tol
+        if not ref[name]["library_err"] <= tol:
+            raise AssertionError(f"{name}: one process on 4 ranks is "
+                                 f"{ref[name]['library_err']} from the "
+                                 f"library call (tolerance {tol})")
+        del value, got, lib
+    del inp
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _check_train(res, ref) -> None:
+    """Every process's training digests against one process on 4 ranks,
+    bit for bit, rank by rank: each process holds its own rank's tensors
+    and the loss."""
+    for r in res:
+        for name, want in ref.items():
+            got = r["train"][name]["digest"]
+            mine = {k for k in want["digest"] if "/" not in k or
+                    k.endswith(f"/{r['process']}")}
+            if set(got) != mine:
+                raise AssertionError(f"process {r['process']}: {name} "
+                                     f"holds {sorted(got)[:4]}...")
+            for k, sha in got.items():
+                if sha != want["digest"][k]:
+                    raise AssertionError(f"process {r['process']}: {name} "
+                                         f"{k} differs from one process's")
+        if r["train"]["open_mappings_end"]:
+            raise AssertionError(f"process {r['process']} left peer "
+                                 "mappings open after the training legs")
+
+
+def multihost_train_row(res, ref) -> dict:
+    """The training legs' readings across the 4 processes beside one
+    process on 4 ranks: launches a process, the whole call's host ms
+    (first, warm), the ring steps' host ms."""
+    rows = {}
+    for name, want in ref.items():
+        legs = [r["train"][name] for r in res]
+        rows[name] = {
+            "launches": legs[0]["launches"],
+            "bit_equal_one_process": True,
+            "call_ms": [x["call_ms"] for x in legs],
+            "first_call_ms": [x["first_call_ms"] for x in legs],
+            "one_process_ms": want["ms"],
+            "one_process_first_ms": want["first_ms"],
+            "gemm_step_ms_median": [
+                statistics.median(x["gemm_step_ms"])
+                if x["gemm_step_ms"] else None for x in legs],
+            "exchange_gap_ms_median": [
+                statistics.median(x["exchange_gap_ms"])
+                if x["exchange_gap_ms"] else None for x in legs],
+            "first_gemm_step_ms": legs[0]["first_gemm_step_ms"][:6],
+            "host_split": [x["host_split"] for x in legs],
+            "first_host_split": [x["first_host_split"] for x in legs],
+            "library_err": want.get("library_err"),
+            "library_tol": want.get("library_tol")}
+    return rows
+
+
 def multihost_child(port: int, proc: int, out_dir: str) -> int:
     """One process of ``multihost_phase`` (``--multihost-child PORT P
     DIR``): joins the job on the store at ``localhost:PORT``, runs the
@@ -5848,6 +6218,8 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
     res["ops"] = multihost_ops(tdat, MH, CC, kbuild, A, proc, out_dir)
     # 3c. the ops on the rank-list exchange, each against one process's
     res["legs"] = multihost_legs(tdat, MH, CC, kbuild, A, proc)
+    # 3d. sequence-parallel training, each leg against one process's
+    res["train"] = multihost_train(tdat, MH, CC, kbuild)
     A.close()
     torch.cuda.empty_cache()
 
@@ -5948,8 +6320,9 @@ def multihost_phase(tdat) -> dict:
     from distributedarrays_tpu_torch.utils import kbuild
     print(f"phase multihost ({MH_PROCS} processes on one card)")
     t_phase = time.perf_counter()
-    # K10/K11, and K9, K5 and K4 for the legs on the rank-list exchange
-    kbuild.build(["collectives", "attention", "gemm_int8"])
+    # K10/K11, and K9, K5 and K4 for the legs on the rank-list exchange,
+    # K8, K6, K7 and K13-K15 for the training legs
+    kbuild.build(["collectives", "attention", "attention_bwd", "gemm_int8"])
     # the single-process port on 4 ranks of the card: what the processes
     # must reproduce bit for bit
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5974,6 +6347,10 @@ def multihost_phase(tdat) -> dict:
     t_ref = time.perf_counter()
     legs_ref = multihost_legs_reference(tdat, A)
     print(f"multihost legs on one process: "
+          f"{time.perf_counter() - t_ref:.1f} s")
+    t_ref = time.perf_counter()
+    train_ref = multihost_train_reference(tdat)
+    print(f"multihost training legs on one process: "
           f"{time.perf_counter() - t_ref:.1f} s")
     tdat.d_closeall()
     del X, Y, Z, R
@@ -6061,6 +6438,7 @@ def multihost_phase(tdat) -> dict:
         raise AssertionError(f"the GEMM across processes differs from one "
                              f"process's by {ops0['gemm_max_abs_err']}")
     _check_legs(res, legs_ref)
+    _check_train(res, train_ref)
     for r in res:
         if r["legs"]["open_mappings_end"]:
             raise AssertionError(f"process {r['process']} left peer "
@@ -6121,16 +6499,26 @@ def multihost_phase(tdat) -> dict:
         "parent_free_gib": parent_free_gib,
         "trace": os.path.relpath(trace_path, root),
         "region": multihost_region_row(res, one, gemm_equal),
-        "legs": multihost_legs_row(res, legs_ref)}
+        "legs": multihost_legs_row(res, legs_ref),
+        "train": multihost_train_row(res, train_ref)}
     print(json.dumps({"multihost": row, "gpu": gpu_name()}))
     # each kernel's cross-process launches a process, leg by leg
     kern = {"all_gather": {}, "all_to_all": {}, "ring_attention": {},
-            "flash_attention": {}, "matmul_int8": {}}
+            "flash_attention": {}, "matmul_int8": {},
+            "flash_attention_hop": {}, "flash_attention_bwd_dq": {},
+            "flash_attention_bwd_dkv": {}, "allgather_matmul": {},
+            "allgather_matmul_rhs": {}, "matmul_reducescatter": {}}
     for name, leg in row["legs"].items():
         for k in kern:
             counts = [c.get(k, 0) for c in leg["launches"]]
             if any(counts):
                 kern[k][name] = counts
+    for name in row["train"]:
+        # the training legs' launches, the same on every process (held)
+        for k in kern:
+            counts = [r["train"][name]["launches"].get(k, 0) for r in res]
+            if any(counts):
+                kern[k]["train_" + name] = counts
     return {"launches": [r["launches"] for r in res], "row": row,
             "legs_kernels": kern,
             "region_launches": [
@@ -6635,8 +7023,9 @@ def main() -> int:
             kern["multihost_region_launches"] = mh["region_launches"]
             kern["multihost"] = mh["row"]
         if name in mh["legs_kernels"]:
-            # the cross-process legs' launches a process (K4, K5, K9, K10,
-            # K11), leg by leg; readings in the multihost row's "legs"
+            # the cross-process legs' launches a process (K4-K11, K13-K15),
+            # leg by leg; readings in the multihost row's "legs" and
+            # "train"
             kern["multihost_legs_launches"] = mh["legs_kernels"][name]
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))

@@ -90,9 +90,9 @@ from . import analysis, parallel, resilience, telemetry
 from .parallel import collectives, reshard, spmd_mode
 from .parallel.collectives import (axis_rank, axis_size, halo_exchange,
                                    halo_exchange_2d, pall_to_all, pbarrier,
-                                   pbcast, pgather, preduce, pshift,
-                                   pshifts, psum_scatter, run_spmd,
-                                   spmd_mesh)
+                                   pbcast, pconcat, pgather, preduce,
+                                   preduces, pshift, pshifts, psum_scatter,
+                                   run_spmd, spmd_mesh)
 from .parallel.spmd_mode import (SPMDContext, barrier, bcast, close_context,
                                  context, context_local_storage, gather_spmd,
                                  myid, nprocs, recvfrom, recvfrom_any,
@@ -144,7 +144,7 @@ __all__ = [
     "distribute", "copyto_", "dcat", "dfetch", "isassigned", "gather",
     "localpart", "localindices", "makelocal", "seed",
     "halo_exchange", "halo_exchange_2d", "pshift", "pshifts", "pgather",
-    "preduce",
+    "preduce", "preduces", "pconcat",
     "pall_to_all", "psum_scatter", "pbarrier", "pbcast", "axis_rank",
     "axis_size", "spmd_mesh", "run_spmd",
     "spmd", "spmd_async", "sendto", "recvfrom", "recvfrom_any", "barrier",

@@ -49,10 +49,9 @@ with it ``gather``/``full``/``np.asarray``, ``distribute`` of a DArray,
 ``reshape``, ``dcat`` and the advanced keys; an element (``d[i, j]``
 under ``allowscalar``, ``dfetch``) comes from its owner to every
 process.  Operators and ``dmap`` run on the local chunks, and the memory
-ledger counts the local tensors only.  An op with no cross-process form
-raises ``NotImplementedError`` when it meets a process-spanning DArray
-(``part`` of a remote cell does, and ``cross_process_unported`` at the
-ops' entries), instead of gathering quietly.
+ledger counts the local tensors only.  ``part`` of a remote cell raises
+``NotImplementedError``, so an op that reads another process's chunk
+without a cross-process form fails instead of gathering quietly.
 """
 
 from __future__ import annotations
@@ -163,20 +162,8 @@ def _gen(rank: int) -> torch.Generator | None:
 # DArray
 # ---------------------------------------------------------------------------
 
-# the queue entry that lists the ops still to gain a cross-process form
+# the queue entry of the ops' cross-process forms
 _CROSS_PROCESS_QUEUE = "ROADMAP.md queue A, 'Cross-process forms'"
-
-
-def cross_process_unported(what: str, *args) -> None:
-    """Raise ``NotImplementedError`` when a DArray among ``args`` spans
-    controller processes: ``what`` has no cross-process form yet.  The
-    test is the same on every process (``layout.spans_processes``)."""
-    for a in args:
-        if isinstance(a, DArray) and L.spans_processes(a.pids):
-            raise NotImplementedError(
-                f"{what} of a DArray that spans controller processes is "
-                f"not ported yet ({_CROSS_PROCESS_QUEUE}); gather it with "
-                "multihost.gather_global first")
 
 
 def _finalize(did):

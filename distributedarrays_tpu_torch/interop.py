@@ -59,11 +59,12 @@ def to_reference(d: DArray) -> dict:
 def params_from_reference(np_params: dict, cfg, device=None):
     """The port's ``Transformer`` for ``cfg`` holding the JAX parameter
     pytree ``np_params`` (numpy arrays of any float type), cast to
-    ``cfg.dtype`` on ``device`` (default: rank 0's device)."""
+    ``cfg.dtype`` on ``device`` (default: this process's first rank's
+    device, rank 0's in one process)."""
     from .models.transformer import Transformer
     if device is None:
-        from .layout import device_of
-        device = device_of(0)
+        from .layout import local_device
+        device = local_device()
     model = Transformer(cfg, device)
     if len(np_params["blocks"]) != cfg.layers:
         raise ValueError(f"{len(np_params['blocks'])} blocks for a config of "

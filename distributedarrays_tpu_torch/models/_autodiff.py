@@ -11,6 +11,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..parallel import multihost
+
 __all__ = ["value_and_grad", "sgd_", "f32_opt_init", "f32_opt_update_"]
 
 
@@ -18,12 +20,19 @@ def value_and_grad(fn: Callable[[], torch.Tensor],
                    leaves: Sequence[torch.Tensor]):
     """``(fn(), d fn() / d leaves)``.  The leaves are leaf tensors; they are
     switched to ``requires_grad`` for the call and back after, so a model
-    whose parameters serve without a graph trains all the same."""
+    whose parameters serve without a graph trains all the same.  In a job
+    of several controller processes the backward runs on the calling
+    thread alone: the engine then takes the ready nodes by their sequence
+    numbers (the order in which the forward made them), the same on every
+    process (each builds the same graph), so the collectives inside the
+    ring Functions' backwards and the sums of gradients come in the same
+    order everywhere."""
     flags = [t.requires_grad for t in leaves]
     try:
         for t in leaves:
             t.requires_grad_(True)
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.autograd.set_multithreading_enabled(
+                not multihost.in_job()):
             value = fn()
             grads = torch.autograd.grad(value, leaves)
     finally:

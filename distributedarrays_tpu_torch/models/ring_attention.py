@@ -7,7 +7,7 @@ resident with an online softmax (running max m, normaliser l, accumulator
 o), and the K/V blocks move one rank to the right between steps.
 
 - ``ring_attention_kernel(q_blocks, k_blocks, v_blocks, causal, scale)``:
-  the plain ring over a rank list, ``pshift`` rotating K/V, with the
+  the plain ring over a rank list, ``pshifts`` rotating K/V, with the
   numerics of the JAX ``_online_accumulate`` (q scaled in its own type,
   then f32; f32 products and softmax).  It is the plain version of K9.
 - ``ring_step_plan(p, b, rank, step, causal)``: which block rank ``rank``
@@ -26,12 +26,14 @@ o), and the K/V blocks move one rank to the right between steps.
 - ``ring_flash_attention_kernel(q_blocks, k_blocks, v_blocks, causal,
   scale)``: the ring as p flash hops per rank (K8,
   ``ops.cuda_attention.flash_attention_hop``) with the (m, l, acc) carry
-  resident and the K/V blocks rotating by ``pshift`` (a plain copy between
-  ranks, as ``lax.ppermute`` is no Pallas kernel).  Differentiable: the
-  FlashAttention-2 ring backward (``_ring_flash_core``'s VJP) runs p hops
-  of K6 + K7 (``flash_attention_hop_bwd``) from the saved output and lse;
-  dq accumulates on its rank, the f32 dk/dv accumulators travel with their
-  K/V blocks, and one extra rotation brings them home.
+  resident and the K and V blocks rotating together by one ``pshifts`` a
+  step (a plain copy between ranks, as ``lax.ppermute`` is no Pallas
+  kernel).  Differentiable: the FlashAttention-2 ring backward
+  (``_ring_flash_core``'s VJP) runs p hops of K6 + K7
+  (``flash_attention_hop_bwd``) from the saved output and lse; dq
+  accumulates on its rank, the f32 dk/dv accumulators travel with their
+  K/V blocks (K, V, dK and dV in one ``pshifts`` a step), and one extra
+  rotation brings them home.
 - The zigzag layout (``zigzag_order``, ``zigzag_shard``,
   ``zigzag_unshard``): rank i holds sequence chunks i and 2p-1-i, so causal
   work is balanced.  ``zigzag_ring_attention_kernel`` is the plain
@@ -57,9 +59,30 @@ and passes the mapped slot's address as the step's forward target; the
 steps are ordered across processes by a stream sync and a store barrier
 after each (``multihost.sync_hosts``), and the mappings close before the
 call's closing barrier.  Off the card the plain ring runs on the
-cross-process ``pshifts``.  The flash rings (``ring_flash_attention``,
-the zigzag rings) stay within one process and raise the typed
-``NotImplementedError`` in a job (ROADMAP queue A).
+cross-process ``pshifts``.  The flash rings take their hops (K8 forward,
+K6 + K7 backward) for this process's ranks only, another process's carry,
+outputs and gradients being placeholders, and their rotations are the
+cross-process ``pshifts`` (one exchange a step: one K10 launch a process
+on the card); the plain zigzag ring skips the placeholder ranks and runs
+on the same ``pshifts``, which are differentiable in a job (the backward
+shifts the gradients back).
+
+Every process must enter those exchanges in the same order.  Forward,
+the program order fixes it.  Backward, every collective sits inside
+``_FlashRing.backward`` (or a ``pshifts`` node of a plain ring, or the
+ring GEMMs' Functions in ``ops.collective_matmul``), and every process's
+loss reaches every such node: the flash rings are one Function, each rank
+of the zigzag ring works at every step, and the causal contiguous plain
+ring, whose plan leaves rank 0 nothing after step 0, ties each output to
+the blocks of its last rotation (``_Tie``).  Each such node needs
+the gradients of all its outputs, which come through the nodes of the
+layers after it, so in a model the ring nodes form one chain and run in
+the same order everywhere; and the model train steps run the backward on
+the calling thread (``models._autodiff.value_and_grad``), where the
+engine takes the ready nodes by their sequence numbers (the order in
+which the forward made them), the same on every process, since each
+builds the same graph (placeholders stand in for the other processes'
+tensors).
 
 Two behaviours of the JAX package are not carried over.  Its
 ``ring_attention`` falls back from the RDMA kernel to the XLA ring when
@@ -81,7 +104,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
-from ..darray import DArray, cross_process_unported, distribute
+from ..darray import DArray, distribute
 from ..ops.cuda_attention import (MAX_HEAD_DIM, flash_attention_hop,
                                   flash_attention_hop_bwd,
                                   flash_carry_finalize, flash_carry_init,
@@ -89,7 +112,7 @@ from ..ops.cuda_attention import (MAX_HEAD_DIM, flash_attention_hop,
 from ..ops import cuda_collectives as CC
 from ..ops.cuda_collectives import _Order
 from ..parallel import multihost
-from ..parallel.collectives import pshift, pshifts
+from ..parallel.collectives import pshifts
 from ..utils import kbuild
 from ..parallel.reshard import relayout_parts
 
@@ -185,7 +208,7 @@ def ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
                           causal: bool = False, scale: float | None = None
                           ) -> list[torch.Tensor]:
     """The plain ring: rank r's output (b, h, d) for rank r's q block, the
-    K/V blocks moving one rank to the right (``pshift``) after each step;
+    K/V blocks moving one rank to the right (``pshifts``) after each step;
     the steps ``ring_step_plan`` skips are not accumulated."""
     p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
     sc = 1.0 / math.sqrt(dh) if scale is None else float(scale)
@@ -212,11 +235,33 @@ def ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
         if step < p - 1:
             kc, vc = pshifts([kc, vc], 1)
     outs = []
-    for q, lr, orr in zip(q_blocks, l, o):
+    for q, lr, orr, kr, vr in zip(q_blocks, l, o, kc, vc):
         lr = torch.where(lr == 0.0, 1.0, lr)
-        outs.append((orr / lr[:, :, None]).to(q.dtype).transpose(0, 1)
-                    .contiguous())
+        out = (orr / lr[:, :, None]).to(q.dtype).transpose(0, 1).contiguous()
+        if out.requires_grad:
+            out = _Tie.apply(out, kr, vr)
+        outs.append(out)
     return outs
+
+
+class _Tie(torch.autograd.Function):
+    """``out`` unchanged, hung on the K/V blocks resident at the ring's
+    last step with no gradient to them.  A causal plan skips every step
+    after the first on rank 0, so without it a process holding only rank 0
+    would leave the later rotations out of its graph: in a job it would
+    not enter their backward exchanges (its peers would wait out the
+    store timeout) and would miss the other ranks' dK/dV.  With it every
+    process's loss reaches every rotation; in one process it changes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, out, *deps):
+        ctx.ndeps = len(deps)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad, *[None] * ctx.ndeps)
 
 
 def ring_attention_rdma(q_blocks: Sequence[torch.Tensor],
@@ -418,6 +463,12 @@ def _bwd_inputs(gs, ohs, dtype):
     return dd, gh
 
 
+def _real(t: torch.Tensor) -> bool:
+    """Whether this process holds the rank's tensor (in a job another
+    process's ranks are ``meta`` placeholders)."""
+    return t.device.type != "meta"
+
+
 class _FlashRing(torch.autograd.Function):
     """A ring of flash hops over rank lists, differentiable: K8 hops
     forward, K6 + K7 hops backward (``_ring_flash_core`` and
@@ -425,10 +476,13 @@ class _FlashRing(torch.autograd.Function):
     blocks are cut into ``parts`` equal row parts; ``hops(p, b, r, src)``
     lists the hops rank r takes against the K/V block from rank ``src`` as
     ``(q part, k part, q offset, k offset, causal)``, in order.  The f32
-    (m, l, acc) carry of each q part stays on its rank and the K/V blocks
-    move one rank right after each step; backward, dq accumulates on its
-    rank, the f32 dk/dv accumulators travel with their blocks and one more
-    rotation after the last step brings them home."""
+    (m, l, acc) carry of each q part stays on its rank and the K and V
+    blocks move one rank right after each step, together in one
+    ``pshifts``; backward, dq accumulates on its rank, the f32 dk/dv
+    accumulators travel with their blocks (K, V, dK and dV in one
+    ``pshifts`` a step) and one more rotation of dK and dV after the last
+    step brings them home.  Only the ranks this process holds take hops;
+    another process's carry, outputs and gradients are placeholders."""
 
     @staticmethod
     def forward(ctx, hops, parts, scale, *blocks):
@@ -438,22 +492,27 @@ class _FlashRing(torch.autograd.Function):
         m = b // parts
         part = lambda x, i: x[:, i * m:(i + 1) * m]
         qh, kh, vh = _heads_first(qs), _heads_first(ks), _heads_first(vs)
+        mine = [r for r in range(p) if _real(qh[r])]
         kc, vc = kh, vh
-        carry = [[flash_carry_init(h, m, dh, device=x.device)
-                  for _ in range(parts)] for x in qh]
+        carry = {r: [flash_carry_init(h, m, dh, device=qh[r].device)
+                     for _ in range(parts)] for r in mine}
         for step in range(p):
-            for r in range(p):
+            for r in mine:
                 for qi, ki, qoff, koff, causal in hops(p, b, r,
                                                        (r - step) % p):
                     flash_attention_hop(part(qh[r], qi), part(kc[r], ki),
                                         part(vc[r], ki), *carry[r][qi], qoff,
                                         koff, causal, scale)
             if step < p - 1:
-                kc, vc = pshift(kc, 1), pshift(vc, 1)
+                kc, vc = pshifts([kc, vc], 1)
         dt = qs[0].dtype
         ohs, lses = [], []
-        for c in carry:
-            fin = [flash_carry_finalize(*x, dt) for x in c]
+        for r, x in enumerate(qh):
+            if r not in carry:
+                ohs.append(torch.empty(x.shape, dtype=dt, device=x.device))
+                lses.append(torch.empty((h, b), device=x.device))
+                continue
+            fin = [flash_carry_finalize(*c, dt) for c in carry[r]]
             ohs.append(torch.cat([o for o, _ in fin], dim=1))
             lses.append(torch.cat([lse for _, lse in fin], dim=1))
         ctx.hops, ctx.parts, ctx.scale = hops, parts, scale
@@ -468,6 +527,7 @@ class _FlashRing(torch.autograd.Function):
         h, b, dh = qh[0].shape
         m = b // parts
         part = lambda x, i: x[:, i * m:(i + 1) * m]
+        mine = [r for r in range(p) if _real(qh[r])]
         dd, gh = _bwd_inputs(gs, ohs, qh[0].dtype)
         # the kernels take each part's lse and dd rows contiguous
         dd = [[part(x, i).contiguous() for i in range(parts)] for x in dd]
@@ -476,7 +536,7 @@ class _FlashRing(torch.autograd.Function):
         dk = [torch.zeros_like(x) for x in dq]
         dv = [torch.zeros_like(x) for x in dq]
         for step in range(p):
-            for r in range(p):
+            for r in mine:
                 for qi, ki, qoff, koff, causal in ctx.hops(p, b, r,
                                                            (r - step) % p):
                     c = flash_attention_hop_bwd(
@@ -487,8 +547,9 @@ class _FlashRing(torch.autograd.Function):
                     part(dk[r], ki).add_(c[1])
                     part(dv[r], ki).add_(c[2])
             if step < p - 1:
-                kc, vc = pshift(kc, 1), pshift(vc, 1)
-            dk, dv = pshift(dk, 1), pshift(dv, 1)
+                kc, vc, dk, dv = pshifts([kc, vc, dk, dv], 1)
+            else:
+                dk, dv = pshifts([dk, dv], 1)
         dt = qh[0].dtype
         return (None, None, None, *_rows_first(dq, dt), *_rows_first(dk, dt),
                 *_rows_first(dv, dt))
@@ -509,8 +570,9 @@ def ring_flash_attention_kernel(q_blocks: Sequence[torch.Tensor],
                                 ) -> list[torch.Tensor]:
     """The flash ring: rank r's (b, h, d) output for its q block, as p K8
     hops per rank with the K/V blocks moving one rank to the right
-    (``pshift``) after each; differentiable in q, k and v (the FA2 ring
-    backward on K6 + K7 hops).  The plain hops for CPU tensors."""
+    (``pshifts``) after each; differentiable in q, k and v (the FA2 ring
+    backward on K6 + K7 hops).  The plain hops for CPU tensors; in a job,
+    this process's ranks' hops, another process's outputs placeholders."""
     qs, ks, vs = list(q_blocks), list(k_blocks), list(v_blocks)
     _check_blocks(qs, ks, vs)
     return list(_FlashRing.apply(_ring_hops(bool(causal)), 1, scale, *qs,
@@ -521,8 +583,7 @@ def ring_flash_attention(q: DArray, k: DArray, v: DArray,
                          causal: bool = False) -> DArray:
     """Exact attention over sequence-sharded (seq, heads, d) DArrays as p
     flash hops per rank (K8 on CUDA ranks) with the (m, l, acc) carry
-    resident and the K/V blocks rotating by ``pshift``."""
-    cross_process_unported("the flash ring attention", q, k, v)
+    resident and the K/V blocks rotating by ``pshifts``."""
     qb, kb, vb = _seq_blocks(q, k, v)
     return _like(q, ring_flash_attention_kernel(qb, kb, vb, causal))
 
@@ -601,22 +662,25 @@ def zigzag_ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
     """The plain causal zigzag ring: rank r's (b, h, d) output for its
     zigzag pair, computing only the quadrants that can attend, with the
     JAX ``_online_accumulate`` numerics (q scaled in its own type, then
-    f32)."""
+    f32).  In a job, this process's ranks' quadrants, another process's
+    outputs placeholders; differentiable through ``pshifts``."""
     p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
     half = _zigzag_half(b)
     sc = 1.0 / math.sqrt(dh) if scale is None else float(scale)
     diag = torch.tril(torch.ones((half, half), dtype=torch.bool))
-    qf, carry = [], []
-    for q in q_blocks:
+    mine = [r for r in range(p) if _real(q_blocks[r])]
+    qf, carry = {}, {}
+    for r in mine:
+        q = q_blocks[r]
         f = (q * torch.tensor(sc, dtype=q.dtype, device=q.device)).float()
-        qf.append((f[:half], f[half:]))
-        carry.append([[torch.full((h, half), -math.inf, device=q.device),
-                       torch.zeros((h, half), device=q.device),
-                       torch.zeros((h, half, dh), device=q.device)]
-                      for _ in range(2)])
+        qf[r] = (f[:half], f[half:])
+        carry[r] = [[torch.full((h, half), -math.inf, device=q.device),
+                     torch.zeros((h, half), device=q.device),
+                     torch.zeros((h, half, dh), device=q.device)]
+                    for _ in range(2)]
     kc, vc = list(k_blocks), list(v_blocks)
     for step in range(p):
-        for r in range(p):
+        for r in mine:
             src = (r - step) % p
             for qi, ki, causal in _quadrants(r, src):
                 ks = slice(ki * half, (ki + 1) * half)
@@ -624,11 +688,14 @@ def zigzag_ring_attention_kernel(q_blocks: Sequence[torch.Tensor],
                     *carry[r][qi], qf[r][qi], kc[r][ks], vc[r][ks],
                     diag.to(qf[r][qi].device) if causal else None))
         if step < p - 1:
-            kc, vc = pshift(kc, 1), pshift(vc, 1)
+            kc, vc = pshifts([kc, vc], 1)
     outs = []
-    for q, c in zip(q_blocks, carry):
+    for r, q in enumerate(q_blocks):
+        if r not in carry:
+            outs.append(torch.empty_like(q))
+            continue
         halves = []
-        for _, l, o in c:
+        for _, l, o in carry[r]:
             l = torch.where(l == 0.0, 1.0, l)
             halves.append((o / l[:, :, None]).to(q.dtype))
         outs.append(torch.cat(halves, dim=1).transpose(0, 1).contiguous())
@@ -663,7 +730,6 @@ def zigzag_ring_flash_attention_kernel(q_blocks: Sequence[torch.Tensor],
 def _zigzag_blocks(q: DArray, k: DArray, v: DArray):
     """Validate zigzag-ordered sequence-sharded DArrays (the sequence
     divisible by twice the rank count) and return their rank blocks."""
-    cross_process_unported("the zigzag ring attention", q, k, v)
     for name, a in (("q", q), ("k", k), ("v", v)):
         if a.ndim != 3:
             raise ValueError(f"{name} must be (seq, heads, head_dim), "

@@ -16,6 +16,17 @@ ranks.  Activations stay sequence-sharded ``(b, s_loc, e)`` end to end:
 - loss: next-token cross-entropy, the shift crossing rank boundaries by
   ``pshift`` of the first token column, masked at the global end.
 
+The JAX program runs over any mesh, one that spans processes included.
+In a job of several controller processes (``parallel.multihost``) every
+process calls the same functions with the same tokens: ``shard_params``
+builds its own ranks' parameter sets (placeholders on the ``meta`` device
+for the other processes' ranks), the rings launch their kernels for its
+own ranks, each process differentiates its own ranks' partial losses
+(``make_grad_fn`` says why the processes' collectives stay in step), the
+loss and the replicated gradients come out the same bits as one process
+gives on the same ranks, and ``unshard`` gathers the whole dicts on every
+process.
+
 The batch folds into the heads for attention and into the rows for the
 FFN, as in the JAX model.  The gradient of the sum of the ranks' partial
 losses with respect to each rank's own parameter copy is the per-rank
@@ -39,9 +50,11 @@ from typing import Sequence
 
 import torch
 
+from .. import layout as L
 from ..layout import device_of
 from ..ops.collective_matmul import tp_ffn
-from ..parallel.collectives import preduce, pshift
+from ..parallel import multihost
+from ..parallel.collectives import pconcat, preduce, preduces, pshift
 from ._autodiff import f32_opt_init, f32_opt_update_, sgd_, value_and_grad
 from .ring_attention import (ring_flash_attention_kernel,
                              zigzag_ring_flash_attention_kernel)
@@ -86,10 +99,18 @@ def param_specs(cfg: SPConfig) -> dict[str, int | None]:
     return specs
 
 
+def _held(m: Transformer) -> bool:
+    """Whether this process holds the rank's parameters (in a job another
+    process's rank has a placeholder set on the ``meta`` device)."""
+    return m.embed.device.type != "meta"
+
+
 def shard_params(model: Transformer, ranks: Sequence[int]
                  ) -> list[Transformer]:
     """One parameter set per rank, on that rank's device: the replicated
-    parameters copied, w1's columns and w2's rows split in rank order."""
+    parameters copied, w1's columns and w2's rows split in rank order.  In
+    a job of several controller processes another process's rank gets a
+    placeholder set of the shard's shapes on the ``meta`` device."""
     ranks = list(ranks)
     cfg, p = model.cfg, len(ranks)
     specs = param_specs(cfg)
@@ -97,12 +118,13 @@ def shard_params(model: Transformer, ranks: Sequence[int]
     out = []
     for i, r in enumerate(ranks):
         shard = Transformer(cfg, device_of(r), ffn_shards=p)
-        with torch.no_grad():
-            for name, t in shard.named_parameters():
-                src = full[name]
-                if specs[name] is not None:
-                    src = src.tensor_split(p, specs[name])[i]
-                t.copy_(src)
+        if _held(shard):
+            with torch.no_grad():
+                for name, t in shard.named_parameters():
+                    src = full[name]
+                    if specs[name] is not None:
+                        src = src.tensor_split(p, specs[name])[i]
+                    t.copy_(src)
         out.append(shard)
     return out
 
@@ -110,11 +132,13 @@ def shard_params(model: Transformer, ranks: Sequence[int]
 def unshard(per_rank: Sequence[dict], cfg: SPConfig) -> dict:
     """Per-rank ``{name: tensor}`` dicts (parameters or gradients) as one
     dict of whole tensors on rank 0's device: the sharded ones concatenated
-    in rank order, the replicated ones rank 0's."""
-    dev = next(iter(per_rank[0].values())).device
-    return {name: per_rank[0][name] if dim is None else
-            torch.cat([d[name].to(dev) for d in per_rank], dim)
-            for name, dim in param_specs(cfg).items()}
+    in rank order, the replicated ones rank 0's (``pconcat``).  In a job of
+    several controller processes (another process's ranks' tensors are
+    placeholders) every process gets the whole dict on its own device, by
+    one exchange."""
+    specs = param_specs(cfg)
+    return dict(zip(specs, pconcat([[d[name] for d in per_rank]
+                                    for name in specs], specs.values())))
 
 
 def _positions(r: int, p: int, s_loc: int, zigzag: bool, device):
@@ -223,7 +247,7 @@ def loss_local(rank_params: Sequence[Transformer], tokens_loc,
 
 def _split_tokens(tokens, ranks: Sequence[int]) -> list[torch.Tensor]:
     """A ``(b, s)`` token array as p ``(b, s/p)`` chunks on the ranks'
-    devices."""
+    devices (in a job, a placeholder for another process's rank)."""
     tokens = torch.as_tensor(tokens)
     p = len(ranks)
     if tokens.ndim != 2 or tokens.shape[1] % p:
@@ -237,9 +261,29 @@ def make_grad_fn(ranks: Sequence[int], cfg: SPConfig):
     """``grad_fn(rank_params, tokens) -> (loss, grads)``: tokens ``(b, s)``
     split into ``s/p`` chunks over ``ranks``; ``grads[r]`` is rank r's
     ``{name: gradient}``, the replicated parameters' summed over ranks
-    (``preduce``: every rank the same bits), the FFN shards' its own."""
+    (``preduces``: every rank the same bits, one exchange in a job), the
+    FFN shards' its own.
+
+    In a job of several controller processes every process calls it with
+    the same tokens and ``shard_params``' sets (placeholders for the other
+    processes' ranks).  Each process differentiates the sum of its own
+    ranks' partial losses with respect to its own ranks' parameters; the
+    collectives inside the graph are those of the ring Functions
+    (``ring_attention._FlashRing``, ``collective_matmul``'s GEMMs), which
+    form one chain through the layers, forward and backward, and the
+    backward runs on the calling thread (``value_and_grad``), so every
+    process enters them in the same order.  The loss is the ranks' partials
+    folded in rank order (``preduce``), the bits of one process's sum;
+    another process's ranks' gradients are placeholders."""
     ranks = list(ranks)
     specs = param_specs(cfg)
+    if multihost.in_job():
+        idle = set(range(L.process_count())) - {L.process_of(r)
+                                                 for r in ranks}
+        if idle:
+            raise ValueError(f"processes {sorted(idle)} hold no rank of "
+                             f"{ranks}: in a job every process takes part in "
+                             "the step with a rank of its own")
 
     def grad_fn(rank_params, tokens):
         if len(rank_params) != len(ranks):
@@ -247,23 +291,35 @@ def make_grad_fn(ranks: Sequence[int], cfg: SPConfig):
                              f"{len(ranks)} ranks")
         toks = _split_tokens(tokens, ranks)
         names = [n for n, _ in rank_params[0].named_parameters()]
-        leaves = [t for m in rank_params for t in m.parameters()]
+        own = [i for i, m in enumerate(rank_params) if _held(m)]
+        leaves = [t for i in own for t in rank_params[i].parameters()]
+        parts = []
 
         def total():
-            parts = _loss_partial(rank_params, toks, cfg)
-            acc = parts[0]
-            for x in parts[1:]:
-                acc = acc + x.to(acc.device)
+            parts.extend(_loss_partial(rank_params, toks, cfg))
+            acc = parts[own[0]]
+            for i in own[1:]:
+                acc = acc + parts[i].to(acc.device)
             return acc
 
-        loss, flat = value_and_grad(total, leaves)
+        _, flat = value_and_grad(total, leaves)
+        # the ranks' partials folded in rank order, as one process adds
+        loss = preduce([x.detach().reshape(1) for x in parts])[
+            own[0]].reshape(())
         n = len(names)
-        grads = [dict(zip(names, flat[i * n:(i + 1) * n]))
-                 for i in range(len(rank_params))]
-        for name in names:
-            if specs[name] is None:
-                for g, s in zip(grads, preduce([g[name] for g in grads])):
-                    g[name] = s
+        grads, j = [], 0
+        for m in rank_params:
+            if _held(m):
+                grads.append(dict(zip(names, flat[j * n:(j + 1) * n])))
+                j += 1
+            else:
+                grads.append({name: torch.empty_like(t)
+                              for name, t in m.named_parameters()})
+        shared = [name for name in names if specs[name] is None]
+        for name, s in zip(shared, preduces([[g[name] for g in grads]
+                                             for name in shared])):
+            for g, x in zip(grads, s):
+                g[name] = x
         return loss, grads
 
     return grad_fn
@@ -283,7 +339,8 @@ def make_train_step(ranks: Sequence[int], cfg: SPConfig):
     def step(rank_params, tokens, lr):
         loss, grads = grad_fn(rank_params, tokens)
         for m, g in zip(rank_params, grads):
-            sgd_(*_leaves_and_grads(m, g), lr)
+            if _held(m):
+                sgd_(*_leaves_and_grads(m, g), lr)
         return rank_params, loss
 
     return step
@@ -299,11 +356,13 @@ def make_optax_train_step(ranks: Sequence[int], cfg: SPConfig, opt):
     grad_fn = make_grad_fn(ranks, cfg)
 
     def init(rank_params):
-        return [f32_opt_init(opt, list(m.parameters())) for m in rank_params]
+        return [f32_opt_init(opt, list(m.parameters())) if _held(m) else None
+                for m in rank_params]
 
     def step(rank_params, state, tokens):
         loss, grads = grad_fn(rank_params, tokens)
         state = [f32_opt_update_(opt, st, *_leaves_and_grads(m, g))
+                 if _held(m) else st
                  for m, st, g in zip(rank_params, state, grads)]
         return rank_params, state, loss
 

@@ -118,10 +118,11 @@ def init_params(cfg: Config, generator: torch.Generator | None = None,
                 device=None) -> Transformer:
     """Random parameters as the JAX ``init_params`` draws them: each matrix
     ``normal * sqrt(1 / fan_in)`` in the parameter type, norms at 1.  The
-    stream is ``generator``'s (on ``device``), not JAX's."""
+    stream is ``generator``'s (on ``device``: default this process's first
+    rank's device, rank 0's in one process), not JAX's."""
     if device is None:
-        from ..layout import device_of
-        device = device_of(0)
+        from ..layout import local_device
+        device = local_device()
     model = Transformer(cfg, device)
     dt = cfg.dtype
 

@@ -27,7 +27,20 @@ the ring once more; nothing gathered is saved):
 - y = RS(a_r @ w_r):  da_r = AG(dy) @ w_r^T (K13) and
   dw_r = a_r^T @ AG(dy) (K14),
 
-with the transposes taken as contiguous copies.  In the JAX package
+with the transposes taken as contiguous copies.
+
+In a job of several controller processes (``parallel.multihost``)
+another process's blocks are ``meta`` placeholders: each ring GEMM
+launches its kernel for this process's ranks only, storing the forwarded
+chunk or partial into the neighbour process's slot through a CUDA IPC
+mapping (``cuda_collectives._Ring``), or runs its plain ring on the
+cross-process ``pshift`` off the card; the results of another process's
+ranks are placeholders.  Each ring, forward or backward, is a call of
+every process, so ``allgather_matmul``, ``matmul_reducescatter`` and
+``tp_ffn`` are too; their backward rings run inside the two Functions'
+``backward`` (in a fixed order), which the autograd graph orders the same
+on every process (see ``models.ring_attention``).  The panel moves of
+Cannon (``_rotate``) are one ``pshifts`` exchange each.  In the JAX package
 ``tp_ffn`` calls its two GEMMs without ``rdma=True``: their ``lax`` rings,
 overlapped by XLA, and K13/K15 only when a caller arms them, forward-only.
 The port has no XLA to overlap a hop with a product, so the fused kernels
@@ -178,7 +191,8 @@ def tp_ffn(x_blocks: Sequence[torch.Tensor], w1_blocks: Sequence[torch.Tensor],
     and ``w2_r`` its ``(f_loc, e)`` row shard; rank r gets its ``(s_loc,
     e)`` shard of the output, and the ``(s, f_loc)`` activation is 1/p of
     the whole.  ``act`` defaults to GELU with the tanh approximation
-    (``jax.nn.gelu``'s default).  Differentiable."""
+    (``jax.nn.gelu``'s default).  Differentiable; in a job, a call of every
+    process (another process's shards placeholders)."""
     act = _gelu if act is None else act
     h = allgather_matmul(x_blocks, w1_blocks)          # (s, f_loc) per rank
     return matmul_reducescatter([act(x) for x in h], w2_blocks)

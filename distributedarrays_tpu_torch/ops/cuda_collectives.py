@@ -129,8 +129,22 @@ not used.
   one's for K15) takes ``wgmma_peer``: the forward by a copy launch of its
   own (K13, K14), or the sum stored element by element (K15).
 
-Steps that depend on each other are ordered by stream order on one card and
-by CUDA event waits across cards; no kernel waits on a flag set by another.
+  In a job of several controller processes (another process's blocks are
+  ``meta`` placeholders) each process launches the steps of its own ranks
+  (``_Ring``): it publishes the CUDA IPC handles of its ranks' two-slot
+  buffers once a call (with the route its operands allow; the least of
+  every process's is taken), a step whose slot is another process's
+  writes it through the mapping of that allocation (counted as
+  ``route_counts()["allgather_matmul_forward" |
+  "allgather_matmul_rhs_forward" | "matmul_reducescatter_forward"]
+  ["cross_process"]``), a stream sync and a store barrier end each step,
+  and the mappings close before the call's closing barrier.  Off the card
+  the plain rings run on the cross-process ``pshift``.  Another process's
+  results are placeholders.
+
+Steps that depend on each other are ordered by stream order on one card,
+by CUDA event waits across cards, and by a store barrier a step across
+processes; no kernel waits on a flag set by another.
 """
 
 from __future__ import annotations
@@ -811,7 +825,11 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
 
 def _ring_gemm_operands(what: str, x_blocks, w_blocks):
     """Common checks of a ring GEMM's rank lists: p > 0 blocks of each, one
-    2-D shape per operand; returns ``(x_blocks, w_blocks, on_cuda)``."""
+    2-D shape per operand; returns ``(x_blocks, w_blocks, on_cuda)``.  In a
+    job of several controller processes another process's blocks are
+    ``meta`` placeholders: ``on_cuda`` follows this process's blocks, and a
+    process that holds none follows its peers (the kernels where the job
+    runs on CUDA devices of one host)."""
     x_blocks, w_blocks = list(x_blocks), list(w_blocks)
     p = len(x_blocks)
     if p == 0 or len(w_blocks) != p:
@@ -824,7 +842,10 @@ def _ring_gemm_operands(what: str, x_blocks, w_blocks):
         raise ValueError(f"{what} needs one 2-D shape per operand, got "
                          f"{tuple(x0.shape)} and {tuple(w0.shape)} blocks "
                          "and others")
-    return x_blocks, w_blocks, _on_cuda(x_blocks + w_blocks)
+    held = [t for t in x_blocks + w_blocks if t.device.type != "meta"]
+    if not held and multihost.in_job():
+        return x_blocks, w_blocks, multihost._kernel_route()
+    return x_blocks, w_blocks, _on_cuda(held)
 
 
 def _check_kernel_operands(what: str, x_blocks, w_blocks):
@@ -884,14 +905,161 @@ def ring_tile_n(m: int, n: int, sms: int) -> int:
     return 64 if -(-m // 128) * -(-n // 128) <= sms // 2 else 128
 
 
-def _step_routes(route: str, devs, to: int = -1) -> list[str]:
+def _step_routes(route: str, cards, to: int = -1) -> list[str]:
     """Each rank's route, where rank r's step writes a slot of rank
     ``r + to`` (the left neighbour's for K13 and K14, the right one's,
-    ``to=1``, for K15): on another card the wgmma route takes
+    ``to=1``, for K15) and ``cards[r]`` names rank r's card (its device in
+    one process): on another card the wgmma route takes
     ``wgmma_peer``."""
-    p = len(devs)
-    return [("wgmma_peer" if route == "wgmma" and devs[(r + to) % p] != dev
-             else route) for r, dev in enumerate(devs)]
+    p = len(cards)
+    return [("wgmma_peer" if route == "wgmma" and cards[(r + to) % p] != c
+             else route) for r, c in enumerate(cards)]
+
+
+def _mm_rs_route(x_blocks, w_blocks, bufs, outs, p: int | None = None):
+    """K15's route, by ``ring_gemm_route`` over every TMA address of the
+    call: each step's x row block (rank r's row block d lies d m_loc k_loc
+    elements past x_r), every w, both receive slots of every rank's (2,
+    m_loc, n) buffer, and every (m_loc, n) output, over a ring of ``p``
+    ranks (default: one block a rank; in a job the lists hold this
+    process's ranks' alone).  Returns ``(route, rows)`` with ``rows[i][d]``
+    the address of ``x_blocks[i]``'s row block d."""
+    p = len(x_blocks) if p is None else p
+    (m, k_loc), n = x_blocks[0].shape, w_blocks[0].shape[1]
+    m_loc, isz = m // p, x_blocks[0].element_size()
+    rows = [[x.data_ptr() + d * m_loc * k_loc * isz for d in range(p)]
+            for x in x_blocks]
+    route = ring_gemm_route(
+        x_blocks[0].dtype, n, k_loc, [a for r in rows for a in r]
+        + [w.data_ptr() for w in w_blocks]
+        + [b.data_ptr() + q * m_loc * n * isz for b in bufs for q in (0, 1)]
+        + [o.data_ptr() for o in outs])
+    return route, rows
+
+
+def _card(dev: torch.device) -> str:
+    """The identity of ``dev``'s card across the processes of a host."""
+    props = torch.cuda.get_device_properties(dev)
+    return str(getattr(props, "uuid", dev.index))
+
+
+class _Ring:
+    """The plumbing of one ring GEMM call (K13, K14, K15) over the ranks on
+    ``devs``: each rank's two-slot buffer of ``shape`` (``(2, rows,
+    cols)``), the addresses of the slots, the step order and the route.
+    Rank r's step writes a slot of rank ``r + to`` (``to`` -1, the left
+    neighbour's, for K13 and K14; +1, the right one's, for K15).
+
+    In one process every rank takes its steps here; a launch waits for
+    its neighbours' previous steps (stream order on one card, ``_Order``'s
+    events across cards).  In a job of several controller processes
+    (another process's ranks are ``meta`` devices) only this process's
+    ranks have buffers and take steps.  Each process publishes the CUDA
+    IPC handles of its buffers once a call (``agree``), and a step whose
+    slot lies in another process's buffer writes it through the mapping
+    of that allocation (a cross-process forward, counted as
+    ``route_counts()[kernel + "_forward"]["cross_process"]``).  The steps
+    are ordered across processes by a stream sync and a store barrier
+    after each (``multihost.sync_hosts``): no rank reads a slot before the
+    step that writes it has finished, nor overwrites one a neighbour
+    still reads.  The mappings close after the last step's sync and
+    before the call's closing barrier, as ``process_regions``' do."""
+
+    def __init__(self, kernel: str, devs, shape, dtype, to: int):
+        self.kernel, self.devs, self.to = kernel, list(devs), to
+        self.job = multihost.in_job()
+        self.mine = [r for r, d in enumerate(self.devs) if d.type != "meta"]
+        p = len(self.devs)
+        self.bufs = {r: torch.empty(shape, dtype=dtype, device=self.devs[r])
+                     for r in self.mine} if p > 1 else {}
+        self.nbytes = shape[1] * shape[2] * dtype.itemsize    # a slot
+        self.peer: dict[int, tuple] = {}
+        self.mapped: dict[torch.device, _Mapped] = {}
+
+    def own_slots(self) -> list[int]:
+        """Both slots' addresses of every buffer this process holds."""
+        return [b.data_ptr() + s * self.nbytes for b in self.bufs.values()
+                for s in (0, 1)]
+
+    def slot(self, r: int, s: int, writer: int) -> int:
+        """The address of rank r's slot s, as rank ``writer``'s step sees
+        it."""
+        if r in self.bufs:
+            return self.bufs[r].data_ptr() + s * self.nbytes
+        hd, off, _ = self.peer[r]
+        dev = self.devs[writer]
+        m = self.mapped.setdefault(dev, _Mapped(dev))
+        return m.base(bytes.fromhex(hd)) + int(off) + s * self.nbytes
+
+    def forwarded(self, r: int) -> None:
+        """Count a launch that wrote a slot of rank r: a cross-process
+        forward when another process holds r."""
+        if r not in self.bufs:
+            kbuild.count_route(self.kernel + "_forward", "cross_process")
+
+    def agree(self, route: str) -> dict[int, str]:
+        """Each of this process's ranks' route from ``route``, the route
+        its own operands allow: in a job the least of every process's
+        (``kbuild.ROUTES`` order, so one that TMA cannot read anywhere
+        takes ``mma`` everywhere); on the wgmma route a rank whose step
+        writes a slot on another card takes ``wgmma_peer``
+        (``_step_routes``)."""
+        cards = self.devs
+        if self.job:
+            for dev in {self.devs[r] for r in self.mine}:
+                torch.cuda.synchronize(dev)      # buffers allocated
+            mine = {"route": route, "ranks": {}}
+            for r in self.mine:
+                hd, off = ipc_handle(self.bufs[r]) if self.bufs else (b"", 0)
+                mine["ranks"][str(r)] = [hd.hex(), off,
+                                         _card(self.devs[r])]
+            every = multihost._all_gather_json("ring_gemm", mine)
+            route = min((e["route"] for e in every),
+                        key=kbuild.ROUTES.index)
+            self.peer = {int(r): v for e in every
+                         for r, v in e["ranks"].items()}
+            cards = [self.peer[r][2] for r in range(len(self.devs))]
+        routes = _step_routes(route, cards, self.to)
+        return {r: routes[r] for r in self.mine}
+
+    def steps(self):
+        """``(t, r)`` for every step t of the ring and every rank r this
+        process holds, in launch order; the caller launches rank r's step
+        t in the loop's body."""
+        p = len(self.devs)
+        if not self.job:
+            order = _Order(self.devs)
+            done = [order.mark(d) for d in self.devs]   # buffers allocated
+            for t in range(p):
+                prev, done = done, []
+                for r, dev in enumerate(self.devs):
+                    # the neighbours' previous steps, which wrote the slot
+                    # this step reads and read the one it writes, are done
+                    order.wait(dev, [prev[(r - 1) % p], prev[(r + 1) % p]])
+                    yield t, r
+                    done.append(order.mark(dev))
+            return
+        devs = {self.devs[r] for r in self.mine}
+        try:
+            for t in range(p):
+                for r in self.mine:
+                    yield t, r
+                for dev in devs:
+                    torch.cuda.synchronize(dev)
+                if t < p - 1:
+                    multihost.sync_hosts("ring_gemm_step")
+        finally:
+            for m in self.mapped.values():
+                m.close()
+        multihost.sync_hosts("ring_gemm")
+
+    def streams(self) -> dict:
+        return {self.devs[r]: torch.cuda.current_stream(
+            self.devs[r]).cuda_stream for r in self.mine}
+
+    def tile_n(self, m: int, n: int) -> int:
+        return ring_tile_n(m, n, kbuild.sm_count(self.devs[self.mine[0]])) \
+            if self.mine else 128
 
 
 def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
@@ -900,7 +1068,9 @@ def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
     """``all_gather(x) @ w_r`` for every rank r, x's row chunks travelling
     the ring: the CUDA kernel (K13) for CUDA tensors, the plain version for
     CPU tensors.  ``x_r`` is (m_loc, k) and ``w_r`` (k, n); the result is
-    (p m_loc, n)."""
+    (p m_loc, n).  In a job of several controller processes each process
+    launches its own ranks' steps (``_Ring``) and another process's
+    results are placeholders."""
     what = "ring all-gather GEMM"
     x_blocks, w_blocks, cuda = _ring_gemm_operands(what, x_blocks, w_blocks)
     p = len(x_blocks)
@@ -914,36 +1084,28 @@ def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
     dtype = x_blocks[0].dtype
     isz = x_blocks[0].element_size()
     devs = [x.device for x in x_blocks]
-    order = _Order(devs)
+    ring = _Ring("allgather_matmul", devs, (2, m_loc, k), dtype, -1)
     outs = [torch.empty((p * m_loc, n), dtype=dtype, device=d) for d in devs]
-    bufs = [torch.empty((2, m_loc, k), dtype=dtype, device=d) for d in devs] \
-        if p > 1 else []
-    slots = [(b.data_ptr(), b.data_ptr() + m_loc * k * isz) for b in bufs]
-    xs, ws = [x.data_ptr() for x in x_blocks], [w.data_ptr() for w in w_blocks]
-    route = ring_gemm_route(
-        dtype, n, k, xs + ws + [q for s in slots for q in s]
-        + [o.data_ptr() + q * m_loc * n * isz for o in outs for q in range(p)])
-    routes = _step_routes(route, devs)
-    codes = [kbuild.RING_ROUTES.index(r) for r in routes]
-    tile_n = ring_tile_n(m_loc, n, kbuild.sm_count(devs[0]))
-    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
-    done = [order.mark(d) for d in devs]     # buffers allocated
+    xs = {r: x_blocks[r].data_ptr() for r in ring.mine}
+    ws = {r: w_blocks[r].data_ptr() for r in ring.mine}
+    routes = ring.agree(ring_gemm_route(
+        dtype, n, k, [*xs.values(), *ws.values(), *ring.own_slots()]
+        + [outs[r].data_ptr() + q * m_loc * n * isz for r in ring.mine
+           for q in range(p)]))
+    tile_n = ring.tile_n(m_loc, n)
+    streams = ring.streams()
     step = _fn("da_ring_ag_mm_a_step")
-    for t in range(p):
-        prev, done = done, []
-        for r, dev in enumerate(devs):
-            left, right = (r - 1) % p, (r + 1) % p
-            # the left neighbour finished with the slot written here, and
-            # the right one finished writing this rank's resident slot
-            order.wait(dev, [prev[left], prev[right]])
-            chunk = xs[r] if t == 0 else slots[r][t % 2]
-            fwd = slots[left][(t + 1) % 2] if t < p - 1 else None
-            src = (r + t) % p
-            rc = step(chunk, ws[r],
-                      outs[r].data_ptr() + src * m_loc * n * isz, fwd, m_loc,
-                      n, k, codes[r], tile_n, dev.index, streams[dev])
-            _launched(rc, what, "allgather_matmul", routes[r])
-            done.append(order.mark(dev))
+    for t, r in ring.steps():
+        dev = devs[r]
+        chunk = xs[r] if t == 0 else ring.slot(r, t % 2, r)
+        fwd = ring.slot((r - 1) % p, (t + 1) % 2, r) if t < p - 1 else None
+        src = (r + t) % p
+        rc = step(chunk, ws[r], outs[r].data_ptr() + src * m_loc * n * isz,
+                  fwd, m_loc, n, k, kbuild.RING_ROUTES.index(routes[r]),
+                  tile_n, dev.index, streams[dev])
+        _launched(rc, what, "allgather_matmul", routes[r])
+        if fwd is not None:
+            ring.forwarded((r - 1) % p)
     return outs
 
 
@@ -952,7 +1114,10 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
                               ) -> list[torch.Tensor]:
     """``a_r @ all_gather(b)`` for every rank r, b's chunks travelling the
     ring: the CUDA kernel (K14) for CUDA tensors, the plain version for CPU
-    tensors.  ``a_r`` is (m_loc, k) and ``b_r`` (k_loc, n), k = p k_loc."""
+    tensors.  ``a_r`` is (m_loc, k) and ``b_r`` (k_loc, n), k = p k_loc.
+    In a job of several controller processes each process launches its own
+    ranks' steps (``_Ring``) and another process's results are
+    placeholders."""
     what = "ring GEMM"
     a_blocks, b_blocks, cuda = _ring_gemm_operands(what, a_blocks, b_blocks)
     p = len(b_blocks)
@@ -966,56 +1131,30 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
     dtype = a_blocks[0].dtype
     isz = a_blocks[0].element_size()
     devs = [a.device for a in a_blocks]
-    order = _Order(devs)
+    ring = _Ring("allgather_matmul_rhs", devs, (2, k_loc, n), dtype, -1)
     outs = [torch.empty((m, n), dtype=dtype, device=d) for d in devs]
-    bufs = [torch.empty((2, k_loc, n), dtype=dtype, device=d) for d in devs]
-    slots = [(b.data_ptr(), b.data_ptr() + k_loc * n * isz) for b in bufs]
-    as_ = [a.data_ptr() for a in a_blocks]
-    bs = [b.data_ptr() for b in b_blocks]
-    route = ring_gemm_route(
-        dtype, n, k_loc, [a + q * k_loc * isz for a in as_ for q in range(p)]
-        + bs + [q for s in slots for q in s] + [o.data_ptr() for o in outs],
-        lda=k)
-    routes = _step_routes(route, devs)
-    codes = [kbuild.RING_ROUTES.index(r) for r in routes]
-    tile_n = ring_tile_n(m, n, kbuild.sm_count(devs[0]))
-    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
-    done = [order.mark(d) for d in devs]     # buffers allocated
+    as_ = {r: a_blocks[r].data_ptr() for r in ring.mine}
+    bs = {r: b_blocks[r].data_ptr() for r in ring.mine}
+    routes = ring.agree(ring_gemm_route(
+        dtype, n, k_loc, [a + q * k_loc * isz for a in as_.values()
+                          for q in range(p)]
+        + [*bs.values(), *ring.own_slots()]
+        + [outs[r].data_ptr() for r in ring.mine], lda=k))
+    tile_n = ring.tile_n(m, n)
+    streams = ring.streams()
     step = _fn("da_ring_ag_mm_step")
-    for t in range(p):
-        prev, done = done, []
-        for r, dev in enumerate(devs):
-            left, right = (r - 1) % p, (r + 1) % p
-            # the left neighbour finished with the slot written here, and
-            # the right one finished writing this rank's resident slot
-            order.wait(dev, [prev[left], prev[right]])
-            chunk = bs[r] if t == 0 else slots[r][t % 2]
-            fwd = slots[left][(t + 1) % 2] if t < p - 1 else None
-            rc = step(as_[r], chunk, outs[r].data_ptr(), fwd, m, n, k_loc, k,
-                      ((r + t) % p) * k_loc, int(t == 0), codes[r], tile_n,
-                      dev.index, streams[dev])
-            _launched(rc, what, "allgather_matmul_rhs", routes[r])
-            done.append(order.mark(dev))
+    for t, r in ring.steps():
+        dev = devs[r]
+        chunk = bs[r] if t == 0 else ring.slot(r, t % 2, r)
+        fwd = ring.slot((r - 1) % p, (t + 1) % 2, r) if t < p - 1 else None
+        rc = step(as_[r], chunk, outs[r].data_ptr(), fwd, m, n, k_loc, k,
+                  ((r + t) % p) * k_loc, int(t == 0),
+                  kbuild.RING_ROUTES.index(routes[r]), tile_n, dev.index,
+                  streams[dev])
+        _launched(rc, what, "allgather_matmul_rhs", routes[r])
+        if fwd is not None:
+            ring.forwarded((r - 1) % p)
     return outs
-
-
-def _mm_rs_route(x_blocks, w_blocks, bufs, outs):
-    """K15's route, by ``ring_gemm_route`` over every TMA address of the
-    call: each step's x row block (rank r's row block d lies d m_loc k_loc
-    elements past x_r), every w, both receive slots of every rank's (2,
-    m_loc, n) buffer, and every (m_loc, n) output.  Returns ``(route,
-    rows)`` with ``rows[r][d]`` the address of rank r's row block d."""
-    p = len(x_blocks)
-    (m, k_loc), n = x_blocks[0].shape, w_blocks[0].shape[1]
-    m_loc, isz = m // p, x_blocks[0].element_size()
-    rows = [[x.data_ptr() + d * m_loc * k_loc * isz for d in range(p)]
-            for x in x_blocks]
-    route = ring_gemm_route(
-        x_blocks[0].dtype, n, k_loc, [a for r in rows for a in r]
-        + [w.data_ptr() for w in w_blocks]
-        + [b.data_ptr() + q * m_loc * n * isz for b in bufs for q in (0, 1)]
-        + [o.data_ptr() for o in outs])
-    return route, rows
 
 
 def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
@@ -1024,7 +1163,11 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
     """Row block ``r`` of ``sum_q x_q @ w_q`` for every rank r, the partials
     travelling the ring: the CUDA kernel (K15) for CUDA tensors, the plain
     version for CPU tensors.  ``x_r`` is (m, k_loc) with p dividing m and
-    ``w_r`` (k_loc, n); the result is (m / p, n)."""
+    ``w_r`` (k_loc, n); the result is (m / p, n).  In a job of several
+    controller processes each process launches its own ranks' steps
+    (``_Ring``; a partial whose next rank is another process's is stored
+    into that process's slot) and another process's results are
+    placeholders."""
     what = "ring GEMM + reduce-scatter"
     x_blocks, w_blocks, cuda = _ring_gemm_operands(what, x_blocks, w_blocks)
     p = len(x_blocks)
@@ -1038,35 +1181,31 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
         return matmul_reducescatter_plain(x_blocks, w_blocks)
     _check_kernel_operands(what, x_blocks, w_blocks)
     dtype = x_blocks[0].dtype
-    m_loc = m // p
+    m_loc, isz = m // p, x_blocks[0].element_size()
     devs = [x.device for x in x_blocks]
-    order = _Order(devs)
+    ring = _Ring("matmul_reducescatter", devs, (2, m_loc, n), dtype, 1)
     outs = [torch.empty((m_loc, n), dtype=dtype, device=d) for d in devs]
-    bufs = [torch.empty((2, m_loc, n), dtype=dtype, device=d) for d in devs] \
-        if p > 1 else []
-    route, xrows = _mm_rs_route(x_blocks, w_blocks, bufs, outs)
-    routes = _step_routes(route, devs, to=1)
-    codes = [kbuild.RING_ROUTES.index(r) for r in routes]
-    tile_n = ring_tile_n(m_loc, n, kbuild.sm_count(devs[0]))
-    slot = m_loc * n * x_blocks[0].element_size()
-    slots = [(b.data_ptr(), b.data_ptr() + slot) for b in bufs]
-    ws, ops = [w.data_ptr() for w in w_blocks], [o.data_ptr() for o in outs]
-    streams = {d: torch.cuda.current_stream(d).cuda_stream for d in devs}
-    done = [order.mark(d) for d in devs]     # buffers allocated
+    route, xrows = _mm_rs_route(
+        [x_blocks[r] for r in ring.mine], [w_blocks[r] for r in ring.mine],
+        list(ring.bufs.values()), [outs[r] for r in ring.mine], p)
+    routes = ring.agree(route)
+    rows = dict(zip(ring.mine, xrows))
+    ws = {r: w_blocks[r].data_ptr() for r in ring.mine}
+    ops = {r: outs[r].data_ptr() for r in ring.mine}
+    tile_n = ring.tile_n(m_loc, n)
+    streams = ring.streams()
     step = _fn("da_ring_mm_rs_step")
-    for t in range(p):
-        prev, done = done, []
-        for r, dev in enumerate(devs):
-            left, right = (r - 1) % p, (r + 1) % p
-            # the left neighbour finished writing this rank's receive slot,
-            # the right one finished reading the slot written here
-            order.wait(dev, [prev[left], prev[right]])
-            recv = slots[r][t % 2] if t else None
-            dst = ops[r] if t == p - 1 else slots[right][(t + 1) % 2]
-            rc = step(xrows[r][(r - 1 - t) % p], ws[r], recv, dst, m_loc, n,
-                      k_loc, codes[r], tile_n, dev.index, streams[dev])
-            _launched(rc, what, "matmul_reducescatter", routes[r])
-            done.append(order.mark(dev))
+    for t, r in ring.steps():
+        dev = devs[r]
+        recv = ring.slot(r, t % 2, r) if t else None
+        dst = ops[r] if t == p - 1 else ring.slot((r + 1) % p, (t + 1) % 2,
+                                                  r)
+        rc = step(rows[r][(r - 1 - t) % p], ws[r], recv, dst, m_loc, n,
+                  k_loc, kbuild.RING_ROUTES.index(routes[r]), tile_n,
+                  dev.index, streams[dev])
+        _launched(rc, what, "matmul_reducescatter", routes[r])
+        if t < p - 1:
+            ring.forwarded((r + 1) % p)
     return outs
 
 

@@ -35,7 +35,18 @@ off it; the other ranks' results are placeholders.  ``preduce`` and
 ``psum_scatter`` bring every rank's operand to the process and fold it
 in the single-process order, so a job's result is bit-equal to one
 process's on the same ranks.  ``pshifts`` hands several shifts to one
-exchange.
+exchange, ``preduces`` several reductions, ``pconcat`` several gathers
+onto one device.  ``pshift`` and ``pshifts`` are differentiable in a job
+as ``.to(device)`` is in one process (the backward shifts the gradients
+back, one exchange).  A process enters a shift's backward exchange only
+when its own loss reaches that shift, so a plain ring built on them
+trains across processes when every process holds a rank of the ring and
+each process's loss reaches every rotation: the zigzag ring attention's
+does (each rank works at every step), and the causal contiguous ring
+(``models.ring_attention.ring_attention_kernel``), whose plan skips a
+rank's later steps, ties its outputs to its last rotation.  A process
+that misses an exchange leaves its peers waiting until the job's store
+timeout, which raises.
 """
 
 from __future__ import annotations
@@ -51,8 +62,8 @@ from . import multihost
 
 __all__ = ["spmd_mesh", "run_spmd", "axis_rank", "axis_size",
            "halo_exchange", "halo_exchange_2d", "pshift", "pshifts",
-           "pbarrier", "pbcast", "pgather", "preduce", "pall_to_all",
-           "psum_scatter"]
+           "pbarrier", "pbcast", "pgather", "preduce", "preduces",
+           "pconcat", "pall_to_all", "psum_scatter"]
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +236,19 @@ def _gather_plan(dim: int):
                     off += n
             outs.append(o)
         return wants, lambda: outs
+    return plan
+
+
+def _concat_plan(dim: int | None):
+    def plan(a, blocks):
+        parts, d = (blocks[:1], 0) if dim is None else (blocks, dim)
+        t = torch.empty(torch.cat([b.to("meta") for b in parts], d).shape,
+                        dtype=blocks[0].dtype, device=L.local_device())
+        wants, off = [], 0
+        for r, b in enumerate(parts):
+            wants.append((a, r, _whole(b), t.narrow(d, off, b.shape[d])))
+            off += b.shape[d]
+        return wants, lambda: t
     return plan
 
 
@@ -431,12 +455,55 @@ def pbcast(blocks: Sequence[torch.Tensor],
     return [blocks[root].to(b.device, copy=True) for b in blocks]
 
 
+def _split(flat, sizes) -> list[list]:
+    """``flat`` cut into consecutive lists of ``sizes``."""
+    out, k = [], 0
+    for n in sizes:
+        out.append(list(flat[k:k + n]))
+        k += n
+    return out
+
+
+def _shifted(lists, shifts, wrap: bool) -> list[torch.Tensor]:
+    """Every list of ``lists`` shifted, in one exchange, flat."""
+    return [t for res in _job_call([(b, _shift_plan(s, wrap))
+                                    for b, s in zip(lists, shifts)])
+            for t in res]
+
+
+class _JobShifts(torch.autograd.Function):
+    """``pshifts`` in a job, one exchange, differentiable as the copies of
+    one process are: the backward shifts the gradients back (by
+    ``-shift``), one exchange again, which every process enters at the
+    same point of the backward (``models._autodiff.value_and_grad``)
+    provided its loss reaches this node (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, sizes, shifts, wrap, *flat):
+        ctx.sizes, ctx.shifts, ctx.wrap = sizes, shifts, wrap
+        out = _shifted(_split(flat, sizes), shifts, wrap)
+        ctx.mark_non_differentiable(*[
+            t for t in out if not (t.is_floating_point() or t.is_complex())])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *_shifted(
+            _split(grads, ctx.sizes), [-s for s in ctx.shifts], ctx.wrap))
+
+
+def _job_shifts(lists, shifts, wrap: bool) -> list[list]:
+    sizes = tuple(len(b) for b in lists)
+    return _split(_JobShifts.apply(sizes, tuple(shifts), wrap,
+                                   *[t for b in lists for t in b]), sizes)
+
+
 def pshift(blocks: Sequence[torch.Tensor], shift: int = 1,
            wrap: bool = True) -> list[torch.Tensor]:
     """Ring shift: rank ``i`` receives rank ``i - shift``'s block on its own
     device.  With ``wrap=False`` ranks with no sender receive zeros."""
     if multihost.in_job():
-        return _job_call([(blocks, _shift_plan(shift, wrap))])[0]
+        return _job_shifts([blocks], [shift], wrap)[0]
     n = len(blocks)
     out = []
     for i, b in enumerate(blocks):
@@ -454,8 +521,7 @@ def pshifts(lists, shift=1, wrap: bool = True) -> list[list]:
     job, one exchange for all of them."""
     shifts = [shift] * len(lists) if isinstance(shift, int) else list(shift)
     if multihost.in_job():
-        return _job_call([(b, _shift_plan(s, wrap))
-                          for b, s in zip(lists, shifts)])
+        return _job_shifts(lists, shifts, wrap)
     return [pshift(b, s, wrap) for b, s in zip(lists, shifts)]
 
 
@@ -477,13 +543,38 @@ def preduce(blocks: Sequence[torch.Tensor],
     blocks folded in rank order on rank 0's device (``mean`` divides the
     sum by the rank count), the one result copied to every rank's device,
     so every rank holds the same bits."""
+    return preduces([blocks], op)[0]
+
+
+def preduces(lists, op: str = "sum") -> list[list[torch.Tensor]]:
+    """``preduce`` of each rank list of ``lists`` (the replicated
+    parameters' gradients of a model); in a job, one exchange for all of
+    them."""
     if op not in _FOLDS:
         raise ValueError(f"unknown reduction {op!r}: use one of "
                          f"{sorted(_FOLDS)}")
     if multihost.in_job():
-        return _job_call([(blocks, _reduce_plan(op))])[0]
-    acc = _fold(blocks, op)
-    return [acc.to(b.device, copy=True) for b in blocks]
+        return _job_call([(b, _reduce_plan(op)) for b in lists])
+    out = []
+    for blocks in lists:
+        acc = _fold(blocks, op)
+        out.append([acc.to(b.device, copy=True) for b in blocks])
+    return out
+
+
+def pconcat(lists, dims) -> list[torch.Tensor]:
+    """Each rank list of ``lists`` as one whole tensor on this process's
+    first rank's device (rank 0's in one process): its blocks concatenated
+    along ``dims[i]`` in rank order, or rank 0's block where ``dims[i]`` is
+    None (a replicated value, handed back as it is in one process).  In a
+    job every process gets the whole tensors, by one exchange for all the
+    lists."""
+    lists = [list(b) for b in lists]
+    if not multihost.in_job():
+        dev = lists[0][0].device
+        return [b[0] if d is None else torch.cat([x.to(dev) for x in b], d)
+                for b, d in zip(lists, dims)]
+    return _job_call([(b, _concat_plan(d)) for b, d in zip(lists, dims)])
 
 
 def _fold(blocks, op: str) -> torch.Tensor:

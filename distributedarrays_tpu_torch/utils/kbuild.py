@@ -26,11 +26,12 @@ the slot the step writes on another card), and the copy kernel's (K10)
 ``cross_process_region`` launches, which read peer processes' chunks
 through CUDA IPC (``multihost.exchange``: a cross-process gather,
 reshard, GEMM panel fetch, ``djit`` input, element read or rank-list
-collective), and the all-to-all's (K11) on the same route.  One route
-tally counts no launch of its own (``count_route``): the fused ring
-attention step's launches whose forward store lands in another
-controller process's slot (``ring_attention_forward``'s
-``cross_process``).
+collective), and the all-to-all's (K11) on the same route.  Four route
+tallies count no launch of their own (``count_route``): the fused ring
+attention step's and the ring GEMMs' launches whose forward store lands
+in another controller process's slot (``ring_attention_forward``'s,
+``allgather_matmul_forward``'s, ``allgather_matmul_rhs_forward``'s and
+``matmul_reducescatter_forward``'s ``cross_process``).
 
 ``sm_count(device)`` is a card's SM count (cached), which the wrappers
 use to size their grids.
@@ -109,8 +110,11 @@ _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
 # CUDA IPC): K10's region copies and collectives, K11's all-to-alls
 _routes["all_gather"] = {"cross_process_region": 0}
 _routes["all_to_all"] = {"cross_process_region": 0}
-# K9 launches that store their forward into a peer process's mapped slot
-_routes["ring_attention_forward"] = {"cross_process": 0}
+# K9, K13, K14 and K15 launches that store their forward into a peer
+# process's mapped slot
+_routes.update({k + "_forward": {"cross_process": 0}
+                for k in ("ring_attention", "allgather_matmul",
+                          "allgather_matmul_rhs", "matmul_reducescatter")})
 _peers: set[tuple[int, int]] = set()
 _sms: dict[int, int] = {}
 build_log: dict[str, str] = {}

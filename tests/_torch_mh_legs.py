@@ -371,9 +371,16 @@ def _layout(d) -> dict:
 def summary(tdat, gather, value):
     """``(what the tests compare, [kinds of meta tensors handed out])``:
     a DArray as its gathered values, layout and dtype (its local chunks
-    checked); a SubDArray materialized; a tensor as numpy; a list of rank tensors as this process's
-    ``{index: numpy}``; other values as they are."""
+    checked); a SubDArray materialized; a tensor as numpy; a list of rank
+    tensors as this process's ``{index: numpy}``; a dict key by key; other
+    values as they are."""
     meta = []
+    if isinstance(value, dict):
+        out = {}
+        for k, v in value.items():
+            out[k], m = summary(tdat, gather, v)
+            meta += m
+        return out, meta
     if isinstance(value, tdat.SubDArray):
         value = value.materialize()
     if isinstance(value, tdat.DArray):
@@ -395,3 +402,193 @@ def summary(tdat, gather, value):
                 out[i] = t.cpu().numpy()
         return out, meta
     return value, meta
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel training across processes: the flash and zigzag rings,
+# tp_ffn's ring GEMMs and the SP model's step
+# ---------------------------------------------------------------------------
+
+SP_LR = 0.5
+
+
+def sp_cfg(N: int) -> dict:
+    """The SP model's configuration on N ranks: ``SPConfig(vocab=64,
+    dim=32, heads=2, layers=2, ffn_mult=4, max_seq=64)`` on 8, the FFN 24
+    wide a rank on 12 (its width must split over the ranks)."""
+    return dict(vocab=64, dim=32, heads=2, layers=2, ffn_mult=N // 2,
+                max_seq=64)
+
+
+TRAIN_NAMES = [
+    "ring_flash_attention", "ring_flash_grads", "zigzag_ring_flash_attention",
+    "zigzag_flash_grads", "zigzag_ring_attention", "zigzag_ring_grads",
+    "ring_causal_grads", "tp_ffn", "sp_grad", "sp_grad_zigzag", "sp_sgd",
+    "sp_sgd_zigzag", "sp_adam"]
+# the plain causal ring's leg runs on ranks SUB_RING_FIRST.. N-1, so that
+# process 0 holds only the ring's first rank, which the causal plan skips
+# after step 0
+SUB_RING_FIRST = 3
+
+
+def train_data(N: int) -> dict:
+    """The training legs' inputs, the same on every process: attention
+    blocks of 4 rows a rank (2 heads of 8), tp_ffn's operands, and the SP
+    model's numpy parameter pytree (the JAX package's layout, drawn as its
+    ``init_params`` draws: normal * sqrt(1 / fan_in), norms at 1) and
+    tokens (2, 4N)."""
+    rng = np.random.default_rng(23)
+    f32 = np.float32
+    cfg = sp_cfg(N)
+    E, V, S = cfg["dim"], cfg["vocab"], cfg["max_seq"]
+    F = E * cfg["ffn_mult"]
+
+    def dense(*shape):
+        return (rng.standard_normal(shape) * np.sqrt(1.0 / shape[0])
+                ).astype(f32)
+    params = {"embed": dense(V, E), "pos": dense(S, E),
+              "ln_f": np.ones(E, f32), "head": dense(E, V),
+              "blocks": [{"ln1": np.ones(E, f32), "qkv": dense(E, 3 * E),
+                          "proj": dense(E, E), "ln2": np.ones(E, f32),
+                          "w1": dense(E, F), "w2": dense(F, E)}
+                         for _ in range(cfg["layers"])]}
+    return {
+        "qkv": [rng.standard_normal((4 * N, 2, 8)).astype(f32)
+                for _ in range(3)],
+        "g": rng.standard_normal((4 * N, 2, 8)).astype(f32),
+        "x": rng.standard_normal((N, 2, 8)).astype(f32),
+        "w1": rng.standard_normal((N, 8, 4)).astype(f32) / 3,
+        "w2": rng.standard_normal((N, 4, 8)).astype(f32) / 2,
+        "gy": rng.standard_normal((N, 2, 8)).astype(f32),
+        "params": params,
+        "tokens": rng.integers(0, V, (2, 4 * N)).astype(np.int32),
+    }
+
+
+def _with_grads(tdat, fn, blocks, cot):
+    """``fn(*blocks)`` (rank lists in, a rank list out) and the gradients
+    of ``sum_r <out_r, cot_r>`` over this process's ranks with respect to
+    every rank list of ``blocks``, as ``{"out": ..., "d0": ..., ...}`` (rank
+    lists; another process's ranks placeholders)."""
+    from distributedarrays_tpu_torch.models._autodiff import value_and_grad
+    own = [r for r, c in enumerate(cot) if c.device.type != "meta"]
+    leaves = [b[r] for b in blocks for r in own]
+    got = {}
+
+    def loss():
+        got["out"] = fn(*blocks)
+        acc = None
+        for r in own:
+            term = (got["out"][r].float() * cot[r]).sum()
+            acc = term if acc is None else acc + term
+        return acc
+    _, grads = value_and_grad(loss, leaves)
+    got["out"] = [o.detach() for o in got["out"]]
+    for i, b in enumerate(blocks):
+        d = [torch.empty_like(x) for x in b]
+        for j, r in enumerate(own):
+            d[r] = grads[i * len(own) + j]
+        got[f"d{i}"] = d
+    return got
+
+
+def train_legs(tdat, N: int) -> list:
+    """The legs of sequence-parallel training (``TRAIN_NAMES``): the three
+    flash/zigzag rings on DArrays, forward, and on rank lists with the
+    gradients of a fixed cotangent through ``torch.autograd``; the plain
+    causal ring's gradients on ranks ``SUB_RING_FIRST``.. N-1; ``tp_ffn``
+    with its gradients; the SP model's grad function, SGD step (contiguous
+    and zigzag) and one Adam step, its weights entering through
+    ``interop.params_from_reference`` and ``shard_params``."""
+    SP = tdat.sp_transformer
+    D = train_data(N)
+    ring = list(range(N))
+
+    def dist(x):
+        return tdat.distribute(x, procs=ring, dist=(N, 1, 1))
+
+    def zig(x):
+        return tdat.zigzag_shard(torch.from_numpy(x), N).numpy()
+
+    def blocks(x, ranks=ring):
+        """The host array's first chunks of N (rank r's on its device),
+        one a rank of ``ranks``."""
+        return [torch.from_numpy(c.copy()).to(tdat.layout.device_of(r))
+                for r, c in zip(ranks, np.split(x, N))]
+
+    def grads(kernel, zigzag=False, ranks=ring):
+        def run():
+            q, k, v = (blocks(zig(x) if zigzag else x, ranks)
+                       for x in D["qkv"])
+            return _with_grads(tdat, kernel, [q, k, v], blocks(D["g"], ranks))
+        return run
+
+    def ffn():
+        xs, w1, w2 = (blocks(D[k].reshape(-1, D[k].shape[-1]))
+                      for k in ("x", "w1", "w2"))
+        return _with_grads(tdat, tdat.collective_matmul.tp_ffn,
+                           [xs, w1, w2], blocks(D["gy"].reshape(-1, 8)))
+
+    def model(zigzag):
+        cfg = SP.SPConfig(**sp_cfg(N), dtype=torch.float32, zigzag=zigzag)
+        shards = SP.shard_params(
+            tdat.params_from_reference(D["params"], cfg), ring)
+        toks = D["tokens"]
+        if zigzag:
+            toks = toks[:, tdat.zigzag_order(toks.shape[1], N)]
+        return cfg, shards, toks
+
+    def named(cfg, per_rank):
+        return {"ranks": {n: [d[n] for d in per_rank]
+                          for n in SP.param_specs(cfg)},
+                "whole": SP.unshard(per_rank, cfg)}
+
+    def sp_grad(zigzag):
+        def run():
+            cfg, shards, toks = model(zigzag)
+            loss, g = SP.make_grad_fn(ring, cfg)(shards, toks)
+            return {"loss": loss, **named(cfg, g)}
+        return run
+
+    def params(cfg, shards):
+        return named(cfg, [dict(m.named_parameters()) for m in shards])
+
+    def sp_sgd(zigzag):
+        def run():
+            cfg, shards, toks = model(zigzag)
+            shards, loss = SP.make_train_step(ring, cfg)(shards, toks, SP_LR)
+            return {"loss": loss, **params(cfg, shards)}
+        return run
+
+    def sp_adam():
+        cfg, shards, toks = model(False)
+        step, init = SP.make_optax_train_step(
+            ring, cfg, tdat.train.adam(1e-2, eps=1e-3))
+        shards, _, loss = step(shards, init(shards), toks)
+        return {"loss": loss, **params(cfg, shards)}
+
+    from distributedarrays_tpu_torch.models import ring_attention as ra
+    out = [
+        ("ring_flash_attention", lambda: tdat.ring_flash_attention(
+            *(dist(x) for x in D["qkv"]), causal=True)),
+        ("ring_flash_grads", grads(
+            lambda q, k, v: ra.ring_flash_attention_kernel(q, k, v, True))),
+        ("zigzag_ring_flash_attention", lambda: tdat.zigzag_ring_flash_attention(
+            *(dist(zig(x)) for x in D["qkv"]))),
+        ("zigzag_flash_grads", grads(ra.zigzag_ring_flash_attention_kernel,
+                                     True)),
+        ("zigzag_ring_attention", lambda: tdat.zigzag_ring_attention(
+            *(dist(zig(x)) for x in D["qkv"]))),
+        ("zigzag_ring_grads", grads(ra.zigzag_ring_attention_kernel, True)),
+        ("ring_causal_grads", grads(
+            lambda q, k, v: ra.ring_attention_kernel(q, k, v, True),
+            ranks=ring[SUB_RING_FIRST:])),
+        ("tp_ffn", ffn),
+        ("sp_grad", sp_grad(False)),
+        ("sp_grad_zigzag", sp_grad(True)),
+        ("sp_sgd", sp_sgd(False)),
+        ("sp_sgd_zigzag", sp_sgd(True)),
+        ("sp_adam", sp_adam),
+    ]
+    assert [name for name, _ in out] == TRAIN_NAMES
+    return out

@@ -17,8 +17,9 @@ URLs in the job's KV; the ops that run across the processes
 transposes, the reshard and what rests on it, the element reads, ``djit``,
 the scans, ``run_spmd`` with the rank-list collectives, ``dsort``, the
 FFTs, ``dconv2d``, ring and Ulysses attention, k-means and
-``dmatmul_int8``); the ops that have no cross-process form yet (the flash
-and zigzag rings: each must raise ``NotImplementedError``); a checkpoint round trip; the
+``dmatmul_int8``); sequence-parallel training (the flash and zigzag
+rings with their gradients, ``tp_ffn``, the SP model's grad function and
+train steps: ``_torch_mh_legs.train_legs``); a checkpoint round trip; the
 heartbeat census with the last process stale; and a journal with markers
 around a ``sync_hosts`` barrier.  It writes what it saw to
 ``<out_dir>/result_<process_id>.pkl`` for the parent to hold against the
@@ -182,24 +183,24 @@ for name, thunk in _torch_mh_legs.legs(tdat, N):
         res["meta"][name] = meta
 res["open_mappings"] = cuda_collectives.open_mappings()
 
-# --- ops with no cross-process form raise -------------------------------
-seq = [tdat.distribute(np.ones((2 * N, 2, 4), np.float32), procs=range(N),
-                       dist=(N, 1, 1)) for _ in range(3)]
-unported = {
-    "ring_flash_attention": lambda: tdat.ring_flash_attention(*seq),
-    "zigzag_ring_flash_attention": lambda: tdat.zigzag_ring_flash_attention(
-        *seq),
-    "zigzag_ring_attention": lambda: tdat.zigzag_ring_attention(*seq),
-}
-res["unported"] = {}
-for name, call in unported.items():
+# --- sequence-parallel training across the processes ---------------------
+# (the flash and zigzag rings, tp_ffn, the SP model's steps); a leg that
+# raises is recorded, so the tests name the error, and the next leg runs
+# (an op that refuses its operands does so on every process, before its
+# first collective)
+res["errors"] = {}
+for name, thunk in _torch_mh_legs.train_legs(tdat, N):
     try:
-        call()
-        res["unported"][name] = "returned"
-    except NotImplementedError as e:
-        res["unported"][name] = "NotImplementedError" if \
-            "'Cross-process forms'" in str(e) else \
-            f"NotImplementedError without the queue entry: {e}"
+        got, meta = _torch_mh_legs.summary(tdat, multihost.gather_global,
+                                           thunk())
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        res["errors"][name] = f"{type(e).__name__}: {e}"
+        continue
+    res["ported"][name] = got
+    if meta:
+        res["meta"][name] = meta
+res["open_mappings"] = max(res["open_mappings"],
+                           cuda_collectives.open_mappings())
 
 # --- checkpoint round trip ----------------------------------------------
 ck = np.random.default_rng(7).standard_normal((16, 4)).astype(np.float32)

@@ -572,17 +572,6 @@ def test_job_aggregator_url_through_the_kv(job2):
         assert r["exporter"] is False
 
 
-# the flash and zigzag rings stay single-process (ROADMAP queue A)
-UNPORTED = ["ring_flash_attention", "zigzag_ring_flash_attention",
-            "zigzag_ring_attention"]
-
-
-@pytest.mark.parametrize("op", UNPORTED)
-def test_job_unported_ops_raise(job2, op):
-    for r in job2:
-        assert r["unported"][op] == "NotImplementedError"
-
-
 # the ops that raised across processes before they were ported, each with
 # the legs that hold it (tests/_torch_mh_legs.py)
 PORTED = {"djit": ["djit", "djit_scalar"],
@@ -603,7 +592,20 @@ ON_RANK_LISTS = {
     "ulysses_attention": ["ulysses", "ulysses_causal"],
     "kmeans": ["kmeans", "kmeans_cols"],
     "dmatmul_int8": ["int8_rows", "int8_cannon"]}
+# sequence-parallel training on the rank lists with placeholders: the ops
+# that raised NotImplementedError (the flash and zigzag rings) or the
+# untyped ValueError of the kernel wrappers (C25) in a job, and their legs
+ON_TRAIN = {
+    "ring_flash_attention": ["ring_flash_attention", "ring_flash_grads"],
+    "zigzag_ring_flash_attention": ["zigzag_ring_flash_attention",
+                                    "zigzag_flash_grads"],
+    "zigzag_ring_attention": ["zigzag_ring_attention", "zigzag_ring_grads"],
+    "tp_ffn": ["tp_ffn"],
+    "sp_make_grad_fn": ["sp_grad", "sp_grad_zigzag"],
+    "sp_make_train_step": ["sp_sgd", "sp_sgd_zigzag"],
+    "sp_make_optax_train_step": ["sp_adam"]}
 PORTED.update(ON_RANK_LISTS)
+PORTED.update(ON_TRAIN)
 
 
 @pytest.mark.parametrize("op", list(PORTED))
@@ -612,7 +614,7 @@ def test_job_ported_ops_match(job2, op):
     # every process the single-process port's result on 8 ranks
     ref = _port_legs(8)
     for r in job2:
-        assert op not in r["unported"]
+        assert r["errors"] == {}, r["errors"]
         for leg in PORTED[op]:
             _same(r["ported"][leg], ref[leg], leg)
 
@@ -735,7 +737,8 @@ def _port_legs(n: int) -> dict:
     if n not in _PORT_LEGS:
         tdat.init(nranks=n, device="cpu")
         _PORT_LEGS[n] = {name: LEGS.summary(tdat, tdat.gather, thunk())[0]
-                         for name, thunk in LEGS.legs(tdat, n)}
+                         for name, thunk in LEGS.legs(tdat, n)
+                         + LEGS.train_legs(tdat, n)}
         tdat.d_closeall()
     return _PORT_LEGS[n]
 
@@ -1181,6 +1184,14 @@ def test_job_skipped_rank_list_collective_fails_within_the_store_timeout(
     _skipped_call_raises(tmp_path, "pshift")
 
 
+def test_job_skipped_ring_gemm_step_fails_within_the_store_timeout(
+        tmp_path):
+    # the same for one step of a ring GEMM: both processes enter K13's
+    # ring (its plain form over gloo, a step's hop one exchange), and
+    # process 1 skips the second step
+    _skipped_call_raises(tmp_path, "ring_gemm")
+
+
 def _skipped_call_raises(tmp_path, what: str) -> None:
     child = os.path.join(os.path.dirname(__file__), "_torch_mh_skip_child.py")
     store = str(tmp_path / "store")
@@ -1265,16 +1276,178 @@ def test_c22_integer_and_bool_mean_correctly_rounded(case):
         assert jax_got.tobytes() == exact.tobytes()
 
 
-def test_job3_unported_ops_raise_with_the_queue_entry(job3):
-    # the ops that raised here until they were ported on the rank-list
-    # exchange now give every process the single-process port's result on
-    # 12 ranks (pshift's direction at p = 12, K/V blocks passing through
-    # ranks that are not their owner's neighbours); the flash and zigzag
-    # rings still raise with the queue entry
+def test_job3_ported_and_train_legs_match_one_process(job3):
+    # the ops ported on the rank-list exchange, and the flash and zigzag
+    # rings, tp_ffn and the SP model's steps, give every process the
+    # single-process port's result on 12 ranks (pshift's direction at
+    # p = 12, K/V blocks passing through ranks that are not their owner's
+    # neighbours); none raises
     ref = _port_legs(12)
     for r in job3:
-        assert r["unported"] == {k: "NotImplementedError" for k in UNPORTED}
-        for op, legs in ON_RANK_LISTS.items():
-            assert op not in r["unported"]
+        assert r["errors"] == {}, r["errors"]
+        for op, legs in {**ON_RANK_LISTS, **ON_TRAIN}.items():
             for leg in legs:
                 _same(r["ported"][leg], ref[leg], leg)
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel training across processes (tests/_torch_mh_legs.py
+# train_legs): the flash and zigzag rings, tp_ffn, the SP model's steps
+# ---------------------------------------------------------------------------
+
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)   # f32 rings against float64 numpy
+
+
+def _attn_grads_np(q, k, v, g, causal):
+    """Softmax attention over (S, heads, d) arrays in float64: the output
+    and the gradients of ``<out, g>`` with respect to q, k and v."""
+    q, k, v, g = (x.astype(np.float64) for x in (q, k, v, g))
+    sc = 1.0 / np.sqrt(q.shape[-1])
+    s = np.einsum("qhd,khd->hqk", q, k) * sc
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[1:], bool))[None], s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    out = np.einsum("hqk,khd->qhd", p, v)
+    dp = np.einsum("qhd,khd->hqk", g, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdims=True)) * sc
+    return (out, np.einsum("hqk,khd->qhd", ds, k),
+            np.einsum("hqk,qhd->khd", ds, q), np.einsum("hqk,qhd->khd", p, g))
+
+
+def _gelu_np(x):
+    c = np.sqrt(2 / np.pi)
+    t = np.tanh(c * (x + 0.044715 * x ** 3))
+    return 0.5 * x * (1 + t), 0.5 * (1 + t) + 0.5 * x * (1 - t * t) * c * (
+        1 + 3 * 0.044715 * x * x)
+
+
+def _train_oracles(N) -> dict:
+    """numpy's value of each training leg but the SP model's (held against
+    JAX in the 2-process job): a DArray leg's whole output, a rank-list
+    leg's ``{"out", "d0", ...}`` as whole arrays (rank r's block is its
+    rows, or w1's columns)."""
+    D = LEGS.train_data(N)
+    order = JRA.zigzag_order(4 * N, N)
+    q, k, v = D["qkv"]
+    out, dq, dk, dv = _attn_grads_np(q, k, v, D["g"], True)
+    nat = D["g"][np.argsort(order)]            # the zigzag legs' cotangent
+    zo, zq, zk, zv = (x[order] for x in _attn_grads_np(q, k, v, nat, True))
+    n = 4 * (N - LEGS.SUB_RING_FIRST)          # the sub-ring's rows
+    sub = dict(zip(("out", "d0", "d1", "d2"), _attn_grads_np(
+        q[:n], k[:n], v[:n], D["g"][:n], True)))
+    X, dY = D["x"].reshape(-1, 8), D["gy"].reshape(-1, 8)
+    W1 = np.concatenate(list(D["w1"]), 1).astype(np.float64)
+    W2 = np.concatenate(list(D["w2"]), 0).astype(np.float64)
+    H = X @ W1
+    G, dG = _gelu_np(H)
+    dH = dY @ W2.T * dG
+    return {
+        "ring_flash_attention": out, "zigzag_ring_flash_attention": zo,
+        "zigzag_ring_attention": zo,
+        "ring_flash_grads": {"out": out, "d0": dq, "d1": dk, "d2": dv},
+        "zigzag_flash_grads": {"out": zo, "d0": zq, "d1": zk, "d2": zv},
+        "zigzag_ring_grads": {"out": zo, "d0": zq, "d1": zk, "d2": zv},
+        "ring_causal_grads": sub,
+        "tp_ffn": {"out": G @ W2, "d0": dH @ W1.T, "d1": X.T @ dH,
+                   "d2": G.T @ dY}}
+
+
+def _check_train_leg(results, name, N) -> None:
+    """One training leg on every process of a job: nothing raised, no meta
+    tensor handed out, the single-process port on ``N`` ranks bit for bit
+    (layouts, each rank's tensors and the SP model's whole dicts), and
+    numpy's values where the leg has them."""
+    ref = _port_legs(N)[name]
+    for r in results:
+        assert r["errors"] == {}, r["errors"]
+        assert name not in r["meta"], r["meta"]
+        got = r["ported"][name]
+        _same(got, ref, name)
+        if name.startswith("sp_"):
+            # every process holds the whole dict, its own ranks' shards
+            assert set(got["whole"]) == set(ref["whole"]), name
+            for n, ranks in got["ranks"].items():
+                assert sorted(ranks) == [i for i in range(N)
+                                         if i // 4 == r["proc"]], n
+            assert np.isfinite(got["loss"]), name
+            continue
+        want = _train_oracles(N)[name]
+        if not isinstance(want, dict):
+            np.testing.assert_allclose(_values(got), want, **TRAIN_TOL,
+                                       err_msg=name)
+            continue
+        first = LEGS.SUB_RING_FIRST if name == "ring_causal_grads" else 0
+        for key, w in want.items():
+            # list index i is rank first + i
+            assert sorted(got[key]) == [i for i in range(N - first)
+                                        if (first + i) // 4 == r["proc"]], key
+            for i, t in got[key].items():
+                if name == "tp_ffn" and key == "d1":
+                    wi = w[:, 4 * i:4 * i + 4]           # w1's columns
+                else:
+                    rows = len(w) // (N - first)
+                    wi = w[i * rows:(i + 1) * rows]
+                np.testing.assert_allclose(t, wi, **TRAIN_TOL,
+                                           err_msg=f"{name} {key}[{i}]")
+
+
+@pytest.mark.parametrize("name", LEGS.TRAIN_NAMES)
+def test_job_train_legs(job2, name):
+    _check_train_leg(job2, name, 8)
+
+
+@pytest.mark.parametrize("name", LEGS.TRAIN_NAMES)
+def test_job3_train_legs(job3, name):
+    _check_train_leg(job3, name, 12)
+
+
+def test_c25_rank_list_kernels_take_placeholders(job2, job3):
+    # C25: in a job another process's ranks are meta placeholders in the
+    # rank lists, and the kernel wrappers refused them with an untyped
+    # ValueError ("rank tensors on ['cpu', 'meta']", "operands on
+    # ['cpu', 'meta']"): the flash ring's hops, tp_ffn's ring GEMMs and
+    # with them the SP model's steps; now they run on this process's
+    # ranks, bit-equal to one process
+    for results, n in ((job2, 8), (job3, 12)):
+        ref = _port_legs(n)
+        for r in results:
+            for leg in ("ring_flash_grads", "tp_ffn", "sp_grad"):
+                assert leg not in r["errors"], r["errors"][leg]
+                _same(r["ported"][leg], ref[leg], leg)
+
+
+def _jax_tree(params) -> dict:
+    """A JAX parameter pytree as {port parameter name: numpy}."""
+    out = {k: np.asarray(params[k]) for k in ("embed", "pos", "ln_f", "head")}
+    for i, blk in enumerate(params["blocks"]):
+        out.update({f"blocks.{i}.{k}": np.asarray(v) for k, v in blk.items()})
+    return out
+
+
+def test_job_sp_loss_and_gradients_match_jax(job2):
+    # the 2-process job's SP loss and gradients (weights through
+    # interop.params_from_reference and shard_params) against JAX's
+    # make_grad_fn on its 8-device CPU mesh, at tests/test_torch_sp_
+    # transformer.py's tolerances
+    import jax
+    from distributedarrays_tpu.models import sp_transformer as JSP
+    from distributedarrays_tpu.parallel.collectives import spmd_mesh
+    D = LEGS.train_data(8)
+    jcfg = JSP.SPConfig(**LEGS.sp_cfg(8), dtype=jnp.float32, block_q=4,
+                        block_k=4, interpret=True)
+    init = JSP.init_params(jax.random.key(0), jcfg)
+    assert jax.tree_util.tree_structure(init) == \
+        jax.tree_util.tree_structure(D["params"])
+    assert {k: v.shape for k, v in _jax_tree(init).items()} == \
+        {k: v.shape for k, v in _jax_tree(D["params"]).items()}
+    jloss, jg = jax.jit(JSP.make_grad_fn(spmd_mesh(8), jcfg))(
+        D["params"], D["tokens"])
+    want = _jax_tree(jg)
+    for r in job2:
+        got = r["ported"]["sp_grad"]
+        np.testing.assert_allclose(got["loss"], float(jloss), rtol=1e-5)
+        assert set(got["whole"]) == set(want)
+        for name, w in want.items():
+            np.testing.assert_allclose(got["whole"][name], w, rtol=1e-4,
+                                       atol=1e-5, err_msg=name)
