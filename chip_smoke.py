@@ -238,6 +238,17 @@
      on 4 ranks against the same two on one rank (losses to 1e-4, flat
      parameters <= 1e-5).  Prints ms per step and
      the peak device memory;
+   - telemetry on the card (``telemetry_phase``; ``python3 chip_smoke.py
+     --telemetry`` alone): the main path's calls (``telemetry_workload``)
+     twice each with telemetry disabled and with a journal, in turns (the
+     wall difference is its cost), one warm 4-rank Trainer step
+     journaled, then ``python -m distributedarrays_tpu_torch.telemetry
+     doctor --json`` in a subprocess on the journal: the platform must
+     read ``h100`` (the journal's ``device``/``platform`` event), every
+     ``matmul`` and ``pallas.matmul`` span carry ``flops = 2mnk``, and no
+     span that ends at a device synchronization (``train.step``) read
+     above 1.05 of a peak uncapped; prints the top findings and every
+     stamped span's fraction, capped and uncapped;
    - the trainer's runtime tier (``train_runtime_phase``; ``python3
      chip_smoke.py --train-runtime`` alone) on the same task, Adam, 4 ranks
      (a checkpoint is 3 x 478 MB): (a) 4 steps with a checkpoint every 2
@@ -346,7 +357,18 @@
    the 4 journals merged by ``telemetry.merge_journals`` into one
    timeline (every process's marker before a ``sync_hosts`` barrier ahead
    of every marker after it), written as a Perfetto trace to
-   ``build/multihost_trace.json``.
+   ``build/multihost_trace.json``.  Before the census each process runs
+   the data-parallel ``Trainer`` on its one rank
+   (``multihost_trainer``): ``transformer_task`` at the trainer phase's
+   widths, f32, 3 Adam steps, each launching 1 K10
+   (``cross_process_region``), 1 K12 (``cross_process``) and 8 each of
+   K5/K6/K7, the losses and flat parameters bit-equal to one process on 4
+   ranks (``trainer_reference``), then a save and a resume; it prints
+   each process's first and warm step ms, the host ms of every K10 and K12
+   call and the peak memory.  Every child's exporter (armed by
+   ``DA_TPU_STREAM_AGG``) streams to one aggregator the parent serves on
+   localhost; ``advertise_exporter()`` must return True in each child and
+   the aggregator's snapshot show 4 hosts.
 9. Times each kernel with CUDA events (warm-up, then the median of 10
    batches of back-to-back calls, each batch about 5 ms long, divided by
    its count) beside its bound, its plain version and a library yardstick
@@ -3827,6 +3849,11 @@ TRAINER_CFG = dict(vocab=8192, dim=1024, heads=16, layers=8, seq=2048,
                    batch_size=8)
 
 
+# the one-process 4-rank trainer's 3 Adam steps (losses, the flat
+# parameters' digest, step ms), filled by ``trainer_phase``
+_TRAINER_REF: dict = {}
+
+
 def trainer_params() -> int:
     """The task's flat f32 parameter count (119555072 at full width):
     embed, pos, ln_f and head, and per layer ln1, qkv, proj, ln2, w1, w2."""
@@ -3869,7 +3896,12 @@ def trainer_phase(tdat) -> dict:
             if got != want:
                 raise AssertionError(f"a trainer step launched {got}, "
                                      f"expected {want}")
-    counts = kbuild.launch_counts()
+        counts = kbuild.launch_counts()
+        # what the processes of the multihost phase must reproduce bit
+        # for bit (``multihost_trainer``)
+        _TRAINER_REF.update(losses=list(losses),
+                            flat_sha=_sha256(t.flat_params()),
+                            step_ms=list(step_ms))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  adam losses {losses}, launches (3 steps) {counts}, peak "
           f"{peak:.2f} GiB")
@@ -6115,6 +6147,169 @@ def multihost_train_row(res, ref) -> dict:
     return rows
 
 
+MH_TRAINER_STEPS = 3
+
+
+def trainer_reference(tdat) -> dict:
+    """The one-process 4-rank trainer's 3 Adam steps on
+    ``transformer_task(**TRAINER_CFG)``: ``trainer_phase``'s record when
+    it ran in this call, else the same steps run here."""
+    if not _TRAINER_REF:
+        train = tdat.train
+        tdat.init(nranks=MH_PROCS)
+        losses = []
+        with train.Trainer(train.transformer_task(**TRAINER_CFG),
+                           train.adam(1e-4)) as t:
+            for _ in range(MH_TRAINER_STEPS):
+                losses.append(t.step_once())
+            _TRAINER_REF.update(losses=losses,
+                                flat_sha=_sha256(t.flat_params()))
+        tdat.d_closeall()
+        torch.cuda.empty_cache()
+    return dict(_TRAINER_REF)
+
+
+def trainer_step_launches(layers: int) -> dict:
+    """A process's launches in one step of the Trainer with one rank a
+    process: one K10 (the parameter gather, on the cross-process region
+    route), one K12 (its rank's sum, on the cross-process route), and K5,
+    K6 and K7 once a layer."""
+    return {"all_gather": 1, "reduce_scatter": 1, "flash_attention": layers,
+            "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers}
+
+
+def _trainer_counts(kbuild, want: dict) -> dict:
+    counts = kbuild.launch_counts()
+    routes = kbuild.route_counts()
+    got = {k: counts[k] for k in want}
+    got["all_gather_cross_process"] = \
+        routes["all_gather"]["cross_process_region"]
+    got["reduce_scatter_cross_process"] = \
+        routes["reduce_scatter"]["cross_process"]
+    return got
+
+
+def multihost_trainer(tdat, MH, kbuild, proc: int, out_dir: str) -> dict:
+    """The data-parallel Trainer across the processes (one process of
+    ``multihost_phase``, one rank each): ``transformer_task(**TRAINER_CFG)``
+    f32, 3 Adam steps published by a checkpoint manager (each process
+    writes its own copy), each step's launches held
+    (``trainer_step_launches``), then a new trainer resuming from the
+    published step.  Returns the losses and the flat parameters' digest
+    (for the parent to hold against one process on 4 ranks), each step's
+    host ms and its ``train.step_s`` gauge, the host ms of every K10 and
+    K12 call, and the peak memory."""
+    import shutil
+    from distributedarrays_tpu_torch.train import trainer as TRM
+    train = tdat.train
+    want = trainer_step_launches(TRAINER_CFG["layers"])
+    want_all = dict(want, all_gather_cross_process=1,
+                    reduce_scatter_cross_process=1)
+    calls = {"k10_ms": [], "k12_ms": []}
+    saved = TRM.ring_all_gather, TRM.ring_reduce_scatter
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                calls[key].append((time.perf_counter() - t0) * 1e3)
+        return wrapped
+    TRM.ring_all_gather = timed(saved[0], "k10_ms")
+    TRM.ring_reduce_scatter = timed(saved[1], "k12_ms")
+    ckpt = os.path.join(out_dir, f"trainer_ckpt_{proc}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "step_ms": [], "step_s_gauge": [],
+           "launches": []}
+    try:
+        task = train.transformer_task(**TRAINER_CFG)
+        with train.Trainer(task, train.adam(1e-4), ckpt_dir=ckpt,
+                           save_every=MH_TRAINER_STEPS) as t:
+            for n in range(MH_TRAINER_STEPS):
+                MH.sync_hosts("trainer_step")
+                torch.cuda.synchronize()
+                kbuild.reset_launches()
+                t0 = time.perf_counter()
+                out["losses"].append(t.step_once())
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["step_s_gauge"].append(
+                    tdat.telemetry.gauge_value("train.step_s"))
+                got = _trainer_counts(kbuild, want)
+                out["launches"].append(got)
+                # the step that publishes the checkpoint also gathers
+                # each state vector (pflat and Adam's two moments) for
+                # this process's copy: one K10 each
+                exp = want_all
+                if (n + 1) % MH_TRAINER_STEPS == 0:
+                    exp = dict(want_all, all_gather=4,
+                               all_gather_cross_process=4)
+                if got != exp:
+                    raise AssertionError(f"trainer step {n}: launches "
+                                         f"{got}, expected {exp}")
+            out["flat_sha"] = _sha256(t.flat_params())
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        with train.Trainer(task, train.adam(1e-4), ckpt_dir=ckpt) as t2:
+            t2.fit(MH_TRAINER_STEPS)
+            out["resumed_step"] = t2.step
+            out["resumed_flat_sha"] = _sha256(t2.flat_params())
+        out["resume_s"] = time.perf_counter() - t0
+    finally:
+        TRM.ring_all_gather, TRM.ring_reduce_scatter = saved
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out.update(calls)
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_trainer(res, ref) -> None:
+    """Every process's Trainer against one process on 4 ranks, bit for
+    bit: the losses and the flat parameters, before and after the resume."""
+    for r in res:
+        got = r["trainer"]
+        if got["losses"] != ref["losses"]:
+            raise AssertionError(f"process {r['process']}: trainer losses "
+                                 f"{got['losses']} != one process's "
+                                 f"{ref['losses']}")
+        if got["flat_sha"] != ref["flat_sha"] or \
+                got["resumed_flat_sha"] != ref["flat_sha"] or \
+                got["resumed_step"] != MH_TRAINER_STEPS:
+            raise AssertionError(f"process {r['process']}: trainer flat "
+                                 f"parameters differ from one process's "
+                                 f"(resumed at step {got['resumed_step']})")
+
+
+def multihost_trainer_row(res, ref) -> dict:
+    """The Trainer's readings across the 4 processes beside one process
+    on 4 ranks."""
+    tr = [r["trainer"] for r in res]
+    return {
+        "shape": f"transformer_task {TRAINER_CFG} f32, adam, "
+                 f"{MH_PROCS} processes of one rank on one card",
+        "bit_equal_one_process": True,
+        "losses": tr[0]["losses"],
+        "launches_a_step": tr[0]["launches"][0],
+        "launches_saving_step": tr[0]["launches"][-1],
+        "first_step_ms": [x["step_ms"][0] for x in tr],
+        # the warm steps' own time (the gauge the trainer sets before a
+        # save), and step 2's wall with its save
+        "warm_step_ms": [1e3 * statistics.median(x["step_s_gauge"][1:])
+                         for x in tr],
+        "step_ms": [x["step_ms"] for x in tr],
+        "step_s_gauge": [x["step_s_gauge"] for x in tr],
+        "k10_call_ms": [x["k10_ms"] for x in tr],
+        "k12_call_ms": [x["k12_ms"] for x in tr],
+        "peak_gib": [x["peak_gib"] for x in tr],
+        "resume_s": [x["resume_s"] for x in tr],
+        "one_process_step_ms": ref.get("step_ms")}
+
+
 def multihost_child(port: int, proc: int, out_dir: str) -> int:
     """One process of ``multihost_phase`` (``--multihost-child PORT P
     DIR``): joins the job on the store at ``localhost:PORT``, runs the
@@ -6134,6 +6329,10 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
                              f"{tdat.layout.local_ranks()}")
     dev = tdat.layout.local_device()
     res = {"process": proc}
+    # the live plane: the exporter that DA_TPU_STREAM_AGG armed at import
+    # streams to the parent's aggregator; register it in the job's store
+    res["exporter_armed"] = tdat.telemetry.stream.armed()
+    res["exporter_advertised"] = MH.advertise_exporter()
     MH.heartbeat()
     MH.sync_hosts("clock")
     res["clock"] = MH.exchange_clock_offsets()
@@ -6222,6 +6421,8 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
     res["train"] = multihost_train(tdat, MH, CC, kbuild)
     A.close()
     torch.cuda.empty_cache()
+    # 3e. the data-parallel Trainer, against one process on 4 ranks
+    res["trainer"] = multihost_trainer(tdat, MH, kbuild, proc, out_dir)
 
     # 4. an uneven layout, d + d and its gather
     U = torch.rand(MH_UNEVEN, generator=torch.Generator().manual_seed(
@@ -6301,6 +6502,8 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
     tdat.telemetry.event("smoke", "before_barrier", process=proc)
     MH.sync_hosts("journal")
     tdat.telemetry.event("smoke", "after_barrier", process=proc)
+    tdat.telemetry.stream.poke()
+    tdat.telemetry.stream.stop()
     tdat.telemetry.configure(None)
 
     tdat.d_closeall()
@@ -6352,6 +6555,11 @@ def multihost_phase(tdat) -> dict:
     train_ref = multihost_train_reference(tdat)
     print(f"multihost training legs on one process: "
           f"{time.perf_counter() - t_ref:.1f} s")
+    t_ref = time.perf_counter()
+    trainer_ref = trainer_reference(tdat)
+    print(f"multihost trainer reference: {time.perf_counter() - t_ref:.1f} "
+          f"s")
+    tdat.init(nranks=MH_PROCS)
     tdat.d_closeall()
     del X, Y, Z, R
     # the ops across processes, in one process on 4 ranks: the GEMM's
@@ -6387,6 +6595,12 @@ def multihost_phase(tdat) -> dict:
         port = s.getsockname()[1]
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    # one aggregator here, on localhost, that every child's exporter
+    # streams to (armed at import by DA_TPU_STREAM_AGG)
+    tdat.telemetry.enable()
+    agg = tdat.telemetry.agg.AggServer(port=0).start()
+    env["DA_TPU_STREAM_AGG"] = agg.url
+    env["DA_TPU_STREAM_INTERVAL_S"] = "1.0"
     parent_free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
     logs = [open(os.path.join(out_dir, f"child_{p}.log"), "w")
             for p in range(MH_PROCS)]
@@ -6410,6 +6624,8 @@ def multihost_phase(tdat) -> dict:
     finally:
         for f in logs:
             f.close()
+        snap = agg.agg.snapshot()
+        agg.close()
     job_s = time.perf_counter() - t_job
     failed = [i for i, p in enumerate(procs) if p.returncode != 0]
     if failed:
@@ -6439,6 +6655,13 @@ def multihost_phase(tdat) -> dict:
                              f"process's by {ops0['gemm_max_abs_err']}")
     _check_legs(res, legs_ref)
     _check_train(res, train_ref)
+    _check_trainer(res, trainer_ref)
+    if not all(r["exporter_armed"] and r["exporter_advertised"]
+               for r in res) or len(snap["hosts"]) != MH_PROCS:
+        raise AssertionError(
+            f"live plane: armed {[r['exporter_armed'] for r in res]}, "
+            f"advertised {[r['exporter_advertised'] for r in res]}, "
+            f"{len(snap['hosts'])} hosts in the aggregator")
     for r in res:
         if r["legs"]["open_mappings_end"]:
             raise AssertionError(f"process {r['process']} left peer "
@@ -6500,7 +6723,10 @@ def multihost_phase(tdat) -> dict:
         "trace": os.path.relpath(trace_path, root),
         "region": multihost_region_row(res, one, gemm_equal),
         "legs": multihost_legs_row(res, legs_ref),
-        "train": multihost_train_row(res, train_ref)}
+        "train": multihost_train_row(res, train_ref),
+        "trainer": multihost_trainer_row(res, trainer_ref),
+        "aggregator": {"hosts": len(snap["hosts"]),
+                       "frames": snap.get("frames_ingested")}}
     print(json.dumps({"multihost": row, "gpu": gpu_name()}))
     # each kernel's cross-process launches a process, leg by leg
     kern = {"all_gather": {}, "all_to_all": {}, "ring_attention": {},
@@ -6521,6 +6747,11 @@ def multihost_phase(tdat) -> dict:
                 kern[k]["train_" + name] = counts
     return {"launches": [r["launches"] for r in res], "row": row,
             "legs_kernels": kern,
+            # each process's launches a Trainer step (K10 and K12 on their
+            # cross-process routes)
+            "trainer_launches": {
+                k: [r["trainer"]["launches"][0][k] for r in res]
+                for k in ("all_gather", "reduce_scatter")},
             "region_launches": [
                 r["launches"] + sum(r["ops"][k]["region"] for k in (
                     "gemm_launches", "relayout_launches", "djit_launches"))
@@ -6587,6 +6818,183 @@ def multihost_region_row(res, one, gemm_equal) -> dict:
         "realloc": [(o["realloc_same_address"], o["realloc_gather_ok"])
                     for o in ops],
         "open_mappings_end": [o["open_mappings_end"] for o in ops]}
+
+
+TM_SYNC_FRAC = 1.05   # the most a synchronized span may read of a peak
+TM_REPS = 2           # main-path runs with the journal off, and on
+
+
+def telemetry_workload(tdat, autotune, sizes=(4096, 8192, 10 ** 8, 16384)):
+    """The main path's calls (phase 3) without its checks, at its sizes:
+    distribute and drand 4096^2, ``A @ B`` through the kernel (the tuning
+    registry set), ``dsum(A*A)``, ``sin(X) + Y*Z`` at 8192^2, the three
+    reductions of a 1e8 DVector, a 16384^2 ``A @ B`` through the kernel,
+    ``stencil5`` (16 and 1 iterations) and ``gather``; synchronized and
+    closed at the end."""
+    n, nc, nv, nb = sizes
+    f32 = torch.float32
+    for m in (n, nb):
+        autotune.record("matmul_impl", autotune.device_key_for(
+            m, m, m, f32, f32), "pallas")
+    A = tdat.distribute(np.random.default_rng(2).standard_normal(
+        (n, n), dtype=np.float32))
+    B = tdat.drand((n, n))
+    A @ B
+    tdat.dsum(A * A)
+    X, Y, Z = (tdat.drand((nc, nc)) for _ in range(3))
+    tdat.dmap(torch.sin, X) + Y * Z
+    V = tdat.drand(nv)
+    tdat.dmapreduce(torch.square, "sum", V)
+    tdat.dmean(V)
+    tdat.dstd(V)
+    A16, B16 = tdat.drand((nb, nb)), tdat.drand((nb, nb))
+    A16 @ B16
+    G = tdat.drandn((nc, nc))
+    tdat.stencil5(G, iters=16)
+    tdat.gather(tdat.stencil5(G, iters=1))
+    torch.cuda.synchronize()
+    tdat.d_closeall()
+
+
+def uncapped_frac(ev: dict, peaks: dict) -> float:
+    """A span's roofline fraction before ``classify_occurrence``'s cap at
+    1: the largest of its stamps' service times at the peaks over its
+    duration."""
+    lab = ev.get("labels") or {}
+    t = max(float(lab.get(k) or 0) / peaks[p] for k, p in (
+        ("flops", "flops"), ("bytes_hbm", "hbm"), ("bytes_ici", "ici")))
+    return t / ev["dur"] if ev.get("dur") else 0.0
+
+
+def telemetry_phase(tdat, workload_sizes=(4096, 8192, 10 ** 8, 16384),
+                    trainer_cfg=None) -> dict:
+    """Telemetry on the card: the main path's calls (``telemetry_workload``)
+    run ``TM_REPS`` times each with telemetry disabled and with a journal,
+    in turns (the wall-time difference is its cost on the main path); one
+    warm step of the 4-rank Trainer journaled; then the doctor
+    (``python -m distributedarrays_tpu_torch.telemetry doctor --json``) in
+    a subprocess on the journal.  The journal's platform must read
+    ``h100``; every ``matmul`` and ``pallas.matmul`` span must carry
+    ``flops = 2mnk`` of its shape; no span that ends at a device
+    synchronization (``train.step``, ``train.sync``) may read above
+    ``TM_SYNC_FRAC`` of a peak, uncapped.  Prints the top findings and
+    every classified span's fraction, capped and uncapped."""
+    from distributedarrays_tpu_torch.utils import autotune
+    tm = tdat.telemetry
+    root = os.path.dirname(os.path.abspath(__file__))
+    journal = os.path.join(root, "build", "telemetry_journal.jsonl")
+    if os.path.exists(journal):
+        os.remove(journal)
+    print("phase telemetry (main path with the journal off and on, a "
+          "trainer step, the doctor)")
+    tdat.init()
+    tm.configure(None)
+    tm.disable()
+    telemetry_workload(tdat, autotune, workload_sizes)     # warm-up
+    wall = {"off": [], "on": []}
+    for _ in range(TM_REPS):
+        for mode in ("off", "on"):
+            if mode == "on":
+                tm.enable()
+                tm.configure(journal)
+                tdat.init()              # journals the device kind
+            else:
+                tm.configure(None)
+                tm.disable()
+            t0 = time.perf_counter()
+            telemetry_workload(tdat, autotune, workload_sizes)
+            wall[mode].append((time.perf_counter() - t0) * 1e3)
+    # one warm trainer step, journaled
+    cfg = trainer_cfg or TRAINER_CFG
+    tdat.init(nranks=4)
+    train = tdat.train
+    with train.Trainer(train.transformer_task(**cfg),
+                       train.adam(1e-4)) as t:
+        tm.configure(None)
+        tm.disable()
+        t.step_once()                    # the first step, not journaled
+        tm.enable()
+        tm.configure(journal)
+        t.step_once()
+    tm.configure(None)
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "distributedarrays_tpu_torch.telemetry",
+         "doctor", journal, "--json"], capture_output=True, text=True,
+        cwd=root, env=env, timeout=300)
+    doctor_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the doctor exited {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    rep = json.loads(run.stdout)
+    if rep["platform"] != "h100":
+        raise AssertionError(f"the doctor read platform {rep['platform']!r}")
+    peaks = rep["peaks"]
+    with open(journal) as f:
+        events = [json.loads(ln) for ln in f if ln.strip()]
+    spans = [e for e in events if e.get("cat") == "span"]
+    mm = [e["labels"] for e in spans if e["name"] == "matmul"]
+    pm = [e["labels"] for e in spans if e["name"] == "pallas.matmul"]
+    want = {2 * m ** 3 for m in workload_sizes[::3]}
+    if {x["flops"] for x in mm} != want or len(mm) != 2 * TM_REPS or \
+            len(pm) != 2 * TM_REPS or any(
+                x["flops"] != 2 * x["shape"][0] * x["shape"][1] *
+                x["shape"][2] for x in pm):
+        raise AssertionError(f"matmul spans {mm}, pallas.matmul spans {pm}")
+    fracs = {}
+    for e in spans:
+        if any((e.get("labels") or {}).get(k) for k in (
+                "flops", "bytes_hbm", "bytes_ici")) and e.get("dur"):
+            fracs.setdefault(e["name"], []).append(uncapped_frac(e, peaks))
+    synced = {k: max(v) for k, v in fracs.items()
+              if k in ("train.step", "train.sync")}
+    if "train.step" not in synced or max(synced.values()) > TM_SYNC_FRAC:
+        raise AssertionError(f"synchronized spans read {synced} of a peak")
+    print("  doctor findings (top 8):")
+    for f_ in rep["findings"][:8]:
+        print(f"    [{f_['kind']}] {f_['message']}")
+    print("  roofline by span (capped / uncapped, each occurrence):")
+    by = rep["by_name"]
+    for name, v in sorted(fracs.items()):
+        r = by.get(name, {})
+        print(f"    {name:<24} {r.get('bound', '-'):<8} capped "
+              f"{r.get('roofline_frac')}  uncapped "
+              f"{[float(f'{x:.4g}') for x in v]}")
+    row = {"wall_ms_off": wall["off"], "wall_ms_on": wall["on"],
+           "cost_pct": 100 * (statistics.median(wall["on"]) /
+                              statistics.median(wall["off"]) - 1),
+           "platform": rep["platform"], "peaks": peaks,
+           "coverage": rep["coverage"]["fraction"],
+           "findings": len(rep["findings"]),
+           "synced_uncapped": synced,
+           "uncapped_max": {k: max(v) for k, v in fracs.items()},
+           "doctor_s": doctor_s, "journal_events": len(events)}
+    print(json.dumps({"telemetry": row, "gpu": gpu_name()}))
+    tm.enable()
+    return row
+
+
+def telemetry_only() -> int:
+    """``--telemetry``: build the kernels the phase runs and run
+    ``telemetry_phase`` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    smi = gpu_name()
+    print(smi)
+    tdat.kbuild.build(["gemm", "stencil", "collectives", "attention",
+                       "attention_bwd"])
+    row = telemetry_phase(tdat)
+    print(json.dumps({"telemetry_cost_pct": row["cost_pct"], "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def multihost_only() -> int:
@@ -6823,6 +7231,7 @@ def main() -> int:
     ring_gemm_kernels(randn, errs)
     counts_train = training(tdat, dev)
     counts_trainer = trainer_phase(tdat)
+    tele = telemetry_phase(tdat)
     trt = train_runtime_phase(tdat)
     counts_sp_train = sp_training(tdat, dev)
 
@@ -7022,11 +7431,16 @@ def main() -> int:
             kern["multihost_launches"] = mh["launches"]
             kern["multihost_region_launches"] = mh["region_launches"]
             kern["multihost"] = mh["row"]
+        if name in mh["trainer_launches"]:
+            # the Trainer across the processes: a process's launches a
+            # step (readings in the multihost row's "trainer")
+            kern["multihost_trainer_launches"] = mh["trainer_launches"][name]
         if name in mh["legs_kernels"]:
             # the cross-process legs' launches a process (K4-K11, K13-K15),
             # leg by leg; readings in the multihost row's "legs" and
             # "train"
             kern["multihost_legs_launches"] = mh["legs_kernels"][name]
+    extra["telemetry"] = tele
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7169,6 +7583,7 @@ if __name__ == "__main__":
              else models_only() if sys.argv[1:] == ["--models"]
              else train_runtime_only() if sys.argv[1:] == ["--train-runtime"]
              else multihost_only() if sys.argv[1:] == ["--multihost"]
+             else telemetry_only() if sys.argv[1:] == ["--telemetry"]
              else multihost_child(int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4])
              if sys.argv[1:2] == ["--multihost-child"]

@@ -276,8 +276,22 @@ class DArray:
         return hash(self.id)
 
     def __array__(self, dtype=None, copy=None):
-        a = _to_numpy(self.region(None, torch.device("cpu")))
+        a = _to_numpy(self._gather_host())
         return a if dtype is None else a.astype(dtype, copy=False)
+
+    @_tm.traced(name="gather")
+    def _gather_host(self) -> torch.Tensor:
+        """The whole array on the host (JAX ``darray.py:645``); in a job
+        of several processes the collective gather, whose region copy
+        keeps its own comm record."""
+        if _tm.enabled() and L.process_count() == 1:
+            from .telemetry import perf as _perf
+            nb = _tm.nbytes_of(self)
+            # cost stamp on the traced gather span: the payload through
+            # HBM once (d2h transfer)
+            _tm.annotate(**_perf.transfer_cost(nb))
+            _tm.record_comm("d2h", nb, op="gather", shape=list(self.dims))
+        return self.region(None, torch.device("cpu"))
 
     def _item(self):
         return self.region(None, torch.device("cpu")).reshape(()).item()
@@ -1061,14 +1075,23 @@ def drandn(dims, dtype=torch.float32, procs=None, dist=None) -> DArray:
                                                      dtype=dtype, device=dev))
 
 
+@_tm.traced(name="distribute")
 def distribute(A, procs=None, dist=None, like: DArray | None = None) -> DArray:
     """Distribute a host or device array: each rank receives a copy of its
     own chunk.  ``like`` takes another DArray's rank grid."""
+    _tm.count("op.distribute")
     if isinstance(A, DArray):
         A = A.full()
     elif isinstance(A, SubDArray):
         A = A.materialize()
     t = as_tensor(A)
+    if _tm.enabled():
+        from .telemetry import perf as _perf
+        # cost stamp on the traced distribute span: the payload through
+        # HBM once (the h2d scatter)
+        nb = _tm.nbytes_of(t)
+        _tm.annotate(**_perf.transfer_cost(nb))
+        _tm.record_comm("h2d", nb, op="device_put", shape=list(t.shape))
     if like is not None:
         procs, dist = [int(p) for p in like.pids.flat], list(like.grid)
     return from_global(t, procs, dist)

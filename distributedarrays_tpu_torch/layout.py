@@ -124,7 +124,22 @@ def init(nranks: int | None = None, device=None) -> tuple[torch.device, ...]:
     else:
         owner, me = (0,) * len(devs), 0
     _table, _owner, _me = tuple(devs), tuple(owner), me
+    _journal_platform(devs[owner.index(me)] if me in owner else devs[0])
     return _table
+
+
+def _journal_platform(dev: torch.device) -> None:
+    """Journal the device kind the ranks run on (``device``/``platform``:
+    ``torch.cuda.get_device_name()`` or ``cpu``), the platform the
+    roofline doctor reads its peaks by (``telemetry.perf``), once a
+    journal while one is configured."""
+    from .telemetry import core as _tmc
+    if _tmc.journal_path() is None:
+        return
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else dev.type
+    _tmc.event("device", "platform", platform=kind,
+               once_key=f"device.platform:{kind}")
 
 
 def _ranks() -> tuple[torch.device, ...]:

@@ -351,7 +351,8 @@ def _ring_rdma_job(q_blocks, k_blocks, v_blocks, causal: bool,
     order across processes is a stream sync and a store barrier after
     each step (``multihost.sync_hosts``): no rank reads a slot before its
     left neighbour's previous step has written it, nor overwrites one its
-    right neighbour still reads.  The mappings close after the last step's
+    right neighbour still reads.  The call is a ``peer_call``
+    (``ops.cuda_collectives``): the mappings close after the last step's
     sync and before the call's closing barrier."""
     p, (b, h, dh) = _check_blocks(q_blocks, k_blocks, v_blocks)
     dtype = q_blocks[0].dtype
@@ -363,23 +364,21 @@ def _ring_rdma_job(q_blocks, k_blocks, v_blocks, causal: bool,
     bufs = {r: torch.empty((2, 2, b, h, dh), dtype=dtype,
                            device=q_blocks[r].device) for r in mine}
     slot = b * h * dh * q_blocks[0].element_size()    # bytes of one K or V
-    for dev in devs:
-        torch.cuda.synchronize(dev)          # buffers allocated
-    handles = {}
-    for r in mine:
-        if p > 1:
-            hd, off = CC.ipc_handle(bufs[r])
-            handles[str(r)] = [hd.hex(), off]
-    every = {int(r): v for part in multihost._all_gather_json(
-        "ring_attention", handles) for r, v in part.items()}
-    mapped = CC._Mapped(L.local_device())
-    try:
+    meta = torch.empty(0, device="meta")
+    with CC.peer_call(
+            [[bufs[r] if r in bufs and p > 1 else meta for r in range(p)]],
+            lambda obj: multihost._all_gather_json("ring_attention", obj),
+            lambda: multihost.sync_hosts("ring_attention"),
+            devs) as (every, mapped):
+        theirs = {k: v for part in every for k, v in part.items()}
+
         def forward_slots(r: int, s: int):
             right = (r + 1) % p
             if right in bufs:
                 return tuple(bufs[right][s])
-            hd, off = every[right]
-            base = mapped.base(bytes.fromhex(hd)) + int(off) + 2 * s * slot
+            hd, off, _ = theirs[f"0/{right}"]
+            base = mapped.base(bytes.fromhex(hd), q_blocks[r].device) + \
+                int(off) + 2 * s * slot
             return _Peer(base), _Peer(base + slot)
         for t in range(p):
             for r in mine:
@@ -398,9 +397,6 @@ def _ring_rdma_job(q_blocks, k_blocks, v_blocks, causal: bool,
                 torch.cuda.synchronize(dev)
             if t < p - 1:
                 multihost.sync_hosts("ring_attention_step")
-    finally:
-        mapped.close()
-    multihost.sync_hosts("ring_attention")
     return outs
 
 

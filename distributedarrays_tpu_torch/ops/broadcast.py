@@ -53,6 +53,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import telemetry as _tm
 from ..darray import (DArray, SubDArray, _scatter, as_tensor, canon_dtype,
                       from_global, resolve_layout)
 from ..layout import device_of
@@ -98,6 +99,12 @@ def _pieces(arg, pids, cuts, dims):
         t = arg.materialize()
     else:
         t = as_tensor(arg)
+    if _tm.enabled():
+        # an operand that does not take the result's layout reaches every
+        # rank whole or in broadcast pieces: JAX's replicated placement
+        # (``broadcast.py:110``), counted and not journaled
+        _tm.record_comm("replicate", _tm.nbytes_of(t), op="broadcast_align",
+                        journal=False)
     sl = _slicer(tuple(t.shape), len(dims))
     return lambda ci, dev, bounds: t[sl(bounds)].to(dev)
 

@@ -75,6 +75,7 @@ import math
 
 import torch
 
+from .. import telemetry as _tm
 from ..utils import kbuild
 
 __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
@@ -371,9 +372,11 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@_tm.traced(name="pallas.flash_attention")
 def flash_attention_lse(q, k, v, causal: bool = False, scale=None):
     """``(o, lse)`` of exact attention: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors; differentiable in q, k and v.
+    the plain version for CPU tensors; differentiable in q, k and v.  Its
+    span keeps JAX's name (``pallas.flash_attention``).
 
     q, k, v: one shape, (S, H, D) or (S, B, H, D) (batch-major heads, any
     strides with the head dim contiguous).  o has q's shape; lse is

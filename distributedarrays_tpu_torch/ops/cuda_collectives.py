@@ -51,10 +51,12 @@ not used.
   job's store; a rank list's owners are the processes that publish its
   tensors), and the whole list runs as one copy launch on this process's
   card (``copy_launches`` splits a list above ``copy_maxp()`` copies).
-  Two barriers order it: every process's tensors are written (a stream
-  sync) before any peer reads them, and no process frees or rewrites one
-  before every peer has read it (a sync after the launch, then a
-  barrier).  A handle that will not open, or a launch that fails,
+  Two barriers order it (``peer_call``, the protocol of every call that
+  reads or writes a peer process's memory: this one, K12's, the ring
+  GEMMs' and K9's in a job): every process's tensors are written (a
+  stream sync) before any peer reads them, and no process frees or
+  rewrites one before every peer has read it (a sync after the launch,
+  then a barrier).  A handle that will not open, or a launch that fails,
   raises.  Counted as ``kernel`` (``all_gather``, K10, or
   ``all_to_all``, K11) on the ``cross_process_region`` route.  ``process_regions_plain(arrays, wants, group)`` is its plain
   version over the job's gloo group: the wants all-gathered as metadata,
@@ -95,7 +97,25 @@ not used.
   reduce-scatter's VMEM gate (``_rs_vmem_bytes``) only bound the TPU's
   VMEM staging of pieces and travelling partials; nothing is staged here
   and no partial is stored, so there is no chunk argument and no gate.
-  float32 or bfloat16 for the reduce-scatter.
+  float32 or bfloat16 for the reduce-scatter.  In a job of several
+  controller processes (another process's blocks are ``meta``
+  placeholders) the all-gather is ``pgather``'s one exchange (a copy
+  launch a process, ``cross_process_region``) and the reduce-scatter
+  makes one launch for each of this process's ranks whose pointer array
+  holds the peer processes' pieces through CUDA IPC mappings
+  (``_reduce_scatter_job``, counted on the ``cross_process`` route),
+  under ``peer_call``'s rules, those of ``process_regions``: the blocks
+  written before any peer reads them, the mappings closed after the
+  launches and before the closing barrier, which keeps every exporter's
+  blocks alive until each peer has read them.  Where the job spans hosts
+  or a peer computes on the CPU, a process on the card brings the peers'
+  pieces over the job's exchange and folds them with the same launches
+  (``_reduce_scatter_fetched``, the ``cross_process_fetched`` route).
+  Off the card both take the gloo route.
+
+  Each call counts ``pallas_collectives.dispatch`` (``path`` ``rdma`` for
+  the kernel, ``plain`` otherwise) and, on the kernel, a comm record, as
+  JAX's ``_record_dispatch``.
 
 - ``ring_allgather_matmul(x_blocks, w_blocks)`` (K13): rank ``r`` gets
   ``all_gather(x) @ w_r``, with x's row chunks travelling the ring: at step
@@ -149,6 +169,7 @@ processes; no kernel waits on a flag set by another.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Callable, Sequence
 
@@ -156,6 +177,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
+from .. import telemetry as _tm
 from ..parallel import multihost
 from ..parallel.collectives import pall_to_all, pgather, pshift, psum_scatter
 from ..utils import kbuild
@@ -166,7 +188,8 @@ __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "copy_launches", "copy_width", "view_copy", "chain_step",
            "chain_step_plain", "ring_all_to_allv", "all_to_allv_plain",
            "all_gather_plain", "all_to_all_plain", "reduce_scatter_plain",
-           "process_regions", "process_regions_plain", "region_handles",
+           "process_regions", "process_regions_plain", "peer_call",
+           "region_handles",
            "region_copies", "ipc_handle", "open_mappings", "close_ipc",
            "allgather_matmul_plain", "allgather_matmul_rhs_plain",
            "matmul_reducescatter_plain"]
@@ -184,6 +207,28 @@ def _on_cuda(tensors: Sequence[torch.Tensor]) -> bool:
         return True
     raise ValueError(f"rank tensors on {sorted(kinds)}: the collectives need "
                      "all of them on CUDA devices or all on the CPU")
+
+
+def _record_dispatch(op: str, blocks) -> None:
+    """A collective call's dispatch count and, when its kernel runs, its
+    comm record, as JAX's ``_record_dispatch``
+    (``pallas_collectives.py:230``): ``path`` is ``rdma`` when this
+    process's tensors are on the card (the kernel, JAX's name for its
+    remote-DMA kernels) and ``plain`` otherwise; the record is the per-rank
+    block's bytes with ``bytes_ici`` the (p - 1) hops a ring forwards it,
+    once a distinct call signature."""
+    if not _tm.enabled():
+        return
+    held = [b for b in blocks if b.device.type != "meta"]
+    path = "rdma" if held and held[0].is_cuda else "plain"
+    _tm.count("pallas_collectives.dispatch", op=op, path=path)
+    if path == "rdma":
+        x, p = held[0], len(blocks)
+        labels = {"bytes_ici": (p - 1) * _tm.nbytes_of(x)} if p > 1 else {}
+        _tm.record_comm(op, _tm.nbytes_of(x), axis="ranks", traced=True,
+                        dispatch=path,
+                        once_key=f"pallas_collectives:{op}:{path}:ranks:"
+                                 f"{labels}", **labels)
 
 
 def _check_contiguous(tensors, what):
@@ -480,10 +525,20 @@ def ring_all_gather(blocks: Sequence[torch.Tensor],
                     dim: int = 0) -> list[torch.Tensor]:
     """Every rank gets the blocks concatenated along ``dim``, on its own
     device: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors.  In a job of several controller processes (another
+    process's blocks are ``meta`` placeholders) it is ``pgather``'s
+    cross-process form: one exchange, a copy launch a process on the card
+    that reads the peers' blocks through CUDA IPC (``process_regions``,
+    counted as ``all_gather`` on the ``cross_process_region`` route), the
+    gloo route off it; another process's outputs are placeholders."""
     blocks = list(blocks)
     if not blocks:
         return []
+    _record_dispatch("ring_all_gather", blocks)
+    if multihost.in_job():
+        # one exchange: a copy launch a process on the card (counted as
+        # all_gather on the cross_process_region route), gloo off it
+        return pgather(blocks, dim)
     if not _on_cuda(blocks):
         return all_gather_plain(blocks, dim)
     ref = blocks[0]
@@ -526,6 +581,7 @@ def ring_all_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
     p = len(blocks)
     if not blocks:
         return []
+    _record_dispatch("ring_all_to_all", blocks)
     if multihost.in_job() or not _on_cuda(blocks):
         return all_to_all_plain(blocks, split_dim, concat_dim)
     ref = blocks[0]
@@ -770,7 +826,17 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
     """Rank ``d`` gets the sum of piece ``d`` of every rank's block (split
     along ``dim``), on its own device, summed in the TPU ring's arrival
     order: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors.  In a job of several controller processes (another
+    process's blocks are ``meta`` placeholders) each process fills its
+    own ranks' outputs in the same order, so a job's sums are bit-equal
+    to one process's: on the card by one launch a rank whose pointer
+    array reads the peer processes' pieces through CUDA IPC
+    (``_reduce_scatter_job``, the ``cross_process`` route) or, where the
+    job spans hosts or a peer computes on the CPU, from copies of them
+    brought over the job's exchange (``_reduce_scatter_fetched``, the
+    ``cross_process_fetched`` route); off the card over gloo
+    (``psum_scatter``'s job form).  A process that holds no rank follows
+    its peers."""
     blocks = list(blocks)
     p = len(blocks)
     if not blocks:
@@ -782,40 +848,139 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
     if ref.shape[dim] % p:
         raise ValueError(f"scatter extent {ref.shape[dim]} is not divisible "
                          f"by the {p} ranks")
-    if not _on_cuda(blocks):
-        return reduce_scatter_plain(blocks, dim)
+    _record_dispatch("ring_reduce_scatter", blocks)
+    job = multihost.in_job()
+    held = [b for b in blocks if b.device.type != "meta"] if job else blocks
+    if not (_on_cuda(held) if held else multihost._kernel_route()):
+        return psum_scatter(blocks, dim) if job else \
+            reduce_scatter_plain(blocks, dim)
     if ref.dtype not in _RING_DTYPES:
         raise TypeError(f"the reduce-scatter kernel takes float32 or "
                         f"bfloat16, got {ref.dtype}")
     if p > MAXP:
         raise ValueError(f"the reduce-scatter kernel takes at most {MAXP} "
                          f"ranks, got {p}")
-    _check_contiguous(blocks, "reduce-scatter")
+    _check_contiguous(held, "reduce-scatter")
     oblk = ref.shape[dim] // p
     shape = list(ref.shape)
     shape[dim] = oblk
-    isz = ref.element_size()
+    if job:
+        if multihost._kernel_route():
+            return _reduce_scatter_job(blocks, dim, oblk, shape)
+        return _reduce_scatter_fetched(blocks, dim, oblk, shape)
 
     def fill(dev, dests):
         for d, out in dests:
-            srcs = [blocks[(d + k) % p].narrow(dim, d * oblk, oblk)
-                    for k in range(1, p + 1)]
-            if out.numel() == 0:
-                continue
-            sizes, sstr, _, run = _box(srcs[0], out)
-            rc = _fn("da_reduce_pieces")(
-                p, (ctypes.c_void_p * p)(*[s.data_ptr() for s in srcs]),
-                (ctypes.c_longlong * 3)(*sizes),
-                (ctypes.c_longlong * 3)(*[x // isz for x in sstr]),
-                run // isz, out.data_ptr(), int(ref.dtype == torch.bfloat16),
-                dev.index, torch.cuda.current_stream(dev).cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"reduce-scatter kernel launch failed: "
-                                   f"CUDA error {rc}")
-            kbuild.count("reduce_scatter")
+            _reduce_launch(d, blocks, dim, oblk, out,
+                           [blocks[(d + k) % p].narrow(
+                               dim, d * oblk, oblk).data_ptr()
+                            for k in range(1, p + 1)], dev)
 
     return _pull([b.device for b in blocks], [shape] * len(blocks),
                  ref.dtype, fill)
+
+
+def _reduce_launch(d: int, blocks, dim: int, oblk: int, out, ptrs, dev,
+                   route: str | None = None) -> None:
+    """One ``da_reduce_pieces`` launch on ``dev``: rank ``d``'s output,
+    the fold of the pieces at ``ptrs`` (piece ``d`` of ranks d+1, d+2,
+    ..., d+p mod p, in that order), every piece with the geometry of
+    piece ``d`` of a contiguous block of ``blocks[d]``'s shape."""
+    if out.numel() == 0:
+        return
+    p, ref = len(blocks), blocks[d]
+    isz = ref.element_size()
+    sizes, sstr, _, run = _box(_piece(ref, dim, oblk, d), out)
+    rc = _fn("da_reduce_pieces")(
+        p, (ctypes.c_void_p * p)(*ptrs), (ctypes.c_longlong * 3)(*sizes),
+        (ctypes.c_longlong * 3)(*[x // isz for x in sstr]), run // isz,
+        out.data_ptr(), int(ref.dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"reduce-scatter kernel launch failed: "
+                           f"CUDA error {rc}")
+    kbuild.count("reduce_scatter", route)
+
+
+def _piece(ref: torch.Tensor, dim: int, oblk: int, d: int) -> torch.Tensor:
+    """Piece ``d`` of a contiguous block of ``ref``'s shape, as a ``meta``
+    view: its sizes, strides and offset in the block."""
+    return torch.empty(ref.shape, dtype=ref.dtype, device="meta").narrow(
+        dim, d * oblk, oblk)
+
+
+def _reduce_scatter_job(blocks, dim: int, oblk: int, shape) -> list:
+    """``ring_reduce_scatter`` on the card in a job of several processes
+    on one host: one K12 launch for each of this process's ranks, its
+    pointer array holding a peer process's piece at the mapping of that
+    block's allocation plus the piece's offset, under ``peer_call``'s
+    rules (each exporter's blocks stay alive until every peer has read
+    them).  Another process's outputs are placeholders."""
+    p = len(blocks)
+    mine = [r for r, b in enumerate(blocks) if b.device.type != "meta"]
+    outs = [torch.empty(shape, dtype=b.dtype, device=b.device)
+            for b in blocks]
+    with peer_call([blocks],
+                   lambda obj: multihost._all_gather_json("reduce_scatter",
+                                                          obj),
+                   lambda: multihost.sync_hosts("reduce_scatter"),
+                   {blocks[r].device for r in mine}) as (every, mapped):
+        theirs = {key: h for m in every for key, h in m.items()}
+        for d in mine:
+            if not outs[d].numel():
+                continue
+            dev = blocks[d].device
+            # piece d's byte offset in a contiguous block (a peer's block
+            # is contiguous: it checked its own)
+            at = _piece(blocks[d], dim, oblk, d).storage_offset() * \
+                blocks[d].element_size()
+            ptrs = []
+            for k in range(1, p + 1):
+                s = (d + k) % p
+                if s in mine:
+                    ptrs.append(blocks[s].data_ptr() + at)
+                    continue
+                h, off, _ = theirs[f"0/{s}"]
+                ptrs.append(mapped.base(bytes.fromhex(h), dev) + int(off)
+                            + at)
+            _reduce_launch(d, blocks, dim, oblk, outs[d], ptrs, dev,
+                           "cross_process")
+    return outs
+
+
+def _reduce_scatter_fetched(blocks, dim: int, oblk: int, shape) -> list:
+    """``ring_reduce_scatter`` on the card in a job whose peer blocks
+    cannot be mapped (it spans hosts, or a peer process computes on the
+    CPU): the pieces of this process's ranks that other processes hold
+    come over the job's exchange (``multihost.exchange``: one call, as
+    ``psum_scatter``'s on a process off the card), each into a buffer of
+    the piece's geometry in a whole block on the rank's card, then one
+    K12 launch a rank folds them with its own in the arrival order
+    (d + k) % p, counted on the ``cross_process_fetched`` route.  Another
+    process's outputs are placeholders."""
+    p = len(blocks)
+    mine = [r for r, b in enumerate(blocks) if b.device.type != "meta"]
+    outs = [torch.empty(shape, dtype=b.dtype, device=b.device)
+            for b in blocks]
+    bufs, wants = {}, []
+    for d in mine:
+        piece = _piece(blocks[d], dim, oblk, d)
+        box = [(0, n) for n in blocks[d].shape]
+        box[dim] = (d * oblk, (d + 1) * oblk)
+        for s in range(p):
+            if s not in mine:
+                bufs[s, d] = torch.empty_strided(
+                    piece.shape, piece.stride(), dtype=piece.dtype,
+                    device=blocks[d].device)
+                wants.append((0, s, box, bufs[s, d]))
+    multihost.exchange([blocks], wants, "all_to_all", op="all_to_all")
+    for d in mine:
+        ptrs = [blocks[s].narrow(dim, d * oblk, oblk).data_ptr()
+                if s in mine else bufs[s, d].data_ptr()
+                for s in ((d + k) % p for k in range(1, p + 1))]
+        _reduce_launch(d, blocks, dim, oblk, outs[d], ptrs,
+                       blocks[d].device, "cross_process_fetched")
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -954,16 +1119,17 @@ class _Ring:
     its neighbours' previous steps (stream order on one card, ``_Order``'s
     events across cards).  In a job of several controller processes
     (another process's ranks are ``meta`` devices) only this process's
-    ranks have buffers and take steps.  Each process publishes the CUDA
-    IPC handles of its buffers once a call (``agree``), and a step whose
-    slot lies in another process's buffer writes it through the mapping
-    of that allocation (a cross-process forward, counted as
+    ranks have buffers and take steps.  The call is a ``peer_call``:
+    each process publishes the CUDA IPC handles of its buffers once a
+    call (``agree``), and a step whose slot lies in another process's
+    buffer writes it through the mapping of that allocation (a
+    cross-process forward, counted as
     ``route_counts()[kernel + "_forward"]["cross_process"]``).  The steps
     are ordered across processes by a stream sync and a store barrier
     after each (``multihost.sync_hosts``): no rank reads a slot before the
     step that writes it has finished, nor overwrites one a neighbour
-    still reads.  The mappings close after the last step's sync and
-    before the call's closing barrier, as ``process_regions``' do."""
+    still reads.  The mappings close after the last step and before the
+    call's closing barrier."""
 
     def __init__(self, kernel: str, devs, shape, dtype, to: int):
         self.kernel, self.devs, self.to = kernel, list(devs), to
@@ -973,8 +1139,9 @@ class _Ring:
         self.bufs = {r: torch.empty(shape, dtype=dtype, device=self.devs[r])
                      for r in self.mine} if p > 1 else {}
         self.nbytes = shape[1] * shape[2] * dtype.itemsize    # a slot
-        self.peer: dict[int, tuple] = {}
-        self.mapped: dict[torch.device, _Mapped] = {}
+        self.peer: dict[str, list] = {}
+        self.mapped: _Mapped | None = None
+        self.call = contextlib.ExitStack()    # the job's ``peer_call``
 
     def own_slots(self) -> list[int]:
         """Both slots' addresses of every buffer this process holds."""
@@ -986,10 +1153,9 @@ class _Ring:
         it."""
         if r in self.bufs:
             return self.bufs[r].data_ptr() + s * self.nbytes
-        hd, off, _ = self.peer[r]
-        dev = self.devs[writer]
-        m = self.mapped.setdefault(dev, _Mapped(dev))
-        return m.base(bytes.fromhex(hd)) + int(off) + s * self.nbytes
+        hd, off, _ = self.peer[f"0/{r}"]
+        return self.mapped.base(bytes.fromhex(hd), self.devs[writer]) + \
+            int(off) + s * self.nbytes
 
     def forwarded(self, r: int) -> None:
         """Count a launch that wrote a slot of rank r: a cross-process
@@ -1001,24 +1167,26 @@ class _Ring:
         """Each of this process's ranks' route from ``route``, the route
         its own operands allow: in a job the least of every process's
         (``kbuild.ROUTES`` order, so one that TMA cannot read anywhere
-        takes ``mma`` everywhere); on the wgmma route a rank whose step
-        writes a slot on another card takes ``wgmma_peer``
+        takes ``mma`` everywhere), published with the buffers' handles as
+        the call's ``peer_call`` opens; on the wgmma route a rank whose
+        step writes a slot on another card takes ``wgmma_peer``
         (``_step_routes``)."""
         cards = self.devs
         if self.job:
-            for dev in {self.devs[r] for r in self.mine}:
-                torch.cuda.synchronize(dev)      # buffers allocated
-            mine = {"route": route, "ranks": {}}
-            for r in self.mine:
-                hd, off = ipc_handle(self.bufs[r]) if self.bufs else (b"", 0)
-                mine["ranks"][str(r)] = [hd.hex(), off,
-                                         _card(self.devs[r])]
-            every = multihost._all_gather_json("ring_gemm", mine)
+            meta = torch.empty(0, device="meta")
+            every, self.mapped = self.call.enter_context(peer_call(
+                [[self.bufs.get(r, meta) for r in range(len(self.devs))]],
+                lambda obj: multihost._all_gather_json("ring_gemm", obj),
+                lambda: multihost.sync_hosts("ring_gemm"),
+                {self.devs[r] for r in self.mine},
+                {"route": route, "cards": {str(r): _card(self.devs[r])
+                                           for r in self.mine}}))
             route = min((e["route"] for e in every),
                         key=kbuild.ROUTES.index)
-            self.peer = {int(r): v for e in every
-                         for r, v in e["ranks"].items()}
-            cards = [self.peer[r][2] for r in range(len(self.devs))]
+            self.peer = {k: v for e in every for k, v in e.items()
+                         if "/" in k}
+            card = {int(r): c for e in every for r, c in e["cards"].items()}
+            cards = [card[r] for r in range(len(self.devs))]
         routes = _step_routes(route, cards, self.to)
         return {r: routes[r] for r in self.mine}
 
@@ -1040,7 +1208,7 @@ class _Ring:
                     done.append(order.mark(dev))
             return
         devs = {self.devs[r] for r in self.mine}
-        try:
+        with self.call:
             for t in range(p):
                 for r in self.mine:
                     yield t, r
@@ -1048,10 +1216,6 @@ class _Ring:
                     torch.cuda.synchronize(dev)
                 if t < p - 1:
                     multihost.sync_hosts("ring_gemm_step")
-        finally:
-            for m in self.mapped.values():
-                m.close()
-        multihost.sync_hosts("ring_gemm")
 
     def streams(self) -> dict:
         return {self.devs[r]: torch.cuda.current_stream(
@@ -1073,6 +1237,7 @@ def ring_allgather_matmul(x_blocks: Sequence[torch.Tensor],
     results are placeholders."""
     what = "ring all-gather GEMM"
     x_blocks, w_blocks, cuda = _ring_gemm_operands(what, x_blocks, w_blocks)
+    _record_dispatch("ring_allgather_matmul", x_blocks)
     p = len(x_blocks)
     (m_loc, k), (kw, n) = x_blocks[0].shape, w_blocks[0].shape
     if k != kw:
@@ -1120,6 +1285,7 @@ def ring_allgather_matmul_rhs(a_blocks: Sequence[torch.Tensor],
     placeholders."""
     what = "ring GEMM"
     a_blocks, b_blocks, cuda = _ring_gemm_operands(what, a_blocks, b_blocks)
+    _record_dispatch("ring_allgather_matmul_rhs", b_blocks)
     p = len(b_blocks)
     (m, k), (k_loc, n) = a_blocks[0].shape, b_blocks[0].shape
     if k != p * k_loc:
@@ -1170,6 +1336,7 @@ def ring_matmul_reducescatter(x_blocks: Sequence[torch.Tensor],
     placeholders."""
     what = "ring GEMM + reduce-scatter"
     x_blocks, w_blocks, cuda = _ring_gemm_operands(what, x_blocks, w_blocks)
+    _record_dispatch("ring_matmul_reducescatter", x_blocks)
     p = len(x_blocks)
     (m, k_loc), (kw, n) = x_blocks[0].shape, w_blocks[0].shape
     if k_loc != kw:
@@ -1249,17 +1416,19 @@ def _ipc_close(base: int) -> None:
 
 
 class _Mapped:
-    """The peer allocations that one region call reads: each mapped once
-    (by handle) on ``dev``, all unmapped by ``close``."""
+    """The peer allocations that one call reads or writes: each mapped once
+    a device (by handle) on the device named, ``dev`` by default, all
+    unmapped by ``close``."""
 
     def __init__(self, dev: torch.device):
         self.dev = dev
-        self.bases: dict[bytes, int] = {}
+        self.bases: dict[tuple, int] = {}
 
-    def base(self, handle: bytes) -> int:
-        b = self.bases.get(handle)
+    def base(self, handle: bytes, dev: torch.device | None = None) -> int:
+        dev = self.dev if dev is None else dev
+        b = self.bases.get((handle, dev))
         if b is None:
-            b = self.bases[handle] = _ipc_open(handle, self.dev)
+            b = self.bases[handle, dev] = _ipc_open(handle, dev)
             _open_bases.add(b)
         return b
 
@@ -1268,6 +1437,34 @@ class _Mapped:
             _, b = self.bases.popitem()
             _open_bases.discard(b)
             _ipc_close(b)
+
+
+@contextlib.contextmanager
+def peer_call(arrays, all_gather_json: Callable, barrier: Callable, devs,
+              extra: dict | None = None):
+    """The protocol of one call whose launches read or write peer
+    processes' tensors through CUDA IPC (the module docstring's rules):
+    this process's tensors of ``arrays`` are written (a stream sync of
+    each card of ``devs``) before their handles (``region_handles``) and
+    the entries of ``extra`` are published through ``all_gather_json``;
+    the body gets ``(every, mapped)``, each process's publication in
+    process order and the ``_Mapped`` to map peer allocations with; when
+    it ends its launches are finished (a sync) and the mappings closed
+    before ``barrier()``, so that no process frees or rewrites a tensor
+    before every peer has read it.  A body that raises closes the
+    mappings and passes no barrier."""
+    devs = list(devs)
+    for dev in devs:
+        torch.cuda.current_stream(dev).synchronize()
+    every = all_gather_json({**region_handles(arrays), **(extra or {})})
+    mapped = _Mapped(devs[0] if devs else L.local_device())
+    try:
+        yield every, mapped
+        for dev in devs:
+            torch.cuda.current_stream(dev).synchronize()
+    finally:
+        mapped.close()
+    barrier()
 
 
 def open_mappings() -> int:
@@ -1389,20 +1586,11 @@ def process_regions(arrays, wants, all_gather_json: Callable,
     published it; ``barrier()`` returns once every process has called
     it."""
     dev = L.local_device()
-    # 1. this process's chunks are written before a peer reads them
-    torch.cuda.current_stream(dev).synchronize()
-    every = all_gather_json(region_handles(arrays))
-    mapped = _Mapped(dev)
-    try:
+    with peer_call(arrays, all_gather_json, barrier, [dev]) as (every,
+                                                               mapped):
         copies = region_copies(arrays, wants, every, mapped)
         if copies:
             _copy_on_card(copies, dev, kernel, "cross_process_region")
-        # 2. the reads are done before the mappings close
-        torch.cuda.current_stream(dev).synchronize()
-    finally:
-        mapped.close()
-    # 3. no process frees or rewrites a chunk before every peer read it
-    barrier()
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:

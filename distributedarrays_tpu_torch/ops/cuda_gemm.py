@@ -48,6 +48,7 @@ from typing import Callable
 
 import torch
 
+from .. import telemetry as _tm
 from ..utils import kbuild
 
 __all__ = ["cuda_matmul", "matmul_plain", "cuda_matmul_int8",
@@ -116,12 +117,28 @@ def gemm_route(dtype: torch.dtype, n: int, k: int, a_ptr: int,
     return "mma"
 
 
+@_tm.traced(name="pallas.matmul")
 def cuda_matmul(a: torch.Tensor, b: torch.Tensor,
                 epilogue: Callable | None = None) -> torch.Tensor:
     """``C = epilogue(A @ B)``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors.  Its span keeps JAX's name
+    (``pallas.matmul``) and cost stamp."""
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if _tm.enabled():
+        # cost stamp on the traced span: one device's GEMM, nothing across
+        # ranks; inline as JAX's, since a and b may differ in dtype
+        from ..utils import autotune as _at
+        m, k = a.shape
+        n = b.shape[1]
+        ob = torch.promote_types(a.dtype, b.dtype).itemsize
+        _tm.annotate(flops=2 * m * n * k,
+                     bytes_hbm=m * k * a.element_size()
+                     + k * n * b.element_size() + m * n * ob,
+                     bytes_ici=0, shape=[m, k, n],
+                     dtype=[str(a.dtype), str(b.dtype)],
+                     autotune_key=_at.device_key_for(m, n, k, a.dtype,
+                                                     b.dtype))
     if not (a.dtype.is_floating_point and b.dtype.is_floating_point):
         raise TypeError(f"cuda_matmul takes float operands, got {a.dtype} "
                         f"and {b.dtype}")
@@ -243,13 +260,21 @@ def int8_gemm_route(qa: torch.Tensor, qb: torch.Tensor) -> str:
     return "wgmma" if k % 16 == 0 and qa.data_ptr() % 16 == 0 else "mma"
 
 
+@_tm.traced(name="pallas.matmul_int8")
 def cuda_matmul_int8(qa: torch.Tensor, qb: torch.Tensor, sa: torch.Tensor,
                      sb: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """``C = f32(Qa @ Qb) * (sa sb^T)``: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors, a ``meta`` placeholder of the product
     for ``meta`` operands.  ``qa`` (m,k) and ``qb`` (k,n) int8, ``sa``
-    (m,) and ``sb`` (n,) scales; output float32 or bfloat16."""
+    (m,) and ``sb`` (n,) scales; output float32 or bfloat16.  Its span
+    keeps JAX's name (``pallas.matmul_int8``) and cost stamp."""
     tensors = (qa, qb, sa, sb)
+    if _tm.enabled() and qa.ndim == 2 and qb.ndim == 2:
+        # cost stamp: int8 operands, the dequantized output through HBM
+        from ..telemetry import perf as _perf
+        _tm.annotate(shape=[qa.shape[0], qa.shape[1], qb.shape[1]],
+                     **_perf.gemm_cost(qa.shape[0], qb.shape[1], qa.shape[1],
+                                       1, out_itemsize=out_dtype.itemsize))
     if all(t.device.type == "cpu" for t in tensors):
         return matmul_int8_plain(qa, qb, sa, sb, out_dtype)
     if all(t.device.type == "meta" for t in tensors):

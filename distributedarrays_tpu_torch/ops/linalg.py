@@ -37,6 +37,7 @@ float32 products run in true float32: TF32 is switched off around every
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
+from .. import telemetry as _tm
 from ..darray import (DArray, SubDArray, as_tensor, distribute, from_global,
                       resolve_layout)
 from ..parallel import multihost
@@ -398,20 +400,60 @@ def _cells(d: DArray) -> list[torch.Tensor]:
 
 def _ring_ag_gemm(A: DArray, B: DArray, out_dtype) -> list[torch.Tensor]:
     """Rank r's output row block of the eligible (p,1) x (p,1) product, by
-    the ring all-gather GEMM."""
-    return [x.to(out_dtype) for x in cm.allgather_matmul_rhs(_cells(A),
-                                                             _cells(B))]
+    the ring all-gather GEMM (the ``matmul.ring_ag`` span: ``dispatch`` is
+    ``rdma`` for the ring kernel on the card, JAX's name for its remote-DMA
+    ring, ``plain`` for the plain ring)."""
+    cells = _cells(A)
+    with (_tm.span("matmul.ring_ag", **_ring_ag_labels(A, B, out_dtype,
+                                                       cells[0].is_cuda))
+          if _tm.enabled() else contextlib.nullcontext()):
+        return [x.to(out_dtype) for x in cm.allgather_matmul_rhs(
+            cells, _cells(B))]
+
+
+def _ring_ag_labels(A: DArray, B: DArray, out_dtype, on_card: bool) -> dict:
+    """The ``matmul.ring_ag`` span's labels and cost stamp: B's chunks
+    forwarded p - 1 hops, overlapped with the chunk products."""
+    from ..telemetry import perf as _perf
+    p = A.grid[0]
+    m, k = A.dims
+    n = B.dims[1]
+    isz = A.dtype.itemsize
+    return dict(ranks=p, dispatch="rdma" if on_card else "plain",
+                dispatch_key=None, dispatch_source="default",
+                shape=[m, k, n], dtype=str(A.dtype),
+                **_perf.gemm_cost(m, n, k, isz,
+                                  out_itemsize=out_dtype.itemsize,
+                                  bytes_ici=(p - 1) * k * n * isz))
 
 
 def _summa_gemm(A: DArray, B: DArray, out_dtype) -> list[torch.Tensor]:
     """Every rank's output block of the eligible 2-D-grid product: Cannon
-    on square grids, SUMMA panels otherwise."""
+    on square grids, SUMMA panels otherwise (the ``matmul.summa``
+    span)."""
     r, c = A.grid
-    if r == c:
-        res = cm.cannon_matmul(_cells(A), _cells(B), r)
-    else:
-        res = cm.summa_matmul(_cells(A), _cells(B), r, c)
-    return [x.to(out_dtype) for x in res]
+    with (_tm.span("matmul.summa", **_summa_labels(A, B, out_dtype))
+          if _tm.enabled() else contextlib.nullcontext()):
+        if r == c:
+            res = cm.cannon_matmul(_cells(A), _cells(B), r)
+        else:
+            res = cm.summa_matmul(_cells(A), _cells(B), r, c)
+        return [x.to(out_dtype) for x in res]
+
+
+def _summa_labels(A: DArray, B: DArray, out_dtype) -> dict:
+    """The ``matmul.summa`` span's labels and cost stamp: the panel moves
+    carry each operand to the rest of its grid row or column."""
+    from ..telemetry import perf as _perf
+    r, c = A.grid
+    m, k = A.dims
+    n = B.dims[1]
+    isz = A.dtype.itemsize
+    return dict(grid=f"{r}x{c}", ranks=r * c,
+                **_perf.gemm_cost(m, n, k, isz,
+                                  out_itemsize=out_dtype.itemsize,
+                                  bytes_ici=m * k * isz * (c - 1) // c
+                                  + k * n * isz * (r - 1) // r))
 
 
 def _panel(d: DArray, bounds, dev) -> torch.Tensor:
@@ -519,6 +561,7 @@ def _default_gemm(A: DArray, B, bt, pids, cuts, vec, out_dtype, use_kernel,
     return results
 
 
+@_tm.traced(name="matmul")
 def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
     """``C = alpha*A*B [+ beta*C]``: distributed GEMM or matvec.
 
@@ -566,6 +609,22 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
         _, pids, cuts = resolve_layout((m,) if vec else (m, n), procs, dist)
     if beta != 0.0 and out is None:
         raise ValueError("beta accumulation requires out=")
+    if _tm.enabled():
+        # the cross-rank volume of the block GEMM on an (r, c) result grid
+        # (each rank assembles its A row panel and B column panel), an
+        # estimate, and the cost stamp of the traced matmul span, as JAX's
+        # (``ops/linalg.py:759``)
+        r = int(dist[0]) if dist else 1
+        c = int(dist[1]) if len(dist) > 1 else 1
+        a_bytes = m * k * A.dtype.itemsize
+        b_bytes = _tm.nbytes_of(B if bt is None else bt)
+        _tm.count("op.matmul")
+        ici_est = a_bytes * (c - 1) + b_bytes * (r - 1)
+        _tm.annotate(flops=2 * m * n * k,
+                     bytes_hbm=a_bytes + b_bytes + m * n * out_dtype.itemsize,
+                     bytes_ici=ici_est, grid=f"{r}x{c}")
+        _tm.record_comm("collective", ici_est, op="matmul", grid=f"{r}x{c}",
+                        shape=[m, k, n])
     plain = alpha == 1.0 and beta == 0.0
 
     blocks = None

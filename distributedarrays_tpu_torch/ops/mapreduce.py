@@ -59,6 +59,7 @@ import torch
 from ..darray import (DArray, SubDArray, _assemble, as_tensor, copyto_,
                       from_global, resolve_layout)
 from .. import layout as L
+from .. import telemetry as _tm
 from ..darray import _scatter
 from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
 from ..parallel.reshard import relayout, relayout_parts
@@ -419,7 +420,25 @@ def dmapreduce(f: Callable | None, op_name_or_fn, d, dims=None):
     """``mapreduce(f, op, d)``: ``op`` is a name from {sum, prod, max, min,
     all, any, mean, std, var}, the matching torch reduction
     (``torch.sum``, ``torch.amax``, ...), or a plain two-argument callable
-    folded pairwise within each chunk and then across chunks."""
+    folded pairwise within each chunk and then across chunks.  The
+    ``mapreduce`` span carries ``perf.reduce_cost``, as JAX's."""
+    _tm.count("op.mapreduce")
+    with _tm.span("mapreduce"):
+        if _tm.enabled():
+            from ..telemetry import perf as _perf
+            # cost stamp: about 1 flop and one read through HBM an element
+            # (the map's cost is unknown: this floor classifies the sweep
+            # as bound by memory, which a reduction is)
+            try:
+                n_elems = int(np.prod(d.dims))
+                isz = d.dtype.itemsize
+            except (AttributeError, TypeError):
+                n_elems, isz = _tm.nbytes_of(d), 1
+            _tm.annotate(**_perf.reduce_cost(n_elems, isz))
+        return _dmapreduce(f, op_name_or_fn, d, dims)
+
+
+def _dmapreduce(f, op_name_or_fn, d, dims):
     if isinstance(op_name_or_fn, str):
         if op_name_or_fn not in _NAMES:
             raise ValueError(f"unknown reduction {op_name_or_fn!r}")

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import layout as L
+from .. import telemetry as _tm
 from ..darray import DArray
 from . import multihost
 
@@ -69,6 +70,16 @@ __all__ = ["spmd_mesh", "run_spmd", "axis_rank", "axis_size",
 # ---------------------------------------------------------------------------
 # the cross-process forms: each collective's plan over one exchange
 # ---------------------------------------------------------------------------
+
+
+def _rec(kind: str, x, **fields) -> None:
+    """The comm record of a rank-list collective, as JAX's ``_rec``
+    (``collectives.py:71``): the per-rank block's bytes, once a distinct
+    call signature (JAX records once a trace), over the axis ``ranks``.
+    Each site calls it only while telemetry is enabled, so that a disabled
+    site costs its one check."""
+    _tm.record_comm(kind, _tm.nbytes_of(x), axis="ranks", traced=True,
+                    once_key=f"collective:{kind}:ranks:{fields}", **fields)
 
 
 def _real(t: torch.Tensor) -> bool:
@@ -311,6 +322,7 @@ def run_spmd(f: Callable, ranks, *args):
     raises, and a branch on data would leave the processes' calls out of
     step.  The result holds real tensors for this process's ranks and
     placeholders for the others."""
+    _tm.count("op.run_spmd")
     grid = np.asarray(ranks, dtype=np.int64)
     conv = []
     for a in args:
@@ -428,6 +440,8 @@ def pbarrier(blocks) -> list[torch.Tensor]:
     process's, then every process at ``multihost.sync_hosts``) and returns
     the rank count as an int32 scalar on each rank's device, in the nesting of
     ``blocks``."""
+    if _tm.enabled():
+        _rec("psum", torch.ones((), dtype=torch.int32), op="pbarrier")
     nested = bool(blocks) and isinstance(blocks[0], (list, tuple))
     flat = [b for row in blocks for b in row] if nested else list(blocks)
     for dev in {b.device for b in flat if b.device.type == "cuda"}:
@@ -450,6 +464,8 @@ def pbcast(blocks: Sequence[torch.Tensor],
     if not 0 <= root < len(blocks):
         raise ValueError(f"root {root} is not one of the {len(blocks)} "
                          "ranks")
+    if _tm.enabled():
+        _rec("psum", blocks[root], op="pbcast", root=root)
     if multihost.in_job():
         return _job_call([(blocks, _bcast_plan(root))])[0]
     return [blocks[root].to(b.device, copy=True) for b in blocks]
@@ -502,6 +518,8 @@ def pshift(blocks: Sequence[torch.Tensor], shift: int = 1,
            wrap: bool = True) -> list[torch.Tensor]:
     """Ring shift: rank ``i`` receives rank ``i - shift``'s block on its own
     device.  With ``wrap=False`` ranks with no sender receive zeros."""
+    if _tm.enabled() and blocks:
+        _rec("ppermute", blocks[0], op="pshift", shift=shift)
     if multihost.in_job():
         return _job_shifts([blocks], [shift], wrap)[0]
     n = len(blocks)
@@ -528,6 +546,8 @@ def pshifts(lists, shift=1, wrap: bool = True) -> list[list]:
 def pgather(blocks: Sequence[torch.Tensor], dim: int = 0) -> list[torch.Tensor]:
     """Every rank gets all blocks concatenated along ``dim`` in rank order,
     on its own device."""
+    if _tm.enabled() and blocks:
+        _rec("all_gather", blocks[0], op="pgather")
     if multihost.in_job():
         return _job_call([(blocks, _gather_plan(dim))])[0]
     return [torch.cat([x.to(b.device) for x in blocks], dim) for b in blocks]
@@ -553,6 +573,11 @@ def preduces(lists, op: str = "sum") -> list[list[torch.Tensor]]:
     if op not in _FOLDS:
         raise ValueError(f"unknown reduction {op!r}: use one of "
                          f"{sorted(_FOLDS)}")
+    if _tm.enabled():
+        for blocks in lists:
+            if blocks:
+                _rec("psum" if op in ("sum", "mean") else f"p{op}",
+                     blocks[0], op="preduce")
     if multihost.in_job():
         return _job_call([(b, _reduce_plan(op)) for b in lists])
     out = []
@@ -597,6 +622,8 @@ def pall_to_all(blocks: Sequence[torch.Tensor], split_dim: int,
         if b.shape[split_dim] % p:
             raise ValueError(f"split extent {b.shape[split_dim]} is not "
                              f"divisible by the {p} ranks")
+    if _tm.enabled() and blocks:
+        _rec("all_to_all", blocks[0], op="pall_to_all")
     if multihost.in_job():
         return _job_call([(blocks, _a2a_plan(split_dim, concat_dim))],
                          "all_to_all")[0]

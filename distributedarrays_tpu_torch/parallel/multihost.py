@@ -84,6 +84,7 @@ __all__ = ["initialize", "global_mesh", "process_info", "sync_hosts",
 _HB_PREFIX = "dat/heartbeat/"
 _CLOCK_PREFIX = "dat/clock/"
 _AGG_KEY = "dat/telemetry/agg"
+_EXPORTER_PREFIX = "dat/telemetry/exporter/"
 _RANKS_PREFIX = "dat/ranks/"
 _SYNC_PREFIX = "dat/sync/"
 _EXCHANGE_PREFIX = "dat/exchange/"
@@ -291,12 +292,24 @@ def aggregator_endpoint() -> str | None:
 
 
 def advertise_exporter() -> bool:
-    """Register this process's armed streaming exporter in the KV (JAX
-    ``multihost.py:134``: ``dat/telemetry/exporter/<index>``).  JAX
-    returns False single-process or when no exporter is armed; the port's
-    ``telemetry.stream`` has no exporter yet (ROADMAP queue A), so none
-    is ever armed and this returns False."""
-    return False
+    """Register this process's armed streaming exporter in the KV
+    (``dat/telemetry/exporter/<index>`` -> ``"<host>:<pid> <epoch>"``, JAX
+    ``multihost.py:144``) so an operator can enumerate the processes that
+    publish to the live plane.  Returns False (a no-op) single-process,
+    when no exporter is armed (``telemetry.stream.start``) or on a store
+    error."""
+    store = _kv()
+    if store is None:
+        return False
+    try:
+        from ..telemetry import stream as _stream
+        if not _stream.armed():
+            return False
+        store.set(f"{_EXPORTER_PREFIX}{_job.index}",
+                  f"{_tm.core._HOST}:{os.getpid()} {time.time():.3f}")
+        return True
+    except Exception:
+        return False
 
 
 def heartbeat() -> bool:

@@ -50,6 +50,22 @@ PyTorch counterpart of ``distributedarrays_tpu/train/trainer.py``
   (between the per-rank gradients and the K10/K12 sync); spans
   ``train.step`` (stamped with ``perf.train_step_cost``), ``train.grad``
   and ``train.sync``; the ``train.step_s`` gauge and stream point.
+- In a job of several controller processes (``parallel.multihost``; the
+  JAX trainer's one ``shard_map`` program over a mesh that spans
+  processes) every process runs ``fit``/``step_once`` together: each
+  builds the batches, gradients and updates of its own ranks (another
+  process's ranks are ``meta`` placeholders), K10 and K12 take their
+  cross-process routes (``ring_all_gather``'s one exchange,
+  ``ring_reduce_scatter``'s launch a rank over CUDA IPC, gloo off the
+  card), and one host exchange carries every rank's loss sum, the slowest
+  process's step time and whether any process's step was fresh, so every
+  process returns the same loss, bit-equal to one process on the same
+  ranks, and takes the straggler gate's branch together (a confirmed dead
+  rank is the union of the processes' probes).  ``flat_params`` and a
+  checkpoint save gather on every process (each writes its own copy).  A
+  recovery that would move a rank's shards to another process (the
+  device-loss shrink, a re-layout onto another rank set) raises
+  ``NotImplementedError`` on every process.
 """
 
 from __future__ import annotations
@@ -65,8 +81,9 @@ import torch
 
 from .. import telemetry as _tm
 from ..darray import from_chunks
-from ..layout import device_of
+from ..layout import device_of, is_local
 from ..ops.cuda_collectives import ring_all_gather, ring_reduce_scatter
+from ..parallel import multihost
 from ..resilience import elastic, faults, recovery
 from ..telemetry import stream as _tstream
 from ..utils import kbuild
@@ -74,6 +91,11 @@ from .optim import Optimizer, adam
 from .tasks import TrainTask
 
 __all__ = ["Trainer", "StragglerDetector", "DeadRankError", "fit_result"]
+
+# where a recovery would move a rank between the processes of a job
+_SHRINK_ITEM = ("the Trainer's shrink across controller processes waits "
+                "(ROADMAP.md queue A, \"The Trainer's cross-process "
+                "shrink\")")
 
 
 class DeadRankError(RuntimeError):
@@ -291,15 +313,23 @@ class Trainer:
         self._state = None
 
     def _relay_state(self, ranks: list[int]) -> None:
-        """Every state DArray onto the shard cuts of ``ranks``."""
+        """Every state DArray onto the shard cuts of ``ranks``.  In a job
+        of several controller processes a move would carry shards between
+        the processes: that raises ``NotImplementedError``."""
         cuts = [self._shard_cuts(len(ranks))]
         for d in self._state.values():
             if [int(x) for x in d.pids.flat] != ranks or d.cuts != cuts:
+                if multihost.in_job():
+                    raise NotImplementedError(
+                        f"trainer: re-laying the state onto ranks {ranks} "
+                        f"in a job of several processes: {_SHRINK_ITEM}")
                 elastic.relayout(d, ranks, cuts)
 
     def _shard(self, name: str, rank: int, slen: int) -> torch.Tensor:
         """Rank ``rank``'s shard of a state vector, padded with zeros to
-        ``slen``."""
+        ``slen`` (another process's rank: a ``meta`` placeholder)."""
+        if not is_local(rank):
+            return torch.empty(slen, device="meta")
         local = self._state[name].localpart(rank)
         pad = slen - local.numel()
         return local if pad == 0 else torch.cat([local, local.new_zeros(pad)])
@@ -313,8 +343,9 @@ class Trainer:
 
     def _batch_for(self, step: int, ranks: list[int]):
         """The step's batch padded to a multiple of the rank count with
-        weight-0 rows, as one ``(leaves, w)`` pair per rank on its device,
-        and the real batch size."""
+        weight-0 rows, as one ``(leaves, w)`` pair per rank on its device
+        (None for another process's rank: every process draws the same
+        host leaves from the step), and the real batch size."""
         p = len(ranks)
         leaves = [np.asarray(x) for x in self.task.batch(step)]
         b = int(leaves[0].shape[0])
@@ -326,6 +357,9 @@ class Trainer:
         rows = bpad // p
         per_rank = []
         for r, rank in enumerate(ranks):
+            if not is_local(rank):
+                per_rank.append(None)
+                continue
             dev = device_of(rank)
             sl = slice(r * rows, (r + 1) * rows)
             shard = tuple(torch.from_numpy(x[sl]).to(dev) for x in leaves)
@@ -334,13 +368,18 @@ class Trainer:
 
     def _grads(self, ranks, slen, batches):
         """K10 all-gathers the parameter shards; each rank's full-length
-        gradient and its weighted loss sum."""
+        gradient and its weighted loss sum (another process's rank: a
+        placeholder gradient and no sum)."""
         n_params = self._spec[2]
         full = ring_all_gather([self._shard("pflat", r, slen)
                                 for r in ranks], 0)
         index = self._spec[0]
         grads, lsums = [], []
         for r in range(len(ranks)):
+            if batches[r] is None:
+                grads.append(full[r])
+                lsums.append(None)
+                continue
             # one leaf a parameter: the gradient of a slice of one flat
             # leaf would add a zero-filled full-length tensor a parameter
             leaves = [x.requires_grad_(True)
@@ -364,6 +403,9 @@ class Trainer:
         names = self._state_names()
         outs = []
         for r, rank in enumerate(ranks):
+            if not is_local(rank):
+                outs.append(None)
+                continue
             g = gs[r] / torch.tensor(float(b_real), dtype=torch.float32,
                                      device=gs[r].device)
             outs.append(self.opt.update(
@@ -397,7 +439,8 @@ class Trainer:
             faults.check("train.step", step=n, epoch=epoch)
             with _tm.span("train.grad", step=n, kind="compute"):
                 grads, lsums = self._grads(ranks, slen, batches)
-                lsum = [float(x) for x in lsums]
+                lsum = {r: float(x) for r, x in zip(ranks, lsums)
+                        if x is not None}
             # chaos site: between the per-rank gradients and the sync
             faults.check("grad.sync", step=n)
             with _tm.span("train.sync", step=n, kind="comm"):
@@ -415,6 +458,15 @@ class Trainer:
             # set and shapes) neither feeds nor is judged by the window
             fresh = fresh or len(kbuild._libs) != built0
             self._seen.add(key)
+            job = multihost.in_job()
+            if job:
+                # every process must take the gate's branch: one exchange
+                # carries the ranks' loss sums, the slowest process's step
+                # time and whether any process's step was fresh
+                every = multihost._all_gather_objects((lsum, dur, fresh))
+                lsum = {r: x for e in every for r, x in e[0].items()}
+                dur = max(e[1] for e in every)
+                fresh = any(e[2] for e in every)
             if not fresh and self.straggler.observe(dur):
                 self.stragglers += 1
                 _tm.count("train.stragglers")
@@ -424,12 +476,18 @@ class Trainer:
                               dur=round(dur, 6))
                 probe = elastic.manager().probe()
                 dead = set(probe["down"]) & set(ranks)
+                if job:
+                    # each process probes its own census: the union
+                    dead = set().union(
+                        *multihost._all_gather_objects(sorted(dead)))
                 if dead:
                     raise DeadRankError(dead, self.straggler.budget()
                                         or 0.0, dur)
-            loss = float(np.asarray(lsum, np.float32).sum()
-                         / np.float32(b_real))
+            loss = float(np.asarray([lsum[r] for r in ranks], np.float32)
+                         .sum() / np.float32(b_real))
             for rank, new in zip(ranks, outs):
+                if new is None:
+                    continue
                 for name, t in zip(self._state_names(), new):
                     local = self._state[name].localpart(rank)
                     local.copy_(t[:local.numel()])
@@ -455,7 +513,9 @@ class Trainer:
         return recovery.run_with_recovery(
             self._attempt_step, policy=self._step_policy(),
             checkpoints=self._mgr,
-            restore_fn=self._adopt if self._mgr is not None else None)
+            restore_fn=self._adopt if self._mgr is not None else None,
+            devices=_JobDevices(elastic.manager())
+            if multihost.in_job() else None)
 
     # -- public API ----------------------------------------------------------
 
@@ -506,6 +566,25 @@ class Trainer:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+class _JobDevices:
+    """The elastic set as the recovery of a step sees it in a job of
+    several controller processes: the probe as it is; the device-loss
+    shrink, which would carry a lost rank's shards to another process,
+    raises ``NotImplementedError`` on every process (each took the same
+    gate decision), so no process waits in a collective for another."""
+
+    def __init__(self, devs):
+        self._devs = devs
+
+    def probe(self) -> dict:
+        return self._devs.probe()
+
+    def shrink(self, domain: int | None = None) -> dict:
+        raise NotImplementedError(
+            f"trainer: the device-loss shrink in a job of several "
+            f"processes: {_SHRINK_ITEM}")
 
 
 def fit_result(losses: list, from_step: int = 0) -> list:

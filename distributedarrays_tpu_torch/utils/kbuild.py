@@ -110,6 +110,9 @@ _routes.update({k: dict.fromkeys(RING_ROUTES, 0)
 # CUDA IPC): K10's region copies and collectives, K11's all-to-alls
 _routes["all_gather"] = {"cross_process_region": 0}
 _routes["all_to_all"] = {"cross_process_region": 0}
+# K12 launches that read peer processes' pieces through CUDA IPC, or from
+# copies of them brought over the job's exchange
+_routes["reduce_scatter"] = {"cross_process": 0, "cross_process_fetched": 0}
 # K9, K13, K14 and K15 launches that store their forward into a peer
 # process's mapped slot
 _routes.update({k + "_forward": {"cross_process": 0}

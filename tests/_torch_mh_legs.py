@@ -420,11 +420,13 @@ def sp_cfg(N: int) -> dict:
                 max_seq=64)
 
 
+TRAINER_NAMES = ["trainer_mlp_adam", "trainer_mlp_sgd",
+                 "trainer_transformer_adam", "trainer_transformer_sgd"]
 TRAIN_NAMES = [
     "ring_flash_attention", "ring_flash_grads", "zigzag_ring_flash_attention",
     "zigzag_flash_grads", "zigzag_ring_attention", "zigzag_ring_grads",
     "ring_causal_grads", "tp_ffn", "sp_grad", "sp_grad_zigzag", "sp_sgd",
-    "sp_sgd_zigzag", "sp_adam"]
+    "sp_sgd_zigzag", "sp_adam"] + TRAINER_NAMES
 # the plain causal ring's leg runs on ranks SUB_RING_FIRST.. N-1, so that
 # process 0 holds only the ring's first rank, which the causal plan skips
 # after step 0
@@ -590,5 +592,118 @@ def train_legs(tdat, N: int) -> list:
         ("sp_sgd_zigzag", sp_sgd(True)),
         ("sp_adam", sp_adam),
     ]
+    out += trainer_legs(tdat, N)
     assert [name for name, _ in out] == TRAIN_NAMES
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel Trainer across processes: K10 gathers the parameter
+# shards, K12 reduce-scatters the gradients
+# ---------------------------------------------------------------------------
+
+TRAINER_ADAM = dict(kind="adam", lr=1e-2)
+TRAINER_SGD = dict(kind="sgd", lr=5e-2)
+
+
+def trainer_task(kind: str, N: int, tasks):
+    """The trainer legs' task on N ranks (``tasks``: either package's
+    ``train.tasks``): the MLP of ``mlp_task``'s default sizes (1732
+    parameters, padded to a multiple of N) on a batch of 3N - 2, or a
+    one-layer transformer (vocab 32, dim 16, 2 heads, seq 8) on 2N - 4
+    sequences, so the batch pads too."""
+    if kind == "mlp":
+        return tasks.mlp_task(batch_size=3 * N - 2)
+    return tasks.transformer_task(vocab=32, dim=16, heads=2, layers=1,
+                                  seq=8, batch_size=2 * N - 4)
+
+
+def trainer_legs(tdat, N: int) -> list:
+    """``TRAINER_NAMES``: the port's ``Trainer`` on every rank, for the
+    MLP and the transformer task: 3 Adam steps published by a checkpoint
+    manager, then a new trainer resuming from the published step to 4;
+    and 2 SGD steps by ``step_once``.  Each returns its losses and the
+    flat parameters (every process gathers them), the losses as a float64
+    array (the floats the trainer returned); a process writes its
+    own checkpoint copy in a directory of its own."""
+    import shutil
+    import tempfile
+    T = tdat.train
+    ring = list(range(N))
+
+    def adam(kind):
+        def run():
+            task = trainer_task(kind, N, T)
+            where = tempfile.mkdtemp(prefix="trainer_legs_")
+            try:
+                with T.Trainer(task, T.Optimizer(**TRAINER_ADAM),
+                               ckpt_dir=where, save_every=3,
+                               ranks=ring) as t:
+                    res = t.fit(3)
+                    flat = t.flat_params().numpy()
+                with T.Trainer(task, T.Optimizer(**TRAINER_ADAM),
+                               ckpt_dir=where, ranks=ring) as t2:
+                    more = t2.fit(4)
+                    flat2 = t2.flat_params().numpy()
+            finally:
+                shutil.rmtree(where, ignore_errors=True)
+            return {"losses": np.asarray(res["losses"]), "flat": flat,
+                    "resumed_from": more["resumed_from"],
+                    "resumed": np.asarray(more["losses"]),
+                    "resumed_flat": flat2}
+        return run
+
+    def sgd(kind):
+        def run():
+            with T.Trainer(trainer_task(kind, N, T),
+                           T.Optimizer(**TRAINER_SGD), ranks=ring) as t:
+                losses = [t.step_once(), t.step_once()]
+                return {"losses": np.asarray(losses),
+                        "flat": t.flat_params().numpy(),
+                        "step": t.step}
+        return run
+
+    return [("trainer_mlp_adam", adam("mlp")), ("trainer_mlp_sgd", sgd("mlp")),
+            ("trainer_transformer_adam", adam("transformer")),
+            ("trainer_transformer_sgd", sgd("transformer"))]
+
+
+STRAGGLER_STEP = 3
+
+
+def trainer_straggler(tdat, N: int, proc: int, nprocs: int) -> dict:
+    """A step that the straggler gate aborts in a job: the last process
+    hangs 2 s at the top of step ``STRAGGLER_STEP`` and its next probe
+    finds its first rank down (a fault plan on that process only); every
+    process must take the gate's branch from the shared step time, raise
+    ``DeadRankError`` after K12, and then meet the device-loss shrink,
+    which raises ``NotImplementedError`` across processes.  Returns what
+    each process saw; the fault plan and the elastic set are reset after."""
+    from distributedarrays_tpu_torch.parallel import multihost
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    T = tdat.train
+    if proc == nprocs - 1:
+        faults.configure(plan=[
+            {"site": "train.step", "match": {"step": STRAGGLER_STEP},
+             "action": "hang", "hang_s": 2.0, "at": 1, "count": 1,
+             "device": 4 * proc}], seed=3)
+    multihost.heartbeat()
+    det = T.StragglerDetector(factor=3.0, min_budget_s=0.5, warmup=2)
+    out = {}
+    try:
+        with T.Trainer(trainer_task("mlp", N, T), T.Optimizer(**TRAINER_SGD),
+                       ranks=list(range(N)), straggler=det) as t:
+            try:
+                t.fit(STRAGGLER_STEP + 2)
+                out["error"] = None
+            except Exception as e:  # noqa: BLE001 — reported to the parent
+                out["error"] = f"{type(e).__name__}: {e}"
+                ctx = e.__context__
+                out["cause"] = None if ctx is None else type(ctx).__name__
+            out.update(step=t.step, stragglers=t.stragglers,
+                       losses=[t.losses()[i] for i in sorted(t.losses())])
+    finally:
+        faults.clear()
+        elastic.manager().reset()
+        multihost.sync_hosts("trainer_straggler")
     return out

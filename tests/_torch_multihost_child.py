@@ -19,7 +19,9 @@ the scans, ``run_spmd`` with the rank-list collectives, ``dsort``, the
 FFTs, ``dconv2d``, ring and Ulysses attention, k-means and
 ``dmatmul_int8``); sequence-parallel training (the flash and zigzag
 rings with their gradients, ``tp_ffn``, the SP model's grad function and
-train steps: ``_torch_mh_legs.train_legs``); a checkpoint round trip; the
+train steps) and the data-parallel ``Trainer``
+(``_torch_mh_legs.train_legs``), with a step that the straggler gate
+aborts (``_torch_mh_legs.trainer_straggler``); a checkpoint round trip; the
 heartbeat census with the last process stale; and a journal with markers
 around a ``sync_hosts`` barrier.  It writes what it saw to
 ``<out_dir>/result_<process_id>.pkl`` for the parent to hold against the
@@ -201,6 +203,9 @@ for name, thunk in _torch_mh_legs.train_legs(tdat, N):
         res["meta"][name] = meta
 res["open_mappings"] = max(res["open_mappings"],
                            cuda_collectives.open_mappings())
+
+# --- the Trainer: a step that the straggler gate aborts -----------------
+res["straggler"] = _torch_mh_legs.trainer_straggler(tdat, N, proc_id, nprocs)
 
 # --- checkpoint round trip ----------------------------------------------
 ck = np.random.default_rng(7).standard_normal((16, 4)).astype(np.float32)

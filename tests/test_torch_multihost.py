@@ -347,6 +347,128 @@ def test_rank_list_copies_replayed_on_the_host(monkeypatch, dt):
     assert barriers == [0] and CC.open_mappings() == 0
 
 
+def _replayed_reduce(typ, isz):
+    """K12's ``da_reduce_pieces`` replayed on the host: the left fold of
+    the ``p`` pieces at ``ptrs``, in pointer order, each read as the
+    kernel reads it (3 outer sizes and element strides, a contiguous run)
+    and the fold written to ``out`` contiguous."""
+    import ctypes
+
+    def read(ptr, sizes, strides, run):
+        rows = []
+        for i in range(sizes[0]):
+            for j in range(sizes[1]):
+                for k in range(sizes[2]):
+                    at = ptr + (i * strides[0] + j * strides[1]
+                                + k * strides[2]) * isz
+                    buf = (ctypes.c_char * (run * isz)).from_address(at)
+                    rows.append(torch.frombuffer(bytearray(buf), dtype=typ))
+        return torch.cat(rows)
+
+    def kernel(p, ptrs, sizes, strides, run, out, bf16, dev, stream):
+        acc = None
+        for i in range(p):
+            x = read(ptrs[i], list(sizes), list(strides), run)
+            acc = x.clone() if acc is None else acc + x
+        ctypes.memmove(out, acc.data_ptr(), acc.numel() * isz)
+        return 0
+    return kernel
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_reduce_scatter_job_replayed_on_the_host(monkeypatch, dt):
+    # K12's job route on a pretend two-process table: process 0 holds
+    # ranks 0-3 of 8 (4-7 are meta placeholders) and launches once a rank,
+    # the pointer array holding process 1's pieces at the "mapping" of
+    # their blocks; the replayed kernel folds them in the arrival order
+    # (d + k) % p, bit-equal to the one-process plain version; every
+    # mapping is closed before the closing barrier
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.utils import kbuild
+    opened, closed = _pretend_peer(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {
+                            "synchronize": lambda self: None,
+                            "cuda_stream": 0})())
+    typ = getattr(torch, dt)
+    real = [((torch.arange(64.0) * (r + 1)) % 13 / 7 + r).to(typ)
+            for r in range(8)]
+    theirs = CC.region_handles([[t if r >= 4 else t.to("meta")
+                                 for r, t in enumerate(real)]])
+    blocks = [t if r < 4 else t.to("meta") for r, t in enumerate(real)]
+    kernel = _replayed_reduce(typ, real[0].element_size())
+    want = CC.reduce_scatter_plain(real, 0)        # one process
+    barriers = []
+    monkeypatch.setattr(CC, "_fn", lambda name: kernel)
+    monkeypatch.setattr(CC, "_on_cuda", lambda ts: True)
+    monkeypatch.setattr(CC.multihost, "in_job", lambda: True)
+    monkeypatch.setattr(CC.multihost, "_kernel_route", lambda: True)
+    monkeypatch.setattr(CC.multihost, "_all_gather_json",
+                        lambda tag, obj: [obj, theirs])
+    monkeypatch.setattr(CC.multihost, "sync_hosts",
+                        lambda tag: barriers.append((tag,
+                                                     CC.open_mappings())))
+    monkeypatch.setattr(CC.L, "local_device", lambda: torch.device("cpu"))
+    kbuild.reset_launches()
+    got = CC.ring_reduce_scatter(blocks, 0)
+    for r in range(4):
+        assert torch.equal(got[r], want[r]), r
+    assert all(g.device.type == "meta" for g in got[4:])
+    assert kbuild.launch_counts()["reduce_scatter"] == 4
+    assert kbuild.route_counts()["reduce_scatter"]["cross_process"] == 4
+    assert len(opened) == len(set(opened)) == 4
+    assert sorted(closed) == sorted(int.from_bytes(h, "little")
+                                    for h in opened)
+    assert barriers == [("reduce_scatter", 0)] and CC.open_mappings() == 0
+    kbuild.reset_launches()
+
+
+@pytest.mark.parametrize("dt,dim", [("float32", 0), ("bfloat16", 0),
+                                    ("float32", 1)])
+def test_reduce_scatter_fetched_replayed_on_the_host(monkeypatch, dt, dim):
+    # K12 on the card in a job whose peers cannot be mapped (the job spans
+    # hosts, or a peer computes on the CPU): process 0 holds ranks 0-3 of
+    # 8 on its "card"; the pieces it needs from process 1 come over the
+    # job's exchange (here filled from process 1's blocks), and then one
+    # replayed launch a rank folds them in the arrival order (d + k) % p,
+    # bit-equal to the one-process plain version; the plain fold is never
+    # taken
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.utils import kbuild
+    typ = getattr(torch, dt)
+    real = [((torch.arange(128.0).reshape(8, 16) * (r + 1)) % 13 / 7
+             + r).to(typ) for r in range(8)]
+    blocks = [t if r < 4 else t.to("meta") for r, t in enumerate(real)]
+    asked = []
+
+    def exchange(sources, wants, kernel="all_gather", op="exchange"):
+        assert sources == [blocks]
+        for a, k, bounds, dst in wants:
+            assert a == 0 and k >= 4           # only process 1's pieces
+            asked.append(k)
+            dst.copy_(real[k][tuple(slice(lo, hi) for lo, hi in bounds)])
+    kernel = _replayed_reduce(typ, real[0].element_size())
+    want = CC.reduce_scatter_plain(real, dim)      # one process
+    monkeypatch.setattr(CC, "_fn", lambda name: kernel)
+    monkeypatch.setattr(CC, "_on_cuda", lambda ts: True)
+    monkeypatch.setattr(CC, "psum_scatter", None)
+    monkeypatch.setattr(CC.multihost, "in_job", lambda: True)
+    monkeypatch.setattr(CC.multihost, "_kernel_route", lambda: False)
+    monkeypatch.setattr(CC.multihost, "exchange", exchange)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0})())
+    kbuild.reset_launches()
+    got = CC.ring_reduce_scatter(blocks, dim)
+    for r in range(4):
+        assert torch.equal(got[r], want[r]), r
+    assert all(g.device.type == "meta" for g in got[4:])
+    assert sorted(asked) == sorted(list(range(4, 8)) * 4)
+    assert kbuild.launch_counts()["reduce_scatter"] == 4
+    assert kbuild.route_counts()["reduce_scatter"] == {
+        "cross_process": 0, "cross_process_fetched": 4}
+    kbuild.reset_launches()
+
+
 def test_rank_list_exchange_raises_and_never_takes_gloo(monkeypatch):
     # a handle that will not open fails the kernel route's call (its
     # mappings closed, no barrier passed), and multihost.exchange raises
@@ -1364,6 +1486,12 @@ def _check_train_leg(results, name, N) -> None:
         assert name not in r["meta"], r["meta"]
         got = r["ported"][name]
         _same(got, ref, name)
+        if name.startswith("trainer_"):
+            # every process holds the whole flat vector and the losses
+            assert len(got["losses"]) == (3 if "adam" in name else 2), name
+            if "adam" in name:
+                assert got["resumed_from"] == 3 and len(got["resumed"]) == 1
+            continue
         if name.startswith("sp_"):
             # every process holds the whole dict, its own ranks' shards
             assert set(got["whole"]) == set(ref["whole"]), name
@@ -1451,3 +1579,92 @@ def test_job_sp_loss_and_gradients_match_jax(job2):
         for name, w in want.items():
             np.testing.assert_allclose(got["whole"][name], w, rtol=1e-4,
                                        atol=1e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel Trainer across processes (tests/_torch_mh_legs.py
+# trainer_legs, trainer_straggler)
+# ---------------------------------------------------------------------------
+
+
+def _jax_trainer(name: str, N: int) -> dict:
+    """JAX's ``Trainer`` on N devices for the trainer leg ``name``, from
+    the port task's initial parameters (the port's ``init_params`` with
+    the trainer's seed 0, as numpy): the Adam legs' losses of 4 steps and
+    the flat vectors after 3 and 4, the SGD legs' 2 losses and flat."""
+    import dataclasses
+    import jax
+    from distributedarrays_tpu.resilience import elastic as jelastic
+    from distributedarrays_tpu.resilience import faults as jfaults
+    from distributedarrays_tpu.train import optim as JO
+    from distributedarrays_tpu.train import tasks as JTasks
+    from distributedarrays_tpu.train import trainer as JTrainer
+    kind = "mlp" if "mlp" in name else "transformer"
+    init = jax.tree_util.tree_map(lambda t: t.numpy(), LEGS.trainer_task(
+        kind, N, tdat.train).init_params(torch.Generator().manual_seed(0)))
+    jtask = dataclasses.replace(LEGS.trainer_task(kind, N, JTasks),
+                                init_params=lambda key: init)
+    adam = "adam" in name
+    opt = JO.Optimizer(**(LEGS.TRAINER_ADAM if adam else LEGS.TRAINER_SGD))
+    jfaults.clear()
+    jelastic.manager().reset()
+    with JTrainer.Trainer(jtask, optimizer=opt, ranks=list(range(N)),
+                          seed=0) as jt:
+        res = jt.fit(3 if adam else 2)
+        out = {"losses": res["losses"],
+               "flat": np.asarray(jt._state["pflat"])}
+        if adam:
+            more = jt.fit(4)
+            out.update(resumed=more["losses"][3:],
+                       resumed_flat=np.asarray(jt._state["pflat"]))
+    return out
+
+
+@pytest.mark.parametrize("name", LEGS.TRAINER_NAMES)
+def test_job_trainer_matches_jax(job2, name):
+    # the 2-process job's Trainer (8 ranks) against JAX's Trainer on its
+    # 8-device CPU mesh from the same initial parameters, at
+    # tests/test_torch_train.py's tolerances (losses rtol 1e-5 for the
+    # MLP and 1e-4 for the transformer task, flat rtol 1e-4 / atol 1e-6)
+    want = _jax_trainer(name, 8)
+    rtol = 1e-5 if "mlp" in name else 1e-4
+    for r in job2:
+        got = r["ported"][name]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=rtol)
+        assert got["losses"][-1] < got["losses"][0], name
+        np.testing.assert_allclose(got["flat"], want["flat"], rtol=1e-4,
+                                   atol=1e-6)
+        if "adam" in name:
+            np.testing.assert_allclose(got["resumed"], want["resumed"],
+                                       rtol=rtol)
+            np.testing.assert_allclose(got["resumed_flat"],
+                                       want["resumed_flat"], rtol=1e-4,
+                                       atol=1e-6)
+
+
+def test_job_trainer_straggler_abort_leaves_every_process_at_one_step(
+        job2, job3):
+    # the last process hangs at the top of a step and finds its rank
+    # down; the others' own step times are theirs, but the gate reads the
+    # shared (slowest) time, so every process aborts the same step after
+    # K12, none waits for another, and all keep the same losses
+    for results in (job2, job3):
+        seen = [r["straggler"] for r in results]
+        for s in seen:
+            assert s["step"] == LEGS.STRAGGLER_STEP, s
+            assert s["stragglers"] == 1, s
+            assert s["cause"] == "DeadRankError", s
+            assert s["losses"] == seen[0]["losses"], s
+            assert len(s["losses"]) == LEGS.STRAGGLER_STEP
+
+
+def test_job_trainer_cross_process_shrink_raises_not_implemented(job2, job3):
+    # the device-loss shrink would carry the lost rank's shards to another
+    # process: it raises NotImplementedError naming its ROADMAP entry on
+    # every process, instead of gathering quietly
+    for results in (job2, job3):
+        for r in results:
+            err = r["straggler"]["error"]
+            assert err.startswith("NotImplementedError"), err
+            assert "ROADMAP.md queue A" in err, err
+            assert "The Trainer's cross-process shrink" in err, err
