@@ -249,6 +249,33 @@
      span that ends at a device synchronization (``train.step``) read
      above 1.05 of a peak uncapped; prints the top findings and every
      stamped span's fraction, capped and uncapped;
+   - the tuning advisor on the card (``advise_phase``; ``python3
+     chip_smoke.py --advise`` alone): a child process with
+     ``CUDA_LAUNCH_BLOCKING=1`` (so each span ends with its kernels;
+     ``--advise-journal``) journals K1 through ``matmul_impl = "pallas"``
+     at 4096^3 f32 and bf16, the (4,1) 16384^2 f32 ``A @ B`` on
+     ``matmul_impl_dist`` ``"torch"`` and ``"ring_ag"`` (K14) under one
+     ``dispatch_key``, and a (4,1) -> (1,4) 16384^2 f32 ``copyto_`` (K11,
+     which must launch there); then ``python -m
+     distributedarrays_tpu_torch.telemetry advise --json`` on the journal,
+     and ``advise --json --apply`` in a fresh process on a copy of the
+     registry (it builds the 4-rank table its dispatch probe needs: no
+     action may be skipped for a failed probe); in this process, the
+     doctor, ``advise`` (a ``resweep`` and a ``dispatch`` action, the same
+     as the command line's, and no ``rdma_chunks`` action: the port's
+     reshard span carries no key for it) and ``apply`` with the default
+     probes onto a registry in a temporary file
+     (``DAT_TORCH_AUTOTUNE_CACHE``), printing each action's before and
+     after probe medians and whether it was kept; K1 and K14 must launch
+     during ``apply``; the
+     dispatch tune reversed (the route its probes measured slower) must
+     be rolled back, its entry and stamp reading exactly as before, with
+     ``autotune.advisor_rollbacks`` and the ``autotune_regressed`` alert
+     moved; the repo's cache file must be untouched.  Then
+     ``profiling.trace`` around one main-path run (``telemetry_workload``)
+     must name, among its kernel events, every kernel that ``kbuild``
+     counted in it, and the run's wall time with and without the profiler
+     (in turns, after a first traced run that starts the profiler);
    - the trainer's runtime tier (``train_runtime_phase``; ``python3
      chip_smoke.py --train-runtime`` alone) on the same task, Adam, 4 ranks
      (a checkpoint is 3 x 478 MB): (a) 4 steps with a checkpoint every 2
@@ -2700,14 +2727,14 @@ def solvers_phase(tdat, errs: dict) -> dict:
             me = tdat.myid()
             t = torch.full((4,), float(me), device=tdat.device_of(me))
             tdat.barrier()
-            g = tdat.gather_spmd(t, 0)
+            g = tdat.gather_spmd(t, 0)  # dalint: disable=DAL010 — the payload's shape is (4,) on every rank; only its fill value is the rank's
             return None if g is None else float(torch.stack(g).sum())
 
         def diverge():
-            if tdat.myid() == 2:
-                tdat.bcast(None, 0)
+            if tdat.myid() == 2:  # dalint: disable=DAL010 — seeded divergence: the runtime checker's fixture on the card must catch it
+                tdat.bcast(None, 0)  # dalint: disable=DAL001 — seeded divergence: the runtime checker's fixture on the card must catch it
             else:
-                tdat.barrier()
+                tdat.barrier()  # dalint: disable=DAL001 — seeded divergence: the runtime checker's fixture on the card must catch it
         got = tdat.spmd(agree, pids=[0, 1, 2, 3])
         if got[0] != 4.0 * (0 + 1 + 2 + 3):
             raise AssertionError(f"checked spmd program gave {got}")
@@ -4254,7 +4281,9 @@ def stencil_dtypes(tdat, randn) -> None:
                 exact(f"stencil5 {dt} rows {r0}..{r1 - 1} against the plain "
                       "step on the host", full[r0:r1].cpu(),
                       CS._apply3x3(x, lap))
-        del G, got, full
+        G.close()
+        got.close()
+        del full
     G = tdat.distribute(typed_grid(randn, (512, 512), torch.int32).to(
         torch.int8), dist=(4, 1))
     for choice in (None, True):
@@ -6978,6 +7007,346 @@ def telemetry_phase(tdat, workload_sizes=(4096, 8192, 10 ** 8, 16384),
     return row
 
 
+# the device symbols of the port's kernels in a profiler trace, by
+# kbuild's kernel names (their C entries are the ``da_*`` functions)
+KERNEL_SYMBOLS = {
+    "gemm": r"gemm_(f32|mma|wgmma)_kernel",
+    "stencil_step": r"(?<!multi)step_kernel",
+    "stencil_multistep": r"multistep_kernel",
+    "all_gather": r"copy_kernel",
+    "all_to_all": r"copy_kernel",
+    "reduce_scatter": r"reduce_(pieces|run)_kernel",
+    "allgather_matmul_rhs": r"ring_ag_mm_(kernel|wgmma|f32)",
+}
+ADVISE_N, ADVISE_M = 4096, 16384     # K1's shape; the (4,1) GEMM's and
+ADVISE_BF16 = (4096, 2048, 8192)     # the reshard's; K1's bf16 (m, k, n)
+
+
+def advise_journal(journal: str, registry: str) -> int:
+    """``--advise-journal JOURNAL REGISTRY``: the advise phase's journaled
+    run (started with ``CUDA_LAUNCH_BLOCKING=1``, so a span lasts as long
+    as its kernels): K1 through ``matmul_impl = "pallas"`` (4096^3 f32 and
+    one bf16 shape), the (4,1) x (4,1) 16384^2 f32 ``A @ B`` under
+    ``matmul_impl_dist`` ``"torch"`` then ``"ring_ag"``, and a (4,1) ->
+    (1,4) 16384^2 f32 ``copyto_``; each warmed once unjournaled, then
+    journaled twice.  The registry it ran under is saved to REGISTRY, the
+    run's kernel launches beside it (``REGISTRY.launches.json``)."""
+    import distributedarrays_tpu_torch as tdat
+    from distributedarrays_tpu_torch.utils import autotune
+    tm = tdat.telemetry
+    f32, bf16 = torch.float32, torch.bfloat16
+    autotune.clear()
+    tdat.init()
+    dev = tdat.device_of(0)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    n = ADVISE_N
+    m1, k1, n1 = ADVISE_BF16
+    one = []
+    for (m, k, nn), dt in (((n, n, n), f32), ((m1, k1, n1), bf16)):
+        autotune.record("matmul_impl", autotune.device_key_for(
+            m, nn, k, dt, dt), "pallas")
+        one.append(tuple(tdat.distribute(torch.randn(  # dalint: disable=DAL006 — the four operands live until the d_closeall below
+            s, generator=gen, device=dev).to(dt), procs=[0])
+            for s in ((m, k), (k, nn))))
+
+    def journaled(fn):
+        tm.configure(None)
+        tm.disable()
+        fn()                           # warm, unjournaled
+        tm.enable()
+        tm.configure(journal)
+        for _ in range(2):
+            fn()
+        tm.configure(None)
+
+    tm.enable()
+    tm.configure(journal)
+    tdat.init()                        # journals the device kind
+    journaled(lambda: [a @ b for a, b in one])
+    tdat.d_closeall()
+    tdat.init(nranks=4)
+    m = ADVISE_M
+    A = tdat.drand((m, m), dist=(4, 1))
+    B = tdat.drand((m, m), dist=(4, 1))
+    dkey = autotune.device_key_for(m, m, m, 4, f32, f32)
+    for route in ("torch", "ring_ag"):
+        autotune.record("matmul_impl_dist", dkey, route)
+        journaled(lambda: (A @ B).close())
+    E = tdat.drand((m, m), dist=(4, 1))
+    F = tdat.dzeros((m, m), dist=(1, 4))
+    journaled(lambda: tdat.copyto_(F, E))
+    torch.cuda.synchronize()
+    autotune.save(registry)
+    with open(registry + ".launches.json", "w") as f:
+        json.dump(tdat.kbuild.launch_counts(), f)
+    tdat.d_closeall()
+    return 0
+
+
+def advise_phase(tdat, smi: str) -> dict:
+    """The tuning advisor on the card (the module docstring's advise
+    bullet).  Returns the row of readings."""
+    import re
+    import shutil
+    import tempfile
+    from distributedarrays_tpu_torch.telemetry import advisor, alerts, perf
+    from distributedarrays_tpu_torch.telemetry.summarize import read_journal
+    from distributedarrays_tpu_torch.utils import autotune, kbuild, profiling
+    print("phase advise (journal, doctor, advise, apply, rollback, trace)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="advise_", dir=os.path.join(root, "build"))
+    journal = os.path.join(tmp, "advise.jsonl")
+    registry = os.path.join(tmp, "registry.json")
+    old_env = os.environ.get("DAT_TORCH_AUTOTUNE_CACHE")
+    os.environ.pop("DAT_TORCH_AUTOTUNE_CACHE", None)
+    repo_cache = autotune.default_cache_path()
+
+    def stat(path):
+        return os.stat(path).st_mtime_ns if os.path.exists(path) else None
+    repo_before = stat(repo_cache)
+    os.environ["DAT_TORCH_AUTOTUNE_CACHE"] = registry
+    env = dict(os.environ, CUDA_LAUNCH_BLOCKING="1", PYTHONPATH=root +
+               os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--advise-journal", journal, registry],
+                         capture_output=True, text=True, cwd=root, env=env,
+                         timeout=600)
+    child_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the journaled run exited {run.returncode}: "
+                             f"{run.stderr[-3000:]}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "distributedarrays_tpu_torch.telemetry",
+         "advise", journal, "--json"], capture_output=True, text=True,
+        cwd=root, env=dict(env, CUDA_LAUNCH_BLOCKING="0"), timeout=300)
+    if cli.returncode != 0:
+        raise AssertionError(f"advise exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    cli_actions = json.loads(cli.stdout)["actions"]
+    with open(registry + ".launches.json") as f:
+        journal_launches = {k: v for k, v in json.load(f).items() if v}
+    if not journal_launches.get("all_to_all"):
+        raise AssertionError(f"the journaled copyto_ launched no K11: "
+                             f"{journal_launches}")
+    # the command as a user runs it, --apply in a fresh process with the
+    # default probes, on a copy of the registry
+    cli_registry = os.path.join(tmp, "cli_registry.json")
+    shutil.copyfile(registry, cli_registry)
+    t0 = time.perf_counter()
+    cli_apply = subprocess.run(
+        [sys.executable, "-m", "distributedarrays_tpu_torch.telemetry",
+         "advise", journal, "--json", "--apply"], capture_output=True,
+        text=True, cwd=root, timeout=600, env=dict(
+            env, CUDA_LAUNCH_BLOCKING="0",
+            DAT_TORCH_AUTOTUNE_CACHE=cli_registry))
+    cli_apply_s = time.perf_counter() - t0
+    if cli_apply.returncode != 0:
+        raise AssertionError(f"advise --apply exited "
+                             f"{cli_apply.returncode}: "
+                             f"{cli_apply.stderr[-2000:]}")
+    cli_results = json.loads(cli_apply.stdout)["results"]
+    failed = [r for r in cli_results
+              if str(r.get("reason") or "").startswith("probe failed")]
+    if failed or not cli_results:
+        raise AssertionError(f"advise --apply: {failed or cli_results}")
+    for r in cli_results:
+        print(f"  advise --apply {r['kind']}: {r['kernel']} {r['current']} "
+              f"-> {r['proposed']}: {r['status'].upper()} "
+              f"({r.get('reason') or ''}; {cli_apply_s:.1f} s; {smi})")
+    autotune.clear()
+    autotune.load(registry)
+    analysis = perf.analyze(read_journal(journal))
+    if analysis["platform"] != "h100":
+        raise AssertionError(f"the doctor read {analysis['platform']!r}")
+    actions = advisor.advise(analysis)
+    addr = [(a.kind, a.kernel, a.key, a.proposed) for a in actions]
+    if addr != [(a["kind"], a["kernel"], a["key"], a["proposed"])
+                for a in cli_actions]:
+        raise AssertionError(f"advise in process {addr} and on the command "
+                             f"line {cli_actions} disagree")
+    kinds = {a.kind for a in actions}
+    if not {"resweep", "dispatch"} <= kinds or "rdma_chunks" in kinds:
+        raise AssertionError(f"advise proposed {addr}; the phase needs a "
+                             "resweep and a dispatch action, and no "
+                             "rdma_chunks action")
+    for a in actions:
+        print(f"  action {a.kind}: {a.kernel}[{a.key}] {a.current} -> "
+              f"{a.proposed} ({a.finding}; "
+              + ", ".join(f"{k}={v:.6g}" for k, v in a.evidence.items()
+                          if isinstance(v, float)) + ")")
+    tdat.init(nranks=4)
+    mgr = alerts.AlertManager()
+    tm = tdat.telemetry
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    results = advisor.apply(actions, repeats=3, persist=True, manager=mgr)
+    apply_s = time.perf_counter() - t0
+    launches = kbuild.launch_counts()
+    want = {"gemm": "K1", "allgather_matmul_rhs": "K14"}
+    missing = [k for k in want if not launches[k]]
+    if missing:
+        raise AssertionError(f"apply launched no {missing}: {launches}")
+    rows = []
+    for r in results:
+        med = {k: statistics.median(r[k]) * 1e3 if r.get(k) else None
+               for k in ("before_s", "after_s")}
+        rows.append({"kind": r["kind"], "kernel": r["kernel"],
+                     "key": r["key"], "current": r["current"],
+                     "proposed": r["proposed"], "status": r["status"],
+                     "before_ms": med["before_s"],
+                     "after_ms": med["after_s"],
+                     "before_s": r.get("before_s"),
+                     "after_s": r.get("after_s")})
+        print(f"  apply {r['kind']}: {r['kernel']} {r['current']} -> "
+              f"{r['proposed']}: {r['status'].upper()}, probe median "
+              f"before {med['before_s']} ms, after {med['after_s']} ms "
+              f"({smi})")
+    # the rollback: the route the dispatch tune's probes measured slower,
+    # proposed back, must not survive (unless apply already rolled the
+    # dispatch tune back, which is then the rollback checked)
+    disp = next(r for r in results if r["kind"] == "dispatch")
+    act = next(a for a in actions if a.kind == "dispatch")
+    n_back = tm.counter_value("autotune.advisor_rollbacks", kind="dispatch")
+    back_launches = {}
+    if disp["status"] == "rolled_back":
+        back, prev_entry, prev_stamp = disp, disp["current"], None
+        slower, n_back = disp["proposed"], n_back - 1
+    else:
+        prev_entry = autotune.get(act.kernel, act.key)
+        prev_stamp = autotune.provenance_for(act.kernel, act.key)
+        slower = "ring_ag" if prev_entry == "torch" else "torch"
+        rev = advisor.TuningAction(
+            kind="dispatch", kernel=act.kernel, key=act.key,
+            current=prev_entry, proposed=slower, finding="dispatch_delta",
+            evidence={"reversed": True}, probe=dict(act.probe))
+        kbuild.reset_launches()
+        back = advisor.apply([rev], repeats=3, persist=True,
+                             manager=mgr)[0]
+        back_launches = kbuild.launch_counts()
+    print(f"  rollback check, dispatch {act.kernel} {prev_entry} -> "
+          f"{slower}: {back['status'].upper()}, probe median before "
+          f"{statistics.median(back['before_s']) * 1e3} ms, after "
+          f"{statistics.median(back['after_s']) * 1e3} ms "
+          f"({back.get('reason')}; {smi})")
+    if back["status"] != "rolled_back" or \
+            autotune.get(act.kernel, act.key) != prev_entry or \
+            autotune.provenance_for(act.kernel, act.key) != prev_stamp:
+        raise AssertionError(f"the slower tune was not rolled back to "
+                             f"{prev_entry!r}: {back}")
+    if tm.counter_value("autotune.advisor_rollbacks",
+                        kind="dispatch") != n_back + 1 or \
+            "autotune_regressed" not in mgr.firing():
+        raise AssertionError("the rollback was not counted or did not fire "
+                             "autotune_regressed")
+    with open(registry) as f:
+        saved = json.load(f)
+    if saved.get(act.kernel, {}).get(act.key) != prev_entry:
+        raise AssertionError("the saved registry does not hold the entry "
+                             "as before the reversed tune")
+    os.environ.pop("DAT_TORCH_AUTOTUNE_CACHE", None)
+    if old_env is not None:
+        os.environ["DAT_TORCH_AUTOTUNE_CACHE"] = old_env
+    if stat(repo_cache) != repo_before:
+        raise AssertionError(f"the repo's cache file {repo_cache} was "
+                             "written")
+    autotune.clear()
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    # profiling.trace around one main-path run, and the run's wall time
+    # with the profiler on and off, in turns
+    tdat.init()
+    telemetry_workload(tdat, autotune)                    # warm
+    t0 = time.perf_counter()
+    with profiling.trace(os.path.join(tmp, "prof")):      # the profiler's
+        telemetry_workload(tdat, autotune)                # first start
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    wall = {"off": [], "on": []}
+    trace_counts = names = None
+    for i in range(2):
+        for mode in ("off", "on"):
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            if mode == "on":
+                with profiling.trace(os.path.join(tmp, "prof")) as prof:
+                    telemetry_workload(tdat, autotune)
+            else:
+                telemetry_workload(tdat, autotune)
+            wall[mode].append((time.perf_counter() - t0) * 1e3)
+            if mode == "on" and i == 0:
+                trace_counts = {k: v for k, v in
+                                kbuild.launch_counts().items() if v}
+                with open(prof.trace_path) as f:
+                    names = {e.get("name", "") for e in
+                             json.load(f)["traceEvents"]
+                             if e.get("cat") == "kernel"}
+    absent = [k for k in trace_counts if k not in KERNEL_SYMBOLS or not any(
+        re.search(KERNEL_SYMBOLS[k], nm) for nm in names)]
+    if not trace_counts or absent:
+        raise AssertionError(f"the trace names none of {absent} "
+                             f"(counted {trace_counts})")
+    port_kernels = sorted({nm for nm in names if any(
+        re.search(KERNEL_SYMBOLS[k], nm) for k in trace_counts)})
+    print(f"  trace: {len(names)} kernel names, the port's: "
+          + "; ".join(nm[:60] for nm in port_kernels))
+    print(f"  main path wall ms, profiler off {wall['off']} on "
+          f"{wall['on']}, the profiler's first start {cold_ms} ({smi})")
+    autotune.clear()
+    tdat.d_closeall()
+    shutil.rmtree(tmp, ignore_errors=True)
+    row = {"actions": [a.to_dict() for a in actions], "results": rows,
+           "rollback": {"entry": prev_entry, "proposed": slower,
+                        "before_s": back["before_s"],
+                        "after_s": back["after_s"],
+                        "reason": back.get("reason")},
+           "apply_launches": {k: launches[k] for k in want},
+           "rollback_launches": {k: back_launches.get(k, 0)
+                                 for k in want},
+           "journal_launches": journal_launches,
+           "cli_apply": [{k: r.get(k) for k in ("kind", "kernel", "current",
+                                                "proposed", "status",
+                                                "reason", "before_s",
+                                                "after_s")}
+                         for r in cli_results],
+           "cli_apply_s": cli_apply_s,
+           "apply_s": apply_s, "child_s": child_s,
+           "trace_launches": trace_counts,
+           "trace_kernels": port_kernels,
+           "wall_ms_profiler_off": wall["off"],
+           "wall_ms_profiler_on": wall["on"],
+           "wall_ms_profiler_first": cold_ms,
+           "profiler_cost_pct": 100 * (statistics.median(wall["on"]) /
+                                       statistics.median(wall["off"]) - 1)}
+    print(json.dumps({"advise": {k: v for k, v in row.items()
+                                 if k not in ("actions",)}, "gpu": smi}))
+    return row
+
+
+def advise_only() -> int:
+    """``--advise``: build the kernels the phase runs and run
+    ``advise_phase`` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["gemm", "stencil", "collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row = advise_phase(tdat, smi)
+    print(f"  advise phase {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"advise_launches": row["apply_launches"],
+                      "gpu": smi}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def telemetry_only() -> int:
     """``--telemetry``: build the kernels the phase runs and run
     ``telemetry_phase`` alone."""
@@ -7232,6 +7601,7 @@ def main() -> int:
     counts_train = training(tdat, dev)
     counts_trainer = trainer_phase(tdat)
     tele = telemetry_phase(tdat)
+    adv = advise_phase(tdat, smi)
     trt = train_runtime_phase(tdat)
     counts_sp_train = sp_training(tdat, dev)
 
@@ -7435,12 +7805,17 @@ def main() -> int:
             # the Trainer across the processes: a process's launches a
             # step (readings in the multihost row's "trainer")
             kern["multihost_trainer_launches"] = mh["trainer_launches"][name]
+        if name in adv["apply_launches"]:
+            # the advise phase: launches during apply's probes (K1 in the
+            # resweep, K14 in the dispatch tune)
+            kern["advise_launches"] = adv["apply_launches"][name]
         if name in mh["legs_kernels"]:
             # the cross-process legs' launches a process (K4-K11, K13-K15),
             # leg by leg; readings in the multihost row's "legs" and
             # "train"
             kern["multihost_legs_launches"] = mh["legs_kernels"][name]
     extra["telemetry"] = tele
+    extra["advise"] = {k: v for k, v in adv.items() if k != "actions"}
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7584,6 +7959,9 @@ if __name__ == "__main__":
              else train_runtime_only() if sys.argv[1:] == ["--train-runtime"]
              else multihost_only() if sys.argv[1:] == ["--multihost"]
              else telemetry_only() if sys.argv[1:] == ["--telemetry"]
+             else advise_only() if sys.argv[1:] == ["--advise"]
+             else advise_journal(sys.argv[2], sys.argv[3])
+             if sys.argv[1:2] == ["--advise-journal"]
              else multihost_child(int(sys.argv[2]), int(sys.argv[3]),
                                   sys.argv[4])
              if sys.argv[1:2] == ["--multihost-child"]

@@ -452,7 +452,9 @@ class DArray:
         if out.numel() == 0:
             return out
         for ci, src, dst in L.box_pieces(self.cuts, bounds):
-            out[dst] = self._parts[ci][src].to(device)
+            # straight from the piece into its view of the output: no
+            # temporary on the target device
+            out[dst].copy_(self._parts[ci][src])  # dalint: disable=DAL007 — DArray.region is the region read itself (the one-process form of multihost.fetch_regions): assembling a box on the caller's device is what it is for
         return out
 
     def full(self, device=None) -> torch.Tensor:
@@ -1080,7 +1082,7 @@ def distribute(A, procs=None, dist=None, like: DArray | None = None) -> DArray:
     """Distribute a host or device array: each rank receives a copy of its
     own chunk.  ``like`` takes another DArray's rank grid."""
     _tm.count("op.distribute")
-    if isinstance(A, DArray):
+    if isinstance(A, DArray):  # dalint: disable=DAL010 — A's type is the caller's, the same on every process (SubDArray.materialize gives every process the whole region)
         A = A.full()
     elif isinstance(A, SubDArray):
         A = A.materialize()

@@ -797,7 +797,7 @@ def ring_attention_prefill(q, k, v, *, causal: bool = True,
     made = []
     try:
         for a in (q, k, v):
-            made.append(distribute(a, procs=pids, dist=[n, 1, 1]))
+            made.append(distribute(a, procs=pids, dist=[n, 1, 1]))  # dalint: disable=DAL006 — the three inputs and the result are closed in the finally below
         made.append(ring_attention(*made[:3], causal=True))
         if host:
             return np.asarray(made[3])[:ntok]

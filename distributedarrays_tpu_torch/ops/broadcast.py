@@ -88,14 +88,14 @@ def _slicer(shape, ndim):
 
 def _pieces(arg, pids, cuts, dims):
     """A function from grid cell to ``arg``'s piece for that cell."""
-    if isinstance(arg, _SCALARS):
+    if isinstance(arg, _SCALARS):  # dalint: disable=DAL010 — arg's type is the caller's, the same on every process
         return lambda ci, dev, bounds: arg
-    if isinstance(arg, DArray) and arg.dims == dims:
+    if isinstance(arg, DArray) and arg.dims == dims:  # dalint: disable=DAL010 — arg's type and dims are the same on every process
         parts = relayout_parts(arg, pids, cuts)
         return lambda ci, dev, bounds: parts[ci]
-    if isinstance(arg, DArray):
+    if isinstance(arg, DArray):  # dalint: disable=DAL010 — arg's type is the same on every process
         t = arg.full()
-    elif isinstance(arg, SubDArray):
+    elif isinstance(arg, SubDArray):  # dalint: disable=DAL010 — arg's type is the same on every process
         t = arg.materialize()
     else:
         t = as_tensor(arg)
@@ -133,7 +133,7 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
     else:
         template = next((a for a in args
                          if isinstance(a, DArray) and a.dims == dims), None)
-    if template is None:
+    if template is None:  # dalint: disable=DAL010 — template (the first DArray argument) is the same on every process
         if not dims:
             # 0-d result from 0-d/scalar arguments: one plain call
             return fn(*[as_tensor(a) if not isinstance(a, _SCALARS) else a

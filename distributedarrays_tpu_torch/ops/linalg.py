@@ -71,9 +71,9 @@ def _shape_of(x) -> tuple:
 
 def _host(x) -> torch.Tensor:
     """A non-DArray operand (or a whole DArray) as one tensor."""
-    if isinstance(x, DArray):
+    if isinstance(x, DArray):  # dalint: disable=DAL010 — x's type is the caller's, the same on every process
         return x.full()
-    if isinstance(x, SubDArray):
+    if isinstance(x, SubDArray):  # dalint: disable=DAL010 — x's type is the caller's, the same on every process
         return x.materialize()
     return as_tensor(x)
 
@@ -108,7 +108,7 @@ def _cell_partials(x, y, fn) -> list:
     partials and every process gets all of them
     (``multihost.cell_values``), so the fold is one process's."""
     d = x if isinstance(x, DArray) else y if isinstance(y, DArray) else None
-    if d is None:
+    if d is None:  # dalint: disable=DAL010 — which operand is a DArray is the same on every process
         return [fn(_host(x), _host(y))]
     dims = tuple(d.dims)
     gx = _pieces(x, d.pids, d.cuts, dims)
@@ -172,7 +172,7 @@ def dnorm(x, p=2):
         """``f`` of each cell's values (flattened, in the norm's type), in
         cell order on ``home()``; cells with no elements add nothing
         unless all are empty."""
-        if not isinstance(x, DArray):
+        if not isinstance(x, DArray):  # dalint: disable=DAL010 — x's type is the caller's, the same on every process
             return [f(_host(x).reshape(-1).to(dt))]
         live = [ci for ci in x.cells() if x._parts[ci].numel()] or \
             x.cells()[:1]
@@ -311,6 +311,13 @@ def _dist_impl_choice(m, n, k, p, a_dtype, b_dtype) -> str:
                         _impl_key(m, n, k, p, a_dtype, b_dtype)) or "torch"
 
 
+def _dist_key(A: DArray, B: DArray) -> str:
+    """The ``matmul_impl_dist`` key of a (p,1) x (p,1) product, stamped as
+    the ``dispatch_key`` of both its routes' spans."""
+    m, k = A.dims
+    return _impl_key(m, B.dims[1], k, A.grid[0], A.dtype, B.dtype)
+
+
 def _summa_impl_choice(m, n, k, r, c, a_dtype, b_dtype) -> str:
     """The registry's 2-D-grid GEMM: ``"summa"`` (Cannon on square grids,
     SUMMA panels otherwise) or ``"torch"``; the ``rxc`` grid tag keeps it
@@ -420,7 +427,7 @@ def _ring_ag_labels(A: DArray, B: DArray, out_dtype, on_card: bool) -> dict:
     n = B.dims[1]
     isz = A.dtype.itemsize
     return dict(ranks=p, dispatch="rdma" if on_card else "plain",
-                dispatch_key=None, dispatch_source="default",
+                dispatch_key=_dist_key(A, B), dispatch_source="autotune",
                 shape=[m, k, n], dtype=str(A.dtype),
                 **_perf.gemm_cost(m, n, k, isz,
                                   out_itemsize=out_dtype.itemsize,
@@ -527,25 +534,25 @@ def _default_gemm(A: DArray, B, bt, pids, cuts, vec, out_dtype, use_kernel,
     else:
         whole = None
         ranks = sorted({int(p) for p in pids.flat})
-        if bt is None and (vec or list(cuts[1]) == [0, n]) and \
-                B.size > 0 and len(ranks) > 1 and \
-                plan_allgather(B, ranks).strategy == "all_gather":
+        if (bt is None and (vec or list(cuts[1]) == [0, n]) and  # dalint: disable=DAL010 — runs only in one process (the process_count() > 1 branch above takes every job)
+                B.size > 0 and len(ranks) > 1 and
+                plan_allgather(B, ranks).strategy == "all_gather"):
             whole = dict(zip(ranks, allgather(B, ranks)))
 
         def get(ci, dev):
             r0, r1 = cuts[0][ci[0]], cuts[0][ci[0] + 1]
             a = _panel(A, [(r0, r1), (0, k)], dev)
-            if whole is not None:
+            if whole is not None:  # dalint: disable=DAL010 — runs only in one process (get of the process_count() == 1 branch)
                 return a, whole[int(pids[ci])]
-            if vec:
+            if vec:  # dalint: disable=DAL010 — runs only in one process (get of the process_count() == 1 branch)
                 return a, (bt.to(dev) if bt is not None else B.full(dev))
             c0, c1 = cuts[1][ci[1]], cuts[1][ci[1] + 1]
             return a, (bt[:, c0:c1].to(dev) if bt is not None
                        else _panel(B, [(0, k), (c0, c1)], dev))
     results = {}
-    for ci in np.ndindex(*pids.shape):
+    for ci in np.ndindex(*pids.shape):  # dalint: disable=DAL012 — every process walks the same cells of the result's layout
         rank = int(pids[ci])
-        if not L.is_local(rank):
+        if not L.is_local(rank):  # dalint: disable=DAL010 — in a job get serves the panels that one _job_panels call fetched before the loop (no collective a cell); in one process every rank is local
             continue                    # another process computes it
         dev = L.device_of(rank)
         a, b = get(ci, dev)
@@ -572,7 +579,7 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
         A = A.copy()
     if not isinstance(A, DArray):
         A = distribute(A)
-    if isinstance(B, DArray):
+    if isinstance(B, DArray):  # dalint: disable=DAL010 — B's type is the caller's, the same on every process
         bshape, bt = B.dims, None
     else:
         bt = B.materialize() if isinstance(B, SubDArray) else as_tensor(B)
@@ -586,8 +593,8 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
     m, k = A.dims
     n = 1 if vec else bshape[1]
     b_dtype = B.dtype if bt is None else bt.dtype
-    if A.dtype == torch.bool and b_dtype == torch.bool and \
-            alpha == 1.0 and beta == 0.0:
+    if (A.dtype == torch.bool and b_dtype == torch.bool and  # dalint: disable=DAL010 — dtypes and scalars are the same on every process
+            alpha == 1.0 and beta == 0.0):
         return _bool_matmul(A, B if bt is None else bt, out)
 
     if out is not None:
@@ -628,16 +635,27 @@ def matmul(A, B, out: DArray | None = None, alpha=1.0, beta=0.0):
     plain = alpha == 1.0 and beta == 0.0
 
     blocks = None
-    if plain and not vec and _ring_ag_eligible(A, B, procs, dist) and \
-            _dist_impl_choice(m, n, k, A.grid[0], A.dtype,
-                              B.dtype) == "ring_ag":
+    ring = plain and not vec and _ring_ag_eligible(A, B, procs, dist)
+    if ring and _dist_impl_choice(m, n, k, A.grid[0], A.dtype,  # dalint: disable=DAL010 — ring eligibility and the registry's choice read layouts, dtypes and shapes, the same on every process
+                                  B.dtype) == "ring_ag":
         blocks = _ring_ag_gemm(A, B, out_dtype)
-    elif plain and not vec and \
-            (rc := _summa_eligible(A, B, procs, dist)) is not None and \
+    elif ring:  # dalint: disable=DAL010 — ring eligibility reads layouts and dtypes, the same on every process
+        if _tm.enabled():
+            # the default route of a ring-eligible product: the matmul
+            # span names its dispatch class under the registry key both
+            # routes share, for the advisor's side-by-side comparison
+            _tm.annotate(ranks=A.grid[0], dispatch="torch",
+                         dispatch_key=_dist_key(A, B),
+                         dispatch_source="autotune" if autotune.get(
+                             "matmul_impl_dist", _dist_key(A, B)) ==
+                         "torch" else "default",
+                         shape=[m, k, n], dtype=str(A.dtype))
+    elif (plain and not vec and  # dalint: disable=DAL010 — SUMMA eligibility and the registry's choice read layouts, dtypes and shapes, the same on every process
+            (rc := _summa_eligible(A, B, procs, dist)) is not None and
             _summa_impl_choice(m, n, k, rc[0], rc[1], A.dtype,
-                               B.dtype) == "summa":
+                               B.dtype) == "summa"):
         blocks = _summa_gemm(A, B, out_dtype)
-    if blocks is not None:
+    if blocks is not None:  # dalint: disable=DAL010 — which schedule ran is decided from layouts and the registry, the same on every process
         results = dict(zip(np.ndindex(*pids.shape), blocks))
     else:
         use_kernel = (plain and not vec and pids.size == 1
@@ -834,7 +852,7 @@ def dmatmul_int8(A, B, out_dtype=torch.float32) -> DArray:
     cells are placeholders."""
     if isinstance(A, SubDArray):
         A = A.materialize()
-    if not isinstance(A, DArray):
+    if not isinstance(A, DArray):  # dalint: disable=DAL010 — A's type is the caller's, the same on every process
         at = as_tensor(A)
         ndev = L.nranks()
         if at.ndim == 2 and ndev > 1 and at.shape[0] % ndev == 0:

@@ -78,7 +78,7 @@ def _rec(kind: str, x, **fields) -> None:
     call signature (JAX records once a trace), over the axis ``ranks``.
     Each site calls it only while telemetry is enabled, so that a disabled
     site costs its one check."""
-    _tm.record_comm(kind, _tm.nbytes_of(x), axis="ranks", traced=True,
+    _tm.record_comm(kind, _tm.nbytes_of(x), axis="ranks", traced=True,  # dalint: disable=DAL003 — every caller of _rec tests telemetry.enabled() first
                     once_key=f"collective:{kind}:ranks:{fields}", **fields)
 
 

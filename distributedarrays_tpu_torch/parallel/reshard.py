@@ -76,9 +76,14 @@ plan passes the ``reshard.chunk`` fault site before any byte moves;
 ``reshard.collective_fallbacks{reason}``.  ``plan_reshard`` and
 ``plan_allgather`` count ``reshard.plan_requests``, a cache miss
 ``reshard.plan_builds`` and one ``reshard``/``plan`` journal event.  The
-JAX span's dispatch labels (``dispatch``, ``rdma_chunks``, the autotune
-and dispatch keys) name its XLA/RDMA choice, which the port does not
-have; nor do its ``jit.builds`` counters of XLA program builds.  The
+span also carries JAX's ``dispatch`` label: ``"rdma"`` when a collective
+plan runs the copy kernel on the card, ``"plain"`` otherwise.  It carries
+none of JAX's ``rdma_chunks``, ``autotune_key`` or ``dispatch_key``: the
+copy kernel writes every piece at its final offset in one launch, so no
+piece count is read that a tuned entry could set (the tuning advisor skips
+JAX's ``rdma_chunks`` action for that reason), and the port's reshard has
+one route.  Nor has the port JAX's ``jit.builds`` counters of XLA program
+builds.  The
 memory ledger's ``reshard.chain`` staging gauge counts the bytes a chain
 really holds between its steps (each intermediate step's outputs, until
 the next step has read them); an ``all_to_all`` writes its outputs
@@ -912,7 +917,7 @@ def _run_chain(plan: ReshardPlan, blocks: list[torch.Tensor],
     # slice only follows the gather of its digit
     k = 0
     try:
-        while k < nsteps:
+        while k < nsteps:  # dalint: disable=DAL012 — the plan is computed from the two layouts alone, the same on every process
             kind, m, _q, i, j = plan.steps[k][:5]
             nxt = k + 1
             while nxt < nsteps and plan.steps[nxt][0] == "slice":
@@ -971,9 +976,12 @@ def _moving(d: DArray, plan: ReshardPlan, op: str):
     no fallback is counted, and the bytes are recorded once, by
     ``multihost.fetch_regions``."""
     job = L.process_count() > 1
+    on_card = plan.collective and \
+        L.device_of(int(d.pids.flat[0])).type == "cuda"
     with _tm.span("reshard", op=op,
                   strategy="region" if job else plan.strategy,
                   **({"plan": plan.strategy} if job else {}),
+                  dispatch="rdma" if on_card else "plain",
                   shape=list(plan.shape),
                   dtype=str(d.dtype).removeprefix("torch."),
                   src_dim=plan.src_dim, dst_dim=plan.dst_dim,
@@ -1004,7 +1012,7 @@ def relayout_parts(d: DArray, pids, cuts, *,
     the caller in the ``reshard`` span and the comm record."""
     d._check_open()
     pids = np.asarray(pids)
-    if same_layout(d, pids, cuts):
+    if same_layout(d, pids, cuts):  # dalint: disable=DAL010 — same_layout compares two layouts, the same on every process
         return d._parts
     if plan is None:
         plan = plan_reshard(d, pids, cuts)
@@ -1032,14 +1040,14 @@ def _fetched(d: DArray, pids: np.ndarray, cuts) -> np.ndarray:
 
 def _lower(d: DArray, pids: np.ndarray, cuts, plan: ReshardPlan):
     parts = np.empty(tuple(pids.shape), dtype=object)
-    if plan.strategy == "all_to_all":
+    if plan.strategy == "all_to_all":  # dalint: disable=DAL010 — the plan is computed from the two layouts alone, the same on every process
         i, j, p = plan.src_dim, plan.dst_dim, plan.nparts
         outs = ring_all_to_all([d.part(_cell(d.ndim, i, k)) for k in range(p)],
                                split_dim=j, concat_dim=i)
         for q, t in enumerate(outs):
             parts[_cell(d.ndim, j, q)] = t
         return parts
-    if plan.strategy == "chain":
+    if plan.strategy == "chain":  # dalint: disable=DAL010 — the plan is computed from the two layouts alone, the same on every process
         outs = _run_chain(plan, _check_sources(plan, d))
         pos = {r: c for c, r in enumerate(plan.ranks)}
         for ci in np.ndindex(*pids.shape):
@@ -1135,20 +1143,20 @@ def allgather(d: DArray, ranks=None, *,
         with _moving(d, plan, op):
             return multihost.fetch_regions(
                 [(d, None, L.device_of(r)) for r in ranks])
-    if plan.strategy == "noop":
+    if plan.strategy == "noop":  # dalint: disable=DAL010 — the plan is computed from the two layouts alone, the same on every process
         return [d.part(next(iter(d.cells()))).clone()]
     with _moving(d, plan, op):
         return _gather(d, ranks, plan)
 
 
 def _gather(d: DArray, ranks: list, plan: ReshardPlan) -> list:
-    if plan.strategy == "all_gather":
+    if plan.strategy == "all_gather":  # dalint: disable=DAL010 — the plan is computed from the two layouts alone, the same on every process
         dim = plan.src_dim
         outs = ring_all_gather([d.part(_cell(d.ndim, dim, k))
                                 for k in range(plan.nparts)], dim)
         whole = dict(zip(plan.ranks, outs))
         return [whole[r] for r in ranks]
-    if plan.strategy in ("chain", "gather_put"):
+    if plan.strategy in ("chain", "gather_put"):  # dalint: disable=DAL010 — the plan is computed from the two layouts alone, the same on every process
         pos = {r: c for c, r in enumerate(plan.ranks)}
         outs = _run_chain(plan, _check_sources(plan, d),
                           keep={pos[r] for r in ranks})

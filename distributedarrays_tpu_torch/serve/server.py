@@ -271,7 +271,7 @@ class Server:
                 try:
                     # put only appends and notifies under the queue's own
                     # condition (never waits); depth is bounded at admission
-                    self._queue.put(req)
+                    self._queue.put(req)  # dalint: disable=DAL008 — BatchQueue.put only appends and notifies under its own condition (never waits); depth is bounded at admission
                 except RuntimeError:
                     # close() raced this submit: typed, never bare
                     _tm.count("serve.shed", reason="draining",

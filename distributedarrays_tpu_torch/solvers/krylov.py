@@ -211,7 +211,7 @@ def cg(A: LinearOperator, b: DArray, *, x0: DArray | None = None,
                 finally:
                     Ap.close()
                 outcome = st.step(float(dnorm(r)))
-                if outcome is not None:
+                if outcome is not None:  # dalint: disable=DAL010 — the norm/dot is folded from every process's cell partials (multihost.cell_values), the same value on every process
                     return outcome, ""
                 if st.M is not None:
                     znew = st.M.apply(r)
@@ -267,7 +267,7 @@ def bicgstab(A: LinearOperator, b: DArray, *, x0: DArray | None = None,
                 alpha = rho / denom
                 axpy_(-alpha, v, r)              # r becomes s
                 res_s = float(dnorm(r))
-                if res_s <= st.target:
+                if res_s <= st.target:  # dalint: disable=DAL010 — the norm/dot is folded from every process's cell partials (multihost.cell_values), the same value on every process
                     axpy_(alpha, phat, x)
                     outcome = st.step(res_s)
                     return outcome or "converged", ""
@@ -288,7 +288,7 @@ def bicgstab(A: LinearOperator, b: DArray, *, x0: DArray | None = None,
                     _close_all(phat, shat)
                 phat = shat = None
                 outcome = st.step(float(dnorm(r)))
-                if outcome is not None:
+                if outcome is not None:  # dalint: disable=DAL010 — the norm/dot is folded from every process's cell partials (multihost.cell_values), the same value on every process
                     return outcome, ""
                 rho_new = float(ddot(rhat, r))
                 beta = (rho_new / rho) * (alpha / omega)
@@ -328,7 +328,7 @@ def gmres(A: LinearOperator, b: DArray, *, x0: DArray | None = None,
             x, bb = st.reseat(devices)
             r = _residual(st.A, x, bb)
             beta = float(dnorm(r))
-            if beta <= st.target:
+            if beta <= st.target:  # dalint: disable=DAL010 — the norm/dot is folded from every process's cell partials (multihost.cell_values), the same value on every process
                 r.close()
                 if not st.history:
                     st.history.append(beta)
@@ -356,7 +356,7 @@ def gmres(A: LinearOperator, b: DArray, *, x0: DArray | None = None,
                         axpy_(-H[i, j], V[i], w)
                     H[j + 1, j] = float(dnorm(w))
                     lucky = H[j + 1, j] <= _TINY
-                    if not lucky:
+                    if not lucky:  # dalint: disable=DAL010 — the norm/dot is folded from every process's cell partials (multihost.cell_values), the same value on every process
                         V.append(rmul_(w, 1.0 / H[j + 1, j]))
                     else:
                         w.close()
@@ -380,7 +380,7 @@ def gmres(A: LinearOperator, b: DArray, *, x0: DArray | None = None,
                 k = j + 1
                 y = np.linalg.lstsq(H[:k, :k], g[:k], rcond=None)[0]
                 basis = Z if st.M is not None else V
-                for i in range(k):
+                for i in range(k):  # dalint: disable=DAL012 — k counts Arnoldi steps taken while a folded norm stayed above the target: the same on every process
                     axpy_(float(y[i]), basis[i], x)
             finally:
                 _close_all(*V, *Z)

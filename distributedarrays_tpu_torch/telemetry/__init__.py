@@ -29,8 +29,9 @@ and labels::
 one boolean check: no journal file is created and :func:`report` stays
 empty.  Importing the package arms the health sampler when
 ``DA_TPU_TELEMETRY_SAMPLE_S`` is set and the exporter when
-``DA_TPU_STREAM_AGG`` is set, as JAX's does.  Not ported yet (ROADMAP.md
-queue A): ``advisor``, and with it the command line's ``advise``.
+``DA_TPU_STREAM_AGG`` is set, as JAX's does.  ``advisor`` (the command
+line's ``advise``) maps the doctor's findings onto the port's own tuning
+knobs.
 """
 
 from .core import (begin_incident, comm_bytes, configure, count,
@@ -44,8 +45,8 @@ from .tracing import (Span, annotate, bind_trace_ids, current_span,
                       trace_ctx, traced)
 from .summarize import format_summary, read_journal, summarize
 from .export import to_perfetto, to_prometheus
-from . import (agg, alerts, cluster, core, flight, memory, perf, regress,
-               stream, tracing)
+from . import (advisor, agg, alerts, cluster, core, flight, memory, perf,
+               regress, stream, tracing)
 from .cluster import merge_journals, reconstruct_incidents
 from .flight import postmortem, record_crash
 from .memory import leak_census
@@ -63,7 +64,7 @@ __all__ = [
     "current_trace_ids", "bind_trace_ids", "record_external_span",
     "to_perfetto", "to_prometheus",
     "memory", "flight", "perf", "regress", "tracing", "cluster", "alerts",
-    "stream", "agg",
+    "advisor", "stream", "agg",
     "leak_census", "postmortem", "record_crash",
     "merge_journals", "reconstruct_incidents",
     "AlertRule", "AlertManager", "default_rules",

@@ -1,8 +1,9 @@
 """CLI: summarize or export a telemetry journal / report / bundle.
 
 The port's copy of ``distributedarrays_tpu/telemetry/__main__.py``: every
-subcommand prints what JAX's prints on the same input, but ``advise``,
-which exits 2 naming its ROADMAP entry (the advisor is not ported).
+subcommand prints what JAX's prints on the same input; ``advise`` takes
+JAX's flags and exit codes and tunes the port's own knobs
+(``telemetry/advisor.py``).
 
 Usage::
 
@@ -16,7 +17,7 @@ Usage::
     python -m distributedarrays_tpu_torch.telemetry regress FRESH.json
         [--baseline DIR_OR_FILE ...] [--json] [--strict] [--explain]
     python -m distributedarrays_tpu_torch.telemetry advise RUN.jsonl
-        [--apply] [--json] [--platform P] [--min-actions N]
+        [--apply [--device cpu]] [--json] [--platform P] [--min-actions N]
     python -m distributedarrays_tpu_torch.telemetry incident RUN.jsonl [RUN2.jsonl
         ...] [--bundles DIR_OR_FILE ...] [--json] [--trace OUT.json]
         [--strict-bundles]
@@ -357,11 +358,38 @@ def _cmd_regress(args) -> int:
 
 
 def _cmd_advise(args) -> int:
-    print("advise: the tuning advisor is not ported yet; its knobs (the "
-          "GEMM block, rdma_chunks, rdma_dispatch) have no counterpart in "
-          "the port's kernels (ROADMAP.md queue A, \"telemetry/advisor.py "
-          "and the command line's advise\")", file=sys.stderr)
-    return 2
+    from . import advisor, perf
+    events = _read_events_checked(args.journal)
+    analysis = perf.analyze(events, platform=args.platform)
+    actions = advisor.advise(analysis)
+    if args.max_actions:
+        actions = actions[:args.max_actions]
+    results = None
+    if args.apply and actions:
+        # the probes build their operands on ranks 0 .. p-1 of the journaled
+        # run: unless this process has a rank table that wide, one is
+        # built (on one card, several ranks share it)
+        from .. import layout
+        need = max(int(a.probe.get("ranks") or a.probe.get("nparts") or 1)
+                   for a in actions)
+        if layout._table is None or layout.nranks() < need:
+            layout.init(nranks=need, device=args.device)
+        results = advisor.apply(actions, repeats=args.repeats,
+                                mad_k=args.mad_k,
+                                rel_floor=args.rel_floor,
+                                persist=not args.no_persist)
+    if args.json:
+        json.dump({"actions": [a.to_dict() for a in actions],
+                   "results": results}, sys.stdout, indent=2,
+                  sort_keys=True)
+        sys.stdout.write("\n")
+    else:
+        advisor.format_results(actions, results, sys.stdout)
+    if args.min_actions and len(actions) < args.min_actions:
+        print(f"advise: {len(actions)} action(s), required at least "
+              f"{args.min_actions}", file=sys.stderr)
+        return 2
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -751,6 +779,9 @@ def main(argv=None) -> int:
         p.add_argument("--no-persist", action="store_true",
                        help="keep applied tunes in-process only (default "
                             "persists to the autotune cache file)")
+        p.add_argument("--device", default=None,
+                       help="where --apply's probes run (default: the "
+                            "CUDA cards; 'cpu' for the CPU)")
         p.add_argument("--json", action="store_true",
                        help="emit actions + apply results as JSON")
         p.set_defaults(fn=_cmd_advise)

@@ -4,9 +4,8 @@ The port's copy of ``distributedarrays_tpu/telemetry/alerts.py``: the same
 rules, alert events, gauges and environment switches; the HBM signals
 read the port's device memory ledger (``telemetry.memory``), and
 ``autotune_regressed`` reads the ``autotune.advisor_rollbacks`` counter
-as JAX's does: the advisor counts a tune it rolled back through
-``utils/autotune.undo``, and until the advisor is ported (ROADMAP.md
-queue A) nothing moves it.
+as JAX's does: the advisor (``telemetry/advisor.py``) counts a tune it
+rolled back through ``utils/autotune.undo``.
 
 The observatory so far is *forensic*: journals, bundles and incident
 reconstruction tell you what happened after the fact.  This module is

@@ -272,7 +272,7 @@ class Trainer:
             return [x[a:b] for a, b in zip(cuts, cuts[1:])]
         self._state = {"pflat": from_chunks(pieces(flat), procs=ranks)}
         for i, slot in enumerate(self.opt.init_slots(flat.numel())):
-            self._state[f"m{i}"] = from_chunks(pieces(slot), procs=ranks)
+            self._state[f"m{i}"] = from_chunks(pieces(slot), procs=ranks)  # dalint: disable=DAL006 — long-lived optimizer state, closed by _close_state()
 
     def _adopt(self, tree: dict):
         """Re-seat the state from a restored checkpoint tree (recovery's

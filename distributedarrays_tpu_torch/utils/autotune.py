@@ -279,7 +279,8 @@ def sweep(kernel: str, key: str, candidates: Iterable,
             raise last_exc if last_exc is not None else \
                 ValueError("sweep got no candidates")
         _tm.count("autotune.sweeps", kernel=kernel)
-        _tm.event("autotune", "sweep", kernel=kernel, key=key,
-                  candidates=len(results), best=best,
-                  best_s=results[best])
+        if _tm.enabled():
+            _tm.event("autotune", "sweep", kernel=kernel, key=key,
+                      candidates=len(results), best=best,
+                      best_s=results[best])
     return best, results

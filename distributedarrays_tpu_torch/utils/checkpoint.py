@@ -71,6 +71,7 @@ import torch
 from .. import telemetry as _tm
 from ..darray import DArray, DData, darray_from_cuts, distribute
 from ..layout import device_of, nranks, process_count
+from . import native as _native
 
 __all__ = ["save", "load", "CheckpointManager", "CheckpointIntegrityError",
            "PeerReplicaStore", "PeerReplicaUnavailable"]
@@ -285,7 +286,9 @@ def save(path: str | os.PathLike, tree: Any, store: str = "npz") -> None:
     _check_store(store)
     with _tm.span("checkpoint.save", store=store):
         # cold path: checkpoint I/O dominates the event cost
-        _tm.event("checkpoint", "save_start", path=str(path), store=store)
+        if _tm.enabled():
+            _tm.event("checkpoint", "save_start", path=str(path),
+                      store=store)
         arrays: dict[str, np.ndarray] = {}
         with _tm.span("checkpoint.save.encode", _journal=False):
             meta = _encode(tree, arrays)
@@ -295,8 +298,9 @@ def save(path: str | os.PathLike, tree: Any, store: str = "npz") -> None:
         with _tm.span("checkpoint.save.write", _journal=False):
             _write_store(Path(path), meta, arrays, store)
         _tm.count("checkpoint.saves")
-        _tm.event("checkpoint", "save_end", path=str(path), store=store,
-                  arrays=len(arrays), bytes=_payload_bytes(arrays))
+        if _tm.enabled():
+            _tm.event("checkpoint", "save_end", path=str(path), store=store,
+                      arrays=len(arrays), bytes=_payload_bytes(arrays))
         _tm.memory.sample("checkpoint.save")
 
 
@@ -309,7 +313,8 @@ def load(path: str | os.PathLike) -> Any:
         # the zero-disk-reads witness of replica restores: every read from
         # disk counts here, a replica fetch never does
         _tm.count("checkpoint.disk_reads")
-        _tm.event("checkpoint", "restore_start", path=str(path))
+        if _tm.enabled():
+            _tm.event("checkpoint", "restore_start", path=str(path))
         meta_doc = json.loads((path / _META).read_text())
         if isinstance(meta_doc, dict) and "__dartpu_store__" in meta_doc:
             store, meta = meta_doc["__dartpu_store__"], meta_doc["tree"]
@@ -329,8 +334,10 @@ def load(path: str | os.PathLike) -> Any:
             from ..telemetry import perf as _perf
             _tm.annotate(**_perf.transfer_cost(_payload_bytes(arrays)))
         _tm.count("checkpoint.restores")
-        _tm.event("checkpoint", "restore_end", path=str(path), store=store,
-                  arrays=len(arrays), bytes=_payload_bytes(arrays))
+        if _tm.enabled():
+            _tm.event("checkpoint", "restore_end", path=str(path),
+                      store=store, arrays=len(arrays),
+                      bytes=_payload_bytes(arrays))
         _tm.memory.sample("checkpoint.restore")
         return out
 
@@ -476,6 +483,7 @@ class PeerReplicaStore:
                   for key, (shape, dstr) in rec["keys"].items()}
         n_local = n_peer = 0
         bad: list[str] = []
+        pieces: dict[str, list] = {key: [] for key in arrays}
         for (key, j), ch in rec["chunks"].items():
             if ch["owner"] in live:
                 n_local += 1
@@ -487,14 +495,25 @@ class PeerReplicaStore:
             if int(zlib.crc32(ch["data"])) != ch["crc"]:
                 bad.append(key)
                 continue
-            dst = arrays[key]
-            sl = tuple(slice(a, b) for a, b in ch["slices"])
-            dst[sl] = np.frombuffer(ch["data"], dtype=dst.dtype).reshape(
-                tuple(b - a for a, b in ch["slices"]))
+            pieces[key].append((np.frombuffer(
+                ch["data"], dtype=arrays[key].dtype).reshape(
+                    tuple(b - a for a, b in ch["slices"])),
+                tuple(a for a, _ in ch["slices"])))
         if bad:
             _tm.count("checkpoint.integrity_failures")
             raise CheckpointIntegrityError(f"<peer replica step {step}>",
                                            sorted(set(bad)))
+        for key, got in pieces.items():
+            # each array stitched from its chunks, by the native copier's
+            # threads where the size pays for them, else numpy slicing
+            dst = arrays[key]
+            if _native.worth_using(dst.nbytes, len(got)):
+                _native.assemble(dst, [c for c, _ in got],
+                                 [o for _, o in got])
+            else:
+                for c, o in got:
+                    dst[tuple(slice(a, a + n) for a, n in
+                              zip(o, c.shape))] = c
         if n_peer:
             _tm.count("checkpoint.peer_fetches", n=n_peer)
         info = {"local_chunks": n_local, "peer_chunks": n_peer}
@@ -586,7 +605,7 @@ class CheckpointManager:
         ``async_save``."""
         _check_store(store)
         with self._lock:
-            self._reap(wait=False)
+            self._reap(wait=False)  # dalint: disable=DAL008 — wait=False reaps only done() futures; result() returns at once
             # the step is reserved inside the same lock section as the
             # check, so a duplicate racing an in-flight save gets this
             # ValueError
@@ -630,8 +649,9 @@ class CheckpointManager:
         _write_store(tmp, meta, arrays, store)
         os.replace(tmp, final)
         _tm.count("checkpoint.saves")
-        _tm.event("checkpoint", "publish", step=step, store=store,
-                  arrays=len(arrays), bytes=_payload_bytes(arrays))
+        if _tm.enabled():
+            _tm.event("checkpoint", "publish", step=step, store=store,
+                      arrays=len(arrays), bytes=_payload_bytes(arrays))
         self._rotate()
         self._reap_quarantine()
 
@@ -803,7 +823,7 @@ class CheckpointManager:
         """Block until every pending save is published; re-raise the first
         background failure."""
         with self._lock:
-            self._reap(wait=True)
+            self._reap(wait=True)  # dalint: disable=DAL008 — wait() is the quiesce API: holding the lock while the writes drain is its contract (no save may interleave)
 
     def close(self) -> None:
         self.wait()

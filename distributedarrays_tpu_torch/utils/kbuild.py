@@ -224,7 +224,7 @@ def load(stem: str) -> ctypes.CDLL:
             with _lock:
                 lib = _libs.get(stem)
             if lib is None:
-                so = build([stem])[stem]
+                so = build([stem])[stem]  # dalint: disable=DAL008 — one-shot build: the lock exists to make every caller wait for the library
                 lib = ctypes.CDLL(str(so))
                 with _lock:
                     _libs[stem] = lib

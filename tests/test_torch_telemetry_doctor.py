@@ -10,8 +10,8 @@ against the JAX package's.
   in both packages (durations left out), and the same comm records.
 - Every subcommand of the command line but ``advise`` prints the same
   output on the same journal (the live ones, ``agg``, ``stream`` and
-  ``top``, up to ports and timings); ``advise`` exits 2 naming its
-  ROADMAP entry.
+  ``top``, up to ports and timings); ``advise`` runs the port's advisor
+  (its parity with JAX's is in ``tests/test_torch_advisor.py``).
 - The peak table holds the H100 under JAX's schema and maps
   ``torch.cuda.get_device_name()`` onto it; the journal carries the
   device kind that the doctor reads.
@@ -342,11 +342,19 @@ def test_cli_subcommands_print_what_jax_prints(journal, tmp_path, case):
         assert got[1]
 
 
-def test_cli_advise_exits_2_naming_its_roadmap_entry(journal):
-    path, _ = journal
-    rc, out, err = _run(TCLI, ["advise", str(path)])
-    assert rc == 2 and out == ""
-    assert "ROADMAP.md queue A" in err and "advisor" in err
+def test_cli_advise_runs_the_ported_advisor(journal):
+    # the ported advise: the doctor's report on the journal through
+    # advisor.advise, JAX's flags and exit codes (2 below --min-actions)
+    from distributedarrays_tpu_torch.telemetry import advisor
+    path, events = journal
+    rc, out, err = _run(TCLI, ["advise", str(path), "--json"])
+    assert rc == 0, err
+    doc = json.loads(out)
+    want = [a.to_dict() for a in advisor.advise(TP.analyze(events))]
+    assert doc == json.loads(json.dumps({"actions": want, "results": None}))
+    rc, out, err = _run(TCLI, ["advise", str(path), "--min-actions",
+                               str(len(want) + 1)])
+    assert rc == 2 and "required at least" in err
 
 
 def test_cli_live_subcommands_match_jax(journal, tmp_path):

@@ -12,8 +12,8 @@ package's.
   JAX's by the port's, through each package's HTTP server.
 - ``parallel.multihost.advertise_exporter`` registers an armed exporter
   in the job's store.
-- ``distributedarrays_tpu_torch.telemetry`` exports JAX's names but
-  ``advisor``.
+- ``distributedarrays_tpu_torch.telemetry`` exports JAX's names,
+  ``advisor`` included.
 
 Every thread and server a test starts is stopped by its end (both
 packages' exporters, samplers and aggregators).
@@ -55,12 +55,13 @@ def _stop_live_plane():
         alerts.default_manager().reset()
 
 
-def test_exports_are_jax_names_but_the_advisor():
-    assert sorted(TT.__all__) == sorted(n for n in JT.__all__
-                                        if n != "advisor")
+def test_exports_are_jax_names():
+    assert sorted(TT.__all__) == sorted(JT.__all__)
     for name in TT.__all__:
         assert getattr(TT, name) is not None, name
-    assert not hasattr(TT, "advisor")
+    assert TT.advisor.__name__ == "distributedarrays_tpu_torch.telemetry.advisor"
+    assert sorted(TT.advisor.__all__) == sorted(
+        JT.advisor.__all__ + ["GEMM_ROUTES", "NO_PORT_KNOB"])
 
 
 # ---------------------------------------------------------------------------
