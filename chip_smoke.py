@@ -311,7 +311,25 @@
      layout (288 hops of each attention kernel) against the contiguous
      step alike; three SGD steps (lr 0.3, the loss must fall, counts read
      around each) and two Adam steps (lr 1e-3, the loss must fall).  Prints
-     ms per step, training tokens/s and the peak device memory.
+     ms per step, training tokens/s and the peak device memory;
+   - the GSPMD tp/dp layouts (``tp_dp_phase``; ``python3 chip_smoke.py
+     --tp-dp`` alone): first C27-C29 on 4 ranks of the card (uint16 and
+     uint32 operators, ``@``, extrema and scans, complex orderings and
+     running extrema, against numpy; ``dmap`` of bool * 3 is int32); then
+     the flagship at full width, ``Config(8192, 1024, 16, 8, 4, 2048,
+     bf16)``, on ``make_mesh(4)`` (dp 2 x tp 2, 4 ranks of the card),
+     tokens (4, 2049): three SGD ``train_step``s (lr 0.3) on
+     ``shard_params``' Megatron layout, ``generate`` of 16 tokens after a
+     (4, 16) prompt and one MLP step at [1024, 4096, 4096, 1024] bf16 on a
+     batch of 8192, every kernel's count set to 0 before and read after
+     (K5, K6, K7, K10 and K12 must launch; the loss must fall); the same
+     three steps with the plain attention and the plain reduce-scatter and
+     all-gather (no kernel launch; each loss within 1e-2, each unsharded
+     parameter within 5e-2); generate's logits against one rank's on the
+     unsharded parameters over the steps whose tokens agree (5e-2); the MLP
+     step against one rank's; the step's wall and device ms beside one
+     rank's ``train_step``, and K12's and K10's device ms in it, each line
+     with the card's name and power limit.
 8. With two or more cards, one rank per card with peer access: the
    all-gather, all-to-all and ring GEMM kernels against their plain
    versions on a 16384^2 f32 array, K13, K14 and K15 in bf16 at the
@@ -395,7 +413,18 @@
    call and the peak memory.  Every child's exporter (armed by
    ``DA_TPU_STREAM_AGG``) streams to one aggregator the parent serves on
    localhost; ``advertise_exporter()`` must return True in each child and
-   the aggregator's snapshot show 4 hosts.
+   the aggregator's snapshot show 4 hosts.  After the Trainer each child
+   runs the GSPMD tp/dp step (``multihost_tp_dp``: ``MH_TP_CFG``, the
+   flagship's width at 2 layers and seq 512, bf16, two SGD steps on
+   ``make_mesh(4)``), its losses and unsharded parameters bit-equal to one
+   process on 4 ranks, with K12 and K10 on their cross-process routes;
+   then the protocol model's conformance (``multihost_protocol``): one
+   call each of K9, K13, K14, K15, K10 and K12 on bf16 rank lists, and
+   the tp/dp step, with their events recorded (``ring_schedules.
+   recording``) and every call held against its schedule
+   (``ring_schedules.conform``); a departure fails the phase.  The parent
+   runs ``python -m distributedarrays_tpu_torch.analysis
+   verify-protocols`` before the children start; it must exit 0.
 9. Times each kernel with CUDA events (warm-up, then the median of 10
    batches of back-to-back calls, each batch about 5 ms long, divided by
    its count) beside its bound, its plain version and a library yardstick
@@ -6339,6 +6368,161 @@ def multihost_trainer_row(res, ref) -> dict:
         "one_process_step_ms": ref.get("step_ms")}
 
 
+# ---------------------------------------------------------------------------
+# the GSPMD tp/dp step across the processes, and the protocol model's
+# conformance: each process's recorded events against the schedules
+# ---------------------------------------------------------------------------
+
+MH_TP_CFG = (8192, 1024, 16, 2, 4, 512)   # the flagship's width, 2 layers
+MH_TP_STEPS = 2
+MH_TP_SEED = MH_SEED + 21
+# each recorded call's protocol, by the tag of its closing barrier
+MH_PROTOCOL_CALLS = {"K9": ("ring_attention", "ring_attention"),
+                     "K13": ("allgather_matmul", "ring_gemm"),
+                     "K14": ("allgather_matmul_rhs", "ring_gemm"),
+                     "K15": ("matmul_reducescatter", "ring_gemm"),
+                     "K10": ("all_gather", "region"),
+                     "K12": ("reduce_scatter", "reduce_scatter")}
+
+
+def multihost_tp_dp_run(tdat) -> dict:
+    """``MH_TP_STEPS`` SGD ``train_step``s of the transformer at
+    ``MH_TP_CFG`` bf16 on ``shard_params``' layout over ``make_mesh`` of
+    every rank, from seeded weights and tokens (4, seq + 1): the losses'
+    bits and the unsharded parameters' SHA-256 (one process on 4 ranks
+    and the 4 processes compute the same)."""
+    T = tdat.transformer
+    dev = tdat.layout.local_device()
+    cfg = T.Config(*MH_TP_CFG, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(MH_TP_SEED)
+    model = T.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (4, MH_TP_CFG[5] + 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    sp = T.shard_params(model, T.make_mesh(tdat.nranks()))
+    losses = [T.train_step(sp, tokens, TRAIN_LR, cfg)[1]
+              for _ in range(MH_TP_STEPS)]
+    whole = T.unshard(sp)
+    return {"losses": [_bits(x) for x in losses],
+            "params": {n: _sha256(p) for n, p in whole.named_parameters()}}
+
+
+def multihost_tp_dp(tdat, MH, kbuild) -> dict:
+    """The tp/dp leg in a child: ``multihost_tp_dp_run`` with its events
+    recorded (``ring_schedules.recording``) and held against the
+    schedules (``conform``), its launches and cross-process routes."""
+    from distributedarrays_tpu_torch.ops import ring_schedules as RS
+    MH.sync_hosts("tp_dp")
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    with RS.recording() as seen:
+        out = multihost_tp_dp_run(tdat)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    counts, routes = kbuild.launch_counts(), kbuild.route_counts()
+    out["launches"] = {k: counts[k] for k in TP_DP_KERNELS}
+    out["cross_process"] = {
+        "reduce_scatter": routes["reduce_scatter"]["cross_process"],
+        "all_gather": routes["all_gather"]["cross_process_region"]}
+    out["events"] = len(seen)
+    out["calls"] = sum(e.startswith("barrier:") and e.partition(":")[2] in
+                       RS.CALL_SCHEDULES for e in seen)
+    out["conform"] = RS.conform(seen, MH_PROCS)
+    torch.cuda.empty_cache()
+    return out
+
+
+def multihost_protocol(tdat, kbuild) -> dict:
+    """The schedule conformance leg in a child: one call each of K9, K13,
+    K14, K15, K10 and K12 on bf16 rank lists (one block a process), its
+    events recorded and held against its schedule (``conform``), and its
+    kernel's launches."""
+    from distributedarrays_tpu_torch.models import ring_attention as RA
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    from distributedarrays_tpu_torch.ops import ring_schedules as RS
+    p = MH_PROCS
+    dev = tdat.layout.local_device()
+    gen = torch.Generator(device=dev).manual_seed(MH_SEED + 22)
+
+    def blocks(*shape, dim=0):
+        return _rank_blocks(tdat, torch.randn(
+            shape, generator=gen, device=dev).bfloat16(), dim)
+    q, k, v = (blocks(p * 256, 8, 64) for _ in range(3))
+    x13, w13 = blocks(p * 256, 512), blocks(512, p * 512, dim=1)
+    a14, b14 = blocks(p * 256, 512), blocks(512, 512)
+    x15, w15 = blocks(512, p * 128, dim=1), blocks(p * 128, 512)
+    g10 = blocks(p * 256, 512)
+    r12 = blocks(p * p * 64, 512)
+    calls = {"K9": lambda: RA.ring_attention_rdma(q, k, v, True),
+             "K13": lambda: CC.ring_allgather_matmul(x13, w13),
+             "K14": lambda: CC.ring_allgather_matmul_rhs(a14, b14),
+             "K15": lambda: CC.ring_matmul_reducescatter(x15, w15),
+             "K10": lambda: CC.ring_all_gather(g10, 0),
+             "K12": lambda: CC.ring_reduce_scatter(r12, 0)}
+    out = {}
+    for name, call in calls.items():
+        kernel, tag = MH_PROTOCOL_CALLS[name]
+        torch.cuda.synchronize()
+        kbuild.reset_launches()
+        with RS.recording() as seen:
+            call()
+            torch.cuda.synchronize()
+        out[name] = {"events": seen, "conform": RS.conform(seen, p),
+                     "launches": kbuild.launch_counts()[kernel],
+                     "closed": f"barrier:{tag}" in seen}
+    del q, k, v, x13, w13, a14, b14, x15, w15, g10, r12
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_tp_dp_and_protocol(res, ref) -> None:
+    """The tp/dp leg bit-equal to one process on 4 ranks, launching K12
+    and K10 on their cross-process routes; every recorded call of it and
+    of the protocol leg conforming to its schedule."""
+    for r in res:
+        got = r["tp_dp"]
+        if got["losses"] != ref["losses"] or got["params"] != ref["params"]:
+            bad = [n for n in ref["params"]
+                   if got["params"].get(n) != ref["params"][n]]
+            raise AssertionError(f"process {r['process']}: the tp/dp step "
+                                 f"differs from one process's (losses "
+                                 f"{got['losses']} / {ref['losses']}, "
+                                 f"parameters {bad[:4]})")
+        if not all(got["cross_process"].values()) or \
+                not all(got["launches"].values()):
+            raise AssertionError(f"process {r['process']}: tp/dp launches "
+                                 f"{got['launches']}, cross-process "
+                                 f"{got['cross_process']}")
+        if got["conform"] or not got["calls"]:
+            raise AssertionError(f"process {r['process']}: the tp/dp step's "
+                                 f"{got['calls']} calls depart from the "
+                                 f"schedules: {got['conform'][:3]}")
+        for name, leg in r["protocol"].items():
+            if leg["conform"] or not leg["closed"] or not leg["launches"]:
+                raise AssertionError(
+                    f"process {r['process']}: {name}'s recorded events "
+                    f"{leg['events']} against its schedule: "
+                    f"{leg['conform']} (launches {leg['launches']})")
+
+
+def verify_protocols_run(root: str) -> dict:
+    """``python -m distributedarrays_tpu_torch.analysis verify-protocols``
+    in a subprocess: it must exit 0 (every schedule proved, every mutant
+    refuted)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "distributedarrays_tpu_torch.analysis",
+                        "verify-protocols", "--quiet"], capture_output=True,
+                       text=True, cwd=root, timeout=600)
+    last = r.stdout.strip().splitlines()[-1:] or [r.stderr.strip()]
+    print(f"  verify-protocols: exit {r.returncode}, {last[0]}")
+    if r.returncode != 0:
+        raise AssertionError(f"verify-protocols exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-2000:]}")
+    return {"rc": r.returncode, "summary": last[0],
+            "s": time.perf_counter() - t0}
+
+
 def multihost_child(port: int, proc: int, out_dir: str) -> int:
     """One process of ``multihost_phase`` (``--multihost-child PORT P
     DIR``): joins the job on the store at ``localhost:PORT``, runs the
@@ -6452,6 +6636,11 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
     torch.cuda.empty_cache()
     # 3e. the data-parallel Trainer, against one process on 4 ranks
     res["trainer"] = multihost_trainer(tdat, MH, kbuild, proc, out_dir)
+    # 3f. the GSPMD tp/dp step, against one process on 4 ranks, and each
+    # call's recorded events against the protocol model's schedules
+    res["tp_dp"] = multihost_tp_dp(tdat, MH, kbuild)
+    MH.sync_hosts("protocol")
+    res["protocol"] = multihost_protocol(tdat, kbuild)
 
     # 4. an uneven layout, d + d and its gather
     U = torch.rand(MH_UNEVEN, generator=torch.Generator().manual_seed(
@@ -6588,6 +6777,13 @@ def multihost_phase(tdat) -> dict:
     trainer_ref = trainer_reference(tdat)
     print(f"multihost trainer reference: {time.perf_counter() - t_ref:.1f} "
           f"s")
+    t_ref = time.perf_counter()
+    tdat.init(nranks=MH_PROCS)
+    tp_ref = multihost_tp_dp_run(tdat)
+    torch.cuda.empty_cache()
+    print(f"multihost tp/dp reference: {time.perf_counter() - t_ref:.1f} s")
+    # the protocol model, before the children's conformance leg
+    protocols = verify_protocols_run(root)
     tdat.init(nranks=MH_PROCS)
     tdat.d_closeall()
     del X, Y, Z, R
@@ -6685,6 +6881,7 @@ def multihost_phase(tdat) -> dict:
     _check_legs(res, legs_ref)
     _check_train(res, train_ref)
     _check_trainer(res, trainer_ref)
+    _check_tp_dp_and_protocol(res, tp_ref)
     if not all(r["exporter_armed"] and r["exporter_advertised"]
                for r in res) or len(snap["hosts"]) != MH_PROCS:
         raise AssertionError(
@@ -6754,6 +6951,18 @@ def multihost_phase(tdat) -> dict:
         "legs": multihost_legs_row(res, legs_ref),
         "train": multihost_train_row(res, train_ref),
         "trainer": multihost_trainer_row(res, trainer_ref),
+        "tp_dp": {"bit_equal_one_process": True,
+                  "ms": [r["tp_dp"]["ms"] for r in res],
+                  "launches": [r["tp_dp"]["launches"] for r in res],
+                  "cross_process": [r["tp_dp"]["cross_process"]
+                                    for r in res],
+                  "calls_conforming": [r["tp_dp"]["calls"] for r in res],
+                  "shape": f"Config{MH_TP_CFG} bf16, {MH_TP_STEPS} SGD "
+                           f"steps on make_mesh({MH_PROCS})"},
+        "protocol": {"verify_protocols": protocols,
+                     "conforming": {n: [r["protocol"][n]["launches"]
+                                        for r in res]
+                                    for n in MH_PROTOCOL_CALLS}},
         "aggregator": {"hosts": len(snap["hosts"]),
                        "frames": snap.get("frames_ingested")}}
     print(json.dumps({"multihost": row, "gpu": gpu_name()}))
@@ -6781,6 +6990,9 @@ def multihost_phase(tdat) -> dict:
             "trainer_launches": {
                 k: [r["trainer"]["launches"][0][k] for r in res]
                 for k in ("all_gather", "reduce_scatter")},
+            # each process's launches in the tp/dp leg's two steps
+            "tp_dp_launches": {k: [r["tp_dp"]["launches"][k] for r in res]
+                               for k in TP_DP_KERNELS},
             "region_launches": [
                 r["launches"] + sum(r["ops"][k]["region"] for k in (
                     "gemm_launches", "relayout_launches", "djit_launches"))
@@ -7384,6 +7596,293 @@ def multihost_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the GSPMD tp/dp layouts (phase 7e) and C27-C29 on the card
+# ---------------------------------------------------------------------------
+
+TP_DP_RANKS = 4               # make_mesh(4): (dp, tp) = (2, 2) on the card
+TP_DP_STEPS = 3
+TP_DP_PROMPT, TP_DP_NEW = 16, 16     # generate: a (4, 16) prompt, 16 tokens
+TP_DP_MLP = (1024, 4096, 4096, 1024)
+TP_DP_MLP_BATCH = 8192
+TP_DP_MLP_LR = 1e-2
+TP_DP_KERNELS = ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "all_gather", "reduce_scatter")
+# generate's logits on the tp layout against one rank's, over the steps
+# whose tokens agree: bf16 row-parallel partial sums folded in another
+# order (K12 + K10 against one product); the serving check's tolerance
+TOL_TP_LOGITS = TOL_SERVE_BF16
+
+
+def faults_on_card(tdat) -> None:
+    """C27-C29 on the card, 4 ranks: uint16 and uint32 operators, product,
+    extrema and scans (computed in the wider signed type, wrapped back)
+    and complex orderings and running extrema (lexicographic), each
+    against numpy on the same values; ``dmap``'s int64 result narrowed to
+    int32."""
+    rng = np.random.default_rng(3)
+
+    def same(what, got, want):
+        g = got.full().cpu() if isinstance(got, tdat.DArray) else got.cpu()
+        w = np.asarray(want)
+        ok = (g.to(torch.int64).numpy() == w.astype(np.int64)).all() \
+            if not g.is_complex() else np.array_equal(g.numpy(), w)
+        if g.shape != w.shape or not ok:
+            raise AssertionError(f"{what} on the card differs from numpy")
+    for dt in (np.uint16, np.uint32):
+        x = rng.integers(0, np.iinfo(dt).max, (37, 11),
+                         dtype=np.uint64).astype(dt)
+        y = rng.integers(0, 1000, (11, 6)).astype(dt)
+        d = tdat.distribute(x)
+        if d.dtype != getattr(torch, np.dtype(dt).name):
+            raise AssertionError(f"{dt} stored as {d.dtype}")
+        for what, got, want in (
+                ("+", d + 1, x + dt(1)), ("-", d - 3, x - dt(3)),
+                ("//", d // 7, x // dt(7)), ("%", d % 5, x % dt(5)),
+                ("<", d < 30000, x < 30000), (">=", d >= d // 2,
+                                              x >= x // dt(2)),
+                ("neg", -d, (-x.astype(np.int64)) % (int(np.iinfo(dt).max)
+                                                     + 1)),
+                ("abs", abs(d), x), ("~", ~d, ~x),
+                ("@", d @ tdat.distribute(y), (x @ y).astype(dt)),
+                ("dcumsum", tdat.dcumsum(d, 0), np.cumsum(x, 0, dtype=dt)),
+                ("dcumprod", tdat.dcumprod(d, 1),
+                 np.cumprod(x, 1, dtype=dt)),
+                ("dcummax", tdat.dcummax(d, 0),
+                 np.maximum.accumulate(x, 0)),
+                ("dcummin", tdat.dcummin(d, 1),
+                 np.minimum.accumulate(x, 1))):
+            same(f"{np.dtype(dt).name} {what}", got, want)
+        same(f"{np.dtype(dt).name} dmaximum", tdat.dmaximum(d),
+             np.asarray(x.max()))
+        same(f"{np.dtype(dt).name} dminimum dims=0",
+             tdat.dminimum(d, 0), x.min(0, keepdims=True))
+        tdat.d_closeall()
+    if tdat.distribute(np.zeros((3, 4), np.uint64)).dtype != torch.uint32:
+        raise AssertionError("uint64 is not stored as uint32")
+    c = (rng.integers(-2, 3, (37, 11)) + 1j * rng.standard_normal(
+        (37, 11))).astype(np.complex64)
+    dc = tdat.distribute(c)
+    for what, got, want in (("<", dc < 1, c < 1), (">=", dc >= 0, c >= 0),
+                            ("dcummax", tdat.dcummax(dc, 0),
+                             np.maximum.accumulate(c, 0)),
+                            ("dcummin", tdat.dcummin(dc, 1),
+                             np.minimum.accumulate(c, 1))):
+        same(f"complex64 {what}", got, want)
+    b = tdat.distribute(rng.integers(0, 2, (37, 11)).astype(bool))
+    if tdat.dmap(lambda a: a * 3, b).dtype != torch.int32:
+        raise AssertionError("dmap of bool * 3 is not int32")
+    tdat.d_closeall()
+    print("  C27-C29 on the card: uint16/uint32 operators, @, extrema and "
+          "scans, complex orderings and running extrema, dmap's int32: "
+          "as numpy")
+
+
+# the device symbols of K10's and K12's kernels alone (``KERNEL_SYMBOLS``'
+# ``copy_kernel`` also matches PyTorch's own copy kernels)
+COLLECTIVE_SYMBOLS = {"all_gather": r"(^|[\s:])copy_kernel\(",
+                      "reduce_scatter": r"reduce_(pieces|run)_kernel<"}
+
+
+def kernels_device_ms(fn, names) -> dict:
+    """The device ms of each kernel of ``names`` (kbuild names, matched by
+    ``COLLECTIVE_SYMBOLS``) in one call of ``fn``, after a warm-up call."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for n in names:
+            if re.search(COLLECTIVE_SYMBOLS[n], e.key):
+                out[n] += e.self_device_time_total / 1e3
+    return out
+
+
+def tp_dp_phase(tdat, smi: str) -> dict:
+    """Phase 7e: the GSPMD tp/dp layouts at the flagship's full width,
+    ``Config(8192, 1024, 16, 8, 4, 2048, bf16)`` on ``make_mesh(4)``
+    (dp 2 x tp 2, 4 ranks of the card), tokens (4, 2049): three SGD
+    ``train_step``s on ``shard_params``' Megatron layout (K5 on each tp
+    rank's heads, K6/K7 backward, K12 + K10 for every tp and dp
+    all-reduce), ``generate`` of 16 tokens and one MLP step at
+    [1024, 4096, 4096, 1024] bf16 on a batch of 8192, with every kernel's
+    count set to 0 before and read after (K5, K6, K7, K10 and K12 must
+    launch); then the same steps with the plain attention and the plain
+    reduce-scatter and all-gather (losses and unsharded parameters within
+    ``TOL_SP_LOSS`` and ``TOL_TRAIN_BF16``), generate's logits against
+    one rank's ``generate`` on the unsharded parameters, the MLP step
+    against one rank's, and the step's wall and device ms beside one
+    rank's ``train_step`` (and K12's and K10's device ms in it).  C27-C29
+    are checked on the card first (``faults_on_card``)."""
+    from distributedarrays_tpu_torch.models import mlp as M
+    from distributedarrays_tpu_torch.models import tp_dp as TPD
+    from distributedarrays_tpu_torch.ops import cuda_attention as CA
+    from distributedarrays_tpu_torch.ops import cuda_collectives as CC
+    T, kbuild = tdat.transformer, tdat.kbuild
+    S = TRAIN_CFG[5]
+    print(f"phase tp/dp (make_mesh({TP_DP_RANKS}) on one card, "
+          f"Config{TRAIN_CFG} bf16, tokens (4, {S + 1}), lr {TRAIN_LR})")
+    t_phase = time.perf_counter()
+    kbuild.build(["attention", "attention_bwd", "collectives"])
+    tdat.init(nranks=TP_DP_RANKS)
+    faults_on_card(tdat)
+    dev = tdat.layout.local_device()
+    cfg = T.Config(*TRAIN_CFG, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    model = T.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (4, S + 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prompt = tokens[:, :TP_DP_PROMPT]
+    mesh = T.make_mesh(TP_DP_RANKS)
+    mgen = torch.Generator(device=dev).manual_seed(9)
+    mparams = M.init_params(mgen, TP_DP_MLP, torch.bfloat16, dev)
+    x = torch.randn((TP_DP_MLP_BATCH, TP_DP_MLP[0]), generator=mgen,
+                    device=dev).bfloat16()
+    y = torch.randn((TP_DP_MLP_BATCH, TP_DP_MLP[-1]), generator=mgen,
+                    device=dev).bfloat16()
+
+    # the main path, its launches counted
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    sp = T.shard_params(model, mesh)
+    losses, step_ms = [], []
+    for _ in range(TP_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lv = T.train_step(sp, tokens, TRAIN_LR, cfg)
+        losses.append(float(lv))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    toks, logits = T.generate(sp, prompt, TP_DP_NEW, cfg, return_logits=True)
+    msp = M.shard_params(mparams, mesh)
+    xs, ys = M.shard_batch(x, y, mesh)
+    _, mloss = M.train_step(msp, xs, ys, lr=TP_DP_MLP_LR)
+    torch.cuda.synchronize()
+    counts = {k: kbuild.launch_counts()[k] for k in TP_DP_KERNELS}
+    print(f"  launches {counts}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the tp/dp path: "
+                             f"{missing}")
+    print(f"  losses {losses}, MLP loss {float(mloss)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            not np.isfinite(float(mloss)):
+        raise AssertionError(f"the tp/dp loss did not fall: {losses}, MLP "
+                             f"{float(mloss)}")
+
+    # the same steps with the plain kernels
+    spp = T.shard_params(model, mesh)
+    saved = (TPD.ring_reduce_scatter, TPD.ring_all_gather)
+    TPD.ring_reduce_scatter = CC.reduce_scatter_plain
+    TPD.ring_all_gather = CC.all_gather_plain
+    before = kbuild.launch_counts()
+    try:
+        plosses = [float(T.train_step(
+            spp, tokens, TRAIN_LR, cfg,
+            _attend=lambda q, k, v, causal: CA.flash_attention_lse_plain(
+                q, k, v, causal)[0])[1]) for _ in range(TP_DP_STEPS)]
+    finally:
+        TPD.ring_reduce_scatter, TPD.ring_all_gather = saved
+    after = kbuild.launch_counts()
+    if any(after[k] != before[k] for k in TP_DP_KERNELS):
+        raise AssertionError("the plain steps launched a kernel")
+    for i, (a, b) in enumerate(zip(losses, plosses)):
+        check(f"tp/dp step {i} loss vs the plain kernels", abs(a - b) /
+              abs(b), TOL_SP_LOSS)
+    whole, wplain = T.unshard(sp), T.unshard(spp)
+    worst = max((rel_err(a, b), n) for (n, a), (_, b) in zip(
+        whole.named_parameters(), wplain.named_parameters()))
+    check(f"tp/dp parameters after {TP_DP_STEPS} steps vs the plain "
+          f"kernels, worst {worst[1]}", worst[0], TOL_TRAIN_BF16)
+    del spp, wplain
+
+    # generate against one rank's on the unsharded parameters
+    rtoks, rlogits = T.generate(whole, prompt, TP_DP_NEW, cfg,
+                                return_logits=True)
+    new, rnew = toks[:, TP_DP_PROMPT:], rtoks[:, TP_DP_PROMPT:]
+    diff = (new != rnew).any(0).nonzero()
+    agree = int(diff[0]) if len(diff) else TP_DP_NEW
+    # the logits of the steps whose inputs agree (the step that picks the
+    # first differing token included)
+    upto = min(agree + 1, TP_DP_NEW)
+    gen_err = float((logits[:, :upto] - rlogits[:, :upto]).abs().max()
+                    / rlogits[:, :upto].abs().max())
+    check(f"generate on the tp layout vs one rank, logits of the first "
+          f"{upto} new tokens ({agree} of {TP_DP_NEW} tokens equal)",
+          gen_err, TOL_TP_LOGITS)
+
+    # the MLP step against one rank's
+    _, mref = M.train_step(mparams, x, y, lr=TP_DP_MLP_LR)
+    check("MLP tp/dp step loss vs one rank", abs(float(mloss) - float(mref))
+          / abs(float(mref)), TOL_SP_LOSS)
+    mworst = max(rel_err(a[k], b[k]) for a, b in zip(M.unshard(msp),
+                                                     mparams) for k in "wb")
+    check("MLP tp/dp parameters vs one rank", mworst, TOL_TRAIN_BF16)
+    del msp, xs, ys, x, y, mparams
+
+    # times: the tp/dp step against one rank's train_step
+    def tp_step():
+        T.train_step(sp, tokens, TRAIN_LR, cfg)
+
+    def one_step():
+        T.train_step(whole, tokens, TRAIN_LR, cfg)
+    wall = statistics.median(step_ms[1:])
+    one_wall = []
+    for _ in range(TP_DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        one_wall.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = device_ms(tp_step, reps=2)
+    one_dev_ms = device_ms(one_step, reps=2)
+    coll = kernels_device_ms(tp_step, ("reduce_scatter", "all_gather"))
+    row = {"shape": f"Config{TRAIN_CFG} bf16, (4, {S + 1}) tokens, "
+                    f"make_mesh({TP_DP_RANKS}) {mesh.shape}",
+           "launches": counts, "losses": losses, "plain_losses": plosses,
+           "step_ms": step_ms, "wall_ms": wall, "device_ms": dev_ms,
+           "one_rank_wall_ms": statistics.median(one_wall[1:]),
+           "one_rank_device_ms": one_dev_ms,
+           "k12_device_ms": coll["reduce_scatter"],
+           "k10_device_ms": coll["all_gather"],
+           "generate_tokens_equal": agree, "generate_logits_err": gen_err,
+           "params_err": worst[0], "mlp_params_err": mworst,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"tp/dp step (make_mesh(4) on one card): wall {wall} ms, device "
+          f"{dev_ms} ms; one-rank train_step: wall "
+          f"{row['one_rank_wall_ms']} ms, device {one_dev_ms} ms; {smi}")
+    print(f"tp/dp step device ms: K12 {coll['reduce_scatter']}, K10 "
+          f"{coll['all_gather']}; {smi}")
+    print(json.dumps({"tp_dp": row, "gpu": smi}))
+    del sp, whole, model, tokens
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_dp_only() -> int:
+    """``--tp-dp``: build the kernels the phase runs and run it alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = gpu_name()
+    print(smi)
+    row = tp_dp_phase(tdat, smi)
+    print(json.dumps({"ok": True, "tp_dp_launches": row["launches"],
+                      "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7604,6 +8103,7 @@ def main() -> int:
     adv = advise_phase(tdat, smi)
     trt = train_runtime_phase(tdat)
     counts_sp_train = sp_training(tdat, dev)
+    tpdp = tp_dp_phase(tdat, smi)
 
     # -- 8. ranks on several cards ------------------------------------------
     across_cards(tdat, cuda_collectives)
@@ -7801,6 +8301,10 @@ def main() -> int:
             kern["multihost_launches"] = mh["launches"]
             kern["multihost_region_launches"] = mh["region_launches"]
             kern["multihost"] = mh["row"]
+        if name in mh["tp_dp_launches"]:
+            # the tp/dp step across the 4 processes: a process's launches
+            # in its two steps (readings in the multihost row's "tp_dp")
+            kern["multihost_tp_dp_launches"] = mh["tp_dp_launches"][name]
         if name in mh["trainer_launches"]:
             # the Trainer across the processes: a process's launches a
             # step (readings in the multihost row's "trainer")
@@ -7809,6 +8313,10 @@ def main() -> int:
             # the advise phase: launches during apply's probes (K1 in the
             # resweep, K14 in the dispatch tune)
             kern["advise_launches"] = adv["apply_launches"][name]
+        if name in tpdp["launches"]:
+            # the GSPMD tp/dp phase's launches (three train_steps,
+            # generate and an MLP step on make_mesh(4))
+            kern["tp_dp_launches"] = tpdp["launches"][name]
         if name in mh["legs_kernels"]:
             # the cross-process legs' launches a process (K4-K11, K13-K15),
             # leg by leg; readings in the multihost row's "legs" and
@@ -7940,6 +8448,7 @@ def profile_training() -> int:
 
 if __name__ == "__main__":
     sys.exit(across_cards_only() if sys.argv[1:] == ["--across-cards"]
+             else tp_dp_only() if sys.argv[1:] == ["--tp-dp"]
              else profile_training() if sys.argv[1:] == ["--profile"]
              else ring_gemms_only() if sys.argv[1:] == ["--ring-gemms"]
              else k1_k9_only() if sys.argv[1:] == ["--k1-k9"]

@@ -17,13 +17,14 @@ the port keeps its own copy of each module):
 - **divergence**: the opt-in runtime checker
   (``DA_TPU_CHECK_DIVERGENCE=1``).
 
-JAX's ``protocol`` (the Pallas RDMA schedule model checker) has no
-counterpart yet: the port's rings are host-driven launches with CUDA-IPC
-slot stores and store barriers, whose model is ROADMAP.md queue A, "the
-port's protocol model"; ``verify-protocols`` exits 2 naming it.
+- **protocol**: the explicit-state model checker of the port's
+  cross-process protocols (``ops/ring_schedules.py``: host-driven
+  launches with CUDA-IPC slot stores, stream syncs, handle publications
+  and store barriers, in place of JAX's Pallas RDMA semaphores and
+  credits), with its mutation harness (the ``verify-protocols`` verb).
 """
 
-from . import divergence
+from . import divergence, protocol
 from .engine import (Finding, lint_source, lint_file, lint_paths,
                      iter_python_files, parse_suppressions,
                      unused_suppressions)
@@ -37,7 +38,7 @@ from .effects import (analyze_paths as analyze_effects,
                       EffectReport)
 
 __all__ = [
-    "divergence",
+    "divergence", "protocol",
     "Finding", "lint_source", "lint_file", "lint_paths",
     "iter_python_files", "parse_suppressions", "unused_suppressions",
     "RULES", "Rule", "PORT_SCOPE",

@@ -5,7 +5,8 @@ __main__.py``.
     python -m distributedarrays_tpu_torch.analysis rules [--json]
     python -m distributedarrays_tpu_torch.analysis effects <module:fn>
     python -m distributedarrays_tpu_torch.analysis verify-spmd [paths...]
-    python -m distributedarrays_tpu_torch.analysis verify-protocols
+    python -m distributedarrays_tpu_torch.analysis verify-protocols \
+        [--ps 2,3,4,8] [--max-states N] [--no-mutants] [--quiet]
     python -m distributedarrays_tpu_torch.analysis locks [paths...]
 
 ``lint`` exits 0 when every finding is suppressed (or none exist), 1
@@ -33,11 +34,13 @@ signature (``analysis.effects``); ``verify-spmd`` is the cross-file
 static SPMD divergence + collective-contract gate (DAL010/011/012 over
 the package and ``chip_smoke.py``); ``locks`` runs the cross-file
 lock-order / blocking-under-lock analysis (``analysis.locks``) and prints
-the acquisition graph.  ``verify-protocols`` exits 2: JAX's model checks
-Pallas RDMA semaphores and credits, which the port does not have; the
-model of the port's own ring protocol (slot stores into the neighbour
-process, the store barrier a step, ``peer_call``'s map/unmap lifetime) is
-``ROADMAP.md`` queue A, "the port's protocol model".  ``rules --json``
+the acquisition graph.  ``verify-protocols`` model-checks the port's
+cross-process protocols (``ops/ring_schedules.py``: ``peer_call``'s region
+copy, K12's cross-process reduce-scatter, the two-slot rings of K9 and
+K13-K15, the tp/dp all-reduce) over every interleaving of the processes
+(``analysis.protocol``) and refutes the seeded mutants; it keeps JAX's
+exit codes: 0 proved, 1 a violation, a missed mutant or an exhausted
+state budget, 2 when it could not run.  ``rules --json``
 gives each code one line on what it catches in the port
 (``rules.PORT_SCOPE``).
 """
@@ -249,12 +252,26 @@ def _cmd_verify_spmd(args) -> int:
 
 
 def _cmd_verify_protocols(args) -> int:
-    print("verify-protocols: the port has no Pallas RDMA semaphores or "
-          "credits to model; the model of its own ring protocol (slot "
-          "stores into the neighbour process, the store barrier a step, "
-          "peer_call's map/unmap lifetime) is not written yet (ROADMAP.md "
-          "queue A, \"the port's protocol model\")", file=sys.stderr)
-    return 2
+    from . import protocol
+
+    try:
+        ps = tuple(int(x) for x in args.ps.split(",")) if args.ps \
+            else protocol.DEFAULT_PS
+    except ValueError:
+        print(f"verify-protocols: bad --ps {args.ps!r}", file=sys.stderr)
+        return 2
+    if not ps or min(ps) < 2:
+        print("verify-protocols: every p must be at least 2",
+              file=sys.stderr)
+        return 2
+    kw = {}
+    if args.max_states is not None:
+        kw["max_states"] = args.max_states
+    report = protocol.verify_protocols(ps=ps, mutants=not args.no_mutants,
+                                       **kw)
+    print(protocol.format_report(
+        report, verbose_counterexamples=not args.quiet))
+    return 0 if report["ok"] else 1
 
 
 def _cmd_locks(args) -> int:
@@ -341,9 +358,18 @@ def main(argv=None) -> int:
                     help="report DAL010/011/012 disable= comments that "
                          "silence nothing in this sweep (DAL100)")
 
-    sub.add_parser(
+    vp = sub.add_parser(
         "verify-protocols",
-        help="(not ported: exits 2 naming its ROADMAP entry)")
+        help="model-check the cross-process protocols and refute the "
+             "seeded mutants")
+    vp.add_argument("--ps", default="",
+                    help="comma-separated process counts (default 2,3,4,8)")
+    vp.add_argument("--max-states", type=int, default=None,
+                    help="state budget a schedule (a run that hits it "
+                         "fails)")
+    vp.add_argument("--no-mutants", action="store_true")
+    vp.add_argument("--quiet", action="store_true",
+                    help="no counterexample traces")
 
     lk = sub.add_parser(
         "locks",

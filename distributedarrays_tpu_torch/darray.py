@@ -103,7 +103,7 @@ __all__ = [
 
 # 64-bit types become their 32-bit counterparts, as under JAX with x64 off
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
-           torch.complex128: torch.complex64}
+           torch.uint64: torch.uint32, torch.complex128: torch.complex64}
 
 
 def canon_dtype(dtype) -> torch.dtype:

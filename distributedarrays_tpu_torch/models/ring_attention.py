@@ -110,6 +110,7 @@ from ..ops.cuda_attention import (MAX_HEAD_DIM, flash_attention_hop,
                                   flash_carry_finalize, flash_carry_init,
                                   ring_attn_step)
 from ..ops import cuda_collectives as CC
+from ..ops import ring_schedules as _rs
 from ..ops.cuda_collectives import _Order
 from ..parallel import multihost
 from ..parallel.collectives import pshifts
@@ -395,6 +396,7 @@ def _ring_rdma_job(q_blocks, k_blocks, v_blocks, causal: bool,
                                        "cross_process")
             for dev in devs:
                 torch.cuda.synchronize(dev)
+                _rs.record("sync")
             if t < p - 1:
                 multihost.sync_hosts("ring_attention_step")
     return outs

@@ -153,6 +153,10 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
         r = fn(*pieces)
         if not isinstance(r, torch.Tensor):
             r = torch.as_tensor(r, device=dev)
+        want = canon_dtype(r.dtype)
+        if r.dtype != want:
+            # a 64-bit result is stored in its 32-bit type, as JAX's
+            r = r.to(want)
         parts[ci] = r.expand(tuple(h - l for l, h in bounds))
     if out is None or parts.flat[0].dtype != out.dtype:
         # the new tensors are the result's own: a part that fn returned
@@ -347,6 +351,44 @@ def _is_index(a) -> bool:
 
 _NUMERIC_OPS = ("floordiv", "mod", "lshift", "rshift")
 
+# uint16 and uint32 compute in the next wider signed type, the integer
+# result wrapped back (modulo 2**16 or 2**32, as JAX's wrap): torch has
+# few kernels for them (on the CPU add, the orderings and abs raise)
+_WIDE = {torch.uint16: torch.int32, torch.uint32: torch.int64}
+
+
+def widened(fn: Callable, dt: torch.dtype) -> Callable:
+    """``fn`` with its tensor arguments (of type ``dt``) taken in ``dt``'s
+    wider signed type and an integer result cast back to ``dt``; ``fn``
+    itself for other types."""
+    wide = _WIDE.get(dt)
+    if wide is None:
+        return fn
+
+    def run(*xs):
+        r = fn(*[x.to(wide) if isinstance(x, torch.Tensor) else x
+                 for x in xs])
+        return r.to(dt) if r.dtype == wide else r
+    return run
+
+
+def _lex_compare(name: str) -> Callable:
+    """The ordering ``name`` of complex values in numpy's (and JAX's)
+    lexicographic order: the real parts, then the imaginary parts."""
+    strict = name in ("lt", "gt")
+
+    def parts(x):
+        x = x if isinstance(x, torch.Tensor) else complex(x)
+        return x.real, x.imag
+
+    def cmp(a, b):
+        if name in ("gt", "ge"):
+            a, b = b, a
+        (ar, ai), (br, bi) = parts(a), parts(b)
+        return (ar < br) | ((ar == br) & ((ai < bi) if strict
+                                          else (ai <= bi)))
+    return cmp
+
 
 def promote(name: str, fn: Callable, args: tuple):
     """``(fn', args')``: the operator ``name`` (a key of ``_BINOPS`` or
@@ -364,6 +406,9 @@ def promote(name: str, fn: Callable, args: tuple):
     args = tuple(_scalar_as(a, dt) if isinstance(a, (bool, int, float,
                                                      complex)) else a
                  for a in args)
+    if name in _COMPARE and dt.is_complex:
+        fn = _lex_compare(name)
+    fn = widened(fn, dt)
 
     def cast(x):
         return x.to(dt) if isinstance(x, torch.Tensor) else x
@@ -388,7 +433,7 @@ def _binop(name, fn, swap=False):
 
 def _unop(fn):
     def op(self):
-        return elementwise(fn, self)
+        return elementwise(widened(fn, self.dtype), self)
     return op
 
 

@@ -77,6 +77,7 @@ import torch
 
 from .. import telemetry as _tm
 from ..utils import kbuild
+from . import ring_schedules as _rs
 
 __all__ = ["flash_attention", "flash_attention_lse", "FlashAttention",
            "flash_attention_bwd", "flash_attention_hop",
@@ -286,6 +287,7 @@ def _launched(rc: int, what: str, kernel: str, route=None) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
     kbuild.count(kernel, route)
+    _rs.record("launch")
 
 
 def flash_attention_route(dtype: torch.dtype, d: int, *views) -> str:

@@ -181,6 +181,7 @@ from .. import telemetry as _tm
 from ..parallel import multihost
 from ..parallel.collectives import pall_to_all, pgather, pshift, psum_scatter
 from ..utils import kbuild
+from . import ring_schedules as _rs
 
 __all__ = ["ring_all_gather", "ring_all_to_all", "ring_reduce_scatter",
            "ring_allgather_matmul", "ring_allgather_matmul_rhs",
@@ -444,6 +445,7 @@ def _copy_launch(launch, dev: torch.device, kernel: str,
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     kbuild.count(kernel, route)
+    _rs.record("launch")
 
 
 def copy_maxp() -> int:
@@ -839,7 +841,7 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
     its peers."""
     blocks = list(blocks)
     p = len(blocks)
-    if not blocks:
+    if not blocks:  # dalint: disable=DAL010 — a rank list has one entry a rank on every process (another process's ranks are placeholders)
         return []
     ref = blocks[0]
     dim = dim % ref.ndim
@@ -851,7 +853,7 @@ def ring_reduce_scatter(blocks: Sequence[torch.Tensor],
     _record_dispatch("ring_reduce_scatter", blocks)
     job = multihost.in_job()
     held = [b for b in blocks if b.device.type != "meta"] if job else blocks
-    if not (_on_cuda(held) if held else multihost._kernel_route()):
+    if not (_on_cuda(held) if held else multihost._kernel_route()):  # dalint: disable=DAL010 — both arms make one job exchange a call (psum_scatter's, or the card's peer_call / fetched exchange); a job's processes compute on the card or on the CPU alike
         return psum_scatter(blocks, dim) if job else \
             reduce_scatter_plain(blocks, dim)
     if ref.dtype not in _RING_DTYPES:
@@ -900,6 +902,7 @@ def _reduce_launch(d: int, blocks, dim: int, oblk: int, out, ptrs, dev,
         raise RuntimeError(f"reduce-scatter kernel launch failed: "
                            f"CUDA error {rc}")
     kbuild.count("reduce_scatter", route)
+    _rs.record("launch")
 
 
 def _piece(ref: torch.Tensor, dim: int, oblk: int, d: int) -> torch.Tensor:
@@ -1033,6 +1036,7 @@ def _launched(rc: int, what: str, kernel: str,
                            f"{f' ({route} route)' if route else ''}: CUDA "
                            f"error {rc}")
     kbuild.count(kernel, route)
+    _rs.record("launch")
 
 
 def ring_gemm_route(dtype: torch.dtype, n: int, k: int, ptrs,
@@ -1214,6 +1218,7 @@ class _Ring:
                     yield t, r
                 for dev in devs:
                     torch.cuda.synchronize(dev)
+                    _rs.record("sync")
                 if t < p - 1:
                     multihost.sync_hosts("ring_gemm_step")
 
@@ -1430,9 +1435,11 @@ class _Mapped:
         if b is None:
             b = self.bases[handle, dev] = _ipc_open(handle, dev)
             _open_bases.add(b)
+            _rs.record("map")
         return b
 
     def close(self) -> None:
+        _rs.record("unmap")
         while self.bases:
             _, b = self.bases.popitem()
             _open_bases.discard(b)
@@ -1456,12 +1463,14 @@ def peer_call(arrays, all_gather_json: Callable, barrier: Callable, devs,
     devs = list(devs)
     for dev in devs:
         torch.cuda.current_stream(dev).synchronize()
+        _rs.record("sync")
     every = all_gather_json({**region_handles(arrays), **(extra or {})})
     mapped = _Mapped(devs[0] if devs else L.local_device())
     try:
         yield every, mapped
         for dev in devs:
             torch.cuda.current_stream(dev).synchronize()
+            _rs.record("sync")
     finally:
         mapped.close()
     barrier()

@@ -52,7 +52,7 @@ from ..parallel import multihost
 from ..parallel.reshard import allgather, plan_allgather
 from ..utils import autotune
 from . import collective_matmul as cm
-from .broadcast import _pieces, elementwise, promote, result_dtype
+from .broadcast import _WIDE, _pieces, elementwise, promote, result_dtype
 from .cuda_gemm import cuda_matmul, quantized_matmul, torch_matmul
 from .mapreduce import acc_dtype
 
@@ -558,14 +558,35 @@ def _default_gemm(A: DArray, B, bt, pids, cuts, vec, out_dtype, use_kernel,
         a, b = get(ci, dev)
         if use_kernel:
             res = cuda_matmul(a.contiguous(), b.contiguous())
+        elif out_dtype in _WIDE:
+            res = _wide_product(a.to(_WIDE[out_dtype]),
+                                b.to(_WIDE[out_dtype]))
         else:
             res = torch_matmul(a.to(out_dtype), b.to(out_dtype))
-            if not plain:
-                res = alpha * res
-                if beta != 0.0:
-                    res = res + beta * out.part(ci)
+        if not (use_kernel or plain):
+            res = alpha * res
+            if beta != 0.0:
+                res = res + beta * out.part(ci)
         results[ci] = res.to(out_dtype)
     return results
+
+
+def _wide_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product of a uint16 or uint32 panel pair taken in the wider
+    signed type (the caller wraps it back, as JAX's product wraps): a
+    matmul on the CPU, and on the card, where the library has no integer
+    product, sums of broadcast products over slices of the inner dim, each
+    slice's products at most 2**26 elements."""
+    if not a.is_cuda:
+        return torch.matmul(a, b)
+    out = torch.zeros((a.shape[0],) + tuple(b.shape[1:]), dtype=a.dtype,
+                      device=a.device)
+    step = max(1, (1 << 26) // max(1, out.numel()))
+    for k0 in range(0, a.shape[1], step):
+        ak, bk = a[:, k0:k0 + step], b[k0:k0 + step]
+        out += (ak[:, :, None] * bk[None]).sum(1) if b.ndim == 2 else \
+            (ak * bk).sum(1)
+    return out
 
 
 @_tm.traced(name="matmul")

@@ -63,7 +63,7 @@ from .. import telemetry as _tm
 from ..darray import _scatter
 from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
 from ..parallel.reshard import relayout, relayout_parts
-from .broadcast import _arg_shape
+from .broadcast import _WIDE, _arg_shape
 
 __all__ = [
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
@@ -152,6 +152,7 @@ class _Reducer:
         if name in ("max", "min"):
             if x.is_complex():
                 return _lex_extreme(x, axes, name == "max")
+            x = x.to(_WIDE.get(x.dtype, x.dtype))
             return _reduce_dims(x, torch.amax if name == "max"
                                 else torch.amin, axes)
         if name in ("all", "any"):
@@ -199,7 +200,9 @@ class _Reducer:
         name = self.name
         if name in ("sum", "prod"):
             return s.to(sum_dtype(dtype))
-        if name in ("max", "min", "all", "any"):
+        if name in ("max", "min"):
+            return s.to(dtype)       # uint16/uint32 back from their wide type
+        if name in ("all", "any"):
             return s
         out_dtype = torch.float32 if _is_exact(dtype) else dtype
         if name == "mean":
@@ -521,7 +524,26 @@ def dextrema(d, dims=None):
 # ---------------------------------------------------------------------------
 
 
+def _lex_scan(x: torch.Tensor, ax: int, largest: bool) -> torch.Tensor:
+    """The running maximum (``largest``) or minimum of complex ``x`` along
+    ``ax`` in the lexicographic order, as a doubling scan: step s folds
+    each element with the one s before it."""
+    n, s = x.shape[ax], 1
+    while s < n:
+        head = x.narrow(ax, 0, s)
+        x = torch.cat([head, _lex_pick(x.narrow(ax, s, n - s),
+                                       x.narrow(ax, 0, n - s), largest)], ax)
+        s *= 2
+    return x
+
+
 def _scan_local(kind: str, x: torch.Tensor, ax: int) -> torch.Tensor:
+    dt = x.dtype
+    if dt in _WIDE:
+        # uint16/uint32: in the wider signed type, wrapped back
+        return _scan_local(kind, x.to(_WIDE[dt]), ax).to(dt)
+    if x.is_complex() and kind in ("max", "min"):
+        return _lex_scan(x, ax, kind == "max")
     if kind in ("sum", "prod"):
         # torch widens integer and bool scans to int64 unless told; JAX
         # keeps the type, and makes bool int32
@@ -537,6 +559,22 @@ def _scan_local(kind: str, x: torch.Tensor, ax: int) -> torch.Tensor:
 
 _SCAN_MERGE = {"sum": torch.add, "prod": torch.mul, "max": torch.maximum,
                "min": torch.minimum}
+
+
+def _scan_merge(kind: str) -> Callable:
+    """The carry's fold into a scanned chunk: uint16/uint32 in their wider
+    signed type (wrapped back), complex extremes in the lexicographic
+    order."""
+    plain = _SCAN_MERGE[kind]
+
+    def merge(x, prev):
+        if x.dtype in _WIDE:
+            w = _WIDE[x.dtype]
+            return plain(x.to(w), prev.to(w)).to(x.dtype)
+        if x.is_complex() and kind in ("max", "min"):
+            return _lex_pick(x, prev, kind == "max")
+        return plain(x, prev)
+    return merge
 
 
 def _scan(d: DArray, axis: int, kind: str) -> DArray:
@@ -555,7 +593,7 @@ def _scan(d: DArray, axis: int, kind: str) -> DArray:
     ax = axis + d.ndim if axis < 0 else axis
     if not 0 <= ax < d.ndim:
         raise ValueError(f"axis {axis} out of range for ndim {d.ndim}")
-    merge = _SCAN_MERGE[kind]
+    merge = _scan_merge(kind)
     scanned = {}
 
     def tail(ci):

@@ -73,6 +73,7 @@ import torch
 
 from .. import layout as L
 from .. import telemetry as _tm
+from ..ops import ring_schedules as _rs
 
 __all__ = ["initialize", "global_mesh", "process_info", "sync_hosts",
            "host_local_slice", "gather_global", "fetch_regions",
@@ -485,6 +486,7 @@ def sync_hosts(name: str = "sync") -> None:
     store = _kv()
     if store is None:
         return
+    _rs.record("barrier", name)
     key = f"{_SYNC_PREFIX}{name}/{_job.next('sync/' + name)}"
     if store.add(key, 1) == _job.count:
         store.set(key + "/done", "1")
@@ -495,6 +497,7 @@ def _all_gather_json(tag: str, obj) -> list:
     """Every process's ``obj`` (JSON), in process order, through the
     store; no process returns before all have published."""
     job = _job
+    _rs.record("publish", tag)
     key = f"{_EXCHANGE_PREFIX}{tag}/{job.next('exchange/' + tag)}/"
     job.store.set(key + str(job.index), json.dumps(obj))
     return [json.loads(job.store.get(key + str(p)))

@@ -214,6 +214,11 @@ def _encode(tree, arrays: dict, copy: bool = False):
                 "v": tree.item()}
     if isinstance(tree, (int, float)):
         return tree
+    from ..models.tp_dp import ShardedParams
+    if isinstance(tree, ShardedParams):
+        # the tp/dp layout is written as JAX writes its sharded pytree:
+        # whole arrays
+        return _encode(tree.whole(), arrays, copy)
     raise TypeError(f"cannot checkpoint leaf of type {type(tree)}")
 
 

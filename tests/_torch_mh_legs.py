@@ -707,3 +707,111 @@ def trainer_straggler(tdat, N: int, proc: int, nprocs: int) -> dict:
         elastic.manager().reset()
         multihost.sync_hosts("trainer_straggler")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD tp/dp layouts across processes (models.tp_dp): the MLP and the
+# transformer on make_mesh(N), K12 + K10 all-reduces over tp and dp
+# ---------------------------------------------------------------------------
+
+TP_DP_NAMES = ["tp_mlp_odd", "tp_mlp_even", "tp_forward", "tp_sgd",
+               "tp_adam", "tp_generate"]
+TP_DP_STEPS = 2
+
+
+def tp_dp_data(N: int) -> dict:
+    """Seeded numpy inputs of the tp/dp legs: two MLPs (3 layers: a
+    column-parallel last layer, gathered; 4 layers: a row-parallel one),
+    their batch of 2N rows, the transformer's JAX-shaped parameters and a
+    counting batch of 2N sequences."""
+    rng = np.random.default_rng(41)
+
+    def mlp(sizes):
+        return [{"w": (rng.standard_normal((a, b)) * np.sqrt(2 / a)
+                       ).astype(np.float32),
+                 "b": (0.1 * rng.standard_normal(b)).astype(np.float32)}
+                for a, b in zip(sizes, sizes[1:])]
+    cfg = tp_cfg()
+    E, F, V = cfg["dim"], cfg["dim"] * 4, cfg["vocab"]
+
+    def dense(shape, fan_in):
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+    params = {"embed": dense((V, E), E), "pos": dense((cfg["max_seq"], E), E),
+              "ln_f": (1 + 0.1 * rng.standard_normal(E)).astype(np.float32),
+              "head": dense((E, V), E),
+              "blocks": [{"ln1": np.ones(E, np.float32),
+                          "qkv": dense((E, 3 * E), E),
+                          "proj": dense((E, E), E),
+                          "ln2": np.ones(E, np.float32),
+                          "w1": dense((E, F), E), "w2": dense((F, E), F)}
+                         for _ in range(cfg["layers"])]}
+    start = rng.integers(0, V, (2 * N, 1))
+    return {"mlp3": mlp([16, 32, 8, 8]), "mlp4": mlp([16, 32, 32, 16, 8]),
+            "x": rng.standard_normal((2 * N, 16)).astype(np.float32),
+            "y": rng.standard_normal((2 * N, 8)).astype(np.float32),
+            "params": params,
+            "tokens": ((start + np.arange(13)[None]) % V).astype(np.int64)}
+
+
+def tp_cfg() -> dict:
+    return dict(vocab=32, dim=32, heads=4, layers=2, max_seq=16)
+
+
+def tp_dp_legs(tdat, N: int) -> list:
+    """``TP_DP_NAMES`` on ``make_mesh(N)``: each MLP's ``TP_DP_STEPS`` SGD
+    steps (losses, unsharded parameters), the transformer's logits and
+    loss, its SGD and Adam steps, and greedy ``generate``; every result a
+    whole array on every process."""
+    from distributedarrays_tpu_torch.models import mlp as M
+    from distributedarrays_tpu_torch.models import transformer as T
+    D = tp_dp_data(N)
+    cfg = T.Config(**tp_cfg(), dtype=torch.float32)
+
+    def mlp_leg(key):
+        def run():
+            mesh = M.make_mesh(N)
+            sp = M.shard_params([{k: torch.from_numpy(v) for k, v in l.items()}
+                                 for l in D[key]], mesh)
+            x, y = M.shard_batch(D["x"], D["y"], mesh)
+            losses = [M.train_step(sp, x, y, lr=0.05)[1]
+                      for _ in range(TP_DP_STEPS)]
+            return {"losses": torch.stack(losses),
+                    "params": {f"{k}{i}": v for i, l in
+                               enumerate(M.unshard(sp)) for k, v in l.items()}}
+        return run
+
+    def model():
+        return T.shard_params(tdat.params_from_reference(D["params"], cfg),
+                              T.make_mesh(N))
+
+    def whole(sp):
+        return {n: p.detach() for n, p in T.unshard(sp).named_parameters()}
+
+    def forward():
+        sp = model()
+        return {"logits": T.forward(sp, D["tokens"][:, :-1], cfg),
+                "loss": T.loss_fn(sp, D["tokens"], cfg)}
+
+    def sgd():
+        sp = model()
+        losses = [T.train_step(sp, D["tokens"], 0.1, cfg)[1]
+                  for _ in range(TP_DP_STEPS)]
+        return {"losses": torch.stack(losses), "params": whole(sp)}
+
+    def adam():
+        sp = model()
+        step, init = T.make_optax_train_step(cfg, tdat.train.adam(1e-2))
+        state = init(sp)
+        losses = []
+        for _ in range(TP_DP_STEPS):
+            sp, state, loss = step(sp, state, D["tokens"])
+            losses.append(loss)
+        return {"losses": torch.stack(losses), "params": whole(sp)}
+
+    out = [("tp_mlp_odd", mlp_leg("mlp3")), ("tp_mlp_even", mlp_leg("mlp4")),
+           ("tp_forward", forward), ("tp_sgd", sgd), ("tp_adam", adam),
+           ("tp_generate", lambda: T.generate(model(), D["tokens"][:, :4], 6,
+                                              cfg))]
+    assert [name for name, _ in out] == TP_DP_NAMES
+    return out

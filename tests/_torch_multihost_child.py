@@ -3,7 +3,11 @@
 ``tests/_multihost_child.py``'s smoke stage.
 
 Run as: python tests/_torch_multihost_child.py <store_file> <process_id> \
-            <num_processes> <out_dir> <stale_s>
+            <num_processes> <out_dir> <stale_s> [tp_dp]
+
+With ``tp_dp`` it runs only the GSPMD tp/dp legs
+(``tests/_torch_mh_legs.py`` ``tp_dp_legs``, for
+``tests/test_torch_tp_dp.py``).
 
 Each process holds 4 CPU ranks; ``num_processes`` of them join one job
 through a ``FileStore`` at ``store_file`` (no port to race for) and build
@@ -74,6 +78,21 @@ res["clock"] = multihost.exchange_clock_offsets()
 
 def layout(d):
     return {"cuts": [list(c) for c in d.cuts], "pids": d.pids.tolist()}
+
+
+if sys.argv[6:] == ["tp_dp"]:
+    # the tp/dp stage alone (tests/test_torch_tp_dp.py): the legs of
+    # _torch_mh_legs.tp_dp_legs, every process the whole results
+    import _torch_mh_legs  # noqa: E402
+    res["tp_dp"] = {name: _torch_mh_legs.summary(
+        tdat, multihost.gather_global, thunk())[0]
+        for name, thunk in _torch_mh_legs.tp_dp_legs(tdat, N)}
+    multihost.sync_hosts("done")
+    multihost.shutdown()
+    with open(os.path.join(out_dir, f"result_{proc_id}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    print(f"MULTIHOST_OK proc={proc_id}", flush=True)
+    sys.exit(0)
 
 
 def bits(t):
