@@ -4956,6 +4956,19 @@ def train_runtime_phase(tdat) -> dict:
             t0 = time.perf_counter()
             CK.save(os.path.join(root, "timed"), tree)
             save_s = time.perf_counter() - t0
+            # the chunked store: one file a cell, no npz
+            t0 = time.perf_counter()
+            CK.save(os.path.join(root, "timed_chunks"), tree, store="chunks")
+            chunks_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = CK.load(os.path.join(root, "timed_chunks"))
+            torch.cuda.synchronize()
+            chunks_load_s = time.perf_counter() - t0
+            exact("chunked restore of step 4: parameters",
+                  back["pflat"].full(), t._state["pflat"].full())
+            for k in ("pflat", "m0", "m1"):
+                back[k].close()
+            shutil.rmtree(os.path.join(root, "timed_chunks"))
             disk0 = tm.counter_value("checkpoint.disk_reads")
             t0 = time.perf_counter()
             rep = t._mgr.restore(4)
@@ -4974,7 +4987,11 @@ def train_runtime_phase(tdat) -> dict:
         for k in ("pflat", "m0", "m1"):
             disk[k].close()
         shutil.rmtree(os.path.join(root, "timed"))
-        print(f"  (a) losses {losses_a}, step ms {step_ms}")
+        print(f"  (a) losses {losses_a}, step ms {step_ms}; one process's "
+              f"save of {nbytes} B: npz {save_s:.3f} s "
+              f"({nbytes / save_s / 1e9:.3f} GB/s), chunks {chunks_s:.3f} s "
+              f"({nbytes / chunks_s / 1e9:.3f} GB/s); load npz "
+              f"{disk_s:.3f} s, chunks {chunks_load_s:.3f} s")
         if not all(np.isfinite(losses_a)):
             raise AssertionError(f"non-finite losses {losses_a}")
         # steps 2 and 4 each end with a save; step 1 builds the kernels
@@ -4985,7 +5002,10 @@ def train_runtime_phase(tdat) -> dict:
                     "checkpoint_bytes": nbytes, "save_s": save_s,
                     "save_gb_per_s": nbytes / save_s / 1e9,
                     "restore_disk_s": disk_s,
-                    "restore_replica_s": replica_s}
+                    "restore_replica_s": replica_s,
+                    "chunks_save_s": chunks_s,
+                    "chunks_save_gb_per_s": nbytes / chunks_s / 1e9,
+                    "chunks_restore_s": chunks_load_s}
         # (b) stop after step 2, resume on the same directory, run to 4
         with trainer("b") as t:
             t.fit(2)
@@ -6251,9 +6271,10 @@ def _trainer_counts(kbuild, want: dict) -> dict:
 def multihost_trainer(tdat, MH, kbuild, proc: int, out_dir: str) -> dict:
     """The data-parallel Trainer across the processes (one process of
     ``multihost_phase``, one rank each): ``transformer_task(**TRAINER_CFG)``
-    f32, 3 Adam steps published by a checkpoint manager (each process
-    writes its own copy), each step's launches held
-    (``trainer_step_launches``), then a new trainer resuming from the
+    f32, 3 Adam steps published by a checkpoint manager (chunked, into one
+    directory that the processes share: each writes its own cells), each
+    step's launches held (``trainer_step_launches``: the saving step's
+    too, since it gathers nothing), then a new trainer resuming from the
     published step.  Returns the losses and the flat parameters' digest
     (for the parent to hold against one process on 4 ranks), each step's
     host ms and its ``train.step_s`` gauge, the host ms of every K10 and
@@ -6277,8 +6298,10 @@ def multihost_trainer(tdat, MH, kbuild, proc: int, out_dir: str) -> dict:
         return wrapped
     TRM.ring_all_gather = timed(saved[0], "k10_ms")
     TRM.ring_reduce_scatter = timed(saved[1], "k12_ms")
-    ckpt = os.path.join(out_dir, f"trainer_ckpt_{proc}")
-    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt = os.path.join(out_dir, "trainer_ckpt")
+    if proc == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    MH.sync_hosts("trainer_ckpt")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = {"losses": [], "step_ms": [], "step_s_gauge": [],
@@ -6299,16 +6322,11 @@ def multihost_trainer(tdat, MH, kbuild, proc: int, out_dir: str) -> dict:
                     tdat.telemetry.gauge_value("train.step_s"))
                 got = _trainer_counts(kbuild, want)
                 out["launches"].append(got)
-                # the step that publishes the checkpoint also gathers
-                # each state vector (pflat and Adam's two moments) for
-                # this process's copy: one K10 each
-                exp = want_all
-                if (n + 1) % MH_TRAINER_STEPS == 0:
-                    exp = dict(want_all, all_gather=4,
-                               all_gather_cross_process=4)
-                if got != exp:
+                # the step that publishes the checkpoint writes this
+                # process's cells as they are: no gather
+                if got != want_all:
                     raise AssertionError(f"trainer step {n}: launches "
-                                         f"{got}, expected {exp}")
+                                         f"{got}, expected {want_all}")
             out["flat_sha"] = _sha256(t.flat_params())
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         t0 = time.perf_counter()
@@ -6319,7 +6337,9 @@ def multihost_trainer(tdat, MH, kbuild, proc: int, out_dir: str) -> dict:
         out["resume_s"] = time.perf_counter() - t0
     finally:
         TRM.ring_all_gather, TRM.ring_reduce_scatter = saved
-        shutil.rmtree(ckpt, ignore_errors=True)
+        MH.sync_hosts("trainer_ckpt_done")
+        if proc == 0:
+            shutil.rmtree(ckpt, ignore_errors=True)
     out.update(calls)
     tdat.d_closeall()
     torch.cuda.empty_cache()
@@ -6366,6 +6386,426 @@ def multihost_trainer_row(res, ref) -> dict:
         "peak_gib": [x["peak_gib"] for x in tr],
         "resume_s": [x["resume_s"] for x in tr],
         "one_process_step_ms": ref.get("step_ms")}
+
+
+# ---------------------------------------------------------------------------
+# the Trainer's recovery across the processes on the chunked store
+# ---------------------------------------------------------------------------
+
+MH_RECOVERY_LOST = MH_PROCS - 1     # rank 3: process 3's only rank
+MH_RECOVERY_LOSS_STEP = 3
+MH_RECOVERY_CALLS = 5     # step_once calls: steps 0-2, the loss at 3 (its
+#                           retry is step 2 on ranks 0-2), then step 3
+MH_RECOVERY_STATE = ("pflat", "m0", "m1")
+
+
+def recovery_plan() -> list:
+    """Rank 3 lost at the top of step 3."""
+    return [{"site": "train.step", "match": {"step": MH_RECOVERY_LOSS_STEP},
+             "action": "device_loss", "at": 1, "count": 1,
+             "device": MH_RECOVERY_LOST}]
+
+
+def _cell_digests(tdat, tree) -> dict:
+    """SHA-256 of each of this process's cells of a checkpoint tree's
+    state vectors, by ``name/rank``."""
+    out = {}
+    for k in MH_RECOVERY_STATE:
+        d = tree[k]
+        for ci in d.cells():
+            r = int(d.pids[ci])
+            if tdat.layout.is_local(r):
+                out[f"{k}/{r}"] = _sha256(d._parts[ci])
+    return out
+
+
+MH_STRAGGLER_HANG_S = 3.0
+
+
+def straggler_run(tdat, armed: bool) -> dict:
+    """The straggler route of the recovery: the Trainer on every rank with
+    no checkpoint and a ``StragglerDetector(3.0, 0.5 s, warmup 2)``; with
+    ``armed`` the top of step 3 hangs ``MH_STRAGGLER_HANG_S`` and the next
+    probe finds rank 3 down, so the gate aborts the step and the recovery
+    shrinks the live state onto ranks 0-2.  ``MH_RECOVERY_CALLS`` steps:
+    the losses, the flat parameters' digest, the straggler count and the
+    final ranks."""
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    train = tdat.train
+    faults.clear()
+    elastic.manager().reset()
+    if armed:
+        faults.configure(plan=[
+            {"site": "train.step", "match": {"step": MH_RECOVERY_LOSS_STEP},
+             "action": "hang", "hang_s": MH_STRAGGLER_HANG_S, "at": 1,
+             "count": 1, "device": MH_RECOVERY_LOST}], seed=0)
+    det = train.StragglerDetector(factor=3.0, min_budget_s=0.5, warmup=2)
+    try:
+        with train.Trainer(train.transformer_task(**TRAINER_CFG),
+                           train.adam(1e-4), ranks=list(range(MH_PROCS)),
+                           straggler=det) as t:
+            losses = [t.step_once() for _ in range(MH_RECOVERY_CALLS)]
+            out = {"losses": losses, "flat_sha": _sha256(t.flat_params()),
+                   "stragglers": t.stragglers,
+                   "ranks": [int(r) for r in t._state["pflat"].pids.flat]}
+    finally:
+        faults.clear()
+        elastic.manager().reset()
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _relays(tdat, t) -> int:
+    """1 where the default cuts of the trainer's vector over the ranks
+    left after the loss differ from its shard cuts there, else 0."""
+    n, p = t._spec[2], MH_RECOVERY_LOST
+    return int(tdat.layout.chunk_idxs((n,), (p,))[1][0] != t._shard_cuts(p))
+
+
+def _cpu_ms(fn):
+    """``(fn(), wall ms with the card synchronized, host CPU ms of this
+    process)``."""
+    torch.cuda.synchronize()
+    c0, t0 = time.process_time(), time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, \
+        (time.process_time() - c0) * 1e3
+
+
+def recovery_reference(tdat) -> dict:
+    """One process on 4 ranks of the card with ``recovery_plan``: the
+    Trainer's ``MH_RECOVERY_CALLS`` steps (npz checkpoints every 2, one
+    process's store), their losses and the flat parameters' digest; then
+    the one-process npz and chunked saves (and loads) of the final state,
+    timed."""
+    import shutil
+    import tempfile
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    from distributedarrays_tpu_torch.utils import checkpoint as CK
+    train = tdat.train
+    tdat.init(nranks=MH_PROCS)
+    faults.clear()
+    elastic.manager().reset()
+    root = tempfile.mkdtemp(prefix="chip_smoke_recovery_")
+    out = {}
+    try:
+        faults.configure(plan=recovery_plan(), seed=0)
+        with train.Trainer(train.transformer_task(**TRAINER_CFG),
+                           train.adam(1e-4), ckpt_dir=os.path.join(root, "t"),
+                           save_every=2, ranks=list(range(MH_PROCS))) as t:
+            out["losses"] = [t.step_once() for _ in range(MH_RECOVERY_CALLS)]
+            out["flat_sha"] = _sha256(t.flat_params())
+            out["ranks"] = [int(r) for r in t._state["pflat"].pids.flat]
+            tree = t._ckpt_tree()
+            nbytes = sum(tree[k].size * 4 for k in MH_RECOVERY_STATE)
+            for store in ("npz", "chunks"):
+                where = os.path.join(root, store)
+                _, ms, _ = _cpu_ms(lambda: CK.save(where, tree, store=store))
+                back, load_ms, _ = _cpu_ms(lambda: CK.load(where))
+                for k in MH_RECOVERY_STATE:
+                    back[k].close()
+                out[f"one_process_{store}"] = {
+                    "save_s": ms / 1e3, "gb_per_s": nbytes / ms / 1e6,
+                    "load_s": load_ms / 1e3, "bytes": nbytes}
+    finally:
+        faults.clear()
+        elastic.manager().reset()
+        shutil.rmtree(root, ignore_errors=True)
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    out["straggler"] = straggler_run(tdat, True)
+    return out
+
+
+def multihost_recovery(tdat, MH, kbuild, proc: int, out_dir: str) -> dict:
+    """``multihost_recovery`` in a child (one rank a process): the Trainer
+    on ``transformer_task(**TRAINER_CFG)`` f32 with Adam, a chunked
+    checkpoint every 2 steps into one directory the processes share, and
+    ``recovery_plan`` armed on process 3 only.  (a) Each save: this
+    process's seconds, GB/s and its cells' digests; a saving step
+    launches 1 K10.  (b) The loss: every process restores step 2 from its
+    own files (digests against the save's), the shrink onto ranks 0-2
+    (K10 on ``cross_process_region``: one launch a state vector on
+    processes 0-2, none on process 3), and the two steps on ranks 0-2 (1
+    K10 and 1 K12 a process that holds a rank, none on process 3); the
+    events of (a)-(b) against the protocol model.  (c) A corrupt read on
+    process 1 at a restore of the latest step: every process quarantines
+    step 4 and restores step 2.  Returns the losses, the flat digest and
+    the readings (wall and host ms)."""
+    import shutil
+    from distributedarrays_tpu_torch.ops import ring_schedules as RS
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    from distributedarrays_tpu_torch.train import trainer as TRM
+    train = tdat.train
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(out_dir, "recovery_ckpt")
+    if proc == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    MH.sync_hosts("recovery_dir")
+    faults.clear()
+    elastic.manager().reset()
+    if proc == MH_RECOVERY_LOST:
+        faults.configure(plan=recovery_plan(), seed=0)
+    layers = TRAINER_CFG["layers"]
+    want = trainer_step_launches(layers)
+    held = dict(want, all_gather_cross_process=1,
+                reduce_scatter_cross_process=1)
+    idle = {k: 0 for k in held}
+    out = {"saves": [], "restores": [], "launches": [], "losses": [],
+           "attempts": [], "digest_ms": []}
+    t = train.Trainer(train.transformer_task(**TRAINER_CFG), train.adam(1e-4),
+                      ckpt_dir=ckpt, save_every=2,
+                      ranks=list(range(MH_PROCS)))
+    mgr = t._mgr
+    save, restore = mgr.save, mgr.restore
+    shrink = TRM._JobDevices.shrink
+
+    def digests(tree):
+        # the instrument's own cost, taken out of the step times below
+        t0 = time.perf_counter()
+        got = _cell_digests(tdat, tree)
+        out["digest_ms"][-1] += (time.perf_counter() - t0) * 1e3
+        return got
+
+    def timed_save(step, tree, store=None):
+        _, ms, cpu = _cpu_ms(lambda: save(step, tree, store))
+        nbytes = sum(tree[k]._parts[ci].numel() * 4
+                     for k in MH_RECOVERY_STATE for ci in tree[k].cells()
+                     if tdat.layout.is_local(int(tree[k].pids[ci])))
+        out["saves"].append({"step": step, "ms": ms, "host_cpu_ms": cpu,
+                             "bytes": nbytes,
+                             "gb_per_s": nbytes / ms / 1e6 if nbytes
+                             else None,
+                             "digests": digests(tree)})
+
+    def timed_restore(step=None):
+        tree, ms, cpu = _cpu_ms(lambda: restore(step))
+        out["restores"].append({"step": tree["step"], "ms": ms,
+                                "host_cpu_ms": cpu,
+                                "digests": digests(tree)})
+        return tree
+
+    attempt = t._attempt_step
+
+    def timed_attempt():
+        # each attempt of a step, wall and host ms (a failed one raises)
+        c0, t0 = time.process_time(), time.perf_counter()
+        try:
+            return attempt()
+        finally:
+            torch.cuda.synchronize()
+            out["attempts"].append(((time.perf_counter() - t0) * 1e3,
+                                    (time.process_time() - c0) * 1e3))
+
+    def timed_shrink(self, domain=None):
+        kbuild.reset_launches()
+        res, ms, cpu = _cpu_ms(lambda: shrink(self, domain))
+        out["shrink"] = {"ms": ms, "host_cpu_ms": cpu,
+                         "moved": res["moved"], "live": res["live"],
+                         "all_gather": kbuild.launch_counts()["all_gather"],
+                         "cross_process_region": kbuild.route_counts()[
+                             "all_gather"]["cross_process_region"]}
+        # the retry's launches are counted from here
+        kbuild.reset_launches()
+        return res
+
+    mgr.save, mgr.restore = timed_save, timed_restore
+    t._attempt_step = timed_attempt
+    TRM._JobDevices.shrink = timed_shrink
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with RS.recording() as seen:
+            for n in range(MH_RECOVERY_CALLS):
+                MH.sync_hosts("recovery_step")
+                kbuild.reset_launches()
+                out["digest_ms"].append(0.0)
+                loss, ms, cpu = _cpu_ms(t.step_once)
+                out["losses"].append(loss)
+                got = _trainer_counts(kbuild, want)
+                out["launches"].append(got)
+                out.setdefault("step_ms", []).append(ms)
+                out.setdefault("step_host_cpu_ms", []).append(cpu)
+                lost = n >= MH_RECOVERY_LOSS_STEP
+                exp = idle if lost and proc == MH_RECOVERY_LOST else held
+                if n == MH_RECOVERY_LOSS_STEP and proc != MH_RECOVERY_LOST:
+                    # the retry re-lays the shrunk state onto the shard
+                    # cuts where the default cuts over 3 ranks differ
+                    # (never at the full width: both are ceil(n / 3) wide)
+                    k = len(MH_RECOVERY_STATE) * _relays(tdat, t)
+                    exp = dict(exp, all_gather=1 + k,
+                               all_gather_cross_process=1 + k)
+                if got != exp:
+                    raise AssertionError(f"recovery call {n}: launches "
+                                         f"{got}, expected {exp}")
+        out["conform"] = RS.conform(seen, MH_PROCS, proc)
+        out["events"] = len(seen)
+        out["calls"] = sum(e.startswith("barrier:") and e.partition(":")[2]
+                           in RS.CALL_SCHEDULES for e in seen)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["ranks"] = [int(r) for r in t._state["pflat"].pids.flat]
+        out["flat_sha"] = _sha256(t.flat_params())
+        # (c) a corrupt read on process 1 only: the same fall back on all
+        faults.clear()
+        if proc == 1:
+            faults.configure(plan=[{"site": "checkpoint.read",
+                                    "action": "corrupt", "at": 1,
+                                    "count": 1}], seed=2)
+        q0 = tdat.telemetry.counter_value("checkpoint.quarantines")
+        tree = timed_restore()
+        faults.clear()
+        out["corrupt"] = {
+            "restored": tree["step"], "steps": mgr.steps(),
+            "quarantined": os.path.isdir(os.path.join(
+                ckpt, ".quarantine_step_00000004")),
+            "quarantines": tdat.telemetry.counter_value(
+                "checkpoint.quarantines") - q0}
+        for k in MH_RECOVERY_STATE:
+            tree[k].close()
+    finally:
+        mgr.save, mgr.restore = save, restore
+        TRM._JobDevices.shrink = shrink
+        faults.clear()
+        elastic.manager().reset()
+    t.close()
+    tdat.d_closeall()
+    torch.cuda.empty_cache()
+    # (b) the straggler route, the hang and the lost rank on process 3 only
+    MH.sync_hosts("recovery_straggler")
+    t0 = time.perf_counter()
+    out["straggler"] = straggler_run(tdat, proc == MH_RECOVERY_LOST)
+    out["straggler"]["s"] = time.perf_counter() - t0
+    MH.sync_hosts("recovery_done")
+    return out
+
+
+def _check_recovery(res, ref, single) -> None:
+    """Phase ``multihost_recovery`` (a)-(d) against one process on 4
+    ranks with the same plan and against what was saved."""
+    lost = MH_RECOVERY_LOST
+    saved2 = {}
+    for r in res:
+        got = r["recovery"]
+        q = r["process"]
+        if got["losses"] != ref["losses"] or \
+                got["flat_sha"] != ref["flat_sha"]:
+            raise AssertionError(f"process {q}: recovery losses "
+                                 f"{got['losses']} != one process's "
+                                 f"{ref['losses']} (or the parameters)")
+        if got["ranks"] != ref["ranks"] or ref["ranks"] != list(range(lost)):
+            raise AssertionError(f"process {q}: the state is on "
+                                 f"{got['ranks']}")
+        steps = [x["step"] for x in got["saves"]]
+        if steps != [2, 4]:
+            raise AssertionError(f"process {q}: saved steps {steps}")
+        first = got["saves"][0]["digests"]
+        saved2.update(first)
+        # (b) every process restores step 2 from its own files, bit-equal
+        rest = got["restores"][0]
+        if rest["step"] != 2 or rest["digests"] != first:
+            raise AssertionError(f"process {q}: restored step "
+                                 f"{rest['step']}, digests equal to the "
+                                 f"save's: {rest['digests'] == first}")
+        sh = got["shrink"]
+        want = 0 if q == lost else len(MH_RECOVERY_STATE)
+        if sh["live"] != list(range(lost)) or sh["all_gather"] != want or \
+                sh["cross_process_region"] != want or \
+                sh["moved"] != len(MH_RECOVERY_STATE):
+            raise AssertionError(f"process {q}: shrink {sh}, expected "
+                                 f"{want} K10 on cross_process_region")
+        if got["conform"] or not got["calls"]:
+            raise AssertionError(f"process {q}: the recovery's events "
+                                 f"depart from the schedules: "
+                                 f"{got['conform'][:3]}")
+        c = got["corrupt"]
+        if c["restored"] != 2 or c["steps"] != [2] or not c["quarantined"] \
+                or got["restores"][1]["digests"] != first:
+            raise AssertionError(f"process {q}: corrupt read {c}")
+    for r in res:
+        got, want = r["recovery"]["straggler"], ref["straggler"]
+        if any(got[k] != want[k] for k in ("losses", "flat_sha",
+                                            "stragglers", "ranks")) or \
+                want["stragglers"] != 1 or want["ranks"] != list(range(lost)):
+            raise AssertionError(f"process {r['process']}: the straggler "
+                                 f"route {got} against one process's "
+                                 f"{want}")
+    # (d) one process with 4 ranks restores the 4 processes' step 2
+    if single["digests"] != saved2:
+        raise AssertionError("one process's restore of the 4-process "
+                             "checkpoint differs from what was saved")
+
+
+def recovery_single_restore(tdat, out_dir: str) -> dict:
+    """(d): one process on 4 ranks loads the chunked step 2 that the 4
+    processes wrote; each cell's digest, and the wall and host ms."""
+    import shutil
+    from distributedarrays_tpu_torch.utils import checkpoint as CK
+    tdat.init(nranks=MH_PROCS)
+    ckpt = os.path.join(out_dir, "recovery_ckpt")
+    tree, ms, cpu = _cpu_ms(
+        lambda: CK.load(os.path.join(ckpt, "step_00000002")))
+    out = {"digests": _cell_digests(tdat, tree), "ms": ms,
+           "host_cpu_ms": cpu, "step": tree["step"]}
+    for k in MH_RECOVERY_STATE:
+        tree[k].close()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def multihost_recovery_row(res, ref, single) -> dict:
+    """Phase ``multihost_recovery``'s readings a process."""
+    rec = [r["recovery"] for r in res]
+    return {
+        "shape": f"transformer_task {TRAINER_CFG} f32 "
+                 f"({trainer_params()} parameters), adam, {MH_PROCS} "
+                 "processes of one rank on one card, chunked checkpoints "
+                 "every 2 steps into one shared directory, rank 3 lost at "
+                 "the top of step 3 (the plan on process 3 only)",
+        "bit_equal_one_process": True,
+        "losses": rec[0]["losses"],
+        "launches_saving_step": [x["launches"][1] for x in rec],
+        "save_ms": [[s["ms"] for s in x["saves"]] for x in rec],
+        "save_host_cpu_ms": [[s["host_cpu_ms"] for s in x["saves"]]
+                             for x in rec],
+        "save_bytes": [[s["bytes"] for s in x["saves"]] for x in rec],
+        "save_gb_per_s": [[s["gb_per_s"] for s in x["saves"]] for x in rec],
+        "restore_ms": [x["restores"][0]["ms"] for x in rec],
+        "restore_host_cpu_ms": [x["restores"][0]["host_cpu_ms"]
+                                for x in rec],
+        "shrink_ms": [x["shrink"]["ms"] for x in rec],
+        "shrink_host_cpu_ms": [x["shrink"]["host_cpu_ms"] for x in rec],
+        "shrink_k10": [x["shrink"]["all_gather"] for x in rec],
+        # the recovery call: the restore, the shrink and the first step
+        # on ranks 0-2; then the second step on ranks 0-2
+        "recovery_call_ms": [x["step_ms"][MH_RECOVERY_LOSS_STEP]
+                             - x["digest_ms"][MH_RECOVERY_LOSS_STEP]
+                             for x in rec],
+        # the attempts: steps 0-2, the lost one, its retry (the first step
+        # on ranks 0-2) and step 3 on ranks 0-2 with its save
+        "attempt_ms": [[a[0] for a in x["attempts"]] for x in rec],
+        "attempt_host_cpu_ms": [[a[1] for a in x["attempts"]] for x in rec],
+        "first_survivor_step_ms": [x["attempts"][4][0] for x in rec],
+        "first_survivor_step_host_cpu_ms": [x["attempts"][4][1]
+                                            for x in rec],
+        "saving_survivor_step_ms": [x["attempts"][5][0] - x["digest_ms"][-1]
+                                    for x in rec],
+        "digest_ms": [x["digest_ms"] for x in rec],
+        "survivor_launches": [x["launches"][-1] for x in rec],
+        "step_ms": [x["step_ms"] for x in rec],
+        "corrupt_restore_ms": [x["restores"][1]["ms"] for x in rec],
+        "single_process_restore_ms": single["ms"],
+        "single_process_restore_host_cpu_ms": single["host_cpu_ms"],
+        "one_process_saves": {k: ref[k] for k in ("one_process_npz",
+                                                  "one_process_chunks")},
+        "calls_conforming": [x["calls"] for x in rec],
+        "peak_gib": [x["peak_gib"] for x in rec],
+        "straggler": {"losses": rec[0]["straggler"]["losses"],
+                      "stragglers": rec[0]["straggler"]["stragglers"],
+                      "ranks": rec[0]["straggler"]["ranks"],
+                      "s": [x["straggler"]["s"] for x in rec]}}
 
 
 # ---------------------------------------------------------------------------
@@ -6636,6 +7076,9 @@ def multihost_child(port: int, proc: int, out_dir: str) -> int:
     torch.cuda.empty_cache()
     # 3e. the data-parallel Trainer, against one process on 4 ranks
     res["trainer"] = multihost_trainer(tdat, MH, kbuild, proc, out_dir)
+    # 3e'. the Trainer's recovery on the chunked store, against one
+    # process on 4 ranks with the same plan
+    res["recovery"] = multihost_recovery(tdat, MH, kbuild, proc, out_dir)
     # 3f. the GSPMD tp/dp step, against one process on 4 ranks, and each
     # call's recorded events against the protocol model's schedules
     res["tp_dp"] = multihost_tp_dp(tdat, MH, kbuild)
@@ -6778,6 +7221,10 @@ def multihost_phase(tdat) -> dict:
     print(f"multihost trainer reference: {time.perf_counter() - t_ref:.1f} "
           f"s")
     t_ref = time.perf_counter()
+    recovery_ref = recovery_reference(tdat)
+    print(f"multihost recovery reference: "
+          f"{time.perf_counter() - t_ref:.1f} s")
+    t_ref = time.perf_counter()
     tdat.init(nranks=MH_PROCS)
     tp_ref = multihost_tp_dp_run(tdat)
     torch.cuda.empty_cache()
@@ -6881,6 +7328,8 @@ def multihost_phase(tdat) -> dict:
     _check_legs(res, legs_ref)
     _check_train(res, train_ref)
     _check_trainer(res, trainer_ref)
+    single = recovery_single_restore(tdat, out_dir)
+    _check_recovery(res, recovery_ref, single)
     _check_tp_dp_and_protocol(res, tp_ref)
     if not all(r["exporter_armed"] and r["exporter_advertised"]
                for r in res) or len(snap["hosts"]) != MH_PROCS:
@@ -6951,6 +7400,7 @@ def multihost_phase(tdat) -> dict:
         "legs": multihost_legs_row(res, legs_ref),
         "train": multihost_train_row(res, train_ref),
         "trainer": multihost_trainer_row(res, trainer_ref),
+        "recovery": multihost_recovery_row(res, recovery_ref, single),
         "tp_dp": {"bit_equal_one_process": True,
                   "ms": [r["tp_dp"]["ms"] for r in res],
                   "launches": [r["tp_dp"]["launches"] for r in res],
@@ -6993,6 +7443,14 @@ def multihost_phase(tdat) -> dict:
             # each process's launches in the tp/dp leg's two steps
             "tp_dp_launches": {k: [r["tp_dp"]["launches"][k] for r in res]
                                for k in TP_DP_KERNELS},
+            # each process's launches in the recovery phase: each step
+            # (the recovery call's after its shrink) and the shrink's K10
+            "recovery_launches": {
+                k: {"steps": [[x[k] for x in r["recovery"]["launches"]]
+                              for r in res],
+                    "shrink": [r["recovery"]["shrink"][k] for r in res]
+                    if k == "all_gather" else None}
+                for k in ("all_gather", "reduce_scatter")},
             "region_launches": [
                 r["launches"] + sum(r["ops"][k]["region"] for k in (
                     "gemm_launches", "relayout_launches", "djit_launches"))
@@ -8309,6 +8767,12 @@ def main() -> int:
             # the Trainer across the processes: a process's launches a
             # step (readings in the multihost row's "trainer")
             kern["multihost_trainer_launches"] = mh["trainer_launches"][name]
+        if name in mh["recovery_launches"]:
+            # the Trainer's recovery across the processes: a process's
+            # launches each step and in the shrink (readings in the
+            # multihost row's "recovery")
+            kern["multihost_recovery_launches"] = \
+                mh["recovery_launches"][name]
         if name in adv["apply_launches"]:
             # the advise phase: launches during apply's probes (K1 in the
             # resweep, K14 in the dispatch tune)

@@ -26,7 +26,11 @@ schedule:
   stream sync of every launch that writes it;
 - **(e) lifetime**: no process frees or rewrites a buffer while a peer
   may still have it mapped or a peer's launch may still read it, and no
-  launch or mapping touches a freed buffer.
+  launch or mapping touches a freed buffer;
+- **(f) marker**: a checkpoint's marker is written only after every
+  process's cell files of its step are on disk, and a process restores
+  only a marked step;
+- **(g) restore**: every process restores the same step.
 
 Semantics.  A launch completes at some point before its process's next
 stream sync; the checker completes it at that sync (or at the program's
@@ -68,7 +72,8 @@ MUTANT_P = 4
 
 # violation kind -> the invariant it breaks
 INVARIANTS = {"mapping": "a", "slot": "b", "barrier": "c",
-              "publication": "d", "lifetime": "e"}
+              "publication": "d", "lifetime": "e", "marker": "f",
+              "restore": "g"}
 
 
 @dataclasses.dataclass
@@ -119,6 +124,15 @@ def _fmt(q: int, ins) -> str:
         return f"process {q}: barrier {ins.name}"
     if isinstance(ins, _rs.Free):
         return f"process {q}: free {ins.buf}"
+    if isinstance(ins, _rs.Write):
+        return f"process {q}: write p{q}.{ins.buf}[{ins.step}]"
+    if isinstance(ins, _rs.Mark):
+        return f"process {q}: mark step {ins.step}"
+    if isinstance(ins, _rs.Verify):
+        return (f"process {q}: verify step {ins.step} "
+                f"({'ok' if ins.ok else 'corrupt'})")
+    if isinstance(ins, _rs.Restore):
+        return f"process {q}: restore the newest good of {list(ins.steps)}"
     return f"process {q}: {ins}"
 
 
@@ -171,6 +185,15 @@ class _Model:
             out |= {("m", o, b) for o, b in maps}
         elif isinstance(ins, _rs.Free):
             out.add(("f", q, ins.buf))
+        elif isinstance(ins, _rs.Write):
+            out.add(("w", (q, ins.buf, ins.step)))
+        elif isinstance(ins, _rs.Mark):
+            out |= {("r", (j, ins.buf, ins.step)) for j in range(self.p)}
+            out.add(("w", (0, "marker", ins.step)))
+        elif isinstance(ins, _rs.Verify):
+            out.add(("r", (q, "cells", ins.step)))
+        elif isinstance(ins, _rs.Restore):
+            out |= {("r", (0, "marker", st)) for st in ins.steps}
         return out
 
     def lookahead(self, q: int, pc: int, pend, maps) -> set:
@@ -208,7 +231,8 @@ def _conflict(a: set, b: set) -> bool:
 
 
 class _State:
-    __slots__ = ("pcs", "pend", "tok", "freed", "maps")
+    __slots__ = ("pcs", "pend", "tok", "freed", "maps", "seen", "bad",
+                 "restored")
 
     def __init__(self, p):
         self.pcs = [0] * p
@@ -216,16 +240,24 @@ class _State:
         self.tok: dict = {}
         self.freed: frozenset = frozenset()
         self.maps = [frozenset()] * p
+        # the steps each process verified, the steps it knows are bad, the
+        # step it restored
+        self.seen = [frozenset()] * p
+        self.bad = [frozenset()] * p
+        self.restored = [None] * p
 
     def copy(self):
         s = _State.__new__(_State)
         s.pcs, s.pend, s.tok = list(self.pcs), list(self.pend), dict(self.tok)
         s.freed, s.maps = self.freed, list(self.maps)
+        s.seen, s.bad = list(self.seen), list(self.bad)
+        s.restored = list(self.restored)
         return s
 
     def key(self):
         return (tuple(self.pcs), tuple(self.pend),
-                frozenset(self.tok.items()), self.freed, tuple(self.maps))
+                frozenset(self.tok.items()), self.freed, tuple(self.maps),
+                tuple(self.seen), tuple(self.bad), tuple(self.restored))
 
 
 def _explore(model: _Model, max_states: int, por: bool) -> int:
@@ -349,6 +381,30 @@ def _explore(model: _Model, max_states: int, por: bool) -> int:
                                          f"launch {l.kernel} may still "
                                          "read it")
             s.freed = s.freed | {(q, ins.buf)}
+        elif isinstance(ins, _rs.Write):
+            s.tok[(q, ins.buf, ins.step)] = (ins.buf, q, ins.step)
+        elif isinstance(ins, _rs.Mark):
+            for j in range(p):
+                if s.tok.get((j, ins.buf, ins.step)) != (ins.buf, j,
+                                                          ins.step):
+                    raise _Violation("marker", f"process {q} marks step "
+                                     f"{ins.step} before process {j}'s "
+                                     "cell files of it are on disk")
+            s.tok[(0, "marker", ins.step)] = ("marker", ins.step)
+        elif isinstance(ins, _rs.Verify):
+            s.seen[q] = s.seen[q] | {ins.step}
+            if not ins.ok:
+                s.bad[q] = s.bad[q] | {ins.step}
+        elif isinstance(ins, _rs.Restore):
+            good = [st for st in ins.steps
+                    if st in s.seen[q] and st not in s.bad[q]]
+            if not good:
+                raise _Violation("restore", f"process {q} has no step "
+                                 "it verified good to restore")
+            if s.tok.get((0, "marker", good[0])) != ("marker", good[0]):
+                raise _Violation("marker", f"process {q} restores step "
+                                 f"{good[0]}, which no marker names")
+            s.restored[q] = good[0]
         s.pcs[q] += 1
         arrive(s, q)
 
@@ -379,6 +435,12 @@ def _explore(model: _Model, max_states: int, por: bool) -> int:
         if qs is None:
             live = [q for q in range(p) if s.pcs[q] < len(progs[q])]
             if not live:
+                got = {r for r in s.restored if r is not None}
+                if len(got) > 1:
+                    raise _Violation("restore", "the processes restore "
+                                     "different steps: " + ", ".join(
+                                         f"process {q} step {r}" for q, r in
+                                         enumerate(s.restored)))
                 return
             keys = {model.keys[q][s.pcs[q]] for q in range(p)
                     if s.pcs[q] < len(progs[q])}
@@ -387,6 +449,12 @@ def _explore(model: _Model, max_states: int, por: bool) -> int:
                 path.append(f"all processes pass {key[0].lower()} "
                             f"{key[1]} #{key[2]}")
                 t = s.copy()
+                ins = progs[0][s.pcs[0]]
+                if isinstance(ins, _rs.Publish) and ins.verdicts:
+                    # the verdict exchange: every process learns every
+                    # bad step
+                    everyone = frozenset().union(*s.bad)
+                    t.bad = [everyone] * p
                 for q in range(p):
                     t.pcs[q] += 1
                 try:
@@ -473,6 +541,8 @@ MUTATIONS = {
     "short-process": "c",              # one process runs p - 1 steps
     "publish-before-sync": "d",
     "free-before-closing-barrier": "e",
+    "mark-before-exchange": "f",       # the marker before the CRC exchange
+    "restore-on-own-verdict": "g",     # no verdict exchange
 }
 
 
@@ -484,7 +554,7 @@ def _mutate_prog(prog: tuple, q: int, mutation: str):
     prog = list(prog)
     if mutation == "drop-step-barrier":
         i = _first(prog, lambda x: isinstance(x, _rs.Barrier)
-                   and not x.closing)
+                   and not x.closing and x.name.endswith("_step"))
         if i is None:
             return None
         del prog[i]
@@ -535,6 +605,29 @@ def _mutate_prog(prog: tuple, q: int, mutation: str):
                     for x in prog[:i]):
             return None
         del prog[i - 1]
+    elif mutation == "mark-before-exchange":
+        # process 0 marks before the exchange that follows every
+        # process's cell writes (the other processes' programs as they are)
+        if not any(isinstance(x, _rs.Write) and not x.ctx for x in prog):
+            return None
+        if q == 0:
+            m = _first(prog, lambda x: isinstance(x, _rs.Mark) and not x.ctx)
+            x = _first(prog, lambda x: isinstance(x, _rs.Publish))
+            if m is None or x is None or x > m:
+                return None
+            prog.insert(x, prog.pop(m))
+    elif mutation == "restore-on-own-verdict":
+        # where a step is corrupt: the programs that meet the quarantine
+        if _first(prog, lambda x: isinstance(x, _rs.Barrier)
+                  and x.name == "checkpoint_quarantine") is None:
+            return None
+        hit = False
+        for i, ins in enumerate(prog):
+            if isinstance(ins, _rs.Publish) and ins.verdicts:
+                prog[i] = dataclasses.replace(ins, verdicts=False)
+                hit = True
+        if not hit:
+            return None
     elif mutation == "free-before-closing-barrier":
         f = _first(prog, lambda x: isinstance(x, _rs.Free))
         b = _first(prog, lambda x: isinstance(x, _rs.Barrier) and x.closing)

@@ -9,7 +9,6 @@ JAX package keeps a separate one, and the two never mix.
 
 from __future__ import annotations
 
-import itertools
 import threading
 import weakref
 
@@ -19,7 +18,7 @@ from .telemetry import flight as _flight
 __all__ = ["next_did", "d_closeall", "close", "registry", "live_ids",
            "live_arrays", "procs", "current_rank", "allowscalar"]
 
-_id_counter = itertools.count(1)
+_id_next = 1
 _id_lock = threading.Lock()
 
 # id -> weakref.ref(DArray)
@@ -29,8 +28,26 @@ _registry_lock = threading.RLock()
 
 def next_did() -> tuple[int, int]:
     """Fresh DArray id ``(controller_pid, seq)``; the controller is pid 0."""
+    global _id_next
     with _id_lock:
-        return (0, next(_id_counter))
+        _id_next += 1
+        return (0, _id_next - 1)
+
+
+def did_mark() -> int:
+    """The ``seq`` the next id takes."""
+    with _id_lock:
+        return _id_next
+
+
+def did_advance(seq: int) -> None:
+    """Let the next id's ``seq`` be at least ``seq``: the processes of a
+    job that made different numbers of arrays (one failed a restore the
+    others finished) meet on ``max`` of their marks, so the arrays they
+    make next share their ids again."""
+    global _id_next
+    with _id_lock:
+        _id_next = max(_id_next, int(seq))
 
 
 def register(d) -> None:

@@ -22,7 +22,18 @@ events:
 - ``Barrier``: the store barrier ``multihost.sync_hosts(name)``, matched
   across processes by its name and the count of that name so far, as the
   store keys it; ``closing`` marks a call's last barrier;
-- ``Free``: the buffer freed or rewritten by the caller after the call.
+- ``Free``: the buffer freed or rewritten by the caller after the call;
+- ``Write``: a checkpoint file of the process written and closed (a
+  region ``(process, buffer, step)`` of the shared directory);
+- ``Mark``: process 0 writes a step's metadata, the publish marker, which
+  names every process's cell files of that step;
+- ``Verify``: the process reads its own cell files of a step and checks
+  their CRCs (``ok`` False: one of them is corrupt);
+- ``Restore``: the process loads the newest step it verified that no
+  verdict it knows of holds bad.
+
+A ``Publish`` with ``verdicts`` is an exchange of the processes' verify
+verdicts: passing it, every process knows every bad step.
 
 Instructions marked ``ctx`` are the context of a call (the launch that
 wrote its input before it, the frees after it), not events of the call
@@ -46,7 +57,21 @@ The protocols (``SCHEDULES``):
   each step but the last;
 - ``tp_allreduce``: the tp/dp step's all-reduce (``models.tp_dp.
   allreduce``), a K12 call whose output a K10 call then publishes; the
-  step adds no other ordering.
+  step adds no other ordering;
+- ``chunked_publish``: a chunked checkpoint's save in a job
+  (``utils.checkpoint._write_chunks``): each process writes its cell
+  files, one exchange of their CRCs, process 0 writes the marker, a
+  closing exchange;
+- ``job_restore``: a restore in a job (``CheckpointManager.restore``
+  and ``load``): the agreement on the steps every process lists, each
+  process verifying its own cells of the newest, the verdicts exchanged,
+  and the next step after a bad verdict (``job_restore`` has a corrupt
+  cell of the newest step on the last process, ``job_restore_clean``
+  none);
+- ``job_shrink``: the Trainer's device-loss shrink in a job
+  (``elastic.shrink``): the exchange of the down sets, then the region
+  copy onto the survivors, the last process (whose rank was lost) holding
+  no target and taking part in the publication and barriers only.
 """
 
 from __future__ import annotations
@@ -57,7 +82,7 @@ from typing import Callable
 __all__ = ["Launch", "Sync", "Publish", "Map", "Unmap", "Barrier", "Free",
            "Schedule", "SCHEDULES", "build", "events", "call_events",
            "CALL_SCHEDULES", "conform", "EVENT_KINDS", "record", "set_hook",
-           "recording"]
+           "recording", "Write", "Mark", "Verify", "Restore"]
 
 @dataclasses.dataclass(frozen=True)
 class Launch:
@@ -80,6 +105,7 @@ class Publish:
     tag: str
     bufs: tuple = ()
     ctx: bool = False
+    verdicts: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +131,39 @@ class Barrier:
 class Free:
     buf: str
     ctx: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Write:
+    """A file of the process, ``(process, buf, step)``, written and
+    closed."""
+    buf: str
+    step: int
+    ctx: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Mark:
+    """Process 0's marker of ``step``: it names every process's ``buf``
+    files of that step."""
+    buf: str
+    step: int
+    ctx: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Verify:
+    step: int
+    ok: bool = True
+    ctx: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Restore:
+    """Load the newest of ``steps`` that the process verified and knows of
+    no bad verdict for."""
+    steps: tuple
+    ctx: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +270,64 @@ def ring_schedule(name: str, p: int, to: int, tag: str,
     return Schedule(name, p, tuple(progs))
 
 
+def chunked_publish_schedule(p: int) -> Schedule:
+    """A chunked save in a job: every process writes its cells of step 1,
+    the CRC exchange, process 0's marker, the closing exchange (modeled
+    as the closing barrier)."""
+    progs = []
+    for me in range(p):
+        prog: list = [Write("cells", 1), Publish("checkpoint")]
+        if me == 0:
+            prog.append(Mark("cells", 1))
+        prog.append(Barrier("checkpoint", closing=True))
+        progs.append(tuple(prog))
+    return Schedule("chunked_publish", p, tuple(progs))
+
+
+def job_restore_schedule(p: int, corrupt: bool = True) -> Schedule:
+    """A restore in a job over steps 0 and 1, both published (the
+    context): the step agreement, each process verifying its own cells of
+    step 1 (the last process's corrupt when ``corrupt``), the verdict
+    exchange, then (after a bad verdict, which process 0 quarantines
+    behind a barrier) the same for step 0, the load and the closing
+    barrier."""
+    progs = []
+    for me in range(p):
+        prog: list = [Write("cells", 0, ctx=True), Write("cells", 1, ctx=True),
+                      Barrier("saved", ctx=True)]
+        if me == 0:
+            prog += [Mark("cells", 0, ctx=True), Mark("cells", 1, ctx=True)]
+        prog += [Barrier("published", ctx=True), Publish("checkpoint_restore"),
+                 Verify(1, ok=not (corrupt and me == p - 1)),
+                 Publish("checkpoint_verdict", verdicts=True)]
+        if corrupt:
+            prog += [Barrier("checkpoint_quarantine"), Verify(0),
+                     Publish("checkpoint_verdict", verdicts=True)]
+        prog += [Restore((1, 0)), Barrier("checkpoint_restore", closing=True)]
+        progs.append(tuple(prog))
+    return Schedule("job_restore" if corrupt else "job_restore_clean", p,
+                    tuple(progs))
+
+
+def job_shrink_schedule(p: int) -> Schedule:
+    """The device-loss shrink in a job: the down-set exchange, then one
+    region copy of the state onto the survivors (every process's cells,
+    the lost rank's included, are read; the last process holds no target
+    cell: it publishes its cells and passes the barrier only)."""
+    progs = []
+    for me in range(p):
+        prog: list = [
+            Launch("produce", (), (((me, "src", 0), ("src", me)),), ctx=True),
+            Publish("elastic_shrink")]
+        if me < p - 1:
+            prog += _peer_call(me, p, "region", "src", "dst", "all_gather")
+        else:
+            prog += [Sync(), Publish("region", ("src",)), Sync(), Unmap(),
+                     Barrier("region", closing=True)]
+        progs.append(tuple(prog + [Free("src")]))
+    return Schedule("job_shrink", p, tuple(progs))
+
+
 SCHEDULES: dict[str, Callable[[int], Schedule]] = {
     "region_copy": region_copy_schedule,
     "reduce_scatter": reduce_scatter_schedule,
@@ -223,6 +340,10 @@ SCHEDULES: dict[str, Callable[[int], Schedule]] = {
     "ring_attention": lambda p: ring_schedule(
         "ring_attention", p, 1, "ring_attention", out=True),
     "tp_allreduce": tp_allreduce_schedule,
+    "chunked_publish": chunked_publish_schedule,
+    "job_restore": job_restore_schedule,
+    "job_restore_clean": lambda p: job_restore_schedule(p, corrupt=False),
+    "job_shrink": job_shrink_schedule,
 }
 
 
@@ -235,7 +356,8 @@ def build(name: str, p: int) -> Schedule:
 # the events the code reports, and the hook
 # ---------------------------------------------------------------------------
 
-EVENT_KINDS = ("sync", "publish", "map", "launch", "unmap", "barrier")
+EVENT_KINDS = ("sync", "publish", "map", "launch", "unmap", "barrier",
+               "write", "mark", "verify", "restore")
 
 
 def _event(ins) -> str | None:
@@ -253,21 +375,24 @@ def _event(ins) -> str | None:
         return "unmap"
     if isinstance(ins, Barrier):
         return f"barrier:{ins.name}"
+    if isinstance(ins, (Write, Mark, Verify, Restore)):
+        return type(ins).__name__.lower()
     return None
 
 
 def call_events(seq, idle: bool = False) -> list[str]:
     """An event sequence in the form the checks compare: consecutive maps
     as one ``map`` (the code maps an allocation once however many chunks
-    it holds) and consecutive launches as one (a copy call of many pieces
-    may take several launches); with ``idle`` without the maps, launches
-    and stream syncs (a process that holds no rank of a call publishes
-    and passes the barriers only)."""
+    it holds), consecutive launches as one (a copy call of many pieces
+    may take several launches) and consecutive file writes as one; with
+    ``idle`` without the maps, launches, writes and stream syncs (a
+    process that holds no rank of a call publishes and passes the
+    barriers only)."""
     out: list[str] = []
     for e in seq:
-        if idle and e in ("map", "launch", "sync"):
+        if idle and e in _BUSY:
             continue
-        if e in ("map", "launch") and out and out[-1] == e:
+        if e in ("map", "launch", "write") and out and out[-1] == e:
             continue
         out.append(e)
     return out
@@ -280,20 +405,28 @@ def events(sched: Schedule, proc: int, idle: bool = False) -> list[str]:
                         if e is not None], idle)
 
 
+# what a process that holds no rank of a call does not do
+_BUSY = ("map", "launch", "sync", "write")
+
 # the protocol of a call, by its publication's tag
 CALL_SCHEDULES = {"region": "region_copy",
                   "reduce_scatter": "reduce_scatter",
                   "ring_gemm": "ring_allgather_matmul",
-                  "ring_attention": "ring_attention"}
+                  "ring_attention": "ring_attention",
+                  "checkpoint": "chunked_publish",
+                  "checkpoint_restore": "job_restore_clean"}
+# a call that may also follow another schedule: a restore that met a
+# corrupt step and took the one before it
+CALL_ALTERNATIVES = {"checkpoint_restore": ("job_restore",)}
 
 
-def conform(recorded: list[str], p: int) -> list[str]:
-    """The mismatches between a process's recorded events (``recording``)
-    and the schedules: the sequence cut into calls at their closing
-    barriers, each call held against its schedule's program at ``p``
-    processes (by its publication's tag), in full, or in the idle form
-    where the call launched and mapped nothing.  Events outside any call
-    (other barriers) are skipped."""
+def conform(recorded: list[str], p: int, proc: int = 0) -> list[str]:
+    """The mismatches between process ``proc``'s recorded events
+    (``recording``) and the schedules: the sequence cut into calls at
+    their closing barriers, each call held against its schedule's program
+    of ``proc`` at ``p`` processes (by its publication's tag), in full,
+    or in the idle form where the call launched, mapped and wrote
+    nothing.  Events outside any call (other barriers) are skipped."""
     bad: list[str] = []
     call: list[str] = []
     for e in recorded:
@@ -307,16 +440,18 @@ def conform(recorded: list[str], p: int) -> list[str]:
             call = []
             continue
         start = max(i for i, x in enumerate(call) if x == f"publish:{name}")
-        # the call's entry syncs come just before its publication
-        while start and call[start - 1] == "sync":
+        # the call's entry syncs (and a save's file writes) come just
+        # before its publication
+        while start and call[start - 1] in ("sync", "write"):
             start -= 1
         seg = call[start:]
         sched = build(CALL_SCHEDULES[name], p)
-        # a call with no launch and no mapping is a process's idle part
-        idle = not any(x in ("launch", "map") for x in seg)
-        if call_events(seg, idle) != events(sched, 0, idle):
+        # a call with no launch, mapping or write is a process's idle part
+        idle = not any(x in ("launch", "map", "write") for x in seg)
+        if all(call_events(seg, idle) != events(build(alt, p), proc, idle)
+               for alt in (sched.name,) + CALL_ALTERNATIVES.get(name, ())):
             bad.append(f"{name} call {call_events(seg)} != schedule "
-                       f"{sched.name} {events(sched, 0, idle)}")
+                       f"{sched.name} {events(sched, proc, idle)}")
         call = []
     return bad
 

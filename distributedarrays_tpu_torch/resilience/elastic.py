@@ -26,7 +26,17 @@ and a re-layout engine that moves every registered DArray
   ``gather_put``), the whole array is gathered onto the survivors by
   ``reshard.allgather`` (``gather_put``, ``all_gather`` or ``chain``) and
   each keeps its window.  On the card both run on K10/K11's copy kernel.
-- ``grow()`` moves back only the arrays ``shrink()`` displaced.
+  In a job of several controller processes ``shrink()`` is a call of
+  every process: one exchange gives every process the union of the
+  processes' down sets and the arrays they all hold, and every move is the
+  reshard's region copy (each new cell fetches its own region, K10's
+  ``cross_process_region`` route on the card); a process left with no
+  rank takes part with placeholders.  Every process keeps that union
+  down until the next agreement (``shrink``/``grow``), so ``live_ranks()``
+  gives the same set on every process between them, also where only one
+  process saw the loss or only one sees the revival.
+- ``grow()`` moves back only the arrays ``shrink()`` displaced (in a job,
+  on the same agreed rank set).
 
 A simulated-down rank still answers reads, so ``shrink`` keeps the data.
 The multi-process half is ``parallel.multihost``'s: each probe publishes
@@ -49,6 +59,7 @@ import torch
 from .. import core
 from .. import layout as L
 from .. import telemetry as _tm
+from ..ops import ring_schedules as _sched
 from . import faults
 
 __all__ = ["ElasticDeviceSet", "manager", "relayout"]
@@ -57,9 +68,12 @@ __all__ = ["ElasticDeviceSet", "manager", "relayout"]
 def _moved_parts(d, pids: np.ndarray, cuts) -> np.ndarray:
     """``d``'s cells on the layout ``(pids, cuts)``, tensors ``d`` does not
     share: the planned reshard when the layout divides every dim, else the
-    gather onto its ranks and each rank's window."""
+    gather onto its ranks and each rank's window.  In a job of several
+    processes every move is the reshard's region copy (each target cell
+    fetches its own region, never the whole array)."""
     from ..parallel import reshard as _rs
-    if all((c[-1] % (len(c) - 1)) == 0 for c in cuts):
+    if L.process_count() > 1 or \
+            all((c[-1] % (len(c) - 1)) == 0 for c in cuts):
         return _rs.relayout_parts(d, pids, cuts, op="elastic")
     use = [int(p) for p in pids.flat]
     whole = dict(zip(use, _rs.allgather(d, use, op="elastic")))
@@ -115,6 +129,22 @@ def _arrays() -> list:
     return [d for d in core.live_arrays() if isinstance(d, DArray)]
 
 
+def _agreed(down: set, arrays: list, tag: str) -> tuple[set, list]:
+    """In a job of several controller processes: the union of every
+    process's own down set and the arrays that every process holds (by id,
+    in id order), in one exchange, so the shrink and the grow are the same
+    collective moves on every process.  One process: as given."""
+    from ..parallel import multihost as _mh
+    if not _mh.in_job():
+        return down, arrays
+    _sched.record("publish", tag)
+    every = _mh._all_gather_objects((sorted(down),
+                                     [tuple(d.id) for d in arrays]))
+    ids = set(every[0][1]).intersection(*(set(e[1]) for e in every[1:]))
+    return (set().union(*(set(e[0]) for e in every)),
+            [d for d in arrays if tuple(d.id) in ids])
+
+
 class ElasticDeviceSet:
     """Health ledger over the device ranks plus the re-layout engine."""
 
@@ -123,6 +153,10 @@ class ElasticDeviceSet:
         self._manual_down: dict[int, float] = {}    # rank -> since (mono)
         self._sim_down: set[int] = set()
         self._hw_down: set[int] = set()             # REAL-signal probe
+        # in a job: the union of every process's down set at the last
+        # shrink/grow, held until the next one, so every process reads
+        # one live set between them
+        self._peer_down: set[int] = set()
         # array ids shrink() re-laid-out — the ONLY ids grow() touches:
         # an array the failure never displaced keeps whatever layout its
         # owner chose (growing everything would destroy deliberate
@@ -146,14 +180,30 @@ class ElasticDeviceSet:
     def all_ranks(self) -> list[int]:
         return self._expected_ranks()
 
-    def down_ranks(self) -> set[int]:
+    def _own_down(self) -> set[int]:
         with self._lock:
             return (set(self._manual_down) | set(self._sim_down)
                     | set(self._hw_down))
 
+    def down_ranks(self) -> set[int]:
+        with self._lock:
+            return self._own_down() | set(self._peer_down)
+
     def live_ranks(self) -> list[int]:
         down = self.down_ranks()
         return [r for r in self._expected_ranks() if r not in down]
+
+    def _agree(self, tag: str) -> tuple[set, list]:
+        """The down set and the arrays of a shrink or grow (``_agreed``
+        over this process's own marks); in a job the union is held as
+        :attr:`_peer_down` until the next agreement."""
+        down, arrays = _agreed(self._own_down(), _arrays(), tag)
+        from ..parallel import multihost as _mh
+        if _mh.in_job():
+            with self._lock:
+                self._peer_down = set(down)
+            self._update_gauge()
+        return down, arrays
 
     def mark_down(self, rank: int, reason: str = "manual") -> None:
         with self._lock:
@@ -302,13 +352,13 @@ class ElasticDeviceSet:
             from . import domains as _dm
             for r in _dm.topology().domains()[int(domain)]:
                 self.mark_down(r, reason=f"domain:{int(domain)}")
-        down = self.down_ranks()
-        live = self.live_ranks()
+        down, arrays = self._agree("elastic_shrink")
+        live = [r for r in self._expected_ranks() if r not in down]
         if not live:
             raise RuntimeError("elastic shrink: no live devices remain")
         moved, failed = 0, []
         if down:
-            for d in _arrays():
+            for d in arrays:
                 if not ({int(p) for p in d.pids.flat} & down):
                     continue
                 try:
@@ -340,16 +390,17 @@ class ElasticDeviceSet:
             from . import domains as _dm
             for r in _dm.topology().domains()[int(domain)]:
                 self.mark_up(r)
-        live = self.live_ranks()
+        down, arrays = self._agree("elastic_grow")
+        live = [r for r in self._expected_ranks() if r not in down]
         # the shrink mark clears only once NO device is down: a grow
         # epoch during a partial revival (or with the device still down)
         # moves the array to the current live set but must keep it
         # marked, or the final revival would never re-grow it
-        fully_recovered = not self.down_ranks()
+        fully_recovered = not down
         with self._lock:
             shrunk = set(self._shrunk)
         moved, failed = 0, []
-        for d in _arrays():
+        for d in arrays:
             if d.id not in shrunk:
                 continue
             try:
@@ -379,6 +430,7 @@ class ElasticDeviceSet:
             self._manual_down.clear()
             self._sim_down.clear()
             self._hw_down.clear()
+            self._peer_down.clear()
             self._shrunk.clear()
             self._partition = None
         self._update_gauge()

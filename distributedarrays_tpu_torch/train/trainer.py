@@ -61,11 +61,22 @@ PyTorch counterpart of ``distributedarrays_tpu/train/trainer.py``
   process's step time and whether any process's step was fresh, so every
   process returns the same loss, bit-equal to one process on the same
   ranks, and takes the straggler gate's branch together (a confirmed dead
-  rank is the union of the processes' probes).  ``flat_params`` and a
-  checkpoint save gather on every process (each writes its own copy).  A
-  recovery that would move a rank's shards to another process (the
-  device-loss shrink, a re-layout onto another rank set) raises
-  ``NotImplementedError`` on every process.
+  rank is the union of the processes' probes, each probe after fresh
+  heartbeats).  The step's rank set is ``live_ranks()``, the same on
+  every process: the recovery's shrink agrees on the union of the
+  processes' down sets, and ``elastic`` holds it until the next shrink or
+  grow.  A failure at the ``train.step`` site that one process sees
+  reaches every process before the step's first collective (one
+  exchange; the others raise :class:`PeerFault` with its message).  The
+  checkpoints are chunked (``store="chunks"``) in the ``ckpt_dir`` that
+  every process shares: a save writes each process's own cells and
+  gathers nothing.  A recovery runs on every process together: the
+  restore of the newest step every process verified (each process reads
+  its own cells), the shrink onto the agreed survivors and ``_relay_state``
+  (``elastic.relayout``'s region copies, K10's ``cross_process_region``
+  route on the card; a process left with no rank takes part in every
+  exchange with placeholders).  A plan at ``grad.sync`` in a job must be
+  armed on every process.  ``flat_params`` gathers on every process.
 """
 
 from __future__ import annotations
@@ -90,12 +101,8 @@ from ..utils import kbuild
 from .optim import Optimizer, adam
 from .tasks import TrainTask
 
-__all__ = ["Trainer", "StragglerDetector", "DeadRankError", "fit_result"]
-
-# where a recovery would move a rank between the processes of a job
-_SHRINK_ITEM = ("the Trainer's shrink across controller processes waits "
-                "(ROADMAP.md queue A, \"The Trainer's cross-process "
-                "shrink\")")
+__all__ = ["Trainer", "StragglerDetector", "DeadRankError", "PeerFault",
+           "fit_result"]
 
 
 class DeadRankError(RuntimeError):
@@ -109,6 +116,27 @@ class DeadRankError(RuntimeError):
             f"straggler probe confirmed rank(s) {self.ranks} device lost "
             f"(step took {dur_s:.3f}s against a {budget_s:.3f}s rolling "
             f"p99 budget)")
+
+
+class PeerFault(RuntimeError):
+    """Another process of the job failed the top of this step (a fault
+    only it saw): every process raises before the step's first
+    collective.  The message carries the peer's error, so
+    ``recovery.classify`` reaches the same verdict on every process."""
+
+
+def _shared_fault(err: BaseException | None) -> None:
+    """The top of a step in a job: one exchange of every process's failure
+    there; this process's own error re-raises, another's raises
+    :class:`PeerFault`, so every process takes the recovery together."""
+    every = multihost._all_gather_objects(
+        None if err is None else f"{type(err).__name__}: {err}")
+    if err is not None:
+        raise err
+    for q, e in enumerate(every):
+        if e is not None:
+            raise PeerFault(f"process {q} failed at the top of the step: "
+                            f"{e}")
 
 
 class StragglerDetector:
@@ -200,9 +228,12 @@ class Trainer:
         if ckpt_dir is not None:
             from ..utils.checkpoint import CheckpointManager, \
                 PeerReplicaStore
+            # in a job the steps are chunked, one directory for every
+            # process; one process keeps JAX's npz format
             self._mgr = CheckpointManager(
                 ckpt_dir, async_save=async_save, max_to_keep=max_to_keep,
-                replicas=PeerReplicaStore() if peer_replicas else None)
+                replicas=PeerReplicaStore() if peer_replicas else None,
+                store="chunks" if multihost.in_job() else "npz")
         self._step = 0
         self._losses: dict[int, float] = {}
         self._state: dict | None = None       # name -> DArray
@@ -234,6 +265,8 @@ class Trainer:
     # -- rank set / state ------------------------------------------------------
 
     def _ranks_now(self) -> list[int]:
+        # in a job every process reads the same set: a loss one process
+        # saw is every process's from the shrink that handled it on
         live = elastic.manager().live_ranks()
         if self._pin_ranks is not None:
             pinned = [r for r in self._pin_ranks if r in live]
@@ -300,7 +333,7 @@ class Trainer:
         self._step = int(tree["step"])
         self._losses = {k: v for k, v in self._losses.items()
                         if k < self._step}
-        if self._mgr is not None:
+        if self._mgr is not None:  # dalint: disable=DAL010 — every process builds the trainer with the same ckpt_dir argument
             self._mgr.discard_from(self._step + 1)
         _tm.count("train.reseats")
         if _tm.enabled():
@@ -313,16 +346,11 @@ class Trainer:
         self._state = None
 
     def _relay_state(self, ranks: list[int]) -> None:
-        """Every state DArray onto the shard cuts of ``ranks``.  In a job
-        of several controller processes a move would carry shards between
-        the processes: that raises ``NotImplementedError``."""
+        """Every state DArray onto the shard cuts of ``ranks`` (in a job a
+        call of every process: each move is the reshard's region copy)."""
         cuts = [self._shard_cuts(len(ranks))]
         for d in self._state.values():
             if [int(x) for x in d.pids.flat] != ranks or d.cuts != cuts:
-                if multihost.in_job():
-                    raise NotImplementedError(
-                        f"trainer: re-laying the state onto ranks {ranks} "
-                        f"in a job of several processes: {_SHRINK_ITEM}")
                 elastic.relayout(d, ranks, cuts)
 
     def _shard(self, name: str, rank: int, slen: int) -> torch.Tensor:
@@ -434,9 +462,19 @@ class Trainer:
                     batch_bytes=sum(int(x.nbytes) for x in host),
                     nslots=self.opt.nslots))
             t0 = time.monotonic()
+            job = multihost.in_job()
             # chaos site: the top of every step (a hang here counts
-            # against the straggler budget: the clock is running)
-            faults.check("train.step", step=n, epoch=epoch)
+            # against the straggler budget: the clock is running); in a
+            # job a failure any process sees is every process's before
+            # the step's first collective
+            try:
+                faults.check("train.step", step=n, epoch=epoch)
+            except Exception as e:  # noqa: BLE001 — shared, then re-raised
+                if not job:
+                    raise
+                _shared_fault(e)
+            if job:
+                _shared_fault(None)
             with _tm.span("train.grad", step=n, kind="compute"):
                 grads, lsums = self._grads(ranks, slen, batches)
                 lsum = {r: float(x) for r, x in zip(ranks, lsums)
@@ -458,7 +496,6 @@ class Trainer:
             # set and shapes) neither feeds nor is judged by the window
             fresh = fresh or len(kbuild._libs) != built0
             self._seen.add(key)
-            job = multihost.in_job()
             if job:
                 # every process must take the gate's branch: one exchange
                 # carries the ranks' loss sums, the slowest process's step
@@ -474,7 +511,7 @@ class Trainer:
                     # cold path: an exceeded budget is exceptional
                     _tm.event("train", "straggler", step=n,
                               dur=round(dur, 6))
-                probe = elastic.manager().probe()
+                probe = _probe()
                 dead = set(probe["down"]) & set(ranks)
                 if job:
                     # each process probes its own census: the union
@@ -514,8 +551,7 @@ class Trainer:
             self._attempt_step, policy=self._step_policy(),
             checkpoints=self._mgr,
             restore_fn=self._adopt if self._mgr is not None else None,
-            devices=_JobDevices(elastic.manager())
-            if multihost.in_job() else None)
+            devices=_JobDevices() if multihost.in_job() else None)
 
     # -- public API ----------------------------------------------------------
 
@@ -568,23 +604,30 @@ class Trainer:
         return False
 
 
-class _JobDevices:
-    """The elastic set as the recovery of a step sees it in a job of
-    several controller processes: the probe as it is; the device-loss
-    shrink, which would carry a lost rank's shards to another process,
-    raises ``NotImplementedError`` on every process (each took the same
-    gate decision), so no process waits in a collective for another."""
+def _probe() -> dict:
+    """One elastic probe.  In a job every process first publishes its
+    heartbeat and meets the others at a barrier (a call of every
+    process), so no process reads a peer's heartbeat from before the
+    failure as stale."""
+    if multihost.in_job():
+        multihost.heartbeat()
+        multihost.sync_hosts("trainer_probe")
+    return elastic.manager().probe()
 
-    def __init__(self, devs):
-        self._devs = devs
+
+class _JobDevices:
+    """The elastic set as a step's recovery sees it in a job of several
+    controller processes, every process taking the recovery together:
+    the probe after fresh heartbeats (``_probe``), and the shrink, which
+    re-lays every registered DArray onto the ranks that every process
+    agrees are live (the union of their down sets) by the reshard's region
+    copies."""
 
     def probe(self) -> dict:
-        return self._devs.probe()
+        return _probe()
 
     def shrink(self, domain: int | None = None) -> dict:
-        raise NotImplementedError(
-            f"trainer: the device-loss shrink in a job of several "
-            f"processes: {_SHRINK_ITEM}")
+        return elastic.manager().shrink(domain)
 
 
 def fit_result(losses: list, from_step: int = 0) -> list:

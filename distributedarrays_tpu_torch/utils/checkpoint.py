@@ -13,7 +13,8 @@ JAX's ``__dartpu__`` tags: ``DArray`` (``key``, ``procs``, ``dist``,
 ``cuts``), ``DData``, ``ndarray`` (``key``, ``jax``), ``npscalar``,
 ``dict`` (a dict with non-string keys, as item pairs) and ``tuple``.  A
 ``torch.Tensor`` leaf is written as ``ndarray`` with ``"jax": true`` and
-restored as a tensor on rank 0's device, so a checkpoint either package
+restored as a tensor on the process's first rank's device (JAX's default
+device), so a checkpoint either package
 writes, the other restores.  A leaf of a type numpy cannot hold (bfloat16,
 float8) is stored as its raw bytes with ``"mldtype"`` (the type's name)
 and its ``shape``, JAX's encoding of ``ml_dtypes`` leaves; the port views
@@ -42,15 +43,37 @@ Fault sites: ``checkpoint.write`` (payload written, marker not yet) and
 ``checkpoint.read`` (a ``corrupt`` spec flips payload bytes through
 ``faults.corrupt_arrays`` before the CRC check).
 
-A DArray that spans the processes of a multi-process job
-(``parallel.multihost``) is assembled through
-``multihost.gather_global``, so every process must call ``save`` (each
-writes its own checkpoint, as JAX's multi-controller ``_encode`` does,
-``checkpoint.py:126-132``), and ``load`` restores it onto its saved
-``procs`` and cuts, each process placing only its own chunks.
+**The chunked store** (``store="chunks"``, the port's counterpart of JAX's
+``store="orbax"`` tier: Orbax is a JAX library, so the port writes a store
+of its own and refuses ``"orbax"`` on save and on load).  The same
+``dartpu_meta.json`` (``"__dartpu_store__": "chunks"``, one CRC32 a file
+under ``integrity``) and one file a payload under ``chunks/``: each cell of
+a DArray's grid is ``chunks/<key>.<j>.bin`` (``j`` the cell's row-major
+index), the raw bytes of that cell's ``localindices`` box, which the
+entry's ``dtype`` and ``shape`` (beside ``procs``, ``dist`` and ``cuts``)
+re-view (bfloat16 included); every other array leaf is ``chunks/<key>.npy``.
 
-Not ported: ``store="orbax"`` raises ``ValueError`` (Orbax is a JAX
-library).
+In a job of several controller processes (``parallel.multihost``) both
+stores are calls of every process.  ``npz`` gathers each DArray whole
+onto every process (``multihost.gather_global``), and each process writes
+its own copy into a directory of its own, as JAX's multi-controller
+``_encode`` does (``checkpoint.py:126-132``).  ``chunks`` writes into one
+directory that every process shares: each process writes the cell files
+of its own ranks straight from their tensors (one device-to-host copy a
+cell, no gather), process 0 writes the other leaves, one exchange
+(``multihost._all_gather_objects``) carries every process's CRCs, and
+process 0 writes the metadata last.  A load reads on each process only
+the files of the cells its ranks own (on the default layout, when the
+rank table is smaller than at save time, the files that hold its new
+cells' regions); the CRC verdicts are exchanged, so a bad file raises
+:class:`CheckpointIntegrityError` on every process.  A ``CheckpointManager``
+built with ``store="chunks"`` keeps its steps in the shared directory:
+process 0 alone makes, renames, rotates, discards and quarantines, each
+behind an exchange or a store barrier, so every process sees the same
+``steps()``, and ``restore()`` loads the newest step that every process
+verified.  In a job its saves run on the caller's thread (the snapshot
+is still taken before ``save`` returns).
+
 """
 
 from __future__ import annotations
@@ -68,9 +91,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import core
 from .. import telemetry as _tm
-from ..darray import DArray, DData, darray_from_cuts, distribute
-from ..layout import device_of, nranks, process_count
+from ..darray import (DArray, DData, darray_from_cuts, distribute,
+                      resolve_layout)
+from ..layout import (device_of, is_local, local_device, nranks,
+                      process_count, process_index)
+from ..ops import ring_schedules as _rs
 from . import native as _native
 
 __all__ = ["save", "load", "CheckpointManager", "CheckpointIntegrityError",
@@ -78,6 +105,7 @@ __all__ = ["save", "load", "CheckpointManager", "CheckpointIntegrityError",
 
 _META = "dartpu_meta.json"
 _ARRS = "arrays.npz"
+_CHUNKS = "chunks"
 
 
 class CheckpointIntegrityError(RuntimeError):
@@ -93,12 +121,37 @@ class CheckpointIntegrityError(RuntimeError):
             f"payload CRC32 mismatch on {self.keys}")
 
 
+_ORBAX_REFUSED = ("store='orbax' is not ported: Orbax is a JAX library. "
+                  "The port's chunked tier is store='chunks' (one file a "
+                  "rank chunk); store='npz' is JAX's npz format")
+STORES = ("npz", "chunks")
+
+
 def _check_store(store: str) -> None:
     if store == "orbax":
-        raise ValueError("store='orbax' is not ported: Orbax is a JAX "
-                         "library; use store='npz'")
-    if store != "npz":
-        raise ValueError(f"unknown store {store!r} (use 'npz')")
+        raise ValueError(_ORBAX_REFUSED)
+    if store not in STORES:
+        raise ValueError(f"unknown store {store!r} (use 'npz' or 'chunks')")
+
+
+def _job() -> bool:
+    """True in a job of several controller processes."""
+    return process_count() > 1
+
+
+def _everyone(obj) -> list:
+    """Every process's ``obj``, in process order (one exchange in a job;
+    ``[obj]`` in one process)."""
+    if not _job():
+        return [obj]
+    from ..parallel import multihost
+    return multihost._all_gather_objects(obj)
+
+
+def _barrier(name: str) -> None:
+    if _job():
+        from ..parallel import multihost
+        multihost.sync_hosts(name)
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -150,12 +203,36 @@ def _viewed(host: np.ndarray, entry: dict) -> torch.Tensor:
     return raw.view(dt).reshape(entry["shape"])
 
 
-def _encode(tree, arrays: dict, copy: bool = False):
+def _snapshot(t: torch.Tensor, copy: bool) -> np.ndarray:
+    """A cell's raw bytes on the host: one device-to-host copy (a host
+    tensor is cloned only with ``copy``)."""
+    host = t.detach().contiguous().cpu()
+    if copy and host.data_ptr() == t.data_ptr():
+        host = host.clone()
+    return host.reshape(-1).view(torch.uint8).numpy()
+
+
+def _encode(tree, arrays: dict, copy: bool = False, cells=None):
     """``tree`` with its array leaves replaced by tagged placeholders, the
     payloads (host numpy) added to ``arrays``.  ``copy=True`` makes every
-    payload independent of the caller's buffers (async saves)."""
+    payload independent of the caller's buffers (async saves).  With
+    ``cells`` (the chunked store) a DArray is not gathered: the raw bytes
+    of this process's cells go into ``cells[key]`` as ``(j, bytes)``
+    pairs."""
     if isinstance(tree, DArray):
-        key = f"a{len(arrays)}"
+        key = f"a{len(arrays) + len(cells or ())}"
+        if cells is not None:
+            # the chunked store: this process's own cells, one host copy
+            # each, and the dtype and shape that re-view their bytes
+            cells[key] = [(j, _snapshot(tree._parts[ci], copy))
+                          for j, ci in enumerate(np.ndindex(*tree.pids.shape))
+                          if is_local(int(tree.pids[ci]))]
+            return {"__dartpu__": "DArray", "key": key,
+                    "procs": [int(p) for p in tree.pids.flat],
+                    "dist": list(tree.pids.shape),
+                    "cuts": [list(c) for c in tree.cuts],
+                    "dtype": str(tree.dtype).removeprefix("torch."),
+                    "shape": list(tree.dims)}
         if process_count() > 1:
             # multi-controller: every process assembles the array through
             # the cross-process gather (SPMD: each is inside this save)
@@ -171,10 +248,11 @@ def _encode(tree, arrays: dict, copy: bool = False):
                 "cuts": [list(c) for c in tree.cuts], **extra}
     if isinstance(tree, DData):
         return {"__dartpu__": "DData",
-                "parts": [_encode(p, arrays, copy) for p in tree.gather()],
+                "parts": [_encode(p, arrays, copy, cells)
+                          for p in tree.gather()],
                 "pids": [int(p) for p in tree.pids]}
     if isinstance(tree, torch.Tensor):
-        key = f"a{len(arrays)}"
+        key = f"a{len(arrays) + len(cells or ())}"
         host = tree.detach().cpu()
         if copy and host.data_ptr() == tree.data_ptr():
             host = host.clone()
@@ -182,7 +260,7 @@ def _encode(tree, arrays: dict, copy: bool = False):
         arrays[key] = host
         return {"__dartpu__": "ndarray", "key": key, "jax": True, **extra}
     if isinstance(tree, np.ndarray):
-        key = f"a{len(arrays)}"
+        key = f"a{len(arrays) + len(cells or ())}"
         host = tree.copy() if copy else tree
         entry = {"__dartpu__": "ndarray", "key": key, "jax": False}
         if host.dtype.kind == "V" and host.dtype.names is None and \
@@ -198,13 +276,14 @@ def _encode(tree, arrays: dict, copy: bool = False):
         if all(isinstance(k, str) for k in tree) and \
                 not any(k in ("__dartpu__", "__dartpu_store__")
                         for k in tree):
-            return {k: _encode(v, arrays, copy) for k, v in tree.items()}
+            return {k: _encode(v, arrays, copy, cells)
+                    for k, v in tree.items()}
         return {"__dartpu__": "dict",
-                "items": [[_encode(k, arrays, copy),
-                           _encode(v, arrays, copy)]
+                "items": [[_encode(k, arrays, copy, cells),
+                           _encode(v, arrays, copy, cells)]
                           for k, v in tree.items()]}
     if isinstance(tree, (list, tuple)):
-        enc = [_encode(v, arrays, copy) for v in tree]
+        enc = [_encode(v, arrays, copy, cells) for v in tree]
         return {"__dartpu__": "tuple", "items": enc} \
             if isinstance(tree, tuple) else enc
     if isinstance(tree, bool) or tree is None or isinstance(tree, str):
@@ -218,11 +297,105 @@ def _encode(tree, arrays: dict, copy: bool = False):
     if isinstance(tree, ShardedParams):
         # the tp/dp layout is written as JAX writes its sharded pytree:
         # whole arrays
-        return _encode(tree.whole(), arrays, copy)
+        return _encode(tree.whole(), arrays, copy, cells)
     raise TypeError(f"cannot checkpoint leaf of type {type(tree)}")
 
 
+def _dtype_named(name: str) -> torch.dtype:
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise TypeError(f"checkpoint leaf of dtype {name!r}: torch has no "
+                        "such dtype to view its bytes as")
+    return dt
+
+
+def _cell_boxes(cuts, grid) -> list:
+    """Each cell's box ``[(lo, hi), ...]``, in row-major order."""
+    return [[(int(c[j]), int(c[j + 1])) for c, j in zip(cuts, ci)]
+            for ci in np.ndindex(*grid)]
+
+
+def _chunked_target(entry: dict):
+    """The layout a chunked DArray entry restores onto: its saved
+    ``(pids, cuts)``, or the default layout (``load`` warns) when its
+    ``procs`` exceed the rank table."""
+    procs = [int(p) for p in entry["procs"]]
+    if any(p >= nranks() for p in procs):
+        _, pids, cuts = resolve_layout(entry["shape"])
+        return pids, cuts
+    grid = tuple(int(x) for x in entry["dist"])
+    n = int(np.prod(grid)) if grid else 1
+    pids = np.asarray(procs[:n], dtype=np.int64).reshape(grid)
+    return pids, [[int(x) for x in c] for c in entry["cuts"]]
+
+
+def _overlaps(entry: dict, box) -> list:
+    """``(j, saved box, overlap)`` for every saved cell of a chunked entry
+    whose box meets ``box``."""
+    grid = tuple(int(x) for x in entry["dist"])
+    out = []
+    for j, have in enumerate(_cell_boxes(entry["cuts"], grid)):
+        ov = [(max(a, c), min(b, d)) for (a, b), (c, d) in zip(have, box)]
+        if all(lo < hi for lo, hi in ov):
+            out.append((j, have, ov))
+    return out
+
+
+def _chunked_plan(entry: dict):
+    """``(pids, cuts, wants)``: the restore layout and, for each of this
+    process's cells on it, its box and the saved cells it reads."""
+    pids, cuts = _chunked_target(entry)
+    same = [int(p) for p in pids.flat] == \
+        [int(p) for p in entry["procs"]][:pids.size] and \
+        cuts == [[int(x) for x in c] for c in entry["cuts"]]
+    wants = {}
+    for j, (ci, box) in enumerate(zip(np.ndindex(*pids.shape),
+                                      _cell_boxes(cuts, pids.shape))):
+        if not is_local(int(pids[ci])):
+            continue
+        wants[ci] = (box, [(j, box, box)] if same else _overlaps(entry, box))
+    return pids, cuts, wants
+
+
+def _restore_cells(entry: dict, arrays: dict) -> DArray:
+    """A chunked DArray from the cell files this process read: each of
+    its own cells viewed from its file (or assembled from the files that
+    hold its region on the default layout), another process's cells
+    placeholders."""
+    key, dt = entry["key"], _dtype_named(entry["dtype"])
+    pids, cuts, wants = _chunked_plan(entry)
+    parts = np.empty(tuple(pids.shape), dtype=object)
+    for ci, box in zip(np.ndindex(*pids.shape), _cell_boxes(cuts, pids.shape)):
+        shape = [hi - lo for lo, hi in box]
+        dev = device_of(int(pids[ci]))
+        if ci not in wants:
+            parts[ci] = torch.empty(shape, dtype=dt, device=dev)
+            continue
+        srcs = wants[ci][1]
+        if len(srcs) == 1 and srcs[0][1] == box:
+            parts[ci] = _bytes_as(arrays[f"{key}.{srcs[0][0]}"], dt,
+                                  shape).to(dev)
+            continue
+        out = torch.empty(shape, dtype=dt)
+        for j, have, ov in srcs:
+            src = _bytes_as(arrays[f"{key}.{j}"], dt,
+                            [b - a for a, b in have])
+            out[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in
+                      zip(ov, box))] = \
+                src[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in
+                          zip(ov, have))]
+        parts[ci] = out.to(dev)
+    return DArray(parts, pids, cuts)
+
+
+def _bytes_as(raw: np.ndarray, dt: torch.dtype, shape) -> torch.Tensor:
+    """A cell file's bytes viewed as a tensor of ``dt`` and ``shape``."""
+    return torch.from_numpy(raw).view(dt).reshape(shape)
+
+
 def _restore_darray(tree, arrays):
+    if "dtype" in tree:                        # the chunked store's entry
+        return _restore_cells(tree, arrays)
     host = arrays[tree["key"]]
     host = _viewed(host, tree) if "mldtype" in tree else \
         torch.from_numpy(host)
@@ -253,8 +426,9 @@ def _decode(tree, arrays):
             host = arrays[tree["key"]]
             if "mldtype" in tree:
                 t = _viewed(host, tree)
-                return t.to(device_of(0)) if tree["jax"] else t
-            return torch.from_numpy(host).to(device_of(0)) \
+                return t.to(local_device()) if tree["jax"] else t
+            # JAX's default device: each process's own first device
+            return torch.from_numpy(host).to(local_device()) \
                 if tree["jax"] else host
         if tag == "DData":
             parts = [_decode(p, arrays) for p in tree["parts"]]
@@ -287,7 +461,8 @@ def _read_faults(path, store: str, arrays: dict) -> dict:
 def save(path: str | os.PathLike, tree: Any, store: str = "npz") -> None:
     """Checkpoint a tree of DArrays, DDatas, tensors, numpy arrays and plain
     Python values into the directory ``path`` (DArrays keep their
-    layout)."""
+    layout).  ``store``: ``"npz"`` (JAX's format) or ``"chunks"`` (one file
+    a rank chunk; in a job one directory that every process shares)."""
     _check_store(store)
     with _tm.span("checkpoint.save", store=store):
         # cold path: checkpoint I/O dominates the event cost
@@ -295,24 +470,46 @@ def save(path: str | os.PathLike, tree: Any, store: str = "npz") -> None:
             _tm.event("checkpoint", "save_start", path=str(path),
                       store=store)
         arrays: dict[str, np.ndarray] = {}
+        cells = {} if store == "chunks" else None
         with _tm.span("checkpoint.save.encode", _journal=False):
-            meta = _encode(tree, arrays)
+            meta = _encode(tree, arrays, cells=cells)
+        nbytes = _payload_bytes(arrays) + _cells_bytes(cells)
         if _tm.enabled():
             from ..telemetry import perf as _perf
-            _tm.annotate(**_perf.transfer_cost(_payload_bytes(arrays)))
+            _tm.annotate(**_perf.transfer_cost(nbytes))
         with _tm.span("checkpoint.save.write", _journal=False):
-            _write_store(Path(path), meta, arrays, store)
+            if cells is None:
+                _write_store(Path(path), meta, arrays, store)
+            else:
+                _write_chunks(Path(path), meta, arrays, cells)
         _tm.count("checkpoint.saves")
         if _tm.enabled():
             _tm.event("checkpoint", "save_end", path=str(path), store=store,
-                      arrays=len(arrays), bytes=_payload_bytes(arrays))
+                      arrays=len(arrays), bytes=nbytes)
         _tm.memory.sample("checkpoint.save")
+
+
+def _cells_bytes(cells) -> int:
+    return int(sum(b.nbytes for got in (cells or {}).values()
+                   for _, b in got))
+
+
+def _read_meta(path: Path):
+    """``(meta_doc, store, tree)`` of a checkpoint directory."""
+    meta_doc = json.loads((path / _META).read_text())
+    if isinstance(meta_doc, dict) and "__dartpu_store__" in meta_doc:
+        store, meta = meta_doc["__dartpu_store__"], meta_doc["tree"]
+    else:                                      # metadata without a store
+        store, meta = "npz", meta_doc
+    _check_store(store)
+    return meta_doc, store, meta
 
 
 def load(path: str | os.PathLike) -> Any:
     """Restore a checkpoint directory written by either package; DArrays
     come back on their saved layout (the default one, with a warning, when
-    the rank table is smaller than at save time)."""
+    the rank table is smaller than at save time).  A chunked checkpoint in
+    a job is loaded by every process together."""
     path = Path(path)
     with _tm.span("checkpoint.restore"):
         # the zero-disk-reads witness of replica restores: every read from
@@ -320,21 +517,19 @@ def load(path: str | os.PathLike) -> Any:
         _tm.count("checkpoint.disk_reads")
         if _tm.enabled():
             _tm.event("checkpoint", "restore_start", path=str(path))
-        meta_doc = json.loads((path / _META).read_text())
-        if isinstance(meta_doc, dict) and "__dartpu_store__" in meta_doc:
-            store, meta = meta_doc["__dartpu_store__"], meta_doc["tree"]
-        else:                                  # metadata without a store
-            store, meta = "npz", meta_doc
-        _check_store(store)
-        with _tm.span("checkpoint.restore.read", _journal=False):
-            with np.load(path / _ARRS) as z:
-                arrays = {k: z[k] for k in z.files}
-        # chaos site: byte flips land before the CRC check, which is what
-        # catches them, as it would catch real disk rot
-        arrays = _read_faults(path, store, arrays)
-        _verify_integrity(path, meta_doc, arrays)
-        with _tm.span("checkpoint.restore.decode", _journal=False):
-            out = _decode(meta, arrays)
+        meta_doc, store, meta = _read_meta(path)
+        if store == "chunks":
+            out, arrays = _load_chunks(path, meta_doc, meta)
+        else:
+            with _tm.span("checkpoint.restore.read", _journal=False):
+                with np.load(path / _ARRS) as z:
+                    arrays = {k: z[k] for k in z.files}
+            # chaos site: byte flips land before the CRC check, which is
+            # what catches them, as it would catch real disk rot
+            arrays = _read_faults(path, store, arrays)
+            _verify_integrity(path, meta_doc, arrays)
+            with _tm.span("checkpoint.restore.decode", _journal=False):
+                out = _decode(meta, arrays)
         if _tm.enabled():
             from ..telemetry import perf as _perf
             _tm.annotate(**_perf.transfer_cost(_payload_bytes(arrays)))
@@ -360,6 +555,196 @@ def _write_store(path: Path, meta, arrays, store: str) -> None:
         json.dumps({"__dartpu_store__": store, "tree": meta,
                     "integrity": {"algo": "crc32",
                                   "crc32": _crc_map(arrays)}}))
+
+
+def _write_chunks(path: Path, meta, arrays, cells, commit=None) -> None:
+    """Write one chunked checkpoint into ``path`` (collective in a job):
+    this process's cell files (``cells``), process 0's leaf files
+    (``arrays``), one exchange of every process's CRCs, write verdict and
+    resolved ``path`` (processes that name different directories raise
+    ``ValueError`` together, before any marker), then process 0 writes
+    the metadata (the publish marker) and runs ``commit`` (the manager's
+    rename and rotation), and a last exchange carries its verdict, so
+    every process returns or raises together."""
+    from ..resilience import faults as _fl
+    crcs: dict[str, int] = {}
+    err = None
+    try:
+        (path / _CHUNKS).mkdir(parents=True, exist_ok=True)
+        for key, got in cells.items():
+            for j, buf in got:
+                buf.tofile(path / _CHUNKS / f"{key}.{j}.bin")
+                crcs[f"{key}.{j}"] = int(zlib.crc32(buf))
+                _rs.record("write")
+        if process_index() == 0:
+            for key, arr in arrays.items():
+                with open(path / _CHUNKS / f"{key}.npy", "wb") as f:
+                    np.lib.format.write_array(f, np.asanyarray(arr),
+                                              allow_pickle=False)
+                crcs[key] = _crc(arr)
+                _rs.record("write")
+        # chaos site: payload on disk, publish marker absent
+        _fl.check("checkpoint.write", store="chunks")
+    except Exception as e:  # noqa: BLE001 — every process learns of it below
+        err = e
+    _rs.record("publish", "checkpoint")
+    every = _everyone((crcs, None if err is None
+                       else f"{type(err).__name__}: {err}",
+                       str(path.resolve())))
+    dirs = [w for _, _, w in every]
+    if len(set(dirs)) > 1:
+        raise ValueError(f"a chunked save in a job needs one directory "
+                         f"shared by every process; the processes name "
+                         f"{dirs}")
+    if err is not None:
+        raise err
+    failed = [f"process {q}: {e}" for q, (_, e, _) in enumerate(every)
+              if e]
+    if failed:
+        raise RuntimeError(f"checkpoint {path}: the write failed on "
+                           f"{failed[0]}")
+    done = None
+    if process_index() == 0:
+        try:
+            _rs.record("mark")
+            (path / _META).write_text(json.dumps(
+                {"__dartpu_store__": "chunks", "tree": meta,
+                 "integrity": {"algo": "crc32",
+                               "crc32": {k: v for c, _, _ in every
+                                         for k, v in c.items()}}}))
+            if commit is not None:
+                commit()
+        except Exception as e:  # noqa: BLE001 — every process learns of it below
+            done = e
+    _rs.record("barrier", "checkpoint")
+    verdict = _everyone(None if done is None
+                        else f"{type(done).__name__}: {done}")[0]
+    if done is not None:
+        raise done
+    if verdict:
+        raise RuntimeError(f"checkpoint {path}: process 0 could not "
+                           f"publish it: {verdict}")
+
+
+def _leaf_keys(meta) -> list:
+    """The payload keys of a tree's non-DArray array leaves."""
+    out: list = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            if t.get("__dartpu__") == "DArray":
+                return
+            if t.get("__dartpu__") == "ndarray":
+                out.append(t["key"])
+                return
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+    walk(meta)
+    return out
+
+
+def _read_chunks(path: Path, meta) -> dict:
+    """The chunked payload files this process needs: every leaf file and
+    the cell files of its own cells on the restore layout, as host numpy
+    (a cell file as raw bytes); a missing file is left out (the CRC check
+    counts it)."""
+    arrays: dict[str, np.ndarray] = {}
+    for key in _leaf_keys(meta):
+        f = path / _CHUNKS / f"{key}.npy"
+        if f.exists():
+            arrays[key] = np.load(f, allow_pickle=False)
+    for key, entry in _darray_entries(meta).items():
+        for _, srcs in _chunked_plan(entry)[2].values():
+            for j, _, _ in srcs:
+                name = f"{key}.{j}"
+                f = path / _CHUNKS / f"{name}.bin"
+                if name not in arrays and f.exists():
+                    arrays[name] = np.fromfile(f, dtype=np.uint8)
+    return arrays
+
+
+def _bad_chunks(meta_doc: dict, arrays: dict) -> list:
+    """The files this process needs that are missing or fail their
+    recorded CRC32."""
+    crcs = meta_doc.get("integrity", {}).get("crc32", {})
+    need = set(_leaf_keys(meta_doc["tree"]))
+    for key, entry in _darray_entries(meta_doc["tree"]).items():
+        need |= {f"{key}.{j}" for _, srcs in
+                 _chunked_plan(entry)[2].values() for j, _, _ in srcs}
+    return sorted(k for k in need if k not in arrays or
+                  (k in crcs and _crc(arrays[k]) != int(crcs[k])))
+
+
+def _load_chunks(path: Path, meta_doc: dict, meta):
+    """``(tree, arrays)`` of a chunked checkpoint: the files of this
+    process's cells, the ``checkpoint.read`` site, their CRCs and the
+    decode.  Every process's verdict (its bad files, or the error it met)
+    is exchanged once, after the decode, so every process returns or
+    raises together and no process is left waiting in a collective: a bad
+    file anywhere raises :class:`CheckpointIntegrityError` on every
+    process, any other failure raises on every process (its own error
+    where it happened), what the others decoded is closed, and the id
+    counters meet again (``core.did_advance``)."""
+    for entry in _darray_entries(meta).values():
+        procs = [int(p) for p in entry["procs"]]
+        if any(p >= nranks() for p in procs):
+            warnings.warn(
+                f"checkpoint was written on {max(procs) + 1}+ ranks but "
+                f"only {nranks()} are in the rank table; restoring with "
+                "the default layout")
+    out, arrays, bad, err = None, {}, [], None
+    try:
+        with _tm.span("checkpoint.restore.read", _journal=False):
+            arrays = _read_chunks(path, meta)
+        # chaos site: byte flips land before the CRC check, which is what
+        # catches them, as it would catch real disk rot
+        arrays = _read_faults(path, "chunks", arrays)
+        bad = _bad_chunks(meta_doc, arrays)
+        if not bad:
+            with _tm.span("checkpoint.restore.decode", _journal=False):
+                out = _decode(meta, arrays)
+    except Exception as e:  # noqa: BLE001 — every process learns of it below
+        err = e
+    _rs.record("verify")
+    _rs.record("publish", "checkpoint_verdict")
+    every = _everyone((bad, None if err is None
+                       else f"{type(err).__name__}: {err}", core.did_mark()))
+    # a process that stopped short made fewer arrays: every process's
+    # next array takes one id again
+    core.did_advance(max(m for _, _, m in every))
+    bad = sorted(set().union(*(set(b) for b, _, _ in every)))
+    failed = [f"process {q}: {e}" for q, (_, e, _) in enumerate(every)
+              if e]
+    if out is not None and (bad or failed):
+        _close_tree(out)
+    if bad:
+        _tm.count("checkpoint.integrity_failures")
+        if _tm.enabled():
+            # cold path: a corrupt checkpoint is exceptional
+            _tm.event("checkpoint", "integrity_failure", path=str(path),
+                      keys=",".join(bad[:8]))
+        raise CheckpointIntegrityError(path, bad)
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError(f"checkpoint {path}: the restore failed on "
+                           f"{failed[0]}")
+    return out, arrays
+
+
+def _close_tree(tree) -> None:
+    """Close every DArray and DData of a decoded tree."""
+    if isinstance(tree, (DArray, DData)):
+        tree.close()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _close_tree(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _close_tree(v)
 
 
 class PeerReplicaUnavailable(RuntimeError):
@@ -565,14 +950,23 @@ class CheckpointManager:
     def __init__(self, directory: str | os.PathLike,
                  max_to_keep: int | None = 3, async_save: bool = True,
                  keep_quarantined: int | None = 4,
-                 replicas: PeerReplicaStore | None = None):
+                 replicas: PeerReplicaStore | None = None,
+                 store: str = "npz"):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         if keep_quarantined is not None and keep_quarantined < 0:
             raise ValueError(f"keep_quarantined must be >= 0, got "
                              f"{keep_quarantined}")
+        _check_store(store)
+        self.store = store
         self.directory = Path(directory)
         self.directory.mkdir(parents=True, exist_ok=True)
+        if store == "chunks" and _job() and \
+                len(set(_everyone(str(self.directory.resolve())))) > 1:
+            # every process must name the one shared directory
+            raise ValueError(f"a chunked CheckpointManager in a job needs "
+                             f"one directory shared by every process; "
+                             f"this process has {self.directory}")
         self.max_to_keep = max_to_keep
         self.keep_quarantined = keep_quarantined
         self._replicas = replicas
@@ -602,13 +996,25 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> Path:
         return self.directory / self._STEP.format(step)
 
+    def _shared(self) -> bool:
+        """True when the steps live in one directory that every process
+        of a job shares (the chunked store in a job): process 0 alone
+        mutates it, behind an exchange or a barrier."""
+        return self.store == "chunks" and _job()
+
     # -- save --------------------------------------------------------------
 
-    def save(self, step: int, tree: Any, store: str = "npz") -> None:
-        """Checkpoint ``tree`` as ``step``: the host snapshot is taken
-        before this returns, the write runs in the background with
-        ``async_save``."""
+    def save(self, step: int, tree: Any, store: str | None = None) -> None:
+        """Checkpoint ``tree`` as ``step`` (``store``: the manager's by
+        default): the host snapshot is taken before this returns, the
+        write runs in the background with ``async_save`` (on the caller's
+        thread in a job, where it is collective)."""
+        store = self.store if store is None else store
         _check_store(store)
+        if store == "chunks" and _job() and self.store != "chunks":
+            raise ValueError("a chunked save in a job needs a manager "
+                             "built with store='chunks' (its directory is "
+                             "shared by every process)")
         with self._lock:
             self._reap(wait=False)  # dalint: disable=DAL008 — wait=False reaps only done() futures; result() returns at once
             # the step is reserved inside the same lock section as the
@@ -620,26 +1026,33 @@ class CheckpointManager:
             self._pending[step] = None          # reservation
         try:
             arrays: dict[str, np.ndarray] = {}
-            meta = _encode(tree, arrays, copy=True)
-            if self._pool is None:
-                self._publish(step, meta, arrays, store)
+            cells = {} if store == "chunks" else None
+            meta = _encode(tree, arrays, copy=True, cells=cells)
+            rep = None
+            if cells is not None and self._replicas is not None:
+                # the memory replica takes whole arrays, as with npz
+                whole: dict[str, np.ndarray] = {}
+                rep = (_encode(tree, whole, copy=True), whole)
+            if self._pool is None or self._shared():
+                self._publish(step, meta, arrays, store, cells, rep)
                 with self._lock:
                     self._pending.pop(step, None)
                 return
             with self._lock:
                 self._pending[step] = self._pool.submit(
-                    self._publish, step, meta, arrays, store)
+                    self._publish, step, meta, arrays, store, cells, rep)
         except BaseException:
             with self._lock:
                 self._pending.pop(step, None)
             raise
 
-    def _publish(self, step: int, meta, arrays, store: str) -> None:
+    def _publish(self, step: int, meta, arrays, store: str, cells=None,
+                 rep=None) -> None:
         # the memory replica first, so a crash mid-write still leaves it;
         # a failed replication never loses the disk tier
         if self._replicas is not None:
             try:
-                self._replicas.put(step, meta, arrays)
+                self._replicas.put(step, *(rep or (meta, arrays)))
             except Exception as e:  # noqa: BLE001 — disk tier still publishes
                 _tm.count("checkpoint.replication_failures")
                 if _tm.enabled():
@@ -649,30 +1062,65 @@ class CheckpointManager:
                               error=f"{type(e).__name__}: {str(e)[:200]}")
         final = self._step_dir(step)
         tmp = self.directory / f".tmp_{self._STEP.format(step)}"
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        _write_store(tmp, meta, arrays, store)
-        os.replace(tmp, final)
+        if process_index() == 0 or not self._shared():
+            if tmp.exists():
+                shutil.rmtree(tmp)
+            if cells is not None:
+                tmp.mkdir()
+        if cells is None:
+            _write_store(tmp, meta, arrays, store)
+            os.replace(tmp, final)
+            _tm.count("checkpoint.saves")
+            if _tm.enabled():
+                _tm.event("checkpoint", "publish", step=step, store=store,
+                          arrays=len(arrays), bytes=_payload_bytes(arrays))
+            old = self._old_steps(self.steps())
+            self._rotate_dirs(old)
+            self._rotate_replicas(old)
+            self._reap_quarantine()
+            return
+        if self._shared():
+            # every process writes into the directory process 0 made
+            _barrier("checkpoint_open")
+        # the steps that fall out once this one is published: the same
+        # list on every process (nothing mutates the directory between
+        # the barrier above and process 0's commit)
+        old = self._old_steps(sorted(set(self.steps()) | {step}))
+
+        def commit():
+            os.replace(tmp, final)
+            self._rotate_dirs(old)
+            self._reap_quarantine()
+        _write_chunks(tmp, meta, arrays, cells, commit)
+        # every process rotates its own replica tier
+        self._rotate_replicas(old)
         _tm.count("checkpoint.saves")
         if _tm.enabled():
             _tm.event("checkpoint", "publish", step=step, store=store,
-                      arrays=len(arrays), bytes=_payload_bytes(arrays))
-        self._rotate()
-        self._reap_quarantine()
+                      arrays=len(arrays),
+                      bytes=_payload_bytes(arrays) + _cells_bytes(cells))
 
-    def _rotate(self) -> None:
+    def _old_steps(self, done: list[int]) -> list[int]:
+        """The published steps ``max_to_keep`` leaves out."""
         if self.max_to_keep is None:
-            return
-        done = self.steps()
-        for s in done[:max(0, len(done) - self.max_to_keep)]:
+            return []
+        return done[:max(0, len(done) - self.max_to_keep)]
+
+    def _rotate_dirs(self, old: list[int]) -> None:
+        for s in old:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
-            if self._replicas is not None:
-                self._replicas.drop(s)
-        if self._replicas is not None:
-            # replica-only steps (a failed disk write) rotate too
-            reps = self._replicas.steps()
-            for s in reps[:max(0, len(reps) - self.max_to_keep)]:
-                self._replicas.drop(s)
+
+    def _rotate_replicas(self, old: list[int]) -> None:
+        """Drop the rotated steps from this process's replica tier, then
+        its replica-only steps (a failed disk write) past
+        ``max_to_keep``."""
+        if self._replicas is None or self.max_to_keep is None:
+            return
+        for s in old:
+            self._replicas.drop(s)
+        reps = self._replicas.steps()
+        for s in reps[:max(0, len(reps) - self.max_to_keep)]:
+            self._replicas.drop(s)
 
     def _reap_quarantine(self) -> None:
         """Keep the newest ``keep_quarantined`` quarantined steps."""
@@ -753,8 +1201,8 @@ class CheckpointManager:
         stays strict on the disk tier."""
         self.wait()
         if step is not None:
-            out = self._restore_replica(step)
-            if out is not None:
+            out = self._agreed(self._restore_replica(step))
+            if out is not None:  # dalint: disable=DAL010 — _agreed gives every process of a shared job one answer; a process's own npz directory is restored by it alone
                 return out
             if not (self._step_dir(step) / _META).exists():
                 raise FileNotFoundError(f"no checkpoint for step {step} in "
@@ -764,18 +1212,25 @@ class CheckpointManager:
         rep_steps = self._replicas.steps() if self._replicas is not None \
             else []
         candidates = sorted(set(done) | set(rep_steps))
+        if self._shared():
+            # the newest step that every process lists: every process
+            # then loads (and verifies) the same step
+            _rs.record("publish", "checkpoint_restore")
+            lists = _everyone(candidates)
+            candidates = sorted(set(lists[0]).intersection(*lists[1:]))
+            done = [s for s in done if s in candidates]
         if not candidates:
             raise FileNotFoundError(
                 f"no completed checkpoints in {self.directory}")
         last_exc: BaseException | None = None
         for s in reversed(candidates):
-            out = self._restore_replica(s)
-            if out is not None:
+            out = self._agreed(self._restore_replica(s))
+            if out is not None:  # dalint: disable=DAL010 — _agreed gives every process of a shared job one answer; a process's own npz directory is restored by it alone
                 return out
             if s not in done:
                 continue                     # replica-only step
             try:
-                return self._load_disk(s)
+                return self._restored(self._load_disk(s))
             except Exception as e:  # noqa: BLE001 — fall back, then re-raise
                 last_exc = e
                 _tm.count("checkpoint.restore_fallbacks")
@@ -790,9 +1245,42 @@ class CheckpointManager:
             f"no restorable checkpoint in {self.directory}: every "
             f"completed step failed to load") from last_exc
 
+    def _restored(self, out):
+        """A disk restore's tree; in a shared job the processes meet at a
+        barrier after it, so none mutates the directory while another
+        still reads it."""
+        if self._shared():
+            _rs.record("restore")
+            _barrier("checkpoint_restore")
+        return out
+
+    def _agreed(self, out):
+        """A replica restore that every process of a shared job made, or
+        None on every process (each closes what it restored) when one
+        could not: the disk tier then serves them together.  The same
+        exchange lets the id counters meet again."""
+        if not self._shared():
+            return out
+        every = _everyone((out is not None, core.did_mark()))
+        core.did_advance(max(m for _, m in every))
+        if all(ok for ok, _ in every):
+            return out
+        if out is not None:
+            _close_tree(out)
+        return None
+
     def _quarantine(self, step: int) -> None:
         """Rename a corrupt step directory to ``.quarantine_step_*``: no
-        longer a completed step, still on disk for forensics."""
+        longer a completed step, still on disk for forensics.  In a shared
+        job process 0 renames, and a barrier follows."""
+        if self._shared():
+            if process_index() == 0:
+                self._quarantine_dir(step)
+            _barrier("checkpoint_quarantine")
+            return
+        self._quarantine_dir(step)
+
+    def _quarantine_dir(self, step: int) -> None:
         src = self._step_dir(step)
         dst = self.directory / f".quarantine_{src.name}"
         try:
@@ -813,8 +1301,11 @@ class CheckpointManager:
         earlier step.  Returns the discarded steps."""
         self.wait()
         dropped = [s for s in self.steps() if s >= step]
-        for s in dropped:
-            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        if process_index() == 0 or not self._shared():
+            for s in dropped:
+                shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        if self._shared():
+            _barrier("checkpoint_discard")
         if self._replicas is not None:
             dropped = sorted(set(dropped)
                              | set(self._replicas.drop_from(step)))

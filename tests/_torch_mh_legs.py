@@ -624,17 +624,25 @@ def trainer_legs(tdat, N: int) -> list:
     manager, then a new trainer resuming from the published step to 4;
     and 2 SGD steps by ``step_once``.  Each returns its losses and the
     flat parameters (every process gathers them), the losses as a float64
-    array (the floats the trainer returned); a process writes its
-    own checkpoint copy in a directory of its own."""
+    array (the floats the trainer returned); in a job the processes
+    publish chunked checkpoints into one directory that they share."""
     import shutil
     import tempfile
+    from distributedarrays_tpu_torch.layout import process_index
+    from distributedarrays_tpu_torch.parallel import multihost
     T = tdat.train
     ring = list(range(N))
+
+    def shared_tempdir():
+        where = tempfile.mkdtemp(prefix="trainer_legs_") \
+            if process_index() == 0 else None
+        return multihost._all_gather_objects(where)[0] \
+            if multihost.in_job() else where
 
     def adam(kind):
         def run():
             task = trainer_task(kind, N, T)
-            where = tempfile.mkdtemp(prefix="trainer_legs_")
+            where = shared_tempdir()
             try:
                 with T.Trainer(task, T.Optimizer(**TRAINER_ADAM),
                                ckpt_dir=where, save_every=3,
@@ -646,7 +654,9 @@ def trainer_legs(tdat, N: int) -> list:
                     more = t2.fit(4)
                     flat2 = t2.flat_params().numpy()
             finally:
-                shutil.rmtree(where, ignore_errors=True)
+                multihost.sync_hosts("trainer_legs")
+                if process_index() == 0:
+                    shutil.rmtree(where, ignore_errors=True)
             return {"losses": np.asarray(res["losses"]), "flat": flat,
                     "resumed_from": more["resumed_from"],
                     "resumed": np.asarray(more["losses"]),
@@ -676,9 +686,10 @@ def trainer_straggler(tdat, N: int, proc: int, nprocs: int) -> dict:
     hangs 2 s at the top of step ``STRAGGLER_STEP`` and its next probe
     finds its first rank down (a fault plan on that process only); every
     process must take the gate's branch from the shared step time, raise
-    ``DeadRankError`` after K12, and then meet the device-loss shrink,
-    which raises ``NotImplementedError`` across processes.  Returns what
-    each process saw; the fault plan and the elastic set are reset after."""
+    ``DeadRankError`` after K12, shrink onto the other ranks together and
+    finish the run there.  Returns what each process saw (its losses, the
+    straggler count and the ranks the run ended on); the fault plan and
+    the elastic set are reset after."""
     from distributedarrays_tpu_torch.parallel import multihost
     from distributedarrays_tpu_torch.resilience import elastic, faults
     T = tdat.train
@@ -701,12 +712,324 @@ def trainer_straggler(tdat, N: int, proc: int, nprocs: int) -> dict:
                 ctx = e.__context__
                 out["cause"] = None if ctx is None else type(ctx).__name__
             out.update(step=t.step, stragglers=t.stragglers,
-                       losses=[t.losses()[i] for i in sorted(t.losses())])
+                       losses=[t.losses()[i] for i in sorted(t.losses())],
+                       ranks=[int(r) for r in t._state["pflat"].pids.flat])
     finally:
         faults.clear()
         elastic.manager().reset()
         multihost.sync_hosts("trainer_straggler")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the chunked checkpoint store in one shared directory, and the Trainer's
+# recovery across processes: a device loss (by a fault plan armed on every
+# process or on the lost rank's process only), a whole process's ranks
+# lost, and a resume onto another pinned rank set
+# ---------------------------------------------------------------------------
+
+RECOVERY_NAMES = ["trainer_loss_mlp", "trainer_loss_transformer",
+                  "trainer_process_down", "trainer_resume_pinned",
+                  "trainer_loss_replicas"]
+LOSS_STEP = 3        # the step whose top loses a rank
+LOSS_RANK = 5
+RECOVERY_STEPS = 5
+RECOVERY_SAVE_EVERY = 2
+
+
+def shared_dir(root: str, name: str) -> str:
+    """A fresh directory ``root/name`` that every process of a job names
+    the same: process 0 empties it, a barrier follows (a no-op in one
+    process)."""
+    import os
+    import shutil
+    from distributedarrays_tpu_torch.layout import process_index
+    from distributedarrays_tpu_torch.parallel import multihost
+    path = os.path.join(root, name)
+    if process_index() == 0:
+        shutil.rmtree(path, ignore_errors=True)
+        os.makedirs(path)
+    multihost.sync_hosts(f"shared_dir/{name}")
+    return path
+
+
+def ckpt_tree(tdat, N: int) -> dict:
+    """The chunked-store leg's tree: DArrays on five layouts and four
+    dtypes (one on ranks 0-2 only, so a process may hold no cell of it),
+    a numpy array, a tensor and plain values."""
+    rng = np.random.default_rng(31)
+    f32 = np.float32
+    return {
+        "d": {"f": tdat.distribute(rng.standard_normal((37, 11)).astype(f32)),
+              "g": tdat.distribute(rng.standard_normal((50, 8)).astype(f32),
+                                   procs=range(N), dist=(N // 2, 2)),
+              "h": tdat.distribute(torch.from_numpy(
+                  rng.standard_normal((9, 13)).astype(f32)).bfloat16(),
+                  procs=range(N), dist=(2, N // 2)),
+              "v": tdat.distribute(rng.standard_normal(8229).astype(f32)),
+              "sub": tdat.distribute(rng.integers(-9, 9, (37, 11)).astype(
+                  np.int8), procs=range(3)),
+              "b": tdat.distribute(rng.standard_normal((16, 4)) > 0)},
+        "np": np.arange(6.0), "t": torch.arange(5), "step": 7}
+
+
+def ckpt_chunks(tdat, N: int, root: str) -> dict:
+    """A chunked save and load of ``ckpt_tree`` in one shared directory:
+    the cell files this process wrote (each with its cell's rank), the
+    region exchanges (K10 on the card) the save and the load made, the
+    restored values and layouts; then a ``corrupt`` plan at
+    ``checkpoint.read`` armed on the last process only, and the error each
+    process raised."""
+    from distributedarrays_tpu_torch.layout import process_count
+    from distributedarrays_tpu_torch.parallel import multihost
+    from distributedarrays_tpu_torch.resilience import faults
+    from distributedarrays_tpu_torch.utils import checkpoint as CK
+    tree = ckpt_tree(tdat, N)
+    path = shared_dir(root, "ckpt_chunks")
+    written, exchanges = [], [0]
+    write, exchange = CK._write_chunks, multihost.exchange
+
+    def spy_write(path_, meta, arrays, cells, commit=None):
+        procs = {k: e["procs"] for k, e in CK._darray_entries(meta).items()}
+        written.extend((f"{k}.{j}", procs[k][j])
+                       for k, got in cells.items() for j, _ in got)
+        return write(path_, meta, arrays, cells, commit)
+
+    def spy_exchange(*a, **kw):
+        exchanges[0] += 1
+        return exchange(*a, **kw)
+    CK._write_chunks, multihost.exchange = spy_write, spy_exchange
+    try:
+        CK.save(path, tree, store="chunks")
+        saved = exchanges[0]
+        back = CK.load(path)
+        loaded = exchanges[0] - saved
+    finally:
+        CK._write_chunks, multihost.exchange = write, exchange
+    out = {"written": sorted(written), "save_exchanges": saved,
+           "load_exchanges": loaded,
+           "np": back["np"], "t": back["t"].numpy(), "step": back["step"],
+           "d": {k: (multihost.gather_global(v).view(np.uint8)
+                     if v.dtype == torch.bfloat16 else
+                     multihost.gather_global(v), _layout(v), str(v.dtype))
+                 for k, v in back["d"].items()},
+           "want": {k: (multihost.gather_global(v).view(np.uint8)
+                        if v.dtype == torch.bfloat16 else
+                        multihost.gather_global(v), _layout(v),
+                        str(v.dtype)) for k, v in tree["d"].items()}}
+    if tdat.layout.process_index() == process_count() - 1:
+        faults.configure(plan=[{"site": "checkpoint.read",
+                                "action": "corrupt", "at": 1, "count": 1}],
+                         seed=4)
+    try:
+        CK.load(path)
+        out["corrupt"] = None
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        out["corrupt"] = type(e).__name__
+    finally:
+        faults.clear()
+    multihost.sync_hosts("ckpt_chunks_done")
+    tdat.d_closeall()
+    return out
+
+
+def ckpt_agreement(tdat, N: int, root: str) -> dict:
+    """What every process of a job must agree on around the chunked
+    store: a ``CheckpointManager`` with peer replicas and ``max_to_keep=1``
+    after three saves (its disk steps and its replica steps); a direct
+    chunked ``save`` into a directory of each process's own (the error,
+    and whether a marker was written); then a decode that fails after the
+    CRC check on the last process only (a device copy running out of
+    memory): a direct ``load`` (the error each process raised) and a
+    manager ``restore()`` with that failure once (the step every process
+    came back with, and the steps left)."""
+    import os
+    from distributedarrays_tpu_torch.layout import (process_count,
+                                                    process_index)
+    from distributedarrays_tpu_torch.parallel import multihost
+    from distributedarrays_tpu_torch.utils import checkpoint as CK
+    x = np.arange(96, dtype=np.float32).reshape(24, 4)
+    out: dict = {}
+    reps = CK.PeerReplicaStore()
+    with CK.CheckpointManager(shared_dir(root, "ckpt_rot"), max_to_keep=1,
+                              replicas=reps, store="chunks") as mgr:
+        for s in (1, 2, 3):
+            mgr.save(s, {"x": tdat.distribute(x + s), "step": s})
+        mgr.wait()
+        out["rotated"] = {"steps": mgr.steps(), "replicas": reps.steps()}
+    own = os.path.join(root, f"ckpt_own_{process_index()}")
+    try:
+        CK.save(own, {"x": tdat.distribute(x), "step": 0}, store="chunks")
+        out["own_dir"] = None
+    except ValueError as e:
+        out["own_dir"] = type(e).__name__
+    out["own_marker"] = os.path.exists(os.path.join(own, CK._META))
+    mgr = CK.CheckpointManager(shared_dir(root, "ckpt_fail"),
+                               max_to_keep=None, async_save=False,
+                               store="chunks")
+    for s in (1, 2):
+        mgr.save(s, {"x": tdat.distribute(x + s), "step": s})
+    decode, fails = CK._decode, [0]
+
+    def failing(meta, arrays):
+        if fails[0] > 0:
+            fails[0] -= 1
+            raise RuntimeError("CUDA out of memory (simulated)")
+        return decode(meta, arrays)
+    last = process_index() == process_count() - 1
+    CK._decode = failing
+    try:
+        fails[0] = int(last)
+        try:
+            CK.load(mgr._step_dir(2))
+            out["load_error"] = None
+        except RuntimeError as e:
+            out["load_error"] = str(e).split(":")[-1].strip()
+        fails[0] = int(last)
+        back = mgr.restore()
+        out["restored"] = {"step": back["step"], "steps": mgr.steps(),
+                           "x": multihost.gather_global(back["x"])}
+    finally:
+        CK._decode = decode
+    mgr.close()
+    tdat.d_closeall()
+    return out
+
+
+def relayout_regions(tdat, N: int) -> dict:
+    """``elastic.relayout`` of a vector of 1732 onto the shard cuts of
+    ranks 0..N-2 (cuts that do not divide it), with the elements each
+    process's region exchanges asked for: in a job each new cell fetches
+    its own region, never the whole vector.  Then ``shrink()`` off rank
+    N-1 (marked down on its process only) and ``grow()`` back, with the
+    layouts and the values after."""
+    from distributedarrays_tpu_torch.parallel import multihost
+    from distributedarrays_tpu_torch.resilience import elastic
+    x = np.arange(1732, dtype=np.float32) * 0.5
+    d = tdat.distribute(x)
+    ranks = list(range(N - 1))
+    s = -(-1732 // len(ranks))
+    cuts = [[min(r * s, 1732) for r in range(len(ranks) + 1)]]
+    asked, exchange = [0], multihost.exchange
+
+    def spy(sources, wants, *a, **kw):
+        asked[0] += sum(int(w[-1].numel()) for w in wants)
+        return exchange(sources, wants, *a, **kw)
+    multihost.exchange = spy
+    try:
+        moved = elastic.relayout(d, ranks, cuts)
+    finally:
+        multihost.exchange = exchange
+    own = sum(hi - lo for r, (lo, hi) in zip(ranks, zip(cuts[0],
+                                                         cuts[0][1:]))
+              if tdat.layout.is_local(r))
+    out = {"moved": moved, "asked": asked[0], "own": own,
+           "values": multihost.gather_global(d), "layout": _layout(d)}
+    d.close()
+    # the elastic manager's shrink and grow, the loss marked on the lost
+    # rank's process only
+    e = tdat.distribute(x)
+    out["before"] = _layout(e)
+    m = elastic.manager()
+    mine = tdat.layout.is_local(N - 1)
+    if mine:
+        m.mark_down(N - 1)
+    m.shrink()
+    out["shrunk"] = _layout(e)
+    if mine:
+        m.mark_up(N - 1)
+    m.grow()
+    out.update(grown=_layout(e), grown_values=multihost.gather_global(e))
+    m.reset()
+    e.close()
+    return out
+
+
+def loss_plan(N: int, kind: str) -> list:
+    """The recovery legs' fault plans: a ``device_loss`` of ``LOSS_RANK``
+    at the top of ``LOSS_STEP``, or (``process``) a partition that takes
+    the last 4 ranks (the last process's, in a job) at once."""
+    if kind == "process":
+        return [{"site": "train.step", "match": {"step": LOSS_STEP},
+                 "action": "partition", "at": 1, "count": 1,
+                 "groups": [list(range(N - 4)), list(range(N - 4, N))],
+                 "observer": 0}]
+    return [{"site": "train.step", "match": {"step": LOSS_STEP},
+             "action": "device_loss", "at": 1, "count": 1,
+             "device": LOSS_RANK}]
+
+
+def recovery_legs(tdat, N: int, root: str) -> list:
+    """``RECOVERY_NAMES``: the port's ``Trainer`` on every rank with a
+    chunked checkpoint every ``RECOVERY_SAVE_EVERY`` steps in one shared
+    directory: ``LOSS_RANK`` lost at the top of ``LOSS_STEP`` (the MLP with
+    Adam, the plan armed on every process; the transformer with SGD, the
+    plan armed on the lost rank's process only), the last 4 ranks lost at
+    once (a whole process's, in a job), and a resume from step 2 onto ranks
+    0..N-4 (``_relay_state``); and the MLP's loss with peer replicas,
+    restored from buddy-rank memory.  Each returns the losses (the floats
+    the trainer returned), the flat parameters and the final rank set."""
+    from distributedarrays_tpu_torch.layout import process_of
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    T = tdat.train
+    ring = list(range(N))
+
+    def fit(name, kind, opt, plan, armed=True, ranks=ring, steps=None,
+            replicas=False):
+        where = shared_dir(root, name)
+        if plan and armed:
+            faults.configure(plan=plan, seed=6)
+        peer = tdat.telemetry.counter_value("checkpoint.restore_source",
+                                            source="peer")
+        try:
+            with T.Trainer(trainer_task(kind, N, T), T.Optimizer(**opt),
+                           ckpt_dir=where, save_every=RECOVERY_SAVE_EVERY,
+                           ranks=ranks, peer_replicas=replicas) as t:
+                res = t.fit(steps or RECOVERY_STEPS)
+                out = {"losses": np.asarray(res["losses"]),
+                       "flat": t.flat_params().numpy(),
+                       "ranks": [int(r) for r in t._state["pflat"].pids.flat],
+                       "steps": t.step}
+            if replicas:
+                out["peer_restores"] = tdat.telemetry.counter_value(
+                    "checkpoint.restore_source", source="peer") - peer
+        finally:
+            faults.clear()
+            elastic.manager().reset()
+        return out, where
+
+    def loss(kind, opt, everywhere):
+        def run():
+            armed = everywhere or \
+                process_of(LOSS_RANK) == tdat.layout.process_index()
+            return fit(f"loss_{kind}", kind, opt, loss_plan(N, "rank"),
+                       armed)[0]
+        return run
+
+    def process_down():
+        return fit("process_down", "mlp", TRAINER_SGD,
+                   loss_plan(N, "process"))[0]
+
+    def resume_pinned():
+        first, where = fit("resume", "mlp", TRAINER_ADAM, None, steps=2)
+        with T.Trainer(trainer_task("mlp", N, T),
+                       T.Optimizer(**TRAINER_ADAM), ckpt_dir=where,
+                       ranks=list(range(N - 3))) as t:
+            more = t.fit(4)
+            return {"losses": np.asarray(first["losses"]),
+                    "resumed": np.asarray(more["losses"]),
+                    "resumed_from": more["resumed_from"],
+                    "flat": t.flat_params().numpy(),
+                    "ranks": [int(r) for r in t._state["pflat"].pids.flat]}
+
+    return [("trainer_loss_mlp", loss("mlp", TRAINER_ADAM, True)),
+            ("trainer_loss_transformer", loss("transformer", TRAINER_SGD,
+                                              False)),
+            ("trainer_process_down", process_down),
+            ("trainer_resume_pinned", resume_pinned),
+            ("trainer_loss_replicas", lambda: fit(
+                "loss_replicas", "mlp", TRAINER_ADAM, loss_plan(N, "rank"),
+                replicas=True)[0])]
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,10 @@ FFTs, ``dconv2d``, ring and Ulysses attention, k-means and
 rings with their gradients, ``tp_ffn``, the SP model's grad function and
 train steps) and the data-parallel ``Trainer``
 (``_torch_mh_legs.train_legs``), with a step that the straggler gate
-aborts (``_torch_mh_legs.trainer_straggler``); a checkpoint round trip; the
+aborts and the job recovers (``_torch_mh_legs.trainer_straggler``); the
+chunked checkpoint store in one shared directory, ``elastic.relayout``'s
+regions and the Trainer's recoveries (``_torch_mh_legs.ckpt_chunks``,
+``ckpt_agreement``, ``relayout_regions``, ``recovery_legs``); an npz checkpoint round trip; the
 heartbeat census with the last process stale; and a journal with markers
 around a ``sync_hosts`` barrier.  It writes what it saw to
 ``<out_dir>/result_<process_id>.pkl`` for the parent to hold against the
@@ -223,17 +226,31 @@ for name, thunk in _torch_mh_legs.train_legs(tdat, N):
 res["open_mappings"] = max(res["open_mappings"],
                            cuda_collectives.open_mappings())
 
-# --- the Trainer: a step that the straggler gate aborts -----------------
+# --- the Trainer: a step that the straggler gate aborts, then recovers --
 res["straggler"] = _torch_mh_legs.trainer_straggler(tdat, N, proc_id, nprocs)
+
+# --- the chunked store, the relayout's regions, the Trainer's recovery --
+res["ckpt_chunks"] = _torch_mh_legs.ckpt_chunks(tdat, N, out_dir)
+res["ckpt_agreement"] = _torch_mh_legs.ckpt_agreement(tdat, N, out_dir)
+res["relayout_regions"] = _torch_mh_legs.relayout_regions(tdat, N)
+res["recovery"] = {}
+for name, thunk in _torch_mh_legs.recovery_legs(tdat, N, out_dir):
+    try:
+        res["recovery"][name] = thunk()
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        res["errors"][name] = f"{type(e).__name__}: {e}"
 
 # --- checkpoint round trip ----------------------------------------------
 ck = np.random.default_rng(7).standard_normal((16, 4)).astype(np.float32)
 dck = tdat.distribute(ck)
 path = os.path.join(out_dir, f"ck_proc{proc_id}")
-tdat.checkpoint.save(path, {"w": dck, "step": 3})
+tdat.checkpoint.save(path, {"w": dck, "step": 3, "t": torch.arange(4.0)})
 back = tdat.checkpoint.load(path)
 res["ckpt"] = {"step": back["step"], "w": multihost.gather_global(back["w"]),
-               "layout": layout(back["w"]), "saved": layout(dck)}
+               "layout": layout(back["w"]), "saved": layout(dck),
+               "t_device": back["t"].device.type,
+               "t": None if back["t"].device.type == "meta"
+               else back["t"].numpy()}
 
 # --- heartbeat census: the last process stops heartbeating --------------
 last = nprocs - 1

@@ -1647,24 +1647,264 @@ def test_job_trainer_straggler_abort_leaves_every_process_at_one_step(
     # the last process hangs at the top of a step and finds its rank
     # down; the others' own step times are theirs, but the gate reads the
     # shared (slowest) time, so every process aborts the same step after
-    # K12, none waits for another, and all keep the same losses
+    # K12, none waits for another, and all shrink off the dead rank
+    # together and finish the run with the same losses
     for results in (job2, job3):
+        dead = 4 * (len(results) - 1)
         seen = [r["straggler"] for r in results]
         for s in seen:
-            assert s["step"] == LEGS.STRAGGLER_STEP, s
+            assert s["error"] is None, s
+            assert s["step"] == LEGS.STRAGGLER_STEP + 2, s
             assert s["stragglers"] == 1, s
-            assert s["cause"] == "DeadRankError", s
             assert s["losses"] == seen[0]["losses"], s
-            assert len(s["losses"]) == LEGS.STRAGGLER_STEP
+            assert len(s["losses"]) == LEGS.STRAGGLER_STEP + 2
+            assert np.isfinite(s["losses"]).all(), s
+            assert s["ranks"] == [r for r in range(4 * len(results))
+                                  if r != dead], s
 
 
-def test_job_trainer_cross_process_shrink_raises_not_implemented(job2, job3):
-    # the device-loss shrink would carry the lost rank's shards to another
-    # process: it raises NotImplementedError naming its ROADMAP entry on
-    # every process, instead of gathering quietly
+# ---------------------------------------------------------------------------
+# the chunked checkpoint store and the Trainer's recovery across processes
+# (tests/_torch_mh_legs.py ckpt_chunks, ckpt_agreement, relayout_regions,
+# recovery_legs)
+# ---------------------------------------------------------------------------
+
+_PORT_RECOVERY: dict = {}
+
+
+def _port_recovery(n: int, tmp_path_factory) -> dict:
+    """The single-process port's chunked-store and recovery legs on ``n``
+    ranks (computed once a module)."""
+    if n not in _PORT_RECOVERY:
+        tdat.init(nranks=n, device="cpu")
+        root = str(tmp_path_factory.mktemp(f"port_recovery{n}"))
+        out = {"ckpt_chunks": LEGS.ckpt_chunks(tdat, n, root),
+               "ckpt_agreement": LEGS.ckpt_agreement(tdat, n, root),
+               "relayout_regions": LEGS.relayout_regions(tdat, n)}
+        out.update({name: thunk() for name, thunk in
+                    LEGS.recovery_legs(tdat, n, root)})
+        tdat.d_closeall()
+        tdat.init(nranks=8, device="cpu")
+        _PORT_RECOVERY[n] = out
+    return _PORT_RECOVERY[n]
+
+
+def _jobs(job2, job3):
+    return {"job2": job2, "job3": job3}
+
+
+@pytest.mark.parametrize("job", ["job2", "job3"])
+def test_job_chunked_checkpoint_written_by_owners(job, job2, job3,
+                                                  tmp_path_factory):
+    # one shared directory: each cell file written by the process that
+    # holds its rank only, every cell written once, no region exchange
+    # (K10 on the card) on save or on load, the load bit-equal to what
+    # was saved and to one process; a corrupt read on one process raises
+    # CheckpointIntegrityError on every process
+    results = _jobs(job2, job3)[job]
+    n = 4 * len(results)
+    ref = _port_recovery(n, tmp_path_factory)["ckpt_chunks"]
+    names = []
+    for q, r in enumerate(results):
+        got = r["ckpt_chunks"]
+        assert all(rank // 4 == q for _, rank in got["written"]), got
+        names += [name for name, _ in got["written"]]
+        assert got["save_exchanges"] == got["load_exchanges"] == 0, got
+        assert got["corrupt"] == "CheckpointIntegrityError", got
+        assert got["step"] == 7
+        np.testing.assert_array_equal(got["np"], np.arange(6.0))
+        np.testing.assert_array_equal(got["t"], np.arange(5))
+        for k, (vals, layout, dt) in got["d"].items():
+            want = got["want"][k]
+            assert (layout, dt) == (want[1], want[2]) == \
+                (ref["d"][k][1], ref["d"][k][2]), k
+            assert vals.dtype == want[0].dtype and \
+                np.array_equal(vals, want[0]), k
+            assert np.array_equal(vals, ref["d"][k][0]), k
+    assert sorted(names) == sorted(n for n, _ in ref["written"])
+    assert len(set(names)) == len(names)
+
+
+@pytest.mark.parametrize("job", ["job2", "job3"])
+def test_job_chunked_manager_rotates_replicas_on_every_process(
+        job, job2, job3, tmp_path_factory):
+    # max_to_keep=1 with peer replicas over three saves: process 0 rotates
+    # the shared directory, and every process rotates its own replica tier
+    # (each holds whole arrays), as one process does
+    results = _jobs(job2, job3)[job]
+    ref = _port_recovery(4 * len(results),
+                         tmp_path_factory)["ckpt_agreement"]
+    assert ref["rotated"] == {"steps": [3], "replicas": [3]}
+    for r in results:
+        assert r["ckpt_agreement"]["rotated"] == ref["rotated"]
+
+
+@pytest.mark.parametrize("job", ["job2", "job3"])
+def test_job_chunked_save_refuses_a_directory_of_each_process(
+        job, job2, job3):
+    # a direct chunked save with a path of each process's own: every
+    # process raises ValueError before any marker is written
+    for r in _jobs(job2, job3)[job]:
+        got = r["ckpt_agreement"]
+        assert got["own_dir"] == "ValueError", got
+        assert got["own_marker"] is False
+
+
+@pytest.mark.parametrize("job", ["job2", "job3"])
+def test_job_chunked_restore_failure_after_the_crc_check_is_shared(
+        job, job2, job3, tmp_path_factory):
+    # a decode that fails on the last process only (after the CRC check):
+    # a direct load raises on every process, and the manager's restore
+    # falls back to the step before on every process, as one process
+    # does, leaving the failed step in place (it is not corrupt)
+    results = _jobs(job2, job3)[job]
+    ref = _port_recovery(4 * len(results),
+                         tmp_path_factory)["ckpt_agreement"]
+    assert ref["load_error"] == "CUDA out of memory (simulated)"
+    assert ref["restored"]["step"] == 1
+    assert ref["restored"]["steps"] == [1, 2]
+    for r in results:
+        got = r["ckpt_agreement"]
+        assert got["load_error"] == ref["load_error"], got
+        assert got["restored"]["step"] == 1
+        assert got["restored"]["steps"] == [1, 2]
+        assert np.array_equal(got["restored"]["x"], ref["restored"]["x"])
+
+
+def test_c31_relayout_fetches_regions_not_the_whole_array(
+        job2, job3, tmp_path_factory):
+    # C31: elastic.relayout onto cuts that do not divide the array gathered
+    # the whole array onto every target rank in a job; each new cell now
+    # fetches its own region (bit-equal to one process)
     for results in (job2, job3):
+        n = 4 * len(results)
+        ref = _port_recovery(n, tmp_path_factory)["relayout_regions"]
         for r in results:
-            err = r["straggler"]["error"]
-            assert err.startswith("NotImplementedError"), err
-            assert "ROADMAP.md queue A" in err, err
-            assert "The Trainer's cross-process shrink" in err, err
+            got = r["relayout_regions"]
+            assert got["moved"] and got["asked"] == got["own"], got
+            assert got["layout"] == ref["layout"]
+            assert np.array_equal(got["values"], ref["values"])
+
+
+def test_job_elastic_shrink_and_grow_agree_on_every_process(
+        job2, job3, tmp_path_factory):
+    # a rank marked down on its own process only: every process shrinks
+    # off it and grows back onto it together, as one process does
+    for results in (job2, job3):
+        n = 4 * len(results)
+        ref = _port_recovery(n, tmp_path_factory)["relayout_regions"]
+        x = np.arange(1732, dtype=np.float32) * 0.5
+        for r in results:
+            got = r["relayout_regions"]
+            assert got["shrunk"] == ref["shrunk"]
+            assert n - 1 not in np.asarray(got["shrunk"]["pids"]).flat
+            assert got["grown"] == ref["grown"] == got["before"]
+            assert np.array_equal(got["grown_values"], x)
+
+
+def test_c30_tensor_leaf_restores_on_every_process(job2):
+    # C30: a tensor leaf of a checkpoint came back on rank 0's device, a
+    # meta placeholder on every other process; JAX restores it on each
+    # process's default device
+    for r in job2:
+        assert r["ckpt"]["t_device"] == "cpu", r["ckpt"]["t_device"]
+        np.testing.assert_array_equal(r["ckpt"]["t"], np.arange(4.0))
+
+
+@pytest.mark.parametrize("job", ["job2", "job3"])
+@pytest.mark.parametrize("name", LEGS.RECOVERY_NAMES)
+def test_job_trainer_recovers_bit_equal_to_one_process(
+        job, name, job2, job3, tmp_path_factory):
+    # a device loss (the plan armed on every process, or on the lost
+    # rank's process only), a whole process's ranks lost, a resume onto
+    # another pinned rank set: every process recovers together, and its
+    # losses, flat parameters and final ranks are one process's on the
+    # same ranks with the same plan, bit for bit
+    results = _jobs(job2, job3)[job]
+    n = 4 * len(results)
+    ref = _port_recovery(n, tmp_path_factory)[name]
+    for r in results:
+        assert name not in r["errors"], r["errors"][name]
+        got = r["recovery"][name]
+        for key, want in ref.items():
+            if isinstance(want, np.ndarray):
+                assert got[key].dtype == want.dtype and \
+                    np.array_equal(got[key], want), (name, key)
+            else:
+                assert got[key] == want, (name, key, got[key], want)
+    if name == "trainer_loss_replicas":
+        assert ref["peer_restores"] == 1     # from buddy-rank memory
+    if name == "trainer_process_down":
+        assert ref["ranks"] == list(range(n - 4))
+    elif name == "trainer_resume_pinned":
+        assert ref["ranks"] == list(range(n - 3))
+        assert ref["resumed_from"] == 2
+    else:
+        assert ref["ranks"] == [x for x in range(n) if x != LEGS.LOSS_RANK]
+
+
+def _jax_recovery(name: str, N: int, root) -> dict:
+    """JAX's ``Trainer`` on N devices for the recovery leg ``name``, with
+    the same plan, checkpoint cadence and pinned ranks, from the port
+    task's initial parameters."""
+    import dataclasses
+    import jax
+    from distributedarrays_tpu.resilience import elastic as jelastic
+    from distributedarrays_tpu.resilience import faults as jfaults
+    from distributedarrays_tpu.train import optim as JO
+    from distributedarrays_tpu.train import tasks as JTasks
+    from distributedarrays_tpu.train import trainer as JTrainer
+    kind = "transformer" if "transformer" in name else "mlp"
+    init = jax.tree_util.tree_map(lambda t: t.numpy(), LEGS.trainer_task(
+        kind, N, tdat.train).init_params(torch.Generator().manual_seed(0)))
+    jtask = dataclasses.replace(LEGS.trainer_task(kind, N, JTasks),
+                                init_params=lambda key: init)
+    adam = name in ("trainer_loss_mlp", "trainer_resume_pinned",
+                    "trainer_loss_replicas")
+    opt = (LEGS.TRAINER_ADAM if adam else LEGS.TRAINER_SGD)
+    where = str(root / name)
+    plan = None if name == "trainer_resume_pinned" else LEGS.loss_plan(
+        N, "process" if name == "trainer_process_down" else "rank")
+    jfaults.clear()
+    jelastic.manager().reset()
+    if plan:
+        jfaults.configure(plan=plan, seed=6)
+    try:
+        with JTrainer.Trainer(jtask, optimizer=JO.Optimizer(**opt),
+                              ckpt_dir=where,
+                              save_every=LEGS.RECOVERY_SAVE_EVERY,
+                              ranks=list(range(N)), seed=0,
+                              peer_replicas="replicas" in name) as jt:
+            res = jt.fit(2 if plan is None else LEGS.RECOVERY_STEPS)
+            out = {"losses": np.asarray(res["losses"]),
+                   "flat": np.asarray(jt._state["pflat"])}
+        if plan is None:
+            with JTrainer.Trainer(jtask, optimizer=JO.Optimizer(**opt),
+                                  ckpt_dir=where, ranks=list(range(N - 3)),
+                                  seed=0) as jt:
+                more = jt.fit(4)
+                out.update(resumed=np.asarray(more["losses"]),
+                           flat=np.asarray(jt._state["pflat"]))
+    finally:
+        jfaults.clear()
+        jelastic.manager().reset()
+    return out
+
+
+@pytest.mark.parametrize("name", LEGS.RECOVERY_NAMES)
+def test_job_trainer_recovery_matches_jax(job2, name, tmp_path):
+    # the 2-process job's recoveries against JAX's Trainer with the same
+    # plan on its 8-device CPU mesh, at tests/test_torch_train.py's
+    # tolerances (losses rtol 1e-5 for the MLP and 1e-4 for the
+    # transformer task, flat rtol 1e-4 / atol 1e-6)
+    want = _jax_recovery(name, 8, tmp_path)
+    rtol = 1e-4 if "transformer" in name else 1e-5
+    for r in job2:
+        got = r["recovery"][name]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=rtol)
+        n = got["flat"].size
+        np.testing.assert_allclose(got["flat"], want["flat"][:n], rtol=1e-4,
+                                   atol=1e-6)
+        if "resumed" in want:
+            np.testing.assert_allclose(got["resumed"], want["resumed"],
+                                       rtol=rtol)

@@ -40,11 +40,14 @@ def test_shipped_schedules_verify(name, p):
 
 def test_schedules_cover_every_cross_process_protocol():
     # peer_call's region copy (K10/K11), K12's cross-process route, the
-    # rings of K13/K14 (to -1), K15 and K9 (to +1), the tp/dp all-reduce
+    # rings of K13/K14 (to -1), K15 and K9 (to +1), the tp/dp all-reduce,
+    # the chunked checkpoint's publish and restore and the Trainer's
+    # cross-process shrink
     assert set(protocol.KERNEL_NAMES) == {
         "region_copy", "reduce_scatter", "ring_allgather_matmul",
         "ring_allgather_matmul_rhs", "ring_matmul_reducescatter",
-        "ring_attention", "tp_allreduce"}
+        "ring_attention", "tp_allreduce", "chunked_publish", "job_restore",
+        "job_restore_clean", "job_shrink"}
     assert set(rs.CALL_SCHEDULES.values()) <= set(protocol.KERNEL_NAMES)
 
 
@@ -93,7 +96,7 @@ def test_verify_protocols_end_to_end():
 def test_every_invariant_has_a_refuted_mutant():
     rep = protocol.verify_protocols(ps=(2,))
     kinds = {protocol.INVARIANTS[m.kind] for m in rep["mutants"]}
-    assert kinds == {"a", "b", "c", "d", "e"}
+    assert kinds == {"a", "b", "c", "d", "e", "f", "g"}
     got = {m.mutation for m in rep["mutants"]}
     assert got == set(protocol.MUTATIONS)
 
@@ -240,6 +243,8 @@ def _replay(sched, proc):
             rs.record("unmap")
         elif isinstance(ins, rs.Barrier):
             rs.record("barrier", ins.name)
+        elif isinstance(ins, (rs.Write, rs.Mark, rs.Verify, rs.Restore)):
+            rs.record(type(ins).__name__.lower())
 
 
 @pytest.mark.parametrize("name", protocol.KERNEL_NAMES)
@@ -251,7 +256,7 @@ def test_replayed_programs_give_their_schedules_events(name, p):
             _replay(sched, proc)
         assert {e.partition(":")[0] for e in seen} <= set(rs.EVENT_KINDS)
         assert rs.call_events(seen) == rs.events(sched, proc)
-        assert rs.conform(seen, p) == []
+        assert rs.conform(seen, p, proc) == []
 
 
 def test_hook_does_nothing_when_unset():
