@@ -24,8 +24,12 @@
      1, 8 and 16, all four Dirichlet flag settings, random weights on the
      generic route and the Laplacian on the 5-point route, every call on
      the route ``multistep_route`` picks;
-   - both stencils in float16, bfloat16 and int32 (``TYPED_SHAPES``, K2
-     also at 1x8192 and off its alignment; float16 K3 at k = 1 and 8).
+   - both stencils in float16, bfloat16, int32, int8, uint8, int16,
+     uint16, uint32 and bool (``TYPED_SHAPES``, K2 also at 1x8192 and off
+     its alignment; K3 at k = 1 and 8 in float16 and the six types
+     added after int32), on both routes (the
+     unsigned types with nonnegative weights: ``FIVE_POINT_2`` on the
+     5-point route).
    Stencils bit for bit (``exact``: the kernels sum in the plain order
    without FMA contraction).
 3. Runs the five BASELINE.md configurations through the public API on one
@@ -54,10 +58,13 @@
    16384^2 (4,1)x(4,1), relative Frobenius error <= 1e-5 in f32 and
    <= 1e-2 in bf16 (per-step product order and rounding).
 4. Runs a (4,1) stencil and a (2,2)x(2,2) GEMM with four ranks on the one
-   card and compares them with the one-rank results; then ``stencil5`` of
-   8192^2 (4,1) DArrays in float16, bfloat16 and int32 through K2 and K3,
-   bit for bit against the plain steps on the card and on the host, and
-   an int8 one refused with ``TypeError`` (``stencil_dtypes``).
+   card and compares them with the one-rank results; then ``stencil3x3``
+   of 8192^2 (4,1) DArrays in float16, bfloat16, int32, int8, uint8,
+   int16, uint16, uint32 and bool through K2 and K3 (the Laplacian; the
+   unsigned types the nonnegative generic ``ONES_3X3``), with their route
+   counts, bit for bit against the plain steps on the card and on the
+   host, and a complex64 one refused with ``TypeError``
+   (``stencil_dtypes``).
 5. Distributed GEMM at BASELINE config 3's size (16384^2 f32) with four
    ranks on the one card, launch counts set to 0 just before and read just
    after: ``A @ B`` on (2,2)x(2,2) under the default and under
@@ -416,8 +423,10 @@
    the aggregator's snapshot show 4 hosts.  After the Trainer each child
    runs the GSPMD tp/dp step (``multihost_tp_dp``: ``MH_TP_CFG``, the
    flagship's width at 2 layers and seq 512, bf16, two SGD steps on
-   ``make_mesh(4)``), its losses and unsharded parameters bit-equal to one
-   process on 4 ranks, with K12 and K10 on their cross-process routes;
+   ``make_mesh(4)``, then two sampling ``generate`` calls at temperature
+   1 with one seeded generator, ``MH_TP_SAMPLE``), its losses, unsharded
+   parameters and both calls' tokens bit-equal to one process on 4
+   ranks, with K12 and K10 on their cross-process routes;
    then the protocol model's conformance (``multihost_protocol``): one
    call each of K9, K13, K14, K15, K10 and K12 on bf16 rank lists, and
    the tp/dp step, with their events recorded (``ring_schedules.
@@ -469,7 +478,9 @@ turns, and the sequence-parallel SGD step's K8 device time, through the
 package under DIR, for a parent and a change timed in turns on one card.
 
 ``python3 chip_smoke.py --time-k3-k10 [DIR]`` times K3 (8192^2, k = 8,
-both Dirichlet settings, both routes) beside ``F.conv2d`` x 8, K2, K10
+both Dirichlet settings, both routes) beside ``F.conv2d`` x 8, K2 (and
+K2 and K3 in every other dtype the kernels take, each with its bytes
+bound and ``F.conv2d``'s time or its error in that dtype), K10
 (16384^2 f32 on 4 ranks, dims 0 and 1) beside ``torch.cat`` per rank and
 K11 beside ``torch.cat`` of its pieces, through the package under DIR,
 for a parent and a change timed in turns on one card; ``python3
@@ -582,14 +593,21 @@ def quant_err(x: torch.Tensor, ref: torch.Tensor) -> float:
     return float((x.float() - ref).abs().max() / ref.abs().max())
 
 
+def _signed(t: torch.Tensor) -> torch.Tensor:
+    """uint16 and uint32 (which torch compares little on) as the bits of
+    the signed type of their width; other tensors as they are."""
+    return t.view({torch.uint16: torch.int16, torch.uint32: torch.int32}.get(
+        t.dtype, t.dtype))
+
+
 def exact(what: str, got, ref) -> float:
     """Assert bit equality of two tensors (or lists); the max abs error."""
     got = got if isinstance(got, (list, tuple)) else [got]
     ref = ref if isinstance(ref, (list, tuple)) else [ref]
     torch.cuda.synchronize()
     same = len(got) == len(ref) and all(
-        g.dtype == r.dtype and g.device == r.device and torch.equal(g, r)
-        for g, r in zip(got, ref))
+        g.dtype == r.dtype and g.device == r.device and
+        torch.equal(_signed(g), _signed(r)) for g, r in zip(got, ref))
     err = max(max_abs(g, r) for g, r in zip(got, ref))
     print(f"  {what}: bit-exact={same} max_abs_err={err}")
     if not same:
@@ -2423,8 +2441,8 @@ def sort_fft_conv_only() -> int:
 # the solvers phase: bench.py's cg_poisson row (cfg_cg_poisson) at its own
 # size, the multigrid solve, the chaos solve
 CG_N, CG_TOL, CG_MAXITER = 1024, 1e-6, 6000
-MG_N = 4096
-CHAOS_N, CHAOS_AT = 1024, 25
+MG_N = 2048          # 4096 until PR 28 cut it for the time limit
+CHAOS_N, CHAOS_AT = 256, 25
 CG_PROFILE_ITERS = 300
 # a solve's residual recomputed with the plain step against the solver's
 # own recurrence, relative to ||b||.  In float32 the recurrence drifts from
@@ -2435,7 +2453,8 @@ CG_PROFILE_ITERS = 300
 # bound sits between the sound readings and that one.
 TOL_TRUE_RES = 1e-3
 # the chaos solve's answer against the fault-free one (read 1.438e-6 at
-# 1024^2 on an H100)
+# 1024^2 on an H100, where the solve ran until PR 28 cut it to 256^2 for
+# the script's time limit)
 TOL_CHAOS = 1e-4
 # the small solves of small_solves: the float64 residual and the answer
 # against the float64 oracle (the solves stop at 1e-6; read 3e-7 to 1.2e-6
@@ -2507,8 +2526,8 @@ def solvers_phase(tdat, errs: dict) -> dict:
     ``cg(tol=1e-6, maxiter=6000)``) on one rank, whose every operator apply
     is one K2 launch (``stencil_step`` on the Poisson weights, held bit for
     bit against its plain step first); the multigrid-preconditioned CG on
-    ``StencilOperator((4096, 4096))`` over 4 ranks of the card (K2 on every
-    level whose grid splits); the chaos solve (4 ranks, 1024^2, a
+    ``StencilOperator((MG_N, MG_N))`` over 4 ranks of the card (K2 on every
+    level whose grid splits); the chaos solve (4 ranks, ``CHAOS_N``^2, a
     ``device_loss`` of rank 3 at ``solver.iterate``) that shrinks onto the
     survivors through the reshard (K10/K11) and converges with one
     recovery to the fault-free answer; K2 held bit for bit against the
@@ -2554,8 +2573,14 @@ def solvers_phase(tdat, errs: dict) -> dict:
         return S.cg(op, b, tol=CG_TOL, maxiter=CG_MAXITER)
     kbuild.reset_launches()
     tm.reset()
+    # time to tolerance on the host clock: this solve, the kernel loaded
+    # and held above (a second, timed solve ran until PR 28 cut it for
+    # the script's time limit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     res = solve()
     torch.cuda.synchronize()
+    out["ms"]["cg_time_to_tolerance"] = (time.perf_counter() - t0) * 1e3
     counts = kbuild.launch_counts()
     applies = res.iterations + 1          # the initial residual, then one
     spmv = tm.span_stats()["solver.spmv"]["count"]
@@ -2581,17 +2606,6 @@ def solvers_phase(tdat, errs: dict) -> dict:
     out["cg_residual"] = res.residual
     out["cg_true_residual"] = true
     out["launches"]["cg"] = counts
-    # time to tolerance: the second solve, on the host clock
-    t_solve = [None]
-
-    def timed():
-        r = solve()
-        t_solve[0] = r.iterations
-        r.x.close()
-    out["ms"]["cg_time_to_tolerance"] = wall_ms(timed)
-    if t_solve[0] != res.iterations:
-        raise AssertionError(f"cg {n}^2: the timed solve took {t_solve[0]} "
-                             f"iterations, the first {res.iterations}")
     per_iter = perf.spmv_cost(5 * n * n, n * n, 4,
                               index_itemsize=0)["bytes_hbm"] + 10 * n * n * 4
     out["cg_gbps"] = res.iterations * per_iter / (
@@ -2692,7 +2706,9 @@ def solvers_phase(tdat, errs: dict) -> dict:
     nc = CHAOS_N
     opc = S.StencilOperator((nc, nc))
     procs, dist = opc.vector_layout()
-    bc = tdat.distribute(rhs, procs=procs, dist=list(dist))
+    bc = tdat.distribute(rhs if nc == n else np.random.default_rng(
+        7).standard_normal((nc, nc)).astype(np.float32), procs=procs,
+        dist=list(dist))
     free = S.cg(opc, bc, tol=CG_TOL, maxiter=CG_MAXITER)
     if not free.converged or free.recoveries:
         raise AssertionError(f"fault-free cg: {free.outcome}")
@@ -4181,15 +4197,41 @@ K2_SHAPES = K3_SHAPES + ((1, 8192),)
 # others; float16 takes K3 to 8 steps (with its values scaled by 2^-12, so
 # that 8 Laplacian steps stay finite)
 TYPED_SHAPES = ((1024, 2048), (1000, 777), (7, 8193))
+# the unsigned types take no negative weight (the cast raises numpy's
+# OverflowError, as in the JAX package): the 5-point route's shape with a
+# centre of 2, and nonnegative generic weights
+UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+FIVE_POINT_2 = ((0.0, 1.0, 0.0), (1.0, 2.0, 1.0), (0.0, 1.0, 0.0))
+ONES_3X3 = ((1.0, 1.0, 1.0),) * 3
 
 
 def typed_grid(randn, shape, dt) -> torch.Tensor:
     """Seeded values of ``dt`` on the card: normal floats (float16 scaled
-    by 2^-12, part of them subnormal), integers of normal x 1000."""
+    by 2^-12, part of them subnormal), int32 of normal x 1000, the
+    narrower integer types and uint32 wrapped from normal x 2^20 (so that
+    the steps wrap), bools where normal > 0."""
     x = randn(*shape)
     if dt == torch.float16:
         return (x * 2.0 ** -12).to(dt)
-    return x.to(dt) if dt.is_floating_point else (x * 1000).round().to(dt)
+    if dt == torch.bool:
+        return x > 0
+    if dt == torch.int32:
+        return (x * 1000).round().to(dt)
+    return x.to(dt) if dt.is_floating_point else \
+        (x * 2.0 ** 20).to(torch.int32).to(dt)
+
+
+def typed_routes(dt, wts) -> tuple:
+    """``(weights, route)`` of both routes for blocks of ``dt``: the
+    random weights x 3 (so that the integer types keep nonzero ones; their
+    magnitudes for an unsigned type) and the Laplacian (``FIVE_POINT_2``
+    for an unsigned type)."""
+    w3 = tuple(tuple(3 * v for v in row) for row in wts)
+    if dt in UNSIGNED:
+        return ((tuple(tuple(abs(v) for v in row) for row in w3), "generic"),
+                (FIVE_POINT_2, "five_point"))
+    from distributedarrays_tpu_torch.ops import cuda_stencil as CS
+    return ((w3, "generic"), (CS.LAPLACIAN_3X3, "five_point"))
 
 
 def stencil_kernels(randn, errs) -> None:
@@ -4200,9 +4242,11 @@ def stencil_kernels(randn, errs) -> None:
     path); K3 at every ``K3_SHAPES`` x ``K3_STEPS`` with nonzero halo
     slabs, all four Dirichlet settings, both routes.  Then both kernels in
     each other dtype the kernels take, the same checks at ``TYPED_SHAPES``
-    (K2 also at (1, 8192) and off its alignment), with the random weights
-    x 3 so that int32 keeps nonzero ones.  Every call on the route
-    ``multistep_route`` picks."""
+    (K2 also at (1, 8192) and off its alignment; K3 at k = 1 and 8 in
+    float16 and in the types added after int32), with ``typed_routes``'
+    weights: the random weights x 3 so that the integer types keep nonzero
+    ones, nonnegative weights on both routes for the unsigned types.
+    Every call on the route ``multistep_route`` picks."""
     from distributedarrays_tpu_torch.ops import cuda_stencil as CS
     wts = tuple(tuple(float(v) for v in row)
                 for row in np.random.default_rng(1).uniform(-1, 1, (3, 3)))
@@ -4243,10 +4287,9 @@ def stencil_kernels(randn, errs) -> None:
                 f"stencil multistep {m}x{n} k={k}: both routes, all four "
                 "Dirichlet settings", got, ref))
     del x, xm, got, ref
-    routes = ((tuple(tuple(3 * v for v in row) for row in wts), "generic"),
-              (CS.LAPLACIAN_3X3, "five_point"))
     for dt in CS.KERNEL_DTYPES[1:]:
         name = str(dt).removeprefix("torch.")
+        routes = typed_routes(dt, wts)
         for m, n in TYPED_SHAPES + ((1, 8192), (1000, 776)):
             off = int(n == 776)     # the block's base one element on
             x = typed_grid(randn, (m * n + off,), dt)[off:].view(m, n)
@@ -4261,7 +4304,8 @@ def stencil_kernels(randn, errs) -> None:
                  for w, _ in routes]))
         for m, n in TYPED_SHAPES:
             x = typed_grid(randn, (m, n), dt)
-            for k in (1, 8) if dt == torch.float16 else K3_STEPS:
+            for k in K3_STEPS if dt in (torch.bfloat16, torch.int32) \
+                    else (1, 8):
                 lo, hi = (typed_grid(randn, (k, n), dt) for _ in range(2))
                 got, ref = [], []
                 for w, route in routes:
@@ -4280,52 +4324,56 @@ def stencil_kernels(randn, errs) -> None:
 
 
 def stencil_dtypes(tdat, randn) -> None:
-    """``stencil5`` of 8192^2 DArrays in (4, 1) rows on the card in each
+    """``stencil3x3`` of 8192^2 DArrays in (4, 1) rows on the card in each
     other dtype the kernels take, one step and three: K2 and K3 launched
-    once a rank on the 5-point route, the result of the DArray's dtype and
-    bit for bit the plain steps' on the card (``use_kernel=False``) and, on
-    rows 1536..2559 (across the first rank boundary), the plain step on the
-    host from a copy of the input.  A dtype the kernels do not take (int8)
-    raises ``TypeError`` on the card unless the plain steps are asked for."""
+    once a rank on the route ``multistep_route`` picks (the Laplacian's
+    5-point route through ``stencil5``; the unsigned types, which take no
+    negative weight, the nonnegative generic ``ONES_3X3``), the result of
+    the DArray's dtype and bit for bit the plain steps' on the card
+    (``use_kernel=False``) and, on rows 1536..2559 (across the first rank
+    boundary), the plain step on the host from a copy of the input.
+    complex64, which the TPU kernel refuses too, raises ``TypeError`` on
+    the card unless the plain steps are asked for."""
     from distributedarrays_tpu_torch.ops import cuda_stencil as CS
     from distributedarrays_tpu_torch.utils import kbuild
-    lap = CS.LAPLACIAN_3X3
     r0, r1 = 1536, 2560
     for dt in CS.KERNEL_DTYPES[1:]:
+        w = ONES_3X3 if dt in UNSIGNED else CS.LAPLACIAN_3X3
+        route = CS.multistep_route(w)
         G = tdat.distribute(typed_grid(randn, (8192, 8192), dt), dist=(4, 1))
         for iters in (1, 3):
             kbuild.reset_launches()
-            got = tdat.stencil5(G, iters=iters)
+            got = tdat.stencil3x3(G, w, iters=iters)
             kernel = "stencil_step" if iters == 1 else "stencil_multistep"
-            expect_routes(f"stencil5 {dt} iters={iters}", kernel,
-                          {"five_point": 4})
+            expect_routes(f"stencil3x3 {dt} iters={iters}", kernel,
+                          {route: 4})
             if got.dtype != dt:
-                raise AssertionError(f"stencil5 {dt} returned {got.dtype}")
+                raise AssertionError(f"stencil3x3 {dt} returned {got.dtype}")
             full = got.full()
-            exact(f"stencil5 {dt} iters={iters} (K2/K3) against the plain "
-                  "steps on the card", full,
-                  tdat.stencil5(G, iters, use_kernel=False).full())
+            exact(f"stencil3x3 {dt} iters={iters} (K2/K3, {route}) against "
+                  "the plain steps on the card", full,
+                  tdat.stencil3x3(G, w, iters, use_kernel=False).full())
             if iters == 1:
                 x = G.full()[r0 - 1:r1 + 1].cpu()
-                exact(f"stencil5 {dt} rows {r0}..{r1 - 1} against the plain "
-                      "step on the host", full[r0:r1].cpu(),
-                      CS._apply3x3(x, lap))
+                exact(f"stencil3x3 {dt} rows {r0}..{r1 - 1} against the "
+                      "plain step on the host", full[r0:r1].cpu(),
+                      CS._apply3x3(x, w))
         G.close()
         got.close()
         del full
-    G = tdat.distribute(typed_grid(randn, (512, 512), torch.int32).to(
-        torch.int8), dist=(4, 1))
+    G = tdat.distribute(torch.complex(randn(512, 512), randn(512, 512)),
+                        dist=(4, 1))
     for choice in (None, True):
         try:
             tdat.stencil5(G, use_kernel=choice)
         except TypeError as e:
-            print(f"  stencil5 int8 use_kernel={choice}: TypeError ({e})")
+            print(f"  stencil5 complex64 use_kernel={choice}: TypeError ({e})")
         else:
-            raise AssertionError(f"stencil5 int8 use_kernel={choice} ran")
+            raise AssertionError(f"stencil5 complex64 use_kernel={choice} ran")
     kbuild.reset_launches()
     got = tdat.stencil5(G, use_kernel=False)
-    if got.dtype != torch.int8 or any(kbuild.launch_counts().values()):
-        raise AssertionError("stencil5 int8 use_kernel=False: "
+    if got.dtype != torch.complex64 or any(kbuild.launch_counts().values()):
+        raise AssertionError("stencil5 complex64 use_kernel=False: "
                              f"{got.dtype}, {kbuild.launch_counts()}")
     tdat.d_closeall()
 
@@ -4407,8 +4455,11 @@ def k3_k10_times(root: str | None = None) -> int:
     Laplacian with both Dirichlet settings and random weights, beside
     ``F.conv2d`` x 8 (TF32 off); K2 at 8192^2 with the Laplacian and
     random weights, beside K3 at k = 1 (K2's other design) on both routes
-    and one ``F.conv2d`` step; K2 and K3 (k = 8, the Laplacian) in
-    bfloat16, float16 and int32 where the tree's kernels take them; the
+    and one ``F.conv2d`` step; K2 and K3 (k = 8, the Laplacian, or
+    ``FIVE_POINT_2`` for the unsigned types) in bfloat16, float16, int32,
+    int8, uint8, int16, uint16, uint32 and bool where the tree's kernels
+    take them, with their bytes bounds and one ``F.conv2d`` step in each
+    type (or the error where it refuses the type on the card); the
     all-gather K10 of a 16384^2 f32 array in 4 row blocks on 4 ranks,
     along dims 0 and 1, beside ``torch.cat`` per rank; the all-to-all K11
     (split 1, concat 0) beside ``torch.cat`` of the pieces; K10 and K11
@@ -4482,19 +4533,44 @@ def k3_k10_times(root: str | None = None) -> int:
     xin = torch.cat([lo1, x, hi1])[None, None]
     times["F.conv2d x 1"] = time_ms(
         lambda: F.conv2d(xin, wk, padding=(0, 1)))
-    # the other dtypes' routes, where the tree's kernels take them
-    for dt in (torch.bfloat16, torch.float16, torch.int32):
+    # the other dtypes' routes, where the tree's kernels take them: the
+    # Laplacian (the 5-point route; FIVE_POINT_2 for the unsigned types),
+    # each with its bytes bound (one read and one write of the grid; the
+    # halo rows are left out, as in the f32 rows of PERF.md) and
+    # F.conv2d's time where it takes the type on the card, else its error
+    for dt in (torch.bfloat16, torch.float16, torch.int32, torch.int8,
+               torch.uint8, torch.int16, torch.uint16, torch.uint32,
+               torch.bool):
         if not (hasattr(CS, "KERNEL_DTYPES") and CS.supports(dt)):
             continue
         name = str(dt).removeprefix("torch.")
-        xt, lt, ht = x.to(dt), lo1.to(dt), hi1.to(dt)
+        w = FIVE_POINT_2 if dt in UNSIGNED else lap
+        wname = "FIVE_POINT_2" if dt in UNSIGNED else "Laplacian"
+        xt, lt, ht = (t.to(dt) if dt in (torch.bfloat16, torch.float16,
+                                         torch.int32)
+                      else typed_grid(lambda *sh: t, t.shape, dt)
+                      for t in (x, lo1, hi1))
         lkt, hkt = lok.to(dt), hik.to(dt)
-        both(f"K2 8192^2 {name} Laplacian",
-             lambda: CS.stencil3x3_block(xt, lt, ht, lap))
-        both(f"K3 8192^2 {name} k=8 Laplacian dirichlet=(True, True)",
-             lambda: CS.stencil3x3_multistep(xt, lkt, hkt, K, True, True,
-                                             lap))
-        del xt
+        size = xt.element_size()
+        both(f"K2 8192^2 {name} {wname}",
+             lambda: CS.stencil3x3_block(xt, lt, ht, w))
+        times[f"K2 8192^2 {name} bytes bound"] = \
+            2 * n * n * size / HBM_BYTES_S * 1e3
+        both(f"K3 8192^2 {name} k=8 {wname} dirichlet=(True, True)",
+             lambda: CS.stencil3x3_multistep(xt, lkt, hkt, K, True, True, w))
+        times[f"K3 8192^2 {name} k=8 bytes bound"] = \
+            2 * n * n * size / HBM_BYTES_S * 1e3
+        xint = torch.cat([lt, xt, ht])[None, None]
+        wt = torch.tensor(w, device=dev).to(dt)[None, None]
+        try:
+            F.conv2d(xint, wt, padding=(0, 1))
+        except (RuntimeError, NotImplementedError) as e:
+            times[f"F.conv2d x 1 {name}"] = \
+                f"— ({type(e).__name__}: {str(e).splitlines()[0][:160]})"
+        else:
+            times[f"F.conv2d x 1 {name}"] = time_ms(
+                lambda: F.conv2d(xint, wt, padding=(0, 1)))
+        del xt, xint
     del x, xin
     blocks = [torch.randn(4096, 16384, generator=gen, device=dev)
               for _ in range(4)]
@@ -6477,13 +6553,12 @@ def _cpu_ms(fn):
 def recovery_reference(tdat) -> dict:
     """One process on 4 ranks of the card with ``recovery_plan``: the
     Trainer's ``MH_RECOVERY_CALLS`` steps (npz checkpoints every 2, one
-    process's store), their losses and the flat parameters' digest; then
-    the one-process npz and chunked saves (and loads) of the final state,
-    timed."""
+    process's store), their losses and the flat parameters' digest.  (The
+    one-process npz and chunked saves of this state are timed once, by
+    the train-runtime phase, which saves the same 1.43 GB.)"""
     import shutil
     import tempfile
     from distributedarrays_tpu_torch.resilience import elastic, faults
-    from distributedarrays_tpu_torch.utils import checkpoint as CK
     train = tdat.train
     tdat.init(nranks=MH_PROCS)
     faults.clear()
@@ -6498,17 +6573,6 @@ def recovery_reference(tdat) -> dict:
             out["losses"] = [t.step_once() for _ in range(MH_RECOVERY_CALLS)]
             out["flat_sha"] = _sha256(t.flat_params())
             out["ranks"] = [int(r) for r in t._state["pflat"].pids.flat]
-            tree = t._ckpt_tree()
-            nbytes = sum(tree[k].size * 4 for k in MH_RECOVERY_STATE)
-            for store in ("npz", "chunks"):
-                where = os.path.join(root, store)
-                _, ms, _ = _cpu_ms(lambda: CK.save(where, tree, store=store))
-                back, load_ms, _ = _cpu_ms(lambda: CK.load(where))
-                for k in MH_RECOVERY_STATE:
-                    back[k].close()
-                out[f"one_process_{store}"] = {
-                    "save_s": ms / 1e3, "gb_per_s": nbytes / ms / 1e6,
-                    "load_s": load_ms / 1e3, "bytes": nbytes}
     finally:
         faults.clear()
         elastic.manager().reset()
@@ -6798,8 +6862,6 @@ def multihost_recovery_row(res, ref, single) -> dict:
         "corrupt_restore_ms": [x["restores"][1]["ms"] for x in rec],
         "single_process_restore_ms": single["ms"],
         "single_process_restore_host_cpu_ms": single["host_cpu_ms"],
-        "one_process_saves": {k: ref[k] for k in ("one_process_npz",
-                                                  "one_process_chunks")},
         "calls_conforming": [x["calls"] for x in rec],
         "peak_gib": [x["peak_gib"] for x in rec],
         "straggler": {"losses": rec[0]["straggler"]["losses"],
@@ -6816,6 +6878,7 @@ def multihost_recovery_row(res, ref, single) -> dict:
 MH_TP_CFG = (8192, 1024, 16, 2, 4, 512)   # the flagship's width, 2 layers
 MH_TP_STEPS = 2
 MH_TP_SEED = MH_SEED + 21
+MH_TP_SAMPLE = (2, 4)       # sampling: a (4, 2) prompt, 4 new tokens
 # each recorded call's protocol, by the tag of its closing barrier
 MH_PROTOCOL_CALLS = {"K9": ("ring_attention", "ring_attention"),
                      "K13": ("allgather_matmul", "ring_gemm"),
@@ -6828,9 +6891,13 @@ MH_PROTOCOL_CALLS = {"K9": ("ring_attention", "ring_attention"),
 def multihost_tp_dp_run(tdat) -> dict:
     """``MH_TP_STEPS`` SGD ``train_step``s of the transformer at
     ``MH_TP_CFG`` bf16 on ``shard_params``' layout over ``make_mesh`` of
-    every rank, from seeded weights and tokens (4, seq + 1): the losses'
-    bits and the unsharded parameters' SHA-256 (one process on 4 ranks
-    and the 4 processes compute the same)."""
+    every rank, from seeded weights and tokens (4, seq + 1), then two
+    sampling ``generate`` calls at ``temperature=1.0`` with one generator
+    seeded ``MH_TP_SEED + 1`` (``MH_TP_SAMPLE``: prompt and new tokens;
+    the second call starts where the first left the generator): the
+    losses' bits, the unsharded parameters' and each call's tokens'
+    SHA-256 (one process on 4 ranks and the 4 processes compute the
+    same)."""
     T = tdat.transformer
     dev = tdat.layout.local_device()
     cfg = T.Config(*MH_TP_CFG, torch.bfloat16)
@@ -6842,8 +6909,16 @@ def multihost_tp_dp_run(tdat) -> dict:
     losses = [T.train_step(sp, tokens, TRAIN_LR, cfg)[1]
               for _ in range(MH_TP_STEPS)]
     whole = T.unshard(sp)
+    sgen = torch.Generator(device=dev).manual_seed(MH_TP_SEED + 1)
+    prompt, new = MH_TP_SAMPLE
+    samples = [T.generate(sp, tokens[:, :prompt], new, cfg, temperature=1.0,
+                          generator=sgen) for _ in range(2)]
+    if torch.equal(samples[0], samples[1]):
+        raise AssertionError("the second sampling call drew the first's "
+                             "tokens: the generator did not advance")
     return {"losses": [_bits(x) for x in losses],
-            "params": {n: _sha256(p) for n, p in whole.named_parameters()}}
+            "params": {n: _sha256(p) for n, p in whole.named_parameters()},
+            "samples": [_sha256(t) for t in samples]}
 
 
 def multihost_tp_dp(tdat, MH, kbuild) -> dict:
@@ -6928,6 +7003,10 @@ def _check_tp_dp_and_protocol(res, ref) -> None:
                                  f"differs from one process's (losses "
                                  f"{got['losses']} / {ref['losses']}, "
                                  f"parameters {bad[:4]})")
+        if got["samples"] != ref["samples"]:
+            raise AssertionError(f"process {r['process']}: the sampled "
+                                 f"tokens {got['samples']} differ from one "
+                                 f"process's {ref['samples']}")
         if not all(got["cross_process"].values()) or \
                 not all(got["launches"].values()):
             raise AssertionError(f"process {r['process']}: tp/dp launches "
@@ -8073,8 +8152,10 @@ TOL_TP_LOGITS = TOL_SERVE_BF16
 
 
 def faults_on_card(tdat) -> None:
-    """C27-C29 on the card, 4 ranks: uint16 and uint32 operators, product,
-    extrema and scans (computed in the wider signed type, wrapped back)
+    """C27-C29 and C33 on the card, 4 ranks: uint16 and uint32 operators,
+    product, extrema and scans (computed in the wider signed type, wrapped
+    back), ``dmap``, ``dcount`` and ``dnnz`` of them (each op on the
+    widened chunk, its result of the type the op gives the unwidened one)
     and complex orderings and running extrema (lexicographic), each
     against numpy on the same values; ``dmap``'s int64 result narrowed to
     int32."""
@@ -8109,8 +8190,23 @@ def faults_on_card(tdat) -> None:
                 ("dcummax", tdat.dcummax(d, 0),
                  np.maximum.accumulate(x, 0)),
                 ("dcummin", tdat.dcummin(d, 1),
-                 np.minimum.accumulate(x, 1))):
+                 np.minimum.accumulate(x, 1)),
+                ("dmap x + x", tdat.dmap(lambda a: a + a, d), x + x),
+                ("dmap (x + x) as int32",
+                 tdat.dmap(lambda a: (a + a).to(torch.int32), d),
+                 (x + x).astype(np.int32)),
+                ("dcount x > 30000", tdat.dcount(lambda a: a > 30000, d),
+                 np.asarray((x > 30000).sum()))):
             same(f"{np.dtype(dt).name} {what}", got, want)
+        for fn, want in ((lambda a: a + a, d.dtype),
+                         (lambda a: a > 1, torch.bool),
+                         (lambda a: (a + 1).to(torch.int32), torch.int32),
+                         (lambda a: a * 0.5, torch.float32)):
+            if tdat.dmap(fn, d).dtype != want:
+                raise AssertionError(f"{np.dtype(dt).name} dmap: "
+                                     f"{tdat.dmap(fn, d).dtype} != {want}")
+        if tdat.dnnz(d) != np.count_nonzero(x):
+            raise AssertionError(f"{np.dtype(dt).name} dnnz on the card")
         same(f"{np.dtype(dt).name} dmaximum", tdat.dmaximum(d),
              np.asarray(x.max()))
         same(f"{np.dtype(dt).name} dminimum dims=0",
@@ -8131,9 +8227,9 @@ def faults_on_card(tdat) -> None:
     if tdat.dmap(lambda a: a * 3, b).dtype != torch.int32:
         raise AssertionError("dmap of bool * 3 is not int32")
     tdat.d_closeall()
-    print("  C27-C29 on the card: uint16/uint32 operators, @, extrema and "
-          "scans, complex orderings and running extrema, dmap's int32: "
-          "as numpy")
+    print("  C27-C29 and C33 on the card: uint16/uint32 operators, @, "
+          "extrema, scans, dmap, dcount and dnnz, complex orderings and "
+          "running extrema, dmap's int32: as numpy")
 
 
 # the device symbols of K10's and K12's kernels alone (``KERNEL_SYMBOLS``'
@@ -8345,6 +8441,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+
+    def clock(what: str) -> None:
+        """The script's seconds so far (the time limit is the whole
+        run's), after ``what``."""
+        print(f"  [{time.perf_counter() - t_start:.1f} s] {what} done")
+
     import torch.nn.functional as F
 
     import distributedarrays_tpu_torch as tdat
@@ -8365,6 +8468,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kbuild.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    clock("build")
     for stem, log in sorted(kbuild.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -8382,13 +8486,16 @@ def main() -> int:
     # -- 2. kernels against their plain versions ---------------------------
     print("phase kernels")
     gemm_kernels(randn, errs)
+    clock("gemm_kernels")
     stencil_kernels(randn, errs)
+    clock("stencil_kernels")
     ms, ns = 8192, 8192
     K = 8
 
     n16 = 16384
     int8_kernels(gen, dev, errs)
     collective_kernels(randn, errs)
+    clock("collective_kernels")
     P4 = 4
     blocks = [randn(n16 // P4, n16) for _ in range(P4)]
     for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
@@ -8470,6 +8577,7 @@ def main() -> int:
     expect_routes("main path", "stencil_step", {"five_point": 1})
 
     # -- 4. four ranks on the one card --------------------------------------
+    clock("main path")
     print("phase 4 ranks")
     tdat.init(nranks=4)
     G4 = tdat.distribute(G.full(), dist=(4, 1))
@@ -8483,8 +8591,10 @@ def main() -> int:
     check("A @ B (2,2)x(2,2) vs 1 rank", rel_err((A4 @ B4).full(),
                                                   C0.full()), TOL_F32)
     tdat.d_closeall()
+    clock("4 ranks")
     print("phase stencil dtypes (4 ranks)")
     stencil_dtypes(tdat, randn)
+    clock("stencil_dtypes")
     del G, S16, S1, G4, A4, B4, C0, C1, A, B, At, Bt
     torch.cuda.empty_cache()
 
@@ -8540,34 +8650,54 @@ def main() -> int:
     tdat.d_closeall()
     del A41, B41, Y14, At, Bt, Cref
     torch.cuda.empty_cache()
+    clock("distributed GEMM")
     counts_surface = reference_surface(tdat, cuda_collectives)
+    clock("reference_surface")
     counts_reshard = reshard_spmd(tdat)
+    clock("reshard_spmd")
     sfc = sort_fft_conv(tdat, cuda_collectives)
+    clock("sort_fft_conv")
     slv = solvers_phase(tdat, errs)
+    clock("solvers")
     srv = serve_phase(tdat, errs)
+    clock("serve")
     mdl = models_phase(tdat, errs)
+    clock("models")
 
     # -- 6. attention: kernels, serving, sequence parallel -----------------
     attention_kernels(randn, errs)
+    clock("attention_kernels")
     counts_serve = serving(tdat, dev)
+    clock("serving")
     counts_sp = sequence_parallel(tdat)
+    clock("sequence_parallel")
 
     # -- 7. training: kernels, train_step, the data-parallel Trainer -------
     training_kernels(randn, errs)
+    clock("training_kernels")
     ring_gemm_kernels(randn, errs)
+    clock("ring_gemm_kernels")
     counts_train = training(tdat, dev)
+    clock("training")
     counts_trainer = trainer_phase(tdat)
+    clock("trainer")
     tele = telemetry_phase(tdat)
+    clock("telemetry")
     adv = advise_phase(tdat, smi)
+    clock("advise")
     trt = train_runtime_phase(tdat)
+    clock("train_runtime")
     counts_sp_train = sp_training(tdat, dev)
+    clock("sp_training")
     tpdp = tp_dp_phase(tdat, smi)
+    clock("tp_dp")
 
     # -- 8. ranks on several cards ------------------------------------------
     across_cards(tdat, cuda_collectives)
 
     # -- 8b. several processes on the card -----------------------------------
     mh = multihost_phase(tdat)
+    clock("multihost")
     tdat.init()
 
     # -- 5. timings ---------------------------------------------------------
@@ -8790,6 +8920,7 @@ def main() -> int:
     extra["advise"] = {k: v for k, v in adv.items() if k != "actions"}
     print(json.dumps({"timings_extra": extra, "gpu": smi}))
     print(json.dumps({"kernels": kernels}))
+    clock("timings")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

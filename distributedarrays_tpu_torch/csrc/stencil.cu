@@ -1,5 +1,7 @@
 // Weighted 3x3 stencil kernels for Hopper (sm_90a), for float32, float16,
-// bfloat16 and int32 grids (a DArray narrows 64-bit types to these).
+// bfloat16, int32, int8, uint8, int16, uint16, uint32 and bool grids (a
+// DArray narrows 64-bit types to 32 bits; complex64 has no TPU kernel to
+// port: the Pallas kernel refuses it too).
 //
 //   out[i,j] = sum_ab w[a][b] * x[i-1+a, j-1+b]
 //
@@ -15,10 +17,11 @@
 // below): every product and every sum is rounded to T as a PyTorch op on a
 // tensor of T rounds it (float16 and bfloat16 computed in float32 and
 // rounded to the type, which equals the correctly rounded op since float32
-// holds 2p + 2 bits of their p; integers wrap).  The weights come already
+// holds 2p + 2 bits of their p; integers wrap; bool multiplies as `and` and
+// adds as `or`).  The weights come already
 // cast to T (`Taps`), with the plain version's zero test made on the weights
 // before the cast (the mask `skip`).  A lane reads its four columns with one
-// access of 4 x sizeof(T) bytes.
+// access of 4 x sizeof(T) bytes (one 32-bit word for the 1-byte types).
 //
 // da_stencil_step replaces the Pallas TPU kernel
 // distributedarrays_tpu/ops/pallas_stencil.py `_kernel` (built by `_build`,
@@ -30,7 +33,8 @@
 // above and one below the strip, from `lo`/`hi` at the block edge) as one
 // vector load a row, all ten issued ahead of the arithmetic, so in float32
 // 160 bytes a thread are in flight at 64-80 registers (three to four blocks
-// an SM).  Taller strips read fewer rows
+// an SM; in a 1-byte type only 40, which leaves those types further from
+// their bytes bound, PERF.md §6).  Taller strips read fewer rows
 // twice but hold more registers and fewer warps an SM, and ran slower
 // (PERF.md §6).  The columns of the lanes either side come by warp
 // shuffles, and the warp's two outer columns by one scalar load a row
@@ -154,17 +158,44 @@ struct Ty<__nv_bfloat16> {
         __fmul_rn(__bfloat162float(a), __bfloat162float(b)));
   }
 };
+// The integer types wrap, as PyTorch's do: each sum and product is taken in
+// 32-bit unsigned arithmetic (no signed overflow, no promotion to int), of
+// which the type keeps the low bits (`B`, its unsigned type).
+template <class T, class U>
+struct TyInt {
+  using B = U;
+  static __device__ __forceinline__ T from(B b) { return (T)b; }
+  static __device__ __forceinline__ B bits(T v) { return (B)v; }
+  static __device__ __forceinline__ T add(T a, T b) {
+    return (T)(B)((unsigned)a + (unsigned)b);
+  }
+  static __device__ __forceinline__ T mul(T a, T b) {
+    return (T)(B)((unsigned)a * (unsigned)b);
+  }
+};
 template <>
-struct Ty<int32_t> {
-  using B = unsigned;
-  static __device__ __forceinline__ int32_t from(B b) { return (int32_t)b; }
-  static __device__ __forceinline__ B bits(int32_t v) { return (B)v; }
-  static __device__ __forceinline__ int32_t add(int32_t a, int32_t b) {
-    return (int32_t)((B)a + (B)b);
-  }
-  static __device__ __forceinline__ int32_t mul(int32_t a, int32_t b) {
-    return (int32_t)((B)a * (B)b);
-  }
+struct Ty<int32_t> : TyInt<int32_t, unsigned> {};
+template <>
+struct Ty<int8_t> : TyInt<int8_t, unsigned char> {};
+template <>
+struct Ty<uint8_t> : TyInt<uint8_t, unsigned char> {};
+template <>
+struct Ty<int16_t> : TyInt<int16_t, unsigned short> {};
+template <>
+struct Ty<uint16_t> : TyInt<uint16_t, unsigned short> {};
+template <>
+struct Ty<uint32_t> : TyInt<uint32_t, unsigned> {};
+// bool as PyTorch's arithmetic takes it: `w * t` is `and`, `acc + term`
+// `or` (a weight that is not zero casts to true), so a step is the `or`
+// of the taps whose weights are not zero.  A stored bool is one byte, 0
+// or 1.
+template <>
+struct Ty<bool> {
+  using B = unsigned char;
+  static __device__ __forceinline__ bool from(B b) { return b != 0; }
+  static __device__ __forceinline__ B bits(bool v) { return (B)v; }
+  static __device__ __forceinline__ bool add(bool a, bool b) { return a | b; }
+  static __device__ __forceinline__ bool mul(bool a, bool b) { return a & b; }
 };
 template <class T>
 __device__ __forceinline__ T zero() {
@@ -192,14 +223,20 @@ __device__ __forceinline__ V ldv(const V* p) {
 template <bool NC, class T>
 __device__ __forceinline__ void ld4(const T* p, T (&v)[CW]) {
   using Y = Ty<T>;
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 1) {
+    const unsigned u = ldv<NC>(reinterpret_cast<const unsigned*>(p));
+    v[0] = Y::from(u & 0xffu);
+    v[1] = Y::from((u >> 8) & 0xffu);
+    v[2] = Y::from((u >> 16) & 0xffu);
+    v[3] = Y::from(u >> 24);
+  } else if constexpr (sizeof(T) == 2) {
     const uint2 u = ldv<NC>(reinterpret_cast<const uint2*>(p));
     v[0] = Y::from(u.x & 0xffffu);
     v[1] = Y::from(u.x >> 16);
     v[2] = Y::from(u.y & 0xffffu);
     v[3] = Y::from(u.y >> 16);
   } else {
-    static_assert(sizeof(T) == 4, "2- and 4-byte types");
+    static_assert(sizeof(T) == 4, "1-, 2- and 4-byte types");
     const uint4 u = ldv<NC>(reinterpret_cast<const uint4*>(p));
     v[0] = Y::from(u.x);
     v[1] = Y::from(u.y);
@@ -211,7 +248,11 @@ __device__ __forceinline__ void ld4(const T* p, T (&v)[CW]) {
 template <class T>
 __device__ __forceinline__ void st4(T* p, const T (&v)[CW]) {
   using Y = Ty<T>;
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 1) {
+    *reinterpret_cast<unsigned*>(p) =
+        Y::bits(v[0]) | (unsigned)Y::bits(v[1]) << 8 |
+        (unsigned)Y::bits(v[2]) << 16 | (unsigned)Y::bits(v[3]) << 24;
+  } else if constexpr (sizeof(T) == 2) {
     *reinterpret_cast<uint2*>(p) =
         make_uint2(Y::bits(v[0]) | (unsigned)Y::bits(v[1]) << 16,
                    Y::bits(v[2]) | (unsigned)Y::bits(v[3]) << 16);
@@ -643,12 +684,32 @@ int launch_multistep(dim3 grid, cudaStream_t s, const void* x,
   return (int)cudaGetLastError();
 }
 
+// The element types by their codes, ops/cuda_stencil.py KERNEL_DTYPES:
+// `f` called with a value of the type of `dtype` (0 <= dtype < NDTYPES).
+constexpr int NDTYPES = 10;
+template <class F>
+int with_type(int dtype, F&& f) {
+  switch (dtype) {
+    case 0: return f(float{});
+    case 1: return f(__half{});
+    case 2: return f(__nv_bfloat16{});
+    case 3: return f(int32_t{});
+    case 4: return f(int8_t{});
+    case 5: return f(uint8_t{});
+    case 6: return f(int16_t{});
+    case 7: return f(uint16_t{});
+    case 8: return f(uint32_t{});
+    default: return f(bool{});
+  }
+}
+
 }  // namespace
 
 // `x`, `lo`, `hi` and `out` are device arrays of the element type `dtype`,
 // a code of ops/cuda_stencil.py KERNEL_DTYPES (float32, float16, bfloat16,
-// int32); `w9` is a host array of the 9 weights in that type, row-major,
-// with `skip` and `unit` their zero and unit masks (bit a*3+b; `unit` only
+// int32, int8, uint8, int16, uint16, uint32, bool); `w9` is a host array
+// of the 9 weights in that type, row-major, with `skip` and `unit` their
+// zero and unit masks (bit a*3+b; `unit` only
 // for the route's check); `route` and the grid (`tiles_x` x `tiles_y`
 // blocks) come from the wrapper's plan and route; a grid that does not
 // cover the block exactly, the 5-point route for other weights, or an
@@ -662,27 +723,17 @@ extern "C" int da_stencil_step(const void* x, const void* lo, const void* hi,
                                int device, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (!covers(tiles_x, st::TW, n) || !covers(tiles_y, st::TH, m) ||
-      tiles_y > 65535 || dtype < 0 || dtype > 3 ||
+      tiles_y > 65535 || dtype < 0 || dtype >= NDTYPES ||
       !route_ok(route, skip, unit))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles_x, tiles_y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_step<float>(grid, s, x, lo, hi, out, m, n, w9, skip,
-                                route);
-    case 1:
-      return launch_step<__half>(grid, s, x, lo, hi, out, m, n, w9, skip,
-                                 route);
-    case 2:
-      return launch_step<__nv_bfloat16>(grid, s, x, lo, hi, out, m, n, w9,
-                                        skip, route);
-    default:
-      return launch_step<int32_t>(grid, s, x, lo, hi, out, m, n, w9, skip,
-                                  route);
-  }
+  return with_type(dtype, [&](auto z) {
+    return launch_step<decltype(z)>(grid, s, x, lo, hi, out, m, n, w9, skip,
+                                    route);
+  });
 }
 
 // The grid's blocks are (WH-2k) x (WW-2k) tiles.
@@ -696,24 +747,14 @@ extern "C" int da_stencil_multistep(const void* x, const void* lo,
   if (k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
   if (!covers(tiles_x, ms::WW - 2 * k, n) ||
       !covers(tiles_y, ms::WH - 2 * k, m) || tiles_y > 65535 || dtype < 0 ||
-      dtype > 3 || !route_ok(route, skip, unit))
+      dtype >= NDTYPES || !route_ok(route, skip, unit))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles_x, tiles_y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_multistep<float>(grid, s, x, lo, hi, out, m, n, k, top_d,
-                                     bot_d, w9, skip, route);
-    case 1:
-      return launch_multistep<__half>(grid, s, x, lo, hi, out, m, n, k,
-                                      top_d, bot_d, w9, skip, route);
-    case 2:
-      return launch_multistep<__nv_bfloat16>(grid, s, x, lo, hi, out, m, n,
-                                             k, top_d, bot_d, w9, skip, route);
-    default:
-      return launch_multistep<int32_t>(grid, s, x, lo, hi, out, m, n, k,
-                                       top_d, bot_d, w9, skip, route);
-  }
+  return with_type(dtype, [&](auto z) {
+    return launch_multistep<decltype(z)>(grid, s, x, lo, hi, out, m, n, k,
+                                         top_d, bot_d, w9, skip, route);
+  });
 }

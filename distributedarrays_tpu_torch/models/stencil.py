@@ -12,15 +12,22 @@ block.  Where the JAX package rolls the steps into one ``lax.scan`` inside
 ``use_kernel`` picks the hand-written CUDA kernels (``ops/cuda_stencil``)
 or the plain formulation.  By default the kernels run for CUDA tensors and
 the plain steps for CPU tensors.  The kernels take float32, float16,
-bfloat16 and int32 (``cuda_stencil.supports``), where the JAX package's
-Pallas kernel takes any dtype; CUDA tensors of another dtype
-raise ``TypeError`` unless the caller asks for the plain steps with
-``use_kernel=False``.  The choice is made from the device and dtype before
-any launch.  With the kernels, ``iters > 1`` runs
-temporal blocking: ``temporal`` steps per launch with ``temporal``-deep
-halos.  The auto depth is the JAX package's rule, ``min(iters, 8,
-m_local)``, engaged only when it reaches 3; an explicit depth must be at
-most ``m_local`` and at most the kernel's ``MAX_K``.  The kernels sum each
+bfloat16, int32, int8, uint8, int16, uint16, uint32 and bool
+(``cuda_stencil.supports``), as the JAX package's Pallas kernel takes any
+dtype but complex64 (for which it raises ``NotImplementedError``: there
+is no TPU kernel to port); CUDA tensors of complex64 raise ``TypeError``
+unless the caller asks for the plain steps with ``use_kernel=False``.  The
+choice is made from the device and dtype before any launch.  Each weight
+is cast to the grid's dtype, so the Laplacian (``stencil5``) raises
+numpy's ``OverflowError`` on an unsigned grid, as in the JAX package; an
+unsigned grid takes nonnegative weights, on either route.  uint16 and
+uint32, which torch does not add, take the plain steps and the Life rule
+in the next wider signed type, wrapped back as JAX wraps.  With the
+kernels, ``iters > 1`` runs temporal blocking: ``temporal`` steps per
+launch with ``temporal``-deep halos.  The auto depth is the JAX
+package's rule, ``min(iters, 8, m_local)``, engaged only when it reaches
+3; an explicit depth must be at most ``m_local`` and at most the kernel's
+``MAX_K``.  The kernels sum each
 cell's taps in the plain order, so temporal blocking returns exactly the
 per-step result.
 """
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from ..darray import DArray
+from ..ops.broadcast import _WIDE
 from ..ops.cuda_stencil import (LAPLACIAN_3X3, MAX_K, _apply3x3,
                                 _canon_weights, stencil3x3_block,
                                 stencil3x3_multistep, supports)
@@ -74,8 +82,9 @@ def _use_kernel(device_type: str, dtype, use_kernel) -> bool:
     take any dtype."""
     on_card = device_type == "cuda" if use_kernel is None else use_kernel
     if on_card and device_type == "cuda" and not supports(dtype):
-        raise TypeError(f"the stencil kernels do not take {dtype}; pass "
-                        "use_kernel=False for the plain steps")
+        raise TypeError(f"the stencil kernels do not take {dtype} (nor does "
+                        "the TPU kernel they port); pass use_kernel=False "
+                        "for the plain steps")
     return bool(on_card)
 
 
@@ -146,10 +155,17 @@ def stencil5_step(d: DArray) -> DArray:
 def _life_rule(xp: torch.Tensor, dtype) -> torch.Tensor:
     """One generation of the (m, n) centre of the halo-padded block ``xp``
     ((m + 2, n + 2)): the eight neighbours summed in the block's dtype,
-    born on 3, surviving on 2 or 3 (JAX ``_life_jit`` :192)."""
+    born on 3, surviving on 2 or 3 (JAX ``_life_jit`` :192).  uint16 and
+    uint32 are summed in the wider type (``broadcast._WIDE``) and wrapped
+    back to the block's, as JAX's sum wraps."""
+    wide = _WIDE.get(dtype)
+    if wide is not None:
+        xp = xp.to(wide)
     neigh = (xp[:-2, :-2] + xp[:-2, 1:-1] + xp[:-2, 2:] +
              xp[1:-1, :-2] + xp[1:-1, 2:] +
              xp[2:, :-2] + xp[2:, 1:-1] + xp[2:, 2:])
+    if wide is not None:
+        neigh = neigh.to(dtype).to(wide)
     alive = xp[1:-1, 1:-1]
     born = (alive == 0) & (neigh == 3)
     survive = (alive == 1) & ((neigh == 2) | (neigh == 3))

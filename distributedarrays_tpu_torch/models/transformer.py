@@ -324,17 +324,18 @@ def generate(params, prompt, n_new: int, cfg: Config,
     own heads for its dp row's prompts; the row-parallel partial sums are
     all-reduced over tp (K12 + K10) and the vocab-split logits gathered
     (K10) on every rank of the row; the tokens and logits come back whole.
-    Sampling there draws once a row and step, from the row's first rank's
-    logits; in a job of several processes only greedy decoding is
-    supported."""
+    Sampling there draws once a row and step, in ``mesh.tp_groups()``
+    order, from the row's first rank's logits.  In a job of several
+    processes every process draws every row, from the rows' logits that
+    one exchange a step brings from the processes holding their first
+    ranks (``_row_logits``), so with generators of one seed each process
+    returns one process's tokens and leaves its generator in one
+    process's state."""
     if temperature > 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs a torch.Generator")
     sharded = isinstance(params, ShardedParams)
     if sharded:
         mesh, models = params.mesh, params.per_rank
-        if temperature > 0.0 and multihost.in_job():
-            raise NotImplementedError("sampling on the tp/dp layout in a job "
-                                      "of several processes")
         prompts = split_rows(mesh, prompt, "prompt")
         own = mesh.held()
         each = functools.partial(per_rank, mesh)
@@ -410,21 +411,38 @@ def _next_tokens(own: list, mesh, logits: list, temperature: float,
                  generator) -> dict:
     """The next tokens of each of ``own`` (indices into ``logits``): the
     argmax of its row's logits (the same on every rank of the row), or one
-    draw a row from the row's first held rank's logits, handed to the
-    row's other ranks."""
+    draw a row, in tp-row order, from the row's first rank's logits,
+    handed to the row's other ranks.  In a job every process draws every
+    row, from ``_row_logits``, so that its generator takes the draws one
+    process's takes."""
     if temperature <= 0.0:
         return {i: logits[i].argmax(-1) for i in own}
+    groups = mesh.tp_groups() if mesh is not None else [[0]]
+    rows = _row_logits(groups, logits, logits[own[0]].device) \
+        if mesh is not None and multihost.in_job() else \
+        [logits[idx[0]] for idx in groups]
     out = {}
-    for idx in (mesh.tp_groups() if mesh is not None else [[0]]):
-        mine = [i for i in idx if i in own]
-        if not mine:
-            continue
-        draw = torch.multinomial(torch.softmax(
-            logits[mine[0]] / temperature, dim=-1), 1,
-            generator=generator)[:, 0]
-        for i in mine:
-            out[i] = draw.to(logits[i].device)
+    for idx, row in zip(groups, rows):
+        draw = torch.multinomial(torch.softmax(row / temperature, dim=-1),
+                                 1, generator=generator)[:, 0]
+        for i in idx:
+            if i in own:
+                out[i] = draw.to(logits[i].device)
     return out
+
+
+def _row_logits(groups, logits: list, dev) -> list:
+    """Each tp row's logits, its first rank's, on ``dev`` of every process
+    of a job: one ``multihost.exchange`` (K10's region copy across
+    processes, ``ring_schedules``' ``tp_sample``) of the rows' first ranks'
+    tensors of the rank list ``logits``; every process calls it, in
+    the same step."""
+    rows = [torch.empty(logits[idx[0]].shape, dtype=logits[idx[0]].dtype,
+                        device=dev) for idx in groups]
+    multihost.exchange([logits], [
+        (0, idx[0], [(0, d) for d in row.shape], row)
+        for idx, row in zip(groups, rows)], op="tp_sample")
+    return rows
 
 
 # ---------------------------------------------------------------------------

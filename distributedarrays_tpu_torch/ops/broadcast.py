@@ -52,6 +52,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import telemetry as _tm
 from ..darray import (DArray, SubDArray, _scatter, as_tensor, canon_dtype,
@@ -150,7 +152,7 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
         pieces = [g(ci, dev, bounds) for g in getters]
         inputs.update(_storage(t) for t in pieces
                       if isinstance(t, torch.Tensor))
-        r = fn(*pieces)
+        r = call_widened(fn, *pieces)
         if not isinstance(r, torch.Tensor):
             r = torch.as_tensor(r, device=dev)
         want = canon_dtype(r.dtype)
@@ -357,19 +359,53 @@ _NUMERIC_OPS = ("floordiv", "mod", "lshift", "rshift")
 _WIDE = {torch.uint16: torch.int32, torch.uint32: torch.int64}
 
 
-def widened(fn: Callable, dt: torch.dtype) -> Callable:
-    """``fn`` with its tensor arguments (of type ``dt``) taken in ``dt``'s
-    wider signed type and an integer result cast back to ``dt``; ``fn``
-    itself for other types."""
-    wide = _WIDE.get(dt)
-    if wide is None:
-        return fn
+class _Widen(TorchDispatchMode):
+    """Each ATen op on a uint16 or uint32 tensor runs on its operands in
+    the wider signed type (``_WIDE``), and each tensor result is cast to
+    the dtype that the op gives the operands as they are (its ``meta``
+    kernel, which computes no values): an integer result wraps after
+    every op, as JAX's arithmetic does.  Views and ops that write their
+    operands run as they are."""
 
-    def run(*xs):
-        r = fn(*[x.to(wide) if isinstance(x, torch.Tensor) else x
-                 for x in xs])
-        return r.to(dt) if r.dtype == wide else r
-    return run
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.is_view or func._schema.is_mutable or not any(
+                _narrow(x) for x in pytree.tree_leaves((args, kwargs))):
+            return func(*args, **kwargs)
+
+        def run(cast):
+            return func(*pytree.tree_map(cast, args),
+                        **pytree.tree_map(cast, kwargs))
+        got = run(lambda x: x.to(_WIDE[x.dtype]) if _narrow(x) else x)
+        try:
+            want = pytree.tree_leaves(run(
+                lambda x: x.to("meta") if isinstance(x, torch.Tensor)
+                else x))
+        except (NotImplementedError, RuntimeError):
+            # no meta kernel (``item``): the values as they came
+            return got
+        leaves, spec = pytree.tree_flatten(got)
+        return pytree.tree_unflatten(
+            [g.to(w.dtype) if isinstance(g, torch.Tensor) and
+             isinstance(w, torch.Tensor) and g.dtype != w.dtype else g
+             for g, w in zip(leaves, want)], spec)
+
+
+def _narrow(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.dtype in _WIDE and \
+        x.device.type != "meta"
+
+
+def call_widened(fn: Callable, *xs):
+    """``fn(*xs)``; where a uint16 or uint32 tensor is among ``xs``
+    (torch adds, orders and counts neither), under ``_Widen``: ``x + x``
+    comes back uint16, wrapped, ``x > 1`` bool, ``x.to(torch.int32)``
+    int32 and ``x * 0.5`` float32, the types JAX gives, and every
+    intermediate integer result wraps as JAX's does."""
+    if not any(_narrow(x) for x in xs):
+        return fn(*xs)
+    with _Widen():
+        return fn(*xs)
 
 
 def _lex_compare(name: str) -> Callable:
@@ -408,7 +444,6 @@ def promote(name: str, fn: Callable, args: tuple):
                  for a in args)
     if name in _COMPARE and dt.is_complex:
         fn = _lex_compare(name)
-    fn = widened(fn, dt)
 
     def cast(x):
         return x.to(dt) if isinstance(x, torch.Tensor) else x
@@ -433,7 +468,7 @@ def _binop(name, fn, swap=False):
 
 def _unop(fn):
     def op(self):
-        return elementwise(widened(fn, self.dtype), self)
+        return elementwise(fn, self)
     return op
 
 

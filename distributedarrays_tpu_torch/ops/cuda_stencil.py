@@ -14,14 +14,21 @@ PyTorch counterpart of ``distributedarrays_tpu/ops/pallas_stencil.py``:
 Each wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors; it never falls back from one to the other.  The
 kernels take the dtypes of ``KERNEL_DTYPES`` (``supports``: float32,
-float16, bfloat16, int32; a DArray narrows float64 and int64 to float32
-and int32), contiguous, on one device; the plain versions take any dtype.
-Both cast each weight to the block's dtype first, as the JAX version does,
-and skip a weight that is 0 before the cast.  The kernels sum the taps in
-the plain version's order without FMA contraction, rounding each product
-and sum to the dtype as a PyTorch op does, so on one device the two agree
-bit for bit (a unit weight, which the plain version adds unmultiplied,
-the generic kernel taps multiply by one: exact, bar a NaN's payload).
+float16, bfloat16, int32, int8, uint8, int16, uint16, uint32 and bool,
+every DArray dtype the TPU kernel takes; a DArray narrows float64 and
+int64 to float32 and int32; complex64, which the TPU kernel refuses too,
+is left out), contiguous, on one device; the plain versions take any
+dtype.  Both cast each weight to the block's dtype first, as the JAX
+version does (so a negative weight raises numpy's ``OverflowError`` for
+an unsigned type, in both packages), and skip a weight that is 0 before
+the cast.  The kernels sum the taps in the plain version's order without
+FMA contraction, rounding each product and sum to the dtype as a PyTorch
+op does (integers wrap; bool multiplies as *and* and adds as *or*), so on
+one device the two agree bit for bit (a unit weight, which the plain
+version adds unmultiplied, the generic kernel taps multiply by one:
+exact, bar a NaN's payload).  The plain versions compute uint16 and
+uint32, which torch does not add, in the next wider signed type and wrap
+back.
 
 The single-step kernel gives each thread a strip of ``STEP_ROWS`` rows by
 four columns, a warp 128 columns; ``step_plan`` gives its grid.  The strip
@@ -35,7 +42,9 @@ TPU kernel's VMEM tiling limits do not apply;
 the route ``multistep_route`` picks (``kbuild.STENCIL_ROUTES``): the
 5-point weights (zero corners, unit edges, a nonzero centre) take a
 specialisation with those taps compiled in, other weights the generic
-taps.
+taps.  The Laplacian's centre of -4 does not cast to an unsigned type,
+but any nonzero centre takes the 5-point route: an unsigned grid reaches
+it with weights such as ``((0, 1, 0), (1, 2, 1), (0, 1, 0))``.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from ..utils import kbuild
+from .broadcast import _WIDE
 
 __all__ = ["stencil3x3_block", "stencil5_block", "stencil3x3_multistep",
            "stencil5_multistep", "step_plan", "multistep_plan",
@@ -58,7 +68,9 @@ LAPLACIAN_3X3 = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
 
 MAX_K = 16
 # the kernels' element types, in the order of the C entries' dtype codes
-KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.int32)
+KERNEL_DTYPES = (torch.float32, torch.float16, torch.bfloat16, torch.int32,
+                 torch.int8, torch.uint8, torch.int16, torch.uint16,
+                 torch.uint32, torch.bool)
 
 # the multistep kernel's window (stencil.cu `ms`): 8 warps of 16 rows, 32
 # lanes of 4 columns; its shared memory is two exchange buffers of a top
@@ -110,9 +122,10 @@ def multistep_plan(m: int, n: int, k: int, itemsize: int = 4) -> StencilPlan:
 
 
 def supports(dtype) -> bool:
-    """Whether the kernels take blocks of ``dtype`` (``KERNEL_DTYPES``).
-    The TPU kernel is dtype-generic; the card's kernels take these four,
-    and ``models/stencil.py`` refuses other dtypes on the card."""
+    """Whether the kernels take blocks of ``dtype`` (``KERNEL_DTYPES``):
+    every DArray dtype that the TPU kernel takes.  complex64 is not one
+    (the Pallas kernel raises ``NotImplementedError`` for it), and
+    ``models/stencil.py`` refuses it on the card."""
     return dtype in KERNEL_DTYPES
 
 
@@ -158,7 +171,18 @@ def _apply3x3(ext: torch.Tensor, w) -> torch.Tensor:
     above and below the r output rows), zero column edge.  Zero weights are
     skipped and unit weights not multiplied, as in the JAX version, which
     also casts each other weight to ``ext``'s dtype before it multiplies
-    (``ext.dtype.type(wv) * t``)."""
+    (``ext.dtype.type(wv) * t``).  uint16 and uint32, which torch does not
+    add, are computed in the next wider signed type (``broadcast._WIDE``)
+    and wrapped back, as JAX's arithmetic wraps them."""
+    dt = ext.dtype
+    wide = _WIDE.get(dt)
+    if wide is None:
+        return _taps(ext, w, dt)
+    return _taps(ext.to(wide), w, dt).to(dt)
+
+
+def _taps(ext: torch.Tensor, w, dt: torch.dtype) -> torch.Tensor:
+    """``_apply3x3`` in ``ext``'s dtype with the weights cast to ``dt``."""
     bands = (ext[:-2], ext[1:-1], ext[2:])              # rows i-1, i, i+1
     acc = None
     for bi in range(3):
@@ -173,7 +197,7 @@ def _apply3x3(ext: torch.Tensor, w) -> torch.Tensor:
                 t = torch.cat([band[:, 1:], zc], dim=1)
             else:
                 t = band
-            term = t if wv == 1.0 else _typed(wv, t.dtype) * t
+            term = t if wv == 1.0 else _typed(wv, dt) * t
             acc = term if acc is None else acc + term
     if acc is None:
         acc = torch.zeros_like(ext[1:-1])
@@ -182,16 +206,19 @@ def _apply3x3(ext: torch.Tensor, w) -> torch.Tensor:
 
 def _multistep_plain(block, lo, hi, k, top_d, bot_d, w):
     """k plain steps on the extended block [lo; block; hi], re-zeroing the
-    rows beyond the domain after each step when its Dirichlet flag is set."""
-    m = block.shape[0]
+    rows beyond the domain after each step when its Dirichlet flag is set.
+    uint16 and uint32 take the k steps in the wider type and wrap once at
+    the end (wrapping is a ring map: the same as after every step)."""
+    m, dt = block.shape[0], block.dtype
     x = torch.cat([lo, block, hi], dim=0)               # (m + 2k, n)
+    x = x.to(_WIDE.get(dt, dt))
     rows = torch.arange(m + 2 * k, device=x.device)[:, None]
     ghost = ((rows < k) & bool(top_d)) | ((rows >= m + k) & bool(bot_d))
     keep = torch.where(ghost, 0, 1).to(x.dtype)
     for _ in range(k):
         zr = torch.zeros_like(x[:1])
-        x = _apply3x3(torch.cat([zr, x, zr], dim=0), w) * keep
-    return x[k:k + m]
+        x = _taps(torch.cat([zr, x, zr], dim=0), w, dt) * keep
+    return x[k:k + m].to(dt)
 
 
 def _check_kernel_args(block, *halos):

@@ -63,7 +63,7 @@ from .. import telemetry as _tm
 from ..darray import _scatter
 from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
 from ..parallel.reshard import relayout, relayout_parts
-from .broadcast import _WIDE, _arg_shape
+from .broadcast import _WIDE, _arg_shape, call_widened
 
 __all__ = [
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
@@ -489,9 +489,10 @@ def dstd(d, dims=None, ddof=1):
 
 def dcount(pred: Callable, d, dims=None):
     """The number of elements where ``pred`` holds, int32 (JAX
-    ``ops/mapreduce.py:283``)."""
-    return _reduce(d, lambda a: pred(a).to(torch.int32), _Reducer("sum"),
-                   dims)
+    ``ops/mapreduce.py:283``); ``pred`` sees a uint16 or uint32 chunk as
+    ``dmap``'s function does (``call_widened``)."""
+    return _reduce(d, lambda a: call_widened(pred, a).to(torch.int32),
+                   _Reducer("sum"), dims)
 
 
 def _moved(tmp: DArray, pids, cuts) -> DArray:

@@ -58,6 +58,12 @@ The protocols (``SCHEDULES``):
 - ``tp_allreduce``: the tp/dp step's all-reduce (``models.tp_dp.
   allreduce``), a K12 call whose output a K10 call then publishes; the
   step adds no other ordering;
+- ``tp_sample``: ``generate``'s sampling on the tp/dp layout in a job
+  (``models.transformer._row_logits``): each decode step's row logits,
+  which the tp all-gather wrote, copied by one region call
+  (``multihost.exchange``, K10 across processes) from the process holding
+  each row's first rank onto every process, which then draws every row
+  from its copy; the call reports a region copy's events;
 - ``chunked_publish``: a chunked checkpoint's save in a job
   (``utils.checkpoint._write_chunks``): each process writes its cell
   files, one exchange of their CRCs, process 0 writes the marker, a
@@ -238,6 +244,21 @@ def tp_allreduce_schedule(p: int) -> Schedule:
     return Schedule("tp_allreduce", p, tuple(progs))
 
 
+def tp_sample_schedule(p: int) -> Schedule:
+    """``generate``'s draw on the tp/dp layout across processes: the row
+    logits (written by the launch before the call) copied into every
+    process's rows, which its draws read after the call."""
+    progs = []
+    for me in range(p):
+        progs.append(tuple(
+            [Launch("produce", (), (((me, "logits", 0), ("logits", me)),),
+                    ctx=True)]
+            + _peer_call(me, p, "region", "logits", "rows", "all_gather")
+            + [Launch("draw", (((me, "rows", 0), ("rows", me)),), ctx=True),
+               Free("logits"), Free("rows")]))
+    return Schedule("tp_sample", p, tuple(progs))
+
+
 def ring_schedule(name: str, p: int, to: int, tag: str,
                   out: bool = False) -> Schedule:
     """A two-slot ring (``_Ring``, K9): process r's step t reads its input
@@ -340,6 +361,7 @@ SCHEDULES: dict[str, Callable[[int], Schedule]] = {
     "ring_attention": lambda p: ring_schedule(
         "ring_attention", p, 1, "ring_attention", out=True),
     "tp_allreduce": tp_allreduce_schedule,
+    "tp_sample": tp_sample_schedule,
     "chunked_publish": chunked_publish_schedule,
     "job_restore": job_restore_schedule,
     "job_restore_clean": lambda p: job_restore_schedule(p, corrupt=False),

@@ -21,6 +21,7 @@ import torch
 from .. import layout as L
 from ..darray import DArray, DData, SubDArray, as_tensor
 from ..parallel import multihost
+from .broadcast import _WIDE
 
 __all__ = ["dnnz", "ddata_bcoo"]
 
@@ -29,7 +30,9 @@ def _count(part) -> int:
     if isinstance(part, torch.Tensor):
         if part.layout == torch.sparse_coo:
             return int(part._nnz())
-        return int(torch.count_nonzero(part))
+        # torch counts no uint16/uint32 nonzeros: through the wider type
+        return int(torch.count_nonzero(part.to(_WIDE.get(part.dtype,
+                                                          part.dtype))))
     return int(np.count_nonzero(np.asarray(part)))
 
 

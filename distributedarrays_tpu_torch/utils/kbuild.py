@@ -69,6 +69,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # its grid
 DEFINES = {"stencil": {"DA_STENCIL_STEP_ROWS": 8}}
 
+# nvcc flags of one source: the stencil's 60 kernels (ten element types,
+# two routes, two access paths) are optimized on every core, so that it
+# does not lengthen the build of all sources at once
+STEM_FLAGS = {"stencil": ["--split-compile=0"]}
+
 # kernel name -> source file stem
 KERNELS = {"gemm": "gemm", "stencil_step": "stencil",
            "stencil_multistep": "stencil", "matmul_int8": "gemm_int8",
@@ -172,8 +177,8 @@ def _nvcc() -> str:
 
 
 def _flags(stem: str) -> list[str]:
-    return NVCC_FLAGS + [f"-D{k}={v}"
-                         for k, v in sorted(DEFINES.get(stem, {}).items())]
+    return NVCC_FLAGS + STEM_FLAGS.get(stem, []) + [
+        f"-D{k}={v}" for k, v in sorted(DEFINES.get(stem, {}).items())]
 
 
 def _so_path(stem: str) -> Path:

@@ -1038,7 +1038,8 @@ def recovery_legs(tdat, N: int, root: str) -> list:
 # ---------------------------------------------------------------------------
 
 TP_DP_NAMES = ["tp_mlp_odd", "tp_mlp_even", "tp_forward", "tp_sgd",
-               "tp_adam", "tp_generate"]
+               "tp_adam", "tp_generate", "tp_sample"]
+TP_SAMPLE_SEED = 43
 TP_DP_STEPS = 2
 
 
@@ -1084,8 +1085,10 @@ def tp_cfg() -> dict:
 def tp_dp_legs(tdat, N: int) -> list:
     """``TP_DP_NAMES`` on ``make_mesh(N)``: each MLP's ``TP_DP_STEPS`` SGD
     steps (losses, unsharded parameters), the transformer's logits and
-    loss, its SGD and Adam steps, and greedy ``generate``; every result a
-    whole array on every process."""
+    loss, its SGD and Adam steps, greedy ``generate``, and two sampling
+    calls at ``temperature=1.0`` with one generator seeded
+    ``TP_SAMPLE_SEED`` (the second call starts from the state the first
+    left); every result a whole array on every process."""
     from distributedarrays_tpu_torch.models import mlp as M
     from distributedarrays_tpu_torch.models import transformer as T
     D = tp_dp_data(N)
@@ -1132,9 +1135,17 @@ def tp_dp_legs(tdat, N: int) -> list:
             losses.append(loss)
         return {"losses": torch.stack(losses), "params": whole(sp)}
 
+    def sample():
+        sp = model()
+        gen = torch.Generator().manual_seed(TP_SAMPLE_SEED)
+        return {call: T.generate(sp, D["tokens"][:, :4], 6, cfg,
+                                 temperature=1.0, generator=gen)
+                for call in ("first", "second")}
+
     out = [("tp_mlp_odd", mlp_leg("mlp3")), ("tp_mlp_even", mlp_leg("mlp4")),
            ("tp_forward", forward), ("tp_sgd", sgd), ("tp_adam", adam),
            ("tp_generate", lambda: T.generate(model(), D["tokens"][:, :4], 6,
-                                              cfg))]
+                                              cfg)),
+           ("tp_sample", sample)]
     assert [name for name, _ in out] == TP_DP_NAMES
     return out

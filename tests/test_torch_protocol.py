@@ -41,13 +41,13 @@ def test_shipped_schedules_verify(name, p):
 def test_schedules_cover_every_cross_process_protocol():
     # peer_call's region copy (K10/K11), K12's cross-process route, the
     # rings of K13/K14 (to -1), K15 and K9 (to +1), the tp/dp all-reduce,
-    # the chunked checkpoint's publish and restore and the Trainer's
-    # cross-process shrink
+    # the tp/dp sampling's row exchange, the chunked checkpoint's publish
+    # and restore and the Trainer's cross-process shrink
     assert set(protocol.KERNEL_NAMES) == {
         "region_copy", "reduce_scatter", "ring_allgather_matmul",
         "ring_allgather_matmul_rhs", "ring_matmul_reducescatter",
-        "ring_attention", "tp_allreduce", "chunked_publish", "job_restore",
-        "job_restore_clean", "job_shrink"}
+        "ring_attention", "tp_allreduce", "tp_sample", "chunked_publish",
+        "job_restore", "job_restore_clean", "job_shrink"}
     assert set(rs.CALL_SCHEDULES.values()) <= set(protocol.KERNEL_NAMES)
 
 

@@ -195,32 +195,57 @@ def test_halo_exchange():
 
 # the dtypes besides float32 that both packages keep (JAX, without 64-bit
 # types, turns float64 and int64 into float32 and int32)
-OTHER_DTYPES = ["float16", "bfloat16", "int32"]
+OTHER_DTYPES = ["float16", "bfloat16", "int32", "int8", "uint8", "int16",
+                "uint16", "uint32", "bool"]
+# the kernels' types since their extension to every type the TPU kernel
+# takes
+NEW_DTYPES = ["int8", "uint8", "int16", "uint16", "uint32", "bool"]
+UNSIGNED = ("uint8", "uint16", "uint32")
+# the 5-point route's shape with a centre that an unsigned type takes
+FIVE_POINT_2 = ((0.0, 1.0, 0.0), (1.0, 2.0, 1.0), (0.0, 1.0, 0.0))
 
 
 def _typed_grid(dtype: str, shape, seed: int):
-    """Seeded values for both packages: small integers for int32, else
-    uniform in [-2, 2) rounded once to the type."""
+    """Seeded values for both packages: small integers for int32, the whole
+    range of the narrower integer types (so that sums wrap), bools at
+    random, else uniform in [-2, 2) rounded once to the type."""
+    rng = np.random.default_rng(seed)
     if dtype == "int32":
-        a = np.random.default_rng(seed).integers(-20, 20, shape).astype(
-            np.int32)
+        a = rng.integers(-20, 20, shape).astype(np.int32)
+        return a, torch.from_numpy(a)
+    if dtype in ("int16", "uint16", "uint32"):
+        info = np.iinfo(dtype)
+        a = rng.integers(info.min, info.max, shape, endpoint=True).astype(
+            dtype)
         return a, torch.from_numpy(a)
     return typed_inputs(dtype, shape, seed, -2.0, 2.0)
+
+
+def _dtype_weights(dtype: str, kind: str, seed: int = 2):
+    """The weights of a dtype case: the Laplacian (``FIVE_POINT_2`` for an
+    unsigned type, which cannot take its -4) or random ones in [-3, 3)
+    (their magnitudes for an unsigned type), so that the integer types keep
+    nonzero ones after the cast."""
+    if kind == "laplacian":
+        return FIVE_POINT_2 if dtype in UNSIGNED else tcs.LAPLACIAN_3X3
+    w = np.random.default_rng(seed).uniform(-3, 3, (3, 3))
+    if dtype in UNSIGNED:
+        w = np.abs(w)
+    return tuple(tuple(float(v) for v in row) for row in w)
 
 
 @pytest.mark.parametrize("iters", [1, 3])
 @pytest.mark.parametrize("weights", ["laplacian", "random"])
 @pytest.mark.parametrize("dtype", OTHER_DTYPES)
 def test_stencil_dtypes_follow_jax(dtype, weights, iters):
-    # each weight is cast to the block's dtype before it multiplies (int32
-    # truncates toward zero), as the JAX step does; the weights span
-    # [-3, 3) so that int32 keeps nonzero ones
-    w = tuple(tuple(float(v) for v in row) for row in
-              np.random.default_rng(2).uniform(-3, 3, (3, 3)))
+    # each weight is cast to the block's dtype before it multiplies (the
+    # integer types truncate toward zero and wrap, bool takes a weight that
+    # is not zero as true), as the JAX step does
+    w = _dtype_weights(dtype, weights)
     a, t = _typed_grid(dtype, (32, 24), 3)
     jd = dat.distribute(a, procs=[0, 1, 2, 3], dist=(4, 1))
     td = tdat.distribute(t, procs=[0, 1, 2, 3], dist=(4, 1))
-    if weights == "laplacian":
+    if w == tcs.LAPLACIAN_3X3:
         jr, tr = jstencil.stencil5(jd, iters), tdat.stencil5(td, iters)
     else:
         jr = jstencil.stencil3x3(jd, w, iters)
@@ -240,17 +265,22 @@ def test_stencil_dtypes_follow_jax(dtype, weights, iters):
 
 
 def test_kernel_dtype_gate():
+    # the kernels take every DArray dtype the TPU kernel takes: the four of
+    # PR 12 and, since their extension, the 8- and 16-bit integers, uint32
+    # and bool; complex64, which the Pallas kernel refuses as well, is the
+    # one the card refuses
     gate = tdat.stencil._use_kernel
-    assert tcs.KERNEL_DTYPES == (torch.float32, torch.float16,
-                                 torch.bfloat16, torch.int32)
+    assert tcs.KERNEL_DTYPES == (
+        torch.float32, torch.float16, torch.bfloat16, torch.int32,
+        torch.int8, torch.uint8, torch.int16, torch.uint16, torch.uint32,
+        torch.bool)
     for dt in tcs.KERNEL_DTYPES:
         assert tcs.supports(dt)
         # the auto choice: the kernels on the card, the plain steps on the CPU
         assert gate("cuda", dt, None) is True
         assert gate("cpu", dt, None) is False
         assert gate("cuda", dt, False) is False
-    for dt in (torch.int8, torch.uint8, torch.int16, torch.bool,
-               torch.complex64):
+    for dt in (torch.complex64,):
         assert not tcs.supports(dt)
         # the card refuses what the kernels do not take, unless asked for
         # the plain steps
@@ -262,12 +292,63 @@ def test_kernel_dtype_gate():
         # on CPU tensors the wrappers' plain versions take any dtype
         assert gate("cpu", dt, True) is True
     # the kernels' own wrappers refuse what they do not take
-    x = torch.zeros(4, 8, dtype=torch.int8, device="meta")
+    x = torch.zeros(4, 8, dtype=torch.complex64, device="meta")
     with pytest.raises(TypeError, match="take float32, float16"):
         tcs.stencil5_block(x, x[:1], x[:1])
     x = torch.zeros(4, 8, dtype=torch.float16, device="meta")
     with pytest.raises(TypeError, match="share one dtype"):
         tcs.stencil5_block(x, x[:1].float(), x[:1])
+
+
+@pytest.mark.parametrize("dtype", UNSIGNED)
+def test_unsigned_laplacian_overflows_in_both_packages(dtype):
+    # the Laplacian's -4 does not cast to an unsigned type: numpy's
+    # OverflowError in both packages, before any step; nonnegative weights
+    # take either route
+    a, t = _typed_grid(dtype, (32, 24), 4)
+    jd = dat.distribute(a, procs=[0, 1, 2, 3], dist=(4, 1))
+    td = tdat.distribute(t, procs=[0, 1, 2, 3], dist=(4, 1))
+    with pytest.raises(OverflowError):
+        jstencil.stencil5(jd)
+    with pytest.raises(OverflowError):
+        tdat.stencil5(td)
+    with pytest.raises(OverflowError):
+        tcs._weights_arg(tcs.LAPLACIAN_3X3, getattr(torch, dtype))
+    assert tcs.multistep_route(FIVE_POINT_2) == "five_point"
+    assert tcs.multistep_route(_dtype_weights(dtype, "random")) == "generic"
+
+
+def _block_inputs(dtype: str, m: int, n: int, k: int, seed: int):
+    """A block and its (k, n) halo slabs in ``dtype``, as numpy for the
+    Pallas kernels and as tensors for the port."""
+    return [_typed_grid(dtype, shape, seed + i)
+            for i, shape in enumerate(((m, n), (k, n), (k, n)))]
+
+
+@pytest.mark.parametrize("weights", ["laplacian", "random"])
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+def test_new_dtype_single_step_plain_matches_pallas(dtype, weights):
+    # the plain block function against the Pallas kernel in interpret mode,
+    # exactly: integers wrap and bool is or/and in both
+    w = _dtype_weights(dtype, weights, 11)
+    (x, tx), (lo, tlo), (hi, thi) = _block_inputs(dtype, 16, 24, 1, 12)
+    jr = jps.stencil3x3_block(x, lo, hi, w, interpret=True)
+    tr = tcs.stencil3x3_block(tx, tlo, thi, w)
+    assert_typed_equal(tr, jr)
+
+
+@pytest.mark.parametrize("k,top,bot", [(1, True, False), (3, False, True),
+                                       (8, True, False)])
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+def test_new_dtype_multistep_plain_matches_pallas(dtype, k, top, bot):
+    # k steps with one Dirichlet edge, both routes' weights, exactly
+    (x, tx), (lo, tlo), (hi, thi) = _block_inputs(dtype, 16, 24, k, 13)
+    for kind in ("laplacian", "random"):
+        w = _dtype_weights(dtype, kind, 14)
+        jr = jps.stencil3x3_multistep(x, lo, hi, k, top, bot, w,
+                                      interpret=True)
+        tr = tcs.stencil3x3_multistep(tx, tlo, thi, k, top, bot, w)
+        assert_typed_equal(tr, jr)
 
 
 @pytest.mark.parametrize("m,n", [(8192, 8192), (1000, 777), (7, 8193),
@@ -323,8 +404,8 @@ def test_kernel_wrappers_pass_route_and_plan(monkeypatch, weights, dtype):
     # dtype's code, the weights cast as the plain version casts them, their
     # zero and unit masks, the route multistep_route picks and its plan's
     # grid, and counts that route
-    w = tcs.LAPLACIAN_3X3 if weights == "laplacian" else \
-        tuple(tuple(3 * v for v in row) for row in _weights(4))
+    name = str(dtype).removeprefix("torch.")
+    w = _dtype_weights(name, weights, 4)
     route = tcs.multistep_route(w)
     calls, made = _fake_launches(monkeypatch)
     kb = tdat.kbuild

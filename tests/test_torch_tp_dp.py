@@ -443,3 +443,8 @@ def test_job_of_two_processes_is_bit_equal_to_one(tmp_path):
     # and the one-process legs are the JAX-checked functions: the loss fell
     for name in ("tp_mlp_odd", "tp_mlp_even", "tp_sgd", "tp_adam"):
         assert ref[name]["losses"][-1] < ref[name]["losses"][0], name
+    # sampling: every process drew one process's tokens in both calls, and
+    # the second call drew from where the first left the generator
+    sample = ref["tp_sample"]
+    assert sample["first"].shape == (16, 10)
+    assert sample["first"].tobytes() != sample["second"].tobytes()
