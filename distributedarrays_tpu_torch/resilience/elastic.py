@@ -43,12 +43,14 @@ The multi-process half is ``parallel.multihost``'s: each probe publishes
 this process's heartbeat and clock sample, journals the clock offsets
 (the ``multihost/clock`` events the journal merge aligns by), and marks
 down the ranks of every peer process whose heartbeat is stale (JAX
-``elastic.py:238-253``); a single-process run has no peers, so nothing is
-stale.
+``elastic.py:238-253``), unless its caller's processes have just met at a
+barrier (``probe(peers_met=True)``, the trainer's probe in a job); a
+single-process run has no peers, so nothing is stale.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import threading
 import time
@@ -233,7 +235,7 @@ class ElasticDeviceSet:
             _tm.event("elastic", "up", rank=int(rank))
         self._update_gauge()
 
-    def _hw_probe(self) -> set[int]:
+    def _hw_probe(self, peers_met: bool = False) -> set[int]:
         """One real-signal reading (JAX ``elastic.py:191``): a CUDA rank is
         down when its device index is no longer below
         ``torch.cuda.device_count()`` (every CUDA rank when torch cannot
@@ -241,12 +243,15 @@ class ElasticDeviceSet:
         trip to each rank's device.  CPU ranks never go down here.  In a
         multi-process job the multihost heartbeat rides along: publish
         this process's, journal the clock offsets, and down every rank of
-        a peer process whose heartbeat is stale (JAX ``elastic.py:238``).
-        ``DA_TPU_ELASTIC_HW_PROBE=0`` disables it."""
+        a peer process whose heartbeat is stale (JAX ``elastic.py:238``),
+        unless ``peers_met`` (every peer process has just met this one at a
+        barrier, so none is down, however old the heartbeat it published
+        before that barrier).  ``DA_TPU_ELASTIC_HW_PROBE=0`` disables
+        it."""
         if os.environ.get("DA_TPU_ELASTIC_HW_PROBE", "1") == "0":
             return set()
         expected = self._expected_ranks()
-        down = self._peer_probe(expected)
+        down = self._peer_probe(expected, peers_met)
         cuda = {r: L.device_of(r) for r in expected
                 if L.device_of(r).type == "cuda"}
         if not cuda:
@@ -267,21 +272,22 @@ class ElasticDeviceSet:
         return down
 
     @staticmethod
-    def _peer_probe(expected) -> set[int]:
+    def _peer_probe(expected, peers_met: bool = False) -> set[int]:
         """The ranks of stale peer processes, after this process's
-        heartbeat and clock-offset exchange; empty single-process."""
+        heartbeat and clock-offset exchange; empty single-process, and
+        empty when ``peers_met``."""
         from ..parallel import multihost as _mh
         try:
             _mh.heartbeat()
             # the clock samples the heartbeats published become the
             # multihost/clock events telemetry.cluster aligns journals by
             _mh.exchange_clock_offsets()
-            stale = _mh.down_peer_processes()
+            stale = set() if peers_met else _mh.down_peer_processes()
         except Exception:  # the heartbeat must not kill the probe
             return set()
         return {r for r in expected if L.process_of(r) in stale}
 
-    def probe(self) -> dict:
+    def probe(self, peers_met: bool = False) -> dict:
         """One health epoch: read the REAL device signals
         (:meth:`_hw_probe`), advance the fault harness's revive clocks
         and merge its simulated-down set (the deterministic-test
@@ -290,12 +296,16 @@ class ElasticDeviceSet:
         "partition": {...}}``.  The partition entry is the multihost
         quorum verdict (``quorum_assess``), cached for
         :meth:`partition_verdict` — the health signal serve/ reads to
-        drain typed on the minority side."""
-        hw = self._hw_probe()
+        drain typed on the minority side.  ``peers_met``: the caller's
+        processes have just met at a barrier, so the heartbeat census
+        (peers' and this process's own lease) counts none of them down;
+        an armed partition plan still decides the verdict."""
+        hw = self._hw_probe(peers_met)
         sim = faults.probe_tick()
         try:
             from ..parallel import multihost as _mh
-            part = _mh.quorum_assess()
+            part = _mh.quorum_assess(math.inf) if peers_met \
+                else _mh.quorum_assess()
         except Exception:  # pragma: no cover — quorum must not kill probes
             part = None
         with self._lock:

@@ -210,6 +210,49 @@ def fresh_mesh() -> None:
     _tm.count("recovery.fresh_mesh")
 
 
+# the branch a job's recovery takes when its controller processes
+# classified one failure apart: the first of these that any process
+# reached.  A partition and a device loss probe, restore and shrink; a
+# timeout drops the plan cache (``fresh_mesh``) and restores; a transient
+# failure restores.  A timeout that any process reached beside a device
+# loss or a partition still drops the cache and counts toward
+# ``timeout_retries`` (``_agreed``'s ``timed_out``).
+_PRECEDENCE = ("partition", "device_loss", "timeout", "transient")
+
+
+def _alone(decision: tuple) -> list:
+    """The decisions of a run with no peer processes: its own."""
+    return [decision]
+
+
+def _agreed(every: list, own: str) -> tuple[str, bool, bool]:
+    """Merge every process's ``(verdict, retryable, minority)`` into the
+    job's one decision ``(verdict, retryable, timed_out)``: the job retries
+    only if every process would and none leaves on a partition's minority
+    side, under the first of ``_PRECEDENCE`` that any process reached
+    (else ``own``); ``timed_out`` when any process reached a timeout."""
+    seen = {v for v, _, _ in every}
+    verdict = next((v for v in _PRECEDENCE if v in seen), own)
+    return (verdict, all(r and not m for _, r, m in every),
+            "timeout" in seen)
+
+
+def _minority_exit(exc: BaseException, q: dict, verdict: str):
+    """Raise the typed clean exit of a partition's minority side."""
+    _tm.count("recovery.giveups", verdict=verdict)
+    _tm.count("recovery.minority_exits")
+    if _tm.enabled():
+        # cold path: one event per partition exit
+        _tm.event("recovery", "minority_exit", side=q["side"],
+                  lost=q["lost"], reason=q.get("reason", ""))
+    inc = _tm.current_incident()
+    _tm.end_incident("minority_exit")
+    raise MinorityPartitionExit(
+        f"partition minority side {q['side']} lost quorum (lost contact "
+        f"with {q['lost']}): exiting cleanly", side=q["side"],
+        lost=q["lost"], incident=inc) from exc
+
+
 def run_with_recovery(fn, *args, policy: RetryPolicy | None = None,
                       checkpoints=None, restore_fn=None, devices=None,
                       stop_event=None, **kwargs):
@@ -220,7 +263,10 @@ def run_with_recovery(fn, *args, policy: RetryPolicy | None = None,
     complete step from before each retry; ``restore_fn`` receives the
     restored tree (re-seat your model/arrays there).  ``devices``: the
     elastic set to probe/shrink on device loss (default:
-    ``elastic.manager()``).
+    ``elastic.manager()``); where it has ``exchange(decision)`` (a job of
+    several controller processes: every process's decision, in one
+    exchange), every process's ``(verdict, retryable, minority)`` is merged
+    into one decision that every process takes (``_agreed``).
 
     ``stop_event``: an optional ``threading.Event`` that makes the retry
     loop *interruptible* — backoff sleeps wait on it instead of
@@ -274,29 +320,26 @@ def run_with_recovery(fn, *args, policy: RetryPolicy | None = None,
             fresh = _tm.flight.crash_bundle_count() > n0
             verdict = _bundle_verdict(e, _tm.flight.last_bundle(), fresh)
             _tm.count("recovery.failures", verdict=verdict)
+            # in a job of several controller processes every process
+            # takes one decision at each branch below (one exchange a
+            # decision), so every process makes the same collective
+            # probe, restore and shrink
+            exchange = getattr(devs, "exchange", _alone)
+            minority = None
             if verdict == "partition":
-                # the quorum rule decides BEFORE any retry math: a
-                # minority side can never win quorum back by re-running,
-                # and continuing risks split-brain state — typed clean
-                # exit, never retried.  The majority side falls through
+                # the quorum rule decides: a minority side can never win
+                # quorum back by re-running, and continuing risks
+                # split-brain state — typed clean exit, never retried.
+                # With no peer processes the majority side falls through
                 # to the device-loss discipline (probe → restore →
-                # shrink to surviving domains → retry).
+                # shrink to surviving domains → retry).  In a job, a
+                # partition that puts any process on the minority side
+                # ends the run on every process: that process is still a
+                # member of the job's gloo group, so the majority cannot
+                # shrink past it.
                 q = _partition_quorum(e)
                 if q["verdict"] == "minority":
-                    _tm.count("recovery.giveups", verdict=verdict)
-                    _tm.count("recovery.minority_exits")
-                    if _tm.enabled():
-                        # cold path: one event per partition exit
-                        _tm.event("recovery", "minority_exit",
-                                  side=q["side"], lost=q["lost"],
-                                  reason=q.get("reason", ""))
-                    inc = _tm.current_incident()
-                    _tm.end_incident("minority_exit")
-                    raise MinorityPartitionExit(
-                        f"partition minority side {q['side']} lost quorum "
-                        f"(lost contact with {q['lost']}): exiting cleanly",
-                        side=q["side"], lost=q["lost"],
-                        incident=inc) from e
+                    minority = q
             retries_used = attempt - 1
             interrupted = stop_event is not None and stop_event.is_set()
             remaining = _remaining()
@@ -308,6 +351,11 @@ def run_with_recovery(fn, *args, policy: RetryPolicy | None = None,
                          and not (verdict == "timeout"
                                   and timeout_retries
                                   >= pol.timeout_retries))
+            verdict, retryable, timed_out = _agreed(
+                exchange((verdict, retryable, minority is not None)),
+                verdict)
+            if minority is not None:
+                _minority_exit(e, minority, verdict)
             if interrupted:
                 _tm.count("recovery.interrupted", verdict=verdict)
             if deadline_spent:
@@ -321,7 +369,7 @@ def run_with_recovery(fn, *args, policy: RetryPolicy | None = None,
                 _tm.count("recovery.giveups", verdict=verdict)
                 _tm.end_incident("gave_up")
                 raise
-            if verdict == "timeout":
+            if timed_out:
                 timeout_retries += 1
                 fresh_mesh()
             if verdict in ("device_loss", "partition"):
@@ -359,7 +407,11 @@ def run_with_recovery(fn, *args, policy: RetryPolicy | None = None,
             # restore would let the attempt start arbitrarily far past
             # the deadline the caller set
             remaining = _remaining()
-            if remaining is not None and remaining <= 0:
+            spent = remaining is not None and remaining <= 0
+            if pol.max_elapsed_s is not None:
+                spent = not _agreed(exchange((verdict, not spent, False)),
+                                    verdict)[1]
+            if spent:
                 _tm.count("recovery.deadline_exceeded", verdict=verdict)
                 _tm.count("recovery.giveups", verdict=verdict)
                 _tm.end_incident("gave_up")

@@ -61,13 +61,19 @@ PyTorch counterpart of ``distributedarrays_tpu/train/trainer.py``
   process's step time and whether any process's step was fresh, so every
   process returns the same loss, bit-equal to one process on the same
   ranks, and takes the straggler gate's branch together (a confirmed dead
-  rank is the union of the processes' probes, each probe after fresh
-  heartbeats).  The step's rank set is ``live_ranks()``, the same on
+  rank is the union of the processes' probes, each probe after a
+  barrier, which proves every peer process alive whatever its heartbeat's
+  age).  The step's rank set is ``live_ranks()``, the same on
   every process: the recovery's shrink agrees on the union of the
   processes' down sets, and ``elastic`` holds it until the next shrink or
   grow.  A failure at the ``train.step`` site that one process sees
   reaches every process before the step's first collective (one
   exchange; the others raise :class:`PeerFault` with its message).  The
+  recovery loop then takes one decision for the job at each branch: one
+  exchange of the processes' verdicts and retry decisions, so a process
+  that classified the failure apart, or would give up, does not leave
+  its peers in calls it never makes (``_JobDevices.exchange``,
+  ``recovery._agreed``).  The
   checkpoints are chunked (``store="chunks"``) in the ``ckpt_dir`` that
   every process shares: a save writes each process's own cells and
   gathers nothing.  A recovery runs on every process together: the
@@ -607,21 +613,31 @@ class Trainer:
 def _probe() -> dict:
     """One elastic probe.  In a job every process first publishes its
     heartbeat and meets the others at a barrier (a call of every
-    process), so no process reads a peer's heartbeat from before the
-    failure as stale."""
+    process).  Every peer process met this one there, so the probe counts
+    none of them down by the age of its heartbeat: a process that came
+    late to the barrier would otherwise read the heartbeats its peers
+    published before their wait as stale, and reach alone a verdict that
+    its peers do not."""
     if multihost.in_job():
         multihost.heartbeat()
         multihost.sync_hosts("trainer_probe")
+        return elastic.manager().probe(peers_met=True)
     return elastic.manager().probe()
 
 
 class _JobDevices:
     """The elastic set as a step's recovery sees it in a job of several
     controller processes, every process taking the recovery together:
-    the probe after fresh heartbeats (``_probe``), and the shrink, which
-    re-lays every registered DArray onto the ranks that every process
-    agrees are live (the union of their down sets) by the reshard's region
-    copies."""
+    one exchange of every process's decision a branch (``exchange``; the
+    recovery loop merges them), the probe after a barrier (``_probe``),
+    and the shrink, which re-lays every registered DArray onto the ranks
+    that every process agrees are live (the union of their down sets) by
+    the reshard's region copies."""
+
+    def exchange(self, decision: tuple) -> list:
+        """Every process's ``decision`` of the recovery loop, in process
+        order, in one exchange."""
+        return multihost._all_gather_objects(decision)
 
     def probe(self) -> dict:
         return _probe()

@@ -1033,6 +1033,177 @@ def recovery_legs(tdat, N: int, root: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# running legs in a job: one leg's failure does not fail the next ones
+# ---------------------------------------------------------------------------
+
+_JOB_BASE: dict = {}      # the job's own store, before any realignment
+
+
+def _base_store():
+    from distributedarrays_tpu_torch.parallel import multihost
+    return _JOB_BASE.setdefault("store", multihost._job.store)
+
+
+def _meet(key: str, value: str, timeout_s: float) -> list[str]:
+    """Every process's ``value`` under ``key`` in the job's own store (keys
+    of the caller's own, so no call that a failed leg left unmatched can
+    pair with them)."""
+    from datetime import timedelta
+    from distributedarrays_tpu_torch.parallel import multihost
+    store, job = _base_store(), multihost._job
+    store.set(f"{key}/{job.index}", value)
+    keys = [f"{key}/{q}" for q in range(job.count)]
+    store.wait(keys, timedelta(seconds=timeout_s))
+    return [store.get(k).decode() for k in keys]
+
+
+def _realign(tdat, tag: str) -> None:
+    """After a leg that raised on some process: every process clears its
+    fault plan and elastic marks, closes its DArrays, meets the others'
+    DArray id counter, and re-forms the job's gloo group and store
+    namespace (a collective that one process skipped has closed the gloo
+    pairs, and its barriers' sequence numbers differ between processes)."""
+    import torch.distributed as dist
+    from distributedarrays_tpu_torch import core
+    from distributedarrays_tpu_torch.parallel import multihost
+    from distributedarrays_tpu_torch.resilience import elastic, faults
+    job, base = multihost._job, _base_store()
+    faults.clear()
+    elastic.manager().reset()
+    tdat.d_closeall()
+    marks = _meet(f"realign/{tag}/ids", str(core.did_mark()),
+                  job.timeout.total_seconds())
+    core.did_advance(max(int(m) for m in marks))
+    dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.PrefixStore(
+        f"realign/{tag}/gloo/", base), rank=job.index,
+        world_size=job.count, timeout=job.timeout)
+    job.group = dist.group.WORLD
+    job.store = dist.PrefixStore(f"realign/{tag}/kv/", base)
+    job._seq = {}
+
+
+def progress(what: str) -> None:
+    """A line on a job child's output: the runner of the job
+    (``_torch_port.run_job``) reads a child whose output or store grows as
+    making progress, and gloo's own exchanges write to neither."""
+    print(f"PROGRESS {what}", flush=True)
+
+
+def run_legs(tdat, legs: list, tag: str, run=None) -> tuple[dict, dict]:
+    """``run(thunk)`` (default: ``thunk()``) for each ``(name, thunk)``:
+    ``({name: value}, {name: "Type: message"})``.  In a job every process
+    agrees on each leg's outcome through the store before the next leg,
+    and after a leg that raised on any process every process realigns
+    (``_realign``), so the next leg starts on every process at the same
+    barrier and exchange sequence and is judged on its own merit; the
+    failed leg keeps each process's own error, and a process on which it
+    did not raise records its peers' errors."""
+    from distributedarrays_tpu_torch.parallel import multihost
+    run = run or (lambda thunk: thunk())
+    values, errors = {}, {}
+    for name, thunk in legs:
+        err = None
+        progress(f"{tag}/{name}")
+        try:
+            values[name] = run(thunk)
+        except Exception as e:  # noqa: BLE001 — reported to the parent
+            err = errors[name] = f"{type(e).__name__}: {e}"
+        progress(f"{tag}/{name} {'raised' if err else 'done'}")
+        if not multihost.in_job():
+            continue
+        # a peer still blocked in a call this process skipped leaves it by
+        # the store's or the gloo group's timeout, each call at most once
+        job = multihost._job
+        seen = _meet(f"legs/{tag}/{name}", err or "",
+                     4 * job.timeout.total_seconds())
+        failed = [f"process {q}: {e}" for q, e in enumerate(seen) if e]
+        if failed:
+            if err is None:
+                values.pop(name, None)
+                errors[name] = "a peer raised: " + "; ".join(failed)
+            _realign(tdat, f"{tag}/{name}")
+    return values, errors
+
+
+# ---------------------------------------------------------------------------
+# faults that split a job's processes: one process late to the probe's
+# barrier, two processes classifying one step's failure apart, and a leg
+# that raises on one process only
+# ---------------------------------------------------------------------------
+
+LATE_S = 2.0          # how long process 0 is held at the probe's barrier
+LATE_STALE_S = 1.0    # the heartbeat census's staleness in that leg
+RAISE_AT = 1          # the exchange of the leg at which process 1 raises
+
+
+def fault_legs(tdat, N: int, root: str) -> list:
+    """The legs of the child's ``faults`` stage, in a job (each process
+    runs them; they must equal ``recovery_legs``' ``trainer_loss_transformer``
+    and ``trainer_loss_mlp`` in one process):
+
+    - ``late_probe``: ``trainer_loss_transformer`` with the heartbeat
+      census at ``LATE_STALE_S`` and process 0 held ``LATE_S`` at the
+      probe's barrier, after its heartbeat: every process then reads
+      heartbeats older than the staleness;
+    - ``split_verdict``: ``trainer_loss_transformer`` with process 0's
+      top of the step failing with a transient fault as the lost rank's
+      process loses ``LOSS_RANK``: the two classify the step's failure
+      apart;
+    - ``one_process_raise``: ``trainer_loss_mlp`` in which process 1
+      raises at its ``RAISE_AT``-th exchange (the checkpoint manager's
+      check of its directory), which the others enter;
+    - ``after_raise``: ``trainer_loss_mlp`` again."""
+    from distributedarrays_tpu_torch.layout import process_index
+    from distributedarrays_tpu_torch.parallel import multihost
+    from distributedarrays_tpu_torch.resilience import faults
+    legs = dict(recovery_legs(tdat, N, root))
+    me = process_index()
+
+    def late_probe():
+        sync, census = multihost.sync_hosts, \
+            multihost.down_peer_processes.__defaults__
+
+        def held(name="sync"):
+            if name == "trainer_probe" and me == 0:
+                import time
+                time.sleep(LATE_S)
+            return sync(name)
+        multihost.sync_hosts = held
+        multihost.down_peer_processes.__defaults__ = (LATE_STALE_S,)
+        try:
+            return legs["trainer_loss_transformer"]()
+        finally:
+            multihost.sync_hosts = sync
+            multihost.down_peer_processes.__defaults__ = census
+
+    def split_verdict():
+        # the leg arms its device loss on the lost rank's process only
+        if me == 0:
+            faults.configure(plan=[{"site": "train.step", "action": "raise",
+                                    "match": {"step": LOSS_STEP}}], seed=6)
+        return legs["trainer_loss_transformer"]()
+
+    def one_process_raise():
+        gather, calls = multihost._all_gather_objects, [0]
+
+        def raising(obj):
+            calls[0] += 1
+            if me == 1 and calls[0] == RAISE_AT:
+                raise RuntimeError("raised on process 1 only")
+            return gather(obj)
+        multihost._all_gather_objects = raising
+        try:
+            return legs["trainer_loss_mlp"]()
+        finally:
+            multihost._all_gather_objects = gather
+
+    return [("late_probe", late_probe), ("split_verdict", split_verdict),
+            ("one_process_raise", one_process_raise),
+            ("after_raise", legs["trainer_loss_mlp"])]
+
+
+# ---------------------------------------------------------------------------
 # the GSPMD tp/dp layouts across processes (models.tp_dp): the MLP and the
 # transformer on make_mesh(N), K12 + K10 all-reduces over tp and dp
 # ---------------------------------------------------------------------------

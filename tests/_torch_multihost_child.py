@@ -3,11 +3,15 @@
 ``tests/_multihost_child.py``'s smoke stage.
 
 Run as: python tests/_torch_multihost_child.py <store_file> <process_id> \
-            <num_processes> <out_dir> <stale_s> [tp_dp]
+            <num_processes> <out_dir> <stale_s> [tp_dp | faults]
 
 With ``tp_dp`` it runs only the GSPMD tp/dp legs
 (``tests/_torch_mh_legs.py`` ``tp_dp_legs``, for
-``tests/test_torch_tp_dp.py``).
+``tests/test_torch_tp_dp.py``); with ``faults`` only the legs whose
+faults split the processes (``_torch_mh_legs.fault_legs``, for
+``tests/test_torch_mh_faults.py``), under a store and gloo timeout of
+``FAULTS_TIMEOUT_S``, so that a peer of a process that raised alone
+leaves the call it waits in soon.
 
 Each process holds 4 CPU ranks; ``num_processes`` of them join one job
 through a ``FileStore`` at ``store_file`` (no port to race for) and build
@@ -43,6 +47,8 @@ import time
 
 store_file, proc_id = sys.argv[1], int(sys.argv[2])
 nprocs, out_dir, stale_s = int(sys.argv[3]), sys.argv[4], float(sys.argv[5])
+stage = sys.argv[6] if len(sys.argv) > 6 else None
+FAULTS_TIMEOUT_S = 20
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -57,7 +63,8 @@ from distributedarrays_tpu_torch.resilience import (  # noqa: E402
 
 try:
     multihost.initialize(f"file://{store_file}", nprocs, proc_id,
-                         initialization_timeout_s=60)
+                         initialization_timeout_s=FAULTS_TIMEOUT_S
+                         if stage == "faults" else 60)
 except Exception as e:  # noqa: BLE001 — marker protocol for the parent
     print(f"MULTIHOST_STARTUP_FAILED: {type(e).__name__}: {e}", flush=True)
     sys.exit(4)
@@ -83,18 +90,34 @@ def layout(d):
     return {"cuts": [list(c) for c in d.cuts], "pids": d.pids.tolist()}
 
 
-if sys.argv[6:] == ["tp_dp"]:
-    # the tp/dp stage alone (tests/test_torch_tp_dp.py): the legs of
-    # _torch_mh_legs.tp_dp_legs, every process the whole results
-    import _torch_mh_legs  # noqa: E402
-    res["tp_dp"] = {name: _torch_mh_legs.summary(
-        tdat, multihost.gather_global, thunk())[0]
-        for name, thunk in _torch_mh_legs.tp_dp_legs(tdat, N)}
+def finish():
     multihost.sync_hosts("done")
     multihost.shutdown()
     with open(os.path.join(out_dir, f"result_{proc_id}.pkl"), "wb") as f:
         pickle.dump(res, f)
     print(f"MULTIHOST_OK proc={proc_id}", flush=True)
+
+
+if stage == "tp_dp":
+    # the tp/dp stage alone (tests/test_torch_tp_dp.py): the legs of
+    # _torch_mh_legs.tp_dp_legs, every process the whole results
+    import _torch_mh_legs  # noqa: E402
+    res["tp_dp"] = {}
+    for name, thunk in _torch_mh_legs.tp_dp_legs(tdat, N):
+        _torch_mh_legs.progress(f"tp_dp/{name}")
+        res["tp_dp"][name] = _torch_mh_legs.summary(
+            tdat, multihost.gather_global, thunk())[0]
+    finish()
+    sys.exit(0)
+
+if stage == "faults":
+    # the legs whose faults split the processes (tests/test_torch_mh_
+    # faults.py), each judged on its own: a leg that raises on any process
+    # is agreed on through the store and the job realigns before the next
+    import _torch_mh_legs  # noqa: E402
+    res["faults"], res["errors"] = _torch_mh_legs.run_legs(
+        tdat, _torch_mh_legs.fault_legs(tdat, N, out_dir), "faults")
+    finish()
     sys.exit(0)
 
 
@@ -200,6 +223,7 @@ from distributedarrays_tpu_torch.ops import cuda_collectives  # noqa: E402
 
 res["ported"], res["meta"] = {}, {}
 for name, thunk in _torch_mh_legs.legs(tdat, N):
+    _torch_mh_legs.progress(f"ported/{name}")
     got, meta = _torch_mh_legs.summary(tdat, multihost.gather_global,
                                        thunk())
     res["ported"][name] = got
@@ -210,16 +234,12 @@ res["open_mappings"] = cuda_collectives.open_mappings()
 # --- sequence-parallel training across the processes ---------------------
 # (the flash and zigzag rings, tp_ffn, the SP model's steps); a leg that
 # raises is recorded, so the tests name the error, and the next leg runs
-# (an op that refuses its operands does so on every process, before its
-# first collective)
-res["errors"] = {}
-for name, thunk in _torch_mh_legs.train_legs(tdat, N):
-    try:
-        got, meta = _torch_mh_legs.summary(tdat, multihost.gather_global,
-                                           thunk())
-    except Exception as e:  # noqa: BLE001 — reported to the parent
-        res["errors"][name] = f"{type(e).__name__}: {e}"
-        continue
+# from the same state on every process (_torch_mh_legs.run_legs)
+trained, res["errors"] = _torch_mh_legs.run_legs(
+    tdat, _torch_mh_legs.train_legs(tdat, N), "train",
+    lambda thunk: _torch_mh_legs.summary(tdat, multihost.gather_global,
+                                         thunk()))
+for name, (got, meta) in trained.items():
     res["ported"][name] = got
     if meta:
         res["meta"][name] = meta
@@ -227,18 +247,19 @@ res["open_mappings"] = max(res["open_mappings"],
                            cuda_collectives.open_mappings())
 
 # --- the Trainer: a step that the straggler gate aborts, then recovers --
+_torch_mh_legs.progress("straggler")
 res["straggler"] = _torch_mh_legs.trainer_straggler(tdat, N, proc_id, nprocs)
 
 # --- the chunked store, the relayout's regions, the Trainer's recovery --
+_torch_mh_legs.progress("ckpt_chunks")
 res["ckpt_chunks"] = _torch_mh_legs.ckpt_chunks(tdat, N, out_dir)
+_torch_mh_legs.progress("ckpt_agreement")
 res["ckpt_agreement"] = _torch_mh_legs.ckpt_agreement(tdat, N, out_dir)
+_torch_mh_legs.progress("relayout_regions")
 res["relayout_regions"] = _torch_mh_legs.relayout_regions(tdat, N)
-res["recovery"] = {}
-for name, thunk in _torch_mh_legs.recovery_legs(tdat, N, out_dir):
-    try:
-        res["recovery"][name] = thunk()
-    except Exception as e:  # noqa: BLE001 — reported to the parent
-        res["errors"][name] = f"{type(e).__name__}: {e}"
+res["recovery"], errors = _torch_mh_legs.run_legs(
+    tdat, _torch_mh_legs.recovery_legs(tdat, N, out_dir), "recovery")
+res["errors"].update(errors)
 
 # --- checkpoint round trip ----------------------------------------------
 ck = np.random.default_rng(7).standard_normal((16, 4)).astype(np.float32)
@@ -298,8 +319,4 @@ telemetry.event("smoke", "after_barrier", process=proc_id)
 
 tdat.d_closeall()
 res["live_after_close"] = telemetry.memory.live_bytes()
-multihost.sync_hosts("done")
-multihost.shutdown()
-with open(os.path.join(out_dir, f"result_{proc_id}.pkl"), "wb") as f:
-    pickle.dump(res, f)
-print(f"MULTIHOST_OK proc={proc_id}", flush=True)
+finish()

@@ -199,3 +199,68 @@ def emulated_copies(calls):
                             src + i * sstr[0] + j * sstr[1] + k * sstr[2],
                             run_b)
     return run
+
+
+# a job of several child processes is hung when neither its store (which
+# the port's barriers and keyed exchanges write) nor any child's output
+# (a child prints a line at the start and the end of every leg,
+# _torch_mh_legs.progress, since gloo's own exchanges write neither) has
+# grown for JOB_STALL_S: twice the children's own store and gloo timeout,
+# past which a call that waits for a peer raises in the child.  JOB_CAP_S
+# bounds the job whatever it writes.
+JOB_STALL_S = 120
+JOB_CAP_S = 600
+
+
+def run_job(argvs, out_dir, env, store, stall_s: float = JOB_STALL_S,
+            cap_s: float = JOB_CAP_S) -> list:
+    """Run one child process a command of ``argvs`` until every one has
+    exited, each writing its output to ``out_dir/out_<i>.txt`` (a pipe
+    that nothing drains would block a child that writes much while the
+    others wait for it); ``[(returncode, output)]`` in order.  A job that
+    makes no progress (``store`` and the outputs unchanged for
+    ``stall_s``) or outlives ``cap_s`` is killed, and the test fails with
+    every child's output."""
+    import os
+    import subprocess
+    import time
+    paths = [os.path.join(out_dir, f"out_{i}.txt") for i in range(len(argvs))]
+    logs = [open(p, "w") for p in paths]
+    procs = [subprocess.Popen(argv, stdout=log, stderr=subprocess.STDOUT,
+                              env=env) for argv, log in zip(argvs, logs)]
+
+    def size(path):
+        try:
+            return os.path.getsize(path)
+        except OSError:
+            return -1
+    start = last = time.monotonic()
+    seen = None
+    why = None
+    try:
+        while any(p.poll() is None for p in procs):
+            now = time.monotonic()
+            sig = (size(store), *map(size, paths))
+            if sig != seen:
+                seen, last = sig, now
+            if now - last > stall_s:
+                why = f"made no progress for {stall_s} s"
+            elif now - start > cap_s:
+                why = f"ran past {cap_s} s"
+            if why:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    outs = [open(p, errors="replace").read() for p in paths]
+    if why:
+        pytest.fail(f"port multi-process children: the job {why}; "
+                    f"output: " + "\n".join(
+                        f"[process {i}] {out[-4000:]}"
+                        for i, out in enumerate(outs)))
+    return [(p.returncode, out) for p, out in zip(procs, outs)]

@@ -43,12 +43,11 @@ from distributedarrays_tpu_torch.telemetry import cluster as TCL
 
 import _torch_mh_legs as LEGS
 from _torch_port import (emulated_copies, jax_plan_cache,  # noqa: F401
-                         jax_process_state, port_ranks)
+                         jax_process_state, port_ranks, run_job)
 
 _CHILD = os.path.join(os.path.dirname(__file__), "_torch_multihost_child.py")
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STALE_S = 3.0
-JOB_TIMEOUT_S = 150
 _JOB_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
             "DA_TPU_DOMAINS", "DA_TPU_TELEMETRY", "DA_TPU_MH_INIT_TIMEOUT_S")
 
@@ -61,24 +60,14 @@ def _env() -> dict:
 
 def _run_job(out_dir, nprocs: int) -> list[dict]:
     store = os.path.join(out_dir, "store")
-    procs = [subprocess.Popen(
-        [sys.executable, _CHILD, store, str(i), str(nprocs), str(out_dir),
-         str(STALE_S)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=_env()) for i in range(nprocs)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=JOB_TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail(f"port multi-process children hung; output so far: "
-                    f"{outs}")
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode == 4 and "MULTIHOST_STARTUP_FAILED" in out:
+    done = run_job([[sys.executable, _CHILD, store, str(i), str(nprocs),
+                     str(out_dir), str(STALE_S)] for i in range(nprocs)],
+                   out_dir, _env(), store)
+    for i, (rc, out) in enumerate(done):
+        if rc == 4 and "MULTIHOST_STARTUP_FAILED" in out:
             pytest.fail(f"job formation failed (process {i}, bounded "
                         f"init timeout):\n{out}")
-        assert p.returncode == 0, f"process {i} failed:\n{out}"
+        assert rc == 0, f"process {i} failed:\n{out}"
         assert f"MULTIHOST_OK proc={i}" in out, out
     res = []
     for i in range(nprocs):
@@ -1317,17 +1306,11 @@ def test_job_skipped_ring_gemm_step_fails_within_the_store_timeout(
 def _skipped_call_raises(tmp_path, what: str) -> None:
     child = os.path.join(os.path.dirname(__file__), "_torch_mh_skip_child.py")
     store = str(tmp_path / "store")
-    procs = [subprocess.Popen(
-        [sys.executable, child, store, str(i), str(SKIP_TIMEOUT_S), what],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=_env()) for i in range(2)]
-    try:
-        outs = [p.communicate(timeout=JOB_TIMEOUT_S)[0] for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        pytest.fail("a process hung in a region call its peer skipped")
-    assert [p.returncode for p in procs] == [0, 0], outs
+    done = run_job([[sys.executable, child, store, str(i),
+                     str(SKIP_TIMEOUT_S), what] for i in range(2)],
+                   str(tmp_path), _env(), store)
+    outs = [out for _, out in done]
+    assert [rc for rc, _ in done] == [0, 0], outs
     line = [ln for ln in outs[0].splitlines()
             if ln.startswith("SKIPPED_EXCHANGE_")]
     assert line and line[0].startswith("SKIPPED_EXCHANGE_RAISED"), outs[0]
@@ -1693,6 +1676,44 @@ def _jobs(job2, job3):
     return {"job2": job2, "job3": job3}
 
 
+def _bits_equal(got, want) -> bool:
+    if isinstance(want, np.ndarray):
+        return isinstance(got, np.ndarray) and got.dtype == want.dtype and \
+            np.array_equal(got, want)
+    return got == want
+
+
+def _brief(v) -> str:
+    """A value in a line: an array's first elements with full digits."""
+    if isinstance(v, np.ndarray):
+        return np.array2string(v.ravel()[:3], precision=9) + \
+            ("..." if v.size > 3 else "")
+    return repr(v)
+
+
+def _fresh_recovery(n: int, tmp_path_factory) -> dict:
+    """``recovery_legs`` on ``n`` ranks in a fresh process: the value this
+    worker's reference is held against when a job's result differs from
+    it."""
+    out = tmp_path_factory.mktemp(f"fresh_recovery{n}")
+    prog = (
+        "import pickle, sys\n"
+        "import distributedarrays_tpu_torch as tdat\n"
+        "import _torch_mh_legs as LEGS\n"
+        f"tdat.init(nranks={n}, device='cpu')\n"
+        f"res = {{k: f() for k, f in LEGS.recovery_legs(tdat, {n}, "
+        f"{str(out)!r})}}\n"
+        f"pickle.dump(res, open({str(out / 'res.pkl')!r}, 'wb'))\n")
+    env = _env()
+    env["PYTHONPATH"] = os.path.dirname(__file__) + os.pathsep + \
+        env["PYTHONPATH"]
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    with open(out / "res.pkl", "rb") as f:
+        return pickle.load(f)
+
+
 @pytest.mark.parametrize("job", ["job2", "job3"])
 def test_job_chunked_checkpoint_written_by_owners(job, job2, job3,
                                                   tmp_path_factory):
@@ -1823,15 +1844,22 @@ def test_job_trainer_recovers_bit_equal_to_one_process(
     results = _jobs(job2, job3)[job]
     n = 4 * len(results)
     ref = _port_recovery(n, tmp_path_factory)[name]
-    for r in results:
-        assert name not in r["errors"], r["errors"][name]
+    for q, r in enumerate(results):
+        assert name not in r["errors"], \
+            f"{job} process {q}: {r['errors'][name]}"
         got = r["recovery"][name]
-        for key, want in ref.items():
-            if isinstance(want, np.ndarray):
-                assert got[key].dtype == want.dtype and \
-                    np.array_equal(got[key], want), (name, key)
-            else:
-                assert got[key] == want, (name, key, got[key], want)
+        moved = [key for key, want in ref.items()
+                 if not _bits_equal(got[key], want)]
+        if moved:
+            # which side moved: the job, or this worker's reference (held
+            # against the same legs in a fresh process)
+            fresh = _fresh_recovery(n, tmp_path_factory)[name]
+            side = "reference" if any(not _bits_equal(ref[k], fresh[k])
+                                      for k in moved) else "job"
+            k = moved[0]
+            pytest.fail(f"the {side} moved: {job} process {q} {moved}; "
+                        f"{k} job {_brief(got[k])} reference "
+                        f"{_brief(ref[k])} fresh {_brief(fresh[k])}")
     if name == "trainer_loss_replicas":
         assert ref["peer_restores"] == 1     # from buddy-rank memory
     if name == "trainer_process_down":

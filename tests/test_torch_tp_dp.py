@@ -14,7 +14,6 @@ with its ``tp_dp`` stage) is bit-equal to one process on 8 ranks."""
 import copy
 import os
 import pickle
-import subprocess
 import sys
 
 import jax
@@ -34,7 +33,8 @@ from distributedarrays_tpu_torch.models import tp_dp
 from distributedarrays_tpu_torch.models import transformer as TT
 
 import _torch_mh_legs as LEGS
-from _torch_port import jax_plan_cache, jax_process_state, port_ranks  # noqa: F401
+from _torch_port import (jax_plan_cache, jax_process_state,  # noqa: F401
+                         port_ranks, run_job)
 
 ATOL = 1e-5
 BF16_ULPS = 2
@@ -423,13 +423,12 @@ def test_job_of_two_processes_is_bit_equal_to_one(tmp_path):
     env = {k: v for k, v in os.environ.items()
            if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, _CHILD, str(tmp_path / "store"), str(i), "2",
-         str(tmp_path), "3.0", "tp_dp"], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, env=env) for i in range(2)]
-    outs = [p.communicate(timeout=240)[0] for p in procs]
-    for i, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and f"MULTIHOST_OK proc={i}" in out, out
+    store = str(tmp_path / "store")
+    done = run_job([[sys.executable, _CHILD, store, str(i), "2",
+                     str(tmp_path), "3.0", "tp_dp"] for i in range(2)],
+                   str(tmp_path), env, store)
+    for i, (rc, out) in enumerate(done):
+        assert rc == 0 and f"MULTIHOST_OK proc={i}" in out, out
     res = []
     for i in range(2):
         with open(tmp_path / f"result_{i}.pkl", "rb") as f:
