@@ -322,7 +322,12 @@
    - the GSPMD tp/dp layouts (``tp_dp_phase``; ``python3 chip_smoke.py
      --tp-dp`` alone): first C27-C29 on 4 ranks of the card (uint16 and
      uint32 operators, ``@``, extrema and scans, complex orderings and
-     running extrema, against numpy; ``dmap`` of bool * 3 is int32); then
+     running extrema, against numpy; ``dmap`` of bool * 3 is int32), and
+     C35-C38: seven user functions (``a + a``, ``a > 3``, ``abs(a)``,
+     ``a - 1``, ``a.imag``, ``a < 1j``, ``True - a``) at every entry point
+     that calls one, on uint16, uint32, bool and complex64 (and float32's
+     real-dtype cases), on 8 ranks of the card against 8 ranks of the CPU,
+     dtypes and values (``user_functions_on_card``); then
      the flagship at full width, ``Config(8192, 1024, 16, 8, 4, 2048,
      bf16)``, on ``make_mesh(4)`` (dp 2 x tp 2, 4 ranks of the card),
      tokens (4, 2049): three SGD ``train_step``s (lr 0.3) on
@@ -489,6 +494,7 @@ and holds K2, K3, K10 and K11 to phase 2's checks.
 
 ``python3 chip_smoke.py --surface`` builds the collective kernels alone
 and runs the reference surface phase of step 5; ``python3 chip_smoke.py
+--faults`` runs the tp/dp phase's fault checks alone; ``python3 chip_smoke.py
 --reshard-spmd`` and ``python3 chip_smoke.py --sort-fft-conv`` do the same
 for the reshard chain and SPMD phase and for the sort, FFT and conv
 phase.
@@ -4598,6 +4604,22 @@ def k3_k10_times(root: str | None = None) -> int:
     return 0
 
 
+def faults_only() -> int:
+    """``--faults``: build the collective kernels and run the faults phase
+    alone (``faults_on_card``, C35-C38's user functions among it)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import distributedarrays_tpu_torch as tdat
+    print(gpu_name())
+    t0 = time.perf_counter()
+    tdat.kbuild.build(["collectives"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    tdat.init(nranks=TP_DP_RANKS)
+    faults_on_card(tdat)
+    return 0
+
+
 def surface_only() -> int:
     """``--surface``: build the collective kernels and run the reference
     surface phase alone (``reference_surface``)."""
@@ -8158,7 +8180,7 @@ def faults_on_card(tdat) -> None:
     widened chunk, its result of the type the op gives the unwidened one)
     and complex orderings and running extrema (lexicographic), each
     against numpy on the same values; ``dmap``'s int64 result narrowed to
-    int32."""
+    int32.  Then C35-C38 (``user_functions_on_card``)."""
     rng = np.random.default_rng(3)
 
     def same(what, got, want):
@@ -8230,6 +8252,119 @@ def faults_on_card(tdat) -> None:
     print("  C27-C29 and C33 on the card: uint16/uint32 operators, @, "
           "extrema, scans, dmap, dcount and dnnz, complex orderings and "
           "running extrema, dmap's int32: as numpy")
+    user_functions_on_card(tdat, TP_DP_RANKS)
+
+
+# C35-C38: a function the user passes in, at every entry point that calls
+# one, on the dtypes where torch refuses ops that JAX answers (the
+# ``repaired`` cases of tests/test_torch_faults_c35_c37.py)
+UF_FNS = {
+    "add": lambda a: a + a,
+    "gt3": lambda a: a > 3,
+    "abs": lambda a: abs(a),
+    "sub1": lambda a: a - 1,
+    "imag": lambda a: a.imag,
+    "lt1j": lambda a: a < 1j,
+    "rsubtrue": lambda a: True - a,
+}
+UF_LAYOUTS = {"37x11": ((37, 11), {}),
+              "6x5x7_2x2x2": ((6, 5, 7), {"procs": list(range(8)),
+                                           "dist": (2, 2, 2)})}
+# every function on uint16, uint32, bool and complex64 but ``True - b``
+# (JAX refuses it too), and the real-dtype cases on float32
+UF_CASES = [(dt, fn) for dt in ("uint16", "uint32", "bool", "complex64")
+            for fn in UF_FNS if (dt, fn) != ("bool", "rsubtrue")] + \
+    [("float32", fn) for fn in ("gt3", "imag", "lt1j", "rsubtrue")]
+
+
+def uf_entries(tdat) -> dict:
+    import operator
+    return {
+        "dmap": lambda f, d, z: tdat.dmap(f, d),
+        "dmap_into": lambda f, d, z: tdat.dmap_into(f, z, d),
+        "map_localparts": lambda f, d, z: tdat.map_localparts(f, d),
+        "map_localparts_into":
+            lambda f, d, z: tdat.map_localparts_into(f, z, d),
+        "mapslices": lambda f, d, z: tdat.mapslices(f, d, 1),
+        "ppeval": lambda f, d, z: tdat.ppeval(f, d),
+        "dmapreduce_sum": lambda f, d, z: tdat.dmapreduce(f, "sum", d),
+        "dmapreduce_max0":
+            lambda f, d, z: tdat.dmapreduce(f, "max", d, dims=0),
+        "dreduce_add":
+            lambda f, d, z: tdat.dmapreduce(f, operator.add, d),
+        "dcount": lambda f, d, z: tdat.dcount(f, d),
+        "djit": lambda f, d, z: tdat.djit(f)(d),
+    }
+
+
+def uf_inputs(dtype: str, shape) -> np.ndarray:
+    """The test's seeded values (ties for the orderings, wrapping
+    integers)."""
+    rng = np.random.default_rng(7)
+    if dtype == "bool":
+        return rng.integers(0, 2, shape).astype(bool)
+    if dtype == "complex64":
+        re = rng.integers(-4, 5, shape) + 0.5 * rng.integers(0, 2, shape)
+        im = rng.integers(-2, 3, shape).astype(np.float64)
+        return (re + 1j * im).astype(np.complex64)
+    if dtype == "float32":
+        return (rng.integers(-16, 17, shape) / 2).astype(np.float32)
+    info = np.iinfo(dtype)
+    a = rng.integers(info.min, info.max, shape, dtype=np.int64,
+                     endpoint=True).astype(dtype)
+    flat = a.reshape(-1)
+    flat[::7], flat[3::11], flat[5::13] = 0, 3, info.max
+    return a
+
+
+def uf_results(tdat, device) -> dict:
+    """Each case's result on 8 ranks of ``device`` (None: the card) as
+    ``(dtype name, values on the host)``, or ``("raise", message)``."""
+    tdat.init(nranks=8, device=device)
+    entries, out = uf_entries(tdat), {}
+    for layout, (shape, kw) in UF_LAYOUTS.items():
+        for dt, fn in UF_CASES:
+            a = uf_inputs(dt, shape)
+            for entry, call in entries.items():
+                try:
+                    r = call(UF_FNS[fn], tdat.distribute(a, **kw),
+                             tdat.distribute(np.zeros_like(a), **kw))
+                    r = r.full() if isinstance(r, tdat.DArray) else r
+                    r = (str(r.dtype), r.cpu())
+                except Exception as e:  # noqa: BLE001 — reported below
+                    r = ("raise", f"{type(e).__name__}: {e}")
+                out[(layout, dt, fn, entry)] = r
+                tdat.d_closeall()
+    return out
+
+
+def user_functions_on_card(tdat, nranks: int) -> None:
+    """C35-C38 on the card: every case of ``UF_CASES`` at every entry
+    point, on 8 ranks of the card and then of the CPU; the card's result
+    must have the CPU's dtype and values (floats to rtol 2e-3 and atol
+    1e-3, the sums' orders differ; the rest exactly), and neither may
+    raise.  The rank table is ``nranks`` ranks of the card after."""
+    t0 = time.perf_counter()
+    card = uf_results(tdat, None)
+    cpu = uf_results(tdat, "cpu")
+    tdat.init(nranks=nranks)
+    bad = []
+    for case, (gdt, g) in card.items():
+        wdt, w = cpu[case]
+        if "raise" in (gdt, wdt):
+            bad.append(f"{case}: card {g if gdt == 'raise' else 'ok'}, "
+                       f"CPU {w if wdt == 'raise' else 'ok'}")
+        elif gdt != wdt or g.shape != w.shape or not (
+                torch.allclose(g, w, rtol=2e-3, atol=1e-3)
+                if g.is_floating_point() or g.is_complex()
+                else torch.equal(g, w)):
+            bad.append(f"{case}: card {gdt} differs from CPU {wdt}")
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(card)} user-function "
+                             f"cases on the card: " + "; ".join(bad[:20]))
+    print(f"  C35-C38 on the card: {len(card)} user-function cases "
+          f"(uint16, uint32, bool, complex64; float32's imag, < 1j, "
+          f"True - x) as on the CPU, {time.perf_counter() - t0:.1f} s")
 
 
 # the device symbols of K10's and K12's kernels alone (``KERNEL_SYMBOLS``'
@@ -9055,6 +9190,7 @@ if __name__ == "__main__":
              if sys.argv[1:2] == ["--time-k3-k10"]
              else k3_k10_only() if sys.argv[1:] == ["--k3-k10"]
              else surface_only() if sys.argv[1:] == ["--surface"]
+             else faults_only() if sys.argv[1:] == ["--faults"]
              else reshard_spmd_only() if sys.argv[1:] == ["--reshard-spmd"]
              else sort_fft_conv_only() if sys.argv[1:] == ["--sort-fft-conv"]
              else solvers_only() if sys.argv[1:] == ["--solvers"]

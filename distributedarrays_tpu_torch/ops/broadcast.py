@@ -9,7 +9,13 @@ aligned to it through ``parallel.reshard``; numpy arrays, tensors and
 DArrays of a smaller (broadcast) shape are sliced per chunk under numpy's
 broadcasting rules; scalars stay scalars.
 
-The function sees torch tensors: ``dmap(torch.sin, A)``.  Broadcast and
+The function sees torch tensors: ``dmap(torch.sin, A)``.  It runs with
+JAX's semantics where torch refuses a dtype (``call_user``, which every
+entry point that calls a user function goes through): uint16/uint32 ops
+wrap as JAX's, complex orderings are lexicographic, ``abs`` and
+subtraction of bools and ``x.imag`` of a real ``x`` answer as in JAX;
+the complex orderings of the operators come from the same layer.
+Broadcast and
 reductions have no hand-written kernel in the JAX package (XLA fuses
 them), so they stay plain torch ops here.
 
@@ -45,6 +51,7 @@ does, so integer powers wrap.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import numbers
 import operator
@@ -52,6 +59,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -138,8 +146,8 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
     if template is None:  # dalint: disable=DAL010 — template (the first DArray argument) is the same on every process
         if not dims:
             # 0-d result from 0-d/scalar arguments: one plain call
-            return fn(*[as_tensor(a) if not isinstance(a, _SCALARS) else a
-                        for a in args])
+            return call_user(fn, *[as_tensor(a) if not isinstance(
+                a, _SCALARS) else a for a in args])
         dims, pids, cuts = resolve_layout(dims)
     else:
         pids, cuts = template.pids, template.cuts
@@ -152,7 +160,7 @@ def elementwise(fn: Callable, *args, out: DArray | None = None):
         pieces = [g(ci, dev, bounds) for g in getters]
         inputs.update(_storage(t) for t in pieces
                       if isinstance(t, torch.Tensor))
-        r = call_widened(fn, *pieces)
+        r = call_user(fn, *pieces)
         if not isinstance(r, torch.Tensor):
             r = torch.as_tensor(r, device=dev)
         want = canon_dtype(r.dtype)
@@ -231,7 +239,7 @@ def djit(fn: Callable) -> Callable:
                     return DArray(_scatter(r, a.pids, a.cuts),
                                   a.pids.copy(), a.cuts)
             return from_global(r)
-        res = fn(*raw, **kwargs)
+        res = call_user(fn, *raw, **kwargs)
         if isinstance(res, (tuple, list)):
             return type(res)(wrap(r) for r in res)
         if isinstance(res, dict):
@@ -358,54 +366,17 @@ _NUMERIC_OPS = ("floordiv", "mod", "lshift", "rshift")
 # few kernels for them (on the CPU add, the orderings and abs raise)
 _WIDE = {torch.uint16: torch.int32, torch.uint32: torch.int64}
 
+# the dtypes on which torch refuses ops that JAX answers: uint16 and
+# uint32 (few kernels), bool (no abs, no subtraction) and complex (no
+# ordering)
+_SPECIAL = (torch.uint16, torch.uint32, torch.bool, torch.complex64,
+            torch.complex128)
 
-class _Widen(TorchDispatchMode):
-    """Each ATen op on a uint16 or uint32 tensor runs on its operands in
-    the wider signed type (``_WIDE``), and each tensor result is cast to
-    the dtype that the op gives the operands as they are (its ``meta``
-    kernel, which computes no values): an integer result wraps after
-    every op, as JAX's arithmetic does.  Views and ops that write their
-    operands run as they are."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func.is_view or func._schema.is_mutable or not any(
-                _narrow(x) for x in pytree.tree_leaves((args, kwargs))):
-            return func(*args, **kwargs)
-
-        def run(cast):
-            return func(*pytree.tree_map(cast, args),
-                        **pytree.tree_map(cast, kwargs))
-        got = run(lambda x: x.to(_WIDE[x.dtype]) if _narrow(x) else x)
-        try:
-            want = pytree.tree_leaves(run(
-                lambda x: x.to("meta") if isinstance(x, torch.Tensor)
-                else x))
-        except (NotImplementedError, RuntimeError):
-            # no meta kernel (``item``): the values as they came
-            return got
-        leaves, spec = pytree.tree_flatten(got)
-        return pytree.tree_unflatten(
-            [g.to(w.dtype) if isinstance(g, torch.Tensor) and
-             isinstance(w, torch.Tensor) and g.dtype != w.dtype else g
-             for g, w in zip(leaves, want)], spec)
-
-
-def _narrow(x) -> bool:
-    return isinstance(x, torch.Tensor) and x.dtype in _WIDE and \
-        x.device.type != "meta"
-
-
-def call_widened(fn: Callable, *xs):
-    """``fn(*xs)``; where a uint16 or uint32 tensor is among ``xs``
-    (torch adds, orders and counts neither), under ``_Widen``: ``x + x``
-    comes back uint16, wrapped, ``x > 1`` bool, ``x.to(torch.int32)``
-    int32 and ``x * 0.5`` float32, the types JAX gives, and every
-    intermediate integer result wraps as JAX's does."""
-    if not any(_narrow(x) for x in xs):
-        return fn(*xs)
-    with _Widen():
-        return fn(*xs)
+# torch's refusals of a dtype, which a function of another dtype meets
+# only through a scalar or a property: ``x < 1j`` ("lt_cpu" not
+# implemented for 'ComplexFloat'), ``True - x``, ``x.imag`` of a real x
+_REFUSALS = ("not implemented for '", "with a bool tensor is not supported",
+             "imag is not implemented for tensors with non-complex dtypes")
 
 
 def _lex_compare(name: str) -> Callable:
@@ -426,6 +397,164 @@ def _lex_compare(name: str) -> Callable:
     return cmp
 
 
+def _is_complex(x) -> bool:
+    return x.is_complex() if isinstance(x, torch.Tensor) else \
+        isinstance(x, complex)
+
+
+def _cast_all(xs, dt: torch.dtype) -> list:
+    """Tensors cast to ``dt``, Python scalars converted as JAX converts
+    them (``_scalar_as``); other arguments as they are."""
+    return [x.to(dt) if isinstance(x, torch.Tensor) else
+            _scalar_as(x, dt) if isinstance(x, (bool, int, float, complex))
+            else x for x in xs]
+
+
+def _ordering(func, args, kwargs):
+    """``<``, ``<=``, ``>``, ``>=`` with a complex operand (a real tensor
+    against a complex scalar too): both in JAX's promoted type, in the
+    lexicographic order."""
+    if not any(_is_complex(x) for x in args[:2]):
+        return NotImplemented
+    a, b = _cast_all(args[:2], result_dtype(*args[:2]))
+    return _lex_compare(func.overloadpacket.__name__)(a, b)
+
+
+def _extreme(func, args, kwargs):
+    """``torch.maximum``/``minimum`` of complex tensors: the larger or
+    smaller in the lexicographic order, as ``jnp.maximum``/``minimum``."""
+    if not any(_is_complex(x) for x in args[:2]):
+        return NotImplemented
+    a, b = _cast_all(args[:2], result_dtype(*args[:2]))
+    first = _lex_compare(
+        "ge" if func.overloadpacket.__name__ == "maximum" else "le")(a, b)
+    return torch.where(first, a, b)
+
+
+def _abs_bool(func, args, kwargs):
+    # abs of a bool is the bool, as in JAX (torch has no bool abs)
+    x = args[0]
+    return x.clone() if x.dtype == torch.bool else NotImplemented
+
+
+def _subtract(func, args, kwargs):
+    """A subtraction with a bool operand (a Python bool too) in JAX's
+    result type: ``b - 1`` int32, ``True - x`` of a float32 ``x`` float32.
+    Two bools stay refused, as JAX refuses them; the subtraction in the
+    promoted type runs under the mode again (a uint16 one widened)."""
+    if not any(isinstance(x, bool) or isinstance(x, torch.Tensor) and
+               x.dtype == torch.bool for x in args[:2]):
+        return NotImplemented
+    dt = result_dtype(*args[:2])
+    if dt == torch.bool:
+        return NotImplemented
+    with _JaxOps():
+        return func(*_cast_all(args[:2], dt), *args[2:], **kwargs)
+
+
+_aten = torch.ops.aten
+_RULES = {_aten.gt: _ordering, _aten.lt: _ordering, _aten.ge: _ordering,
+          _aten.le: _ordering, _aten.maximum: _extreme,
+          _aten.minimum: _extreme, _aten.abs: _abs_bool, _aten.sub: _subtract,
+          _aten.rsub: _subtract}
+
+
+class _JaxOps(TorchDispatchMode):
+    """Each ATen op gives the result JAX's op gives where torch refuses
+    the dtype:
+
+    - an op on a uint16 or uint32 tensor runs on its operands in the
+      wider signed type (``_WIDE``), and each tensor result is cast to
+      the dtype that the op gives the operands as they are (its ``meta``
+      kernel, which computes no values): an integer result wraps after
+      every op, as JAX's arithmetic does;
+    - the orderings and ``maximum``/``minimum`` with a complex operand
+      take the lexicographic order, ``abs`` of a bool is the bool, and a
+      subtraction with a bool operand takes JAX's result type
+      (``_RULES``).
+
+    Views and ops that write their operands run as they are."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.is_view or func._schema.is_mutable:
+            return func(*args, **kwargs)
+        rule = _RULES.get(func.overloadpacket)
+        if rule is not None:
+            r = rule(func, args, kwargs)
+            if r is not NotImplemented:
+                return r
+        if not any(_narrow(x) for x in pytree.tree_leaves((args, kwargs))):
+            return func(*args, **kwargs)
+
+        def run(cast):
+            return func(*pytree.tree_map(cast, args),
+                        **pytree.tree_map(cast, kwargs))
+        got = run(lambda x: x.to(_WIDE[x.dtype]) if _narrow(x) else x)
+        try:
+            want = pytree.tree_leaves(run(
+                lambda x: x.to("meta") if isinstance(x, torch.Tensor)
+                else x))
+        except (NotImplementedError, RuntimeError):
+            # no meta kernel (``item``): the values as they came
+            return got
+        leaves, spec = pytree.tree_flatten(got)
+        return pytree.tree_unflatten(
+            [g.to(w.dtype) if isinstance(g, torch.Tensor) and
+             isinstance(w, torch.Tensor) and g.dtype != w.dtype else g
+             for g, w in zip(leaves, want)], spec)
+
+
+_IMAG = (torch.imag, torch.Tensor.imag.__get__)
+
+
+class _ImagOfReal(TorchFunctionMode):
+    """``x.imag`` of a real tensor is zeros of its dtype, as JAX's; torch
+    refuses it before any ATen op runs, so it takes a function mode."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in _IMAG and not args[0].is_complex():
+            return torch.zeros_like(args[0])
+        return func(*args, **(kwargs or {}))
+
+
+def _narrow(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.dtype in _WIDE and \
+        x.device.type != "meta"
+
+
+def _special(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.dtype in _SPECIAL
+
+
+@contextlib.contextmanager
+def _jax_ops():
+    with _ImagOfReal(), _JaxOps():
+        yield
+
+
+def call_user(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a function the user passed in, with JAX's
+    semantics where torch refuses a dtype (``_JaxOps``, ``_ImagOfReal``):
+    ``x + x`` of a uint16 tensor comes back uint16, wrapped, ``x > 0`` of
+    a complex one in the lexicographic order, ``abs(b)`` of a bool the
+    bool, ``x.imag`` of a real one zeros.  The modes are entered when a
+    uint16, uint32, bool or complex tensor is among the arguments;
+    otherwise ``fn`` runs plainly, and only where torch refuses a dtype
+    inside it (``x < 1j``, ``True - x``, ``x.imag``) once more under
+    them, as JAX traces ``fn`` too."""
+    if any(map(_special, args)) or any(map(_special, kwargs.values())):
+        with _jax_ops():
+            return fn(*args, **kwargs)
+    try:
+        return fn(*args, **kwargs)
+    except (NotImplementedError, RuntimeError) as e:
+        if not any(r in str(e) for r in _REFUSALS):
+            raise
+    with _jax_ops():
+        return fn(*args, **kwargs)
+
+
 def promote(name: str, fn: Callable, args: tuple):
     """``(fn', args')``: the operator ``name`` (a key of ``_BINOPS`` or
     ``_COMPARE``) applied as JAX applies it: tensors cast to the promoted
@@ -442,8 +571,6 @@ def promote(name: str, fn: Callable, args: tuple):
     args = tuple(_scalar_as(a, dt) if isinstance(a, (bool, int, float,
                                                      complex)) else a
                  for a in args)
-    if name in _COMPARE and dt.is_complex:
-        fn = _lex_compare(name)
 
     def cast(x):
         return x.to(dt) if isinstance(x, torch.Tensor) else x
@@ -516,11 +643,6 @@ def _pos(x):
     return x.clone()
 
 
-def _abs(x):
-    # abs of a bool is the bool, as in JAX (torch has no bool abs)
-    return x if x.dtype == torch.bool else operator.abs(x)
-
-
 # the operator module's functions accept a Python scalar on either side
 _BINOPS = {
     "add": operator.add, "sub": operator.sub, "mul": operator.mul,
@@ -542,5 +664,5 @@ for _cls in (DArray, SubDArray):
     _cls.__ne__ = _not_equal
     _cls.__neg__ = _unop(operator.neg)
     _cls.__pos__ = _unop(_pos)
-    _cls.__abs__ = _unop(_abs)
+    _cls.__abs__ = _unop(operator.abs)
     _cls.__invert__ = _unop(operator.invert)

@@ -63,7 +63,7 @@ from .. import telemetry as _tm
 from ..darray import _scatter
 from ..layout import all_ranks, defaultdist, defaultdist_1d, device_of
 from ..parallel.reshard import relayout, relayout_parts
-from .broadcast import _WIDE, _arg_shape, call_widened
+from .broadcast import _WIDE, _arg_shape, call_user
 
 __all__ = [
     "dreduce", "dmapreduce", "dsum", "dprod", "dmaximum", "dminimum",
@@ -350,7 +350,7 @@ def _reduce(d, mapper, reducer: _Reducer, dims):
 
         def local(x, red):
             nonlocal dtype
-            x = mapper(x) if mapper is not None else x
+            x = call_user(mapper, x) if mapper is not None else x
             dtype = x.dtype
             return reducer.local(x, red)
         return _two_phase(d, axes, local, reducer.merge,
@@ -403,7 +403,7 @@ def _binary_reduce(d, mapper, op, dims):
         if int(np.prod([d.dims[a] for a in red])) == 0:
             raise ValueError("reduce of empty DArray with no init value")
 
-        def local(x, red):
+        def fold(x, red):
             x = mapper(x) if mapper is not None else x
             keep = tuple(i for i in range(x.ndim) if i not in red)
             v = x.permute(red + keep).reshape(
@@ -412,7 +412,10 @@ def _binary_reduce(d, mapper, op, dims):
             for a in red:
                 r = r.unsqueeze(a)
             return r
-        return _two_phase(d, axes, local, op, lambda s: s,
+        # the map, the local fold and the merge of partials run ``op`` as
+        # JAX's does (``call_user``)
+        return _two_phase(d, axes, lambda x, red: call_user(fold, x, red),
+                          lambda a, b: call_user(op, a, b), lambda s: s,
                           lambda s, dev: s.to(dev))
     finally:
         if tmp:
@@ -489,10 +492,10 @@ def dstd(d, dims=None, ddof=1):
 
 def dcount(pred: Callable, d, dims=None):
     """The number of elements where ``pred`` holds, int32 (JAX
-    ``ops/mapreduce.py:283``); ``pred`` sees a uint16 or uint32 chunk as
-    ``dmap``'s function does (``call_widened``)."""
-    return _reduce(d, lambda a: call_widened(pred, a).to(torch.int32),
-                   _Reducer("sum"), dims)
+    ``ops/mapreduce.py:283``); ``pred`` runs as ``dmap``'s function does
+    (``call_user``)."""
+    return _reduce(d, lambda a: pred(a).to(torch.int32), _Reducer("sum"),
+                   dims)
 
 
 def _moved(tmp: DArray, pids, cuts) -> DArray:
@@ -680,18 +683,23 @@ def map_localparts(f: Callable, *ds, procs=None) -> DArray:
     out = np.empty(d0.grid, dtype=object)
     for ci in d0.cells():
         args = [a if p is None else p[ci] for a, p in zip(ds, pieces)]
-        out[ci] = _own(f(*args), args, device_of(int(d0.pids[ci])))
+        out[ci] = _own(call_user(f, *args), args,
+                       device_of(int(d0.pids[ci])))
     return _assemble(out, d0.pids.copy())
 
 
 def map_localparts_into(f: Callable, dest: DArray, *ds) -> DArray:
     """``map_localparts`` written into ``dest`` in place (JAX
-    ``ops/mapreduce.py:525``)."""
+    ``ops/mapreduce.py:525``): ``dest`` keeps its layout and takes the
+    result's dtype, as JAX's ``dest._rebind``."""
     res = map_localparts(f, *ds)
     try:
-        copyto_(dest, res)
+        if res.dtype == dest.dtype:
+            return copyto_(dest, res)
+        parts = relayout_parts(res, dest.pids, dest.cuts)
     finally:
         res.close()
+    dest._rebind(parts)
     return dest
 
 
@@ -733,7 +741,8 @@ def _slices(f: Callable, x: torch.Tensor, batch: tuple, dims: tuple):
     nb = int(np.prod(bshape))
     flat = xt.reshape((nb,) + sshape)
     # an empty chunk still needs f's output shape: map one zero slice
-    res = torch.func.vmap(f)(flat if nb else flat.new_zeros((1,) + sshape))
+    res = call_user(torch.func.vmap(f),
+                    flat if nb else flat.new_zeros((1,) + sshape))
     if res.ndim - 1 != len(dims):
         raise ValueError(
             f"mapslices: f must keep the slice rank ({len(dims)}), got "
@@ -811,7 +820,7 @@ def ppeval(f: Callable, *ds, dim: int | None = None) -> DArray:
     out = None
     for k in range(p):
         args = [pc[k] for pc in pieces]
-        r = _own(run(*args), args, device_of(procs[k]))
+        r = _own(call_user(run, *args), args, device_of(procs[k]))
         if out is None:
             out = np.empty((1,) * (r.ndim - 1) + (p,), dtype=object)
         out[(0,) * (r.ndim - 1) + (k,)] = r
